@@ -1,0 +1,1033 @@
+"""Serving scheduler: FIFO admission, deadlines, shedding, slot churn.
+
+(Host-pure Python: a copy of ddp_practice_tpu/serve/scheduler.py with its
+imports pointed at the port's engine and trace lanes.)
+
+Policy layer over the SlotEngine mechanism. One `step()` is one
+scheduler tick:
+
+1. expire queued requests whose deadline already passed (they would
+   burn prefill FLOPs to produce tokens nobody is waiting for);
+2. admit from the FIFO queue into free slots — prefill interleaves with
+   the running decode batch at slot granularity, the continuous-batching
+   move (a request admitted at tick t decodes its first token at tick
+   t together with every running request's next token);
+3. run one batched decode step, hand each active request its token, and
+   release slots on EOS / length cap / deadline.
+
+Admission control is two-tier: `submit()` SHEDS when the bounded queue
+is full (backpressure at the door — the overload answer for "heavy
+traffic from millions of users" is a fast no, not an unbounded queue),
+and the admit loop asks the ENGINE's `admit_gate` for everything
+memory-shaped: "never" (prompt outgrows every bucket — after any
+prefix-cache match — or the request can never fit even an empty pool)
+is a fast reject, "later" waits for memory. Memory policy lives behind
+that gate — the slot engine answers from its shared-cursor headroom
+and frees positions only via `make_room` (drain + epoch rewind,
+kv_slots.py); the paged engine answers from free + prefix-cache-
+evictable blocks (kv_pages.py), which release per-request, age out of
+the radix cache (its make_room), or are taken back by BLOCK-AWARE
+PREEMPTION. This file carries no epoch logic at all — but it does own
+the preemption POLICY: when the engine evicts a slot (mid-decode
+growth exhaustion, `take_preempted`) or the admit loop evicts one for
+a blocked older request (`_preempt_victim_for` — only ever a
+strictly-younger arrival, so readmission cascades terminate), the
+victim's request re-queues at the front and re-prefills
+prompt+tokens-so-far; `_resume` folds the pre-eviction tokens back
+into the one completion the client sees.
+
+Time is injected: the real server uses the monotonic clock, tests use
+`FakeClock` (a fixed virtual step per engine tick), so a 20-request
+trace with deadlines replays bit-for-bit deterministically on CPU.
+
+Observability rides the same injected clock: an optional TraceRecorder
+(utils/trace.py) gets per-request "queued"/"request" lifecycle spans and
+shed/timeout/error instants from here (the engines record their own
+prefill/decode-burst lane spans), and every Completion carries a flight
+record — queue_s / prefill_s / decode_s / stall_s — computed from the
+admission timestamps whether or not a tracer is attached. `tracer=None`
+(the default) costs one `is not None` test per lifecycle edge.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import deque
+from typing import Deque, Dict, List, Optional, Sequence
+
+from ddp_practice_tpu_torch.serve.engine import SlotEngine
+from ddp_practice_tpu_torch.utils.trace import ENGINE_LANE
+
+
+class MonotonicClock:
+    """Wall time; `tick()` is a no-op (real time advances by itself)."""
+
+    def now(self) -> float:
+        return time.monotonic()
+
+    def tick(self) -> None:
+        pass
+
+
+class FakeClock:
+    """Deterministic virtual time: one engine step = `step_s` seconds."""
+
+    def __init__(self, start: float = 0.0, step_s: float = 0.01) -> None:
+        self._now = start
+        self.step_s = step_s
+
+    def now(self) -> float:
+        return self._now
+
+    def advance(self, dt: float) -> None:
+        self._now += dt
+
+    def tick(self) -> None:
+        self._now += self.step_s
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: Sequence[int]
+    max_new_tokens: int = 32
+    # absolute deadline (clock domain); None = no deadline. Expired in
+    # queue -> timeout without prefill; expired while running -> early
+    # release with the tokens produced so far.
+    deadline: Optional[float] = None
+    seed: int = 0
+    # stamped by submit() when None; pre-set it (clock domain) when the
+    # TRUE arrival predates the submit call — e.g. the bench replays a
+    # trace and may poll arrivals a tick late; latency must not quietly
+    # exclude that wait
+    arrival: Optional[float] = None
+    # priority class: 0 = interactive (never brown-out shed), larger =
+    # more sheddable. The single-replica scheduler serves FIFO regardless
+    # — priority is the ROUTER's degradation signal (serve/router.py
+    # sheds priority >= its threshold while browned out).
+    priority: int = 0
+    # stable id linking every span this request produces — across retry
+    # and failover re-admissions (the router stamps it once and passes
+    # it through to sub-requests, so a crash-migrated request renders as
+    # ONE timeline). Stamped "r{rid}" by submit() when None.
+    trace_id: Optional[str] = None
+    # the head-sampling decision for trace_id (Dapper coherence: decided
+    # ONCE at router/scheduler admission, propagated through the RPC
+    # seam so a worker never re-rolls it). None = undecided — stamped by
+    # submit() from the tracer's sampler; stays None when sampling is
+    # off (everything records, the pre-sampling behavior).
+    sampled: Optional[bool] = None
+    # tenant id — rides like trace_id across every seam (router, RPC,
+    # worker, completion, flight record). It is the per-tenant sampling
+    # key (TraceSampler.tenant_rates overrides) and the tenant= metric
+    # label (behind the labelled() cardinality guard). None = untenanted
+    # (single-tenant deployments pay nothing).
+    tenant: Optional[str] = None
+    # when submit() actually ran (clock domain; stamped by submit) —
+    # flight records measure in-queue wait from here. `arrival` may
+    # predate it (trace replays poll late; failover re-admissions keep
+    # the ORIGINAL arrival): that earlier wait lands in stall_s, not
+    # queue_s, so per-replica queue time stays honest under retries.
+    submitted: Optional[float] = None
+    # per-request sampling overrides (None = the engine config's
+    # value). Carried across every seam like trace_id/tenant — requeue,
+    # failover, RPC — and handed to the engine at admit; engines
+    # without EngineConfig.per_slot_sampling REJECT overrides rather
+    # than silently sampling at the wrong params.
+    temperature: Optional[float] = None
+    top_k: Optional[int] = None
+    top_p: Optional[float] = None
+
+
+@dataclasses.dataclass
+class TokenChunk:
+    """One decode burst's tokens for one request — the streaming unit.
+
+    Chunks are the scheduler's append-only side channel next to
+    `completions`: consumers read them through a watermark (the same
+    consume-once contract), the worker ships them inside its `pub`
+    push frames (atomically with the inflight salvage point, so a
+    dropped frame loses both together and the router's resume cursor
+    can never run ahead of the chunks it suppresses against), and the
+    router splices them into per-request TokenStreams.
+
+    `seq` is contiguous per rid WITHIN this scheduler (attempt-local
+    ordering, transport dedup); `start` is the rid-global offset of
+    `tokens[0]` counting any in-scheduler preemption prefix — the
+    router adds its dispatch base on top, so a chunk's tokens have an
+    absolute position in the client's output and re-decoded salvage
+    after failover dedups by offset, not by guesswork. Exactly one
+    chunk per completion carries `final=True` + the terminal status —
+    the stream's end marker."""
+
+    rid: int
+    trace_id: Optional[str]
+    seq: int
+    start: int
+    tokens: List[int]
+    t: float
+    final: bool = False
+    status: Optional[str] = None
+
+    def to_dict(self) -> dict:
+        return {
+            "rid": self.rid, "trace_id": self.trace_id,
+            "seq": self.seq, "start": self.start,
+            "tokens": list(self.tokens), "t": self.t,
+            "final": self.final, "status": self.status,
+        }
+
+
+@dataclasses.dataclass
+class Completion:
+    rid: int
+    tokens: List[int]
+    # "eos" | "length" | "timeout" | "shed" | "rejected" | "error"
+    # ("error" = non-finite logits or an injected/transient engine
+    # failure: the tokens already produced are VALID — they were sampled
+    # from finite logits — so a router can re-admit prompt+tokens)
+    status: str
+    arrival: float
+    finish: float
+    ttft: Optional[float] = None   # arrival -> first generated token
+    tpot: Optional[float] = None   # mean inter-token latency after the first
+    # flight record: where this request's latency went —
+    # {queue_s, prefill_s, decode_s, stall_s, retries, failovers}.
+    # The scheduler fills the phase keys (retries/failovers stay 0);
+    # the router re-derives them summed across attempts (router.py).
+    flight: Optional[dict] = None
+    # the request's trace_id, carried onto the completion so metric
+    # exemplars (utils/metrics.py) and telemetry flight lines can point
+    # BACK into the trace timeline — a p99 bucket names the offender
+    trace_id: Optional[str] = None
+    # whether trace_id actually made it into the timeline (head-sampled
+    # or tail-kept). False = suppressed by sampling: exemplars must NOT
+    # cite it — an exemplar pointing at a suppressed trace is a dead
+    # link. True whenever sampling is off.
+    trace_sampled: bool = True
+    # the request's tenant, carried through so per-tenant metrics and
+    # telemetry flight lines can attribute the completion
+    tenant: Optional[str] = None
+
+
+def _attempt_phases(req: Request, now: float,
+                    admitted: Optional[tuple]) -> dict:
+    """One attempt's flight-record phases up to the `now` edge.
+
+    The single source of the phase arithmetic — `_finish` (completed
+    attempts) and `evacuate` (crash-harvested attempts) must agree, or
+    the router's merged stall_s residual silently skews. queue_s runs
+    from submit (see Request.submitted); `admitted` is the
+    (admit_t0, admit_t1) window, None while still queued.
+    """
+    sub = req.submitted if req.submitted is not None else req.arrival
+    if admitted is None:
+        return {"queue_s": max(0.0, now - sub),
+                "prefill_s": 0.0, "decode_s": 0.0}
+    a0, a1 = admitted
+    return {"queue_s": max(0.0, a0 - sub),
+            "prefill_s": a1 - a0, "decode_s": now - a1}
+
+
+@dataclasses.dataclass
+class _Running:
+    req: Request
+    slot: int
+    tokens: List[int] = dataclasses.field(default_factory=list)
+    first_token_time: Optional[float] = None
+    # admission window (clock domain): prefill_s = admit_t1 - admit_t0,
+    # decode_s runs from admit_t1 to the finish edge
+    admit_t0: float = 0.0
+    admit_t1: float = 0.0
+    # admission order — the block-aware preemption victim key (youngest
+    # admitted evicts first, vLLM-style LIFO)
+    seq: int = 0
+    # streaming state: rid-global offset where THIS attempt's tokens
+    # start (= the in-scheduler preemption prefix length at admit), and
+    # how many of st.tokens have already left as TokenChunks
+    chunk_base: int = 0
+    emitted: int = 0
+    # chunk-admitted and still mid-prefill (engine.is_prefilling): the
+    # slot holds blocks but is INACTIVE — the prefill pump drives it one
+    # chunk per tick, decode rows skip it, preemption never picks it
+    prefilling: bool = False
+
+
+class Scheduler:
+    """FIFO continuous-batching scheduler over one SlotEngine."""
+
+    def __init__(self, engine: SlotEngine, *, clock=None, max_queue: int = 64,
+                 metrics=None, fault_hook=None, tracer=None,
+                 replica: int = 0, telemetry=None,
+                 stream: bool = True, vtc=None) -> None:
+        self.engine = engine
+        self.clock = clock or MonotonicClock()
+        self.max_queue = max_queue
+        self.metrics = metrics
+        # optional chaos hook (serve/faults.py FaultInjector): None in
+        # production — the only cost then is one `is not None` per tick
+        self.fault_hook = fault_hook
+        # optional TraceRecorder (utils/trace.py); `replica` is this
+        # scheduler's pid in the exported timeline. The engine keeps its
+        # own tracer reference (set_tracer) for its dispatch lanes.
+        self.tracer = tracer
+        self.replica = replica
+        # optional utils/telemetry.py exporter (anything with
+        # on_completion): one streamed "flight" line per completion —
+        # for SINGLE-replica serving. Behind a router, the router is the
+        # telemetry owner (its merged flight records are the real ones).
+        self.telemetry = telemetry
+        self.queue: Deque[Request] = deque()
+        self.running: Dict[int, _Running] = {}  # slot -> state
+        self.completions: List[Completion] = []
+        # streaming side channel: one TokenChunk per request per decode
+        # burst plus one final chunk per completion, append-only and
+        # watermark-consumed exactly like `completions`. `stream=False`
+        # is the end-of-request-delivery baseline (the overhead bench's
+        # control arm) — no chunks are ever built.
+        self.stream = stream
+        self.chunks: List[TokenChunk] = []
+        self._chunk_seq: Dict[int, int] = {}  # rid -> next chunk seq
+        self._admit_counter = 0
+        # speculative decoding (serve/spec.py + engine.step_verify): a
+        # spec-enabled engine carries a drafter; ticks where any slot
+        # has a proposal dispatch the verify program instead of a
+        # plain burst (both greedy-exact — the choice never shows in
+        # the token stream). `_spec_k` also widens every admission's
+        # position budget: verify grows a slot for the worst case
+        # (spec_k + 1 positions) before acceptance is known.
+        self._spec_k = (engine.config.spec_k
+                        if getattr(engine, "drafter", None) is not None
+                        else 0)
+        # rid -> [drafted, accepted] cumulative across this request's
+        # verify dispatches (rid-keyed, so preemption/readmission keeps
+        # accumulating); popped into the completion's flight record
+        self._spec_stats: Dict[int, list] = {}
+        # rid -> prefix-cache matched tokens, cumulative across this
+        # request's admits (a preempted continuation re-matches its own
+        # earlier blocks); popped into the flight record the same way.
+        # Only tracked for engines with a radix (last_prefix_hit set).
+        self._prefix_hits: Dict[int, int] = {}
+        # preempted-request resume state (PagedEngine block-aware
+        # preemption): rid -> {"orig": the ORIGINAL request, "prefix":
+        # tokens generated before the eviction, "ftt": their first-token
+        # time}. The continuation re-prefills prompt+prefix; `_finish`
+        # folds the prefix back so the client sees one completion.
+        self._resume: Dict[int, dict] = {}
+        # optional serve/fairshare.py VirtualTokenCounter: when set,
+        # _admit serves the LEAST-SERVED tenant's earliest request
+        # instead of strict FIFO, and this scheduler charges the
+        # counters (prefill at admit, decode at finish). None (the
+        # default) leaves every code path byte-identical to FIFO.
+        self.vtc = vtc
+
+    # ------------------------------------------------------------ intake
+    def submit(self, req: Request) -> bool:
+        """Enqueue; False = shed (queue at bound) or rejected (malformed).
+        Both are completions too — the client gets a fast negative, not
+        silence."""
+        if req.arrival is None:
+            req.arrival = self.clock.now()
+        if req.trace_id is None:
+            req.trace_id = f"r{req.rid}"
+        if self.tracer is not None:
+            # the head decision, made exactly once per trace_id: reuse
+            # an upstream stamp (router / RPC seam) when present, roll
+            # the deterministic hash otherwise. Unsampled requests'
+            # spans stage until the tail verdict in _finish.
+            req.sampled = self.tracer.begin_trace(req.trace_id,
+                                                  req.sampled,
+                                                  tenant=req.tenant)
+        req.submitted = self.clock.now()
+        if req.max_new_tokens < 1:
+            # needed=0 would slip past every headroom guard and a
+            # zero-token request would still emit one token — a fast
+            # reject is the only sane answer
+            self._finish(req, [], "rejected")
+            return False
+        if len(self.queue) >= self.max_queue:
+            self._finish(req, [], "shed")
+            return False
+        self.queue.append(req)
+        if self.vtc is not None:
+            # register at the current service floor (VTC lift) — a
+            # newly-seen tenant competes from here, not from an idle-
+            # hours credit balance
+            self.vtc.touch(req.tenant)
+        if self.metrics:
+            self.metrics.on_submit(self)
+        return True
+
+    # ------------------------------------------------------------ internals
+    def _emit_chunk(self, rid: int, trace_id: Optional[str], start: int,
+                    tokens: List[int], *, final: bool = False,
+                    status: Optional[str] = None) -> None:
+        """Append one TokenChunk (no-op with streaming off). `start` is
+        the rid-GLOBAL token offset. The final chunk retires the rid's
+        seq counter, so `_chunk_seq` stays O(in-flight)."""
+        if not self.stream:
+            return
+        seq = self._chunk_seq.get(rid, 0)
+        self._chunk_seq[rid] = seq + 1
+        self.chunks.append(TokenChunk(
+            rid=rid, trace_id=trace_id, seq=seq, start=start,
+            tokens=list(tokens), t=self.clock.now(), final=final,
+            status=status,
+        ))
+        if final:
+            self._chunk_seq.pop(rid, None)
+        emit = getattr(self.telemetry, "emit", None)
+        if emit is not None:
+            # single-replica serving (a TelemetryExporter attached
+            # directly): per-chunk JSONL so tools/check_stream.py can
+            # audit delivery offline. Behind a router, the router's
+            # consumer-side stream events are the audited lines; worker
+            # FlightStats has no emit and skips this branch.
+            emit("chunk", trace_id=trace_id, rid=rid, seq=seq,
+                 start=start, n=len(tokens), final=final, status=status,
+                 # which decode dispatch produced these tokens — the
+                 # flight-accounting hook that tells a stalled engine
+                 # (burst stands still) from a starved request (bursts
+                 # advance without it) inside a resume gap
+                 burst=getattr(self.engine, "burst_seq", None))
+
+    def _finish(self, req: Request, tokens: List[int], status: str,
+                first_token_time: Optional[float] = None,
+                admitted: Optional[tuple] = None,
+                chunked: Optional[int] = None) -> Completion:
+        now = self.clock.now()
+        prior = self._resume.pop(req.rid, None)
+        if prior is not None:
+            # a continuation of a preempted request: the client asked
+            # ONE question — fold the pre-eviction tokens (and their
+            # first-token time) back into the single completion
+            tokens = prior["prefix"] + tokens
+            if prior["ftt"] is not None:
+                first_token_time = prior["ftt"]
+        if chunked is None:
+            # not finishing from a running slot: everything this rid
+            # ever streamed is its preemption prefix (queued shed /
+            # timeout / stale continuation) or nothing (fresh request)
+            chunked = len(prior["prefix"]) if prior is not None else 0
+        if self.vtc is not None and tokens:
+            # decode service lands at the terminal: each DELIVERED token
+            # charges once, whatever preemption/readmission path
+            # produced it (re-prefill work was charged as prefill at
+            # each admit — both costs were actually incurred)
+            self.vtc.charge(req.tenant, decode=len(tokens))
+        # the terminal marker: whatever tokens have not streamed yet
+        # ride out with it, so chunk delivery is complete exactly when
+        # the completion exists (one final chunk per completion, even
+        # for sheds/rejects — a typed end, never silence)
+        self._emit_chunk(req.rid, req.trace_id, chunked,
+                         tokens[chunked:], final=True, status=status)
+        ttft = tpot = None
+        if first_token_time is not None:
+            ttft = first_token_time - req.arrival
+            if len(tokens) > 1:
+                tpot = (now - first_token_time) / (len(tokens) - 1)
+        # flight record: phase breakdown of this attempt's latency;
+        # anything before submit, and nothing else, lands in stall_s
+        flight = _attempt_phases(req, now, admitted)
+        total = now - req.arrival
+        flight["stall_s"] = max(0.0, total - sum(flight.values()))
+        flight["retries"] = flight["failovers"] = 0
+        spec = self._spec_stats.pop(req.rid, None)
+        if spec is not None:
+            # after the stall_s residual — these are token counts, not
+            # latency phases, and must not skew the phase sum
+            flight["spec_drafted"] = spec[0]
+            flight["spec_accepted"] = spec[1]
+            if spec[0] > 0:
+                flight["spec_accept_rate"] = spec[1] / spec[0]
+        ph = self._prefix_hits.pop(req.rid, None)
+        if ph is not None:
+            # token count, not a latency phase — same placement rule as
+            # the spec_* tallies above
+            flight["prefix_hit_tokens"] = ph
+        # prompt size rides the flight record so downstream cost
+        # metering (serve/fairshare.py TenantLedger) can bill prefill
+        # work without a back-pointer to the request
+        flight["prompt_tokens"] = len(req.prompt)
+        c = Completion(
+            rid=req.rid, tokens=tokens, status=status,
+            arrival=req.arrival, finish=now, ttft=ttft, tpot=tpot,
+            flight=flight, trace_id=req.trace_id, tenant=req.tenant,
+        )
+        tr = self.tracer
+        if tr is not None and tr.enabled:
+            if admitted is None:
+                # never admitted: its whole life here was the queue
+                sub = (req.submitted if req.submitted is not None
+                       else req.arrival)
+                tr.record_async("queued", sub, now, trace_id=req.trace_id,
+                                pid=self.replica)
+            if status not in ("eos", "length"):
+                tr.instant(status, trace_id=req.trace_id, pid=self.replica,
+                           tid=ENGINE_LANE, rid=req.rid)
+            tr.record_async(
+                "request", req.arrival, now, trace_id=req.trace_id,
+                pid=self.replica,
+                attrs={"rid": req.rid, "status": status,
+                       "tokens": len(tokens)},
+            )
+        if tr is not None:
+            # tail verdict: promote the staged spans when a keep-rule
+            # fires (bad status / slow / an anomaly marker already
+            # promoted them), else discard as suppressed. The outcome
+            # rides the completion so exemplars only cite kept traces.
+            c.trace_sampled = tr.finish_trace(
+                req.trace_id, status=status,
+                latency_s=now - req.arrival)
+        self.completions.append(c)
+        if self.metrics:
+            self.metrics.on_complete(c, self)
+        if self.telemetry is not None:
+            self.telemetry.on_completion(c)
+        return c
+
+    def _expire_queue(self) -> None:
+        now = self.clock.now()
+        kept: Deque[Request] = deque()
+        for req in self.queue:
+            if req.deadline is not None and now > req.deadline:
+                self._finish(req, [], "timeout")
+            else:
+                kept.append(req)
+        self.queue = kept
+
+    # ------------------------------------------ preemption / readmission
+    def _requeue_request(self, orig: Request, prompt: List[int],
+                         max_new: int) -> Request:
+        """Clone `orig` for a re-prefill attempt: same identity /
+        arrival / deadline / trace (one request, one timeline), new
+        prompt+budget, and `submitted` stamped NOW — without the stamp
+        the flight record books the whole prior attempt as queue_s
+        (Request.submitted exists exactly to prevent that)."""
+        creq = Request(
+            rid=orig.rid, prompt=prompt, max_new_tokens=max_new,
+            deadline=orig.deadline, seed=orig.seed, arrival=orig.arrival,
+            priority=orig.priority, trace_id=orig.trace_id,
+            sampled=orig.sampled, tenant=orig.tenant,
+            temperature=orig.temperature, top_k=orig.top_k,
+            top_p=orig.top_p,
+        )
+        creq.submitted = self.clock.now()
+        return creq
+
+    def _continuation(self, st: _Running) -> Request:
+        """Build the re-prefill request for a preempted running entry:
+        prompt + tokens-generated-so-far, the remaining token budget,
+        the ORIGINAL arrival/deadline/trace_id (one request, one
+        timeline). Falls back to regenerating from the original prompt
+        when prompt+prefix outgrows the engine (greedy reproduces the
+        same tokens — the router's failover makes the same trade)."""
+        req = st.req
+        prior = self._resume.pop(req.rid, None)
+        orig = prior["orig"] if prior else req
+        prefix = (prior["prefix"] if prior else []) + st.tokens
+        ftt = (prior["ftt"] if prior and prior["ftt"] is not None
+               else st.first_token_time)
+        new_prompt = list(orig.prompt) + prefix
+        remaining = orig.max_new_tokens - len(prefix)
+        needed = self._needed_positions(remaining)
+        if prefix and self.engine.admit_gate(
+                len(new_prompt), needed, prompt=new_prompt) == "never":
+            prefix, ftt = [], None
+            new_prompt = list(orig.prompt)
+            remaining = orig.max_new_tokens
+        if prefix:
+            self._resume[req.rid] = {
+                "orig": orig, "prefix": prefix, "ftt": ftt,
+            }
+        creq = self._requeue_request(orig, new_prompt, remaining)
+        tr = self.tracer
+        if tr is not None and tr.enabled:
+            tr.instant("preempted", trace_id=orig.trace_id,
+                       pid=self.replica, tid=ENGINE_LANE, rid=orig.rid,
+                       tokens_salvaged=len(prefix))
+        return creq
+
+    def _drain_preempted(self) -> None:
+        """Requeue requests the ENGINE evicted during step_burst (paged
+        growth/CoW exhaustion): they re-enter at the FRONT and
+        re-prefill as room returns. No-op for engines without
+        preemption (SlotEngine)."""
+        take = getattr(self.engine, "take_preempted", None)
+        if take is None:
+            return
+        for slot in take():
+            st = self.running.pop(slot, None)
+            if st is not None:
+                self.queue.appendleft(self._continuation(st))
+
+    def _preempt_victim_for(self, req: Request) -> Optional[Request]:
+        """Admission-pressure preemption: evict the YOUNGEST-admitted
+        running request so `req` (the blocked queue head) can take its
+        blocks — but only when `req` arrived strictly EARLIER than the
+        victim. Preemption then only ever flows older-over-younger, so
+        readmission cascades terminate (a victim can never win its
+        blocks back from the request that took them). Returns the
+        victim's continuation request, or None when no fair victim
+        exists (the head just waits for releases). UNFAIR entries are
+        skipped, not a reason to bail: a readmitted continuation
+        carries a fresh (high) admission seq but its ORIGINAL arrival,
+        and it must not shield the genuinely-younger runners behind
+        it."""
+        eng = self.engine
+        if not hasattr(eng, "preempt") or not self.running:
+            return None
+        key = ((req.arrival or 0.0), req.rid)
+        # mid-prefill slots are not preemptable (the engine raises on
+        # inactive slots; their progress is chunks, not salvageable
+        # tokens) — skip them like the engine's own victim search does
+        fair = [(st.seq, slot) for slot, st in self.running.items()
+                if not st.prefilling
+                and key < ((st.req.arrival or 0.0), st.req.rid)]
+        if not fair:
+            return None
+        slot = max(fair)[1]
+        st = self.running[slot]
+        eng.preempt(slot)
+        eng.take_preempted()  # consumed here, not by the post-burst drain
+        del self.running[slot]
+        return self._continuation(st)
+
+    def _preemption_can_help(self, req: Request) -> bool:
+        """Feasibility before the first eviction: even taking EVERY fair
+        (strictly-younger-arrival) victim's blocks is an upper bound on
+        what preemption surfaces — when that still cannot admit the
+        head, evicting anyone is pure churn (victims lose their decode
+        progress to re-prefill, the head stays blocked), so nobody is
+        touched and the head waits for releases instead."""
+        eng = self.engine
+        if not hasattr(eng, "preempt_headroom"):
+            return True
+        key = ((req.arrival or 0.0), req.rid)
+        fair = [s for s, st in self.running.items()
+                if not st.prefilling
+                and key < ((st.req.arrival or 0.0), st.req.rid)]
+        return eng.preempt_headroom(fair, len(req.prompt),
+                                    prompt=req.prompt)
+
+    def _needed_positions(self, max_new: int) -> int:
+        """A request's decode-position budget: burst-granular (a request
+        finishing mid-burst still rides to the burst boundary), plus —
+        with speculation on — the verify program's worst-case slack:
+        `step_verify` grows a slot for spec_k + 1 positions before
+        knowing how much of the draft the model accepts, so the
+        admit-time block budget must cover the final dispatch's
+        overshoot (the rejected tail's blocks come straight back)."""
+        burst = self.engine.config.decode_burst
+        needed = -(-max(max_new, 1) // burst) * burst
+        if self._spec_k:
+            needed += self._spec_k + 1
+        return needed
+
+    def _rotate_fair_head(self) -> None:
+        """Weighted-fair head pick (serve/fairshare.py, vtc set):
+        rotate the LEAST-SERVED tenant's earliest request to the queue
+        head. Within a tenant order stays FIFO; a tie on service breaks
+        toward the earlier queue position, so equal-service tenants
+        degrade to plain arrival order. Everything downstream —
+        admission gates, preemption, the insert(1) staging — still
+        operates on the head, unchanged. No-op without a vtc: the
+        default path stays byte-identical to FIFO."""
+        if self.vtc is None or len(self.queue) <= 1:
+            return
+        firsts: Dict[str, int] = {}
+        for i, r in enumerate(self.queue):
+            name = r.tenant if r.tenant is not None else "default"
+            if name not in firsts:
+                firsts[name] = i
+        if len(firsts) <= 1:
+            return
+        i = min(firsts.items(),
+                key=lambda kv: (self.vtc.service(kv[0]), kv[1]))[1]
+        if i:
+            req = self.queue[i]
+            del self.queue[i]
+            self.queue.appendleft(req)
+
+    def _admit(self) -> None:
+        eng = self.engine
+        tr = self.tracer
+        while self.queue and eng.num_free > 0:
+            self._rotate_fair_head()
+            req = self.queue[0]
+            needed = self._needed_positions(req.max_new_tokens)
+            # memory policy is the ENGINE's: the slot engine gates on
+            # global cursor headroom (make_room = drain + epoch rewind),
+            # the paged engine on free + prefix-cache-evictable blocks
+            # (pages free per-request at release; make_room ages out
+            # cached prefixes; block-aware preemption evicts young
+            # runners for older blocked work). The scheduler only
+            # distinguishes can't-yet from can't-ever — and enforces
+            # the arrival-order fairness preemption needs.
+            gate = eng.admit_gate(len(req.prompt), needed,
+                                  prompt=req.prompt)
+            if gate == "later" and eng.make_room(len(req.prompt), needed,
+                                                 prompt=req.prompt):
+                gate = eng.admit_gate(len(req.prompt), needed,
+                                      prompt=req.prompt)
+            if gate == "later" and self._preemption_can_help(req):
+                staged: List[Request] = []
+                while gate == "later":
+                    creq = self._preempt_victim_for(req)
+                    if creq is None:
+                        break
+                    staged.append(creq)
+                    gate = eng.admit_gate(len(req.prompt), needed,
+                                          prompt=req.prompt)
+                # victims re-enter BEHIND the head (they are strictly
+                # younger by arrival — queue order stays arrival order).
+                # staged is in EVICTION order (descending admission
+                # seq), which is NOT arrival order when a victim is a
+                # readmitted continuation (fresh high seq, ORIGINAL old
+                # arrival) — sort by arrival descending so each
+                # insert(1) pushes the previous back and the oldest
+                # arrival lands first behind the head.
+                staged.sort(key=lambda r: ((r.arrival or 0.0), r.rid),
+                            reverse=True)
+                for creq in staged:
+                    self.queue.insert(1, creq)
+            if gate == "never":
+                self.queue.popleft()
+                prior = self._resume.pop(req.rid, None)
+                if prior is not None:
+                    # a preempted request's continuation went STALE in
+                    # the queue: the warm prefix it was sized against
+                    # aged out of the cache, and prompt+tokens-so-far
+                    # no longer fits a bucket. Retry from the ORIGINAL
+                    # prompt (greedy/seeded decode reproduces the lost
+                    # tokens — the trade _continuation already makes at
+                    # build time) instead of rejecting a servable
+                    # request. The _resume entry is consumed, so a
+                    # genuine "never" on the retry still rejects.
+                    orig = prior["orig"]
+                    if tr is not None and tr.enabled:
+                        tr.instant("stale_retry", trace_id=req.trace_id,
+                                   pid=self.replica, tid=ENGINE_LANE,
+                                   rid=req.rid,
+                                   tokens_dropped=len(prior["prefix"]))
+                    self.queue.appendleft(self._requeue_request(
+                        orig, list(orig.prompt), orig.max_new_tokens))
+                    continue
+                if tr is not None and tr.enabled:
+                    tr.instant("admit_never", trace_id=req.trace_id,
+                               pid=self.replica, tid=ENGINE_LANE,
+                               prompt_len=len(req.prompt), needed=needed)
+                self._finish(req, [], "rejected")
+                continue
+            if gate == "later":
+                # memory frees as running requests release; one instant
+                # per blocked tick (the ring buffer bounds the flood)
+                if tr is not None and tr.enabled:
+                    tr.instant("admit_blocked", trace_id=req.trace_id,
+                               pid=self.replica, tid=ENGINE_LANE,
+                               queue=len(self.queue))
+                break
+            self.queue.popleft()
+            if self.fault_hook is not None \
+                    and self.fault_hook.take_admit_fault():
+                # injected transient admission failure (OOM-at-admit
+                # class): an "error" completion, so a router retries it
+                # on another replica instead of the client seeing silence
+                self._finish(req, [], "error")
+                continue
+            t_admit0 = self.clock.now()
+            admit_kw = {}
+            if (req.temperature is not None or req.top_k is not None
+                    or req.top_p is not None):
+                # only when the request actually overrides — engines
+                # (and test fakes) without the kwarg stay untouched
+                admit_kw["sampling"] = (req.temperature, req.top_k,
+                                        req.top_p)
+            try:
+                slot = eng.admit(req.prompt, seed=req.seed,
+                                 max_positions=needed,
+                                 trace_id=req.trace_id, **admit_kw)
+            except ValueError:
+                # sampling overrides on an engine without
+                # per_slot_sampling (or a shape the gate missed): a
+                # typed fast negative, not a crashed tick
+                self._finish(req, [], "rejected")
+                continue
+            t_admit1 = self.clock.now()
+            hit = getattr(eng, "last_prefix_hit", None)
+            if hit is not None:
+                self._prefix_hits[req.rid] = (
+                    self._prefix_hits.get(req.rid, 0) + hit
+                )
+            if self.vtc is not None:
+                # prefill service at admit (cache-warm tokens are free:
+                # the engine never recomputed them) — immediate, so the
+                # NEXT head pick already sees this tenant's spend
+                self.vtc.charge(req.tenant, prefill=max(
+                    0, len(req.prompt) - (hit or 0)))
+            if tr is not None and tr.enabled:
+                sub = req.submitted if req.submitted is not None \
+                    else req.arrival
+                tr.record_async("queued", sub, t_admit0,
+                                trace_id=req.trace_id, pid=self.replica,
+                                attrs={"slot": slot})
+            self._admit_counter += 1
+            prior = self._resume.get(req.rid)
+            self.running[slot] = _Running(
+                req=req, slot=slot, admit_t0=t_admit0, admit_t1=t_admit1,
+                seq=self._admit_counter,
+                # a preempted continuation's chunks continue the rid's
+                # global token offsets after the already-streamed prefix
+                chunk_base=len(prior["prefix"]) if prior else 0,
+                prefilling=bool(getattr(
+                    eng, "is_prefilling", lambda s: False)(slot)),
+            )
+
+    def _prefill_pump(self) -> None:
+        """Drive ONE prefill chunk per mid-prefill slot per tick —
+        Sarathi-style interleaving: a long cold prompt shares every
+        tick with the running decode burst instead of monopolizing one,
+        so running streams see at most one chunk's forward of added
+        inter-token latency and TTFT jitter stops tracking the longest
+        admit. Deadline expiry mid-prefill is a "timeout" finish (the
+        blocks come back); a chunk the pool cannot cover even after
+        preemption releases the slot and requeues the request at the
+        front, like any admission failure."""
+        eng = self.engine
+        for slot, st in list(self.running.items()):
+            if not st.prefilling:
+                continue
+            now = self.clock.now()
+            if st.req.deadline is not None and now > st.req.deadline:
+                del self.running[slot]
+                eng.release(slot)
+                self._finish(st.req, [], "timeout",
+                             admitted=(st.admit_t0, now))
+                continue
+            try:
+                done = eng.prefill_step(slot)
+            except RuntimeError:
+                del self.running[slot]
+                eng.release(slot)
+                self.queue.appendleft(self._continuation(st))
+                continue
+            self.clock.tick()
+            if done:
+                # the slot just went active: prefill ends HERE for the
+                # flight record, and the next burst decodes it with
+                # everyone else
+                st.prefilling = False
+                st.admit_t1 = self.clock.now()
+        # chunk growth may have preempted active runners
+        # (_acquire_decode inside prefill_step) — requeue them before
+        # the burst maps token rows
+        self._drain_preempted()
+
+    # ------------------------------------------------------------ the tick
+    def step(self) -> List[Completion]:
+        """One tick: expire -> admit -> prefill chunks -> decode ->
+        release. Returns the completions finalized during this tick.
+        May raise faults.ReplicaCrashed when a chaos plan kills this
+        replica."""
+        if self.fault_hook is not None:
+            self.fault_hook.on_tick(self)
+        before = len(self.completions)
+        self._expire_queue()
+        self._admit()
+        self._prefill_pump()
+        if any(not st.prefilling for st in self.running.values()):
+            eng = self.engine
+            counts = None
+            drafted = None
+            if self._spec_k:
+                drafts, draft_lens, any_drafted = eng.propose_drafts()
+                if any_drafted:
+                    drafted = (drafts, draft_lens)
+            if drafted is None:
+                # no slot has a proposal this tick (or speculation is
+                # off): plain burst — greedy-identical to a verify of
+                # empty drafts, minus the wasted window forward
+                burst = eng.step_burst()      # (K, max_slots)
+                finite = eng.last_finite      # (K, max_slots)
+            else:
+                # verify dispatch: rows are the accepted run + one
+                # correction token; row r of a slot is real iff
+                # r < counts[slot]
+                burst, counts, finite = eng.step_verify(*drafted)
+            # block-aware preemption: slots the engine evicted BEFORE
+            # this dispatch produced no tokens this burst — requeue
+            # their requests (front) before mapping token rows
+            self._drain_preempted()
+            if counts is not None:
+                # accept accounting BEFORE the row loop, so a request
+                # finishing mid-run still books its last dispatch.
+                # Every slot still running was active at dispatch, so
+                # counts >= 1 (accepted = counts - 1).
+                for slot, st in self.running.items():
+                    if st.prefilling:
+                        continue  # inactive at dispatch: counts[slot]=0
+                    stats = self._spec_stats.setdefault(
+                        st.req.rid, [0, 0])
+                    stats[0] += int(drafted[1][slot])
+                    stats[1] += int(counts[slot]) - 1
+            eos = self.engine.config.eos_id
+            for k, row in enumerate(burst):
+                if not self.running:
+                    break  # the rest of the burst is free-slot padding
+                if counts is not None and all(
+                        k >= int(counts[s]) for s in self.running):
+                    break  # every remaining run ended before this row
+                self.clock.tick()
+                now = self.clock.now()
+                for slot, st in list(self.running.items()):
+                    if st.prefilling:
+                        continue  # inactive at dispatch: rows are pads
+                    if counts is not None and k >= int(counts[slot]):
+                        continue  # this slot's verified run was shorter
+                    if not finite[k, slot]:
+                        # this row's token was sampled from non-finite
+                        # logits: poison ONE request, not the batch — the
+                        # tokens produced so far are valid (finite when
+                        # sampled), so a router can resume from them
+                        del self.running[slot]
+                        self.engine.release(slot)
+                        self._finish(
+                            st.req, st.tokens, "error",
+                            st.first_token_time,
+                            admitted=(st.admit_t0, st.admit_t1),
+                            chunked=st.chunk_base + st.emitted,
+                        )
+                        continue
+                    tok = int(row[slot])
+                    st.tokens.append(tok)
+                    if st.first_token_time is None:
+                        st.first_token_time = now
+                    done_status = None
+                    if eos is not None and tok == eos:
+                        done_status = "eos"
+                    elif len(st.tokens) >= st.req.max_new_tokens:
+                        done_status = "length"
+                    elif (st.req.deadline is not None
+                          and now > st.req.deadline):
+                        done_status = "timeout"
+                    if done_status:
+                        # released mid-burst: later rows of this burst
+                        # no longer map to this request (its surplus
+                        # tokens are discarded with it)
+                        del self.running[slot]
+                        self.engine.release(slot)
+                        self._finish(
+                            st.req, st.tokens, done_status,
+                            st.first_token_time,
+                            admitted=(st.admit_t0, st.admit_t1),
+                            chunked=st.chunk_base + st.emitted,
+                        )
+            if self.stream:
+                # one TokenChunk per still-running request per burst:
+                # the tokens this tick produced, stamped with their
+                # rid-global offsets. Finished requests already left
+                # through their final chunk in _finish.
+                for st in self.running.values():
+                    if len(st.tokens) > st.emitted:
+                        self._emit_chunk(
+                            st.req.rid, st.req.trace_id,
+                            st.chunk_base + st.emitted,
+                            st.tokens[st.emitted:],
+                        )
+                        st.emitted = len(st.tokens)
+        if self.metrics:
+            self.metrics.on_tick(self)
+        return self.completions[before:]
+
+    # ------------------------------------------------- fleet operations
+    def shed_queued(self, predicate) -> List[Request]:
+        """Shed queued (not yet admitted) requests matching `predicate`
+        — the brown-out lever: the router drops low-priority waiters
+        when fleet occupancy crosses its threshold. Each shed is a
+        normal "shed" completion (fast negative, not silence); the shed
+        requests are returned so the router can finalize them with the
+        right reason."""
+        kept: Deque[Request] = deque()
+        shed: List[Request] = []
+        for req in self.queue:
+            if predicate(req):
+                self._finish(req, [], "shed")
+                shed.append(req)
+            else:
+                kept.append(req)
+        self.queue = kept
+        return shed
+
+    def inflight_snapshot(self) -> List[tuple]:
+        """Non-destructive view of every queued and running request:
+        (request, tokens_so_far, first_token_time, phases) — the same
+        tuples `evacuate` harvests, WITHOUT clearing anything. The
+        cross-process worker (serve/worker.py) ships this per poll so
+        the router always holds a recent salvage point: when the worker
+        is later SIGKILLed there is no scheduler left to evacuate, and
+        the last snapshot is what failover re-admits on a survivor
+        (prompt + tokens-so-far, token-identical under greedy)."""
+        now = self.clock.now()
+        out = []
+        for st in self.running.values():
+            prior = self._resume.get(st.req.rid)
+            req, toks, ftt = st.req, st.tokens, st.first_token_time
+            if prior is not None:
+                # a running CONTINUATION of a preempted request: hand
+                # the caller the ORIGINAL request with all tokens so
+                # far, not the synthetic prompt+prefix one
+                req = prior["orig"]
+                toks = prior["prefix"] + toks
+                ftt = prior["ftt"] if prior["ftt"] is not None else ftt
+            out.append((req, list(toks), ftt,
+                        _attempt_phases(st.req, now,
+                                        (st.admit_t0, st.admit_t1))))
+        for req in self.queue:
+            prior = self._resume.get(req.rid)
+            if prior is not None:
+                out.append((prior["orig"], list(prior["prefix"]),
+                            prior["ftt"],
+                            _attempt_phases(req, now, None)))
+            else:
+                out.append((req, [], None, _attempt_phases(req, now, None)))
+        return out
+
+    def evacuate(self) -> List[tuple]:
+        """Pull every queued and in-flight request off this scheduler —
+        the failover harvest after a crash. Returns the
+        `inflight_snapshot` tuples; tokens_so_far were already read
+        back to the host before the crash, so the router can re-admit
+        prompt+tokens on a surviving replica. `phases` is the attempt's
+        flight-record fragment (queue_s / prefill_s / decode_s up to
+        the evacuation edge) — no Completion is ever appended for an
+        evacuated attempt, so without this the pre-crash work would be
+        misreported as stall time. Touches no device state (the replica
+        may be gone); `restart()` on the handle resets the engine when
+        the replica comes back."""
+        out = self.inflight_snapshot()
+        # every live rid is in queue/running, so their _resume entries
+        # (already folded into the snapshot) go with them — and their
+        # chunk seq counters: evacuated attempts never reach a final
+        # chunk, and the router re-dispatches under a fresh attempt.
+        # Accept stats die with the attempt too: the surviving
+        # replica's verify dispatches start the rid's count fresh.
+        self._resume.clear()
+        self.running.clear()
+        self.queue.clear()
+        self._chunk_seq.clear()
+        self._spec_stats.clear()
+        self._prefix_hits.clear()
+        return out
+
+    @property
+    def idle(self) -> bool:
+        return not self.queue and not self.running
+
+    def run_until_idle(self, max_ticks: int = 100_000) -> List[Completion]:
+        """Drive ticks until queue and slots drain (tests + CLI serving)."""
+        for _ in range(max_ticks):
+            if self.idle:
+                return self.completions
+            self.step()
+        raise RuntimeError(f"not idle after {max_ticks} ticks")
