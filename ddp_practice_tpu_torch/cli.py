@@ -2,8 +2,9 @@
 
     python -m ddp_practice_tpu_torch.cli serve [serve flags]
 
-`serve` runs the serving bench on the card (serve/bench.py owns its
-flags). Training is a later slice of the port.
+`serve` runs the serving benches on the card; serve/bench.py owns the
+flags (the slot, static and, with `--paged`, paged rows; `--shared-prefix
+[--kv-int8]`; `--spec-decode`). Training is a later slice of the port.
 """
 
 from __future__ import annotations

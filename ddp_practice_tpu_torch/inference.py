@@ -32,10 +32,15 @@ def make_cache(model: TransformerLM, batch: int, total_len: int,
 
 @torch.no_grad()
 def decode_apply(model: TransformerLM, cache: dict, tokens: torch.Tensor,
-                 *, attn_start: Optional[torch.Tensor] = None) -> tuple:
+                 *, attn_start: Optional[torch.Tensor] = None,
+                 page_table: Optional[torch.Tensor] = None,
+                 kv_lengths: Optional[torch.Tensor] = None) -> tuple:
     """One decode-mode model application: `(cache, logits)`. The cache is
-    updated in place and returned for symmetry with the reference."""
-    logits = model(tokens, cache=cache, attn_start=attn_start)
+    updated in place and returned for symmetry with the reference. With
+    `page_table` and `kv_lengths` the cache is a paged block pool
+    (serve/kv_pages.py) and each row writes at its own position."""
+    logits = model(tokens, cache=cache, attn_start=attn_start,
+                   page_table=page_table, kv_lengths=kv_lengths)
     return cache, logits
 
 

@@ -6,11 +6,12 @@ come out in the policy compute dtype; consumers upcast. `forward(tokens)`
 is the training forward; `forward(tokens, cache=...)` is KV-cache decode
 (inference.py builds the cache with `init_cache`): the call appends the
 tokens at the cache cursor, so one module serves prompt prefill (s =
-prompt length) and single-token steps (s = 1).
+prompt length) and single-token steps (s = 1). With `page_table` and
+`kv_lengths` the cache is a paged block pool (serve/kv_pages.py) and each
+sequence appends at its own slot-local position.
 
 Not ported in this slice: sequence parallelism (`seq_axis`), remat, MoE
-blocks, the fused encoder layer (`fused=True`) and the paged cache
-(`page_table`); each raises.
+blocks and the fused encoder layer (`fused=True`); each raises.
 """
 
 from __future__ import annotations
@@ -92,14 +93,26 @@ class TransformerLM(nn.Module):
     def forward(self, tokens: torch.Tensor, *, train: bool = False,
                 cache: Optional[dict] = None,
                 attn_start: Optional[torch.Tensor] = None,
-                page_table=None) -> torch.Tensor:
+                page_table: Optional[torch.Tensor] = None,
+                kv_lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
         """tokens (b, s) int -> logits (b, s, vocab) in the compute dtype.
 
         `attn_start` (b,) int32, decode only: first real key position per
-        sequence (left-padded prompts); needs pos_emb="rope"."""
-        if page_table is not None:
-            raise NotImplementedError("the paged KV cache is not ported yet")
+        sequence (left-padded prompts); needs pos_emb="rope".
+
+        `page_table` (b, max_blocks_per_slot) + `kv_lengths` (b,) int32,
+        decode only: paged KV-cache mode — `cache` is a block pool, each
+        sequence writes and attends at its own slot-local position through
+        its table row, and attn_start is slot-local. s == 1 is the decode
+        step; s > 1 the paged prefill (models/vit.py `_paged_decode`)."""
         decode = cache is not None
+        if page_table is not None and self.pos_emb != "rope":
+            raise ValueError(
+                "paged decode needs pos_emb='rope' — per-slot positions "
+                "require relative position encoding"
+            )
+        if page_table is not None and not decode:
+            raise ValueError("page_table is a KV-cache decode feature")
         if attn_start is not None and self.pos_emb != "rope":
             raise ValueError(
                 "variable-length (left-padded) prompts need pos_emb='rope' "
@@ -124,7 +137,8 @@ class TransformerLM(nn.Module):
         for i, blk in enumerate(self.blocks):
             x = blk(x, train=train,
                     cache=cache[f"block{i}"]["attn"] if decode else None,
-                    attn_start=attn_start)
+                    attn_start=attn_start, page_table=page_table,
+                    kv_lengths=kv_lengths)
         x = self.ln_f(x)
         if self.tied_embeddings:
             return x @ self.tok_embed.weight.to(self.dtype).T

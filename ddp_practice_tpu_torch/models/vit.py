@@ -17,6 +17,11 @@ Decode state lives in a plain dict per attention layer, with the Flax
 `cached_key_scale`/`cached_value_scale` (b, h, L) fp32 for an int8 cache,
 and `cache_index`, a host int. The layer writes the incoming tokens' K/V
 into the cache in place and advances `cache_index`.
+
+With a `page_table` the same leaves are a paged block pool
+(serve/kv_pages.py: `(num_blocks, block_size, h*hd)`, scale pages
+`(num_blocks, h, block_size)`) and every sequence writes and attends at
+its own slot-local position `kv_lengths[b]` (`_paged_decode`).
 """
 
 from __future__ import annotations
@@ -34,6 +39,8 @@ from ddp_practice_tpu_torch.ops.attention import (
 from ddp_practice_tpu_torch.ops.decode_attention import (
     _heads_per_pack,
     decode_attention_packed,
+    gather_pages,
+    paged_decode_attention,
 )
 from ddp_practice_tpu_torch.ops.rope import apply_rope
 
@@ -136,12 +143,17 @@ class SelfAttention(nn.Module):
         return cache
 
     def forward(self, x: torch.Tensor, *, cache: Optional[dict] = None,
-                attn_start: Optional[torch.Tensor] = None):
+                attn_start: Optional[torch.Tensor] = None,
+                page_table: Optional[torch.Tensor] = None,
+                kv_lengths: Optional[torch.Tensor] = None):
         b, s, d = x.shape
         h, hd = self.num_heads, self.head_dim
         qkv = dense(x, self.qkv, self.dtype).view(b, s, 3, h, hd)
         q, k, v = qkv.unbind(2)
-        if cache is None:
+        if page_table is not None:
+            out = self._paged_decode(q, k, v, cache, page_table, kv_lengths,
+                                     attn_start)
+        elif cache is None:
             if self.rope:
                 positions = torch.arange(s, device=x.device)
                 q = apply_rope(q, positions)
@@ -215,6 +227,80 @@ class SelfAttention(nn.Module):
             mask = mask[:, None]                              # (b,1,sq,sk)
         return attention_with_mask(q, k4, v4, mask)
 
+    def _paged_decode(self, q, k, v, cache, page_table, kv_lengths,
+                      attn_start):
+        """Paged KV-cache decode step (s == 1) or paged prefill (s > 1).
+
+        The cache leaves are a block pool shared by every slot;
+        `page_table` (b, mb) int32 maps each slot's blocks and
+        `kv_lengths` (b,) int32 is each slot's write position, in
+        slot-local coordinates, so RoPE rotates each slot at its own
+        offset. The incoming tokens occupy positions `kv_lengths[b] + [0,
+        s)`; their K/V are written in place into block
+        `page_table[b, pos // block_size]`, row `pos % block_size`. A
+        single-token step attends through `paged_decode_attention`; a
+        prefill (prefix-cache suffix, chunk, or speculative verify window)
+        gathers the slot's span once and masks causally per query row."""
+        if kv_lengths is None:
+            raise ValueError(
+                "paged decode needs kv_lengths (per-slot write positions)"
+            )
+        if not self.rope:
+            raise ValueError(
+                "paged decode needs rope=True — slot-local positions "
+                "require relative position encoding"
+            )
+        b, s, h, hd = k.shape
+        kc, vc = cache["cached_key"], cache["cached_value"]
+        block_size = kc.shape[1]
+        pos0 = kv_lengths.to(torch.int32)
+        positions = pos0[:, None] + torch.arange(
+            s, dtype=torch.int32, device=q.device)[None, :]      # (b, s)
+        q = apply_rope(q, positions)
+        k = apply_rope(k, positions)
+        quant = self.kv_cache_dtype == "int8"
+        if quant:
+            k_store, ks_new = _quantize(k)
+            v_store, vs_new = _quantize(v)
+        else:
+            k_store, v_store = k, v
+        # the clamp keeps a retired slot (table row 0, length pinned)
+        # writing inside its table; active slots never reach it — the
+        # engine allocates blocks for every position it dispatches
+        blk_col = torch.clamp(positions // block_size,
+                              max=page_table.shape[1] - 1).long()
+        blk = torch.gather(page_table.long(), 1, blk_col)        # (b, s)
+        off = (positions % block_size).long()
+        # in place, like the flat cache; free slots all write garbage
+        # block 0, and those duplicate indices are harmless because no
+        # live slot ever reads block 0
+        kc[blk, off] = k_store.reshape(b, s, h * hd).to(kc.dtype)
+        vc[blk, off] = v_store.reshape(b, s, h * hd).to(vc.dtype)
+        ks = vs = None
+        if quant:
+            ks, vs = cache["cached_key_scale"], cache["cached_value_scale"]
+            # advanced indices (b, s) on axes 0 and 2 come first: the
+            # written value is (b, s, h), the scales' (b, h, s) transposed
+            ks[blk, :, off] = ks_new.transpose(1, 2)
+            vs[blk, :, off] = vs_new.transpose(1, 2)
+        if s == 1:
+            out = paged_decode_attention(
+                q.reshape(b, 1, h * hd), kc, vc, page_table, pos0,
+                attn_start, n_heads=h, k_scale=ks, v_scale=vs,
+                impl=self.decode_impl,
+            )
+            return out.reshape(b, 1, h, hd)
+        k4 = gather_pages(kc, page_table, h, ks)
+        v4 = gather_pages(vc, page_table, h, vs)
+        kpos = torch.arange(k4.shape[1], device=q.device)
+        valid = kpos[None, None, :] <= positions[:, :, None]     # (b, s, span)
+        if attn_start is not None:
+            valid &= kpos[None, None, :] >= attn_start[:, None, None]
+        cd = q.dtype if quant else kc.dtype
+        out = attention_with_mask(q.to(cd), k4.to(cd), v4.to(cd),
+                                  valid[:, None])
+        return out.to(q.dtype)
+
 
 class EncoderBlock(nn.Module):
     def __init__(self, d: int, num_heads: int, mlp_dim: int, *,
@@ -242,7 +328,8 @@ class EncoderBlock(nn.Module):
                             dropout_rate=dropout_rate)
 
     def forward(self, x, *, train: bool = False, cache=None,
-                attn_start=None):
-        y = self.attn(self.ln1(x), cache=cache, attn_start=attn_start)
+                attn_start=None, page_table=None, kv_lengths=None):
+        y = self.attn(self.ln1(x), cache=cache, attn_start=attn_start,
+                      page_table=page_table, kv_lengths=kv_lengths)
         x = x + F.dropout(y, self.dropout_rate, training=train)
         return x + self.mlp(self.ln2(x), train=train)

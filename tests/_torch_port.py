@@ -7,10 +7,18 @@ behind zeros and ones."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import torch
 
 from ddp_practice_tpu.models import create_model as jax_create_model
 from ddp_practice_tpu_torch.convert import load_flax_params
 from ddp_practice_tpu_torch.models import create_model
+
+# The suite runs as several pytest workers on one machine, and torch's
+# default intra-op pool puts one spinning thread per core in each of
+# them: under that load the small eager ops of these tests ran ~25x
+# slower (the shared-prefix bench case: 57 s against 1 s with one
+# thread, six busy cores beside it). One thread costs nothing alone.
+torch.set_num_threads(1)
 
 # a packable head shape (head_dim 64, even head count): the JAX side's
 # single-token decode really reaches its Pallas kernel (interpret mode)

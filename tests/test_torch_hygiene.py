@@ -5,12 +5,17 @@
   (`ddp_practice_tpu.`, with the dot).
 - The whole package and chip_smoke import in a fresh interpreter where
   jax, flax and the JAX package cannot be imported.
-- The decode-attention CUDA source exists and its builder targets sm_90a.
+- The decode-attention CUDA source exists, holds kernels A-D and names
+  sm_90a, and ops/cuda_build.py compiles it for sm_90a.
+- The host-pure modules copied from the JAX package (the paged pool's
+  allocator and radix cache, the drafter) import only the standard
+  library, torch and the port.
 - Entry points asked for the card raise without one; chip_smoke exits
   non-zero with no result line, both without a card and when it stands
   alone outside the repository.
 """
 
+import ast
 import os
 import pathlib
 import re
@@ -68,10 +73,28 @@ def test_package_imports_with_jax_blocked():
 def test_kernel_source_and_sm90a_build():
     from ddp_practice_tpu_torch.ops import cuda_build
 
-    assert (PORT / "csrc" / "decode_attention.cu").is_file()
+    source = (PORT / "csrc" / "decode_attention.cu").read_text()
+    assert "sm_90a" in source
+    for entry in ("decode_attention", "decode_attention_int8",
+                  "paged_decode_attention", "paged_decode_attention_int8"):
+        assert re.search(rf"^int {entry}\(", source, re.M), entry
     assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
     lib = cuda_build.library_path("decode_attention")
     assert lib.parent == ROOT / "build" / "ddp_practice_tpu_torch"
+
+
+@pytest.mark.parametrize("module", ["serve/kv_pages.py", "serve/spec.py"])
+def test_host_pure_copies_stand_alone(module):
+    tree = ast.parse((PORT / module).read_text())
+    imported = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            imported.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            imported.add(node.module)
+    allowed = ("__future__", "typing", "torch", "ddp_practice_tpu_torch.")
+    assert imported and all(m.startswith(allowed) for m in imported), \
+        sorted(imported)
 
 
 def test_entry_points_refuse_a_missing_card():
@@ -79,15 +102,23 @@ def test_entry_points_refuse_a_missing_card():
         pytest.skip("a card is present: the refusal path is not reachable")
     from ddp_practice_tpu_torch.config import resolve_device
     from ddp_practice_tpu_torch.models import create_model
-    from ddp_practice_tpu_torch.serve.bench import serve_bench
+    from ddp_practice_tpu_torch.serve import bench
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device("cuda")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         create_model("lm_tiny", vocab_size=16, hidden_dim=64, depth=1,
                      num_heads=1, mlp_dim=64)
+    for entry in (bench.serve_bench, bench.shared_prefix_bench,
+                  bench.spec_decode_bench):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            entry(n_requests=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        serve_bench(n_requests=1)
+        bench.serve_bench(n_requests=1, paged=True)
+    for flags in (["--paged"], ["--shared-prefix", "--kv-int8"],
+                  ["--spec-decode"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            bench.main(["--requests", "1", *flags])
 
 
 def test_chip_smoke_fails_without_card_or_repo(tmp_path):
