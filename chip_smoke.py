@@ -7,8 +7,8 @@ NVIDIA H100.
 Phases, each of which raises on failure (nothing is caught and passed):
 
 1. setup: print the card's name and power limit (nvidia-smi), build the
-   CUDA kernels from csrc/ with nvcc and print ptxas's register and spill
-   lines;
+   CUDA kernels from csrc/ with nvcc (both sources at once) and print
+   ptxas's register and spill lines;
 2. kernels: hold each kernel against its plain PyTorch version at lm_base
    shapes (h=12, hd=64) and print its device time (CUDA events around one
    call queued behind a spin kernel, L2 flushed before each, median of
@@ -45,7 +45,30 @@ Phases, each of which raises on failure (nothing is caught and passed):
    time, for the slot and the paged engine (torch.profiler over two
    bursts with every slot busy): host wall per step, device busy time per
    step and the device's idle share, device ops per step, and the
-   attention kernel's share.
+   attention kernel's share;
+8. flash kernels: E (forward) and F+G (backward) against their plain
+   versions at the lm_base training shape (b=8, h=12, d=64, s=2048,
+   causal, bf16) with packed and fused-QKV strides, at s=8192 b=1, folded
+   at h=24 d=32 (the folded leg's shape) and in fp32 at s=512, with
+   kernel, plain and SDPA (F.scaled_dot_product_attention, forward and
+   its autograd backward; the port never calls it) device times and the
+   bound, forward and backward apart;
+9. train: `fit` through the CLI's parser and config, lm_base (d=768,
+   depth 12, 12 heads, mlp 3072) at seq 2048, batch 8, bf16, AdamW lr
+   3e-4, attn_impl flash, 30 steps on the synthetic Markov corpus: the
+   loss at steps 1, 10, 20, 30 (30 below 1), the median step time (CUDA
+   events between step ends), tokens/s, MFU against 989.4e12, eval
+   accuracy and perplexity, peak memory; flash_fwd_packed launches equal
+   12 x (30 + eval batches) and flash_bwd_packed 12 x 30;
+10. legs: 10 steps with RoPE (the packed rows again, through
+   dot_product_attention) and 10 with 24 heads of 32 (the folded rows);
+11. cross-check, one lm_base train step at depth 2, b=2: in fp32 at
+   s=512 the kernels, the plain versions and attn_impl="xla" give one
+   loss (1e-5) and grads (1e-4); in bf16 at s=2048 the tensor-core
+   kernels and the plain versions give one loss (1e-3 relative) and
+   grads within 1e-2 of each grad's norm;
+12. train profile: one bf16 lm_base train step under torch.profiler:
+   host wall, device busy, idle share, device ops, E/F/G's share.
 
 Launch counts are zeroed just before each phase's run and read just
 after it. The second-to-last line is the kernels' JSON record; the last
@@ -56,7 +79,13 @@ Tolerances: fp32 2e-5 (the reference's decode-attention tests). bf16
 |err| <= 1.6e-2 + 2^-7 |ref|: each kernel and its plain version round at
 the same points (q*scale, p, the output) and differ only in fp32
 summation order, which can flip the final bf16 rounding of an output, or
-of one p, by an ulp (2^-7 relative, 7.8e-3 absolute below 1).
+of one p, by an ulp (2^-7 relative, 7.8e-3 absolute below 1). Flash
+holds the output and each of dq, dk and dv apart: element by element at
+the reference flash tests' 2e-5 (forward) and 1e-4 (grads) in fp32, and
+at the bf16 limit above in bf16 (the same rounding points: p, ds and the
+outputs can flip by an ulp); and in norm, ||kernel - plain|| / ||plain||
+under 1e-5 in fp32 and 2e-3 in bf16 per tensor, since ulp flips are rare
+and scattered while a kernel wrong on one tile moves all of its elements.
 """
 
 from __future__ import annotations
@@ -74,6 +103,26 @@ SPIN_CYCLES = 4_000_000            # ~2 ms at the H100's 1.98 GHz boost
 FP32_TOL = (2e-5, 2e-5)            # (atol, rtol)
 BF16_TOL = (1.6e-2, 2.0 ** -7)
 SOURCE = "ddp_practice_tpu_torch/csrc/decode_attention.cu"
+FLASH_SOURCE = "ddp_practice_tpu_torch/csrc/flash_attention.cu"
+FLASH_REPLACES = {
+    "flash_fwd_packed": "ddp_practice_tpu/ops/flash_attention.py:541",
+    "flash_bwd_packed": "ddp_practice_tpu/ops/flash_attention.py:730",
+    "flash_fwd_folded": "ddp_practice_tpu/ops/flash_attention.py:236",
+    "flash_bwd_folded": "ddp_practice_tpu/ops/flash_attention.py:375",
+}
+# H100 SXM dense peaks (NVIDIA data sheet): bf16 on the tensor cores;
+# fp32 runs outside them (the kernels do not use TF32)
+PEAK = {"bfloat16": 989.4e12, "float32": 67e12}
+# flash: per-element (atol, rtol) for (forward, grads), and the limit on
+# each tensor's relative error norm
+FLASH_TOL = {"float32": ((2e-5, 2e-5), (1e-4, 1e-4)),
+             "bfloat16": (BF16_TOL, BF16_TOL)}
+FLASH_REL = {"float32": 1e-5, "bfloat16": 2e-3}
+MODEL_BF16_REL = 1e-2     # a bf16 model step, kernels vs plain versions
+TRAIN_ARGS = ["--model", "lm_base", "--attn_impl", "flash", "--precision",
+              "bf16", "--optimizer", "adamw", "--lr", "3e-4", "--seq_len",
+              "2048", "-b", "8", "-e", "1", "--log_every", "10"]
+TRAIN_STEPS = 30
 REPLACES = {
     "decode_attention": "ddp_practice_tpu/ops/decode_attention.py:199",
     "decode_attention_int8": "ddp_practice_tpu/ops/decode_attention.py:279",
@@ -413,6 +462,177 @@ def paged_kernel_phase(torch, F, ops, flush) -> dict:
     return main
 
 
+# ------------------------------------------------------- kernels E, F, G
+def _flash_bound_ms(b, h, sq, sk, d, causal, dtype, elt, backward):
+    """The larger of the operations and the bytes over the card's peaks.
+    Operations: the products over the (query, key) pairs this causal
+    pattern leaves visible (2 flop per multiply-add), 2 products forward
+    and 5 backward (qk^T again, p^T.do, do.v^T, ds^T.q, ds.k). Bytes:
+    each input read once, each output written once (q, k, v in, out and
+    the fp32 lse out; backward q, k, v, o, do, lse in, dq, dk, dv out)."""
+    offset = sk - sq if causal else 0
+    pairs = sum(min(sk, i + offset + 1) for i in range(sq)) if causal \
+        else sq * sk
+    flops = (10 if backward else 4) * b * h * pairs * d
+    elems = b * h * d * (sq + 2 * sk)
+    if backward:
+        nbytes = (2 * elems + 2 * b * h * sq * d) * elt + b * h * sq * 4
+    else:
+        nbytes = (elems + b * h * sq * d) * elt + b * h * sq * 4
+    t_ops = flops / PEAK[dtype] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def _flash_err(torch, name, got, want, dtype, backward, what):
+    """(max |got - want|, ||got - want|| / ||want||) of one tensor; raises
+    past FLASH_TOL element by element or past FLASH_REL in norm."""
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"non-finite {name} output: {what}")
+    got, want = got.float(), want.float()
+    atol, rtol = FLASH_TOL[dtype][backward]
+    err = (got - want).abs()
+    rel = float((got - want).norm() / want.norm().clamp_min(1e-30))
+    if (err > atol + rtol * want.abs()).any() or rel > FLASH_REL[dtype]:
+        raise AssertionError(
+            f"{name} disagrees with its plain version: {what}: max |err| "
+            f"{float(err.max()):.3e}, relative norm {rel:.3e}")
+    return float(err.max()), rel
+
+
+def check_flash(torch, F, fa, *, label, route, b, h, sq, sk, d, dtype,
+                flush, seed, causal=True):
+    """E and F+G against the plain versions on one shape and route
+    ("qkv": fused-QKV windows, "packed": flat (b, s, h*d), "folded":
+    (b, s, h, d) heads that do not pack); the timed calls are the
+    launches alone on prepared operands."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    tdt = getattr(torch, dtype)
+    elt = torch.tensor([], dtype=tdt).element_size()
+    if route == "qkv":
+        qkv = torch.randn((b, sq, 3 * h * d), generator=g,
+                          device="cuda").to(tdt)
+        w = qkv.unflatten(-1, (3, h, d))
+        q4, k4, v4 = (w[:, :, i].transpose(1, 2) for i in range(3))
+        inputs = [qkv]
+
+        def entry(x, impl):
+            return fa.flash_attention_qkv(x, h, causal=causal, impl=impl)
+    else:
+        q, k, v = (torch.randn((b, s, h, d), generator=g,
+                               device="cuda").to(tdt)
+                   for s in (sq, sk, sk))
+        q4, k4, v4 = (t.transpose(1, 2) for t in (q, k, v))
+        inputs = [q, k, v]
+
+        def entry(*xs, impl):
+            return fa.flash_attention(*xs[:3], causal=causal, impl=impl)
+    row = "packed" if route in ("qkv", "packed") else "folded"
+    assert (fa._heads_per_pack(h, d) is not None) == (row == "packed")
+    do = torch.randn((b, sq, h, d), generator=g, device="cuda").to(tdt)
+    what = f"{label} {dtype}"
+
+    def run(impl):
+        xs = [t.detach().clone().requires_grad_(True) for t in inputs]
+        out = entry(*xs, impl=impl)
+        grads = torch.autograd.grad(out, xs, do)
+        return out.detach(), grads
+
+    out_k, grads_k = run("kernel")
+    out_p, grads_p = run("plain")
+    if route == "qkv":           # the (b, s, 3hd) gradient's three windows
+        grads_k, grads_p = grads_k[0].chunk(3, -1), grads_p[0].chunk(3, -1)
+    err_f, rel_f = _flash_err(torch, "E", out_k, out_p, dtype, False,
+                              f"{what} out")
+    errs = [_flash_err(torch, "F+G", a, b_, dtype, True, f"{what} {n}")
+            for n, a, b_ in zip(("dq", "dk", "dv"), grads_k, grads_p)]
+    err_b = max(e for e, _ in errs)
+    log(f"  {'E, F+G vs plain':>16} {label:<34} {dtype:>8}: max |err| / "
+        f"relative norm: out {err_f:.2e} / {rel_f:.2e}  " + "  ".join(
+            f"{n} {e:.2e} / {r:.2e}"
+            for n, (e, r) in zip(("dq", "dk", "dv"), errs)))
+    # the launches alone, on the forward's own residuals
+    out4 = torch.empty_like(q4)
+    lse = fa._launch_fwd(q4, k4, v4, out4, causal)
+    do4 = do.transpose(1, 2)
+    dq4, dk4, dv4 = (torch.empty_like(t) for t in (q4, k4, v4))
+    row_f, row_b = f"flash_fwd_{row}", f"flash_bwd_{row}"
+    ms_f = _time_ms(torch, lambda: fa._launch_fwd(q4, k4, v4, out4, causal),
+                    flush)
+    ms_b = _time_ms(torch, lambda: fa._launch_bwd(
+        q4, k4, v4, out4, do4, lse, None, dq4, dk4, dv4, causal), flush)
+    plain_f = _time_ms(torch, lambda: fa.flash_attention_plain(
+        q4, k4, v4, causal=causal), flush, runs=5)
+    plain_b = _time_ms(torch, lambda: fa.flash_attention_plain_bwd(
+        q4, k4, v4, out4, do4, lse, causal=causal), flush, runs=5)
+    lib_f = lib_b = None
+    if sq == sk:
+        qs, ks, vs = (t.detach().contiguous().requires_grad_(True)
+                      for t in (q4, k4, v4))
+
+        def sdpa_forward():
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(qs, ks, vs,
+                                                      is_causal=causal)
+
+        lib_f = _time_ms(torch, sdpa_forward, flush)
+        ref = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal)
+        do4c = do4.contiguous()
+        lib_b = _time_ms(torch, lambda: torch.autograd.grad(
+            ref, (qs, ks, vs), do4c, retain_graph=True), flush)
+    rows = {}
+    for name, err, ms, plain, lib, backward in (
+            (row_f, err_f, ms_f, plain_f, lib_f, False),
+            (row_b, err_b, ms_b, plain_b, lib_b, True)):
+        bound, by = _flash_bound_ms(b, h, sq, sk, d, causal, dtype, elt,
+                                    backward)
+        rows[name] = {"kernel": name, "shape": label, "dtype": dtype,
+                      "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                      "library_ms": lib, "bound_ms": bound, "bound_by": by}
+        lib_txt = "-" if lib is None else f"{lib:8.3f}"
+        log(f"  {name:>16} {label:<34} {dtype:>8}: err {err:.2e}  "
+            f"kernel {ms:8.3f} ms  plain {plain:8.3f} ms  sdpa {lib_txt} ms"
+            f"  bound {bound:7.3f} ms ({by})")
+    return rows
+
+
+def flash_kernel_phase(torch, F, fa, flush) -> dict:
+    """E/F/G over the shapes; returns {row: main-path row} with
+    max_abs_err raised to the sweep's worst. The packed rows' main path is
+    the lm_base training shape through the fused-QKV windows, the folded
+    rows' the folded leg's (24 heads of 32)."""
+    worst = {n: 0.0 for n in FLASH_REPLACES}
+    main = {}
+    cases = [
+        ("lm_base train b=8 s=2048 fused-qkv", "qkv", 8, 12, 2048, 2048, 64,
+         "bfloat16", True),
+        ("lm_base train b=8 s=2048 packed", "packed", 8, 12, 2048, 2048, 64,
+         "bfloat16", False),
+        ("b=1 s=8192 packed", "packed", 1, 12, 8192, 8192, 64, "bfloat16",
+         False),
+        ("folded leg b=8 s=2048 h=24 d=32", "folded", 8, 24, 2048, 2048, 32,
+         "bfloat16", True),
+        ("fp32 b=2 s=512 fused-qkv", "qkv", 2, 12, 512, 512, 64, "float32",
+         False),
+        ("fp32 b=2 s=512 h=24 d=32", "folded", 2, 24, 512, 512, 32,
+         "float32", False),
+    ]
+    for seed, (label, route, b, h, sq, sk, d, dtype, is_main) in \
+            enumerate(cases):
+        rows = check_flash(torch, F, fa, label=label, route=route, b=b, h=h,
+                           sq=sq, sk=sk, d=d, dtype=dtype, flush=flush,
+                           seed=4000 + seed)
+        for name, row in rows.items():
+            worst[name] = max(worst[name], row["max_abs_err"])
+            if is_main:
+                main[name] = row
+    for name, row in main.items():
+        row["max_abs_err"] = worst[name]
+    return main
+
+
 # -------------------------------------------------------------------- serve
 def _lm_base(torch, policy, seed=0, **kw):
     from ddp_practice_tpu_torch.config import PrecisionPolicy
@@ -681,6 +901,221 @@ def profile_phase(torch, engine_name):
     torch.cuda.empty_cache()
 
 
+# -------------------------------------------------------------------- train
+def train_phase(torch, fa, extra, *, steps, label, row, metrics_file=None):
+    """`fit` through the CLI's parser and config (lm_base, bf16, AdamW,
+    flash) for `steps` steps; each step's loss stays on the device and a
+    CUDA event marks its end (no extra readback). Checks that the loss
+    fell and that `row`'s kernels launched depth x (steps + eval batches)
+    forward and depth x steps backward, and nothing else. Returns the
+    trainer (for the profile) and the report."""
+    from ddp_practice_tpu_torch.cli import build_parser, config_from_args
+    from ddp_practice_tpu_torch.train.loop import Trainer
+    from ddp_practice_tpu_torch.utils.flops import (
+        chip_peak_flops,
+        lm_train_flops_per_token,
+    )
+
+    argv = TRAIN_ARGS + ["--max_steps", str(steps)] + extra
+    if metrics_file:
+        argv += ["--metrics_file", metrics_file]
+    config = config_from_args(build_parser().parse_args(argv))
+    trainer = Trainer(config)
+    losses, ends = [], []
+    step = trainer.train_step
+
+    def recorded(state, batch):
+        state, metrics = step(state, batch)
+        losses.append(metrics["loss"])
+        ends.append(torch.cuda.Event(enable_timing=True))
+        ends[-1].record()
+        return state, metrics
+
+    trainer.train_step = recorded
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    t0 = time.monotonic()
+    summary = trainer.fit()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = dict(fa.LAUNCHES)
+    loss = [float(x) for x in losses]
+    step_ms = statistics.median(ends[i - 1].elapsed_time(ends[i])
+                                for i in range(1, len(ends)))
+    model = trainer.model
+    tokens = trainer.global_batch * config.seq_len
+    flops = lm_train_flops_per_token(
+        hidden_dim=model.hidden_dim, depth=model.depth,
+        mlp_dim=model.mlp_dim, vocab_size=model.vocab_size,
+        seq_len=config.seq_len) * tokens
+    peak = chip_peak_flops(torch.cuda.get_device_name(0))
+    eval_batches = len(trainer.eval_loader)
+    report = {
+        "loss": loss, "step_ms": step_ms,
+        "tokens_per_s": tokens / (step_ms / 1e3),
+        "mfu": flops / (step_ms / 1e3) / peak if peak else None,
+        "accuracy": summary["accuracy"],
+        "perplexity": summary["perplexity"],
+        "fit_tokens_per_s": summary["tokens_per_sec_per_chip"],
+        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "launches": launches, "eval_batches": eval_batches, "wall_s": wall,
+    }
+    shown = [i for i in (1, 10, 20, 30) if i <= len(loss)]
+    log(f"train[{label}] {config.model} {config.precision} "
+        f"{config.optimizer}, seq {config.seq_len}, batch "
+        f"{trainer.global_batch}, {steps} steps + {eval_batches} eval "
+        f"batches, wall {wall:.1f} s: loss "
+        + ", ".join(f"step {i} {loss[i - 1]:.4f}" for i in shown))
+    mfu = "not measured" if peak is None else f"{report['mfu']:.4f}"
+    log(f"  median step {step_ms:.2f} ms (CUDA events between step ends), "
+        f"{report['tokens_per_s']:.0f} tokens/s, MFU {mfu} against "
+        f"{(peak or 0) / 1e12:.1f} TFLOP/s ({flops / 1e12:.2f} TFLOP/step "
+        f"analytic); "
+        f"fit's own {report['fit_tokens_per_s']:.0f} tokens/s incl. the "
+        f"first steps; eval accuracy {report['accuracy']:.4f} perplexity "
+        f"{report['perplexity']:.3f}; peak memory "
+        f"{report['peak_gib']:.2f} GiB; launches {launches}")
+    if not loss[-1] < loss[0]:
+        raise AssertionError(f"train[{label}]: loss did not fall: {loss}")
+    want = {n: 0 for n in fa.LAUNCHES}
+    want[f"flash_fwd_{row}"] = model.depth * (steps + eval_batches)
+    want[f"flash_bwd_{row}"] = model.depth * steps
+    if launches != want:
+        raise AssertionError(f"train[{label}]: launches {launches}, want "
+                             f"{want}")
+    return trainer, report
+
+
+def _model_step(torch, fa, *, precision, attn_impl, impl, seq):
+    """One train step's loss and parameter grads of lm_base at depth 2,
+    b=2, from seed 3, with every flash entry forced to `impl`."""
+    from ddp_practice_tpu_torch.config import PrecisionPolicy
+    from ddp_practice_tpu_torch.models import create_model
+    from ddp_practice_tpu_torch.ops.losses import cross_entropy
+
+    g = torch.Generator().manual_seed(5)
+    tokens = torch.randint(0, 64, (2, seq + 1), generator=g).cuda()
+    model = create_model("lm_base", device="cuda", seed=3, depth=2,
+                         max_len=seq, vocab_size=64, attn_impl=attn_impl,
+                         policy=PrecisionPolicy.from_name(precision))
+    fa.reset_launches()
+    with fa.forced_impl(impl):
+        loss = cross_entropy(model(tokens[:, :-1], train=True),
+                             tokens[:, 1:])
+        loss.backward()
+    torch.cuda.synchronize()
+    want = 2 if impl == "kernel" else 0
+    if (fa.LAUNCHES["flash_fwd_packed"], fa.LAUNCHES["flash_bwd_packed"]) \
+            != (want, want):
+        raise AssertionError(f"cross-check {precision} {impl}: launches "
+                             f"{fa.LAUNCHES}")
+    grads = {n: p.grad.detach() for n, p in model.named_parameters()}
+    del model
+    return float(loss.detach()), grads
+
+
+def train_cross_check(torch, fa):
+    """One lm_base train step at depth 2, b=2, with the kernels against
+    the same step without them. fp32 at s=512: the kernels, the plain
+    versions and attn_impl="xla" give one loss (1e-5) and grads (1e-4
+    absolute and relative). bf16 at s=2048 (the tensor-core kernels at
+    the training length): the kernels and the plain versions give one
+    loss (1e-3 relative) and grads whose error norm stays under
+    MODEL_BF16_REL of each grad's norm."""
+    runs = {impl: _model_step(torch, fa, precision="fp32", attn_impl=attn,
+                              impl=impl, seq=512)
+            for attn, impl in (("flash", "kernel"), ("flash", "plain"),
+                               ("xla", "auto"))}
+    want_loss, want = runs["kernel"]
+    worst = 0.0
+    for label in ("plain", "auto"):
+        got_loss, got = runs[label]
+        if abs(got_loss - want_loss) > 1e-5 * max(1.0, abs(want_loss)):
+            raise AssertionError(f"cross-check: {label} loss {got_loss} vs "
+                                 f"kernel {want_loss}")
+        for name, gk in want.items():
+            err = (got[name] - gk).abs()
+            if (err > 1e-4 + 1e-4 * gk.abs()).any():
+                raise AssertionError(f"cross-check: {label} grad {name} "
+                                     f"max |err| {float(err.max()):.3e}")
+            worst = max(worst, float(err.max()))
+    log(f"cross-check fp32 (lm_base depth 2, s=512, b=2): loss kernel "
+        f"{want_loss:.7f} plain {runs['plain'][0]:.7f} xla "
+        f"{runs['auto'][0]:.7f}; grads agree, max |err| {worst:.2e}")
+    del runs, want
+    k_loss, k_grads = _model_step(torch, fa, precision="bf16",
+                                  attn_impl="flash", impl="kernel", seq=2048)
+    p_loss, p_grads = _model_step(torch, fa, precision="bf16",
+                                  attn_impl="flash", impl="plain", seq=2048)
+    if abs(k_loss - p_loss) > 1e-3 * abs(p_loss):
+        raise AssertionError(f"cross-check bf16: kernel loss {k_loss} vs "
+                             f"plain {p_loss}")
+    rel = {n: float((k_grads[n] - g).norm() / g.norm().clamp_min(1e-30))
+           for n, g in p_grads.items()}
+    worst_name = max(rel, key=rel.get)
+    if rel[worst_name] > MODEL_BF16_REL:
+        raise AssertionError(f"cross-check bf16: grad {worst_name} relative "
+                             f"error norm {rel[worst_name]:.3e}")
+    log(f"cross-check bf16 (lm_base depth 2, s=2048, b=2): loss kernel "
+        f"{k_loss:.7f} plain {p_loss:.7f}; grads' relative error norm "
+        f"median {statistics.median(rel.values()):.2e}, worst "
+        f"{rel[worst_name]:.2e} ({worst_name})")
+    torch.cuda.empty_cache()
+
+
+def train_profile(torch, trainer):
+    """One bf16 lm_base train step under torch.profiler, after warm
+    steps: host wall per step (ends in a synchronize), device busy time,
+    idle share, device ops per step, E/F/G's share of device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = trainer._to_device(next(iter(trainer.train_loader)))
+    for _ in range(2):
+        trainer.state, _ = trainer.train_step(trainer.state, batch)
+    torch.cuda.synchronize()
+    n = 3
+    t0 = time.perf_counter()
+    for _ in range(n):
+        trainer.state, _ = trainer.train_step(trainer.state, batch)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / n
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.state, _ = trainer.train_step(trainer.state, batch)
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in prof.events()
+               if getattr(e, "device_type", None) == cuda]
+    if not kernels:
+        log(f"train profile: torch.profiler recorded no device events; "
+            f"device time not measured (host wall {host_ms:.2f} ms/step)")
+        return
+    by_kind = {"E": 0.0, "F": 0.0, "G": 0.0, "matmul": 0.0, "other": 0.0}
+    for e in kernels:
+        name = e.name.lower()
+        kind = ("E" if "flash_fwd" in name
+                else "F" if "flash_bwd_dkdv" in name
+                else "G" if "flash_bwd_dq" in name
+                else "matmul" if any(t in name for t in (
+                    "gemm", "cutlass", "xmma", "nvjet", "gemv"))
+                else "other")
+        by_kind[kind] += e.time_range.elapsed_us()
+    device_ms = sum(by_kind.values()) / 1e3
+    log(f"train profile (lm_base bf16 step, b=8, s=2048): host wall "
+        f"{host_ms:.2f} ms/step, device busy {device_ms:.2f} ms/step, "
+        f"device idle share {max(0.0, 1 - device_ms / host_ms):.3f}, "
+        f"{len(kernels)} device ops/step; device time by kind "
+        + ", ".join(f"{k} {v / 1e3 / device_ms:.3f}"
+                    for k, v in by_kind.items()))
+    per_name = {}
+    for e in kernels:
+        c, us = per_name.get(e.name, (0, 0.0))
+        per_name[e.name] = (c + 1, us + e.time_range.elapsed_us())
+    for name, (c, us) in sorted(per_name.items(),
+                                key=lambda kv: -kv[1][1])[:8]:
+        log(f"  {us / 1e3:9.3f} ms/step {c:4d} calls/step  {name[:100]}")
+
+
 def main() -> int:
     import torch
 
@@ -691,6 +1126,7 @@ def main() -> int:
 
     from ddp_practice_tpu_torch.ops import cuda_build
     from ddp_practice_tpu_torch.ops import decode_attention as ops
+    from ddp_practice_tpu_torch.ops import flash_attention as fa
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -703,9 +1139,9 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
     t0 = time.monotonic()
-    cuda_build.build(["decode_attention"])
-    log(f"built {SOURCE} (kernels A-D) for sm_90a in "
-        f"{time.monotonic() - t0:.1f} s")
+    cuda_build.build(["decode_attention", "flash_attention"])
+    log(f"built {SOURCE} (kernels A-D) and {FLASH_SOURCE} (E-G) for sm_90a "
+        f"in {time.monotonic() - t0:.1f} s")
     for name, info in cuda_build.ptxas_info.items():
         for line in info.splitlines():
             if "registers" in line or "spill" in line:
@@ -718,7 +1154,25 @@ def main() -> int:
     log(f"kernel phase, paged pool (block {BS}; device times are medians "
         f"of {TIMED_RUNS}):")
     main_rows.update(paged_kernel_phase(torch, F, ops, flush))
+    log(f"kernel phase, flash attention (device times are medians of "
+        f"{TIMED_RUNS}, plain of 5):")
+    flash_rows = flash_kernel_phase(torch, F, fa, flush)
     del flush
+    torch.cuda.empty_cache()
+
+    trainer, train = train_phase(
+        torch, fa, ["--synthetic_size", "600000"], steps=TRAIN_STEPS,
+        label="learned", row="packed",
+        metrics_file="build/train_metrics.jsonl")
+    train_profile(torch, trainer)
+    del trainer
+    torch.cuda.empty_cache()
+    train_phase(torch, fa, ["--pos_emb", "rope"], steps=10, label="rope",
+                row="packed")
+    _, folded = train_phase(torch, fa, ["--num_heads", "24"], steps=10,
+                            label="24 heads of 32", row="folded")
+    torch.cuda.empty_cache()
+    train_cross_check(torch, fa)
 
     _, serve_launches = serve_phase(torch, ops, n_requests=12,
                                     kv_cache_dtype=None, paged=True)
@@ -739,6 +1193,10 @@ def main() -> int:
         "paged_decode_attention": serve_launches["paged_decode_attention"],
         "paged_decode_attention_int8":
             prefix8_launches["paged_decode_attention_int8"],
+        "flash_fwd_packed": train["launches"]["flash_fwd_packed"],
+        "flash_bwd_packed": train["launches"]["flash_bwd_packed"],
+        "flash_fwd_folded": folded["launches"]["flash_fwd_folded"],
+        "flash_bwd_folded": folded["launches"]["flash_bwd_folded"],
     }
     idle = [name for name, n in launches.items() if n <= 0]
     if idle:
@@ -751,6 +1209,14 @@ def main() -> int:
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": "bytes", "library_ms": row["library_ms"],
+        })
+    for name, row in flash_rows.items():
+        kernels.append({
+            "name": name, "route": "cuda", "source": FLASH_SOURCE,
+            "replaces": FLASH_REPLACES[name], "launches": launches[name],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })
     log(smi)   # name, power limit: as nvidia-smi prints them
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,1180 @@
+// Streaming (flash) attention for sm_90a, forward and backward, over
+// strided (batch, head, position, head_dim) operands. Built with nvcc into a
+// shared library with a plain C interface
+// (ddp_practice_tpu_torch/ops/cuda_build.py) and launched through ctypes by
+// ddp_practice_tpu_torch/ops/flash_attention.py.
+//
+// Replaces the Pallas TPU kernels of ddp_practice_tpu/ops/flash_attention.py:
+//   kernel E (flash_fwd_kernel, flash_fwd_tc_kernel): _fwd_kernel (called by
+//     _flash_fwd, folded (b*h, s, d) operands) and _fwd_kernel_packed
+//     (_flash_fwd_packed, flat (b, s, h*d) operands or one fused
+//     (b, s, 3*h*d) projection);
+//   kernel F (flash_bwd_dkdv_kernel, _tc_): _dkdv_kernel and
+//     _dkdv_kernel_packed;
+//   kernel G (flash_bwd_dq_kernel, _tc_): _dq_kernel and _dq_kernel_packed.
+// Each comes in two variants: fp32 operands run the FMA kernels, bf16
+// operands the tensor-core (_tc_) kernels; the arithmetic is the same.
+// Every operand comes with element strides for (batch, head, position) and a
+// unit head_dim stride, so the folded, packed and fused-QKV layouts are one
+// kernel each: the fused layout is three column windows (offsets 0, h*d,
+// 2*h*d) of one buffer, and F and G write dq, dk and dv straight into the
+// windows of one (b, s, 3*h*d) gradient.
+//
+// What it computes, per (batch, head), with Tq the operands' dtype, scale =
+// 1/sqrt(d) rounded to Tq (the reference multiplies a Tq tile by a weakly
+// typed Python float) and offset = s_k - s_q under causal masking (key j is
+// visible to query i iff j <= i + offset, bottom-right aligned), else 0:
+//   qs    = round_Tq(q * scale)
+//   s_ij  = <qs_i, k_j>                       fp32 sums; -1e30 where masked
+//   forward, online over key tiles of 64 (fp32 at d=256: 32):
+//     m' = max(m, rowmax s);  p = exp(s - m');  l' = exp(m - m') l + rowsum p
+//     acc' = exp(m - m') acc + round_Tq(p) . v
+//     out = round_Tq(acc / l);  lse = m + log(max(l, 1e-30))   (fp32)
+//   backward, from the saved lse:
+//     p_ij  = exp(s_ij - lse_i);  dp_ij = <do_i, v_j>
+//     delta_i = sum_d do_id o_id - g_lse_i       (g_lse optional)
+//     ds_ij = p_ij (dp_ij - delta_i)
+//     dv_j = sum_i round_Tq(p_ij) do_i;  dk_j = sum_i round_Tq(ds_ij) qs_i
+//     dq_i = round_Tq((sum_j round_Tq(ds_ij) k_j) * (1/sqrt(d)))
+// These are the reference kernels' rounding points. They keep the
+// accumulator normalised every step (no final divide); here it is divided
+// once at the end, so an fp32 run agrees with them to summation order.
+//
+// Bound: at the lm_base training shape (b=8, h=12, s=2048, d=64, bf16,
+// causal) operations. The forward does 4*b*h*s_q*s_k*d flops (two products),
+// the backward 10*b*h*s_q*s_k*d (qk^T recomputed, p^T.do, do.v^T, ds^T.q,
+// ds.k), both halved under causal masking because tiles above the diagonal
+// are skipped; the bytes are each operand read once and each result written
+// once (~12 MB forward, ~25 MB backward per layer), under a millisecond's
+// worth of the card's 3.35 TB/s next to ~52 GFLOP forward. The peak is the
+// tensor cores' 989 TFLOP/s (bf16); fp32 runs outside them at 67 TFLOP/s.
+//
+// Design (a simple first kernel). A block of 256 threads owns one
+// (batch*head, 64-row tile) and streams the other operand's tiles through
+// shared memory; each thread owns a 4x4 patch of the score tile (16 row
+// groups x 16 column groups, so a row's reductions stay inside one half
+// warp), where the mask, the online softmax and the rounding happen. E
+// skips key tiles wholly above the diagonal; F (one block per key tile)
+// starts its query loop at the first query tile that sees the key tile; G
+// (one block per query tile) stops at its last visible key tile. F and G
+// each recompute delta per query tile from do and o, as _dq_kernel_packed
+// does; neither reads anything back to the host.
+//   fp32: the products are FMAs on the CUDA cores (TF32 would break the
+//     reference's fp32 tolerances), over tiles staged as fp32 with rows
+//     padded by one to keep the banks apart; each thread keeps its rows
+//     of the output accumulator in registers.
+//   bf16: the products run on the tensor cores through WMMA (mma.sync
+//     16x16x16, fp32 accumulation) over bf16 tiles; score tiles pass
+//     through shared memory as fp32 for the threads' patches (see the
+//     tensor-core section below). No wgmma, TMA or warp specialisation
+//     yet: the loads are synchronous and the warps do everything.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <mma.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace {
+
+constexpr int kThreads = 256;          // 16 row groups x 16 column groups
+constexpr float kMasked = -1e30f;      // the reference's causal penalty
+
+// error codes below zero are this library's own; >0 are cudaError_t
+constexpr int kErrHeadDim = -1;
+constexpr int kErrDType = -3;
+
+enum DType { kF32 = 0, kBF16 = 1 };
+enum Operand { kQ = 0, kK, kV, kO, kDO, kDQ, kDK, kDV, kOperands };
+
+struct Params {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* o;          // forward: unused; backward: the saved output
+  const void* dout;       // backward: the output's cotangent
+  void* out;              // forward result, strides st[kO]
+  void* dq;
+  void* dk;
+  void* dv;
+  float* lse;             // (b, h, s_q) fp32: forward writes, backward reads
+  const float* glse;      // (b, h, s_q) fp32 lse cotangent, or nullptr
+  long long st[kOperands][3];  // element strides (batch, head, position)
+  int h, sq, sk, causal, offset;
+  float q_scale;          // 1/sqrt(d) rounded to the operands' dtype
+  float dq_scale;         // 1/sqrt(d) in fp32
+};
+
+template <typename T> __device__ __forceinline__ float to_float(T x);
+template <> __device__ __forceinline__ float to_float<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T> __device__ __forceinline__ T from_float(float x);
+template <> __device__ __forceinline__ float from_float<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// round-to-nearest-even into T and back: the reference's `.astype(T)`
+template <typename T> __device__ __forceinline__ float round_to(float x) {
+  return to_float<T>(from_float<T>(x));
+}
+
+// reductions over the 16 lanes of one row group (a half warp)
+__device__ __forceinline__ float row_max(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// Tile sizes: 64 rows, 32 at d=256 (the register and shared-memory budget).
+template <int D> struct Tile {
+  static constexpr int ROWS = D == 256 ? 32 : 64;
+  static constexpr int LD = D + 1;           // padded row of a (ROWS, D) tile
+  static constexpr int LS = ROWS + 1;        // padded row of a (ROWS, ROWS)
+  static constexpr int RT = ROWS / 16;       // rows per thread
+  static constexpr int CT = ROWS / 16;       // score columns per thread
+  static constexpr int DT = D / 16;          // head_dim columns per thread
+  static constexpr size_t kFwdSmem =
+      (3 * ROWS * LD + ROWS * LS) * sizeof(float);
+  static constexpr size_t kBwdSmem =
+      (4 * ROWS * LD + 2 * ROWS * LS + 2 * ROWS) * sizeof(float);
+};
+
+// Stage rows [row0, row0 + n) of one head into a (ROWS, D+1) fp32 tile,
+// zero past n. `scale` > 0 makes it the reference's round_T(x * scale).
+template <typename T, int D, int ROWS>
+__device__ __forceinline__ void load_tile(float* dst, const T* src,
+                                          long long ss, int row0, int n,
+                                          float scale) {
+  for (int e = threadIdx.x; e < ROWS * D; e += kThreads) {
+    const int r = e / D, c = e % D;
+    float x = 0.f;
+    if (r < n) {
+      x = to_float<T>(src[(row0 + r) * ss + c]);
+      if (scale > 0.f) x = round_to<T>(x * scale);
+    }
+    dst[r * (D + 1) + c] = x;
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ const T* head_ptr(const void* base,
+                                             const long long* st, int b,
+                                             int hh) {
+  return static_cast<const T*>(base) + b * st[0] + hh * st[1];
+}
+template <typename T>
+__device__ __forceinline__ T* head_ptr_mut(void* base, const long long* st,
+                                           int b, int hh) {
+  return static_cast<T*>(base) + b * st[0] + hh * st[1];
+}
+
+// ------------------------------------------------------------ kernel E
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_fwd_kernel(const Params p) {
+  using TL = Tile<D>;
+  constexpr int ROWS = TL::ROWS, LD = TL::LD, LS = TL::LS;
+  constexpr int RT = TL::RT, CT = TL::CT, DT = TL::DT;
+  extern __shared__ float smem[];
+  float* sQ = smem;                  // (ROWS, LD) scaled, rounded queries
+  float* sK = sQ + ROWS * LD;        // (ROWS, LD)
+  float* sV = sK + ROWS * LD;        // (ROWS, LD)
+  float* sP = sV + ROWS * LD;        // (ROWS, LS) round_T(p)
+
+  const int tid = threadIdx.x, rg = tid >> 4, cg = tid & 15;
+  const int bh = blockIdx.y, b = bh / p.h, hh = bh - b * p.h;
+  const int q0 = blockIdx.x * ROWS;
+  const int nq = min(ROWS, p.sq - q0);
+  const T* qp = head_ptr<T>(p.q, p.st[kQ], b, hh);
+  const T* kp = head_ptr<T>(p.k, p.st[kK], b, hh);
+  const T* vp = head_ptr<T>(p.v, p.st[kV], b, hh);
+  T* op = head_ptr_mut<T>(p.out, p.st[kO], b, hh);
+
+  load_tile<T, D, ROWS>(sQ, qp, p.st[kQ][2], q0, nq, p.q_scale);
+
+  float m[RT], l[RT], acc[RT][DT];
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < DT; ++j) acc[i][j] = 0.f;
+  }
+  // key tiles wholly above the diagonal contribute nothing: stop before
+  const int k_end =
+      p.causal ? min(p.sk, q0 + nq - 1 + p.offset + 1) : p.sk;
+  for (int k0 = 0; k0 < k_end; k0 += ROWS) {
+    const int nk = min(ROWS, p.sk - k0);
+    __syncthreads();   // the previous tile's readers are done
+    load_tile<T, D, ROWS>(sK, kp, p.st[kK][2], k0, nk, 0.f);
+    load_tile<T, D, ROWS>(sV, vp, p.st[kV][2], k0, nk, 0.f);
+    __syncthreads();
+
+    float s[RT][CT];
+#pragma unroll
+    for (int i = 0; i < RT; ++i)
+#pragma unroll
+      for (int j = 0; j < CT; ++j) s[i][j] = 0.f;
+#pragma unroll 8
+    for (int x = 0; x < D; ++x) {
+      float a[RT], c[CT];
+#pragma unroll
+      for (int i = 0; i < RT; ++i) a[i] = sQ[(rg * RT + i) * LD + x];
+#pragma unroll
+      for (int j = 0; j < CT; ++j) c[j] = sK[(cg + 16 * j) * LD + x];
+#pragma unroll
+      for (int i = 0; i < RT; ++i)
+#pragma unroll
+        for (int j = 0; j < CT; ++j) s[i][j] = fmaf(a[i], c[j], s[i][j]);
+    }
+
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      const int qi = q0 + rg * RT + i;
+      float mt = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < CT; ++j) {
+        const int kj = k0 + cg + 16 * j;
+        if (kj >= p.sk)
+          s[i][j] = -INFINITY;            // past the end: no mass at all
+        else if (p.causal && kj > qi + p.offset)
+          s[i][j] = kMasked;
+        mt = fmaxf(mt, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], row_max(mt));
+      const float alpha = expf(m[i] - m_new);   // 0 on the first tile
+      float ps = 0.f;
+#pragma unroll
+      for (int j = 0; j < CT; ++j) {
+        const float pr = expf(s[i][j] - m_new);
+        ps += pr;
+        sP[(rg * RT + i) * LS + cg + 16 * j] = round_to<T>(pr);
+      }
+      l[i] = alpha * l[i] + row_sum(ps);
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < DT; ++j) acc[i][j] *= alpha;
+    }
+    __syncthreads();
+
+#pragma unroll 8
+    for (int x = 0; x < ROWS; ++x) {
+      float a[RT], c[DT];
+#pragma unroll
+      for (int i = 0; i < RT; ++i) a[i] = sP[(rg * RT + i) * LS + x];
+#pragma unroll
+      for (int j = 0; j < DT; ++j) c[j] = sV[x * LD + cg + 16 * j];
+#pragma unroll
+      for (int i = 0; i < RT; ++i)
+#pragma unroll
+        for (int j = 0; j < DT; ++j) acc[i][j] = fmaf(a[i], c[j], acc[i][j]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    const int r = rg * RT + i;
+    if (r >= nq) continue;
+    const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
+    T* row = op + (q0 + r) * p.st[kO][2];
+#pragma unroll
+    for (int j = 0; j < DT; ++j) row[cg + 16 * j] = from_float<T>(acc[i][j] * inv);
+    if (cg == 0)
+      p.lse[static_cast<long long>(bh) * p.sq + q0 + r] =
+          m[i] + logf(fmaxf(l[i], 1e-30f));
+  }
+}
+
+// Backward helpers: stage one query tile (scaled queries, do, lse) and its
+// delta = rowsum(do * o) - g_lse. Ends with the block synchronised.
+template <typename T, int D>
+__device__ __forceinline__ void stage_queries(const Params& p, int b, int hh,
+                                              int q0, int nq, float* sQ,
+                                              float* sdO, float* sLse,
+                                              float* sDelta) {
+  using TL = Tile<D>;
+  constexpr int ROWS = TL::ROWS, LD = TL::LD, RT = TL::RT;
+  const int tid = threadIdx.x, rg = tid >> 4, cg = tid & 15;
+  const long long stat = static_cast<long long>(b * p.h + hh) * p.sq + q0;
+  load_tile<T, D, ROWS>(sQ, head_ptr<T>(p.q, p.st[kQ], b, hh), p.st[kQ][2],
+                        q0, nq, p.q_scale);
+  load_tile<T, D, ROWS>(sdO, head_ptr<T>(p.dout, p.st[kDO], b, hh),
+                        p.st[kDO][2], q0, nq, 0.f);
+  for (int r = tid; r < ROWS; r += kThreads)
+    sLse[r] = r < nq ? p.lse[stat + r] : 0.f;
+  __syncthreads();
+  const T* op = head_ptr<T>(p.o, p.st[kO], b, hh);
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    const int r = rg * RT + i;
+    float acc = 0.f;
+    if (r < nq) {
+      const T* orow = op + (q0 + r) * p.st[kO][2];
+      for (int c = cg; c < D; c += 16)
+        acc = fmaf(sdO[r * LD + c], to_float<T>(orow[c]), acc);
+    }
+    acc = row_sum(acc);
+    if (cg == 0) {
+      const float g = (p.glse != nullptr && r < nq) ? p.glse[stat + r] : 0.f;
+      sDelta[r] = acc - g;
+    }
+  }
+  __syncthreads();
+}
+
+// ------------------------------------------------------------ kernel F
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dkdv_kernel(const Params p) {
+  using TL = Tile<D>;
+  constexpr int ROWS = TL::ROWS, LD = TL::LD, LS = TL::LS;
+  constexpr int RT = TL::RT, CT = TL::CT, DT = TL::DT;
+  extern __shared__ float smem[];
+  float* sK = smem;                  // (ROWS, LD) this block's keys
+  float* sV = sK + ROWS * LD;
+  float* sQ = sV + ROWS * LD;        // (ROWS, LD) scaled, rounded queries
+  float* sdO = sQ + ROWS * LD;
+  float* sP = sdO + ROWS * LD;       // (ROWS, LS) round_T(p^T): [key][query]
+  float* sdS = sP + ROWS * LS;       // (ROWS, LS) round_T(ds^T)
+  float* sLse = sdS + ROWS * LS;     // (ROWS)
+  float* sDelta = sLse + ROWS;       // (ROWS)
+
+  const int tid = threadIdx.x, rg = tid >> 4, cg = tid & 15;
+  const int bh = blockIdx.y, b = bh / p.h, hh = bh - b * p.h;
+  const int k0 = blockIdx.x * ROWS;
+  const int nk = min(ROWS, p.sk - k0);
+  load_tile<T, D, ROWS>(sK, head_ptr<T>(p.k, p.st[kK], b, hh), p.st[kK][2],
+                        k0, nk, 0.f);
+  load_tile<T, D, ROWS>(sV, head_ptr<T>(p.v, p.st[kV], b, hh), p.st[kV][2],
+                        k0, nk, 0.f);
+
+  float dk[RT][DT], dv[RT][DT];
+#pragma unroll
+  for (int i = 0; i < RT; ++i)
+#pragma unroll
+    for (int j = 0; j < DT; ++j) dk[i][j] = dv[i][j] = 0.f;
+
+  // the first query tile that sees key k0 under causal masking
+  int q_begin = 0;
+  if (p.causal) q_begin = max(0, k0 - p.offset) / ROWS * ROWS;
+  for (int q0 = q_begin; q0 < p.sq; q0 += ROWS) {
+    const int nq = min(ROWS, p.sq - q0);
+    __syncthreads();   // the previous tile's readers are done
+    stage_queries<T, D>(p, b, hh, q0, nq, sQ, sdO, sLse, sDelta);
+
+    // s^T and dp^T: rows are this block's keys, columns the tile's queries
+    float s[RT][CT], dp[RT][CT];
+#pragma unroll
+    for (int i = 0; i < RT; ++i)
+#pragma unroll
+      for (int j = 0; j < CT; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+    for (int x = 0; x < D; ++x) {
+      float ak[RT], av[RT], cq[CT], cd[CT];
+#pragma unroll
+      for (int i = 0; i < RT; ++i) {
+        ak[i] = sK[(rg * RT + i) * LD + x];
+        av[i] = sV[(rg * RT + i) * LD + x];
+      }
+#pragma unroll
+      for (int j = 0; j < CT; ++j) {
+        cq[j] = sQ[(cg + 16 * j) * LD + x];
+        cd[j] = sdO[(cg + 16 * j) * LD + x];
+      }
+#pragma unroll
+      for (int i = 0; i < RT; ++i)
+#pragma unroll
+        for (int j = 0; j < CT; ++j) {
+          s[i][j] = fmaf(ak[i], cq[j], s[i][j]);
+          dp[i][j] = fmaf(av[i], cd[j], dp[i][j]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      const int kk = k0 + rg * RT + i;
+#pragma unroll
+      for (int j = 0; j < CT; ++j) {
+        const int c = cg + 16 * j;
+        const bool valid = kk < p.sk && c < nq &&
+                           (!p.causal || kk <= q0 + c + p.offset);
+        const float pr = valid ? expf(s[i][j] - sLse[c]) : 0.f;
+        const float ds = pr * (dp[i][j] - sDelta[c]);
+        sP[(rg * RT + i) * LS + c] = round_to<T>(pr);
+        sdS[(rg * RT + i) * LS + c] = round_to<T>(ds);
+      }
+    }
+    __syncthreads();
+
+    // dv += p^T . do;  dk += ds^T . qs  (contracting over the tile's queries)
+#pragma unroll 4
+    for (int x = 0; x < ROWS; ++x) {
+      float ap[RT], as[RT], cd[DT], cq[DT];
+#pragma unroll
+      for (int i = 0; i < RT; ++i) {
+        ap[i] = sP[(rg * RT + i) * LS + x];
+        as[i] = sdS[(rg * RT + i) * LS + x];
+      }
+#pragma unroll
+      for (int j = 0; j < DT; ++j) {
+        cd[j] = sdO[x * LD + cg + 16 * j];
+        cq[j] = sQ[x * LD + cg + 16 * j];
+      }
+#pragma unroll
+      for (int i = 0; i < RT; ++i)
+#pragma unroll
+        for (int j = 0; j < DT; ++j) {
+          dv[i][j] = fmaf(ap[i], cd[j], dv[i][j]);
+          dk[i][j] = fmaf(as[i], cq[j], dk[i][j]);
+        }
+    }
+  }
+
+  T* dkp = head_ptr_mut<T>(p.dk, p.st[kDK], b, hh);
+  T* dvp = head_ptr_mut<T>(p.dv, p.st[kDV], b, hh);
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    const int r = rg * RT + i;
+    if (r >= nk) continue;
+    T* krow = dkp + (k0 + r) * p.st[kDK][2];
+    T* vrow = dvp + (k0 + r) * p.st[kDV][2];
+#pragma unroll
+    for (int j = 0; j < DT; ++j) {
+      krow[cg + 16 * j] = from_float<T>(dk[i][j]);
+      vrow[cg + 16 * j] = from_float<T>(dv[i][j]);
+    }
+  }
+}
+
+// ------------------------------------------------------------ kernel G
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_bwd_dq_kernel(const Params p) {
+  using TL = Tile<D>;
+  constexpr int ROWS = TL::ROWS, LD = TL::LD, LS = TL::LS;
+  constexpr int RT = TL::RT, CT = TL::CT, DT = TL::DT;
+  extern __shared__ float smem[];
+  float* sQ = smem;                  // (ROWS, LD) scaled, rounded queries
+  float* sdO = sQ + ROWS * LD;
+  float* sK = sdO + ROWS * LD;
+  float* sV = sK + ROWS * LD;
+  float* sdS = sV + ROWS * LD;       // (ROWS, LS) round_T(ds): [query][key]
+  float* sLse = sdS + ROWS * LS;
+  float* sDelta = sLse + ROWS;
+
+  const int tid = threadIdx.x, rg = tid >> 4, cg = tid & 15;
+  const int bh = blockIdx.y, b = bh / p.h, hh = bh - b * p.h;
+  const int q0 = blockIdx.x * ROWS;
+  const int nq = min(ROWS, p.sq - q0);
+  stage_queries<T, D>(p, b, hh, q0, nq, sQ, sdO, sLse, sDelta);
+  const T* kp = head_ptr<T>(p.k, p.st[kK], b, hh);
+  const T* vp = head_ptr<T>(p.v, p.st[kV], b, hh);
+
+  float dq[RT][DT];
+#pragma unroll
+  for (int i = 0; i < RT; ++i)
+#pragma unroll
+    for (int j = 0; j < DT; ++j) dq[i][j] = 0.f;
+
+  const int k_end =
+      p.causal ? min(p.sk, q0 + nq - 1 + p.offset + 1) : p.sk;
+  for (int k0 = 0; k0 < k_end; k0 += ROWS) {
+    const int nk = min(ROWS, p.sk - k0);
+    __syncthreads();   // the previous tile's readers are done
+    load_tile<T, D, ROWS>(sK, kp, p.st[kK][2], k0, nk, 0.f);
+    load_tile<T, D, ROWS>(sV, vp, p.st[kV][2], k0, nk, 0.f);
+    __syncthreads();
+
+    float s[RT][CT], dp[RT][CT];
+#pragma unroll
+    for (int i = 0; i < RT; ++i)
+#pragma unroll
+      for (int j = 0; j < CT; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+    for (int x = 0; x < D; ++x) {
+      float aq[RT], ad[RT], ck[CT], cv[CT];
+#pragma unroll
+      for (int i = 0; i < RT; ++i) {
+        aq[i] = sQ[(rg * RT + i) * LD + x];
+        ad[i] = sdO[(rg * RT + i) * LD + x];
+      }
+#pragma unroll
+      for (int j = 0; j < CT; ++j) {
+        ck[j] = sK[(cg + 16 * j) * LD + x];
+        cv[j] = sV[(cg + 16 * j) * LD + x];
+      }
+#pragma unroll
+      for (int i = 0; i < RT; ++i)
+#pragma unroll
+        for (int j = 0; j < CT; ++j) {
+          s[i][j] = fmaf(aq[i], ck[j], s[i][j]);
+          dp[i][j] = fmaf(ad[i], cv[j], dp[i][j]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      const int r = rg * RT + i;
+#pragma unroll
+      for (int j = 0; j < CT; ++j) {
+        const int kj = k0 + cg + 16 * j;
+        const bool valid = r < nq && kj < p.sk &&
+                           (!p.causal || kj <= q0 + r + p.offset);
+        const float pr = valid ? expf(s[i][j] - sLse[r]) : 0.f;
+        sdS[r * LS + cg + 16 * j] = round_to<T>(pr * (dp[i][j] - sDelta[r]));
+      }
+    }
+    __syncthreads();
+
+    // dq += ds . k  (contracting over the tile's keys)
+#pragma unroll 8
+    for (int x = 0; x < ROWS; ++x) {
+      float a[RT], c[DT];
+#pragma unroll
+      for (int i = 0; i < RT; ++i) a[i] = sdS[(rg * RT + i) * LS + x];
+#pragma unroll
+      for (int j = 0; j < DT; ++j) c[j] = sK[x * LD + cg + 16 * j];
+#pragma unroll
+      for (int i = 0; i < RT; ++i)
+#pragma unroll
+        for (int j = 0; j < DT; ++j) dq[i][j] = fmaf(a[i], c[j], dq[i][j]);
+    }
+  }
+
+  T* dqp = head_ptr_mut<T>(p.dq, p.st[kDQ], b, hh);
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    const int r = rg * RT + i;
+    if (r >= nq) continue;
+    T* row = dqp + (q0 + r) * p.st[kDQ][2];
+#pragma unroll
+    for (int j = 0; j < DT; ++j)
+      row[cg + 16 * j] = from_float<T>(dq[i][j] * p.dq_scale);
+  }
+}
+
+// ------------------------------------------------ tensor-core variants
+// The bf16 kernels E, F and G: the same arithmetic and rounding points as
+// the kernels above, with every product on the tensor cores (WMMA,
+// mma.sync 16x16x16 bf16 tiles, fp32 accumulation; products of bf16
+// values are exact in fp32, so only the summation order differs). Tiles
+// stay in shared memory as bf16 (rows padded by 8 elements); score tiles
+// go through shared memory as fp32, where the threads apply the mask, the
+// online softmax and the rounding with the 16 x 16 thread patches above.
+// Eight warps split each product's 16 x 16 output tiles. E keeps its
+// output accumulator in shared memory (it is rescaled per key tile); F's
+// dK/dV and G's dQ stay in WMMA accumulator fragments across the loop and
+// leave through shared memory at the end.
+using bf16 = __nv_bfloat16;
+namespace wmma = nvcuda::wmma;
+using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16,
+                             wmma::row_major>;
+using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16,
+                             wmma::row_major>;
+using FragBt = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16,
+                              wmma::col_major>;
+using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+
+template <int D> struct TcTile {
+  static constexpr int ROWS = 64;
+  static constexpr int LDH = D + 8;       // bf16 (ROWS, D) tiles
+  static constexpr int LDP = ROWS + 8;    // bf16 (ROWS, ROWS) tiles
+  static constexpr int LDF = ROWS + 4;    // fp32 (ROWS, ROWS) score tiles
+  static constexpr int LDO = D + 4;       // fp32 (ROWS, D) tiles
+  static constexpr int RT = ROWS / 16, CT = ROWS / 16, DT = D / 16;
+  // backward blocks per SM: at d <= 64 two fit in shared memory, and the
+  // kernels are held to 128 registers so two fit in the register file
+  // too (F alone would take 168 at d=64, one block per SM)
+  static constexpr int BWD_BLOCKS = D <= 64 ? 2 : 1;
+  static constexpr int KT = D / 16;       // 16-wide steps over head_dim
+  static constexpr int ST = ROWS / 16;    // 16-wide steps over a tile
+  // output 16 x 16 tiles per warp: of a (ROWS, ROWS) and a (ROWS, D)
+  static constexpr int SPW = ST * ST / 8;
+  static constexpr int OPW = ST * KT < 8 ? 1 : ST * KT / 8;
+  static constexpr size_t HB = size_t(ROWS) * LDH * 2;   // bytes
+  static constexpr size_t PB = size_t(ROWS) * LDP * 2;
+  static constexpr size_t FB = size_t(ROWS) * LDF * 4;
+  static constexpr size_t OB = size_t(ROWS) * LDO * 4;
+  static constexpr size_t kFwdSmem = 3 * HB + FB + PB + OB;
+  static constexpr size_t kBwdSmem = 4 * HB + 2 * FB + 2 * PB + 2 * ROWS * 4;
+  static_assert(4 * HB >= 2 * OB, "epilogue staging fits the tiles");
+};
+
+// Stage rows [row0, row0 + n) of one head into a (ROWS, LDH) bf16 tile,
+// zero past n; `scale` > 0 makes it round_bf16(x * scale). 16-byte loads
+// when the rows allow them (the fused-QKV and packed layouts do).
+template <int D, int ROWS>
+__device__ __forceinline__ void load_tile_bf16(bf16* dst, const bf16* src,
+                                               long long ss, int row0, int n,
+                                               float scale) {
+  constexpr int LDH = D + 8, V = D / 8;
+  const bool vec = ((reinterpret_cast<uintptr_t>(src) | (ss * 2)) & 15) == 0;
+  if (vec) {
+    for (int e = threadIdx.x; e < ROWS * V; e += kThreads) {
+      const int r = e / V, c = (e % V) * 8;
+      uint4 x = make_uint4(0, 0, 0, 0);
+      if (r < n) {
+        x = *reinterpret_cast<const uint4*>(src + (row0 + r) * ss + c);
+        if (scale > 0.f) {
+          bf16* h = reinterpret_cast<bf16*>(&x);
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            h[i] = __float2bfloat16_rn(__bfloat162float(h[i]) * scale);
+        }
+      }
+      *reinterpret_cast<uint4*>(dst + r * LDH + c) = x;
+    }
+    return;
+  }
+  for (int e = threadIdx.x; e < ROWS * D; e += kThreads) {
+    const int r = e / D, c = e % D;
+    float x = 0.f;
+    if (r < n) {
+      x = __bfloat162float(src[(row0 + r) * ss + c]);
+      if (scale > 0.f) x = round_to<bf16>(x * scale);
+    }
+    dst[r * LDH + c] = __float2bfloat16_rn(x);
+  }
+}
+
+// C (ROWS, ROWS) fp32 = A (ROWS, D) . B (ROWS, D)^T, both bf16 row-major
+// in shared memory; the 8 warps split the 16 x 16 output tiles.
+template <int D>
+__device__ __forceinline__ void mma_abt(float* c, const bf16* a,
+                                        const bf16* b) {
+  using TL = TcTile<D>;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int t = 0; t < TL::SPW; ++t) {
+    const int tile = warp + 8 * t, tm = tile / TL::ST, tn = tile % TL::ST;
+    FragC acc;
+    wmma::fill_fragment(acc, 0.f);
+#pragma unroll
+    for (int kk = 0; kk < TL::KT; ++kk) {
+      FragA fa;
+      FragBt fb;
+      wmma::load_matrix_sync(fa, a + tm * 16 * TL::LDH + kk * 16, TL::LDH);
+      wmma::load_matrix_sync(fb, b + tn * 16 * TL::LDH + kk * 16, TL::LDH);
+      wmma::mma_sync(acc, fa, fb, acc);
+    }
+    wmma::store_matrix_sync(c + tm * 16 * TL::LDF + tn * 16, acc, TL::LDF,
+                            wmma::mem_row_major);
+  }
+}
+
+// acc[t] += P (ROWS, ROWS) . X (ROWS, D) for this warp's output tiles, P
+// and X bf16 row-major in shared memory. Tile t of warp w is output tile
+// w + 8t of the (ROWS/16, D/16) grid (at D=32 the last four warps idle).
+template <int D>
+__device__ __forceinline__ void mma_px(FragC* acc, const bf16* p,
+                                       const bf16* x) {
+  using TL = TcTile<D>;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int t = 0; t < TL::OPW; ++t) {
+    const int tile = warp + 8 * t;
+    if (tile >= TL::ST * TL::KT) break;
+    const int tm = tile / TL::KT, tn = tile % TL::KT;
+#pragma unroll
+    for (int kk = 0; kk < TL::ST; ++kk) {
+      FragA fa;
+      FragB fb;
+      wmma::load_matrix_sync(fa, p + tm * 16 * TL::LDP + kk * 16, TL::LDP);
+      wmma::load_matrix_sync(fb, x + kk * 16 * TL::LDH + tn * 16, TL::LDH);
+      wmma::mma_sync(acc[t], fa, fb, acc[t]);
+    }
+  }
+}
+
+// Store this warp's accumulators as a (ROWS, LDO) fp32 tile.
+template <int D>
+__device__ __forceinline__ void store_acc(float* dst, const FragC* acc) {
+  using TL = TcTile<D>;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int t = 0; t < TL::OPW; ++t) {
+    const int tile = warp + 8 * t;
+    if (tile >= TL::ST * TL::KT) break;
+    const int tm = tile / TL::KT, tn = tile % TL::KT;
+    wmma::store_matrix_sync(dst + tm * 16 * TL::LDO + tn * 16, acc[t],
+                            TL::LDO, wmma::mem_row_major);
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void load_acc(FragC* acc, const float* src) {
+  using TL = TcTile<D>;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int t = 0; t < TL::OPW; ++t) {
+    const int tile = warp + 8 * t;
+    if (tile >= TL::ST * TL::KT) break;
+    const int tm = tile / TL::KT, tn = tile % TL::KT;
+    wmma::load_matrix_sync(acc[t], src + tm * 16 * TL::LDO + tn * 16,
+                           TL::LDO, wmma::mem_row_major);
+  }
+}
+
+// Write a (ROWS, LDO) fp32 tile's first n rows, times `scale`, as bf16.
+template <int D>
+__device__ __forceinline__ void write_rows(bf16* dst, long long ss,
+                                           const float* src, int row0, int n,
+                                           float scale) {
+  using TL = TcTile<D>;
+  for (int e = threadIdx.x; e < n * D; e += kThreads) {
+    const int r = e / D, c = e % D;
+    dst[(row0 + r) * ss + c] = __float2bfloat16_rn(src[r * TL::LDO + c] * scale);
+  }
+}
+
+// ---------------------------------------------------- kernel E, bf16
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_fwd_tc_kernel(const Params p) {
+  using TL = TcTile<D>;
+  constexpr int ROWS = TL::ROWS, RT = TL::RT, CT = TL::CT, DT = TL::DT;
+  extern __shared__ float smem[];
+  char* base = reinterpret_cast<char*>(smem);
+  bf16* sQ = reinterpret_cast<bf16*>(base);
+  bf16* sK = reinterpret_cast<bf16*>(base + TL::HB);
+  bf16* sV = reinterpret_cast<bf16*>(base + 2 * TL::HB);
+  float* sS = reinterpret_cast<float*>(base + 3 * TL::HB);
+  bf16* sP = reinterpret_cast<bf16*>(base + 3 * TL::HB + TL::FB);
+  float* sO = reinterpret_cast<float*>(base + 3 * TL::HB + TL::FB + TL::PB);
+
+  const int tid = threadIdx.x, rg = tid >> 4, cg = tid & 15;
+  const int bh = blockIdx.y, b = bh / p.h, hh = bh - b * p.h;
+  const int q0 = blockIdx.x * ROWS;
+  const int nq = min(ROWS, p.sq - q0);
+  const bf16* kp = head_ptr<bf16>(p.k, p.st[kK], b, hh);
+  const bf16* vp = head_ptr<bf16>(p.v, p.st[kV], b, hh);
+  load_tile_bf16<D, ROWS>(sQ, head_ptr<bf16>(p.q, p.st[kQ], b, hh),
+                          p.st[kQ][2], q0, nq, p.q_scale);
+  for (int e = tid; e < ROWS * TL::LDO; e += kThreads) sO[e] = 0.f;
+
+  float m[RT], l[RT];
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+  }
+  const int k_end =
+      p.causal ? min(p.sk, q0 + nq - 1 + p.offset + 1) : p.sk;
+  for (int k0 = 0; k0 < k_end; k0 += ROWS) {
+    const int nk = min(ROWS, p.sk - k0);
+    __syncthreads();   // the previous tile's readers are done
+    load_tile_bf16<D, ROWS>(sK, kp, p.st[kK][2], k0, nk, 0.f);
+    load_tile_bf16<D, ROWS>(sV, vp, p.st[kV][2], k0, nk, 0.f);
+    __syncthreads();
+    mma_abt<D>(sS, sQ, sK);
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      const int r = rg * RT + i, qi = q0 + r;
+      float s[CT], mt = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < CT; ++j) {
+        const int kj = k0 + cg + 16 * j;
+        s[j] = sS[r * TL::LDF + cg + 16 * j];
+        if (kj >= p.sk)
+          s[j] = -INFINITY;
+        else if (p.causal && kj > qi + p.offset)
+          s[j] = kMasked;
+        mt = fmaxf(mt, s[j]);
+      }
+      const float m_new = fmaxf(m[i], row_max(mt));
+      const float alpha = expf(m[i] - m_new);
+      float ps = 0.f;
+#pragma unroll
+      for (int j = 0; j < CT; ++j) {
+        const float pr = expf(s[j] - m_new);
+        ps += pr;
+        sP[r * TL::LDP + cg + 16 * j] = __float2bfloat16_rn(pr);
+      }
+      l[i] = alpha * l[i] + row_sum(ps);
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < DT; ++j) sO[r * TL::LDO + cg + 16 * j] *= alpha;
+    }
+    __syncthreads();
+    FragC acc[TL::OPW];
+    load_acc<D>(acc, sO);
+    mma_px<D>(acc, sP, sV);
+    store_acc<D>(sO, acc);
+  }
+  __syncthreads();
+  bf16* op = head_ptr_mut<bf16>(p.out, p.st[kO], b, hh);
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    const int r = rg * RT + i;
+    if (r >= nq) continue;
+    const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
+    bf16* row = op + (q0 + r) * p.st[kO][2];
+#pragma unroll
+    for (int j = 0; j < DT; ++j)
+      row[cg + 16 * j] = __float2bfloat16_rn(sO[r * TL::LDO + cg + 16 * j] * inv);
+    if (cg == 0)
+      p.lse[static_cast<long long>(bh) * p.sq + q0 + r] =
+          m[i] + logf(fmaxf(l[i], 1e-30f));
+  }
+}
+
+// Stage one query tile for F and G (scaled queries and do as bf16 tiles,
+// lse) and its delta = rowsum(do * o) - g_lse. Ends synchronised.
+template <int D>
+__device__ __forceinline__ void stage_queries_tc(const Params& p, int b,
+                                                 int hh, int q0, int nq,
+                                                 bf16* sQ, bf16* sdO,
+                                                 float* sLse, float* sDelta) {
+  using TL = TcTile<D>;
+  constexpr int ROWS = TL::ROWS, RT = TL::RT;
+  const int tid = threadIdx.x, rg = tid >> 4, cg = tid & 15;
+  const long long stat = static_cast<long long>(b * p.h + hh) * p.sq + q0;
+  load_tile_bf16<D, ROWS>(sQ, head_ptr<bf16>(p.q, p.st[kQ], b, hh),
+                          p.st[kQ][2], q0, nq, p.q_scale);
+  load_tile_bf16<D, ROWS>(sdO, head_ptr<bf16>(p.dout, p.st[kDO], b, hh),
+                          p.st[kDO][2], q0, nq, 0.f);
+  for (int r = tid; r < ROWS; r += kThreads)
+    sLse[r] = r < nq ? p.lse[stat + r] : 0.f;
+  __syncthreads();
+  const bf16* op = head_ptr<bf16>(p.o, p.st[kO], b, hh);
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    const int r = rg * RT + i;
+    float acc = 0.f;
+    if (r < nq) {
+      const bf16* orow = op + (q0 + r) * p.st[kO][2];
+      for (int c = cg; c < D; c += 16)
+        acc = fmaf(__bfloat162float(sdO[r * TL::LDH + c]),
+                   __bfloat162float(orow[c]), acc);
+    }
+    acc = row_sum(acc);
+    if (cg == 0) {
+      const float g = (p.glse != nullptr && r < nq) ? p.glse[stat + r] : 0.f;
+      sDelta[r] = acc - g;
+    }
+  }
+  __syncthreads();
+}
+
+// ---------------------------------------------------- kernel F, bf16
+template <int D>
+__global__ void __launch_bounds__(kThreads, TcTile<D>::BWD_BLOCKS)
+    flash_bwd_dkdv_tc_kernel(const Params p) {
+  using TL = TcTile<D>;
+  constexpr int ROWS = TL::ROWS, RT = TL::RT, CT = TL::CT;
+  extern __shared__ float smem[];
+  char* base = reinterpret_cast<char*>(smem);
+  bf16* sK = reinterpret_cast<bf16*>(base);
+  bf16* sV = reinterpret_cast<bf16*>(base + TL::HB);
+  bf16* sQ = reinterpret_cast<bf16*>(base + 2 * TL::HB);
+  bf16* sdO = reinterpret_cast<bf16*>(base + 3 * TL::HB);
+  float* sS = reinterpret_cast<float*>(base + 4 * TL::HB);        // s^T
+  float* sDP = reinterpret_cast<float*>(base + 4 * TL::HB + TL::FB);
+  bf16* sP = reinterpret_cast<bf16*>(base + 4 * TL::HB + 2 * TL::FB);
+  bf16* sdS = reinterpret_cast<bf16*>(base + 4 * TL::HB + 2 * TL::FB +
+                                      TL::PB);
+  float* sLse = reinterpret_cast<float*>(base + 4 * TL::HB + 2 * TL::FB +
+                                         2 * TL::PB);
+  float* sDelta = sLse + ROWS;
+
+  const int tid = threadIdx.x, rg = tid >> 4, cg = tid & 15;
+  const int bh = blockIdx.y, b = bh / p.h, hh = bh - b * p.h;
+  const int k0 = blockIdx.x * ROWS;
+  const int nk = min(ROWS, p.sk - k0);
+  load_tile_bf16<D, ROWS>(sK, head_ptr<bf16>(p.k, p.st[kK], b, hh),
+                          p.st[kK][2], k0, nk, 0.f);
+  load_tile_bf16<D, ROWS>(sV, head_ptr<bf16>(p.v, p.st[kV], b, hh),
+                          p.st[kV][2], k0, nk, 0.f);
+  FragC dk[TL::OPW], dv[TL::OPW];
+#pragma unroll
+  for (int t = 0; t < TL::OPW; ++t) {
+    wmma::fill_fragment(dk[t], 0.f);
+    wmma::fill_fragment(dv[t], 0.f);
+  }
+
+  int q_begin = 0;
+  if (p.causal) q_begin = max(0, k0 - p.offset) / ROWS * ROWS;
+  for (int q0 = q_begin; q0 < p.sq; q0 += ROWS) {
+    const int nq = min(ROWS, p.sq - q0);
+    __syncthreads();   // the previous tile's readers are done
+    stage_queries_tc<D>(p, b, hh, q0, nq, sQ, sdO, sLse, sDelta);
+    // s^T = K . qs^T and dp^T = V . do^T: rows keys, columns queries
+    mma_abt<D>(sS, sK, sQ);
+    mma_abt<D>(sDP, sV, sdO);
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      const int r = rg * RT + i, kk = k0 + r;
+#pragma unroll
+      for (int j = 0; j < CT; ++j) {
+        const int c = cg + 16 * j;
+        const bool valid = kk < p.sk && c < nq &&
+                           (!p.causal || kk <= q0 + c + p.offset);
+        const float pr =
+            valid ? expf(sS[r * TL::LDF + c] - sLse[c]) : 0.f;
+        const float ds = pr * (sDP[r * TL::LDF + c] - sDelta[c]);
+        sP[r * TL::LDP + c] = __float2bfloat16_rn(pr);
+        sdS[r * TL::LDP + c] = __float2bfloat16_rn(ds);
+      }
+    }
+    __syncthreads();
+    mma_px<D>(dv, sP, sdO);   // dv += p^T . do
+    mma_px<D>(dk, sdS, sQ);   // dk += ds^T . qs
+  }
+  // the tiles are no longer read: their bytes stage dv and dk as fp32
+  __syncthreads();
+  float* stage_v = smem;
+  float* stage_k = smem + ROWS * TL::LDO;
+  store_acc<D>(stage_v, dv);
+  store_acc<D>(stage_k, dk);
+  __syncthreads();
+  write_rows<D>(head_ptr_mut<bf16>(p.dv, p.st[kDV], b, hh), p.st[kDV][2],
+                stage_v, k0, nk, 1.f);
+  write_rows<D>(head_ptr_mut<bf16>(p.dk, p.st[kDK], b, hh), p.st[kDK][2],
+                stage_k, k0, nk, 1.f);
+}
+
+// ---------------------------------------------------- kernel G, bf16
+template <int D>
+__global__ void __launch_bounds__(kThreads, TcTile<D>::BWD_BLOCKS)
+    flash_bwd_dq_tc_kernel(const Params p) {
+  using TL = TcTile<D>;
+  constexpr int ROWS = TL::ROWS, RT = TL::RT, CT = TL::CT;
+  extern __shared__ float smem[];
+  char* base = reinterpret_cast<char*>(smem);
+  bf16* sQ = reinterpret_cast<bf16*>(base);
+  bf16* sdO = reinterpret_cast<bf16*>(base + TL::HB);
+  bf16* sK = reinterpret_cast<bf16*>(base + 2 * TL::HB);
+  bf16* sV = reinterpret_cast<bf16*>(base + 3 * TL::HB);
+  float* sS = reinterpret_cast<float*>(base + 4 * TL::HB);
+  float* sDP = reinterpret_cast<float*>(base + 4 * TL::HB + TL::FB);
+  bf16* sdS = reinterpret_cast<bf16*>(base + 4 * TL::HB + 2 * TL::FB);
+  float* sLse = reinterpret_cast<float*>(base + 4 * TL::HB + 2 * TL::FB +
+                                         2 * TL::PB);
+  float* sDelta = sLse + ROWS;
+
+  const int tid = threadIdx.x, rg = tid >> 4, cg = tid & 15;
+  const int bh = blockIdx.y, b = bh / p.h, hh = bh - b * p.h;
+  const int q0 = blockIdx.x * ROWS;
+  const int nq = min(ROWS, p.sq - q0);
+  stage_queries_tc<D>(p, b, hh, q0, nq, sQ, sdO, sLse, sDelta);
+  const bf16* kp = head_ptr<bf16>(p.k, p.st[kK], b, hh);
+  const bf16* vp = head_ptr<bf16>(p.v, p.st[kV], b, hh);
+  FragC dq[TL::OPW];
+#pragma unroll
+  for (int t = 0; t < TL::OPW; ++t) wmma::fill_fragment(dq[t], 0.f);
+
+  const int k_end =
+      p.causal ? min(p.sk, q0 + nq - 1 + p.offset + 1) : p.sk;
+  for (int k0 = 0; k0 < k_end; k0 += ROWS) {
+    const int nk = min(ROWS, p.sk - k0);
+    __syncthreads();   // the previous tile's readers are done
+    load_tile_bf16<D, ROWS>(sK, kp, p.st[kK][2], k0, nk, 0.f);
+    load_tile_bf16<D, ROWS>(sV, vp, p.st[kV][2], k0, nk, 0.f);
+    __syncthreads();
+    mma_abt<D>(sS, sQ, sK);     // s = qs . k^T
+    mma_abt<D>(sDP, sdO, sV);   // dp = do . v^T
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      const int r = rg * RT + i;
+#pragma unroll
+      for (int j = 0; j < CT; ++j) {
+        const int c = cg + 16 * j, kj = k0 + c;
+        const bool valid = r < nq && kj < p.sk &&
+                           (!p.causal || kj <= q0 + r + p.offset);
+        const float pr =
+            valid ? expf(sS[r * TL::LDF + c] - sLse[r]) : 0.f;
+        sdS[r * TL::LDP + c] =
+            __float2bfloat16_rn(pr * (sDP[r * TL::LDF + c] - sDelta[r]));
+      }
+    }
+    __syncthreads();
+    mma_px<D>(dq, sdS, sK);     // dq += ds . k
+  }
+  __syncthreads();
+  store_acc<D>(smem, dq);
+  __syncthreads();
+  write_rows<D>(head_ptr_mut<bf16>(p.dq, p.st[kDQ], b, hh), p.st[kDQ][2],
+                smem, q0, nq, p.dq_scale);
+}
+
+// ------------------------------------------------------------ launchers
+// Above 48 KB a block's dynamic shared memory must be opted into; each
+// launcher instantiation does it once for its own kernels.
+int opt_in_smem(void (*kernel)(Params), size_t bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+// fp32 runs the FMA kernels above (Tile), bf16 the tensor-core ones
+// (TcTile); only those instantiations are compiled.
+template <typename T, int D>
+int launch_fwd(const Params& p, int bh, cudaStream_t stream) {
+  void (*kernel)(Params);
+  size_t smem;
+  int rows;
+  if constexpr (std::is_same_v<T, bf16>) {
+    kernel = flash_fwd_tc_kernel<D>;
+    smem = TcTile<D>::kFwdSmem;
+    rows = TcTile<D>::ROWS;
+  } else {
+    kernel = flash_fwd_kernel<T, D>;
+    smem = Tile<D>::kFwdSmem;
+    rows = Tile<D>::ROWS;
+  }
+  static bool opted = false;
+  if (!opted) {
+    if (const int rc = opt_in_smem(kernel, smem)) return rc;
+    opted = true;
+  }
+  const dim3 grid((p.sq + rows - 1) / rows, bh);
+  kernel<<<grid, kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+int launch_bwd(const Params& p, int bh, cudaStream_t stream) {
+  void (*dkdv)(Params);
+  void (*dq)(Params);
+  size_t smem;
+  int rows;
+  if constexpr (std::is_same_v<T, bf16>) {
+    dkdv = flash_bwd_dkdv_tc_kernel<D>;
+    dq = flash_bwd_dq_tc_kernel<D>;
+    smem = TcTile<D>::kBwdSmem;
+    rows = TcTile<D>::ROWS;
+  } else {
+    dkdv = flash_bwd_dkdv_kernel<T, D>;
+    dq = flash_bwd_dq_kernel<T, D>;
+    smem = Tile<D>::kBwdSmem;
+    rows = Tile<D>::ROWS;
+  }
+  static bool opted = false;
+  if (!opted) {
+    if (const int rc = opt_in_smem(dkdv, smem)) return rc;
+    if (const int rc = opt_in_smem(dq, smem)) return rc;
+    opted = true;
+  }
+  const dim3 grid_k((p.sk + rows - 1) / rows, bh);
+  dkdv<<<grid_k, kThreads, smem, stream>>>(p);
+  if (const int rc = cudaGetLastError()) return rc;
+  const dim3 grid_q((p.sq + rows - 1) / rows, bh);
+  dq<<<grid_q, kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int dispatch(bool backward, int d, const Params& p, int bh,
+             cudaStream_t stream) {
+  switch (d) {
+    case 32:
+      return backward ? launch_bwd<T, 32>(p, bh, stream)
+                      : launch_fwd<T, 32>(p, bh, stream);
+    case 64:
+      return backward ? launch_bwd<T, 64>(p, bh, stream)
+                      : launch_fwd<T, 64>(p, bh, stream);
+    case 128:
+      return backward ? launch_bwd<T, 128>(p, bh, stream)
+                      : launch_fwd<T, 128>(p, bh, stream);
+    case 256:
+      return backward ? launch_bwd<T, 256>(p, bh, stream)
+                      : launch_fwd<T, 256>(p, bh, stream);
+    default:
+      return kErrHeadDim;
+  }
+}
+
+int run(bool backward, const Params& p, int b, int d, int dtype,
+        void* stream) {
+  const int bh = b * p.h;
+  if (bh <= 0 || p.sq <= 0 || p.sk <= 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == kF32) return dispatch<float>(backward, d, p, bh, st);
+  if (dtype == kBF16) return dispatch<bf16>(backward, d, p, bh, st);
+  return kErrDType;
+}
+
+void set_strides(Params& p, const long long* strides, int n) {
+  for (int i = 0; i < n; ++i)
+    for (int j = 0; j < 3; ++j) p.st[i][j] = strides[3 * i + j];
+}
+
+}  // namespace
+
+// Kernel E. q, k, v, out: (b, h, s, d) element strides in `strides` (12
+// int64: q, k, v, out; the head_dim stride is 1); lse: (b, h, s_q) fp32.
+// dtype 0 = fp32, 1 = bf16 (all four operands). Returns 0, a negative code
+// of this file, or a cudaError_t.
+extern "C" int flash_attention_fwd(const void* q, const void* k,
+                                   const void* v, void* out, float* lse,
+                                   const long long* strides, int b, int h,
+                                   int sq, int sk, int d, int causal,
+                                   float q_scale, int dtype, void* stream) {
+  Params p = {};
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.out = out;
+  p.lse = lse;
+  set_strides(p, strides, 3);
+  for (int j = 0; j < 3; ++j) p.st[kO][j] = strides[9 + j];
+  p.h = h;
+  p.sq = sq;
+  p.sk = sk;
+  p.causal = causal;
+  p.offset = causal ? sk - sq : 0;
+  p.q_scale = q_scale;
+  return run(false, p, b, d, dtype, stream);
+}
+
+// Kernels F then G. Operands q, k, v, o (the forward's output), dout, dq,
+// dk, dv with (b, h, s, d) element strides in `strides` (24 int64, in that
+// order); lse and glse (optional, nullptr for none) are (b, h, s_q) fp32.
+extern "C" int flash_attention_bwd(const void* q, const void* k,
+                                   const void* v, const void* o,
+                                   const void* dout, const float* lse,
+                                   const float* glse, void* dq, void* dk,
+                                   void* dv, const long long* strides, int b,
+                                   int h, int sq, int sk, int d, int causal,
+                                   float q_scale, float dq_scale, int dtype,
+                                   void* stream) {
+  Params p = {};
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.o = o;
+  p.dout = dout;
+  p.lse = const_cast<float*>(lse);
+  p.glse = glse;
+  p.dq = dq;
+  p.dk = dk;
+  p.dv = dv;
+  set_strides(p, strides, kOperands);
+  p.h = h;
+  p.sq = sq;
+  p.sk = sk;
+  p.causal = causal;
+  p.offset = causal ? sk - sq : 0;
+  p.q_scale = q_scale;
+  p.dq_scale = dq_scale;
+  return run(true, p, b, d, dtype, stream);
+}

@@ -1,7 +1,8 @@
 """Model registry (counterpart of ddp_practice_tpu/models/__init__.py).
 
-This slice registers the decoder LMs the serving path runs: `lm_tiny`
-and `lm_base`. `create_model` builds the module on `device` (the card by
+The port registers the decoder LMs that serve and train: `lm_tiny` and
+`lm_base`. The reference's other names raise NotImplementedError naming
+the ROADMAP item that ports them. `create_model` builds the module on `device` (the card by
 default; it raises when none is present) with weights drawn from `seed`
 on the CPU, so a seed gives the same weights on every device. The init
 follows the reference's Flax defaults in scale: Dense kernels and the
@@ -21,6 +22,13 @@ from ddp_practice_tpu_torch.config import PrecisionPolicy, resolve_device
 from ddp_practice_tpu_torch.models.lm import LMBase, LMTiny, TransformerLM
 
 _REGISTRY = {"lm_tiny": LMTiny, "lm_base": LMBase}
+# the reference's other registry names -> the ROADMAP item that ports them
+_NOT_PORTED = {
+    "convnet": "A1", "resnet18": "A2", "resnet50": "A2",
+    "vit_tiny": "A2 and B2", "vit_base": "A2 and B2",
+    "vit_tiny_moe": "A7", "lm_moe": "A7",
+    "vit_tiny_pipe": "A8", "lm_pipe": "A8",
+}
 
 
 @torch.no_grad()
@@ -44,9 +52,13 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
 def create_model(name: str, *, policy: Optional[PrecisionPolicy] = None,
                  device="cuda", seed: int = 0, **kwargs) -> TransformerLM:
     """Instantiate a registered model on `device`, initialised from
-    `seed`. `kwargs` are TransformerLM fields."""
+    `seed`. `kwargs` are TransformerLM fields (attn_impl, remat, pos_emb,
+    tied_embeddings, num_heads, dropout_rate, vocab_size, max_len, ...)."""
     policy = policy or PrecisionPolicy.fp32()
     name = name.lower()
+    if name in _NOT_PORTED:
+        raise NotImplementedError(
+            f"model {name!r} is not ported yet (ROADMAP {_NOT_PORTED[name]})")
     if name not in _REGISTRY:
         raise ValueError(f"unknown model {name!r}; have {sorted(_REGISTRY)}")
     dev = resolve_device(device)

@@ -3,15 +3,19 @@ ddp_practice_tpu/models/lm.py).
 
 The block stack is `models/vit.py EncoderBlock` (pre-LN, causal). Logits
 come out in the policy compute dtype; consumers upcast. `forward(tokens)`
-is the training forward; `forward(tokens, cache=...)` is KV-cache decode
+is the training forward (`train=True` turns dropout on, its masks keyed
+on `dropout_key`; `remat=True` recomputes each block's activations in
+backward through torch.utils.checkpoint, which replays the same keyed
+masks); `forward(tokens, cache=...)` is KV-cache decode
 (inference.py builds the cache with `init_cache`): the call appends the
 tokens at the cache cursor, so one module serves prompt prefill (s =
 prompt length) and single-token steps (s = 1). With `page_table` and
 `kv_lengths` the cache is a paged block pool (serve/kv_pages.py) and each
 sequence appends at its own slot-local position.
 
-Not ported in this slice: sequence parallelism (`seq_axis`), remat, MoE
-blocks and the fused encoder layer (`fused=True`); each raises.
+Not ported in this slice: sequence parallelism (`seq_axis`, ROADMAP A8),
+MoE blocks (A7) and the fused encoder layer (`fused=True`, B2); each
+raises.
 """
 
 from __future__ import annotations
@@ -21,8 +25,15 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from ddp_practice_tpu_torch.models.vit import EncoderBlock, LayerNorm, dense
+from ddp_practice_tpu_torch.models.vit import (
+    EncoderBlock,
+    LayerNorm,
+    dense,
+    dropout,
+    subkey,
+)
 
 
 class TransformerLM(nn.Module):
@@ -33,19 +44,23 @@ class TransformerLM(nn.Module):
                  sp_impl: str = "ring", attn_impl: str = "xla",
                  kv_cache_dtype=None, pos_emb: str = "learned",
                  tied_embeddings: bool = False, dropout_rate: float = 0.0,
-                 moe_every: int = 0, fused="auto") -> None:
+                 moe_every: int = 0, fused="auto",
+                 remat: bool = False) -> None:
         super().__init__()
         if pos_emb not in ("learned", "rope"):
             raise ValueError(
                 f"unknown pos_emb {pos_emb!r} (want 'learned'|'rope')"
             )
         if moe_every:
-            raise NotImplementedError("MoE blocks are not ported yet")
+            raise NotImplementedError(
+                "MoE blocks are not ported yet (ROADMAP A7)")
         self.vocab_size = vocab_size
         self.max_len = max_len
         self.hidden_dim = hidden_dim
         self.depth = depth
         self.num_heads = num_heads
+        self.mlp_dim = mlp_dim
+        self.remat = remat
         self.dtype = dtype
         self.pos_emb = pos_emb
         self.tied_embeddings = tied_embeddings
@@ -91,6 +106,7 @@ class TransformerLM(nn.Module):
         return cache
 
     def forward(self, tokens: torch.Tensor, *, train: bool = False,
+                dropout_key: int = 0,
                 cache: Optional[dict] = None,
                 attn_start: Optional[torch.Tensor] = None,
                 page_table: Optional[torch.Tensor] = None,
@@ -132,10 +148,16 @@ class TransformerLM(nn.Module):
             x = x + self.pos_embed[:, p0:p0 + s].to(self.dtype)
             if decode:
                 cache["pos_index"] = p0 + s
-        train = train and not decode
-        x = F.dropout(x, self.dropout_rate, training=train)
+        # dropout only in the training forward, never in decode
+        key = (dropout_key if train and not decode and self.dropout_rate
+               else None)
+        x = dropout(x, self.dropout_rate, subkey(key, 0))
         for i, blk in enumerate(self.blocks):
-            x = blk(x, train=train,
+            if self.remat and not decode:
+                x = checkpoint(blk, x, dropout_key=subkey(key, i + 1),
+                               use_reentrant=False)
+                continue
+            x = blk(x, dropout_key=subkey(key, i + 1),
                     cache=cache[f"block{i}"]["attn"] if decode else None,
                     attn_start=attn_start, page_table=page_table,
                     kv_lengths=kv_lengths)

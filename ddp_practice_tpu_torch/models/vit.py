@@ -1,10 +1,16 @@
 """Transformer blocks (counterpart of ddp_practice_tpu/models/vit.py).
 
 This slice ports what the decoder LM runs: `MlpBlock`, `SelfAttention`
-(the training forward and the flat KV-cache decode path, including the
+(the training forward, with the streaming flash kernels behind
+`attn_impl="flash"`, and the flat KV-cache decode path, including the
 int8 quantize-on-write cache) and `EncoderBlock` with the unfused path.
-The fused one-kernel encoder layer is a later slice: `fused=True` raises,
-and `"auto"` resolves to the unfused path.
+The fused one-kernel encoder layer is a later slice (ROADMAP B2):
+`fused=True` raises, and `"auto"` resolves to the unfused path.
+
+Dropout keys its masks on an integer (`dropout`): the LM derives one per
+site from (seed, step), so a step replays its masks and a rematerialized
+block (torch.utils.checkpoint) recomputes the same ones. Masks cannot
+match JAX's (threefry vs Philox); parity runs at rate 0.
 
 Parameters stay in `param_dtype` (fp32) and every layer computes in
 `dtype`, casting its weights on use as Flax does. LayerNorm epsilon is
@@ -42,6 +48,7 @@ from ddp_practice_tpu_torch.ops.decode_attention import (
     gather_pages,
     paged_decode_attention,
 )
+from ddp_practice_tpu_torch.ops.flash_attention import flash_attention_qkv
 from ddp_practice_tpu_torch.ops.rope import apply_rope
 
 LN_EPS = 1e-6
@@ -51,6 +58,26 @@ def dense(x: torch.Tensor, layer: nn.Linear, dtype) -> torch.Tensor:
     """Flax Dense semantics: inputs, kernel and bias promoted to `dtype`."""
     bias = None if layer.bias is None else layer.bias.to(dtype)
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
+def subkey(key: Optional[int], i: int) -> Optional[int]:
+    """The i-th dropout key under `key` (None stays None)."""
+    if key is None:
+        return None
+    return (key * 1_000_003 + i + 1) % (1 << 62)
+
+
+def dropout(x: torch.Tensor, rate: float,
+            key: Optional[int]) -> torch.Tensor:
+    """Flax Dropout: keep with probability 1 - rate, kept values divided by
+    it. The mask comes from a generator seeded with `key` on x's device;
+    key None (eval, or rate 0) is the identity."""
+    if key is None or rate == 0.0:
+        return x
+    g = torch.Generator(device=x.device)
+    g.manual_seed(key)
+    keep = torch.rand(x.shape, generator=g, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 class LayerNorm(nn.LayerNorm):
@@ -75,9 +102,10 @@ class MlpBlock(nn.Module):
         self.fc_in = nn.Linear(d, mlp_dim)
         self.fc_out = nn.Linear(mlp_dim, d)
 
-    def forward(self, x: torch.Tensor, *, train: bool = False):
+    def forward(self, x: torch.Tensor, *,
+                dropout_key: Optional[int] = None):
         x = F.gelu(dense(x, self.fc_in, self.dtype), approximate="tanh")
-        x = F.dropout(x, self.dropout_rate, training=train)
+        x = dropout(x, self.dropout_rate, dropout_key)
         return dense(x, self.fc_out, self.dtype)
 
 
@@ -148,7 +176,16 @@ class SelfAttention(nn.Module):
                 kv_lengths: Optional[torch.Tensor] = None):
         b, s, d = x.shape
         h, hd = self.num_heads, self.head_dim
-        qkv = dense(x, self.qkv, self.dtype).view(b, s, 3, h, hd)
+        qkv_flat = dense(x, self.qkv, self.dtype)          # (b, s, 3*h*hd)
+        if (cache is None and self.attn_impl == "flash" and not self.rope
+                and self.seq_axis is None):
+            # the raw projection goes to the kernels: its (3, h, hd)
+            # feature order is the [q | k | v] column layout they window,
+            # so q, k and v never materialize (unpackable heads slice
+            # inside flash_attention_qkv)
+            out = flash_attention_qkv(qkv_flat, h, causal=self.causal)
+            return dense(out.reshape(b, s, d), self.out, self.dtype)
+        qkv = qkv_flat.view(b, s, 3, h, hd)
         q, k, v = qkv.unbind(2)
         if page_table is not None:
             out = self._paged_decode(q, k, v, cache, page_table, kv_lengths,
@@ -311,11 +348,17 @@ class EncoderBlock(nn.Module):
                  use_moe: bool = False, fused=False) -> None:
         super().__init__()
         if use_moe:
-            raise NotImplementedError("MoE blocks are not ported yet")
+            raise NotImplementedError(
+                "MoE blocks are not ported yet (ROADMAP A7)")
         if fused is True:
             raise NotImplementedError(
-                "the fused encoder layer is not ported yet"
+                "the fused encoder layer is not ported yet (ROADMAP B2)"
             )
+        # fused="auto" is the per-op pipeline until B2 brings the kernel.
+        # The reference would not pick it on this slice's path either: it
+        # never combines with attn_impl="flash" (models/vit.py
+        # _plain_block), and lm_base's bf16 weights (13.5 MiB) exceed its
+        # 8 MiB residency limit (ops/fused_encoder.py).
         self.dropout_rate = dropout_rate
         self.ln1 = LayerNorm(d, dtype)
         self.attn = SelfAttention(
@@ -327,9 +370,11 @@ class EncoderBlock(nn.Module):
         self.mlp = MlpBlock(d, mlp_dim, dtype=dtype,
                             dropout_rate=dropout_rate)
 
-    def forward(self, x, *, train: bool = False, cache=None,
+    def forward(self, x, *, dropout_key: Optional[int] = None, cache=None,
                 attn_start=None, page_table=None, kv_lengths=None):
+        """`dropout_key` None means no dropout (eval, decode)."""
         y = self.attn(self.ln1(x), cache=cache, attn_start=attn_start,
                       page_table=page_table, kv_lengths=kv_lengths)
-        x = x + F.dropout(y, self.dropout_rate, training=train)
-        return x + self.mlp(self.ln2(x), train=train)
+        x = x + dropout(y, self.dropout_rate, subkey(dropout_key, 0))
+        return x + self.mlp(self.ln2(x),
+                            dropout_key=subkey(dropout_key, 1))

@@ -6,8 +6,9 @@ are filled with -1e30 (not -inf, so a fully masked row stays finite), and
 probabilities are rounded to the input dtype before the value product —
 the reference's arithmetic, step for step.
 
-The sequence-parallel schemes and the streaming flash kernel are later
-slices of the port: `impl="flash"` and `seq_axis` raise until then.
+`impl="flash"` dispatches to the streaming kernels of
+ops/flash_attention.py.
+The sequence-parallel schemes are a later slice: `seq_axis` raises (A8).
 """
 
 from __future__ import annotations
@@ -24,15 +25,20 @@ def dot_product_attention(q, k, v, *, causal: bool = False,
                           seq_axis: Optional[str] = None,
                           sp_impl: str = "ring",
                           impl: str = "xla") -> torch.Tensor:
-    """Multi-head attention over (batch, seq, heads, head_dim)."""
+    """Multi-head attention over (batch, seq, heads, head_dim). `impl`
+    picks the local kernel: "xla" (this module's plain attention) or
+    "flash" (ops/flash_attention.py)."""
     if impl not in ("xla", "flash"):
         raise ValueError(f"unknown attention impl {impl!r} (want 'xla'|'flash')")
     if seq_axis is not None:
         raise NotImplementedError(
-            f"sequence-parallel attention ({sp_impl}) is not ported yet"
+            f"sequence-parallel attention ({sp_impl}) is not ported yet "
+            f"(ROADMAP A8)"
         )
     if impl == "flash":
-        raise NotImplementedError("impl='flash' is not ported yet")
+        from ddp_practice_tpu_torch.ops.flash_attention import flash_attention
+
+        return flash_attention(q, k, v, causal=causal)
     return _attention(q, k, v, causal=causal)
 
 

@@ -44,19 +44,21 @@ counts kernel launches per kernel name.
 from __future__ import annotations
 
 import ctypes
-import math
 from typing import Optional
 
 import torch
 
 from ddp_practice_tpu_torch.ops.attention import attention_with_mask
+# the model routes a single-token step to the kernel exactly when the heads
+# pack, as the reference does; q is scaled by 1/sqrt(d) rounded to q's
+# dtype, as the reference's weakly typed Python float is (`_scales`)
+from ddp_practice_tpu_torch.ops.flash_attention import _heads_per_pack, _scales
 
 # launches per kernel, counted where the wrapper launches it and nowhere
 # else; chip_smoke.py zeroes them before the main path and reads them after
 LAUNCHES = {"decode_attention": 0, "decode_attention_int8": 0,
             "paged_decode_attention": 0, "paged_decode_attention_int8": 0}
 
-_LANES = 128
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ERRORS = {
     -1: "head_dim not compiled (64, 128 or 256)",
@@ -68,19 +70,6 @@ _ERRORS = {
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
-
-
-def _heads_per_pack(h: int, d: int):
-    """Copy of ddp_practice_tpu/ops/flash_attention.py `_heads_per_pack`:
-    how many heads share one 128-lane tile, None when the shapes don't
-    pack. The model routes a single-token step to the kernel exactly when
-    this holds, as the reference does."""
-    if d >= _LANES:
-        return 1 if d % _LANES == 0 else None
-    if d < 64 or _LANES % d:
-        return None
-    hpc = _LANES // d
-    return hpc if h % hpc == 0 else None
 
 
 def _check_call(q, k_cache, n_heads, k_scale, v_scale):
@@ -148,7 +137,7 @@ def decode_attention_plain(q, k_cache, v_cache, cur: int, attn_start=None,
         vs = v_scale[:, :, :span].transpose(1, 2)[..., None]
         k = (k.float() * ks).to(q.dtype)
         v = (v.float() * vs).to(q.dtype)
-    qs = (q.reshape(b, h, d).float() * (1.0 / math.sqrt(d))).to(q.dtype)
+    qs = (q.reshape(b, h, d).float() * _scales(d, q.dtype)[0]).to(q.dtype)
     s = torch.einsum("bhd,blhd->bhl", qs.float(), k.float())
     pos = torch.arange(span, device=q.device)
     valid = torch.ones((b, span), dtype=torch.bool, device=q.device)
@@ -201,7 +190,7 @@ def _launch(q, k_cache, v_cache, cur, attn_start, n_heads, d,
             _check_tensor(name, t, (torch.float32,), (b, n_heads, L))
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    scale = 1.0 / math.sqrt(d)
+    scale = _scales(d, q.dtype)[0]
     lib = _library()
     with torch.cuda.device(q.device):
         if quant:
@@ -349,7 +338,7 @@ def paged_decode_attention_plain(q, k_pages, v_pages, page_table, lengths,
     k = gather_pages(k_pages, page_table, h)     # int8 stays int8
     v = gather_pages(v_pages, page_table, h)
     span = k.shape[1]
-    qs = (q.reshape(b, h, d).float() * (1.0 / math.sqrt(d))).to(q.dtype)
+    qs = (q.reshape(b, h, d).float() * _scales(d, q.dtype)[0]).to(q.dtype)
     s = torch.einsum("bhd,blhd->bhl", qs.float(), k.float())
     if k_scale is not None:
         # (b, mb, h, bs) scale pages -> (b, h, span)
@@ -406,7 +395,7 @@ def _launch_paged(q, k_pages, v_pages, page_table, lengths, attn_start,
                              f"{q.device}")
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    scale = 1.0 / math.sqrt(d)
+    scale = _scales(d, q.dtype)[0]
     lib = _library()
     with torch.cuda.device(q.device):
         if quant:

@@ -1,5 +1,6 @@
-"""The port's CUDA decode-attention kernels (A, B: flat cache; C, D:
-paged pool) against their plain PyTorch versions, on the card. Every test
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card: decode attention (A, B: flat cache; C, D: paged pool) and flash
+attention (E forward, F and G backward). Every test
 here is marked `cuda` and skips without a card; run them on a machine
 with an H100:
 
@@ -16,13 +17,21 @@ rows, cursors past the per-slot capacity, and the wrappers' refusals.
 Tolerance: fp32 2e-5 (the reference decode-attention tests). bf16
 |err| <= 1.6e-2 + 2^-7 |ref|: kernel and plain version round at the same
 points and differ only in fp32 summation order, which can flip one bf16
-rounding by an ulp.
+rounding by an ulp. Flash attention holds the output and each of dq, dk
+and dv apart, element by element: fp32 at the reference flash tests' 2e-5
+(forward) and 1e-4 (grads) absolute and relative; bf16 at the decode
+kernels' 1.6e-2 + 2^-7 |ref| (the same rounding points, so only an
+output's final bf16 rounding, or one p or ds inside a sum, can flip by an
+ulp). Each tensor's error norm must also stay under a fraction of its
+norm (1e-5 fp32, 2e-3 bf16): ulp flips are rare and scattered, while a
+kernel wrong on one tile moves that tile's elements by their own size.
 """
 
 import pytest
 import torch
 
 from ddp_practice_tpu_torch.ops import decode_attention as ops
+from ddp_practice_tpu_torch.ops import flash_attention as fa
 
 pytestmark = pytest.mark.cuda
 
@@ -217,3 +226,106 @@ def test_paged_wrapper_refusals_and_routing(card):
                                          n_heads=4)
     assert ops.LAUNCHES == before
     torch.testing.assert_close(out, want)
+
+
+# ------------------------------------------------------------------- flash
+# (forward, grads) per-element (atol, rtol), and the relative-norm limit
+FLASH_TOL = {torch.float32: ((2e-5, 2e-5), (1e-4, 1e-4)),
+             torch.bfloat16: (TOL[torch.bfloat16], TOL[torch.bfloat16])}
+FLASH_REL = {torch.float32: 1e-5, torch.bfloat16: 2e-3}
+
+
+def _flash_run(entry, impl, inputs, weights, **kw):
+    xs = [t.detach().clone().requires_grad_(True) for t in inputs]
+    out = entry(*xs, impl=impl, **kw)
+    outs = out if isinstance(out, tuple) else (out,)
+    loss = sum((o.float() * w).sum() for o, w in zip(outs, weights))
+    grads = torch.autograd.grad(loss, xs)
+    torch.cuda.synchronize()
+    return [o.detach() for o in outs], grads
+
+
+def _split_qkv(grads, fused):
+    """A fused (b, s, 3hd) gradient as its dq, dk and dv windows."""
+    return list(grads[0].chunk(3, dim=-1)) if fused else list(grads)
+
+
+def _flash_check(entry, inputs, weights, fused=False, **kw):
+    got_o, got_g = _flash_run(entry, "kernel", inputs, weights, **kw)
+    want_o, want_g = _flash_run(entry, "plain", inputs, weights, **kw)
+    dtype = inputs[0].dtype
+    fwd, grad = FLASH_TOL[dtype]
+    pairs = [(a, b, fwd) for a, b in zip(got_o, want_o)]
+    pairs += [(a, b, grad) for a, b in zip(_split_qkv(got_g, fused),
+                                           _split_qkv(want_g, fused))]
+    for a, b, (atol, rtol) in pairs:
+        assert a.dtype == b.dtype and a.shape == b.shape
+        a, b = a.float(), b.float()
+        torch.testing.assert_close(a, b, atol=atol, rtol=rtol)
+        rel = float((a - b).norm() / b.norm().clamp_min(1e-30))
+        assert rel <= FLASH_REL[dtype], rel
+
+
+def _randn(*shape, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_kernels_match_plain(card, d, dtype, causal):
+    """Fused QKV (d >= 64, 2 heads: packed windows) or the folded route
+    (d=32) at s=96, which no tile size divides."""
+    b, s, h = 2, 96, 2
+    qkv = _randn(b, s, 3 * h * d, dtype=dtype, seed=d)
+    w = _randn(b, s, h, d, dtype=torch.float32, seed=d + 1)
+    row = "packed" if fa._heads_per_pack(h, d) else "folded"
+    before = dict(fa.LAUNCHES)
+    _flash_check(lambda x, **kw: fa.flash_attention_qkv(x, h, **kw), [qkv],
+                 [w], fused=True, causal=causal)
+    assert fa.LAUNCHES[f"flash_fwd_{row}"] == before[f"flash_fwd_{row}"] + 1
+    assert fa.LAUNCHES[f"flash_bwd_{row}"] == before[f"flash_bwd_{row}"] + 1
+
+
+@pytest.mark.parametrize("layout", ["packed", "folded", "heads"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_layouts_match_plain(card, layout, dtype):
+    b, s, h, d = 2, 160, 4, 64
+    if layout == "folded":
+        shape, entry, wshape = (b * h, s, d), fa.flash_attention_with_lse, [
+            (b * h, s, d), (b * h, s)]
+    else:
+        hh = 3 if layout == "heads" else h      # 3 heads of 64 don't pack
+        shape, entry, wshape = (b, s, hh, d), fa.flash_attention, [
+            (b, s, hh, d)]
+    inputs = [_randn(*shape, dtype=dtype, seed=i) for i in range(3)]
+    weights = [_randn(*ws, dtype=torch.float32, seed=9 + i)
+               for i, ws in enumerate(wshape)]
+    _flash_check(entry, inputs, weights, causal=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_lse_grad_with_shorter_queries(card, dtype):
+    """Causal s_q < s_k (bottom-right aligned) with a loss on lse too."""
+    bh, sq, sk, d = 6, 70, 200, 64
+    q = _randn(bh, sq, d, dtype=dtype, seed=1)
+    k = _randn(bh, sk, d, dtype=dtype, seed=2)
+    v = _randn(bh, sk, d, dtype=dtype, seed=3)
+    weights = [_randn(bh, sq, d, dtype=torch.float32, seed=4),
+               _randn(bh, sq, dtype=torch.float32, seed=5)]
+    _flash_check(fa.flash_attention_with_lse, [q, k, v], weights,
+                 causal=True)
+
+
+def test_flash_wrapper_refusals(card):
+    q = torch.zeros((1, 64, 2, 48), device="cuda")
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention(q, q, q, impl="kernel")
+    k = torch.zeros((2, 32, 64), device="cuda")
+    with pytest.raises(ValueError, match="seq_q <= seq_k"):
+        fa.flash_attention_with_lse(torch.zeros((2, 64, 64), device="cuda"),
+                                    k, k, causal=True)
+    with pytest.raises(ValueError, match="dtype"):
+        x = torch.zeros((2, 32, 64), device="cuda", dtype=torch.float16)
+        fa.flash_attention_with_lse(x, x, x)

@@ -1,15 +1,18 @@
 """Hygiene of the PyTorch port: it stands on its own.
 
 - No file of ddp_practice_tpu_torch/ or chip_smoke.py names the JAX
-  modules (`jax`, `flax`) or imports from the JAX package
+  modules (`jax`, `flax`, `optax`) or imports from the JAX package
   (`ddp_practice_tpu.`, with the dot).
 - The whole package and chip_smoke import in a fresh interpreter where
-  jax, flax and the JAX package cannot be imported.
-- The decode-attention CUDA source exists, holds kernels A-D and names
-  sm_90a, and ops/cuda_build.py compiles it for sm_90a.
+  jax, flax, optax and the JAX package cannot be imported.
+- The CUDA sources exist, hold their kernels' C entries (A-D in
+  decode_attention.cu, E-G in flash_attention.cu) and name sm_90a, and
+  ops/cuda_build.py compiles them for sm_90a.
 - The host-pure modules copied from the JAX package (the paged pool's
-  allocator and radix cache, the drafter) import only the standard
-  library, torch and the port.
+  allocator and radix cache, the drafter) import only typing, torch and
+  the port; the training slice's data, train, parallel and utils modules
+  (and config, cli, losses) only the standard library, numpy, torch and
+  the port.
 - Entry points asked for the card raise without one; chip_smoke exits
   non-zero with no result line, both without a card and when it stands
   alone outside the repository.
@@ -28,7 +31,7 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "ddp_practice_tpu_torch"
-FORBIDDEN = re.compile(r"\bjax\b|\bflax\b|ddp_practice_tpu\.")
+FORBIDDEN = re.compile(r"\bjax\b|\bflax\b|\boptax\b|ddp_practice_tpu\.")
 
 
 def _port_files():
@@ -49,7 +52,7 @@ def test_port_never_names_jax_or_the_jax_package():
 def _blocked_python(code: str, cwd=ROOT):
     prelude = (
         "import sys\n"
-        "for name in ('jax', 'flax', 'ddp_practice_tpu'):\n"
+        "for name in ('jax', 'flax', 'optax', 'ddp_practice_tpu'):\n"
         "    sys.modules[name] = None\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -83,8 +86,31 @@ def test_kernel_source_and_sm90a_build():
     assert lib.parent == ROOT / "build" / "ddp_practice_tpu_torch"
 
 
-@pytest.mark.parametrize("module", ["serve/kv_pages.py", "serve/spec.py"])
-def test_host_pure_copies_stand_alone(module):
+def test_flash_kernel_source_and_sm90a_build():
+    from ddp_practice_tpu_torch.ops import cuda_build
+
+    source = (PORT / "csrc" / "flash_attention.cu").read_text()
+    assert "sm_90a" in source
+    for entry in ("flash_attention_fwd", "flash_attention_bwd"):
+        assert re.search(rf"^(extern \"C\" )?int {entry}\(", source,
+                         re.M), entry
+    assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
+    lib = cuda_build.library_path("flash_attention")
+    assert lib.parent == ROOT / "build" / "ddp_practice_tpu_torch"
+
+
+def test_flash_kernels_cover_their_rows():
+    source = (PORT / "csrc" / "flash_attention.cu").read_text()
+    for kernel in ("flash_fwd_kernel", "flash_bwd_dkdv_kernel",
+                   "flash_bwd_dq_kernel"):
+        assert re.search(rf"\b{kernel}\(const Params p\)", source), kernel
+    for reference in ("_fwd_kernel", "_fwd_kernel_packed", "_dkdv_kernel",
+                      "_dkdv_kernel_packed", "_dq_kernel",
+                      "_dq_kernel_packed"):
+        assert reference in source, reference
+
+
+def _imports(module):
     tree = ast.parse((PORT / module).read_text())
     imported = set()
     for node in ast.walk(tree):
@@ -92,9 +118,33 @@ def test_host_pure_copies_stand_alone(module):
             imported.update(a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom):
             imported.add(node.module)
+    return imported
+
+
+@pytest.mark.parametrize("module", ["serve/kv_pages.py", "serve/spec.py"])
+def test_host_pure_copies_stand_alone(module):
+    imported = _imports(module)
     allowed = ("__future__", "typing", "torch", "ddp_practice_tpu_torch.")
     assert imported and all(m.startswith(allowed) for m in imported), \
         sorted(imported)
+
+
+TRAIN_SLICE = ["data/sharding.py", "data/lm_corpus.py", "train/state.py",
+               "train/steps.py", "train/loop.py", "parallel/dist.py",
+               "utils/flops.py", "utils/timing.py", "ops/losses.py",
+               "config.py", "cli.py"]
+STDLIB = ("__future__", "typing", "argparse", "collections", "ctypes",
+          "dataclasses", "json", "logging", "math", "os", "sys", "time")
+
+
+@pytest.mark.parametrize("module", TRAIN_SLICE)
+def test_train_slice_modules_stand_alone(module):
+    imported = _imports(module)
+    assert imported and all(
+        m in STDLIB or m in ("numpy", "torch")
+        or m.startswith(("torch.", "ddp_practice_tpu_torch."))
+        for m in imported), sorted(imported)
+
 
 
 def test_entry_points_refuse_a_missing_card():
