@@ -7,7 +7,7 @@ NVIDIA H100.
 Phases, each of which raises on failure (nothing is caught and passed):
 
 1. setup: print the card's name and power limit (nvidia-smi), build the
-   CUDA kernels from csrc/ with nvcc (both sources at once) and print
+   CUDA kernels from csrc/ with nvcc (all three sources at once) and print
    ptxas's register and spill lines;
 2. kernels: hold each kernel against its plain PyTorch version at lm_base
    shapes (h=12, hd=64) and print its device time (CUDA events around one
@@ -68,7 +68,30 @@ Phases, each of which raises on failure (nothing is caught and passed):
    kernels and the plain versions give one loss (1e-3 relative) and
    grads within 1e-2 of each grad's norm;
 12. train profile: one bf16 lm_base train step under torch.profiler:
-   host wall, device busy, idle share, device ops, E/F/G's share.
+   host wall, device busy, idle share, device ops, E/F/G's share;
+13. fused encoder kernels: H (forward) and I (backward) against their
+   plain versions at the ViT-Tiny layer (1024 sequences of 64, d=192, 3
+   heads, mlp 768) in bf16 and fp32, the causal LM layer (d=256, 4 heads,
+   mlp 1024, s=128) in both, and an odd batch of 7: out, dx and each of the
+   12 parameter grads held apart, with kernel and plain device times, the
+   bound, and in the library column the port's own unfused EncoderBlock
+   (cuBLAS + eager ops; no single PyTorch call computes the layer): its
+   forward for H, its forward + backward for I;
+14. ViT train: `fit` through the CLI's parser and config, vit_tiny (d=192,
+   depth 12, 3 heads, mlp 768) on the synthetic CIFAR-10 fallback, bf16,
+   batch 1024 (the reference bench's shape), Adam lr 1e-4 (the bench's SGD
+   at lr 1e-4 moves the loss less than its batch noise in 30 steps, and
+   this phase asserts a falling loss), 30 steps plus the eval pass, with
+   `--fused auto` (no flag): loss at steps 1, 10, 20, 30 (30 below 1),
+   median step, images/s, MFU against 989.4e12, eval accuracy, peak
+   memory; fused_encoder_fwd launches equal 12 x (30 + eval batches) and
+   fused_encoder_bwd 12 x 30. Then one profiled step (H, I, other), and a
+   leg of 10 steps with `--fused off` (a reading, not a claim);
+15. ViT cross-check: one vit_tiny train step at depth 2, batch 64: in fp32
+   the kernels, the fused layer's plain version and `fused=False` give one
+   loss (1e-5) and grads (2e-4, scaled by each grad's largest magnitude
+   above 1); in bf16 the kernels and the plain version give one loss (1e-3
+   relative) and grads within 1e-2 of each grad's norm.
 
 Launch counts are zeroed just before each phase's run and read just
 after it. The second-to-last line is the kernels' JSON record; the last
@@ -86,6 +109,13 @@ at the bf16 limit above in bf16 (the same rounding points: p, ds and the
 outputs can flip by an ulp); and in norm, ||kernel - plain|| / ||plain||
 under 1e-5 in fp32 and 2e-3 in bf16 per tensor, since ulp flips are rare
 and scattered while a kernel wrong on one tile moves all of its elements.
+The fused layer: fp32 2e-5 forward and 2e-4 grads (3e-4 causal) per
+element, times the tensor's largest magnitude where that exceeds 1 (a
+weight grad sums over up to 65536 tokens), 1e-5 in relative norm. bf16:
+kernel and plain round at the same ~10 points (y1, qkv, p, o, y2, hg, g,
+dx2, do, ds, dqkv) and differ in fp32 summation order; a flipped rounding
+(2^-8 relative) passes through the later products, so per element 4e-2 of
+the tensor's largest magnitude and 5e-3 in relative norm.
 """
 
 from __future__ import annotations
@@ -118,6 +148,19 @@ PEAK = {"bfloat16": 989.4e12, "float32": 67e12}
 FLASH_TOL = {"float32": ((2e-5, 2e-5), (1e-4, 1e-4)),
              "bfloat16": (BF16_TOL, BF16_TOL)}
 FLASH_REL = {"float32": 1e-5, "bfloat16": 2e-3}
+FUSED_SOURCE = "ddp_practice_tpu_torch/csrc/fused_encoder.cu"
+FUSED_REPLACES = {
+    "fused_encoder_fwd": "ddp_practice_tpu/ops/fused_encoder.py:542",
+    "fused_encoder_bwd": "ddp_practice_tpu/ops/fused_encoder.py:584",
+}
+# fused layer: per-element (forward, grads, causal grads) and relative norm
+FUSED_TOL = {"float32": (2e-5, 2e-4, 3e-4), "bfloat16": (4e-2, 4e-2, 4e-2)}
+FUSED_REL = {"float32": 1e-5, "bfloat16": 5e-3}
+VIT_ARGS = ["--model", "vit_tiny", "--dataset", "cifar10", "--precision",
+            "bf16", "-b", "1024", "--optimizer", "adam", "--lr", "1e-4",
+            "--synthetic_size", "32768", "-e", "1", "--log_every", "10",
+            "--data_dir", "build/no_such_data"]
+VIT_STEPS = 30
 MODEL_BF16_REL = 1e-2     # a bf16 model step, kernels vs plain versions
 TRAIN_ARGS = ["--model", "lm_base", "--attn_impl", "flash", "--precision",
               "bf16", "--optimizer", "adamw", "--lr", "3e-4", "--seq_len",
@@ -1116,6 +1159,367 @@ def train_profile(torch, trainer):
         log(f"  {us / 1e3:9.3f} ms/step {c:4d} calls/step  {name[:100]}")
 
 
+# ------------------------------------------------------- kernels H and I
+def _fused_err(torch, name, got, want, dtype, tol, what):
+    """(max |got - want|, relative error norm) of one tensor; raises past
+    the per-element tolerance (fp32: tol x max(1, max |want|) absolute plus
+    tol relative; bf16: tol x max(1, max |want|)) or FUSED_REL in norm."""
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"non-finite {name}: {what}")
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    scale = max(1.0, float(want.abs().max()))
+    limit = tol * scale + (tol * want.abs() if dtype == "float32" else 0.0)
+    rel = float((got - want).norm() / want.norm().clamp_min(1e-30))
+    if (err > limit).any() or rel > FUSED_REL[dtype]:
+        raise AssertionError(
+            f"{name} disagrees with its plain version: {what}: max |err| "
+            f"{float(err.max()):.3e} (max |ref| {scale:.3e}), relative norm "
+            f"{rel:.3e}")
+    return float(err.max()), rel
+
+
+def _fused_bound_ms(imgs, s, d, mlp, dtype, elt, backward):
+    """Operations: the layer's 8sd^2 + 4s^2d + 4sd.mlp per sequence forward
+    (utils/flops.py's per-layer term), twice that backward (the recompute
+    of the forward inside kernel I is counted apart: not here). Bytes:
+    forward x in and out once plus the weights once; backward x, g in, dx
+    out, the weights in and their fp32 grads out."""
+    flops = imgs * (8.0 * s * d * d + 4.0 * s * s * d + 4.0 * s * d * mlp)
+    weights = 4 * d * d + 2 * d * mlp + 9 * d + mlp
+    if backward:
+        flops *= 2.0
+        nbytes = 3 * imgs * s * d * elt + weights * (elt + 4)
+    else:
+        nbytes = 2 * imgs * s * d * elt + weights * elt
+    t_ops = flops / PEAK[dtype] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def check_fused(torch, fe, *, label, imgs, s, d, heads, mlp, dtype, causal,
+                flush, seed, timed=True):
+    """H and I against the plain version on one shape; out, dx and each
+    parameter grad held apart. Timed: the wrappers' calls (the casts of
+    the weights included), the plain version, and the port's unfused
+    EncoderBlock on the same inputs."""
+    from ddp_practice_tpu_torch.experiments.fused_profile import inputs
+    from ddp_practice_tpu_torch.models.vit import EncoderBlock
+
+    tdt = getattr(torch, dtype)
+    x, g, params = inputs(imgs, s, d, mlp, tdt, seed)
+    kw = dict(num_heads=heads, compute_dtype=tdt, causal=causal)
+    out = fe.fused_encoder_forward(x, params, impl="kernel", **kw)
+    dx, grads = fe.fused_encoder_backward(x, g, params, impl="kernel", **kw)
+    want_out = fe.fused_encoder_plain(x, params, **kw)
+    want_dx, want = fe.fused_encoder_backward_plain(x, g, params, **kw)
+    tol_f, tol_g, tol_c = FUSED_TOL[dtype]
+    tol_b = tol_c if causal else tol_g
+    what = f"{label} {dtype}"
+    err_f, rel_f = _fused_err(torch, "H", out, want_out, dtype, tol_f,
+                              f"{what} out")
+    errs = {"dx": _fused_err(torch, "I", dx, want_dx, dtype, tol_b,
+                             f"{what} dx")}
+    for name, a, b in zip(fe.PARAM_NAMES, grads, want):
+        errs[name] = _fused_err(torch, "I", a, b, dtype, tol_b,
+                                f"{what} d({name})")
+    worst = max(errs, key=lambda n: errs[n][1])
+    err_b = max(e for e, _ in errs.values())
+    log(f"  {'H, I vs plain':>17} {label:<30} {dtype:>8}: max |err| / "
+        f"relative norm: out {err_f:.2e} / {rel_f:.2e}  dx "
+        f"{errs['dx'][0]:.2e} / {errs['dx'][1]:.2e}  worst grad {worst} "
+        f"{errs[worst][0]:.2e} / {errs[worst][1]:.2e}")
+    if not timed:
+        return {}
+    # the library column: the port's unfused block, cuBLAS + eager ops
+    block = EncoderBlock(d, heads, mlp, dtype=tdt, causal=causal,
+                         fused=False).cuda()
+    with torch.no_grad():
+        for name, value in zip(fe.PARAM_NAMES, params):
+            block.get_parameter(name).copy_(value)
+
+    def unfused_forward():
+        with torch.no_grad():
+            return block(x)
+
+    def unfused_step():
+        xs = x.detach().requires_grad_(True)
+        return torch.autograd.grad(block(xs), [xs, *block.parameters()], g)
+
+    rows = {}
+    for name, err, backward, kernel, plain, lib in (
+            ("fused_encoder_fwd", err_f, False,
+             lambda: fe.fused_encoder_forward(x, params, impl="kernel", **kw),
+             lambda: fe.fused_encoder_plain(x, params, **kw),
+             unfused_forward),
+            ("fused_encoder_bwd", err_b, True,
+             lambda: fe.fused_encoder_backward(x, g, params, impl="kernel",
+                                               **kw),
+             lambda: fe.fused_encoder_backward_plain(x, g, params, **kw),
+             unfused_step)):
+        bound, by = _fused_bound_ms(imgs, s, d, mlp, dtype,
+                                    x.element_size(), backward)
+        rows[name] = {
+            "kernel": name, "shape": label, "dtype": dtype,
+            "max_abs_err": err, "ms": _time_ms(torch, kernel, flush),
+            "plain_ms": _time_ms(torch, plain, flush, runs=5),
+            "library_ms": _time_ms(torch, lib, flush),
+            "bound_ms": bound, "bound_by": by}
+        r = rows[name]
+        lib_what = "fwd+bwd" if backward else "fwd"
+        log(f"  {name:>17} {label:<30} {dtype:>8}: err {err:.2e}  kernel "
+            f"{r['ms']:8.3f} ms  plain {r['plain_ms']:8.3f} ms  unfused "
+            f"block {lib_what} {r['library_ms']:8.3f} ms  bound "
+            f"{bound:7.3f} ms ({by})")
+    return rows
+
+
+def fused_kernel_phase(torch, fe, flush) -> dict:
+    """H and I over the shapes; returns {row: the ViT-Tiny bf16 row} with
+    max_abs_err raised to the bf16 cases' worst."""
+    cases = [
+        # label, imgs, s, d, heads, mlp, dtype, causal, timed, main
+        ("vit_tiny 1024x64x192", 1024, 64, 192, 3, 768, "bfloat16", False,
+         True, True),
+        ("vit_tiny 1024x64x192", 1024, 64, 192, 3, 768, "float32", False,
+         True, False),
+        ("causal lm 64x128x256", 64, 128, 256, 4, 1024, "bfloat16", True,
+         True, False),
+        ("causal lm 64x128x256", 64, 128, 256, 4, 1024, "float32", True,
+         True, False),
+        ("odd batch 7x64x192", 7, 64, 192, 3, 768, "bfloat16", False,
+         False, False),
+        ("odd batch 7x64x192", 7, 64, 192, 3, 768, "float32", False,
+         False, False),
+    ]
+    main, worst = {}, {}
+    for seed, (label, imgs, s, d, heads, mlp, dtype, causal, timed,
+               is_main) in enumerate(cases):
+        rows = check_fused(torch, fe, label=label, imgs=imgs, s=s, d=d,
+                           heads=heads, mlp=mlp, dtype=dtype, causal=causal,
+                           flush=flush, seed=6000 + seed, timed=timed)
+        for name, row in rows.items():
+            if dtype == "bfloat16":
+                worst[name] = max(worst.get(name, 0.0), row["max_abs_err"])
+            if is_main:
+                main[name] = row
+    for name, row in main.items():
+        row["max_abs_err"] = worst[name]
+    return main
+
+
+# ---------------------------------------------------------------- ViT train
+def vit_train_phase(torch, fe, extra, *, steps, label, fused):
+    """`fit` through the CLI's parser and config (vit_tiny, bf16, batch
+    1024, synthetic CIFAR-10) for `steps` steps and the eval pass. Checks
+    that the loss fell and that H launched depth x (steps + eval batches)
+    times and I depth x steps (none with the fused layer off)."""
+    from ddp_practice_tpu_torch.cli import build_parser, config_from_args
+    from ddp_practice_tpu_torch.train.loop import Trainer
+    from ddp_practice_tpu_torch.utils.flops import (
+        chip_peak_flops,
+        train_flops_per_image,
+    )
+
+    argv = VIT_ARGS + ["--max_steps", str(steps)] + extra
+    config = config_from_args(build_parser().parse_args(argv))
+    trainer = Trainer(config)
+    losses, ends = [], []
+    step = trainer.train_step
+
+    def recorded(state, batch):
+        state, metrics = step(state, batch)
+        losses.append(metrics["loss"])
+        ends.append(torch.cuda.Event(enable_timing=True))
+        ends[-1].record()
+        return state, metrics
+
+    trainer.train_step = recorded
+    torch.cuda.reset_peak_memory_stats()
+    fe.reset_launches()
+    t0 = time.monotonic()
+    summary = trainer.fit()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = dict(fe.LAUNCHES)
+    loss = [float(x) for x in losses]
+    step_ms = statistics.median(ends[i - 1].elapsed_time(ends[i])
+                                for i in range(1, len(ends)))
+    model = trainer.model
+    flops = train_flops_per_image(
+        config.model, trainer.train_ds.image_shape,
+        trainer.train_ds.num_classes, patch_size=model.patch_size,
+        hidden_dim=model.hidden_dim, depth=model.depth,
+        mlp_dim=model.mlp_dim) * trainer.global_batch
+    peak = chip_peak_flops(torch.cuda.get_device_name(0))
+    eval_batches = len(trainer.eval_loader)
+    report = {
+        "loss": loss, "step_ms": step_ms,
+        "images_per_s": trainer.global_batch / (step_ms / 1e3),
+        "mfu": flops / (step_ms / 1e3) / peak if peak else None,
+        "accuracy": summary["accuracy"],
+        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "launches": launches, "eval_batches": eval_batches,
+    }
+    shown = [i for i in (1, 10, 20, 30) if i <= len(loss)]
+    log(f"vit train[{label}] {config.model} {config.precision} "
+        f"{config.optimizer} lr {config.learning_rate}, "
+        f"{trainer.train_ds.name} {trainer.train_ds.image_shape}, batch "
+        f"{trainer.global_batch}, {steps} steps + {eval_batches} eval "
+        f"batches, wall {wall:.1f} s: loss "
+        + ", ".join(f"step {i} {loss[i - 1]:.4f}" for i in shown))
+    mfu = "not measured" if peak is None else f"{report['mfu']:.4f}"
+    log(f"  median step {step_ms:.2f} ms (CUDA events between step ends), "
+        f"{report['images_per_s']:.0f} images/s, MFU {mfu} against "
+        f"{(peak or 0) / 1e12:.1f} TFLOP/s ({flops / 1e12:.3f} TFLOP/step "
+        f"analytic); fit's own {summary['images_per_sec']:.0f} images/s "
+        f"incl. the first steps; eval accuracy {report['accuracy']:.4f}; "
+        f"peak memory {report['peak_gib']:.2f} GiB; launches {launches}")
+    if not loss[-1] < loss[0]:
+        raise AssertionError(f"vit train[{label}]: loss did not fall: {loss}")
+    want = {"fused_encoder_fwd": model.depth * (steps + eval_batches),
+            "fused_encoder_bwd": model.depth * steps} if fused else \
+        {"fused_encoder_fwd": 0, "fused_encoder_bwd": 0}
+    if launches != want:
+        raise AssertionError(f"vit train[{label}]: launches {launches}, "
+                             f"want {want}")
+    return trainer, report
+
+
+def vit_train_profile(torch, trainer):
+    """One bf16 vit_tiny train step under torch.profiler, after warm steps:
+    host wall, device busy, idle share, device ops, time by kind."""
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = trainer._to_device(next(iter(trainer.train_loader)))
+    for _ in range(2):
+        trainer.state, _ = trainer.train_step(trainer.state, batch)
+    torch.cuda.synchronize()
+    n = 3
+    t0 = time.perf_counter()
+    for _ in range(n):
+        trainer.state, _ = trainer.train_step(trainer.state, batch)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / n
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.state, _ = trainer.train_step(trainer.state, batch)
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in prof.events()
+               if getattr(e, "device_type", None) == cuda]
+    if not kernels:
+        log(f"vit train profile: torch.profiler recorded no device events; "
+            f"device time not measured (host wall {host_ms:.2f} ms/step)")
+        return
+    by_kind = {"H": 0.0, "I": 0.0, "I reduce": 0.0, "matmul": 0.0,
+               "other": 0.0}
+    for e in kernels:
+        name = e.name.lower()
+        kind = ("H" if "fused_encoder_fwd" in name
+                else "I" if "fused_encoder_bwd" in name
+                else "I reduce" if "fused_encoder_reduce" in name
+                else "matmul" if any(t in name for t in (
+                    "gemm", "cutlass", "xmma", "nvjet", "gemv"))
+                else "other")
+        by_kind[kind] += e.time_range.elapsed_us()
+    device_ms = sum(by_kind.values()) / 1e3
+    log(f"vit train profile (vit_tiny bf16 step, batch "
+        f"{trainer.global_batch}): host wall {host_ms:.2f} ms/step, device "
+        f"busy {device_ms:.2f} ms/step, device idle share "
+        f"{max(0.0, 1 - device_ms / host_ms):.3f}, {len(kernels)} device "
+        f"ops/step; device time by kind "
+        + ", ".join(f"{k} {v / 1e3:.3f} ms ({v / 1e3 / device_ms:.3f})"
+                    for k, v in by_kind.items()))
+    per_name = {}
+    for e in kernels:
+        c, us = per_name.get(e.name, (0, 0.0))
+        per_name[e.name] = (c + 1, us + e.time_range.elapsed_us())
+    for name, (c, us) in sorted(per_name.items(),
+                                key=lambda kv: -kv[1][1])[:8]:
+        log(f"  {us / 1e3:9.3f} ms/step {c:4d} calls/step  {name[:100]}")
+
+
+def _vit_step(torch, fe, *, precision, fused, impl, batch=64):
+    """One train step's loss and parameter grads of vit_tiny at depth 2
+    from seed 3, the fused layer forced to `impl`."""
+    from ddp_practice_tpu_torch.config import PrecisionPolicy
+    from ddp_practice_tpu_torch.models import create_model
+    from ddp_practice_tpu_torch.ops.losses import cross_entropy
+
+    g = torch.Generator().manual_seed(7)
+    images = torch.rand((batch, 32, 32, 3), generator=g).cuda()
+    labels = torch.randint(0, 10, (batch,), generator=g).cuda()
+    model = create_model("vit_tiny", device="cuda", seed=3, depth=2,
+                         fused=fused,
+                         policy=PrecisionPolicy.from_name(precision))
+    fe.reset_launches()
+    with fe.forced_impl(impl):
+        loss = cross_entropy(model(images, train=True), labels)
+        loss.backward()
+    torch.cuda.synchronize()
+    want = 2 if (fused and impl == "kernel") else 0
+    if fe.LAUNCHES != {"fused_encoder_fwd": want, "fused_encoder_bwd": want}:
+        raise AssertionError(f"vit cross-check {precision} fused={fused} "
+                             f"{impl}: launches {fe.LAUNCHES}")
+    grads = {n: p.grad.detach() for n, p in model.named_parameters()}
+    del model
+    return float(loss.detach()), grads
+
+
+def vit_cross_check(torch, fe):
+    """One vit_tiny train step at depth 2, batch 64. fp32: kernels H and I,
+    the fused layer's plain version and the per-op block (`fused=False`)
+    give one loss (1e-5) and grads (2e-4, times a grad's largest magnitude
+    above 1). bf16: the kernels and the plain version give one loss (1e-3
+    relative) and grads whose error norm stays under MODEL_BF16_REL of each
+    grad's norm."""
+    runs = {label: _vit_step(torch, fe, precision="fp32", fused=fused,
+                             impl=impl)
+            for label, fused, impl in (("kernel", True, "kernel"),
+                                       ("plain", True, "plain"),
+                                       ("unfused", False, "auto"))}
+    want_loss, want = runs["kernel"]
+    worst = 0.0
+    for label in ("plain", "unfused"):
+        got_loss, got = runs[label]
+        if abs(got_loss - want_loss) > 1e-5 * max(1.0, abs(want_loss)):
+            raise AssertionError(f"vit cross-check: {label} loss {got_loss} "
+                                 f"vs kernel {want_loss}")
+        for name, gk in want.items():
+            err = (got[name] - gk).abs()
+            tol = 2e-4 * max(1.0, float(gk.abs().max()))
+            if (err > tol + 2e-4 * gk.abs()).any():
+                raise AssertionError(
+                    f"vit cross-check: {label} grad {name} max |err| "
+                    f"{float(err.max()):.3e}")
+            worst = max(worst, float(err.max()))
+    log(f"vit cross-check fp32 (vit_tiny depth 2, batch 64): loss kernel "
+        f"{want_loss:.7f} plain {runs['plain'][0]:.7f} unfused "
+        f"{runs['unfused'][0]:.7f}; grads agree, max |err| {worst:.2e}")
+    del runs, want
+    k_loss, k_grads = _vit_step(torch, fe, precision="bf16", fused=True,
+                                impl="kernel")
+    p_loss, p_grads = _vit_step(torch, fe, precision="bf16", fused=True,
+                                impl="plain")
+    if abs(k_loss - p_loss) > 1e-3 * abs(p_loss):
+        raise AssertionError(f"vit cross-check bf16: kernel loss {k_loss} vs "
+                             f"plain {p_loss}")
+    rel = {n: float((k_grads[n] - g).norm() / g.norm().clamp_min(1e-30))
+           for n, g in p_grads.items()}
+    worst_name = max(rel, key=rel.get)
+    if rel[worst_name] > MODEL_BF16_REL:
+        raise AssertionError(f"vit cross-check bf16: grad {worst_name} "
+                             f"relative error norm {rel[worst_name]:.3e}")
+    log(f"vit cross-check bf16 (vit_tiny depth 2, batch 64): loss kernel "
+        f"{k_loss:.7f} plain {p_loss:.7f}; grads' relative error norm "
+        f"median {statistics.median(rel.values()):.2e}, worst "
+        f"{rel[worst_name]:.2e} ({worst_name})")
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -1127,6 +1531,7 @@ def main() -> int:
     from ddp_practice_tpu_torch.ops import cuda_build
     from ddp_practice_tpu_torch.ops import decode_attention as ops
     from ddp_practice_tpu_torch.ops import flash_attention as fa
+    from ddp_practice_tpu_torch.ops import fused_encoder as fe
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1139,9 +1544,9 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
     t0 = time.monotonic()
-    cuda_build.build(["decode_attention", "flash_attention"])
-    log(f"built {SOURCE} (kernels A-D) and {FLASH_SOURCE} (E-G) for sm_90a "
-        f"in {time.monotonic() - t0:.1f} s")
+    cuda_build.build(cuda_build.SOURCES)
+    log(f"built {SOURCE} (kernels A-D), {FLASH_SOURCE} (E-G) and "
+        f"{FUSED_SOURCE} (H, I) for sm_90a in {time.monotonic() - t0:.1f} s")
     for name, info in cuda_build.ptxas_info.items():
         for line in info.splitlines():
             if "registers" in line or "spill" in line:
@@ -1157,8 +1562,24 @@ def main() -> int:
     log(f"kernel phase, flash attention (device times are medians of "
         f"{TIMED_RUNS}, plain of 5):")
     flash_rows = flash_kernel_phase(torch, F, fa, flush)
+    log(f"kernel phase, fused encoder layer (device times are medians of "
+        f"{TIMED_RUNS}, plain of 5):")
+    fused_rows = fused_kernel_phase(torch, fe, flush)
     del flush
     torch.cuda.empty_cache()
+
+    vit_trainer, vit = vit_train_phase(torch, fe, [], steps=VIT_STEPS,
+                                       label="fused auto", fused=True)
+    vit_train_profile(torch, vit_trainer)
+    del vit_trainer
+    torch.cuda.empty_cache()
+    _, vit_off = vit_train_phase(torch, fe, ["--fused", "off"], steps=10,
+                                 label="fused off", fused=False)
+    log(f"vit train: fused auto {vit['step_ms']:.2f} ms/step, fused off "
+        f"{vit_off['step_ms']:.2f} ms/step: the fused layer's step is "
+        f"{vit['step_ms'] / vit_off['step_ms']:.2f}x the per-op step's")
+    torch.cuda.empty_cache()
+    vit_cross_check(torch, fe)
 
     trainer, train = train_phase(
         torch, fa, ["--synthetic_size", "600000"], steps=TRAIN_STEPS,
@@ -1197,6 +1618,8 @@ def main() -> int:
         "flash_bwd_packed": train["launches"]["flash_bwd_packed"],
         "flash_fwd_folded": folded["launches"]["flash_fwd_folded"],
         "flash_bwd_folded": folded["launches"]["flash_bwd_folded"],
+        "fused_encoder_fwd": vit["launches"]["fused_encoder_fwd"],
+        "fused_encoder_bwd": vit["launches"]["fused_encoder_bwd"],
     }
     idle = [name for name, n in launches.items() if n <= 0]
     if idle:
@@ -1214,6 +1637,14 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": FLASH_SOURCE,
             "replaces": FLASH_REPLACES[name], "launches": launches[name],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+        })
+    for name, row in fused_rows.items():
+        kernels.append({
+            "name": name, "route": "cuda", "source": FUSED_SOURCE,
+            "replaces": FUSED_REPLACES[name], "launches": launches[name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

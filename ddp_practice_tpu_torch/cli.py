@@ -6,6 +6,12 @@
 Training takes the reference's parser (the same flag names and defaults)
 plus `--device` (the card unless `--device cpu`); flags this slice does
 not port raise NotImplementedError naming their ROADMAP item (config.py).
+The image transformers train on the card's fused encoder-layer kernels
+with no flag:
+
+    python -m ddp_practice_tpu_torch.cli --model vit_tiny --dataset cifar10 \\
+        --precision bf16 -b 1024
+
 Data parallelism is one process per card:
 
     torchrun --nproc_per_node 4 -m ddp_practice_tpu_torch.cli --model \\
@@ -38,8 +44,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--num_heads", type=int, default=0,
                    help="override attention head count (0 = model default)")
     p.add_argument("--dataset", default="mnist",
-                   help="lm models: text (bytes from --data_dir) or "
-                        "anything else for the synthetic Markov corpus")
+                   help="image models: mnist | cifar10 | synthetic* (real "
+                        "files under --data_dir, else a seeded synthetic "
+                        "set of the same shape); lm models: text (bytes "
+                        "from --data_dir) or anything else for the "
+                        "synthetic Markov corpus")
     p.add_argument("--seq_len", type=int, default=256,
                    help="LM sequence length (lm_* models)")
     p.add_argument("--remat", action="store_true",
@@ -122,7 +131,10 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["auto", "host", "device"])
     p.add_argument("--compile_cache", default="auto")
     p.add_argument("--fused", nargs="?", const="on", default="auto",
-                   choices=["auto", "on", "off"])
+                   choices=["auto", "on", "off"],
+                   help="fused encoder layer (ops/fused_encoder.py): auto "
+                        "(plain blocks of a supported shape on the card), "
+                        "on (force; raises where it cannot run), off")
     p.add_argument("--augment", action="store_true")
     p.add_argument("--augment_kind", default="crop_flip",
                    choices=["crop_flip", "rrc"])

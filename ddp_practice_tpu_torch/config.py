@@ -119,8 +119,9 @@ class TrainConfig:
       device-resident path when the corpus fits; both feed the same
       batches); "device" is ROADMAP A3.
     - `compilation_cache` (the reference's persistent compile cache; the
-      port's eager steps compile nothing), `loader_backend` (the image
-      loaders), `num_classes` (the image task), `checkpoint_async`,
+      port's eager steps compile nothing), `loader_backend` (the native
+      C++ gather), `num_classes` (the datasets carry their own; the
+      override belongs to the imagenet corpus), `checkpoint_async`,
       `watchdog_probe_every_steps` and `resident_max_bytes` have no
       counterpart yet: any value but the default raises.
     - `coordinator_address`/`num_processes`/`process_id`: a tcp://
@@ -167,7 +168,7 @@ class TrainConfig:
     num_virtual: int = 2
     augment: bool = False
     augment_kind: str = "crop_flip"
-    fused_encoder: object = "auto"    # "auto" | "off"/False; "on" is B2
+    fused_encoder: object = "auto"    # "auto" | "on"/True | "off"/False
     num_experts: int = 0
     moe_router: str = "topk"
     num_heads: int = 0
@@ -219,10 +220,7 @@ class TrainConfig:
                 raise NotImplementedError(
                     f"{name}={getattr(self, name)!r} is not ported yet "
                     f"(ROADMAP {item})")
-        if self.fused_encoder in (True, "on"):
-            raise NotImplementedError(
-                "fused_encoder='on' is not ported yet (ROADMAP B2)")
-        if self.fused_encoder not in ("auto", "off", False):
+        if self.fused_encoder not in ("auto", "on", "off", True, False):
             raise ValueError(f"fused_encoder={self.fused_encoder!r} "
                              "(want 'auto'|'on'|'off')")
         if self.data_placement == "device":

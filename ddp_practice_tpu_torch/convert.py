@@ -10,7 +10,10 @@ rules, by Flax leaf:
 - the attention `out` DenseGeneral kernel (h, hd, d) -> (d, h*hd);
 - LayerNorm `scale` -> `weight` (epsilon is 1e-6 on both sides);
 - Embed `embedding` (vocab, d) -> `weight` unchanged;
-- `pos_embed` (1, max_len, d) unchanged; `lm_head` has no bias.
+- `pos_embed` (1, max_len, d) unchanged; `lm_head` has no bias;
+- the ViT's `patch_embed` Conv kernel, HWIO (p, p, c, d) -> OIHW
+  (d, c, p, p). It is 4-D like the qkv kernel: the two are told apart by
+  path.
 
 Block `block{i}` becomes `blocks.{i}`.
 """
@@ -26,6 +29,8 @@ import torch
 def _leaf(path: tuple, value: np.ndarray) -> np.ndarray:
     name = path[-1]
     if name == "kernel":
+        if len(path) >= 2 and path[-2] == "patch_embed":   # Conv HWIO
+            return value.transpose(3, 2, 0, 1)
         if value.ndim == 4:          # qkv (d, 3, h, hd)
             return value.reshape(value.shape[0], -1).T
         if value.ndim == 3:          # out (h, hd, d)
@@ -59,7 +64,7 @@ def flax_to_state_dict(params: Mapping) -> dict:
             else:
                 arr = _leaf(path + (key,), np.asarray(value))
                 out[_torch_name(path + (key,))] = torch.tensor(
-                    arr, dtype=torch.float32)
+                    np.ascontiguousarray(arr), dtype=torch.float32)
 
     walk(params, ())
     return out

@@ -1,13 +1,15 @@
 """Model registry (counterpart of ddp_practice_tpu/models/__init__.py).
 
-The port registers the decoder LMs that serve and train: `lm_tiny` and
-`lm_base`. The reference's other names raise NotImplementedError naming
-the ROADMAP item that ports them. `create_model` builds the module on `device` (the card by
-default; it raises when none is present) with weights drawn from `seed`
-on the CPU, so a seed gives the same weights on every device. The init
-follows the reference's Flax defaults in scale: Dense kernels and the
-token embedding normal with std 1/sqrt(fan_in), biases zero, LayerNorm
-scale one, learned positions normal(0.02).
+The port registers the decoder LMs that serve and train (`lm_tiny`,
+`lm_base`) and the image transformers (`vit_tiny`, `vit_base`); all four
+take the tri-state `fused` argument (`accepts_fused`). The reference's
+other names raise NotImplementedError naming the ROADMAP item that ports
+them. `create_model` builds the module on `device` (the card by default; it
+raises when none is present) with weights drawn from `seed` on the CPU, so
+a seed gives the same weights on every device. The init follows the
+reference's Flax defaults in scale: Dense and Conv kernels and the token
+embedding normal with std 1/sqrt(fan_in), biases zero, LayerNorm scale
+one, learned positions normal(0.02).
 """
 
 from __future__ import annotations
@@ -20,15 +22,24 @@ from torch import nn
 
 from ddp_practice_tpu_torch.config import PrecisionPolicy, resolve_device
 from ddp_practice_tpu_torch.models.lm import LMBase, LMTiny, TransformerLM
+from ddp_practice_tpu_torch.models.vit import ViT, ViTBase, ViTTiny
 
-_REGISTRY = {"lm_tiny": LMTiny, "lm_base": LMBase}
+_REGISTRY = {"lm_tiny": LMTiny, "lm_base": LMBase, "vit_tiny": ViTTiny,
+             "vit_base": ViTBase}
+# registry names whose module takes the tri-state `fused` argument
+# (models/vit.py EncoderBlock); all the ported ones do
+_FUSED_CAPABLE = frozenset(_REGISTRY)
 # the reference's other registry names -> the ROADMAP item that ports them
 _NOT_PORTED = {
     "convnet": "A1", "resnet18": "A2", "resnet50": "A2",
-    "vit_tiny": "A2 and B2", "vit_base": "A2 and B2",
     "vit_tiny_moe": "A7", "lm_moe": "A7",
     "vit_tiny_pipe": "A8", "lm_pipe": "A8",
 }
+
+
+def accepts_fused(name: str) -> bool:
+    """True when `create_model(name, fused=...)` is a valid call."""
+    return name.lower() in _FUSED_CAPABLE
 
 
 @torch.no_grad()
@@ -37,23 +48,26 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
     g = torch.Generator().manual_seed(seed)
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
-        if name.startswith("pos_embed"):
+        if leaf == "pos_embed":
             w = torch.randn(p.shape, generator=g) * 0.02
         elif leaf == "bias":
             w = torch.zeros(p.shape)
         elif ".ln" in f".{name}":   # ln1 / ln2 / ln_f scale
             w = torch.ones(p.shape)
-        else:                       # Linear (out, in) and Embedding (v, d)
-            w = torch.randn(p.shape, generator=g) / math.sqrt(p.shape[1])
+        else:       # Linear (out, in), Embedding (v, d), Conv (o, i, kh, kw)
+            w = torch.randn(p.shape, generator=g) / math.sqrt(
+                p[0].numel())
         p.copy_(w.to(p.dtype))
     return model
 
 
 def create_model(name: str, *, policy: Optional[PrecisionPolicy] = None,
-                 device="cuda", seed: int = 0, **kwargs) -> TransformerLM:
+                 device="cuda", seed: int = 0, **kwargs) -> nn.Module:
     """Instantiate a registered model on `device`, initialised from
-    `seed`. `kwargs` are TransformerLM fields (attn_impl, remat, pos_emb,
-    tied_embeddings, num_heads, dropout_rate, vocab_size, max_len, ...)."""
+    `seed`. `kwargs` are the model's fields: TransformerLM's (attn_impl,
+    remat, pos_emb, tied_embeddings, num_heads, dropout_rate, vocab_size,
+    max_len, fused, ...) or ViT's (num_classes, image_shape, patch_size,
+    depth, num_heads, attn_impl, dropout_rate, fused, ...)."""
     policy = policy or PrecisionPolicy.fp32()
     name = name.lower()
     if name in _NOT_PORTED:
@@ -67,5 +81,5 @@ def create_model(name: str, *, policy: Optional[PrecisionPolicy] = None,
     return init_weights(model, seed).to(dev)
 
 
-__all__ = ["create_model", "init_weights", "TransformerLM", "LMTiny",
-           "LMBase"]
+__all__ = ["accepts_fused", "create_model", "init_weights",
+           "TransformerLM", "LMTiny", "LMBase", "ViT", "ViTTiny", "ViTBase"]

@@ -13,9 +13,14 @@ prompt length) and single-token steps (s = 1). With `page_table` and
 `kv_lengths` the cache is a paged block pool (serve/kv_pages.py) and each
 sequence appends at its own slot-local position.
 
-Not ported in this slice: sequence parallelism (`seq_axis`, ROADMAP A8),
-MoE blocks (A7) and the fused encoder layer (`fused=True`, B2); each
-raises.
+`fused` is the blocks' tri-state (models/vit.py EncoderBlock): under the
+default "auto" a plain causal block whose shape the fused kernels take
+(e.g. lm_tiny with 4 heads of 64, `attn_impl="xla"`, learned positions)
+runs as one kernel per direction on the card; lm_base exceeds the
+kernels' limits and keeps the per-op path.
+
+Not ported yet: sequence parallelism (`seq_axis`, ROADMAP A8) and MoE
+blocks (A7); each raises.
 """
 
 from __future__ import annotations

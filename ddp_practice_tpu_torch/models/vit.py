@@ -1,11 +1,17 @@
-"""Transformer blocks (counterpart of ddp_practice_tpu/models/vit.py).
+"""Vision Transformer and its blocks (counterpart of
+ddp_practice_tpu/models/vit.py).
 
-This slice ports what the decoder LM runs: `MlpBlock`, `SelfAttention`
-(the training forward, with the streaming flash kernels behind
-`attn_impl="flash"`, and the flat KV-cache decode path, including the
-int8 quantize-on-write cache) and `EncoderBlock` with the unfused path.
-The fused one-kernel encoder layer is a later slice (ROADMAP B2):
-`fused=True` raises, and `"auto"` resolves to the unfused path.
+`MlpBlock`, `SelfAttention` (the training forward, with the streaming
+flash kernels behind `attn_impl="flash"`, and the flat and paged KV-cache
+decode paths, including the int8 quantize-on-write cache) and
+`EncoderBlock` serve the decoder LM too. `EncoderBlock.fused` is the
+reference's tri-state: `True` runs the whole layer as one kernel per
+direction (ops/fused_encoder.py) and raises on a block or a shape the
+kernels do not take; `"auto"` (the models' default) fuses when the block is
+plain, the shape is supported and the input is a CUDA tensor, and takes the
+per-op path otherwise (on the CPU always); `False` never fuses. `ViTEmbed`,
+`ViTHead`, `ViT`, `ViTTiny` and `ViTBase` are the image classifier: NHWC
+images in, fp32 logits out.
 
 Dropout keys its masks on an integer (`dropout`): the LM derives one per
 site from (seed, step), so a step replays its masks and a rematerialized
@@ -49,6 +55,12 @@ from ddp_practice_tpu_torch.ops.decode_attention import (
     paged_decode_attention,
 )
 from ddp_practice_tpu_torch.ops.flash_attention import flash_attention_qkv
+from ddp_practice_tpu_torch.ops.fused_encoder import (
+    block_params,
+    fused_encoder_layer,
+    fused_shape_supported,
+    shape_error,
+)
 from ddp_practice_tpu_torch.ops.rope import apply_rope
 
 LN_EPS = 1e-6
@@ -350,15 +362,11 @@ class EncoderBlock(nn.Module):
         if use_moe:
             raise NotImplementedError(
                 "MoE blocks are not ported yet (ROADMAP A7)")
-        if fused is True:
-            raise NotImplementedError(
-                "the fused encoder layer is not ported yet (ROADMAP B2)"
-            )
-        # fused="auto" is the per-op pipeline until B2 brings the kernel.
-        # The reference would not pick it on this slice's path either: it
-        # never combines with attn_impl="flash" (models/vit.py
-        # _plain_block), and lm_base's bf16 weights (13.5 MiB) exceed its
-        # 8 MiB residency limit (ops/fused_encoder.py).
+        if fused not in (True, False, "auto"):
+            raise ValueError(f"fused={fused!r} (want True|False|'auto')")
+        self.fused = fused
+        self.use_moe = use_moe
+        self.mlp_dim = mlp_dim
         self.dropout_rate = dropout_rate
         self.ln1 = LayerNorm(d, dtype)
         self.attn = SelfAttention(
@@ -373,8 +381,150 @@ class EncoderBlock(nn.Module):
     def forward(self, x, *, dropout_key: Optional[int] = None, cache=None,
                 attn_start=None, page_table=None, kv_lengths=None):
         """`dropout_key` None means no dropout (eval, decode)."""
+        decode = cache is not None
+        fused = self.fused
+        if fused == "auto":
+            fused = self._auto_fuse(x, decode)
+        if fused:
+            if not self._plain_block(decode):
+                raise ValueError(
+                    "fused encoder layer supports plain blocks only — "
+                    "bidirectional or causal — with no decode/rope/"
+                    "seq-parallel/MoE/dropout/attn_impl override; those "
+                    "paths keep the per-op pipeline"
+                )
+            err = shape_error(x.shape[1], x.shape[2], self.mlp_dim,
+                               self.attn.num_heads, self.attn.dtype)
+            if err:
+                raise ValueError(err)
+            return fused_encoder_layer(
+                x, block_params(self), num_heads=self.attn.num_heads,
+                compute_dtype=self.attn.dtype, causal=self.attn.causal)
         y = self.attn(self.ln1(x), cache=cache, attn_start=attn_start,
                       page_table=page_table, kv_lengths=kv_lengths)
         x = x + dropout(y, self.dropout_rate, subkey(dropout_key, 0))
         return x + self.mlp(self.ln2(x),
                             dropout_key=subkey(dropout_key, 1))
+
+    def _plain_block(self, decode: bool) -> bool:
+        """What the fused kernels can express; shared by the fused=True
+        gate and the "auto" choice so they cannot drift apart."""
+        a = self.attn
+        return not (decode or a.rope or a.seq_axis is not None
+                    or self.use_moe or self.dropout_rate > 0.0
+                    or a.attn_impl != "xla")
+
+    def _auto_fuse(self, x, decode: bool) -> bool:
+        """fused="auto": a plain block, a shape the kernels take, and a
+        CUDA tensor (on the CPU the fused layer is its plain version, slower
+        than the per-op path: auto never picks it)."""
+        if not self._plain_block(decode) or x.device.type != "cuda":
+            return False
+        return fused_shape_supported(
+            seq_len=x.shape[1], d=x.shape[2], mlp_dim=self.mlp_dim,
+            num_heads=self.attn.num_heads, compute_dtype=self.attn.dtype)
+
+
+class ViTEmbed(nn.Module):
+    """Patch + position embedding stem: NHWC images -> (b, patches, d).
+    The patch conv has stride = kernel = `patch_size`; patches flatten
+    row-major; `pos_embed` is added in `dtype`."""
+
+    def __init__(self, patch_size: int = 4, hidden_dim: int = 192, *,
+                 in_channels: int = 3, num_patches: int = 64,
+                 dtype=torch.float32) -> None:
+        super().__init__()
+        self.dtype = dtype
+        self.patch_size = patch_size
+        self.patch_embed = nn.Conv2d(in_channels, hidden_dim, patch_size,
+                                     stride=patch_size)
+        self.pos_embed = nn.Parameter(
+            torch.zeros(1, num_patches, hidden_dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype).permute(0, 3, 1, 2)           # NHWC -> NCHW
+        x = F.conv2d(x, self.patch_embed.weight.to(self.dtype),
+                     self.patch_embed.bias.to(self.dtype),
+                     stride=self.patch_size)               # (b, d, h, w)
+        x = x.flatten(2).transpose(1, 2)                   # (b, h*w, d)
+        if x.shape[1] != self.pos_embed.shape[1]:
+            raise ValueError(
+                f"image gives {x.shape[1]} patches, the model was built "
+                f"for {self.pos_embed.shape[1]} (image_shape)")
+        return x + self.pos_embed.to(self.dtype)
+
+
+class ViTHead(nn.Module):
+    """Final LN + global average pool + classifier; logits fp32."""
+
+    def __init__(self, hidden_dim: int, num_classes: int = 10, *,
+                 dtype=torch.float32) -> None:
+        super().__init__()
+        self.dtype = dtype
+        self.ln_f = LayerNorm(hidden_dim, dtype)
+        self.head = nn.Linear(hidden_dim, num_classes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.ln_f(x).mean(dim=1)
+        return dense(x, self.head, self.dtype).float()
+
+
+class ViT(nn.Module):
+    """`image_shape` (H, W, C) sizes the patch conv and the position
+    table (Flax infers both at init from the first batch)."""
+
+    def __init__(self, *, num_classes: int = 10, patch_size: int = 4,
+                 hidden_dim: int = 192, depth: int = 12, num_heads: int = 3,
+                 mlp_dim: int = 768, dtype=torch.float32,
+                 param_dtype=torch.float32, seq_axis: Optional[str] = None,
+                 sp_impl: str = "ring", attn_impl: str = "xla",
+                 dropout_rate: float = 0.0, fused="auto",
+                 image_shape=(32, 32, 3)) -> None:
+        super().__init__()
+        h, w, c = image_shape
+        self.num_classes = num_classes
+        self.patch_size = patch_size
+        self.hidden_dim = hidden_dim
+        self.depth = depth
+        self.num_heads = num_heads
+        self.mlp_dim = mlp_dim
+        self.dtype = dtype
+        self.image_shape = tuple(image_shape)
+        self.dropout_rate = dropout_rate
+        self.embed = ViTEmbed(
+            patch_size, hidden_dim, in_channels=c,
+            num_patches=(h // patch_size) * (w // patch_size), dtype=dtype)
+        self.blocks = nn.ModuleList(
+            EncoderBlock(hidden_dim, num_heads, mlp_dim, dtype=dtype,
+                         seq_axis=seq_axis, sp_impl=sp_impl,
+                         attn_impl=attn_impl, dropout_rate=dropout_rate,
+                         fused=fused)
+            for _ in range(depth)
+        )
+        self.classifier = ViTHead(hidden_dim, num_classes, dtype=dtype)
+        self.to(param_dtype)
+
+    def forward(self, x: torch.Tensor, *, train: bool = False,
+                dropout_key: int = 0) -> torch.Tensor:
+        """x (b, H, W, C) float in [0, 1] -> logits (b, classes) fp32."""
+        key = dropout_key if train and self.dropout_rate else None
+        x = self.embed(x)
+        for i, blk in enumerate(self.blocks):
+            x = blk(x, dropout_key=subkey(key, i))
+        return self.classifier(x)
+
+
+def ViTTiny(**kw) -> ViT:
+    kw.setdefault("hidden_dim", 192)
+    kw.setdefault("depth", 12)
+    kw.setdefault("num_heads", 3)
+    kw.setdefault("mlp_dim", 768)
+    return ViT(**kw)
+
+
+def ViTBase(**kw) -> ViT:
+    kw.setdefault("hidden_dim", 768)
+    kw.setdefault("depth", 12)
+    kw.setdefault("num_heads", 12)
+    kw.setdefault("mlp_dim", 3072)
+    return ViT(**kw)

@@ -26,6 +26,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ddp_practice_tpu_torch"
+# every source under csrc/ (`build(SOURCES)` compiles them together)
+SOURCES = ("decode_attention", "flash_attention", "fused_encoder")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

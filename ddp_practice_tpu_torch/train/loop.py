@@ -1,9 +1,11 @@
 """Training loop (counterpart of ddp_practice_tpu/train/loop.py, the LM
-task).
+and the image task).
 
-`Trainer` builds the token loaders (`_build_lm_data`: text from
-`data_dir` or the synthetic Markov corpus, the last 10% held out), the
-model on the card (`config.device`), the optimizer chain and the steps,
+`Trainer` builds the loaders (LM: `_build_lm_data`, text from `data_dir`
+or the synthetic Markov corpus, the last 10% held out; image: the train
+and test splits of `data/datasets.py load_dataset`, which falls back to a
+seeded synthetic set of the dataset's shape when no files are present,
+behind `data/loader.py DataLoader`), the model on the card (`config.device`), the optimizer chain and the steps,
 and `fit` runs the reference's loop contract: epochs with a per-epoch
 reshuffle, `max_steps_per_epoch`, a log line every `log_every_steps`,
 eval at the end (or every `eval_every_epochs`), and the three
@@ -23,7 +25,11 @@ Data parallelism: run one process per card under torchrun (or pass
 `coordinator_address`, `num_processes` and `process_id`); the global batch
 is `batch_size x world size`, each rank takes `ShardSpec.local_slice` of
 every global batch, the model runs wrapped in DistributedDataParallel, and
-eval sums are all-reduced. A non-LM model raises (ROADMAP A1).
+eval sums are all-reduced. `fused_encoder` ("auto" | "on" | "off") is the
+reference's flag: "on" forces the fused encoder layer and raises for a
+model that does not take it or a shape the kernels refuse. The image
+transformers (vit_tiny, vit_base) train; convnet and resnet* raise
+(ROADMAP A1).
 """
 
 from __future__ import annotations
@@ -40,6 +46,8 @@ import numpy as np
 import torch
 
 from ddp_practice_tpu_torch.config import TrainConfig, resolve_device
+from ddp_practice_tpu_torch.data.datasets import load_dataset
+from ddp_practice_tpu_torch.data.loader import DataLoader
 from ddp_practice_tpu_torch.data.lm_corpus import (
     LMDataLoader,
     TokenCorpus,
@@ -47,13 +55,15 @@ from ddp_practice_tpu_torch.data.lm_corpus import (
     synthetic_token_corpus,
 )
 from ddp_practice_tpu_torch.data.sharding import ShardSpec
-from ddp_practice_tpu_torch.models import create_model
+from ddp_practice_tpu_torch.models import accepts_fused, create_model
 from ddp_practice_tpu_torch.models import _NOT_PORTED as _MODELS_NOT_PORTED
 from ddp_practice_tpu_torch.parallel import dist
 from ddp_practice_tpu_torch.train.state import TrainState, make_optimizer
 from ddp_practice_tpu_torch.train.steps import (
+    make_eval_step,
     make_lm_eval_step,
     make_lm_train_step,
+    make_train_step,
 )
 from ddp_practice_tpu_torch.utils.timing import Timer
 
@@ -96,17 +106,44 @@ class Trainer:
         self.global_batch = config.batch_size * self.dp
         self.task = "lm" if config.model.lower().startswith("lm") else "image"
         name = config.model.lower()
-        if self.task != "lm" or name in _MODELS_NOT_PORTED:
-            item = _MODELS_NOT_PORTED.get(name, "A1")
+        if name in _MODELS_NOT_PORTED:
             raise NotImplementedError(
-                f"--model {config.model}: not ported yet (ROADMAP {item}); "
-                f"the port trains the decoder LMs (lm_tiny, lm_base)")
+                f"--model {config.model}: not ported yet (ROADMAP "
+                f"{_MODELS_NOT_PORTED[name]}); the port trains the decoder "
+                f"LMs (lm_tiny, lm_base) and the image transformers "
+                f"(vit_tiny, vit_base)")
         shard = ShardSpec(dist.process_index(), self.world)
-        (self.train_loader, self.eval_loader,
-         self._vocab_size) = self._build_lm_data(shard)
-
-        model_kwargs = dict(vocab_size=self._vocab_size,
-                            max_len=config.seq_len)
+        model_kwargs = {}
+        if self.task == "lm":
+            self.train_ds = self.eval_ds = None
+            (self.train_loader, self.eval_loader,
+             self._vocab_size) = self._build_lm_data(shard)
+            model_kwargs.update(vocab_size=self._vocab_size,
+                                max_len=config.seq_len)
+        else:
+            self.train_ds = load_dataset(
+                config.dataset, config.data_dir, "train", seed=config.seed,
+                synthetic_size=config.synthetic_size or None)
+            self.eval_ds = load_dataset(
+                config.dataset, config.data_dir, "test", seed=config.seed,
+                synthetic_size=(max(config.synthetic_size // 6, 1)
+                                if config.synthetic_size else None))
+            self.train_loader = DataLoader(
+                self.train_ds, global_batch_size=self.global_batch,
+                shard=shard, seed=config.seed, shuffle=True,
+                backend=config.loader_backend)
+            self.eval_loader = DataLoader(
+                self.eval_ds, global_batch_size=self.global_batch,
+                shard=shard, seed=config.seed, shuffle=config.shuffle_eval,
+                backend=config.loader_backend)
+            model_kwargs.update(num_classes=self.train_ds.num_classes,
+                                image_shape=self.train_ds.image_shape)
+            for flag, what in ((config.remat, "remat"),
+                               (config.tied_embeddings, "--tied"),
+                               (config.pos_emb != "learned", "--pos_emb")):
+                if flag:
+                    raise ValueError(f"{what} applies to the LM family "
+                                     f"(lm_*), not {config.model!r}")
         if config.num_heads:
             model_kwargs["num_heads"] = config.num_heads
         if config.dropout:
@@ -116,8 +153,23 @@ class Trainer:
             model_kwargs["dropout_rate"] = config.dropout
         if config.attn_impl != "xla":
             model_kwargs["attn_impl"] = config.attn_impl
-        if config.fused_encoder in (False, "off"):
-            model_kwargs["fused"] = False
+        fused_req = config.fused_encoder
+        if fused_req in (True, "on"):
+            if not accepts_fused(config.model):
+                raise ValueError(
+                    "--fused on is the small-d fused encoder-layer kernel "
+                    "(ops/fused_encoder.py) for the dense transformer "
+                    f"families, not {config.model!r} (conv/pipelined/"
+                    "ViT-MoE keep their paths). Note wide models "
+                    "(vit_base, lm_base) will then fail the kernel's "
+                    "weight-size check loudly, and lm_tiny needs "
+                    "--num_heads 4 (head_dim must be a multiple of 64)"
+                )
+            model_kwargs["fused"] = True
+        elif fused_req in (False, "off"):
+            if accepts_fused(config.model):
+                model_kwargs["fused"] = False
+        # "auto": the models default to fused="auto" and resolve per block
         if config.remat:
             model_kwargs["remat"] = True
         if config.pos_emb != "learned":
@@ -141,10 +193,17 @@ class Trainer:
                                    self.world)
         self.state = TrainState(step=0, model=self.model,
                                 optimizer=optimizer)
-        self.train_step = make_lm_train_step(
-            self.model, label_smoothing=config.label_smoothing,
-            seed=config.seed, forward=self.forward)
-        self.eval_step = make_lm_eval_step(self.model)
+        if self.task == "lm":
+            self.train_step = make_lm_train_step(
+                self.model, label_smoothing=config.label_smoothing,
+                seed=config.seed, forward=self.forward)
+            self.eval_step = make_lm_eval_step(self.model)
+        else:
+            self.train_step = make_train_step(
+                self.model, label_smoothing=config.label_smoothing,
+                seed=config.seed, augment=config.augment,
+                forward=self.forward)
+            self.eval_step = make_eval_step(self.model)
         self._train_images = 0
         self._train_seconds = 0.0
         self.eval_perplexity: Optional[float] = None
@@ -204,10 +263,16 @@ class Trainer:
                 corpus.vocab_size)
 
     def _to_device(self, batch: dict) -> dict:
-        tokens = torch.from_numpy(np.ascontiguousarray(batch["tokens"]))
-        if self.device.type == "cuda":
-            tokens = tokens.pin_memory().to(self.device, non_blocking=True)
-        return {"tokens": tokens.long()}
+        """A host batch's arrays on the device: pinned and copied with
+        `non_blocking=True` on the card. Tokens and labels become int64
+        (images stay uint8 until `prepare_image`)."""
+        out = {}
+        for key, value in batch.items():
+            t = torch.from_numpy(np.ascontiguousarray(value))
+            if self.device.type == "cuda":
+                t = t.pin_memory().to(self.device, non_blocking=True)
+            out[key] = t.long() if key in ("tokens", "label") else t
+        return out
 
     def _device_batches(self, loader):
         """Host batches staged `prefetch` ahead on the device."""
@@ -259,9 +324,16 @@ class Trainer:
         return {"epoch_seconds": dt, "images": images}
 
     def evaluate(self) -> float:
-        """Held-out next-token accuracy, and perplexity (exp of the mean
-        token NLL, on `eval_perplexity`); every rank takes part in the
-        all-reduce of the sums."""
+        """Held-out accuracy; every rank takes part in the all-reduce of
+        the sums. Image task: exact under wrap-padding (weighted counts).
+        LM: next-token accuracy, and perplexity (exp of the mean token
+        NLL, on `eval_perplexity`)."""
+        if self.task == "image":
+            sums = torch.zeros(2, device=self.device)
+            for batch in self._device_batches(self.eval_loader):
+                sums += torch.stack(self.eval_step(self.state, batch))
+            correct, total = dist.all_reduce_sum(sums).tolist()
+            return correct / max(total, 1.0)
         sums = torch.zeros(3, device=self.device)
         for batch in self._device_batches(self.eval_loader):
             sums += torch.stack(self.eval_step(self.state, batch))
@@ -271,10 +343,11 @@ class Trainer:
         return correct / t
 
     def _write_eval_record(self, epoch: int, accuracy: float) -> None:
-        self._write_metrics({
-            "kind": "eval", "epoch": epoch, "step": self.state.step,
-            "accuracy": accuracy, "perplexity": self.eval_perplexity,
-        })
+        record = {"kind": "eval", "epoch": epoch, "step": self.state.step,
+                  "accuracy": accuracy}
+        if self.eval_perplexity is not None:
+            record["perplexity"] = self.eval_perplexity
+        self._write_metrics(record)
 
     def fit(self) -> dict:
         try:

@@ -1,7 +1,8 @@
-"""LM train and eval steps (counterpart of ddp_practice_tpu/train/steps.py,
-`make_lm_train_step` and `make_lm_eval_step`).
+"""Train and eval steps (counterpart of ddp_practice_tpu/train/steps.py:
+`make_train_step` and `make_eval_step` for the image task,
+`make_lm_train_step` and `make_lm_eval_step` for the LM).
 
-One step: forward (train mode, dropout keyed on (seed, step)), the
+One LM step: forward (train mode, dropout keyed on (seed, step)), the
 cross-entropy of position t predicting t + 1, backward, the optimizer
 chain (train/state.py). Metrics match the reference's: `loss`,
 `perplexity` = exp(loss), `grad_norm` of the raw grads (before clipping
@@ -13,8 +14,14 @@ Under data parallelism the loop passes the model wrapped in
 DistributedDataParallel: DDP averages the ranks' grads of their local
 mean losses, which is the reference's grad of the global mean for equal
 local batches, and the step all-reduces (loss, correct, total) so the
-metrics are the global batch's. The chunked and device-resident steps are
-ROADMAP A3; the image steps A1.
+metrics are the global batch's.
+
+The image step is the same with `prepare_image` (uint8 -> [0, 1] fp32 on
+the device) in front, class logits, and metrics `loss`, `accuracy` and
+`grad_norm`; the eval step returns weighted (correct, total) so a
+wrap-padded last batch counts its real samples only. BatchNorm models
+(ROADMAP A1) and `augment` (A2, ops/augment.py) are not ported; the
+chunked and device-resident steps are A3.
 """
 
 from __future__ import annotations
@@ -88,5 +95,68 @@ def make_lm_eval_step(model: nn.Module):
         correct, total = accuracy_counts(logits, targets)
         nll = cross_entropy(logits, targets) * total
         return correct, total, nll
+
+    return eval_step
+
+
+def prepare_image(img: torch.Tensor) -> torch.Tensor:
+    """On-device ToTensor: uint8 batches cross to the device at a quarter
+    of the bytes and become [0, 1] fp32 here; float batches pass through.
+    True division, not *(1/255): the two differ by 1 ulp for 168 of the
+    256 uint8 values, and bit-identity with a host-side
+    .astype(float32) / 255.0 is part of the storage contract
+    (data/datasets.py)."""
+    if img.dtype == torch.uint8:
+        return img.float() / 255.0
+    return img
+
+
+def make_train_step(model: nn.Module, *, label_smoothing: float = 0.0,
+                    seed: int = 0, augment=False,
+                    forward: Optional[nn.Module] = None):
+    """(state, batch) -> (state, metrics) for the image task.
+    batch["image"] is (b, H, W, C) uint8 or float, batch["label"] (b,) int,
+    both on the model's device."""
+    if augment:
+        raise NotImplementedError(
+            "augment is not ported yet (ROADMAP A2: ops/augment.py)")
+    net = forward if forward is not None else model
+    params = [p for p in model.parameters() if p.requires_grad]
+
+    def train_step(state: TrainState, batch: dict):
+        images = prepare_image(batch["image"])
+        labels = batch["label"]
+        for p in params:
+            p.grad = None
+        logits = net(images, train=True,
+                     dropout_key=step_key(seed, state.step))
+        loss = cross_entropy(logits, labels,
+                             label_smoothing=label_smoothing)
+        loss.backward()
+        grad_norm = global_norm([p.grad for p in params])
+        state.optimizer.step()
+        state.step += 1
+        with torch.no_grad():
+            sums = torch.stack([loss.detach().float(),
+                                *accuracy_counts(logits, labels)])
+            if dist.process_count() > 1:
+                dist.all_reduce_sum(sums)
+                sums[0] /= dist.process_count()
+            metrics = {"loss": sums[0], "accuracy": sums[1] / sums[2],
+                       "grad_norm": grad_norm}
+        return state, metrics
+
+    return train_step
+
+
+def make_eval_step(model: nn.Module):
+    """(state, batch) -> weighted (correct, total) as 0-dim fp32 tensors on
+    the device; batch["weight"] is 0.0 for wrap-padded samples."""
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch: dict):
+        logits = model(prepare_image(batch["image"]), train=False)
+        return accuracy_counts(logits, batch["label"],
+                               weight=batch["weight"])
 
     return eval_step

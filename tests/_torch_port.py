@@ -20,6 +20,11 @@ from ddp_practice_tpu_torch.models import create_model
 # thread, six busy cores beside it). One thread costs nothing alone.
 torch.set_num_threads(1)
 
+# The first torch optimizer built in a process imports torch's compiler
+# stack (~2.5 s here, more beside busy workers). Paid once at import, it
+# stays out of whichever test happens to build the first optimizer.
+torch.optim.SGD([torch.nn.Parameter(torch.zeros(1))], lr=0.1)
+
 # a packable head shape (head_dim 64, even head count): the JAX side's
 # single-token decode really reaches its Pallas kernel (interpret mode)
 SMALL = dict(vocab_size=64, hidden_dim=128, num_heads=2, depth=2,

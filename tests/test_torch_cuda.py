@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: decode attention (A, B: flat cache; C, D: paged pool) and flash
-attention (E forward, F and G backward). Every test
+attention (E forward, F and G backward) and the fused encoder layer (H
+forward, I backward). Every test
 here is marked `cuda` and skips without a card; run them on a machine
 with an H100:
 
@@ -25,6 +26,16 @@ output's final bf16 rounding, or one p or ds inside a sum, can flip by an
 ulp). Each tensor's error norm must also stay under a fraction of its
 norm (1e-5 fp32, 2e-3 bf16): ulp flips are rare and scattered, while a
 kernel wrong on one tile moves that tile's elements by their own size.
+
+The fused encoder layer holds the output, dx and each of the 12 parameter
+grads apart. fp32: 2e-5 forward, 2e-4 grads (3e-4 causal) per element,
+scaled by the tensor's largest magnitude where that exceeds 1 (a weight
+grad sums over every token), and 1e-5 in relative error norm. bf16: kernel
+and plain round at the same ~10 points (y1, qkv, p, o, y2, hg, g, dx2, do,
+ds, dqkv) and differ in fp32 summation order, so a rounding flips by an ulp
+(2^-8 relative) here and there and the flips pass through the later
+products: per element 4e-2 of the tensor's largest magnitude, 5e-3 in
+relative error norm (a tile wrong by its own size gives far more).
 """
 
 import pytest
@@ -32,6 +43,7 @@ import torch
 
 from ddp_practice_tpu_torch.ops import decode_attention as ops
 from ddp_practice_tpu_torch.ops import flash_attention as fa
+from ddp_practice_tpu_torch.ops import fused_encoder as fe
 
 pytestmark = pytest.mark.cuda
 
@@ -329,3 +341,149 @@ def test_flash_wrapper_refusals(card):
     with pytest.raises(ValueError, match="dtype"):
         x = torch.zeros((2, 32, 64), device="cuda", dtype=torch.float16)
         fa.flash_attention_with_lse(x, x, x)
+
+
+# ------------------------------------------------- kernels H and I
+FUSED_REL = {torch.float32: 1e-5, torch.bfloat16: 5e-3}
+
+
+def _fused_inputs(imgs, s, d, mlp, dtype, seed):
+    """(x, cotangent, the 12 leaves) on the card, from a seed."""
+    from ddp_practice_tpu_torch.experiments.fused_profile import inputs
+
+    return inputs(imgs, s, d, mlp, dtype, seed)
+
+
+def _fused_held(got, want, dtype, tol, name):
+    assert got.dtype == want.dtype and got.shape == want.shape, name
+    assert torch.isfinite(got).all(), name
+    got, want = got.float(), want.float()
+    scale = max(1.0, float(want.abs().max()))
+    if dtype == torch.bfloat16:
+        assert float((got - want).abs().max()) <= 4e-2 * scale, name
+    else:
+        torch.testing.assert_close(got, want, atol=tol * scale, rtol=tol,
+                                   msg=name)
+    rel = float((got - want).norm() / want.norm().clamp_min(1e-30))
+    assert rel <= FUSED_REL[dtype], (name, rel)
+
+
+def _fused_check(imgs, s, d, heads, mlp, dtype, causal, seed=0):
+    x, g, params = _fused_inputs(imgs, s, d, mlp, dtype, seed)
+    kw = dict(num_heads=heads, compute_dtype=dtype, causal=causal)
+    before = dict(fe.LAUNCHES)
+    out = fe.fused_encoder_forward(x, params, impl="kernel", **kw)
+    dx, grads = fe.fused_encoder_backward(x, g, params, impl="kernel", **kw)
+    torch.cuda.synchronize()
+    assert fe.LAUNCHES["fused_encoder_fwd"] == before["fused_encoder_fwd"] + 1
+    assert fe.LAUNCHES["fused_encoder_bwd"] == before["fused_encoder_bwd"] + 1
+    want_out = fe.fused_encoder_plain(x, params, **kw)
+    want_dx, want = fe.fused_encoder_backward_plain(x, g, params, **kw)
+    gtol = 3e-4 if causal else 2e-4
+    _fused_held(out, want_out, dtype, 2e-5, "out")
+    _fused_held(dx, want_dx, dtype, gtol, "dx")
+    for name, a, b in zip(fe.PARAM_NAMES, grads, want):
+        _fused_held(a, b, dtype, gtol, name)
+    return x, g, params, kw, (dx, grads)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    (33, 64, 192, 3, 768, False),     # ViT-Tiny's layer
+    (7, 64, 192, 3, 768, False),      # an odd batch, fewer than the SMs
+    (5, 49, 192, 3, 768, False),      # 28x28 images: 49 patches, padded
+    (9, 128, 256, 4, 1024, True),     # lm_tiny with 4 heads, causal
+    (4, 32, 128, 2, 128, True),       # the reference's causal test shape
+    (3, 40, 128, 1, 208, False),      # head_dim 128, ragged mlp chunk
+], ids=["vit_tiny", "odd_batch", "s49", "causal_lm", "causal_small",
+        "hd128"])
+def test_fused_kernels_match_plain(card, shape, dtype):
+    _fused_check(*shape[:5], dtype, shape[5], seed=shape[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_backward_is_the_same_bits_every_run(card, dtype):
+    x, g, params, kw, (dx, grads) = _fused_check(300, 64, 192, 3, 768, dtype,
+                                                 False, seed=1)
+    dx2, grads2 = fe.fused_encoder_backward(x, g, params, impl="kernel", **kw)
+    assert torch.equal(dx, dx2)
+    assert all(torch.equal(a, b) for a, b in zip(grads, grads2))
+
+
+def test_fused_fp32_activations_with_bf16_compute(card):
+    """x's dtype and the compute dtype are independent."""
+    x, g, params = _fused_inputs(6, 64, 192, 768, torch.float32, 2)
+    kw = dict(num_heads=3, compute_dtype=torch.bfloat16)
+    out = fe.fused_encoder_forward(x, params, impl="kernel", **kw)
+    dx, grads = fe.fused_encoder_backward(x, g, params, impl="kernel", **kw)
+    _fused_held(out, fe.fused_encoder_plain(x, params, **kw),
+                torch.bfloat16, 0, "out")
+    want_dx, want = fe.fused_encoder_backward_plain(x, g, params, **kw)
+    _fused_held(dx, want_dx, torch.bfloat16, 0, "dx")
+    for name, a, b in zip(fe.PARAM_NAMES, grads, want):
+        _fused_held(a, b, torch.bfloat16, 0, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_layer_autograd_on_the_card(card, dtype):
+    """The autograd.Function: kernel H forward, kernel I backward, against
+    the plain version through the same Function."""
+    x, g, params = _fused_inputs(10, 64, 192, 768, dtype, 3)
+
+    def run(impl):
+        xs = x.clone().requires_grad_(True)
+        ps = [p.clone().requires_grad_(True) for p in params]
+        out = fe.fused_encoder_layer(xs, ps, num_heads=3,
+                                     compute_dtype=dtype, impl=impl)
+        return out.detach(), torch.autograd.grad(out, [xs, *ps], g)
+
+    before = dict(fe.LAUNCHES)
+    out, grads = run("kernel")
+    assert fe.LAUNCHES == {k: v + 1 for k, v in before.items()}
+    want_out, want = run("plain")
+    assert fe.LAUNCHES == {k: v + 1 for k, v in before.items()}
+    _fused_held(out, want_out, dtype, 2e-5, "out")
+    for name, a, b in zip(("x",) + fe.PARAM_NAMES, grads, want):
+        _fused_held(a, b, dtype, 2e-4, name)
+
+
+def test_vit_block_fuses_on_the_card_without_a_flag(card):
+    """fused="auto": a plain block on a CUDA tensor launches H and I; a
+    block that is not plain, or fused=False, keeps the per-op path."""
+    from ddp_practice_tpu_torch.models.vit import EncoderBlock
+
+    x = torch.randn(4, 64, 192, device="cuda")
+    for kw, fused in ((dict(fused="auto"), True), (dict(fused=False), False),
+                      (dict(fused="auto", dropout_rate=0.1), False)):
+        blk = EncoderBlock(192, 3, 768, **kw).cuda()
+        before = dict(fe.LAUNCHES)
+        xs = x.clone().requires_grad_(True)
+        blk(xs).sum().backward()
+        torch.cuda.synchronize()
+        assert fe.LAUNCHES == {k: v + int(fused) for k, v in before.items()}
+        assert xs.grad is not None and torch.isfinite(xs.grad).all()
+
+
+def test_fused_wrapper_refusals(card):
+    x, g, params = _fused_inputs(2, 64, 192, 768, torch.float32, 4)
+    with pytest.raises(ValueError, match="head_dim a multiple of 64"):
+        fe.fused_encoder_forward(x, params, num_heads=6, impl="kernel")
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fe.fused_encoder_forward(x, params, num_heads=3, impl="kernel",
+                                 compute_dtype=torch.float16)
+    with pytest.raises(ValueError, match="shape"):
+        fe.fused_encoder_forward(x, params[:11] + [params[11][:5]],
+                                 num_heads=3, impl="kernel")
+    with pytest.raises(ValueError, match="g must match x"):
+        fe.fused_encoder_backward(x, g[:1], params, num_heads=3,
+                                  impl="kernel")
+    long = torch.zeros((1, 4096, 192), device="cuda")
+    with pytest.raises(ValueError, match="shared memory"):
+        fe.fused_encoder_forward(long, params, num_heads=3, impl="kernel")
+    wide, _, wide_params = _fused_inputs(1, 64, 768, 3072, torch.float32, 5)
+    with pytest.raises(ValueError, match="MiB"):
+        fe.fused_encoder_forward(wide, wide_params, num_heads=12,
+                                 impl="kernel")
+    cpu_params = [p.cpu() for p in params]
+    with pytest.raises(ValueError, match="is on cpu"):
+        fe.fused_encoder_forward(x, cpu_params, num_heads=3, impl="kernel")

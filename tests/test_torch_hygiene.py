@@ -6,8 +6,9 @@
 - The whole package and chip_smoke import in a fresh interpreter where
   jax, flax, optax and the JAX package cannot be imported.
 - The CUDA sources exist, hold their kernels' C entries (A-D in
-  decode_attention.cu, E-G in flash_attention.cu) and name sm_90a, and
-  ops/cuda_build.py compiles them for sm_90a.
+  decode_attention.cu, E-G in flash_attention.cu, H and I in
+  fused_encoder.cu) and name sm_90a, and ops/cuda_build.py compiles them
+  for sm_90a; the fused source calls no library product.
 - The host-pure modules copied from the JAX package (the paged pool's
   allocator and radix cache, the drafter) import only typing, torch and
   the port; the training slice's data, train, parallel and utils modules
@@ -110,6 +111,38 @@ def test_flash_kernels_cover_their_rows():
         assert reference in source, reference
 
 
+def test_fused_kernel_source_and_sm90a_build():
+    from ddp_practice_tpu_torch.ops import cuda_build
+
+    source = (PORT / "csrc" / "fused_encoder.cu").read_text()
+    assert "sm_90a" in source
+    for entry in ("fused_encoder_fwd", "fused_encoder_bwd"):
+        assert re.search(rf"^extern \"C\" int {entry}\(", source, re.M), entry
+    for kernel in ("fused_encoder_fwd_kernel", "fused_encoder_bwd_kernel",
+                   "fused_encoder_reduce_kernel"):
+        assert re.search(rf"\b{kernel}\(const ", source), kernel
+    for reference in ("_fused_kernel", "_fused_bwd_kernel", "_fwd_core"):
+        assert reference in source, reference
+    # every product is in the kernel body: no library GEMM, no atomics
+    for banned in ("cublas", "cutlass", "cudnn", "atomicadd"):
+        assert banned not in source.lower(), banned
+    assert "fused_encoder" in cuda_build.SOURCES
+    assert set(cuda_build.SOURCES) == {
+        p.stem for p in (PORT / "csrc").glob("*.cu")}
+    lib = cuda_build.library_path("fused_encoder")
+    assert lib.parent == ROOT / "build" / "ddp_practice_tpu_torch"
+
+
+def test_fused_wrapper_calls_no_library_product_on_the_card():
+    """The launch path of ops/fused_encoder.py (everything from `_prepare`
+    down) holds no matmul, SDPA, layer_norm or compile call."""
+    text = (PORT / "ops" / "fused_encoder.py").read_text()
+    launch = text[text.index("def _grad_sizes"):]
+    for banned in ("matmul", " @ ", "scaled_dot_product", "layer_norm",
+                   "torch.compile", "einsum", "F.linear"):
+        assert banned not in launch, banned
+
+
 def _imports(module):
     tree = ast.parse((PORT / module).read_text())
     imported = set()
@@ -129,12 +162,14 @@ def test_host_pure_copies_stand_alone(module):
         sorted(imported)
 
 
-TRAIN_SLICE = ["data/sharding.py", "data/lm_corpus.py", "train/state.py",
+TRAIN_SLICE = ["data/sharding.py", "data/lm_corpus.py", "data/datasets.py",
+               "data/loader.py", "ops/fused_encoder.py", "train/state.py",
                "train/steps.py", "train/loop.py", "parallel/dist.py",
                "utils/flops.py", "utils/timing.py", "ops/losses.py",
                "config.py", "cli.py"]
-STDLIB = ("__future__", "typing", "argparse", "collections", "ctypes",
-          "dataclasses", "json", "logging", "math", "os", "sys", "time")
+STDLIB = ("__future__", "typing", "argparse", "collections", "contextlib",
+          "ctypes", "dataclasses", "gzip", "json", "logging", "math", "os",
+          "pickle", "struct", "sys", "time")
 
 
 @pytest.mark.parametrize("module", TRAIN_SLICE)

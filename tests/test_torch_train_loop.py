@@ -5,6 +5,11 @@ cli.py) on the CPU:
   has no depth flag) at seq 32, batch 4, for 3 steps with the flash path's
   plain version, prints the reference's three parity lines, and its JSON
   summary has the reference `_fit_inner`'s keys;
+- the CLI trains vit_tiny (the registry's own depth and width) on the
+  synthetic CIFAR-10 fallback for 3 steps plus a wrap-padded eval, with the
+  image task's summary keys; `--fused on` runs the fused layer's plain
+  version, and raises for a model that does not take it, a wide model or
+  head_dim 32, naming the limit;
 - model names and flags this slice does not port raise
   NotImplementedError naming their ROADMAP item, and the card is the
   default device;
@@ -74,7 +79,7 @@ def test_cli_trains_lm_tiny_on_the_cpu(log_lines, capsys, tmp_path):
     (["--model", "lm_tiny", "--steps_per_call", "4"], "A3"),
     (["--model", "lm_tiny", "--data_placement", "device"], "A3"),
     (["--model", "lm_tiny", "--ckpt_dir", "ck"], "A1"),
-    (["--model", "lm_tiny", "--fused", "on"], "B2"),
+    (["--model", "vit_tiny", "--augment"], "A2"),
     (["--model", "lm_tiny", "--tensor", "2"], "A8"),
     (["--model", "lm_tiny", "--compile_cache", "off"], "A3"),
     (["--model", "lm_tiny", "--loader", "native"], "A1"),
@@ -83,6 +88,70 @@ def test_cli_trains_lm_tiny_on_the_cpu(log_lines, capsys, tmp_path):
 def test_unported_paths_name_their_roadmap_item(argv, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         cli.main(argv + ["--device", "cpu", "--seq_len", "16", "-b", "2"])
+
+
+IMAGE_KEYS = SUMMARY_KEYS - {"perplexity", "tokens_per_sec_per_chip"}
+VIT_ARGS = ["--model", "vit_tiny", "--dataset", "cifar10", "--device", "cpu",
+            "-b", "8", "-e", "1", "--synthetic_size", "60"]
+
+
+@pytest.mark.parametrize("fused", ["auto", "on", "off"])
+def test_cli_trains_vit_tiny_on_the_cpu(fused, log_lines, capsys, tmp_path):
+    from ddp_practice_tpu_torch.ops import fused_encoder
+
+    metrics = tmp_path / "m.jsonl"
+    assert cli.main(VIT_ARGS + [
+        "--max_steps", "3", "--log_every", "1", "--fused", fused,
+        "--optimizer", "adam", "--lr", "1e-3",
+        "--metrics_file", str(metrics), "--json"]) == 0
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(summary) == IMAGE_KEYS | {"wall_seconds"}
+    assert summary["steps"] == 3 and summary["global_batch"] == 8
+    assert 0.0 <= summary["accuracy"] <= 1.0
+    # 60 // 6 = 10 eval images in two batches of 8: six wrapped, weight 0
+    assert round(summary["accuracy"] * 10) == pytest.approx(
+        summary["accuracy"] * 10)
+    assert any(m.startswith("Accuracy is ") for m in log_lines)
+    assert any(m.startswith("throughput: ") for m in log_lines)
+    records = [json.loads(x) for x in metrics.read_text().splitlines()]
+    assert [r["kind"] for r in records] == ["train"] * 3 + ["eval",
+                                                           "summary"]
+    assert "perplexity" not in records[3]
+    assert all(set(r) >= {"loss", "accuracy", "grad_norm"}
+               for r in records[:3])
+    assert fused_encoder.LAUNCHES == {"fused_encoder_fwd": 0,
+                                      "fused_encoder_bwd": 0}
+
+
+def test_vit_trainer_builds_the_reference_datasets():
+    trainer = Trainer(TrainConfig(model="vit_tiny", dataset="cifar10",
+                                  device="cpu", batch_size=8,
+                                  synthetic_size=60, data_dir="/nonexistent"))
+    assert trainer.task == "image"
+    assert (len(trainer.train_ds), len(trainer.eval_ds)) == (60, 10)
+    assert trainer.train_ds.name == "cifar10-synthetic-train"
+    assert trainer.train_ds.image_shape == (32, 32, 3)
+    assert (len(trainer.train_loader), len(trainer.eval_loader)) == (8, 2)
+    batch = trainer._to_device(next(iter(trainer.eval_loader)))
+    assert batch["image"].dtype == torch.uint8
+    assert batch["label"].dtype == torch.int64
+    assert batch["weight"].dtype == torch.float32
+    assert trainer.model.blocks[0].fused == "auto"
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--model", "vit_base"], "MiB"),
+    (["--model", "vit_tiny", "--num_heads", "6"], "head_dim a multiple"),
+    (["--model", "vit_tiny", "--dropout", "0.1"], "plain blocks only"),
+    (["--model", "lm_tiny", "--seq_len", "16"], "head_dim a multiple"),
+    (["--model", "lm_base", "--seq_len", "16"], "MiB"),
+    (["--model", "vit_tiny", "--remat"], "LM family"),
+])
+def test_fused_on_and_lm_flags_raise_where_they_cannot_run(argv, match):
+    with pytest.raises(ValueError, match=match):
+        cli.main(argv + ["--fused", "on", "--device", "cpu", "-b", "2",
+                         "--synthetic_size", "30000", "--max_steps", "1",
+                         "-e", "1"])
 
 
 @pytest.mark.parametrize("field,value,item", [
