@@ -7,7 +7,7 @@ NVIDIA H100.
 Phases, each of which raises on failure (nothing is caught and passed):
 
 1. setup: print the card's name and power limit (nvidia-smi), build the
-   CUDA kernels from csrc/ with nvcc (all three sources at once) and print
+   CUDA kernels from csrc/ with nvcc (all four sources at once) and print
    ptxas's register and spill lines;
 2. kernels: hold each kernel against its plain PyTorch version at lm_base
    shapes (h=12, hd=64) and print its device time (CUDA events around one
@@ -91,7 +91,37 @@ Phases, each of which raises on failure (nothing is caught and passed):
    the kernels, the fused layer's plain version and `fused=False` give one
    loss (1e-5) and grads (2e-4, scaled by each grad's largest magnitude
    above 1); in bf16 the kernels and the plain version give one loss (1e-3
-   relative) and grads within 1e-2 of each grad's norm.
+   relative) and grads within 1e-2 of each grad's norm;
+16. grouped matmul kernels: J (gmm, and its transposed-rhs form for the
+   input grad) and K (tgmm, the per-group weight grad) against their plain
+   versions at the lm_moe shapes (m = 32768 sorted rows, E = 8, (k, n) =
+   (768, 3072) and (3072, 768)) with balanced, skewed and empty-expert
+   off-grid group sizes in bf16, plus fp32; on the balanced shapes the
+   kernel, plain and library device times (torch._grouped_mm where this
+   torch takes the operands, else a torch.mm loop over the groups: the line
+   says which; the port calls neither) and the bound 2*m*k*n over the
+   dtype's peak;
+17. MoE train: lm_moe at the reference's lm_moe_tc configuration
+   (bench.py:133-141: lm_base widths, 6 of 12 blocks routed over 8 experts,
+   top-2, strided routing groups of 256, capacity factor 1.5), seq 2048,
+   batch 8, bf16, AdamW lr 3e-4, flash attention, on the synthetic Markov
+   corpus, built through create_model("lm_moe", ...) and trained with the
+   optimizer, steps and batches `fit` uses (the CLI cannot set lm_base
+   widths for lm_moe): 20 steps plus 3 eval batches on the einsum path,
+   then again with every MoEMlp.impl = "sorted" (kernels J and K): loss at
+   steps 1, 10, 20 (20 below 1), median step, tokens/s, MFU over active
+   FLOPs, moe_drop_rate/load_max/load_min, peak memory; the flash rows
+   launch 12 x (steps + eval batches) and 12 x steps; on the sorted leg the
+   drop rate is exactly 0, J forward launches 2 x 6 x (steps + eval
+   batches), J transposed and K 2 x 6 x steps; a profiled step per leg;
+18. the CLI's own fit leg: --model lm_moe --moe_router expert_choice at the
+   registry's dims, 10 steps, its summary's moe_* keys;
+19. MoE cross-check, one lm_moe step at depth 2, b=2, capacity factor E/k
+   (the einsum path drops nothing): in fp32 at s=512 the einsum path and
+   the sorted path on the kernels and on their plain versions give one
+   loss (2e-5) and grads (5e-4, the reference's tests/test_moe.py); in bf16
+   at s=2048 kernels vs plain: loss 1e-3 relative, each grad within 1e-2 of
+   its norm.
 
 Launch counts are zeroed just before each phase's run and read just
 after it. The second-to-last line is the kernels' JSON record; the last
@@ -115,12 +145,18 @@ weight grad sums over up to 65536 tokens), 1e-5 in relative norm. bf16:
 kernel and plain round at the same ~10 points (y1, qkv, p, o, y2, hg, g,
 dx2, do, ds, dqkv) and differ in fp32 summation order; a flipped rounding
 (2^-8 relative) passes through the later products, so per element 4e-2 of
-the tensor's largest magnitude and 5e-3 in relative norm.
+the tensor's largest magnitude and 5e-3 in relative norm. The grouped
+matmul: kernel and plain version sum in fp32 and round once, so per element
+fp32 2e-5 relative plus 2e-5 times the tensor's largest magnitude where
+that exceeds 1 (tgmm sums 4096 rows a group: its rounding is of its partial
+sums' size) and bf16 1.6e-2 + 2^-7 |ref|; in norm 1e-5 (fp32) and 2e-3
+(bf16).
 """
 
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -156,6 +192,23 @@ FUSED_REPLACES = {
 # fused layer: per-element (forward, grads, causal grads) and relative norm
 FUSED_TOL = {"float32": (2e-5, 2e-4, 3e-4), "bfloat16": (4e-2, 4e-2, 4e-2)}
 FUSED_REL = {"float32": 1e-5, "bfloat16": 5e-3}
+GMM_SOURCE = "ddp_practice_tpu_torch/csrc/grouped_matmul.cu"
+GMM_REPLACES = {   # _mb_gmm's megablox gmm, its transposed call, tgmm
+    "gmm": "ddp_practice_tpu/ops/moe.py:410",
+    "gmm_trhs": "ddp_practice_tpu/ops/moe.py:449",
+    "tgmm": "ddp_practice_tpu/ops/moe.py:465",
+}
+# grouped matmul: per-element (atol, rtol) and the relative error norm
+GMM_TOL = {"float32": (2e-5, 2e-5), "bfloat16": BF16_TOL}
+GMM_REL = {"float32": 1e-5, "bfloat16": 2e-3}
+# lm_moe_tc (bench.py:133-141): lm_base widths, every second of 12 blocks
+# routed over 8 experts, top-2, routing groups of 256 strided, cf 1.5
+MOE = dict(hidden_dim=768, depth=12, num_heads=12, mlp_dim=3072,
+           moe_every=2, num_experts=8, moe_group_size=256,
+           capacity_factor=1.5)
+MOE_SEQ, MOE_BATCH, MOE_K, MOE_STEPS = 2048, 8, 2, 20
+MOE_TOKENS = MOE_SEQ * MOE_BATCH
+MOE_HEALTH = ("moe_drop_rate", "moe_load_max", "moe_load_min")
 VIT_ARGS = ["--model", "vit_tiny", "--dataset", "cifar10", "--precision",
             "bf16", "-b", "1024", "--optimizer", "adam", "--lr", "1e-4",
             "--synthetic_size", "32768", "-e", "1", "--log_every", "10",
@@ -206,6 +259,18 @@ def _time_ms(torch, fn, flush, runs=TIMED_RUNS) -> float:
         events.append((s, e))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def _device_events(torch, prof):
+    """The device ops of a torch.profiler run. User annotations are left
+    out: the optimizer's `Optimizer.step#...` range is recorded on the
+    device timeline too, and counting it would add the span of its kernels
+    a second time."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [e for e in prof.events()
+            if getattr(e, "device_type", None) == cuda
+            and not getattr(e, "is_user_annotation", False)
+            and not e.name.startswith("Optimizer.")]
 
 
 def _compare(torch, name, got, want, dtype, what):
@@ -904,9 +969,7 @@ def profile_phase(torch, engine_name):
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(bursts):
             engine.step_burst()
-    cuda = torch.autograd.DeviceType.CUDA
-    kernels = [e for e in prof.events()
-               if getattr(e, "device_type", None) == cuda]
+    kernels = _device_events(torch, prof)
     steps = bursts * k
     where = (f"cursor {engine.cursor}" if engine_name == "slot" else
              f"slot lengths {sorted({engine.context_len(s) for s in slots})}")
@@ -1126,9 +1189,7 @@ def train_profile(torch, trainer):
                              ProfilerActivity.CUDA]) as prof:
         trainer.state, _ = trainer.train_step(trainer.state, batch)
         torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
-    kernels = [e for e in prof.events()
-               if getattr(e, "device_type", None) == cuda]
+    kernels = _device_events(torch, prof)
     if not kernels:
         log(f"train profile: torch.profiler recorded no device events; "
             f"device time not measured (host wall {host_ms:.2f} ms/step)")
@@ -1407,9 +1468,7 @@ def vit_train_profile(torch, trainer):
                              ProfilerActivity.CUDA]) as prof:
         trainer.state, _ = trainer.train_step(trainer.state, batch)
         torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
-    kernels = [e for e in prof.events()
-               if getattr(e, "device_type", None) == cuda]
+    kernels = _device_events(torch, prof)
     if not kernels:
         log(f"vit train profile: torch.profiler recorded no device events; "
             f"device time not measured (host wall {host_ms:.2f} ms/step)")
@@ -1520,6 +1579,466 @@ def vit_cross_check(torch, fe):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------- kernels J and K
+def _gmm_bound_ms(m, k, n, e, dtype):
+    """2*m*k*n flops over the dtype's peak, against the operands read once
+    and the result written once (the same count for all three products:
+    (m, k) and (E, k, n) in, (m, n) out, or their transposes)."""
+    elt = 2 if dtype == "bfloat16" else 4
+    t_ops = 2.0 * m * k * n / PEAK[dtype] * 1e3
+    t_bytes = ((m * k + e * k * n + m * n) * elt + 4 * e) \
+        / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def _gmm_err(torch, name, got, want, dtype, what):
+    """(max |err|, relative error norm); raises past GMM_TOL per element
+    (fp32: atol times the tensor's largest magnitude where that exceeds 1,
+    since a sum over thousands of rows rounds at its partial sums' size)
+    or past GMM_REL in norm."""
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"non-finite {name} output: {what}")
+    got, want = got.float(), want.float()
+    atol, rtol = GMM_TOL[dtype]
+    if dtype == "float32":
+        atol *= max(1.0, float(want.abs().max()))
+    err = (got - want).abs()
+    rel = float((got - want).norm() / want.norm().clamp_min(1e-30))
+    if (err > atol + rtol * want.abs()).any() or rel > GMM_REL[dtype]:
+        raise AssertionError(
+            f"{name} disagrees with its plain version: {what}: max |err| "
+            f"{float(err.max()):.3e}, relative norm {rel:.3e}")
+    return float(err.max()), rel
+
+
+def _gmm_library(torch, name, lhs, rhs, grad, gs, want):
+    """One PyTorch call computing the same product: torch._grouped_mm where
+    this torch takes the operands (and agrees), else a loop of torch.mm
+    over the groups. Returns (label, callable)."""
+    offs = torch.cumsum(gs, 0, dtype=torch.int32)
+    calls = {"gmm": lambda: torch._grouped_mm(lhs, rhs, offs=offs),
+             "gmm_trhs": lambda: torch._grouped_mm(
+                 grad, rhs.transpose(-2, -1), offs=offs),
+             "tgmm": lambda: torch._grouped_mm(lhs.t(), grad, offs=offs)}
+    try:
+        got = calls[name]()
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        if bool((err <= BF16_TOL[0] + BF16_TOL[1]
+                 * want.float().abs()).all()):
+            return "torch._grouped_mm", calls[name]
+    except (RuntimeError, AttributeError, TypeError):
+        pass
+    bounds = torch.cat([torch.zeros(1, device="cuda", dtype=torch.int32),
+                        offs]).tolist()
+    spans = [(e, bounds[e], bounds[e + 1]) for e in range(len(gs))
+             if bounds[e + 1] > bounds[e]]
+
+    def loop():
+        if name == "tgmm":
+            out = torch.zeros_like(want)
+            for e, lo, hi in spans:
+                torch.mm(lhs[lo:hi].t(), grad[lo:hi], out=out[e])
+            return out
+        out = torch.empty_like(want)
+        for e, lo, hi in spans:
+            w = rhs[e].t() if name == "gmm_trhs" else rhs[e]
+            src = grad if name == "gmm_trhs" else lhs
+            torch.mm(src[lo:hi], w, out=out[lo:hi])
+        return out
+    return "torch.mm loop", loop
+
+
+def check_gmm(torch, gm, *, label, sizes, k, n, dtype, flush, seed,
+              timed):
+    """J forward, J transposed and K against their plain versions on one
+    group-size pattern over m = sum(sizes) rows at (k, n): the forward is
+    (m, k) x (E, k, n), the transposed (m, n) x (E, k, n)^T, tgmm (m, k)^T
+    (m, n) per group. `timed` adds kernel, plain and library device
+    times."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    tdt = getattr(torch, dtype)
+    m, e = sum(sizes), len(sizes)
+    gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    lhs = torch.randn((m, k), generator=g, device="cuda").to(tdt)
+    rhs = (torch.randn((e, k, n), generator=g, device="cuda")
+           * k ** -0.5).to(tdt)
+    grad = torch.randn((m, n), generator=g, device="cuda").to(tdt)
+    runs = {"gmm": (lambda impl: gm.gmm(lhs, rhs, gs, impl=impl)),
+            "gmm_trhs": (lambda impl: gm.gmm(grad, rhs, gs,
+                                            transpose_rhs=True, impl=impl)),
+            "tgmm": (lambda impl: gm.tgmm(lhs, grad, gs, impl=impl))}
+    rows = {}
+    for name, run in runs.items():
+        want = run("plain")
+        got = run("kernel")
+        err, rel = _gmm_err(torch, name, got, want, dtype,
+                            f"{label} {dtype}")
+        row = {"kernel": name, "shape": label, "dtype": dtype,
+               "max_abs_err": err, "rel": rel}
+        if name == "tgmm":
+            empty = [i for i, s in enumerate(sizes) if s == 0]
+            if empty and got[empty].abs().max() != 0:
+                raise AssertionError(f"tgmm: an empty group's grad is not "
+                                     f"zero ({label})")
+        if timed:
+            bound, by = _gmm_bound_ms(m, k, n, e, dtype)
+            lib_name, lib = ((None, None) if dtype != "bfloat16" else
+                             _gmm_library(torch, name, lhs, rhs, grad, gs,
+                                          want))
+            row.update(
+                ms=_time_ms(torch, lambda: run("kernel"), flush),
+                plain_ms=_time_ms(torch, lambda: run("plain"), flush),
+                library_ms=None if lib is None else _time_ms(torch, lib,
+                                                             flush),
+                library=lib_name, bound_ms=bound, bound_by=by)
+        rows[name] = row
+        times = ("" if not timed else
+                 f"  kernel {row['ms']:7.3f} ms  plain {row['plain_ms']:7.3f}"
+                 f" ms  library {row['library_ms'] or 0:7.3f} ms "
+                 f"({row['library']})  bound {row['bound_ms']:.3f} ms "
+                 f"({row['bound_by']}), {2 * m * k * n / row['ms'] / 1e9:.1f}"
+                 f" TFLOP/s")
+        log(f"  {name:>8} {label:<40} {dtype:>8}: err {err:.2e} rel "
+            f"{rel:.2e}{times}")
+    return rows
+
+
+def gmm_kernel_phase(torch, gm, flush) -> dict:
+    """J and K at the lm_moe shapes (m = 32768 sorted rows, E = 8): the
+    w_in products ((k, n) = (768, 3072)) and the w_out ones ((3072, 768)),
+    balanced, skewed, with empty experts and boundaries off every tile
+    grid, bf16, plus fp32 at the w_in shape. Returns {kernel: the balanced
+    bf16 w_in row (the main path's shape)} with max_abs_err raised to the
+    sweep's worst."""
+    m, e = MOE_TOKENS * MOE_K, MOE["num_experts"]
+    patterns = {
+        "balanced": [m // e] * e,
+        "skewed": [16384, 8192, 4096, 2048, 1024, 512, 256, 256],
+        "empty off-grid": [0, 9001, 0, 7777, 1, 0, 15000, 989],
+    }
+    worst, main = {n: 0.0 for n in GMM_REPLACES}, {}
+    seed = 6000
+    for pattern, sizes in patterns.items():
+        assert sum(sizes) == m
+        for k, n in ((768, 3072), (3072, 768)):
+            for dtype in ("bfloat16", "float32"):
+                if dtype == "float32" and (pattern != "balanced"
+                                           or k != 768):
+                    continue
+                seed += 1
+                timed = pattern == "balanced"
+                rows = check_gmm(
+                    torch, gm, label=f"{pattern} m={m} k={k} n={n}",
+                    sizes=sizes, k=k, n=n, dtype=dtype, flush=flush,
+                    seed=seed, timed=timed)
+                for name, row in rows.items():
+                    worst[name] = max(worst[name], row["max_abs_err"])
+                    if timed and dtype == "bfloat16" and k == 768:
+                        main[name] = row
+    for name, row in main.items():
+        row["max_abs_err"] = worst[name]
+    return main
+
+
+# ---------------------------------------------------------------- MoE train
+def _moe_model(torch, *, impl, precision="bf16", seed=0, vocab=64, **kw):
+    """lm_moe at the lm_moe_tc configuration (lm_base widths) through the
+    registry, its routed layers switched to `impl`."""
+    from ddp_practice_tpu_torch.config import PrecisionPolicy
+    from ddp_practice_tpu_torch.models import create_model
+    from ddp_practice_tpu_torch.ops.moe import moe_layers
+
+    model = create_model("lm_moe", policy=PrecisionPolicy.from_name(
+        precision), device="cuda", seed=seed, vocab_size=vocab,
+        max_len=MOE_SEQ, attn_impl="flash", **{**MOE, **kw})
+    for layer in moe_layers(model):
+        layer.impl = impl
+    return model
+
+
+def _moe_loaders():
+    """fit's LM batches (train/loop.py _build_lm_data): the synthetic
+    Markov corpus, the last 10% the eval split."""
+    from ddp_practice_tpu_torch.data.lm_corpus import (
+        LMDataLoader,
+        TokenCorpus,
+        synthetic_token_corpus,
+    )
+
+    corpus = synthetic_token_corpus(600000, seed=3407)
+    batch_tokens = MOE_BATCH * (MOE_SEQ + 1)
+    n_eval = max(len(corpus) - int(len(corpus) * 0.9), batch_tokens)
+    split = len(corpus) - n_eval
+    make = [TokenCorpus(corpus.tokens[:split], corpus.vocab_size),
+            TokenCorpus(corpus.tokens[split:], corpus.vocab_size)]
+    return corpus.vocab_size, [
+        LMDataLoader(c, seq_len=MOE_SEQ, global_batch_size=MOE_BATCH,
+                     seed=3407, shuffle=shuffle)
+        for c, shuffle in zip(make, (True, False))]
+
+
+def _device_batch(torch, np, batch):
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
+            .cuda(non_blocking=True).long() for k, v in batch.items()}
+
+
+def moe_train_phase(torch, fa, gm, *, impl, steps, label):
+    """lm_moe at lm_base widths (the lm_moe_tc configuration: 12 layers, 6
+    routed, 8 experts, top-2, routing groups of 256 strided, capacity 1.5,
+    seq 2048, batch 8, bf16, AdamW lr 3e-4, flash attention) for `steps`
+    steps plus the eval batches, through the optimizer, steps and batches
+    `fit` uses. Returns (report, model, state, step, a device batch)."""
+    import numpy as np
+
+    from ddp_practice_tpu_torch.config import TrainConfig
+    from ddp_practice_tpu_torch.train.state import TrainState, make_optimizer
+    from ddp_practice_tpu_torch.train.steps import (
+        make_lm_eval_step,
+        make_lm_train_step,
+    )
+    from ddp_practice_tpu_torch.utils.flops import (
+        chip_peak_flops,
+        lm_train_flops_per_token,
+    )
+
+    vocab, (train_loader, eval_loader) = _moe_loaders()
+    model = _moe_model(torch, impl=impl, vocab=vocab)
+    config = TrainConfig(model="lm_moe", optimizer="adamw",
+                         learning_rate=3e-4, seq_len=MOE_SEQ,
+                         batch_size=MOE_BATCH, precision="bf16", epochs=1)
+    state = TrainState(step=0, model=model, optimizer=make_optimizer(
+        config, model, len(train_loader)))
+    step = make_lm_train_step(model, seed=config.seed)
+    eval_step = make_lm_eval_step(model)
+    batches = [_device_batch(torch, np, b) for _, b in zip(
+        range(steps), train_loader)]
+    evals = [_device_batch(torch, np, b) for b in eval_loader]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    gm.reset_launches()
+    losses, health, ends = [], [], []
+    t0 = time.monotonic()
+    for batch in batches:
+        state, metrics = step(state, batch)
+        losses.append(metrics["loss"])
+        health.append([metrics[k] for k in MOE_HEALTH])
+        ends.append(torch.cuda.Event(enable_timing=True))
+        ends[-1].record()
+    sums = torch.zeros(3, device="cuda")
+    for batch in evals:
+        sums += torch.stack(eval_step(state, batch))
+    correct, total, nll = sums.tolist()
+    wall = time.monotonic() - t0
+    launches = {**fa.LAUNCHES, **gm.LAUNCHES}
+    loss = [float(x) for x in losses]
+    health = [[float(x) for x in h] for h in health]
+    step_ms = statistics.median(ends[i - 1].elapsed_time(ends[i])
+                                for i in range(1, len(ends)))
+    tokens = MOE_BATCH * MOE_SEQ
+    flops = lm_train_flops_per_token(
+        hidden_dim=model.hidden_dim, depth=model.depth,
+        mlp_dim=model.mlp_dim, vocab_size=vocab, seq_len=MOE_SEQ,
+        moe_every=model.moe_every, moe_top_k=model.moe_top_k) * tokens
+    peak = chip_peak_flops(torch.cuda.get_device_name(0))
+    report = {"loss": loss, "step_ms": step_ms,
+              "tokens_per_s": tokens / (step_ms / 1e3),
+              "mfu": flops / (step_ms / 1e3) / peak if peak else None,
+              "health": dict(zip(MOE_HEALTH, health[-1])),
+              "accuracy": correct / max(total, 1.0),
+              "perplexity": math.exp(min(nll / max(total, 1.0), 30.0)),
+              "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+              "launches": launches, "eval_batches": len(evals)}
+    mfu = "not measured" if peak is None else f"{report['mfu']:.4f}"
+    log(f"moe train[{label}] lm_moe (d=768, depth 12, 6 routed x 8 experts "
+        f"top-2, groups of 256 strided, cf 1.5) bf16 adamw, seq {MOE_SEQ}, "
+        f"batch {MOE_BATCH}, {steps} steps + {len(evals)} eval batches, "
+        f"wall {wall:.1f} s: loss " + ", ".join(
+            f"step {i} {loss[i - 1]:.4f}" for i in (1, 10, 20)
+            if i <= len(loss)))
+    log(f"  median step {step_ms:.2f} ms (CUDA events between step ends), "
+        f"{report['tokens_per_s']:.0f} tokens/s, MFU {mfu} over active "
+        f"FLOPs ({flops / 1e12:.2f} TFLOP/step analytic); last step "
+        + ", ".join(f"{k} {v:.4f}" for k, v in report["health"].items())
+        + f"; eval accuracy {report['accuracy']:.4f} perplexity "
+        f"{report['perplexity']:.3f}; peak memory {report['peak_gib']:.2f} "
+        f"GiB; launches {launches}")
+    if not loss[-1] < loss[0]:
+        raise AssertionError(f"moe train[{label}]: loss did not fall: {loss}")
+    n_moe, depth = model.depth // model.moe_every, model.depth
+    want = {n: 0 for n in launches}
+    want["flash_fwd_packed"] = depth * (steps + len(evals))
+    want["flash_bwd_packed"] = depth * steps
+    if impl == "sorted":
+        want["gmm"] = 2 * n_moe * (steps + len(evals))
+        want["gmm_trhs"] = 2 * n_moe * steps
+        want["tgmm"] = 2 * n_moe * steps
+        drops = [h[MOE_HEALTH.index("moe_drop_rate")] for h in health]
+        if any(d != 0.0 for d in drops):
+            raise AssertionError(f"moe train[{label}]: drop rate {drops}")
+    if launches != want:
+        raise AssertionError(f"moe train[{label}]: launches {launches}, "
+                             f"want {want}")
+    return report, model, state, step, batches[-1]
+
+
+def moe_profile(torch, state, step, batch, label):
+    """One lm_moe step under torch.profiler after the run: host wall per
+    step, device busy, idle share, device time by kind (J, K, the flash
+    kernels, cuBLAS, other)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    n = 2
+    t0 = time.perf_counter()
+    for _ in range(n):
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / n
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+    kernels = _device_events(torch, prof)
+    if not kernels:
+        log(f"moe profile[{label}]: torch.profiler recorded no device "
+            f"events; device time not measured (host wall {host_ms:.2f} "
+            f"ms/step)")
+        return
+    by_kind = {"J": 0.0, "K": 0.0, "flash": 0.0, "matmul": 0.0,
+               "other": 0.0}
+    for e in kernels:
+        name = e.name.lower()
+        kind = ("J" if "gmm_kernel" in name and "tgmm" not in name
+                else "K" if "tgmm_kernel" in name
+                else "flash" if "flash_" in name
+                else "matmul" if any(t in name for t in (
+                    "gemm", "cutlass", "xmma", "nvjet", "gemv"))
+                else "other")
+        by_kind[kind] += e.time_range.elapsed_us()
+    device_ms = sum(by_kind.values()) / 1e3
+    log(f"moe profile[{label}] (lm_moe bf16 step, b=8, s=2048): host wall "
+        f"{host_ms:.2f} ms/step, device busy {device_ms:.2f} ms/step, "
+        f"device idle share {max(0.0, 1 - device_ms / host_ms):.3f}, "
+        f"{len(kernels)} device ops/step; device ms by kind "
+        + ", ".join(f"{k} {v / 1e3:.2f}" for k, v in by_kind.items()))
+    per_name = {}
+    for e in kernels:
+        c, us = per_name.get(e.name, (0, 0.0))
+        per_name[e.name] = (c + 1, us + e.time_range.elapsed_us())
+    for name, (c, us) in sorted(per_name.items(),
+                                key=lambda kv: -kv[1][1])[:6]:
+        log(f"  {us / 1e3:9.3f} ms/step {c:4d} calls/step  {name[:100]}")
+
+
+def moe_cli_phase(torch):
+    """`fit` through the CLI's parser for lm_moe at the registry's dims
+    with expert-choice routing: the loop's num_experts/moe_router wiring
+    and the summary's moe_* keys."""
+    from ddp_practice_tpu_torch.cli import build_parser, config_from_args
+    from ddp_practice_tpu_torch.train.loop import Trainer
+
+    argv = ["--model", "lm_moe", "--moe_router", "expert_choice",
+            "--precision", "bf16", "--seq_len", "512", "-b", "8", "-e", "1",
+            "--max_steps", "10", "--optimizer", "adamw", "--lr", "1e-3",
+            "--log_every", "0", "--synthetic_size", "200000"]
+    trainer = Trainer(config_from_args(build_parser().parse_args(argv)))
+    summary = trainer.fit()
+    keys = ("moe_load_max", "moe_load_min", "moe_drop_rate")
+    missing = [k for k in keys if k not in summary]
+    log(f"moe cli: {' '.join(argv)}: {summary['steps']} steps, "
+        f"{summary['tokens_per_sec_per_chip']:.0f} tokens/s (fit's own), "
+        f"eval accuracy {summary['accuracy']:.4f} perplexity "
+        f"{summary['perplexity']:.3f}, "
+        + ", ".join(f"{k} {summary.get(k, float('nan')):.4f}" for k in keys))
+    moe = trainer.model.blocks[1].moe
+    if missing or moe.router_kind != "expert_choice" \
+            or moe.capacity_factor != 1.0:
+        raise AssertionError(f"moe cli: summary {summary}, router "
+                             f"{moe.router_kind} cf {moe.capacity_factor}")
+    del trainer
+    torch.cuda.empty_cache()
+
+
+def _moe_step(torch, gm, *, precision, impl, gmm_impl, seq):
+    """One lm_moe train step at lm_base widths, depth 2 (one routed
+    block), b=2, capacity factor E/k (the einsum path drops nothing), from
+    seed 3: (loss, {name: grad})."""
+    from ddp_practice_tpu_torch.ops.losses import cross_entropy
+    from ddp_practice_tpu_torch.ops.moe import moe_layers
+
+    g = torch.Generator().manual_seed(5)
+    tokens = torch.randint(0, 64, (2, seq + 1), generator=g).cuda()
+    model = _moe_model(torch, impl=impl, precision=precision, seed=3,
+                       depth=2, capacity_factor=MOE["num_experts"] / MOE_K)
+    gm.reset_launches()
+    with gm.forced_impl(gmm_impl):
+        loss = cross_entropy(model(tokens[:, :-1], train=True),
+                             tokens[:, 1:])
+        loss = loss + sum(m.sown["moe_aux_loss"] for m in moe_layers(model))
+        loss.backward()
+    torch.cuda.synchronize()
+    want = 2 if (impl, gmm_impl) == ("sorted", "kernel") else 0
+    if dict(gm.LAUNCHES) != {"gmm": want, "gmm_trhs": want, "tgmm": want}:
+        raise AssertionError(f"moe cross-check {precision} {impl} "
+                             f"{gmm_impl}: launches {gm.LAUNCHES}")
+    grads = {n: p.grad.detach() for n, p in model.named_parameters()}
+    del model
+    return float(loss.detach()), grads
+
+
+def moe_cross_check(torch, gm):
+    """fp32 at s=512: the einsum path, the sorted path on kernels J and K
+    and the sorted path on their plain versions give one loss (2e-5) and
+    one set of grads (5e-4 absolute and relative; the reference's
+    tests/test_moe.py:338-351). bf16 at s=2048: kernels vs plain versions,
+    loss within 1e-3 relative, each grad's error norm within MODEL_BF16_REL
+    of its norm."""
+    runs = {label: _moe_step(torch, gm, precision="fp32", impl=impl,
+                             gmm_impl=gmm_impl, seq=512)
+            for label, impl, gmm_impl in (("kernel", "sorted", "kernel"),
+                                          ("plain", "sorted", "plain"),
+                                          ("einsum", "einsum", "auto"))}
+    want_loss, want = runs["kernel"]
+    worst = 0.0
+    for label in ("plain", "einsum"):
+        got_loss, got = runs[label]
+        if abs(got_loss - want_loss) > 2e-5 * max(1.0, abs(want_loss)):
+            raise AssertionError(f"moe cross-check: {label} loss {got_loss}"
+                                 f" vs kernel {want_loss}")
+        for name, gk in want.items():
+            err = (got[name] - gk).abs()
+            if (err > 5e-4 + 5e-4 * gk.abs()).any():
+                raise AssertionError(f"moe cross-check: {label} grad {name}"
+                                     f" max |err| {float(err.max()):.3e}")
+            worst = max(worst, float(err.max()))
+    log(f"moe cross-check fp32 (lm_moe d=768 depth 2, s=512, b=2, cf "
+        f"{MOE['num_experts'] / MOE_K:g}): loss sorted-kernel "
+        f"{want_loss:.7f} sorted-plain {runs['plain'][0]:.7f} einsum "
+        f"{runs['einsum'][0]:.7f}; grads agree, max |err| {worst:.2e}")
+    del runs, want
+    k_loss, k_grads = _moe_step(torch, gm, precision="bf16", impl="sorted",
+                                gmm_impl="kernel", seq=MOE_SEQ)
+    p_loss, p_grads = _moe_step(torch, gm, precision="bf16", impl="sorted",
+                                gmm_impl="plain", seq=MOE_SEQ)
+    if abs(k_loss - p_loss) > 1e-3 * abs(p_loss):
+        raise AssertionError(f"moe cross-check bf16: kernel loss {k_loss} "
+                             f"vs plain {p_loss}")
+    rel = {n: float((k_grads[n] - g).norm() / g.norm().clamp_min(1e-30))
+           for n, g in p_grads.items()}
+    worst_name = max(rel, key=rel.get)
+    if rel[worst_name] > MODEL_BF16_REL:
+        raise AssertionError(f"moe cross-check bf16: grad {worst_name} "
+                             f"relative error norm {rel[worst_name]:.3e}")
+    log(f"moe cross-check bf16 (lm_moe d=768 depth 2, s={MOE_SEQ}, b=2): "
+        f"loss kernel {k_loss:.7f} plain {p_loss:.7f}; grads' relative "
+        f"error norm median {statistics.median(rel.values()):.2e}, worst "
+        f"{rel[worst_name]:.2e} ({worst_name})")
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -1532,6 +2051,7 @@ def main() -> int:
     from ddp_practice_tpu_torch.ops import decode_attention as ops
     from ddp_practice_tpu_torch.ops import flash_attention as fa
     from ddp_practice_tpu_torch.ops import fused_encoder as fe
+    from ddp_practice_tpu_torch.ops import grouped_matmul as gm
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1545,8 +2065,9 @@ def main() -> int:
         f"python {sys.version.split()[0]}")
     t0 = time.monotonic()
     cuda_build.build(cuda_build.SOURCES)
-    log(f"built {SOURCE} (kernels A-D), {FLASH_SOURCE} (E-G) and "
-        f"{FUSED_SOURCE} (H, I) for sm_90a in {time.monotonic() - t0:.1f} s")
+    log(f"built {SOURCE} (kernels A-D), {FLASH_SOURCE} (E-G), "
+        f"{FUSED_SOURCE} (H, I) and {GMM_SOURCE} (J, K) for sm_90a in "
+        f"{time.monotonic() - t0:.1f} s")
     for name, info in cuda_build.ptxas_info.items():
         for line in info.splitlines():
             if "registers" in line or "spill" in line:
@@ -1565,6 +2086,9 @@ def main() -> int:
     log(f"kernel phase, fused encoder layer (device times are medians of "
         f"{TIMED_RUNS}, plain of 5):")
     fused_rows = fused_kernel_phase(torch, fe, flush)
+    log(f"kernel phase, grouped matmul (device times are medians of "
+        f"{TIMED_RUNS}):")
+    gmm_rows = gmm_kernel_phase(torch, gm, flush)
     del flush
     torch.cuda.empty_cache()
 
@@ -1595,6 +2119,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_cross_check(torch, fa)
 
+    moe, *run = moe_train_phase(torch, fa, gm, impl="einsum",
+                                steps=MOE_STEPS, label="einsum")
+    moe_profile(torch, *run[1:], "einsum")
+    del run
+    torch.cuda.empty_cache()
+    moe_sorted, *run = moe_train_phase(torch, fa, gm, impl="sorted",
+                                       steps=MOE_STEPS, label="sorted")
+    moe_profile(torch, *run[1:], "sorted")
+    del run
+    torch.cuda.empty_cache()
+    log(f"moe train: einsum {moe['step_ms']:.2f} ms/step, sorted "
+        f"{moe_sorted['step_ms']:.2f} ms/step: the sorted step is "
+        f"{moe_sorted['step_ms'] / moe['step_ms']:.2f}x the einsum step's "
+        f"(a reading, not a claim)")
+    moe_cli_phase(torch)
+    moe_cross_check(torch, gm)
+
     _, serve_launches = serve_phase(torch, ops, n_requests=12,
                                     kv_cache_dtype=None, paged=True)
     _, int8_launches = serve_phase(torch, ops, n_requests=6,
@@ -1620,6 +2161,7 @@ def main() -> int:
         "flash_bwd_folded": folded["launches"]["flash_bwd_folded"],
         "fused_encoder_fwd": vit["launches"]["fused_encoder_fwd"],
         "fused_encoder_bwd": vit["launches"]["fused_encoder_bwd"],
+        **{name: moe_sorted["launches"][name] for name in GMM_REPLACES},
     }
     idle = [name for name, n in launches.items() if n <= 0]
     if idle:
@@ -1645,6 +2187,14 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": FUSED_SOURCE,
             "replaces": FUSED_REPLACES[name], "launches": launches[name],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+        })
+    for name, row in gmm_rows.items():
+        kernels.append({
+            "name": name, "route": "cuda", "source": GMM_SOURCE,
+            "replaces": GMM_REPLACES[name], "launches": launches[name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

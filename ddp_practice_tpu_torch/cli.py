@@ -12,6 +12,10 @@ with no flag:
     python -m ddp_practice_tpu_torch.cli --model vit_tiny --dataset cifar10 \\
         --precision bf16 -b 1024
 
+The MoE families train the same way (`--model lm_moe` or `vit_tiny_moe`,
+with `--num_experts` and `--moe_router topk|expert_choice`); their routed
+blocks take the einsum path, as the reference's CLI does.
+
 Data parallelism is one process per card:
 
     torchrun --nproc_per_node 4 -m ddp_practice_tpu_torch.cli --model \\

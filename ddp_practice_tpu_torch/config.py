@@ -74,7 +74,7 @@ class MeshConfig:
 
     def __post_init__(self):
         for axis, item in (("seq", "A8"), ("tensor", "A8"), ("pipe", "A8"),
-                           ("expert", "A7")):
+                           ("expert", "A8")):
             if getattr(self, axis) != 1:
                 raise NotImplementedError(
                     f"mesh axis {axis}={getattr(self, axis)} is not ported "
@@ -94,7 +94,6 @@ _NOT_PORTED = {
     "fsdp": "A8", "pipe_schedule": "A8", "num_microbatches": "A8",
     "num_virtual": "A8", "sp_impl": "A8", "max_restarts": "A8",
     "watchdog_timeout_s": "A8", "sync_check_every_steps": "A8",
-    "num_experts": "A7", "moe_router": "A7",
     "augment": "A2", "augment_kind": "A2",
     "checkpoint_dir": "A1", "checkpoint_every_epochs": "A1",
     "checkpoint_every_steps": "A1", "checkpoint_async": "A1", "resume": "A1",

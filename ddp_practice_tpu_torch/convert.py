@@ -13,14 +13,19 @@ rules, by Flax leaf:
 - `pos_embed` (1, max_len, d) unchanged; `lm_head` has no bias;
 - the ViT's `patch_embed` Conv kernel, HWIO (p, p, c, d) -> OIHW
   (d, c, p, p). It is 4-D like the qkv kernel: the two are told apart by
-  path.
+  path;
+- the MoE `router` Dense kernel (d, E) -> Linear weight (E, d); the
+  stacked expert tensors (`expert_w_in` (E, d, f), `expert_b_in`,
+  `expert_w_out`, `expert_b_out`) are copied unchanged.
 
-Block `block{i}` becomes `blocks.{i}`.
+Block `block{i}` becomes `blocks.{i}`. `batch_stats` (the reference's
+non-parameter state: each router's `router_bias`) maps by the same names
+onto the model's buffers.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
@@ -70,8 +75,17 @@ def flax_to_state_dict(params: Mapping) -> dict:
     return out
 
 
-def load_flax_params(model: torch.nn.Module, params: Mapping):
-    """Copy a Flax param tree into `model` (strict: every name must
-    match) and return the model."""
-    model.load_state_dict(flax_to_state_dict(params), strict=True)
+def load_flax_params(model: torch.nn.Module, params: Mapping,
+                     batch_stats: Optional[Mapping] = None):
+    """Copy a Flax param tree, and `batch_stats` when given, into `model`
+    (strict: every name must match) and return the model. Without
+    `batch_stats` the routers keep their current bias buffers (zeros from
+    init, as the reference's)."""
+    state = flax_to_state_dict(params)
+    if batch_stats is not None:
+        state.update(flax_to_state_dict(batch_stats))
+    else:
+        state.update({k: v for k, v in model.state_dict().items()
+                      if k.endswith("router_bias")})
+    model.load_state_dict(state, strict=True)
     return model

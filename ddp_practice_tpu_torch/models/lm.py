@@ -19,8 +19,16 @@ default "auto" a plain causal block whose shape the fused kernels take
 runs as one kernel per direction on the card; lm_base exceeds the
 kernels' limits and keeps the per-op path.
 
-Not ported yet: sequence parallelism (`seq_axis`, ROADMAP A8) and MoE
-blocks (A7); each raises.
+MoE (`moe_every` > 0, the reference's GShard layout): every
+`moe_every`-th block swaps its dense MLP for a routed expert MLP
+(ops/moe.py `MoEMlp`, configured by the `num_experts`, `moe_top_k`,
+`capacity_factor`, `moe_aux_weight`, `moe_bias_rate`, `moe_group_size`,
+`moe_group_stride` and `moe_router` fields); routed blocks never fuse.
+`train=True` lets them record their aux loss and router-bias update for
+the training step (train/steps.py).
+
+Not ported yet: sequence parallelism (`seq_axis`, ROADMAP A8) and decode
+through routed blocks (serving an MoE model, A10); each raises.
 """
 
 from __future__ import annotations
@@ -49,16 +57,17 @@ class TransformerLM(nn.Module):
                  sp_impl: str = "ring", attn_impl: str = "xla",
                  kv_cache_dtype=None, pos_emb: str = "learned",
                  tied_embeddings: bool = False, dropout_rate: float = 0.0,
-                 moe_every: int = 0, fused="auto",
+                 moe_every: int = 0, num_experts: int = 8,
+                 moe_top_k: int = 2, capacity_factor: float = 1.25,
+                 moe_aux_weight: float = 0.01, moe_bias_rate: float = 0.02,
+                 moe_group_size: int = 0, moe_group_stride: bool = True,
+                 moe_router: str = "topk", fused="auto",
                  remat: bool = False) -> None:
         super().__init__()
         if pos_emb not in ("learned", "rope"):
             raise ValueError(
                 f"unknown pos_emb {pos_emb!r} (want 'learned'|'rope')"
             )
-        if moe_every:
-            raise NotImplementedError(
-                "MoE blocks are not ported yet (ROADMAP A7)")
         self.vocab_size = vocab_size
         self.max_len = max_len
         self.hidden_dim = hidden_dim
@@ -70,18 +79,29 @@ class TransformerLM(nn.Module):
         self.pos_emb = pos_emb
         self.tied_embeddings = tied_embeddings
         self.dropout_rate = dropout_rate
+        self.moe_every = moe_every
+        self.moe_top_k = moe_top_k
         self.tok_embed = nn.Embedding(vocab_size, hidden_dim)
         if pos_emb == "learned":
             self.pos_embed = nn.Parameter(torch.zeros(1, max_len, hidden_dim))
+        routed = [moe_every > 0 and i % moe_every == moe_every - 1
+                  for i in range(depth)]
         self.blocks = nn.ModuleList(
             EncoderBlock(
                 hidden_dim, num_heads, mlp_dim, dtype=dtype,
                 seq_axis=seq_axis, sp_impl=sp_impl, attn_impl=attn_impl,
                 causal=True, rope=pos_emb == "rope",
                 kv_cache_dtype=kv_cache_dtype, dropout_rate=dropout_rate,
-                fused=fused,
+                use_moe=moe, num_experts=num_experts, moe_top_k=moe_top_k,
+                capacity_factor=capacity_factor,
+                moe_aux_weight=moe_aux_weight, moe_bias_rate=moe_bias_rate,
+                moe_group_size=moe_group_size,
+                moe_group_stride=moe_group_stride, moe_router=moe_router,
+                # routed blocks never fuse (the kernels have no expert
+                # dispatch): a forced fused=True fuses every dense block
+                fused=False if moe else fused,
             )
-            for _ in range(depth)
+            for moe in routed
         )
         self.ln_f = LayerNorm(hidden_dim, dtype)
         if not tied_embeddings:
@@ -127,6 +147,10 @@ class TransformerLM(nn.Module):
         its table row, and attn_start is slot-local. s == 1 is the decode
         step; s > 1 the paged prefill (models/vit.py `_paged_decode`)."""
         decode = cache is not None
+        if decode and self.moe_every:
+            raise NotImplementedError(
+                "decoding through routed (MoE) blocks is not ported yet "
+                "(ROADMAP A10: MoE decode and serving)")
         if page_table is not None and self.pos_emb != "rope":
             raise ValueError(
                 "paged decode needs pos_emb='rope' — per-slot positions "
@@ -160,9 +184,10 @@ class TransformerLM(nn.Module):
         for i, blk in enumerate(self.blocks):
             if self.remat and not decode:
                 x = checkpoint(blk, x, dropout_key=subkey(key, i + 1),
-                               use_reentrant=False)
+                               train=train, use_reentrant=False)
                 continue
             x = blk(x, dropout_key=subkey(key, i + 1),
+                    train=train and not decode,
                     cache=cache[f"block{i}"]["attn"] if decode else None,
                     attn_start=attn_start, page_table=page_table,
                     kv_lengths=kv_lengths)

@@ -4,7 +4,8 @@ ddp_practice_tpu/models/vit.py).
 `MlpBlock`, `SelfAttention` (the training forward, with the streaming
 flash kernels behind `attn_impl="flash"`, and the flat and paged KV-cache
 decode paths, including the int8 quantize-on-write cache) and
-`EncoderBlock` serve the decoder LM too. `EncoderBlock.fused` is the
+`EncoderBlock` (dense or, with `use_moe`, routed: ops/moe.py) serve the
+decoder LM too. `EncoderBlock.fused` is the
 reference's tri-state: `True` runs the whole layer as one kernel per
 direction (ops/fused_encoder.py) and raises on a block or a shape the
 kernels do not take; `"auto"` (the models' default) fuses when the block is
@@ -61,6 +62,7 @@ from ddp_practice_tpu_torch.ops.fused_encoder import (
     fused_shape_supported,
     shape_error,
 )
+from ddp_practice_tpu_torch.ops.moe import MoEMlp
 from ddp_practice_tpu_torch.ops.rope import apply_rope
 
 LN_EPS = 1e-6
@@ -352,16 +354,22 @@ class SelfAttention(nn.Module):
 
 
 class EncoderBlock(nn.Module):
+    """Pre-LN block. `use_moe` swaps the dense MLP for a routed expert MLP
+    (ops/moe.py `MoEMlp`, the submodule `moe`, its fields the `moe_*`,
+    `num_experts` and `capacity_factor` arguments) followed by the
+    residual-branch dropout, as the reference."""
+
     def __init__(self, d: int, num_heads: int, mlp_dim: int, *,
                  dtype=torch.float32, seq_axis: Optional[str] = None,
                  sp_impl: str = "ring", attn_impl: str = "xla",
                  causal: bool = False, rope: bool = False,
                  kv_cache_dtype=None, dropout_rate: float = 0.0,
-                 use_moe: bool = False, fused=False) -> None:
+                 use_moe: bool = False, num_experts: int = 8,
+                 moe_top_k: int = 2, capacity_factor: float = 1.25,
+                 moe_aux_weight: float = 0.01, moe_bias_rate: float = 0.02,
+                 moe_group_size: int = 0, moe_group_stride: bool = True,
+                 moe_router: str = "topk", fused=False) -> None:
         super().__init__()
-        if use_moe:
-            raise NotImplementedError(
-                "MoE blocks are not ported yet (ROADMAP A7)")
         if fused not in (True, False, "auto"):
             raise ValueError(f"fused={fused!r} (want True|False|'auto')")
         self.fused = fused
@@ -375,12 +383,24 @@ class EncoderBlock(nn.Module):
             kv_cache_dtype=kv_cache_dtype,
         )
         self.ln2 = LayerNorm(d, dtype)
-        self.mlp = MlpBlock(d, mlp_dim, dtype=dtype,
-                            dropout_rate=dropout_rate)
+        if use_moe:
+            self.moe = MoEMlp(
+                d, num_experts=num_experts, top_k=moe_top_k,
+                capacity_factor=capacity_factor, mlp_dim=mlp_dim,
+                aux_loss_weight=moe_aux_weight,
+                bias_update_rate=moe_bias_rate, group_size=moe_group_size,
+                group_stride=moe_group_stride, dtype=dtype,
+                router=moe_router)
+        else:
+            self.mlp = MlpBlock(d, mlp_dim, dtype=dtype,
+                                dropout_rate=dropout_rate)
 
-    def forward(self, x, *, dropout_key: Optional[int] = None, cache=None,
-                attn_start=None, page_table=None, kv_lengths=None):
-        """`dropout_key` None means no dropout (eval, decode)."""
+    def forward(self, x, *, dropout_key: Optional[int] = None,
+                train: bool = False, cache=None, attn_start=None,
+                page_table=None, kv_lengths=None):
+        """`dropout_key` None means no dropout (eval, decode); `train`
+        lets a routed MLP record its aux loss and router-bias update
+        (ops/moe.py)."""
         decode = cache is not None
         fused = self.fused
         if fused == "auto":
@@ -403,6 +423,9 @@ class EncoderBlock(nn.Module):
         y = self.attn(self.ln1(x), cache=cache, attn_start=attn_start,
                       page_table=page_table, kv_lengths=kv_lengths)
         x = x + dropout(y, self.dropout_rate, subkey(dropout_key, 0))
+        if self.use_moe:
+            y = self.moe(self.ln2(x), train=train)
+            return x + dropout(y, self.dropout_rate, subkey(dropout_key, 1))
         return x + self.mlp(self.ln2(x),
                             dropout_key=subkey(dropout_key, 1))
 
@@ -510,7 +533,7 @@ class ViT(nn.Module):
         key = dropout_key if train and self.dropout_rate else None
         x = self.embed(x)
         for i, blk in enumerate(self.blocks):
-            x = blk(x, dropout_key=subkey(key, i))
+            x = blk(x, dropout_key=subkey(key, i), train=train)
         return self.classifier(x)
 
 

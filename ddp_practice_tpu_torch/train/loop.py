@@ -28,8 +28,11 @@ every global batch, the model runs wrapped in DistributedDataParallel, and
 eval sums are all-reduced. `fused_encoder` ("auto" | "on" | "off") is the
 reference's flag: "on" forces the fused encoder layer and raises for a
 model that does not take it or a shape the kernels refuse. The image
-transformers (vit_tiny, vit_base) train; convnet and resnet* raise
-(ROADMAP A1).
+transformers (vit_tiny, vit_base, vit_tiny_moe) train; convnet and resnet*
+raise (ROADMAP A1). `num_experts` and `moe_router` pass to the MoE
+families as the reference's loop passes them (expert choice sets the
+capacity factor to 1.0 unless given), and the summary gains the last
+step's `moe_load_max`, `moe_load_min` and `moe_drop_rate`.
 """
 
 from __future__ import annotations
@@ -110,8 +113,8 @@ class Trainer:
             raise NotImplementedError(
                 f"--model {config.model}: not ported yet (ROADMAP "
                 f"{_MODELS_NOT_PORTED[name]}); the port trains the decoder "
-                f"LMs (lm_tiny, lm_base) and the image transformers "
-                f"(vit_tiny, vit_base)")
+                f"LMs (lm_tiny, lm_base, lm_moe) and the image "
+                f"transformers (vit_tiny, vit_base, vit_tiny_moe)")
         shard = ShardSpec(dist.process_index(), self.world)
         model_kwargs = {}
         if self.task == "lm":
@@ -153,6 +156,18 @@ class Trainer:
             model_kwargs["dropout_rate"] = config.dropout
         if config.attn_impl != "xla":
             model_kwargs["attn_impl"] = config.attn_impl
+        if config.num_experts:
+            model_kwargs["num_experts"] = config.num_experts
+        if config.moe_router != "topk":
+            if name not in ("vit_tiny_moe", "lm_moe"):
+                raise ValueError(
+                    "--moe_router applies to the MoE model families "
+                    f"(vit_tiny_moe, lm_moe), not {config.model!r}")
+            model_kwargs["moe_router"] = config.moe_router
+            # expert choice fills its buffers by construction: cf 1.0 is
+            # executed == active FLOPs (lm_moe's token-choice default 2.0
+            # would double the expert compute)
+            model_kwargs.setdefault("capacity_factor", 1.0)
         fused_req = config.fused_encoder
         if fused_req in (True, "on"):
             if not accepts_fused(config.model):
@@ -206,6 +221,7 @@ class Trainer:
             self.eval_step = make_eval_step(self.model)
         self._train_images = 0
         self._train_seconds = 0.0
+        self._last_moe: dict = {}
         self.eval_perplexity: Optional[float] = None
         self._metrics_fh = None
         if config.metrics_file and dist.is_main_process():
@@ -317,6 +333,8 @@ class Trainer:
                                      "step": self.state.step, **m})
         if final is not None:
             float(final["loss"])     # fence: the epoch's steps are done
+            self._last_moe = {k: float(v) for k, v in final.items()
+                              if k.startswith("moe_")}
         dt = timer.elapsed()
         images = self.global_batch * steps_done
         self._train_images += images
@@ -383,6 +401,7 @@ class Trainer:
             "steps": self.state.step,
             "global_batch": self.global_batch,
             "devices": self.world,
+            **self._last_moe,
         }
         if self.eval_perplexity is not None:
             summary["perplexity"] = self.eval_perplexity

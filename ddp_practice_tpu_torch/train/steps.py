@@ -22,6 +22,14 @@ the device) in front, class logits, and metrics `loss`, `accuracy` and
 wrap-padded last batch counts its real samples only. BatchNorm models
 (ROADMAP A1) and `augment` (A2, ops/augment.py) are not ported; the
 chunked and device-resident steps are A3.
+
+MoE models (lm_moe, vit_tiny_moe): both training steps add the summed aux
+loss of every routed layer to the objective (`_sown_aux_loss`; the loss
+metric includes it, as the reference's), report `moe_load_max`,
+`moe_load_min` and `moe_drop_rate` (`_moe_metrics`, already global under
+data parallelism: ops/moe.py all-reduces them), and commit each router's
+balancing-bias update once, after backward. Eval routes with the current
+bias and never moves it.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ import torch
 from torch import nn
 
 from ddp_practice_tpu_torch.ops.losses import accuracy_counts, cross_entropy
+from ddp_practice_tpu_torch.ops.moe import moe_layers
 from ddp_practice_tpu_torch.parallel import dist
 from ddp_practice_tpu_torch.train.state import TrainState, global_norm
 
@@ -40,6 +49,29 @@ def step_key(seed: int, step: int) -> int:
     """The dropout key of a global step: deterministic for a given seed,
     so a step replays its masks (the reference's fold_in(seed, step))."""
     return (seed * 1_000_003 + step) % (1 << 62)
+
+
+def _sown_aux_loss(layers) -> torch.Tensor | float:
+    """The sum of the routed layers' sown aux losses (0.0 without any)."""
+    return sum(m.sown["moe_aux_loss"] for m in layers if m.sown)
+
+
+def _moe_metrics(layers) -> dict:
+    """Router health over the routed layers: the worst and best expert
+    share of routed tokens (ideal 1/E) and the mean drop rate."""
+    sown = [m.sown for m in layers if m.sown]
+    if not sown:
+        return {}
+    with torch.no_grad():
+        fracs = torch.cat([s["moe_load_frac"].reshape(-1) for s in sown])
+        drops = torch.stack([s["moe_drop_rate"].reshape(()) for s in sown])
+        return {"moe_load_max": fracs.max(), "moe_load_min": fracs.min(),
+                "moe_drop_rate": drops.float().mean()}
+
+
+def _commit_router_bias(layers) -> None:
+    for m in layers:
+        m.commit_bias()
 
 
 def make_lm_train_step(model: nn.Module, *, label_smoothing: float = 0.0,
@@ -51,6 +83,7 @@ def make_lm_train_step(model: nn.Module, *, label_smoothing: float = 0.0,
     DDP wrapper under data parallelism; `model` itself by default)."""
     net = forward if forward is not None else model
     params = [p for p in model.parameters() if p.requires_grad]
+    moes = moe_layers(model)
 
     def train_step(state: TrainState, batch: dict):
         tokens = batch["tokens"]
@@ -62,7 +95,10 @@ def make_lm_train_step(model: nn.Module, *, label_smoothing: float = 0.0,
                      dropout_key=step_key(seed, state.step))
         loss = cross_entropy(logits, targets, weight=weight,
                              label_smoothing=label_smoothing)
+        loss = loss + _sown_aux_loss(moes)
+        moe_metrics = _moe_metrics(moes)
         loss.backward()
+        _commit_router_bias(moes)
         grad_norm = global_norm([p.grad for p in params])
         state.optimizer.step()
         state.step += 1
@@ -75,7 +111,7 @@ def make_lm_train_step(model: nn.Module, *, label_smoothing: float = 0.0,
                 dist.all_reduce_sum(sums)
                 sums[0] /= dist.process_count()
             metrics = {"loss": sums[0], "perplexity": torch.exp(sums[0]),
-                       "grad_norm": grad_norm}
+                       "grad_norm": grad_norm, **moe_metrics}
             if with_accuracy:
                 metrics["accuracy"] = sums[1] / torch.clamp(sums[2], min=1.0)
         return state, metrics
@@ -122,6 +158,7 @@ def make_train_step(model: nn.Module, *, label_smoothing: float = 0.0,
             "augment is not ported yet (ROADMAP A2: ops/augment.py)")
     net = forward if forward is not None else model
     params = [p for p in model.parameters() if p.requires_grad]
+    moes = moe_layers(model)
 
     def train_step(state: TrainState, batch: dict):
         images = prepare_image(batch["image"])
@@ -132,7 +169,10 @@ def make_train_step(model: nn.Module, *, label_smoothing: float = 0.0,
                      dropout_key=step_key(seed, state.step))
         loss = cross_entropy(logits, labels,
                              label_smoothing=label_smoothing)
+        loss = loss + _sown_aux_loss(moes)
+        moe_metrics = _moe_metrics(moes)
         loss.backward()
+        _commit_router_bias(moes)
         grad_norm = global_norm([p.grad for p in params])
         state.optimizer.step()
         state.step += 1
@@ -143,7 +183,7 @@ def make_train_step(model: nn.Module, *, label_smoothing: float = 0.0,
                 dist.all_reduce_sum(sums)
                 sums[0] /= dist.process_count()
             metrics = {"loss": sums[0], "accuracy": sums[1] / sums[2],
-                       "grad_norm": grad_norm}
+                       "grad_norm": grad_norm, **moe_metrics}
         return state, metrics
 
     return train_step

@@ -14,14 +14,23 @@ from typing import Optional
 
 def lm_forward_flops_per_token(*, hidden_dim: int, depth: int, mlp_dim: int,
                                vocab_size: int, seq_len: int,
-                               causal: bool = True) -> float:
+                               causal: bool = True, moe_every: int = 0,
+                               moe_top_k: int = 2) -> float:
     """Decoder LM (models/lm.py) forward FLOPs per token. Per layer:
     8*d^2 (qkv + out projections) + 4*d*mlp (MLP) + the attention score
     and value products 4*s*d, halved under causal masking (the flash
-    kernels skip the masked tiles). Plus the 2*d*V lm_head."""
+    kernels skip the masked tiles). Plus the 2*d*V lm_head.
+
+    moe_every > 0 (lm_moe): every moe_every-th layer's MLP routes each
+    token through top_k experts, so its active MLP FLOPs are top_k x the
+    dense MLP's (the d*E router is left out). Dropped tokens make this an
+    upper bound on the active FLOPs, so MoE MFU is conservative."""
     d, m, v, s = hidden_dim, mlp_dim, vocab_size, seq_len
     attn = 4.0 * s * d * (0.5 if causal else 1.0)
-    return depth * (8.0 * d * d + attn + 4.0 * d * m) + 2.0 * d * v
+    mlp = 4.0 * d * m
+    total = depth * (8.0 * d * d + attn) + 2.0 * d * v
+    n_moe = depth // moe_every if moe_every > 0 else 0
+    return total + (depth - n_moe) * mlp + n_moe * moe_top_k * mlp
 
 
 def lm_train_flops_per_token(**kw) -> float:

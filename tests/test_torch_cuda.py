@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: decode attention (A, B: flat cache; C, D: paged pool) and flash
-attention (E forward, F and G backward) and the fused encoder layer (H
-forward, I backward). Every test
+attention (E forward, F and G backward), the fused encoder layer (H
+forward, I backward) and the grouped matmul (J gmm in both rhs layouts, K
+tgmm; the sorted MoE path through them). Every test
 here is marked `cuda` and skips without a card; run them on a machine
 with an H100:
 
@@ -36,6 +37,13 @@ ds, dqkv) and differ in fp32 summation order, so a rounding flips by an ulp
 (2^-8 relative) here and there and the flips pass through the later
 products: per element 4e-2 of the tensor's largest magnitude, 5e-3 in
 relative error norm (a tile wrong by its own size gives far more).
+
+The grouped matmul: kernel and plain version both sum in fp32 and round
+once, so fp32 holds 2e-5 relative and 2e-5 absolute times the tensor's
+largest magnitude where that exceeds 1 (tgmm sums hundreds of rows, and
+fp32 rounding scales with the partial sums), bf16 the decode kernels'
+1.6e-2 + 2^-7 |ref| (summation order can flip the final bf16 rounding by
+an ulp); tgmm's fixed-order reduction gives the same bits on every run.
 """
 
 import pytest
@@ -44,6 +52,7 @@ import torch
 from ddp_practice_tpu_torch.ops import decode_attention as ops
 from ddp_practice_tpu_torch.ops import flash_attention as fa
 from ddp_practice_tpu_torch.ops import fused_encoder as fe
+from ddp_practice_tpu_torch.ops import grouped_matmul as gm
 
 pytestmark = pytest.mark.cuda
 
@@ -487,3 +496,139 @@ def test_fused_wrapper_refusals(card):
     cpu_params = [p.cpu() for p in params]
     with pytest.raises(ValueError, match="is on cpu"):
         fe.fused_encoder_forward(x, cpu_params, num_heads=3, impl="kernel")
+
+
+# ------------------------------------------------------ kernels J and K
+GMM_PATTERNS = {
+    "balanced": [125] * 8,
+    "skewed": [900, 20, 20, 20, 10, 10, 10, 10],
+    "empty_off_grid": [0, 17, 0, 399, 1, 0, 450, 133],
+    "tail": [140, 0, 260, 0, 0, 300, 0, 0],
+    "all_empty": [0] * 8,
+}
+
+
+def _gmm_operands(m, k, n, e, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return (torch.randn((m, k), generator=g, device="cuda").to(dtype),
+            torch.randn((e, k, n), generator=g, device="cuda").to(dtype),
+            torch.randn((m, n), generator=g, device="cuda").to(dtype))
+
+
+def _gmm_held(got, want, name):
+    """fp32: 2e-5 relative plus 2e-5 of the tensor's largest magnitude
+    where that exceeds 1 (a sum over hundreds of rows carries rounding of
+    its partial sums' size); bf16: one ulp (2^-7) plus 1.6e-2."""
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape, name
+    atol, rtol = TOL[want.dtype]
+    if want.dtype == torch.float32:
+        atol *= max(1.0, float(want.detach().abs().max()))
+    err = (got.float() - want.float()).abs()
+    bad = err > atol + rtol * want.float().abs()
+    assert not bad.any(), f"{name}: max |err| {float(err.max()):.3e}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pattern", sorted(GMM_PATTERNS))
+def test_grouped_matmul_kernels_match_plain(card, pattern, dtype):
+    sizes = torch.tensor(GMM_PATTERNS[pattern], dtype=torch.int32,
+                         device="cuda")
+    lhs, rhs, grad = _gmm_operands(1000, 96, 160, 8, dtype, 11)
+    before = dict(gm.LAUNCHES)
+    _gmm_held(gm.gmm(lhs, rhs, sizes, impl="kernel"),
+              gm.gmm_plain(lhs, rhs, sizes), "gmm")
+    _gmm_held(gm.gmm(grad, rhs, sizes, transpose_rhs=True, impl="kernel"),
+              gm.gmm_plain(grad, rhs, sizes, transpose_rhs=True), "gmm_trhs")
+    got = gm.tgmm(lhs, grad, sizes, impl="kernel")
+    _gmm_held(got, gm.tgmm_plain(lhs, grad, sizes), "tgmm")
+    for e, size in enumerate(GMM_PATTERNS[pattern]):
+        if size == 0:
+            assert not got[e].any()
+    assert gm.LAUNCHES == {k: v + 1 for k, v in before.items()}
+
+
+@pytest.mark.parametrize("shape", [(37, 29), (24, 40)])
+def test_grouped_matmul_element_loads(card, shape):
+    """fp32 rows that are not a multiple of 16 bytes, and an operand that
+    does not start 16-byte aligned, take the element-load path."""
+    k, n = shape
+    sizes = torch.tensor(GMM_PATTERNS["empty_off_grid"], dtype=torch.int32,
+                         device="cuda")
+    lhs, rhs, grad = _gmm_operands(1001, k, n, 8, torch.float32, 12)
+    lhs = torch.cat([torch.zeros(1, device="cuda"),
+                     lhs.reshape(-1)])[1:].view(1001, k)   # offset 4 bytes
+    _gmm_held(gm.gmm(lhs, rhs, sizes, impl="kernel"),
+              gm.gmm_plain(lhs, rhs, sizes), "gmm")
+    _gmm_held(gm.tgmm(lhs, grad, sizes, impl="kernel"),
+              gm.tgmm_plain(lhs, grad, sizes), "tgmm")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_matmul_autograd_and_same_bits(card, dtype):
+    sizes = torch.tensor(GMM_PATTERNS["skewed"], dtype=torch.int32,
+                         device="cuda")
+    lhs, rhs, w = _gmm_operands(1000, 64, 128, 8, dtype, 13)
+
+    def run(impl):
+        a = lhs.clone().requires_grad_()
+        b = rhs.clone().requires_grad_()
+        out = gm.grouped_matmul(a, b, sizes, impl=impl)
+        (out.float() * w.float()).sum().backward()
+        return out, a.grad, b.grad
+
+    got, want = run("kernel"), run("plain")
+    for name, x, y in zip(("out", "dlhs", "drhs"), got, want):
+        _gmm_held(x, y, name)
+    again = gm.tgmm(lhs, w, sizes, impl="kernel")
+    assert torch.equal(again, gm.tgmm(lhs, w, sizes, impl="kernel"))
+
+
+def test_sorted_moe_runs_the_kernels(card):
+    """MoEMlp impl="sorted" on the card: kernels J (forward, transposed)
+    and K run, and output and grads agree with the plain versions."""
+    from ddp_practice_tpu_torch.ops.moe import MoEMlp
+
+    torch.manual_seed(0)
+    moe = MoEMlp(64, num_experts=8, top_k=2, mlp_dim=128,
+                 impl="sorted").cuda()
+    for p in moe.parameters():
+        torch.nn.init.normal_(p, std=0.1)
+    x = torch.randn(4, 96, 64, device="cuda")
+
+    def run(impl):
+        moe.zero_grad()
+        xs = x.clone().requires_grad_()
+        gm.reset_launches()
+        with gm.forced_impl(impl):
+            y = moe(xs, train=True)
+            (y * y).sum().backward()
+        torch.cuda.synchronize()
+        return dict(gm.LAUNCHES), [y, xs.grad] + [
+            p.grad.clone() for p in moe.parameters()]
+
+    launches, got = run("kernel")
+    assert launches == {"gmm": 2, "gmm_trhs": 2, "tgmm": 2}
+    launches, want = run("plain")
+    assert launches == {"gmm": 0, "gmm_trhs": 0, "tgmm": 0}
+    for i, (a, b) in enumerate(zip(got, want)):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4,
+                                   msg=f"tensor {i}")
+
+
+def test_grouped_matmul_wrapper_refusals(card):
+    sizes = torch.tensor([4, 4], dtype=torch.int32, device="cuda")
+    lhs, rhs, grad = _gmm_operands(8, 16, 16, 2, torch.float32, 14)
+    with pytest.raises(ValueError, match="one dtype"):
+        gm.gmm(lhs, rhs.to(torch.bfloat16), sizes, impl="kernel")
+    with pytest.raises(ValueError, match="contiguous"):
+        gm.gmm(lhs.t().contiguous().t(), rhs, sizes, impl="kernel")
+    with pytest.raises(ValueError, match="int32"):
+        gm.gmm(lhs, rhs, sizes.long(), impl="kernel")
+    with pytest.raises(ValueError, match="multiples of 8"):
+        b16 = _gmm_operands(8, 12, 16, 2, torch.bfloat16, 15)
+        gm.gmm(b16[0], b16[1], sizes, impl="kernel")
+    with pytest.raises(ValueError, match="shapes"):
+        gm.gmm(lhs, rhs[:, :8], sizes, impl="kernel")
+    with pytest.raises(ValueError, match="writes the operands' dtype"):
+        gm.tgmm(lhs, grad, sizes, out_dtype=torch.bfloat16, impl="kernel")

@@ -10,11 +10,16 @@ cli.py) on the CPU:
   image task's summary keys; `--fused on` runs the fused layer's plain
   version, and raises for a model that does not take it, a wide model or
   head_dim 32, naming the limit;
+- the CLI trains lm_moe (registry dims, token choice and expert choice)
+  and its summary carries the last step's router health (moe_* keys);
 - model names and flags this slice does not port raise
   NotImplementedError naming their ROADMAP item, and the card is the
   default device;
 - data parallelism: two gloo processes at per-rank batch 2 take the same
-  step as one process at batch 4 (1e-6) and stay bit-identical replicas.
+  step as one process at batch 4 (1e-6) and stay bit-identical replicas,
+  for lm_tiny and for lm_moe, whose router statistics and balancing bias
+  are global-batch quantities (ops/moe.py all-reduces them): the ranks'
+  router biases equal the single process's.
 """
 
 import json
@@ -73,9 +78,35 @@ def test_cli_trains_lm_tiny_on_the_cpu(log_lines, capsys, tmp_path):
     assert [r["step"] for r in records[:3]] == [1, 2, 3]
 
 
+@pytest.mark.parametrize("router", ["topk", "expert_choice"])
+def test_cli_trains_lm_moe_on_the_cpu(router, capsys, tmp_path):
+    metrics = tmp_path / "m.jsonl"
+    assert cli.main([
+        "--model", "lm_moe", "--device", "cpu", "--seq_len", "16",
+        "-b", "2", "--max_steps", "2", "-e", "1", "--log_every", "1",
+        "--optimizer", "adamw", "--lr", "1e-3", "--moe_router", router,
+        "--num_experts", "4", "--synthetic_size", "20000",
+        "--metrics_file", str(metrics), "--json"]) == 0
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    moe_keys = {"moe_load_max", "moe_load_min", "moe_drop_rate"}
+    assert set(summary) == SUMMARY_KEYS | moe_keys | {"wall_seconds"}
+    assert 0.0 <= summary["moe_load_min"] <= 0.25 <= summary["moe_load_max"]
+    records = [json.loads(x) for x in metrics.read_text().splitlines()]
+    assert all(set(r) >= moe_keys for r in records[:2])
+    if router == "expert_choice":
+        trainer = Trainer(TrainConfig(
+            model="lm_moe", device="cpu", seq_len=16, batch_size=2,
+            synthetic_size=20000, moe_router=router))
+        moe = trainer.model.blocks[1].moe
+        assert (moe.capacity_factor, moe.router_bias) == (1.0, None)
+        with pytest.raises(ValueError, match="MoE model families"):
+            cli.main(["--model", "lm_tiny", "--moe_router", router,
+                      "--device", "cpu"])
+
+
 @pytest.mark.parametrize("argv,item", [
     (["--model", "convnet"], "A1"),
-    (["--model", "lm_moe"], "A7"),
+    (["--model", "lm_tiny", "--expert", "2"], "A8"),
     (["--model", "lm_tiny", "--steps_per_call", "4"], "A3"),
     (["--model", "lm_tiny", "--data_placement", "device"], "A3"),
     (["--model", "lm_tiny", "--ckpt_dir", "ck"], "A1"),
@@ -181,9 +212,10 @@ def test_trainer_defaults_to_the_card():
         Trainer(TrainConfig(model="lm_tiny", seq_len=16, batch_size=2))
 
 
-DP = dict(model="lm_tiny", device="cpu", seq_len=16, synthetic_size=20000,
+DP = dict(device="cpu", seq_len=16, synthetic_size=20000,
           optimizer="sgd", learning_rate=0.1, max_steps_per_epoch=1,
           epochs=1, log_every_steps=0)
+DP_MODELS = ("lm_tiny", "lm_moe")
 
 
 def _dp_worker(rank, world, init_file, out_dir):
@@ -191,34 +223,49 @@ def _dp_worker(rank, world, init_file, out_dir):
     dist.initialize(torch.device("cpu"), init_method=f"file://{init_file}",
                     world_size=world, rank=rank)
     try:
-        trainer = Trainer(TrainConfig(batch_size=2, **DP))
-        trainer.train_epoch(0)
-        torch.save(trainer.model.state_dict(),
-                   pathlib.Path(out_dir) / f"rank{rank}.pt")
+        for model in DP_MODELS:
+            trainer = Trainer(TrainConfig(model=model, batch_size=2, **DP))
+            trainer.train_epoch(0)
+            torch.save(trainer.model.state_dict(),
+                       pathlib.Path(out_dir) / f"{model}-rank{rank}.pt")
     finally:
         dist.shutdown()
 
 
 @pytest.mark.net
 def test_two_gloo_ranks_take_the_single_process_step(tmp_path):
-    ctx = multiprocessing.get_context("spawn")
+    # a fork server (a fresh single-threaded interpreter, so forking from
+    # it is safe) imports torch and the port once and forks both ranks;
+    # two spawned interpreters would each import them. The single-process
+    # steps run here meanwhile
+    ctx = multiprocessing.get_context("forkserver")
+    ctx.set_forkserver_preload(["torch._dynamo",
+                                "ddp_practice_tpu_torch.train.loop"])
     procs = [ctx.Process(target=_dp_worker,
                          args=(r, 2, str(tmp_path / "rdv"), str(tmp_path)))
              for r in range(2)]
     for p in procs:
         p.start()
+    singles = {}
+    for model in DP_MODELS:
+        single = Trainer(TrainConfig(model=model, batch_size=4, **DP))
+        before = {k: v.clone() for k, v in single.model.state_dict().items()}
+        single.train_epoch(0)
+        singles[model] = (before, single.model.state_dict())
     for p in procs:
         p.join(timeout=120)
     assert all(not p.is_alive() and p.exitcode == 0 for p in procs), \
         [p.exitcode for p in procs]
-    ranks = [torch.load(tmp_path / f"rank{r}.pt") for r in range(2)]
-    single = Trainer(TrainConfig(batch_size=4, **DP))
-    before = {k: v.clone() for k, v in single.model.state_dict().items()}
-    single.train_epoch(0)
-    moved = 0
-    for name, want in single.model.state_dict().items():
-        assert torch.equal(ranks[0][name], ranks[1][name]), name
-        torch.testing.assert_close(ranks[0][name], want, rtol=1e-6,
-                                   atol=1e-6, msg=name)
-        moved += int(not torch.equal(want, before[name]))
-    assert moved > 0
+    for model, (before, after) in singles.items():
+        ranks = [torch.load(tmp_path / f"{model}-rank{r}.pt")
+                 for r in range(2)]
+        moved = 0
+        for name, want in after.items():
+            assert torch.equal(ranks[0][name], ranks[1][name]), name
+            torch.testing.assert_close(ranks[0][name], want, rtol=1e-6,
+                                       atol=1e-6, msg=name)
+            moved += int(not torch.equal(want, before[name]))
+        assert moved > 0
+        biases = [n for n in after if n.endswith("router_bias")]
+        assert len(biases) == (2 if model == "lm_moe" else 0)
+        assert all(after[n].abs().sum() > 0 for n in biases)
