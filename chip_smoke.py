@@ -53,6 +53,22 @@ Phases, each of which raises on failure (nothing is caught and passed):
    kernel, plain and SDPA (F.scaled_dot_product_attention, forward and
    its autograd backward; the port never calls it) device times and the
    bound, forward and backward apart;
+8b. flash variants (row #12, the reference's ablations of E): v2 (causal
+   and not), v3, v4, v5 at 2 and 4 heads per block and nomax against their
+   plain versions at lm_base (b*h = 96, s = 2048, d = 64, bf16) on the
+   kernel's own 64 x 64 tiles (out at the flash bf16 limits, lse 1e-4, or
+   2^-8 where l sums the rounded p; for v3 and v5 the mean lse error
+   against their own plain version stays under a tenth of its mean
+   distance from plain v2, which sums fp32 p), and fwd4d (kernel E's
+   packed route on the (b, s, h, d) strides) against E's plain version,
+   with the fold-and-transpose path logged beside; kernel, plain (the
+   reference's 512 x 1024 blocks) and library flash
+   (SDPBackend.FLASH_ATTENTION; the port never calls it) device times and
+   the bound. Then the slice's main path: the `main()` of
+   experiments/flash_variants, flash_ablate, flash_4d, flash_profile and
+   flash_time, each with the launch counts zeroed just before and read
+   just after; the variants' launches in flash_variants and flash_ablate,
+   E's packed launches in flash_4d, are the rows' counts;
 9. train: `fit` through the CLI's parser and config, lm_base (d=768,
    depth 12, 12 heads, mlp 3072) at seq 2048, batch 8, bf16, AdamW lr
    3e-4, attn_impl flash, 30 steps on the synthetic Markov corpus: the
@@ -61,7 +77,11 @@ Phases, each of which raises on failure (nothing is caught and passed):
    accuracy and perplexity, peak memory; flash_fwd_packed launches equal
    12 x (30 + eval batches) and flash_bwd_packed 12 x 30;
 10. legs: 10 steps with RoPE (the packed rows again, through
-   dot_product_attention) and 10 with 24 heads of 32 (the folded rows);
+   dot_product_attention) and 10 with 24 heads of 32 (the folded rows),
+   then 25 steps of the learned run with `--profile_dir`: fit writes one
+   Kineto trace of steps 10-19, read back with utils/xprof.op_summary (E,
+   F and G 12 x 10 times each); that leg's median step leaves those steps
+   out and logs theirs beside;
 11. cross-check, one lm_base train step at depth 2, b=2: in fp32 at
    s=512 the kernels, the plain versions and attn_impl="xla" give one
    loss (1e-5) and grads (1e-4); in bf16 at s=2048 the tensor-core
@@ -176,6 +196,17 @@ FLASH_REPLACES = {
     "flash_fwd_folded": "ddp_practice_tpu/ops/flash_attention.py:236",
     "flash_bwd_folded": "ddp_practice_tpu/ops/flash_attention.py:375",
 }
+# row #12: the reference's ablations of kernel E (`pallas_call` sites)
+VARIANT_REPLACES = {
+    "flash_fwd_v2": "experiments/flash_variants.py:341",
+    "flash_fwd_v3": "experiments/flash_variants.py:341",
+    "flash_fwd_v4": "experiments/flash_variants.py:307",
+    "flash_fwd_v5h2": "experiments/flash_variants.py:216",
+    "flash_fwd_v5h4": "experiments/flash_variants.py:216",
+    "flash_fwd_nomax": "experiments/flash_ablate.py:72",
+    # kernel E's packed route, reached through experiments/flash_4d.fwd4d
+    "flash_fwd_4d": "experiments/flash_4d.py:52",
+}
 # H100 SXM dense peaks (NVIDIA data sheet): bf16 on the tensor cores;
 # fp32 runs outside them (the kernels do not use TF32)
 PEAK = {"bfloat16": 989.4e12, "float32": 67e12}
@@ -261,16 +292,39 @@ def _time_ms(torch, fn, flush, runs=TIMED_RUNS) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def _device_events(torch, prof):
-    """The device ops of a torch.profiler run. User annotations are left
-    out: the optimizer's `Optimizer.step#...` range is recorded on the
-    device timeline too, and counting it would add the span of its kernels
-    a second time."""
-    cuda = torch.autograd.DeviceType.CUDA
-    return [e for e in prof.events()
-            if getattr(e, "device_type", None) == cuda
-            and not getattr(e, "is_user_annotation", False)
-            and not e.name.startswith("Optimizer.")]
+def _profile_summary(prof):
+    """utils/xprof's summary of a torch.profiler run's device events (user
+    annotations left out: the optimizer's `Optimizer.step#...` range is
+    recorded on the device timeline too, and counting it would add the
+    span of its kernels a second time); None when it recorded none."""
+    from ddp_practice_tpu_torch.utils import xprof
+
+    events = xprof.device_events(prof)
+    return xprof.op_summary_events(events) if events else None
+
+
+def _by_kind(summary, kinds) -> dict:
+    """Device us per printed kind: `kinds` maps xprof categories to the
+    phase's labels, in print order; every other category is "other"."""
+    out = dict.fromkeys(kinds.values(), 0.0)
+    out["other"] = 0.0
+    for cat, c in summary["categories"].items():
+        out[kinds.get(cat, "other")] += c["ps"] / 1e6
+    return out
+
+
+def _device_ops(summary) -> int:
+    return sum(c["count"] for c in summary["categories"].values())
+
+
+def _log_top_ops(summary, steps, top, unit, width):
+    """The `top` ops by device time: time and calls per step, name."""
+    scale = 1e6 if unit == "us" else 1e9
+    for key, ps in sorted(summary["ops"].items(),
+                          key=lambda kv: -kv[1])[:top]:
+        calls = summary["op_counts"][key]
+        log(f"  {ps / scale / steps:9.3f} {unit}/step "
+            f"{calls / steps:5.1f} calls/step  {key[1][:width]}")
 
 
 def _compare(torch, name, got, want, dtype, what):
@@ -741,6 +795,177 @@ def flash_kernel_phase(torch, F, fa, flush) -> dict:
     return main
 
 
+# -------------------------------------------------- kernel E's variants
+def _library_flash(torch, F, q, k, v, causal):
+    """The library's flash attention (SDPBackend.FLASH_ATTENTION) on (b,
+    h, s, d) views: the yardstick of the variant rows."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def run():
+        with torch.no_grad(), sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            return F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+
+    return run
+
+
+def check_variant(torch, F, fa, *, name, variant, n_heads, causal, q, k, v,
+                  flush, v2_lse):
+    """One forward variant at lm_base against its plain version on the
+    kernel's own 64 x 64 tiles (the same running max): out at the flash
+    bf16 limits, lse within 1e-4 (2^-8 where l sums the rounded p); device
+    times of the kernel, of the plain version at the reference's blocks
+    (512 x 1024, as E's row) and of the library's flash attention; the
+    bound. v3 and v5 must compute the sum-fold (l the sum of the rounded
+    p), not v2's fp32 sum: their mean |lse error| stays under a tenth of
+    the mean |lse| distance between their plain version and plain v2
+    (`v2_lse`, the same inputs and tiles)."""
+    kw = dict(variant=variant, n_heads=n_heads, causal=causal)
+    out, lse = fa.flash_forward_variant(q, k, v, impl="kernel", **kw)
+    want, want_lse = fa.flash_forward_variant_plain(q, k, v, block_q=64,
+                                                    block_k=64, **kw)
+    what = f"{name} lm_base {'causal' if causal else 'non-causal'}"
+    err, rel = _flash_err(torch, name, out, want, "bfloat16", False, what)
+    lse_err = float((lse - want_lse).abs().max())
+    # v3 and v5 sum the rounded p: a p on a bf16 rounding boundary may
+    # round the other way on each side, moving l by at most 2^-8 of itself
+    if not lse_err <= (2.0 ** -8 if variant in ("v3", "v5") else 1e-4):
+        raise AssertionError(f"{name} lse disagrees with its plain version:"
+                             f" {what}: max |err| {lse_err:.3e}")
+    sumfold = None
+    if variant in ("v3", "v5"):
+        mean_err = float((lse - want_lse).abs().mean())
+        gap = (want_lse - v2_lse).abs()
+        sumfold = {"lse_mean_err": mean_err,
+                   "v2_gap_mean": float(gap.mean()),
+                   "v2_gap_rows_over_1e-4": float((gap > 1e-4).float().mean()),
+                   "rows_over_1e-4": float(((lse - want_lse).abs() > 1e-4)
+                                           .float().mean())}
+        if not mean_err <= 0.1 * sumfold["v2_gap_mean"]:
+            raise AssertionError(
+                f"{name} does not compute the sum-fold: {what}: mean |lse "
+                f"err| {mean_err:.3e} against its plain version, plain "
+                f"{variant} vs plain v2 {sumfold['v2_gap_mean']:.3e}")
+    bh, s, d = q.shape
+    heads = 12
+    q4, k4, v4 = (t.view(bh // heads, heads, s, d) for t in (q, k, v))
+    bound, by = _flash_bound_ms(bh, 1, s, s, d, causal, "bfloat16", 2, False)
+    row = {"kernel": name, "dtype": "bfloat16", "causal": causal,
+           "max_abs_err": err, "rel": rel, "lse_err": lse_err,
+           "ms": _time_ms(torch, lambda: fa.flash_forward_variant(
+               q, k, v, impl="kernel", **kw), flush),
+           "plain_ms": _time_ms(torch, lambda: fa.flash_forward_variant_plain(
+               q, k, v, **kw), flush, runs=5),
+           "library_ms": _time_ms(torch, _library_flash(
+               torch, F, q4, k4, v4, causal), flush),
+           "bound_ms": bound, "bound_by": by, "sumfold": sumfold}
+    log(f"  {name:>16} {'causal' if causal else 'non-causal':>10}: err "
+        f"{err:.2e} / {rel:.2e} (lse {lse_err:.1e})  kernel "
+        f"{row['ms']:7.3f} ms  plain {row['plain_ms']:7.3f} ms  library "
+        f"flash {row['library_ms']:6.3f} ms  bound {bound:6.3f} ms ({by})")
+    if sumfold:
+        log(f"  {'':>16} {'sum-fold':>10}: mean |lse err| "
+            f"{sumfold['lse_mean_err']:.3e} (rows over 1e-4 "
+            f"{sumfold['rows_over_1e-4']:.5f}) vs plain {variant} - plain v2 "
+            f"{sumfold['v2_gap_mean']:.3e} (rows over 1e-4 "
+            f"{sumfold['v2_gap_rows_over_1e-4']:.4f})")
+    return row
+
+
+def check_4d(torch, F, fa, flush):
+    """`fwd4d` (kernel E's packed route on the (b, s, h, d) strides of the
+    projection's view) against E's plain version on the same view at
+    lm_base; times of fwd4d, of the plain version and of the library's
+    flash attention on the (b, h, s, d) view. The fold-and-transpose path
+    (E on a folded copy) is logged beside: its difference and its time."""
+    from ddp_practice_tpu_torch.experiments import flash_4d
+
+    b, s, h, d = 8, 2048, 12, 64
+    g = torch.Generator(device="cuda").manual_seed(4200)
+    qf, kf, vf = (torch.randn((b, s, h * d), generator=g, device="cuda")
+                  .to(torch.bfloat16) for _ in range(3))
+    q, k, v = (x.view(b, s, h, d) for x in (qf, kf, vf))
+    with torch.no_grad():
+        got = flash_4d.fwd4d(q, k, v, impl="kernel")
+        want = flash_4d.fwd4d(q, k, v, impl="plain")
+        fold_diff = float((flash_4d.path_4d(qf, kf, vf).float()
+                           - flash_4d.path_fold(qf, kf, vf).float())
+                          .abs().max())
+    err, rel = _flash_err(torch, "flash_fwd_4d", got, want, "bfloat16",
+                          False, "fwd4d vs E's plain version lm_base")
+    bound, by = _flash_bound_ms(b, h, s, s, d, True, "bfloat16", 2, False)
+    fold_ms = _time_ms(torch, lambda: flash_4d.path_fold(qf, kf, vf), flush)
+    row = {"kernel": "flash_fwd_4d", "dtype": "bfloat16", "causal": True,
+           "max_abs_err": err, "rel": rel,
+           "ms": _time_ms(torch, lambda: flash_4d.fwd4d(q, k, v), flush),
+           "plain_ms": _time_ms(torch, lambda: flash_4d.fwd4d(
+               q, k, v, impl="plain"), flush, runs=5),
+           "library_ms": _time_ms(torch, _library_flash(
+               torch, F, *(t.transpose(1, 2) for t in (q, k, v)), True),
+               flush),
+           "bound_ms": bound, "bound_by": by}
+    log(f"  {'flash_fwd_4d':>16} {'causal':>10}: err {err:.2e} / {rel:.2e}"
+        f"  kernel {row['ms']:7.3f} ms  plain {row['plain_ms']:7.3f} ms  "
+        f"library flash {row['library_ms']:6.3f} ms  bound {bound:6.3f} ms "
+        f"({by}); fold+transpose {fold_ms:.3f} ms, max |4d - fold| "
+        f"{fold_diff:.2e}")
+    return row
+
+
+def variant_phase(torch, F, fa, flush) -> dict:
+    """Row #12: each forward variant and fwd4d against its plain version
+    at lm_base (b*h = 96, s = 2048, d = 64, bf16; v2 causal and not), then
+    the slice's main path: the five experiment scripts' `main()` (the
+    ablations and the trace-based flash timings) with the launch counts
+    zeroed just before and read just after. Returns {row: record} with
+    the main path's launches."""
+    from ddp_practice_tpu_torch.experiments import (
+        flash_4d, flash_ablate, flash_profile, flash_time, flash_variants,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(4100)
+    q, k, v = (torch.randn((96, 2048, 64), generator=g, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    _, v2_lse = fa.flash_forward_variant_plain(q, k, v, variant="v2",
+                                               block_q=64, block_k=64)
+    rows = {}
+    for name, variant, n_heads, causal in (
+            ("flash_fwd_v2", "v2", 1, False),
+            ("flash_fwd_v2", "v2", 1, True),
+            ("flash_fwd_v3", "v3", 1, True),
+            ("flash_fwd_v4", "v4", 2, True),
+            ("flash_fwd_v5h2", "v5", 2, True),
+            ("flash_fwd_v5h4", "v5", 4, True),
+            ("flash_fwd_nomax", "nomax", 1, True)):
+        row = check_variant(torch, F, fa, name=name, variant=variant,
+                            n_heads=n_heads, causal=causal, q=q, k=k, v=v,
+                            flush=flush, v2_lse=v2_lse)
+        if name in rows:   # v2: the causal row, the worse error of both
+            row["max_abs_err"] = max(row["max_abs_err"],
+                                     rows[name]["max_abs_err"])
+        rows[name] = row
+    rows["flash_fwd_4d"] = check_4d(torch, F, fa, flush)
+    del q, k, v, v2_lse
+    t0 = time.monotonic()
+    launches = {name: 0 for name in rows}
+    for script in (flash_variants, flash_ablate, flash_4d, flash_profile,
+                   flash_time):
+        short = script.__name__.rsplit(".", 1)[1]
+        log(f"experiments.{short}.main():")
+        fa.reset_launches()
+        script.main()
+        for name, n in fa.VARIANT_LAUNCHES.items():
+            launches[name] += n
+        if script is flash_4d:
+            launches["flash_fwd_4d"] = fa.LAUNCHES["flash_fwd_packed"]
+        log(f"  {short} launches: variants {dict(fa.VARIANT_LAUNCHES)}, "
+            f"E/F/G {dict(fa.LAUNCHES)}")
+    log(f"variant path: the five scripts ran in "
+        f"{time.monotonic() - t0:.1f} s; the rows' launches {launches}")
+    for name, row in rows.items():
+        row["launches"] = launches[name]
+    return rows
+
+
 # -------------------------------------------------------------------- serve
 def _lm_base(torch, policy, seed=0, **kw):
     from ddp_practice_tpu_torch.config import PrecisionPolicy
@@ -969,23 +1194,17 @@ def profile_phase(torch, engine_name):
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(bursts):
             engine.step_burst()
-    kernels = _device_events(torch, prof)
+    summary = _profile_summary(prof)
     steps = bursts * k
     where = (f"cursor {engine.cursor}" if engine_name == "slot" else
              f"slot lengths {sorted({engine.context_len(s) for s in slots})}")
-    if not kernels:
+    if summary is None:
         log(f"profile[{engine_name}]: torch.profiler recorded no device "
             f"events; device time not measured (host wall {host_ms:.3f} ms "
             f"per step)")
         return
-    by_kind = {"decode_attention": 0.0, "matmul": 0.0, "other": 0.0}
-    for e in kernels:
-        name = e.name.lower()
-        kind = ("decode_attention" if "decode_attention" in name
-                else "matmul" if any(t in name for t in (
-                    "gemm", "cutlass", "xmma", "nvjet", "gemv"))
-                else "other")
-        by_kind[kind] += e.time_range.elapsed_us()
+    by_kind = _by_kind(summary, {"decode A-D": "decode_attention",
+                                 "matmul": "matmul"})
     device_ms = sum(by_kind.values()) / 1e3 / steps
     share = {kind: us / 1e3 / steps / device_ms
              for kind, us in by_kind.items()}
@@ -993,28 +1212,29 @@ def profile_phase(torch, engine_name):
         f"slots, {where}): host wall {host_ms:.3f} ms/step, device busy "
         f"{device_ms:.3f} ms/step, device idle share "
         f"{max(0.0, 1 - device_ms / host_ms):.3f}, "
-        f"{len(kernels) / steps:.0f} device ops/step; device time by kind "
-        + ", ".join(f"{kind} {s:.3f}" for kind, s in share.items()))
-    per_name = {}
-    for e in kernels:
-        n, us = per_name.get(e.name, (0, 0.0))
-        per_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
-    for name, (n, us) in sorted(per_name.items(),
-                                key=lambda kv: -kv[1][1])[:10]:
-        log(f"  {us / steps:9.2f} us/step {n / steps:5.1f} calls/step  "
-            f"{name[:110]}")
+        f"{_device_ops(summary) / steps:.0f} device ops/step; device time "
+        f"by kind " + ", ".join(f"{kind} {s:.3f}"
+                                for kind, s in share.items()))
+    _log_top_ops(summary, steps, 10, "us", 110)
     del engine, model
     torch.cuda.empty_cache()
 
 
 # -------------------------------------------------------------------- train
-def train_phase(torch, fa, extra, *, steps, label, row, metrics_file=None):
+def train_phase(torch, fa, extra, *, steps, label, row, metrics_file=None,
+                profile_dir=None):
     """`fit` through the CLI's parser and config (lm_base, bf16, AdamW,
     flash) for `steps` steps; each step's loss stays on the device and a
     CUDA event marks its end (no extra readback). Checks that the loss
     fell and that `row`'s kernels launched depth x (steps + eval batches)
-    forward and depth x steps backward, and nothing else. Returns the
-    trainer (for the profile) and the report."""
+    forward and depth x steps backward, and nothing else. With
+    `profile_dir`, fit traces its step window (`--profile_dir`): the trace
+    is read back with utils/xprof and E, F and G must each appear depth x
+    (window steps) times in it; the median step then leaves out the traced
+    steps and the one that writes the trace. Returns the trainer (for the
+    profile) and the report."""
+    import shutil
+
     from ddp_practice_tpu_torch.cli import build_parser, config_from_args
     from ddp_practice_tpu_torch.train.loop import Trainer
     from ddp_practice_tpu_torch.utils.flops import (
@@ -1025,6 +1245,9 @@ def train_phase(torch, fa, extra, *, steps, label, row, metrics_file=None):
     argv = TRAIN_ARGS + ["--max_steps", str(steps)] + extra
     if metrics_file:
         argv += ["--metrics_file", metrics_file]
+    if profile_dir:
+        shutil.rmtree(profile_dir, ignore_errors=True)
+        argv += ["--profile_dir", profile_dir]
     config = config_from_args(build_parser().parse_args(argv))
     trainer = Trainer(config)
     losses, ends = [], []
@@ -1046,8 +1269,11 @@ def train_phase(torch, fa, extra, *, steps, label, row, metrics_file=None):
     wall = time.monotonic() - t0
     launches = dict(fa.LAUNCHES)
     loss = [float(x) for x in losses]
+    window = trainer._profile_window(0) if profile_dir else None
+    traced = set(range(window[0], window[1] + 1)) if window else set()
     step_ms = statistics.median(ends[i - 1].elapsed_time(ends[i])
-                                for i in range(1, len(ends)))
+                                for i in range(1, len(ends))
+                                if i not in traced)
     model = trainer.model
     tokens = trainer.global_batch * config.seq_len
     flops = lm_train_flops_per_token(
@@ -1089,7 +1315,42 @@ def train_phase(torch, fa, extra, *, steps, label, row, metrics_file=None):
     if launches != want:
         raise AssertionError(f"train[{label}]: launches {launches}, want "
                              f"{want}")
+    if window:
+        report["trace"] = _train_trace(profile_dir, window, model.depth, ends)
     return trainer, report
+
+
+def _train_trace(profile_dir, window, depth, ends):
+    """Read fit's `--profile_dir` trace back (utils/xprof.op_summary): one
+    trace file; E, F and G depth x (window steps) times each; device time
+    per step by category; the traced steps' median beside the others'."""
+    import pathlib
+
+    from ddp_practice_tpu_torch.utils import xprof
+
+    files = sorted(pathlib.Path(profile_dir).glob("*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"--profile_dir wrote {len(files)} traces")
+    summary = xprof.op_summary(profile_dir)
+    n = window[1] - window[0]
+    cats = summary["categories"]
+    counts = {k: cats.get(k, {"count": 0})["count"]
+              for k in ("flash E", "flash F", "flash G")}
+    if set(counts.values()) != {depth * n}:
+        raise AssertionError(f"trace of steps {window}: flash launches "
+                             f"{counts}, want {depth * n} each")
+    traced_ms = statistics.median(ends[i - 1].elapsed_time(ends[i])
+                                  for i in range(window[0] + 1, window[1]))
+    log(f"  --profile_dir: {files[0].name} ({files[0].stat().st_size >> 20}"
+        f" MiB), steps {window[0]}-{window[1] - 1}; device "
+        f"{summary['total_ps'] / 1e9 / n:.2f} ms/step over "
+        f"{summary['planes']} stream(s); E/F/G {counts} = {depth} x {n} "
+        f"each; by category (ms/step) " + ", ".join(
+            f"{k} {c['ps'] / 1e9 / n:.2f}" for k, c in sorted(
+                cats.items(), key=lambda kv: -kv[1]["ps"]))
+        + f"; traced steps' median {traced_ms:.2f} ms")
+    return {"device_ms": summary["total_ps"] / 1e9 / n,
+            "traced_step_ms": traced_ms, "counts": counts}
 
 
 def _model_step(torch, fa, *, precision, attn_impl, impl, seq):
@@ -1189,35 +1450,21 @@ def train_profile(torch, trainer):
                              ProfilerActivity.CUDA]) as prof:
         trainer.state, _ = trainer.train_step(trainer.state, batch)
         torch.cuda.synchronize()
-    kernels = _device_events(torch, prof)
-    if not kernels:
+    summary = _profile_summary(prof)
+    if summary is None:
         log(f"train profile: torch.profiler recorded no device events; "
             f"device time not measured (host wall {host_ms:.2f} ms/step)")
         return
-    by_kind = {"E": 0.0, "F": 0.0, "G": 0.0, "matmul": 0.0, "other": 0.0}
-    for e in kernels:
-        name = e.name.lower()
-        kind = ("E" if "flash_fwd" in name
-                else "F" if "flash_bwd_dkdv" in name
-                else "G" if "flash_bwd_dq" in name
-                else "matmul" if any(t in name for t in (
-                    "gemm", "cutlass", "xmma", "nvjet", "gemv"))
-                else "other")
-        by_kind[kind] += e.time_range.elapsed_us()
+    by_kind = _by_kind(summary, {"flash E": "E", "flash F": "F",
+                                 "flash G": "G", "matmul": "matmul"})
     device_ms = sum(by_kind.values()) / 1e3
     log(f"train profile (lm_base bf16 step, b=8, s=2048): host wall "
         f"{host_ms:.2f} ms/step, device busy {device_ms:.2f} ms/step, "
         f"device idle share {max(0.0, 1 - device_ms / host_ms):.3f}, "
-        f"{len(kernels)} device ops/step; device time by kind "
+        f"{_device_ops(summary)} device ops/step; device time by kind "
         + ", ".join(f"{k} {v / 1e3 / device_ms:.3f}"
                     for k, v in by_kind.items()))
-    per_name = {}
-    for e in kernels:
-        c, us = per_name.get(e.name, (0, 0.0))
-        per_name[e.name] = (c + 1, us + e.time_range.elapsed_us())
-    for name, (c, us) in sorted(per_name.items(),
-                                key=lambda kv: -kv[1][1])[:8]:
-        log(f"  {us / 1e3:9.3f} ms/step {c:4d} calls/step  {name[:100]}")
+    _log_top_ops(summary, 1, 8, "ms", 100)
 
 
 # ------------------------------------------------------- kernels H and I
@@ -1468,37 +1715,23 @@ def vit_train_profile(torch, trainer):
                              ProfilerActivity.CUDA]) as prof:
         trainer.state, _ = trainer.train_step(trainer.state, batch)
         torch.cuda.synchronize()
-    kernels = _device_events(torch, prof)
-    if not kernels:
+    summary = _profile_summary(prof)
+    if summary is None:
         log(f"vit train profile: torch.profiler recorded no device events; "
             f"device time not measured (host wall {host_ms:.2f} ms/step)")
         return
-    by_kind = {"H": 0.0, "I": 0.0, "I reduce": 0.0, "matmul": 0.0,
-               "other": 0.0}
-    for e in kernels:
-        name = e.name.lower()
-        kind = ("H" if "fused_encoder_fwd" in name
-                else "I" if "fused_encoder_bwd" in name
-                else "I reduce" if "fused_encoder_reduce" in name
-                else "matmul" if any(t in name for t in (
-                    "gemm", "cutlass", "xmma", "nvjet", "gemv"))
-                else "other")
-        by_kind[kind] += e.time_range.elapsed_us()
+    by_kind = _by_kind(summary, {"fused H": "H", "fused I": "I",
+                                 "fused I reduce": "I reduce",
+                                 "matmul": "matmul"})
     device_ms = sum(by_kind.values()) / 1e3
     log(f"vit train profile (vit_tiny bf16 step, batch "
         f"{trainer.global_batch}): host wall {host_ms:.2f} ms/step, device "
         f"busy {device_ms:.2f} ms/step, device idle share "
-        f"{max(0.0, 1 - device_ms / host_ms):.3f}, {len(kernels)} device "
-        f"ops/step; device time by kind "
+        f"{max(0.0, 1 - device_ms / host_ms):.3f}, {_device_ops(summary)} "
+        f"device ops/step; device time by kind "
         + ", ".join(f"{k} {v / 1e3:.3f} ms ({v / 1e3 / device_ms:.3f})"
                     for k, v in by_kind.items()))
-    per_name = {}
-    for e in kernels:
-        c, us = per_name.get(e.name, (0, 0.0))
-        per_name[e.name] = (c + 1, us + e.time_range.elapsed_us())
-    for name, (c, us) in sorted(per_name.items(),
-                                key=lambda kv: -kv[1][1])[:8]:
-        log(f"  {us / 1e3:9.3f} ms/step {c:4d} calls/step  {name[:100]}")
+    _log_top_ops(summary, 1, 8, "ms", 100)
 
 
 def _vit_step(torch, fe, *, precision, fused, impl, batch=64):
@@ -1901,36 +2134,22 @@ def moe_profile(torch, state, step, batch, label):
                              ProfilerActivity.CUDA]) as prof:
         state, _ = step(state, batch)
         torch.cuda.synchronize()
-    kernels = _device_events(torch, prof)
-    if not kernels:
+    summary = _profile_summary(prof)
+    if summary is None:
         log(f"moe profile[{label}]: torch.profiler recorded no device "
             f"events; device time not measured (host wall {host_ms:.2f} "
             f"ms/step)")
         return
-    by_kind = {"J": 0.0, "K": 0.0, "flash": 0.0, "matmul": 0.0,
-               "other": 0.0}
-    for e in kernels:
-        name = e.name.lower()
-        kind = ("J" if "gmm_kernel" in name and "tgmm" not in name
-                else "K" if "tgmm_kernel" in name
-                else "flash" if "flash_" in name
-                else "matmul" if any(t in name for t in (
-                    "gemm", "cutlass", "xmma", "nvjet", "gemv"))
-                else "other")
-        by_kind[kind] += e.time_range.elapsed_us()
+    by_kind = _by_kind(summary, {"grouped J": "J", "grouped K": "K",
+                                 "flash E": "flash", "flash F": "flash",
+                                 "flash G": "flash", "matmul": "matmul"})
     device_ms = sum(by_kind.values()) / 1e3
     log(f"moe profile[{label}] (lm_moe bf16 step, b=8, s=2048): host wall "
         f"{host_ms:.2f} ms/step, device busy {device_ms:.2f} ms/step, "
         f"device idle share {max(0.0, 1 - device_ms / host_ms):.3f}, "
-        f"{len(kernels)} device ops/step; device ms by kind "
+        f"{_device_ops(summary)} device ops/step; device ms by kind "
         + ", ".join(f"{k} {v / 1e3:.2f}" for k, v in by_kind.items()))
-    per_name = {}
-    for e in kernels:
-        c, us = per_name.get(e.name, (0, 0.0))
-        per_name[e.name] = (c + 1, us + e.time_range.elapsed_us())
-    for name, (c, us) in sorted(per_name.items(),
-                                key=lambda kv: -kv[1][1])[:6]:
-        log(f"  {us / 1e3:9.3f} ms/step {c:4d} calls/step  {name[:100]}")
+    _log_top_ops(summary, 1, 6, "ms", 100)
 
 
 def moe_cli_phase(torch):
@@ -2065,7 +2284,7 @@ def main() -> int:
         f"python {sys.version.split()[0]}")
     t0 = time.monotonic()
     cuda_build.build(cuda_build.SOURCES)
-    log(f"built {SOURCE} (kernels A-D), {FLASH_SOURCE} (E-G), "
+    log(f"built {SOURCE} (kernels A-D), {FLASH_SOURCE} (E-G, E's variants), "
         f"{FUSED_SOURCE} (H, I) and {GMM_SOURCE} (J, K) for sm_90a in "
         f"{time.monotonic() - t0:.1f} s")
     for name, info in cuda_build.ptxas_info.items():
@@ -2083,6 +2302,9 @@ def main() -> int:
     log(f"kernel phase, flash attention (device times are medians of "
         f"{TIMED_RUNS}, plain of 5):")
     flash_rows = flash_kernel_phase(torch, F, fa, flush)
+    log(f"kernel phase, flash variants (row #12; device times are medians "
+        f"of {TIMED_RUNS}, plain of 5):")
+    variant_rows = variant_phase(torch, F, fa, flush)
     log(f"kernel phase, fused encoder layer (device times are medians of "
         f"{TIMED_RUNS}, plain of 5):")
     fused_rows = fused_kernel_phase(torch, fe, flush)
@@ -2116,6 +2338,10 @@ def main() -> int:
                 row="packed")
     _, folded = train_phase(torch, fa, ["--num_heads", "24"], steps=10,
                             label="24 heads of 32", row="folded")
+    torch.cuda.empty_cache()
+    train_phase(torch, fa, ["--synthetic_size", "600000"], steps=25,
+                label="--profile_dir", row="packed",
+                profile_dir="build/profiles/train")
     torch.cuda.empty_cache()
     train_cross_check(torch, fa)
 
@@ -2162,6 +2388,7 @@ def main() -> int:
         "fused_encoder_fwd": vit["launches"]["fused_encoder_fwd"],
         "fused_encoder_bwd": vit["launches"]["fused_encoder_bwd"],
         **{name: moe_sorted["launches"][name] for name in GMM_REPLACES},
+        **{name: row["launches"] for name, row in variant_rows.items()},
     }
     idle = [name for name, n in launches.items() if n <= 0]
     if idle:
@@ -2195,6 +2422,14 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": GMM_SOURCE,
             "replaces": GMM_REPLACES[name], "launches": launches[name],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+        })
+    for name, row in variant_rows.items():
+        kernels.append({
+            "name": name, "route": "cuda", "source": FLASH_SOURCE,
+            "replaces": VARIANT_REPLACES[name], "launches": launches[name],
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],

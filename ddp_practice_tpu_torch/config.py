@@ -101,7 +101,6 @@ _NOT_PORTED = {
     "watchdog_probe_every_steps": "A8",
     "steps_per_call": "A3", "resident_max_bytes": "A3",
     "compilation_cache": "A3",
-    "profile_dir": "A9",
     "trace_out": "A6", "metrics_port": "A6", "telemetry_out": "A6",
     "slo": "A6", "alert_sinks": "A6",
 }

@@ -11,8 +11,11 @@
 //     (b, s, 3*h*d) projection);
 //   kernel F (flash_bwd_dkdv_kernel, _tc_): _dkdv_kernel and
 //     _dkdv_kernel_packed;
-//   kernel G (flash_bwd_dq_kernel, _tc_): _dq_kernel and _dq_kernel_packed.
-// Each comes in two variants: fp32 operands run the FMA kernels, bf16
+//   kernel G (flash_bwd_dq_kernel, _tc_): _dq_kernel and _dq_kernel_packed;
+// and the reference's ablations of kernel E in experiments/
+// (flash_fwd_variant_kernel, entry flash_fwd_variant: _fwd_v2, _fwd_v3,
+// _fwd_v4, _fwd_v5 and _fwd_nomax; see "the forward variants" below).
+// E, F and G each come in two variants: fp32 operands run the FMA kernels, bf16
 // operands the tensor-core (_tc_) kernels; the arithmetic is the same.
 // Every operand comes with element strides for (batch, head, position) and a
 // unit head_dim stride, so the folded, packed and fused-QKV layouts are one
@@ -1016,6 +1019,261 @@ __global__ void __launch_bounds__(kThreads, TcTile<D>::BWD_BLOCKS)
                 smem, q0, nq, p.dq_scale);
 }
 
+// ------------------------------------------- the forward variants (#12)
+// Compile-time variants of the bf16 forward for the reference's ablations
+// of kernel E, over folded (b*h, s, d) operands with d = 64:
+//   kVarV2    experiments/flash_variants.py _fwd_v2 (fwd_call("v2")): E's
+//             online softmax, but sm_scale multiplies the fp32 scores
+//             (E rounds q*scale to bf16 first); l sums fp32 p;
+//   kVarV3    _fwd_v3 (fwd_call("v3")): v2 with the row sum folded into
+//             P.V: the staged V tile carries one more 16-wide column tile
+//             [1 0 ... 0], so column D of the accumulator is l = sum of
+//             bf16(p), rescaled with it (the reference pads V by its
+//             128-lane tile; here by one fragment width);
+//   kVarV4    _fwd_v4 (fwd_call("v4")): v2 with two heads per block;
+//   kVarV5    _fwd_v5 (fwd_v5_call): NH = 2 or 4 heads per block, V padded
+//             once outside to d+64 with ones at column d (the kernel stages
+//             its first d+16 columns; the rest are zeros), scores in base 2
+//             (scale*log2(e), exp2f), l from column d, lse back in base e;
+//   kVarNoMax experiments/flash_ablate.py _fwd_nomax (nomax_call): no
+//             running max: p = exp(s) unguarded, l and the accumulator are
+//             never rescaled; lse = log(l). Overflows once a score passes
+//             ~88: a cost probe, not an attention kernel.
+// All mask with -1e30 at key j > query i + (s_k - s_q) under causal
+// masking, return out = bf16(acc / max(l, 1e-30)) and fp32 lse, and skip
+// key tiles wholly above the diagonal, as E does. Heads h0..h0+NH-1 of a
+// block keep their own query tiles and fp32 accumulators (in shared
+// memory) and their own m and l (per thread); the K and V staging tiles,
+// the score tile and the P tile are reused head after head inside a key
+// tile.
+// Bound: the same as E's (4*bh*s_q*s_k*d flops, halved under causal
+// masking, over the tensor cores' 989 TFLOP/s).
+enum VariantKind { kVarV2 = 0, kVarV3, kVarV4, kVarV5, kVarNoMax };
+constexpr int kErrVariant = -4;    // variant / heads-per-block not compiled
+constexpr int kErrHeads = -5;      // b*h not divisible by heads per block
+
+struct VarParams {
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;          // kVarV5: the (b*h, s_k, d+64) padded copy
+  bf16* out;
+  float* lse;             // (b*h, s_q) fp32
+  long long st[4][2];     // (head, position) element strides: q, k, v, out
+  int sq, sk, causal, offset;
+  float score_scale;      // fp32 multiplier of q.k^T (kVarV5: times log2 e)
+};
+
+template <int D, int NH, int KIND> struct VarTile {
+  static constexpr bool SUMFOLD = KIND == kVarV3 || KIND == kVarV5;
+  static constexpr bool VPAD = KIND == kVarV5;    // V arrives padded
+  static constexpr bool EXP2 = KIND == kVarV5;
+  static constexpr bool NOMAX = KIND == kVarNoMax;
+  static constexpr int ROWS = 64;
+  static constexpr int W = SUMFOLD ? D + 16 : D;  // P.V output width
+  static constexpr int LDH = D + 8;               // bf16 (ROWS, D): q, k
+  static constexpr int LDV = W + 8;               // bf16 (ROWS, W): v
+  static constexpr int LDF = ROWS + 4;            // fp32 scores
+  static constexpr int LDP = ROWS + 8;            // bf16 p
+  static constexpr int LDO = W + 4;               // fp32 accumulators
+  static constexpr int RT = ROWS / 16, CT = ROWS / 16, WT = W / 16;
+  static constexpr size_t QB = size_t(ROWS) * LDH * 2;
+  static constexpr size_t VB = size_t(ROWS) * LDV * 2;
+  static constexpr size_t FB = size_t(ROWS) * LDF * 4;
+  static constexpr size_t PB = size_t(ROWS) * LDP * 2;
+  static constexpr size_t OB = size_t(ROWS) * LDO * 4;
+  // NH query tiles, the K, V, score and P tiles, NH accumulators
+  static constexpr size_t kSmem = (NH + 1) * QB + VB + FB + PB + NH * OB;
+  // blocks an SM that shared memory allows (70-76, 96-106, 166 KiB), held
+  // to in registers too: unbounded, v5 at two heads took 221 registers a
+  // thread and ran one block an SM; bounded at one block, the one-head
+  // variants took 114-116 and ran two
+  static constexpr int BLOCKS = NH == 1 ? 3 : NH == 2 ? 2 : 1;
+  static_assert(D == 64, "the variants are compiled for head_dim 64");
+  static_assert(LDH == TcTile<D>::LDH && LDF == TcTile<D>::LDF &&
+                LDP == TcTile<D>::LDP, "mma_abt's tile strides");
+};
+
+// Stage columns [0, COLS) of rows [row0, row0 + n) into a (64, LD) bf16
+// tile, zero past n; 16-byte loads when the rows allow them.
+template <int COLS, int LD>
+__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
+                                           long long ss, int row0, int n) {
+  constexpr int V = COLS / 8;
+  const bool vec = ((reinterpret_cast<uintptr_t>(src) | (ss * 2)) & 15) == 0;
+  if (vec) {
+    for (int e = threadIdx.x; e < 64 * V; e += kThreads) {
+      const int r = e / V, c = (e % V) * 8;
+      uint4 x = make_uint4(0, 0, 0, 0);
+      if (r < n) x = *reinterpret_cast<const uint4*>(src + (row0 + r) * ss + c);
+      *reinterpret_cast<uint4*>(dst + r * LD + c) = x;
+    }
+    return;
+  }
+  for (int e = threadIdx.x; e < 64 * COLS; e += kThreads) {
+    const int r = e / COLS, c = e % COLS;
+    dst[r * LD + c] = r < n ? src[(row0 + r) * ss + c] : __float2bfloat16_rn(0.f);
+  }
+}
+
+// sO (64, W) fp32 += P (64, 64) . X (64, W), P and X bf16 in shared memory;
+// the 8 warps split the (4, W/16) grid of 16 x 16 output tiles.
+template <int W, int LDX, int LDO>
+__device__ __forceinline__ void mma_pv(float* sO, const bf16* p,
+                                       const bf16* x) {
+  constexpr int ST = 4, WT = W / 16, TILES = ST * WT, PER = (TILES + 7) / 8;
+  constexpr int LDP = 72;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int t = 0; t < PER; ++t) {
+    const int tile = warp + 8 * t;
+    if (tile >= TILES) break;
+    const int tm = tile / WT, tn = tile % WT;
+    FragC acc;
+    wmma::load_matrix_sync(acc, sO + tm * 16 * LDO + tn * 16, LDO,
+                           wmma::mem_row_major);
+#pragma unroll
+    for (int kk = 0; kk < ST; ++kk) {
+      FragA fa;
+      FragB fb;
+      wmma::load_matrix_sync(fa, p + tm * 16 * LDP + kk * 16, LDP);
+      wmma::load_matrix_sync(fb, x + kk * 16 * LDX + tn * 16, LDX);
+      wmma::mma_sync(acc, fa, fb, acc);
+    }
+    wmma::store_matrix_sync(sO + tm * 16 * LDO + tn * 16, acc, LDO,
+                            wmma::mem_row_major);
+  }
+}
+
+template <bool EXP2> __device__ __forceinline__ float var_exp(float x) {
+  if constexpr (EXP2) return exp2f(x);
+  else return expf(x);
+}
+
+template <int D, int NH, int KIND>
+__global__ void __launch_bounds__(kThreads, VarTile<D, NH, KIND>::BLOCKS)
+    flash_fwd_variant_kernel(const VarParams p) {
+  using TL = VarTile<D, NH, KIND>;
+  constexpr int ROWS = TL::ROWS, RT = TL::RT, CT = TL::CT, WT = TL::WT;
+  constexpr int LDH = TL::LDH, LDV = TL::LDV, LDF = TL::LDF, LDP = TL::LDP;
+  constexpr int LDO = TL::LDO;
+  extern __shared__ float smem[];
+  char* base = reinterpret_cast<char*>(smem);
+  bf16* sQ = reinterpret_cast<bf16*>(base);                  // NH tiles
+  bf16* sK = reinterpret_cast<bf16*>(base + NH * TL::QB);
+  bf16* sV = reinterpret_cast<bf16*>(base + (NH + 1) * TL::QB);
+  float* sS = reinterpret_cast<float*>(base + (NH + 1) * TL::QB + TL::VB);
+  bf16* sP = reinterpret_cast<bf16*>(base + (NH + 1) * TL::QB + TL::VB +
+                                     TL::FB);
+  float* sO = reinterpret_cast<float*>(base + (NH + 1) * TL::QB + TL::VB +
+                                       TL::FB + TL::PB);      // NH tiles
+
+  const int tid = threadIdx.x, rg = tid >> 4, cg = tid & 15;
+  const int head0 = blockIdx.y * NH;
+  const int q0 = blockIdx.x * ROWS;
+  const int nq = min(ROWS, p.sq - q0);
+#pragma unroll
+  for (int h = 0; h < NH; ++h)
+    stage_rows<D, LDH>(sQ + h * ROWS * LDH, p.q + (head0 + h) * p.st[0][0],
+                       p.st[0][1], q0, nq);
+  for (int e = tid; e < NH * ROWS * LDO; e += kThreads) sO[e] = 0.f;
+  if constexpr (TL::SUMFOLD && !TL::VPAD) {
+    // the ones column tile; V's own columns are staged per key tile
+    for (int e = tid; e < ROWS * 16; e += kThreads)
+      sV[(e >> 4) * LDV + D + (e & 15)] =
+          __float2bfloat16_rn((e & 15) == 0 ? 1.f : 0.f);
+  }
+
+  float m[NH][RT], l[NH][RT];
+#pragma unroll
+  for (int h = 0; h < NH; ++h)
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      m[h][i] = -INFINITY;
+      l[h][i] = 0.f;
+    }
+  const int k_end =
+      p.causal ? min(p.sk, q0 + nq - 1 + p.offset + 1) : p.sk;
+  for (int k0 = 0; k0 < k_end; k0 += ROWS) {
+    const int nk = min(ROWS, p.sk - k0);
+    // one copy of the body for every head: unrolled, the heads' copies
+    // interleave and the registers overflow (m and l then live in local
+    // memory, a few loads a row and tile)
+#pragma unroll 1
+    for (int h = 0; h < NH; ++h) {
+      float* sOh = sO + h * ROWS * LDO;
+      __syncthreads();   // the previous head's readers are done
+      stage_rows<D, LDH>(sK, p.k + (head0 + h) * p.st[1][0], p.st[1][1], k0,
+                         nk);
+      stage_rows<TL::VPAD ? TL::W : D, LDV>(
+          sV, p.v + (head0 + h) * p.st[2][0], p.st[2][1], k0, nk);
+      __syncthreads();
+      mma_abt<D>(sS, sQ + h * ROWS * LDH, sK);
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < RT; ++i) {
+        const int r = rg * RT + i, qi = q0 + r;
+        float s[CT], mt = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < CT; ++j) {
+          const int kj = k0 + cg + 16 * j;
+          s[j] = sS[r * LDF + cg + 16 * j] * p.score_scale;
+          if (kj >= p.sk)
+            s[j] = -INFINITY;            // past the end: no mass at all
+          else if (p.causal && kj > qi + p.offset)
+            s[j] = kMasked;
+          mt = fmaxf(mt, s[j]);
+        }
+        float alpha = 1.f, shift = 0.f;
+        if constexpr (!TL::NOMAX) {
+          const float m_new = fmaxf(m[h][i], row_max(mt));
+          alpha = var_exp<TL::EXP2>(m[h][i] - m_new);   // 0 on the first tile
+          m[h][i] = m_new;
+          shift = m_new;
+        }
+        float ps = 0.f;
+#pragma unroll
+        for (int j = 0; j < CT; ++j) {
+          const float pr = var_exp<TL::EXP2>(s[j] - shift);
+          ps += pr;
+          sP[r * LDP + cg + 16 * j] = __float2bfloat16_rn(pr);
+        }
+        if constexpr (!TL::SUMFOLD) l[h][i] = alpha * l[h][i] + row_sum(ps);
+        if constexpr (!TL::NOMAX) {
+#pragma unroll
+          for (int j = 0; j < WT; ++j) sOh[r * LDO + cg + 16 * j] *= alpha;
+        }
+      }
+      __syncthreads();
+      mma_pv<TL::W, LDV, LDO>(sOh, sP, sV);
+    }
+  }
+  __syncthreads();
+#pragma unroll 1
+  for (int h = 0; h < NH; ++h) {
+    const float* sOh = sO + h * ROWS * LDO;
+    bf16* op = p.out + (head0 + h) * p.st[3][0];
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      const int r = rg * RT + i;
+      if (r >= nq) continue;
+      const float ls =
+          fmaxf(TL::SUMFOLD ? sOh[r * LDO + D] : l[h][i], 1e-30f);
+      bf16* row = op + (q0 + r) * p.st[3][1];
+#pragma unroll
+      for (int j = 0; j < D / 16; ++j)
+        row[cg + 16 * j] = __float2bfloat16_rn(sOh[r * LDO + cg + 16 * j] / ls);
+      if (cg == 0) {
+        float lse;
+        if constexpr (TL::NOMAX) lse = logf(ls);
+        else if constexpr (TL::EXP2)
+          lse = (m[h][i] + log2f(ls)) * 0.6931471805599453f;
+        else lse = m[h][i] + logf(ls);
+        p.lse[static_cast<long long>(head0 + h) * p.sq + q0 + r] = lse;
+      }
+    }
+  }
+}
+
 // ------------------------------------------------------------ launchers
 // Above 48 KB a block's dynamic shared memory must be opted into; each
 // launcher instantiation does it once for its own kernels.
@@ -1118,7 +1376,64 @@ void set_strides(Params& p, const long long* strides, int n) {
     for (int j = 0; j < 3; ++j) p.st[i][j] = strides[3 * i + j];
 }
 
+template <int NH, int KIND>
+int launch_variant(const VarParams& p, int bh, cudaStream_t stream) {
+  using TL = VarTile<64, NH, KIND>;
+  if (bh % NH) return kErrHeads;
+  void (*kernel)(VarParams) = flash_fwd_variant_kernel<64, NH, KIND>;
+  static bool opted = false;
+  if (!opted) {
+    if (const int rc = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            static_cast<int>(TL::kSmem)))
+      return rc;
+    opted = true;
+  }
+  const dim3 grid((p.sq + TL::ROWS - 1) / TL::ROWS, bh / NH);
+  kernel<<<grid, kThreads, TL::kSmem, stream>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+// The forward variants of kernel E (#12; see the section above). q, k, v,
+// out: (b*h, s, 64) bf16 with (head, position) element strides in
+// `strides` (8 int64: q, k, v, out; the head_dim stride is 1; for variant
+// kVarV5, v is the (b*h, s_k, 128) padded copy); lse: (b*h, s_q) fp32.
+// variant: 0 v2, 1 v3, 2 v4 (n_heads 2), 3 v5 (n_heads 2 or 4), 4 nomax.
+// Returns 0, a negative code of this file, or a cudaError_t.
+extern "C" int flash_fwd_variant(const void* q, const void* k, const void* v,
+                                 void* out, float* lse,
+                                 const long long* strides, int bh, int sq,
+                                 int sk, int d, int causal, int variant,
+                                 int n_heads, float score_scale,
+                                 void* stream) {
+  if (d != 64) return kErrHeadDim;
+  if (bh <= 0 || sq <= 0 || sk <= 0) return 0;
+  VarParams p = {};
+  p.q = static_cast<const bf16*>(q);
+  p.k = static_cast<const bf16*>(k);
+  p.v = static_cast<const bf16*>(v);
+  p.out = static_cast<bf16*>(out);
+  p.lse = lse;
+  for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 2; ++j) p.st[i][j] = strides[2 * i + j];
+  p.sq = sq;
+  p.sk = sk;
+  p.causal = causal;
+  p.offset = causal ? sk - sq : 0;
+  p.score_scale = score_scale;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (variant * 8 + n_heads) {
+    case kVarV2 * 8 + 1: return launch_variant<1, kVarV2>(p, bh, st);
+    case kVarV3 * 8 + 1: return launch_variant<1, kVarV3>(p, bh, st);
+    case kVarV4 * 8 + 2: return launch_variant<2, kVarV4>(p, bh, st);
+    case kVarV5 * 8 + 2: return launch_variant<2, kVarV5>(p, bh, st);
+    case kVarV5 * 8 + 4: return launch_variant<4, kVarV5>(p, bh, st);
+    case kVarNoMax * 8 + 1: return launch_variant<1, kVarNoMax>(p, bh, st);
+    default: return kErrVariant;
+  }
+}
 
 // Kernel E. q, k, v, out: (b, h, s, d) element strides in `strides` (12
 // int64: q, k, v, out; the head_dim stride is 1); lse: (b, h, s_q) fp32.

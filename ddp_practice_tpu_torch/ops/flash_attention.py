@@ -34,6 +34,16 @@ the tensor cores (WMMA mma.sync, fp32 accumulation), fp32 operands as
 FMAs on the CUDA cores (TF32 would break the fp32 tolerances); a simple
 first design, far from the bound (PERF.md).
 
+The reference's ablations of the forward (experiments/flash_variants.py,
+flash_ablate.py, flash_4d.py; row #12 of the kernel table) are here too:
+`flash_forward_variant` runs compile-time variants of E
+(`flash_fwd_variant_kernel`: v2, v3, v4, v5, nomax; see that section of
+the .cu for what each computes) on folded bf16 operands at head_dim 64;
+their launches are counted in `VARIANT_LAUNCHES` and their plain version
+is `flash_forward_variant_plain`. The reference's 4D-grid forward needs no
+entry of its own: `flash_attention` already runs E on the (b, s, h, d)
+strides.
+
 On a CPU tensor an entry runs the plain PyTorch version of the kernels'
 arithmetic (`flash_attention_plain`, `flash_attention_plain_bwd`): tile by
 tile over `block_q` x `block_k` tiles with the same online softmax and the
@@ -62,20 +72,26 @@ import torch
 # its kernels and nowhere else (a backward launch is F then G)
 LAUNCHES = {"flash_fwd_folded": 0, "flash_bwd_folded": 0,
             "flash_fwd_packed": 0, "flash_bwd_packed": 0}
+# the same for the forward variants (v5 per heads-per-block)
+VARIANT_LAUNCHES = {"flash_fwd_v2": 0, "flash_fwd_v3": 0, "flash_fwd_v4": 0,
+                    "flash_fwd_v5h2": 0, "flash_fwd_v5h4": 0,
+                    "flash_fwd_nomax": 0}
 
 _LANES = 128
 _NEG_INF = -1e30
 _HEAD_DIMS = (32, 64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_ERRORS = {-1: "head_dim not compiled (32, 64, 128 or 256)",
-           -3: "unsupported dtype"}
+_ERRORS = {-1: "head_dim not compiled (32, 64, 128 or 256; variants 64)",
+           -3: "unsupported dtype", -4: "variant not compiled",
+           -5: "b*h not divisible by the heads per block"}
 _IMPLS = ("auto", "kernel", "plain")
 _forced: Optional[str] = None     # set by `forced_impl`
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, VARIANT_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def _heads_per_pack(h: int, d: int):
@@ -208,6 +224,133 @@ def _masked(i0, bq, j0, bk, offset, dev):
     rows = torch.arange(i0, i0 + bq, device=dev)[:, None]
     cols = torch.arange(j0, j0 + bk, device=dev)[None, :]
     return cols > rows + offset
+
+
+# the forward variants: {name: (kernel code, heads per block allowed)}
+VARIANTS = {"v2": (0, (1,)), "v3": (1, (1,)), "v4": (2, (2,)),
+            "v5": (3, (2, 4)), "nomax": (4, (1,))}
+_LOG2E = 1.4426950408889634
+
+
+def _variant_heads(variant: str, n_heads: Optional[int]) -> int:
+    """Heads per block of a variant: v4 takes 2, v5 2 or 4 (default 2),
+    the others 1."""
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown variant {variant!r} (want one of "
+                         f"{', '.join(VARIANTS)})")
+    allowed = VARIANTS[variant][1]
+    n = allowed[0] if n_heads is None else n_heads
+    if n not in allowed:
+        raise ValueError(f"variant {variant} takes n_heads in {allowed}, "
+                         f"got {n_heads}")
+    return n
+
+
+def _score_scale(variant: str, d: int) -> float:
+    """The Python float the reference multiplies the fp32 scores by (JAX
+    and torch both take it as fp32); v5 folds log2(e) in for exp2."""
+    sm_scale = 1.0 / (d ** 0.5)
+    return sm_scale * _LOG2E if variant == "v5" else sm_scale
+
+
+def _variant_forward(q, k, v, *, variant, causal, block_q, block_k):
+    """A variant's arithmetic over folded (bh, s, d) operands, tile by
+    tile over block_q x block_k tiles as the reference's grid runs (a
+    ragged last tile where a block does not divide the length, as the
+    kernel's 64-row tiles): returns (out before its bf16 rounding, lse),
+    both fp32."""
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    bq, bk = min(block_q, sq), min(block_k, sk)
+    sumfold, base2 = variant in ("v3", "v5"), variant == "v5"
+    nomax = variant == "nomax"
+    exp = torch.exp2 if base2 else torch.exp
+    scale = _score_scale(variant, d)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    if sumfold:   # [v | 1]: column d of the P.V product is the row sum
+        vf = torch.cat([vf, torch.ones_like(vf[..., :1])], dim=-1)
+    offset = sk - sq if causal else 0
+    dev = q.device
+    out = torch.empty((bh, sq, d), dtype=torch.float32, device=dev)
+    lse = torch.empty((bh, sq), dtype=torch.float32, device=dev)
+    for i0 in range(0, sq, bq):
+        nq = min(bq, sq - i0)
+        m = torch.full((bh, nq), _NEG_INF, device=dev)
+        l = torch.zeros((bh, nq), device=dev)
+        acc = torch.zeros((bh, nq, vf.shape[-1]), device=dev)
+        for j0 in range(0, sk, bk):
+            if causal and i0 + nq - 1 + offset < j0:
+                continue      # wholly above the diagonal: skipped
+            nk = min(bk, sk - j0)
+            s = torch.einsum("bqd,bkd->bqk", qf[:, i0:i0 + nq],
+                             kf[:, j0:j0 + nk]) * scale
+            if causal:
+                s = s.masked_fill(_masked(i0, nq, j0, nk, offset, dev),
+                                  _NEG_INF)
+            if nomax:     # unguarded: a cost probe, overflows past ~88
+                p, alpha = exp(s), torch.ones_like(l)
+            else:
+                m_new = torch.maximum(m, s.amax(dim=-1))
+                p = exp(s - m_new[..., None])
+                alpha = exp(m - m_new)
+                m = m_new
+            pb = p.to(torch.bfloat16).float()
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bqk,bkd->bqd", pb, vf[:, j0:j0 + nk])
+            if not sumfold:
+                l = alpha * l + p.sum(dim=-1)
+        if sumfold:
+            l = acc[..., d]
+        l_safe = l.clamp_min(1e-30)
+        out[:, i0:i0 + nq] = acc[..., :d] / l_safe[..., None]
+        if nomax:
+            lse[:, i0:i0 + nq] = torch.log(l_safe)
+        elif base2:
+            lse[:, i0:i0 + nq] = (m + torch.log2(l_safe)) * (1.0 / _LOG2E)
+        else:
+            lse[:, i0:i0 + nq] = m + torch.log(l_safe)
+    return out, lse
+
+
+def flash_forward_variant_plain(q, k, v, *, variant: str,
+                                causal: bool = True,
+                                n_heads: Optional[int] = None,
+                                block_q: int = 512, block_k: int = 1024):
+    """The plain PyTorch version of a forward variant over folded (bh, s,
+    d) bf16 operands: (out bf16 (bh, s_q, d), lse fp32 (bh, s_q)). Heads
+    per block change only the kernel's grid, so v4 computes v2's function
+    and v5's heads do not enter here; v3 and v5 take l as the column d of
+    bf16(p).[v | 1] (a sum of rounded p), the others as the fp32 sum of
+    p; v5 works in base 2; nomax has no running max."""
+    _check_variant_operands(q, k, v, variant, n_heads, causal)
+    out, lse = _variant_forward(q, k, v, variant=variant, causal=causal,
+                                block_q=block_q, block_k=block_k)
+    return out.to(q.dtype), lse
+
+
+def _check_variant_operands(q, k, v, variant, n_heads, causal) -> int:
+    """Refuse what the variants do not take; returns the heads per
+    block."""
+    nh = _variant_heads(variant, n_heads)
+    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
+        raise ValueError("the variants take folded (b*h, s, d) operands")
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    for name, t in (("k", k), ("v", v)):
+        if tuple(t.shape) != (bh, sk, d):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, want "
+                             f"{(bh, sk, d)}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"{name} is {t.dtype}: the variants take bf16 "
+                             f"operands only (the reference's ablations)")
+    if bh % nh:
+        raise ValueError(f"variant {variant} runs {nh} heads per block: "
+                         f"b*h={bh} is not a multiple")
+    if causal and sq > sk:
+        raise ValueError(f"causal variants need seq_q <= seq_k (bottom-"
+                         f"right alignment); got {sq} > {sk}")
+    return nh
 
 
 # --------------------------------------------------------------- layouts
@@ -392,6 +535,31 @@ def flash_attention_qkv(qkv, n_heads: int, *, causal: bool = False,
     return out.view(b, s, n_heads, d)
 
 
+def flash_forward_variant(q, k, v, *, variant: str, causal: bool = True,
+                          n_heads: Optional[int] = None, block_q: int = 512,
+                          block_k: int = 1024, impl: str = "auto"):
+    """One forward variant of kernel E (the reference's ablations, row #12)
+    over folded (bh, s, d) bf16 operands: returns (out, lse). `variant` is
+    "v2", "v3", "v4", "v5" or "nomax"; `n_heads` is v5's heads per block
+    (2 or 4; v4 runs 2). No autograd: the ablations time the forward.
+    `block_q`/`block_k` tile the plain version only (the kernel's tiles
+    are 64 rows); "nomax" overflows once a score passes ~88 (a cost
+    probe)."""
+    nh = _check_variant_operands(q, k, v, variant, n_heads, causal)
+    if not _use_kernel(impl, q):
+        return flash_forward_variant_plain(
+            q, k, v, variant=variant, causal=causal, n_heads=n_heads,
+            block_q=block_q, block_k=block_k)
+    if variant == "v5":   # padded once, outside the kernel, as fwd_v5_call
+        pad = torch.zeros((*v.shape[:2], 64), dtype=v.dtype, device=v.device)
+        pad[..., 0] = 1.0
+        v = torch.cat([v, pad], dim=-1)
+    out, lse = _launch_variant(q, k, v, variant, nh, causal)
+    VARIANT_LAUNCHES[f"flash_fwd_{variant}"
+                     + (f"h{nh}" if variant == "v5" else "")] += 1
+    return out, lse
+
+
 # -------------------------------------------------------------- launches
 def _check_operands(q4, k4, v4):
     b, h, sq, d = q4.shape
@@ -467,6 +635,31 @@ def _launch_bwd(q4, k4, v4, o4, do4, lse, glse, dq4, dk4, dv4, causal):
     _raise_on(rc, "flash_attention_bwd", q4, sk)
 
 
+def _launch_variant(q, k, v, variant, n_heads, causal):
+    """A forward variant's kernel on (bh, s, d) operands (v5: v padded to
+    d+64); returns (out (bh, s_q, d), lse (bh, s_q) fp32)."""
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    if d != 64:
+        raise ValueError(f"the variant kernels take head_dim 64; got {d}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device or t.stride(-1) != 1:
+            raise ValueError(f"{name} must be on {q.device} with a unit "
+                             f"head_dim stride")
+    out = torch.empty_like(q, memory_format=torch.contiguous_format)
+    lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+    vals = [s for t in (q, k, v, out) for s in t.stride()[:2]]
+    lib = _library()
+    with torch.cuda.device(q.device):
+        rc = lib.flash_fwd_variant(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), (ctypes.c_longlong * 8)(*vals), bh, sq, sk, d,
+            int(causal), VARIANTS[variant][0], n_heads,
+            _score_scale(variant, d), _stream(q))
+    _raise_on(rc, f"flash_fwd_variant[{variant}]", q.unsqueeze(1), sk)
+    return out, lse
+
+
 def _raise_on(rc, name, q4, sk):
     if rc != 0:
         b, h, sq, d = q4.shape
@@ -494,5 +687,8 @@ def _library() -> ctypes.CDLL:
         lib.flash_attention_bwd.argtypes = [
             P, P, P, P, P, P, P, P, P, P, S, I, I, I, I, I, I, F, F, I, P]
         lib.flash_attention_bwd.restype = I
+        lib.flash_fwd_variant.argtypes = [
+            P, P, P, P, P, S, I, I, I, I, I, I, I, F, P]
+        lib.flash_fwd_variant.restype = I
         lib._signatures_set = True
     return lib

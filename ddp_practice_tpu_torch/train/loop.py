@@ -33,6 +33,14 @@ raise (ROADMAP A1). `num_experts` and `moe_router` pass to the MoE
 families as the reference's loop passes them (expert choice sets the
 capacity factor to 1.0 unless given), and the summary gains the last
 step's `moe_load_max`, `moe_load_min` and `moe_drop_rate`.
+
+`profile_dir` traces the reference's steady-state window of epoch 0
+(steps min(10, n - 10) to 10 past it, n capped by `max_steps_per_epoch`)
+into one Kineto trace (`utils/profiling.py`; read it with
+`python -m ddp_practice_tpu_torch.utils.xprof DIR STEPS`): every step runs
+under a `train#<step>` annotation and eval under an "eval" one, the trace
+stops after a `torch.cuda.synchronize()` at the window's end, and a short
+or failing epoch closes it on the way out.
 """
 
 from __future__ import annotations
@@ -68,6 +76,7 @@ from ddp_practice_tpu_torch.train.steps import (
     make_lm_train_step,
     make_train_step,
 )
+from ddp_practice_tpu_torch.utils import profiling
 from ddp_practice_tpu_torch.utils.timing import Timer
 
 
@@ -310,27 +319,68 @@ class Trainer:
 
     # ------------------------------------------------------------------ #
 
+    def _profile_window(self, epoch: int):
+        """The reference's traced window: a steady-state stretch of epoch
+        0, (start, stop) in steps, shrunk to fit a short epoch; None when
+        there is nothing to trace."""
+        cfg = self.config
+        if not cfg.profile_dir or epoch != 0:
+            return None
+        n = self.train_loader.steps_per_epoch
+        if cfg.max_steps_per_epoch:
+            n = min(n, cfg.max_steps_per_epoch)
+        start = min(10, max(0, n - 10))
+        stop = min(start + 10, n)
+        if stop <= start:
+            log.warning("profile_dir set but the epoch has %d steps: no "
+                        "trace", n)
+            return None
+        return start, stop
+
     def train_epoch(self, epoch: int) -> dict:
         cfg = self.config
         self.train_loader.set_epoch(epoch)
         timer = Timer()
         steps_done = 0
         final = None
-        for batch in self._device_batches(self.train_loader):
-            if cfg.max_steps_per_epoch and steps_done >= cfg.max_steps_per_epoch:
-                break
-            self.state, metrics = self.train_step(self.state, batch)
-            prev = steps_done
-            steps_done += 1
-            final = metrics
-            if cfg.log_every_steps and (
-                    prev // cfg.log_every_steps
-                    != steps_done // cfg.log_every_steps):
-                m = {k: float(v) for k, v in metrics.items()}  # readback
-                info0("epoch %d step %d loss %.4f acc %.3f", epoch,
-                      steps_done, m["loss"], m["accuracy"])
-                self._write_metrics({"kind": "train", "epoch": epoch,
-                                     "step": self.state.step, **m})
+        # host-side step base for the trace's step annotations
+        step_base = self.state.step
+        window = self._profile_window(epoch)
+        tracing = False
+        try:
+            for batch in self._device_batches(self.train_loader):
+                if (cfg.max_steps_per_epoch
+                        and steps_done >= cfg.max_steps_per_epoch):
+                    break
+                if tracing and steps_done >= window[1]:
+                    if self.device.type == "cuda":
+                        torch.cuda.synchronize(self.device)
+                    tracing = False
+                    info0("profile: wrote %s (steps %d-%d)",
+                          profiling.stop_capture(), window[0], window[1] - 1)
+                    window = None
+                if window and not tracing and steps_done >= window[0]:
+                    tracing = profiling.start_capture(cfg.profile_dir)
+                with profiling.step_annotation(step_base + steps_done):
+                    self.state, metrics = self.train_step(self.state, batch)
+                prev = steps_done
+                steps_done += 1
+                final = metrics
+                if cfg.log_every_steps and (
+                        prev // cfg.log_every_steps
+                        != steps_done // cfg.log_every_steps):
+                    m = {k: float(v) for k, v in metrics.items()}  # readback
+                    info0("epoch %d step %d loss %.4f acc %.3f", epoch,
+                          steps_done, m["loss"], m["accuracy"])
+                    self._write_metrics({"kind": "train", "epoch": epoch,
+                                         "step": self.state.step, **m})
+        finally:
+            if tracing:   # a short epoch or a failing step: close the trace
+                failing = sys.exc_info()[0] is not None
+                if not failing and self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                info0("profile: wrote %s",
+                      profiling.stop_capture(swallow=failing))
         if final is not None:
             float(final["loss"])     # fence: the epoch's steps are done
             self._last_moe = {k: float(v) for k, v in final.items()
@@ -346,15 +396,15 @@ class Trainer:
         the sums. Image task: exact under wrap-padding (weighted counts).
         LM: next-token accuracy, and perplexity (exp of the mean token
         NLL, on `eval_perplexity`)."""
-        if self.task == "image":
-            sums = torch.zeros(2, device=self.device)
+        sums = torch.zeros(2 if self.task == "image" else 3,
+                           device=self.device)
+        # an annotation: eval apart from train on the device timeline
+        with profiling.profile_region("eval"):
             for batch in self._device_batches(self.eval_loader):
                 sums += torch.stack(self.eval_step(self.state, batch))
+        if self.task == "image":
             correct, total = dist.all_reduce_sum(sums).tolist()
             return correct / max(total, 1.0)
-        sums = torch.zeros(3, device=self.device)
-        for batch in self._device_batches(self.eval_loader):
-            sums += torch.stack(self.eval_step(self.state, batch))
         correct, total, nll = dist.all_reduce_sum(sums).tolist()
         t = max(total, 1.0)
         self.eval_perplexity = math.exp(min(nll / t, 30.0))

@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card: decode attention (A, B: flat cache; C, D: paged pool) and flash
-attention (E forward, F and G backward), the fused encoder layer (H
+attention (E forward, F and G backward, and the forward variants of E the
+reference's ablations time, with E on (b, s, h, d) strides), the fused
+encoder layer (H
 forward, I backward) and the grouped matmul (J gmm in both rhs layouts, K
 tgmm; the sorted MoE path through them). Every test
 here is marked `cuda` and skips without a card; run them on a machine
@@ -350,6 +352,84 @@ def test_flash_wrapper_refusals(card):
     with pytest.raises(ValueError, match="dtype"):
         x = torch.zeros((2, 32, 64), device="cuda", dtype=torch.float16)
         fa.flash_attention_with_lse(x, x, x)
+
+
+# ------------------------------------- kernel E's variants (row #12)
+VARIANT_CASES = [(v, n, c) for v, n in (("v2", 1), ("v3", 1), ("v4", 2),
+                                        ("v5", 2), ("v5", 4))
+                 for c in (True, False)] + [("nomax", 1, True)]
+
+
+@pytest.mark.parametrize("shape", [(8, 512, 512), (96, 2048, 2048),
+                                   (8, 200, 328)])
+@pytest.mark.parametrize("variant,n_heads,causal", VARIANT_CASES)
+def test_flash_variant_kernels_match_plain(card, variant, n_heads, causal,
+                                           shape):
+    """Each variant against its plain version on the kernel's own 64 x 64
+    tiles (so the same running max): out at the bf16 limits above; lse
+    within 1e-4 where l sums fp32 p, within 2^-8 where it sums the rounded
+    p (v3, v5: scores that differ in their last fp32 bits can round a p
+    the other way, which moves l by at most 2^-8 of itself), and there
+    the mean lse error stays under a tenth of the mean distance from plain
+    v2 (which sums fp32 p): the kernel computes the sum-fold, not v2's
+    sum; (8, 200, 328) has ragged tiles and, causal, a bottom-right
+    offset."""
+    bh, sq, sk = shape
+    q = _randn(bh, sq, 64, dtype=torch.bfloat16, seed=sq)
+    k = _randn(bh, sk, 64, dtype=torch.bfloat16, seed=sk + 1)
+    v = _randn(bh, sk, 64, dtype=torch.bfloat16, seed=sk + 2)
+    kw = dict(variant=variant, n_heads=n_heads, causal=causal)
+    row = f"flash_fwd_{variant}" + (f"h{n_heads}" if variant == "v5" else "")
+    before = fa.VARIANT_LAUNCHES[row]
+    out, lse = fa.flash_forward_variant(q, k, v, impl="kernel", **kw)
+    torch.cuda.synchronize()
+    assert fa.VARIANT_LAUNCHES[row] == before + 1
+    want, want_lse = fa.flash_forward_variant_plain(q, k, v, block_q=64,
+                                                    block_k=64, **kw)
+    a, b = out.float(), want.float()
+    torch.testing.assert_close(a, b, atol=TOL[torch.bfloat16][0],
+                               rtol=TOL[torch.bfloat16][1])
+    assert float((a - b).norm() / b.norm()) <= FLASH_REL[torch.bfloat16]
+    lse_tol = 2.0 ** -8 if variant in ("v3", "v5") else 1e-4
+    torch.testing.assert_close(lse, want_lse, atol=lse_tol, rtol=0)
+    if variant in ("v3", "v5"):
+        _, v2_lse = fa.flash_forward_variant_plain(
+            q, k, v, variant="v2", causal=causal, block_q=64, block_k=64)
+        gap = float((want_lse - v2_lse).abs().mean())
+        assert float((lse - want_lse).abs().mean()) <= 0.1 * gap
+
+
+@pytest.mark.parametrize("b,s,h", [(2, 200, 4), (8, 2048, 12)])
+def test_fwd4d_matches_fold(card, b, s, h):
+    """fwd4d runs E's packed route on the (b, s, h, d) strides: against
+    E's plain version on the same view at the bf16 limits above, and
+    against E on a folded copy (the same kernel and tiles, so the same
+    bits)."""
+    from ddp_practice_tpu_torch.experiments import flash_4d
+
+    qf, kf, vf = (_randn(b, s, h * 64, dtype=torch.bfloat16, seed=i)
+                  for i in range(3))
+    before = fa.LAUNCHES["flash_fwd_packed"]
+    got = flash_4d.path_4d(qf, kf, vf, heads=h)
+    want = flash_4d.path_fold(qf, kf, vf, heads=h)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_fwd_packed"] == before + 1
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    q, k, v = (x.view(b, s, h, 64) for x in (qf, kf, vf))
+    a = flash_4d.fwd4d(q, k, v, impl="kernel").float()
+    p = flash_4d.fwd4d(q, k, v, impl="plain").float()
+    torch.testing.assert_close(a, p, atol=TOL[torch.bfloat16][0],
+                               rtol=TOL[torch.bfloat16][1])
+    assert float((a - p).norm() / p.norm()) <= FLASH_REL[torch.bfloat16]
+
+
+def test_flash_variant_refusals(card):
+    x = torch.zeros((2, 64, 32), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim 64"):
+        fa.flash_forward_variant(x, x, x, variant="v2", impl="kernel")
+    y = torch.zeros((2, 64, 64), device="cuda")
+    with pytest.raises(ValueError, match="bf16 operands only"):
+        fa.flash_forward_variant(y, y, y, variant="v3", impl="kernel")
 
 
 # ------------------------------------------------- kernels H and I

@@ -6,7 +6,7 @@
 - The whole package and chip_smoke import in a fresh interpreter where
   jax, flax, optax and the JAX package cannot be imported.
 - The CUDA sources exist, hold their kernels' C entries (A-D in
-  decode_attention.cu, E-G in flash_attention.cu, H and I in
+  decode_attention.cu, E-G and E's variants in flash_attention.cu, H and I in
   fused_encoder.cu, J and K in grouped_matmul.cu) and name sm_90a, and
   ops/cuda_build.py compiles them for sm_90a; the fused and grouped-matmul
   sources call no library product, and their wrappers' launch paths hold
@@ -14,8 +14,8 @@
 - The host-pure modules copied from the JAX package (the paged pool's
   allocator and radix cache, the drafter) import only typing, torch and
   the port; the training slice's data, train, parallel and utils modules
-  (and config, cli, losses) only the standard library, numpy, torch and
-  the port.
+  (and config, cli, losses, flash attention and the flash experiments)
+  only the standard library, numpy, torch and the port.
 - Entry points asked for the card raise without one; chip_smoke exits
   non-zero with no result line, both without a card and when it stands
   alone outside the repository.
@@ -113,6 +113,25 @@ def test_flash_kernels_cover_their_rows():
         assert reference in source, reference
 
 
+def test_flash_variants_cover_row_12():
+    """E's ablations: one C entry over the compile-time variants, each
+    naming the reference kernel it replaces; E's own kernel unchanged."""
+    source = (PORT / "csrc" / "flash_attention.cu").read_text()
+    assert re.search(r'^extern "C" int flash_fwd_variant\(', source, re.M)
+    assert re.search(r"\bflash_fwd_variant_kernel\(const VarParams p\)",
+                     source)
+    assert re.search(r"\bflash_fwd_tc_kernel\(const Params p\)", source)
+    for reference in ("_fwd_v2", "_fwd_v3", "_fwd_v4", "_fwd_v5",
+                      "_fwd_nomax"):
+        assert reference in source, reference
+    from ddp_practice_tpu_torch.ops import flash_attention as fa
+
+    assert set(fa.VARIANTS) == {"v2", "v3", "v4", "v5", "nomax"}
+    assert set(fa.VARIANT_LAUNCHES) == {
+        "flash_fwd_v2", "flash_fwd_v3", "flash_fwd_v4", "flash_fwd_v5h2",
+        "flash_fwd_v5h4", "flash_fwd_nomax"}
+
+
 def test_fused_kernel_source_and_sm90a_build():
     from ddp_practice_tpu_torch.ops import cuda_build
 
@@ -194,10 +213,14 @@ TRAIN_SLICE = ["data/sharding.py", "data/lm_corpus.py", "data/datasets.py",
                "train/steps.py", "train/loop.py", "parallel/dist.py",
                "utils/flops.py", "utils/timing.py", "ops/losses.py",
                "ops/moe.py", "ops/grouped_matmul.py", "models/vit_moe.py",
-               "config.py", "cli.py"]
+               "config.py", "cli.py", "utils/profiling.py", "utils/xprof.py",
+               "ops/flash_attention.py", "experiments/flash_variants.py",
+               "experiments/flash_ablate.py", "experiments/flash_4d.py",
+               "experiments/flash_profile.py", "experiments/flash_time.py"]
 STDLIB = ("__future__", "typing", "argparse", "collections", "contextlib",
           "ctypes", "dataclasses", "gzip", "json", "logging", "math", "os",
-          "pickle", "struct", "sys", "time", "warnings")
+          "pathlib", "pickle", "shutil", "socket", "struct", "subprocess",
+          "sys", "tempfile", "threading", "time", "warnings")
 
 
 @pytest.mark.parametrize("module", TRAIN_SLICE)
