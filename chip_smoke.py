@@ -8,7 +8,9 @@ Phases, each of which raises on failure (nothing is caught and passed):
 
 1. setup: print the card's name and power limit (nvidia-smi), build the
    CUDA kernels from csrc/ with nvcc (all four sources at once) and print
-   ptxas's register and spill lines;
+   ptxas's register and spill lines; then each flash backward kernel's
+   ptxas lines by name, and per head_dim the bf16 G and F blocks' shared
+   memory, threads and blocks an SM (the runtime's occupancy calculator);
 2. kernels: hold each kernel against its plain PyTorch version at lm_base
    shapes (h=12, hd=64) and print its device time (CUDA events around one
    call queued behind a spin kernel, L2 flushed before each, median of
@@ -52,7 +54,8 @@ Phases, each of which raises on failure (nothing is caught and passed):
    at h=24 d=32 (the folded leg's shape) and in fp32 at s=512, with
    kernel, plain and SDPA (F.scaled_dot_product_attention, forward and
    its autograd backward; the port never calls it) device times and the
-   bound, forward and backward apart;
+   bound, forward and backward apart; the backward also as its two
+   launches timed alone, G (dq and the delta scratch) and F (dk, dv);
 8b. flash variants (row #12, the reference's ablations of E): v2 (causal
    and not), v3, v4, v5 at 2 and 4 heads per block and nomax against their
    plain versions at lm_base (b*h = 96, s = 2048, d = 64, bf16) on the
@@ -725,6 +728,13 @@ def check_flash(torch, F, fa, *, label, route, b, h, sq, sk, d, dtype,
                     flush)
     ms_b = _time_ms(torch, lambda: fa._launch_bwd(
         q4, k4, v4, out4, do4, lse, None, dq4, dk4, dv4, causal), flush)
+    # G and F apart: each C entry launched alone (F reads the delta and
+    # qs G wrote in its warm-up call)
+    args = (q4, k4, v4, out4, do4, lse, None, torch.empty_like(lse),
+            torch.empty_like(q4, memory_format=torch.contiguous_format),
+            dq4, dk4, dv4, causal)
+    ms_g = _time_ms(torch, lambda: fa._launch_dq(*args), flush)
+    ms_fk = _time_ms(torch, lambda: fa._launch_dkdv(*args), flush)
     plain_f = _time_ms(torch, lambda: fa.flash_attention_plain(
         q4, k4, v4, causal=causal), flush, runs=5)
     plain_b = _time_ms(torch, lambda: fa.flash_attention_plain_bwd(
@@ -757,7 +767,28 @@ def check_flash(torch, F, fa, *, label, route, b, h, sq, sk, d, dtype,
         log(f"  {name:>16} {label:<34} {dtype:>8}: err {err:.2e}  "
             f"kernel {ms:8.3f} ms  plain {plain:8.3f} ms  sdpa {lib_txt} ms"
             f"  bound {bound:7.3f} ms ({by})")
+    log(f"  {'G, F apart':>16} {label:<34} {dtype:>8}: G (dq, delta) "
+        f"{ms_g:8.3f} ms  F (dk, dv) {ms_fk:8.3f} ms  G+F {ms_g + ms_fk:8.3f}"
+        f" ms  (one backward launch {ms_b:.3f} ms)")
     return rows
+
+
+def flash_backward_resources(cuda_build, fa) -> None:
+    """Each instantiated backward kernel's ptxas lines (registers, spill
+    bytes), then per head_dim the bf16 G and F blocks' dynamic shared
+    memory, threads and blocks an SM (the runtime's occupancy
+    calculator)."""
+    found = cuda_build.kernel_resources(
+        cuda_build.ptxas_info.get("flash_attention", ""))
+    for name, lines in found.items():
+        if name.startswith("flash_bwd_"):
+            log(f"  ptxas {name}: " + "; ".join(
+                line.split(":", 1)[-1].strip() for line in lines))
+    for d in (32, 64, 128, 256):
+        occ = fa.backward_occupancy(d)
+        log(f"  flash backward bf16 d={d}: " + "; ".join(
+            f"{k} {v['smem_bytes']} B shared x {v['threads']} threads, "
+            f"{v['blocks_per_sm']} blocks/SM" for k, v in occ.items()))
 
 
 def flash_kernel_phase(torch, F, fa, flush) -> dict:
@@ -2291,6 +2322,7 @@ def main() -> int:
         for line in info.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas[{name}]: {line.strip()}")
+    flash_backward_resources(cuda_build, fa)
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     log(f"kernel phase, flat cache (b, L, cur, dtype; device times are "

@@ -52,25 +52,29 @@
 // worth of the card's 3.35 TB/s next to ~52 GFLOP forward. The peak is the
 // tensor cores' 989 TFLOP/s (bf16); fp32 runs outside them at 67 TFLOP/s.
 //
-// Design (a simple first kernel). A block of 256 threads owns one
-// (batch*head, 64-row tile) and streams the other operand's tiles through
-// shared memory; each thread owns a 4x4 patch of the score tile (16 row
-// groups x 16 column groups, so a row's reductions stay inside one half
-// warp), where the mask, the online softmax and the rounding happen. E
-// skips key tiles wholly above the diagonal; F (one block per key tile)
-// starts its query loop at the first query tile that sees the key tile; G
-// (one block per query tile) stops at its last visible key tile. F and G
-// each recompute delta per query tile from do and o, as _dq_kernel_packed
-// does; neither reads anything back to the host.
+// Design of E and of the fp32 F and G (a simple first kernel). A block of
+// 256 threads owns one (batch*head, 64-row tile) and streams the other
+// operand's tiles through shared memory; each thread owns a 4x4 patch of
+// the score tile (16 row groups x 16 column groups, so a row's reductions
+// stay inside one half warp), where the mask, the online softmax and the
+// rounding happen. E skips key tiles wholly above the diagonal; F (one
+// block per key tile) starts its query loop at the first query tile that
+// sees the key tile; G (one block per query tile) stops at its last
+// visible key tile. The fp32 F and G each recompute delta per query tile
+// from do and o, as _dq_kernel_packed does; nothing is read back to the
+// host.
 //   fp32: the products are FMAs on the CUDA cores (TF32 would break the
 //     reference's fp32 tolerances), over tiles staged as fp32 with rows
 //     padded by one to keep the banks apart; each thread keeps its rows
 //     of the output accumulator in registers.
-//   bf16: the products run on the tensor cores through WMMA (mma.sync
+//   bf16 E: the products run on the tensor cores through WMMA (mma.sync
 //     16x16x16, fp32 accumulation) over bf16 tiles; score tiles pass
 //     through shared memory as fp32 for the threads' patches (see the
-//     tensor-core section below). No wgmma, TMA or warp specialisation
-//     yet: the loads are synchronous and the warps do everything.
+//     tensor-core section below), and the loads are synchronous.
+//   bf16 F and G: redesigned for Hopper (their own section below): G
+//     first, then F; scores and accumulators in registers, mma.sync
+//     m16n8k16 fed by ldmatrix, a two-stage cp.async ring, delta computed
+//     once per query row by G.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -104,6 +108,9 @@ struct Params {
   void* dv;
   float* lse;             // (b, h, s_q) fp32: forward writes, backward reads
   const float* glse;      // (b, h, s_q) fp32 lse cotangent, or nullptr
+  float* delta;           // (b, h, s_q) fp32: bf16 G writes, bf16 F reads
+  void* qs;               // (b, h, s_q, d) contiguous round_T(q * scale):
+                          // bf16 G writes, bf16 F reads
   long long st[kOperands][3];  // element strides (batch, head, position)
   int h, sq, sk, causal, offset;
   float q_scale;          // 1/sqrt(d) rounded to the operands' dtype
@@ -573,7 +580,8 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ------------------------------------------------ tensor-core variants
-// The bf16 kernels E, F and G: the same arithmetic and rounding points as
+// The bf16 kernel E (F and G have their own section below; the variants
+// reuse these helpers): the same arithmetic and rounding points as
 // the kernels above, with every product on the tensor cores (WMMA,
 // mma.sync 16x16x16 bf16 tiles, fp32 accumulation; products of bf16
 // values are exact in fp32, so only the summation order differs). Tiles
@@ -581,9 +589,7 @@ __global__ void __launch_bounds__(kThreads)
 // go through shared memory as fp32, where the threads apply the mask, the
 // online softmax and the rounding with the 16 x 16 thread patches above.
 // Eight warps split each product's 16 x 16 output tiles. E keeps its
-// output accumulator in shared memory (it is rescaled per key tile); F's
-// dK/dV and G's dQ stay in WMMA accumulator fragments across the loop and
-// leave through shared memory at the end.
+// output accumulator in shared memory (it is rescaled per key tile).
 using bf16 = __nv_bfloat16;
 namespace wmma = nvcuda::wmma;
 using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16,
@@ -601,10 +607,6 @@ template <int D> struct TcTile {
   static constexpr int LDF = ROWS + 4;    // fp32 (ROWS, ROWS) score tiles
   static constexpr int LDO = D + 4;       // fp32 (ROWS, D) tiles
   static constexpr int RT = ROWS / 16, CT = ROWS / 16, DT = D / 16;
-  // backward blocks per SM: at d <= 64 two fit in shared memory, and the
-  // kernels are held to 128 registers so two fit in the register file
-  // too (F alone would take 168 at d=64, one block per SM)
-  static constexpr int BWD_BLOCKS = D <= 64 ? 2 : 1;
   static constexpr int KT = D / 16;       // 16-wide steps over head_dim
   static constexpr int ST = ROWS / 16;    // 16-wide steps over a tile
   // output 16 x 16 tiles per warp: of a (ROWS, ROWS) and a (ROWS, D)
@@ -615,8 +617,6 @@ template <int D> struct TcTile {
   static constexpr size_t FB = size_t(ROWS) * LDF * 4;
   static constexpr size_t OB = size_t(ROWS) * LDO * 4;
   static constexpr size_t kFwdSmem = 3 * HB + FB + PB + OB;
-  static constexpr size_t kBwdSmem = 4 * HB + 2 * FB + 2 * PB + 2 * ROWS * 4;
-  static_assert(4 * HB >= 2 * OB, "epilogue staging fits the tiles");
 };
 
 // Stage rows [row0, row0 + n) of one head into a (ROWS, LDH) bf16 tile,
@@ -734,18 +734,6 @@ __device__ __forceinline__ void load_acc(FragC* acc, const float* src) {
   }
 }
 
-// Write a (ROWS, LDO) fp32 tile's first n rows, times `scale`, as bf16.
-template <int D>
-__device__ __forceinline__ void write_rows(bf16* dst, long long ss,
-                                           const float* src, int row0, int n,
-                                           float scale) {
-  using TL = TcTile<D>;
-  for (int e = threadIdx.x; e < n * D; e += kThreads) {
-    const int r = e / D, c = e % D;
-    dst[(row0 + r) * ss + c] = __float2bfloat16_rn(src[r * TL::LDO + c] * scale);
-  }
-}
-
 // ---------------------------------------------------- kernel E, bf16
 template <int D>
 __global__ void __launch_bounds__(kThreads)
@@ -838,185 +826,584 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Stage one query tile for F and G (scaled queries and do as bf16 tiles,
-// lse) and its delta = rowsum(do * o) - g_lse. Ends synchronised.
-template <int D>
-__device__ __forceinline__ void stage_queries_tc(const Params& p, int b,
-                                                 int hh, int q0, int nq,
-                                                 bf16* sQ, bf16* sdO,
-                                                 float* sLse, float* sDelta) {
-  using TL = TcTile<D>;
-  constexpr int ROWS = TL::ROWS, RT = TL::RT;
-  const int tid = threadIdx.x, rg = tid >> 4, cg = tid & 15;
-  const long long stat = static_cast<long long>(b * p.h + hh) * p.sq + q0;
-  load_tile_bf16<D, ROWS>(sQ, head_ptr<bf16>(p.q, p.st[kQ], b, hh),
-                          p.st[kQ][2], q0, nq, p.q_scale);
-  load_tile_bf16<D, ROWS>(sdO, head_ptr<bf16>(p.dout, p.st[kDO], b, hh),
-                          p.st[kDO][2], q0, nq, 0.f);
-  for (int r = tid; r < ROWS; r += kThreads)
-    sLse[r] = r < nq ? p.lse[stat + r] : 0.f;
-  __syncthreads();
-  const bf16* op = head_ptr<bf16>(p.o, p.st[kO], b, hh);
-#pragma unroll
-  for (int i = 0; i < RT; ++i) {
-    const int r = rg * RT + i;
-    float acc = 0.f;
-    if (r < nq) {
-      const bf16* orow = op + (q0 + r) * p.st[kO][2];
-      for (int c = cg; c < D; c += 16)
-        acc = fmaf(__bfloat162float(sdO[r * TL::LDH + c]),
-                   __bfloat162float(orow[c]), acc);
-    }
-    acc = row_sum(acc);
-    if (cg == 0) {
-      const float g = (p.glse != nullptr && r < nq) ? p.glse[stat + r] : 0.f;
-      sDelta[r] = acc - g;
-    }
-  }
-  __syncthreads();
+// ------------------------------------------ kernels F and G, bf16 (Hopper)
+// Replace the reference's _dkdv_kernel_packed / _dkdv_kernel (F: dK, dV)
+// and _dq_kernel_packed / _dq_kernel (G: dQ) of
+// ddp_practice_tpu/ops/flash_attention.py for bf16 operands; the
+// arithmetic and rounding points are the header's.
+// Bound: operations. The backward needs 10*b*h*pairs*d flops (pairs: the
+// visible (query, key) pairs; s_q*s_k, causal about half) over the tensor
+// cores' 989.4 TFLOP/s: 0.130 ms at the lm_base shape, whose ~25 MB of
+// operands and results would take 0.008 ms at 3.35 TB/s. Atomic-free, F
+// and G recompute s and dp each, so they execute 14 of those 10 flops.
+// Design:
+//   - G runs first. A block owns 64 queries (4 warps x 16 rows) and walks
+//     the visible key tiles; F runs next, a block owning a key tile (64
+//     rows; 32 at d=256) and walking the query tiles that see it. Every
+//     sum has one owner and a fixed order: no atomics, the same bits on
+//     every run.
+//   - delta = rowsum(do * o) - g_lse is computed once per query row, by
+//     the G block that stages the row; G writes it to a (b*h, s_q) fp32
+//     scratch that F, launched after it on the same stream, streams
+//     beside lse. The same G block rounds its queries to
+//     qs = round_bf16(q * scale) once and writes them to a (b*h, s_q, d)
+//     scratch that F streams in place of q, so no F block rescales a
+//     query tile.
+//   - Scores stay in registers. Each warp's products run on mma.sync
+//     m16n8k16 (bf16 in, fp32 accumulators), fed by ldmatrix (.trans for
+//     the operands whose rows are the contraction): F computes
+//     s^T = K.qs^T and dp^T = V.do^T into fp32 fragments, turns them into
+//     p^T and ds^T in place, and packs them as bf16 straight into the
+//     A operand of dV += p^T.do and dK += ds^T.qs (an m16n8 accumulator
+//     pair is an m16k16 A fragment); G does the same for s, dp, ds and
+//     dQ += ds.k. dK, dV and dQ stay in registers across the whole loop;
+//     lse and delta come from per-tile vectors (F) or per-row registers
+//     (G). At d=256 F's warps split dK and dV by columns in pairs (each
+//     warp of a pair recomputes its rows' s and dp), so no thread holds
+//     more than 128 accumulators; F streams 32 queries a tile at d >= 128
+//     and G 32 keys, for the same reason. The blocks an SM each kernel is
+//     compiled for (BwdTile) come from the card's occupancy and spill
+//     readings.
+//   - The streamed operands (F: qs, do, lse, delta; G: k, v) come through
+//     a ring of two shared-memory stages filled by cp.async: tile i+1's
+//     copy is in flight while tile i's products run, and one barrier a
+//     tile separates the two. Rows past the end are zero-filled
+//     (src-size 0). F's K, V and G's q, do are loaded once; each G thread
+//     rounds the query chunks it copied in place once they land, before
+//     the barrier that publishes them. An operand whose head base or row
+//     stride is not 16-byte aligned is staged with plain loads at the same
+//     point of the schedule (a layout branch).
+//   - Tiles sit in shared memory as bf16 rows padded by 8 elements, so
+//     the eight 16-byte rows an ldmatrix reads fall in distinct banks.
+//   - p = 2^(s log2(e) - lse log2(e)) on the special-function unit
+//     (ex2.approx, about 2 ulp of fp32). Tiles wholly inside the visible
+//     triangle run a copy of the elementwise loop without the mask.
+//   - dK, dV and dQ leave through shared memory (bf16) as 16-byte row
+//     chunks where the output's base and row stride allow it, which
+//     includes the windows of the fused (b, s, 3*h*d) gradient.
+//   - mma.sync and not wgmma: mma.sync's fragments are a fixed per-warp
+//     register layout, so the score fragments become the next product's
+//     A operand with no shared-memory layout in between, and every
+//     operand tile is a plain padded row-major tile. wgmma (64-row
+//     warpgroup products, B through swizzled shared-memory descriptors)
+//     keeps the same register reuse and is the next step.
+
+// PTX wrappers (sm_80 instructions, present on sm_90a)
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// 16 bytes global -> shared, zero-filled when !full
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(full ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// this thread's copies have landed
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+// four 8x8 b16 matrices; lanes 8i..8i+7 give matrix i's row addresses
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+// c (16x8 fp32) += a (16x16 bf16, row) . b (16x8 bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// 2^x, ~2 ulp; results below 2^-126 flush to zero
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+// end of the PTX wrappers
+
+// two floats as one bf16x2 register, lo in the low half (round to nearest)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// ---------------------------------------------------- kernel F, bf16
-template <int D>
-__global__ void __launch_bounds__(kThreads, TcTile<D>::BWD_BLOCKS)
-    flash_bwd_dkdv_tc_kernel(const Params p) {
-  using TL = TcTile<D>;
-  constexpr int ROWS = TL::ROWS, RT = TL::RT, CT = TL::CT;
-  extern __shared__ float smem[];
-  char* base = reinterpret_cast<char*>(smem);
-  bf16* sK = reinterpret_cast<bf16*>(base);
-  bf16* sV = reinterpret_cast<bf16*>(base + TL::HB);
-  bf16* sQ = reinterpret_cast<bf16*>(base + 2 * TL::HB);
-  bf16* sdO = reinterpret_cast<bf16*>(base + 3 * TL::HB);
-  float* sS = reinterpret_cast<float*>(base + 4 * TL::HB);        // s^T
-  float* sDP = reinterpret_cast<float*>(base + 4 * TL::HB + TL::FB);
-  bf16* sP = reinterpret_cast<bf16*>(base + 4 * TL::HB + 2 * TL::FB);
-  bf16* sdS = reinterpret_cast<bf16*>(base + 4 * TL::HB + 2 * TL::FB +
-                                      TL::PB);
-  float* sLse = reinterpret_cast<float*>(base + 4 * TL::HB + 2 * TL::FB +
-                                         2 * TL::PB);
-  float* sDelta = sLse + ROWS;
+template <int D> struct BwdTile {
+  static constexpr int WARPS = 4, THREADS = 32 * WARPS;
+  static constexpr int LD = D + 8;        // padded bf16 row
+  static constexpr int STAGES = 2;        // the copy ring
+  // F: warp w owns key rows 16 (w / F_SPLIT) and dK/dV columns
+  // F_DC (w % F_SPLIT) of the block's tile
+  static constexpr int F_SPLIT = D == 256 ? 2 : 1;
+  static constexpr int F_DC = D / F_SPLIT;
+  static constexpr int F_KEYS = 16 * WARPS / F_SPLIT;
+  static constexpr int F_QUERIES = D >= 128 ? 32 : 64;
+  // G: warp w owns query rows 16 w
+  static constexpr int G_QUERIES = 16 * WARPS;
+  static constexpr int G_KEYS = D >= 128 ? 32 : 64;
+  // blocks an SM the kernels are compiled for (a register cap of 65536 /
+  // (128 x blocks)): F 4 / 3 / 2 at d = 32 / 64 / larger, G 4 at d <= 64.
+  // Unbounded, F took 192 and 233 registers at d = 32 and 64 and G
+  // 164-166 (two and three blocks an SM); bounded, F takes 128 and 168
+  // with a few dozen bytes spilled and G 128 with none, and both run
+  // faster (experiments/flash_bwd_ablate.py)
+  static constexpr int F_BLOCKS = D == 32 ? 4 : D == 64 ? 3 : 2;
+  static constexpr int G_BLOCKS = D <= 64 ? 4 : 1;
+  static constexpr size_t F_KV = size_t(F_KEYS) * LD * 2;     // one tile
+  static constexpr size_t F_QT = size_t(F_QUERIES) * LD * 2;
+  static constexpr size_t F_STAGE = 2 * F_QT + 2 * F_QUERIES * 4;
+  static constexpr size_t kFSmem = 2 * F_KV + STAGES * F_STAGE;
+  static constexpr size_t G_QT = size_t(G_QUERIES) * LD * 2;
+  static constexpr size_t G_KV = size_t(G_KEYS) * LD * 2;
+  static constexpr size_t kGSmem = 2 * G_QT + STAGES * 2 * G_KV;
+  static_assert(F_QUERIES % 16 == 0 && G_KEYS % 16 == 0 && F_DC % 16 == 0,
+                "whole k16 steps and n-tile pairs");
+};
 
-  const int tid = threadIdx.x, rg = tid >> 4, cg = tid & 15;
-  const int bh = blockIdx.y, b = bh / p.h, hh = bh - b * p.h;
-  const int k0 = blockIdx.x * ROWS;
-  const int nk = min(ROWS, p.sk - k0);
-  load_tile_bf16<D, ROWS>(sK, head_ptr<bf16>(p.k, p.st[kK], b, hh),
-                          p.st[kK][2], k0, nk, 0.f);
-  load_tile_bf16<D, ROWS>(sV, head_ptr<bf16>(p.v, p.st[kV], b, hh),
-                          p.st[kV][2], k0, nk, 0.f);
-  FragC dk[TL::OPW], dv[TL::OPW];
-#pragma unroll
-  for (int t = 0; t < TL::OPW; ++t) {
-    wmma::fill_fragment(dk[t], 0.f);
-    wmma::fill_fragment(dv[t], 0.f);
-  }
-
-  int q_begin = 0;
-  if (p.causal) q_begin = max(0, k0 - p.offset) / ROWS * ROWS;
-  for (int q0 = q_begin; q0 < p.sq; q0 += ROWS) {
-    const int nq = min(ROWS, p.sq - q0);
-    __syncthreads();   // the previous tile's readers are done
-    stage_queries_tc<D>(p, b, hh, q0, nq, sQ, sdO, sLse, sDelta);
-    // s^T = K . qs^T and dp^T = V . do^T: rows keys, columns queries
-    mma_abt<D>(sS, sK, sQ);
-    mma_abt<D>(sDP, sV, sdO);
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < RT; ++i) {
-      const int r = rg * RT + i, kk = k0 + r;
-#pragma unroll
-      for (int j = 0; j < CT; ++j) {
-        const int c = cg + 16 * j;
-        const bool valid = kk < p.sk && c < nq &&
-                           (!p.causal || kk <= q0 + c + p.offset);
-        const float pr =
-            valid ? expf(sS[r * TL::LDF + c] - sLse[c]) : 0.f;
-        const float ds = pr * (sDP[r * TL::LDF + c] - sDelta[c]);
-        sP[r * TL::LDP + c] = __float2bfloat16_rn(pr);
-        sdS[r * TL::LDP + c] = __float2bfloat16_rn(ds);
-      }
-    }
-    __syncthreads();
-    mma_px<D>(dv, sP, sdO);   // dv += p^T . do
-    mma_px<D>(dk, sdS, sQ);   // dk += ds^T . qs
-  }
-  // the tiles are no longer read: their bytes stage dv and dk as fp32
-  __syncthreads();
-  float* stage_v = smem;
-  float* stage_k = smem + ROWS * TL::LDO;
-  store_acc<D>(stage_v, dv);
-  store_acc<D>(stage_k, dk);
-  __syncthreads();
-  write_rows<D>(head_ptr_mut<bf16>(p.dv, p.st[kDV], b, hh), p.st[kDV][2],
-                stage_v, k0, nk, 1.f);
-  write_rows<D>(head_ptr_mut<bf16>(p.dk, p.st[kDK], b, hh), p.st[kDK][2],
-                stage_k, k0, nk, 1.f);
+__device__ __forceinline__ bool aligned16(const void* base, long long ss) {
+  return ((reinterpret_cast<uintptr_t>(base) | (ss * 2)) & 15) == 0;
 }
+
+// Copy rows [row0, row0 + n) of one head into a (ROWS, D + 8) bf16 tile,
+// zeros past n, by NT threads: 16-byte cp.async chunks when `vec`, else
+// plain loads, where `scale` > 0 stores round_bf16(x * scale) at once.
+template <int D, int ROWS, int NT>
+__device__ __forceinline__ void copy_tile(bf16* dst, const bf16* src,
+                                          long long ss, int row0, int n,
+                                          bool vec, float scale) {
+  constexpr int LD = D + 8, V = D / 8;
+  if (vec) {
+    for (int e = threadIdx.x; e < ROWS * V; e += NT) {
+      const int r = e / V, c = (e % V) * 8;
+      const bool in = r < n;
+      cp_async16(dst + r * LD + c, in ? src + (row0 + r) * ss + c : src, in);
+    }
+    return;
+  }
+  for (int e = threadIdx.x; e < ROWS * D; e += NT) {
+    const int r = e / D, c = e % D;
+    float x = 0.f;
+    if (r < n) {
+      x = __bfloat162float(src[(row0 + r) * ss + c]);
+      if (scale > 0.f) x *= scale;
+    }
+    dst[r * LD + c] = __float2bfloat16_rn(x);
+  }
+}
+
+// round_bf16(x * scale) in place over the chunks this thread copied with
+// copy_tile's vec path (the same assignment), once they have landed
+template <int D, int ROWS, int NT>
+__device__ __forceinline__ void scale_tile(bf16* dst, float scale) {
+  constexpr int LD = D + 8, V = D / 8;
+  for (int e = threadIdx.x; e < ROWS * V; e += NT) {
+    const int r = e / V, c = (e % V) * 8;
+    uint4 x = *reinterpret_cast<uint4*>(dst + r * LD + c);
+    bf16* h = reinterpret_cast<bf16*>(&x);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      h[i] = __float2bfloat16_rn(__bfloat162float(h[i]) * scale);
+    *reinterpret_cast<uint4*>(dst + r * LD + c) = x;
+  }
+}
+
+// ROWS fp32 values from src (a (b*h, s_q) row), zeros past n
+template <int ROWS, int NT>
+__device__ __forceinline__ void copy_vec(float* dst, const float* src,
+                                         int n) {
+  for (int r = threadIdx.x; r < ROWS; r += NT)
+    cp_async4(dst + r, r < n ? src + r : src, r < n);
+}
+
+// Write the first n rows of a (ROWS, D + 8) bf16 tile to one head's rows
+// [row0, row0 + n): 16-byte chunks when the destination allows them.
+template <int D, int ROWS, int NT>
+__device__ __forceinline__ void store_tile(bf16* dst, long long ss,
+                                           const bf16* src, int row0,
+                                           int n) {
+  constexpr int LD = D + 8, V = D / 8;
+  if (aligned16(dst, ss)) {
+    for (int e = threadIdx.x; e < n * V; e += NT) {
+      const int r = e / V, c = (e % V) * 8;
+      *reinterpret_cast<uint4*>(dst + (row0 + r) * ss + c) =
+          *reinterpret_cast<const uint4*>(src + r * LD + c);
+    }
+    return;
+  }
+  for (int e = threadIdx.x; e < n * D; e += NT) {
+    const int r = e / D, c = e % D;
+    dst[(row0 + r) * ss + c] = src[r * LD + c];
+  }
+}
+
+// acc[n] (16 x 8N fp32, this warp's rows) += A (16 rows of a bf16 tile,
+// rows r0) . B^T, B = rows [0, 8N) of another tile, over head_dim D.
+// Both tiles row-major with D + 8 columns; two accumulators run at once
+// (s and dp share their loop).
+template <int D, int N>
+__device__ __forceinline__ void mma_rows_abt2(float (&acc0)[N][4],
+                                              float (&acc1)[N][4],
+                                              const bf16* a0, const bf16* a1,
+                                              const bf16* b0, const bf16* b1,
+                                              int r0) {
+  constexpr int LD = D + 8;
+  const int lane = threadIdx.x & 31;
+  const int arow = r0 + (lane & 15), acol = (lane >> 4) * 8;
+  const int brow = (lane & 7) + ((lane >> 4) << 3);
+  const int bcol = ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t fa0[4], fa1[4];
+    ldsm_x4(fa0, a0 + arow * LD + kk * 16 + acol);
+    ldsm_x4(fa1, a1 + arow * LD + kk * 16 + acol);
+#pragma unroll
+    for (int np = 0; np < N / 2; ++np) {
+      uint32_t fb0[4], fb1[4];
+      ldsm_x4(fb0, b0 + (np * 16 + brow) * LD + kk * 16 + bcol);
+      ldsm_x4(fb1, b1 + (np * 16 + brow) * LD + kk * 16 + bcol);
+      mma_bf16(acc0[2 * np], fa0, fb0[0], fb0[1]);
+      mma_bf16(acc0[2 * np + 1], fa0, fb0[2], fb0[3]);
+      mma_bf16(acc1[2 * np], fa1, fb1[0], fb1[1]);
+      mma_bf16(acc1[2 * np + 1], fa1, fb1[2], fb1[3]);
+    }
+  }
+}
+
+// acc[n] (16 x 8M fp32, columns c0..c0+8M of a width-D tile) += P . X,
+// P = this warp's 16 x 8K fp32 fragments `p` rounded to bf16 (the m16n8
+// accumulator pair 2j, 2j+1 is the m16k16 A fragment of step j), X = rows
+// [0, 8K) of a bf16 tile (row-major, D + 8 columns), read transposed.
+template <int D, int K, int M>
+__device__ __forceinline__ void mma_frag_x(float (&acc)[M][4],
+                                           const float (&p)[K][4],
+                                           const bf16* x, int c0) {
+  constexpr int LD = D + 8;
+  const int lane = threadIdx.x & 31;
+  const int xrow = lane & 15, xcol = c0 + (lane >> 4) * 8;
+#pragma unroll
+  for (int j = 0; j < K / 2; ++j) {
+    const uint32_t a[4] = {pack_bf16(p[2 * j][0], p[2 * j][1]),
+                           pack_bf16(p[2 * j][2], p[2 * j][3]),
+                           pack_bf16(p[2 * j + 1][0], p[2 * j + 1][1]),
+                           pack_bf16(p[2 * j + 1][2], p[2 * j + 1][3])};
+#pragma unroll
+    for (int dp = 0; dp < M / 2; ++dp) {
+      uint32_t fb[4];
+      ldsm_x4_t(fb, x + (j * 16 + xrow) * LD + xcol + dp * 16);
+      mma_bf16(acc[2 * dp], a, fb[0], fb[1]);
+      mma_bf16(acc[2 * dp + 1], a, fb[2], fb[3]);
+    }
+  }
+}
+
+// This warp's 16 x 8M fp32 fragments (rows r0, columns c0) times `scale`
+// as bf16 into a (ROWS, D + 8) tile.
+template <int D, int M>
+__device__ __forceinline__ void frag_to_tile(bf16* dst,
+                                             const float (&acc)[M][4],
+                                             int r0, int c0, float scale) {
+  constexpr int LD = D + 8;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < M; ++n) {
+    const int c = c0 + n * 8 + 2 * t;
+    *reinterpret_cast<uint32_t*>(dst + (r0 + g) * LD + c) =
+        pack_bf16(acc[n][0] * scale, acc[n][1] * scale);
+    *reinterpret_cast<uint32_t*>(dst + (r0 + g + 8) * LD + c) =
+        pack_bf16(acc[n][2] * scale, acc[n][3] * scale);
+  }
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
 
 // ---------------------------------------------------- kernel G, bf16
+// One block per (64-query tile, batch*head); launched before F.
 template <int D>
-__global__ void __launch_bounds__(kThreads, TcTile<D>::BWD_BLOCKS)
+__global__ void __launch_bounds__(BwdTile<D>::THREADS, BwdTile<D>::G_BLOCKS)
     flash_bwd_dq_tc_kernel(const Params p) {
-  using TL = TcTile<D>;
-  constexpr int ROWS = TL::ROWS, RT = TL::RT, CT = TL::CT;
+  using TL = BwdTile<D>;
+  constexpr int LD = TL::LD, NT = TL::THREADS, BQ = TL::G_QUERIES;
+  constexpr int BK = TL::G_KEYS, NK8 = BK / 8, ND8 = D / 8;
   extern __shared__ float smem[];
-  char* base = reinterpret_cast<char*>(smem);
-  bf16* sQ = reinterpret_cast<bf16*>(base);
-  bf16* sdO = reinterpret_cast<bf16*>(base + TL::HB);
-  bf16* sK = reinterpret_cast<bf16*>(base + 2 * TL::HB);
-  bf16* sV = reinterpret_cast<bf16*>(base + 3 * TL::HB);
-  float* sS = reinterpret_cast<float*>(base + 4 * TL::HB);
-  float* sDP = reinterpret_cast<float*>(base + 4 * TL::HB + TL::FB);
-  bf16* sdS = reinterpret_cast<bf16*>(base + 4 * TL::HB + 2 * TL::FB);
-  float* sLse = reinterpret_cast<float*>(base + 4 * TL::HB + 2 * TL::FB +
-                                         2 * TL::PB);
-  float* sDelta = sLse + ROWS;
+  bf16* sQ = reinterpret_cast<bf16*>(smem);              // (BQ, LD) qs
+  bf16* sdO = sQ + BQ * LD;                              // (BQ, LD)
+  bf16* ring = sdO + BQ * LD;                            // STAGES x (K, V)
 
-  const int tid = threadIdx.x, rg = tid >> 4, cg = tid & 15;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3, r0 = 16 * warp;
+  // the heaviest tiles (the last under causal masking) start first
+  const int qt = gridDim.x - 1 - blockIdx.x;
   const int bh = blockIdx.y, b = bh / p.h, hh = bh - b * p.h;
-  const int q0 = blockIdx.x * ROWS;
-  const int nq = min(ROWS, p.sq - q0);
-  stage_queries_tc<D>(p, b, hh, q0, nq, sQ, sdO, sLse, sDelta);
+  const int q0 = qt * BQ, nq = min(BQ, p.sq - q0);
+  const long long stat = static_cast<long long>(bh) * p.sq + q0;
+  const bf16* qp = head_ptr<bf16>(p.q, p.st[kQ], b, hh);
+  const bf16* dop = head_ptr<bf16>(p.dout, p.st[kDO], b, hh);
   const bf16* kp = head_ptr<bf16>(p.k, p.st[kK], b, hh);
   const bf16* vp = head_ptr<bf16>(p.v, p.st[kV], b, hh);
-  FragC dq[TL::OPW];
-#pragma unroll
-  for (int t = 0; t < TL::OPW; ++t) wmma::fill_fragment(dq[t], 0.f);
+  const long long sq_ = p.st[kQ][2], sdo = p.st[kDO][2];
+  const long long sk_ = p.st[kK][2], sv = p.st[kV][2];
+  const bool vq = aligned16(qp, sq_), vdo = aligned16(dop, sdo);
+  const bool vk = aligned16(kp, sk_), vv = aligned16(vp, sv);
 
   const int k_end =
       p.causal ? min(p.sk, q0 + nq - 1 + p.offset + 1) : p.sk;
-  for (int k0 = 0; k0 < k_end; k0 += ROWS) {
-    const int nk = min(ROWS, p.sk - k0);
-    __syncthreads();   // the previous tile's readers are done
-    load_tile_bf16<D, ROWS>(sK, kp, p.st[kK][2], k0, nk, 0.f);
-    load_tile_bf16<D, ROWS>(sV, vp, p.st[kV][2], k0, nk, 0.f);
-    __syncthreads();
-    mma_abt<D>(sS, sQ, sK);     // s = qs . k^T
-    mma_abt<D>(sDP, sdO, sV);   // dp = do . v^T
-    __syncthreads();
+  const int n_tiles = (k_end + BK - 1) / BK;
+  copy_tile<D, BQ, NT>(sQ, qp, sq_, q0, nq, vq, p.q_scale);
+  copy_tile<D, BQ, NT>(sdO, dop, sdo, q0, nq, vdo, 0.f);
+  copy_tile<D, BK, NT>(ring, kp, sk_, 0, min(BK, p.sk), vk, 0.f);
+  copy_tile<D, BK, NT>(ring + BK * LD, vp, sv, 0, min(BK, p.sk), vv, 0.f);
+  cp_async_commit();
+  cp_async_wait_all();
+  if (vq) scale_tile<D, BQ, NT>(sQ, p.q_scale);
+  __syncthreads();
+  // qs once per query row, for F
+  store_tile<D, BQ, NT>(static_cast<bf16*>(p.qs) + stat * D, D, sQ, 0, nq);
+
+  // delta for this warp's 16 rows: lanes 2i, 2i+1 split row i's columns
+  float delta_r[2], lse_r[2];
+  {
+    const int r = r0 + (lane >> 1), c0 = (lane & 1) * (D / 2);
+    float acc = 0.f;
+    if (r < nq) {
+      const bf16* orow = head_ptr<bf16>(p.o, p.st[kO], b, hh) +
+                         (q0 + r) * p.st[kO][2] + c0;
+      const bf16* drow = sdO + r * LD + c0;
+      if (aligned16(orow, 0)) {
 #pragma unroll
-    for (int i = 0; i < RT; ++i) {
-      const int r = rg * RT + i;
+        for (int c = 0; c < D / 2; c += 8) {
+          const uint4 ov = *reinterpret_cast<const uint4*>(orow + c);
+          const uint4 dv = *reinterpret_cast<const uint4*>(drow + c);
+          const bf16* oh = reinterpret_cast<const bf16*>(&ov);
+          const bf16* dh = reinterpret_cast<const bf16*>(&dv);
 #pragma unroll
-      for (int j = 0; j < CT; ++j) {
-        const int c = cg + 16 * j, kj = k0 + c;
-        const bool valid = r < nq && kj < p.sk &&
-                           (!p.causal || kj <= q0 + r + p.offset);
-        const float pr =
-            valid ? expf(sS[r * TL::LDF + c] - sLse[r]) : 0.f;
-        sdS[r * TL::LDP + c] =
-            __float2bfloat16_rn(pr * (sDP[r * TL::LDF + c] - sDelta[r]));
+          for (int i = 0; i < 8; ++i)
+            acc = fmaf(__bfloat162float(dh[i]), __bfloat162float(oh[i]), acc);
+        }
+      } else {
+        for (int c = 0; c < D / 2; ++c)
+          acc = fmaf(__bfloat162float(drow[c]), __bfloat162float(orow[c]),
+                     acc);
       }
     }
-    __syncthreads();
-    mma_px<D>(dq, sdS, sK);     // dq += ds . k
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if (r < nq) {
+      if (p.glse != nullptr) acc -= p.glse[stat + r];
+      if ((lane & 1) == 0) p.delta[stat + r] = acc;
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int rr = g + 8 * i;        // row held by lanes 2rr, 2rr+1
+      delta_r[i] = __shfl_sync(0xffffffffu, acc, 2 * rr);
+      lse_r[i] = r0 + rr < nq ? p.lse[stat + r0 + rr] * kLog2e : 0.f;
+    }
   }
+
+  float dq[ND8][4];
+#pragma unroll
+  for (int n = 0; n < ND8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dq[n][i] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * BK;
+    bf16* sK = ring + (it & 1) * 2 * BK * LD;
+    bf16* sV = sK + BK * LD;
+    if (it > 0) {
+      cp_async_wait_all();
+      __syncthreads();   // tile `it` landed; tile it-1's readers are done
+    }
+    if (it + 1 < n_tiles) {   // the next tile's copy overlaps this tile
+      const int k1 = k0 + BK, n1 = min(BK, p.sk - k1);
+      bf16* nK = ring + ((it + 1) & 1) * 2 * BK * LD;
+      copy_tile<D, BK, NT>(nK, kp, sk_, k1, n1, vk, 0.f);
+      copy_tile<D, BK, NT>(nK + BK * LD, vp, sv, k1, n1, vv, 0.f);
+      cp_async_commit();
+    }
+    // s = qs . k^T and dp = do . v^T for this warp's 16 rows
+    float s[NK8][4], dp[NK8][4];
+#pragma unroll
+    for (int n = 0; n < NK8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[n][i] = dp[n][i] = 0.f;
+    mma_rows_abt2<D, NK8>(s, dp, sQ, sdO, sK, sV, r0);
+    const bool full = q0 + BQ <= p.sq && k0 + BK <= p.sk &&
+                      (!p.causal || k0 + BK - 1 <= q0 + p.offset);
+    auto to_ds = [&](auto masked) {   // one copy of the loop per case
+#pragma unroll
+      for (int n = 0; n < NK8; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          bool valid = true;
+          if constexpr (decltype(masked)::value) {
+            const int row = q0 + r0 + g + 8 * (i >> 1);
+            const int key = k0 + n * 8 + 2 * t + (i & 1);
+            valid = row < p.sq && key < p.sk &&
+                    (!p.causal || key <= row + p.offset);
+          }
+          const float pr =
+              valid ? exp2_approx(fmaf(s[n][i], kLog2e, -lse_r[i >> 1]))
+                    : 0.f;
+          s[n][i] = pr * (dp[n][i] - delta_r[i >> 1]);   // ds
+        }
+    };
+    if (full)
+      to_ds(std::false_type());
+    else
+      to_ds(std::true_type());
+    mma_frag_x<D, NK8, ND8>(dq, s, sK, 0);               // dq += ds . k
+  }
+
+  __syncthreads();   // every warp is done with sQ: it stages dq
+  frag_to_tile<D, ND8>(sQ, dq, r0, 0, p.dq_scale);
   __syncthreads();
-  store_acc<D>(smem, dq);
+  store_tile<D, BQ, NT>(head_ptr_mut<bf16>(p.dq, p.st[kDQ], b, hh),
+                        p.st[kDQ][2], sQ, q0, nq);
+}
+
+// ---------------------------------------------------- kernel F, bf16
+// One block per (key tile, batch*head); reads G's delta.
+template <int D>
+__global__ void __launch_bounds__(BwdTile<D>::THREADS, BwdTile<D>::F_BLOCKS)
+    flash_bwd_dkdv_tc_kernel(const Params p) {
+  using TL = BwdTile<D>;
+  constexpr int LD = TL::LD, NT = TL::THREADS, BK = TL::F_KEYS;
+  constexpr int BQ = TL::F_QUERIES, NQ8 = BQ / 8, NC8 = TL::F_DC / 8;
+  extern __shared__ float smem[];
+  char* base = reinterpret_cast<char*>(smem);
+  bf16* sK = reinterpret_cast<bf16*>(base);                   // (BK, LD)
+  bf16* sV = reinterpret_cast<bf16*>(base + TL::F_KV);
+  char* ring = base + 2 * TL::F_KV;     // STAGES x (qs, do, lse, delta)
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * (warp / TL::F_SPLIT);
+  const int c0 = TL::F_DC * (warp % TL::F_SPLIT);
+  const int bh = blockIdx.y, b = bh / p.h, hh = bh - b * p.h;
+  const int k0 = blockIdx.x * BK, nk = min(BK, p.sk - k0);
+  // qs: G's (b, h, s_q, d) scratch, rows of D
+  const bf16* qp = static_cast<const bf16*>(p.qs) +
+                   static_cast<long long>(bh) * p.sq * D;
+  const bf16* dop = head_ptr<bf16>(p.dout, p.st[kDO], b, hh);
+  const bf16* kp = head_ptr<bf16>(p.k, p.st[kK], b, hh);
+  const bf16* vp = head_ptr<bf16>(p.v, p.st[kV], b, hh);
+  const long long sdo = p.st[kDO][2];
+  const bool vq = aligned16(qp, D), vdo = aligned16(dop, sdo);
+  const float* lse_h = p.lse + static_cast<long long>(bh) * p.sq;
+  const float* delta_h = p.delta + static_cast<long long>(bh) * p.sq;
+
+  // the first query tile that sees key k0 under causal masking
+  const int q_begin = p.causal ? max(0, k0 - p.offset) / BQ * BQ : 0;
+  const int n_tiles = (p.sq - q_begin + BQ - 1) / BQ;
+  auto stage = [&](int it) {   // query tile `it` into ring slot it % 2
+    const int q0 = q_begin + it * BQ, n = min(BQ, p.sq - q0);
+    char* slot = ring + (it & 1) * TL::F_STAGE;
+    bf16* tq = reinterpret_cast<bf16*>(slot);
+    float* tl = reinterpret_cast<float*>(slot + 2 * TL::F_QT);
+    copy_tile<D, BQ, NT>(tq, qp, D, q0, n, vq, 0.f);
+    copy_tile<D, BQ, NT>(tq + BQ * LD, dop, sdo, q0, n, vdo, 0.f);
+    copy_vec<BQ, NT>(tl, lse_h + q0, n);
+    copy_vec<BQ, NT>(tl + BQ, delta_h + q0, n);
+  };
+  copy_tile<D, BK, NT>(sK, kp, p.st[kK][2], k0, nk,
+                       aligned16(kp, p.st[kK][2]), 0.f);
+  copy_tile<D, BK, NT>(sV, vp, p.st[kV][2], k0, nk,
+                       aligned16(vp, p.st[kV][2]), 0.f);
+  stage(0);
+  cp_async_commit();
+
+  float dk[NC8][4], dv[NC8][4];
+#pragma unroll
+  for (int n = 0; n < NC8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dk[n][i] = dv[n][i] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int q0 = q_begin + it * BQ;
+    char* slot = ring + (it & 1) * TL::F_STAGE;
+    bf16* sQ = reinterpret_cast<bf16*>(slot);
+    bf16* sdO = sQ + BQ * LD;
+    const float* sLse = reinterpret_cast<const float*>(slot + 2 * TL::F_QT);
+    const float* sDelta = sLse + BQ;
+    cp_async_wait_all();
+    __syncthreads();   // tile `it` is in place; tile it-1's readers are done
+    if (it + 1 < n_tiles) {   // the next tile's copy overlaps this tile
+      stage(it + 1);
+      cp_async_commit();
+    }
+    // s^T = K . qs^T and dp^T = V . do^T: this warp's 16 keys x BQ queries
+    float s[NQ8][4], dp[NQ8][4];
+#pragma unroll
+    for (int n = 0; n < NQ8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[n][i] = dp[n][i] = 0.f;
+    mma_rows_abt2<D, NQ8>(s, dp, sK, sV, sQ, sdO, r0);
+    const bool full = q0 + BQ <= p.sq && k0 + BK <= p.sk &&
+                      (!p.causal || k0 + BK - 1 <= q0 + p.offset);
+    auto to_p_ds = [&](auto masked) {   // one copy of the loop per case
+#pragma unroll
+      for (int n = 0; n < NQ8; ++n) {
+        const int c = n * 8 + 2 * t;
+        float2 ls = *reinterpret_cast<const float2*>(sLse + c);
+        ls.x *= kLog2e;
+        ls.y *= kLog2e;
+        const float2 dl = *reinterpret_cast<const float2*>(sDelta + c);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          bool valid = true;
+          if constexpr (decltype(masked)::value) {
+            const int key = k0 + r0 + g + 8 * (i >> 1);
+            const int query = q0 + c + (i & 1);
+            valid = key < p.sk && query < p.sq &&
+                    (!p.causal || key <= query + p.offset);
+          }
+          const float l2 = (i & 1) ? ls.y : ls.x;
+          const float de = (i & 1) ? dl.y : dl.x;
+          const float pr =
+              valid ? exp2_approx(fmaf(s[n][i], kLog2e, -l2)) : 0.f;
+          s[n][i] = pr;                            // p^T
+          dp[n][i] = pr * (dp[n][i] - de);         // ds^T
+        }
+      }
+    };
+    if (full)
+      to_p_ds(std::false_type());
+    else
+      to_p_ds(std::true_type());
+    mma_frag_x<D, NQ8, NC8>(dv, s, sdO, c0);     // dv += p^T . do
+    mma_frag_x<D, NQ8, NC8>(dk, dp, sQ, c0);     // dk += ds^T . qs
+  }
+
+  __syncthreads();   // every warp is done with K and V: they stage dk, dv
+  frag_to_tile<D, NC8>(sK, dk, r0, c0, 1.f);
+  frag_to_tile<D, NC8>(sV, dv, r0, c0, 1.f);
   __syncthreads();
-  write_rows<D>(head_ptr_mut<bf16>(p.dq, p.st[kDQ], b, hh), p.st[kDQ][2],
-                smem, q0, nq, p.dq_scale);
+  store_tile<D, BK, NT>(head_ptr_mut<bf16>(p.dk, p.st[kDK], b, hh),
+                        p.st[kDK][2], sK, k0, nk);
+  store_tile<D, BK, NT>(head_ptr_mut<bf16>(p.dv, p.st[kDV], b, hh),
+                        p.st[kDV][2], sV, k0, nk);
 }
 
 // ------------------------------------------- the forward variants (#12)
@@ -1051,6 +1438,7 @@ __global__ void __launch_bounds__(kThreads, TcTile<D>::BWD_BLOCKS)
 enum VariantKind { kVarV2 = 0, kVarV3, kVarV4, kVarV5, kVarNoMax };
 constexpr int kErrVariant = -4;    // variant / heads-per-block not compiled
 constexpr int kErrHeads = -5;      // b*h not divisible by heads per block
+constexpr int kErrPass = -6;       // not a backward pass
 
 struct VarParams {
   const bf16* q;
@@ -1283,91 +1671,69 @@ int opt_in_smem(void (*kernel)(Params), size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// The three passes: E, and the backward's two kernels in their launch
+// order (G writes the delta scratch that F reads).
+enum Pass { kPassFwd = 0, kPassDQ = 1, kPassDKDV = 2 };
+
 // fp32 runs the FMA kernels above (Tile), bf16 the tensor-core ones
-// (TcTile); only those instantiations are compiled.
+// (TcTile, BwdTile); only those instantiations are compiled.
 template <typename T, int D>
-int launch_fwd(const Params& p, int bh, cudaStream_t stream) {
+int launch(const Params& p, int bh, int pass, cudaStream_t stream) {
   void (*kernel)(Params);
   size_t smem;
-  int rows;
+  int rows, threads = kThreads;
   if constexpr (std::is_same_v<T, bf16>) {
-    kernel = flash_fwd_tc_kernel<D>;
-    smem = TcTile<D>::kFwdSmem;
-    rows = TcTile<D>::ROWS;
+    using BT = BwdTile<D>;
+    if (pass == kPassFwd) {
+      kernel = flash_fwd_tc_kernel<D>;
+      smem = TcTile<D>::kFwdSmem;
+      rows = TcTile<D>::ROWS;
+    } else if (pass == kPassDQ) {
+      kernel = flash_bwd_dq_tc_kernel<D>;
+      smem = BT::kGSmem;
+      rows = BT::G_QUERIES;
+      threads = BT::THREADS;
+    } else {
+      kernel = flash_bwd_dkdv_tc_kernel<D>;
+      smem = BT::kFSmem;
+      rows = BT::F_KEYS;
+      threads = BT::THREADS;
+    }
   } else {
-    kernel = flash_fwd_kernel<T, D>;
-    smem = Tile<D>::kFwdSmem;
+    kernel = pass == kPassFwd  ? flash_fwd_kernel<T, D>
+             : pass == kPassDQ ? flash_bwd_dq_kernel<T, D>
+                               : flash_bwd_dkdv_kernel<T, D>;
+    smem = pass == kPassFwd ? Tile<D>::kFwdSmem : Tile<D>::kBwdSmem;
     rows = Tile<D>::ROWS;
   }
-  static bool opted = false;
-  if (!opted) {
+  static bool opted[3] = {false, false, false};
+  if (!opted[pass]) {
     if (const int rc = opt_in_smem(kernel, smem)) return rc;
-    opted = true;
+    opted[pass] = true;
   }
-  const dim3 grid((p.sq + rows - 1) / rows, bh);
-  kernel<<<grid, kThreads, smem, stream>>>(p);
-  return cudaGetLastError();
-}
-
-template <typename T, int D>
-int launch_bwd(const Params& p, int bh, cudaStream_t stream) {
-  void (*dkdv)(Params);
-  void (*dq)(Params);
-  size_t smem;
-  int rows;
-  if constexpr (std::is_same_v<T, bf16>) {
-    dkdv = flash_bwd_dkdv_tc_kernel<D>;
-    dq = flash_bwd_dq_tc_kernel<D>;
-    smem = TcTile<D>::kBwdSmem;
-    rows = TcTile<D>::ROWS;
-  } else {
-    dkdv = flash_bwd_dkdv_kernel<T, D>;
-    dq = flash_bwd_dq_kernel<T, D>;
-    smem = Tile<D>::kBwdSmem;
-    rows = Tile<D>::ROWS;
-  }
-  static bool opted = false;
-  if (!opted) {
-    if (const int rc = opt_in_smem(dkdv, smem)) return rc;
-    if (const int rc = opt_in_smem(dq, smem)) return rc;
-    opted = true;
-  }
-  const dim3 grid_k((p.sk + rows - 1) / rows, bh);
-  dkdv<<<grid_k, kThreads, smem, stream>>>(p);
-  if (const int rc = cudaGetLastError()) return rc;
-  const dim3 grid_q((p.sq + rows - 1) / rows, bh);
-  dq<<<grid_q, kThreads, smem, stream>>>(p);
+  const int n = pass == kPassDKDV ? p.sk : p.sq;
+  const dim3 grid((n + rows - 1) / rows, bh);
+  kernel<<<grid, threads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <typename T>
-int dispatch(bool backward, int d, const Params& p, int bh,
-             cudaStream_t stream) {
+int dispatch(int pass, int d, const Params& p, int bh, cudaStream_t stream) {
   switch (d) {
-    case 32:
-      return backward ? launch_bwd<T, 32>(p, bh, stream)
-                      : launch_fwd<T, 32>(p, bh, stream);
-    case 64:
-      return backward ? launch_bwd<T, 64>(p, bh, stream)
-                      : launch_fwd<T, 64>(p, bh, stream);
-    case 128:
-      return backward ? launch_bwd<T, 128>(p, bh, stream)
-                      : launch_fwd<T, 128>(p, bh, stream);
-    case 256:
-      return backward ? launch_bwd<T, 256>(p, bh, stream)
-                      : launch_fwd<T, 256>(p, bh, stream);
-    default:
-      return kErrHeadDim;
+    case 32: return launch<T, 32>(p, bh, pass, stream);
+    case 64: return launch<T, 64>(p, bh, pass, stream);
+    case 128: return launch<T, 128>(p, bh, pass, stream);
+    case 256: return launch<T, 256>(p, bh, pass, stream);
+    default: return kErrHeadDim;
   }
 }
 
-int run(bool backward, const Params& p, int b, int d, int dtype,
-        void* stream) {
+int run(int pass, const Params& p, int b, int d, int dtype, void* stream) {
   const int bh = b * p.h;
   if (bh <= 0 || p.sq <= 0 || p.sk <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32) return dispatch<float>(backward, d, p, bh, st);
-  if (dtype == kBF16) return dispatch<bf16>(backward, d, p, bh, st);
+  if (dtype == kF32) return dispatch<float>(pass, d, p, bh, st);
+  if (dtype == kBF16) return dispatch<bf16>(pass, d, p, bh, st);
   return kErrDType;
 }
 
@@ -1458,20 +1824,18 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   p.causal = causal;
   p.offset = causal ? sk - sq : 0;
   p.q_scale = q_scale;
-  return run(false, p, b, d, dtype, stream);
+  return run(kPassFwd, p, b, d, dtype, stream);
 }
 
-// Kernels F then G. Operands q, k, v, o (the forward's output), dout, dq,
-// dk, dv with (b, h, s, d) element strides in `strides` (24 int64, in that
-// order); lse and glse (optional, nullptr for none) are (b, h, s_q) fp32.
-extern "C" int flash_attention_bwd(const void* q, const void* k,
-                                   const void* v, const void* o,
-                                   const void* dout, const float* lse,
-                                   const float* glse, void* dq, void* dk,
-                                   void* dv, const long long* strides, int b,
-                                   int h, int sq, int sk, int d, int causal,
-                                   float q_scale, float dq_scale, int dtype,
-                                   void* stream) {
+namespace {
+
+int backward_pass(int pass, const void* q, const void* k, const void* v,
+                  const void* o, const void* dout, const float* lse,
+                  const float* glse, float* delta, void* qs, void* dq,
+                  void* dk, void* dv, const long long* strides, int b, int h,
+                  int sq,
+                  int sk, int d, int causal, float q_scale, float dq_scale,
+                  int dtype, void* stream) {
   Params p = {};
   p.q = q;
   p.k = k;
@@ -1480,6 +1844,8 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
   p.dout = dout;
   p.lse = const_cast<float*>(lse);
   p.glse = glse;
+  p.delta = delta;
+  p.qs = qs;
   p.dq = dq;
   p.dk = dk;
   p.dv = dv;
@@ -1491,5 +1857,71 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
   p.offset = causal ? sk - sq : 0;
   p.q_scale = q_scale;
   p.dq_scale = dq_scale;
-  return run(true, p, b, d, dtype, stream);
+  return run(pass, p, b, d, dtype, stream);
+}
+
+}  // namespace
+
+// The backward is two launches on one stream, G then F. Both entries take
+// the same arguments: operands q, k, v, o (the forward's output), dout,
+// dq, dk, dv with (b, h, s, d) element strides in `strides` (24 int64, in
+// that order); lse, glse (optional, nullptr for none) and delta are
+// (b, h, s_q) fp32; qs is a contiguous (b, h, s_q, d) scratch of the
+// operands' dtype. bf16: G writes delta = rowsum(dout * o) - glse, qs =
+// round_bf16(q * q_scale) and dq; F reads delta and qs and writes dk and
+// dv. fp32: each kernel computes delta and qs itself and the scratches are
+// not touched. Each returns 0, a negative code of this file, or a
+// cudaError_t.
+extern "C" int flash_attention_bwd_dq(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const float* lse, const float* glse, float* delta,
+    void* qs, void* dq, void* dk, void* dv, const long long* strides, int b,
+    int h, int sq, int sk, int d, int causal, float q_scale, float dq_scale,
+    int dtype, void* stream) {
+  return backward_pass(kPassDQ, q, k, v, o, dout, lse, glse, delta, qs, dq,
+                       dk, dv, strides, b, h, sq, sk, d, causal, q_scale,
+                       dq_scale, dtype, stream);
+}
+
+extern "C" int flash_attention_bwd_dkdv(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const float* lse, const float* glse, float* delta,
+    void* qs, void* dq, void* dk, void* dv, const long long* strides, int b,
+    int h, int sq, int sk, int d, int causal, float q_scale, float dq_scale,
+    int dtype, void* stream) {
+  return backward_pass(kPassDKDV, q, k, v, o, dout, lse, glse, delta, qs,
+                       dq, dk, dv, strides, b, h, sq, sk, d, causal, q_scale,
+                       dq_scale, dtype, stream);
+}
+
+namespace {
+
+template <int D>
+int bwd_occupancy(int pass, int* smem, int* threads, int* blocks) {
+  using BT = BwdTile<D>;
+  void (*kernel)(Params) = pass == kPassDQ ? flash_bwd_dq_tc_kernel<D>
+                                       : flash_bwd_dkdv_tc_kernel<D>;
+  *smem = static_cast<int>(pass == kPassDQ ? BT::kGSmem : BT::kFSmem);
+  *threads = BT::THREADS;
+  if (const int rc = opt_in_smem(kernel, *smem)) return rc;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
+                                                       *threads, *smem);
+}
+
+}  // namespace
+
+// The bf16 backward kernels' footprint at head_dim d (pass 1 = G, 2 = F):
+// the dynamic shared memory and threads a block takes, and the blocks an
+// SM holds by the runtime's occupancy calculator. Returns 0, a negative
+// code of this file, or a cudaError_t.
+extern "C" int flash_attention_bwd_occupancy(int d, int pass, int* smem,
+                                             int* threads, int* blocks) {
+  if (pass != kPassDQ && pass != kPassDKDV) return kErrPass;
+  switch (d) {
+    case 32: return bwd_occupancy<32>(pass, smem, threads, blocks);
+    case 64: return bwd_occupancy<64>(pass, smem, threads, blocks);
+    case 128: return bwd_occupancy<128>(pass, smem, threads, blocks);
+    case 256: return bwd_occupancy<256>(pass, smem, threads, blocks);
+    default: return kErrHeadDim;
+  }
 }

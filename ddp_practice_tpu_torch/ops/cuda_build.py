@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -85,6 +86,39 @@ def build(names) -> dict:
     if errors:
         raise RuntimeError("\n".join(errors))
     return paths
+
+
+def kernel_resources(info: str) -> dict:
+    """{kernel: [ptxas lines]} from one source's `ptxas_info`: each entry
+    function's "Used N registers ..." and "... spill stores ..." lines,
+    keyed by a readable name ("flash_bwd_dq_tc_kernel<64>")."""
+    out, current = {}, None
+    for line in info.splitlines():
+        entry = re.search(r"(?:Compiling entry function|Function properties "
+                          r"for) '?(\w+)", line)
+        if entry:
+            current = _kernel_name(entry.group(1))
+            out.setdefault(current, [])
+        elif current and ("registers" in line or "spill" in line):
+            if line.strip() not in out[current]:
+                out[current].append(line.strip())
+    return out
+
+
+def _kernel_name(mangled: str) -> str:
+    """The kernel's name and integer template arguments from its mangled
+    symbol (the last length-prefixed part of its nested name), e.g.
+    flash_bwd_dkdv_tc_kernel<64>."""
+    m = re.match(r"_ZN?", mangled)
+    if m is None:
+        return mangled
+    pos, name = m.end(), mangled
+    while (n := re.match(r"\d+", mangled[pos:])) is not None:
+        start = pos + n.end()
+        name, pos = mangled[start:start + int(n.group())], \
+            start + int(n.group())
+    args = re.findall(r"Li(\d+)E", mangled[pos:])
+    return name + (f"<{', '.join(args)}>" if args else "")
 
 
 def load_library(name: str) -> ctypes.CDLL:

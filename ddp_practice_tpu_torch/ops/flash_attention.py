@@ -15,8 +15,10 @@ Public entries keep the reference's signatures and layouts:
 
 On a CUDA tensor each entry runs three CUDA kernels written by hand for
 sm_90a (`csrc/flash_attention.cu`, built by `ops/cuda_build.py`, launched
-through ctypes): kernel E forward, kernels F (dK/dV) and G (dQ) backward.
-One kernel per direction serves every layout: each operand reaches it as a
+through ctypes): kernel E forward; backward kernel G (dQ, and delta =
+rowsum(do * o) - g_lse and the scaled queries into scratches) then kernel
+F (dK/dV, reading them), two launches on one stream. One kernel per pass
+serves every layout: each operand reaches it as a
 (batch, head, position, head_dim) view with element strides, so the folded
 layout, the packed layout and the three column windows of the fused QKV
 projection differ only in strides, and F and G write dq, dk and dv straight
@@ -30,9 +32,11 @@ over the card's peak for the dtype (H100 SXM: 989.4e12 dense bf16 on the
 tensor cores, 67e12 fp32 outside them), against the bytes moved (each
 operand read once, each result written once) over 3.35 TB/s: at the
 training shapes operations bound it. bf16 operands run the products on
-the tensor cores (WMMA mma.sync, fp32 accumulation), fp32 operands as
-FMAs on the CUDA cores (TF32 would break the fp32 tolerances); a simple
-first design, far from the bound (PERF.md).
+the tensor cores with fp32 accumulation (E through WMMA with score tiles
+in shared memory, a simple first design; F and G redesigned for Hopper:
+scores and accumulators in registers, mma.sync m16n8k16 fed by ldmatrix,
+a two-stage cp.async ring), fp32 operands as FMAs on the CUDA cores (TF32
+would break the fp32 tolerances). Times against the bound: PERF.md.
 
 The reference's ablations of the forward (experiments/flash_variants.py,
 flash_ablate.py, flash_4d.py; row #12 of the kernel table) are here too:
@@ -69,7 +73,7 @@ from typing import Optional
 import torch
 
 # launches per row of the kernel table, counted where a wrapper launches
-# its kernels and nowhere else (a backward launch is F then G)
+# its kernels and nowhere else (a backward launch is G then F)
 LAUNCHES = {"flash_fwd_folded": 0, "flash_bwd_folded": 0,
             "flash_fwd_packed": 0, "flash_bwd_packed": 0}
 # the same for the forward variants (v5 per heads-per-block)
@@ -83,7 +87,8 @@ _HEAD_DIMS = (32, 64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ERRORS = {-1: "head_dim not compiled (32, 64, 128 or 256; variants 64)",
            -3: "unsupported dtype", -4: "variant not compiled",
-           -5: "b*h not divisible by the heads per block"}
+           -5: "b*h not divisible by the heads per block",
+           -6: "not a backward pass"}
 _IMPLS = ("auto", "kernel", "plain")
 _forced: Optional[str] = None     # set by `forced_impl`
 
@@ -607,10 +612,13 @@ def _launch_fwd(q4, k4, v4, out4, causal):
 
 
 def _launch_bwd(q4, k4, v4, o4, do4, lse, glse, dq4, dk4, dv4, causal):
-    """Kernels F then G into dq4, dk4, dv4."""
+    """Kernel G, then kernel F on the same stream, into dq4, dk4, dv4. G
+    writes delta = rowsum(do * o) - g_lse once per query row into a
+    (b, h, s_q) fp32 scratch, and qs = round(q * scale) once into a
+    (b, h, s_q, d) one, which F reads beside lse (the bf16 kernels; the
+    fp32 ones compute both themselves and leave the scratches unwritten)."""
     _check_operands(q4, k4, v4)
     b, h, sq, d = q4.shape
-    sk = k4.shape[2]
     for name, t in (("out", o4), ("dout", do4), ("dq", dq4), ("dk", dk4),
                     ("dv", dv4)):
         if t.dtype != q4.dtype or t.stride(-1) != 1:
@@ -621,18 +629,59 @@ def _launch_bwd(q4, k4, v4, o4, do4, lse, glse, dq4, dk4, dv4, causal):
                               or not t.is_contiguous()
                               or tuple(t.shape) != (b, h, sq)):
             raise ValueError(f"{name} must be contiguous fp32 (b, h, s_q)")
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q4.device)
+    qs = torch.empty((b, h, sq, d), dtype=q4.dtype, device=q4.device)
+    args = (q4, k4, v4, o4, do4, lse, glse, delta, qs, dq4, dk4, dv4,
+            causal)
+    _launch_dq(*args)
+    _launch_dkdv(*args)
+
+
+def _launch_dq(*args):
+    """Kernel G: dq, and the delta and qs scratches (bf16)."""
+    _bwd_entry("flash_attention_bwd_dq", *args)
+
+
+def _launch_dkdv(*args):
+    """Kernel F: dk and dv, reading G's delta and qs (bf16)."""
+    _bwd_entry("flash_attention_bwd_dkdv", *args)
+
+
+def _bwd_entry(entry, q4, k4, v4, o4, do4, lse, glse, delta, qs, dq4, dk4,
+               dv4, causal):
+    b, h, sq, d = q4.shape
+    sk = k4.shape[2]
     q_scale, dq_scale = _scales(d, q4.dtype)
     lib = _library()
     with torch.cuda.device(q4.device):
-        rc = lib.flash_attention_bwd(
+        rc = getattr(lib, entry)(
             q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), o4.data_ptr(),
             do4.data_ptr(), lse.data_ptr(),
-            None if glse is None else glse.data_ptr(),
-            dq4.data_ptr(), dk4.data_ptr(), dv4.data_ptr(),
+            None if glse is None else glse.data_ptr(), delta.data_ptr(),
+            qs.data_ptr(), dq4.data_ptr(), dk4.data_ptr(), dv4.data_ptr(),
             _strides(q4, k4, v4, o4, do4, dq4, dk4, dv4), b, h, sq, sk, d,
             int(causal), q_scale, dq_scale, _DTYPE_CODE[q4.dtype],
             _stream(q4))
-    _raise_on(rc, "flash_attention_bwd", q4, sk)
+    _raise_on(rc, entry, q4, sk)
+
+
+def backward_occupancy(d: int) -> dict:
+    """The bf16 backward kernels' footprint at head_dim `d` on this card:
+    {"G": ..., "F": ...}, each {"smem_bytes", "threads", "blocks_per_sm"}
+    (dynamic shared memory a block, threads a block, and the blocks an SM
+    holds by the runtime's occupancy calculator)."""
+    lib = _library()
+    out = {}
+    for name, code in (("G", 1), ("F", 2)):
+        vals = [ctypes.c_int() for _ in range(3)]
+        rc = lib.flash_attention_bwd_occupancy(
+            d, code, *(ctypes.byref(v) for v in vals))
+        if rc != 0:
+            raise RuntimeError(f"flash_attention_bwd_occupancy(d={d}): "
+                               + _ERRORS.get(rc, f"cudaError_t {rc}"))
+        out[name] = dict(zip(("smem_bytes", "threads", "blocks_per_sm"),
+                             (v.value for v in vals)))
+    return out
 
 
 def _launch_variant(q, k, v, variant, n_heads, causal):
@@ -684,11 +733,16 @@ def _library() -> ctypes.CDLL:
         lib.flash_attention_fwd.argtypes = [
             P, P, P, P, P, S, I, I, I, I, I, I, F, I, P]
         lib.flash_attention_fwd.restype = I
-        lib.flash_attention_bwd.argtypes = [
-            P, P, P, P, P, P, P, P, P, P, S, I, I, I, I, I, I, F, F, I, P]
-        lib.flash_attention_bwd.restype = I
+        for entry in (lib.flash_attention_bwd_dq,
+                      lib.flash_attention_bwd_dkdv):
+            entry.argtypes = [P, P, P, P, P, P, P, P, P, P, P, P, S, I, I,
+                              I, I, I, I, F, F, I, P]
+            entry.restype = I
         lib.flash_fwd_variant.argtypes = [
             P, P, P, P, P, S, I, I, I, I, I, I, I, F, P]
         lib.flash_fwd_variant.restype = I
+        IP = ctypes.POINTER(ctypes.c_int)
+        lib.flash_attention_bwd_occupancy.argtypes = [I, I, IP, IP, IP]
+        lib.flash_attention_bwd_occupancy.restype = I
         lib._signatures_set = True
     return lib

@@ -30,6 +30,11 @@ ulp). Each tensor's error norm must also stay under a fraction of its
 norm (1e-5 fp32, 2e-3 bf16): ulp flips are rare and scattered, while a
 kernel wrong on one tile moves that tile's elements by their own size.
 
+The bf16 flash backward (G, then F) must also give the same bits on
+every run: each dq, dk and dv row has one owner and a fixed summation
+order. Operand windows whose base is not 16-byte aligned take the copy
+ring's plain-load branch and must still match.
+
 The fused encoder layer holds the output, dx and each of the 12 parameter
 grads apart. fp32: 2e-5 forward, 2e-4 grads (3e-4 causal) per element,
 scaled by the tensor's largest magnitude where that exceeds 1 (a weight
@@ -339,6 +344,80 @@ def test_flash_lse_grad_with_shorter_queries(card, dtype):
                _randn(bh, sq, dtype=torch.float32, seed=5)]
     _flash_check(fa.flash_attention_with_lse, [q, k, v], weights,
                  causal=True)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_backward_is_the_same_bits_every_run(card, d):
+    """G owns each dq row and F each dk, dv row, and every sum runs in
+    one order (no atomics): two backward runs give identical bits."""
+    b, s, h = 2, 640, 2
+    qkv = _randn(b, s, 3 * h * d, dtype=torch.bfloat16, seed=d)
+    w = _randn(b, s, h, d, dtype=torch.float32, seed=d + 1)
+    first = _flash_run(lambda x, **kw: fa.flash_attention_qkv(x, h, **kw),
+                       "kernel", [qkv], [w], causal=True)[1]
+    second = _flash_run(lambda x, **kw: fa.flash_attention_qkv(x, h, **kw),
+                        "kernel", [qkv], [w], causal=True)[1]
+    assert torch.equal(first[0], second[0])
+
+
+@pytest.mark.parametrize("d", [64, 256])
+def test_flash_unaligned_operands_match_plain(card, d):
+    """Every operand window starts one element into its storage, so no
+    head base is 16-byte aligned: the kernels stage and store those rows
+    with plain loads (the copy ring's layout branch)."""
+    b, s, h = 2, 96, 2
+    flat = _randn(b * s * 3 * h * d + 1, dtype=torch.bfloat16, seed=d)
+    w = _randn(b, s, h, d, dtype=torch.float32, seed=d + 2)
+
+    def entry(x, **kw):
+        qkv = x[1:].view(b, s, 3 * h * d)
+        assert qkv.data_ptr() % 16 != 0
+        return fa.flash_attention_qkv(qkv, h, **kw)
+
+    _flash_check(entry, [flat], [w], causal=True)
+
+
+@pytest.mark.parametrize("d", [64, 256])
+def test_flash_backward_unaligned_everything(card, d):
+    """The backward's two launches with q, k, v, o, do and the dq, dk, dv
+    destinations all one element into their storage: plain-load staging,
+    delta from an unaligned o, element stores."""
+    b, h, s = 2, 2, 96
+
+    def view(seed=None):
+        n = b * h * s * d + 1
+        flat = (torch.zeros(n, device="cuda", dtype=torch.bfloat16)
+                if seed is None else
+                _randn(n, dtype=torch.bfloat16, seed=seed))
+        return flat[1:].view(b, h, s, d)
+
+    q4, k4, v4, do4 = (view(seed=d + i) for i in range(4))
+    o4 = view()
+    o, lse = fa.flash_attention_plain(q4, k4, v4, causal=True)
+    o4.copy_(o)
+    dq4, dk4, dv4 = view(), view(), view()
+    fa._launch_bwd(q4, k4, v4, o4, do4, lse, None, dq4, dk4, dv4, True)
+    want = fa.flash_attention_plain_bwd(q4, k4, v4, o4, do4, lse,
+                                        causal=True)
+    torch.cuda.synchronize()
+    for got, ref in zip((dq4, dk4, dv4), want):
+        got, ref = got.float(), ref.float()
+        torch.testing.assert_close(got, ref, atol=TOL[torch.bfloat16][0],
+                                   rtol=TOL[torch.bfloat16][1])
+        rel = float((got - ref).norm() / ref.norm())
+        assert rel <= FLASH_REL[torch.bfloat16], rel
+
+
+def test_flash_long_sequence_matches_plain(card):
+    """b=1, s=8192, packed (12 heads of 64): 128 query and key tiles a
+    head, the row behind chip_smoke's long-sequence timings."""
+    b, s, h, d = 1, 8192, 12, 64
+    inputs = [_randn(b, s, h, d, dtype=torch.bfloat16, seed=i)
+              for i in range(3)]
+    w = _randn(b, s, h, d, dtype=torch.float32, seed=3)
+    before = fa.LAUNCHES["flash_bwd_packed"]
+    _flash_check(fa.flash_attention, inputs, [w], causal=True)
+    assert fa.LAUNCHES["flash_bwd_packed"] == before + 1
 
 
 def test_flash_wrapper_refusals(card):

@@ -94,7 +94,8 @@ def test_flash_kernel_source_and_sm90a_build():
 
     source = (PORT / "csrc" / "flash_attention.cu").read_text()
     assert "sm_90a" in source
-    for entry in ("flash_attention_fwd", "flash_attention_bwd"):
+    for entry in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                  "flash_attention_bwd_dkdv"):
         assert re.search(rf"^(extern \"C\" )?int {entry}\(", source,
                          re.M), entry
     assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
@@ -216,11 +217,12 @@ TRAIN_SLICE = ["data/sharding.py", "data/lm_corpus.py", "data/datasets.py",
                "config.py", "cli.py", "utils/profiling.py", "utils/xprof.py",
                "ops/flash_attention.py", "experiments/flash_variants.py",
                "experiments/flash_ablate.py", "experiments/flash_4d.py",
-               "experiments/flash_profile.py", "experiments/flash_time.py"]
+               "experiments/flash_profile.py", "experiments/flash_time.py",
+               "experiments/flash_bwd_ablate.py"]
 STDLIB = ("__future__", "typing", "argparse", "collections", "contextlib",
           "ctypes", "dataclasses", "gzip", "json", "logging", "math", "os",
-          "pathlib", "pickle", "shutil", "socket", "struct", "subprocess",
-          "sys", "tempfile", "threading", "time", "warnings")
+          "pathlib", "pickle", "shutil", "socket", "statistics", "struct",
+          "subprocess", "sys", "tempfile", "threading", "time", "warnings")
 
 
 @pytest.mark.parametrize("module", TRAIN_SLICE)
