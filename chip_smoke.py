@@ -8,9 +8,10 @@ Phases, each of which raises on failure (nothing is caught and passed):
 
 1. setup: print the card's name and power limit (nvidia-smi), build the
    CUDA kernels from csrc/ with nvcc (all four sources at once) and print
-   ptxas's register and spill lines; then each flash backward kernel's
-   ptxas lines by name, and per head_dim the bf16 G and F blocks' shared
-   memory, threads and blocks an SM (the runtime's occupancy calculator);
+   ptxas's register and spill lines; then the bf16 flash kernels' (E, G,
+   F) and kernel J's ptxas lines by name, and per head_dim the E, G and F
+   blocks' shared memory, threads and blocks an SM (the runtime's
+   occupancy calculator), and J's per tile width;
 2. kernels: hold each kernel against its plain PyTorch version at lm_base
    shapes (h=12, hd=64) and print its device time (CUDA events around one
    call queued behind a spin kernel, L2 flushed before each, median of
@@ -773,22 +774,31 @@ def check_flash(torch, F, fa, *, label, route, b, h, sq, sk, d, dtype,
     return rows
 
 
-def flash_backward_resources(cuda_build, fa) -> None:
-    """Each instantiated backward kernel's ptxas lines (registers, spill
-    bytes), then per head_dim the bf16 G and F blocks' dynamic shared
-    memory, threads and blocks an SM (the runtime's occupancy
-    calculator)."""
-    found = cuda_build.kernel_resources(
-        cuda_build.ptxas_info.get("flash_attention", ""))
-    for name, lines in found.items():
-        if name.startswith("flash_bwd_"):
-            log(f"  ptxas {name}: " + "; ".join(
-                line.split(":", 1)[-1].strip() for line in lines))
+def kernel_resources(cuda_build, fa, gm) -> None:
+    """The ptxas lines (registers, spill bytes, static shared memory) of
+    each instantiated bf16 flash kernel (E, G, F) and of kernel J, then
+    their blocks' dynamic shared memory, threads and blocks an SM (the
+    runtime's occupancy calculator): E, G and F per head_dim, J (the
+    Hopper kernel, `gmm_kernel<BN, TRANS, F32OUT>`) per tile width."""
+    for source, prefixes in (("flash_attention", ("flash_fwd_tc_",
+                                                  "flash_bwd_")),
+                             ("grouped_matmul", ("gmm_kernel<",))):
+        found = cuda_build.kernel_resources(
+            cuda_build.ptxas_info.get(source, ""))
+        for name, lines in found.items():
+            if name.startswith(prefixes):
+                log(f"  ptxas {name}: " + "; ".join(
+                    line.split(":", 1)[-1].strip() for line in lines))
     for d in (32, 64, 128, 256):
-        occ = fa.backward_occupancy(d)
-        log(f"  flash backward bf16 d={d}: " + "; ".join(
+        occ = fa.occupancy(d)
+        log(f"  flash bf16 d={d}: " + "; ".join(
             f"{k} {v['smem_bytes']} B shared x {v['threads']} threads, "
             f"{v['blocks_per_sm']} blocks/SM" for k, v in occ.items()))
+    for block_n in gm.GMM_BLOCK_N:
+        occ = gm.gmm_occupancy(block_n)
+        log(f"  grouped matmul J bf16 tile 128 x {block_n}: "
+            f"{occ['smem_bytes']} B shared x {occ['threads']} threads, "
+            f"{occ['blocks_per_sm']} blocks/SM")
 
 
 def flash_kernel_phase(torch, F, fa, flush) -> dict:
@@ -2322,7 +2332,7 @@ def main() -> int:
         for line in info.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas[{name}]: {line.strip()}")
-    flash_backward_resources(cuda_build, fa)
+    kernel_resources(cuda_build, fa, gm)
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     log(f"kernel phase, flat cache (b, L, cur, dtype; device times are "

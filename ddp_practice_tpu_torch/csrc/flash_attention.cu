@@ -52,8 +52,8 @@
 // worth of the card's 3.35 TB/s next to ~52 GFLOP forward. The peak is the
 // tensor cores' 989 TFLOP/s (bf16); fp32 runs outside them at 67 TFLOP/s.
 //
-// Design of E and of the fp32 F and G (a simple first kernel). A block of
-// 256 threads owns one (batch*head, 64-row tile) and streams the other
+// Design of the fp32 E, F and G (a simple first kernel). A block of 256
+// threads owns one (batch*head, 64-row tile) and streams the other
 // operand's tiles through shared memory; each thread owns a 4x4 patch of
 // the score tile (16 row groups x 16 column groups, so a row's reductions
 // stay inside one half warp), where the mask, the online softmax and the
@@ -62,19 +62,15 @@
 // sees the key tile; G (one block per query tile) stops at its last
 // visible key tile. The fp32 F and G each recompute delta per query tile
 // from do and o, as _dq_kernel_packed does; nothing is read back to the
-// host.
-//   fp32: the products are FMAs on the CUDA cores (TF32 would break the
-//     reference's fp32 tolerances), over tiles staged as fp32 with rows
-//     padded by one to keep the banks apart; each thread keeps its rows
-//     of the output accumulator in registers.
-//   bf16 E: the products run on the tensor cores through WMMA (mma.sync
-//     16x16x16, fp32 accumulation) over bf16 tiles; score tiles pass
-//     through shared memory as fp32 for the threads' patches (see the
-//     tensor-core section below), and the loads are synchronous.
-//   bf16 F and G: redesigned for Hopper (their own section below): G
-//     first, then F; scores and accumulators in registers, mma.sync
-//     m16n8k16 fed by ldmatrix, a two-stage cp.async ring, delta computed
-//     once per query row by G.
+// host. The products are FMAs on the CUDA cores (TF32 would break the
+// reference's fp32 tolerances), over tiles staged as fp32 with rows
+// padded by one to keep the banks apart; each thread keeps its rows of the
+// output accumulator in registers.
+// The bf16 E, F and G are designed for Hopper (their own sections below):
+// scores and accumulators in registers, mma.sync m16n8k16 fed by
+// ldmatrix, a two-stage cp.async ring, ex2.approx, an unmasked loop for
+// interior tiles; the backward runs G first (it writes delta once per
+// query row), then F.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -579,17 +575,15 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ------------------------------------------------ tensor-core variants
-// The bf16 kernel E (F and G have their own section below; the variants
-// reuse these helpers): the same arithmetic and rounding points as
-// the kernels above, with every product on the tensor cores (WMMA,
-// mma.sync 16x16x16 bf16 tiles, fp32 accumulation; products of bf16
-// values are exact in fp32, so only the summation order differs). Tiles
-// stay in shared memory as bf16 (rows padded by 8 elements); score tiles
-// go through shared memory as fp32, where the threads apply the mask, the
-// online softmax and the rounding with the 16 x 16 thread patches above.
-// Eight warps split each product's 16 x 16 output tiles. E keeps its
-// output accumulator in shared memory (it is rescaled per key tile).
+// ------------------------------------- WMMA helpers of the variants
+// The forward variants (#12, their own section below) run their products
+// on the tensor cores through WMMA (mma.sync 16x16x16 bf16 tiles, fp32
+// accumulation; products of bf16 values are exact in fp32, so only the
+// summation order differs) over bf16 tiles in shared memory (rows padded
+// by 8 elements); score tiles go through shared memory as fp32, where the
+// threads apply the mask, the online softmax and the rounding with the
+// 16 x 16 thread patches above. Eight warps split each product's 16 x 16
+// output tiles. (Kernel E, F and G have their own sections below.)
 using bf16 = __nv_bfloat16;
 namespace wmma = nvcuda::wmma;
 using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16,
@@ -605,56 +599,11 @@ template <int D> struct TcTile {
   static constexpr int LDH = D + 8;       // bf16 (ROWS, D) tiles
   static constexpr int LDP = ROWS + 8;    // bf16 (ROWS, ROWS) tiles
   static constexpr int LDF = ROWS + 4;    // fp32 (ROWS, ROWS) score tiles
-  static constexpr int LDO = D + 4;       // fp32 (ROWS, D) tiles
-  static constexpr int RT = ROWS / 16, CT = ROWS / 16, DT = D / 16;
   static constexpr int KT = D / 16;       // 16-wide steps over head_dim
   static constexpr int ST = ROWS / 16;    // 16-wide steps over a tile
-  // output 16 x 16 tiles per warp: of a (ROWS, ROWS) and a (ROWS, D)
+  // output 16 x 16 tiles per warp of a (ROWS, ROWS) product
   static constexpr int SPW = ST * ST / 8;
-  static constexpr int OPW = ST * KT < 8 ? 1 : ST * KT / 8;
-  static constexpr size_t HB = size_t(ROWS) * LDH * 2;   // bytes
-  static constexpr size_t PB = size_t(ROWS) * LDP * 2;
-  static constexpr size_t FB = size_t(ROWS) * LDF * 4;
-  static constexpr size_t OB = size_t(ROWS) * LDO * 4;
-  static constexpr size_t kFwdSmem = 3 * HB + FB + PB + OB;
 };
-
-// Stage rows [row0, row0 + n) of one head into a (ROWS, LDH) bf16 tile,
-// zero past n; `scale` > 0 makes it round_bf16(x * scale). 16-byte loads
-// when the rows allow them (the fused-QKV and packed layouts do).
-template <int D, int ROWS>
-__device__ __forceinline__ void load_tile_bf16(bf16* dst, const bf16* src,
-                                               long long ss, int row0, int n,
-                                               float scale) {
-  constexpr int LDH = D + 8, V = D / 8;
-  const bool vec = ((reinterpret_cast<uintptr_t>(src) | (ss * 2)) & 15) == 0;
-  if (vec) {
-    for (int e = threadIdx.x; e < ROWS * V; e += kThreads) {
-      const int r = e / V, c = (e % V) * 8;
-      uint4 x = make_uint4(0, 0, 0, 0);
-      if (r < n) {
-        x = *reinterpret_cast<const uint4*>(src + (row0 + r) * ss + c);
-        if (scale > 0.f) {
-          bf16* h = reinterpret_cast<bf16*>(&x);
-#pragma unroll
-          for (int i = 0; i < 8; ++i)
-            h[i] = __float2bfloat16_rn(__bfloat162float(h[i]) * scale);
-        }
-      }
-      *reinterpret_cast<uint4*>(dst + r * LDH + c) = x;
-    }
-    return;
-  }
-  for (int e = threadIdx.x; e < ROWS * D; e += kThreads) {
-    const int r = e / D, c = e % D;
-    float x = 0.f;
-    if (r < n) {
-      x = __bfloat162float(src[(row0 + r) * ss + c]);
-      if (scale > 0.f) x = round_to<bf16>(x * scale);
-    }
-    dst[r * LDH + c] = __float2bfloat16_rn(x);
-  }
-}
 
 // C (ROWS, ROWS) fp32 = A (ROWS, D) . B (ROWS, D)^T, both bf16 row-major
 // in shared memory; the 8 warps split the 16 x 16 output tiles.
@@ -678,151 +627,6 @@ __device__ __forceinline__ void mma_abt(float* c, const bf16* a,
     }
     wmma::store_matrix_sync(c + tm * 16 * TL::LDF + tn * 16, acc, TL::LDF,
                             wmma::mem_row_major);
-  }
-}
-
-// acc[t] += P (ROWS, ROWS) . X (ROWS, D) for this warp's output tiles, P
-// and X bf16 row-major in shared memory. Tile t of warp w is output tile
-// w + 8t of the (ROWS/16, D/16) grid (at D=32 the last four warps idle).
-template <int D>
-__device__ __forceinline__ void mma_px(FragC* acc, const bf16* p,
-                                       const bf16* x) {
-  using TL = TcTile<D>;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int t = 0; t < TL::OPW; ++t) {
-    const int tile = warp + 8 * t;
-    if (tile >= TL::ST * TL::KT) break;
-    const int tm = tile / TL::KT, tn = tile % TL::KT;
-#pragma unroll
-    for (int kk = 0; kk < TL::ST; ++kk) {
-      FragA fa;
-      FragB fb;
-      wmma::load_matrix_sync(fa, p + tm * 16 * TL::LDP + kk * 16, TL::LDP);
-      wmma::load_matrix_sync(fb, x + kk * 16 * TL::LDH + tn * 16, TL::LDH);
-      wmma::mma_sync(acc[t], fa, fb, acc[t]);
-    }
-  }
-}
-
-// Store this warp's accumulators as a (ROWS, LDO) fp32 tile.
-template <int D>
-__device__ __forceinline__ void store_acc(float* dst, const FragC* acc) {
-  using TL = TcTile<D>;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int t = 0; t < TL::OPW; ++t) {
-    const int tile = warp + 8 * t;
-    if (tile >= TL::ST * TL::KT) break;
-    const int tm = tile / TL::KT, tn = tile % TL::KT;
-    wmma::store_matrix_sync(dst + tm * 16 * TL::LDO + tn * 16, acc[t],
-                            TL::LDO, wmma::mem_row_major);
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void load_acc(FragC* acc, const float* src) {
-  using TL = TcTile<D>;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int t = 0; t < TL::OPW; ++t) {
-    const int tile = warp + 8 * t;
-    if (tile >= TL::ST * TL::KT) break;
-    const int tm = tile / TL::KT, tn = tile % TL::KT;
-    wmma::load_matrix_sync(acc[t], src + tm * 16 * TL::LDO + tn * 16,
-                           TL::LDO, wmma::mem_row_major);
-  }
-}
-
-// ---------------------------------------------------- kernel E, bf16
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_tc_kernel(const Params p) {
-  using TL = TcTile<D>;
-  constexpr int ROWS = TL::ROWS, RT = TL::RT, CT = TL::CT, DT = TL::DT;
-  extern __shared__ float smem[];
-  char* base = reinterpret_cast<char*>(smem);
-  bf16* sQ = reinterpret_cast<bf16*>(base);
-  bf16* sK = reinterpret_cast<bf16*>(base + TL::HB);
-  bf16* sV = reinterpret_cast<bf16*>(base + 2 * TL::HB);
-  float* sS = reinterpret_cast<float*>(base + 3 * TL::HB);
-  bf16* sP = reinterpret_cast<bf16*>(base + 3 * TL::HB + TL::FB);
-  float* sO = reinterpret_cast<float*>(base + 3 * TL::HB + TL::FB + TL::PB);
-
-  const int tid = threadIdx.x, rg = tid >> 4, cg = tid & 15;
-  const int bh = blockIdx.y, b = bh / p.h, hh = bh - b * p.h;
-  const int q0 = blockIdx.x * ROWS;
-  const int nq = min(ROWS, p.sq - q0);
-  const bf16* kp = head_ptr<bf16>(p.k, p.st[kK], b, hh);
-  const bf16* vp = head_ptr<bf16>(p.v, p.st[kV], b, hh);
-  load_tile_bf16<D, ROWS>(sQ, head_ptr<bf16>(p.q, p.st[kQ], b, hh),
-                          p.st[kQ][2], q0, nq, p.q_scale);
-  for (int e = tid; e < ROWS * TL::LDO; e += kThreads) sO[e] = 0.f;
-
-  float m[RT], l[RT];
-#pragma unroll
-  for (int i = 0; i < RT; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-  }
-  const int k_end =
-      p.causal ? min(p.sk, q0 + nq - 1 + p.offset + 1) : p.sk;
-  for (int k0 = 0; k0 < k_end; k0 += ROWS) {
-    const int nk = min(ROWS, p.sk - k0);
-    __syncthreads();   // the previous tile's readers are done
-    load_tile_bf16<D, ROWS>(sK, kp, p.st[kK][2], k0, nk, 0.f);
-    load_tile_bf16<D, ROWS>(sV, vp, p.st[kV][2], k0, nk, 0.f);
-    __syncthreads();
-    mma_abt<D>(sS, sQ, sK);
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < RT; ++i) {
-      const int r = rg * RT + i, qi = q0 + r;
-      float s[CT], mt = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < CT; ++j) {
-        const int kj = k0 + cg + 16 * j;
-        s[j] = sS[r * TL::LDF + cg + 16 * j];
-        if (kj >= p.sk)
-          s[j] = -INFINITY;
-        else if (p.causal && kj > qi + p.offset)
-          s[j] = kMasked;
-        mt = fmaxf(mt, s[j]);
-      }
-      const float m_new = fmaxf(m[i], row_max(mt));
-      const float alpha = expf(m[i] - m_new);
-      float ps = 0.f;
-#pragma unroll
-      for (int j = 0; j < CT; ++j) {
-        const float pr = expf(s[j] - m_new);
-        ps += pr;
-        sP[r * TL::LDP + cg + 16 * j] = __float2bfloat16_rn(pr);
-      }
-      l[i] = alpha * l[i] + row_sum(ps);
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < DT; ++j) sO[r * TL::LDO + cg + 16 * j] *= alpha;
-    }
-    __syncthreads();
-    FragC acc[TL::OPW];
-    load_acc<D>(acc, sO);
-    mma_px<D>(acc, sP, sV);
-    store_acc<D>(sO, acc);
-  }
-  __syncthreads();
-  bf16* op = head_ptr_mut<bf16>(p.out, p.st[kO], b, hh);
-#pragma unroll
-  for (int i = 0; i < RT; ++i) {
-    const int r = rg * RT + i;
-    if (r >= nq) continue;
-    const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
-    bf16* row = op + (q0 + r) * p.st[kO][2];
-#pragma unroll
-    for (int j = 0; j < DT; ++j)
-      row[cg + 16 * j] = __float2bfloat16_rn(sO[r * TL::LDO + cg + 16 * j] * inv);
-    if (cg == 0)
-      p.lse[static_cast<long long>(bh) * p.sq + q0 + r] =
-          m[i] + logf(fmaxf(l[i], 1e-30f));
   }
 }
 
@@ -1406,6 +1210,303 @@ __global__ void __launch_bounds__(BwdTile<D>::THREADS, BwdTile<D>::F_BLOCKS)
                         p.st[kDV][2], sV, k0, nk);
 }
 
+// ---------------------------------------------------- kernel E, bf16
+// Replaces the reference's _fwd_kernel_packed / _fwd_kernel (called by
+// _flash_fwd_packed and _flash_fwd) of ddp_practice_tpu/ops/flash_attention.py
+// for bf16 operands; the arithmetic and rounding points are the header's.
+// Bound: operations. The forward needs 4*b*h*pairs*d flops (pairs: the
+// visible (query, key) pairs) over the tensor cores' 989.4 TFLOP/s: 0.052
+// ms at the lm_base shape, whose ~12 MB of operands and results take
+// 0.004 ms at 3.35 TB/s.
+// Design (the pieces of F and G above, carried over to the forward):
+//   - A block of four warps owns a tile of queries, 16 RT rows a warp (RT
+//     16-row tiles: 2 at d <= 64, so each K and V fragment a warp loads
+//     feeds two row tiles, else 1), and walks the key tiles up to the last
+//     one its rows see (causal: bottom-right offset s_k - s_q), the
+//     heaviest query tiles first. Each warp's qs =
+//     round_bf16(q * scale) rows are rounded once in shared memory and
+//     loaded once as mma.sync A fragments (ldmatrix), which stay in
+//     registers for the whole key loop (at d=256 they are read from shared
+//     memory per key tile: 128 accumulators a thread leave no room).
+//   - Scores and the output accumulator live in registers: S = qs.K^T on
+//     mma.sync m16n8k16 into fp32 fragments; the row max and the rescale
+//     factor from quad shuffles; p = 2^(s log2(e) - m log2(e)) on
+//     ex2.approx; l sums the unrounded p (per thread, reduced over the
+//     quad once at the end); p packed as bf16 straight into the A operand
+//     of acc += P.V, with V read through ldmatrix .trans. No fp32 score or
+//     accumulator tile touches shared memory.
+//   - K and V stream through a ring of two shared-memory stages filled by
+//     cp.async: tile i+1's copy is in flight while tile i multiplies, one
+//     barrier a tile; rows past s_k are zero-filled (src-size 0). An
+//     operand whose head base or row stride is not 16-byte aligned is
+//     staged with plain loads at the same point of the schedule.
+//   - Tiles wholly inside the visible triangle (and inside both lengths)
+//     run a copy of the elementwise loop without the mask.
+//   - The output, acc / l rounded to bf16, leaves through this warp's rows
+//     of the query tile as 16-byte row chunks where the output's base and
+//     row stride allow it (the packed and fused-QKV layouts do); lse =
+//     m + log(max(l, 1e-30)) is written once per row.
+//   - Launch bounds per head_dim (FwdTile::BLOCKS) from the card's ptxas
+//     and occupancy readings.
+template <int D> struct FwdTile {
+  static constexpr int WARPS = 4;         // a block's warps
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int LD = D + 8;        // padded bf16 row
+  static constexpr int STAGES = 2;        // the copy ring
+  // 16-row tiles a warp: two at d <= 64 share every K and V fragment a
+  // warp loads (and give the scheduler two independent chains)
+  static constexpr int RT = D <= 64 ? 2 : 1;
+  static constexpr int QUERIES = 16 * RT * WARPS;
+  static constexpr int KEYS = D == 256 ? 32 : 64;
+  static constexpr bool QREG = D <= 128;  // qs fragments in registers
+  // blocks an SM the kernel is compiled for (a register cap of 65536 /
+  // (128 x blocks)): unbounded, E takes 204 and 236 registers at d = 32
+  // and 64; held to 168 at d = 32 (three blocks) it spills nothing and
+  // runs faster, at d = 64 it spills and runs slower
+  // (experiments/flash_fwd_ablate.py)
+  static constexpr int BLOCKS = D == 32 ? 3 : 2;
+  static constexpr size_t QT = size_t(QUERIES) * LD * 2;
+  static constexpr size_t KV = size_t(KEYS) * LD * 2;
+  static constexpr size_t kSmem = QT + STAGES * 2 * KV;
+  static_assert(KEYS % 16 == 0 && D % 16 == 0, "whole k16 steps");
+};
+
+// One block per (query tile, batch*head).
+template <int D>
+__global__ void __launch_bounds__(FwdTile<D>::THREADS, FwdTile<D>::BLOCKS)
+    flash_fwd_tc_kernel(const Params p) {
+  using TL = FwdTile<D>;
+  constexpr int LD = TL::LD, NT = TL::THREADS, BQ = TL::QUERIES;
+  constexpr int RT = TL::RT, BK = TL::KEYS, NK8 = BK / 8, ND8 = D / 8;
+  constexpr int KD = D / 16;
+  extern __shared__ float smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem);              // (BQ, LD) qs
+  bf16* ring = sQ + BQ * LD;                             // STAGES x (K, V)
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3, r0 = 16 * RT * warp;
+  // the heaviest tiles (the last under causal masking) start first
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int bh = blockIdx.y, b = bh / p.h, hh = bh - b * p.h;
+  const int q0 = qt * BQ, nq = min(BQ, p.sq - q0);
+  const bf16* qp = head_ptr<bf16>(p.q, p.st[kQ], b, hh);
+  const bf16* kp = head_ptr<bf16>(p.k, p.st[kK], b, hh);
+  const bf16* vp = head_ptr<bf16>(p.v, p.st[kV], b, hh);
+  const long long sq_ = p.st[kQ][2], sk_ = p.st[kK][2], sv = p.st[kV][2];
+  const bool vq = aligned16(qp, sq_), vk = aligned16(kp, sk_);
+  const bool vv = aligned16(vp, sv);
+
+  const int k_end =
+      p.causal ? min(p.sk, q0 + nq - 1 + p.offset + 1) : p.sk;
+  const int n_tiles = (k_end + BK - 1) / BK;
+  copy_tile<D, BQ, NT>(sQ, qp, sq_, q0, nq, vq, p.q_scale);
+  copy_tile<D, BK, NT>(ring, kp, sk_, 0, min(BK, p.sk), vk, 0.f);
+  copy_tile<D, BK, NT>(ring + BK * LD, vp, sv, 0, min(BK, p.sk), vv, 0.f);
+  cp_async_commit();
+  cp_async_wait_all();
+  if (vq) scale_tile<D, BQ, NT>(sQ, p.q_scale);
+  __syncthreads();
+
+  // this warp's qs rows as A fragments: row tile j, k16 step kk
+  const int arow = r0 + (lane & 15), acol = (lane >> 4) * 8;
+  uint32_t qf[RT][TL::QREG ? KD : 1][4];
+  if constexpr (TL::QREG) {
+#pragma unroll
+    for (int j = 0; j < RT; ++j)
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk)
+        ldsm_x4(qf[j][kk], sQ + (arow + 16 * j) * LD + kk * 16 + acol);
+  }
+  const int brow = (lane & 7) + ((lane >> 4) << 3);
+  const int bcol = ((lane >> 3) & 1) * 8;
+  const int xrow = lane & 15, xcol = (lane >> 4) * 8;
+
+  // rows 16 j + g and 16 j + g + 8 of this warp: the running max, this
+  // thread's part of the running sum, and the accumulator fragments
+  float m_r[RT][2], l_r[RT][2], acc[RT][ND8][4];
+#pragma unroll
+  for (int j = 0; j < RT; ++j) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      m_r[j][r] = -INFINITY;
+      l_r[j][r] = 0.f;
+    }
+#pragma unroll
+    for (int n = 0; n < ND8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[j][n][i] = 0.f;
+  }
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = it * BK;
+    const bf16* sK = ring + (it & 1) * 2 * BK * LD;
+    const bf16* sV = sK + BK * LD;
+    if (it > 0) {
+      cp_async_wait_all();
+      __syncthreads();   // tile `it` landed; tile it-1's readers are done
+    }
+    if (it + 1 < n_tiles) {   // the next tile's copy overlaps this tile
+      const int k1 = k0 + BK, n1 = min(BK, p.sk - k1);
+      bf16* nK = ring + ((it + 1) & 1) * 2 * BK * LD;
+      copy_tile<D, BK, NT>(nK, kp, sk_, k1, n1, vk, 0.f);
+      copy_tile<D, BK, NT>(nK + BK * LD, vp, sv, k1, n1, vv, 0.f);
+      cp_async_commit();
+    }
+    // s = qs . k^T for this warp's rows; each K fragment serves all RT
+    float s[RT][NK8][4];
+#pragma unroll
+    for (int j = 0; j < RT; ++j)
+#pragma unroll
+      for (int n = 0; n < NK8; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[j][n][i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t a[RT][4];
+#pragma unroll
+      for (int j = 0; j < RT; ++j) {
+        if constexpr (TL::QREG) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) a[j][i] = qf[j][kk][i];
+        } else {
+          ldsm_x4(a[j], sQ + (arow + 16 * j) * LD + kk * 16 + acol);
+        }
+      }
+#pragma unroll
+      for (int np = 0; np < NK8 / 2; ++np) {
+        uint32_t fb[4];
+        ldsm_x4(fb, sK + (np * 16 + brow) * LD + kk * 16 + bcol);
+#pragma unroll
+        for (int j = 0; j < RT; ++j) {
+          mma_bf16(s[j][2 * np], a[j], fb[0], fb[1]);
+          mma_bf16(s[j][2 * np + 1], a[j], fb[2], fb[3]);
+        }
+      }
+    }
+    const bool full = q0 + BQ <= p.sq && k0 + BK <= p.sk &&
+                      (!p.causal || k0 + BK - 1 <= q0 + p.offset);
+    auto to_p = [&](auto masked) {   // one copy of the loop per case
+#pragma unroll
+      for (int j = 0; j < RT; ++j) {
+        float mt[2] = {m_r[j][0], m_r[j][1]};
+#pragma unroll
+        for (int n = 0; n < NK8; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            if constexpr (decltype(masked)::value) {
+              const int row = q0 + r0 + 16 * j + g + 8 * (i >> 1);
+              const int key = k0 + n * 8 + 2 * t + (i & 1);
+              if (key >= p.sk || (p.causal && key > row + p.offset))
+                s[j][n][i] = -INFINITY;   // p = 0, as exp(-1e30 - m)
+            }
+            mt[i >> 1] = fmaxf(mt[i >> 1], s[j][n][i]);
+          }
+        float m2[2], alpha[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
+          mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
+          alpha[r] = exp2_approx((m_r[j][r] - mt[r]) * kLog2e);  // 0 first
+          m2[r] = mt[r] * kLog2e;
+          m_r[j][r] = mt[r];
+          l_r[j][r] *= alpha[r];
+        }
+#pragma unroll
+        for (int n = 0; n < NK8; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float pr =
+                exp2_approx(fmaf(s[j][n][i], kLog2e, -m2[i >> 1]));
+            s[j][n][i] = pr;
+            l_r[j][i >> 1] += pr;
+          }
+#pragma unroll
+        for (int n = 0; n < ND8; ++n) {
+          acc[j][n][0] *= alpha[0];
+          acc[j][n][1] *= alpha[0];
+          acc[j][n][2] *= alpha[1];
+          acc[j][n][3] *= alpha[1];
+        }
+      }
+    };
+    if (full)
+      to_p(std::false_type());
+    else
+      to_p(std::true_type());
+    // acc += p . v: p packed as bf16 A fragments (the m16n8 accumulator
+    // pair 2kk, 2kk+1 is the m16k16 A fragment of key step kk); each V
+    // fragment, read transposed, serves all RT
+#pragma unroll
+    for (int kk = 0; kk < NK8 / 2; ++kk) {
+      uint32_t a[RT][4];
+#pragma unroll
+      for (int j = 0; j < RT; ++j) {
+        a[j][0] = pack_bf16(s[j][2 * kk][0], s[j][2 * kk][1]);
+        a[j][1] = pack_bf16(s[j][2 * kk][2], s[j][2 * kk][3]);
+        a[j][2] = pack_bf16(s[j][2 * kk + 1][0], s[j][2 * kk + 1][1]);
+        a[j][3] = pack_bf16(s[j][2 * kk + 1][2], s[j][2 * kk + 1][3]);
+      }
+#pragma unroll
+      for (int dp = 0; dp < ND8 / 2; ++dp) {
+        uint32_t fb[4];
+        ldsm_x4_t(fb, sV + (kk * 16 + xrow) * LD + xcol + dp * 16);
+#pragma unroll
+        for (int j = 0; j < RT; ++j) {
+          mma_bf16(acc[j][2 * dp], a[j], fb[0], fb[1]);
+          mma_bf16(acc[j][2 * dp + 1], a[j], fb[2], fb[3]);
+        }
+      }
+    }
+  }
+
+  // out = acc / l as bf16 into this warp's rows of the query tile, then
+  // 16-byte row chunks; lse once per row
+  __syncwarp();   // this warp's qs rows are no longer read
+#pragma unroll
+  for (int j = 0; j < RT; ++j) {
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l_r[j][r] += __shfl_xor_sync(0xffffffffu, l_r[j][r], 1);
+      l_r[j][r] += __shfl_xor_sync(0xffffffffu, l_r[j][r], 2);
+      inv[r] = l_r[j][r] > 0.f ? 1.f / l_r[j][r] : 0.f;
+    }
+#pragma unroll
+    for (int n = 0; n < ND8; ++n) {
+      acc[j][n][0] *= inv[0];
+      acc[j][n][1] *= inv[0];
+      acc[j][n][2] *= inv[1];
+      acc[j][n][3] *= inv[1];
+    }
+    frag_to_tile<D, ND8>(sQ, acc[j], r0 + 16 * j, 0, 1.f);
+    if (t == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = r0 + 16 * j + g + 8 * r;
+        if (row < nq)
+          p.lse[static_cast<long long>(bh) * p.sq + q0 + row] =
+              m_r[j][r] + logf(fmaxf(l_r[j][r], 1e-30f));
+      }
+    }
+  }
+  __syncwarp();
+  const int rows = min(16 * RT, nq - r0);
+  bf16* op = head_ptr_mut<bf16>(p.out, p.st[kO], b, hh);
+  const long long so = p.st[kO][2];
+  if (aligned16(op, so)) {
+    for (int e = lane; e < rows * ND8; e += 32) {
+      const int r = e / ND8, c = (e % ND8) * 8;
+      *reinterpret_cast<uint4*>(op + (q0 + r0 + r) * so + c) =
+          *reinterpret_cast<const uint4*>(sQ + (r0 + r) * LD + c);
+    }
+  } else {
+    for (int e = lane; e < rows * D; e += 32) {
+      const int r = e / D, c = e % D;
+      op[(q0 + r0 + r) * so + c] = sQ[(r0 + r) * LD + c];
+    }
+  }
+}
+
 // ------------------------------------------- the forward variants (#12)
 // Compile-time variants of the bf16 forward for the reference's ablations
 // of kernel E, over folded (b*h, s, d) operands with d = 64:
@@ -1438,7 +1539,7 @@ __global__ void __launch_bounds__(BwdTile<D>::THREADS, BwdTile<D>::F_BLOCKS)
 enum VariantKind { kVarV2 = 0, kVarV3, kVarV4, kVarV5, kVarNoMax };
 constexpr int kErrVariant = -4;    // variant / heads-per-block not compiled
 constexpr int kErrHeads = -5;      // b*h not divisible by heads per block
-constexpr int kErrPass = -6;       // not a backward pass
+constexpr int kErrPass = -6;       // not a pass of E, G or F
 
 struct VarParams {
   const bf16* q;
@@ -1676,7 +1777,7 @@ int opt_in_smem(void (*kernel)(Params), size_t bytes) {
 enum Pass { kPassFwd = 0, kPassDQ = 1, kPassDKDV = 2 };
 
 // fp32 runs the FMA kernels above (Tile), bf16 the tensor-core ones
-// (TcTile, BwdTile); only those instantiations are compiled.
+// (FwdTile, BwdTile); only those instantiations are compiled.
 template <typename T, int D>
 int launch(const Params& p, int bh, int pass, cudaStream_t stream) {
   void (*kernel)(Params);
@@ -1686,8 +1787,9 @@ int launch(const Params& p, int bh, int pass, cudaStream_t stream) {
     using BT = BwdTile<D>;
     if (pass == kPassFwd) {
       kernel = flash_fwd_tc_kernel<D>;
-      smem = TcTile<D>::kFwdSmem;
-      rows = TcTile<D>::ROWS;
+      smem = FwdTile<D>::kSmem;
+      rows = FwdTile<D>::QUERIES;
+      threads = FwdTile<D>::THREADS;
     } else if (pass == kPassDQ) {
       kernel = flash_bwd_dq_tc_kernel<D>;
       smem = BT::kGSmem;
@@ -1897,12 +1999,15 @@ extern "C" int flash_attention_bwd_dkdv(
 namespace {
 
 template <int D>
-int bwd_occupancy(int pass, int* smem, int* threads, int* blocks) {
+int tc_occupancy(int pass, int* smem, int* threads, int* blocks) {
   using BT = BwdTile<D>;
-  void (*kernel)(Params) = pass == kPassDQ ? flash_bwd_dq_tc_kernel<D>
-                                       : flash_bwd_dkdv_tc_kernel<D>;
-  *smem = static_cast<int>(pass == kPassDQ ? BT::kGSmem : BT::kFSmem);
-  *threads = BT::THREADS;
+  void (*kernel)(Params) = pass == kPassFwd  ? flash_fwd_tc_kernel<D>
+                           : pass == kPassDQ ? flash_bwd_dq_tc_kernel<D>
+                                             : flash_bwd_dkdv_tc_kernel<D>;
+  *smem = static_cast<int>(pass == kPassFwd  ? FwdTile<D>::kSmem
+                           : pass == kPassDQ ? BT::kGSmem
+                                             : BT::kFSmem);
+  *threads = pass == kPassFwd ? FwdTile<D>::THREADS : BT::THREADS;
   if (const int rc = opt_in_smem(kernel, *smem)) return rc;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
                                                        *threads, *smem);
@@ -1910,18 +2015,19 @@ int bwd_occupancy(int pass, int* smem, int* threads, int* blocks) {
 
 }  // namespace
 
-// The bf16 backward kernels' footprint at head_dim d (pass 1 = G, 2 = F):
+// The bf16 kernels' footprint at head_dim d (pass 0 = E, 1 = G, 2 = F):
 // the dynamic shared memory and threads a block takes, and the blocks an
 // SM holds by the runtime's occupancy calculator. Returns 0, a negative
 // code of this file, or a cudaError_t.
-extern "C" int flash_attention_bwd_occupancy(int d, int pass, int* smem,
-                                             int* threads, int* blocks) {
-  if (pass != kPassDQ && pass != kPassDKDV) return kErrPass;
+extern "C" int flash_attention_occupancy(int d, int pass, int* smem,
+                                         int* threads, int* blocks) {
+  if (pass != kPassFwd && pass != kPassDQ && pass != kPassDKDV)
+    return kErrPass;
   switch (d) {
-    case 32: return bwd_occupancy<32>(pass, smem, threads, blocks);
-    case 64: return bwd_occupancy<64>(pass, smem, threads, blocks);
-    case 128: return bwd_occupancy<128>(pass, smem, threads, blocks);
-    case 256: return bwd_occupancy<256>(pass, smem, threads, blocks);
+    case 32: return tc_occupancy<32>(pass, smem, threads, blocks);
+    case 64: return tc_occupancy<64>(pass, smem, threads, blocks);
+    case 128: return tc_occupancy<128>(pass, smem, threads, blocks);
+    case 256: return tc_occupancy<256>(pass, smem, threads, blocks);
     default: return kErrHeadDim;
   }
 }

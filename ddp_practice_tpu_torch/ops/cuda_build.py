@@ -106,9 +106,10 @@ def kernel_resources(info: str) -> dict:
 
 
 def _kernel_name(mangled: str) -> str:
-    """The kernel's name and integer template arguments from its mangled
-    symbol (the last length-prefixed part of its nested name), e.g.
-    flash_bwd_dkdv_tc_kernel<64>."""
+    """The kernel's name and integer and bool template arguments (a bool
+    as 0 or 1) from its mangled symbol (the last length-prefixed part of
+    its nested name), e.g. flash_bwd_dkdv_tc_kernel<64>, gmm_kernel<256, 0,
+    0>."""
     m = re.match(r"_ZN?", mangled)
     if m is None:
         return mangled
@@ -117,7 +118,7 @@ def _kernel_name(mangled: str) -> str:
         start = pos + n.end()
         name, pos = mangled[start:start + int(n.group())], \
             start + int(n.group())
-    args = re.findall(r"Li(\d+)E", mangled[pos:])
+    args = re.findall(r"L[ib](\d+)E", mangled[pos:])
     return name + (f"<{', '.join(args)}>" if args else "")
 
 

@@ -32,11 +32,11 @@ over the card's peak for the dtype (H100 SXM: 989.4e12 dense bf16 on the
 tensor cores, 67e12 fp32 outside them), against the bytes moved (each
 operand read once, each result written once) over 3.35 TB/s: at the
 training shapes operations bound it. bf16 operands run the products on
-the tensor cores with fp32 accumulation (E through WMMA with score tiles
-in shared memory, a simple first design; F and G redesigned for Hopper:
+the tensor cores with fp32 accumulation (E, F and G designed for Hopper:
 scores and accumulators in registers, mma.sync m16n8k16 fed by ldmatrix,
-a two-stage cp.async ring), fp32 operands as FMAs on the CUDA cores (TF32
-would break the fp32 tolerances). Times against the bound: PERF.md.
+a two-stage cp.async ring, p on ex2.approx), fp32 operands as FMAs on the
+CUDA cores (TF32 would break the fp32 tolerances). Times against the
+bound: PERF.md.
 
 The reference's ablations of the forward (experiments/flash_variants.py,
 flash_ablate.py, flash_4d.py; row #12 of the kernel table) are here too:
@@ -88,7 +88,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ERRORS = {-1: "head_dim not compiled (32, 64, 128 or 256; variants 64)",
            -3: "unsupported dtype", -4: "variant not compiled",
            -5: "b*h not divisible by the heads per block",
-           -6: "not a backward pass"}
+           -6: "not a pass of E, G or F"}
 _IMPLS = ("auto", "kernel", "plain")
 _forced: Optional[str] = None     # set by `forced_impl`
 
@@ -665,19 +665,19 @@ def _bwd_entry(entry, q4, k4, v4, o4, do4, lse, glse, delta, qs, dq4, dk4,
     _raise_on(rc, entry, q4, sk)
 
 
-def backward_occupancy(d: int) -> dict:
-    """The bf16 backward kernels' footprint at head_dim `d` on this card:
-    {"G": ..., "F": ...}, each {"smem_bytes", "threads", "blocks_per_sm"}
-    (dynamic shared memory a block, threads a block, and the blocks an SM
-    holds by the runtime's occupancy calculator)."""
+def occupancy(d: int) -> dict:
+    """The bf16 kernels' footprint at head_dim `d` on this card:
+    {"E": ..., "G": ..., "F": ...}, each {"smem_bytes", "threads",
+    "blocks_per_sm"} (dynamic shared memory a block, threads a block, and
+    the blocks an SM holds by the runtime's occupancy calculator)."""
     lib = _library()
     out = {}
-    for name, code in (("G", 1), ("F", 2)):
+    for name, code in (("E", 0), ("G", 1), ("F", 2)):
         vals = [ctypes.c_int() for _ in range(3)]
-        rc = lib.flash_attention_bwd_occupancy(
+        rc = lib.flash_attention_occupancy(
             d, code, *(ctypes.byref(v) for v in vals))
         if rc != 0:
-            raise RuntimeError(f"flash_attention_bwd_occupancy(d={d}): "
+            raise RuntimeError(f"flash_attention_occupancy(d={d}): "
                                + _ERRORS.get(rc, f"cudaError_t {rc}"))
         out[name] = dict(zip(("smem_bytes", "threads", "blocks_per_sm"),
                              (v.value for v in vals)))
@@ -742,7 +742,7 @@ def _library() -> ctypes.CDLL:
             P, P, P, P, P, S, I, I, I, I, I, I, I, F, P]
         lib.flash_fwd_variant.restype = I
         IP = ctypes.POINTER(ctypes.c_int)
-        lib.flash_attention_bwd_occupancy.argtypes = [I, I, IP, IP, IP]
-        lib.flash_attention_bwd_occupancy.restype = I
+        lib.flash_attention_occupancy.argtypes = [I, I, IP, IP, IP]
+        lib.flash_attention_occupancy.restype = I
         lib._signatures_set = True
     return lib

@@ -6,9 +6,11 @@ over megablox `gmm` and `tgmm`).
 groups; group e owns rows [off_e, off_e + gs_e) with off_e the exclusive
 cumulative sum. Three products:
 
-- `gmm(lhs (m, k), rhs (E, k, n))` -> (m, n) in lhs's dtype: the rows of
-  group e times `rhs[e]`. Rows past sum(group_sizes) come out zero
-  (megablox leaves them undefined; the sorted MoE path has none);
+- `gmm(lhs (m, k), rhs (E, k, n))` -> (m, n) in lhs's dtype (or fp32 from
+  bf16 operands with `out_dtype=torch.float32`, the reference's
+  `preferred_element_type`): the rows of group e times `rhs[e]`. Rows past
+  sum(group_sizes) come out zero (megablox leaves them undefined; the
+  sorted MoE path has none);
 - `gmm(lhs (m, n), rhs (E, k, n), transpose_rhs=True)` -> (m, k): the rows
   of group e times `rhs[e]ᵀ` (the input grad: dlhs = gmm(g, rhs,
   transpose_rhs=True));
@@ -28,10 +30,15 @@ through ctypes): kernel J (`gmm`, both rhs layouts; launches counted as
 device from `group_sizes`: nothing is read back to the host. J's grid has
 one row of blocks per (row tile, group) visit, m_tiles + E rows in all (a
 tile that straddles a group boundary is visited once per group it touches,
-with rows masked, as megablox's `group_offsets`/`m_tile_ids` metadata; one
-more visit writes the zero tail), and blocks past the last visit exit at
-once. K runs one block per (group, k tile, n tile), reducing over the
-group's rows in a fixed order: no atomics, the same bits every run.
+multiplies all its rows and stores only the group's, as megablox's
+`group_offsets`/`m_tile_ids` metadata; one more visit writes the zero
+tail), and blocks past the last visit exit at once. bf16 J runs on
+Hopper's wgmma, fed by a ring of TMA copies (128 x 256 output tiles; 128
+x 128 through `_launch_gmm(..., block_n=128)`); fp32 operands, and bf16
+ones that are not 16-byte aligned, take a ring-less WMMA/FMA kernel (a
+layout branch). K runs one block per (group, k tile, n tile), reducing
+over the group's rows in a fixed order: no atomics, the same bits every
+run.
 `gmm_schedule` and `gmm_emulated`/`tgmm_emulated` are that schedule in
 Python, pinned on the CPU against the plain versions.
 
@@ -62,10 +69,16 @@ import torch
 # its kernel and nowhere else
 LAUNCHES = {"gmm": 0, "gmm_trhs": 0, "tgmm": 0}
 
-# the kernels' tiles (csrc/grouped_matmul.cu Cfg): (rows, cols, depth)
-TILES = {torch.bfloat16: (128, 128, 32), torch.float32: (64, 64, 16)}
+# kernel J's tiles (rows, cols, depth): bf16 the Hopper kernel's
+# (csrc/grouped_matmul.cu WgTile<256>), fp32 the ring-less kernel's (Cfg)
+TILES = {torch.bfloat16: (128, 256, 64), torch.float32: (64, 64, 16)}
+# kernel K's (Cfg), and bf16 J's on operands TMA cannot address
+TGMM_TILES = {torch.bfloat16: (128, 128, 32), torch.float32: (64, 64, 16)}
+# the bf16 J's compiled tile widths (WgTile<BN>)
+GMM_BLOCK_N = (256, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_ERRORS = {-2: "bad shape", -3: "unsupported dtype"}
+_ERRORS = {-2: "bad shape", -3: "unsupported dtype",
+           -4: "tensor map refused (cuTensorMapEncodeTiled)"}
 _IMPLS = ("auto", "kernel", "plain")
 _forced: Optional[str] = None     # set by `forced_impl`
 
@@ -114,18 +127,19 @@ def _bounds(group_sizes: torch.Tensor, m: int):
 
 
 def gmm_plain(lhs: torch.Tensor, rhs: torch.Tensor,
-              group_sizes: torch.Tensor, *,
-              transpose_rhs: bool = False) -> torch.Tensor:
-    """Kernel J's arithmetic: per group, fp32 product rounded to lhs's
-    dtype; rows past the groups are zero."""
+              group_sizes: torch.Tensor, *, transpose_rhs: bool = False,
+              out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Kernel J's arithmetic: per group, fp32 product rounded to
+    `out_dtype` (lhs's by default); rows past the groups are zero."""
     m = lhs.shape[0]
     n = rhs.shape[1] if transpose_rhs else rhs.shape[2]
-    out = torch.zeros((m, n), dtype=lhs.dtype, device=lhs.device)
+    out = torch.zeros((m, n), dtype=out_dtype or lhs.dtype,
+                      device=lhs.device)
     for e, lo, hi in _bounds(group_sizes, m):
         if hi > lo:
             w = rhs[e].float()
             out[lo:hi] = (lhs[lo:hi].float() @ (w.T if transpose_rhs else w)
-                          ).to(lhs.dtype)
+                          ).to(out.dtype)
     return out
 
 
@@ -172,17 +186,20 @@ def gmm_grid_rows(m: int, num_groups: int, block_m: int) -> int:
 
 
 def gmm_emulated(lhs, rhs, group_sizes, *, transpose_rhs=False,
-                 tiles=None):
+                 tiles=None, out_dtype=None):
     """Kernel J's blocks in plain PyTorch, one grid cell at a time: the
-    visit of its grid row (early exit past the table), the tile's rows
-    masked to its group, fp32 accumulation over depth chunks, the tail
-    written zero. Returns (out, visits, exits); rows no block writes stay
-    NaN."""
+    visit of its grid row (early exit past the table), the whole row tile
+    multiplied (rows of other groups too, as the kernel's slices hold
+    them) and only the group's rows stored, fp32 accumulation over depth
+    slices that are zero past k, the tail written zero. Raises if a block
+    writes an element that another block wrote. Returns (out, visits,
+    exits); elements no block writes stay NaN."""
     bm, bn, bk = tiles or TILES[lhs.dtype]
     m, kd = lhs.shape
     n = rhs.shape[1] if transpose_rhs else rhs.shape[2]
     e_count = rhs.shape[0]
     out = torch.full((m, n), float("nan"), dtype=torch.float32)
+    writes = torch.zeros((m, n), dtype=torch.int32)
     table = gmm_schedule(group_sizes.tolist(), m, bm)
     exits = 0
     for v in range(gmm_grid_rows(m, e_count, bm)):
@@ -192,6 +209,7 @@ def gmm_emulated(lhs, rhs, group_sizes, *, transpose_rhs=False,
         e, t, lo, hi = table[v]
         for n0 in range(0, n, bn):
             cols = slice(n0, min(n0 + bn, n))
+            writes[lo:hi, cols] += 1
             if e == e_count:
                 out[lo:hi, cols] = 0.0
                 continue
@@ -202,14 +220,16 @@ def gmm_emulated(lhs, rhs, group_sizes, *, transpose_rhs=False,
             for k0 in range(0, kd, bk):
                 acc += rows[:, k0:k0 + bk] @ w[k0:k0 + bk]
             out[lo:hi, cols] = acc[lo - t * bm:hi - t * bm]
-    return out.to(lhs.dtype), table, exits
+    if (writes > 1).any():
+        raise AssertionError("an output element is written by two blocks")
+    return out.to(out_dtype or lhs.dtype), table, exits
 
 
 def tgmm_emulated(lhs, grad, group_sizes, *, out_dtype=None, tiles=None):
     """Kernel K's blocks in plain PyTorch: per (group, k tile, n tile), an
     fp32 sum over the group's rows in chunks of the tile depth, in row
     order; an empty group's blocks write zeros."""
-    bm, bn, bk = tiles or TILES[lhs.dtype]
+    bm, bn, bk = tiles or TGMM_TILES[lhs.dtype]
     kd, n = lhs.shape[1], grad.shape[1]
     out = torch.full((group_sizes.shape[0], kd, n), float("nan"))
     for e, lo, hi in _bounds(group_sizes, lhs.shape[0]):
@@ -226,11 +246,15 @@ def tgmm_emulated(lhs, grad, group_sizes, *, out_dtype=None, tiles=None):
 
 # -------------------------------------------------------------- public API
 def gmm(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor, *,
-        transpose_rhs: bool = False, impl: str = "auto") -> torch.Tensor:
-    """(m, k) x (E, k, n) -> (m, n), or (m, n) x (E, k, n)ᵀ -> (m, k)."""
+        transpose_rhs: bool = False, out_dtype: Optional[torch.dtype] = None,
+        impl: str = "auto") -> torch.Tensor:
+    """(m, k) x (E, k, n) -> (m, n), or (m, n) x (E, k, n)ᵀ -> (m, k), in
+    `out_dtype` (lhs's by default; fp32 from bf16 operands too)."""
     if not _use_kernel(impl, lhs):
-        return gmm_plain(lhs, rhs, group_sizes, transpose_rhs=transpose_rhs)
-    return _launch_gmm(lhs, rhs, group_sizes, transpose_rhs)
+        return gmm_plain(lhs, rhs, group_sizes, transpose_rhs=transpose_rhs,
+                         out_dtype=out_dtype)
+    return _launch_gmm(lhs, rhs, group_sizes, transpose_rhs,
+                       out_dtype=out_dtype)
 
 
 def tgmm(lhs: torch.Tensor, grad: torch.Tensor, group_sizes: torch.Tensor,
@@ -304,7 +328,10 @@ def _vec(*tensors) -> int:
     return int(ok)
 
 
-def _launch_gmm(lhs, rhs, group_sizes, transpose_rhs):
+def _launch_gmm(lhs, rhs, group_sizes, transpose_rhs, *, out_dtype=None,
+                block_n=GMM_BLOCK_N[0]):
+    """Kernel J; `block_n` picks the bf16 Hopper kernel's tile width
+    (GMM_BLOCK_N; experiments/gmm_tune.py sweeps it)."""
     if lhs.dim() != 2 or rhs.dim() != 3:
         raise ValueError(f"gmm takes lhs (m, k) and rhs (E, k, n); got "
                          f"{tuple(lhs.shape)} and {tuple(rhs.shape)}")
@@ -318,14 +345,22 @@ def _launch_gmm(lhs, rhs, group_sizes, transpose_rhs):
             f"group_sizes {tuple(group_sizes.shape)}, transpose_rhs="
             f"{transpose_rhs}")
     _check("gmm", lhs, rhs, group_sizes, (kred, nout))
-    out = torch.empty((m, nout), dtype=lhs.dtype, device=lhs.device)
+    out_dtype = out_dtype or lhs.dtype
+    if out_dtype not in (lhs.dtype, torch.float32):
+        raise ValueError(f"gmm: the kernel writes {lhs.dtype} or fp32; "
+                         f"asked for {out_dtype}")
+    if block_n not in GMM_BLOCK_N:
+        raise ValueError(f"gmm: block_n {block_n} not compiled "
+                         f"{GMM_BLOCK_N}")
+    out = torch.empty((m, nout), dtype=out_dtype, device=lhs.device)
     if m and nout:
         lib = _library()
         with torch.cuda.device(lhs.device):
             rc = lib.grouped_matmul_gmm(
                 lhs.data_ptr(), rhs.data_ptr(), group_sizes.data_ptr(),
                 out.data_ptr(), m, kred, nout, e_count, int(transpose_rhs),
-                _vec(lhs, rhs, out), _DTYPE_CODE[lhs.dtype], _stream(lhs))
+                _vec(lhs, rhs, out), _DTYPE_CODE[lhs.dtype],
+                int(out_dtype != lhs.dtype), block_n, _stream(lhs))
         _raise_on(rc, "grouped_matmul_gmm", lhs, rhs)
         LAUNCHES["gmm_trhs" if transpose_rhs else "gmm"] += 1
     return out
@@ -355,6 +390,22 @@ def _launch_tgmm(lhs, grad, group_sizes, out_dtype):
     return out
 
 
+def gmm_occupancy(block_n: int = GMM_BLOCK_N[0]) -> dict:
+    """The bf16 Hopper J's footprint at tile width `block_n` on this card:
+    {"smem_bytes", "threads", "blocks_per_sm"} (dynamic shared memory and
+    threads a block, blocks an SM by the runtime's occupancy
+    calculator)."""
+    lib = _library()
+    vals = [ctypes.c_int() for _ in range(3)]
+    rc = lib.grouped_matmul_occupancy(block_n,
+                                      *(ctypes.byref(v) for v in vals))
+    if rc != 0:
+        raise RuntimeError(f"grouped_matmul_occupancy({block_n}): "
+                           + _ERRORS.get(rc, f"cudaError_t {rc}"))
+    return dict(zip(("smem_bytes", "threads", "blocks_per_sm"),
+                    (v.value for v in vals)))
+
+
 def _raise_on(rc, name, a, b):
     if rc != 0:
         raise RuntimeError(
@@ -375,8 +426,11 @@ def _library() -> ctypes.CDLL:
     if not getattr(lib, "_signatures_set", False):
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.grouped_matmul_gmm.argtypes = [P, P, P, P, I, I, I, I, I, I, I,
-                                           P]
+                                           I, I, P]
         lib.grouped_matmul_gmm.restype = I
+        IP = ctypes.POINTER(ctypes.c_int)
+        lib.grouped_matmul_occupancy.argtypes = [I, IP, IP, IP]
+        lib.grouped_matmul_occupancy.restype = I
         lib.grouped_matmul_tgmm.argtypes = [P, P, P, P, I, I, I, I, I, I, P]
         lib.grouped_matmul_tgmm.restype = I
         lib._signatures_set = True

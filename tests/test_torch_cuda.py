@@ -420,6 +420,47 @@ def test_flash_long_sequence_matches_plain(card):
     assert fa.LAUNCHES["flash_bwd_packed"] == before + 1
 
 
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+def test_flash_forward_is_the_same_bits_every_run(card, d):
+    """Kernel E: every output row and lse entry has one owner warp and a
+    fixed summation order, so two launches give identical bits."""
+    b, h, s = 2, 3, 640
+    q4, k4, v4 = (_randn(b, s, h, d, dtype=torch.bfloat16, seed=d + i)
+                  .transpose(1, 2) for i in range(3))
+    outs = [torch.empty_like(q4) for _ in range(2)]
+    lses = [fa._launch_fwd(q4, k4, v4, o, True) for o in outs]
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1]) and torch.equal(lses[0], lses[1])
+
+
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+def test_flash_forward_unaligned_and_shorter_queries(card, d):
+    """Kernel E alone with q, k, v and out one element into their storage
+    (the ring's plain-load branch and element stores), causal s_q = 70 <
+    s_k = 200 (ragged key and query tails, offset 130): out at the flash
+    bf16 limits, lse within 1e-4 of the plain version's."""
+    b, h, sq, sk = 2, 2, 70, 200
+
+    def view(s, seed=None):
+        n = b * h * s * d + 1
+        flat = (torch.zeros(n, device="cuda", dtype=torch.bfloat16)
+                if seed is None else
+                _randn(n, dtype=torch.bfloat16, seed=seed))
+        return flat[1:].view(b, h, s, d)
+
+    q4, k4, v4 = view(sq, d), view(sk, d + 1), view(sk, d + 2)
+    out4 = view(sq)
+    lse = fa._launch_fwd(q4, k4, v4, out4, True)
+    want, want_lse = fa.flash_attention_plain(q4, k4, v4, causal=True)
+    torch.cuda.synchronize()
+    got, ref = out4.float(), want.float()
+    torch.testing.assert_close(got, ref, atol=TOL[torch.bfloat16][0],
+                               rtol=TOL[torch.bfloat16][1])
+    assert float((got - ref).norm() / ref.norm()) <= FLASH_REL[
+        torch.bfloat16]
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=1e-4)
+
+
 def test_flash_wrapper_refusals(card):
     q = torch.zeros((1, 64, 2, 48), device="cuda")
     with pytest.raises(ValueError, match="head_dim"):
@@ -773,6 +814,78 @@ def test_sorted_moe_runs_the_kernels(card):
     for i, (a, b) in enumerate(zip(got, want)):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4,
                                    msg=f"tensor {i}")
+
+
+@pytest.mark.parametrize("block_n", gm.GMM_BLOCK_N)
+@pytest.mark.parametrize("pattern", ["skewed", "empty_off_grid", "tail"])
+@pytest.mark.parametrize("shape", [(300, 72, 264), (129, 8, 8),
+                                   (1000, 200, 520)])
+def test_grouped_matmul_hopper_off_grid(card, shape, pattern, block_n):
+    """The bf16 Hopper J at m, k and n off its 128 x BN x 64 grid (TMA's
+    zero-filled boxes, a row tile split between groups, partial column
+    tiles), both rhs layouts, both compiled tile widths."""
+    m, k, n = shape
+    sizes = [round(x * m / 1000) for x in GMM_PATTERNS[pattern]]
+    sizes[-1] += m - sum(sizes) if pattern != "tail" else 0
+    gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+    lhs, rhs, grad = _gmm_operands(m, k, n, 8, torch.bfloat16, 21)
+    _gmm_held(gm._launch_gmm(lhs, rhs, gs, False, block_n=block_n),
+              gm.gmm_plain(lhs, rhs, gs), "gmm")
+    _gmm_held(gm._launch_gmm(grad, rhs, gs, True, block_n=block_n),
+              gm.gmm_plain(grad, rhs, gs, transpose_rhs=True), "gmm_trhs")
+
+
+@pytest.mark.parametrize("transpose", [False, True])
+def test_grouped_matmul_forward_is_the_same_bits_every_run(card, transpose):
+    """J: each output element has one owner and one summation order."""
+    sizes = torch.tensor(GMM_PATTERNS["empty_off_grid"], dtype=torch.int32,
+                         device="cuda")
+    lhs, rhs, grad = _gmm_operands(1000, 256, 512, 8, torch.bfloat16, 22)
+    a = grad if transpose else lhs
+    first = gm.gmm(a, rhs, sizes, transpose_rhs=transpose, impl="kernel")
+    second = gm.gmm(a, rhs, sizes, transpose_rhs=transpose, impl="kernel")
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_grouped_matmul_bf16_unaligned_operands(card):
+    """bf16 operands one element into their storage: no tensor map can
+    address them, so J takes the ring-less kernel (its vec = 0 branch)."""
+    sizes = torch.tensor(GMM_PATTERNS["empty_off_grid"], dtype=torch.int32,
+                         device="cuda")
+    lhs, rhs, grad = _gmm_operands(1000, 96, 160, 8, torch.bfloat16, 23)
+    shift = torch.cat([torch.zeros(1, device="cuda", dtype=torch.bfloat16),
+                       lhs.reshape(-1)])[1:].view(1000, 96)
+    assert shift.data_ptr() % 16 != 0
+    _gmm_held(gm.gmm(shift, rhs, sizes, impl="kernel"),
+              gm.gmm_plain(shift, rhs, sizes), "gmm")
+    gshift = torch.cat([torch.zeros(1, device="cuda", dtype=torch.bfloat16),
+                        grad.reshape(-1)])[1:].view(1000, 160)
+    _gmm_held(gm.gmm(gshift, rhs, sizes, transpose_rhs=True, impl="kernel"),
+              gm.gmm_plain(gshift, rhs, sizes, transpose_rhs=True),
+              "gmm_trhs")
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("transpose", [False, True])
+def test_grouped_matmul_fp32_output(card, transpose, aligned):
+    """bf16 operands with out_dtype=float32 (the reference's
+    preferred_element_type): the fp32 sums leave unrounded, held at the
+    fp32 limits; aligned operands run the Hopper kernel's fp32 epilogue,
+    a shifted lhs the ring-less kernel's."""
+    sizes = torch.tensor(GMM_PATTERNS["skewed"], dtype=torch.int32,
+                         device="cuda")
+    lhs, rhs, grad = _gmm_operands(1000, 96, 160, 8, torch.bfloat16, 24)
+    a = grad if transpose else lhs
+    if not aligned:
+        a = torch.cat([torch.zeros(1, device="cuda", dtype=a.dtype),
+                       a.reshape(-1)])[1:].view(a.shape)
+    got = gm.gmm(a, rhs, sizes, transpose_rhs=transpose,
+                 out_dtype=torch.float32, impl="kernel")
+    want = gm.gmm_plain(a, rhs, sizes, transpose_rhs=transpose,
+                        out_dtype=torch.float32)
+    assert got.dtype == torch.float32
+    _gmm_held(got, want, "gmm fp32 out")
 
 
 def test_grouped_matmul_wrapper_refusals(card):

@@ -151,3 +151,104 @@ def test_wrapper_routes_by_device_and_counts_no_cpu_launch():
             gm.tgmm(lhs, grad, sizes)
     with pytest.raises(ValueError, match="unknown impl"):
         gm.gmm(lhs, rhs, sizes, impl="fast")
+
+
+def test_tiles_match_the_source():
+    """TILES[bf16] is the Hopper J's WgTile<256> (128 rows, 256 columns,
+    64 deep; 128 columns through block_n), TGMM_TILES K's Cfg<bf16>."""
+    from ddp_practice_tpu_torch.ops import cuda_build
+
+    source = (cuda_build.CSRC / "grouped_matmul.cu").read_text()
+    tile = source[source.index("template <int BN_> struct WgTile"):]
+    tile = tile[:tile.index("};")]
+    assert "BM = 128, BN = BN_, BK = 64" in tile
+    assert gm.TILES[torch.bfloat16] == (128, gm.GMM_BLOCK_N[0], 64)
+    assert gm.GMM_BLOCK_N == (256, 128)
+    assert "BM = 128, BN = 128, BK = 32" in source   # Cfg<bf16>
+    assert gm.TGMM_TILES[torch.bfloat16] == (128, 128, 32)
+
+
+@pytest.mark.parametrize("out_dtype", [None, torch.float32])
+@pytest.mark.parametrize("block_n", [256, 128])
+@pytest.mark.parametrize("pattern", ["skewed", "empty_off_grid", "tail",
+                                     "one_expert"])
+def test_hopper_schedule_writes_every_row_once(pattern, block_n, out_dtype):
+    """The bf16 J's blocks at its own tiles, with m, k and n off the
+    128 x BN x 64 grid (m = 300: three row tiles, every group boundary
+    inside one; k = 72: a depth slice zero past k; n = 264: a partial
+    column tile): no element is written by two blocks (gmm_emulated
+    raises), none is left unwritten, and the result is the plain
+    version's, in both rhs layouts and with fp32 output."""
+    sizes = torch.tensor(PATTERNS[pattern], dtype=torch.int32)
+    lhs, rhs, grad = (torch.from_numpy(x).to(torch.bfloat16)
+                      for x in _operands(9, 300, 72, 264, 8))
+    tiles = (128, block_n, 64)
+    for a, transpose in ((lhs, False), (grad, True)):
+        got, table, exits = gm.gmm_emulated(a, rhs, sizes, tiles=tiles,
+                                            transpose_rhs=transpose,
+                                            out_dtype=out_dtype)
+        assert not got.float().isnan().any()
+        assert exits == gm.gmm_grid_rows(300, 8, 128) - len(table)
+        want = gm.gmm_plain(a, rhs, sizes, transpose_rhs=transpose,
+                            out_dtype=out_dtype)
+        assert got.dtype == want.dtype == (out_dtype or torch.bfloat16)
+        torch.testing.assert_close(
+            got.float(), want.float(),
+            **(F32_OUT if out_dtype == torch.float32 else BF16))
+        if pattern == "tail":
+            assert not got[170:].float().any()
+
+
+def test_emulation_refuses_a_double_write(monkeypatch):
+    """gmm_emulated's exactly-once check bites: a visit table that lists
+    one visit twice makes two blocks write the same rows."""
+    sizes = torch.tensor(PATTERNS["skewed"], dtype=torch.int32)
+    lhs, rhs, _ = (torch.from_numpy(x) for x in _operands(5, 300, 8, 8, 8))
+    real = gm.gmm_schedule
+
+    def doubled(group_sizes, m, block_m):
+        table = real(group_sizes, m, block_m)
+        return table[:1] + table
+    monkeypatch.setattr(gm, "gmm_schedule", doubled)
+    with pytest.raises(AssertionError, match="two blocks"):
+        gm.gmm_emulated(lhs, rhs, sizes, tiles=(128, 256, 64))
+
+
+@pytest.mark.parametrize("sizes", [(20, 0, 30, 14), (0, 64, 0, 0)])
+def test_plain_fp32_output_matches_megablox(sizes):
+    """bf16 operands with an fp32 result: gmm_plain(out_dtype=float32)
+    against megablox gmm with preferred_element_type=float32 (interpret
+    mode), as experiments/gmm_tune.py's fp32 leg asks of kernel J."""
+    from jax.experimental.pallas.ops.tpu.megablox.gmm import gmm as raw_gmm
+
+    lhs, rhs, _ = _operands(len(sizes) + 3, 64, 32, 48, len(sizes))
+    gs = np.asarray(sizes, np.int32)
+    for transpose in (False, True):
+        # transposed: rhs stored (E, n, k), out = lhs . rhs[e]^T
+        w = rhs.transpose(0, 2, 1).copy() if transpose else rhs
+        want = raw_gmm(jnp.asarray(lhs, jnp.bfloat16),
+                       jnp.asarray(w, jnp.bfloat16), jnp.asarray(gs),
+                       jnp.float32, (16, 32, 16), None, None, transpose,
+                       True)
+        got = gm.gmm_plain(torch.from_numpy(lhs).to(torch.bfloat16),
+                           torch.from_numpy(w).to(torch.bfloat16),
+                           torch.from_numpy(gs), transpose_rhs=transpose,
+                           out_dtype=torch.float32)
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   **F32_OUT)
+
+
+def test_ptxas_names_the_hopper_instantiations():
+    """chip_smoke prints J's ptxas lines by kernel name with its integer
+    and bool template arguments (`gmm_kernel<BN, TRANS, F32OUT>`), so the
+    eight Hopper instantiations keep apart."""
+    from ddp_practice_tpu_torch.ops import cuda_build
+
+    mangled = ("_ZN12_GLOBAL__N_110gmm_kernelILi256ELb1ELb0EEEv14CUtensorMap"
+               "_stS1_PKiPviiii")
+    info = "\n".join([
+        f"ptxas info    : Compiling entry function '{mangled}' for 'sm_90a'",
+        "ptxas info    : Used 168 registers, used 16 barriers"])
+    assert list(cuda_build.kernel_resources(info)) == [
+        "gmm_kernel<256, 1, 0>"]

@@ -218,7 +218,8 @@ TRAIN_SLICE = ["data/sharding.py", "data/lm_corpus.py", "data/datasets.py",
                "ops/flash_attention.py", "experiments/flash_variants.py",
                "experiments/flash_ablate.py", "experiments/flash_4d.py",
                "experiments/flash_profile.py", "experiments/flash_time.py",
-               "experiments/flash_bwd_ablate.py"]
+               "experiments/flash_bwd_ablate.py",
+               "experiments/flash_fwd_ablate.py", "experiments/gmm_tune.py"]
 STDLIB = ("__future__", "typing", "argparse", "collections", "contextlib",
           "ctypes", "dataclasses", "gzip", "json", "logging", "math", "os",
           "pathlib", "pickle", "shutil", "socket", "statistics", "struct",
