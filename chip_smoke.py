@@ -9,9 +9,9 @@ Phases, each of which raises on failure (nothing is caught and passed):
 1. setup: print the card's name and power limit (nvidia-smi), build the
    CUDA kernels from csrc/ with nvcc (all four sources at once) and print
    ptxas's register and spill lines; then the bf16 flash kernels' (E, G,
-   F) and kernel J's ptxas lines by name, and per head_dim the E, G and F
-   blocks' shared memory, threads and blocks an SM (the runtime's
-   occupancy calculator), and J's per tile width;
+   F) and kernels J's and K's ptxas lines by name, and per head_dim the E,
+   G and F blocks' shared memory, threads and blocks an SM (the runtime's
+   occupancy calculator), and J's and K's per tile width;
 2. kernels: hold each kernel against its plain PyTorch version at lm_base
    shapes (h=12, hd=64) and print its device time (CUDA events around one
    call queued behind a spin kernel, L2 flushed before each, median of
@@ -100,7 +100,9 @@ Phases, each of which raises on failure (nothing is caught and passed):
    12 parameter grads held apart, with kernel and plain device times, the
    bound, and in the library column the port's own unfused EncoderBlock
    (cuBLAS + eager ops; no single PyTorch call computes the layer): its
-   forward for H, its forward + backward for I;
+   forward for H, its forward + backward for I; I also in its parts: the
+   per-sequence launch (with its vector-grad reduction) and the four
+   kernel K launches of its weight grads (each with K's second pass);
 14. ViT train: `fit` through the CLI's parser and config, vit_tiny (d=192,
    depth 12, 3 heads, mlp 768) on the synthetic CIFAR-10 fallback, bf16,
    batch 1024 (the reference bench's shape), Adam lr 1e-4 (the bench's SGD
@@ -108,9 +110,11 @@ Phases, each of which raises on failure (nothing is caught and passed):
    this phase asserts a falling loss), 30 steps plus the eval pass, with
    `--fused auto` (no flag): loss at steps 1, 10, 20, 30 (30 below 1),
    median step, images/s, MFU against 989.4e12, eval accuracy, peak
-   memory; fused_encoder_fwd launches equal 12 x (30 + eval batches) and
-   fused_encoder_bwd 12 x 30. Then one profiled step (H, I, other), and a
-   leg of 10 steps with `--fused off` (a reading, not a claim);
+   memory; fused_encoder_fwd launches equal 12 x (30 + eval batches),
+   fused_encoder_bwd 12 x 30, and kernel K (tgmm, and its second pass
+   tgmm_reduce) 4 x 12 x 30: I's four weight grads. Then one profiled step
+   (H, I, I's K launches, I's reduction, other), and a leg of 10 steps
+   with `--fused off` (a reading, not a claim);
 15. ViT cross-check: one vit_tiny train step at depth 2, batch 64: in fp32
    the kernels, the fused layer's plain version and `fused=False` give one
    loss (1e-5) and grads (2e-4, scaled by each grad's largest magnitude
@@ -120,11 +124,11 @@ Phases, each of which raises on failure (nothing is caught and passed):
    input grad) and K (tgmm, the per-group weight grad) against their plain
    versions at the lm_moe shapes (m = 32768 sorted rows, E = 8, (k, n) =
    (768, 3072) and (3072, 768)) with balanced, skewed and empty-expert
-   off-grid group sizes in bf16, plus fp32; on the balanced shapes the
-   kernel, plain and library device times (torch._grouped_mm where this
-   torch takes the operands, else a torch.mm loop over the groups: the line
-   says which; the port calls neither) and the bound 2*m*k*n over the
-   dtype's peak;
+   off-grid group sizes in bf16, plus fp32, and K with fp32 output; on the
+   balanced and skewed shapes the kernel, plain and library device times
+   (torch._grouped_mm where this torch takes the operands, else a torch.mm
+   loop over the groups: the line says which; the port calls neither) and
+   the bound 2*m*k*n over the dtype's peak;
 17. MoE train: lm_moe at the reference's lm_moe_tc configuration
    (bench.py:133-141: lm_base widths, 6 of 12 blocks routed over 8 experts,
    top-2, strided routing groups of 256, capacity factor 1.5), seq 2048,
@@ -137,7 +141,8 @@ Phases, each of which raises on failure (nothing is caught and passed):
    FLOPs, moe_drop_rate/load_max/load_min, peak memory; the flash rows
    launch 12 x (steps + eval batches) and 12 x steps; on the sorted leg the
    drop rate is exactly 0, J forward launches 2 x 6 x (steps + eval
-   batches), J transposed and K 2 x 6 x steps; a profiled step per leg;
+   batches), J transposed, K and K's second pass 2 x 6 x steps; a profiled
+   step per leg;
 18. the CLI's own fit leg: --model lm_moe --moe_router expert_choice at the
    registry's dims, 10 steps, its summary's moe_* keys;
 19. MoE cross-check, one lm_moe step at depth 2, b=2, capacity factor E/k
@@ -776,13 +781,15 @@ def check_flash(torch, F, fa, *, label, route, b, h, sq, sk, d, dtype,
 
 def kernel_resources(cuda_build, fa, gm) -> None:
     """The ptxas lines (registers, spill bytes, static shared memory) of
-    each instantiated bf16 flash kernel (E, G, F) and of kernel J, then
-    their blocks' dynamic shared memory, threads and blocks an SM (the
+    each instantiated bf16 flash kernel (E, G, F) and of kernels J and K,
+    then their blocks' dynamic shared memory, threads and blocks an SM (the
     runtime's occupancy calculator): E, G and F per head_dim, J (the
-    Hopper kernel, `gmm_kernel<BN, TRANS, F32OUT>`) per tile width."""
+    Hopper kernel, `gmm_kernel<BN, TRANS, F32OUT>`) and K (`tgmm_wg_kernel<
+    BN, F32OUT>`) per tile width."""
     for source, prefixes in (("flash_attention", ("flash_fwd_tc_",
                                                   "flash_bwd_")),
-                             ("grouped_matmul", ("gmm_kernel<",))):
+                             ("grouped_matmul", ("gmm_kernel<",
+                                                 "tgmm_wg_kernel<"))):
         found = cuda_build.kernel_resources(
             cuda_build.ptxas_info.get(source, ""))
         for name, lines in found.items():
@@ -794,11 +801,14 @@ def kernel_resources(cuda_build, fa, gm) -> None:
         log(f"  flash bf16 d={d}: " + "; ".join(
             f"{k} {v['smem_bytes']} B shared x {v['threads']} threads, "
             f"{v['blocks_per_sm']} blocks/SM" for k, v in occ.items()))
-    for block_n in gm.GMM_BLOCK_N:
-        occ = gm.gmm_occupancy(block_n)
-        log(f"  grouped matmul J bf16 tile 128 x {block_n}: "
-            f"{occ['smem_bytes']} B shared x {occ['threads']} threads, "
-            f"{occ['blocks_per_sm']} blocks/SM")
+    for name, widths, footprint in (("J", gm.GMM_BLOCK_N, gm.gmm_occupancy),
+                                    ("K", gm.TGMM_BLOCK_N,
+                                     gm.tgmm_occupancy)):
+        for block_n in widths:
+            occ = footprint(block_n)
+            log(f"  grouped matmul {name} bf16 tile 128 x {block_n}: "
+                f"{occ['smem_bytes']} B shared x {occ['threads']} threads, "
+                f"{occ['blocks_per_sm']} blocks/SM")
 
 
 def flash_kernel_phase(torch, F, fa, flush) -> dict:
@@ -1622,6 +1632,18 @@ def check_fused(torch, fe, *, label, imgs, s, d, heads, mlp, dtype, causal,
             f"{r['ms']:8.3f} ms  plain {r['plain_ms']:8.3f} ms  unfused "
             f"block {lib_what} {r['library_ms']:8.3f} ms  bound "
             f"{bound:7.3f} ms ({by})")
+    # I's parts: the per-sequence launch with its vector-grad reduction,
+    # and the four kernel K launches (each with its second pass)
+    args = (x, g, params, heads, tdt, causal)
+    _, _, ops, gt = fe._bwd_sequences(*args)
+    parts = {"sequences_ms": _time_ms(torch, lambda: fe._bwd_sequences(
+                 *args), flush),
+             "weight_grads_ms": _time_ms(torch, lambda: fe._bwd_weight_grads(
+                 ops, gt), flush)}
+    rows["fused_encoder_bwd"].update(parts)
+    log(f"  {'I, its parts':>17} {label:<30} {dtype:>8}: per-sequence "
+        f"launch {parts['sequences_ms']:8.3f} ms, the four K launches of "
+        f"its weight grads {parts['weight_grads_ms']:8.3f} ms")
     return rows
 
 
@@ -1664,8 +1686,10 @@ def vit_train_phase(torch, fe, extra, *, steps, label, fused):
     """`fit` through the CLI's parser and config (vit_tiny, bf16, batch
     1024, synthetic CIFAR-10) for `steps` steps and the eval pass. Checks
     that the loss fell and that H launched depth x (steps + eval batches)
-    times and I depth x steps (none with the fused layer off)."""
+    times, I depth x steps and kernel K (with its second pass) 4 x depth x
+    steps, I's four weight grads (none with the fused layer off)."""
     from ddp_practice_tpu_torch.cli import build_parser, config_from_args
+    from ddp_practice_tpu_torch.ops import grouped_matmul as gm
     from ddp_practice_tpu_torch.train.loop import Trainer
     from ddp_practice_tpu_torch.utils.flops import (
         chip_peak_flops,
@@ -1688,11 +1712,12 @@ def vit_train_phase(torch, fe, extra, *, steps, label, fused):
     trainer.train_step = recorded
     torch.cuda.reset_peak_memory_stats()
     fe.reset_launches()
+    gm.reset_launches()
     t0 = time.monotonic()
     summary = trainer.fit()
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    launches = dict(fe.LAUNCHES)
+    launches = {**fe.LAUNCHES, **gm.LAUNCHES}
     loss = [float(x) for x in losses]
     step_ms = statistics.median(ends[i - 1].elapsed_time(ends[i])
                                 for i in range(1, len(ends)))
@@ -1728,9 +1753,12 @@ def vit_train_phase(torch, fe, extra, *, steps, label, fused):
         f"peak memory {report['peak_gib']:.2f} GiB; launches {launches}")
     if not loss[-1] < loss[0]:
         raise AssertionError(f"vit train[{label}]: loss did not fall: {loss}")
-    want = {"fused_encoder_fwd": model.depth * (steps + eval_batches),
-            "fused_encoder_bwd": model.depth * steps} if fused else \
-        {"fused_encoder_fwd": 0, "fused_encoder_bwd": 0}
+    want = {name: 0 for name in launches}
+    if fused:
+        want.update(fused_encoder_fwd=model.depth * (steps + eval_batches),
+                    fused_encoder_bwd=model.depth * steps,
+                    tgmm=4 * model.depth * steps,
+                    tgmm_reduce=4 * model.depth * steps)
     if launches != want:
         raise AssertionError(f"vit train[{label}]: launches {launches}, "
                              f"want {want}")
@@ -1762,6 +1790,7 @@ def vit_train_profile(torch, trainer):
             f"device time not measured (host wall {host_ms:.2f} ms/step)")
         return
     by_kind = _by_kind(summary, {"fused H": "H", "fused I": "I",
+                                 "grouped K": "I's K",
                                  "fused I reduce": "I reduce",
                                  "matmul": "matmul"})
     device_ms = sum(by_kind.values()) / 1e3
@@ -1788,15 +1817,21 @@ def _vit_step(torch, fe, *, precision, fused, impl, batch=64):
     model = create_model("vit_tiny", device="cuda", seed=3, depth=2,
                          fused=fused,
                          policy=PrecisionPolicy.from_name(precision))
+    from ddp_practice_tpu_torch.ops import grouped_matmul as gm
+
     fe.reset_launches()
+    gm.reset_launches()
     with fe.forced_impl(impl):
         loss = cross_entropy(model(images, train=True), labels)
         loss.backward()
     torch.cuda.synchronize()
     want = 2 if (fused and impl == "kernel") else 0
-    if fe.LAUNCHES != {"fused_encoder_fwd": want, "fused_encoder_bwd": want}:
+    launches = {**fe.LAUNCHES, **gm.LAUNCHES}
+    if launches != {"fused_encoder_fwd": want, "fused_encoder_bwd": want,
+                    "gmm": 0, "gmm_trhs": 0, "tgmm": 4 * want,
+                    "tgmm_reduce": 4 * want}:
         raise AssertionError(f"vit cross-check {precision} fused={fused} "
-                             f"{impl}: launches {fe.LAUNCHES}")
+                             f"{impl}: launches {launches}")
     grads = {n: p.grad.detach() for n, p in model.named_parameters()}
     del model
     return float(loss.detach()), grads
@@ -1957,6 +1992,15 @@ def check_gmm(torch, gm, *, label, sizes, k, n, dtype, flush, seed,
             if empty and got[empty].abs().max() != 0:
                 raise AssertionError(f"tgmm: an empty group's grad is not "
                                      f"zero ({label})")
+            if dtype == "bfloat16":   # fp32 output, as I's weight grads
+                f32 = torch.float32
+                err32, rel32 = _gmm_err(
+                    torch, "tgmm fp32 out",
+                    gm.tgmm(lhs, grad, gs, out_dtype=f32, impl="kernel"),
+                    gm.tgmm(lhs, grad, gs, out_dtype=f32, impl="plain"),
+                    "float32", f"{label} bf16 -> fp32")
+                log(f"  {'tgmm':>8} {label:<40} {'-> fp32':>8}: err "
+                    f"{err32:.2e} rel {rel32:.2e}")
         if timed:
             bound, by = _gmm_bound_ms(m, k, n, e, dtype)
             lib_name, lib = ((None, None) if dtype != "bfloat16" else
@@ -2003,14 +2047,15 @@ def gmm_kernel_phase(torch, gm, flush) -> dict:
                                            or k != 768):
                     continue
                 seed += 1
-                timed = pattern == "balanced"
+                timed = pattern in ("balanced", "skewed")
                 rows = check_gmm(
                     torch, gm, label=f"{pattern} m={m} k={k} n={n}",
                     sizes=sizes, k=k, n=n, dtype=dtype, flush=flush,
                     seed=seed, timed=timed)
                 for name, row in rows.items():
                     worst[name] = max(worst[name], row["max_abs_err"])
-                    if timed and dtype == "bfloat16" and k == 768:
+                    if (pattern == "balanced" and dtype == "bfloat16"
+                            and k == 768):
                         main[name] = row
     for name, row in main.items():
         row["max_abs_err"] = worst[name]
@@ -2149,7 +2194,7 @@ def moe_train_phase(torch, fa, gm, *, impl, steps, label):
     if impl == "sorted":
         want["gmm"] = 2 * n_moe * (steps + len(evals))
         want["gmm_trhs"] = 2 * n_moe * steps
-        want["tgmm"] = 2 * n_moe * steps
+        want["tgmm"] = want["tgmm_reduce"] = 2 * n_moe * steps
         drops = [h[MOE_HEALTH.index("moe_drop_rate")] for h in health]
         if any(d != 0.0 for d in drops):
             raise AssertionError(f"moe train[{label}]: drop rate {drops}")
@@ -2241,7 +2286,15 @@ def _moe_step(torch, gm, *, precision, impl, gmm_impl, seq):
         loss.backward()
     torch.cuda.synchronize()
     want = 2 if (impl, gmm_impl) == ("sorted", "kernel") else 0
-    if dict(gm.LAUNCHES) != {"gmm": want, "gmm_trhs": want, "tgmm": want}:
+    # K's second pass runs where a workspace slab exists: always for the
+    # ring-less fp32 K, for the bf16 one only when the m = 2 x seq x k
+    # sorted rows exceed one work unit (gm.tgmm_ws_slabs; both products
+    # have 72 output tiles of 128 x 256)
+    m = 2 * seq * MOE_K
+    split = precision == "fp32" or m > gm.tgmm_chunk(
+        m, 6 * 12, torch.cuda.get_device_properties(0).multi_processor_count)
+    if dict(gm.LAUNCHES) != {"gmm": want, "gmm_trhs": want, "tgmm": want,
+                             "tgmm_reduce": want if split else 0}:
         raise AssertionError(f"moe cross-check {precision} {impl} "
                              f"{gmm_impl}: launches {gm.LAUNCHES}")
     grads = {n: p.grad.detach() for n, p in model.named_parameters()}

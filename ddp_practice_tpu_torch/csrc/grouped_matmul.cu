@@ -29,10 +29,13 @@
 //     zeros). Thread 0 finds its visit by walking the E group sizes; blocks
 //     past the last visit exit at once. ops/grouped_matmul.py gmm_schedule
 //     is the same walk in Python.
-//   - K runs one block per (group, k tile, n tile) and reduces over the
-//     group's rows in row order: no atomics, the same bits every run; an
-//     empty group writes zeros.
-//   - A block of 256 threads computes a 128 x 128 output tile (fp32: 64 x
+//   - K cuts each group's rows into chunks (work units); a group of one
+//     unit writes its tiles directly, a group of several writes fp32
+//     partials that a second pass sums in unit order: no atomics, the same
+//     bits every run; an empty group writes zeros. bf16 K runs on Hopper's
+//     wgmma from a TMA ring (below, "kernel K, bf16 (Hopper)").
+//   - The ring-less kernel (J's fp32 and unaligned bf16 operands, K's too):
+//     a block of 256 threads computes a 128 x 128 output tile (fp32: 64 x
 //     64), staging 32-deep (fp32: 16) slices of both operands in shared
 //     memory in their global layout (16-byte loads when the rows allow;
 //     rows and columns outside the operand read as zero). The next slice
@@ -41,10 +44,10 @@
 //     fragments with fp32 accumulation; a transposed operand is read with
 //     a col_major fragment. fp32: FMAs, 4 x 4 outputs a thread. No
 //     cp.async, wgmma or TMA yet.
-//   - J is held to 128 registers a thread (__launch_bounds__(256, 2)) so
-//     that two blocks share an SM: at the 167 it takes unbounded, one
-//     block ran alone and J was the slower for it (PERF.md). K fits 128
-//     registers as it is.
+//   - The ring-less J is held to 128 registers a thread
+//     (__launch_bounds__(256, 2)) so that two blocks share an SM: at the
+//     167 it takes unbounded, one block ran alone and J was the slower for
+//     it (PERF.md). The ring-less K fits 128 registers as it is.
 
 #include <cuda.h>   // CUtensorMap and the driver's enums (no -lcuda)
 #include <cuda_bf16.h>
@@ -517,9 +520,10 @@ __device__ __forceinline__ void wg_fence_acc(float (&d)[N]) {
 #define WG_F32(i) WG_F8(i), WG_F8(i + 8), WG_F8(i + 16), WG_F8(i + 24)
 
 // d (64 x N fp32, this warpgroup's accumulators) += A . B over k16, A and
-// B read from shared memory through their descriptors; TB: B is MN-major
-template <int N, int TB> struct Wgmma;
-template <int TB> struct Wgmma<128, TB> {
+// B read from shared memory through their descriptors; TA: A is MN-major,
+// TB: B is MN-major
+template <int N, int TA, int TB> struct Wgmma;
+template <int TA, int TB> struct Wgmma<128, TA, TB> {
   __device__ __forceinline__ static void run(float (&d)[64], uint64_t da,
                                              uint64_t db) {
     asm volatile(
@@ -530,12 +534,31 @@ template <int TB> struct Wgmma<128, TB> {
         "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
         "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
         "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
-        "%62, %63}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+        "%62, %63}, %64, %65, p, 1, 1, %67, %68;\n}\n"
         : WG_F32(0), WG_F32(32)
-        : "l"(da), "l"(db), "r"(1), "n"(TB));
+        : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
   }
 };
-template <int TB> struct Wgmma<256, TB> {
+template <int TA, int TB> struct Wgmma<192, TA, TB> {
+  __device__ __forceinline__ static void run(float (&d)[96], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+        "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+        "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+        "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+        "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
+        "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+        "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+        "%96, %97, p, 1, 1, %99, %100;\n}\n"
+        : WG_F32(0), WG_F32(32), WG_F32(64)
+        : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+  }
+};
+template <int TA, int TB> struct Wgmma<256, TA, TB> {
   __device__ __forceinline__ static void run(float (&d)[128], uint64_t da,
                                              uint64_t db) {
     asm volatile(
@@ -552,9 +575,9 @@ template <int TB> struct Wgmma<256, TB> {
         "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
         "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, "
         "%118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
-        "%128, %129, p, 1, 1, 0, %131;\n}\n"
+        "%128, %129, p, 1, 1, %131, %132;\n}\n"
         : WG_F32(0), WG_F32(32), WG_F32(64), WG_F32(96)
-        : "l"(da), "l"(db), "r"(1), "n"(TB));
+        : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
   }
 };
 #undef WG_F32
@@ -659,7 +682,7 @@ __global__ void __launch_bounds__(WgTile<BN>::THREADS, 1)
       const uint64_t db = TRANS ? wg_desc(sb + kk * 32, 16, 1024)
                                 : wg_desc(sb + kk * 16 * 128, 64 * BK * 2,
                                           1024);
-      Wgmma<BN, TRANS ? 0 : 1>::run(acc, da, db);
+      Wgmma<BN, 0, TRANS ? 0 : 1>::run(acc, da, db);
     }
     wg_commit();
     wg_wait<1>();   // the products of stage kt - 1 are done
@@ -780,34 +803,376 @@ int launch_gmm(const void* lhs, const void* rhs, const int* gs, void* out,
 }
 
 // ------------------------------------------------------------- kernel K
-// lhs (m, kd), g (m, n) -> out (E, kd, n). Grid (n_tiles, k_tiles, E).
+// out[e] (kd, n) = lhs_e^T . g_e over the rows of group e. The rows of a
+// group are cut into chunks of `chunk` rows (the last one shorter); a work
+// unit is one chunk of one group, and unit v is the v-th in group order
+// (an empty group, or one past m, is one unit of no rows: it writes
+// zeros). A group of one unit writes its output tile directly; a group of
+// several writes one fp32 partial tile per unit into the workspace, and
+// tgmm_reduce_kernel sums them in unit order and rounds once. The Hopper
+// K gives slabs only to the units of groups of several units, numbered in
+// unit order (ops/grouped_matmul.py tgmm_ws_slabs bounds them); the
+// ring-less K writes every unit v into slab v. ops/grouped_matmul.py
+// tgmm_units is the same walk.
+// Every sum has one owner and a fixed order: no atomics, the same bits on
+// every run.
+
+// Unit v into `unit` as (group, v, row_lo, row_hi, units of the group,
+// its slab among the units of groups of several units, -1 in a group of
+// one); group -1 past the last unit.
+__device__ void find_unit(long long* unit, const int* group_sizes, int m,
+                          int num_groups, int chunk, long long v) {
+  long long off = 0, seen = 0, split = 0;
+  unit[0] = -1;
+  for (int g = 0; g < num_groups; ++g) {
+    const long long size = group_sizes[g] > 0 ? group_sizes[g] : 0;
+    const long long lo = off < m ? off : m;
+    const long long hi = off + size < m ? off + size : m;
+    const long long count = hi > lo ? (hi - lo + chunk - 1) / chunk : 1;
+    if (v < seen + count) {
+      const long long c = v - seen;
+      unit[0] = g;
+      unit[1] = v;
+      unit[2] = lo + c * chunk;
+      unit[3] = lo + (c + 1) * chunk < hi ? lo + (c + 1) * chunk : hi;
+      unit[4] = count;
+      unit[5] = count > 1 ? split + c : -1;
+      return;
+    }
+    seen += count;
+    if (count > 1) split += count;
+    off += size;
+  }
+}
+
+// The ring-less K: fp32 operands, and bf16 ones that the tensor memory
+// accelerator cannot address. Every unit writes its fp32 partial (slab v
+// of ws) and the second pass (`all` set) sums every group, one unit or
+// several. Grid (n_tiles, k_tiles, units).
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
-    tgmm_kernel(const T* lhs, const T* grad, const int* group_sizes, T* out,
-                int m, int kd, int n) {
+    tgmm_kernel(const T* lhs, const T* grad, const int* group_sizes,
+                float* ws, int m, int kd, int n, int num_groups, int chunk) {
   constexpr int BM = Cfg<T>::BM, BN = Cfg<T>::BN;
-  const int e = blockIdx.z;
-  long long off = 0;
-  for (int g = 0; g < e; ++g) off += group_sizes[g] > 0 ? group_sizes[g] : 0;
-  long long size = group_sizes[e] > 0 ? group_sizes[e] : 0;
-  const long long lo = off < m ? off : m;
-  const long long hi = off + size < m ? off + size : m;
-  // out[e] (kd, n) = sum over rows r of lhs[r, i] g[r, j]: A is lhs read
-  // transposed, B is g; an empty group's reduction is empty (zeros)
-  block_product<T, true, false, VEC>(
-      lhs, kd, kd, grad, n, n, lo, hi, (long long)blockIdx.y * BM,
-      (long long)blockIdx.x * BN, out + e * (long long)kd * n, n, 0, kd);
+  __shared__ long long unit[6];
+  if (threadIdx.x == 0)
+    find_unit(unit, group_sizes, m, num_groups, chunk, blockIdx.z);
+  __syncthreads();
+  if (unit[0] < 0) return;   // past the last unit
+  // A is lhs read transposed, B is g; rows outside [lo, hi) read as zero
+  block_product<T, true, false, VEC, float>(
+      lhs, kd, kd, grad, n, n, unit[2], unit[3], (long long)blockIdx.y * BM,
+      (long long)blockIdx.x * BN, ws + unit[1] * (long long)kd * n, n, 0,
+      kd);
+}
+
+// ------------------------------------------------- kernel K, bf16 (Hopper)
+// Replaces megablox `tgmm` as ddp_practice_tpu/ops/moe.py reaches it
+// (`_grouped_matmul`'s drhs, :465), for bf16 operands that are 16-byte
+// aligned; ops/fused_encoder.py also runs the fused layer's four weight
+// grads through it (one group over all tokens, fp32 output).
+// Bound: operations. 2*m*kd*n = 154.6 GFLOP at the lm_moe shapes (m = 32768
+// sorted rows, (kd, n) = (768, 3072) or (3072, 768)), 0.156 ms at 989.4
+// TFLOP/s; ~0.25 GB of operands and result, 0.075 ms at 3.35 TB/s.
+// Design (J's pieces, the reduction running over rows):
+//   - A block of three warpgroups owns a 128 x BN tile (kd rows i0.., n
+//     columns n0..) of one work unit; blocks run tile fastest (kd tile
+//     fastest within a unit), so the tiles of a unit run side by side and
+//     read its rows from L2.
+//   - Warpgroup 0 is the producer: one thread keeps TMA filling a ring of
+//     STAGES stages, each one 64-row slice of the unit: lhs as two boxes of
+//     64 kd-columns x 64 rows, g as BN/64 boxes of 64 n-columns x 64 rows,
+//     all 128-byte swizzled, and signals the stage's "full" mbarrier with
+//     the bytes that landed. A slice starts at any row (TMA coordinates
+//     need no alignment); rows past m arrive as zeros.
+//   - Warpgroups 1 and 2 consume, 64 kd rows each: wgmma m64nBNk16 with
+//     lhs^T as the MN-major A operand (transpose bit set; one 64-wide atom,
+//     8-row groups 1024 bytes apart, a k16 step 2048 bytes on) and g as
+//     the MN-major B operand exactly as J's forward rhs (BN/64 atoms 8 KiB
+//     apart). fp32 accumulators in registers, one wgmma group in flight, a
+//     stage released on its "empty" mbarrier once the products that read
+//     it are done; setmaxnreg 40 / 232.
+//   - The unit's last slice holds rows past its end (the next chunk, the
+//     next group, the tail). In an MN-major slice each row is one whole
+//     128-byte row of every box, and the swizzle permutes 16-byte chunks
+//     only within a row, so the consumers zero those rows in every box of
+//     both operands (0 . Inf from a neighbour's row would be NaN), fence
+//     the generic writes to the async proxy (fence.proxy.async) and meet
+//     at a named barrier before the wgmma that reads them.
+//   - Epilogue: the accumulators go to shared memory in padded rows, then
+//     16-byte stores of the rows below kd and columns below n: the output
+//     type (bf16, or fp32 with F32OUT) into out[e] for a group of one unit,
+//     fp32 into the unit's workspace slab otherwise.
+//   - The split: chunk rows (ops/grouped_matmul.py tgmm_chunk: 16384,
+//     4096 for an fp32 output, whose accumulation chain stays shorter;
+//     halved down to 512 while the units would fill less than half the
+//     SMs; chosen by experiments/tgmm_tune.py on an H100). At the lm_moe
+//     shapes every group, balanced or skewed, is one unit (no partials); a
+//     group beyond 16384 rows spreads over several units instead of
+//     setting the kernel's time alone; a one-group product with few output
+//     tiles (the fused layer's weight grads) gets 64-160 blocks of
+//     1024-4096 rows. Longer units amortise the ring's fill and the
+//     epilogue, and fewer of them mean fewer partials: 4096-row units beat
+//     2048-row ones that fill all 132 SMs at those shapes.
+//   - The workspace holds only the units that can split: a group of
+//     several units has more than `chunk` rows, so there are at most
+//     m / chunk + min(E, m / (chunk + 1)) such units (3 fp32 (kd, n) slabs,
+//     28 MB, at the lm_moe shapes, where 10 would be needed for every
+//     unit); none, and no second pass, when m <= chunk.
+//   - Registers, spills and shared memory per instantiation: PERF.md (from
+//     `-Xptxas -v`; chip_smoke.py prints them beside the blocks an SM).
+template <int BN_> struct TgTile {
+  static constexpr int BM = 128, BN = BN_, BK = 64;
+  static constexpr int STAGES = BN == 256 ? 4 : 5;
+  static constexpr int THREADS = 384;
+  static constexpr int A_BYTES = BM * BK * 2;
+  static constexpr int B_BYTES = BK * BN * 2;
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  static constexpr int RING = STAGES * STAGE_BYTES;
+  // the ring, 2 x STAGES mbarriers and the unit; 1 KiB for alignment
+  static constexpr int SMEM = RING + 16 * STAGES + 64 + 1024;
+  static constexpr int LDO = BN + 8;   // padded epilogue row (elements)
+  static_assert(2 * 64 * LDO * 4 <= RING, "the epilogue fits the ring");
+};
+
+// this warpgroup's 64 x BN accumulators to dst (rows i0.., row stride n):
+// staged in shared memory (rows padded to LDO), stored as 16-byte chunks,
+// rows below kd and columns below n only
+template <int BN, typename U>
+__device__ __forceinline__ void tgmm_store(U* dst, const float* acc,
+                                           uint8_t* stage, int cw, int i0,
+                                           int n0, int kd, int n) {
+  constexpr int LDO = TgTile<BN>::LDO, CV = 16 / int(sizeof(U));
+  const int tid = threadIdx.x, lane = tid & 31, warp = (tid >> 5) & 3;
+  U* st = reinterpret_cast<U*>(stage) + cw * 64 * LDO;
+  const int r0 = warp * 16 + (lane >> 2), tq = lane & 3;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int c = 8 * j + 2 * tq;
+    stage_pair(st + r0 * LDO + c, acc[4 * j], acc[4 * j + 1]);
+    stage_pair(st + (r0 + 8) * LDO + c, acc[4 * j + 2], acc[4 * j + 3]);
+  }
+  named_sync(2 + cw, 128);
+  constexpr int CPR = BN / CV;   // 16-byte chunks a row
+  const int row0 = i0 + cw * 64;
+  for (int e = tid & 127; e < 64 * CPR; e += 128) {
+    const int r = e / CPR, c = (e % CPR) * CV;
+    if (row0 + r < kd && n0 + c < n)
+      *reinterpret_cast<uint4*>(dst + (long long)(row0 + r) * n + n0 + c) =
+          *reinterpret_cast<const uint4*>(st + r * LDO + c);
+  }
+}
+
+// lhs_map: lhs (m, kd), boxes of 64 x 64 (kd, rows); g_map: g (m, n), boxes
+// of 64 x 64 (n, rows). out (E, kd, n), fp32 with F32OUT, else bf16; ws
+// (units, kd, n) fp32. Grid units x tiles blocks in one dimension.
+template <int BN, bool F32OUT>
+__global__ void __launch_bounds__(TgTile<BN>::THREADS, 1)
+    tgmm_wg_kernel(const __grid_constant__ CUtensorMap lhs_map,
+                   const __grid_constant__ CUtensorMap g_map,
+                   const int* group_sizes, void* out_ptr, float* ws, int m,
+                   int kd, int n, int num_groups, int chunk) {
+  using W = TgTile<BN>;
+  using TO = typename std::conditional<F32OUT, float, bf16>::type;
+  constexpr int BM = W::BM, BK = W::BK, S = W::STAGES;
+  constexpr int BOX = 64 * BK * 2;   // one 64 x 64 box, 8 KiB
+  extern __shared__ uint8_t wg_smem[];
+  uint8_t* base = wg_smem + ((1024 - (smem_u32(wg_smem) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + W::RING);
+  uint64_t* empty = full + S;
+  long long* unit = reinterpret_cast<long long*>(empty + S);
+  const int tid = threadIdx.x;
+  const int k_tiles = (kd + BM - 1) / BM;
+  const int tiles = k_tiles * ((n + BN - 1) / BN);
+  if (tid == 0) {
+    find_unit(unit, group_sizes, m, num_groups, chunk, blockIdx.x / tiles);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);   // the producer's arrive, plus the bytes
+      mbar_init(&empty[s], 8);  // one arrive per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const long long e = unit[0];
+  if (e < 0) return;   // past the last unit
+  const long long lo = unit[2], hi = unit[3], count = unit[4];
+  const int tile = blockIdx.x % tiles;
+  const int i0 = (tile % k_tiles) * BM, n0 = (tile / k_tiles) * BN;
+  const int n_k = int((hi - lo + BK - 1) / BK);
+  const int wg = tid / 128;
+  if (wg == 0) {   // the producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == 0) {
+      for (int kt = 0; kt < n_k; ++kt) {
+        const int s = kt % S;
+        mbar_wait(&empty[s], ((kt / S) & 1) ^ 1);
+        mbar_expect_tx(&full[s], W::STAGE_BYTES);
+        uint8_t* sa = base + s * W::STAGE_BYTES;
+        uint8_t* sb = sa + W::A_BYTES;
+        const int r0 = int(lo + (long long)kt * BK);
+#pragma unroll
+        for (int c = 0; c < BM / 64; ++c)
+          tma_2d(sa + c * BOX, &lhs_map, &full[s], i0 + 64 * c, r0);
+#pragma unroll
+        for (int c = 0; c < BN / 64; ++c)
+          tma_2d(sb + c * BOX, &g_map, &full[s], n0 + 64 * c, r0);
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int cw = wg - 1;   // kd rows i0 + 64 cw .. of the tile
+  const int lane = tid & 31;
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  wg_fence_acc(acc);
+  for (int kt = 0; kt < n_k; ++kt) {
+    const int s = kt % S;
+    mbar_wait(&full[s], (kt / S) & 1);
+    uint8_t* stage = base + s * W::STAGE_BYTES;
+    const long long left = hi - (lo + (long long)kt * BK);
+    if (left < BK) {   // rows [left, 64) of the slice are not this unit's
+      constexpr int BOXES = BM / 64 + BN / 64;
+      const int per_box = (BK - int(left)) * 8;   // 16-byte chunks
+      const uint4 zero = make_uint4(0, 0, 0, 0);
+      for (int x = tid - 128; x < BOXES * per_box; x += 256) {
+        const int b = x / per_box, y = x % per_box;
+        *reinterpret_cast<uint4*>(stage + b * BOX +
+                                  (int(left) + y / 8) * 128 + (y % 8) * 16) =
+            zero;
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      named_sync(1, 256);
+    }
+    const uint8_t* sa = stage + cw * BOX;
+    const uint8_t* sb = stage + W::A_BYTES;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint64_t da = wg_desc(sa + kk * 16 * 128, BOX, 1024);
+      const uint64_t db = wg_desc(sb + kk * 16 * 128, BOX, 1024);
+      Wgmma<BN, 1, 1>::run(acc, da, db);
+    }
+    wg_commit();
+    wg_wait<1>();   // the products of slice kt - 1 are done
+    if (kt > 0 && lane == 0) mbar_arrive(&empty[(kt - 1) % S]);
+  }
+  wg_wait<0>();
+  wg_fence_acc(acc);
+  // epilogue: both consumer groups are done with the ring, which stages
+  // the output
+  named_sync(1, 256);
+  const long long slab = (long long)kd * n;
+  if (count == 1)
+    tgmm_store<BN>(static_cast<TO*>(out_ptr) + e * slab, acc, base, cw, i0,
+                   n0, kd, n);
+  else
+    tgmm_store<BN>(ws + unit[5] * slab, acc, base, cw, i0, n0, kd, n);
+}
+
+// The second pass: out[e] = the sum, in unit order, of group e's partial
+// slabs, rounded once, for every group of several units (every group when
+// `all`: the ring-less K writes each unit's partial, and every unit has a
+// slab). Each block walks the
+// groups and strides over a group's elements; a group of one unit costs it
+// one check. Grid min(ceil(kd * n / 256), kReduceBlocks), 256 threads.
+constexpr int kReduceBlocks = 1024;
+template <typename TO>
+__global__ void __launch_bounds__(256)
+    tgmm_reduce_kernel(const float* ws, const int* group_sizes, TO* out,
+                       int m, int kd, int n, int num_groups, int chunk,
+                       int all) {
+  const long long slab = (long long)kd * n;
+  const long long step = (long long)gridDim.x * blockDim.x;
+  long long off = 0, u0 = 0;
+  for (int e = 0; e < num_groups; ++e) {
+    const long long size = group_sizes[e] > 0 ? group_sizes[e] : 0;
+    const long long lo = off < m ? off : m;
+    const long long hi = off + size < m ? off + size : m;
+    const long long count = hi > lo ? (hi - lo + chunk - 1) / chunk : 1;
+    if (count > 1 || all) {
+      for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+           i < slab; i += step) {
+        float a = 0.f;
+        for (long long c = 0; c < count; ++c) a += ws[(u0 + c) * slab + i];
+        out[e * slab + i] = from_float<TO>(a);
+      }
+    }
+    if (count > 1 || all) u0 += count;
+    off += size;
+  }
 }
 
 template <typename T, int VEC>
-int launch_tgmm(const void* lhs, const void* grad, const int* gs, void* out,
-                int m, int kd, int n, int num_groups, cudaStream_t stream) {
+int launch_tgmm(const void* lhs, const void* grad, const int* gs, void* ws,
+                int m, int kd, int n, int num_groups, int chunk,
+                cudaStream_t stream) {
   constexpr int BM = Cfg<T>::BM, BN = Cfg<T>::BN;
-  const dim3 grid((n + BN - 1) / BN, (kd + BM - 1) / BM, num_groups);
+  const long long units = (m + (long long)chunk - 1) / chunk + num_groups;
+  if (units > 65535) return kErrShape;
+  const dim3 grid((n + BN - 1) / BN, (kd + BM - 1) / BM, unsigned(units));
   tgmm_kernel<T, VEC><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(lhs), static_cast<const T*>(grad), gs,
-      static_cast<T*>(out), m, kd, n);
+      static_cast<float*>(ws), m, kd, n, num_groups, chunk);
   return cudaGetLastError();
+}
+
+template <int BN, bool F32OUT>
+int launch_tgmm_wg(const void* lhs, const void* grad, const int* gs,
+                   void* out, void* ws, int m, int kd, int n, int num_groups,
+                   int chunk, cudaStream_t stream) {
+  using W = TgTile<BN>;
+  CUtensorMap lhs_map, g_map;
+  const cuuint32_t box[2] = {64, W::BK};
+  const cuuint64_t a_dims[2] = {cuuint64_t(kd), cuuint64_t(m)};
+  const cuuint64_t a_str[1] = {cuuint64_t(kd) * 2};
+  if (const int rc = tensor_map(&lhs_map, lhs, 2, a_dims, a_str, box))
+    return rc;
+  const cuuint64_t b_dims[2] = {cuuint64_t(n), cuuint64_t(m)};
+  const cuuint64_t b_str[1] = {cuuint64_t(n) * 2};
+  if (const int rc = tensor_map(&g_map, grad, 2, b_dims, b_str, box))
+    return rc;
+  const auto kernel = tgmm_wg_kernel<BN, F32OUT>;
+  static bool opted = false;
+  if (!opted) {
+    if (const int rc = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, W::SMEM))
+      return rc;
+    opted = true;
+  }
+  const long long units = (m + (long long)chunk - 1) / chunk + num_groups;
+  const long long blocks =
+      units * ((kd + W::BM - 1) / W::BM) * ((n + BN - 1) / BN);
+  if (blocks > 0x7fffffff) return kErrShape;
+  kernel<<<unsigned(blocks), W::THREADS, W::SMEM, stream>>>(
+      lhs_map, g_map, gs, out, static_cast<float*>(ws), m, kd, n,
+      num_groups, chunk);
+  return cudaGetLastError();
+}
+
+template <bool F32OUT>
+int tgmm_bf16_wg(const void* lhs, const void* grad, const int* gs, void* out,
+                 void* ws, int m, int kd, int n, int num_groups, int chunk,
+                 int bn, cudaStream_t stream) {
+  if (bn == 192)
+    return launch_tgmm_wg<192, F32OUT>(lhs, grad, gs, out, ws, m, kd, n,
+                                       num_groups, chunk, stream);
+  return launch_tgmm_wg<256, F32OUT>(lhs, grad, gs, out, ws, m, kd, n,
+                                     num_groups, chunk, stream);
+}
+
+template <int BN>
+int tg_occupancy(int* smem, int* threads, int* blocks) {
+  using W = TgTile<BN>;
+  const auto kernel = tgmm_wg_kernel<BN, false>;
+  *smem = W::SMEM;
+  *threads = W::THREADS;
+  if (const int rc = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, W::SMEM))
+    return rc;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
+                                                       W::THREADS, W::SMEM);
 }
 
 // The bf16 J: the Hopper kernel at tile width `bn` (256 or 128) when vec,
@@ -882,25 +1247,81 @@ extern "C" int grouped_matmul_gmm(const void* lhs, const void* rhs,
 }
 
 // Kernel K. lhs (m, kd), grad (m, n), group_sizes (E,) int32 on the
-// device; out (E, kd, n). Same conventions as kernel J.
+// device; out (E, kd, n); ws (slabs, kd, n) fp32 (slabs:
+// ops/grouped_matmul.py tgmm_ws_slabs). lhs and grad of one dtype (0 fp32,
+// 1 bf16); out of that dtype, or fp32 from bf16 operands with out_f32.
+// direct = 1: the Hopper kernel (bf16 operands 16-byte aligned with rows a
+// multiple of 16 bytes, m > 0), tile width bn = 256 or 192; it writes
+// groups of one unit into out and the units of the other groups into ws.
+// direct = 0: the ring-less kernel (vec: 16-byte loads), every unit into
+// ws. Then grouped_matmul_tgmm_reduce with the same direct, unless ws has
+// no slab (direct and m <= chunk: every group is one unit).
 extern "C" int grouped_matmul_tgmm(const void* lhs, const void* grad,
-                                   const int* group_sizes, void* out, int m,
-                                   int kd, int n, int num_groups, int vec,
-                                   int dtype, void* stream) {
-  if (m < 0 || kd < 0 || n < 0 || num_groups < 1 || num_groups > 65535)
+                                   const int* group_sizes, void* out,
+                                   void* ws, int m, int kd, int n,
+                                   int num_groups, int chunk, int direct,
+                                   int vec, int dtype, int out_f32, int bn,
+                                   void* stream) {
+  if (m < 0 || kd < 0 || n < 0 || num_groups < 1 || chunk < 1)
+    return kErrShape;
+  if (dtype != kF32 && dtype != kBF16) return kErrDType;
+  if (out_f32 && dtype != kBF16) return kErrDType;
+  auto s = static_cast<cudaStream_t>(stream);
+  if (direct) {
+    if (dtype != kBF16 || m == 0) return kErrShape;
+    return out_f32 ? tgmm_bf16_wg<true>(lhs, grad, group_sizes, out, ws, m,
+                                        kd, n, num_groups, chunk, bn, s)
+                   : tgmm_bf16_wg<false>(lhs, grad, group_sizes, out, ws, m,
+                                         kd, n, num_groups, chunk, bn, s);
+  }
+  if (dtype == kBF16)
+    return vec ? launch_tgmm<bf16, 8>(lhs, grad, group_sizes, ws, m, kd, n,
+                                      num_groups, chunk, s)
+               : launch_tgmm<bf16, 1>(lhs, grad, group_sizes, ws, m, kd, n,
+                                      num_groups, chunk, s);
+  return vec ? launch_tgmm<float, 4>(lhs, grad, group_sizes, ws, m, kd, n,
+                                     num_groups, chunk, s)
+             : launch_tgmm<float, 1>(lhs, grad, group_sizes, ws, m, kd, n,
+                                     num_groups, chunk, s);
+}
+
+// Kernel K's second pass over the workspace grouped_matmul_tgmm filled:
+// out (E, kd, n) in the operands' dtype (0 fp32, 1 bf16), or fp32 with
+// out_f32. direct as given to grouped_matmul_tgmm.
+extern "C" int grouped_matmul_tgmm_reduce(const void* ws,
+                                          const int* group_sizes, void* out,
+                                          int m, int kd, int n,
+                                          int num_groups, int chunk,
+                                          int direct, int dtype, int out_f32,
+                                          void* stream) {
+  if (m < 0 || kd < 0 || n < 0 || num_groups < 1 || chunk < 1)
     return kErrShape;
   auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == kBF16)
-    return vec ? launch_tgmm<bf16, 8>(lhs, grad, group_sizes, out, m, kd, n,
-                                      num_groups, s)
-               : launch_tgmm<bf16, 1>(lhs, grad, group_sizes, out, m, kd, n,
-                                      num_groups, s);
-  if (dtype == kF32)
-    return vec ? launch_tgmm<float, 4>(lhs, grad, group_sizes, out, m, kd, n,
-                                       num_groups, s)
-               : launch_tgmm<float, 1>(lhs, grad, group_sizes, out, m, kd, n,
-                                       num_groups, s);
-  return kErrDType;
+  const long long slab = (long long)kd * n;
+  if (slab == 0) return 0;
+  const unsigned grid = unsigned(
+      (slab + 255) / 256 < kReduceBlocks ? (slab + 255) / 256 : kReduceBlocks);
+  const float* w = static_cast<const float*>(ws);
+  if (dtype == kBF16 && !out_f32)
+    tgmm_reduce_kernel<bf16><<<grid, 256, 0, s>>>(
+        w, group_sizes, static_cast<bf16*>(out), m, kd, n, num_groups, chunk,
+        !direct);
+  else if (dtype == kBF16 || dtype == kF32)
+    tgmm_reduce_kernel<float><<<grid, 256, 0, s>>>(
+        w, group_sizes, static_cast<float*>(out), m, kd, n, num_groups,
+        chunk, !direct);
+  else
+    return kErrDType;
+  return cudaGetLastError();
+}
+
+// The bf16 Hopper K's footprint at tile width bn (256 or 192), as
+// grouped_matmul_occupancy gives J's.
+extern "C" int grouped_matmul_tgmm_occupancy(int bn, int* smem, int* threads,
+                                             int* blocks) {
+  if (bn == 192) return tg_occupancy<192>(smem, threads, blocks);
+  if (bn == 256) return tg_occupancy<256>(smem, threads, blocks);
+  return kErrShape;
 }
 
 // The bf16 Hopper J's footprint at tile width bn (256 or 128): dynamic

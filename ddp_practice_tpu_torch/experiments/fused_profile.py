@@ -7,7 +7,9 @@ their time goes.
 Without flags: each shape's kernels against the plain version (relative
 error norms), then the device time of one wrapper call (CUDA events,
 median of 10, each call queued behind a spin kernel so the events bracket
-device work) beside the host time of the call.
+device work) beside the host time of the call; kernel I also in its parts:
+the per-sequence launch (with its vector-grad reduction) and the four
+kernel K launches of its weight grads.
 
 `--clocks` stands in for a kernel profiler where none runs: it writes an
 instrumented copy of csrc/fused_encoder.cu into build/ (every
@@ -16,14 +18,16 @@ delta since the previous barrier into a `__device__` array indexed by
 source line), builds it, runs the ViT-Tiny layer forward and backward and
 prints microseconds per barrier interval: the time of the phase that ends
 at that line. A counter starts at kernel entry, so the first interval
-holds no gap between calls. Clock ticks are converted at 1.755 GHz (the
-H100 SXM's boost clock: nvidia-smi reads the running clock).
+holds no gap between calls. Kernel I's per-sequence launch is read; its
+kernel K launches carry no clocks. Clock ticks are converted at 1.755 GHz
+(the H100 SXM's boost clock: nvidia-smi reads the running clock).
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import re
 import statistics
 import time
 
@@ -125,11 +129,16 @@ def time_shapes() -> None:
             x, params, impl="kernel", **kw))
         bwd = device_and_host_ms(lambda: fe.fused_encoder_backward(
             x, g, params, impl="kernel", **kw))
+        seq_ms = device_and_host_ms(lambda: fe._bwd_sequences(
+            x, g, params, heads, dtype, causal))[0]
+        _, _, ops, gt = fe._bwd_sequences(x, g, params, heads, dtype, causal)
+        grads_ms = device_and_host_ms(lambda: fe._bwd_weight_grads(ops, gt))
         print(f"{imgs} x {s} x {d} heads {heads} mlp {mlp} "
               f"{str(dtype)[6:]} causal={causal}: relative error norms out "
               f"{errs[0]:.2e} dx {errs[1]:.2e} worst grad {errs[2]:.2e}; H "
               f"{fwd[0]:.3f} ms (host {fwd[1]:.3f}), I {bwd[0]:.3f} ms "
-              f"(host {bwd[1]:.3f})", flush=True)
+              f"(host {bwd[1]:.3f}): per-sequence launch {seq_ms:.3f}, 4 K "
+              f"launches {grads_ms[0]:.3f}", flush=True)
 
 
 def instrumented_source() -> str:
@@ -137,10 +146,9 @@ def instrumented_source() -> str:
     src = src.replace("namespace {\n", "namespace {\n" + _TICK, 1)
     head, tail = src.split(_TICK, 1)
     tail = tail.replace("__syncthreads();", "sync_tick(__LINE__);")
-    tail = tail.replace(
-        "const Seq<T> q(p, fe_smem);",
-        "const Seq<T> q(p, fe_smem);\n  if (blockIdx.x == 0 && "
-        "threadIdx.x == 0) g_last = clock64();")
+    tail = re.sub(r"(const Seq<T(, true)?> q\(p, fe_smem\);)",
+                  r"\1\n  if (blockIdx.x == 0 && threadIdx.x == 0) g_last "
+                  r"= clock64();", tail)
     return head + _TICK + tail + _EXPORT
 
 
@@ -150,6 +158,8 @@ def clocks() -> None:
     source = instrumented_source()
     (out_dir / "fused_encoder.cu").write_text(source)
     lines = source.splitlines()
+    from ddp_practice_tpu_torch.ops import grouped_matmul as gm
+    gm._library()                    # kernel K from the shipped source
     cuda_build.CSRC = out_dir        # this process builds the copy
     lib = fe._library()
     ticks = (ctypes.c_longlong * SLOTS)()
@@ -161,8 +171,8 @@ def clocks() -> None:
     for name, fn in (
             ("H", lambda: fe.fused_encoder_forward(x, params, impl="kernel",
                                                    **kw)),
-            ("I", lambda: fe.fused_encoder_backward(x, g, params,
-                                                    impl="kernel", **kw))):
+            ("I", lambda: fe._bwd_sequences(x, g, params, heads, dtype,
+                                            causal))):
         fn()
         lib.fe_ticks(ticks, counts, 1)
         for _ in range(calls):

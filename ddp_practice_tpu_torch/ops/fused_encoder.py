@@ -3,40 +3,55 @@ of ddp_practice_tpu/ops/fused_encoder.py).
 
 One layer is LN1 -> QKV -> per-head softmax attention (bidirectional or
 causal) -> projection + residual -> LN2 -> tanh-GELU MLP + residual. On a
-CUDA tensor the whole layer is one launch per direction of two CUDA kernels
-written by hand for sm_90a (`csrc/fused_encoder.cu`, built by
-`ops/cuda_build.py`, launched through ctypes): kernel H forward (replaces
-`_fused_kernel`, reached from `fused_encoder_forward`) and kernel I backward
-(replaces `_fused_bwd_kernel`, reached from `fused_encoder_backward`). Every
-product of the layer (the six dense ones and the attention ones) runs inside
-the kernel body: bf16 operands on the tensor cores (WMMA mma.sync, fp32
-accumulation), fp32 operands as FMAs.
+CUDA tensor the layer runs CUDA kernels written by hand for sm_90a
+(`csrc/fused_encoder.cu`, built by `ops/cuda_build.py`, launched through
+ctypes): kernel H forward, one launch (replaces `_fused_kernel`, reached
+from `fused_encoder_forward`), and kernel I backward (replaces
+`_fused_bwd_kernel`, reached from `fused_encoder_backward`): one
+per-sequence launch with its vector-grad reduction, then kernel K
+(`ops/grouped_matmul.py`, `csrc/grouped_matmul.cu`) four times for the
+weight grads. bf16 products run on the tensor cores (fp32 accumulation),
+fp32 ones as FMAs.
 
 Design, where the reference's does not carry over:
 
 - Weights are not resident. A block works on one sequence at a time and
   keeps that sequence's operands (LN outputs, the head's q/k/v, the
-  probabilities, the fp32 staging tile) in shared memory; weight tiles
-  stream from global memory, where the layer's weights stay in the L2 cache
-  (the wrapper casts them once per call to the compute dtype, the
-  reference's `_prep`, and keeps PyTorch's (out, in) layout: the kernel reads
-  it transposed in place and writes weight grads in that layout).
+  probabilities, the fp32 staging tile) in shared memory. Kernel H reads
+  weight fragments from global memory, where the layer's weights stay in
+  the L2 cache; kernel I stages hd-row or hd-column blocks of them in two
+  shared-memory slots (cp.async, the next block copied while the current
+  one multiplies) and runs its products from shared memory with
+  mma.sync fed by ldmatrix. Its recompute stashes each head's q|k|v and
+  probabilities in a per-block buffer allocated here, and its heads'
+  backward reads them back instead of recomputing them; its input grads
+  through W_in and Wqkv run once a sequence over the stored operands. The wrapper casts
+  the weights once per call to the compute dtype (the reference's `_prep`)
+  and keeps PyTorch's (out, in) layout: the kernels read it transposed in
+  place.
 - What one sequence needs beyond the shared memory of an SM (232448 bytes)
   goes to a per-block scratch in global memory, allocated here with
   `torch.empty`: `_plan` places the buffers in order of use until the budget
-  is spent (at the ViT-Tiny shape in bf16 only the two fp32 residual
-  streams spill, which the kernel touches once per element). The grid is
-  cut so that the blocks' scratch stays within the L2.
-- The backward's weight grads: blocks run in parallel, so the reference's
-  accumulation over a sequential grid is replaced by a fixed number of
-  persistent blocks that each loop over their sequences (block b takes
-  images b, b + grid, ...) and add into their own fp32 partial of the 12
-  grads in global scratch (handed over zeroed), then a second kernel sums
-  the partials in block order. The grads are the same bits on every run (atomicAdd's order would
-  change from run to run; data-parallel replicas and the tests rely on equal
-  grads).
+  is spent (at the ViT-Tiny shape in bf16 kernel H keeps everything in
+  shared memory; kernel I's weight slots push its fp32 dy and the two fp32
+  residual streams out). The grid is cut so that the blocks' scratch stays
+  within the L2.
+- The backward's grads: blocks run in parallel, so the reference's
+  accumulation over a sequential grid becomes, for the four weight
+  matrices, one kernel K product each over every token of the layer (one
+  group, fp32 output): each sequence writes the operands those products
+  take (y1, dqkv, o_all, dx2, hg, dh, y2 in the compute dtype, rounded
+  where the products round them) into per-layer (tokens, width) buffers
+  allocated here. The 8 vector grads are a fixed number of persistent
+  blocks' own fp32 partials (block b takes images b, b + grid, ...), summed
+  by a second kernel in block order. K sums its work units in a fixed
+  order too: the grads are the same bits on every run (atomicAdd's order
+  would change from run to run; data-parallel replicas and the tests rely
+  on equal grads).
 - `seq_merge`, the tile auto-sizing and the VMEM declaration are TPU tuning
-  with exact results and are not ported; `img_tile` is accepted and ignored.
+  with exact results and are not ported; `img_tile` is accepted and
+  ignored. One sequence a block: kernel I's buffers and weight slots fill an
+  SM's shared memory at ViT-Tiny, so several sequences a block do not fit.
 
 `fused_shape_supported` is the port's own predicate: head_dim a multiple of
 64 (the reference's `_head_dim_ok`, so the same shapes fuse in both
@@ -78,8 +93,9 @@ from typing import Callable, Optional, Sequence
 import torch
 
 # launches per row of the kernel table, counted where a wrapper launches
-# its kernel and nowhere else (a backward launch is kernel I and its
-# fixed-order reduction)
+# its kernel and nowhere else (a backward launch is kernel I's per-sequence
+# kernel and its fixed-order reduction; its four kernel K launches count in
+# ops/grouped_matmul.py's LAUNCHES, "tgmm" and "tgmm_reduce")
 LAUNCHES = {"fused_encoder_fwd": 0, "fused_encoder_bwd": 0}
 
 # the layer's 12 leaves, in the kernels' order, named as in EncoderBlock
@@ -124,16 +140,19 @@ def _head_dim_ok(d: int, num_heads: int) -> bool:
 
 
 # buffers of one sequence, in the order `_plan` gives them shared memory
-(B_STATS, B_S, B_QKV, B_P, B_DS, B_Y, B_O, B_G, B_DY, B_XR, B_DX2,
- N_BUFFERS) = range(12)
+# (B_W: kernel I's two weight staging slots)
+(B_STATS, B_S, B_W, B_QKV, B_P, B_DS, B_Y, B_O, B_G, B_DY, B_XR, B_DX2,
+ N_BUFFERS) = range(13)
 
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
     """Where each buffer of one sequence lives: `offset` bytes into the
     block's shared memory (`in_scratch` 0) or into its global scratch (1),
-    `ld` its row pitch in elements; `ws` the staging tile's width, `chunk`
-    the MLP columns per pass."""
+    `ld` its row pitch in elements (B_W: one staging slot's elements, 0
+    in the forward, whose weights are not staged); `ws` the staging tile's
+    width,
+    `chunk` the MLP columns per pass."""
     offset: tuple
     in_scratch: tuple
     ld: tuple
@@ -154,12 +173,15 @@ def _round_up(x: int, m: int) -> int:
 def _plan(seq_len: int, d: int, num_heads: int, mlp_dim: int,
           cd_bytes: int, backward: bool) -> Plan:
     """Place one sequence's buffers: shared memory in order of how often
-    the kernel touches them, global scratch for what no longer fits."""
+    the kernel touches them, global scratch for what no longer fits. The
+    backward (kernel I) stages its weights in two slots of hd x (d + pad)
+    or d x (hd + pad) elements and runs its MLP hd columns a chunk."""
     sp = _round_up(seq_len, 16)
     hd = d // num_heads
     ws = max(3 * hd, 2 * sp if backward else sp)
-    chunk = min(mlp_dim, 3 * hd // 2 if backward else 3 * hd)
+    chunk = min(mlp_dim, hd if backward else 3 * hd)
     pad_t, pad_f = 16 // cd_bytes, 4
+    slot = max(hd * (d + pad_t), d * (hd + pad_t)) if backward else 0
     # (buffer, width in elements, element bytes); rows are sp
     spec = {
         B_STATS: (4, 4),                 # mu1, r1, mu2, r2 per row
@@ -172,6 +194,7 @@ def _plan(seq_len: int, d: int, num_heads: int, mlp_dim: int,
     }
     if backward:
         spec.update({
+            B_W: (0, cd_bytes),              # two weight slots (sized above)
             B_DS: (sp + pad_t, cd_bytes),    # d(scores)
             B_G: (d + pad_t, cd_bytes),      # cotangent, then d(x2)
             B_DY: (d + pad_f, 4),            # d(LN output), accumulated
@@ -185,6 +208,8 @@ def _plan(seq_len: int, d: int, num_heads: int, mlp_dim: int,
         width, esz = spec[buf]
         nbytes = _round_up(sp * width * esz, 128)
         ld[buf] = width
+        if buf == B_W:
+            nbytes, ld[buf] = _round_up(2 * slot * cd_bytes, 128), slot
         if smem + nbytes <= SMEM_LIMIT:
             offset[buf], where[buf] = smem, 0
             smem += nbytes
@@ -350,6 +375,28 @@ def fused_encoder_backward_plain(x, g, params, *, num_heads: int,
                                  causal: bool = False):
     """Kernel I's arithmetic in plain PyTorch: (dx in x's dtype, the 12
     parameter grads in PyTorch layout, each in its leaf's dtype)."""
+    cd = compute_dtype
+    dx, vec, ops, gt = backward_parts(x, g, params, num_heads=num_heads,
+                                      compute_dtype=cd, causal=causal)
+    ds1, db1, dbqkv, dbproj, ds2, db2, db_in, db_out = vec
+    grads = (ds1, db1, _mm(ops["dqkv"].T, ops["y1"], cd), dbqkv,
+             _mm(ops["dx2"].T, ops["o"], cd), dbproj, ds2, db2,
+             _mm(ops["dh"].T, ops["y2"], cd), db_in,
+             _mm(gt.T, ops["hg"], cd), db_out)
+    return dx, tuple(gr.reshape(p.shape).to(p.dtype)
+                     for gr, p in zip(grads, params))
+
+
+@torch.no_grad()
+def backward_parts(x, g, params, *, num_heads: int,
+                   compute_dtype=torch.bfloat16, causal: bool = False):
+    """Kernel I's per-sequence pass in plain PyTorch: (dx in x's dtype, the
+    8 vector grads in fp32 [ln1_s, ln1_b, bqkv, bproj, ln2_s, ln2_b, b_in,
+    b_out], the weight grads' operands {y1, dqkv, o, dx2, hg, dh, y2} as
+    fp32 (tokens, width) values before their rounding to the compute dtype,
+    the cotangent g as fp32 (tokens, d)). The weight grads are `_mm` of
+    them: dWqkv = dqkvᵀ y1, dWproj = dx2ᵀ o, dW_in = dhᵀ y2, dW_out =
+    gᵀ hg."""
     _check_x(x, params, num_heads)
     cd = compute_dtype
     imgs, s, d = x.shape
@@ -362,18 +409,15 @@ def fused_encoder_backward_plain(x, g, params, *, num_heads: int,
     core = _fwd_core(xt, imgs, s, ws, num_heads=num_heads, cd=cd,
                      causal=causal)
     # MLP branch
-    dw_out = _mm(gt.T, core["hg"], cd)                 # (d, mlp)
     db_out = gt.sum(dim=0)
     dhg = _mm(gt, w_out, cd)
     dhpre = dhg * _gelu_grad(core["hpre"], core["tanh"])
-    dw_in = _mm(dhpre.T, core["y2a"], cd)              # (mlp, d)
     db_in = dhpre.sum(dim=0)
     dy2a = _mm(dhpre, w_in, cd)
     dx2_ln, ds2, db2 = _layer_norm_bwd(dy2a, core["y2hat"], core["r2"], l2s)
     dx2 = gt + dx2_ln
     # attention branch
     dbproj = dx2.sum(dim=0)
-    dwproj = _mm(dx2.T, core["o_all"], cd)             # (d, d)
     do_all = _mm(dx2, wproj, cd)
     scale = 1.0 / (hd ** 0.5)
     cols = [[], [], []]
@@ -389,15 +433,13 @@ def fused_encoder_backward_plain(x, g, params, *, num_heads: int,
             group.append(piece.reshape(t, hd))
     dqkv32 = torch.cat(cols[0] + cols[1] + cols[2], dim=1)   # (t, 3d)
     dbqkv = dqkv32.sum(dim=0)
-    dqkv = dqkv32.to(cd)
-    dwqkv = _mm(dqkv.T, core["y1a"], cd)               # (3d, d)
+    dqkv = dqkv32.to(cd).float()
     dy1a = _mm(dqkv, wqkv, cd)
     dx1_ln, ds1, db1 = _layer_norm_bwd(dy1a, core["y1hat"], core["r1"], l1s)
     dx = (dx2 + dx1_ln).reshape(imgs, s, d).to(x.dtype)
-    grads = (ds1, db1, dwqkv, dbqkv, dwproj, dbproj, ds2, db2, dw_in, db_in,
-             dw_out, db_out)
-    return dx, tuple(gr.reshape(p.shape).to(p.dtype)
-                     for gr, p in zip(grads, params))
+    ops = dict(y1=core["y1a"], dqkv=dqkv, o=core["o_all"], dx2=dx2,
+               hg=core["hg"].float(), dh=dhpre, y2=core["y2a"])
+    return dx, (ds1, db1, dbqkv, dbproj, ds2, db2, db_in, db_out), ops, gt
 
 
 # ------------------------------------------------------------- dispatch
@@ -510,10 +552,6 @@ def fused_encoder_layer(x, params, *, num_heads: int,
 
 
 # -------------------------------------------------------------- launches
-def _grad_sizes(d: int, mlp: int) -> tuple:
-    return (d, d, 3 * d * d, 3 * d, d * d, d, d, d, mlp * d, mlp, d * mlp, d)
-
-
 def _prepare(x, params, num_heads, compute_dtype):
     """Checks, the packed operands and the launch geometry both kernels
     share: (x contiguous, weights in the compute dtype [wqkv | wproj | w_in
@@ -576,6 +614,39 @@ def _launch_fwd(x, params, num_heads, compute_dtype, causal):
 
 
 def _launch_bwd(x, g, params, num_heads, compute_dtype, causal):
+    """Kernel I: the per-sequence pass (dx, the vector grads, the weight
+    grads' operands), then the four weight grads through kernel K."""
+    dx, vec, ops, gt = _bwd_sequences(x, g, params, num_heads, compute_dtype,
+                                      causal)
+    return dx, assemble_grads(vec, _bwd_weight_grads(ops, gt), params)
+
+
+def assemble_grads(vec, mats, params) -> tuple:
+    """The 12 parameter grads in `PARAM_NAMES` order, each in its leaf's
+    dtype, from kernel I's flat vector grads (9d + mlp fp32: ln1_s, ln1_b,
+    bqkv, bproj, ln2_s, ln2_b, b_in, b_out) and its four weight grads
+    (dWqkv, dWproj, dW_in, dW_out)."""
+    d, mlp = params[0].shape[0], params[9].shape[0]
+    ln1_s, ln1_b, bqkv, bproj, ln2_s, ln2_b, b_in, b_out = vec.split(
+        (d, d, 3 * d, d, d, d, mlp, d))
+    dwqkv, dwproj, dw_in, dw_out = mats
+    flat = (ln1_s, ln1_b, dwqkv, bqkv, dwproj, bproj, ln2_s, ln2_b, dw_in,
+            b_in, dw_out, b_out)
+    return tuple(piece.reshape(p.shape).to(p.dtype)
+                 for piece, p in zip(flat, params))
+
+
+# kernel I's per-layer operands of the weight grads (csrc enum Op): name,
+# width in units of (d, mlp)
+BWD_OPERANDS = (("y1", (1, 0)), ("dqkv", (3, 0)), ("o", (1, 0)),
+                ("dx2", (1, 0)), ("hg", (0, 1)), ("dh", (0, 1)),
+                ("y2", (1, 0)))
+
+
+def _bwd_sequences(x, g, params, num_heads, compute_dtype, causal):
+    """Kernel I's per-sequence launch and its vector-grad reduction: (dx,
+    the 9d + mlp vector grads in fp32, {operand: (tokens, width) in the
+    compute dtype}, T(g) as (tokens, d))."""
     xc, mats, vecs, mlp = _prepare(x, params, num_heads, compute_dtype)
     imgs, s, d = xc.shape
     if tuple(g.shape) != tuple(x.shape) or g.device != x.device:
@@ -584,27 +655,53 @@ def _launch_bwd(x, g, params, num_heads, compute_dtype, causal):
     gc = g.detach().to(x.dtype).contiguous()
     plan = _plan(s, d, num_heads, mlp, mats.element_size(), True)
     grid = _grid(imgs, plan, x.device)
-    sizes = _grad_sizes(d, mlp)
-    total = sum(sizes)
+    vsz = 9 * d + mlp
     dx = torch.empty_like(xc)
     scratch = torch.empty(max(grid * plan.scratch_bytes, 256),
                           dtype=torch.uint8, device=x.device)
-    partial = torch.zeros((grid, total), dtype=torch.float32,
-                          device=x.device)
-    flat = torch.empty(total, dtype=torch.float32, device=x.device)
+    vpart = torch.empty((grid, vsz), dtype=torch.float32, device=x.device)
+    vec = torch.empty(vsz, dtype=torch.float32, device=x.device)
+    ops = {name: torch.empty((imgs * s, a * d + b * mlp), dtype=compute_dtype,
+                             device=x.device)
+           for name, (a, b) in BWD_OPERANDS}
+    # each block's stash of the recompute's q|k|v, P and fp32 p per head
+    sp = _round_up(s, 16)
+    stash_bytes = _round_up(num_heads * (sp * (plan.ld[B_QKV] + plan.ld[B_P])
+                                         * mats.element_size() + sp * sp * 4),
+                            16)
+    stash = torch.empty(grid * stash_bytes, dtype=torch.uint8,
+                        device=x.device)
+    pointers = (ctypes.c_void_p * len(ops))(*(t.data_ptr()
+                                              for t in ops.values()))
     lib = _library()
     with torch.cuda.device(x.device):
         rc = lib.fused_encoder_bwd(
             xc.data_ptr(), gc.data_ptr(), dx.data_ptr(), mats.data_ptr(),
-            vecs.data_ptr(), scratch.data_ptr(), partial.data_ptr(),
-            flat.data_ptr(), plan.table(), imgs, s, d, num_heads, mlp,
-            int(causal), _DTYPE_CODE[xc.dtype], _DTYPE_CODE[compute_dtype],
-            grid, plan.smem_bytes, plan.scratch_bytes, plan.chunk,
-            _stream(x))
+            vecs.data_ptr(), scratch.data_ptr(), vpart.data_ptr(),
+            vec.data_ptr(), pointers, stash.data_ptr(), stash_bytes,
+            plan.table(), imgs, s, d, num_heads,
+            mlp, int(causal), _DTYPE_CODE[xc.dtype],
+            _DTYPE_CODE[compute_dtype], grid, plan.smem_bytes,
+            plan.scratch_bytes, plan.chunk, _stream(x))
     _raise_on(rc, "fused_encoder_bwd", xc, num_heads, mlp, compute_dtype)
-    grads = tuple(piece.reshape(p.shape).to(p.dtype) for piece, p in
-                  zip(flat.split(sizes), params))
-    return dx, grads
+    return dx, vec, ops, gc.reshape(imgs * s, d).to(compute_dtype)
+
+
+def _bwd_weight_grads(ops, gt):
+    """Kernel I's four weight grads, each one kernel K product with one
+    group over all tokens and fp32 output, in PyTorch's (out, in) layout:
+    dWqkv = dqkvᵀ y1, dWproj = T(dx2)ᵀ o_all, dW_in = dhᵀ y2, dW_out =
+    T(g)ᵀ hg (4 "tgmm" launches, and a "tgmm_reduce" after each whose
+    tokens span more than one work unit)."""
+    from ddp_practice_tpu_torch.ops import grouped_matmul as gm
+
+    one = torch.full((1,), gt.shape[0], dtype=torch.int32, device=gt.device)
+    return tuple(gm.tgmm(lhs, rhs, one, out_dtype=torch.float32,
+                         impl="kernel")[0]
+                 for lhs, rhs in ((ops["dqkv"], ops["y1"]),
+                                  (ops["dx2"], ops["o"]),
+                                  (ops["dh"], ops["y2"]),
+                                  (gt, ops["hg"])))
 
 
 def _raise_on(rc, name, x, num_heads, mlp, compute_dtype):
@@ -632,7 +729,8 @@ def _library() -> ctypes.CDLL:
         tail = [T] + [I] * 8 + [I, I, ctypes.c_longlong, I, P]
         lib.fused_encoder_fwd.argtypes = [P] * 5 + tail
         lib.fused_encoder_fwd.restype = I
-        lib.fused_encoder_bwd.argtypes = [P] * 8 + tail
+        lib.fused_encoder_bwd.argtypes = [P] * 8 + [
+            ctypes.POINTER(ctypes.c_void_p), P, ctypes.c_longlong] + tail
         lib.fused_encoder_bwd.restype = I
         lib._signatures_set = True
     return lib

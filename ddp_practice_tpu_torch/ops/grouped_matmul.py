@@ -36,9 +36,17 @@ tail), and blocks past the last visit exit at once. bf16 J runs on
 Hopper's wgmma, fed by a ring of TMA copies (128 x 256 output tiles; 128
 x 128 through `_launch_gmm(..., block_n=128)`); fp32 operands, and bf16
 ones that are not 16-byte aligned, take a ring-less WMMA/FMA kernel (a
-layout branch). K runs one block per (group, k tile, n tile), reducing
-over the group's rows in a fixed order: no atomics, the same bits every
-run.
+layout branch). K cuts each group's rows into chunks of `tgmm_chunk` rows
+(work units, `tgmm_units`); one block per (unit, kd tile, n tile) reduces
+its unit's rows in row order. A group of one unit writes its tiles
+directly; a group of several writes fp32 partial tiles into a workspace
+(`tgmm_ws_slabs`), and a second launch ("tgmm_reduce") sums them in unit
+order and rounds once: no atomics, the same bits every run. bf16 K runs on
+wgmma from a TMA ring as J does, with lhsᵀ as the MN-major A operand (128
+x 256 output tiles, or 192 wide, `tgmm_block_n`); its fp32 and unaligned
+operands take the ring-less kernel, which writes every unit as a partial.
+The second pass is skipped when the workspace has no slab (bf16 with m at
+most one unit's rows).
 `gmm_schedule` and `gmm_emulated`/`tgmm_emulated` are that schedule in
 Python, pinned on the CPU against the plain versions.
 
@@ -67,15 +75,28 @@ import torch
 
 # launches per row of the kernel table, counted where a wrapper launches
 # its kernel and nowhere else
-LAUNCHES = {"gmm": 0, "gmm_trhs": 0, "tgmm": 0}
+# (K's second pass counts as "tgmm_reduce": one per tgmm launch whose
+# workspace has a slab, `tgmm_ws_slabs`)
+LAUNCHES = {"gmm": 0, "gmm_trhs": 0, "tgmm": 0, "tgmm_reduce": 0}
 
 # kernel J's tiles (rows, cols, depth): bf16 the Hopper kernel's
 # (csrc/grouped_matmul.cu WgTile<256>), fp32 the ring-less kernel's (Cfg)
 TILES = {torch.bfloat16: (128, 256, 64), torch.float32: (64, 64, 16)}
-# kernel K's (Cfg), and bf16 J's on operands TMA cannot address
-TGMM_TILES = {torch.bfloat16: (128, 128, 32), torch.float32: (64, 64, 16)}
-# the bf16 J's compiled tile widths (WgTile<BN>)
+# kernel K's: bf16 the Hopper kernel's (TgTile<256>: kd rows, n columns,
+# 64 reduction rows a slice), fp32 the ring-less kernel's (Cfg<float>)
+TGMM_TILES = {torch.bfloat16: (128, 256, 64), torch.float32: (64, 64, 16)}
+# the ring-less kernel's bf16 tile (Cfg<bf16>): J's and K's operands that
+# TMA cannot address
+RINGLESS_BF16_TILES = (128, 128, 32)
+# the bf16 J's compiled tile widths (WgTile<BN>), and K's (TgTile<BN>)
 GMM_BLOCK_N = (256, 128)
+TGMM_BLOCK_N = (256, 192)
+# K's rows a work unit: TGMM_CHUNK (TGMM_F32_CHUNK for an fp32 output),
+# halved down to TGMM_MIN_CHUNK while the units would fill less than half
+# the SMs (`tgmm_chunk`)
+TGMM_CHUNK = 16384
+TGMM_F32_CHUNK = 4096
+TGMM_MIN_CHUNK = 512
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ERRORS = {-2: "bad shape", -3: "unsupported dtype",
            -4: "tensor map refused (cuTensorMapEncodeTiled)"}
@@ -225,23 +246,142 @@ def gmm_emulated(lhs, rhs, group_sizes, *, transpose_rhs=False,
     return out.to(out_dtype or lhs.dtype), table, exits
 
 
-def tgmm_emulated(lhs, grad, group_sizes, *, out_dtype=None, tiles=None):
-    """Kernel K's blocks in plain PyTorch: per (group, k tile, n tile), an
-    fp32 sum over the group's rows in chunks of the tile depth, in row
-    order; an empty group's blocks write zeros."""
+def tgmm_units(group_sizes, m: int, chunk: int):
+    """Kernel K's work units, unit v for grid row v, exactly as each block
+    derives it on the device: (group, row_lo, row_hi, units of the group)
+    for chunk c of a group, rows [lo + c * chunk, ...) clipped to the
+    group's rows below m; an empty group (or one past m) is one unit of no
+    rows. Blocks of grid rows past the list's end exit at once."""
+    units, off = [], 0
+    for e, size in enumerate(group_sizes):
+        size = max(int(size), 0)
+        lo, hi = min(off, m), min(off + size, m)
+        count = -(-(hi - lo) // chunk) if hi > lo else 1
+        for c in range(count):
+            units.append((e, lo + c * chunk, min(lo + (c + 1) * chunk, hi),
+                          count))
+        off += size
+    return units
+
+
+def tgmm_unit_rows(m: int, num_groups: int, chunk: int) -> int:
+    """K's grid rows: ceil(m / chunk) + E bounds the units, sum over groups
+    of max(1, ceil(rows / chunk))."""
+    return -(-m // chunk) + num_groups
+
+
+def tgmm_ws_slabs(m: int, num_groups: int, chunk: int, direct: bool) -> int:
+    """K's fp32 workspace slabs of (kd, n). The ring-less kernel writes
+    every unit (`tgmm_unit_rows`). The Hopper kernel (`direct`) writes
+    only the units of groups of several units, each such group having
+    more than `chunk` rows: ceil(rows / chunk) <= rows // chunk + 1 sums
+    to at most m // chunk + (number of such groups), and there are at most
+    min(E, m // (chunk + 1)) of those. None when m <= chunk: every group
+    is then one unit and the second pass does not run."""
+    if not direct:
+        return tgmm_unit_rows(m, num_groups, chunk)
+    if m <= chunk:
+        return 0
+    return m // chunk + min(num_groups, m // (chunk + 1))
+
+
+def tgmm_slabs_of(units, direct: bool) -> list:
+    """Each unit's workspace slab, as the blocks derive it on the device:
+    unit v's own index for the ring-less kernel; for the Hopper kernel the
+    index among the units of groups of several units, in unit order, and
+    None for a group of one unit (it writes the output directly)."""
+    if not direct:
+        return list(range(len(units)))
+    slabs, split = [], 0
+    for _, _, _, count in units:
+        slabs.append(split if count > 1 else None)
+        split += count > 1
+    return slabs
+
+
+def tgmm_chunk(m: int, tiles: int, sms: int, out_f32: bool = False) -> int:
+    """K's rows a unit: TGMM_CHUNK, halved (down to TGMM_MIN_CHUNK) while
+    ceil(m / chunk) units of `tiles` output tiles each would fill less
+    than half the SMs. The lm_moe shapes keep 16384 (every group of the
+    balanced and of the skewed pattern is one unit: no partials); the
+    fused layer's one-group weight grads get 1024-4096 rows a unit. On an
+    H100 (experiments/tgmm_tune.py) longer units won wherever they still
+    half-filled the card: a unit of 4096 rows beat twice the units of 2048
+    that would fill every SM, and the skewed pattern ran fastest unsplit.
+    An fp32 output starts at TGMM_F32_CHUNK: one unit is one fp32
+    accumulation chain, whose rounding grows with its rows (a 16384-row
+    chain put the skewed pattern's fp32 result 1.4e-5 from the plain
+    version in relative norm, 4096-row units 4.2e-6); a bf16 output rounds
+    to 2^-8 and does not see it."""
+    chunk = TGMM_F32_CHUNK if out_f32 else TGMM_CHUNK
+    while chunk > TGMM_MIN_CHUNK and -(-m // chunk) * tiles < sms // 2:
+        chunk //= 2
+    return chunk
+
+
+def tgmm_block_n(n: int) -> int:
+    """K's tile width for n columns: the compiled width that wastes the
+    fewest columns, the widest on a tie (n = 192 runs 192 wide)."""
+    return min(TGMM_BLOCK_N, key=lambda bn: (-(-n // bn) * bn - n, -bn))
+
+
+def tgmm_emulated(lhs, grad, group_sizes, *, out_dtype=None, tiles=None,
+                  chunk=TGMM_CHUNK, direct=None):
+    """Kernel K's blocks in plain PyTorch: per work unit (`tgmm_units`) and
+    output tile, an fp32 sum over the unit's rows in slices of the tile
+    depth, in row order. A slice holds whole rows of the operands as they
+    lie (its last one runs past the unit into the next chunk, group or
+    the zero-filled rows past m), and the rows past the unit are zeroed in
+    both operands before the product. `direct` (the Hopper kernel, the
+    default for bf16): a group of one unit writes its tiles rounded once,
+    and only the other groups' units have workspace slabs
+    (`tgmm_slabs_of`, `tgmm_ws_slabs`); otherwise every unit writes an
+    fp32 partial slab. The second pass sums a group's slabs in unit order
+    and rounds once (groups of one unit skipped when direct); it does not
+    run when the workspace has no slab. Elements no block writes stay
+    NaN."""
     bm, bn, bk = tiles or TGMM_TILES[lhs.dtype]
-    kd, n = lhs.shape[1], grad.shape[1]
-    out = torch.full((group_sizes.shape[0], kd, n), float("nan"))
-    for e, lo, hi in _bounds(group_sizes, lhs.shape[0]):
+    if direct is None:
+        direct = lhs.dtype == torch.bfloat16
+    m, kd = lhs.shape
+    n = grad.shape[1]
+    e_count = group_sizes.shape[0]
+    out_dtype = out_dtype or lhs.dtype
+    units = tgmm_units(group_sizes.tolist(), m, chunk)
+    assert len(units) <= tgmm_unit_rows(m, e_count, chunk)
+    slab_of = tgmm_slabs_of(units, direct)
+    slabs = tgmm_ws_slabs(m, e_count, chunk, direct)
+    assert all(v is None or v < slabs for v in slab_of)
+    ws = torch.full((slabs, kd, n), float("nan"))
+    out = torch.full((e_count, kd, n), float("nan"))
+    # rows past m read as zeros, as TMA fills them
+    pad = lambda t: torch.cat([t.float(), t.new_zeros((bk, t.shape[1])
+                                                      ).float()])
+    a_all, g_all = pad(lhs), pad(grad)
+    for v, (e, lo, hi, count) in enumerate(units):
         for i0 in range(0, kd, bm):
             for n0 in range(0, n, bn):
                 acc = torch.zeros((min(bm, kd - i0), min(bn, n - n0)))
                 for r0 in range(lo, hi, bk):
-                    r1 = min(r0 + bk, hi)
-                    acc += (lhs[r0:r1, i0:i0 + bm].float().T
-                            @ grad[r0:r1, n0:n0 + bn].float())
-                out[e, i0:i0 + bm, n0:n0 + bn] = acc
-    return out.to(out_dtype or lhs.dtype)
+                    a = a_all[r0:r0 + bk, i0:i0 + bm].clone()
+                    b = g_all[r0:r0 + bk, n0:n0 + bn].clone()
+                    a[hi - r0:] = 0.0      # rows past the unit, both
+                    b[hi - r0:] = 0.0      # operands (0 * Inf is NaN)
+                    acc += a.T @ b
+                if slab_of[v] is None:
+                    out[e, i0:i0 + bm, n0:n0 + bn] = acc.to(out_dtype).float()
+                else:
+                    ws[slab_of[v], i0:i0 + bm, n0:n0 + bn] = acc
+    u0 = 0
+    for e in range(e_count if slabs else 0):      # the second pass
+        count = sum(1 for unit in units if unit[0] == e)
+        if count > 1 or not direct:
+            acc = torch.zeros((kd, n))
+            for c in range(count):
+                acc += ws[u0 + c]
+            out[e] = acc.to(out_dtype).float()
+            u0 += count
+    return out.to(out_dtype)
 
 
 # -------------------------------------------------------------- public API
@@ -263,7 +403,7 @@ def tgmm(lhs: torch.Tensor, grad: torch.Tensor, group_sizes: torch.Tensor,
     """(m, k), (m, n) -> (E, k, n): per group lhs_eᵀ · g_e."""
     if not _use_kernel(impl, lhs):
         return tgmm_plain(lhs, grad, group_sizes, out_dtype=out_dtype)
-    return _launch_tgmm(lhs, grad, group_sizes, out_dtype or lhs.dtype)
+    return _launch_tgmm(lhs, grad, group_sizes, out_dtype)
 
 
 class _GroupedMatmul(torch.autograd.Function):
@@ -366,27 +506,62 @@ def _launch_gmm(lhs, rhs, group_sizes, transpose_rhs, *, out_dtype=None,
     return out
 
 
-def _launch_tgmm(lhs, grad, group_sizes, out_dtype):
+def _launch_tgmm(lhs, grad, group_sizes, out_dtype=None, *, chunk=None,
+                 block_n=None):
+    """Kernel K and its second pass (none when the workspace has no slab,
+    `tgmm_ws_slabs`). bf16 operands that TMA can address (and m > 0) take
+    the Hopper kernel at `block_n` (`tgmm_block_n` by default); the rest
+    the ring-less kernel. `chunk`: rows a work unit (`tgmm_chunk` by
+    default). out_dtype: the operands' dtype, or fp32 from bf16
+    operands."""
     if lhs.dim() != 2 or grad.dim() != 2 or lhs.shape[0] != grad.shape[0]:
         raise ValueError(f"tgmm takes lhs (m, k) and g (m, n); got "
                          f"{tuple(lhs.shape)} and {tuple(grad.shape)}")
-    if out_dtype != lhs.dtype:
+    out_dtype = out_dtype or lhs.dtype
+    if out_dtype not in (lhs.dtype, torch.float32):
         raise ValueError(f"tgmm: the kernel writes the operands' dtype "
-                         f"{lhs.dtype}; asked for {out_dtype}")
+                         f"{lhs.dtype} or fp32; asked for {out_dtype}")
     m, kd = lhs.shape
     n = grad.shape[1]
     _check("tgmm", lhs, grad, group_sizes, (kd, n))
     e_count = group_sizes.shape[0]
     out = torch.empty((e_count, kd, n), dtype=out_dtype, device=lhs.device)
-    if out.numel():
-        lib = _library()
-        with torch.cuda.device(lhs.device):
-            rc = lib.grouped_matmul_tgmm(
-                lhs.data_ptr(), grad.data_ptr(), group_sizes.data_ptr(),
-                out.data_ptr(), m, kd, n, e_count, _vec(lhs, grad, out),
-                _DTYPE_CODE[lhs.dtype], _stream(lhs))
+    if not out.numel():
+        return out
+    vec = _vec(lhs, grad, out)
+    direct = lhs.dtype == torch.bfloat16 and bool(vec) and m > 0
+    block_n = block_n or tgmm_block_n(n)
+    if block_n not in TGMM_BLOCK_N:
+        raise ValueError(f"tgmm: block_n {block_n} not compiled "
+                         f"{TGMM_BLOCK_N}")
+    if chunk is None:
+        bm, bn, _ = ((128, block_n, 64) if direct else
+                     TGMM_TILES[torch.float32] if lhs.dtype == torch.float32
+                     else RINGLESS_BF16_TILES)
+        sms = torch.cuda.get_device_properties(
+            lhs.device).multi_processor_count
+        chunk = tgmm_chunk(m, -(-kd // bm) * -(-n // bn), sms,
+                           out_dtype == torch.float32)
+    if chunk < 1:
+        raise ValueError(f"tgmm: chunk {chunk} rows")
+    slabs = tgmm_ws_slabs(m, e_count, chunk, direct)
+    ws = torch.empty((slabs, kd, n), dtype=torch.float32, device=lhs.device)
+    lib = _library()
+    code, f32 = _DTYPE_CODE[lhs.dtype], int(out_dtype != lhs.dtype)
+    with torch.cuda.device(lhs.device):
+        rc = lib.grouped_matmul_tgmm(
+            lhs.data_ptr(), grad.data_ptr(), group_sizes.data_ptr(),
+            out.data_ptr(), ws.data_ptr(), m, kd, n, e_count, chunk,
+            int(direct), vec, code, f32, block_n, _stream(lhs))
         _raise_on(rc, "grouped_matmul_tgmm", lhs, grad)
         LAUNCHES["tgmm"] += 1
+        if not slabs:
+            return out
+        rc = lib.grouped_matmul_tgmm_reduce(
+            ws.data_ptr(), group_sizes.data_ptr(), out.data_ptr(), m, kd, n,
+            e_count, chunk, int(direct), code, f32, _stream(lhs))
+        _raise_on(rc, "grouped_matmul_tgmm_reduce", lhs, grad)
+        LAUNCHES["tgmm_reduce"] += 1
     return out
 
 
@@ -401,6 +576,20 @@ def gmm_occupancy(block_n: int = GMM_BLOCK_N[0]) -> dict:
                                       *(ctypes.byref(v) for v in vals))
     if rc != 0:
         raise RuntimeError(f"grouped_matmul_occupancy({block_n}): "
+                           + _ERRORS.get(rc, f"cudaError_t {rc}"))
+    return dict(zip(("smem_bytes", "threads", "blocks_per_sm"),
+                    (v.value for v in vals)))
+
+
+def tgmm_occupancy(block_n: int = TGMM_BLOCK_N[0]) -> dict:
+    """The bf16 Hopper K's footprint at tile width `block_n`, as
+    `gmm_occupancy` gives J's."""
+    lib = _library()
+    vals = [ctypes.c_int() for _ in range(3)]
+    rc = lib.grouped_matmul_tgmm_occupancy(block_n,
+                                           *(ctypes.byref(v) for v in vals))
+    if rc != 0:
+        raise RuntimeError(f"grouped_matmul_tgmm_occupancy({block_n}): "
                            + _ERRORS.get(rc, f"cudaError_t {rc}"))
     return dict(zip(("smem_bytes", "threads", "blocks_per_sm"),
                     (v.value for v in vals)))
@@ -431,7 +620,11 @@ def _library() -> ctypes.CDLL:
         IP = ctypes.POINTER(ctypes.c_int)
         lib.grouped_matmul_occupancy.argtypes = [I, IP, IP, IP]
         lib.grouped_matmul_occupancy.restype = I
-        lib.grouped_matmul_tgmm.argtypes = [P, P, P, P, I, I, I, I, I, I, P]
+        lib.grouped_matmul_tgmm_occupancy.argtypes = [I, IP, IP, IP]
+        lib.grouped_matmul_tgmm_occupancy.restype = I
+        lib.grouped_matmul_tgmm.argtypes = [P] * 5 + [I] * 10 + [P]
         lib.grouped_matmul_tgmm.restype = I
+        lib.grouped_matmul_tgmm_reduce.argtypes = [P, P, P] + [I] * 8 + [P]
+        lib.grouped_matmul_tgmm_reduce.restype = I
         lib._signatures_set = True
     return lib

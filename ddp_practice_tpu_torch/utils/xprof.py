@@ -46,7 +46,7 @@ _KINDS = (
     ("fused H", ("fused_encoder_fwd",)),
     ("fused I reduce", ("fused_encoder_reduce",)),
     ("fused I", ("fused_encoder_bwd",)),
-    ("grouped K", ("tgmm_kernel",)),
+    ("grouped K", ("tgmm",)),           # K and its second pass
     ("grouped J", ("gmm_kernel",)),
     ("decode A-D", ("decode_attention",)),
     ("matmul", ("gemm", "cutlass", "xmma", "nvjet", "gemv")),

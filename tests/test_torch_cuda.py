@@ -38,7 +38,9 @@ ring's plain-load branch and must still match.
 The fused encoder layer holds the output, dx and each of the 12 parameter
 grads apart. fp32: 2e-5 forward, 2e-4 grads (3e-4 causal) per element,
 scaled by the tensor's largest magnitude where that exceeds 1 (a weight
-grad sums over every token), and 1e-5 in relative error norm. bf16: kernel
+grad sums over every token: through kernel K's work units, in another
+order than the plain version's one product, which the limit already
+covers), and 1e-5 in relative error norm. bf16: kernel
 and plain round at the same ~10 points (y1, qkv, p, o, y2, hg, g, dx2, do,
 ds, dqkv) and differ in fp32 summation order, so a rounding flips by an ulp
 (2^-8 relative) here and there and the flips pass through the later
@@ -47,10 +49,20 @@ relative error norm (a tile wrong by its own size gives far more).
 
 The grouped matmul: kernel and plain version both sum in fp32 and round
 once, so fp32 holds 2e-5 relative and 2e-5 absolute times the tensor's
-largest magnitude where that exceeds 1 (tgmm sums hundreds of rows, and
+largest magnitude where that exceeds 1 (tgmm sums up to 65536 rows, and
 fp32 rounding scales with the partial sums), bf16 the decode kernels'
 1.6e-2 + 2^-7 |ref| (summation order can flip the final bf16 rounding by
-an ulp); tgmm's fixed-order reduction gives the same bits on every run.
+an ulp); tgmm's fixed-order reduction (its work units' partials summed in
+unit order) gives the same bits on every run. K's Hopper kernel runs at
+the lm_moe shapes and at the fused ViT-Tiny layer's four one-group weight
+grads (fp32 output), at work units smaller than the groups (rows of the
+next unit, group or tail zeroed in both operands: an Inf there stays
+out), at every compiled tile width; unaligned operands take the
+ring-less kernel.
+
+The fused layer's kernel I runs its weight grads through K and stages
+its weights in shared memory; a width above 256 takes the row passes'
+general path.
 """
 
 import pytest
@@ -604,8 +616,9 @@ def _fused_check(imgs, s, d, heads, mlp, dtype, causal, seed=0):
     (9, 128, 256, 4, 1024, True),     # lm_tiny with 4 heads, causal
     (4, 32, 128, 2, 128, True),       # the reference's causal test shape
     (3, 40, 128, 1, 208, False),      # head_dim 128, ragged mlp chunk
+    (2, 64, 384, 6, 1536, False),     # d > 256: the general row passes
 ], ids=["vit_tiny", "odd_batch", "s49", "causal_lm", "causal_small",
-        "hd128"])
+        "hd128", "d384"])
 def test_fused_kernels_match_plain(card, shape, dtype):
     _fused_check(*shape[:5], dtype, shape[5], seed=shape[0])
 
@@ -808,9 +821,9 @@ def test_sorted_moe_runs_the_kernels(card):
             p.grad.clone() for p in moe.parameters()]
 
     launches, got = run("kernel")
-    assert launches == {"gmm": 2, "gmm_trhs": 2, "tgmm": 2}
+    assert launches == {"gmm": 2, "gmm_trhs": 2, "tgmm": 2, "tgmm_reduce": 2}
     launches, want = run("plain")
-    assert launches == {"gmm": 0, "gmm_trhs": 0, "tgmm": 0}
+    assert launches == {"gmm": 0, "gmm_trhs": 0, "tgmm": 0, "tgmm_reduce": 0}
     for i, (a, b) in enumerate(zip(got, want)):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4,
                                    msg=f"tensor {i}")
@@ -904,3 +917,105 @@ def test_grouped_matmul_wrapper_refusals(card):
         gm.gmm(lhs, rhs[:, :8], sizes, impl="kernel")
     with pytest.raises(ValueError, match="writes the operands' dtype"):
         gm.tgmm(lhs, grad, sizes, out_dtype=torch.bfloat16, impl="kernel")
+
+
+# ------------------------------------------------------- kernel K, Hopper
+LM_MOE = {"balanced": [4096] * 8,
+          "skewed": [16384, 8192, 4096, 2048, 1024, 512, 256, 256],
+          "empty_off_grid": [0, 9001, 0, 7777, 1, 0, 15000, 989]}
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kn", [(768, 3072), (3072, 768)])
+@pytest.mark.parametrize("pattern", sorted(LM_MOE))
+def test_tgmm_lm_moe_shapes_match_plain(card, pattern, kn, out_dtype):
+    """K at the sorted lm_moe leg's shapes (m = 32768, E = 8): its default
+    unit size and width, bf16 and fp32 output; an empty group is zero."""
+    k, n = kn
+    sizes = torch.tensor(LM_MOE[pattern], dtype=torch.int32, device="cuda")
+    lhs, _, grad = _gmm_operands(32768, k, n, 1, torch.bfloat16, 31)
+    got = gm.tgmm(lhs, grad, sizes, out_dtype=out_dtype, impl="kernel")
+    _gmm_held(got, gm.tgmm_plain(lhs, grad, sizes, out_dtype=out_dtype),
+              f"tgmm {pattern} {kn}")
+    for e, size in enumerate(LM_MOE[pattern]):
+        if size == 0:
+            assert not got[e].any()
+
+
+@pytest.mark.parametrize("kn", [(576, 192), (192, 192), (768, 192),
+                                (192, 768)],
+                         ids=["dWqkv", "dWproj", "dW_in", "dW_out"])
+def test_tgmm_one_group_at_the_vit_weight_grads(card, kn):
+    """The fused ViT-Tiny layer's four weight grads: one group of 65536
+    tokens, fp32 output, the rows split into units to fill the card."""
+    k, n = kn
+    one = torch.full((1,), 65536, dtype=torch.int32, device="cuda")
+    lhs, _, grad = _gmm_operands(65536, k, n, 1, torch.bfloat16, 32)
+    _gmm_held(gm.tgmm(lhs, grad, one, out_dtype=torch.float32,
+                      impl="kernel"),
+              gm.tgmm_plain(lhs, grad, one, out_dtype=torch.float32),
+              f"tgmm one group {kn}")
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("block_n", gm.TGMM_BLOCK_N)
+@pytest.mark.parametrize("chunk", [64, 100, 4096])
+@pytest.mark.parametrize("pattern", ["skewed", "empty_off_grid", "tail"])
+def test_tgmm_units_and_widths(card, pattern, chunk, block_n, out_dtype):
+    """Units smaller than the groups (64 rows, and 100: off the 64-row
+    slices), each compiled width, kd = 96 and n = 160 (partial tiles).
+    With 4096-row units every group is one unit: no workspace slab, and
+    no second pass."""
+    sizes = torch.tensor(GMM_PATTERNS[pattern], dtype=torch.int32,
+                         device="cuda")
+    lhs, _, grad = _gmm_operands(1000, 96, 160, 1, torch.bfloat16, 33)
+    before = gm.LAUNCHES["tgmm_reduce"]
+    got = gm._launch_tgmm(lhs, grad, sizes, out_dtype, chunk=chunk,
+                          block_n=block_n)
+    assert gm.LAUNCHES["tgmm_reduce"] == before + (chunk < 1000)
+    _gmm_held(got, gm.tgmm_plain(lhs, grad, sizes, out_dtype=out_dtype),
+              f"tgmm {pattern} chunk {chunk} width {block_n}")
+
+
+def test_tgmm_rows_past_a_unit_stay_out(card):
+    """Inf in another group's rows, of either operand, reaches no other
+    group's product: the rows past a unit are zeroed in both operands."""
+    sizes = torch.tensor([37, 63, 100, 800], dtype=torch.int32,
+                         device="cuda")
+    lhs, _, grad = _gmm_operands(1000, 64, 128, 1, torch.bfloat16, 34)
+    lhs[37:100, 5] = float("inf")
+    grad[100:200, 7] = float("-inf")
+    for chunk in (64, 4096):
+        got = gm._launch_tgmm(lhs, grad, sizes, torch.float32, chunk=chunk)
+        want = gm.tgmm_plain(lhs, grad, sizes, out_dtype=torch.float32)
+        for e in (0, 3):
+            assert torch.isfinite(got[e]).all(), (chunk, e)
+            _gmm_held(got[e], want[e], f"tgmm group {e} chunk {chunk}")
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+def test_tgmm_unaligned_operands_take_the_ringless_kernel(card, out_dtype):
+    """bf16 operands one element into their storage: no tensor map, so K
+    runs the ring-less kernel, every unit through the second pass."""
+    sizes = torch.tensor(GMM_PATTERNS["empty_off_grid"], dtype=torch.int32,
+                         device="cuda")
+    lhs, _, grad = _gmm_operands(1000, 96, 160, 1, torch.bfloat16, 35)
+    shift = torch.cat([torch.zeros(1, device="cuda", dtype=torch.bfloat16),
+                       lhs.reshape(-1)])[1:].view(1000, 96)
+    assert shift.data_ptr() % 16 != 0
+    for chunk in (64, None):
+        got = gm._launch_tgmm(shift, grad, sizes, out_dtype, chunk=chunk)
+        _gmm_held(got, gm.tgmm_plain(shift, grad, sizes,
+                                     out_dtype=out_dtype),
+                  f"tgmm unaligned chunk {chunk}")
+
+
+@pytest.mark.parametrize("chunk", [128, None])
+def test_tgmm_is_the_same_bits_every_run(card, chunk):
+    """Units summed in unit order, no atomics: two runs, the same bits."""
+    sizes = torch.tensor(LM_MOE["skewed"], dtype=torch.int32, device="cuda")
+    lhs, _, grad = _gmm_operands(32768, 768, 256, 1, torch.bfloat16, 36)
+    first = gm._launch_tgmm(lhs, grad, sizes, torch.float32, chunk=chunk)
+    second = gm._launch_tgmm(lhs, grad, sizes, torch.float32, chunk=chunk)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)

@@ -14,10 +14,12 @@ on the CPU, where it runs its plain version:
 - `fused_encoder_layer` as a torch.autograd.Function against autograd of the
   port's unfused `EncoderBlock`, for `bwd_impl` "kernel" and "reference";
 - an emulation of kernel I's schedule: persistent blocks that each take
-  sequences b, b + grid, ..., pad the rows to a multiple of 16 with zero
-  cotangents, keep an fp32 partial of the 12 grads, and a reduction over
-  the partials in block order; it must give the whole batch's grads, the
-  same bits on every run, whatever the grid;
+  sequences b, b + grid, ..., keep an fp32 partial of the vector grads
+  (reduced in block order) and write the weight grads' operands, whose
+  four products run through kernel K's emulation (one group, fp32 output,
+  rows split into work units); it must give the whole batch's grads (the
+  plain version's, and in fp32 the JAX fused layer's), the same bits on
+  every run, whatever the grid and the unit size;
 - the shared-memory plan and the port's own predicate: ViT-Tiny and the
   reference tests' shapes are admitted, wide models, long sequences and
   head_dim 32 are refused with the limit named, and `impl="kernel"` on a
@@ -38,6 +40,7 @@ from ddp_practice_tpu.ops.fused_encoder import (
 from ddp_practice_tpu_torch.convert import flax_to_state_dict
 from ddp_practice_tpu_torch.models.vit import EncoderBlock
 from ddp_practice_tpu_torch.ops import fused_encoder as fe
+from ddp_practice_tpu_torch.ops import grouped_matmul as gm
 
 SHAPES = {
     # name: (imgs, s, d, heads, mlp, causal)
@@ -202,44 +205,82 @@ def test_layer_function_checks_its_arguments():
     assert out.shape == xt.shape
 
 
-def _scheduled_backward(x, g, leaves, grid, **kw):
+def _scheduled_backward(x, g, leaves, grid, chunk, **kw):
     """Kernel I's schedule in torch: block b takes sequences b, b + grid,
-    ...; each sequence's rows are padded to a multiple of 16 (zero rows,
-    zero cotangents: the padded keys get no mass because the plain version
-    is called on the real rows, as the kernel masks them); each block sums
-    into its own fp32 partial; the partials are summed in block order."""
+    ...; each sequence's pass (the plain version on its real rows: the
+    kernel pads them to a multiple of 16 with zero cotangents and masked
+    keys) gives its dx rows, adds its vector grads into the block's fp32
+    partial and writes the weight grads' operands, rounded to the compute
+    dtype, into per-layer (tokens, width) buffers; the partials are summed
+    in block order, and each weight grad is one kernel K product with one
+    group over all tokens (tgmm_emulated: fp32 output, `chunk` rows a work
+    unit, the units' partials summed in order)."""
     imgs, s, d = x.shape
-    mlp = leaves[8].shape[0]
-    sizes = fe._grad_sizes(d, mlp)
-    partial = torch.zeros((grid, sum(sizes)))
+    cd = kw["compute_dtype"]
+    vsz = 9 * d + leaves[9].shape[0]
+    partial = torch.zeros((grid, vsz))
     dx = torch.empty_like(x)
+    ops, gt = {}, torch.empty((imgs * s, d), dtype=cd)
     for b in range(grid):
         for img in range(b, imgs, grid):
-            one_dx, grads = fe.fused_encoder_backward_plain(
+            one_dx, vec, one_ops, one_g = fe.backward_parts(
                 x[img:img + 1], g[img:img + 1], leaves, **kw)
             dx[img] = one_dx[0]
-            partial[b] += torch.cat([gr.reshape(-1).float() for gr in grads])
-    flat = torch.zeros(sum(sizes))
+            partial[b] += torch.cat(vec)
+            rows = slice(img * s, (img + 1) * s)
+            for name, value in one_ops.items():
+                ops.setdefault(name, torch.empty(
+                    (imgs * s, value.shape[1]), dtype=cd))[rows] = value
+            gt[rows] = one_g
+    vec = torch.zeros(vsz)
     for b in range(grid):          # the reduce kernel's fixed order
-        flat += partial[b]
-    return dx, [piece.reshape(p.shape)
-                for piece, p in zip(flat.split(sizes), leaves)]
+        vec += partial[b]
+    one = torch.tensor([imgs * s], dtype=torch.int32)
+    mats = [gm.tgmm_emulated(lhs, rhs, one, out_dtype=torch.float32,
+                             chunk=chunk)[0]
+            for lhs, rhs in ((ops["dqkv"], ops["y1"]), (ops["dx2"], ops["o"]),
+                             (ops["dh"], ops["y2"]), (gt, ops["hg"]))]
+    return dx, fe.assemble_grads(vec, mats, leaves)
 
 
-@pytest.mark.parametrize("grid", [1, 3, 7])
-def test_block_schedule_gives_the_batch_grads(grid):
+@pytest.mark.parametrize("grid,chunk,dtype", [
+    (1, 4096, torch.float32), (3, 64, torch.float32),
+    (7, 32, torch.float32), (3, 64, torch.bfloat16)])
+def test_block_schedule_gives_the_batch_grads(grid, chunk, dtype):
+    """The schedule against the plain version (fp32: dx 1e-5, grads 1e-4,
+    sums in another order; bf16: the same rounding points, so one bf16
+    rounding can flip by an ulp and pass through later products: 2e-2 of
+    the tensor's largest magnitude) and, in fp32, against the JAX fused
+    layer at the reference tests' 3e-4 (causal). Two runs give the same
+    bits."""
     imgs, s, d, heads, mlp, causal = 7, 20, 64, 1, 48, True
-    _, _, leaves, x, g = _setup(imgs, s, d, heads, mlp, causal, seed=4)
-    kw = dict(num_heads=heads, compute_dtype=torch.float32, causal=causal)
+    block, params, leaves, x, g = _setup(imgs, s, d, heads, mlp, causal,
+                                         seed=4)
+    kw = dict(num_heads=heads, compute_dtype=dtype, causal=causal)
     xt, gt = torch.from_numpy(x), torch.from_numpy(g)
     want_dx, want = fe.fused_encoder_backward_plain(xt, gt, leaves, **kw)
-    dx, grads = _scheduled_backward(xt, gt, leaves, grid, **kw)
-    again_dx, again = _scheduled_backward(xt, gt, leaves, grid, **kw)
-    torch.testing.assert_close(dx, want_dx, rtol=1e-5, atol=1e-5)
+    dx, grads = _scheduled_backward(xt, gt, leaves, grid, chunk, **kw)
+    again_dx, again = _scheduled_backward(xt, gt, leaves, grid, chunk, **kw)
     assert torch.equal(dx, again_dx)
-    for name, a, b, c in zip(fe.PARAM_NAMES, grads, want, again):
-        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4, msg=name)
+    pairs = [("dx", dx, want_dx)] + list(zip(fe.PARAM_NAMES, grads, want))
+    for name, a, b in pairs:
+        if dtype == torch.float32:
+            tol = 1e-5 if name == "dx" else 1e-4
+            torch.testing.assert_close(a, b, rtol=tol, atol=tol, msg=name)
+        else:
+            scale = max(1.0, float(b.abs().max()))
+            assert float((a - b).abs().max()) <= 2e-2 * scale, name
+    for name, a, c in zip(fe.PARAM_NAMES, grads, again):
         assert torch.equal(a, c), name
+    if dtype == torch.float32:
+        jfn = (lambda p, xx: jax_fused_layer(
+            xx, p, num_heads=heads, causal=causal,
+            compute_dtype=jnp.float32))
+        _, jdx, jgrads = _jax_grads(jfn, params, x, g)
+        np.testing.assert_allclose(dx.numpy(), jdx, rtol=3e-4, atol=3e-4)
+        for name, a in zip(fe.PARAM_NAMES, grads):
+            np.testing.assert_allclose(a.numpy(), jgrads[name].numpy(),
+                                       rtol=3e-4, atol=3e-4, err_msg=name)
 
 
 def test_plan_places_vit_tiny_in_shared_memory():
@@ -247,13 +288,19 @@ def test_plan_places_vit_tiny_in_shared_memory():
         plan = fe._plan(64, 192, 3, 768, 2, backward)
         assert plan.smem_bytes <= fe.SMEM_LIMIT
         spilled = {b for b in range(fe.N_BUFFERS) if plan.in_scratch[b]}
-        # only the fp32 residual streams, touched once per element, spill
-        assert spilled <= {fe.B_XR, fe.B_DX2}, spilled
+        # kernel I's two weight slots stay in shared memory at the cost of
+        # the fp32 dy buffer; the fp32 residual streams, touched once per
+        # element, spill too
+        assert spilled <= {fe.B_DY, fe.B_XR, fe.B_DX2}, spilled
         assert all(off % 128 == 0 for off in plan.offset)
         assert plan.chunk % 16 == 0 and plan.ws >= 3 * 64
         assert 2 * plan.chunk <= plan.ws or not backward
     fwd = fe._plan(64, 192, 3, 768, 2, False)
-    assert not any(fwd.in_scratch)
+    assert not any(fwd.in_scratch) and fwd.ld[fe.B_W] == 0
+    bwd = fe._plan(64, 192, 3, 768, 2, True)
+    # a slot holds an (hd, d) or a (d, hd) block at padded pitch
+    assert bwd.ld[fe.B_W] == max(64 * 200, 192 * 72)
+    assert bwd.chunk == 64
     # fp32 operands are twice as wide: more spills, same code path
     assert fe._plan(64, 192, 3, 768, 4, True).scratch_bytes > \
         fe._plan(64, 192, 3, 768, 2, True).scratch_bytes

@@ -88,6 +88,8 @@ def test_summary_of_a_written_trace_is_exact(tmp_path):
     ("fused_encoder_reduce_kernel", "kernel", "fused I reduce"),
     ("gmm_kernel<bf16, 0>", "kernel", "grouped J"),
     ("tgmm_kernel<bf16>", "kernel", "grouped K"),
+    ("tgmm_wg_kernel<256, 1>", "kernel", "grouped K"),
+    ("tgmm_reduce_kernel<float>", "kernel", "grouped K"),
     ("paged_decode_attention_kernel<1>", "kernel", "decode A-D"),
     ("pytorch_flash::flash_fwd_kernel<Flash_fwd_kernel_traits>", "kernel",
      "library attention"),
