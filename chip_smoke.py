@@ -9,9 +9,11 @@ Phases, each of which raises on failure (nothing is caught and passed):
 1. setup: print the card's name and power limit (nvidia-smi), build the
    CUDA kernels from csrc/ with nvcc (all four sources at once) and print
    ptxas's register and spill lines; then the bf16 flash kernels' (E, G,
-   F) and kernels J's and K's ptxas lines by name, and per head_dim the E,
-   G and F blocks' shared memory, threads and blocks an SM (the runtime's
-   occupancy calculator), and J's and K's per tile width;
+   F), kernels J's and K's and the Hopper kernel H's ptxas lines by name,
+   and per head_dim the E, G and F blocks' shared memory, threads and
+   blocks an SM (the runtime's occupancy calculator), J's and K's per tile
+   width, and H's at the ViT-Tiny and causal LM layers (sequences a tile,
+   ring stages);
 2. kernels: hold each kernel against its plain PyTorch version at lm_base
    shapes (h=12, hd=64) and print its device time (CUDA events around one
    call queued behind a spin kernel, L2 flushed before each, median of
@@ -100,9 +102,11 @@ Phases, each of which raises on failure (nothing is caught and passed):
    12 parameter grads held apart, with kernel and plain device times, the
    bound, and in the library column the port's own unfused EncoderBlock
    (cuBLAS + eager ops; no single PyTorch call computes the layer): its
-   forward for H, its forward + backward for I; I also in its parts: the
-   per-sequence launch (with its vector-grad reduction) and the four
-   kernel K launches of its weight grads (each with K's second pass);
+   forward for H, its forward + backward for I; in bf16 where the Hopper
+   kernel H runs, the general kernel H it replaced, held to the same limits
+   and timed beside it; I also in its parts: the per-sequence launch (with
+   its vector-grad reduction) and the four kernel K launches of its weight
+   grads (each with K's second pass);
 14. ViT train: `fit` through the CLI's parser and config, vit_tiny (d=192,
    depth 12, 3 heads, mlp 768) on the synthetic CIFAR-10 fallback, bf16,
    batch 1024 (the reference bench's shape), Adam lr 1e-4 (the bench's SGD
@@ -113,8 +117,9 @@ Phases, each of which raises on failure (nothing is caught and passed):
    memory; fused_encoder_fwd launches equal 12 x (30 + eval batches),
    fused_encoder_bwd 12 x 30, and kernel K (tgmm, and its second pass
    tgmm_reduce) 4 x 12 x 30: I's four weight grads. Then one profiled step
-   (H, I, I's K launches, I's reduction, other), and a leg of 10 steps
-   with `--fused off` (a reading, not a claim);
+   (H, I, I's K launches, I's reduction, other: H's share of the step's
+   device time), and a leg of 10 steps with `--fused off` and its profiled
+   step (a reading, not a claim);
 15. ViT cross-check: one vit_tiny train step at depth 2, batch 64: in fp32
    the kernels, the fused layer's plain version and `fused=False` give one
    loss (1e-5) and grads (2e-4, scaled by each grad's largest magnitude
@@ -779,17 +784,20 @@ def check_flash(torch, F, fa, *, label, route, b, h, sq, sk, d, dtype,
     return rows
 
 
-def kernel_resources(cuda_build, fa, gm) -> None:
+def kernel_resources(cuda_build, fa, gm, fe) -> None:
     """The ptxas lines (registers, spill bytes, static shared memory) of
-    each instantiated bf16 flash kernel (E, G, F) and of kernels J and K,
-    then their blocks' dynamic shared memory, threads and blocks an SM (the
-    runtime's occupancy calculator): E, G and F per head_dim, J (the
-    Hopper kernel, `gmm_kernel<BN, TRANS, F32OUT>`) and K (`tgmm_wg_kernel<
-    BN, F32OUT>`) per tile width."""
+    each instantiated bf16 flash kernel (E, G, F), of kernels J and K and
+    of kernel H on Hopper, then their blocks' dynamic shared memory, threads
+    and blocks an SM (the runtime's occupancy calculator): E, G and F per
+    head_dim, J (the Hopper kernel, `gmm_kernel<BN, TRANS, F32OUT>`) and K
+    (`tgmm_wg_kernel<BN, F32OUT>`) per tile width, H
+    (`fused_encoder_fwd_wg_kernel<D>`) at the ViT-Tiny and causal LM
+    layers."""
     for source, prefixes in (("flash_attention", ("flash_fwd_tc_",
                                                   "flash_bwd_")),
                              ("grouped_matmul", ("gmm_kernel<",
-                                                 "tgmm_wg_kernel<"))):
+                                                 "tgmm_wg_kernel<")),
+                             ("fused_encoder", ("fused_encoder_fwd_wg_",))):
         found = cuda_build.kernel_resources(
             cuda_build.ptxas_info.get(source, ""))
         for name, lines in found.items():
@@ -809,6 +817,14 @@ def kernel_resources(cuda_build, fa, gm) -> None:
             log(f"  grouped matmul {name} bf16 tile 128 x {block_n}: "
                 f"{occ['smem_bytes']} B shared x {occ['threads']} threads, "
                 f"{occ['blocks_per_sm']} blocks/SM")
+    for label, s, d, heads in (("vit_tiny", 64, 192, 3),
+                               ("causal lm", 128, 256, 4)):
+        occ = fe.wg_occupancy(s, d, heads)
+        plan = fe._wg_plan(s, d, heads)
+        log(f"  fused encoder H bf16 {label} (s={s}, d={d}): {plan.seqs} "
+            f"sequences a {fe.WG_ROWS}-row tile, {plan.stages} ring stages, "
+            f"{occ['smem_bytes']} B shared x {occ['threads']} threads, "
+            f"{occ['blocks_per_sm']} blocks/SM")
 
 
 def flash_kernel_phase(torch, F, fa, flush) -> dict:
@@ -1632,6 +1648,17 @@ def check_fused(torch, fe, *, label, imgs, s, d, heads, mlp, dtype, causal,
             f"{r['ms']:8.3f} ms  plain {r['plain_ms']:8.3f} ms  unfused "
             f"block {lib_what} {r['library_ms']:8.3f} ms  bound "
             f"{bound:7.3f} ms ({by})")
+    if dtype == "bfloat16" and fe._wg_plan(s, d, heads) is not None:
+        # the general kernel H that the Hopper kernel replaces here
+        general = fe._launch_fwd(x, params, heads, tdt, causal, general=True)
+        err_g, _ = _fused_err(torch, "H (general)", general, want_out, dtype,
+                              tol_f, f"{what} out")
+        general_ms = _time_ms(torch, lambda: fe._launch_fwd(
+            x, params, heads, tdt, causal, general=True), flush)
+        rows["fused_encoder_fwd"]["general_ms"] = general_ms
+        log(f"  {'H, general kernel':>17} {label:<30} {dtype:>8}: err "
+            f"{err_g:.2e}  kernel {general_ms:8.3f} ms (the Hopper kernel "
+            f"{rows['fused_encoder_fwd']['ms']:.3f})")
     # I's parts: the per-sequence launch with its vector-grad reduction,
     # and the four kernel K launches (each with its second pass)
     args = (x, g, params, heads, tdt, causal)
@@ -1765,7 +1792,7 @@ def vit_train_phase(torch, fe, extra, *, steps, label, fused):
     return trainer, report
 
 
-def vit_train_profile(torch, trainer):
+def vit_train_profile(torch, trainer, label):
     """One bf16 vit_tiny train step under torch.profiler, after warm steps:
     host wall, device busy, idle share, device ops, time by kind."""
     from torch.profiler import ProfilerActivity, profile
@@ -1794,7 +1821,7 @@ def vit_train_profile(torch, trainer):
                                  "fused I reduce": "I reduce",
                                  "matmul": "matmul"})
     device_ms = sum(by_kind.values()) / 1e3
-    log(f"vit train profile (vit_tiny bf16 step, batch "
+    log(f"vit train profile[{label}] (vit_tiny bf16 step, batch "
         f"{trainer.global_batch}): host wall {host_ms:.2f} ms/step, device "
         f"busy {device_ms:.2f} ms/step, device idle share "
         f"{max(0.0, 1 - device_ms / host_ms):.3f}, {_device_ops(summary)} "
@@ -2385,7 +2412,7 @@ def main() -> int:
         for line in info.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas[{name}]: {line.strip()}")
-    kernel_resources(cuda_build, fa, gm)
+    kernel_resources(cuda_build, fa, gm, fe)
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     log(f"kernel phase, flat cache (b, L, cur, dtype; device times are "
@@ -2411,11 +2438,14 @@ def main() -> int:
 
     vit_trainer, vit = vit_train_phase(torch, fe, [], steps=VIT_STEPS,
                                        label="fused auto", fused=True)
-    vit_train_profile(torch, vit_trainer)
+    vit_train_profile(torch, vit_trainer, "fused auto")
     del vit_trainer
     torch.cuda.empty_cache()
-    _, vit_off = vit_train_phase(torch, fe, ["--fused", "off"], steps=10,
-                                 label="fused off", fused=False)
+    off_trainer, vit_off = vit_train_phase(torch, fe, ["--fused", "off"],
+                                           steps=10, label="fused off",
+                                           fused=False)
+    vit_train_profile(torch, off_trainer, "fused off")
+    del off_trainer
     log(f"vit train: fused auto {vit['step_ms']:.2f} ms/step, fused off "
         f"{vit_off['step_ms']:.2f} ms/step: the fused layer's step is "
         f"{vit['step_ms'] / vit_off['step_ms']:.2f}x the per-op step's")

@@ -4,8 +4,10 @@
 // through ctypes by ddp_practice_tpu_torch/ops/fused_encoder.py.
 //
 // Replaces the Pallas TPU kernels of ddp_practice_tpu/ops/fused_encoder.py:
-//   kernel H (fused_encoder_fwd_kernel): _fused_kernel -> _fwd_core, reached
-//     from fused_encoder_forward;
+//   kernel H (fused_encoder_fwd_wg_kernel, bf16 on Hopper, section "kernel
+//     H, bf16 (Hopper)" below; fused_encoder_fwd_kernel for fp32 and the
+//     shapes the Hopper kernel's plan does not take): _fused_kernel ->
+//     _fwd_core, reached from fused_encoder_forward;
 //   kernel I (fused_encoder_bwd_kernel, then fused_encoder_reduce_kernel,
 //     then kernel K four times for the weight grads): _fused_bwd_kernel,
 //     reached from fused_encoder_backward.
@@ -33,7 +35,9 @@
 // ms at the tensor cores' 989.4 TFLOP/s (bf16) against 0.015 ms at 3.35
 // TB/s. fp32 runs outside the tensor cores (67 TFLOP/s).
 //
-// Design. A persistent block of 512 threads takes sequences blockIdx.x,
+// The general design (fused_encoder_fwd_kernel, kernel I's recompute and
+// the code they share; the Hopper kernel H has its own, below). A
+// persistent block of 512 threads takes sequences blockIdx.x,
 // blockIdx.x + gridDim.x, ... one at a time. The sequence's operands (LN
 // output, a head's q|k|v, probabilities, an fp32 staging tile) live in
 // shared memory as far as it reaches; the wrapper's plan sends what does
@@ -44,8 +48,8 @@
 // strip of up to 4 row tiles and reuses each B fragment across them), fp32
 // as FMAs over 4x4 patches (TF32 would break the fp32 tolerances). Rows are
 // padded to a multiple of 16 with zero cotangents and masked keys, so any
-// sequence length runs. Kernel H reads weight fragments straight from
-// global memory (the layer's weights stay in the L2).
+// sequence length runs. The general kernel H reads weight fragments
+// straight from global memory (the layer's weights stay in the L2).
 //
 // Kernel I (redesigned for Hopper):
 //   - Its weight products read the weights from two staging slots in
@@ -87,6 +91,7 @@
 //     the slots take 227 KB of the 227 KB a block can have, so the
 //     reference's several sequences a grid step do not fit.
 
+#include <cuda.h>   // CUtensorMap and its enums (no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -1309,6 +1314,836 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ------------------------------------------------ kernel H, bf16 (Hopper)
+// Replaces _fused_kernel (ddp_practice_tpu/ops/fused_encoder.py, its
+// _fwd_core, reached from fused_encoder_forward) for bf16 compute where the
+// layer fits this kernel's plan: d <= 256, s <= 128 and head_dim <= 128
+// with at least two ring stages in shared memory (ops/fused_encoder.py
+// _wg_plan). fp32 compute and the shapes outside that plan take
+// fused_encoder_fwd_kernel above. The same arithmetic and rounding points:
+// qkv rounded to bf16 after its bias, p and o rounded to bf16, x2 and out in
+// fp32 until the final cast, hg rounded to bf16 after the tanh GELU.
+// Bound: operations (0.062 ms at ViT-Tiny, as above).
+// Design:
+//   - A tile is 128 rows: R = 128 / sq whole sequences, each padded to sq =
+//     round_up(s, 64) rows (R = 2 at ViT-Tiny's s = 64, 1 at s = 128). A
+//     persistent grid walks the tiles; a tail tile with fewer sequences
+//     neither reads nor writes the rows of the absent one. Warpgroups 0
+//     and 1 consume, 64 rows each (at s = 64, one sequence each);
+//     warpgroup 2 is the producer. The token-wise products (qkv, the
+//     projection, the two MLP products) run on all 128 rows: each weight
+//     slice comes to shared memory once a tile, where the general kernel's
+//     warps read every weight fragment from the L2 once a sequence.
+//   - Weights: one producer thread keeps TMA filling a ring of `stages`
+//     64-deep slices up to 192 columns wide (three boxes of 64 weight rows x
+//     64 k: a head's q, k and v rows of one 64-column chunk of wqkv, or rows
+//     of wproj, w_in or w_out), 128-byte swizzled, each stage with a full
+//     and an empty mbarrier. Weight rows or columns past the tensor (a
+//     ragged MLP chunk) arrive as zeros. The consumers run wgmma m64nNk16
+//     on their 64 rows of the A operand (the LN output, the heads' outputs,
+//     the GELU chunk) in shared memory, stored in the same swizzled 64-column
+//     panels TMA writes, and release a stage once `wgmma.wait_group 1` shows
+//     the products that read it done. A 64-wide product (an MLP chunk's
+//     first at d >= 192, whose chunks are 64 columns so that the MLP's
+//     accumulators fit beside x2) packs three k slices into one stage.
+//     setmaxnreg moves registers from the producer (24) to the consumers
+//     (240): a block of three warps on each of the SM's four register
+//     files holds 168 a thread otherwise, and the consumers' x2 and MLP
+//     accumulators spill there.
+//   - Epilogues in registers: bias, rounding to bf16, the GELU, the
+//     residual adds and both LayerNorms act on the accumulators (a row of
+//     the accumulator sits on one quad of lanes: two shuffles sum it). The
+//     fp32 residual x2 stays in registers (d / 2 a thread) from the
+//     projection to the output, and the MLP's second product accumulates
+//     into it. No fp32 staging tile, no separate pass or block barrier per
+//     product. LN1 reads x straight from global memory, a warp's rows 8 at
+//     a time with their loads issued together; the GELU's tanh runs on the
+//     fast exp (fast_tanh).
+//   - Attention per sequence and head, inside the warpgroup that holds the
+//     sequence's rows (at s = 128 both warpgroups hold part of one sequence
+//     and share its k and v): scores q . k^T on wgmma into registers (sq
+//     keys a row), the softmax on them (keys past s masked, the causal
+//     penalty added as the plain version adds it), p rounded to bf16 in
+//     registers and fed to wgmma as its register A operand against v (an
+//     MN-major B). No score between two sequences of a tile is formed.
+//   - Barriers: named barriers per warpgroup; the two consumer warpgroups
+//     meet only where a sequence spans both (k and v shared at s = 128).
+//   - A wait on an mbarrier that lasts 2^34 clocks (~9 s) traps (a launch
+//     error) instead of hanging the card: a wrong count or parity shows
+//     as a failed launch.
+namespace wg {
+
+constexpr int kThreads = 384;          // two consumer warpgroups + producer
+constexpr int kRows = 128;             // rows of a tile
+constexpr int kPanel = kRows * 128;    // a 64-column bf16 panel of a tile
+constexpr int kBox = 64 * 64 * 2;      // one TMA box: 64 weight rows x 64 k
+constexpr int kGroup = 192;            // the widest product a stage carries
+constexpr int kStage = 3 * kBox;
+// MLP columns a chunk: 64 where the fp32 residual takes 96 or 128
+// registers a thread, 128 below
+template <int DN> constexpr int kChunk = DN >= 192 ? 64 : 128;
+constexpr int kLnRows = 8;             // LN1 rows a warp loads together
+constexpr bool kFastTanh = true;       // the GELU's tanh: fast_tanh
+constexpr bool kPackSlices = true;     // narrow products' slices share stages
+constexpr long long kTrapCycles = 1LL << 34;   // ~9 s at 1.98 GHz
+
+struct Params {
+  const void* x;       // (imgs, s, d) in x's dtype
+  void* out;           // the same
+  const float* vecs;   // ln1_s, ln1_b, bqkv, bproj, ln2_s, ln2_b, b_in, b_out
+  int imgs, s, sq, seqs, tiles, h, hd, mlp, causal, x_bf16, stages;
+};
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  const long long start = clock64();
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (!done && clock64() - start > kTrapCycles) __trap();
+  }
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+// one box of a 2-d tensor map (coordinates innermost first) into shared
+// memory, completing on bar
+__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map,
+                                       uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+// generic-proxy writes to shared memory become visible to wgmma
+__device__ __forceinline__ void fence_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// a wgmma shared-memory descriptor with the 128-byte swizzle: the start
+// address, the leading and stride byte offsets
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lead,
+                                         uint32_t stride) {
+  return uint64_t((addr & 0x3FFFF) >> 4) |
+         (uint64_t((lead >> 4) & 0x3FFF) << 16) |
+         (uint64_t((stride >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+// a K-major operand (rows of 64 bf16 = 128 bytes, 8-row groups 1024 bytes
+// apart)
+__device__ __forceinline__ uint64_t desc_k(uint32_t addr) {
+  return desc(addr, 16, 1024);
+}
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving reads of accumulators across a wait
+template <int N> __device__ __forceinline__ void fence_acc(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define FE_F8(i)                                                        \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),           \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define FE_OUT32 FE_F8(0), FE_F8(8), FE_F8(16), FE_F8(24)
+#define FE_OUT64 FE_OUT32, FE_F8(32), FE_F8(40), FE_F8(48), FE_F8(56)
+#define FE_OUT96 FE_OUT64, FE_F8(64), FE_F8(72), FE_F8(80), FE_F8(88)
+
+// d (this warpgroup's 64 x N fp32 accumulators) += A . B over k16: WgSS
+// with A and B K-major in shared memory, WgRS with A in registers (the
+// m16n8k16 A fragment of each warp's 16 rows) and B MN-major
+template <int N> struct WgSS;
+template <int N> struct WgRS;
+template <> struct WgSS<64> {
+  __device__ __forceinline__ static void run(float* d, uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : FE_OUT32
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+template <> struct WgSS<128> {
+  __device__ __forceinline__ static void run(float* d, uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+        "%60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : FE_OUT64
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+template <> struct WgSS<192> {
+  __device__ __forceinline__ static void run(float* d, uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+        "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+        "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+        "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+        "}, %96, %97, p, 1, 1, 0, 0;\n}\n"
+        : FE_OUT96
+        : "l"(da), "l"(db), "r"(1));
+  }
+};
+template <> struct WgRS<64> {
+  __device__ __forceinline__ static void run(float* d, const uint32_t* a,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : FE_OUT32
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+template <> struct WgRS<128> {
+  __device__ __forceinline__ static void run(float* d, const uint32_t* a,
+                                             uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+        "%60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : FE_OUT64
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+#undef FE_OUT96
+#undef FE_OUT64
+#undef FE_OUT32
+#undef FE_F8
+
+// byte offset of element (r, c), c < 64, in a panel of 128-byte rows with
+// the 128-byte swizzle (16-byte chunk c / 8 of row r at chunk c / 8 ^ r % 8)
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return r * 128 + ((((c >> 3) ^ r) & 7) << 4) + (c & 7) * 2;
+}
+__device__ __forceinline__ void st_pair(uint8_t* panel, int r, int c,
+                                        float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(panel + swz(r, c)) =
+      __floats2bfloat162_rn(a, b);
+}
+__device__ __forceinline__ uint32_t pack(float a, float b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+// tanh(u) = 1 - 2 / (exp(2u) + 1) on the fast exp and division: an
+// absolute error near 1e-7, far inside the bf16 rounding of the GELU that
+// reads it as 1 + tanh, for a fraction of tanhf's instructions
+// (experiments/fused_profile.py --levers times both)
+__device__ __forceinline__ float fast_tanh(float u) {
+  return 1.f - __fdividef(2.f, __expf(2.f * u) + 1.f);
+}
+
+// a named barrier (a macro, so that experiments/fused_profile.py --clocks
+// charges it to the line that uses it): id 1 both consumer warpgroups, 2 +
+// w consumer warpgroup w alone
+#define WG_BAR(id, threads) wg::named_sync(id, threads)
+
+// The consumers' side of the weight ring. Stage use `it` lies in stage it %
+// stages at parity (it / stages) & 1; a stage is released (one arrive per
+// consumer warp: the empty barriers count 8) once the products that read
+// it are done.
+struct Ring {
+  const uint8_t* stage0;
+  uint64_t* full;
+  uint64_t* empty;
+  int stages, it, held;
+  __device__ uint32_t acquire() {
+    const int s = it % stages;
+    mbar_wait(&full[s], (it / stages) & 1);
+    return smem_u32(stage0 + s * kStage);
+  }
+  // after the stage's products are committed: the previous stage's are
+  // done, release it
+  __device__ void committed() {
+    wg_wait<1>();
+    if (held >= 0 && (threadIdx.x & 31) == 0) mbar_arrive(&empty[held]);
+    held = it % stages;
+    ++it;
+  }
+  __device__ void drain() {
+    wg_wait<0>();
+    if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[held]);
+    held = -1;
+  }
+};
+
+// k slices a ring stage carries for a product NT columns wide: a 64-wide
+// product (an MLP chunk's first at d >= 192) packs three, so that its
+// three 64-deep slices take one stage, not three
+template <int NT>
+constexpr int kPer = NT <= 64 && kPackSlices ? kGroup / NT : 1;
+
+// acc (this warpgroup's 64 rows x NT, fp32; zeroed first when ZERO) +=
+// A . W^T over `slices` 64-deep k slices: A's slice kt is panel kt of a
+// tile operand (a0: its panel 0 at this warpgroup's rows), W's comes from
+// the ring, NT columns in stages of at most kGroup, kPer<NT> slices a stage
+// (slice ks of a stage at box ks * NT / 64), the slices past the last full
+// stage one a stage. Ends with every product done.
+template <int NT, bool ZERO>
+__device__ __forceinline__ void product(float* acc, uint32_t a0, int slices,
+                                        Ring& ring) {
+  constexpr int G0 = NT > kGroup ? kGroup : NT, G1 = NT - G0;
+  constexpr int PER = kPer<NT>;
+  if (ZERO) {
+#pragma unroll
+    for (int i = 0; i < NT / 2; ++i) acc[i] = 0.f;
+  }
+  int kt = 0;
+  for (; kt + PER <= slices; kt += PER) {
+    uint32_t b = ring.acquire();
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < PER; ++ks) {
+      const uint32_t a = a0 + (kt + ks) * kPanel;
+      const uint32_t bs = b + ks * (G0 / 64) * kBox;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        WgSS<G0>::run(acc, desc_k(a + kk * 32), desc_k(bs + kk * 32));
+    }
+    wg_commit();
+    ring.committed();
+    if constexpr (G1 > 0) {
+      const uint32_t a = a0 + kt * kPanel;
+      b = ring.acquire();
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        WgSS<G1>::run(acc + G0 / 2, desc_k(a + kk * 32), desc_k(b + kk * 32));
+      wg_commit();
+      ring.committed();
+    }
+  }
+  if constexpr (PER > 1) {
+    for (; kt < slices; ++kt) {
+      const uint32_t a = a0 + kt * kPanel, b = ring.acquire();
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        WgSS<G0>::run(acc, desc_k(a + kk * 32), desc_k(b + kk * 32));
+      wg_commit();
+      ring.committed();
+    }
+  }
+  ring.drain();
+  fence_acc<NT / 2>(acc);
+}
+
+// The producer thread's side: the stages in the consumers' order.
+struct Feed {
+  uint8_t* stage0;
+  uint64_t* full;
+  uint64_t* empty;
+  int stages, it;
+  // the next stage, waited empty, expecting `boxes` boxes on `bar`
+  __device__ uint8_t* next(int boxes, uint64_t*& bar) {
+    const int s = it % stages;
+    mbar_wait(&empty[s], ((it / stages) & 1) ^ 1);
+    bar = &full[s];
+    mbar_expect_tx(bar, boxes * kBox);
+    ++it;
+    return stage0 + s * kStage;
+  }
+  // `slices` k slices (64 k from k0) of `n` weight rows from row0 of map
+  // in the consumers' stages (product<n>: at most kGroup rows, kPer<n>
+  // slices a stage, the rest one a stage), boxes of 64 rows; boxes that
+  // start at or past row0 + valid are not loaded (a ragged MLP chunk: no
+  // kept column reads them)
+  __device__ void rows(const CUtensorMap* map, int row0, int n, int valid,
+                       int k0, int slices) {
+    const int per = n <= 64 && kPackSlices ? kGroup / n : 1;
+    int kt = 0;
+    auto stage = [&](int count) {   // `count` slices from kt, one stage
+      for (int g0 = 0; g0 < n; g0 += kGroup) {
+        const int boxes = min(kGroup, n - g0) / 64;
+        const int loaded = min(boxes, max(0, (valid - g0 + 63) / 64));
+        uint64_t* bar;
+        uint8_t* st = next(count * loaded, bar);
+        for (int ks = 0; ks < count; ++ks)
+          for (int b = 0; b < loaded; ++b)
+            tma_2d(st + (ks * boxes + b) * kBox, map, bar,
+                   k0 + 64 * (kt + ks), row0 + g0 + 64 * b);
+      }
+    };
+    for (; kt + per <= slices; kt += per) stage(per);
+    for (; kt < slices; ++kt) stage(1);
+  }
+};
+
+// k slices of an MLP chunk's second product: the chunk's columns below mlp
+template <int NC>
+__device__ __forceinline__ int chunk_slices(int mlp, int c0) {
+  return (min(NC, mlp - c0) + 63) / 64;
+}
+
+template <int DN>
+__device__ void produce(const CUtensorMap* map_d, const CUtensorMap* map_out,
+                        const Params& p, Feed& f) {
+  constexpr int NC = kChunk<DN>;
+  const int d = DN, hd = p.hd;
+  for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+    for (int hi = 0; hi < p.h; ++hi)
+      for (int c = 0; c < hd / 64; ++c)
+        for (int kt = 0; kt < d / 64; ++kt) {
+          uint64_t* bar;
+          uint8_t* st = f.next(3, bar);
+          for (int j = 0; j < 3; ++j)   // the chunk's q, k and v rows
+            tma_2d(st + j * kBox, map_d, bar, 64 * kt,
+                   j * d + hi * hd + 64 * c);
+        }
+    f.rows(map_d, 3 * d, d, d, 0, d / 64);   // wproj
+    for (int c0 = 0; c0 < p.mlp; c0 += NC) {
+      f.rows(map_d, 4 * d + c0, NC, p.mlp - c0, 0, d / 64);   // w_in
+      f.rows(map_out, 0, d, d, c0, chunk_slices<NC>(p.mlp, c0));   // w_out
+    }
+  }
+}
+
+// Head hi's attention for this warpgroup's 64 rows (two a thread: tile
+// rows rA and rA + 8, positions posA and posB of the sequence whose SQ
+// rows start at tile row row0):
+// scores q . k^T on wgmma into registers, the softmax on them, p rounded
+// to bf16 as the register A operand of o = p . v (v an MN-major B), o
+// rounded into O's panels at the head's columns.
+template <int SQ, int HD>
+__device__ __forceinline__ void attend(const Params& p, uint8_t* QKV,
+                                       uint8_t* O, uint32_t qkv_a, int rA,
+                                       int row0, int posA, int posB, int hi) {
+  constexpr int HDP = HD / 64, NJ = SQ / 8;
+  const int tq = threadIdx.x & 3, rB = rA + 8;
+  const float scale = 1.f / sqrtf(static_cast<float>(HD));
+  float S[SQ / 2];
+#pragma unroll
+  for (int i = 0; i < SQ / 2; ++i) S[i] = 0.f;
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t koff = (kk >> 2) * kPanel + (kk & 3) * 32;
+    WgSS<SQ>::run(S, desc_k(qkv_a + koff),
+                  desc_k(smem_u32(QKV) + HDP * kPanel + row0 * 128 + koff));
+  }
+  wg_commit();
+  wg_wait<0>();
+  fence_acc<SQ / 2>(S);
+  // the softmax over the row's SQ keys (keys past s masked)
+  float mA = -INFINITY, mB = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int key = 8 * j + 2 * tq + e;
+      float a = S[4 * j + e] * scale, b = S[4 * j + 2 + e] * scale;
+      if (p.causal && key > posA) a += kMasked;
+      if (p.causal && key > posB) b += kMasked;
+      if (key >= p.s) a = b = -INFINITY;
+      S[4 * j + e] = a;
+      S[4 * j + 2 + e] = b;
+      mA = fmaxf(mA, a);
+      mB = fmaxf(mB, b);
+    }
+  }
+  mA = quad_max(mA);
+  mB = quad_max(mB);
+  float sA = 0.f, sB = 0.f;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      S[4 * j + e] = expf(S[4 * j + e] - mA);
+      S[4 * j + 2 + e] = expf(S[4 * j + 2 + e] - mB);
+      sA += S[4 * j + e];
+      sB += S[4 * j + 2 + e];
+    }
+  }
+  sA = quad_sum(sA);
+  sB = quad_sum(sB);
+  // p = bf16(e / sum) as wgmma's register A operand, k16 chunk kc
+  uint32_t P[SQ / 16][4];
+#pragma unroll
+  for (int kc = 0; kc < SQ / 16; ++kc) {
+    P[kc][0] = pack(S[8 * kc] / sA, S[8 * kc + 1] / sA);
+    P[kc][1] = pack(S[8 * kc + 2] / sB, S[8 * kc + 3] / sB);
+    P[kc][2] = pack(S[8 * kc + 4] / sA, S[8 * kc + 5] / sA);
+    P[kc][3] = pack(S[8 * kc + 6] / sB, S[8 * kc + 7] / sB);
+  }
+  // o = p . v: v's panels as an MN-major B (16 keys a k16 step)
+  float o[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  wg_fence();
+#pragma unroll
+  for (int kc = 0; kc < SQ / 16; ++kc)
+    WgRS<HD>::run(o, P[kc],
+                  desc(smem_u32(QKV) + 2 * HDP * kPanel +
+                           (row0 + 16 * kc) * 128,
+                       kPanel, 1024));
+  wg_commit();
+  wg_wait<0>();
+  fence_acc<HD / 2>(o);
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) {
+    const int col = hi * HD + 8 * j + 2 * tq;
+    uint8_t* panel = O + (col / 64) * kPanel;
+    st_pair(panel, rA, col % 64, o[4 * j], o[4 * j + 1]);
+    st_pair(panel, rB, col % 64, o[4 * j + 2], o[4 * j + 3]);
+  }
+}
+
+template <int DN>
+__device__ void consume(const Params& p, uint8_t* base, Ring& ring) {
+  constexpr int d = DN;
+  const int hd = p.hd, hdp = hd / 64, sq = p.sq, s = p.s;
+  const int tid = threadIdx.x, w = tid / 128;   // consumer warpgroup
+  const int lane = tid & 31, warp = (tid >> 5) & 3, g = lane >> 2;
+  const int tq = lane & 3;
+  const int rA = w * 64 + warp * 16 + g, rB = rA + 8;   // this thread's rows
+  const int slot = (w * 64) / sq;         // its sequence's slot in the tile
+  const int row0 = slot * sq;             // the sequence's first tile row
+  const int posA = rA - row0, posB = rB - row0;
+  const int bar_own = 2 + w;
+  uint8_t* Y = base;
+  uint8_t* QKV = Y + (d / 64) * kPanel;
+  uint8_t* O = QKV + 3 * hdp * kPanel;
+  const uint32_t y_a = smem_u32(Y) + w * 64 * 128;   // this warpgroup's rows
+  const uint32_t qkv_a = smem_u32(QKV) + w * 64 * 128;
+  const uint32_t o_a = smem_u32(O) + w * 64 * 128;
+  const float* ln1_s = p.vecs;
+  const float* ln1_b = ln1_s + d;
+  const float* bqkv = ln1_b + d;
+  const float* bproj = bqkv + 3 * d;
+  const float* ln2_s = bproj + d;
+  const float* ln2_b = ln2_s + d;
+  const float* b_in = ln2_b + d;
+  const float* b_out = b_in + p.mlp;
+  constexpr int NJ = DN / 8;   // 8-column blocks of a d-wide accumulator
+  constexpr int NC = kChunk<DN>;
+
+  for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+    const long long img = static_cast<long long>(t) * p.seqs + slot;
+    const bool present = slot < p.seqs && img < p.imgs;
+    const long long xrow = img * s;   // the sequence's first token
+
+    // ---- LN1: a warp per row, each lane two neighbouring columns of each
+    // 64-column panel; Y = bf16(LN1(x)), zero on rows without a token. A
+    // warp's 16 rows go kLnRows at a time, their loads issued together (one
+    // round trip to memory for kLnRows rows, not one a row)
+    for (int i0 = 0; i0 < 16; i0 += kLnRows) {
+      float v[kLnRows][DN / 32];
+#pragma unroll
+      for (int i = 0; i < kLnRows; ++i) {
+        const int pos = w * 64 + warp * 16 + i0 + i - row0;
+        const bool real = present && pos < s;
+#pragma unroll
+        for (int j = 0; j < DN / 64; ++j) {
+          const long long e = (xrow + pos) * d + 64 * j + 2 * lane;
+          float2 f = make_float2(0.f, 0.f);
+          if (real && p.x_bf16)
+            f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                static_cast<const bf16*>(p.x) + e));
+          else if (real)
+            f = *reinterpret_cast<const float2*>(
+                static_cast<const float*>(p.x) + e);
+          v[i][2 * j] = f.x;
+          v[i][2 * j + 1] = f.y;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kLnRows; ++i) {
+        const int r = w * 64 + warp * 16 + i0 + i;
+        const bool real = present && r - row0 < s;
+        float a = 0.f;
+#pragma unroll
+        for (int j = 0; j < DN / 32; ++j) a += v[i][j];
+        const float m = warp_sum(a) / d;
+        a = 0.f;
+#pragma unroll
+        for (int j = 0; j < DN / 32; ++j) a += (v[i][j] - m) * (v[i][j] - m);
+        const float rs = 1.f / sqrtf(warp_sum(a) / d + kLnEps);
+#pragma unroll
+        for (int j = 0; j < DN / 64; ++j) {
+          const int c = 64 * j + 2 * lane;
+          float y0 = 0.f, y1 = 0.f;
+          if (real) {
+            y0 = (v[i][2 * j] - m) * rs * ln1_s[c] + ln1_b[c];
+            y1 = (v[i][2 * j + 1] - m) * rs * ln1_s[c + 1] + ln1_b[c + 1];
+          }
+          st_pair(Y + j * kPanel, r, 2 * lane, y0, y1);
+        }
+      }
+    }
+    fence_async();
+    WG_BAR(bar_own, 128);
+
+    // ---- attention, head by head
+    for (int hi = 0; hi < p.h; ++hi) {
+      // at s = 128 the other warpgroup reads this warpgroup's k and v rows:
+      // it is done with the last head's before they are overwritten
+      if (sq > 64) WG_BAR(1, 256);
+      for (int c = 0; c < hdp; ++c) {
+        float acc[96];   // [q | k | v] of the head's 64-column chunk c
+        product<3 * 64, true>(acc, y_a, d / 64, ring);
+#pragma unroll
+        for (int j = 0; j < 24; ++j) {
+          const int part = j / 8, col = 8 * (j % 8) + 2 * tq;
+          const float* bias = bqkv + part * d + hi * hd + 64 * c + col;
+          const float b0 = bias[0], b1 = bias[1];
+          uint8_t* panel = QKV + (part * hdp + c) * kPanel;
+          st_pair(panel, rA, col, acc[4 * j] + b0, acc[4 * j + 1] + b1);
+          st_pair(panel, rB, col, acc[4 * j + 2] + b0, acc[4 * j + 3] + b1);
+        }
+      }
+      fence_async();
+      if (sq > 64)
+        WG_BAR(1, 256);
+      else
+        WG_BAR(bar_own, 128);
+
+      // scores, softmax, o = p . v: compile-time keys and head_dim, so no
+      // branch sits inside a wgmma chain (ptxas serialises such chains)
+      if (sq == 64 && hd == 64)
+        attend<64, 64>(p, QKV, O, qkv_a, rA, row0, posA, posB, hi);
+      else if (sq == 64)
+        attend<64, 128>(p, QKV, O, qkv_a, rA, row0, posA, posB, hi);
+      else if (hd == 64)
+        attend<128, 64>(p, QKV, O, qkv_a, rA, row0, posA, posB, hi);
+      else
+        attend<128, 128>(p, QKV, O, qkv_a, rA, row0, posA, posB, hi);
+    }
+    fence_async();
+    WG_BAR(bar_own, 128);
+
+    // ---- x2 = x + o_all . wproj^T + bproj, in registers to the end
+    float x2[DN / 2];
+    product<DN, true>(x2, o_a, d / 64, ring);
+    const bool realA = present && posA < s, realB = present && posB < s;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int col = 8 * j + 2 * tq;
+      float2 xa = make_float2(0.f, 0.f), xb = xa;
+      const long long ea = (xrow + posA) * d + col;
+      const long long eb = (xrow + posB) * d + col;
+      if (p.x_bf16) {
+        if (realA)
+          xa = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+              static_cast<const bf16*>(p.x) + ea));
+        if (realB)
+          xb = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+              static_cast<const bf16*>(p.x) + eb));
+      } else {
+        if (realA)
+          xa = *reinterpret_cast<const float2*>(
+              static_cast<const float*>(p.x) + ea);
+        if (realB)
+          xb = *reinterpret_cast<const float2*>(
+              static_cast<const float*>(p.x) + eb);
+      }
+      const float b0 = bproj[col], b1 = bproj[col + 1];
+      x2[4 * j] = x2[4 * j] + xa.x + b0;
+      x2[4 * j + 1] = x2[4 * j + 1] + xa.y + b1;
+      x2[4 * j + 2] = x2[4 * j + 2] + xb.x + b0;
+      x2[4 * j + 3] = x2[4 * j + 3] + xb.y + b1;
+    }
+
+    // ---- LN2 on the registers: Y = bf16(LN2(x2))
+    {
+      float a = 0.f, b = 0.f;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        a += x2[4 * j] + x2[4 * j + 1];
+        b += x2[4 * j + 2] + x2[4 * j + 3];
+      }
+      const float ma = quad_sum(a) / d, mb = quad_sum(b) / d;
+      a = b = 0.f;
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          a += (x2[4 * j + e] - ma) * (x2[4 * j + e] - ma);
+          b += (x2[4 * j + 2 + e] - mb) * (x2[4 * j + 2 + e] - mb);
+        }
+      }
+      const float ra = 1.f / sqrtf(quad_sum(a) / d + kLnEps);
+      const float rb = 1.f / sqrtf(quad_sum(b) / d + kLnEps);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const int col = 8 * j + 2 * tq;
+        const float s0 = ln2_s[col], s1 = ln2_s[col + 1];
+        const float h0 = ln2_b[col], h1 = ln2_b[col + 1];
+        uint8_t* panel = Y + (col / 64) * kPanel;
+        st_pair(panel, rA, col % 64, (x2[4 * j] - ma) * ra * s0 + h0,
+                (x2[4 * j + 1] - ma) * ra * s1 + h1);
+        st_pair(panel, rB, col % 64, (x2[4 * j + 2] - mb) * rb * s0 + h0,
+                (x2[4 * j + 3] - mb) * rb * s1 + h1);
+      }
+    }
+    fence_async();
+    // the GELU chunks go where the heads' q, k and v were: at s = 128 the
+    // other warpgroup is past its attention
+    if (sq > 64)
+      WG_BAR(1, 256);
+    else
+      WG_BAR(bar_own, 128);
+
+    // ---- MLP, NC columns a chunk: hg = bf16(gelu(y2 . w_in^T + b_in)),
+    // then x2 += hg . w_out^T
+    for (int c0 = 0; c0 < p.mlp; c0 += NC) {
+      float h[NC / 2];
+      product<NC, true>(h, y_a, d / 64, ring);
+      WG_BAR(bar_own, 128);   // every warp is past the last chunk's reads
+#pragma unroll
+      for (int j = 0; j < NC / 8; ++j) {
+        const int col = 8 * j + 2 * tq;
+        const bool kept = c0 + col < p.mlp;   // mlp is a multiple of 16
+        const float b0 = kept ? b_in[c0 + col] : 0.f;
+        const float b1 = kept ? b_in[c0 + col + 1] : 0.f;
+        float hg[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float hp = h[4 * j + e] + ((e & 1) ? b1 : b0);
+          const float u = kGeluC * (hp + kGeluA * hp * hp * hp);
+          const float th = kFastTanh ? fast_tanh(u) : tanhf(u);
+          hg[e] = kept ? 0.5f * hp * (1.f + th) : 0.f;
+        }
+        uint8_t* panel = QKV + (col / 64) * kPanel;
+        st_pair(panel, rA, col % 64, hg[0], hg[1]);
+        st_pair(panel, rB, col % 64, hg[2], hg[3]);
+      }
+      fence_async();
+      WG_BAR(bar_own, 128);
+      product<DN, false>(x2, qkv_a, chunk_slices<NC>(p.mlp, c0), ring);
+    }
+
+    // ---- out = x2 + b_out, rows with a token
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int col = 8 * j + 2 * tq;
+      const float b0 = b_out[col], b1 = b_out[col + 1];
+      const long long ea = (xrow + posA) * d + col;
+      const long long eb = (xrow + posB) * d + col;
+      if (p.x_bf16) {
+        if (realA)
+          *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(p.out) + ea) =
+              __floats2bfloat162_rn(x2[4 * j] + b0, x2[4 * j + 1] + b1);
+        if (realB)
+          *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(p.out) + eb) =
+              __floats2bfloat162_rn(x2[4 * j + 2] + b0, x2[4 * j + 3] + b1);
+      } else {
+        if (realA)
+          *reinterpret_cast<float2*>(static_cast<float*>(p.out) + ea) =
+              make_float2(x2[4 * j] + b0, x2[4 * j + 1] + b1);
+        if (realB)
+          *reinterpret_cast<float2*>(static_cast<float*>(p.out) + eb) =
+              make_float2(x2[4 * j + 2] + b0, x2[4 * j + 3] + b1);
+      }
+    }
+  }
+}
+
+}  // namespace wg
+
+// map_d: wqkv | wproj | w_in as one (4d + mlp, d) bf16 matrix, boxes of 64
+// k x 64 rows; map_out: w_out (d, mlp), the same boxes. DN = d.
+template <int DN>
+__global__ void __launch_bounds__(wg::kThreads, 1)
+    fused_encoder_fwd_wg_kernel(const __grid_constant__ CUtensorMap map_d,
+                                const __grid_constant__ CUtensorMap map_out,
+                                const wg::Params p) {
+  extern __shared__ uint8_t fe_wg_smem[];
+  uint8_t* base =
+      fe_wg_smem + ((1024 - (smem_u32(fe_wg_smem) & 1023)) & 1023);
+  // [Y | QKV | O panels | ring stages | full | empty]
+  uint8_t* ring0 = base + (2 * DN / 64 + 3 * p.hd / 64) * wg::kPanel;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring0 + p.stages * wg::kStage);
+  uint64_t* empty = full + p.stages;
+  if (threadIdx.x == 256) {
+    for (int s = 0; s < p.stages; ++s) {
+      wg::mbar_init(&full[s], 1);    // the producer's arrive, plus the bytes
+      wg::mbar_init(&empty[s], 8);   // one arrive per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x >= 256) {   // the producer warpgroup: one thread issues
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 256) {
+      wg::Feed feed{ring0, full, empty, p.stages, 0};
+      wg::produce<DN>(&map_d, &map_out, p, feed);
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  wg::Ring ring{ring0, full, empty, p.stages, 0, -1};
+  wg::consume<DN>(p, base, ring);
+}
+
 // ------------------------------------------------------------ kernel I
 // d(LN input) for one row given d(LN affine output) `dya`, the LN input
 // `xin`, its statistics and the scale; a warp per row, result through
@@ -1736,6 +2571,70 @@ int launch(K kernel, const Params& p, int grid, int smem_bytes,
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// cuTensorMapEncodeTiled, through the runtime's entry-point lookup
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t rc = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t rc = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (rc != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+constexpr int kErrShape = -2;
+constexpr int kErrTensorMap = -4;
+
+// A (rows, cols) row-major bf16 matrix read in boxes of 64 columns x 64
+// rows, 128-byte swizzled, zeros outside
+int weight_map(CUtensorMap* map, const void* base, long long rows,
+               long long cols) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return kErrTensorMap;
+  const cuuint64_t dims[2] = {cuuint64_t(cols), cuuint64_t(rows)};
+  const cuuint64_t strides[1] = {cuuint64_t(cols) * 2};
+  const cuuint32_t box[2] = {64, 64}, unit[2] = {1, 1};
+  const CUresult rc = fn(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+      dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? 0 : kErrTensorMap;
+}
+
+template <int DN>
+int launch_fwd_wg(const wg::Params& p, const void* mats, int grid,
+                  int smem_bytes, cudaStream_t stream) {
+  CUtensorMap map_d, map_out;
+  const char* w = static_cast<const char*>(mats);
+  if (const int rc = weight_map(&map_d, w, 4LL * DN + p.mlp, DN)) return rc;
+  const long long out_off = (4LL * DN * DN + 1LL * DN * p.mlp) * 2;
+  if (const int rc = weight_map(&map_out, w + out_off, DN, p.mlp)) return rc;
+  const auto kernel = fused_encoder_fwd_wg_kernel<DN>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, wg::kThreads, smem_bytes, stream>>>(map_d, map_out, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // dtypes: 0 float32, 1 bfloat16. `table` is the plan: kBuffers offsets, then
@@ -1755,6 +2654,67 @@ extern "C" int fused_encoder_fwd(const void* x, void* out, const void* mats,
   if (compute_dtype == 1)
     return launch(fused_encoder_fwd_kernel<bf16>, p, grid, smem_bytes, st);
   return launch(fused_encoder_fwd_kernel<float>, p, grid, smem_bytes, st);
+}
+
+// Kernel H on Hopper (bf16 compute, the shapes of ops/fused_encoder.py
+// _wg_plan): sq = round_up(s, 64) rows a sequence, `seqs` sequences a
+// 128-row tile (128 / sq; 1 runs a tile per sequence), `stages` ring
+// stages, `grid` persistent blocks of smem_bytes dynamic shared memory.
+// mats: wqkv | wproj | w_in | w_out in bf16; vecs as for fused_encoder_fwd.
+// Returns a cudaError_t, or kErrShape / kErrTensorMap (below zero).
+extern "C" int fused_encoder_fwd_wg(const void* x, void* out,
+                                    const void* mats, const void* vecs,
+                                    int imgs, int s, int d, int h, int mlp,
+                                    int causal, int x_dtype, int seqs,
+                                    int stages, int grid, int smem_bytes,
+                                    void* stream) {
+  wg::Params p;
+  p.x = x;
+  p.out = out;
+  p.vecs = static_cast<const float*>(vecs);
+  p.imgs = imgs;
+  p.s = s;
+  p.sq = (s + 63) / 64 * 64;
+  p.seqs = seqs;
+  p.tiles = (imgs + seqs - 1) / seqs;
+  p.h = h;
+  p.hd = d / h;
+  p.mlp = mlp;
+  p.causal = causal;
+  p.x_bf16 = x_dtype;
+  p.stages = stages;
+  if (p.sq > 128 || seqs < 1 || seqs * p.sq > wg::kRows || p.hd % 64 ||
+      p.hd > 128 || mlp % 16 || stages < 2)
+    return kErrShape;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 64: return launch_fwd_wg<64>(p, mats, grid, smem_bytes, st);
+    case 128: return launch_fwd_wg<128>(p, mats, grid, smem_bytes, st);
+    case 192: return launch_fwd_wg<192>(p, mats, grid, smem_bytes, st);
+    case 256: return launch_fwd_wg<256>(p, mats, grid, smem_bytes, st);
+    default: return kErrShape;
+  }
+}
+
+// Kernel H on Hopper at width d with smem_bytes of dynamic shared memory:
+// its threads a block and the blocks an SM the runtime's occupancy
+// calculator gives. Returns a cudaError_t or kErrShape.
+extern "C" int fused_encoder_fwd_wg_occupancy(int d, int smem_bytes,
+                                              int* threads, int* blocks) {
+  *threads = wg::kThreads;
+  const void* kernel;
+  switch (d) {
+    case 64: kernel = (const void*)fused_encoder_fwd_wg_kernel<64>; break;
+    case 128: kernel = (const void*)fused_encoder_fwd_wg_kernel<128>; break;
+    case 192: kernel = (const void*)fused_encoder_fwd_wg_kernel<192>; break;
+    case 256: kernel = (const void*)fused_encoder_fwd_wg_kernel<256>; break;
+    default: return kErrShape;
+  }
+  if (const cudaError_t rc = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes))
+    return static_cast<int>(rc);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, kernel, wg::kThreads, smem_bytes));
 }
 
 // Kernel I's per-sequence pass and the reduction of its vector grads: dx,

@@ -3,6 +3,7 @@ their time goes.
 
     python -m ddp_practice_tpu_torch.experiments.fused_profile
     python -m ddp_practice_tpu_torch.experiments.fused_profile --clocks
+    python -m ddp_practice_tpu_torch.experiments.fused_profile --levers
 
 Without flags: each shape's kernels against the plain version (relative
 error norms), then the device time of one wrapper call (CUDA events,
@@ -11,16 +12,33 @@ device work) beside the host time of the call; kernel I also in its parts:
 the per-sequence launch (with its vector-grad reduction) and the four
 kernel K launches of its weight grads.
 
+`--levers` measures the Hopper kernel H's design choices one at a time at
+the ViT-Tiny and causal LM layers (bf16), each undone alone, timed in turns
+on one card (shipped first and last): at run time the general kernel H it
+replaced (`general=True`), one sequence a tile (`seqs=1`), two ring stages
+(`stages=2`); as text substitutions on the source (`LEVERS`, each of which
+must apply once; built side by side with nvcc into build/) 128-column MLP
+chunks at every width, LN1's loads a row at a time (not 8 rows at once),
+the GELU on tanhf (not 1 - 2 / (exp(2u) + 1) on the fast intrinsics), one
+k slice a ring stage for the 64-wide MLP products (not three) and a
+producer warp (288 threads, no setmaxnreg) in place of a producer
+warpgroup.
+
 `--clocks` stands in for a kernel profiler where none runs: it writes an
 instrumented copy of csrc/fused_encoder.cu into build/ (every
-`__syncthreads()` becomes a barrier that also adds block 0's `clock64()`
-delta since the previous barrier into a `__device__` array indexed by
-source line), builds it, runs the ViT-Tiny layer forward and backward and
+`__syncthreads()`, and every named barrier `WG_BAR(...)` of the Hopper
+kernel H, becomes a barrier that also adds block 0's `clock64()` delta
+since the previous barrier into a `__device__` array indexed by source
+line: thread 0's, which in the Hopper kernel is a consumer of the first
+64-row group), builds it, runs the ViT-Tiny layer forward (the Hopper
+kernel H, then the general kernel H it replaced in bf16) and backward and
 prints microseconds per barrier interval: the time of the phase that ends
 at that line. A counter starts at kernel entry, so the first interval
-holds no gap between calls. Kernel I's per-sequence launch is read; its
-kernel K launches carry no clocks. Clock ticks are converted at 1.755 GHz
-(the H100 SXM's boost clock: nvidia-smi reads the running clock).
+holds no gap between calls. The Hopper kernel's waits for a full ring
+stage are also summed apart (they lie inside the intervals). Kernel I's
+per-sequence launch is read; its kernel K launches carry no clocks. Clock
+ticks are converted at 1.755 GHz (the H100 SXM's boost clock: nvidia-smi
+reads the running clock).
 """
 
 from __future__ import annotations
@@ -29,6 +47,7 @@ import argparse
 import ctypes
 import re
 import statistics
+import subprocess
 import time
 
 import torch
@@ -43,14 +62,30 @@ SHAPES = [  # imgs, s, d, heads, mlp, dtype, causal
     (1024, 64, 192, 3, 768, torch.float32, False),
 ]
 CLOCK_HZ = 1.755e9
-SLOTS = 2048
+SLOTS = 4096   # source lines the counters cover
+_CHUNK = "template <int DN> constexpr int kChunk = DN >= 192 ? 64 : 128;"
+_REGS = ('    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\\n");\n',
+         '  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\\n");\n')
+# the Hopper kernel H's compile-time choices, each undone alone
+LEVERS = {
+    "MLP chunks of 128": ((_CHUNK, _CHUNK.replace("DN >= 192 ? 64 : 128",
+                                                  "128")),),
+    "LN1 a row at a time": (("constexpr int kLnRows = 8;",
+                             "constexpr int kLnRows = 1;"),),
+    "GELU on tanhf": (("constexpr bool kFastTanh = true;",
+                       "constexpr bool kFastTanh = false;"),),
+    "a slice a stage": (("constexpr bool kPackSlices = true;",
+                         "constexpr bool kPackSlices = false;"),),
+    "producer warp, 288 threads": (
+        ("constexpr int kThreads = 384;", "constexpr int kThreads = 288;"),
+        (_REGS[0], ""), (_REGS[1], "")),
+}
 
 _TICK = '''
-__device__ long long g_ticks[2048];
-__device__ int g_counts[2048];
+__device__ long long g_ticks[4096];
+__device__ int g_counts[4096];
 __device__ long long g_last;
-__device__ __forceinline__ void sync_tick(int line) {
-  __syncthreads();
+__device__ __forceinline__ void tick(int line) {
   if (blockIdx.x == 0 && threadIdx.x == 0) {
     long long t = clock64();
     g_ticks[line] += t - g_last;
@@ -58,18 +93,34 @@ __device__ __forceinline__ void sync_tick(int line) {
     g_last = t;
   }
 }
+__device__ __forceinline__ void sync_tick(int line) {
+  __syncthreads();
+  tick(line);
+}
+__device__ __forceinline__ void wg_bar_tick(int line, int id, int threads) {
+  asm volatile("bar.sync %0, %1;\\n" ::"r"(id), "r"(threads) : "memory");
+  tick(line);
+}
+// slot 0 (no source line): thread 0's waits for a full ring stage
+__device__ __forceinline__ long long wait_start() { return clock64(); }
+__device__ __forceinline__ void wait_end(long long t0) {
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    g_ticks[0] += clock64() - t0;
+    g_counts[0] += 1;
+  }
+}
 '''
 _EXPORT = '''
 extern "C" int fe_ticks(long long* ticks, int* counts, int reset) {
   if (reset) {
-    static long long zeros[2048];
+    static long long zeros[4096];
     cudaMemcpyToSymbol(g_ticks, zeros, sizeof(zeros));
-    cudaMemcpyToSymbol(g_counts, zeros, sizeof(int) * 2048);
+    cudaMemcpyToSymbol(g_counts, zeros, sizeof(int) * 4096);
     return 0;
   }
   cudaDeviceSynchronize();
-  cudaMemcpyFromSymbol(ticks, g_ticks, sizeof(long long) * 2048);
-  cudaMemcpyFromSymbol(counts, g_counts, sizeof(int) * 2048);
+  cudaMemcpyFromSymbol(ticks, g_ticks, sizeof(long long) * 4096);
+  cudaMemcpyFromSymbol(counts, g_counts, sizeof(int) * 4096);
   return 0;
 }
 '''
@@ -143,9 +194,20 @@ def time_shapes() -> None:
 
 def instrumented_source() -> str:
     src = (cuda_build.CSRC / "fused_encoder.cu").read_text()
+    if src.count("\n") >= SLOTS - 200:
+        raise ValueError(f"fused_encoder.cu has grown past the {SLOTS} "
+                         f"source lines the clock counters cover")
     src = src.replace("namespace {\n", "namespace {\n" + _TICK, 1)
     head, tail = src.split(_TICK, 1)
     tail = tail.replace("__syncthreads();", "sync_tick(__LINE__);")
+    tail = re.sub(r"(?<!#define )\bWG_BAR\(", "wg_bar_tick(__LINE__, ", tail)
+    wait = "    mbar_wait(&full[s], (it / stages) & 1);\n"
+    assert tail.count(wait) == 1
+    tail = tail.replace(wait, "    const long long t0_ = wait_start();\n"
+                        + wait + "    wait_end(t0_);\n")
+    tail = re.sub(r"(  extern __shared__ uint8_t fe_wg_smem\[\];)",
+                  r"\1\n  if (blockIdx.x == 0 && threadIdx.x == 0) g_last "
+                  r"= clock64();", tail)
     tail = re.sub(r"(const Seq<T(, true)?> q\(p, fe_smem\);)",
                   r"\1\n  if (blockIdx.x == 0 && threadIdx.x == 0) g_last "
                   r"= clock64();", tail)
@@ -169,8 +231,10 @@ def clocks() -> None:
     kw = dict(num_heads=heads, compute_dtype=dtype, causal=causal)
     calls = 3
     for name, fn in (
-            ("H", lambda: fe.fused_encoder_forward(x, params, impl="kernel",
-                                                   **kw)),
+            ("H (Hopper)", lambda: fe.fused_encoder_forward(
+                x, params, impl="kernel", **kw)),
+            ("H (general)", lambda: fe._launch_fwd(x, params, heads, dtype,
+                                                   causal, general=True)),
             ("I", lambda: fe._bwd_sequences(x, g, params, heads, dtype,
                                             causal))):
         fn()
@@ -179,9 +243,12 @@ def clocks() -> None:
             fn()
         lib.fe_ticks(ticks, counts, 0)
         us = [t / calls / CLOCK_HZ * 1e6 for t in ticks]
-        print(f"kernel {name}, block 0, {imgs} x {s} x {d}: {sum(us):.1f} us "
-              f"per call between barriers")
-        for line in range(SLOTS):
+        print(f"kernel {name}, block 0, {imgs} x {s} x {d}: "
+              f"{sum(us[1:]):.1f} us per call between barriers")
+        if counts[0]:
+            print(f"  of which waits for a full ring stage: {us[0]:.1f} us "
+                  f"in {counts[0] // calls} waits")
+        for line in range(1, SLOTS):
             if counts[line]:
                 n = counts[line] // calls
                 print(f"  line {line:4d} {us[line]:8.1f} us in {n:4d} "
@@ -189,16 +256,85 @@ def clocks() -> None:
                       f"{lines[line - 2].strip()[:60]}", flush=True)
 
 
+def lever_source(name: str) -> str:
+    source = (cuda_build.CSRC / "fused_encoder.cu").read_text()
+    for old, new in LEVERS[name]:
+        if source.count(old) != 1:
+            raise ValueError(f"lever {name!r}: {old!r} is not in the source "
+                             f"exactly once")
+        source = source.replace(old, new)
+    return source
+
+
+def levers() -> None:
+    out = cuda_build.BUILD_DIR / "fused_levers"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for i, name in enumerate(LEVERS):
+        src, lib = out / f"v{i}.cu", out / f"libv{i}.so"
+        src.write_text(lever_source(name))
+        procs[name] = (lib, subprocess.Popen(
+            [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(lib),
+             str(src)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True))
+    shipped = fe._library()
+    libs = {}
+    for name, (lib, proc) in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for lever {name!r}:\n{err}")
+        for kernel, lines in cuda_build.kernel_resources(err).items():
+            if kernel.startswith("fused_encoder_fwd_wg_kernel<"):
+                print(f"  {name}: ptxas {kernel}: " + "; ".join(
+                    line.split(":", 1)[-1].strip() for line in lines))
+        libs[name] = ctypes.CDLL(str(lib))
+    for imgs, s, d, heads, mlp, dtype, causal in SHAPES:
+        if dtype != torch.bfloat16 or imgs < 64:
+            continue
+        x, _, params = inputs(imgs, s, d, mlp, dtype)
+        want = fe.fused_encoder_plain(x, params, num_heads=heads,
+                                      compute_dtype=dtype, causal=causal)
+
+        def run(lib, **over):
+            def call():
+                cuda_build._loaded["fused_encoder"] = lib
+                return fe._launch_fwd(x, params, heads, dtype, causal,
+                                      **over)
+            return call
+
+        runs = [("shipped", run(shipped)),
+                ("general kernel H", run(shipped, general=True)),
+                ("one sequence a tile", run(shipped, seqs=1)),
+                ("two ring stages", run(shipped, stages=2))]
+        runs += [(name, run(lib)) for name, lib in libs.items()]
+        runs.append(("shipped", run(shipped)))
+        for name, fn in runs:
+            got = fn()
+            err = float((got.float() - want.float()).norm()
+                        / want.float().norm())
+            ms = device_and_host_ms(fn)[0]
+            print(f"{imgs} x {s} x {d} causal={causal}: {name:>27} "
+                  f"{ms:.3f} ms (relative error norm {err:.2e})", flush=True)
+    cuda_build._loaded["fused_encoder"] = shipped
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--clocks", action="store_true",
                         help="per-barrier clocks of an instrumented copy")
+    parser.add_argument("--levers", action="store_true",
+                        help="the Hopper kernel H's choices, each undone")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("fused_profile needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     print(torch.cuda.get_device_name(0), flush=True)
-    clocks() if args.clocks else time_shapes()
+    if args.clocks:
+        clocks()
+    elif args.levers:
+        levers()
+    else:
+        time_shapes()
     return 0
 
 

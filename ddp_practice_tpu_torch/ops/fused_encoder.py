@@ -6,7 +6,9 @@ causal) -> projection + residual -> LN2 -> tanh-GELU MLP + residual. On a
 CUDA tensor the layer runs CUDA kernels written by hand for sm_90a
 (`csrc/fused_encoder.cu`, built by `ops/cuda_build.py`, launched through
 ctypes): kernel H forward, one launch (replaces `_fused_kernel`, reached
-from `fused_encoder_forward`), and kernel I backward (replaces
+from `fused_encoder_forward`; in bf16 at the shapes `_wg_plan` takes, d <=
+256, s <= 128, head_dim <= 128, a Hopper kernel on wgmma fed by a TMA
+weight ring, the general kernel otherwise), and kernel I backward (replaces
 `_fused_bwd_kernel`, reached from `fused_encoder_backward`): one
 per-sequence launch with its vector-grad reduction, then kernel K
 (`ops/grouped_matmul.py`, `csrc/grouped_matmul.cu`) four times for the
@@ -15,27 +17,36 @@ fp32 ones as FMAs.
 
 Design, where the reference's does not carry over:
 
+- Kernel H on Hopper (bf16): a persistent block takes tiles of 128 rows,
+  `WgPlan.seqs` whole sequences padded to sq = round_up(s, 64) rows each
+  (two at ViT-Tiny, the reference's `seq_merge` without its masked scores:
+  attention stays within each sequence), so the token-wise products run 128
+  rows on wgmma against weight slices that one producer thread streams
+  through a TMA ring in shared memory; bias, rounding, GELU, residuals and
+  both LayerNorms act on the accumulators in registers. `_wg_plan` places
+  the tile's panels and the ring in shared memory (three stages at
+  ViT-Tiny).
 - Weights are not resident. A block works on one sequence at a time and
   keeps that sequence's operands (LN outputs, the head's q/k/v, the
-  probabilities, the fp32 staging tile) in shared memory. Kernel H reads
-  weight fragments from global memory, where the layer's weights stay in
-  the L2 cache; kernel I stages hd-row or hd-column blocks of them in two
-  shared-memory slots (cp.async, the next block copied while the current
-  one multiplies) and runs its products from shared memory with
-  mma.sync fed by ldmatrix. Its recompute stashes each head's q|k|v and
-  probabilities in a per-block buffer allocated here, and its heads'
-  backward reads them back instead of recomputing them; its input grads
-  through W_in and Wqkv run once a sequence over the stored operands. The wrapper casts
-  the weights once per call to the compute dtype (the reference's `_prep`)
-  and keeps PyTorch's (out, in) layout: the kernels read it transposed in
-  place.
+  probabilities, the fp32 staging tile) in shared memory. The general
+  kernel H reads weight fragments from global memory, where the layer's
+  weights stay in the L2 cache; kernel I stages hd-row or hd-column blocks
+  of them in two shared-memory slots (cp.async, the next block copied
+  while the current one multiplies) and runs its products from shared
+  memory with mma.sync fed by ldmatrix. Its recompute stashes each head's
+  q|k|v and probabilities in a per-block buffer allocated here, and its
+  heads' backward reads them back instead of recomputing them; its input
+  grads through W_in and Wqkv run once a sequence over the stored operands.
+  The wrapper casts the weights once per call to the compute dtype (the
+  reference's `_prep`) and keeps PyTorch's (out, in) layout: the kernels
+  read it transposed in place.
 - What one sequence needs beyond the shared memory of an SM (232448 bytes)
   goes to a per-block scratch in global memory, allocated here with
   `torch.empty`: `_plan` places the buffers in order of use until the budget
-  is spent (at the ViT-Tiny shape in bf16 kernel H keeps everything in
-  shared memory; kernel I's weight slots push its fp32 dy and the two fp32
-  residual streams out). The grid is cut so that the blocks' scratch stays
-  within the L2.
+  is spent (at the ViT-Tiny shape in bf16 the general kernel H keeps
+  everything in shared memory; kernel I's weight slots push its fp32 dy and
+  the two fp32 residual streams out). The grid is cut so that the blocks'
+  scratch stays within the L2.
 - The backward's grads: blocks run in parallel, so the reference's
   accumulation over a sequential grid becomes, for the four weight
   matrices, one kernel K product each over every token of the layer (one
@@ -50,8 +61,9 @@ Design, where the reference's does not carry over:
   on equal grads).
 - `seq_merge`, the tile auto-sizing and the VMEM declaration are TPU tuning
   with exact results and are not ported; `img_tile` is accepted and
-  ignored. One sequence a block: kernel I's buffers and weight slots fill an
-  SM's shared memory at ViT-Tiny, so several sequences a block do not fit.
+  ignored. Kernel I takes one sequence a block: its buffers and weight
+  slots fill an SM's shared memory at ViT-Tiny, so several sequences a
+  block do not fit there.
 
 `fused_shape_supported` is the port's own predicate: head_dim a multiple of
 64 (the reference's `_head_dim_ok`, so the same shapes fuse in both
@@ -218,6 +230,49 @@ def _plan(seq_len: int, d: int, num_heads: int, mlp_dim: int,
             scratch += nbytes
     return Plan(tuple(offset), tuple(where), tuple(ld), smem,
                 _round_up(scratch, 256), ws, chunk)
+
+
+# kernel H on Hopper (bf16): a tile is WG_ROWS rows, a sequence sq =
+# round_up(s, 64) of them; the LN output, a head's q|k|v (also the GELU
+# chunk) and the heads' outputs are 64-column panels of the tile, beside a
+# ring of 64-deep weight slices up to 192 columns wide
+WG_ROWS = 128
+WG_PANEL = WG_ROWS * 128            # bytes of a 64-column bf16 panel
+WG_STAGE = 64 * 192 * 2             # bytes of a ring stage
+WG_MAX_STAGES = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class WgPlan:
+    """Kernel H's Hopper plan for one shape: `sq` rows a sequence, `seqs`
+    sequences a tile, `stages` ring stages, `smem_bytes` dynamic shared
+    memory a block, `chunk` MLP columns a chunk (the .cu's `kChunk<D>`: 64
+    where the fp32 residual takes 96 or more registers a thread)."""
+    sq: int
+    seqs: int
+    stages: int
+    smem_bytes: int
+    chunk: int
+
+
+def _wg_plan(seq_len: int, d: int, num_heads: int) -> Optional[WgPlan]:
+    """The Hopper kernel's plan, or None where it does not take the shape:
+    d above 256 (the fp32 residual stays in registers, d / 2 a thread) or
+    not a multiple of 64, s above 128 (a sequence on at most two consumer
+    warpgroups), head_dim above 128, or fewer than two ring stages beside
+    the tile's panels."""
+    hd = d // num_heads
+    sq = _round_up(seq_len, 64)
+    if d > 256 or d % 64 or sq > WG_ROWS or hd > 128:
+        return None
+    panels = 2 * (d // 64) + 3 * (hd // 64)     # LN output, o_all; q|k|v
+    fixed = 1024 + panels * WG_PANEL            # 1 KiB to align the base
+    stages = min(WG_MAX_STAGES,
+                 (SMEM_LIMIT - fixed) // (WG_STAGE + 16))
+    if stages < 2:
+        return None
+    return WgPlan(sq, WG_ROWS // sq, stages,
+                  fixed + stages * (WG_STAGE + 16), 64 if d >= 192 else 128)
 
 
 def _head_dim_error(d: int, num_heads: int) -> Optional[str]:
@@ -593,15 +648,37 @@ def _grid(imgs: int, plan: Plan, device) -> int:
     return n
 
 
-def _launch_fwd(x, params, num_heads, compute_dtype, causal):
+def _launch_fwd(x, params, num_heads, compute_dtype, causal, *,
+                general=False, seqs=None, stages=None):
+    """Kernel H: the Hopper kernel where `_wg_plan` takes the shape in
+    bf16, the general kernel otherwise. `general`, `seqs` (sequences a
+    tile) and `stages` (ring stages) override the plan for the
+    measurements of experiments/fused_profile.py."""
     xc, mats, vecs, mlp = _prepare(x, params, num_heads, compute_dtype)
     imgs, s, d = xc.shape
+    wg = None
+    if compute_dtype == torch.bfloat16 and not general:
+        wg = _wg_plan(s, d, num_heads)
+    out = torch.empty_like(xc)
+    lib = _library()
+    if wg is not None:
+        seqs = seqs or wg.seqs
+        stages = stages or wg.stages
+        smem = wg.smem_bytes + (stages - wg.stages) * (WG_STAGE + 16)
+        grid = min(-(-imgs // seqs), torch.cuda.get_device_properties(
+            x.device).multi_processor_count)
+        with torch.cuda.device(x.device):
+            rc = lib.fused_encoder_fwd_wg(
+                xc.data_ptr(), out.data_ptr(), mats.data_ptr(),
+                vecs.data_ptr(), imgs, s, d, num_heads, mlp, int(causal),
+                _DTYPE_CODE[xc.dtype], seqs, stages, grid, smem, _stream(x))
+        _raise_on(rc, "fused_encoder_fwd_wg", xc, num_heads, mlp,
+                  compute_dtype)
+        return out
     plan = _plan(s, d, num_heads, mlp, mats.element_size(), False)
     grid = _grid(imgs, plan, x.device)
-    out = torch.empty_like(xc)
     scratch = torch.empty(max(grid * plan.scratch_bytes, 256),
                           dtype=torch.uint8, device=x.device)
-    lib = _library()
     with torch.cuda.device(x.device):
         rc = lib.fused_encoder_fwd(
             xc.data_ptr(), out.data_ptr(), mats.data_ptr(), vecs.data_ptr(),
@@ -611,6 +688,23 @@ def _launch_fwd(x, params, num_heads, compute_dtype, causal):
             _stream(x))
     _raise_on(rc, "fused_encoder_fwd", xc, num_heads, mlp, compute_dtype)
     return out
+
+
+def wg_occupancy(seq_len: int, d: int, num_heads: int) -> dict:
+    """Kernel H's Hopper footprint at this shape on this card:
+    {"smem_bytes", "threads", "blocks_per_sm"} (dynamic shared memory and
+    threads a block, blocks an SM by the runtime's occupancy calculator)."""
+    plan = _wg_plan(seq_len, d, num_heads)
+    if plan is None:
+        raise ValueError(f"kernel H's Hopper plan does not take s={seq_len}, "
+                         f"d={d}, heads={num_heads}")
+    threads, blocks = ctypes.c_int(), ctypes.c_int()
+    rc = _library().fused_encoder_fwd_wg_occupancy(
+        d, plan.smem_bytes, ctypes.byref(threads), ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f"fused_encoder_fwd_wg_occupancy: error {rc}")
+    return {"smem_bytes": plan.smem_bytes, "threads": threads.value,
+            "blocks_per_sm": blocks.value}
 
 
 def _launch_bwd(x, g, params, num_heads, compute_dtype, causal):
@@ -729,6 +823,11 @@ def _library() -> ctypes.CDLL:
         tail = [T] + [I] * 8 + [I, I, ctypes.c_longlong, I, P]
         lib.fused_encoder_fwd.argtypes = [P] * 5 + tail
         lib.fused_encoder_fwd.restype = I
+        lib.fused_encoder_fwd_wg.argtypes = [P] * 4 + [I] * 11 + [P]
+        lib.fused_encoder_fwd_wg.restype = I
+        IP = ctypes.POINTER(ctypes.c_int)
+        lib.fused_encoder_fwd_wg_occupancy.argtypes = [I, I, IP, IP]
+        lib.fused_encoder_fwd_wg_occupancy.restype = I
         lib.fused_encoder_bwd.argtypes = [P] * 8 + [
             ctypes.POINTER(ctypes.c_void_p), P, ctypes.c_longlong] + tail
         lib.fused_encoder_bwd.restype = I

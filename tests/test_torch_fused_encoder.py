@@ -20,6 +20,17 @@ on the CPU, where it runs its plain version:
   rows split into work units); it must give the whole batch's grads (the
   plain version's, and in fp32 the JAX fused layer's), the same bits on
   every run, whatever the grid and the unit size;
+- an emulation of kernel H's Hopper schedule (`_wg_emulated`): tiles of
+  128 rows holding `seqs` whole sequences, each padded to a multiple of 64
+  rows (a tail tile leaves the absent sequence's rows unread and
+  unwritten), attention per sequence inside the 64-row group that holds it
+  (padded keys masked), the MLP in chunks of the plan's width whose
+  second product accumulates into the fp32 residual, and the kernel's
+  rounding points; it must write every token once and give the plain
+  version's output (bf16: the same rounding points, other fp32 sums, so a
+  rounding can flip by an ulp: 4e-2 of the largest magnitude per element,
+  5e-3 in relative norm) and, in fp32, the JAX fused layer's (its Pallas
+  kernel in interpret mode) at 2e-5;
 - the shared-memory plan and the port's own predicate: ViT-Tiny and the
   reference tests' shapes are admitted, wide models, long sequences and
   head_dim 32 are refused with the limit named, and `impl="kernel"` on a
@@ -283,6 +294,152 @@ def test_block_schedule_gives_the_batch_grads(grid, chunk, dtype):
                                        rtol=3e-4, atol=3e-4, err_msg=name)
 
 
+def _wg_emulated(x, leaves, *, num_heads, compute_dtype, causal, seqs=None):
+    """Kernel H's Hopper schedule in torch (`csrc/fused_encoder.cu`,
+    `fused_encoder_fwd_wg_kernel`): tile t holds sequences t * seqs + slot
+    at rows slot * sq .. of 128 (sq = round_up(s, 64)); rows without a
+    token hold zeros through LN1; each 64-row group attends within its
+    sequence's sq rows (keys past s masked); x2 = x + o_all . wproj^T +
+    bproj stays fp32, and each MLP chunk's (plan.chunk columns) second
+    product adds into it (w_in rows and w_out columns past mlp read as
+    zero). Rounds where the kernel does. Every token is written once."""
+    cd = compute_dtype
+    imgs, s, d = x.shape
+    plan = fe._wg_plan(s, d, num_heads)
+    assert plan is not None
+    sq, seqs = plan.sq, seqs or plan.seqs
+    h, hd = num_heads, d // num_heads
+    mlp = leaves[8].shape[0]
+    (l1s, l1b, wqkv, bqkv, wproj, bproj, l2s, l2b, w_in, b_in, w_out,
+     b_out) = fe._cast_params(leaves, cd)
+    rows = fe.WG_ROWS
+    out = torch.full((imgs, s, d), float("nan"))
+    written = torch.zeros((imgs, s), dtype=torch.int64)
+    pos = torch.arange(rows) % sq
+    for t in range(-(-imgs // seqs)):
+        xt = torch.zeros((rows, d))
+        real = torch.zeros(rows, dtype=torch.bool)
+        imgs_at = {}
+        for slot in range(rows // sq):
+            img = t * seqs + slot
+            if slot < seqs and img < imgs:
+                xt[slot * sq:slot * sq + s] = x[img].float()
+                real[slot * sq:slot * sq + s] = True
+                imgs_at[slot] = img
+        y1 = fe._layer_norm(xt, l1s, l1b)[0] * real[:, None]
+        qkv = (fe._mm(y1, wqkv.T, cd) + bqkv).to(cd).float()
+        o_all = torch.zeros((rows, d))
+        for w in range(rows // 64):
+            q_rows = slice(64 * w, 64 * w + 64)
+            row0 = (64 * w // sq) * sq
+            keys = slice(row0, row0 + sq)
+            kpos = torch.arange(sq)
+            for hi in range(h):
+                q, k, v = (qkv[:, base + hi * hd: base + (hi + 1) * hd]
+                           for base in (0, d, 2 * d))
+                sc = fe._mm(q[q_rows], k[keys].T, cd) * (1.0 / hd ** 0.5)
+                if causal:
+                    sc = sc + torch.where(
+                        kpos[None, :] > pos[q_rows][:, None], fe._NEG, 0.0)
+                sc = sc.masked_fill(kpos[None, :] >= s, float("-inf"))
+                p = torch.exp(sc - sc.amax(dim=-1, keepdim=True))
+                p = p / p.sum(dim=-1, keepdim=True)
+                o_all[q_rows, hi * hd:(hi + 1) * hd] = fe._mm(p, v[keys], cd)
+        x2 = fe._mm(o_all, wproj.T, cd) + xt + bproj
+        y2 = fe._layer_norm(x2, l2s, l2b)[0]
+        acc = x2
+        for c0 in range(0, mlp, plan.chunk):
+            cols = slice(c0, min(c0 + plan.chunk, mlp))
+            hp = fe._mm(y2, w_in[cols].T, cd) + b_in[cols]
+            th = torch.tanh(fe._GELU_C * (hp + fe._GELU_A * hp ** 3))
+            hg = (0.5 * hp * (1.0 + th)).to(cd)
+            acc = acc + fe._mm(hg, w_out[:, cols].T, cd)
+        res = acc + b_out
+        for slot, img in imgs_at.items():
+            out[img] = res[slot * sq:slot * sq + s]
+            written[img] += 1
+    assert bool((written == 1).all())
+    return out.to(x.dtype)
+
+
+@pytest.mark.parametrize("imgs", [1, 3, 4])
+@pytest.mark.parametrize("seq_len", [64, 40])
+@pytest.mark.parametrize("causal", [False, True])
+def test_wg_schedule_matches_plain_and_jax(imgs, seq_len, causal):
+    """Kernel H's Hopper schedule at a small width (d 128, 2 heads of 64,
+    mlp 208: a ragged second MLP chunk): odd and even image counts (a tail
+    tile with one sequence), a padded length, causal and not. bf16 against
+    the plain version, fp32 against it and, at three images (a full tile
+    and a tail tile), the JAX fused layer (the other counts only regroup
+    the same per-sequence arithmetic; XLA's threads load the parallel
+    tier-1 run)."""
+    d, heads, mlp = 128, 2, 208
+    _, params, leaves, x, _ = _setup(imgs, seq_len, d, heads, mlp, causal,
+                                     seed=10 + imgs)
+    xt = torch.from_numpy(x)
+    kw = dict(num_heads=heads, causal=causal)
+    got = _wg_emulated(xt.bfloat16(), leaves, compute_dtype=torch.bfloat16,
+                       **kw).float()
+    want = fe.fused_encoder_plain(xt.bfloat16(), leaves,
+                                  compute_dtype=torch.bfloat16, **kw).float()
+    scale = max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= 4e-2 * scale
+    assert float((got - want).norm() / want.norm()) <= 5e-3
+    got32 = _wg_emulated(xt, leaves, compute_dtype=torch.float32, **kw)
+    torch.testing.assert_close(
+        got32, fe.fused_encoder_plain(xt, leaves, compute_dtype=torch.float32,
+                                      **kw), rtol=2e-5, atol=2e-5)
+    if imgs == 3:
+        jax_out = jax_fused_layer(jnp.asarray(x), params, num_heads=heads,
+                                  compute_dtype=jnp.float32, causal=causal)
+        np.testing.assert_allclose(got32.numpy(), np.asarray(jax_out),
+                                   rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("seq_len,d,heads,mlp,seqs", [
+    (100, 128, 2, 128, None),    # one sequence over both 64-row groups
+    (64, 128, 2, 128, 1),        # the kernel's `seqs` override
+    (64, 192, 3, 208, None),     # ViT-Tiny's width: 64-column MLP chunks
+])
+def test_wg_schedule_shares_or_splits_tiles(seq_len, d, heads, mlp, seqs):
+    """A sequence over both 64-row groups (s = 100: sq 128, one sequence a
+    tile), one sequence a tile at s = 64, and the 64-column MLP chunks of
+    d >= 192 (a ragged last chunk) against the plain version in fp32,
+    causal."""
+    _, _, leaves, x, _ = _setup(3, seq_len, d, heads, mlp, True, seed=20)
+    xt = torch.from_numpy(x)
+    kw = dict(num_heads=heads, compute_dtype=torch.float32, causal=True)
+    plan = fe._wg_plan(seq_len, d, heads)
+    assert plan.seqs * plan.sq == fe.WG_ROWS
+    got = _wg_emulated(xt, leaves, seqs=seqs, **kw)
+    torch.testing.assert_close(got, fe.fused_encoder_plain(xt, leaves, **kw),
+                               rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("seq_len,d,heads,want", [
+    (64, 192, 3, (64, 2, 3)),      # ViT-Tiny: two sequences a tile
+    (49, 192, 3, (64, 2, 3)),      # 28x28 images, padded to 64 rows
+    (128, 256, 4, (128, 1, 2)),    # the causal LM layer: one a tile
+    (40, 128, 1, (64, 2, 2)),      # head_dim 128
+    (64, 64, 1, (64, 2, 4)),
+    (64, 384, 6, None),            # d > 256: the general kernel
+    (160, 192, 3, None),           # s > 128
+    (128, 256, 2, None),           # head_dim 128 at d 256: no two stages
+    (64, 256, 1, None),            # head_dim 256
+])
+def test_wg_plan_shapes(seq_len, d, heads, want):
+    plan = fe._wg_plan(seq_len, d, heads)
+    if want is None:
+        assert plan is None
+        return
+    assert (plan.sq, plan.seqs, plan.stages) == want
+    assert plan.chunk == (64 if d >= 192 else 128)
+    assert plan.smem_bytes <= fe.SMEM_LIMIT
+    panels = 2 * d // 64 + 3 * (d // heads) // 64
+    assert plan.smem_bytes == (1024 + panels * fe.WG_PANEL
+                               + plan.stages * (fe.WG_STAGE + 16))
+
+
 def test_plan_places_vit_tiny_in_shared_memory():
     for backward in (False, True):
         plan = fe._plan(64, 192, 3, 768, 2, backward)
@@ -307,6 +464,11 @@ def test_plan_places_vit_tiny_in_shared_memory():
     # a ragged length pads to the next multiple of 16
     assert fe._plan(49, 192, 3, 768, 2, True) == fe._plan(64, 192, 3, 768,
                                                           2, True)
+    # kernel H on Hopper: two sequences a 128-row tile, three ring stages
+    # beside the LN output, a head's q|k|v and o_all (nine 16 KiB panels)
+    wg = fe._wg_plan(64, 192, 3)
+    assert (wg.sq, wg.seqs, wg.stages) == (64, 2, 3)
+    assert 9 * fe.WG_PANEL + 3 * fe.WG_STAGE < wg.smem_bytes <= fe.SMEM_LIMIT
 
 
 @pytest.mark.parametrize("seq_len,d,mlp,heads,dtype,ok", [
@@ -333,3 +495,40 @@ def test_shape_predicate(seq_len, d, mlp, heads, dtype, ok):
         assert any(word in err for word in (
             "MiB", "shared memory", "head_dim", "multiple of 16",
             "float32 or bfloat16"))
+
+
+@pytest.mark.parametrize("name", ["MLP chunks of 128", "LN1 a row at a time",
+                                  "GELU on tanhf", "a slice a stage",
+                                  "producer warp, 288 threads"])
+def test_fused_profile_levers_apply_to_the_source(name):
+    """experiments/fused_profile.py --levers undoes one compile-time choice
+    of the Hopper kernel H a variant, by text substitutions that must each
+    find their text once; a stale lever would fail on the card only."""
+    from ddp_practice_tpu_torch.experiments import fused_profile as fp
+    from ddp_practice_tpu_torch.ops import cuda_build
+
+    assert list(fp.LEVERS) == ["MLP chunks of 128", "LN1 a row at a time",
+                               "GELU on tanhf", "a slice a stage",
+                               "producer warp, 288 threads"]
+    shipped = (cuda_build.CSRC / "fused_encoder.cu").read_text()
+    assert fp.lever_source(name) != shipped
+
+
+def test_fused_profile_clocks_instrument_every_barrier():
+    """--clocks' instrumented copy ticks at every `__syncthreads()` and
+    every named barrier of the Hopper kernel H (its `#define` left alone),
+    times its full-stage waits, and starts each kernel's counter."""
+    from ddp_practice_tpu_torch.experiments import fused_profile as fp
+    from ddp_practice_tpu_torch.ops import cuda_build
+
+    shipped = (cuda_build.CSRC / "fused_encoder.cu").read_text()
+    body = shipped.split("namespace {\n", 1)[1]
+    source = fp.instrumented_source()
+    assert source.count("wg_bar_tick(__LINE__, ") == \
+        body.count("WG_BAR(") - 1 > 0
+    assert "#define WG_BAR(id, threads)" in source
+    assert source.count("sync_tick(__LINE__);") == \
+        body.count("__syncthreads();")
+    assert source.count("wait_end(t0_);") == 1
+    # the general H, kernel I and the Hopper H start their counters
+    assert source.count("g_last = clock64();") == 3
