@@ -18,15 +18,19 @@ Phases, each of which raises on failure (nothing is caught and passed):
    shapes (h=12, hd=64) and print its device time (CUDA events around one
    call queued behind a spin kernel, L2 flushed before each, median of
    20), the plain version's time, a yardstick PyTorch call's time (the
-   port never calls it) and the HBM-bytes bound:
+   port never calls it) and the HBM-bytes bound over the card's memory
+   rate (utils/flops.chip_hbm_bandwidth; an unknown card stops the smoke);
+   first the harness's floor, torch.cuda._sleep(1) timed the same way:
    - kernels A and B (flat cache): b in {1, 8}, L in {1024, 2048}, cur in
-     {0, mid, L-1}, random attn_start, plus the serve path's shape; the
+     {0, mid, L-1}, random attn_start; b = 1 bf16 over every position of
+     L = 32768 (A and B) and 65536 (A); plus the serve path's shape; the
      yardstick is F.scaled_dot_product_attention on the same masked
      problem;
    - kernels C and D (paged pool): 16-position blocks, 128 blocks per
      slot (2048 positions) over a 1 + 8*128-block pool, b in {1, 8},
      lengths 0, mid and 2047 mixed across slots, random attn_start, two
-     slots sharing blocks and one retired garbage-block row; plus the
+     slots sharing blocks and one retired garbage-block row; b = 1 bf16
+     over every position of 2048 blocks (C and D) and 4096 (C); plus the
      main path's shapes (the paged serve row's mid-run step for C, the
      int8 shared-prefix run's step for D). No single PyTorch call walks a
      page table, so the yardstick is SDPA over each slot's span gathered
@@ -197,7 +201,9 @@ import sys
 import time
 
 H, HD = 12, 64
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
+# the card's memory rate (utils/flops.chip_hbm_bandwidth), set by main()
+# from the card's name: a card the table does not know stops the smoke
+HBM_BYTES_PER_S = None
 TIMED_RUNS = 20
 SPIN_CYCLES = 4_000_000            # ~2 ms at the H100's 1.98 GHz boost
 FP32_TOL = (2e-5, 2e-5)            # (atol, rtol)
@@ -355,12 +361,15 @@ def _compare(torch, name, got, want, dtype, what):
 
 
 # ------------------------------------------------------- kernels A and B
-def _inputs(torch, b, L, cur, dtype, quant, seed):
+def _inputs(torch, b, L, cur, dtype, quant, seed, full=False):
+    """Random attn_start in [0, cur]; `full`: every row starts at 0."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev = "cuda"
     q = torch.randn((b, 1, H * HD), generator=g, device=dev).to(dtype)
     starts = torch.randint(0, cur + 1, (b,), generator=g, device=dev,
                            dtype=torch.int32)
+    if full:
+        starts.zero_()
     if quant:
         kc = torch.randint(-127, 128, (b, L, H * HD), generator=g,
                            device=dev, dtype=torch.int8)
@@ -376,7 +385,8 @@ def _inputs(torch, b, L, cur, dtype, quant, seed):
 
 def _bound_ms(q, kc, starts, cur, quant) -> float:
     """HBM bytes the step must move (q and the output once, each valid K
-    and V row once, the valid scale entries, attn_start) over 3.35 TB/s.
+    and V row once, the valid scale entries, attn_start) over the
+    card's memory rate (HBM_BYTES_PER_S).
     The arithmetic, ~4 flop per cache element, is far under the card's
     flop-per-byte ridge, so bytes bound it."""
     rows = int((cur + 1 - starts.clamp(max=cur + 1)).sum())
@@ -389,9 +399,10 @@ def _bound_ms(q, kc, starts, cur, quant) -> float:
     return nbytes / HBM_BYTES_PER_S * 1e3
 
 
-def check_kernel(torch, F, ops, *, b, L, cur, dtype, quant, flush, seed):
+def check_kernel(torch, F, ops, *, b, L, cur, dtype, quant, flush, seed,
+                 full=False):
     q, kc, vc, starts, ks, vs = _inputs(torch, b, L, cur, dtype, quant,
-                                        seed)
+                                        seed, full)
     kw = dict(n_heads=H, k_scale=ks, v_scale=vs)
     name = "decode_attention_int8" if quant else "decode_attention"
     err = _compare(
@@ -426,7 +437,7 @@ def check_kernel(torch, F, ops, *, b, L, cur, dtype, quant, flush, seed):
             q4, k4, v4, attn_mask=mask), flush),
         "bound_ms": _bound_ms(q, kc, starts, cur, quant),
     }
-    log(f"  {name:>21} b={b} L={L:4d} cur={cur:4d} {row['dtype']:>8}: "
+    log(f"  {name:>21} b={b} L={L:5d} cur={cur:5d} {row['dtype']:>8}: "
         f"err {row['max_abs_err']:.2e}  kernel {row['ms'] * 1e3:8.2f} us  "
         f"plain {row['plain_ms'] * 1e3:8.2f} us  "
         f"sdpa {row['library_ms'] * 1e3:8.2f} us  "
@@ -434,9 +445,19 @@ def check_kernel(torch, F, ops, *, b, L, cur, dtype, quant, flush, seed):
     return row
 
 
+def timing_floor(torch, flush) -> float:
+    """`_time_ms` of a spin kernel of one cycle: the harness's own floor
+    (events, a launch on a cold L2), beside which a kernel of a few us
+    is read."""
+    ms = _time_ms(torch, lambda: torch.cuda._sleep(1), flush)
+    log(f"  timing floor: torch.cuda._sleep(1) through _time_ms "
+        f"{ms * 1e3:8.2f} us")
+    return ms
+
+
 def kernel_phase(torch, F, ops, flush) -> dict:
-    """Kernels A and B over the sweep; returns {kernel: the serve-shape
-    row} with max_abs_err raised to the sweep's worst."""
+    """Kernels A and B over the sweep and the long rows; returns {kernel:
+    the serve-shape row} with max_abs_err raised to the worst row's."""
     worst = {"decode_attention": 0.0, "decode_attention_int8": 0.0}
     seed = 0
     for quant in (False, True):
@@ -451,6 +472,13 @@ def kernel_phase(torch, F, ops, flush) -> dict:
                                            seed=seed)
                         worst[row["kernel"]] = max(worst[row["kernel"]],
                                                    row["max_abs_err"])
+    # long contexts, every key valid (start 0): A and B at 32768, A at
+    # 65536 (past the old kernel's shared-memory score buffer)
+    for quant, L in ((False, 32768), (True, 32768), (False, 65536)):
+        row = check_kernel(torch, F, ops, b=1, L=L, cur=L - 1,
+                           dtype=torch.bfloat16, quant=quant, flush=flush,
+                           seed=500 + L + quant, full=True)
+        worst[row["kernel"]] = max(worst[row["kernel"]], row["max_abs_err"])
     # the serve phase's own shape: 8 slots, a 2048-position pool, bf16
     # queries, the shared cursor a burst past the 256-wide base bucket
     main = {}
@@ -478,6 +506,13 @@ def _sweep_case(np, rng, lengths):
         tables[-1] = 0
         lengths[-1] = starts[-1] = 0
     return dict(tables=tables, lengths=lengths, starts=starts, nb=NB)
+
+
+def _long_case(np, rng, mb):
+    """One slot over `mb` distinct blocks of an (mb + 1)-block pool, every
+    position valid: length mb * BS - 1, start 0."""
+    tables = rng.permutation(np.arange(1, mb + 1))[None, :]
+    return dict(tables=tables, lengths=[mb * BS - 1], starts=[0], nb=mb + 1)
 
 
 def _serve_case(np, rng):
@@ -546,7 +581,7 @@ def _paged_bound_ms(torch, q, kp, tables, lengths, starts, quant) -> float:
     and the cursors, and each distinct pool row that some slot reads, once
     with its scale entries: the union over slots of (page_table[b, p //
     bs], p % bs) for p in [start_b, min(length_b, capacity - 1)]. Slots
-    that share blocks share those rows. Over 3.35 TB/s."""
+    that share blocks share those rows. Over HBM_BYTES_PER_S."""
     pos = torch.arange(tables.shape[1] * BS, device=tables.device)
     valid = ((pos[None, :] >= starts[:, None].long())
              & (pos[None, :] <= lengths[:, None].long()))
@@ -603,8 +638,8 @@ def check_paged(torch, F, ops, *, case, dtype, quant, flush, seed, label):
 
 
 def paged_kernel_phase(torch, F, ops, flush) -> dict:
-    """Kernels C and D over the sweep; returns {kernel: main-path row}
-    with max_abs_err raised to the sweep's worst."""
+    """Kernels C and D over the sweep and the long rows; returns {kernel:
+    main-path row} with max_abs_err raised to the worst row's."""
     import numpy as np
 
     rng = np.random.default_rng(0)
@@ -625,6 +660,14 @@ def paged_kernel_phase(torch, F, ops, flush) -> dict:
                                   label=label)
                 worst[row["kernel"]] = max(worst[row["kernel"]],
                                            row["max_abs_err"])
+    # long contexts, every position valid: C and D at mb = 2048 (32768
+    # positions), C at 4096 (past the old kernel's score buffer)
+    for quant, mb in ((False, 2048), (True, 2048), (False, 4096)):
+        row = check_paged(torch, F, ops, case=_long_case(np, rng, mb),
+                          dtype=torch.bfloat16, quant=quant, flush=flush,
+                          seed=2500 + mb + quant,
+                          label=f"b=1 mb={mb} len={mb * BS - 1}")
+        worst[row["kernel"]] = max(worst[row["kernel"]], row["max_abs_err"])
     main = {}
     for quant, label, case in (
             (False, "serve b=8 mb=20 (paged row)", _serve_case(np, rng)),
@@ -2392,6 +2435,7 @@ def main() -> int:
     from ddp_practice_tpu_torch.ops import flash_attention as fa
     from ddp_practice_tpu_torch.ops import fused_encoder as fe
     from ddp_practice_tpu_torch.ops import grouped_matmul as gm
+    from ddp_practice_tpu_torch.utils.flops import chip_hbm_bandwidth
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2403,6 +2447,12 @@ def main() -> int:
     log(f"card: {smi}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
+    global HBM_BYTES_PER_S
+    HBM_BYTES_PER_S = chip_hbm_bandwidth(torch.cuda.get_device_name(0))
+    if HBM_BYTES_PER_S is None:
+        raise RuntimeError(
+            f"no memory rate for {torch.cuda.get_device_name(0)!r} in "
+            f"utils/flops.chip_hbm_bandwidth: the bytes bounds need it")
     t0 = time.monotonic()
     cuda_build.build(cuda_build.SOURCES)
     log(f"built {SOURCE} (kernels A-D), {FLASH_SOURCE} (E-G, E's variants), "
@@ -2417,6 +2467,7 @@ def main() -> int:
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     log(f"kernel phase, flat cache (b, L, cur, dtype; device times are "
         f"medians of {TIMED_RUNS}):")
+    timing_floor(torch, flush)
     main_rows = kernel_phase(torch, F, ops, flush)
     log(f"kernel phase, paged pool (block {BS}; device times are medians "
         f"of {TIMED_RUNS}):")

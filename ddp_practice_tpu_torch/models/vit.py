@@ -9,8 +9,10 @@ decoder LM too. `EncoderBlock.fused` is the
 reference's tri-state: `True` runs the whole layer as one kernel per
 direction (ops/fused_encoder.py) and raises on a block or a shape the
 kernels do not take; `"auto"` (the models' default) fuses when the block is
-plain, the shape is supported and the input is a CUDA tensor, and takes the
-per-op path otherwise (on the CPU always); `False` never fuses. `ViTEmbed`,
+plain, the shape is supported, the input is a CUDA tensor and one process
+runs (the reference's single-chip gate), and takes the per-op path
+otherwise (on the CPU and under multi-rank DDP always); `False` never
+fuses. `ViTEmbed`,
 `ViTHead`, `ViT`, `ViTTiny` and `ViTBase` are the image classifier: NHWC
 images in, fp32 logits out.
 
@@ -64,6 +66,7 @@ from ddp_practice_tpu_torch.ops.fused_encoder import (
 )
 from ddp_practice_tpu_torch.ops.moe import MoEMlp
 from ddp_practice_tpu_torch.ops.rope import apply_rope
+from ddp_practice_tpu_torch.parallel.dist import process_count
 
 LN_EPS = 1e-6
 
@@ -72,6 +75,10 @@ def dense(x: torch.Tensor, layer: nn.Linear, dtype) -> torch.Tensor:
     """Flax Dense semantics: inputs, kernel and bias promoted to `dtype`."""
     bias = None if layer.bias is None else layer.bias.to(dtype)
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
+def _on_card(x: torch.Tensor) -> bool:
+    return x.device.type == "cuda"
 
 
 def subkey(key: Optional[int], i: int) -> Optional[int]:
@@ -438,10 +445,15 @@ class EncoderBlock(nn.Module):
                     or a.attn_impl != "xla")
 
     def _auto_fuse(self, x, decode: bool) -> bool:
-        """fused="auto": a plain block, a shape the kernels take, and a
-        CUDA tensor (on the CPU the fused layer is its plain version, slower
-        than the per-op path: auto never picks it)."""
-        if not self._plain_block(decode) or x.device.type != "cuda":
+        """fused="auto": a plain block, a shape the kernels take, a CUDA
+        tensor (on the CPU the fused layer is its plain version, slower
+        than the per-op path: auto never picks it) and one process. The
+        last is the reference's `single_chip_tpu()` gate
+        (ddp_practice_tpu/parallel/ring.py), whose device count is the
+        world size here: under multi-rank DDP auto takes the per-op path,
+        and `fused=True` (`--fused on`) still forces the kernels."""
+        if (not self._plain_block(decode) or not _on_card(x)
+                or process_count() > 1):
             return False
         return fused_shape_supported(
             seq_len=x.shape[1], d=x.shape[2], mlp_dim=self.mlp_dim,

@@ -26,8 +26,16 @@ Bound: HBM bytes. A step must read every valid key and value row once,
 2 * sum_b (last_b - start_b + 1) * h * hd * bytes_per_elem, plus 2 * 4
 bytes per valid position and head of scales for int8, over 3.35 TB/s on
 an H100 SXM; paged slots that share blocks share those rows, counted
-once. The kernels read only the valid range; see the source for the
-design.
+once. The kernels read only the valid range, split over the cache:
+`_split_plan` picks (splits, chunk, span) from host-known ints only
+(flat: cur + 1; paged: the capacity mb * block_size), persistent blocks
+walk the (split, batch, head) items, a range of at most `span` keys is
+one split, and the last split of a longer one merges the partials in
+the same launch (see the source for the design). At S > 1 the wrapper
+allocates the (b, h, S, d + 2) fp32 partials with `torch.empty` and
+passes a per-device int32 counter buffer (`_counters`), zeroed once when
+allocated and left at zero by every launch; calls that share it are
+ordered on one stream, as the engines issue them.
 
 On a CPU tensor a wrapper runs the plain PyTorch version of its kernels'
 arithmetic (`decode_attention_plain`, `paged_decode_attention_plain`); the
@@ -44,6 +52,7 @@ counts kernel launches per kernel name.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional
 
 import torch
@@ -62,7 +71,7 @@ LAUNCHES = {"decode_attention": 0, "decode_attention_int8": 0,
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ERRORS = {
     -1: "head_dim not compiled (64, 128 or 256)",
-    -2: "valid span too long for the score buffer in shared memory",
+    -2: "split plan outside the kernel's shared memory or grid",
     -3: "unsupported dtype combination",
 }
 
@@ -70,6 +79,163 @@ _ERRORS = {
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+# ------------------------------------------------------------ the split plan
+# csrc/decode_attention.cu's block: 8 warps; `_key_group` and `_smem_bytes`
+# mirror its `Layout<TKV, D>::NGROUPS` and `Smem::total`
+_WARPS = 8
+_THREADS = 32 * _WARPS
+_RED_FLOATS = 40
+_SMS = 132                       # the H100 SXM's streaming multiprocessors
+_SMEM_PER_SM = 233472            # its shared memory an SM (228 KB)
+_SMEM_RESERVED = 1024            # the runtime's share of each block
+_BLOCKS_PER_SM = 4               # 64 registers a thread x 256 threads
+_SPLIT_SMEM = 112 * 1024         # a split's shared memory: two blocks an SM
+_MIN_SPLIT_BYTES = 32 * 1024     # K and V rows a split moves at least
+_SHORT_BYTES = 64 * 1024         # K and V rows a split holds at least
+_BLOCK_COST = 64 * 1024          # an item's latency, in bytes an SM streams
+_COMBINE_COST = 32 * 1024        # the combine's round trips, the same
+_MAX_SMEM = 232448               # a block's opt-in shared memory (227 KB)
+
+
+def _key_group(d: int, kv_bytes: int) -> int:
+    """Keys a block covers per step: a lane group reads one key row in
+    16-byte loads (at most 32 lanes a group), 8 warps side by side."""
+    lanes = min(d * kv_bytes // 16, 32)
+    return _WARPS * (32 // lanes)
+
+
+def _smem_bytes(span: int, d: int, kv_bytes: int, quant: bool,
+                bs: int = 0) -> int:
+    """Shared memory of a split holding up to `span` keys (the .cu's
+    `Smem::total`): K and V rows, int8 scales, scores, reductions, the
+    per-warp sums (or the combine's lanes) and, paged, the staged table
+    entries."""
+    total = span * (2 * d * kv_bytes + 4 + (8 if quant else 0))
+    total += 4 * (_RED_FLOATS + max(_WARPS * d, 4 * _THREADS))
+    return total + (4 * (span // bs + 2) if bs else 0)
+
+
+def _plan_cost(n: int, bh: int, chunk: int, span: int, *, d: int,
+               kv_bytes: int, quant: bool, bs: int = 0,
+               sms: int = _SMS) -> float:
+    """The plan's model of a launch over a full range, in bytes one SM
+    streams: each round of the persistent blocks' items pays `_BLOCK_COST`
+    of latency plus the rows of the items that share its busiest SM;
+    several splits add the combine."""
+    splits, rows = (-(-n // chunk), chunk) if n > span else (1, n)
+    blocks = bh * splits
+    per_sm = min(_BLOCKS_PER_SM, _SMEM_PER_SM // (
+        _smem_bytes(span, d, kv_bytes, quant, bs) + _SMEM_RESERVED))
+    waves = -(-blocks // (sms * per_sm))
+    share = min(per_sm, -(-blocks // sms))
+    cost = waves * (_BLOCK_COST + share * rows * 2 * d * kv_bytes)
+    return cost + (_COMBINE_COST if splits > 1 else 0)
+
+
+def _split_plan(n: int, bh: int, *, d: int, kv_bytes: int, quant: bool,
+                bs: int = 0, sms: int = _SMS, whole: bool = False) -> tuple:
+    """(splits, chunk, span) for ranges within positions [0, n) of `bh`
+    (batch, head) pairs, from host-known ints only (flat: n = cur + 1;
+    paged: n = the capacity mb * bs, with `bs` the block size), never from
+    the device cursors. A (batch, head)'s valid keys go to one split when
+    there are at most `span` (the keys a split's shared memory holds),
+    else to splits of `chunk` keys from its first valid key on; `splits` =
+    ceil(n / chunk) covers the longest range.
+
+    - n within `_SPLIT_SMEM` (~112 KB of K and V rows, two blocks an SM):
+      one split, span n (the serve shapes: no combine). So too when the
+      pairs' blocks already cover half the SMs (2 * bh >= sms) and a
+      block's shared memory (227 KB) holds n: one block a (batch, head),
+      as the TPU kernel's grid has, and a split would add the combine's
+      round trips to each long range.
+    - Else a chunk is a multiple of the block's key group; paged, of `bs`
+      too (or, for a page larger than a split, a divisor of it). It holds
+      at least `_MIN_SPLIT_BYTES` of K and V rows (else a split is only
+      launch latency), and the span at least `_SHORT_BYTES`, so a short
+      range is still one split. The plan takes the chunk of least
+      `_plan_cost` over a full range (rounds of the persistent blocks'
+      items, at the occupancy the span's shared memory allows, against
+      the rows each SM streams), the smaller chunk on a tie: batch 1
+      splits into about a wave of blocks.
+    - `whole`: one split wherever a block's shared memory holds the
+      range, at any bh. Kernel C with fp32 queries over a bf16 pool rounds
+      p to bf16 inside an fp32 result; a split's max would move that
+      rounding off the plain version's, so it splits only a range too
+      long for one block.
+    No n is refused: a longer range is more splits."""
+    if n < 1 or bh < 1:
+        raise ValueError(f"empty plan: n={n}, bh={bh}")
+
+    def fits(chunk, limit=_SPLIT_SMEM):
+        return _smem_bytes(chunk, d, kv_bytes, quant, bs) <= limit
+
+    def keys(nbytes):   # the unit multiple holding nbytes of K and V rows
+        return -(-nbytes // (2 * d * kv_bytes * unit)) * unit
+
+    unit, grow = _key_group(d, kv_bytes), True
+    one = -(-n // unit) * unit
+    if (whole or 2 * bh >= sms) and fits(one, _MAX_SMEM):
+        return 1, one, one
+    if bs:
+        unit = unit * bs // math.gcd(unit, bs)       # whole pages
+        if not fits(unit):
+            unit = bs
+        if not fits(bs):             # a page too large: splits inside it
+            unit = max(u for u in range(8, bs, 8) if bs % u == 0 and fits(u))
+            grow = False
+    top = unit
+    while grow and fits(top + unit) and top < n:
+        top += unit
+    if n <= top:
+        return 1, top, top
+    short = min(top, keys(_SHORT_BYTES))
+
+    def cost(chunk):
+        return _plan_cost(n, bh, chunk, max(chunk, short), d=d,
+                          kv_bytes=kv_bytes, quant=quant, bs=bs, sms=sms)
+
+    chunk = min(range(min(top, keys(_MIN_SPLIT_BYTES)), top + 1, unit),
+                key=lambda c: (cost(c), c))
+    return -(-n // chunk), chunk, max(chunk, short)
+
+
+def _plan_args(plan, n):
+    """(splits, chunk, span) of a plan; a (splits, chunk) override holds
+    chunk keys a split. Its splits must cover the longest range."""
+    splits, chunk, span = (*plan, plan[1])[:3]
+    if splits * chunk < n and n > span:
+        raise ValueError(f"plan {plan} does not cover {n} positions")
+    return splits, chunk, span
+
+
+_COUNTERS: dict = {}   # device -> int32 arrival counters, zero between calls
+
+
+def _counters(device, n: int) -> torch.Tensor:
+    """At least `n` arrival counters on `device`: zeroed once when
+    allocated (or grown), left at zero by every launch."""
+    buf = _COUNTERS.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(n, dtype=torch.int32, device=device)
+        _COUNTERS[device] = buf
+    return buf
+
+
+def _scratch(q, n_heads, d, splits):
+    """One launch's (b, h, S, d + 2) fp32 partials and its arrival counters
+    (None, None at S = 1)."""
+    if splits == 1:
+        return None, None
+    b = q.shape[0]
+    part = torch.empty((b, n_heads, splits, d + 2), dtype=torch.float32,
+                       device=q.device)
+    return part, _counters(q.device, b * n_heads)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def _check_call(q, k_cache, n_heads, k_scale, v_scale):
@@ -167,7 +333,9 @@ def _check_tensor(name, t, dtypes, shape, align=16):
 
 
 def _launch(q, k_cache, v_cache, cur, attn_start, n_heads, d,
-            k_scale, v_scale):
+            k_scale, v_scale, plan=None):
+    """Launch kernel A or B. `plan` (splits, chunk) overrides
+    `_split_plan` (measurement and the card tests)."""
     b, _, hd_total = q.shape
     L = k_cache.shape[1]
     if not 0 <= cur < L:
@@ -188,23 +356,28 @@ def _launch(q, k_cache, v_cache, cur, attn_start, n_heads, d,
     if quant:
         for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
             _check_tensor(name, t, (torch.float32,), (b, n_heads, L))
+    splits, chunk, span = _plan_args(plan or _split_plan(
+        cur + 1, b * n_heads, d=d, kv_bytes=k_cache.element_size(),
+        quant=quant), cur + 1)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     scale = _scales(d, q.dtype)[0]
     lib = _library()
     with torch.cuda.device(q.device):
+        part, count = _scratch(q, n_heads, d, splits)
         if quant:
             rc = lib.decode_attention_int8(
                 q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                 k_scale.data_ptr(), v_scale.data_ptr(), out.data_ptr(),
-                start_ptr, b, L, n_heads, d, cur, scale,
-                _DTYPE_CODE[q.dtype], stream,
+                start_ptr, _ptr(part), _ptr(count), b, L, n_heads, d, cur,
+                splits, chunk, span, scale, _DTYPE_CODE[q.dtype], stream,
             )
             name = "decode_attention_int8"
         else:
             rc = lib.decode_attention(
                 q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                out.data_ptr(), start_ptr, b, L, n_heads, d, cur, scale,
+                out.data_ptr(), start_ptr, _ptr(part), _ptr(count), b, L,
+                n_heads, d, cur, splits, chunk, span, scale,
                 _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_cache.dtype], stream,
             )
             name = "decode_attention"
@@ -213,7 +386,8 @@ def _launch(q, k_cache, v_cache, cur, attn_start, n_heads, d,
             f"{name} launch failed: "
             + _ERRORS.get(rc, f"cudaError_t {rc}")
             + f" (b={b}, L={L}, h={n_heads}, d={d}, cur={cur}, "
-              f"q {q.dtype}, cache {k_cache.dtype})"
+              f"splits={splits}x{chunk} (span {span}), q {q.dtype}, cache "
+              f"{k_cache.dtype})"
         )
     LAUNCHES[name] += 1
     return out
@@ -363,11 +537,12 @@ def paged_decode_attention_plain(q, k_pages, v_pages, page_table, lengths,
 
 
 def _launch_paged(q, k_pages, v_pages, page_table, lengths, attn_start,
-                  n_heads, d, k_scale, v_scale):
+                  n_heads, d, k_scale, v_scale, plan=None):
     """Launch kernel C or D. Shapes, dtypes and devices are checked here;
     the cursors' VALUES are device data that the kernel reads itself (no
-    host sync), so the shared-memory score buffer is sized from the
-    host-known per-slot capacity mb * block_size."""
+    host sync), so the splits cover the host-known per-slot capacity
+    mb * block_size and a split past a slot's cursor loads nothing.
+    `plan` (splits, chunk) overrides `_split_plan`."""
     b, _, hd_total = q.shape
     nb, bs = k_pages.shape[:2]
     mb = page_table.shape[1]
@@ -393,25 +568,34 @@ def _launch_paged(q, k_pages, v_pages, page_table, lengths, attn_start,
         if t.device != q.device:
             raise ValueError(f"a paged operand is on {t.device}, q on "
                              f"{q.device}")
+    if mb * bs >= 2 ** 31:
+        raise ValueError(f"per-slot capacity {mb}x{bs} past int32")
+    splits, chunk, span = _plan_args(plan or _split_plan(
+        mb * bs, b * n_heads, d=d, kv_bytes=k_pages.element_size(),
+        quant=quant, bs=bs, whole=not quant and k_pages.dtype != q.dtype),
+        mb * bs)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     scale = _scales(d, q.dtype)[0]
     lib = _library()
     with torch.cuda.device(q.device):
+        part, count = _scratch(q, n_heads, d, splits)
         if quant:
             rc = lib.paged_decode_attention_int8(
                 q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                 k_scale.data_ptr(), v_scale.data_ptr(), out.data_ptr(),
                 page_table.data_ptr(), lengths.data_ptr(), start_ptr,
-                b, bs, mb, n_heads, d, scale, _DTYPE_CODE[q.dtype], stream,
+                _ptr(part), _ptr(count), b, bs, mb, n_heads, d, splits,
+                chunk, span, scale, _DTYPE_CODE[q.dtype], stream,
             )
             name = "paged_decode_attention_int8"
         else:
             rc = lib.paged_decode_attention(
                 q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                 out.data_ptr(), page_table.data_ptr(), lengths.data_ptr(),
-                start_ptr, b, bs, mb, n_heads, d, scale,
-                _DTYPE_CODE[q.dtype], _DTYPE_CODE[k_pages.dtype], stream,
+                start_ptr, _ptr(part), _ptr(count), b, bs, mb, n_heads, d,
+                splits, chunk, span, scale, _DTYPE_CODE[q.dtype],
+                _DTYPE_CODE[k_pages.dtype], stream,
             )
             name = "paged_decode_attention"
     if rc != 0:
@@ -419,7 +603,8 @@ def _launch_paged(q, k_pages, v_pages, page_table, lengths, attn_start,
             f"{name} launch failed: "
             + _ERRORS.get(rc, f"cudaError_t {rc}")
             + f" (b={b}, blocks={nb}x{bs}, mb={mb}, h={n_heads}, d={d}, "
-              f"q {q.dtype}, pool {k_pages.dtype})"
+              f"splits={splits}x{chunk} (span {span}), q {q.dtype}, pool "
+              f"{k_pages.dtype})"
         )
     LAUNCHES[name] += 1
     return out
@@ -434,16 +619,16 @@ def _library() -> ctypes.CDLL:
     if not getattr(lib, "_signatures_set", False):
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.decode_attention.argtypes = [
-            P, P, P, P, P, I, I, I, I, I, F, I, I, P]
+            P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, I, I, P]
         lib.decode_attention.restype = I
         lib.decode_attention_int8.argtypes = [
-            P, P, P, P, P, P, P, I, I, I, I, I, F, I, P]
+            P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, I, P]
         lib.decode_attention_int8.restype = I
         lib.paged_decode_attention.argtypes = [
-            P, P, P, P, P, P, P, I, I, I, I, I, F, I, I, P]
+            P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, I, I, P]
         lib.paged_decode_attention.restype = I
         lib.paged_decode_attention_int8.argtypes = [
-            P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, I, P]
+            P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, I, P]
         lib.paged_decode_attention_int8.restype = I
         lib._signatures_set = True
     return lib

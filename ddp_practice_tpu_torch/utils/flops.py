@@ -1,5 +1,7 @@
-"""Analytic FLOP counts and the card's peak rate, for MFU (counterpart of
-ddp_practice_tpu/utils/flops.py, the LM and ViT parts).
+"""Analytic FLOP counts and the card's peak rate, for MFU, and its
+device-memory bandwidth, for bytes bounds (counterpart of
+ddp_practice_tpu/utils/flops.py: the LM and ViT parts, `chip_peak_flops`
+and `chip_hbm_bandwidth`).
 
 MFU is the model's analytic training FLOPs per step (3x forward: backward
 ~= 2x forward, the standard accounting) over the measured step time and
@@ -76,3 +78,17 @@ def chip_peak_flops(device_name: str) -> Optional[float]:
     """Peak dense bf16 FLOP/s for `torch.cuda.get_device_name()`, or None
     for a card (or the CPU) the table does not know."""
     return _PEAK_BF16.get(device_name.strip())
+
+
+# Device-memory bandwidth by the name torch.cuda reports (bytes/s): the
+# roofline of decode attention, which streams the KV cache once a step.
+# H100 SXM5: 3.35 TB/s of HBM3 (NVIDIA H100 Tensor Core GPU data sheet).
+_HBM_BYTES = {
+    "NVIDIA H100 80GB HBM3": 3.35e12,
+}
+
+
+def chip_hbm_bandwidth(device_name: str) -> Optional[float]:
+    """Device-memory bytes/s for `torch.cuda.get_device_name()`, or None
+    for a card (or the CPU) the table does not know."""
+    return _HBM_BYTES.get(device_name.strip())

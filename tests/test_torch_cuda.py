@@ -16,7 +16,13 @@ tests, and a GPU host of the port need not have JAX installed.)
 chip_smoke.py holds the kernels at lm_base shapes; these cover what it
 does not: every compiled head_dim (64, 128, 256), fp32 queries over a
 bf16 cache or pool, empty valid ranges, shared blocks, garbage-block
-rows, cursors past the per-slot capacity, and the wrappers' refusals.
+rows, cursors past the per-slot capacity, and the wrappers' refusals;
+the split over the cache at forced plans and at ranges the old kernel
+refused (L = 65536), its arrival counters across calls, and kernel C
+with fp32 queries over a bf16 pool at S > 1 against the split schedule's
+torch emulation (tests/_decode_split.py), which rounds p to bf16 at the
+same points (the plain version's exact max moves that bf16 rounding, so
+against it the bf16 limit holds).
 
 Tolerance: fp32 2e-5 (the reference decode-attention tests). bf16
 |err| <= 1.6e-2 + 2^-7 |ref|: kernel and plain version round at the same
@@ -156,13 +162,12 @@ def test_wrapper_refusals(card):
         ops.decode_attention_packed(q, kc[:, ::2], vc[:, ::2], 5, n_heads=2)
     with pytest.raises(ValueError, match="dtype"):
         ops.decode_attention_packed(q, kc.half(), vc.half(), 5, n_heads=2)
-    # a span whose scores overflow shared memory is refused at launch
+    # a span the old kernel's shared-memory score buffer refused runs now,
+    # in splits
     L = 60_000
-    big = torch.zeros((1, L, 256), device="cuda")
-    with pytest.raises(RuntimeError, match="too long"):
-        ops.decode_attention_packed(torch.zeros((1, 1, 256), device="cuda"),
-                                    big, big, L - 1, n_heads=1,
-                                    impl="kernel")
+    q, kc, vc, starts, _ = _inputs(1, L, 1, 256, L - 1, torch.float32,
+                                   torch.float32, seed=3)
+    _check(q, kc, vc, L - 1, starts, 1, {})
 
 
 # ------------------------------------------------------------------- paged
@@ -254,11 +259,9 @@ def test_paged_wrapper_refusals_and_routing(card):
         ops.paged_decode_attention(q, kp, vp, pt, lengths, n_heads=2,
                                    k_scale=torch.ones((40, 2, 16),
                                                       device="cuda"))
-    # a per-slot capacity whose scores overflow shared memory is refused
-    wide = torch.zeros((4, 4000), dtype=torch.int32, device="cuda")
-    with pytest.raises(RuntimeError, match="too long"):
-        ops.paged_decode_attention(q, kp, vp, wide, lengths, n_heads=2,
-                                   impl="kernel")
+    # a per-slot capacity the old kernel's score buffer refused runs now
+    wide = torch.randint(1, 40, (4, 4000), dtype=torch.int32, device="cuda")
+    _check_paged(q, kp, vp, wide, lengths + 50_000, starts, 2, {})
     # unpackable heads (head_dim 16): "kernel" refuses, "auto" takes the
     # gather reference and launches nothing
     q16 = torch.randn((4, 1, 64), device="cuda")
@@ -273,6 +276,120 @@ def test_paged_wrapper_refusals_and_routing(card):
                                          n_heads=4)
     assert ops.LAUNCHES == before
     torch.testing.assert_close(out, want)
+
+
+# ------------------------------------------------------- the split plan
+DTYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+          (torch.float32, torch.bfloat16), (torch.float32, torch.int8),
+          (torch.bfloat16, torch.int8)]
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype", DTYPES)
+@pytest.mark.parametrize("b,L,h,d,cur,plan", [
+    (1, 65536, 2, 64, 65535, None),      # refused by the old kernel
+    (3, 2000, 4, 64, 1999, (8, 256)),
+    (2, 3000, 2, 128, 2047, (33, 64)),   # splits past cur, empty
+    (2, 700, 1, 256, 699, (15, 48)),
+])
+def test_kernel_splits_match_plain(card, b, L, h, d, cur, plan, q_dtype,
+                                   kv_dtype):
+    from _decode_split import flat_split_emulated
+
+    q, kc, vc, starts, scales = _inputs(b, L, h, d, cur, q_dtype, kv_dtype,
+                                        seed=L + d)
+    for st in (starts, None):
+        got = ops._launch(q, kc, vc, cur, st, h, d, scales.get("k_scale"),
+                          scales.get("v_scale"), plan=plan)
+        want = ops.decode_attention_plain(q, kc, vc, cur, st, n_heads=h,
+                                          **scales)
+        atol, rtol = TOL[q_dtype]
+        torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                   rtol=rtol)
+        emu = flat_split_emulated(
+            q, kc, vc, cur, st, plan or ops._split_plan(
+                cur + 1, b * h, d=d, kv_bytes=kc.element_size(),
+                quant=bool(scales)), n_heads=h, **scales)
+        torch.testing.assert_close(got.float(), emu.float(), atol=atol,
+                                   rtol=rtol)
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype", DTYPES)
+@pytest.mark.parametrize("mb,plan", [(4096, None), (8, (8, 16)),
+                                     (8, (3, 48))])
+def test_paged_kernel_splits_match_plain(card, mb, plan, q_dtype, kv_dtype):
+    """mb = 4096 (65536 positions a slot) was refused by the old kernel.
+    fp32 queries over a bf16 pool round p to bf16 against each split's
+    max: held to the fp32 limit against the split emulation, to the bf16
+    limit against the plain version."""
+    from _decode_split import paged_split_emulated
+
+    q, kp, vp, pt, lengths, starts, scales = _paged_inputs(
+        2, 64, q_dtype, kv_dtype, seed=mb, mb=mb)
+    if mb > 8:
+        lengths = torch.tensor([37, 40_000, mb * 16 + 5, 0],
+                               dtype=torch.int32, device="cuda")
+        starts = torch.tensor([3, 30_000, 20, 0], dtype=torch.int32,
+                              device="cuda")
+    for st in (starts, None):
+        got = ops._launch_paged(q, kp, vp, pt, lengths, st, 2, 64,
+                                scales.get("k_scale"), scales.get("v_scale"),
+                                plan=plan)
+        full = ops._plan_args(plan or ops._split_plan(
+            mb * 16, 4 * 2, d=64, kv_bytes=kp.element_size(),
+            quant=bool(scales), bs=16,
+            whole=kv_dtype == torch.bfloat16 != q_dtype), mb * 16)
+        emu = paged_split_emulated(q, kp, vp, pt, lengths, st, full,
+                                   n_heads=2, **scales)
+        want = ops.paged_decode_attention_plain(q, kp, vp, pt, lengths, st,
+                                                n_heads=2, **scales)
+        atol, rtol = TOL[q_dtype]
+        torch.testing.assert_close(got.float(), emu.float(), atol=atol,
+                                   rtol=rtol)
+        if kv_dtype == torch.bfloat16 != q_dtype and full[0] > 1:
+            atol, rtol = TOL[torch.bfloat16]
+        torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                   rtol=rtol)
+
+
+def test_split_counters_reset_and_grow(card):
+    """The arrival counters: two calls in a row, a larger b*h (the buffer
+    grows), a smaller one after it; every launch leaves them at zero."""
+    for b, h in ((1, 2), (1, 2), (8, 4), (2, 2), (8, 4)):
+        q, kc, vc, starts, _ = _inputs(b, 1500, h, 64, 1499, torch.float32,
+                                       torch.float32, seed=b * h)
+        got = ops._launch(q, kc, vc, 1499, starts, h, 64, None, None,
+                          plan=(12, 128))
+        want = ops.decode_attention_plain(q, kc, vc, 1499, starts,
+                                          n_heads=h)
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+        count = ops._COUNTERS[q.device]
+        assert count.numel() >= b * h
+        assert not count.any()
+
+
+@pytest.mark.parametrize("plan", [(1, 64), (4, 16)])
+def test_split_empty_ranges_give_zeros_and_launch_is_counted(card, plan):
+    q, kc, vc, _, _ = _inputs(2, 64, 2, 64, 40, torch.float32,
+                              torch.float32, seed=9)
+    starts = torch.tensor([41, 3], dtype=torch.int32, device="cuda")
+    before = ops.LAUNCHES["decode_attention"]
+    out = ops._launch(q, kc, vc, 40, starts, 2, 64, None, None, plan=plan)
+    assert ops.LAUNCHES["decode_attention"] == before + 1
+    assert torch.count_nonzero(out[0]) == 0
+    want = ops.decode_attention_plain(q, kc, vc, 40, starts, n_heads=2)
+    torch.testing.assert_close(out, want, atol=2e-5, rtol=2e-5)
+    q, kp, vp, pt, lengths, _, _ = _paged_inputs(2, 64, torch.float32,
+                                                 torch.float32, seed=10)
+    starts = torch.tensor([40, 200, 0, 1], dtype=torch.int32, device="cuda")
+    before = ops.LAUNCHES["paged_decode_attention"]
+    out = ops._launch_paged(q, kp, vp, pt, lengths, starts, 2, 64, None,
+                            None, plan=(2 * plan[0], 64 // plan[0]))
+    assert ops.LAUNCHES["paged_decode_attention"] == before + 1
+    assert torch.count_nonzero(out[:2]) == 0
+    assert torch.count_nonzero(out[3]) == 0
+    want = ops.paged_decode_attention_plain(q, kp, vp, pt, lengths, starts,
+                                            n_heads=2)
+    torch.testing.assert_close(out, want, atol=2e-5, rtol=2e-5)
 
 
 # ------------------------------------------------------------------- flash

@@ -15,6 +15,12 @@ Tolerance: fp32 at 2e-5, the reference tests' own
 scales into the score and probability rows as `_paged_kernel_quant`
 does, while the gather reference dequantizes first; in fp32 the two
 differ by rounding only, inside the same 2e-5.
+
+The kernels' split over each slot's capacity runs here as its torch
+emulation (tests/_decode_split.py) at several plans: whole-page chunks,
+splits past a slot's cursor, a garbage-block row, attn_start in a later
+split, a cursor on a chunk edge. bf16 at |err| <= 1.6e-2 + 2^-7 |ref|
+(chip_smoke.py's BF16_TOL): each split rounds p against its own max.
 """
 
 import jax.numpy as jnp
@@ -27,8 +33,10 @@ from ddp_practice_tpu.ops.decode_attention import (
     paged_attention_reference as jax_paged_reference,
     paged_decode_attention as jax_paged,
 )
+from _decode_split import paged_split_emulated
 from ddp_practice_tpu_torch.ops.decode_attention import (
     LAUNCHES,
+    _split_plan,
     gather_pages,
     paged_attention_reference,
     paged_decode_attention,
@@ -40,6 +48,7 @@ NB, BS, MB = 12, 16, 4
 LENGTHS = np.asarray([0, 37, 63], np.int32)
 STARTS = np.asarray([2, 0, 17], np.int32)
 TOL = dict(rtol=2e-5, atol=2e-5)
+BF16_TOL = dict(rtol=2.0 ** -7, atol=1.6e-2)
 
 
 def _inputs(seed, quant=False, h=H, d=HD):
@@ -178,3 +187,64 @@ def test_kernel_needs_a_cuda_tensor_and_a_card():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA device"):
             load_library("decode_attention")
+
+
+# (plan (splits, chunk) or None for `_split_plan`'s, lengths, attn_start):
+# capacity MB * BS = 64 positions a slot
+SPLIT_CASES = [
+    ((4, 16), LENGTHS, STARTS),
+    ((2, 32), [31, 32, 63], [0, 32, 40]),   # cursors on a chunk edge
+    ((4, 16), [20, 63, 63], [17, 50, 0]),   # starts in later splits
+    ((1, 64), [5, 37, 70], [0, 0, 3]),      # a cursor past the capacity
+    (None, [0, 37, 63], [0, 0, 17]),
+]
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("plan,lengths,starts", SPLIT_CASES)
+def test_split_schedule_matches_plain_and_jax_kernel(plan, lengths, starts,
+                                                     quant):
+    q, kp, vp, pt, ks, vs = _inputs(21 + quant, quant)
+    pt[0] = 0          # slot 0: a garbage-block row (block 0)
+    lengths = np.asarray(lengths, np.int32)
+    start = np.asarray(starts, np.int32)
+    args = (q, kp, vp, pt, lengths, start)
+    plan = plan or _split_plan(MB * BS, B * H, d=HD, kv_bytes=1 if quant
+                               else 4, quant=quant, bs=BS)
+    tkw = dict(n_heads=H, k_scale=_t(ks), v_scale=_t(vs))
+    got = paged_split_emulated(*map(_t, args), plan, **tkw).numpy()
+    want = paged_decode_attention_plain(*map(_t, args), **tkw).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    kern = np.asarray(jax_paged(*map(_j, args), impl="kernel", n_heads=H,
+                                k_scale=_j(ks), v_scale=_j(vs)))
+    live = start <= np.minimum(lengths, MB * BS - 1)
+    np.testing.assert_allclose(got[live], kern[live], **TOL)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_split_schedule_bf16_matches_plain(quant):
+    q, kp, vp, pt, ks, vs = _inputs(31, quant)
+    t = torch.from_numpy
+    q16 = t(q).bfloat16()
+    kp16, vp16 = (t(kp), t(vp)) if quant else (t(kp).bfloat16(),
+                                               t(vp).bfloat16())
+    args = (q16, kp16, vp16, t(pt), t(np.asarray([9, 40, 63], np.int32)),
+            t(np.asarray([0, 17, 30], np.int32)))
+    kw = dict(n_heads=H, k_scale=_t(ks), v_scale=_t(vs))
+    want = paged_decode_attention_plain(*args, **kw)
+    for plan in ((1, 64), (2, 32), (4, 16)):
+        got = paged_split_emulated(*args, plan, **kw)
+        assert got.dtype == torch.bfloat16
+        torch.testing.assert_close(got.float(), want.float(), **BF16_TOL)
+
+
+def test_split_schedule_empty_ranges_give_zeros():
+    """Slots whose attn_start passes their cursor have every split empty:
+    zeros, as the plain version gives."""
+    q, kp, vp, pt, _, _ = _inputs(41)
+    args = (q, kp, vp, pt, np.asarray([5, 37, 63], np.int32),
+            np.asarray([6, 40, 0], np.int32))
+    got = paged_split_emulated(*map(_t, args), (4, 16), n_heads=H).numpy()
+    assert not got[:2].any()
+    want = paged_decode_attention_plain(*map(_t, args), n_heads=H).numpy()
+    np.testing.assert_allclose(got, want, **TOL)

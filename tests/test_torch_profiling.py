@@ -144,3 +144,18 @@ def test_a_failing_step_closes_the_trace(tmp_path):
         trainer.train_epoch(0)
     assert profiling._active is None
     assert _steps_in(tmp_path / "trace") == [0, 1, 2]
+
+
+def test_decode_profile_runs_the_generate_path_on_the_cpu():
+    """experiments/decode_profile at lm_tiny on the CPU: one profiled
+    generate call through `make_generate_fn`, summarised from the host's
+    ops (the card run summarises device kernels instead)."""
+    from ddp_practice_tpu_torch.experiments import decode_profile
+
+    torch.set_num_threads(1)
+    out = decode_profile.main(
+        1, 2, model_name="lm_tiny", device="cpu", prompt_len=4, top=3,
+        vocab_size=64, max_len=16, hidden_dim=128, num_heads=2, depth=1,
+        mlp_dim=128)
+    assert out["tokens"].shape == (1, 6)
+    assert set(out["shares"]) == {"cpu_op"} and out["host_ms"] > 0

@@ -236,6 +236,23 @@ def test_auto_takes_the_per_op_path_on_the_cpu(monkeypatch):
         EncoderBlock(128, 2, 128, fused=True)(x)
 
 
+@pytest.mark.parametrize("world,fuses", [(1, True), (2, False)])
+def test_auto_fuses_on_one_process_only(monkeypatch, world, fuses):
+    """fused="auto" on a (stubbed) CUDA tensor fuses at world size 1 and
+    takes the per-op path at 2, as the reference's `single_chip_tpu()`
+    gate keeps a multi-device run off the kernel; fused=True still
+    forces it."""
+    monkeypatch.setattr(vit_module, "_on_card", lambda x: True)
+    monkeypatch.setattr(vit_module, "process_count", lambda: world)
+    x = torch.randn(2, 16, 128)
+    assert EncoderBlock(128, 2, 128)._auto_fuse(x, decode=False) is fuses
+    assert not EncoderBlock(128, 2, 128)._auto_fuse(x, decode=True)
+    forced = EncoderBlock(128, 2, 128, fused=True)
+    monkeypatch.setattr(vit_module, "fused_encoder_layer",
+                        lambda *a, **k: torch.zeros_like(x))
+    assert not forced(x).any()
+
+
 def test_registry_names_the_fused_capable_models():
     assert all(accepts_fused(n) for n in ("vit_tiny", "vit_base", "lm_tiny",
                                           "LM_BASE"))
