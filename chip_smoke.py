@@ -63,10 +63,12 @@ Phases, each of which raises on failure (nothing is caught and passed):
    its autograd backward; the port never calls it) device times and the
    bound, forward and backward apart; the backward also as its two
    launches timed alone, G (dq and the delta scratch) and F (dk, dv);
-8b. flash variants (row #12, the reference's ablations of E): v2 (causal
+8b. flash variants (row #12, the reference's ablations of E, each E's
+   body with one lever changed): each variant kernel's ptxas line and
+   footprint (shared memory, threads, blocks an SM); v2 (causal
    and not), v3, v4, v5 at 2 and 4 heads per block and nomax against their
    plain versions at lm_base (b*h = 96, s = 2048, d = 64, bf16) on the
-   kernel's own 64 x 64 tiles (out at the flash bf16 limits, lse 1e-4, or
+   kernel's own 64-key tiles (out at the flash bf16 limits, lse 1e-4, or
    2^-8 where l sums the rounded p; for v3 and v5 the mean lse error
    against their own plain version stays under a tenth of its mean
    distance from plain v2, which sums fp32 p), and fwd4d (kernel E's
@@ -74,7 +76,9 @@ Phases, each of which raises on failure (nothing is caught and passed):
    with the fold-and-transpose path logged beside; kernel, plain (the
    reference's 512 x 1024 blocks) and library flash
    (SDPBackend.FLASH_ATTENTION; the port never calls it) device times and
-   the bound. Then the slice's main path: the `main()` of
+   the bound, and each variant's time over kernel E's on the same
+   operands (folded, causal or not). Then the slice's main path: the
+   `main()` of
    experiments/flash_variants, flash_ablate, flash_4d, flash_profile and
    flash_time, each with the launch counts zeroed just before and read
    just after; the variants' launches in flash_variants and flash_ablate,
@@ -836,6 +840,8 @@ def kernel_resources(cuda_build, fa, gm, fe) -> None:
     (`tgmm_wg_kernel<BN, F32OUT>`) per tile width, H
     (`fused_encoder_fwd_wg_kernel<D>`) at the ViT-Tiny and causal LM
     layers."""
+    variants = {fa.fwd_kernel_name(64, nh, fa.VARIANTS[v][0])
+                for _, v, nh in VARIANT_ROWS}
     for source, prefixes in (("flash_attention", ("flash_fwd_tc_",
                                                   "flash_bwd_")),
                              ("grouped_matmul", ("gmm_kernel<",
@@ -844,7 +850,8 @@ def kernel_resources(cuda_build, fa, gm, fe) -> None:
         found = cuda_build.kernel_resources(
             cuda_build.ptxas_info.get(source, ""))
         for name, lines in found.items():
-            if name.startswith(prefixes):
+            # the variants' lines come with their phase (variant_resources)
+            if name.startswith(prefixes) and name not in variants:
                 log(f"  ptxas {name}: " + "; ".join(
                     line.split(":", 1)[-1].strip() for line in lines))
     for d in (32, 64, 128, 256):
@@ -921,7 +928,7 @@ def _library_flash(torch, F, q, k, v, causal):
 def check_variant(torch, F, fa, *, name, variant, n_heads, causal, q, k, v,
                   flush, v2_lse):
     """One forward variant at lm_base against its plain version on the
-    kernel's own 64 x 64 tiles (the same running max): out at the flash
+    kernel's own 64-key tiles (the same running max): out at the flash
     bf16 limits, lse within 1e-4 (2^-8 where l sums the rounded p); device
     times of the kernel, of the plain version at the reference's blocks
     (512 x 1024, as E's row) and of the library's flash attention; the
@@ -1021,10 +1028,32 @@ def check_4d(torch, F, fa, flush):
     return row
 
 
-def variant_phase(torch, F, fa, flush) -> dict:
-    """Row #12: each forward variant and fwd4d against its plain version
-    at lm_base (b*h = 96, s = 2048, d = 64, bf16; v2 causal and not), then
-    the slice's main path: the five experiment scripts' `main()` (the
+VARIANT_ROWS = (("flash_fwd_v2", "v2", 1), ("flash_fwd_v3", "v3", 1),
+                ("flash_fwd_v4", "v4", 2), ("flash_fwd_v5h2", "v5", 2),
+                ("flash_fwd_v5h4", "v5", 4), ("flash_fwd_nomax", "nomax", 1))
+
+
+def variant_resources(cuda_build, fa) -> None:
+    """Each variant kernel's ptxas line (registers, spills) and footprint
+    (dynamic shared memory, threads, blocks an SM by the occupancy
+    calculator)."""
+    found = cuda_build.kernel_resources(
+        cuda_build.ptxas_info.get("flash_attention", ""))
+    for name, variant, n_heads in VARIANT_ROWS:
+        kernel = fa.fwd_kernel_name(64, n_heads, fa.VARIANTS[variant][0])
+        occ = fa.variant_occupancy(variant, n_heads)
+        ptxas = "; ".join(line.split(":", 1)[-1].strip()
+                          for line in found.get(kernel, ["not built here"]))
+        log(f"  {name:>16} {kernel}: {ptxas}; {occ['smem_bytes']} B shared "
+            f"x {occ['threads']} threads, {occ['blocks_per_sm']} blocks/SM")
+
+
+def variant_phase(torch, F, fa, cuda_build, flush) -> dict:
+    """Row #12: each variant kernel's resources; each forward variant and
+    fwd4d against its plain version at lm_base (b*h = 96, s = 2048, d =
+    64, bf16; v2 causal and not), each variant's time against kernel E's
+    on the same operands (folded, causal or not as the row); then the
+    slice's main path: the five experiment scripts' `main()` (the
     ablations and the trace-based flash timings) with the launch counts
     zeroed just before and read just after. Returns {row: record} with
     the main path's launches."""
@@ -1032,23 +1061,28 @@ def variant_phase(torch, F, fa, flush) -> dict:
         flash_4d, flash_ablate, flash_profile, flash_time, flash_variants,
     )
 
+    variant_resources(cuda_build, fa)
     g = torch.Generator(device="cuda").manual_seed(4100)
     q, k, v = (torch.randn((96, 2048, 64), generator=g, device="cuda")
                .to(torch.bfloat16) for _ in range(3))
     _, v2_lse = fa.flash_forward_variant_plain(q, k, v, variant="v2",
                                                block_q=64, block_k=64)
+    e_ms = {causal: _time_ms(torch, lambda: fa.flash_attention_with_lse(
+        q, k, v, causal=causal, impl="kernel"), flush)
+        for causal in (True, False)}
+    log(f"  {'E (folded)':>16}: causal {e_ms[True]:7.3f} ms  non-causal "
+        f"{e_ms[False]:7.3f} ms (the same operands)")
     rows = {}
     for name, variant, n_heads, causal in (
             ("flash_fwd_v2", "v2", 1, False),
-            ("flash_fwd_v2", "v2", 1, True),
-            ("flash_fwd_v3", "v3", 1, True),
-            ("flash_fwd_v4", "v4", 2, True),
-            ("flash_fwd_v5h2", "v5", 2, True),
-            ("flash_fwd_v5h4", "v5", 4, True),
-            ("flash_fwd_nomax", "nomax", 1, True)):
+            *((name, variant, n_heads, True)
+              for name, variant, n_heads in VARIANT_ROWS)):
         row = check_variant(torch, F, fa, name=name, variant=variant,
                             n_heads=n_heads, causal=causal, q=q, k=k, v=v,
                             flush=flush, v2_lse=v2_lse)
+        row["e_ms"] = e_ms[causal]
+        log(f"  {'':>16} {'vs E':>10}: {row['ms'] / e_ms[causal]:.3f}x E's "
+            f"{e_ms[causal]:.3f} ms")
         if name in rows:   # v2: the causal row, the worse error of both
             row["max_abs_err"] = max(row["max_abs_err"],
                                      rows[name]["max_abs_err"])
@@ -2477,7 +2511,7 @@ def main() -> int:
     flash_rows = flash_kernel_phase(torch, F, fa, flush)
     log(f"kernel phase, flash variants (row #12; device times are medians "
         f"of {TIMED_RUNS}, plain of 5):")
-    variant_rows = variant_phase(torch, F, fa, flush)
+    variant_rows = variant_phase(torch, F, fa, cuda_build, flush)
     log(f"kernel phase, fused encoder layer (device times are medians of "
         f"{TIMED_RUNS}, plain of 5):")
     fused_rows = fused_kernel_phase(torch, fe, flush)

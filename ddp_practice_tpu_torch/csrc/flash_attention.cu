@@ -13,8 +13,9 @@
 //     _dkdv_kernel_packed;
 //   kernel G (flash_bwd_dq_kernel, _tc_): _dq_kernel and _dq_kernel_packed;
 // and the reference's ablations of kernel E in experiments/
-// (flash_fwd_variant_kernel, entry flash_fwd_variant: _fwd_v2, _fwd_v3,
-// _fwd_v4, _fwd_v5 and _fwd_nomax; see "the forward variants" below).
+// (flash_fwd_tc_kernel<64, NH, KIND>, entry flash_fwd_variant: _fwd_v2,
+// _fwd_v3, _fwd_v4, _fwd_v5 and _fwd_nomax; E's kernel with one lever
+// changed, see "the forward variants" below).
 // E, F and G each come in two variants: fp32 operands run the FMA kernels, bf16
 // operands the tensor-core (_tc_) kernels; the arithmetic is the same.
 // Every operand comes with element strides for (batch, head, position) and a
@@ -75,7 +76,6 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -111,6 +111,7 @@ struct Params {
   int h, sq, sk, causal, offset;
   float q_scale;          // 1/sqrt(d) rounded to the operands' dtype
   float dq_scale;         // 1/sqrt(d) in fp32
+  float score_scale;      // E's variants: the fp32 multiplier of q.k^T
 };
 
 template <typename T> __device__ __forceinline__ float to_float(T x);
@@ -575,60 +576,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ------------------------------------- WMMA helpers of the variants
-// The forward variants (#12, their own section below) run their products
-// on the tensor cores through WMMA (mma.sync 16x16x16 bf16 tiles, fp32
-// accumulation; products of bf16 values are exact in fp32, so only the
-// summation order differs) over bf16 tiles in shared memory (rows padded
-// by 8 elements); score tiles go through shared memory as fp32, where the
-// threads apply the mask, the online softmax and the rounding with the
-// 16 x 16 thread patches above. Eight warps split each product's 16 x 16
-// output tiles. (Kernel E, F and G have their own sections below.)
 using bf16 = __nv_bfloat16;
-namespace wmma = nvcuda::wmma;
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16,
-                             wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16,
-                             wmma::row_major>;
-using FragBt = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16,
-                              wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-template <int D> struct TcTile {
-  static constexpr int ROWS = 64;
-  static constexpr int LDH = D + 8;       // bf16 (ROWS, D) tiles
-  static constexpr int LDP = ROWS + 8;    // bf16 (ROWS, ROWS) tiles
-  static constexpr int LDF = ROWS + 4;    // fp32 (ROWS, ROWS) score tiles
-  static constexpr int KT = D / 16;       // 16-wide steps over head_dim
-  static constexpr int ST = ROWS / 16;    // 16-wide steps over a tile
-  // output 16 x 16 tiles per warp of a (ROWS, ROWS) product
-  static constexpr int SPW = ST * ST / 8;
-};
-
-// C (ROWS, ROWS) fp32 = A (ROWS, D) . B (ROWS, D)^T, both bf16 row-major
-// in shared memory; the 8 warps split the 16 x 16 output tiles.
-template <int D>
-__device__ __forceinline__ void mma_abt(float* c, const bf16* a,
-                                        const bf16* b) {
-  using TL = TcTile<D>;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int t = 0; t < TL::SPW; ++t) {
-    const int tile = warp + 8 * t, tm = tile / TL::ST, tn = tile % TL::ST;
-    FragC acc;
-    wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < TL::KT; ++kk) {
-      FragA fa;
-      FragBt fb;
-      wmma::load_matrix_sync(fa, a + tm * 16 * TL::LDH + kk * 16, TL::LDH);
-      wmma::load_matrix_sync(fb, b + tn * 16 * TL::LDH + kk * 16, TL::LDH);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(c + tm * 16 * TL::LDF + tn * 16, acc, TL::LDF,
-                            wmma::mem_row_major);
-  }
-}
 
 // ------------------------------------------ kernels F and G, bf16 (Hopper)
 // Replace the reference's _dkdv_kernel_packed / _dkdv_kernel (F: dK, dV)
@@ -732,6 +680,13 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_addr(p)));
 }
+// two 8x8 b16 matrices, transposed; lanes 8i..8i+7 give matrix i's rows
+__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_addr(p)));
+}
 // c (16x8 fp32) += a (16x16 bf16, row) . b (16x8 bf16, col)
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -791,24 +746,25 @@ __device__ __forceinline__ bool aligned16(const void* base, long long ss) {
   return ((reinterpret_cast<uintptr_t>(base) | (ss * 2)) & 15) == 0;
 }
 
-// Copy rows [row0, row0 + n) of one head into a (ROWS, D + 8) bf16 tile,
-// zeros past n, by NT threads: 16-byte cp.async chunks when `vec`, else
-// plain loads, where `scale` > 0 stores round_bf16(x * scale) at once.
-template <int D, int ROWS, int NT>
-__device__ __forceinline__ void copy_tile(bf16* dst, const bf16* src,
+// Copy columns [0, COLS) of rows [row0, row0 + n) of one head into a
+// (ROWS, LD) bf16 tile, zeros past n, by NT threads of which this is
+// thread `tid`: 16-byte cp.async chunks when `vec`, else plain loads, where
+// `scale` > 0 stores round_bf16(x * scale) at once.
+template <int COLS, int LD, int ROWS, int NT>
+__device__ __forceinline__ void copy_rows(bf16* dst, const bf16* src,
                                           long long ss, int row0, int n,
-                                          bool vec, float scale) {
-  constexpr int LD = D + 8, V = D / 8;
+                                          bool vec, float scale, int tid) {
+  constexpr int V = COLS / 8;
   if (vec) {
-    for (int e = threadIdx.x; e < ROWS * V; e += NT) {
+    for (int e = tid; e < ROWS * V; e += NT) {
       const int r = e / V, c = (e % V) * 8;
       const bool in = r < n;
       cp_async16(dst + r * LD + c, in ? src + (row0 + r) * ss + c : src, in);
     }
     return;
   }
-  for (int e = threadIdx.x; e < ROWS * D; e += NT) {
-    const int r = e / D, c = e % D;
+  for (int e = tid; e < ROWS * COLS; e += NT) {
+    const int r = e / COLS, c = e % COLS;
     float x = 0.f;
     if (r < n) {
       x = __bfloat162float(src[(row0 + r) * ss + c]);
@@ -816,6 +772,15 @@ __device__ __forceinline__ void copy_tile(bf16* dst, const bf16* src,
     }
     dst[r * LD + c] = __float2bfloat16_rn(x);
   }
+}
+
+// copy_rows of a whole (ROWS, D + 8) tile by the block's NT threads
+template <int D, int ROWS, int NT>
+__device__ __forceinline__ void copy_tile(bf16* dst, const bf16* src,
+                                          long long ss, int row0, int n,
+                                          bool vec, float scale) {
+  copy_rows<D, D + 8, ROWS, NT>(dst, src, ss, row0, n, vec, scale,
+                                threadIdx.x);
 }
 
 // round_bf16(x * scale) in place over the chunks this thread copied with
@@ -1271,23 +1236,150 @@ template <int D> struct FwdTile {
   static_assert(KEYS % 16 == 0 && D % 16 == 0, "whole k16 steps");
 };
 
-// One block per (query tile, batch*head).
-template <int D>
-__global__ void __launch_bounds__(FwdTile<D>::THREADS, FwdTile<D>::BLOCKS)
+// ------------------------------------------- the forward variants (#12)
+// Compile-time variants of the bf16 forward for the reference's ablations
+// of kernel E, over folded (b*h, s, d) operands with d = 64 (their C entry
+// hands them to the kernel as b*h batches of one head):
+//   kVarV2    experiments/flash_variants.py _fwd_v2 (fwd_call("v2")): E's
+//             online softmax, but sm_scale multiplies the fp32 scores
+//             (E rounds q*scale to bf16 first); l sums fp32 p;
+//   kVarV3    _fwd_v3 (fwd_call("v3")): v2 with the row sum folded into
+//             P.V: l is column 0 of P.[1 0 ... 0], the sum of bf16(p),
+//             rescaled with the accumulator (the reference pads V by its
+//             128-lane tile; here by one n8 fragment);
+//   kVarV4    _fwd_v4 (fwd_call("v4")): v2 with two heads per block;
+//   kVarV5    _fwd_v5 (fwd_v5_call): NH = 2 or 4 heads per block, V padded
+//             once outside to d+64 with ones at column d, scores in base 2
+//             (score_scale carries log2 e), l from column d, lse back in
+//             base e;
+//   kVarNoMax experiments/flash_ablate.py _fwd_nomax (nomax_call): no
+//             running max: p = 2^(s log2 e) unguarded, l and the
+//             accumulator are never rescaled; lse = log(l). Overflows once
+//             a score passes ~88: a cost probe, not an attention kernel.
+// Design: each variant is kernel E with its one lever changed. E's kernel
+// (flash_fwd_tc_kernel below) is a template over the heads a block and the
+// kind, every lever behind `if constexpr`; E is flash_fwd_tc_kernel<D, 1,
+// kFwdE> and compiles to the code it had alone (the same registers and
+// bits). So a variant's time against E's is its lever's cost. Per lever:
+//   - v2-v5 stage q unscaled (no scale_tile) and multiply the fp32 score
+//     fragments by score_scale before the row max; v5's scale carries
+//     log2 e, so its p is 2^(s - m) (one FMUL, where E folds log2 e into
+//     an FMA); nomax drops the shuffles, the rescale factor and the
+//     rescales;
+//   - v3's ones column is one more n8 accumulator fragment whose B
+//     operand is a register constant (bf16 1.0 in the lanes of column 0,
+//     else 0): one more mma.sync per 16 keys and row tile and no shared
+//     memory. v5 reads that fragment from the padded copy: columns d..d+7
+//     of each V row ride the ring as a third (64, 8) tile, read with
+//     ldmatrix .x2.trans. l is column 0 of the fragment, summed over the
+//     quad once at the end;
+//   - NH heads a block (v4, v5) are NH groups of E's four warps, one head
+//     each, with its own query tile and ring stages (FwdPlan::HEAD bytes);
+//     each group copies its own head's rows and takes E's one barrier a
+//     tile as a named barrier of its own (group_sync), so the heads of a
+//     block never wait for each other (one block barrier for all is
+//     slower: experiments/flash_variant_levers.py, PERF.md).
+// Trouble with several heads a block, and what the plan does about it:
+//   - shared memory is a head's 47-56 KB times NH (v4 108 KiB, v5h2 112,
+//     v5h4 188 of the 227 a block may take), so such a block runs alone on
+//     its SM;
+//   - registers: the SM's 65536 are shared by a block's threads. E takes
+//     ~236 a thread unbounded, so v4 and v5h2 (256 threads, 255 a thread)
+//     keep E's two 16-row tiles a warp. At 512 threads (v5h4) 128 are left
+//     a thread, where two tiles a warp spill (the "3 blocks/SM" ablation of
+//     experiments/flash_fwd_ablate.py spills at 168), so v5h4 runs one
+//     16-row tile a warp, 64 queries a head (E's "1 row tile/warp"), and
+//     reads its qs fragments from shared memory per key tile as E does at
+//     d = 256 (held in registers they spill more and run slower; the same
+//     script).
+//   Each instantiation's registers, spills, shared memory and blocks an SM
+//   are printed by chip_smoke.py's variant phase.
+// All mask key j > query i + (s_k - s_q) under causal masking and keys
+// past s_k (p = 0), skip key tiles wholly above the diagonal, and write
+// out = bf16(acc / l) and fp32 lse, as E does.
+// Bound: E's (4*b*h*pairs*d flops over the tensor cores' 989.4 TFLOP/s:
+// 0.052 ms causal at b*h 96, s 2048); v3 and v5 execute one more n8
+// fragment per eight of P.V.
+enum FwdKind { kVarV2 = 0, kVarV3, kVarV4, kVarV5, kVarNoMax, kFwdE };
+constexpr int kErrVariant = -4;    // variant / heads-per-block not compiled
+constexpr int kErrHeads = -5;      // b*h not divisible by heads per block
+constexpr int kErrPass = -6;       // not a pass of E, G or F
+
+// A launch of flash_fwd_tc_kernel: E's tiles, NH heads a block, kind KIND.
+template <int D, int NH, int KIND> struct FwdPlan {
+  using E = FwdTile<D>;
+  static constexpr bool IS_E = KIND == kFwdE;
+  static constexpr bool NOMAX = KIND == kVarNoMax;
+  static constexpr bool BASE2 = KIND == kVarV5;   // scores times log2 e
+  static constexpr bool SUMFOLD = KIND == kVarV3 || KIND == kVarV5;
+  static constexpr bool VPAD = KIND == kVarV5;    // ones from the padded V
+  // 16-row tiles a warp: one at four heads a block (128 registers a thread)
+  static constexpr int RT = NH == 4 ? 1 : E::RT;
+  // qs fragments in registers; at four heads a block (128 registers a
+  // thread) read from shared memory per key tile, as E at d = 256
+  static constexpr bool QREG = NH == 4 ? false : E::QREG;
+  static constexpr int QUERIES = 16 * RT * E::WARPS;   // a head's
+  static constexpr int THREADS = E::THREADS * NH;      // a group a head
+  static constexpr int BLOCKS = NH == 1 ? E::BLOCKS : 1;
+  // a ring stage: K, V and (v5) the (KEYS, 8) ones chunk, in elements
+  static constexpr int STAGE =
+      2 * E::KEYS * E::LD + (VPAD ? E::KEYS * 8 : 0);
+  static constexpr size_t HEAD =
+      (size_t(QUERIES) * E::LD + size_t(E::STAGES) * STAGE) * 2;
+  static constexpr size_t kSmem = NH * HEAD;
+  static_assert(!IS_E || (NH == 1 && kSmem == E::kSmem), "E's own plan");
+  static_assert(IS_E || D == 64, "the variants are compiled for d = 64");
+};
+
+// A head group's barrier: the block's when the block is one group, else
+// named barrier 1 + grp over the group's NT threads (the heads of a block
+// do not wait for each other)
+template <int NH, int NT>
+__device__ __forceinline__ void group_sync(int grp) {
+  if constexpr (NH == 1)
+    __syncthreads();
+  else
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + grp), "n"(NT) : "memory");
+}
+
+// A row's lse from its running max and l (> 0): E, v2-v4 m + log(l); v5
+// in base 2, back to base e; nomax log(l)
+template <typename PL>
+__device__ __forceinline__ float lse_of(float m, float l) {
+  if constexpr (PL::NOMAX)
+    return logf(l);
+  else if constexpr (PL::BASE2)
+    return (m + log2f(l)) * 0.6931471805599453f;
+  else
+    return m + logf(l);
+}
+
+// Kernel E (NH = 1, KIND = kFwdE) and its variants (d = 64): one block
+// per (query tile, NH heads of the folded batch*head), a group of E's
+// warps a head. (A __device__ body behind two kernels cost E a register
+// at d = 128: one kernel template keeps E's code as it was.)
+template <int D, int NH = 1, int KIND = kFwdE>
+__global__ void __launch_bounds__(FwdPlan<D, NH, KIND>::THREADS,
+                                  FwdPlan<D, NH, KIND>::BLOCKS)
     flash_fwd_tc_kernel(const Params p) {
   using TL = FwdTile<D>;
-  constexpr int LD = TL::LD, NT = TL::THREADS, BQ = TL::QUERIES;
-  constexpr int RT = TL::RT, BK = TL::KEYS, NK8 = BK / 8, ND8 = D / 8;
-  constexpr int KD = D / 16;
+  using PL = FwdPlan<D, NH, KIND>;
+  constexpr int LD = TL::LD, NT = TL::THREADS, BQ = PL::QUERIES;
+  constexpr int RT = PL::RT, BK = TL::KEYS, NK8 = BK / 8, ND8 = D / 8;
+  constexpr int KD = D / 16, STAGE = PL::STAGE;
   extern __shared__ float smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);              // (BQ, LD) qs
-  bf16* ring = sQ + BQ * LD;                             // STAGES x (K, V)
-
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3, r0 = 16 * RT * warp;
+  // this thread's group (its head of the block), and its place there
+  const int grp = NH > 1 ? warp / TL::WARPS : 0;
+  const int gtid = NH > 1 ? tid % NT : tid;
+  const int gwarp = NH > 1 ? warp % TL::WARPS : warp;
+  bf16* sQ = reinterpret_cast<bf16*>(smem) + grp * (PL::HEAD / 2);  // qs
+  bf16* ring = sQ + BQ * LD;                     // STAGES x (K, V[, ones])
+
+  const int g = lane >> 2, t = lane & 3, r0 = 16 * RT * gwarp;
   // the heaviest tiles (the last under causal masking) start first
   const int qt = gridDim.x - 1 - blockIdx.x;
-  const int bh = blockIdx.y, b = bh / p.h, hh = bh - b * p.h;
+  const int bh = blockIdx.y * NH + grp, b = bh / p.h, hh = bh - b * p.h;
   const int q0 = qt * BQ, nq = min(BQ, p.sq - q0);
   const bf16* qp = head_ptr<bf16>(p.q, p.st[kQ], b, hh);
   const bf16* kp = head_ptr<bf16>(p.k, p.st[kK], b, hh);
@@ -1299,18 +1391,25 @@ __global__ void __launch_bounds__(FwdTile<D>::THREADS, FwdTile<D>::BLOCKS)
   const int k_end =
       p.causal ? min(p.sk, q0 + nq - 1 + p.offset + 1) : p.sk;
   const int n_tiles = (k_end + BK - 1) / BK;
-  copy_tile<D, BQ, NT>(sQ, qp, sq_, q0, nq, vq, p.q_scale);
-  copy_tile<D, BK, NT>(ring, kp, sk_, 0, min(BK, p.sk), vk, 0.f);
-  copy_tile<D, BK, NT>(ring + BK * LD, vp, sv, 0, min(BK, p.sk), vv, 0.f);
+  copy_rows<D, LD, BQ, NT>(sQ, qp, sq_, q0, nq, vq,
+                           PL::IS_E ? p.q_scale : 0.f, gtid);
+  copy_rows<D, LD, BK, NT>(ring, kp, sk_, 0, min(BK, p.sk), vk, 0.f, gtid);
+  copy_rows<D, LD, BK, NT>(ring + BK * LD, vp, sv, 0, min(BK, p.sk), vv,
+                           0.f, gtid);
+  if constexpr (PL::VPAD)
+    copy_rows<8, 8, BK, NT>(ring + 2 * BK * LD, vp + D, sv, 0,
+                            min(BK, p.sk), vv, 0.f, gtid);
   cp_async_commit();
   cp_async_wait_all();
-  if (vq) scale_tile<D, BQ, NT>(sQ, p.q_scale);
-  __syncthreads();
+  if constexpr (PL::IS_E) {
+    if (vq) scale_tile<D, BQ, NT>(sQ, p.q_scale);
+  }
+  group_sync<NH, NT>(grp);
 
   // this warp's qs rows as A fragments: row tile j, k16 step kk
   const int arow = r0 + (lane & 15), acol = (lane >> 4) * 8;
-  uint32_t qf[RT][TL::QREG ? KD : 1][4];
-  if constexpr (TL::QREG) {
+  uint32_t qf[RT][PL::QREG ? KD : 1][4];
+  if constexpr (PL::QREG) {
 #pragma unroll
     for (int j = 0; j < RT; ++j)
 #pragma unroll
@@ -1320,10 +1419,16 @@ __global__ void __launch_bounds__(FwdTile<D>::THREADS, FwdTile<D>::BLOCKS)
   const int brow = (lane & 7) + ((lane >> 4) << 3);
   const int bcol = ((lane >> 3) & 1) * 8;
   const int xrow = lane & 15, xcol = (lane >> 4) * 8;
+  // the variants' multiplier of the fp32 scores (nomax: times log2 e);
+  // v3's ones column as a B fragment: bf16 1.0 in column 0's lanes
+  const float sc = PL::NOMAX ? p.score_scale * kLog2e : p.score_scale;
+  const uint32_t ones = g == 0 ? 0x3F803F80u : 0u;
 
   // rows 16 j + g and 16 j + g + 8 of this warp: the running max, this
-  // thread's part of the running sum, and the accumulator fragments
+  // thread's part of the running sum, and the accumulator fragments (v3,
+  // v5: and the ones column's, whose column 0 is l)
   float m_r[RT][2], l_r[RT][2], acc[RT][ND8][4];
+  float acc_l[RT][PL::SUMFOLD ? 4 : 1];
 #pragma unroll
   for (int j = 0; j < RT; ++j) {
 #pragma unroll
@@ -1335,21 +1440,28 @@ __global__ void __launch_bounds__(FwdTile<D>::THREADS, FwdTile<D>::BLOCKS)
     for (int n = 0; n < ND8; ++n)
 #pragma unroll
       for (int i = 0; i < 4; ++i) acc[j][n][i] = 0.f;
+    if constexpr (PL::SUMFOLD) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc_l[j][i] = 0.f;
+    }
   }
 
   for (int it = 0; it < n_tiles; ++it) {
     const int k0 = it * BK;
-    const bf16* sK = ring + (it & 1) * 2 * BK * LD;
+    const bf16* sK = ring + (it & 1) * STAGE;
     const bf16* sV = sK + BK * LD;
     if (it > 0) {
       cp_async_wait_all();
-      __syncthreads();   // tile `it` landed; tile it-1's readers are done
+      group_sync<NH, NT>(grp);   // tile `it` landed; it-1's readers are done
     }
     if (it + 1 < n_tiles) {   // the next tile's copy overlaps this tile
       const int k1 = k0 + BK, n1 = min(BK, p.sk - k1);
-      bf16* nK = ring + ((it + 1) & 1) * 2 * BK * LD;
-      copy_tile<D, BK, NT>(nK, kp, sk_, k1, n1, vk, 0.f);
-      copy_tile<D, BK, NT>(nK + BK * LD, vp, sv, k1, n1, vv, 0.f);
+      bf16* nK = ring + ((it + 1) & 1) * STAGE;
+      copy_rows<D, LD, BK, NT>(nK, kp, sk_, k1, n1, vk, 0.f, gtid);
+      copy_rows<D, LD, BK, NT>(nK + BK * LD, vp, sv, k1, n1, vv, 0.f, gtid);
+      if constexpr (PL::VPAD)
+        copy_rows<8, 8, BK, NT>(nK + 2 * BK * LD, vp + D, sv, k1, n1, vv,
+                                0.f, gtid);
       cp_async_commit();
     }
     // s = qs . k^T for this warp's rows; each K fragment serves all RT
@@ -1365,7 +1477,7 @@ __global__ void __launch_bounds__(FwdTile<D>::THREADS, FwdTile<D>::BLOCKS)
       uint32_t a[RT][4];
 #pragma unroll
       for (int j = 0; j < RT; ++j) {
-        if constexpr (TL::QREG) {
+        if constexpr (PL::QREG) {
 #pragma unroll
           for (int i = 0; i < 4; ++i) a[j][i] = qf[j][kk][i];
         } else {
@@ -1388,11 +1500,29 @@ __global__ void __launch_bounds__(FwdTile<D>::THREADS, FwdTile<D>::BLOCKS)
     auto to_p = [&](auto masked) {   // one copy of the loop per case
 #pragma unroll
       for (int j = 0; j < RT; ++j) {
+        if constexpr (PL::NOMAX) {   // no max: p = 2^(s log2 e) as it is
+#pragma unroll
+          for (int n = 0; n < NK8; ++n)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              float x = s[j][n][i] * sc;
+              if constexpr (decltype(masked)::value) {
+                const int row = q0 + r0 + 16 * j + g + 8 * (i >> 1);
+                const int key = k0 + n * 8 + 2 * t + (i & 1);
+                if (key >= p.sk || (p.causal && key > row + p.offset))
+                  x = -INFINITY;
+              }
+              s[j][n][i] = exp2_approx(x);
+              l_r[j][i >> 1] += s[j][n][i];
+            }
+          continue;
+        }
         float mt[2] = {m_r[j][0], m_r[j][1]};
 #pragma unroll
         for (int n = 0; n < NK8; ++n)
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
+            if constexpr (!PL::IS_E) s[j][n][i] *= sc;
             if constexpr (decltype(masked)::value) {
               const int row = q0 + r0 + 16 * j + g + 8 * (i >> 1);
               const int key = k0 + n * 8 + 2 * t + (i & 1);
@@ -1406,19 +1536,25 @@ __global__ void __launch_bounds__(FwdTile<D>::THREADS, FwdTile<D>::BLOCKS)
         for (int r = 0; r < 2; ++r) {
           mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 1));
           mt[r] = fmaxf(mt[r], __shfl_xor_sync(0xffffffffu, mt[r], 2));
-          alpha[r] = exp2_approx((m_r[j][r] - mt[r]) * kLog2e);  // 0 first
+          if constexpr (PL::BASE2)
+            alpha[r] = exp2_approx(m_r[j][r] - mt[r]);
+          else
+            alpha[r] = exp2_approx((m_r[j][r] - mt[r]) * kLog2e);  // 0 first
           m2[r] = mt[r] * kLog2e;
           m_r[j][r] = mt[r];
-          l_r[j][r] *= alpha[r];
+          if constexpr (!PL::SUMFOLD) l_r[j][r] *= alpha[r];
         }
 #pragma unroll
         for (int n = 0; n < NK8; ++n)
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
-            const float pr =
-                exp2_approx(fmaf(s[j][n][i], kLog2e, -m2[i >> 1]));
+            float pr;
+            if constexpr (PL::BASE2)
+              pr = exp2_approx(s[j][n][i] - mt[i >> 1]);
+            else
+              pr = exp2_approx(fmaf(s[j][n][i], kLog2e, -m2[i >> 1]));
             s[j][n][i] = pr;
-            l_r[j][i >> 1] += pr;
+            if constexpr (!PL::SUMFOLD) l_r[j][i >> 1] += pr;
           }
 #pragma unroll
         for (int n = 0; n < ND8; ++n) {
@@ -1426,6 +1562,12 @@ __global__ void __launch_bounds__(FwdTile<D>::THREADS, FwdTile<D>::BLOCKS)
           acc[j][n][1] *= alpha[0];
           acc[j][n][2] *= alpha[1];
           acc[j][n][3] *= alpha[1];
+        }
+        if constexpr (PL::SUMFOLD) {
+          acc_l[j][0] *= alpha[0];
+          acc_l[j][1] *= alpha[0];
+          acc_l[j][2] *= alpha[1];
+          acc_l[j][3] *= alpha[1];
         }
       }
     };
@@ -1456,6 +1598,13 @@ __global__ void __launch_bounds__(FwdTile<D>::THREADS, FwdTile<D>::BLOCKS)
           mma_bf16(acc[j][2 * dp + 1], a[j], fb[2], fb[3]);
         }
       }
+      if constexpr (PL::SUMFOLD) {   // l += p . [1 0 ... 0]
+        uint32_t fo[2] = {ones, ones};
+        if constexpr (PL::VPAD)   // column d of the padded V, as it came
+          ldsm_x2_t(fo, sV + BK * LD + (kk * 16 + xrow) * 8);
+#pragma unroll
+        for (int j = 0; j < RT; ++j) mma_bf16(acc_l[j], a[j], fo[0], fo[1]);
+      }
     }
   }
 
@@ -1467,6 +1616,8 @@ __global__ void __launch_bounds__(FwdTile<D>::THREADS, FwdTile<D>::BLOCKS)
     float inv[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
+      if constexpr (PL::SUMFOLD)   // column 0 lives in the quad's lane 0
+        l_r[j][r] = acc_l[j][2 * r] + acc_l[j][2 * r + 1];
       l_r[j][r] += __shfl_xor_sync(0xffffffffu, l_r[j][r], 1);
       l_r[j][r] += __shfl_xor_sync(0xffffffffu, l_r[j][r], 2);
       inv[r] = l_r[j][r] > 0.f ? 1.f / l_r[j][r] : 0.f;
@@ -1485,7 +1636,7 @@ __global__ void __launch_bounds__(FwdTile<D>::THREADS, FwdTile<D>::BLOCKS)
         const int row = r0 + 16 * j + g + 8 * r;
         if (row < nq)
           p.lse[static_cast<long long>(bh) * p.sq + q0 + row] =
-              m_r[j][r] + logf(fmaxf(l_r[j][r], 1e-30f));
+              lse_of<PL>(m_r[j][r], fmaxf(l_r[j][r], 1e-30f));
       }
     }
   }
@@ -1503,262 +1654,6 @@ __global__ void __launch_bounds__(FwdTile<D>::THREADS, FwdTile<D>::BLOCKS)
     for (int e = lane; e < rows * D; e += 32) {
       const int r = e / D, c = e % D;
       op[(q0 + r0 + r) * so + c] = sQ[(r0 + r) * LD + c];
-    }
-  }
-}
-
-// ------------------------------------------- the forward variants (#12)
-// Compile-time variants of the bf16 forward for the reference's ablations
-// of kernel E, over folded (b*h, s, d) operands with d = 64:
-//   kVarV2    experiments/flash_variants.py _fwd_v2 (fwd_call("v2")): E's
-//             online softmax, but sm_scale multiplies the fp32 scores
-//             (E rounds q*scale to bf16 first); l sums fp32 p;
-//   kVarV3    _fwd_v3 (fwd_call("v3")): v2 with the row sum folded into
-//             P.V: the staged V tile carries one more 16-wide column tile
-//             [1 0 ... 0], so column D of the accumulator is l = sum of
-//             bf16(p), rescaled with it (the reference pads V by its
-//             128-lane tile; here by one fragment width);
-//   kVarV4    _fwd_v4 (fwd_call("v4")): v2 with two heads per block;
-//   kVarV5    _fwd_v5 (fwd_v5_call): NH = 2 or 4 heads per block, V padded
-//             once outside to d+64 with ones at column d (the kernel stages
-//             its first d+16 columns; the rest are zeros), scores in base 2
-//             (scale*log2(e), exp2f), l from column d, lse back in base e;
-//   kVarNoMax experiments/flash_ablate.py _fwd_nomax (nomax_call): no
-//             running max: p = exp(s) unguarded, l and the accumulator are
-//             never rescaled; lse = log(l). Overflows once a score passes
-//             ~88: a cost probe, not an attention kernel.
-// All mask with -1e30 at key j > query i + (s_k - s_q) under causal
-// masking, return out = bf16(acc / max(l, 1e-30)) and fp32 lse, and skip
-// key tiles wholly above the diagonal, as E does. Heads h0..h0+NH-1 of a
-// block keep their own query tiles and fp32 accumulators (in shared
-// memory) and their own m and l (per thread); the K and V staging tiles,
-// the score tile and the P tile are reused head after head inside a key
-// tile.
-// Bound: the same as E's (4*bh*s_q*s_k*d flops, halved under causal
-// masking, over the tensor cores' 989 TFLOP/s).
-enum VariantKind { kVarV2 = 0, kVarV3, kVarV4, kVarV5, kVarNoMax };
-constexpr int kErrVariant = -4;    // variant / heads-per-block not compiled
-constexpr int kErrHeads = -5;      // b*h not divisible by heads per block
-constexpr int kErrPass = -6;       // not a pass of E, G or F
-
-struct VarParams {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;          // kVarV5: the (b*h, s_k, d+64) padded copy
-  bf16* out;
-  float* lse;             // (b*h, s_q) fp32
-  long long st[4][2];     // (head, position) element strides: q, k, v, out
-  int sq, sk, causal, offset;
-  float score_scale;      // fp32 multiplier of q.k^T (kVarV5: times log2 e)
-};
-
-template <int D, int NH, int KIND> struct VarTile {
-  static constexpr bool SUMFOLD = KIND == kVarV3 || KIND == kVarV5;
-  static constexpr bool VPAD = KIND == kVarV5;    // V arrives padded
-  static constexpr bool EXP2 = KIND == kVarV5;
-  static constexpr bool NOMAX = KIND == kVarNoMax;
-  static constexpr int ROWS = 64;
-  static constexpr int W = SUMFOLD ? D + 16 : D;  // P.V output width
-  static constexpr int LDH = D + 8;               // bf16 (ROWS, D): q, k
-  static constexpr int LDV = W + 8;               // bf16 (ROWS, W): v
-  static constexpr int LDF = ROWS + 4;            // fp32 scores
-  static constexpr int LDP = ROWS + 8;            // bf16 p
-  static constexpr int LDO = W + 4;               // fp32 accumulators
-  static constexpr int RT = ROWS / 16, CT = ROWS / 16, WT = W / 16;
-  static constexpr size_t QB = size_t(ROWS) * LDH * 2;
-  static constexpr size_t VB = size_t(ROWS) * LDV * 2;
-  static constexpr size_t FB = size_t(ROWS) * LDF * 4;
-  static constexpr size_t PB = size_t(ROWS) * LDP * 2;
-  static constexpr size_t OB = size_t(ROWS) * LDO * 4;
-  // NH query tiles, the K, V, score and P tiles, NH accumulators
-  static constexpr size_t kSmem = (NH + 1) * QB + VB + FB + PB + NH * OB;
-  // blocks an SM that shared memory allows (70-76, 96-106, 166 KiB), held
-  // to in registers too: unbounded, v5 at two heads took 221 registers a
-  // thread and ran one block an SM; bounded at one block, the one-head
-  // variants took 114-116 and ran two
-  static constexpr int BLOCKS = NH == 1 ? 3 : NH == 2 ? 2 : 1;
-  static_assert(D == 64, "the variants are compiled for head_dim 64");
-  static_assert(LDH == TcTile<D>::LDH && LDF == TcTile<D>::LDF &&
-                LDP == TcTile<D>::LDP, "mma_abt's tile strides");
-};
-
-// Stage columns [0, COLS) of rows [row0, row0 + n) into a (64, LD) bf16
-// tile, zero past n; 16-byte loads when the rows allow them.
-template <int COLS, int LD>
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src,
-                                           long long ss, int row0, int n) {
-  constexpr int V = COLS / 8;
-  const bool vec = ((reinterpret_cast<uintptr_t>(src) | (ss * 2)) & 15) == 0;
-  if (vec) {
-    for (int e = threadIdx.x; e < 64 * V; e += kThreads) {
-      const int r = e / V, c = (e % V) * 8;
-      uint4 x = make_uint4(0, 0, 0, 0);
-      if (r < n) x = *reinterpret_cast<const uint4*>(src + (row0 + r) * ss + c);
-      *reinterpret_cast<uint4*>(dst + r * LD + c) = x;
-    }
-    return;
-  }
-  for (int e = threadIdx.x; e < 64 * COLS; e += kThreads) {
-    const int r = e / COLS, c = e % COLS;
-    dst[r * LD + c] = r < n ? src[(row0 + r) * ss + c] : __float2bfloat16_rn(0.f);
-  }
-}
-
-// sO (64, W) fp32 += P (64, 64) . X (64, W), P and X bf16 in shared memory;
-// the 8 warps split the (4, W/16) grid of 16 x 16 output tiles.
-template <int W, int LDX, int LDO>
-__device__ __forceinline__ void mma_pv(float* sO, const bf16* p,
-                                       const bf16* x) {
-  constexpr int ST = 4, WT = W / 16, TILES = ST * WT, PER = (TILES + 7) / 8;
-  constexpr int LDP = 72;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int t = 0; t < PER; ++t) {
-    const int tile = warp + 8 * t;
-    if (tile >= TILES) break;
-    const int tm = tile / WT, tn = tile % WT;
-    FragC acc;
-    wmma::load_matrix_sync(acc, sO + tm * 16 * LDO + tn * 16, LDO,
-                           wmma::mem_row_major);
-#pragma unroll
-    for (int kk = 0; kk < ST; ++kk) {
-      FragA fa;
-      FragB fb;
-      wmma::load_matrix_sync(fa, p + tm * 16 * LDP + kk * 16, LDP);
-      wmma::load_matrix_sync(fb, x + kk * 16 * LDX + tn * 16, LDX);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(sO + tm * 16 * LDO + tn * 16, acc, LDO,
-                            wmma::mem_row_major);
-  }
-}
-
-template <bool EXP2> __device__ __forceinline__ float var_exp(float x) {
-  if constexpr (EXP2) return exp2f(x);
-  else return expf(x);
-}
-
-template <int D, int NH, int KIND>
-__global__ void __launch_bounds__(kThreads, VarTile<D, NH, KIND>::BLOCKS)
-    flash_fwd_variant_kernel(const VarParams p) {
-  using TL = VarTile<D, NH, KIND>;
-  constexpr int ROWS = TL::ROWS, RT = TL::RT, CT = TL::CT, WT = TL::WT;
-  constexpr int LDH = TL::LDH, LDV = TL::LDV, LDF = TL::LDF, LDP = TL::LDP;
-  constexpr int LDO = TL::LDO;
-  extern __shared__ float smem[];
-  char* base = reinterpret_cast<char*>(smem);
-  bf16* sQ = reinterpret_cast<bf16*>(base);                  // NH tiles
-  bf16* sK = reinterpret_cast<bf16*>(base + NH * TL::QB);
-  bf16* sV = reinterpret_cast<bf16*>(base + (NH + 1) * TL::QB);
-  float* sS = reinterpret_cast<float*>(base + (NH + 1) * TL::QB + TL::VB);
-  bf16* sP = reinterpret_cast<bf16*>(base + (NH + 1) * TL::QB + TL::VB +
-                                     TL::FB);
-  float* sO = reinterpret_cast<float*>(base + (NH + 1) * TL::QB + TL::VB +
-                                       TL::FB + TL::PB);      // NH tiles
-
-  const int tid = threadIdx.x, rg = tid >> 4, cg = tid & 15;
-  const int head0 = blockIdx.y * NH;
-  const int q0 = blockIdx.x * ROWS;
-  const int nq = min(ROWS, p.sq - q0);
-#pragma unroll
-  for (int h = 0; h < NH; ++h)
-    stage_rows<D, LDH>(sQ + h * ROWS * LDH, p.q + (head0 + h) * p.st[0][0],
-                       p.st[0][1], q0, nq);
-  for (int e = tid; e < NH * ROWS * LDO; e += kThreads) sO[e] = 0.f;
-  if constexpr (TL::SUMFOLD && !TL::VPAD) {
-    // the ones column tile; V's own columns are staged per key tile
-    for (int e = tid; e < ROWS * 16; e += kThreads)
-      sV[(e >> 4) * LDV + D + (e & 15)] =
-          __float2bfloat16_rn((e & 15) == 0 ? 1.f : 0.f);
-  }
-
-  float m[NH][RT], l[NH][RT];
-#pragma unroll
-  for (int h = 0; h < NH; ++h)
-#pragma unroll
-    for (int i = 0; i < RT; ++i) {
-      m[h][i] = -INFINITY;
-      l[h][i] = 0.f;
-    }
-  const int k_end =
-      p.causal ? min(p.sk, q0 + nq - 1 + p.offset + 1) : p.sk;
-  for (int k0 = 0; k0 < k_end; k0 += ROWS) {
-    const int nk = min(ROWS, p.sk - k0);
-    // one copy of the body for every head: unrolled, the heads' copies
-    // interleave and the registers overflow (m and l then live in local
-    // memory, a few loads a row and tile)
-#pragma unroll 1
-    for (int h = 0; h < NH; ++h) {
-      float* sOh = sO + h * ROWS * LDO;
-      __syncthreads();   // the previous head's readers are done
-      stage_rows<D, LDH>(sK, p.k + (head0 + h) * p.st[1][0], p.st[1][1], k0,
-                         nk);
-      stage_rows<TL::VPAD ? TL::W : D, LDV>(
-          sV, p.v + (head0 + h) * p.st[2][0], p.st[2][1], k0, nk);
-      __syncthreads();
-      mma_abt<D>(sS, sQ + h * ROWS * LDH, sK);
-      __syncthreads();
-#pragma unroll
-      for (int i = 0; i < RT; ++i) {
-        const int r = rg * RT + i, qi = q0 + r;
-        float s[CT], mt = -INFINITY;
-#pragma unroll
-        for (int j = 0; j < CT; ++j) {
-          const int kj = k0 + cg + 16 * j;
-          s[j] = sS[r * LDF + cg + 16 * j] * p.score_scale;
-          if (kj >= p.sk)
-            s[j] = -INFINITY;            // past the end: no mass at all
-          else if (p.causal && kj > qi + p.offset)
-            s[j] = kMasked;
-          mt = fmaxf(mt, s[j]);
-        }
-        float alpha = 1.f, shift = 0.f;
-        if constexpr (!TL::NOMAX) {
-          const float m_new = fmaxf(m[h][i], row_max(mt));
-          alpha = var_exp<TL::EXP2>(m[h][i] - m_new);   // 0 on the first tile
-          m[h][i] = m_new;
-          shift = m_new;
-        }
-        float ps = 0.f;
-#pragma unroll
-        for (int j = 0; j < CT; ++j) {
-          const float pr = var_exp<TL::EXP2>(s[j] - shift);
-          ps += pr;
-          sP[r * LDP + cg + 16 * j] = __float2bfloat16_rn(pr);
-        }
-        if constexpr (!TL::SUMFOLD) l[h][i] = alpha * l[h][i] + row_sum(ps);
-        if constexpr (!TL::NOMAX) {
-#pragma unroll
-          for (int j = 0; j < WT; ++j) sOh[r * LDO + cg + 16 * j] *= alpha;
-        }
-      }
-      __syncthreads();
-      mma_pv<TL::W, LDV, LDO>(sOh, sP, sV);
-    }
-  }
-  __syncthreads();
-#pragma unroll 1
-  for (int h = 0; h < NH; ++h) {
-    const float* sOh = sO + h * ROWS * LDO;
-    bf16* op = p.out + (head0 + h) * p.st[3][0];
-#pragma unroll
-    for (int i = 0; i < RT; ++i) {
-      const int r = rg * RT + i;
-      if (r >= nq) continue;
-      const float ls =
-          fmaxf(TL::SUMFOLD ? sOh[r * LDO + D] : l[h][i], 1e-30f);
-      bf16* row = op + (q0 + r) * p.st[3][1];
-#pragma unroll
-      for (int j = 0; j < D / 16; ++j)
-        row[cg + 16 * j] = __float2bfloat16_rn(sOh[r * LDO + cg + 16 * j] / ls);
-      if (cg == 0) {
-        float lse;
-        if constexpr (TL::NOMAX) lse = logf(ls);
-        else if constexpr (TL::EXP2)
-          lse = (m[h][i] + log2f(ls)) * 0.6931471805599453f;
-        else lse = m[h][i] + logf(ls);
-        p.lse[static_cast<long long>(head0 + h) * p.sq + q0 + r] = lse;
-      }
     }
   }
 }
@@ -1844,21 +1739,41 @@ void set_strides(Params& p, const long long* strides, int n) {
     for (int j = 0; j < 3; ++j) p.st[i][j] = strides[3 * i + j];
 }
 
+// The variant kernel of (variant, heads a block) as f(NH, KIND) with both
+// as std::integral_constant, or kErrVariant where none is compiled.
+template <typename F>
+int with_variant(int variant, int n_heads, F&& f) {
+  using std::integral_constant;
+  switch (variant * 8 + n_heads) {
+    case kVarV2 * 8 + 1:
+      return f(integral_constant<int, 1>(), integral_constant<int, kVarV2>());
+    case kVarV3 * 8 + 1:
+      return f(integral_constant<int, 1>(), integral_constant<int, kVarV3>());
+    case kVarV4 * 8 + 2:
+      return f(integral_constant<int, 2>(), integral_constant<int, kVarV4>());
+    case kVarV5 * 8 + 2:
+      return f(integral_constant<int, 2>(), integral_constant<int, kVarV5>());
+    case kVarV5 * 8 + 4:
+      return f(integral_constant<int, 4>(), integral_constant<int, kVarV5>());
+    case kVarNoMax * 8 + 1:
+      return f(integral_constant<int, 1>(),
+               integral_constant<int, kVarNoMax>());
+    default: return kErrVariant;
+  }
+}
+
 template <int NH, int KIND>
-int launch_variant(const VarParams& p, int bh, cudaStream_t stream) {
-  using TL = VarTile<64, NH, KIND>;
+int launch_variant(const Params& p, int bh, cudaStream_t stream) {
+  using PL = FwdPlan<64, NH, KIND>;
   if (bh % NH) return kErrHeads;
-  void (*kernel)(VarParams) = flash_fwd_variant_kernel<64, NH, KIND>;
+  void (*kernel)(Params) = flash_fwd_tc_kernel<64, NH, KIND>;
   static bool opted = false;
   if (!opted) {
-    if (const int rc = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-            static_cast<int>(TL::kSmem)))
-      return rc;
+    if (const int rc = opt_in_smem(kernel, PL::kSmem)) return rc;
     opted = true;
   }
-  const dim3 grid((p.sq + TL::ROWS - 1) / TL::ROWS, bh / NH);
-  kernel<<<grid, kThreads, TL::kSmem, stream>>>(p);
+  const dim3 grid((p.sq + PL::QUERIES - 1) / PL::QUERIES, bh / NH);
+  kernel<<<grid, PL::THREADS, PL::kSmem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -1878,29 +1793,46 @@ extern "C" int flash_fwd_variant(const void* q, const void* k, const void* v,
                                  void* stream) {
   if (d != 64) return kErrHeadDim;
   if (bh <= 0 || sq <= 0 || sk <= 0) return 0;
-  VarParams p = {};
-  p.q = static_cast<const bf16*>(q);
-  p.k = static_cast<const bf16*>(k);
-  p.v = static_cast<const bf16*>(v);
-  p.out = static_cast<bf16*>(out);
+  Params p = {};   // b*h batches of one head
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.out = out;
   p.lse = lse;
-  for (int i = 0; i < 4; ++i)
-    for (int j = 0; j < 2; ++j) p.st[i][j] = strides[2 * i + j];
+  const int operand[4] = {kQ, kK, kV, kO};
+  for (int i = 0; i < 4; ++i) {
+    p.st[operand[i]][0] = strides[2 * i];
+    p.st[operand[i]][2] = strides[2 * i + 1];
+  }
+  p.h = 1;
   p.sq = sq;
   p.sk = sk;
   p.causal = causal;
   p.offset = causal ? sk - sq : 0;
   p.score_scale = score_scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (variant * 8 + n_heads) {
-    case kVarV2 * 8 + 1: return launch_variant<1, kVarV2>(p, bh, st);
-    case kVarV3 * 8 + 1: return launch_variant<1, kVarV3>(p, bh, st);
-    case kVarV4 * 8 + 2: return launch_variant<2, kVarV4>(p, bh, st);
-    case kVarV5 * 8 + 2: return launch_variant<2, kVarV5>(p, bh, st);
-    case kVarV5 * 8 + 4: return launch_variant<4, kVarV5>(p, bh, st);
-    case kVarNoMax * 8 + 1: return launch_variant<1, kVarNoMax>(p, bh, st);
-    default: return kErrVariant;
-  }
+  return with_variant(variant, n_heads, [&](auto nh, auto kind) {
+    return launch_variant<decltype(nh)::value, decltype(kind)::value>(
+        p, bh, st);
+  });
+}
+
+// A variant's footprint: the dynamic shared memory and threads a block
+// takes and the blocks an SM holds by the runtime's occupancy calculator.
+// Returns 0, a negative code of this file, or a cudaError_t.
+extern "C" int flash_fwd_variant_occupancy(int variant, int n_heads,
+                                           int* smem, int* threads,
+                                           int* blocks) {
+  return with_variant(variant, n_heads, [&](auto nh, auto kind) {
+    constexpr int NH = decltype(nh)::value, KIND = decltype(kind)::value;
+    using PL = FwdPlan<64, NH, KIND>;
+    void (*kernel)(Params) = flash_fwd_tc_kernel<64, NH, KIND>;
+    *smem = static_cast<int>(PL::kSmem);
+    *threads = PL::THREADS;
+    if (const int rc = opt_in_smem(kernel, PL::kSmem)) return rc;
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks, kernel, PL::THREADS, PL::kSmem));
+  });
 }
 
 // Kernel E. q, k, v, out: (b, h, s, d) element strides in `strides` (12

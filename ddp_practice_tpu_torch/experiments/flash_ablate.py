@@ -15,10 +15,11 @@ counterpart of experiments/flash_ablate.py).
                  shape: the practical ceiling on this card, a yardstick the
                  port never calls.
 
-Each row: ms a call (`flash_variants.timed`), executed TFLOP/s (the 64 x
-64 tiles the kernels visit; the library's own tiling is not known, so its
-row shows useful TFLOP/s only) and useful TFLOP/s (half of s x s under
-causal masking), each against the card's bf16 peak.
+Each row: ms a call (`flash_variants.timed`), executed TFLOP/s (the tiles
+its own kernel visits, `fa.VARIANT_TILES`: 128 queries x 64 keys; the
+library's own tiling is not known, so its row shows useful TFLOP/s only)
+and useful TFLOP/s (half of s x s under causal masking), each against the
+card's bf16 peak.
 """
 
 from __future__ import annotations
@@ -27,8 +28,8 @@ import torch
 import torch.nn.functional as F
 
 from ddp_practice_tpu_torch.experiments.flash_variants import (
-    BH, D, S, TILE, card_line, fwd_call, inputs, require_card, timed,
-    visible_fraction,
+    BH, D, S, card_line, executed_fwd_flops, fwd_call, inputs, require_card,
+    timed,
 )
 from ddp_practice_tpu_torch.ops import flash_attention as fa
 from ddp_practice_tpu_torch.utils.flops import chip_peak_flops
@@ -60,22 +61,25 @@ def main() -> dict:
     print(f"card: {card_line()}", flush=True)
     peak = chip_peak_flops(torch.cuda.get_device_name(0)) or float("nan")
     q, k, v = inputs()
-    vis = visible_fraction(S, S, TILE, TILE, True)
+    v2_tile = fa.VARIANT_TILES["v2"][1:]
     cases = [
-        ("causal_v2", lambda q, k, v: fwd_call("v2", q, k, v), vis),
+        ("causal_v2", lambda q, k, v: fwd_call("v2", q, k, v),
+         executed_fwd_flops(v2_tile)),
         ("noncausal_v2",
-         lambda q, k, v: fwd_call("v2", q, k, v, causal=False), 1.0),
-        ("nomax", nomax_call, vis),
+         lambda q, k, v: fwd_call("v2", q, k, v, causal=False),
+         executed_fwd_flops(v2_tile, causal=False)),
+        ("nomax", nomax_call,
+         executed_fwd_flops(fa.VARIANT_TILES["nomax"][1:])),
         ("library_flash", library_flash, None),
     ]
     results = {}
-    for name, fn, vfrac in cases:
+    for name, fn, flops in cases:
         ms = timed(fn, (q, k, v))
         useful = BH * 2 * 2.0 * S * S * D * 0.5 / (ms / 1e3) / 1e12
-        if vfrac is None:
+        if flops is None:
             executed = "executed    n/a        "
         else:
-            tflops = BH * 2 * 2.0 * S * S * D * vfrac / (ms / 1e3) / 1e12
+            tflops = flops / (ms / 1e3) / 1e12
             executed = (f"executed {tflops:6.1f} TF/s "
                         f"({100 * tflops * 1e12 / peak:4.1f}%)")
         results[name] = ms

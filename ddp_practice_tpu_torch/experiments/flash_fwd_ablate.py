@@ -2,6 +2,8 @@
 section "kernel E, bf16") on the card.
 
     python -m ddp_practice_tpu_torch.experiments.flash_fwd_ablate
+    python -m ddp_practice_tpu_torch.experiments.flash_fwd_ablate \
+        --against OTHER/ddp_practice_tpu_torch/csrc/flash_attention.cu
 
 Each variant is the shipped source with one design choice undone or moved
 (`VARIANTS`: exact text substitutions, each of which must apply once). All
@@ -9,17 +11,26 @@ variants are built side by side with nvcc into build/ and timed against
 the shipped kernel in turns, two rounds in opposite orders, at the three
 bf16 causal shapes of chip_smoke.py's flash phase: lm_base packed (b=8,
 h=12, s=2048, d=64), the folded leg (b=8, h=24, d=32) and b=1, s=8192
-packed. Printed per variant: ptxas's registers and spills of E at d = 32
-and 64; per shape: E launched alone (CUDA events around one launch queued
-behind a spin kernel, L2 flushed first, median of 20; the mean of the two
-rounds) and the relative error norm of the output against the plain
-version.
+packed. Printed per variant: ptxas's registers and spills of E at every
+head_dim; per shape: E launched alone (CUDA events around one launch
+queued behind a spin kernel, L2 flushed first, median of 20; the mean of
+the two rounds) and the relative error norm of the output against the
+plain version.
+
+`--against` builds another tree's source (a parent commit's) in place of
+the variants and times its E against the shipped one the same way; then
+it holds the two E's out and lse bit for bit at `BIT_SHAPES` (the flash
+phase's shapes and strides of chip_smoke.py, and d = 128 and 256), and
+fails if any bit differs.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
+import re
 import subprocess
+from pathlib import Path
 
 import torch
 
@@ -61,6 +72,19 @@ VARIANTS = {
 SHAPES = [("lm_base packed", 8, 12, 2048, 64),
           ("folded 24 x 32", 8, 24, 2048, 32),
           ("b=1 s=8192", 1, 12, 8192, 64)]
+# E's instantiations, as ptxas names them
+E_KERNELS = [fa.fwd_kernel_name(d) for d in (32, 64, 128, 256)]
+# (label, b, h, s, d, layout, dtype): E's bits against another tree's
+BIT_SHAPES = [
+    ("lm_base fused-qkv", 8, 12, 2048, 64, "qkv", torch.bfloat16),
+    ("lm_base packed", 8, 12, 2048, 64, "packed", torch.bfloat16),
+    ("b=1 s=8192", 1, 12, 8192, 64, "packed", torch.bfloat16),
+    ("folded 24 x 32", 8, 24, 2048, 32, "folded", torch.bfloat16),
+    ("d=128", 2, 4, 1000, 128, "packed", torch.bfloat16),
+    ("d=256", 2, 4, 1000, 256, "packed", torch.bfloat16),
+    ("fp32 fused-qkv s=512", 2, 12, 512, 64, "qkv", torch.float32),
+    ("fp32 s=512 h=24 d=32", 2, 24, 512, 32, "folded", torch.float32),
+]
 
 
 def variant_source(name: str) -> str:
@@ -73,15 +97,23 @@ def variant_source(name: str) -> str:
     return source
 
 
-def build() -> dict:
-    """{variant: loaded library}, all nvcc processes at once; prints each
-    variant's ptxas lines for E at d = 32 and 64."""
-    out = cuda_build.BUILD_DIR / "flash_fwd_ablate"
+def is_e(kernel: str) -> bool:
+    """E at any head_dim, as ptxas names it (a tree from before the
+    variants shared E's template names it flash_fwd_tc_kernel<d>)."""
+    return kernel in E_KERNELS or bool(
+        re.fullmatch(r"flash_fwd_tc_kernel<\d+>", kernel))
+
+
+def build(sources: dict, show=is_e, where="flash_fwd_ablate") -> dict:
+    """{name: loaded library} of {name: source text}, all nvcc processes
+    at once into build/.../`where`; prints each one's ptxas lines for the
+    kernels `show` picks (E at every head_dim)."""
+    out = cuda_build.BUILD_DIR / where
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for i, name in enumerate(VARIANTS):
+    for i, (name, text) in enumerate(sources.items()):
         src, lib = out / f"v{i}.cu", out / f"libv{i}.so"
-        src.write_text(variant_source(name))
+        src.write_text(text)
         procs[name] = (lib, subprocess.Popen(
             [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(lib),
              str(src)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
@@ -92,7 +124,7 @@ def build() -> dict:
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for variant {name!r}:\n{err}")
         for kernel, lines in cuda_build.kernel_resources(err).items():
-            if kernel in ("flash_fwd_tc_kernel<32>", "flash_fwd_tc_kernel<64>"):
+            if show(kernel):
                 print(f"  {name:>16} {kernel}: " + "; ".join(
                     line.split(":", 1)[-1].strip() for line in lines))
         libs[name] = ctypes.CDLL(str(lib))
@@ -109,10 +141,72 @@ def setup(b, h, s, d, seed=0):
     return (q4, k4, v4, torch.empty_like(q4), True), want
 
 
-def main() -> dict:
+def bit_inputs(b, h, s, d, layout, dtype, seed=1):
+    """E's launch arguments at one of `BIT_SHAPES`: (b, h, s, d) views of
+    the route's layout (fused-qkv: three column windows of one buffer)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if layout == "qkv":
+        qkv = torch.randn((b, s, 3 * h * d), generator=g, device="cuda")
+        q4, k4, v4 = fa._operands4("qkv", (qkv.to(dtype),), h)
+        out4 = torch.empty((b, s, h, d), dtype=dtype,
+                           device="cuda").transpose(1, 2)
+    elif layout == "packed":
+        q4, k4, v4 = (torch.randn((b, s, h, d), generator=g, device="cuda")
+                      .to(dtype).transpose(1, 2) for _ in range(3))
+        out4 = torch.empty_like(q4)
+    else:
+        q4, k4, v4 = (torch.randn((b, h, s, d), generator=g, device="cuda")
+                      .to(dtype) for _ in range(3))
+        out4 = torch.empty_like(q4)
+    return q4, k4, v4, out4, True
+
+
+def same_bits(libs: dict) -> bool:
+    """Each library's E against the first's at `BIT_SHAPES`: out and lse
+    bit for bit; prints one line a shape and library."""
+    saved = cuda_build._loaded.get("flash_attention")
+    same = True
+    try:
+        for label, *shape in BIT_SHAPES:
+            args = bit_inputs(*shape)
+            results = {}
+            for name, lib in libs.items():
+                cuda_build._loaded["flash_attention"] = lib
+                lse = fa._launch_fwd(*args)
+                torch.cuda.synchronize()
+                results[name] = (args[3].clone(), lse)
+            (first, (out0, lse0)), *others = results.items()
+            for name, (out, lse) in others:
+                d_out = float((out.float() - out0.float()).abs().max())
+                d_lse = float((lse - lse0).abs().max())
+                equal = torch.equal(out, out0) and torch.equal(lse, lse0)
+                same = same and equal
+                print(f"  bits {label:>22}: {name} vs {first} "
+                      + ("identical" if equal else
+                         f"DIFFER (max |out| {d_out:.3e}, max |lse| "
+                         f"{d_lse:.3e})"), flush=True)
+    finally:
+        if saved is None:
+            cuda_build._loaded.pop("flash_attention", None)
+        else:
+            cuda_build._loaded["flash_attention"] = saved
+    return same
+
+
+def main(argv=None) -> dict:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--against", type=Path, default=None,
+                        help="another tree's csrc/flash_attention.cu: time "
+                             "and bit-compare its E instead of the variants")
+    opts = parser.parse_args(argv)
     require_card("flash_fwd_ablate")
     print(f"card: {card_line()}", flush=True)
-    libs = build()
+    if opts.against is None:
+        sources = {name: variant_source(name) for name in VARIANTS}
+    else:
+        sources = {"shipped": variant_source("shipped"),
+                   "against": opts.against.read_text()}
+    libs = build(sources)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     saved = cuda_build._loaded.get("flash_attention")
     times = {}
@@ -144,6 +238,12 @@ def main() -> dict:
             result[(name, label)] = (ms, rel)
             print(f"  {name:>16}: E {ms:.3f}  relative error norm "
                   f"{rel:.2e}")
+    if opts.against is not None:
+        ratio = (result[("shipped", SHAPES[0][0])][0]
+                 / result[("against", SHAPES[0][0])][0])
+        print(f"{SHAPES[0][0]}: shipped E / against E {ratio:.4f}")
+        if not same_bits(libs):
+            raise SystemExit("E's bits differ from the other tree's")
     return result
 
 

@@ -9,9 +9,10 @@ device time per iteration, and its top ops, back with utils/xprof
 library's flash attention forward and forward + backward (SDPBackend.
 FLASH_ATTENTION, a yardstick the port never calls) at lm_base's attention
 shape (b*h = 96, s = 2048, d = 64, causal, bf16). Executed TFLOP/s count
-the 64 x 64 tiles a causal pass of this repo's kernels visits: 2 products
-forward, 7 backward (F recomputes s and dp for dK, dV; G recomputes them
-for dQ); the library rows use the same count.
+the tiles a causal pass of this repo's kernels visits (E's 128 x 64, F's
+and G's 64 x 64): 2 products forward, 7 backward (F recomputes s and dp
+for dK, dV; G recomputes them for dQ); the library rows use the same
+count.
 """
 
 from __future__ import annotations
@@ -21,7 +22,8 @@ import torch
 from ddp_practice_tpu_torch.experiments.flash_4d import trace_chain
 from ddp_practice_tpu_torch.experiments.flash_ablate import library_flash
 from ddp_practice_tpu_torch.experiments.flash_variants import (
-    BH, D, S, TILE, card_line, inputs, require_card, v1, visible_fraction,
+    BWD_TILE, E_TILE, card_line, executed_fwd_flops, inputs, require_card,
+    v1,
 )
 from ddp_practice_tpu_torch.utils.flops import chip_peak_flops
 
@@ -58,9 +60,8 @@ def main() -> dict:
     print(f"card: {card_line()}", flush=True)
     peak = chip_peak_flops(torch.cuda.get_device_name(0)) or float("nan")
     q, k, v = inputs()
-    vis = visible_fraction(S, S, TILE, TILE, True)
-    fwd_fl = BH * 2 * 2.0 * S * S * D * vis
-    bwd_fl = BH * 7 * 2.0 * S * S * D * vis
+    fwd_fl = executed_fwd_flops(E_TILE)
+    bwd_fl = 3.5 * executed_fwd_flops(BWD_TILE)   # 7 products, not 2
     results = {}
     for name, fn, fl in [
         ("ours fwd", v1, fwd_fl),

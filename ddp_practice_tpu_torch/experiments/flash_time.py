@@ -17,8 +17,8 @@ import torch
 from ddp_practice_tpu_torch.experiments.flash_ablate import library_flash
 from ddp_practice_tpu_torch.experiments.flash_profile import fwd_bwd
 from ddp_practice_tpu_torch.experiments.flash_variants import (
-    BH, D, S, TILE, card_line, inputs, require_card, timed, v1,
-    visible_fraction,
+    BWD_TILE, E_TILE, card_line, executed_fwd_flops, inputs, require_card,
+    timed, v1,
 )
 from ddp_practice_tpu_torch.utils.flops import chip_peak_flops
 
@@ -28,9 +28,8 @@ def main() -> dict:
     print(f"card: {card_line()}", flush=True)
     peak = chip_peak_flops(torch.cuda.get_device_name(0)) or float("nan")
     q, k, v = inputs()
-    vis = visible_fraction(S, S, TILE, TILE, True)
-    fwd_fl = BH * 2 * 2.0 * S * S * D * vis
-    bwd_fl = BH * 7 * 2.0 * S * S * D * vis
+    fwd_fl = executed_fwd_flops(E_TILE)
+    bwd_fl = 3.5 * executed_fwd_flops(BWD_TILE)   # 7 products, not 2
     results = {}
     for name, fn, fl in [
         ("ours fwd", v1, fwd_fl),

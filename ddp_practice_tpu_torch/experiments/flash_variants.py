@@ -17,10 +17,12 @@ TFLOP/s against the card's bf16 peak (utils/flops.chip_peak_flops).
               column, exp2 with log2(e) folded into the scale.
 
 The kernels are the compile-time variants of E in csrc/flash_attention.cu
-(`flash_forward_variant`). They tile at 64 rows whatever block_q/block_k
-say, so the reference's block-size rows (v5h2 at block_q 1024 or block_k
-2048) are not repeated, and executed FLOPs count the 64 x 64 tiles a
-causal pass visits.
+(`flash_forward_variant`): E's body with one lever changed. They choose
+their own tiles whatever block_q/block_k say (`fa.VARIANT_TILES`: E's
+128 queries x 64 keys, 64 x 64 for v5h4), so the reference's block-size
+rows (v5h2 at block_q 1024 or block_k 2048) are not repeated, and each
+row's executed FLOPs count the tiles a causal pass of its own kernel
+visits (`executed_fwd_flops`).
 
 Timing (`timed`): chains of K1 = 4 and K2 = 16 calls, each output fed in
 as the next q, between CUDA events; the best of 5 of each, and the slope
@@ -39,7 +41,10 @@ from ddp_practice_tpu_torch.ops import flash_attention as fa
 from ddp_practice_tpu_torch.utils.flops import chip_peak_flops
 
 BH, S, D = 96, 2048, 64        # lm_base: b = 8, h = 12
-TILE = 64                      # the kernels' query and key tiles
+# (queries, keys) tiles of the kernels at d = 64: E's FwdTile<64>, which
+# the one-head variants share, and F's and G's BwdTile<64>
+E_TILE = fa.VARIANT_TILES["v2"][1:]
+BWD_TILE = (64, 64)
 
 
 def fwd_call(version, q, k, v, *, causal=True, block_q=512, block_k=1024,
@@ -71,6 +76,13 @@ def visible_fraction(seq_q, seq_k, block_q, block_k, causal):
         if qi * block_q + block_q - 1 + offset >= kj * block_k
     )
     return vis / (nq * nk)
+
+
+def executed_fwd_flops(tile, causal=True):
+    """The forward's dot FLOPs at (BH, S, D), 2 products of 2*s*s*d a
+    head, over the (queries, keys) tiles of size `tile` that a pass
+    visits."""
+    return BH * 2 * 2.0 * S * S * D * visible_fraction(S, S, *tile, causal)
 
 
 def timed(fn, args, K1=4, K2=16, reps=5):
@@ -124,9 +136,7 @@ def main() -> dict:
     print(f"card: {card_line()}", flush=True)
     peak = chip_peak_flops(torch.cuda.get_device_name(0))
     q, k, v = inputs()
-    vis = visible_fraction(S, S, TILE, TILE, True)
-    # executed fwd dots: 2 dots x 2*s*s*d per head, over visited tiles
-    fwd_flops = BH * 2 * 2.0 * S * S * D * vis
+    tiles = {name: tile[1:] for name, tile in fa.VARIANT_TILES.items()}
 
     ref = v1(q, k, v).float()
     errors = {}
@@ -139,17 +149,20 @@ def main() -> dict:
         print(f"{name} max abs diff vs v1: {errors[name]:.2e}", flush=True)
 
     cases = [
-        ("v1_E", v1),
-        ("v2_bf16", lambda q, k, v: fwd_call("v2", q, k, v)),
-        ("v3_sumfold", lambda q, k, v: fwd_call("v3", q, k, v)),
-        ("v4_2head", lambda q, k, v: fwd_call("v4", q, k, v)),
-        ("v5h2", lambda q, k, v: fwd_v5_call(q, k, v, n_heads=2)),
-        ("v5h4", lambda q, k, v: fwd_v5_call(q, k, v, n_heads=4)),
+        ("v1_E", v1, E_TILE),
+        ("v2_bf16", lambda q, k, v: fwd_call("v2", q, k, v), tiles["v2"]),
+        ("v3_sumfold", lambda q, k, v: fwd_call("v3", q, k, v),
+         tiles["v3"]),
+        ("v4_2head", lambda q, k, v: fwd_call("v4", q, k, v), tiles["v4"]),
+        ("v5h2", lambda q, k, v: fwd_v5_call(q, k, v, n_heads=2),
+         tiles["v5h2"]),
+        ("v5h4", lambda q, k, v: fwd_v5_call(q, k, v, n_heads=4),
+         tiles["v5h4"]),
     ]
     results = {}
-    for name, fn in cases:
+    for name, fn, tile in cases:
         ms = timed(fn, (q, k, v))
-        tflops = fwd_flops / (ms / 1e3) / 1e12
+        tflops = executed_fwd_flops(tile) / (ms / 1e3) / 1e12
         results[name] = (ms, tflops)
         share = (f"{100 * tflops * 1e12 / peak:.1f}% of bf16 peak"
                  if peak else "peak unknown")

@@ -41,10 +41,11 @@ bound: PERF.md.
 The reference's ablations of the forward (experiments/flash_variants.py,
 flash_ablate.py, flash_4d.py; row #12 of the kernel table) are here too:
 `flash_forward_variant` runs compile-time variants of E
-(`flash_fwd_variant_kernel`: v2, v3, v4, v5, nomax; see that section of
-the .cu for what each computes) on folded bf16 operands at head_dim 64;
-their launches are counted in `VARIANT_LAUNCHES` and their plain version
-is `flash_forward_variant_plain`. The reference's 4D-grid forward needs no
+(`flash_fwd_tc_kernel<64, NH, KIND>`: v2, v3, v4, v5, nomax; E's kernel
+with one lever changed, see that section of the .cu) on folded bf16
+operands at head_dim 64, on the tiles of `VARIANT_TILES`; their launches
+are counted in `VARIANT_LAUNCHES` and their plain version is
+`flash_forward_variant_plain`. The reference's 4D-grid forward needs no
 entry of its own: `flash_attention` already runs E on the (b, s, h, d)
 strides.
 
@@ -234,7 +235,23 @@ def _masked(i0, bq, j0, bk, offset, dev):
 # the forward variants: {name: (kernel code, heads per block allowed)}
 VARIANTS = {"v2": (0, (1,)), "v3": (1, (1,)), "v4": (2, (2,)),
             "v5": (3, (2, 4)), "nomax": (4, (1,))}
+# the kind of E itself in the .cu's flash_fwd_tc_kernel<D, NH, KIND>
+# (kFwdE); the variants' kinds are their codes above
+E_KIND = 5
+# their kernels' tiles, the .cu's FwdPlan<64, NH, KIND> (E's at d = 64,
+# one 16-row tile a warp at four heads a block): {row: (heads a block,
+# queries a head, keys a tile)}
+VARIANT_TILES = {"v2": (1, 128, 64), "v3": (1, 128, 64), "v4": (2, 128, 64),
+                 "v5h2": (2, 128, 64), "v5h4": (4, 64, 64),
+                 "nomax": (1, 128, 64)}
 _LOG2E = 1.4426950408889634
+
+
+def fwd_kernel_name(d: int, n_heads: int = 1, kind: int = E_KIND) -> str:
+    """The bf16 forward kernel's name as ptxas and the profiler print it:
+    E at head_dim d by default, a variant with its heads a block and
+    kind."""
+    return f"flash_fwd_tc_kernel<{d}, {n_heads}, {kind}>"
 
 
 def _variant_heads(variant: str, n_heads: Optional[int]) -> int:
@@ -262,7 +279,7 @@ def _variant_forward(q, k, v, *, variant, causal, block_q, block_k):
     """A variant's arithmetic over folded (bh, s, d) operands, tile by
     tile over block_q x block_k tiles as the reference's grid runs (a
     ragged last tile where a block does not divide the length, as the
-    kernel's 64-row tiles): returns (out before its bf16 rounding, lse),
+    kernel's 64-key tiles): returns (out before its bf16 rounding, lse),
     both fp32."""
     bh, sq, d = q.shape
     sk = k.shape[1]
@@ -548,8 +565,8 @@ def flash_forward_variant(q, k, v, *, variant: str, causal: bool = True,
     "v2", "v3", "v4", "v5" or "nomax"; `n_heads` is v5's heads per block
     (2 or 4; v4 runs 2). No autograd: the ablations time the forward.
     `block_q`/`block_k` tile the plain version only (the kernel's tiles
-    are 64 rows); "nomax" overflows once a score passes ~88 (a cost
-    probe)."""
+    are `VARIANT_TILES`); "nomax" overflows once a score passes ~88 (a
+    cost probe)."""
     nh = _check_variant_operands(q, k, v, variant, n_heads, causal)
     if not _use_kernel(impl, q):
         return flash_forward_variant_plain(
@@ -682,6 +699,24 @@ def occupancy(d: int) -> dict:
         out[name] = dict(zip(("smem_bytes", "threads", "blocks_per_sm"),
                              (v.value for v in vals)))
     return out
+
+
+def variant_occupancy(variant: str, n_heads: int) -> dict:
+    """A variant kernel's footprint on this card, as `occupancy`'s:
+    {"smem_bytes", "threads", "blocks_per_sm"}."""
+    lib = _library()
+    entry = lib.flash_fwd_variant_occupancy
+    entry.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 3
+    entry.restype = ctypes.c_int
+    vals = [ctypes.c_int() for _ in range(3)]
+    rc = entry(
+        VARIANTS[variant][0], n_heads, *(ctypes.byref(v) for v in vals))
+    if rc != 0:
+        raise RuntimeError(f"flash_fwd_variant_occupancy({variant}, "
+                           f"{n_heads}): "
+                           + _ERRORS.get(rc, f"cudaError_t {rc}"))
+    return dict(zip(("smem_bytes", "threads", "blocks_per_sm"),
+                    (v.value for v in vals)))
 
 
 def _launch_variant(q, k, v, variant, n_heads, causal):

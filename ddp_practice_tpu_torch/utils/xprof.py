@@ -29,28 +29,31 @@ from __future__ import annotations
 import collections
 import json
 import os
+import re
 import sys
 
 _DEVICE_CATS = {"cuda": ("kernel", "gpu_memcpy", "gpu_memset"),
                 "cpu": ("cpu_op",)}
-# (category, substrings of the lower-cased kernel name); the first match
-# wins, so the library's attention kernels (PyTorch's flash namespace
-# `pytorch_flash`, the memory-efficient `fmha_*`, cuDNN's `*sdpa*`) come
-# before the repo's own flash kernels, and the variants before kernel E
-_KINDS = (
-    ("library attention", ("pytorch_flash", "fmha", "sdpa")),
-    ("flash variants", ("flash_fwd_variant",)),
-    ("flash E", ("flash_fwd",)),
-    ("flash F", ("flash_bwd_dkdv",)),
-    ("flash G", ("flash_bwd_dq",)),
-    ("fused H", ("fused_encoder_fwd",)),
-    ("fused I reduce", ("fused_encoder_reduce",)),
-    ("fused I", ("fused_encoder_bwd",)),
-    ("grouped K", ("tgmm",)),           # K and its second pass
-    ("grouped J", ("gmm_kernel",)),
-    ("decode A-D", ("decode_attention",)),
-    ("matmul", ("gemm", "cutlass", "xmma", "nvjet", "gemv")),
-)
+# (category, a pattern searched in the lower-cased kernel name); the
+# first match wins, so the library's attention kernels (PyTorch's flash
+# namespace `pytorch_flash`, the memory-efficient `fmha_*`, cuDNN's
+# `*sdpa*`) come before the repo's own flash kernels, and E's variants
+# (flash_fwd_tc_kernel<d, heads, kind> of kinds 0-4; E's kind is 5)
+# before kernel E
+_KINDS = tuple((kind, re.compile(pattern)) for kind, pattern in (
+    ("library attention", "pytorch_flash|fmha|sdpa"),
+    ("flash variants", r"flash_fwd_tc_kernel<\d+, \d+, [0-4]>"),
+    ("flash E", "flash_fwd"),
+    ("flash F", "flash_bwd_dkdv"),
+    ("flash G", "flash_bwd_dq"),
+    ("fused H", "fused_encoder_fwd"),
+    ("fused I reduce", "fused_encoder_reduce"),
+    ("fused I", "fused_encoder_bwd"),
+    ("grouped K", "tgmm"),              # K and its second pass
+    ("grouped J", "gmm_kernel"),
+    ("decode A-D", "decode_attention"),
+    ("matmul", "gemm|cutlass|xmma|nvjet|gemv"),
+))
 
 
 def category(name: str, cat: str) -> str:
@@ -60,8 +63,8 @@ def category(name: str, cat: str) -> str:
     if cat == "cpu_op":
         return cat
     low = name.lower()
-    for kind, needles in _KINDS:
-        if any(n in low for n in needles):
+    for kind, pattern in _KINDS:
+        if pattern.search(low):
             return kind
     return "other"
 

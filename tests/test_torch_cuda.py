@@ -616,24 +616,15 @@ VARIANT_CASES = [(v, n, c) for v, n in (("v2", 1), ("v3", 1), ("v4", 2),
                  for c in (True, False)] + [("nomax", 1, True)]
 
 
-@pytest.mark.parametrize("shape", [(8, 512, 512), (96, 2048, 2048),
-                                   (8, 200, 328)])
-@pytest.mark.parametrize("variant,n_heads,causal", VARIANT_CASES)
-def test_flash_variant_kernels_match_plain(card, variant, n_heads, causal,
-                                           shape):
-    """Each variant against its plain version on the kernel's own 64 x 64
-    tiles (so the same running max): out at the bf16 limits above; lse
-    within 1e-4 where l sums fp32 p, within 2^-8 where it sums the rounded
-    p (v3, v5: scores that differ in their last fp32 bits can round a p
-    the other way, which moves l by at most 2^-8 of itself), and there
-    the mean lse error stays under a tenth of the mean distance from plain
-    v2 (which sums fp32 p): the kernel computes the sum-fold, not v2's
-    sum; (8, 200, 328) has ragged tiles and, causal, a bottom-right
-    offset."""
-    bh, sq, sk = shape
-    q = _randn(bh, sq, 64, dtype=torch.bfloat16, seed=sq)
-    k = _randn(bh, sk, 64, dtype=torch.bfloat16, seed=sk + 1)
-    v = _randn(bh, sk, 64, dtype=torch.bfloat16, seed=sk + 2)
+def _variant_check(q, k, v, variant, n_heads, causal):
+    """The kernel route of one variant, its launch counted under its row,
+    against its plain version on 64-key tiles (so the same running max):
+    out at the bf16 limits above; lse within 1e-4 where l sums fp32 p,
+    within 2^-8 where it sums the rounded p (v3, v5: scores that differ in
+    their last fp32 bits can round a p the other way, which moves l by at
+    most 2^-8 of itself), and there the mean lse error stays under a tenth
+    of the mean distance from plain v2 (which sums fp32 p): the kernel
+    computes the sum-fold, not v2's sum."""
     kw = dict(variant=variant, n_heads=n_heads, causal=causal)
     row = f"flash_fwd_{variant}" + (f"h{n_heads}" if variant == "v5" else "")
     before = fa.VARIANT_LAUNCHES[row]
@@ -653,6 +644,37 @@ def test_flash_variant_kernels_match_plain(card, variant, n_heads, causal,
             q, k, v, variant="v2", causal=causal, block_q=64, block_k=64)
         gap = float((want_lse - v2_lse).abs().mean())
         assert float((lse - want_lse).abs().mean()) <= 0.1 * gap
+
+
+@pytest.mark.parametrize("shape", [(8, 512, 512), (96, 2048, 2048),
+                                   (8, 200, 328), (8, 300, 300),
+                                   (8, 130, 400)])
+@pytest.mark.parametrize("variant,n_heads,causal", VARIANT_CASES)
+def test_flash_variant_kernels_match_plain(card, variant, n_heads, causal,
+                                           shape):
+    """Each variant against its plain version (`_variant_check`); (8, 200,
+    328), (8, 300, 300) and (8, 130, 400) have ragged query and key tiles
+    (s_q not a multiple of the 128- or 64-query blocks) and, causal, a
+    bottom-right offset."""
+    bh, sq, sk = shape
+    q = _randn(bh, sq, 64, dtype=torch.bfloat16, seed=sq)
+    k = _randn(bh, sk, 64, dtype=torch.bfloat16, seed=sk + 1)
+    v = _randn(bh, sk, 64, dtype=torch.bfloat16, seed=sk + 2)
+    _variant_check(q, k, v, variant, n_heads, causal)
+
+
+@pytest.mark.parametrize("variant,n_heads,causal", VARIANT_CASES)
+def test_flash_variant_unaligned_operands_match_plain(card, variant, n_heads,
+                                                      causal):
+    """q, k and v as views of (b*h, s, 65) buffers: their rows are not 16
+    bytes apart, so the kernel stages them with plain loads at the same
+    points of the schedule (v5's padded copy of v is its own, aligned);
+    held as `_variant_check` holds the aligned operands."""
+    bh, sq, sk = 8, 300, 328
+    q, k, v = (_randn(bh, s, 65, dtype=torch.bfloat16, seed=i)[..., :64]
+               for i, s in enumerate((sq, sk, sk)))
+    assert q.stride(1) == 65
+    _variant_check(q, k, v, variant, n_heads, causal)
 
 
 @pytest.mark.parametrize("b,s,h", [(2, 200, 4), (8, 2048, 12)])

@@ -13,13 +13,20 @@ ddp_practice_tpu_torch/experiments/flash_*.py) on the CPU.
   P.V, the output), sums in another order.
 - v3 and v5 are not v2: their l is the sum of the ROUNDED p (column d of
   bf16(p).[v | 1]), v2's the fp32 sum of p; pinned on lse.
-- An emulation of the CUDA kernel's block schedule (64-row tiles, grid
-  (query tiles, b*h / heads per block), the per-head loop inside each key
-  tile, the zero-padded staging, the ones column tile or the padded V's
-  first d+16 columns, the block-level causal skip) against the plain
-  version on the same 64 x 64 tiles, fp32 before the output's rounding:
-  1e-5. The emulation also stands in for the launch, so the wrapper's
-  route (v5's padding, the launch counts) runs as on the card.
+- An emulation of the CUDA kernel's block schedule against the plain
+  version on 64-key tiles, fp32 before the output's rounding: 1e-5. It
+  keeps the kernel's plan (`VARIANT_TILES`, pinned to the .cu's
+  `FwdPlan`): blocks of 128 queries (64 at four heads a block), grid
+  (query tiles, b*h / heads a block), a group of E's warps a head walking
+  the same 64-key tiles of the ring, zero-filled staging, unscaled q, the
+  scores times the scale, masked and past-the-end keys at p = 0, the
+  block-level causal skip, l from one more n8 product (v3: ones made in
+  registers; v5: the padded V's columns d..d+7 as they came) or from the
+  fp32 sum of p. Its exponentials are the plain version's (the kernel's
+  ex2.approx forms move p's bf16 rounding at a few elements, which the
+  card tests hold at the bf16 limits). The emulation also stands in for
+  the launch, so the wrapper's route (v5's padding, the launch counts)
+  runs as on the card.
 - `fwd4d` (`flash_attention`: kernel E's packed route on (b, s, h, d)
   strides) against the reference's 4D-grid kernel in interpret mode and
   against the fold-and-transpose path; its kernel route launches E on
@@ -138,77 +145,83 @@ def test_sumfold_variants_sum_the_rounded_p():
 
 
 # ------------------------------------------------ the kernel's schedule
-def _stage(src, row0, n, cols):
-    """A (64, cols) staging tile: rows [row0, row0 + n) of src, zeros
-    past n."""
-    tile = torch.zeros((ROWS, cols))
+def _stage(src, row0, n, rows, cols):
+    """A (rows, cols) staging tile: columns [0, cols) of rows [row0, row0
+    + n) of src, zeros past n."""
+    tile = torch.zeros((rows, cols))
     tile[:n] = src[row0:row0 + n, :cols].float()
     return tile
 
 
+def _row(variant, n_heads):
+    return variant + (f"h{n_heads}" if variant == "v5" else "")
+
+
 def _emulate_kernel(q, k, v, variant, n_heads, causal):
-    """flash_fwd_variant_kernel's schedule in torch, block by block, on
-    what the C entry receives (v5: v padded to d+64): returns (out before
-    its bf16 rounding, lse), fp32."""
+    """flash_fwd_variant_kernel's schedule in torch, block by block and
+    head group by head group, on what the C entry receives (v5: v padded
+    to d+64): returns (out before its bf16 rounding, lse), fp32."""
     bh, sq, d = q.shape
     sk = k.shape[1]
+    heads, bq, bk = fa.VARIANT_TILES[_row(variant, n_heads)]
+    assert heads == n_heads
     sumfold, vpad = variant in ("v3", "v5"), variant == "v5"
     nomax = variant == "nomax"
-    width = d + 16 if sumfold else d
     ex = torch.exp2 if vpad else torch.exp
     scale = fa._score_scale(variant, d)
     offset = sk - sq if causal else 0
     out = torch.zeros((bh, sq, d))
     lse = torch.zeros((bh, sq))
-    ones = torch.zeros((ROWS, 16))
+    ones = torch.zeros((bk, 8))           # v3's B fragment: column 0
     ones[:, 0] = 1.0
-    rows = torch.arange(ROWS)
+    qi = torch.arange(bq)[:, None]
+    kj = torch.arange(bk)[None, :]
     for by in range(bh // n_heads):                    # blockIdx.y
-        head0 = by * n_heads
-        for bx in range(math.ceil(sq / ROWS)):         # blockIdx.x
-            q0 = bx * ROWS
-            nq = min(ROWS, sq - q0)
-            s_q = [_stage(q[head0 + h], q0, nq, d) for h in range(n_heads)]
-            s_o = [torch.zeros((ROWS, width)) for _ in range(n_heads)]
-            m = [torch.full((ROWS,), -math.inf) for _ in range(n_heads)]
-            l = [torch.zeros(ROWS) for _ in range(n_heads)]
+        for bx in range(math.ceil(sq / bq)):           # blockIdx.x
+            q0 = bx * bq
+            nq = min(bq, sq - q0)
             k_end = min(sk, q0 + nq - 1 + offset + 1) if causal else sk
-            for k0 in range(0, k_end, ROWS):
-                nk = min(ROWS, sk - k0)
-                for h in range(n_heads):
-                    s_k = _stage(k[head0 + h], k0, nk, d)
-                    if vpad:
-                        s_v = _stage(v[head0 + h], k0, nk, width)
-                    else:
-                        s_v = _stage(v[head0 + h], k0, nk, d)
-                        if sumfold:
-                            s_v = torch.cat([s_v, ones], dim=1)
-                    s = (s_q[h] @ s_k.T) * scale
-                    qi, kj = q0 + rows[:, None], k0 + rows[None, :]
-                    s = s.masked_fill(causal & (kj > qi + offset), -1e30)
-                    s = s.masked_fill(kj >= sk, -math.inf)
+            for grp in range(n_heads):                 # a head's warps
+                head = by * n_heads + grp
+                q_t = _stage(q[head], q0, nq, bq, d)
+                m = torch.full((bq,), -math.inf)
+                l = torch.zeros(bq)
+                acc = torch.zeros((bq, d))
+                acc_l = torch.zeros((bq, 8))
+                for k0 in range(0, k_end, bk):         # the ring's tiles
+                    nk = min(bk, sk - k0)
+                    k_t = _stage(k[head], k0, nk, bk, d)
+                    v_t = _stage(v[head], k0, nk, bk, d)
+                    o_t = (_stage(v[head], k0, nk, bk, d + 8)[:, d:] if vpad
+                           else ones)
+                    s = (q_t @ k_t.T) * scale
+                    hidden = (k0 + kj >= sk) | (
+                        causal & (k0 + kj > q0 + qi + offset))
+                    s = s.masked_fill(hidden, -math.inf)
                     if nomax:
-                        alpha, shift = torch.ones(ROWS), 0.0
+                        p, alpha = torch.exp(s), torch.ones(bq)
                     else:
-                        m_new = torch.maximum(m[h], s.amax(-1))
-                        alpha, m[h] = ex(m[h] - m_new), m_new
-                        shift = m_new[:, None]
-                    p = ex(s - shift)
-                    if not sumfold:
-                        l[h] = alpha * l[h] + p.sum(-1)
-                    s_o[h] = (s_o[h] * alpha[:, None]
-                              + p.bfloat16().float() @ s_v)
-            for h in range(n_heads):
-                ls = (s_o[h][:, d] if sumfold else l[h]).clamp_min(1e-30)
-                out[head0 + h, q0:q0 + nq] = (s_o[h][:, :d]
-                                              / ls[:, None])[:nq]
+                        m_new = torch.maximum(m, s.amax(-1))
+                        alpha, m = ex(m - m_new), m_new
+                        p = ex(s - m_new[:, None])
+                    pb = p.bfloat16().float()
+                    acc = acc * alpha[:, None] + pb @ v_t
+                    if sumfold:
+                        acc_l = acc_l * alpha[:, None] + pb @ o_t
+                    else:
+                        l = alpha * l + p.sum(-1)
+                if sumfold:        # the quad's sum of the n8 fragment
+                    l = acc_l.sum(-1)
+                o = acc * torch.where(l > 0, 1.0 / l, 0.0)[:, None]
+                out[head, q0:q0 + nq] = o[:nq]
+                ls = l.clamp_min(1e-30)
                 if nomax:
                     row_lse = torch.log(ls)
                 elif vpad:
-                    row_lse = (m[h] + torch.log2(ls)) * (1.0 / fa._LOG2E)
+                    row_lse = (m + torch.log2(ls)) * (1.0 / fa._LOG2E)
                 else:
-                    row_lse = m[h] + torch.log(ls)
-                lse[head0 + h, q0:q0 + nq] = row_lse[:nq]
+                    row_lse = m + torch.log(ls)
+                lse[head, q0:q0 + nq] = row_lse[:nq]
     return out, lse
 
 
@@ -223,7 +236,9 @@ SCHEDULE_CASES = VARIANT_CASES + [("nomax", 1)]
 
 @pytest.mark.parametrize("sq,sk,causal", [(192, 192, True),
                                           (192, 192, False),
-                                          (128, 256, True)])
+                                          (128, 256, True),
+                                          (130, 400, True),
+                                          (300, 328, False)])
 @pytest.mark.parametrize("variant,n_heads", SCHEDULE_CASES)
 def test_block_schedule_matches_plain(variant, n_heads, sq, sk, causal):
     q, k, v = (_bf16(a) for a in _inputs(
@@ -266,9 +281,43 @@ def test_kernel_route_counts_and_matches_plain(emulated_launches, variant,
     _assert_bf16_close(out.float(), want.float())
     # the tiles differ (64 against 200): so do m and the rounded p
     torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=0)
-    row = f"flash_fwd_{variant}" + (f"h{n_heads}" if variant == "v5" else "")
+    row = f"flash_fwd_{_row(variant, n_heads)}"
     assert {n: c for n, c in fa.VARIANT_LAUNCHES.items() if c} == {row: 1}
     assert not any(fa.LAUNCHES.values())
+
+
+def test_variant_tiles_match_the_source():
+    """VARIANT_TILES is the .cu's FwdPlan<64, NH, KIND> over E's FwdTile<64>
+    (four warps, two 16-row tiles a warp, 64-key tiles): a group of E's
+    warps a head, one row tile a warp at four heads a block; each
+    variant's heads a block is a case of the C entry's `with_variant`;
+    E_KIND is E's kind in the kernel template's arguments."""
+    from ddp_practice_tpu_torch.ops import cuda_build
+
+    source = (cuda_build.CSRC / "flash_attention.cu").read_text()
+    plan = source[source.index("template <int D, int NH, int KIND> struct "
+                               "FwdPlan"):]
+    plan = plan[:plan.index("};")]
+    assert "RT = NH == 4 ? 1 : E::RT;" in plan
+    assert "QUERIES = 16 * RT * E::WARPS;" in plan
+    assert "THREADS = E::THREADS * NH;" in plan
+    tile = source[source.index("template <int D> struct FwdTile"):]
+    tile = tile[:tile.index("};")]
+    assert "WARPS = 4;" in tile and "RT = D <= 64 ? 2 : 1;" in tile
+    assert "KEYS = D == 256 ? 32 : 64;" in tile
+    want = {}
+    for variant, (code, allowed) in fa.VARIANTS.items():
+        kind = ("kVarV2", "kVarV3", "kVarV4", "kVarV5", "kVarNoMax")[code]
+        for nh in allowed:
+            assert (f"case {kind} * 8 + {nh}:\n      return f(integral_"
+                    f"constant<int, {nh}>()") in source, (variant, nh)
+            want[_row(variant, nh)] = (nh, 16 * (1 if nh == 4 else 2) * 4,
+                                       64)
+    assert fa.VARIANT_TILES == want
+    # E's own kind follows the variants' codes in the kernel's enum
+    assert ("enum FwdKind { kVarV2 = 0, kVarV3, kVarV4, kVarV5, kVarNoMax, "
+            "kFwdE };") in source and fa.E_KIND == 5
+    assert fa.fwd_kernel_name(64, 4, 3) == "flash_fwd_tc_kernel<64, 4, 3>"
 
 
 def test_variant_refusals():
@@ -288,6 +337,21 @@ def test_variant_refusals():
         fa.flash_forward_variant(q, q, q, variant="v2", impl="kernel")
     with pytest.raises(ValueError, match="launches the CUDA kernels"):
         flash_4d.fwd4d(q[None], q[None], q[None], impl="kernel")
+
+
+@pytest.mark.parametrize("name", ["shipped", "one block barrier",
+                                  "v5h4 qs in registers"])
+def test_variant_levers_apply_to_the_source(name):
+    """experiments/flash_variant_levers.py undoes one choice of the
+    variants' plan an entry, by text substitutions that must each find
+    their text once; a stale entry would fail on the card only."""
+    from ddp_practice_tpu_torch.experiments import flash_variant_levers as lv
+    from ddp_practice_tpu_torch.ops import cuda_build
+
+    assert list(lv.LEVERS) == ["shipped", "one block barrier",
+                               "v5h4 qs in registers"]
+    shipped = (cuda_build.CSRC / "flash_attention.cu").read_text()
+    assert (lv.lever_source(name) == shipped) == (name == "shipped")
 
 
 # --------------------------------------------------------------- fwd4d

@@ -26,11 +26,11 @@ from ddp_practice_tpu_torch.utils import profiling, xprof
 # files: the suite runs several workers on one machine
 torch.set_num_threads(1)
 
-E = "void (anonymous namespace)::flash_fwd_tc_kernel<64>((anonymous namespace)::Params)"
+E = "void (anonymous namespace)::flash_fwd_tc_kernel<64, 1, 5>((anonymous namespace)::Params)"
 F = "void (anonymous namespace)::flash_bwd_dkdv_tc_kernel<64>((anonymous namespace)::Params)"
 GEMM = "nvjet_tst_256x128_64x4_1x2_h_bz_coopA_bias_TNT"
 ELEM = "void at::native::vectorized_elementwise_kernel<4, at::native::CUDAFunctor_add<float>>"
-VARIANT = "void (anonymous namespace)::flash_fwd_variant_kernel<64, 2, 2>((anonymous namespace)::VarParams)"
+VARIANT = "void (anonymous namespace)::flash_fwd_tc_kernel<64, 2, 2>((anonymous namespace)::Params)"
 
 
 def _ev(cat, name, dur, tid=7, **args):
