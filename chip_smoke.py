@@ -163,7 +163,37 @@ Phases, each of which raises on failure (nothing is caught and passed):
    the sorted path on the kernels and on their plain versions give one
    loss (2e-5) and grads (5e-4, the reference's tests/test_moe.py); in bf16
    at s=2048 kernels vs plain: loss 1e-3 relative, each grad within 1e-2 of
-   its norm.
+   its norm;
+20. (run right after setup, before any phase that traces: a finished
+   torch.profiler trace adds host time to every later launch in the
+   process, experiments/convnet_step.py) ConvNet/MNIST train, the
+   reference's BASELINE metric: `fit` through
+   the CLI with its defaults (config 1: convnet, MNIST, 3 epochs, batch 32,
+   SGD lr 1e-4, fp32; no MNIST files here, so the synthetic stand-in at
+   60000/10000 images), evaluating after every epoch: images/s per card
+   and the median step (CUDA events between step ends), MFU against the
+   dense bf16 peak, the test accuracy after each epoch and the epochs to
+   91% (reported, not gated); the loss must fall and the last accuracy
+   reach 0.5 (chance 0.1). A bf16 leg of one epoch (config 2's precision
+   on one card; accuracy 0.3 or more), a leg on tests/data/mini_mnist
+   (real-format IDX files, Adam), then phase 21, then one profiled step of
+   the fp32 and the bf16 run (host wall, device busy, idle share, device
+   time by kind: cuDNN convs, matmul, pooling, reductions, elementwise,
+   other);
+21. ConvNet resume on the card: save after each of 2 epochs, truncate the
+   newest manifest, resume a 3-epoch run (it falls back to the epoch-1
+   checkpoint and takes up epoch 2) and hold its final state against an
+   uninterrupted 3-epoch run (cuDNN deterministic for this leg; 1e-5
+   relative, and whether bit-identical);
+22. generate and serve from a checkpoint: lm_base (RoPE, bf16) trains 6
+   steps on the repo's CUDA sources with periodic (asynchronous) and
+   final checkpoints; the lm_base train state's save, save_async and
+   restore wall times; generate.py greedy from the checkpoint with the
+   policy cache (kernel A launches depth x decode steps, nothing else)
+   and `--kv_cache int8` (kernel B likewise); at fp32 the kernel and plain
+   decode give identical greedy tokens for both caches; serve/bench.py
+   `--ckpt_dir` serves 4 prompts through the slot engine and every
+   request completes.
 
 Launch counts are zeroed just before each phase's run and read just
 after it. The second-to-last line is the kernels' JSON record; the last
@@ -274,6 +304,10 @@ TRAIN_ARGS = ["--model", "lm_base", "--attn_impl", "flash", "--precision",
               "bf16", "--optimizer", "adamw", "--lr", "3e-4", "--seq_len",
               "2048", "-b", "8", "-e", "1", "--log_every", "10"]
 TRAIN_STEPS = 30
+# the reference's config 1 is the CLI's defaults (convnet, mnist, 3
+# epochs, batch 32, SGD lr 1e-4, fp32); no MNIST files: the synthetic
+# stand-in at MNIST's 60000/10000 images
+CONVNET_ARGS = ["--data_dir", "build/no_such_data", "--log_every", "0"]
 REPLACES = {
     "decode_attention": "ddp_practice_tpu/ops/decode_attention.py:199",
     "decode_attention_int8": "ddp_practice_tpu/ops/decode_attention.py:279",
@@ -2456,6 +2490,371 @@ def moe_cross_check(torch, gm):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------ ConvNet / MNIST
+def _cli_trainer(argv):
+    """A Trainer from the CLI's parser and config, as `cli.main` builds it."""
+    from ddp_practice_tpu_torch.cli import build_parser, config_from_args
+    from ddp_practice_tpu_torch.train.loop import Trainer
+
+    return Trainer(config_from_args(build_parser().parse_args(argv)))
+
+
+def convnet_train_phase(torch, extra, *, label, gate_accuracy=0.5):
+    """`fit` through the CLI's parser and config with the reference's
+    defaults (convnet, mnist, 3 epochs, batch 32, SGD lr 1e-4, fp32) plus
+    `extra`, evaluating after every epoch. Each step's loss stays on the
+    device and a CUDA event marks its end. Reports images/s per card and
+    the median step (steps after an epoch's eval pass left out), MFU
+    against the dense bf16 peak, the accuracy after each epoch and the
+    first epoch at 91% (reported, not gated: the synthetic set is not
+    MNIST). Checks that the loss fell (mean of the last 50 steps against
+    the first 50) and that the last accuracy is `gate_accuracy` or more
+    (chance is 0.1)."""
+    from ddp_practice_tpu_torch.utils.flops import (
+        chip_peak_flops,
+        train_flops_per_image,
+    )
+
+    trainer = _cli_trainer(CONVNET_ARGS + ["--eval_every", "1"] + extra)
+    config = trainer.config
+    losses, ends, accuracy = [], [], []
+    step, evaluate = trainer.train_step, trainer.evaluate
+
+    def recorded(state, batch):
+        state, metrics = step(state, batch)
+        losses.append(metrics["loss"])
+        ends.append(torch.cuda.Event(enable_timing=True))
+        ends[-1].record()
+        return state, metrics
+
+    def recorded_eval():
+        accuracy.append(evaluate())
+        return accuracy[-1]
+
+    trainer.train_step, trainer.evaluate = recorded, recorded_eval
+    t0 = time.monotonic()
+    summary = trainer.fit()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    loss = [float(x) for x in losses]
+    n = len(trainer.train_loader)
+    if config.max_steps_per_epoch:
+        n = min(n, config.max_steps_per_epoch)
+    step_ms = statistics.median(ends[i - 1].elapsed_time(ends[i])
+                                for i in range(1, len(ends)) if i % n)
+    ds = trainer.train_ds
+    flops = train_flops_per_image("convnet", ds.image_shape,
+                                  ds.num_classes) * trainer.global_batch
+    peak = chip_peak_flops(torch.cuda.get_device_name(0))
+    reached = next((i + 1 for i, a in enumerate(accuracy) if a >= 0.91),
+                   None)
+    report = {
+        "loss": loss, "step_ms": step_ms,
+        "images_per_s": trainer.global_batch / (step_ms / 1e3),
+        "mfu": flops / (step_ms / 1e3) / peak if peak else None,
+        "accuracy": accuracy, "epochs_to_91": reached, "wall_s": wall,
+        "fit_images_per_s": summary["images_per_sec_per_chip"],
+    }
+    w = min(50, len(loss) // 4)
+    head, tail = statistics.fmean(loss[:w]), statistics.fmean(loss[-w:])
+    mfu = "not measured" if peak is None else f"{report['mfu']:.6f}"
+    log(f"convnet train[{label}] {config.model} {config.precision} "
+        f"{config.optimizer} lr {config.learning_rate}, {ds.name} "
+        f"{len(ds)} images {ds.image_shape}, batch {trainer.global_batch}, "
+        f"{config.epochs} epochs x {n} steps, wall {wall:.1f} s: loss mean "
+        f"of the first {w} steps {head:.4f}, of the last {w} {tail:.4f}")
+    log(f"  median step {step_ms:.3f} ms (CUDA events between step ends), "
+        f"{report['images_per_s']:.0f} images/s per card, MFU {mfu} "
+        f"against {(peak or 0) / 1e12:.1f} TFLOP/s ({flops / 1e9:.3f} "
+        f"GFLOP/step analytic); fit's own "
+        f"{report['fit_images_per_s']:.0f} images/s over its train "
+        f"seconds; test accuracy after each epoch "
+        + ", ".join(f"{a:.4f}" for a in accuracy)
+        + "; epochs to 91%: "
+        + (str(reached) if reached else
+           f"not reached (last {accuracy[-1]:.4f})"))
+    if not tail < head:
+        raise AssertionError(f"convnet train[{label}]: loss did not fall "
+                             f"({head:.4f} -> {tail:.4f})")
+    if not accuracy[-1] >= gate_accuracy:
+        raise AssertionError(f"convnet train[{label}]: accuracy "
+                             f"{accuracy[-1]:.4f} < {gate_accuracy}")
+    return trainer, report
+
+
+_CONV_KINDS = (("conv (cuDNN)", "conv|fprop|dgrad|wgrad|cudnn|implicit|"
+                                "winograd|fft"),
+               ("matmul", "gemm|gemv|nvjet|cutlass"),
+               ("pool", "pool"),
+               ("reduce", "reduce"),
+               ("elementwise", "elementwise|vectorized|unrolled"))
+
+
+def convnet_profile(torch, trainer, label):
+    """One ConvNet train step under torch.profiler, after warm steps: host
+    wall per step (ends in a synchronize), device busy time, the device's
+    idle share, device ops per step, and device time by kind (cuDNN
+    convolutions, cuBLAS matmul, pooling, reductions, elementwise,
+    other)."""
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = trainer._to_device(next(iter(trainer.train_loader)))
+    for _ in range(3):
+        trainer.state, _ = trainer.train_step(trainer.state, batch)
+    torch.cuda.synchronize()
+    n = 20
+    t0 = time.perf_counter()
+    for _ in range(n):
+        trainer.state, _ = trainer.train_step(trainer.state, batch)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / n
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.state, _ = trainer.train_step(trainer.state, batch)
+        torch.cuda.synchronize()
+    summary = _profile_summary(prof)
+    if summary is None:
+        log(f"convnet profile[{label}]: torch.profiler recorded no device "
+            f"events; device time not measured (host wall {host_ms:.3f} "
+            f"ms/step)")
+        return
+    kinds = dict.fromkeys([k for k, _ in _CONV_KINDS] + ["other"], 0.0)
+    for (_, name), ps in summary["ops"].items():
+        low = name.lower()
+        kind = next((k for k, rx in _CONV_KINDS if re.search(rx, low)),
+                    "other")
+        kinds[kind] += ps / 1e9
+    device_ms = sum(kinds.values())
+    log(f"convnet profile[{label}] (batch {trainer.global_batch}): host "
+        f"wall {host_ms:.3f} ms/step, device busy {device_ms:.3f} ms/step, "
+        f"device idle share {max(0.0, 1 - device_ms / host_ms):.3f}, "
+        f"{_device_ops(summary)} device ops/step; device time by kind "
+        + ", ".join(f"{k} {v / device_ms:.3f}" for k, v in kinds.items()))
+    _log_top_ops(summary, 1, 8, "us", 100)
+
+
+def _leaves(state) -> dict:
+    from ddp_practice_tpu_torch import checkpoint as ckpt
+
+    return {k: v.detach().float().cpu()
+            for k, v in ckpt.state_leaves(state).items()}
+
+
+def convnet_resume_leg(torch):
+    """Save -> corrupt the newest manifest -> resume, against an
+    uninterrupted run, on the card: the ConvNet (SGD, momentum 0.9, lr
+    0.01) on 3200 synthetic images, 100 steps an epoch. Uninterrupted: 3
+    epochs. Interrupted: 2 epochs with a checkpoint after each, the newest
+    manifest truncated, then a resumed 3-epoch run, which must fall back
+    to the epoch-1 checkpoint. cuDNN is set deterministic for this leg (it
+    picks conv algorithms that may reduce in another order from run to
+    run); the two runs' final states must agree at 1e-5 relative (+1e-6),
+    parameters, buffers and optimizer state, and the leg says whether
+    they are bit-identical."""
+    import shutil
+
+    from ddp_practice_tpu_torch import checkpoint as ckpt
+
+    base = CONVNET_ARGS + ["--synthetic_size", "3200", "--momentum", "0.9",
+                           "--lr", "0.01"]
+    d = "build/smoke_ckpt/convnet"
+    shutil.rmtree(d, ignore_errors=True)
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        t0 = time.monotonic()
+        whole = _cli_trainer(base)
+        whole.fit()
+        first = _cli_trainer(base + ["-e", "2", "--ckpt_dir", d])
+        first.config = first.config.replace(checkpoint_every_epochs=1)
+        first.fit()
+        steps = ckpt.all_steps(d)
+        man = f"{d}/step_{steps[-1]}/manifest.json"
+        with open(man, "rb") as f:
+            torn = f.read()[:40]
+        with open(man, "wb") as f:
+            f.write(torn)
+        t1 = time.monotonic()
+        resumed = _cli_trainer(base + ["--ckpt_dir", d, "--resume"])
+        restore_s = time.monotonic() - t1
+        back_to = resumed.state.step
+        resumed.fit()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    finally:
+        torch.backends.cudnn.deterministic = was
+    want, got = _leaves(whole.state), _leaves(resumed.state)
+    if list(want) != list(got) or whole.state.step != resumed.state.step:
+        raise AssertionError(f"convnet resume: leaves or steps differ "
+                             f"({whole.state.step} vs {resumed.state.step})")
+    worst, exact = 0.0, True
+    for name, w in want.items():
+        err = (got[name] - w).abs()
+        exact &= bool(torch.equal(got[name], w))
+        if (err > 1e-6 + 1e-5 * w.abs()).any():
+            raise AssertionError(f"convnet resume: {name} differs from the "
+                                 f"uninterrupted run by {err.max():.3e}")
+        worst = max(worst, float(err.max()))
+    if back_to != steps[0] or steps != [100, 200]:
+        raise AssertionError(f"convnet resume: checkpoints {steps}, resumed "
+                             f"at step {back_to} (want 100, past the torn "
+                             f"step_200)")
+    log(f"convnet resume (cudnn deterministic): checkpoints at steps "
+        f"{steps}, step_{steps[-1]}'s manifest truncated, resumed at step "
+        f"{back_to} (restore {restore_s * 1e3:.1f} ms incl. building the "
+        f"trainer), final step {resumed.state.step}: "
+        f"{len(want)} leaves {'bit-identical' if exact else 'agree'} with "
+        f"the uninterrupted run (max abs diff {worst:.3e}); wall "
+        f"{wall:.1f} s")
+
+
+def _tokens_text(tokens) -> str:
+    return bytes(int(t) % 256 for t in tokens).decode("utf-8",
+                                                      errors="replace")
+
+
+def checkpoint_timing(torch, trainer):
+    """Wall time on the card of the checkpoint paths over the lm_base
+    train state (params, buffers, AdamW moments): save, save_async's
+    return (the copy to host) and its wait, restore."""
+    import shutil
+
+    from ddp_practice_tpu_torch import checkpoint as ckpt
+
+    d = "build/smoke_ckpt/timing"
+    shutil.rmtree(d, ignore_errors=True)
+    leaves = ckpt.state_leaves(trainer.state)
+    nbytes = sum(t.numel() * 4 for t in leaves.values())
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    ckpt.save(d, trainer.state, step=1)
+    t1 = time.monotonic()
+    handle = ckpt.save_async(d, trainer.state, step=2)
+    t2 = time.monotonic()
+    handle.wait()
+    t3 = time.monotonic()
+    ckpt.restore(d, trainer.state)
+    torch.cuda.synchronize()
+    t4 = time.monotonic()
+    log(f"checkpoint timing (lm_base bf16 train state, {len(leaves)} "
+        f"leaves, {nbytes / 2**20:.0f} MiB as fp32): save {t1 - t0:.3f} s, "
+        f"save_async returns after {t2 - t1:.3f} s (host copies) and "
+        f"publishes after {t3 - t1:.3f} s, restore {t4 - t3:.3f} s")
+    shutil.rmtree(d, ignore_errors=True)
+
+
+def generate_serve_leg(torch, ops):
+    """lm_base (RoPE, bf16, flash, AdamW) trains 6 steps on the bytes of
+    the repo's CUDA sources (`--dataset text`, vocabulary 256, so text
+    prompts are in range) with a checkpoint every 3 steps (asynchronous)
+    and one at the end; then from that checkpoint, through the entry
+    points a user calls:
+    - generate.py greedy (bf16 policy, bf16 parameters streamed): kernel
+      A's launches equal depth x the decode steps, then with `--kv_cache
+      int8` kernel B's; nothing else launches;
+    - at fp32 (load_lm(precision="fp32")), kernel and plain decode
+      (set_decode_impl) give identical greedy tokens, policy cache and
+      int8 cache;
+    - serve/bench.py `--ckpt_dir` serves 4 prompts through the slot
+      engine and every request completes; kernel A launched.
+    Returns the launches of each generate run."""
+    import contextlib
+    import io
+    import shutil
+
+    import ddp_practice_tpu_torch.generate as generate
+    from ddp_practice_tpu_torch import checkpoint as ckpt
+    from ddp_practice_tpu_torch.inference import encode_bytes, make_generate_fn
+    from ddp_practice_tpu_torch.serve import bench
+
+    d = "build/smoke_ckpt/lm_base"
+    shutil.rmtree(d, ignore_errors=True)
+    argv = TRAIN_ARGS + ["--pos_emb", "rope", "--max_steps", "6",
+                         "--ckpt_dir", d, "--ckpt_every", "3",
+                         "--dataset", "text", "--data_dir",
+                         "ddp_practice_tpu_torch/csrc"]
+    trainer = _cli_trainer(argv)
+    t0 = time.monotonic()
+    summary = trainer.fit()
+    torch.cuda.synchronize()
+    steps = ckpt.all_steps(d)
+    log(f"generate leg: lm_base rope bf16 trained {summary['steps']} steps "
+        f"with checkpoints at {steps} in {time.monotonic() - t0:.1f} s "
+        f"(eval accuracy {summary['accuracy']:.4f})")
+    if steps != [3, 6]:
+        raise AssertionError(f"generate leg: checkpoints {steps}")
+    checkpoint_timing(torch, trainer)
+    depth = trainer.model.depth
+    del trainer
+    torch.cuda.empty_cache()
+
+    prompt, new = "__global__ void", 48
+    launches = {}
+    for cache, kernel in (("policy", "decode_attention"),
+                          ("int8", "decode_attention_int8")):
+        ops.reset_launches()
+        out = io.StringIO()
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(out):
+            generate.main(["--ckpt_dir", d, "--prompt", prompt,
+                           "--max_new_tokens", str(new), "--temperature",
+                           "0", "--kv_cache", cache])
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        got = {k: v for k, v in ops.LAUNCHES.items() if v}
+        launches[kernel] = ops.LAUNCHES[kernel]
+        if got != {kernel: depth * new}:
+            raise AssertionError(f"generate[{cache}]: launches {got}, want "
+                                 f"{{{kernel!r}: {depth} x {new}}}")
+        log(f"generate[{cache} cache] (bf16 params streamed): {new} greedy "
+            f"tokens in {wall:.2f} s incl. the checkpoint load, launches "
+            f"{got} = depth {depth} x {new} decode steps; text "
+            f"{out.getvalue().strip()[:60]!r}")
+        torch.cuda.empty_cache()
+
+    ids = torch.from_numpy(encode_bytes(prompt)).long()
+    for cache in ("policy", "int8"):
+        model, _ = generate.load_lm(d, kv_cache=cache, precision="fp32")
+        runs = {}
+        for impl in ("kernel", "plain"):
+            model.set_decode_impl(impl)
+            gen = make_generate_fn(model, max_new_tokens=new,
+                                   temperature=0.0)
+            runs[impl] = gen(ids)[0].tolist()
+        model.set_decode_impl("auto")
+        if runs["kernel"] != runs["plain"]:
+            raise AssertionError(f"generate cross-check fp32 [{cache}]: "
+                                 f"kernel {runs['kernel']} vs plain "
+                                 f"{runs['plain']}")
+        log(f"generate cross-check fp32 [{cache} cache]: kernel and plain "
+            f"greedy tokens identical ({new} tokens: "
+            f"{_tokens_text(runs['kernel'][len(prompt):])[:40]!r})")
+        del model
+        torch.cuda.empty_cache()
+
+    prompts = ["__global__ void", "int ", "#include <", "template <int D>"]
+    ops.reset_launches()
+    t0 = time.monotonic()
+    completions, elapsed, step = bench.serve_checkpoint(
+        d, prompts, max_new_tokens=32, max_slots=4, decode_burst=1)
+    torch.cuda.synchronize()
+    statuses = [c.status for c in completions]
+    if len(completions) != len(prompts) or set(statuses) - {"length",
+                                                             "eos"}:
+        raise AssertionError(f"serve --ckpt_dir: statuses {statuses}")
+    got = {k: v for k, v in ops.LAUNCHES.items() if v}
+    if set(got) != {"decode_attention"}:
+        raise AssertionError(f"serve --ckpt_dir: launches {got}")
+    tokens = sum(len(c.tokens) for c in completions)
+    log(f"serve --ckpt_dir (step {step}, slot engine, 4 slots): "
+        f"{len(prompts)} requests all complete ({statuses}), {tokens} "
+        f"tokens in {elapsed:.2f} s, launches {got}; TTFT "
+        + ", ".join(f"{c.ttft * 1e3:.1f}" for c in completions) + " ms")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2497,6 +2896,23 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas[{name}]: {line.strip()}")
     kernel_resources(cuda_build, fa, gm, fe)
+
+    # the ConvNet's eager steps first: a finished torch.profiler trace
+    # adds host time to every later launch in the process
+    # (experiments/convnet_step.py), and the flash experiments trace
+    conv32, _ = convnet_train_phase(torch, [], label="config 1, fp32")
+    conv16, _ = convnet_train_phase(
+        torch, ["--precision", "bf16", "-e", "1"],
+        label="config 2's precision, bf16, one epoch", gate_accuracy=0.3)
+    convnet_train_phase(torch, ["--data_dir", "tests/data/mini_mnist",
+                                "-b", "16", "--optimizer", "adam", "--lr",
+                                "3e-3"],
+                        label="tests/data/mini_mnist", gate_accuracy=0.3)
+    convnet_resume_leg(torch)
+    convnet_profile(torch, conv32, "fp32")
+    convnet_profile(torch, conv16, "bf16")
+    del conv32, conv16
+    torch.cuda.empty_cache()
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     log(f"kernel phase, flat cache (b, L, cur, dtype; device times are "
@@ -2583,6 +2999,9 @@ def main() -> int:
     cross_check(torch)
     profile_phase(torch, "slot")
     profile_phase(torch, "paged")
+
+    gen_launches = generate_serve_leg(torch, ops)
+    log(f"kernels A and B on the checkpoint's generate path: {gen_launches}")
 
     # each kernel's launches on its main path's run
     launches = {

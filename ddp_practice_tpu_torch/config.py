@@ -47,6 +47,10 @@ class PrecisionPolicy:
             return PrecisionPolicy.bf16()
         raise ValueError(f"unknown precision policy {name!r}")
 
+    @property
+    def name(self) -> str:
+        return "bf16" if self.compute_dtype == torch.bfloat16 else "fp32"
+
 
 def resolve_device(device="cuda") -> torch.device:
     """`device` as a torch.device; a CUDA device must exist."""
@@ -95,9 +99,7 @@ _NOT_PORTED = {
     "num_virtual": "A8", "sp_impl": "A8", "max_restarts": "A8",
     "watchdog_timeout_s": "A8", "sync_check_every_steps": "A8",
     "augment": "A2", "augment_kind": "A2",
-    "checkpoint_dir": "A1", "checkpoint_every_epochs": "A1",
-    "checkpoint_every_steps": "A1", "checkpoint_async": "A1", "resume": "A1",
-    "num_classes": "A1", "loader_backend": "A1",
+    "num_classes": "A2", "loader_backend": "A2",
     "watchdog_probe_every_steps": "A8",
     "steps_per_call": "A3", "resident_max_bytes": "A3",
     "compilation_cache": "A3",
@@ -119,9 +121,12 @@ class TrainConfig:
     - `compilation_cache` (the reference's persistent compile cache; the
       port's eager steps compile nothing), `loader_backend` (the native
       C++ gather), `num_classes` (the datasets carry their own; the
-      override belongs to the imagenet corpus), `checkpoint_async`,
+      override belongs to the imagenet corpus),
       `watchdog_probe_every_steps` and `resident_max_bytes` have no
       counterpart yet: any value but the default raises.
+    - checkpointing (`checkpoint_dir`, `checkpoint_every_epochs`,
+      `checkpoint_every_steps`, `checkpoint_async`, `resume`) has the
+      reference's semantics (train/loop.py, checkpoint/).
     - `coordinator_address`/`num_processes`/`process_id`: a tcp://
       rendezvous for torch.distributed, in place of torchrun's
       environment.

@@ -3,7 +3,7 @@ ddp_practice_tpu/data/datasets.py: the port imports nothing of the JAX
 package, and the same seed must give the same bytes). Ported: `Dataset`,
 the IDX (MNIST) and CIFAR-10 readers, `synthetic_image_classification`
 and `load_dataset`'s `mnist`, `cifar10` and `synthetic*` branches. The
-array-record corpus behind `imagenet` is ROADMAP A1: that name raises.
+array-record corpus behind `imagenet` is ROADMAP A2: that name raises.
 
 The reference consumes `torchvision.datasets.MNIST` with a bare `ToTensor()`
 transform — pixel values scaled to [0, 1], NO mean/std normalization
@@ -195,7 +195,7 @@ def load_dataset(
     if name == "imagenet":
         raise NotImplementedError(
             "dataset 'imagenet' (the array-record corpus) is not ported "
-            "yet (ROADMAP A1)")
+            "yet (ROADMAP A2)")
     if name.startswith("synthetic"):
         n = synthetic_size or (4096 if split == "train" else 1024)
         return synthetic_image_classification(

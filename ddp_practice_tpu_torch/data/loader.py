@@ -3,7 +3,7 @@ part of ddp_practice_tpu/data/loader.py: `DataLoader` and the numpy
 gather; the same (seed, epoch) gives the same batches). The device side
 of the reference's prefetch is `Trainer._device_batches` (train/loop.py):
 pinned host batches copied with `non_blocking=True`, `prefetch` ahead.
-The native C++ gather backend is ROADMAP A1: any backend but "auto"
+The native C++ gather backend is ROADMAP A2: any backend but "auto"
 raises, and "auto" is the numpy gather.
 
 Replaces the reference's `DataLoader(num_workers=4, pin_memory=True)` +
@@ -98,6 +98,6 @@ def _make_gather(backend: str, dataset: Dataset):
     """fn(indices) -> (images, labels): the numpy gather."""
     if backend != "auto":
         raise NotImplementedError(
-            f"loader backend {backend!r} is not ported yet (ROADMAP A1: "
+            f"loader backend {backend!r} is not ported yet (ROADMAP A2: "
             "native_loader); 'auto' is the numpy gather")
     return lambda idx: (dataset.images[idx], dataset.labels[idx])

@@ -24,6 +24,25 @@ from ddp_practice_tpu_torch.models.lm import TransformerLM
 _NEG = -1e30
 
 
+@torch.no_grad()
+def cast_params_for_streaming(model: torch.nn.Module) -> torch.nn.Module:
+    """fp32 parameters -> bf16 in place, for inference-time streaming.
+
+    Training keeps fp32 master parameters, but decode reads every weight
+    each token step; bf16 halves those bytes. Under the bf16 compute
+    policy the cast changes no number: every layer casts its weights to
+    the compute dtype before use. LayerNorm parameters are left fp32:
+    LayerNorm reads them in fp32. Under an fp32 policy the cast would
+    round the weights, and nothing applies it there."""
+    for module in model.modules():
+        if isinstance(module, torch.nn.LayerNorm):
+            continue
+        for p in module.parameters(recurse=False):
+            if p.dtype == torch.float32:
+                p.data = p.data.to(torch.bfloat16)
+    return model
+
+
 def make_cache(model: TransformerLM, batch: int, total_len: int,
                device=None) -> dict:
     """Zero-initialised KV cache for `batch` sequences of `total_len`."""

@@ -1,9 +1,10 @@
 """Model registry (counterpart of ddp_practice_tpu/models/__init__.py).
 
-The port registers the decoder LMs that serve and train (`lm_tiny`,
-`lm_base`), their MoE variant `lm_moe` (lm_tiny's dims, every second block
-routed, capacity factor 2.0), the image transformers (`vit_tiny`,
-`vit_base`) and `vit_tiny_moe` (models/vit_moe.py). All but `vit_tiny_moe`
+The port registers the reference's ConvNet (`convnet`, models/convnet.py),
+the decoder LMs that serve and train (`lm_tiny`, `lm_base`), their MoE
+variant `lm_moe` (lm_tiny's dims, every second block routed, capacity
+factor 2.0), the image transformers (`vit_tiny`, `vit_base`) and
+`vit_tiny_moe` (models/vit_moe.py). The transformers but `vit_tiny_moe`
 take the tri-state `fused` argument (`accepts_fused`). The reference's
 other names raise NotImplementedError naming the ROADMAP item that ports
 them. `create_model` builds the module on `device` (the card by default; it
@@ -11,8 +12,8 @@ raises when none is present) with weights drawn from `seed` on the CPU, so
 a seed gives the same weights on every device. The init follows the
 reference's Flax defaults in scale: Dense and Conv kernels and the token
 embedding normal with std 1/sqrt(fan_in), the stacked expert kernels (E,
-fan_in, fan_out) likewise per expert, biases zero, LayerNorm scale one,
-learned positions normal(0.02).
+fan_in, fan_out) likewise per expert, biases zero, LayerNorm and BatchNorm
+scale one, learned positions normal(0.02).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch
 from torch import nn
 
 from ddp_practice_tpu_torch.config import PrecisionPolicy, resolve_device
+from ddp_practice_tpu_torch.models.convnet import ConvNet
 from ddp_practice_tpu_torch.models.lm import LMBase, LMTiny, TransformerLM
 from ddp_practice_tpu_torch.models.vit import ViT, ViTBase, ViTTiny
 from ddp_practice_tpu_torch.models.vit_moe import ViTMoE
@@ -47,15 +49,16 @@ def ViTTinyMoE(**kw) -> ViTMoE:
     return ViTMoE(**kw)
 
 
-_REGISTRY = {"lm_tiny": LMTiny, "lm_base": LMBase, "lm_moe": LMMoE,
-             "vit_tiny": ViTTiny, "vit_base": ViTBase,
+_REGISTRY = {"convnet": ConvNet, "lm_tiny": LMTiny, "lm_base": LMBase,
+             "lm_moe": LMMoE, "vit_tiny": ViTTiny, "vit_base": ViTBase,
              "vit_tiny_moe": ViTTinyMoE}
 # registry names whose module takes the tri-state `fused` argument
-# (models/vit.py EncoderBlock); ViTMoE's blocks never fuse
-_FUSED_CAPABLE = frozenset(_REGISTRY) - {"vit_tiny_moe"}
+# (models/vit.py EncoderBlock); ViTMoE's blocks never fuse, and the
+# ConvNet has no encoder block
+_FUSED_CAPABLE = frozenset(_REGISTRY) - {"vit_tiny_moe", "convnet"}
 # the reference's other registry names -> the ROADMAP item that ports them
 _NOT_PORTED = {
-    "convnet": "A1", "resnet18": "A2", "resnet50": "A2",
+    "resnet18": "A2", "resnet50": "A2",
     "vit_tiny_pipe": "A8", "lm_pipe": "A8",
 }
 
@@ -75,7 +78,8 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
             w = torch.randn(p.shape, generator=g) * 0.02
         elif leaf == "bias":
             w = torch.zeros(p.shape)
-        elif ".ln" in f".{name}":   # ln1 / ln2 / ln_f scale
+        elif ".ln" in f".{name}" or ".bn" in f".{name}":
+            # LayerNorm (ln1 / ln2 / ln_f) and BatchNorm (bn{i}) scale
             w = torch.ones(p.shape)
         elif leaf.startswith("expert_b"):
             w = torch.zeros(p.shape)
@@ -111,6 +115,6 @@ def create_model(name: str, *, policy: Optional[PrecisionPolicy] = None,
     return init_weights(model, seed).to(dev)
 
 
-__all__ = ["accepts_fused", "create_model", "init_weights",
+__all__ = ["accepts_fused", "create_model", "init_weights", "ConvNet",
            "TransformerLM", "LMTiny", "LMBase", "LMMoE", "ViT", "ViTTiny",
            "ViTBase", "ViTMoE", "ViTTinyMoE"]

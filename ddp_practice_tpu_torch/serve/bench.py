@@ -28,9 +28,16 @@ included), and `kernel_launches`, the decode-attention kernel launches it
 caused, so a caller can hold each kernel's launches against depth x
 steps row by row.
 
-Not ported in this slice: the router, fleet, tracing and telemetry rows,
-the front-door chunked-prefill bench and checkpoint serving
-(`--ckpt_dir`).
+Checkpoint serving (`--ckpt_dir`, the reference's `_serve_checkpoint`):
+instead of a bench, `--prompt` strings (repeatable) are served from a
+trained RoPE LM checkpoint (the port's own or one the JAX package wrote,
+loaded by generate.load_lm) through a SlotEngine with one prompt bucket
+and the Scheduler, and each completion is printed with its status and
+TTFT.
+
+Not ported in this slice: the router, fleet, tracing and telemetry rows
+(`--trace_out` raises, ROADMAP A6) and the front-door chunked-prefill
+bench.
 """
 
 from __future__ import annotations
@@ -712,6 +719,19 @@ def build_parser() -> argparse.ArgumentParser:
                     "engine; or the shared-prefix or speculative-decoding "
                     "bench",
     )
+    p.add_argument("--ckpt_dir", default=None,
+                   help="serve these --prompt strings from a checkpoint "
+                        "instead of running the bench (needs a "
+                        "pos_emb=rope LM checkpoint)")
+    p.add_argument("--prompt", action="append", default=None,
+                   help="repeatable; byte-level prompt(s) to serve")
+    p.add_argument("--max_new_tokens", type=int, default=64)
+    p.add_argument("--temperature", type=float, default=0.0)
+    p.add_argument("--top_k", type=int, default=0)
+    p.add_argument("--top_p", type=float, default=0.0)
+    p.add_argument("--trace-out", "--trace_out", dest="trace_out",
+                   default=None, metavar="PATH",
+                   help="the serving timeline (not ported: ROADMAP A6)")
     p.add_argument("--model", default="lm_tiny",
                    choices=("lm_tiny", "lm_base"),
                    help="registry model (weights from --seed); lm_tiny "
@@ -744,7 +764,9 @@ def build_parser() -> argparse.ArgumentParser:
                    type=_ints, default=(2, 16))
     p.add_argument("--max-new-range", dest="max_new_range", type=_ints,
                    default=(2, 96))
-    p.add_argument("--eos_id", type=int, default=46)
+    p.add_argument("--eos_id", type=int, default=None,
+                   help="end-of-sequence id (default: none when serving "
+                        "a checkpoint, 46 for the benches)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--paged", action="store_true",
                    help="also run the trace through the paged-KV engine "
@@ -792,8 +814,76 @@ def _print_rows(rows) -> None:
                 for k in ("queue_s", "prefill_s", "decode_s", "stall_s")))
 
 
+def serve_checkpoint(ckpt_dir, prompts, *, max_new_tokens=64,
+                     temperature=0.0, top_k=0, top_p=0.0, eos_id=None,
+                     max_slots=4, decode_burst=1, seed=0, device="cuda",
+                     kv_cache="policy"):
+    """Serve `prompts` (strings) from the LM checkpoint under `ckpt_dir`
+    through a SlotEngine with one prompt bucket (the smallest power of
+    two >= 8 that holds the longest prompt) and the Scheduler. Returns
+    (completions sorted by request id, elapsed seconds, step)."""
+    from ddp_practice_tpu_torch.generate import load_lm
+    from ddp_practice_tpu_torch.inference import encode_bytes
+    from ddp_practice_tpu_torch.serve.engine import EngineConfig, SlotEngine
+    from ddp_practice_tpu_torch.serve.scheduler import Request, Scheduler
+
+    model, step = load_lm(ckpt_dir, device=device, kv_cache=kv_cache)
+    max_prompt = max(len(p.encode("utf-8")) for p in prompts)
+    bucket = 8
+    while bucket < max_prompt:
+        bucket *= 2
+    engine = SlotEngine(model, EngineConfig(
+        max_slots=max_slots, prompt_buckets=(bucket,),
+        temperature=temperature, top_k=top_k, top_p=top_p, eos_id=eos_id,
+        decode_burst=decode_burst))
+    sched = Scheduler(engine, max_queue=max(64, len(prompts)))
+    t0 = time.monotonic()
+    for i, text in enumerate(prompts):
+        sched.submit(Request(rid=i, prompt=encode_bytes(text)[0].tolist(),
+                             max_new_tokens=max_new_tokens, seed=seed))
+    completions = sched.run_until_idle()
+    elapsed = time.monotonic() - t0
+    return sorted(completions, key=lambda c: c.rid), elapsed, step
+
+
+def _serve_checkpoint(args) -> int:
+    from ddp_practice_tpu_torch.generate import cut_at_eos
+    from ddp_practice_tpu_torch.inference import decode_bytes
+
+    if args.trace_out:
+        raise NotImplementedError(
+            "--trace_out (the serving timeline) is not ported yet "
+            "(ROADMAP A6)")
+    prompts = args.prompt or ["\n"]
+    completions, elapsed, step = serve_checkpoint(
+        args.ckpt_dir, prompts, max_new_tokens=args.max_new_tokens,
+        temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
+        eos_id=args.eos_id, max_slots=args.max_slots or 4,
+        decode_burst=args.decode_burst or 1, seed=args.seed,
+        device=args.device)
+    for c in completions:
+        ttft = "" if c.ttft is None else f" ttft {c.ttft:.3f}s"
+        print(f"--- request {c.rid} [{c.status}]{ttft} ---")
+        toks = cut_at_eos(c.tokens, args.eos_id)
+        print(prompts[c.rid] + decode_bytes(torch.tensor(toks,
+                                                         dtype=torch.int64)))
+    tokens = sum(len(c.tokens) for c in completions)
+    print(f"[serve] ckpt step {step}: {len(completions)} requests, {tokens} "
+          f"tokens in {elapsed:.2f}s ({tokens / max(elapsed, 1e-9):.1f} "
+          f"tok/s)")
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.ckpt_dir:
+        return _serve_checkpoint(args)
+    if args.trace_out:
+        raise NotImplementedError(
+            "--trace_out (the serving timeline) is not ported yet "
+            "(ROADMAP A6)")
+    if args.eos_id is None:
+        args.eos_id = 46
     if args.kv_int8 and not args.shared_prefix:
         raise SystemExit("--kv-int8 rides the --shared-prefix bench")
     base = args.model == "lm_base"

@@ -27,12 +27,31 @@ is `batch_size x world size`, each rank takes `ShardSpec.local_slice` of
 every global batch, the model runs wrapped in DistributedDataParallel, and
 eval sums are all-reduced. `fused_encoder` ("auto" | "on" | "off") is the
 reference's flag: "on" forces the fused encoder layer and raises for a
-model that does not take it or a shape the kernels refuse. The image
-transformers (vit_tiny, vit_base, vit_tiny_moe) train; convnet and resnet*
-raise (ROADMAP A1). `num_experts` and `moe_router` pass to the MoE
+model that does not take it or a shape the kernels refuse. The image task
+trains the ConvNet (the default: `convnet` on `mnist`, its BatchNorm
+statistics averaged over the ranks, so DDP does not broadcast buffers
+for it) and the image transformers (vit_tiny, vit_base, vit_tiny_moe);
+resnet* raise (ROADMAP A2). `num_experts` and `moe_router` pass to the MoE
 families as the reference's loop passes them (expert choice sets the
 capacity factor to 1.0 unless given), and the summary gains the last
 step's `moe_load_max`, `moe_load_min` and `moe_drop_rate`.
+
+Checkpoints (`checkpoint_dir`, checkpoint/): a save every
+`checkpoint_every_steps` steps of an epoch (asynchronous in a
+single-process run unless `checkpoint_async` is off; each waits on the
+one before) and every `checkpoint_every_epochs` epochs, and one at the
+end of the fit, each with the reference's manifest `extra` (the run's
+state-shaping knobs, and the LM's seq_len, vocabulary and embedding
+options, which generate.py rebuilds the model from). Every rank takes
+part and rank 0 writes. `resume` restores the newest complete
+checkpoint (a truncated manifest falls back to the one before) and the
+fit takes up again at the start of the epoch the restored step falls
+in: the data order is the epoch's own, so a resume from an epoch
+boundary continues the run as if it had not stopped.
+
+The summary adds `mfu`: the analytic training FLOPs (utils/flops.py) of
+the images or tokens trained over the train seconds and the card's peak
+dense bf16 rate, None where the peak is unknown (the CPU).
 
 `profile_dir` traces the reference's steady-state window of epoch 0
 (steps min(10, n - 10) to 10 past it, n capped by `max_steps_per_epoch`)
@@ -56,6 +75,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+import ddp_practice_tpu_torch.checkpoint as ckpt
 from ddp_practice_tpu_torch.config import TrainConfig, resolve_device
 from ddp_practice_tpu_torch.data.datasets import load_dataset
 from ddp_practice_tpu_torch.data.loader import DataLoader
@@ -76,7 +96,8 @@ from ddp_practice_tpu_torch.train.steps import (
     make_lm_train_step,
     make_train_step,
 )
-from ddp_practice_tpu_torch.utils import profiling
+from ddp_practice_tpu_torch.ops.batchnorm import BatchNorm
+from ddp_practice_tpu_torch.utils import flops, profiling
 from ddp_practice_tpu_torch.utils.timing import Timer
 
 
@@ -121,9 +142,10 @@ class Trainer:
         if name in _MODELS_NOT_PORTED:
             raise NotImplementedError(
                 f"--model {config.model}: not ported yet (ROADMAP "
-                f"{_MODELS_NOT_PORTED[name]}); the port trains the decoder "
-                f"LMs (lm_tiny, lm_base, lm_moe) and the image "
-                f"transformers (vit_tiny, vit_base, vit_tiny_moe)")
+                f"{_MODELS_NOT_PORTED[name]}); the port trains the "
+                f"ConvNet, the decoder LMs (lm_tiny, lm_base, lm_moe) and "
+                f"the image transformers (vit_tiny, vit_base, "
+                f"vit_tiny_moe)")
         shard = ShardSpec(dist.process_index(), self.world)
         model_kwargs = {}
         if self.task == "lm":
@@ -156,6 +178,14 @@ class Trainer:
                 if flag:
                     raise ValueError(f"{what} applies to the LM family "
                                      f"(lm_*), not {config.model!r}")
+        if name == "convnet":
+            for flag, what in ((config.num_heads, "--num_heads"),
+                               (config.dropout, "--dropout"),
+                               (config.attn_impl != "xla", "--attn_impl"),
+                               (config.num_experts, "--num_experts")):
+                if flag:
+                    raise ValueError(f"{what} applies to the transformer "
+                                     "families, not 'convnet'")
         if config.num_heads:
             model_kwargs["num_heads"] = config.num_heads
         if config.dropout:
@@ -208,15 +238,27 @@ class Trainer:
         if self.world > 1:
             from torch.nn.parallel import DistributedDataParallel
 
+            # BatchNorm's statistics are all-reduced (SyncBN): every rank
+            # holds the same running buffers, so DDP's per-forward
+            # broadcast of rank 0's would move nothing
+            synced = any(isinstance(m, BatchNorm)
+                         for m in self.model.modules())
             self.forward = DistributedDataParallel(
                 self.model,
                 device_ids=([self.device.index]
-                            if self.device.type == "cuda" else None))
+                            if self.device.type == "cuda" else None),
+                broadcast_buffers=not synced)
         optimizer = make_optimizer(config, self.model,
                                    self.train_loader.steps_per_epoch,
                                    self.world)
         self.state = TrainState(step=0, model=self.model,
                                 optimizer=optimizer)
+        if (config.resume and config.checkpoint_dir
+                and ckpt.exists(config.checkpoint_dir)):
+            self.state = ckpt.restore(config.checkpoint_dir, self.state)
+            info0("resumed from %s at step %d", config.checkpoint_dir,
+                  self.state.step)
+        self._pending_save: Optional[ckpt.AsyncSave] = None
         if self.task == "lm":
             self.train_step = make_lm_train_step(
                 self.model, label_smoothing=config.label_smoothing,
@@ -374,6 +416,10 @@ class Trainer:
                           steps_done, m["loss"], m["accuracy"])
                     self._write_metrics({"kind": "train", "epoch": epoch,
                                          "step": self.state.step, **m})
+                every = cfg.checkpoint_every_steps
+                if cfg.checkpoint_dir and every and (
+                        prev // every != steps_done // every):
+                    self.save(periodic=True)
         finally:
             if tracing:   # a short epoch or a failing step: close the trace
                 failing = sys.exc_info()[0] is not None
@@ -417,10 +463,78 @@ class Trainer:
             record["perplexity"] = self.eval_perplexity
         self._write_metrics(record)
 
+    def save(self, *, periodic: bool = False) -> None:
+        """Checkpoint the current state under `checkpoint_dir` (a no-op
+        without one). The previous asynchronous write is waited on first
+        (it re-raises its error); `periodic` saves of a single-process
+        run write asynchronously unless `checkpoint_async` is off."""
+        if self._pending_save is not None:
+            self._pending_save.wait()
+            self._pending_save = None
+        cfg = self.config
+        if not cfg.checkpoint_dir:
+            return
+        # what generate.py needs to rebuild the model and the optimizer
+        # state's structure without the training command line
+        extra = {
+            "step": int(self.state.step),
+            "precision_policy": cfg.precision_policy().name,
+            "model": cfg.model,
+            "optimizer": cfg.optimizer,
+            "momentum": cfg.momentum,
+            "clip_norm": cfg.clip_norm,
+            "weight_decay": cfg.weight_decay,
+            "accum_steps": cfg.accum_steps,
+        }
+        if self.task == "lm":
+            extra["seq_len"] = cfg.seq_len
+            extra["vocab_size"] = self._vocab_size
+            extra["remat"] = bool(cfg.remat)
+            extra["pos_emb"] = cfg.pos_emb
+            extra["tied_embeddings"] = bool(cfg.tied_embeddings)
+        if periodic and cfg.checkpoint_async and self.world == 1:
+            self._pending_save = ckpt.save_async(cfg.checkpoint_dir,
+                                                 self.state, extra=extra)
+        else:
+            ckpt.save(cfg.checkpoint_dir, self.state, extra=extra)
+
+    def _mfu(self) -> Optional[float]:
+        """Analytic train FLOPs per second over the card's peak dense bf16
+        rate (per card), or None where either is unknown."""
+        if self.device.type != "cuda":
+            return None
+        peak = flops.chip_peak_flops(torch.cuda.get_device_name(self.device))
+        m, name = self.model, self.config.model.lower()
+        if self.task == "lm":
+            per_sample = flops.lm_train_flops_per_token(
+                hidden_dim=m.hidden_dim, depth=m.depth, mlp_dim=m.mlp_dim,
+                vocab_size=m.vocab_size, seq_len=self.config.seq_len,
+                moe_every=m.moe_every,
+                moe_top_k=m.moe_top_k) * self.config.seq_len
+        else:
+            dims = {} if name == "convnet" else dict(
+                patch_size=m.patch_size, hidden_dim=m.hidden_dim,
+                depth=m.depth, mlp_dim=m.mlp_dim)
+            per_sample = flops.train_flops_per_image(
+                name, self.train_ds.image_shape, self.train_ds.num_classes,
+                **dims)
+        if not (peak and per_sample and self._train_seconds):
+            return None
+        rate = per_sample * self._train_images / self._train_seconds
+        return rate / (peak * self.world)
+
     def fit(self) -> dict:
         try:
             return self._fit_inner()
         finally:
+            if self._pending_save is not None:
+                # an exception mid-epoch must not leave a writer racing a
+                # restarted run's restore; the original exception wins
+                try:
+                    self._pending_save.wait()
+                except Exception:
+                    log.exception("async checkpoint write failed")
+                self._pending_save = None
             if self._metrics_fh is not None:
                 self._metrics_fh.close()
                 self._metrics_fh = None
@@ -429,7 +543,17 @@ class Trainer:
         cfg = self.config
         timer = Timer()
         accuracy: Optional[float] = None
-        for epoch in range(cfg.epochs):
+        # after a restore, take up the epoch the restored step falls in:
+        # lost work is one checkpoint interval, not the run
+        steps_per_epoch = self.train_loader.steps_per_epoch
+        if cfg.max_steps_per_epoch:
+            steps_per_epoch = min(steps_per_epoch, cfg.max_steps_per_epoch)
+        start_epoch = min(self.state.step // max(steps_per_epoch, 1),
+                          cfg.epochs)
+        if start_epoch:
+            info0("resuming at epoch %d (step %d)", start_epoch,
+                  self.state.step)
+        for epoch in range(start_epoch, cfg.epochs):
             info0("=== epoch %d / %d ===", epoch + 1, cfg.epochs)
             self.train_epoch(epoch)
             if cfg.eval_every_epochs and (
@@ -437,9 +561,13 @@ class Trainer:
                 accuracy = self.evaluate()
                 info0("Accuracy is %.2f%%", accuracy * 100.0)
                 self._write_eval_record(epoch, accuracy)
+            if cfg.checkpoint_every_epochs and (
+                    (epoch + 1) % cfg.checkpoint_every_epochs == 0):
+                self.save()
         if accuracy is None or not cfg.eval_every_epochs:
             accuracy = self.evaluate()
             self._write_eval_record(cfg.epochs - 1, accuracy)
+        self.save()
         elapsed = timer.elapsed()
         ips = self._train_images / max(self._train_seconds, 1e-9)
         summary = {
@@ -451,6 +579,7 @@ class Trainer:
             "steps": self.state.step,
             "global_batch": self.global_batch,
             "devices": self.world,
+            "mfu": self._mfu(),
             **self._last_moe,
         }
         if self.eval_perplexity is not None:
@@ -463,10 +592,13 @@ class Trainer:
         info0("time elapsed: %.2fs", elapsed)
         info0("throughput: %.1f images/sec (%.1f /chip)", ips,
               ips / self.world)
+        info0("MFU: %s", "not measured (no peak rate for this device)"
+              if summary["mfu"] is None else f"{summary['mfu']:.4g}")
         self._write_metrics({"kind": "summary", **summary})
         return summary
 
 
 def fit(config: TrainConfig) -> dict:
-    """Train once (checkpoint-based restarts are ROADMAP A8)."""
+    """Train once (`resume` takes up a checkpoint; automatic restarts,
+    `max_restarts`, are ROADMAP A8)."""
     return Trainer(config).fit()

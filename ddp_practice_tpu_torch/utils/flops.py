@@ -1,7 +1,8 @@
 """Analytic FLOP counts and the card's peak rate, for MFU, and its
 device-memory bandwidth, for bytes bounds (counterpart of
-ddp_practice_tpu/utils/flops.py: the LM and ViT parts, `chip_peak_flops`
-and `chip_hbm_bandwidth`).
+ddp_practice_tpu/utils/flops.py: the ConvNet, LM and ViT parts,
+`chip_peak_flops` and `chip_hbm_bandwidth`; the ResNet counts are
+ROADMAP A2).
 
 MFU is the model's analytic training FLOPs per step (3x forward: backward
 ~= 2x forward, the standard accounting) over the measured step time and
@@ -11,7 +12,30 @@ left out (<2% here), so MFU is slightly conservative.
 
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Optional, Tuple
+
+
+def conv2d(h: int, w: int, cin: int, cout: int, kh: int, kw: int,
+           stride: int = 1) -> Tuple[float, int, int]:
+    """FLOPs of a SAME-padded conv (as the equivalent im2col matmul),
+    plus its output's spatial dims."""
+    ho = math.ceil(h / stride)
+    wo = math.ceil(w / stride)
+    return 2.0 * ho * wo * cout * cin * kh * kw, ho, wo
+
+
+def convnet_forward_flops(image_shape=(28, 28, 1), num_classes: int = 10,
+                          features=(16, 32)) -> float:
+    """The reference ConvNet (models/convnet.py): [conv5x5 -> BN -> relu
+    -> maxpool2] per feature block, then one dense head."""
+    h, w, c = image_shape
+    total = 0.0
+    for feat in features:
+        f, h, w = conv2d(h, w, c, feat, 5, 5)
+        total += f
+        h, w, c = h // 2, w // 2, feat
+    return total + 2.0 * (h * w * c) * num_classes
 
 
 def lm_forward_flops_per_token(*, hidden_dim: int, depth: int, mlp_dim: int,
@@ -57,9 +81,11 @@ def vit_forward_flops(image_shape=(32, 32, 3), *, patch_size: int = 4,
 
 def train_flops_per_image(model: str, image_shape, num_classes: int = 10,
                           **kw) -> Optional[float]:
-    """fwd + bwd FLOPs per image: 3x forward; `kw` are the model's own
+    """fwd + bwd FLOPs per image: 3x forward; `kw` are the ViT's own
     dims (patch_size, hidden_dim, depth, mlp_dim). None for a model whose
-    count is not ported (convnet and resnet: ROADMAP A1)."""
+    count is not ported (resnet: ROADMAP A2)."""
+    if model.lower() == "convnet":
+        return 3.0 * convnet_forward_flops(image_shape, num_classes)
     if model.lower().startswith("vit"):
         return 3.0 * vit_forward_flops(image_shape, num_classes=num_classes,
                                        **kw)

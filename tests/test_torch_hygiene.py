@@ -14,8 +14,9 @@
 - The host-pure modules copied from the JAX package (the paged pool's
   allocator and radix cache, the drafter) import only typing, torch and
   the port; the training slice's data, train, parallel and utils modules
-  (and config, cli, losses, flash attention and the flash experiments)
-  only the standard library, numpy, torch and the port.
+  (and config, cli, losses, flash attention and the flash experiments,
+  the ConvNet and its BatchNorm, checkpoint, data/ingest, generate and
+  serve/bench) only the standard library, numpy, torch and the port.
 - Entry points asked for the card raise without one; chip_smoke exits
   non-zero with no result line, both without a card and when it stands
   alone outside the repository.
@@ -222,12 +223,15 @@ TRAIN_SLICE = ["data/sharding.py", "data/lm_corpus.py", "data/datasets.py",
                "experiments/flash_bwd_ablate.py",
                "experiments/flash_fwd_ablate.py",
                "experiments/flash_variant_levers.py", "experiments/gmm_tune.py",
-               "experiments/tgmm_tune.py"]
+               "experiments/tgmm_tune.py", "models/convnet.py",
+               "ops/batchnorm.py", "checkpoint/__init__.py",
+               "data/ingest.py", "generate.py", "serve/bench.py",
+               "experiments/convnet_step.py"]
 STDLIB = ("__future__", "typing", "argparse", "collections", "contextlib",
-          "ctypes", "dataclasses", "gzip", "json", "logging", "math", "os",
-          "pathlib", "pickle", "re", "shutil", "socket", "statistics",
-          "struct", "subprocess", "sys", "tempfile", "threading", "time",
-          "warnings")
+          "ctypes", "dataclasses", "gzip", "hashlib", "json", "logging",
+          "math", "os", "pathlib", "pickle", "re", "shutil", "socket",
+          "statistics", "struct", "subprocess", "sys", "tarfile",
+          "tempfile", "threading", "time", "urllib.request", "warnings")
 
 
 @pytest.mark.parametrize("module", TRAIN_SLICE)

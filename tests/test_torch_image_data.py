@@ -147,11 +147,11 @@ def test_loader_drop_last_and_epochs_differ():
 
 
 def test_unported_data_paths_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
         datasets.load_dataset("imagenet", "/nonexistent", "train")
     ds = datasets.synthetic_image_classification(
         n=4, image_shape=(2, 2, 1), num_classes=2, seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
         DataLoader(ds, global_batch_size=2, backend="native")
     with pytest.raises(ValueError, match="unknown dataset"):
         datasets.load_dataset("svhn", "/nonexistent", "train")

@@ -12,14 +12,21 @@ cli.py) on the CPU:
   head_dim 32, naming the limit;
 - the CLI trains lm_moe (registry dims, token choice and expert choice)
   and its summary carries the last step's router health (moe_* keys);
+- the CLI's defaults (no model flag) train the reference's ConvNet on
+  MNIST: the synthetic stand-in when no IDX files are found, and the
+  committed real-format fixture through `--data_dir`, where it learns;
+  the summary carries `mfu` (None on the CPU, whose peak is unknown);
 - model names and flags this slice does not port raise
   NotImplementedError naming their ROADMAP item, and the card is the
   default device;
 - data parallelism: two gloo processes at per-rank batch 2 take the same
   step as one process at batch 4 (1e-6) and stay bit-identical replicas,
-  for lm_tiny and for lm_moe, whose router statistics and balancing bias
+  for lm_tiny, for lm_moe, whose router statistics and balancing bias
   are global-batch quantities (ops/moe.py all-reduces them): the ranks'
-  router biases equal the single process's.
+  router biases equal the single process's, and for the ConvNet, whose
+  BatchNorm statistics are all-reduced (SyncBN): the ranks' running
+  statistics and parameters equal the single process's over the global
+  batch.
 """
 
 import json
@@ -39,6 +46,7 @@ SUMMARY_KEYS = {  # ddp_practice_tpu/train/loop.py _fit_inner, LM task
     "accuracy", "elapsed_seconds", "train_seconds", "images_per_sec",
     "images_per_sec_per_chip", "steps", "global_batch", "devices",
     "perplexity", "tokens_per_sec_per_chip",
+    "mfu",   # the port's: None where the card's peak is unknown
 }
 
 
@@ -105,16 +113,16 @@ def test_cli_trains_lm_moe_on_the_cpu(router, capsys, tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--model", "convnet"], "A1"),
+    (["--model", "resnet18"], "A2"),
     (["--model", "lm_tiny", "--expert", "2"], "A8"),
     (["--model", "lm_tiny", "--steps_per_call", "4"], "A3"),
     (["--model", "lm_tiny", "--data_placement", "device"], "A3"),
-    (["--model", "lm_tiny", "--ckpt_dir", "ck"], "A1"),
+    (["--model", "resnet50"], "A2"),
     (["--model", "vit_tiny", "--augment"], "A2"),
     (["--model", "lm_tiny", "--tensor", "2"], "A8"),
     (["--model", "lm_tiny", "--compile_cache", "off"], "A3"),
-    (["--model", "lm_tiny", "--loader", "native"], "A1"),
-    (["--model", "lm_tiny", "--ckpt_sync"], "A1"),
+    (["--model", "lm_tiny", "--loader", "native"], "A2"),
+    (["--model", "lm_pipe"], "A8"),
 ])
 def test_unported_paths_name_their_roadmap_item(argv, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
@@ -122,6 +130,34 @@ def test_unported_paths_name_their_roadmap_item(argv, item):
 
 
 IMAGE_KEYS = SUMMARY_KEYS - {"perplexity", "tokens_per_sec_per_chip"}
+MINI_MNIST = str(pathlib.Path(__file__).parent / "data" / "mini_mnist")
+
+
+@pytest.mark.parametrize("data", ["synthetic", "mini_mnist"])
+def test_cli_defaults_train_the_convnet_on_mnist(data, log_lines, capsys,
+                                                 tmp_path):
+    argv = ["--device", "cpu", "-e", "1", "--log_every", "4", "--json"]
+    if data == "synthetic":
+        argv += ["--synthetic_size", "256", "--data_dir", str(tmp_path)]
+    else:   # 256 real-format images; adam so 8 steps learn something
+        argv += ["--data_dir", MINI_MNIST, "-e", "3", "-b", "16",
+                 "--optimizer", "adam", "--lr", "3e-3"]
+    assert cli.main(argv) == 0
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(summary) == IMAGE_KEYS | {"wall_seconds"}
+    assert summary["mfu"] is None and summary["devices"] == 1
+    assert any(m == "MFU: not measured (no peak rate for this device)"
+               for m in log_lines)
+    assert any(m.startswith("throughput: ") for m in log_lines)
+    assert any(m.startswith("Accuracy is ") for m in log_lines)
+    if data == "synthetic":
+        assert summary["steps"] == 8 and summary["global_batch"] == 32
+    else:
+        assert summary["steps"] == 48 and summary["global_batch"] == 16
+        assert summary["accuracy"] > 0.5, summary   # chance is 0.1
+    trainer = Trainer(TrainConfig(device="cpu", data_dir=MINI_MNIST))
+    assert trainer.train_ds.name == "mnist-train"
+    assert type(trainer.model).__name__ == "ConvNet"
 VIT_ARGS = ["--model", "vit_tiny", "--dataset", "cifar10", "--device", "cpu",
             "-b", "8", "-e", "1", "--synthetic_size", "60"]
 
@@ -186,7 +222,7 @@ def test_fused_on_and_lm_flags_raise_where_they_cannot_run(argv, match):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("num_classes", 100, "A1"),
+    ("num_classes", 100, "A2"),
     ("watchdog_probe_every_steps", 10, "A8"),
     ("resident_max_bytes", 1 << 20, "A3"),
 ])
@@ -215,7 +251,7 @@ def test_trainer_defaults_to_the_card():
 DP = dict(device="cpu", seq_len=16, synthetic_size=20000,
           optimizer="sgd", learning_rate=0.1, max_steps_per_epoch=1,
           epochs=1, log_every_steps=0)
-DP_MODELS = ("lm_tiny", "lm_moe")
+DP_MODELS = ("lm_tiny", "lm_moe", "convnet")
 
 
 def _dp_worker(rank, world, init_file, out_dir):
@@ -259,6 +295,7 @@ def test_two_gloo_ranks_take_the_single_process_step(tmp_path):
     for model, (before, after) in singles.items():
         ranks = [torch.load(tmp_path / f"{model}-rank{r}.pt")
                  for r in range(2)]
+        assert set(ranks[0]) == set(after)
         moved = 0
         for name, want in after.items():
             assert torch.equal(ranks[0][name], ranks[1][name]), name
@@ -269,3 +306,7 @@ def test_two_gloo_ranks_take_the_single_process_step(tmp_path):
         biases = [n for n in after if n.endswith("router_bias")]
         assert len(biases) == (2 if model == "lm_moe" else 0)
         assert all(after[n].abs().sum() > 0 for n in biases)
+        # SyncBN: the ranks' running statistics are the global batch's
+        stats = [n for n in after if "running_" in n]
+        assert len(stats) == (4 if model == "convnet" else 0)
+        assert all(not torch.equal(after[n], before[n]) for n in stats)

@@ -262,5 +262,5 @@ def test_registry_names_the_fused_capable_models():
     assert vit.blocks[0].fused == "auto"
     assert tuple(vit.embed.patch_embed.weight.shape) == (192, 3, 4, 4)
     assert tuple(vit.embed.pos_embed.shape) == (1, 64, 192)
-    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
-        create_model("convnet", device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
+        create_model("resnet18", device="cpu")
