@@ -85,14 +85,21 @@ Phases, each of which raises on failure (nothing is caught and passed):
    E's packed launches in flash_4d, are the rows' counts;
 9. train: `fit` through the CLI's parser and config, lm_base (d=768,
    depth 12, 12 heads, mlp 3072) at seq 2048, batch 8, bf16, AdamW lr
-   3e-4, attn_impl flash, 30 steps on the synthetic Markov corpus: the
-   loss at steps 1, 10, 20, 30 (30 below 1), the median step time (CUDA
-   events between step ends), tokens/s, MFU against 989.4e12, eval
-   accuracy and perplexity, peak memory; flash_fwd_packed launches equal
-   12 x (30 + eval batches) and flash_bwd_packed 12 x 30;
-10. legs: 10 steps with RoPE (the packed rows again, through
-   dot_product_attention) and 10 with 24 heads of 32 (the folded rows),
-   then 25 steps of the learned run with `--profile_dir`: fit writes one
+   3e-4, attn_impl flash, 30 steps on the synthetic Markov corpus, host
+   data (`--data_placement host`: eager steps): the loss at steps 1, 10,
+   20, 30 (30 below 1), the median step time (CUDA events between step
+   ends), tokens/s, MFU against 989.4e12, eval accuracy and perplexity,
+   peak memory; flash_fwd_packed launches equal 12 x (30 + eval batches)
+   and flash_bwd_packed 12 x 30; then the resident leg (the corpus on the
+   device, `--steps_per_call 10`, 20 steps: each call replays of one
+   captured step): its losses at steps 10 and 20 equal the host leg's
+   (1e-3 relative; said whether bit-identical), launches counted through
+   the replays (graph replays launch what the captured step did:
+   utils/graphs.REPLAYED), the two median steps side by side;
+10. legs, resident ("auto", one replay a step): 10 steps with RoPE (the
+   packed rows again, through dot_product_attention) and 10 with 24 heads
+   of 32 (the folded rows), then 25 steps of the learned run with
+   `--profile_dir`: fit writes one
    Kineto trace of steps 10-19, read back with utils/xprof.op_summary (E,
    F and G 12 x 10 times each); that leg's median step leaves those steps
    out and logs theirs beside;
@@ -120,14 +127,17 @@ Phases, each of which raises on failure (nothing is caught and passed):
    batch 1024 (the reference bench's shape), Adam lr 1e-4 (the bench's SGD
    at lr 1e-4 moves the loss less than its batch noise in 30 steps, and
    this phase asserts a falling loss), 30 steps plus the eval pass, with
-   `--fused auto` (no flag): loss at steps 1, 10, 20, 30 (30 below 1),
+   `--fused auto` (no flag), on host data and then resident (each step a
+   graph replay; its losses equal the host leg's at 1e-3 relative, and
+   the two median steps side by side): loss at steps 1, 10, 20, 30 (30
+   below 1),
    median step, images/s, MFU against 989.4e12, eval accuracy, peak
    memory; fused_encoder_fwd launches equal 12 x (30 + eval batches),
    fused_encoder_bwd 12 x 30, and kernel K (tgmm, and its second pass
-   tgmm_reduce) 4 x 12 x 30: I's four weight grads. Then one profiled step
-   (H, I, I's K launches, I's reduction, other: H's share of the step's
-   device time), and a leg of 10 steps with `--fused off` and its profiled
-   step (a reading, not a claim);
+   tgmm_reduce) 4 x 12 x 30: I's four weight grads. Then one profiled
+   step of the host leg (H, I, I's K launches, I's reduction, other: H's
+   share of the step's device time), and a host leg of 10 steps with
+   `--fused off` and its profiled step (a reading, not a claim);
 15. ViT cross-check: one vit_tiny train step at depth 2, batch 64: in fp32
    the kernels, the fused layer's plain version and `fused=False` give one
    loss (1e-5) and grads (2e-4, scaled by each grad's largest magnitude
@@ -170,15 +180,20 @@ Phases, each of which raises on failure (nothing is caught and passed):
    reference's BASELINE metric: `fit` through
    the CLI with its defaults (config 1: convnet, MNIST, 3 epochs, batch 32,
    SGD lr 1e-4, fp32; no MNIST files here, so the synthetic stand-in at
-   60000/10000 images), evaluating after every epoch: images/s per card
-   and the median step (CUDA events between step ends), MFU against the
-   dense bf16 peak, the test accuracy after each epoch and the epochs to
-   91% (reported, not gated); the loss must fall and the last accuracy
-   reach 0.5 (chance 0.1). A bf16 leg of one epoch (config 2's precision
-   on one card; accuracy 0.3 or more), a leg on tests/data/mini_mnist
-   (real-format IDX files, Adam), then phase 21, then one profiled step of
-   the fp32 and the bf16 run (host wall, device busy, idle share, device
-   time by kind: cuDNN convs, matmul, pooling, reductions, elementwise,
+   60000/10000 images; "auto" placement: the corpus on the device, each
+   step one replay of the captured step), evaluating after every epoch:
+   images/s per card and the median step (CUDA events between step
+   ends), MFU against the dense bf16 peak, the test accuracy after each
+   epoch and the epochs to 91% (reported, not gated); the loss must fall
+   and the last accuracy reach 0.5 (chance 0.1). The host leg (eager
+   steps, `--data_placement host`) for one epoch, whose first 50 losses
+   must equal the resident leg's at 1e-6 relative (said whether
+   bit-identical). A bf16 leg of one epoch (config 2's precision on one
+   card; accuracy 0.3 or more), a leg on tests/data/mini_mnist
+   (real-format IDX files, Adam), then phase 21, then profiles: 20
+   resident steps as the epoch runs them, one eager step of the host leg
+   and of the bf16 run (host wall, device busy, idle share, device time
+   by kind: cuDNN convs, matmul, pooling, reductions, elementwise,
    other);
 21. ConvNet resume on the card: save after each of 2 epochs, truncate the
    newest manifest, resume a 3-epoch run (it falls back to the epoch-1
@@ -196,8 +211,11 @@ Phases, each of which raises on failure (nothing is caught and passed):
    request completes.
 
 Launch counts are zeroed just before each phase's run and read just
-after it. The second-to-last line is the kernels' JSON record; the last
-line is {"ok": true, "device": {...}}. Without a CUDA device the script
+after it; a train leg's count is its wrappers' (eager calls) plus its
+graph replays' (utils/graphs.REPLAYED). The ConvNet's, lm_base's and
+vit_tiny's leg lines end with the card's name and power limit. The
+second-to-last line is the kernels' JSON record; the last line is
+{"ok": true, "device": {...}}. Without a CUDA device the script
 exits non-zero and prints no result.
 
 Tolerances: fp32 2e-5 (the reference's decode-attention tests). bf16
@@ -300,6 +318,10 @@ VIT_ARGS = ["--model", "vit_tiny", "--dataset", "cifar10", "--precision",
             "--data_dir", "build/no_such_data"]
 VIT_STEPS = 30
 MODEL_BF16_REL = 1e-2     # a bf16 model step, kernels vs plain versions
+# a bf16 run's losses, graph replays vs eager steps: the same kernels on
+# the same batches; a cuBLAS algorithm picked apart on the capture stream
+# would move a few bf16 roundings
+MODEL_BF16_LOSS = 1e-3
 TRAIN_ARGS = ["--model", "lm_base", "--attn_impl", "flash", "--precision",
               "bf16", "--optimizer", "adamw", "--lr", "3e-4", "--seq_len",
               "2048", "-b", "8", "-e", "1", "--log_every", "10"]
@@ -327,6 +349,78 @@ NB = 1 + 8 * MB
 
 def log(*args) -> None:
     print(*args, flush=True)
+
+
+# the card's name and power limit as nvidia-smi prints them, set by main()
+# and printed beside each leg's numbers
+CARD = ""
+
+
+def _record_calls(torch, trainer):
+    """Wrap the call the trainer's epoch makes (the resident step, or the
+    per-batch step on host data): keep each call's loss on the device and
+    mark its end with a CUDA event. Returns (losses, ends, steps a call,
+    the step's CUDA graph or None, a function that unwraps the step)."""
+    name = ("resident_train_step" if trainer.resident_train_step is not None
+            else "train_step")
+    step = getattr(trainer, name)
+    losses, ends = [], []
+
+    def recorded(*args):
+        state, metrics = step(*args)
+        losses.append(metrics["loss"])
+        ends.append(torch.cuda.Event(enable_timing=True))
+        ends[-1].record()
+        return state, metrics
+
+    setattr(trainer, name, recorded)
+    k = (max(trainer.config.steps_per_call, 1)
+         if name == "resident_train_step" else 1)
+    return losses, ends, k, getattr(step, "graph", None), \
+        lambda: setattr(trainer, name, step)
+
+
+def _reset_launches(*modules) -> None:
+    """Zero each module's wrapper counts and the graph replays' counts."""
+    from ddp_practice_tpu_torch.utils import graphs
+
+    for module in modules:
+        module.reset_launches()
+    graphs.reset_replayed()
+
+
+def _launches(*counters) -> dict:
+    """Each kernel's launches on the run since `_reset_launches`: the
+    wrappers' counts (eager calls) plus the graph replays' (a replay
+    launches what its captured step launched, utils/graphs.py)."""
+    from ddp_practice_tpu_torch.utils import graphs
+
+    return {name: n + graphs.REPLAYED.get(name, 0)
+            for c in counters for name, n in c.items()}
+
+
+def _placement(trainer, graph) -> str:
+    """How a leg's steps ran: resident (graph replays) or host."""
+    if trainer.resident_train_step is None:
+        return "host batches, eager steps"
+    return (f"resident, {trainer.config.steps_per_call} step(s) a call, "
+            f"{graph.captures} capture(s), {graph.replays} replays")
+
+
+def _agree(label, host, resident, k, rel):
+    """The resident leg's per-call losses (each the last of its k steps)
+    against the host leg's steps at relative `rel`; returns (the number
+    of steps held, worst relative difference, bit-identical)."""
+    n = min(len(resident), len(host) // k)
+    worst, exact = 0.0, True
+    for i in range(n):
+        got, want = resident[i], host[(i + 1) * k - 1]
+        diff = abs(got - want) / max(abs(want), 1e-30)
+        worst, exact = max(worst, diff), exact and got == want
+        if diff > rel:
+            raise AssertionError(f"{label}: resident loss {got} at step "
+                                 f"{(i + 1) * k} vs host {want}")
+    return n * k, worst, exact
 
 
 def _time_ms(torch, fn, flush, runs=TIMED_RUNS) -> float:
@@ -1402,10 +1496,13 @@ def profile_phase(torch, engine_name):
 def train_phase(torch, fa, extra, *, steps, label, row, metrics_file=None,
                 profile_dir=None):
     """`fit` through the CLI's parser and config (lm_base, bf16, AdamW,
-    flash) for `steps` steps; each step's loss stays on the device and a
-    CUDA event marks its end (no extra readback). Checks that the loss
-    fell and that `row`'s kernels launched depth x (steps + eval batches)
-    forward and depth x steps backward, and nothing else. With
+    flash) for `steps` steps; each call's loss stays on the device and a
+    CUDA event marks its end (no extra readback): a step on host data, a
+    group of `--steps_per_call` steps on resident data ("auto" for this
+    corpus; each step a replay of the captured step). Checks that the
+    loss fell and that `row`'s kernels launched depth x (steps + eval
+    batches) forward and depth x steps backward, and nothing else,
+    counting the launches graph replays made (`_launches`). With
     `profile_dir`, fit traces its step window (`--profile_dir`): the trace
     is read back with utils/xprof and E, F and G must each appear depth x
     (window steps) times in it; the median step then leaves out the traced
@@ -1428,28 +1525,19 @@ def train_phase(torch, fa, extra, *, steps, label, row, metrics_file=None,
         argv += ["--profile_dir", profile_dir]
     config = config_from_args(build_parser().parse_args(argv))
     trainer = Trainer(config)
-    losses, ends = [], []
-    step = trainer.train_step
-
-    def recorded(state, batch):
-        state, metrics = step(state, batch)
-        losses.append(metrics["loss"])
-        ends.append(torch.cuda.Event(enable_timing=True))
-        ends[-1].record()
-        return state, metrics
-
-    trainer.train_step = recorded
+    losses, ends, k, graph, unwrap = _record_calls(torch, trainer)
     torch.cuda.reset_peak_memory_stats()
-    fa.reset_launches()
+    _reset_launches(fa)
     t0 = time.monotonic()
     summary = trainer.fit()
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    launches = dict(fa.LAUNCHES)
+    unwrap()
+    launches = _launches(fa.LAUNCHES)
     loss = [float(x) for x in losses]
     window = trainer._profile_window(0) if profile_dir else None
     traced = set(range(window[0], window[1] + 1)) if window else set()
-    step_ms = statistics.median(ends[i - 1].elapsed_time(ends[i])
+    step_ms = statistics.median(ends[i - 1].elapsed_time(ends[i]) / k
                                 for i in range(1, len(ends))
                                 if i not in traced)
     model = trainer.model
@@ -1461,7 +1549,7 @@ def train_phase(torch, fa, extra, *, steps, label, row, metrics_file=None,
     peak = chip_peak_flops(torch.cuda.get_device_name(0))
     eval_batches = len(trainer.eval_loader)
     report = {
-        "loss": loss, "step_ms": step_ms,
+        "loss": loss, "step_ms": step_ms, "steps_per_call": k,
         "tokens_per_s": tokens / (step_ms / 1e3),
         "mfu": flops / (step_ms / 1e3) / peak if peak else None,
         "accuracy": summary["accuracy"],
@@ -1470,22 +1558,22 @@ def train_phase(torch, fa, extra, *, steps, label, row, metrics_file=None,
         "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
         "launches": launches, "eval_batches": eval_batches, "wall_s": wall,
     }
-    shown = [i for i in (1, 10, 20, 30) if i <= len(loss)]
+    shown = [i for i in (1, 10, 20, 30) if i <= len(loss) * k and i % k == 0]
     log(f"train[{label}] {config.model} {config.precision} "
         f"{config.optimizer}, seq {config.seq_len}, batch "
         f"{trainer.global_batch}, {steps} steps + {eval_batches} eval "
-        f"batches, wall {wall:.1f} s: loss "
-        + ", ".join(f"step {i} {loss[i - 1]:.4f}" for i in shown))
+        f"batches ({_placement(trainer, graph)}), wall {wall:.1f} s: loss "
+        + ", ".join(f"step {i} {loss[i // k - 1]:.4f}" for i in shown))
     mfu = "not measured" if peak is None else f"{report['mfu']:.4f}"
-    log(f"  median step {step_ms:.2f} ms (CUDA events between step ends), "
+    log(f"  median step {step_ms:.2f} ms (CUDA events between call ends), "
         f"{report['tokens_per_s']:.0f} tokens/s, MFU {mfu} against "
         f"{(peak or 0) / 1e12:.1f} TFLOP/s ({flops / 1e12:.2f} TFLOP/step "
         f"analytic); "
         f"fit's own {report['fit_tokens_per_s']:.0f} tokens/s incl. the "
         f"first steps; eval accuracy {report['accuracy']:.4f} perplexity "
         f"{report['perplexity']:.3f}; peak memory "
-        f"{report['peak_gib']:.2f} GiB; launches {launches}")
-    if not loss[-1] < loss[0]:
+        f"{report['peak_gib']:.2f} GiB; launches {launches} [{CARD}]")
+    if not loss[-1] < loss[0] and len(loss) > 1:
         raise AssertionError(f"train[{label}]: loss did not fall: {loss}")
     want = {n: 0 for n in fa.LAUNCHES}
     want[f"flash_fwd_{row}"] = model.depth * (steps + eval_batches)
@@ -1825,7 +1913,10 @@ def vit_train_phase(torch, fe, extra, *, steps, label, fused):
     1024, synthetic CIFAR-10) for `steps` steps and the eval pass. Checks
     that the loss fell and that H launched depth x (steps + eval batches)
     times, I depth x steps and kernel K (with its second pass) 4 x depth x
-    steps, I's four weight grads (none with the fused layer off)."""
+    steps, I's four weight grads (none with the fused layer off),
+    counting the launches graph replays made: with no placement flag the
+    corpus is device-resident ("auto") and each step a replay of the
+    captured step."""
     from ddp_practice_tpu_torch.cli import build_parser, config_from_args
     from ddp_practice_tpu_torch.ops import grouped_matmul as gm
     from ddp_practice_tpu_torch.train.loop import Trainer
@@ -1837,27 +1928,17 @@ def vit_train_phase(torch, fe, extra, *, steps, label, fused):
     argv = VIT_ARGS + ["--max_steps", str(steps)] + extra
     config = config_from_args(build_parser().parse_args(argv))
     trainer = Trainer(config)
-    losses, ends = [], []
-    step = trainer.train_step
-
-    def recorded(state, batch):
-        state, metrics = step(state, batch)
-        losses.append(metrics["loss"])
-        ends.append(torch.cuda.Event(enable_timing=True))
-        ends[-1].record()
-        return state, metrics
-
-    trainer.train_step = recorded
+    losses, ends, k, graph, unwrap = _record_calls(torch, trainer)
     torch.cuda.reset_peak_memory_stats()
-    fe.reset_launches()
-    gm.reset_launches()
+    _reset_launches(fe, gm)
     t0 = time.monotonic()
     summary = trainer.fit()
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    launches = {**fe.LAUNCHES, **gm.LAUNCHES}
+    unwrap()
+    launches = _launches(fe.LAUNCHES, gm.LAUNCHES)
     loss = [float(x) for x in losses]
-    step_ms = statistics.median(ends[i - 1].elapsed_time(ends[i])
+    step_ms = statistics.median(ends[i - 1].elapsed_time(ends[i]) / k
                                 for i in range(1, len(ends)))
     model = trainer.model
     flops = train_flops_per_image(
@@ -1880,7 +1961,7 @@ def vit_train_phase(torch, fe, extra, *, steps, label, fused):
         f"{config.optimizer} lr {config.learning_rate}, "
         f"{trainer.train_ds.name} {trainer.train_ds.image_shape}, batch "
         f"{trainer.global_batch}, {steps} steps + {eval_batches} eval "
-        f"batches, wall {wall:.1f} s: loss "
+        f"batches ({_placement(trainer, graph)}), wall {wall:.1f} s: loss "
         + ", ".join(f"step {i} {loss[i - 1]:.4f}" for i in shown))
     mfu = "not measured" if peak is None else f"{report['mfu']:.4f}"
     log(f"  median step {step_ms:.2f} ms (CUDA events between step ends), "
@@ -1888,7 +1969,8 @@ def vit_train_phase(torch, fe, extra, *, steps, label, fused):
         f"{(peak or 0) / 1e12:.1f} TFLOP/s ({flops / 1e12:.3f} TFLOP/step "
         f"analytic); fit's own {summary['images_per_sec']:.0f} images/s "
         f"incl. the first steps; eval accuracy {report['accuracy']:.4f}; "
-        f"peak memory {report['peak_gib']:.2f} GiB; launches {launches}")
+        f"peak memory {report['peak_gib']:.2f} GiB; launches {launches} "
+        f"[{CARD}]")
     if not loss[-1] < loss[0]:
         raise AssertionError(f"vit train[{label}]: loss did not fall: {loss}")
     want = {name: 0 for name in launches}
@@ -2502,14 +2584,16 @@ def _cli_trainer(argv):
 def convnet_train_phase(torch, extra, *, label, gate_accuracy=0.5):
     """`fit` through the CLI's parser and config with the reference's
     defaults (convnet, mnist, 3 epochs, batch 32, SGD lr 1e-4, fp32) plus
-    `extra`, evaluating after every epoch. Each step's loss stays on the
-    device and a CUDA event marks its end. Reports images/s per card and
-    the median step (steps after an epoch's eval pass left out), MFU
-    against the dense bf16 peak, the accuracy after each epoch and the
-    first epoch at 91% (reported, not gated: the synthetic set is not
-    MNIST). Checks that the loss fell (mean of the last 50 steps against
-    the first 50) and that the last accuracy is `gate_accuracy` or more
-    (chance is 0.1)."""
+    `extra`, evaluating after every epoch. With no placement flag the
+    corpus is device-resident ("auto") and each step a CUDA-graph replay;
+    `--data_placement host` streams host batches through eager steps.
+    Each step's loss stays on the device and a CUDA event marks its end.
+    Reports images/s per card and the median step (steps after an epoch's
+    eval pass left out), MFU against the dense bf16 peak, the accuracy
+    after each epoch and the first epoch at 91% (reported, not gated: the
+    synthetic set is not MNIST). Checks that the loss fell (mean of the
+    last 50 steps against the first 50) and that the last accuracy is
+    `gate_accuracy` or more (chance is 0.1)."""
     from ddp_practice_tpu_torch.utils.flops import (
         chip_peak_flops,
         train_flops_per_image,
@@ -2517,31 +2601,28 @@ def convnet_train_phase(torch, extra, *, label, gate_accuracy=0.5):
 
     trainer = _cli_trainer(CONVNET_ARGS + ["--eval_every", "1"] + extra)
     config = trainer.config
-    losses, ends, accuracy = [], [], []
-    step, evaluate = trainer.train_step, trainer.evaluate
-
-    def recorded(state, batch):
-        state, metrics = step(state, batch)
-        losses.append(metrics["loss"])
-        ends.append(torch.cuda.Event(enable_timing=True))
-        ends[-1].record()
-        return state, metrics
+    accuracy = []
+    losses, ends, k, graph, unwrap = _record_calls(torch, trainer)
+    evaluate = trainer.evaluate
 
     def recorded_eval():
         accuracy.append(evaluate())
         return accuracy[-1]
 
-    trainer.train_step, trainer.evaluate = recorded, recorded_eval
+    trainer.evaluate = recorded_eval
     t0 = time.monotonic()
     summary = trainer.fit()
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
+    unwrap()
+    trainer.evaluate = evaluate
     loss = [float(x) for x in losses]
     n = len(trainer.train_loader)
     if config.max_steps_per_epoch:
         n = min(n, config.max_steps_per_epoch)
-    step_ms = statistics.median(ends[i - 1].elapsed_time(ends[i])
-                                for i in range(1, len(ends)) if i % n)
+    calls = -(-n // k)   # calls an epoch
+    step_ms = statistics.median(ends[i - 1].elapsed_time(ends[i]) / k
+                                for i in range(1, len(ends)) if i % calls)
     ds = trainer.train_ds
     flops = train_flops_per_image("convnet", ds.image_shape,
                                   ds.num_classes) * trainer.global_batch
@@ -2549,7 +2630,7 @@ def convnet_train_phase(torch, extra, *, label, gate_accuracy=0.5):
     reached = next((i + 1 for i, a in enumerate(accuracy) if a >= 0.91),
                    None)
     report = {
-        "loss": loss, "step_ms": step_ms,
+        "loss": loss, "step_ms": step_ms, "steps_per_call": k,
         "images_per_s": trainer.global_batch / (step_ms / 1e3),
         "mfu": flops / (step_ms / 1e3) / peak if peak else None,
         "accuracy": accuracy, "epochs_to_91": reached, "wall_s": wall,
@@ -2561,9 +2642,10 @@ def convnet_train_phase(torch, extra, *, label, gate_accuracy=0.5):
     log(f"convnet train[{label}] {config.model} {config.precision} "
         f"{config.optimizer} lr {config.learning_rate}, {ds.name} "
         f"{len(ds)} images {ds.image_shape}, batch {trainer.global_batch}, "
-        f"{config.epochs} epochs x {n} steps, wall {wall:.1f} s: loss mean "
-        f"of the first {w} steps {head:.4f}, of the last {w} {tail:.4f}")
-    log(f"  median step {step_ms:.3f} ms (CUDA events between step ends), "
+        f"{config.epochs} epochs x {n} steps ({_placement(trainer, graph)}"
+        f"), wall {wall:.1f} s: loss mean of the first {w} calls "
+        f"{head:.4f}, of the last {w} {tail:.4f}")
+    log(f"  median step {step_ms:.3f} ms (CUDA events between call ends), "
         f"{report['images_per_s']:.0f} images/s per card, MFU {mfu} "
         f"against {(peak or 0) / 1e12:.1f} TFLOP/s ({flops / 1e9:.3f} "
         f"GFLOP/step analytic); fit's own "
@@ -2572,7 +2654,7 @@ def convnet_train_phase(torch, extra, *, label, gate_accuracy=0.5):
         + ", ".join(f"{a:.4f}" for a in accuracy)
         + "; epochs to 91%: "
         + (str(reached) if reached else
-           f"not reached (last {accuracy[-1]:.4f})"))
+           f"not reached (last {accuracy[-1]:.4f})") + f" [{CARD}]")
     if not tail < head:
         raise AssertionError(f"convnet train[{label}]: loss did not fall "
                              f"({head:.4f} -> {tail:.4f})")
@@ -2590,14 +2672,40 @@ _CONV_KINDS = (("conv (cuDNN)", "conv|fprop|dgrad|wgrad|cudnn|implicit|"
                ("elementwise", "elementwise|vectorized|unrolled"))
 
 
-def convnet_profile(torch, trainer, label):
-    """One ConvNet train step under torch.profiler, after warm steps: host
-    wall per step (ends in a synchronize), device busy time, the device's
-    idle share, device ops per step, and device time by kind (cuDNN
-    convolutions, cuBLAS matmul, pooling, reductions, elementwise,
-    other)."""
+def _convnet_profile_log(prof, steps, host_ms, trainer, label, how):
+    """Log a ConvNet profile of `steps` steps against their host wall:
+    device busy a step, the device's idle share, device ops a step and
+    device time by kind (cuDNN convolutions, cuBLAS matmul, pooling,
+    reductions, elementwise, other)."""
     import re
 
+    summary = _profile_summary(prof)
+    if summary is None:
+        log(f"convnet profile[{label}]: torch.profiler recorded no device "
+            f"events; device time not measured (host wall {host_ms:.3f} "
+            f"ms/step) [{CARD}]")
+        return
+    kinds = dict.fromkeys([k for k, _ in _CONV_KINDS] + ["other"], 0.0)
+    for (_, name), ps in summary["ops"].items():
+        low = name.lower()
+        kind = next((k for k, rx in _CONV_KINDS if re.search(rx, low)),
+                    "other")
+        kinds[kind] += ps / 1e9 / steps
+    device_ms = sum(kinds.values())
+    log(f"convnet profile[{label}] (batch {trainer.global_batch}{how}): "
+        f"host wall {host_ms:.3f} ms/step, device busy {device_ms:.3f} "
+        f"ms/step, device idle share "
+        f"{max(0.0, 1 - device_ms / host_ms):.3f}, "
+        f"{_device_ops(summary) // steps} device ops/step; device time by "
+        f"kind " + ", ".join(f"{k} {v / device_ms:.3f}"
+                             for k, v in kinds.items()) + f" [{CARD}]")
+    _log_top_ops(summary, steps, 8, "us", 100)
+
+
+def convnet_profile(torch, trainer, label):
+    """One eager ConvNet train step on a host batch under torch.profiler,
+    after warm steps, against the host wall of 20 (ends in a
+    synchronize)."""
     from torch.profiler import ProfilerActivity, profile
 
     batch = trainer._to_device(next(iter(trainer.train_loader)))
@@ -2614,25 +2722,35 @@ def convnet_profile(torch, trainer, label):
                              ProfilerActivity.CUDA]) as prof:
         trainer.state, _ = trainer.train_step(trainer.state, batch)
         torch.cuda.synchronize()
-    summary = _profile_summary(prof)
-    if summary is None:
-        log(f"convnet profile[{label}]: torch.profiler recorded no device "
-            f"events; device time not measured (host wall {host_ms:.3f} "
-            f"ms/step)")
-        return
-    kinds = dict.fromkeys([k for k, _ in _CONV_KINDS] + ["other"], 0.0)
-    for (_, name), ps in summary["ops"].items():
-        low = name.lower()
-        kind = next((k for k, rx in _CONV_KINDS if re.search(rx, low)),
-                    "other")
-        kinds[kind] += ps / 1e9
-    device_ms = sum(kinds.values())
-    log(f"convnet profile[{label}] (batch {trainer.global_batch}): host "
-        f"wall {host_ms:.3f} ms/step, device busy {device_ms:.3f} ms/step, "
-        f"device idle share {max(0.0, 1 - device_ms / host_ms):.3f}, "
-        f"{_device_ops(summary)} device ops/step; device time by kind "
-        + ", ".join(f"{k} {v / device_ms:.3f}" for k, v in kinds.items()))
-    _log_top_ops(summary, 1, 8, "us", 100)
+    _convnet_profile_log(prof, 1, host_ms, trainer, label, "")
+
+
+def convnet_profile_resident(torch, trainer, label):
+    """The resident ConvNet's steps as its epoch runs them (one step a
+    call, each a replay of the captured step) over rows of the epoch's
+    grid: the host wall of 200 calls (ends in a synchronize), then 20
+    calls under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    idx, _ = trainer.train_loader.epoch_plan()
+    grid = torch.from_numpy(idx[:223]).cuda()
+    step, data = trainer.resident_train_step, trainer._train_data
+    for i in range(3):
+        trainer.state, _ = step(trainer.state, data, grid[i:i + 1])
+    torch.cuda.synchronize()
+    n, m = 200, 20
+    t0 = time.perf_counter()
+    for i in range(3, 3 + n):
+        trainer.state, _ = step(trainer.state, data, grid[i:i + 1])
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / n
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(3 + n, 3 + n + m):
+            trainer.state, _ = step(trainer.state, data, grid[i:i + 1])
+        torch.cuda.synchronize()
+    _convnet_profile_log(prof, m, host_ms, trainer, label,
+                         ", one graph replay a step")
 
 
 def _leaves(state) -> dict:
@@ -2878,6 +2996,8 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     log(f"card: {smi}")
+    global CARD
+    CARD = smi
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
     global HBM_BYTES_PER_S
@@ -2900,18 +3020,33 @@ def main() -> int:
     # the ConvNet's eager steps first: a finished torch.profiler trace
     # adds host time to every later launch in the process
     # (experiments/convnet_step.py), and the flash experiments trace
-    conv32, _ = convnet_train_phase(torch, [], label="config 1, fp32")
+    conv32, res32 = convnet_train_phase(
+        torch, [], label="config 1, fp32, auto = resident")
+    conv_host, host32 = convnet_train_phase(
+        torch, ["--data_placement", "host", "-e", "1"],
+        label="config 1, fp32, host, one epoch")
+    held, worst, exact = _agree("convnet", host32["loss"][:50],
+                                res32["loss"][:50], 1, 1e-6)
+    log(f"convnet resident vs host (config 1, fp32): the first {held} "
+        f"steps' losses agree, worst relative difference {worst:.2e} "
+        f"({'bit-identical' if exact else 'not bit-identical'}); resident "
+        f"{res32['images_per_s']:.0f} images/s per card, median step "
+        f"{res32['step_ms']:.3f} ms; host {host32['images_per_s']:.0f} "
+        f"images/s, {host32['step_ms']:.3f} ms; "
+        f"{res32['images_per_s'] / host32['images_per_s']:.2f}x [{CARD}]")
     conv16, _ = convnet_train_phase(
         torch, ["--precision", "bf16", "-e", "1"],
-        label="config 2's precision, bf16, one epoch", gate_accuracy=0.3)
+        label="config 2's precision, bf16, one epoch, auto = resident",
+        gate_accuracy=0.3)
     convnet_train_phase(torch, ["--data_dir", "tests/data/mini_mnist",
                                 "-b", "16", "--optimizer", "adam", "--lr",
                                 "3e-3"],
                         label="tests/data/mini_mnist", gate_accuracy=0.3)
     convnet_resume_leg(torch)
-    convnet_profile(torch, conv32, "fp32")
-    convnet_profile(torch, conv16, "bf16")
-    del conv32, conv16
+    convnet_profile_resident(torch, conv32, "fp32, resident")
+    convnet_profile(torch, conv_host, "fp32, eager host step")
+    convnet_profile(torch, conv16, "bf16, eager step")
+    del conv32, conv16, conv_host
     torch.cuda.empty_cache()
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
@@ -2937,28 +3072,59 @@ def main() -> int:
     del flush
     torch.cuda.empty_cache()
 
-    vit_trainer, vit = vit_train_phase(torch, fe, [], steps=VIT_STEPS,
-                                       label="fused auto", fused=True)
+    vit_trainer, vit_host = vit_train_phase(
+        torch, fe, ["--data_placement", "host"], steps=VIT_STEPS,
+        label="fused auto, host", fused=True)
     vit_train_profile(torch, vit_trainer, "fused auto")
     del vit_trainer
     torch.cuda.empty_cache()
-    off_trainer, vit_off = vit_train_phase(torch, fe, ["--fused", "off"],
-                                           steps=10, label="fused off",
-                                           fused=False)
+    vit_trainer, vit = vit_train_phase(torch, fe, [], steps=VIT_STEPS,
+                                       label="fused auto, resident",
+                                       fused=True)
+    del vit_trainer
+    held, worst, exact = _agree("vit", vit_host["loss"], vit["loss"], 1,
+                                MODEL_BF16_LOSS)
+    log(f"vit resident vs host (bf16, batch 1024): {held} steps' losses "
+        f"agree, worst relative difference {worst:.2e} "
+        f"({'bit-identical' if exact else 'not bit-identical'}); median "
+        f"step resident {vit['step_ms']:.2f} ms, host "
+        f"{vit_host['step_ms']:.2f} ms, "
+        f"{vit_host['step_ms'] / vit['step_ms']:.3f}x; "
+        f"{vit['images_per_s']:.0f} vs {vit_host['images_per_s']:.0f} "
+        f"images/s [{CARD}]")
+    torch.cuda.empty_cache()
+    off_trainer, vit_off = vit_train_phase(
+        torch, fe, ["--fused", "off", "--data_placement", "host"], steps=10,
+        label="fused off, host", fused=False)
     vit_train_profile(torch, off_trainer, "fused off")
     del off_trainer
-    log(f"vit train: fused auto {vit['step_ms']:.2f} ms/step, fused off "
-        f"{vit_off['step_ms']:.2f} ms/step: the fused layer's step is "
-        f"{vit['step_ms'] / vit_off['step_ms']:.2f}x the per-op step's")
+    log(f"vit train (host legs): fused auto {vit_host['step_ms']:.2f} "
+        f"ms/step, fused off {vit_off['step_ms']:.2f} ms/step: the fused "
+        f"layer's step is {vit_host['step_ms'] / vit_off['step_ms']:.2f}x "
+        f"the per-op step's")
     torch.cuda.empty_cache()
     vit_cross_check(torch, fe)
 
-    trainer, train = train_phase(
-        torch, fa, ["--synthetic_size", "600000"], steps=TRAIN_STEPS,
-        label="learned", row="packed",
-        metrics_file="build/train_metrics.jsonl")
+    trainer, train_host = train_phase(
+        torch, fa, ["--synthetic_size", "600000", "--data_placement",
+                    "host"], steps=TRAIN_STEPS, label="learned, host",
+        row="packed", metrics_file="build/train_metrics.jsonl")
     train_profile(torch, trainer)
     del trainer
+    torch.cuda.empty_cache()
+    _, train = train_phase(
+        torch, fa, ["--synthetic_size", "600000", "--steps_per_call", "10"],
+        steps=20, label="learned, resident", row="packed")
+    held, worst, exact = _agree("lm_base", train_host["loss"],
+                                train["loss"], 10, MODEL_BF16_LOSS)
+    log(f"lm_base resident vs host (bf16, b=8, s=2048): losses at steps "
+        f"10 and 20 agree, worst relative difference {worst:.2e} "
+        f"({'bit-identical' if exact else 'not bit-identical'}); median "
+        f"step resident {train['step_ms']:.2f} ms, host "
+        f"{train_host['step_ms']:.2f} ms, "
+        f"{train_host['step_ms'] / train['step_ms']:.3f}x; "
+        f"{train['tokens_per_s']:.0f} vs {train_host['tokens_per_s']:.0f} "
+        f"tokens/s [{CARD}]")
     torch.cuda.empty_cache()
     train_phase(torch, fa, ["--pos_emb", "rope"], steps=10, label="rope",
                 row="packed")

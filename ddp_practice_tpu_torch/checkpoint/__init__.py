@@ -572,8 +572,11 @@ def restore(directory: str, state):
         value = torch.from_numpy(np.array(leaves[name]))
         if key == "acc":
             opt.acc[slot[id(p)]].copy_(value)
-        elif key == "step":   # torch keeps Adam's count as a host fp32
-            opt.inner.state[p]["step"] = value.to(torch.float32)
+        elif key == "step":   # Adam's count: fp32, on the device when
+            # capturable (train/state.py), else on the host, as torch's
+            opt.inner.state[p]["step"] = value.to(
+                p.device if opt.inner.defaults.get("capturable") else "cpu",
+                torch.float32)
         else:
             opt.inner.state[p][key] = value.to(p.device, p.dtype)
     if "optimizer.applies" in leaves:

@@ -101,8 +101,6 @@ _NOT_PORTED = {
     "augment": "A2", "augment_kind": "A2",
     "num_classes": "A2", "loader_backend": "A2",
     "watchdog_probe_every_steps": "A8",
-    "steps_per_call": "A3", "resident_max_bytes": "A3",
-    "compilation_cache": "A3",
     "trace_out": "A6", "metrics_port": "A6", "telemetry_out": "A6",
     "slo": "A6", "alert_sinks": "A6",
 }
@@ -115,15 +113,21 @@ class TrainConfig:
     plus `device` ("cuda" by default; "cpu" runs the plain versions).
 
     Differences the port documents rather than hides:
-    - `data_placement`: "auto" means host here (the reference picks its
-      device-resident path when the corpus fits; both feed the same
-      batches); "device" is ROADMAP A3.
-    - `compilation_cache` (the reference's persistent compile cache; the
-      port's eager steps compile nothing), `loader_backend` (the native
-      C++ gather), `num_classes` (the datasets carry their own; the
-      override belongs to the imagenet corpus),
-      `watchdog_probe_every_steps` and `resident_max_bytes` have no
-      counterpart yet: any value but the default raises.
+    - `steps_per_call` (K >= 1 steps a call, or -1: the whole epoch, with
+      device-resident data only) and `data_placement` (auto | host |
+      device; "auto" takes the device-resident corpus when one process
+      runs and the corpus fits `resident_max_bytes`, as the reference's
+      does) pick the reference's step variants (train/steps.py); on the
+      card one step is captured as a CUDA graph and replayed
+      (utils/graphs.py), where the reference compiles a `lax.scan`.
+    - `compilation_cache` (the reference's persistent XLA compile cache)
+      has no counterpart: the port compiles no step, and its kernels
+      build once into the ignored `build/` directory, keyed by their
+      sources' hash (ops/cuda_build.py). Any value but "auto" raises.
+    - `loader_backend` (the native C++ gather), `num_classes` (the
+      datasets carry their own; the override belongs to the imagenet
+      corpus) and `watchdog_probe_every_steps` have no counterpart yet:
+      any value but the default raises.
     - checkpointing (`checkpoint_dir`, `checkpoint_every_epochs`,
       `checkpoint_every_steps`, `checkpoint_async`, `resume`) has the
       reference's semantics (train/loop.py, checkpoint/).
@@ -207,8 +211,8 @@ class TrainConfig:
     # input pipeline
     loader_backend: str = "auto"
     prefetch: int = 2
-    steps_per_call: int = 1
-    data_placement: str = "auto"      # auto (= host here) | host
+    steps_per_call: int = 1           # K >= 1, or -1 (a whole epoch)
+    data_placement: str = "auto"      # auto | host | device
     resident_max_bytes: int = 256 * 1024 * 1024
     compilation_cache: str = "auto"
     shuffle_eval: bool = False
@@ -226,12 +230,21 @@ class TrainConfig:
         if self.fused_encoder not in ("auto", "on", "off", True, False):
             raise ValueError(f"fused_encoder={self.fused_encoder!r} "
                              "(want 'auto'|'on'|'off')")
-        if self.data_placement == "device":
+        if self.compilation_cache != "auto":
             raise NotImplementedError(
-                "data_placement='device' is not ported yet (ROADMAP A3)")
-        if self.data_placement not in ("auto", "host"):
+                f"compilation_cache={self.compilation_cache!r}: the port "
+                "has no compile cache; it compiles no step, and its CUDA "
+                "kernels build once into build/, keyed by their sources' "
+                "hash (ops/cuda_build.py)")
+        if not (self.steps_per_call == -1 or self.steps_per_call >= 1):
+            raise ValueError(
+                f"steps_per_call={self.steps_per_call}: must be >= 1 (K "
+                "steps per dispatch) or exactly -1 (whole epoch per "
+                "dispatch, device-resident data only)")
+        if self.data_placement not in ("auto", "host", "device"):
             raise ValueError(f"unknown data_placement "
-                             f"{self.data_placement!r} (auto | host)")
+                             f"{self.data_placement!r} (auto | host | "
+                             "device)")
 
     def precision_policy(self) -> PrecisionPolicy:
         return PrecisionPolicy.from_name(self.precision)

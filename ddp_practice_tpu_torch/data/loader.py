@@ -2,7 +2,8 @@
 part of ddp_practice_tpu/data/loader.py: `DataLoader` and the numpy
 gather; the same (seed, epoch) gives the same batches). The device side
 of the reference's prefetch is `Trainer._device_batches` (train/loop.py):
-pinned host batches copied with `non_blocking=True`, `prefetch` ahead.
+pinned host batches copied with `non_blocking=True`, `prefetch` ahead;
+`prefetch_chunked` is its K-steps-a-call form (one copy a chunk).
 The native C++ gather backend is ROADMAP A2: any backend but "auto"
 raises, and "auto" is the numpy gather.
 
@@ -12,7 +13,8 @@ Replaces the reference's `DataLoader(num_workers=4, pin_memory=True)` +
 
 from __future__ import annotations
 
-from typing import Iterator, Optional
+import collections
+from typing import Callable, Iterator, Optional
 
 import numpy as np
 
@@ -92,6 +94,36 @@ class DataLoader:
             lidx, lw = gidx[sl], gw[sl]
             images, labels = self._gather(lidx)
             yield {"image": images, "label": labels, "weight": lw}
+
+
+def prefetch_chunked(iterator, num_steps: int, to_device: Callable, *,
+                     size: int = 2):
+    """Prefetch for K-steps-a-call training (train/steps.py
+    `make_chunked_train_step`), the counterpart of the reference's
+    data/loader.py:202: groups of `num_steps` host batches are stacked
+    on a leading axis and sent to the device as ONE copy a leaf, `size`
+    items ahead (`to_device`: a host dict to a device dict, e.g. pinned
+    and non-blocking). The epoch's tail that does not fill a group comes
+    as single batches. Yields ("chunk", stacked) and ("single", batch)."""
+
+    def host_items():
+        buf = []
+        for batch in iterator:
+            buf.append(batch)
+            if len(buf) == num_steps:
+                yield "chunk", {k: np.stack([b[k] for b in buf])
+                                for k in buf[0]}
+                buf = []
+        for batch in buf:
+            yield "single", batch
+
+    staged = collections.deque()
+    for tag, batch in host_items():
+        staged.append((tag, to_device(batch)))
+        if len(staged) > max(size, 1):
+            yield staged.popleft()
+    while staged:
+        yield staged.popleft()
 
 
 def _make_gather(backend: str, dataset: Dataset):

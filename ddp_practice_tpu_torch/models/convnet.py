@@ -22,7 +22,7 @@ reference's are XLA ops: no TPU kernel lies on this model's path.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Sequence
 
 import torch
 import torch.nn.functional as F
@@ -50,7 +50,7 @@ class ConvNet(nn.Module):
         self.to(param_dtype)
 
     def forward(self, x: torch.Tensor, *, train: bool = False,
-                dropout_key: Optional[int] = None) -> torch.Tensor:
+                dropout_key=None) -> torch.Tensor:
         """x (b, H, W, C) float in [0, 1] -> logits (b, classes) fp32.
         `dropout_key` is the image steps' common argument (no dropout
         here)."""

@@ -41,6 +41,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ddp_practice_tpu_torch.models.vit import (
+    DropoutKey,
     EncoderBlock,
     LayerNorm,
     dense,
@@ -131,7 +132,7 @@ class TransformerLM(nn.Module):
         return cache
 
     def forward(self, tokens: torch.Tensor, *, train: bool = False,
-                dropout_key: int = 0,
+                dropout_key: Optional[DropoutKey] = None,
                 cache: Optional[dict] = None,
                 attn_start: Optional[torch.Tensor] = None,
                 page_table: Optional[torch.Tensor] = None,
@@ -180,6 +181,9 @@ class TransformerLM(nn.Module):
         # dropout only in the training forward, never in decode
         key = (dropout_key if train and not decode and self.dropout_rate
                else None)
+        if train and not decode and self.dropout_rate and key is None:
+            raise ValueError("a training forward with dropout needs a "
+                             "dropout_key (train/steps.py step_key)")
         x = dropout(x, self.dropout_rate, subkey(key, 0))
         for i, blk in enumerate(self.blocks):
             if self.remat and not decode:

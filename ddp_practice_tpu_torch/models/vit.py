@@ -16,9 +16,16 @@ fuses. `ViTEmbed`,
 `ViTHead`, `ViT`, `ViTTiny` and `ViTBase` are the image classifier: NHWC
 images in, fp32 logits out.
 
-Dropout keys its masks on an integer (`dropout`): the LM derives one per
-site from (seed, step), so a step replays its masks and a rematerialized
-block (torch.utils.checkpoint) recomputes the same ones. Masks cannot
+Dropout draws its masks from a counter-based hash of (key, element
+index) in torch integer ops (`dropout`). A key (`DropoutKey`) is the
+step's 32 bits, a 0-dim int64 tensor the training step derives on the
+device from (seed, device step counter) (train/steps.py `step_key`), and
+a Python site number that `subkey` derives per layer on the host. So a
+step replays its masks, a rematerialized block (torch.utils.checkpoint)
+recomputes the same ones, and an eager step and the same step replayed
+from a CUDA graph draw the same ones (a graph would bake a Python seed:
+train/steps.py). Every product in the hash multiplies 32 bits by fewer
+than 31, so int64 cannot overflow (`mix32`, `fold32`). Masks cannot
 match JAX's (threefry vs Philox); parity runs at rate 0.
 
 Parameters stay in `param_dtype` (fp32) and every layer computes in
@@ -41,7 +48,7 @@ its own slot-local position `kv_lengths[b]` (`_paged_decode`).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -81,23 +88,56 @@ def _on_card(x: torch.Tensor) -> bool:
     return x.device.type == "cuda"
 
 
-def subkey(key: Optional[int], i: int) -> Optional[int]:
-    """The i-th dropout key under `key` (None stays None)."""
+_M32 = 0xFFFFFFFF
+
+
+def mix32(x):
+    """A 32-bit integer hash of x in [0, 2^32), on Python ints and int64
+    tensors alike: the xor-shift / multiply rounds of Wellons' "lowbias32"
+    with multipliers below 2^31, each product masked back to 32 bits, so
+    no product reaches 2^63 and int64 arithmetic cannot overflow."""
+    x = x ^ (x >> 16)
+    x = (x * 0x21F0AAAD) & _M32
+    x = x ^ (x >> 15)
+    x = (x * 0x735A2D97) & _M32
+    return x ^ (x >> 15)
+
+
+def fold32(x):
+    """A 64-bit key (int, or int64 tensor) hashed to 32 bits: the two
+    halves mixed apart, so a key near 2^62 folds without overflow."""
+    if isinstance(x, int):
+        x &= (1 << 64) - 1
+    return mix32((x & _M32) ^ mix32((x >> 32) & _M32))
+
+
+class DropoutKey(NamedTuple):
+    """A dropout site's key: `step`, the step's 32-bit key (a 0-dim int64
+    tensor on the device on the training paths, so a CUDA graph replays
+    it), and `site`, a Python int that `subkey` derives per layer."""
+    step: Union[torch.Tensor, int]
+    site: int = 0
+
+
+def subkey(key: Optional[DropoutKey], i: int) -> Optional[DropoutKey]:
+    """The i-th key under `key` (None stays None): a new site, same step."""
     if key is None:
         return None
-    return (key * 1_000_003 + i + 1) % (1 << 62)
+    return DropoutKey(key.step, mix32(key.site ^ mix32(i + 1)))
 
 
 def dropout(x: torch.Tensor, rate: float,
-            key: Optional[int]) -> torch.Tensor:
+            key: Optional[DropoutKey]) -> torch.Tensor:
     """Flax Dropout: keep with probability 1 - rate, kept values divided by
-    it. The mask comes from a generator seeded with `key` on x's device;
-    key None (eval, or rate 0) is the identity."""
+    it. Element j keeps when mix32(mix32(j ^ site) ^ step ^ t) >= rate *
+    2^32, t a constant of the site (so two sites' masks share no index
+    pattern); key None (eval, or rate 0) is the identity."""
     if key is None or rate == 0.0:
         return x
-    g = torch.Generator(device=x.device)
-    g.manual_seed(key)
-    keep = torch.rand(x.shape, generator=g, device=x.device) >= rate
+    idx = torch.arange(x.numel(), device=x.device, dtype=torch.int64)
+    bits = mix32(mix32(idx ^ key.site)
+                 ^ (key.step ^ mix32(key.site ^ 0x9E3779B9)))
+    keep = (bits >= round(rate * (1 << 32))).view(x.shape)
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
@@ -124,7 +164,7 @@ class MlpBlock(nn.Module):
         self.fc_out = nn.Linear(mlp_dim, d)
 
     def forward(self, x: torch.Tensor, *,
-                dropout_key: Optional[int] = None):
+                dropout_key: Optional[DropoutKey] = None):
         x = F.gelu(dense(x, self.fc_in, self.dtype), approximate="tanh")
         x = dropout(x, self.dropout_rate, dropout_key)
         return dense(x, self.fc_out, self.dtype)
@@ -402,7 +442,7 @@ class EncoderBlock(nn.Module):
             self.mlp = MlpBlock(d, mlp_dim, dtype=dtype,
                                 dropout_rate=dropout_rate)
 
-    def forward(self, x, *, dropout_key: Optional[int] = None,
+    def forward(self, x, *, dropout_key: Optional[DropoutKey] = None,
                 train: bool = False, cache=None, attn_start=None,
                 page_table=None, kv_lengths=None):
         """`dropout_key` None means no dropout (eval, decode); `train`
@@ -540,9 +580,13 @@ class ViT(nn.Module):
         self.to(param_dtype)
 
     def forward(self, x: torch.Tensor, *, train: bool = False,
-                dropout_key: int = 0) -> torch.Tensor:
-        """x (b, H, W, C) float in [0, 1] -> logits (b, classes) fp32."""
+                dropout_key: Optional[DropoutKey] = None) -> torch.Tensor:
+        """x (b, H, W, C) float in [0, 1] -> logits (b, classes) fp32.
+        A training forward with dropout takes its `dropout_key`."""
         key = dropout_key if train and self.dropout_rate else None
+        if train and self.dropout_rate and key is None:
+            raise ValueError("a training forward with dropout needs a "
+                             "dropout_key (train/steps.py step_key)")
         x = self.embed(x)
         for i, blk in enumerate(self.blocks):
             x = blk(x, dropout_key=subkey(key, i), train=train)

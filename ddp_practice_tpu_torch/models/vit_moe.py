@@ -55,7 +55,7 @@ class ViTMoE(nn.Module):
         self.to(param_dtype)
 
     def forward(self, x: torch.Tensor, *, train: bool = False,
-                dropout_key: int = 0) -> torch.Tensor:
+                dropout_key=None) -> torch.Tensor:
         """x (b, H, W, C) float in [0, 1] -> logits (b, classes) fp32.
         `dropout_key` is accepted for the image step's call and unused."""
         x = self.embed(x)

@@ -30,8 +30,10 @@ def cross_entropy_sum(logits: torch.Tensor, labels: torch.Tensor, *,
     """(loss_sum, weight_sum): the un-normalized pieces of cross_entropy."""
     nll = _NLL.apply(logits, labels, float(label_smoothing))
     if weight is None:
-        return nll.sum(), torch.tensor(float(nll.numel()),
-                                       device=nll.device)
+        # a fill on the device, not a copy from the host: a CUDA graph
+        # cannot capture a copy from pageable memory
+        return nll.sum(), torch.full((), float(nll.numel()),
+                                     device=nll.device)
     return (nll * weight).sum(), weight.sum()
 
 
@@ -82,6 +84,6 @@ def accuracy_counts(logits: torch.Tensor, labels: torch.Tensor, *,
     maximum, as jnp.argmax does."""
     match = (logits.argmax(dim=-1) == labels).float()
     if weight is None:
-        return match.sum(), torch.tensor(float(match.numel()),
-                                         device=match.device)
+        return match.sum(), torch.full((), float(match.numel()),
+                                       device=match.device)
     return (match * weight).sum(), weight.sum()

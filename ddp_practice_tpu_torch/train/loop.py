@@ -13,13 +13,26 @@ parity-visible lines ("Accuracy is XX.XX%", "time elapsed", "throughput")
 plus the reference's summary keys. Side effects (logs, `metrics_file`)
 happen on process 0 only.
 
-Batches stream from the host: each is pinned and copied with
-`non_blocking=True`, `prefetch` batches ahead of the step. The reference's
-`data_placement="auto"` picks its device-resident path when the corpus
-fits; the port's "auto" means host (the same batches; the resident path is
-ROADMAP A3). The step's metrics stay on the device and are read back only
-at log steps and at the end of an epoch, so the host runs ahead of the
-card between them.
+Where the data lives and how many steps a call runs are the reference's
+choices (`data_placement`, `steps_per_call`; train/steps.py):
+- device-resident (`_use_resident_data`: "device", or "auto" with one
+  process and a corpus within `resident_max_bytes`, as the reference's):
+  the corpus is uploaded once (uint8 images and labels, or the int32
+  token stream) and each epoch sends only its index grid
+  (`DataLoader.epoch_plan`), cut into groups of `steps_per_call` rows
+  (the whole epoch at -1, `_resident_group`);
+- host-fed: batches are pinned and copied with `non_blocking=True`,
+  `prefetch` ahead of the step; with `steps_per_call` K > 1, K batches
+  stacked into one copy (data/loader.py `prefetch_chunked`) and one call
+  of the chunked step (a chunk the step cap cuts runs as single steps).
+On the card, in one process, a resident or chunked call is replays of
+one captured CUDA graph (utils/graphs.py); on the CPU, and under several
+processes (gloo cannot be captured; NCCL capture is ROADMAP A8), the
+same factories run the per-batch step K times, with the same math.
+Logs, metrics records and periodic checkpoints fall at group boundaries
+(`_after_train_group`: boundary-crossing tests, not modulo). The step's
+metrics stay on the device and are read back only at log steps and at
+the end of an epoch, so the host runs ahead of the card between them.
 
 Data parallelism: run one process per card under torchrun (or pass
 `coordinator_address`, `num_processes` and `process_id`); the global batch
@@ -56,10 +69,14 @@ dense bf16 rate, None where the peak is unknown (the CPU).
 `profile_dir` traces the reference's steady-state window of epoch 0
 (steps min(10, n - 10) to 10 past it, n capped by `max_steps_per_epoch`)
 into one Kineto trace (`utils/profiling.py`; read it with
-`python -m ddp_practice_tpu_torch.utils.xprof DIR STEPS`): every step runs
-under a `train#<step>` annotation and eval under an "eval" one, the trace
-stops after a `torch.cuda.synchronize()` at the window's end, and a short
-or failing epoch closes it on the way out.
+`python -m ddp_practice_tpu_torch.utils.xprof DIR STEPS`): every call
+(one step, or a group) runs under a `train#<its first step>` annotation
+and eval under an "eval" one, the trace stops after a
+`torch.cuda.synchronize()` at the window's end, and a short or failing
+epoch closes it on the way out. The resident epoch cuts its groups at
+the window's edges, so it traces the same steps; the reference traces
+the whole first epoch in resident mode. A chunked host epoch starts and
+stops at the first chunk boundary past each edge, as the reference's.
 """
 
 from __future__ import annotations
@@ -78,7 +95,7 @@ import torch
 import ddp_practice_tpu_torch.checkpoint as ckpt
 from ddp_practice_tpu_torch.config import TrainConfig, resolve_device
 from ddp_practice_tpu_torch.data.datasets import load_dataset
-from ddp_practice_tpu_torch.data.loader import DataLoader
+from ddp_practice_tpu_torch.data.loader import DataLoader, prefetch_chunked
 from ddp_practice_tpu_torch.data.lm_corpus import (
     LMDataLoader,
     TokenCorpus,
@@ -91,9 +108,16 @@ from ddp_practice_tpu_torch.models import _NOT_PORTED as _MODELS_NOT_PORTED
 from ddp_practice_tpu_torch.parallel import dist
 from ddp_practice_tpu_torch.train.state import TrainState, make_optimizer
 from ddp_practice_tpu_torch.train.steps import (
+    make_chunked_eval_step,
+    make_chunked_lm_train_step,
+    make_chunked_train_step,
     make_eval_step,
     make_lm_eval_step,
     make_lm_train_step,
+    make_resident_eval_step,
+    make_resident_lm_eval_step,
+    make_resident_lm_train_step,
+    make_resident_train_step,
     make_train_step,
 )
 from ddp_practice_tpu_torch.ops.batchnorm import BatchNorm
@@ -259,17 +283,7 @@ class Trainer:
             info0("resumed from %s at step %d", config.checkpoint_dir,
                   self.state.step)
         self._pending_save: Optional[ckpt.AsyncSave] = None
-        if self.task == "lm":
-            self.train_step = make_lm_train_step(
-                self.model, label_smoothing=config.label_smoothing,
-                seed=config.seed, forward=self.forward)
-            self.eval_step = make_lm_eval_step(self.model)
-        else:
-            self.train_step = make_train_step(
-                self.model, label_smoothing=config.label_smoothing,
-                seed=config.seed, augment=config.augment,
-                forward=self.forward)
-            self.eval_step = make_eval_step(self.model)
+        self._build_steps()
         self._train_images = 0
         self._train_seconds = 0.0
         self._last_moe: dict = {}
@@ -284,6 +298,101 @@ class Trainer:
             self._metrics_fh = open(config.metrics_file, "a")
 
     # ------------------------------------------------------------------ #
+
+    def _build_steps(self) -> None:
+        """The per-batch steps, the chunked ones at steps_per_call K > 1
+        (K steps a call over stacked host batches; chunked eval for the
+        image task, as the reference's), and with device-resident data the
+        resident steps over the uploaded corpus."""
+        cfg = self.config
+        common = dict(label_smoothing=cfg.label_smoothing, seed=cfg.seed,
+                      forward=self.forward)
+        if self.task == "image":
+            common["augment"] = cfg.augment
+        k = cfg.steps_per_call
+        if self.task == "lm":
+            self.train_step = make_lm_train_step(self.model, **common)
+            self.eval_step = make_lm_eval_step(self.model)
+            chunk_factory = make_chunked_lm_train_step
+        else:
+            self.train_step = make_train_step(self.model, **common)
+            self.eval_step = make_eval_step(self.model)
+            chunk_factory = make_chunked_train_step
+        self.chunk_step = self.chunk_eval_step = None
+        if k > 1:
+            self.chunk_step = chunk_factory(self.model, num_steps=k, **common)
+            if self.task == "image":
+                self.chunk_eval_step = make_chunked_eval_step(
+                    self.model, num_steps=k)
+        self.resident_train_step = self.resident_eval_step = None
+        if self._use_resident_data():
+            if self.task == "lm":
+                window = cfg.seq_len + 1
+                self._train_data = {"tokens": self._upload(
+                    self.train_loader.corpus.tokens, np.int32)}
+                self._eval_data = {"tokens": self._upload(
+                    self.eval_loader.corpus.tokens, np.int32)}
+                self.resident_train_step = make_resident_lm_train_step(
+                    self.model, window=window, **common)
+                self.resident_eval_step = make_resident_lm_eval_step(
+                    self.model, window=window)
+            else:
+                self._train_data = {
+                    "image": self._upload(self.train_ds.images),
+                    "label": self._upload(self.train_ds.labels)}
+                self._eval_data = {
+                    "image": self._upload(self.eval_ds.images),
+                    "label": self._upload(self.eval_ds.labels)}
+                self.resident_train_step = make_resident_train_step(
+                    self.model, **common)
+                self.resident_eval_step = make_resident_eval_step(
+                    self.model)
+        elif k == -1:
+            raise ValueError(
+                "steps_per_call=-1 (whole epoch per dispatch) needs "
+                "device-resident data; got data_placement="
+                f"{cfg.data_placement!r}"
+                + (" in a multi-process run" if self.world > 1 else "")
+                + " — use data_placement='device' (single process) or a "
+                "positive steps_per_call")
+
+    def _use_resident_data(self) -> bool:
+        """The corpus's home (the reference's rule): 'device' demands it
+        (and a single process, which must address the whole corpus);
+        'auto' takes it when one process runs and it fits
+        `resident_max_bytes` (token streams counted as int32); 'host'
+        never."""
+        cfg = self.config
+        if cfg.data_placement == "host":
+            return False
+        multi = self.world > 1
+        if cfg.data_placement == "device":
+            if multi:
+                raise ValueError(
+                    "data_placement='device' requires a single process: "
+                    "the whole corpus must be addressable to upload it; "
+                    "multi-process runs stream with data_placement='host'")
+            return True
+        if self.task == "lm":
+            nbytes = 4 * (len(self.train_loader.corpus)
+                          + len(self.eval_loader.corpus))
+        else:
+            nbytes = sum(ds.images.nbytes + ds.labels.nbytes
+                         for ds in (self.train_ds, self.eval_ds))
+        return not multi and nbytes <= cfg.resident_max_bytes
+
+    def _resident_group(self, total_steps: int) -> int:
+        """Steps a dispatch in resident mode: the whole epoch at
+        steps_per_call=-1, else the configured K (at least 1). The
+        reference's watchdog cap is ROADMAP A8's."""
+        k = self.config.steps_per_call
+        return max(total_steps, 1) if k == -1 else max(k, 1)
+
+    def _upload(self, array, dtype=None) -> torch.Tensor:
+        """A host array on the device, once (the resident corpus and the
+        epoch's grids)."""
+        return torch.from_numpy(np.array(array, dtype=dtype)).to(
+            self.device)
 
     def _build_lm_data(self, shard):
         """Token loaders: dataset='text' reads bytes from data_dir, anything
@@ -352,6 +461,14 @@ class Trainer:
         while staged:
             yield staged.popleft()
 
+    def _tagged_batches(self, loader, k: int):
+        """("chunk", K stacked batches) and ("single", batch) on the
+        device: chunks when k > 1, single batches otherwise."""
+        if k > 1:
+            return prefetch_chunked(iter(loader), k, self._to_device,
+                                    size=self.config.prefetch)
+        return (("single", b) for b in self._device_batches(loader))
+
     def _write_metrics(self, record: dict) -> None:
         if self._metrics_fh is None:
             return
@@ -379,9 +496,32 @@ class Trainer:
             return None
         return start, stop
 
+    def _trace_edge(self, tracing: bool, window, steps_done: int):
+        """Stop the profile window once `steps_done` reaches its end, start
+        it once past its start; returns the new (tracing, window)."""
+        if tracing and steps_done >= window[1]:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            info0("profile: wrote %s (steps %d-%d)",
+                  profiling.stop_capture(), window[0], window[1] - 1)
+            return False, None
+        if window and not tracing and steps_done >= window[0]:
+            return profiling.start_capture(self.config.profile_dir), window
+        return tracing, window
+
+    def _close_trace(self) -> None:
+        """A short epoch or a failing step: close the open trace."""
+        failing = sys.exc_info()[0] is not None
+        if not failing and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        info0("profile: wrote %s", profiling.stop_capture(swallow=failing))
+
     def train_epoch(self, epoch: int) -> dict:
+        if self.resident_train_step is not None:
+            return self._train_epoch_resident(epoch)
         cfg = self.config
         self.train_loader.set_epoch(epoch)
+        k = cfg.steps_per_call if self.chunk_step is not None else 1
         timer = Timer()
         steps_done = 0
         final = None
@@ -390,43 +530,100 @@ class Trainer:
         window = self._profile_window(epoch)
         tracing = False
         try:
-            for batch in self._device_batches(self.train_loader):
+            for tag, batch in self._tagged_batches(self.train_loader, k):
                 if (cfg.max_steps_per_epoch
                         and steps_done >= cfg.max_steps_per_epoch):
                     break
-                if tracing and steps_done >= window[1]:
-                    if self.device.type == "cuda":
-                        torch.cuda.synchronize(self.device)
-                    tracing = False
-                    info0("profile: wrote %s (steps %d-%d)",
-                          profiling.stop_capture(), window[0], window[1] - 1)
-                    window = None
-                if window and not tracing and steps_done >= window[0]:
-                    tracing = profiling.start_capture(cfg.profile_dir)
+                tracing, window = self._trace_edge(tracing, window,
+                                                   steps_done)
+                remaining = (cfg.max_steps_per_epoch - steps_done
+                             if cfg.max_steps_per_epoch else k)
                 with profiling.step_annotation(step_base + steps_done):
-                    self.state, metrics = self.train_step(self.state, batch)
+                    if tag == "chunk" and remaining >= k:
+                        self.state, metrics = self.chunk_step(self.state,
+                                                              batch)
+                        inc = k
+                    elif tag == "chunk":
+                        # the step cap cuts the chunk: its head as single
+                        # steps, so the cap (and the resume math) is exact
+                        for j in range(remaining):
+                            self.state, metrics = self.train_step(
+                                self.state, {n: v[j] for n, v in
+                                             batch.items()})
+                        inc = remaining
+                    else:
+                        self.state, metrics = self.train_step(self.state,
+                                                              batch)
+                        inc = 1
                 prev = steps_done
-                steps_done += 1
+                steps_done += inc
                 final = metrics
-                if cfg.log_every_steps and (
-                        prev // cfg.log_every_steps
-                        != steps_done // cfg.log_every_steps):
-                    m = {k: float(v) for k, v in metrics.items()}  # readback
-                    info0("epoch %d step %d loss %.4f acc %.3f", epoch,
-                          steps_done, m["loss"], m["accuracy"])
-                    self._write_metrics({"kind": "train", "epoch": epoch,
-                                         "step": self.state.step, **m})
-                every = cfg.checkpoint_every_steps
-                if cfg.checkpoint_dir and every and (
-                        prev // every != steps_done // every):
-                    self.save(periodic=True)
+                self._after_train_group(epoch, prev, steps_done, metrics)
         finally:
-            if tracing:   # a short epoch or a failing step: close the trace
-                failing = sys.exc_info()[0] is not None
-                if not failing and self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
-                info0("profile: wrote %s",
-                      profiling.stop_capture(swallow=failing))
+            if tracing:
+                self._close_trace()
+        return self._close_train_epoch(final, steps_done, timer)
+
+    def _train_epoch_resident(self, epoch: int) -> dict:
+        """One epoch against the device-resident corpus: the epoch's index
+        grid (DataLoader.epoch_plan, the host path's batches in the host
+        path's order) is uploaded once and cut into groups of
+        `_resident_group` rows, each one call of the resident step (on
+        the card, replays of its graph); the profile window's edges cut
+        groups too."""
+        cfg = self.config
+        self.train_loader.set_epoch(epoch)
+        idx, _ = self.train_loader.epoch_plan()
+        if cfg.max_steps_per_epoch:
+            idx = idx[:cfg.max_steps_per_epoch]
+        total = len(idx)
+        grid = self._upload(idx)
+        window = self._profile_window(epoch)
+        cuts = set(range(0, total, self._resident_group(total)))
+        cuts |= {c for c in window or () if c < total}
+        bounds = sorted(cuts) + [total]
+        timer = Timer()
+        step_base = self.state.step
+        steps_done = 0
+        final = None
+        tracing = False
+        try:
+            for g0, g1 in zip(bounds, bounds[1:]):
+                tracing, window = self._trace_edge(tracing, window, g0)
+                with profiling.step_annotation(step_base + g0):
+                    self.state, metrics = self.resident_train_step(
+                        self.state, self._train_data, grid[g0:g1])
+                steps_done = g1
+                final = metrics
+                self._after_train_group(epoch, g0, g1, metrics)
+        finally:
+            if tracing:
+                self._close_trace()
+        return self._close_train_epoch(final, steps_done, timer)
+
+    def _after_train_group(self, epoch: int, prev: int, steps_done: int,
+                           metrics: dict) -> None:
+        """Bookkeeping after a call that took the epoch from `prev` to
+        `steps_done` steps: the log readback and its metrics record, and
+        the periodic checkpoint, each where the call crossed its
+        boundary (calls advance by K, so the tests are not modulo)."""
+        cfg = self.config
+        if cfg.log_every_steps and (prev // cfg.log_every_steps
+                                    != steps_done // cfg.log_every_steps):
+            m = {k: float(v) for k, v in metrics.items()}   # readback
+            info0("epoch %d step %d loss %.4f acc %.3f", epoch, steps_done,
+                  m["loss"], m["accuracy"])
+            self._write_metrics({"kind": "train", "epoch": epoch,
+                                 "step": self.state.step, **m})
+        every = cfg.checkpoint_every_steps
+        if cfg.checkpoint_dir and every and (prev // every
+                                             != steps_done // every):
+            self.save(periodic=True)
+
+    def _close_train_epoch(self, final, steps_done: int,
+                           timer: Timer) -> dict:
+        """The epoch's fence (a scalar readback of its last metrics) and
+        its time and images."""
         if final is not None:
             float(final["loss"])     # fence: the epoch's steps are done
             self._last_moe = {k: float(v) for k, v in final.items()
@@ -441,13 +638,23 @@ class Trainer:
         """Held-out accuracy; every rank takes part in the all-reduce of
         the sums. Image task: exact under wrap-padding (weighted counts).
         LM: next-token accuracy, and perplexity (exp of the mean token
-        NLL, on `eval_perplexity`)."""
-        sums = torch.zeros(2 if self.task == "image" else 3,
-                           device=self.device)
+        NLL, on `eval_perplexity`). Resident data: grouped grids of the
+        eval plan against the resident corpus; host data: K batches a
+        call with steps_per_call K > 1 (the image task's chunked eval),
+        else one."""
         # an annotation: eval apart from train on the device timeline
         with profiling.profile_region("eval"):
-            for batch in self._device_batches(self.eval_loader):
-                sums += torch.stack(self.eval_step(self.state, batch))
+            if self.resident_eval_step is not None:
+                sums = self._evaluate_resident()
+            else:
+                sums = torch.zeros(2 if self.task == "image" else 3,
+                                   device=self.device)
+                k = (self.config.steps_per_call
+                     if self.chunk_eval_step is not None else 1)
+                for tag, batch in self._tagged_batches(self.eval_loader, k):
+                    step = (self.chunk_eval_step if tag == "chunk"
+                            else self.eval_step)
+                    sums += torch.stack(step(self.state, batch))
         if self.task == "image":
             correct, total = dist.all_reduce_sum(sums).tolist()
             return correct / max(total, 1.0)
@@ -455,6 +662,29 @@ class Trainer:
         t = max(total, 1.0)
         self.eval_perplexity = math.exp(min(nll / t, 30.0))
         return correct / t
+
+    def _evaluate_resident(self) -> torch.Tensor:
+        """The eval sums from the resident corpus: the eval plan's grids
+        (for images with the zero weights of the wrap-padded tail, so the
+        counts equal the host path's) in groups of `_resident_group`
+        rows."""
+        idx, weight = self.eval_loader.epoch_plan()
+        g = self._resident_group(len(idx))
+        grid = self._upload(idx)
+        sums = torch.zeros(2 if self.task == "image" else 3,
+                           device=self.device)
+        if self.task == "image":
+            weights = self._upload(weight)
+        for g0 in range(0, len(idx), g):
+            if self.task == "image":
+                out = self.resident_eval_step(
+                    self.state, self._eval_data, grid[g0:g0 + g],
+                    weights[g0:g0 + g])
+            else:
+                out = self.resident_eval_step(self.state, self._eval_data,
+                                              grid[g0:g0 + g])
+            sums += torch.stack(out)
+        return sums
 
     def _write_eval_record(self, epoch: int, accuracy: float) -> None:
         record = {"kind": "eval", "epoch": epoch, "step": self.state.step,

@@ -20,6 +20,29 @@ torch optimizer, with the reference's forms where torch's differ:
   Welford update (acc += (g - acc) / (n + 1)) and applies on the k-th;
   between applies the parameters do not move. `TrainState.step` counts
   micro-steps.
+
+Under a CUDA graph (utils/graphs.py) a step is captured once and
+replayed, so nothing the step reads may be a Python number that changes
+from step to step:
+
+- the learning rate is a 0-dim fp32 tensor on the device, `lr`, that
+  every apply sets from a per-apply table of `schedule_lr`'s values
+  (`lr_table`) at a device apply counter; the torch optimizers read it as
+  a tensor (Adam and AdamW built `capturable=True` on the card, which
+  keeps their step counts on the device too);
+- SGD's update is written here in foreach ops (`_sgd`) over torch SGD's
+  state, because torch's SGD reads a tensor lr as a Python number
+  (`alpha=-lr`, a device-to-host read a graph cannot capture); it is the
+  reference's chain: decayed weights added, the momentum trace (the
+  first apply's trace is the grad itself), then p -= lr * update;
+- `TrainState.step` and `Optimizer.applies` stay Python ints (the
+  checkpoint, the logs and the schedule's host side read them), each
+  mirrored by a device counter (`device_step`, `device_applies`) that the
+  step advances in place; a mirror is written from its Python count only
+  when the two are known to differ (after a restore, or before the first
+  read), so a captured step reads and advances the device counter and
+  bakes no Python value. `accum_steps > 1` branches in Python on `micro`:
+  a graph unit is one whole apply (utils/graphs.py).
 """
 
 from __future__ import annotations
@@ -37,10 +60,53 @@ from ddp_practice_tpu_torch.config import TrainConfig
 @dataclasses.dataclass
 class TrainState:
     """`step` counts micro-steps on the host (no device readback);
-    `model` is the bare module (the loop may run it through DDP)."""
+    `model` is the bare module (the loop may run it through DDP).
+    `device_step()` is the same count as a 0-dim int64 tensor on the
+    model's device (the dropout keys' counter, train/steps.py)."""
     step: int
     model: nn.Module
     optimizer: "Optimizer"
+    _step_t: Optional[torch.Tensor] = dataclasses.field(
+        default=None, repr=False)
+    _step_at: int = dataclasses.field(default=-1, repr=False)
+
+    def device_step(self) -> torch.Tensor:
+        """The step counter on the device, written from `step` first if
+        they may differ (never inside a capture: the graph runner syncs
+        before it captures)."""
+        if self._step_t is None:
+            device = next(self.model.parameters()).device
+            self._step_t = torch.zeros((), dtype=torch.int64, device=device)
+        if self._step_at != self.step:
+            self._step_t.fill_(self.step)
+            self._step_at = self.step
+        return self._step_t
+
+    def advance(self) -> None:
+        """One micro-step done: `step` + 1, and the device counter + 1 in
+        place while it mirrors `step`."""
+        if self._step_t is not None and self._step_at == self.step:
+            self._step_t.add_(1)
+            self._step_at += 1
+        self.step += 1
+
+    def sync_device(self) -> None:
+        """Write every device counter from its Python count (the apply
+        counter only where the schedule reads it)."""
+        self.device_step()
+        if len(self.optimizer.lr_table) > 1:
+            self.optimizer.device_applies()
+
+
+def schedule_length(config: TrainConfig, steps_per_epoch: int) -> int:
+    """Applies after which `schedule_lr` stays constant (1 for the
+    constant schedule): the length of `Optimizer.lr_table`."""
+    if config.lr_schedule == "constant":
+        return 1
+    accum = max(config.accum_steps, 1)
+    total = max(steps_per_epoch * config.epochs // accum, 1)
+    warmup = config.warmup_steps // accum
+    return warmup + max(total - warmup, 1) + 1
 
 
 def schedule_lr(config: TrainConfig, steps_per_epoch: int,
@@ -73,22 +139,35 @@ class Optimizer:
     def __init__(self, params, config: TrainConfig, steps_per_epoch: int,
                  world_size: int = 1):
         self.params = [p for p in params if p.requires_grad]
+        device = self.params[0].device
         lr = config.learning_rate
         if config.scale_lr_by_replicas:
             lr *= world_size
         self.schedule = schedule_lr(config, steps_per_epoch, lr)
+        self.lr_table = torch.tensor(
+            [self.schedule(t) for t in range(schedule_length(
+                config, steps_per_epoch))],
+            dtype=torch.float32, device=device)
+        self.lr = self.lr_table[0].clone()
+        self._applies_t = torch.zeros((), dtype=torch.int64, device=device)
+        self._applies_at = 0
         name = config.optimizer
+        # on the card Adam's step counts live on the device and it reads
+        # the tensor lr there (capturable); on the CPU torch reads it as a
+        # number (no graph runs there)
+        capturable = device.type == "cuda"
         if name == "sgd":
             self.inner = torch.optim.SGD(
-                self.params, lr=lr, momentum=config.momentum,
+                self.params, lr=self.lr, momentum=config.momentum,
                 weight_decay=config.weight_decay)
         elif name == "adam":
-            self.inner = torch.optim.Adam(self.params, lr=lr,
-                                          betas=(0.9, 0.999), eps=1e-8)
+            self.inner = torch.optim.Adam(
+                self.params, lr=self.lr, betas=(0.9, 0.999), eps=1e-8,
+                capturable=capturable)
         elif name == "adamw":
             self.inner = torch.optim.AdamW(
-                self.params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                weight_decay=config.weight_decay)
+                self.params, lr=self.lr, betas=(0.9, 0.999), eps=1e-8,
+                weight_decay=config.weight_decay, capturable=capturable)
         else:
             raise ValueError(f"unknown optimizer {name!r}")
         self.clip_norm = config.clip_norm
@@ -97,6 +176,14 @@ class Optimizer:
         self.applies = 0      # the schedule's count
         self.acc = ([torch.zeros_like(p) for p in self.params]
                     if self.k > 1 else None)
+
+    def device_applies(self) -> torch.Tensor:
+        """The apply count on the device, written from `applies` first if
+        they may differ (a restore sets `applies`)."""
+        if self._applies_at != self.applies:
+            self._applies_t.fill_(self.applies)
+            self._applies_at = self.applies
+        return self._applies_t
 
     def step(self) -> bool:
         """Consume this micro-step's grads; returns whether it applied."""
@@ -118,11 +205,44 @@ class Optimizer:
             scale = torch.where(norm < self.clip_norm, 1.0,
                                 self.clip_norm / norm)
             torch._foreach_mul_(grads, scale)
-        for group in self.inner.param_groups:
-            group["lr"] = self.schedule(self.applies)
-        self.inner.step()
+        if len(self.lr_table) > 1:   # a constant schedule keeps lr as built
+            # index_select, not table[t]: indexing by a 0-dim tensor reads
+            # it on the host, which a graph cannot capture
+            applies = self.device_applies()
+            last = len(self.lr_table) - 1
+            self.lr.copy_(self.lr_table.index_select(
+                0, applies.clamp(max=last).view(1)).view(()))
+            applies.add_(1)
+            self._applies_at += 1
+        if isinstance(self.inner, torch.optim.SGD):
+            self._sgd()
+        else:
+            self.inner.step()
         self.applies += 1
         return True
+
+    @torch.no_grad()
+    def _sgd(self) -> None:
+        """torch SGD's update on its own state (`momentum_buffer`), with
+        the lr read as a tensor: update = g (+ wd * p); trace = momentum *
+        trace + update (the first apply: update); p -= lr * trace."""
+        group = self.inner.param_groups[0]
+        grads = [p.grad for p in self.params]
+        if group["weight_decay"]:
+            grads = torch._foreach_add(grads, self.params,
+                                       alpha=group["weight_decay"])
+        if group["momentum"]:
+            state = [self.inner.state[p] for p in self.params]
+            if all("momentum_buffer" in st for st in state):
+                bufs = [st["momentum_buffer"] for st in state]
+                torch._foreach_mul_(bufs, group["momentum"])
+                torch._foreach_add_(bufs, grads)
+            else:
+                bufs = [g.detach().clone() for g in grads]
+                for st, buf in zip(state, bufs):
+                    st["momentum_buffer"] = buf
+            grads = bufs
+        torch._foreach_sub_(self.params, torch._foreach_mul(grads, self.lr))
 
 
 def global_norm(tensors) -> torch.Tensor:

@@ -19,9 +19,27 @@ metrics are the global batch's.
 The image step is the same with `prepare_image` (uint8 -> [0, 1] fp32 on
 the device) in front, class logits, and metrics `loss`, `accuracy` and
 `grad_norm`; the eval step returns weighted (correct, total) so a
-wrap-padded last batch counts its real samples only. BatchNorm models
-(ROADMAP A1) and `augment` (A2, ops/augment.py) are not ported; the
-chunked and device-resident steps are A3.
+wrap-padded last batch counts its real samples only. `augment` (A2,
+ops/augment.py) is not ported.
+
+The step's Python side (`state.step`, the optimizer's counts) is
+mirrored on the device (train/state.py), and the dropout key is
+derived there from the device step counter (`step_key`), so the same
+step runs eagerly or captured as a CUDA graph and replayed.
+
+K steps a call (the reference's `lax.scan` steps, ROADMAP A3):
+`make_chunked_train_step` and `make_chunked_lm_train_step` take K
+batches stacked on a leading axis; the device-resident steps
+(`make_resident_train_step`, `make_resident_lm_train_step` and their
+eval steps) take the whole corpus on the device (`data`) and a (G, B)
+grid of sample indices or LM window starts, and gather each batch on the
+device (`_resident_gather`, `_lm_window_gather`). Each runs the
+per-batch step above as its body, so resident and chunked equal the
+per-batch steps by construction: on the card as replays of one captured
+step (utils/graphs.py `StepGraph`: one optimizer apply a unit, a
+remainder eager), on the CPU and under several processes eagerly, row
+by row. Train steps return the last step's metrics, eval steps the
+summed weighted (correct, total), or (correct, total, nll) for the LM.
 
 MoE models (lm_moe, vit_tiny_moe): both training steps add the summed aux
 loss of every routed layer to the objective (`_sown_aux_loss`; the loss
@@ -39,16 +57,30 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ddp_practice_tpu_torch.models.vit import DropoutKey, fold32, mix32
 from ddp_practice_tpu_torch.ops.losses import accuracy_counts, cross_entropy
 from ddp_practice_tpu_torch.ops.moe import moe_layers
 from ddp_practice_tpu_torch.parallel import dist
 from ddp_practice_tpu_torch.train.state import TrainState, global_norm
+from ddp_practice_tpu_torch.utils.graphs import StepGraph
 
 
-def step_key(seed: int, step: int) -> int:
-    """The dropout key of a global step: deterministic for a given seed,
-    so a step replays its masks (the reference's fold_in(seed, step))."""
-    return (seed * 1_000_003 + step) % (1 << 62)
+def step_key(seed: int, step) -> DropoutKey:
+    """The dropout key of a global step (the reference's fold_in(seed,
+    step)): 32 bits hashed from the seed and the step, so a step replays
+    its masks. `step` is the device step counter (a 0-dim int64 tensor:
+    the key is then computed on the device, and a CUDA graph replays it)
+    or an int; both give the same bits. No product overflows int64
+    (models/vit.py `fold32`), whatever the step."""
+    return DropoutKey(mix32(fold32(step) ^ fold32(seed)))
+
+
+def _dropout_key(model: nn.Module, seed: int, state: TrainState):
+    """The step's key, or None for a model without dropout (no device
+    ops)."""
+    if getattr(model, "dropout_rate", 0.0) > 0.0:
+        return step_key(seed, state.device_step())
+    return None
 
 
 def _sown_aux_loss(layers) -> torch.Tensor | float:
@@ -92,7 +124,7 @@ def make_lm_train_step(model: nn.Module, *, label_smoothing: float = 0.0,
         for p in params:
             p.grad = None
         logits = net(inputs, train=True,
-                     dropout_key=step_key(seed, state.step))
+                     dropout_key=_dropout_key(model, seed, state))
         loss = cross_entropy(logits, targets, weight=weight,
                              label_smoothing=label_smoothing)
         loss = loss + _sown_aux_loss(moes)
@@ -101,7 +133,7 @@ def make_lm_train_step(model: nn.Module, *, label_smoothing: float = 0.0,
         _commit_router_bias(moes)
         grad_norm = global_norm([p.grad for p in params])
         state.optimizer.step()
-        state.step += 1
+        state.advance()
         with torch.no_grad():
             sums = [loss.detach().float()]
             if with_accuracy:
@@ -166,7 +198,7 @@ def make_train_step(model: nn.Module, *, label_smoothing: float = 0.0,
         for p in params:
             p.grad = None
         logits = net(images, train=True,
-                     dropout_key=step_key(seed, state.step))
+                     dropout_key=_dropout_key(model, seed, state))
         loss = cross_entropy(logits, labels,
                              label_smoothing=label_smoothing)
         loss = loss + _sown_aux_loss(moes)
@@ -175,7 +207,7 @@ def make_train_step(model: nn.Module, *, label_smoothing: float = 0.0,
         _commit_router_bias(moes)
         grad_norm = global_norm([p.grad for p in params])
         state.optimizer.step()
-        state.step += 1
+        state.advance()
         with torch.no_grad():
             sums = torch.stack([loss.detach().float(),
                                 *accuracy_counts(logits, labels)])
@@ -200,3 +232,167 @@ def make_eval_step(model: nn.Module):
                                weight=batch["weight"])
 
     return eval_step
+
+
+# ------------------------------------------------------ K steps a call
+def _stacked(batches: dict, num_steps: int) -> dict:
+    """The chunk's leaves, checked to hold `num_steps` batches."""
+    for key, value in batches.items():
+        if len(value) != num_steps:
+            raise ValueError(f"chunk leaf {key!r} holds {len(value)} "
+                             f"batches; the step was built for "
+                             f"{num_steps}")
+    return batches
+
+
+def _train_rows(name: str, model: nn.Module, body):
+    """run(state, rows, batch_of, bind) -> (state, the last step's
+    metrics): `body` over `batch_of(row)` for each row, through one
+    StepGraph (one optimizer apply a graph unit)."""
+    graph = StepGraph(name, model)
+
+    def run(state, rows, batch_of, bind=()):
+        return graph(state, rows, lambda st, row: body(st, batch_of(row)),
+                     unit=state.optimizer.k, bind=bind)
+
+    run.graph = graph
+    return run
+
+
+def _eval_rows(name: str, model: nn.Module, body, n: int):
+    """run(state, rows, batch_of, bind) -> the `n` sums of `body` over
+    `batch_of(row)` for each row, added on the device into one tensor (a
+    graph adds into it at one address: one tensor per device)."""
+    graph = StepGraph(name, model)
+    store: dict = {}
+
+    def run(state, rows, batch_of, bind=()):
+        device = next(model.parameters()).device
+        sums = store.get(device)
+        if sums is None:
+            sums = store[device] = torch.zeros(n, device=device)
+        sums.zero_()
+
+        def step(state, row):
+            sums.add_(torch.stack(body(state, batch_of(row))))
+            return state, sums
+
+        graph(state, rows, step, bind=(*bind, sums))
+        return tuple(sums.clone().unbind(0))
+
+    run.graph = graph
+    return run
+
+
+def _with_graph(fn, run):
+    fn.graph = run.graph
+    return fn
+
+
+def make_chunked_train_step(model: nn.Module, *, num_steps: int,
+                            label_smoothing: float = 0.0, seed: int = 0,
+                            augment=False,
+                            forward: Optional[nn.Module] = None):
+    """(state, batches) -> (state, the last step's metrics): K =
+    `num_steps` image steps over batches stacked on a leading (K, b, ...)
+    axis (data/loader.py `prefetch_chunked`), the same math as K calls of
+    `make_train_step`."""
+    run = _train_rows("chunked train", model, make_train_step(
+        model, label_smoothing=label_smoothing, seed=seed, augment=augment,
+        forward=forward))
+    return _with_graph(lambda state, batches: run(
+        state, _stacked(batches, num_steps), lambda row: row), run)
+
+
+def make_chunked_lm_train_step(model: nn.Module, *, num_steps: int,
+                               label_smoothing: float = 0.0, seed: int = 0,
+                               forward: Optional[nn.Module] = None):
+    """K LM steps a call over stacked (K, b, s + 1) token batches: the
+    scheme of `make_chunked_train_step` for the LM objective."""
+    run = _train_rows("chunked lm train", model, make_lm_train_step(
+        model, label_smoothing=label_smoothing, seed=seed, forward=forward))
+    return _with_graph(lambda state, batches: run(
+        state, _stacked(batches, num_steps), lambda row: row), run)
+
+
+def make_chunked_eval_step(model: nn.Module, *, num_steps: int):
+    """(state, batches) -> weighted (correct, total) summed over K =
+    `num_steps` stacked eval batches: the per-batch step's sums, exact
+    under wrap-padding (the weight leaf)."""
+    run = _eval_rows("chunked eval", model, make_eval_step(model), 2)
+    return _with_graph(lambda state, batches: run(
+        state, _stacked(batches, num_steps), lambda row: row), run)
+
+
+def _resident_gather(data: dict, idx: torch.Tensor) -> dict:
+    """One batch from the device-resident corpus: rows `idx` (B,) of each
+    (N, ...) leaf; labels as int64, as a host batch's (train/loop.py
+    `_to_device`)."""
+    batch = {k: v.index_select(0, idx) for k, v in data.items()}
+    if "label" in batch:
+        batch["label"] = batch["label"].long()
+    return batch
+
+
+def make_resident_train_step(model: nn.Module, *,
+                             label_smoothing: float = 0.0, seed: int = 0,
+                             augment=False,
+                             forward: Optional[nn.Module] = None):
+    """(state, data, idx) -> (state, the last step's metrics): G image
+    steps against a device-resident corpus. `data` = {"image": (N, H, W,
+    C) uint8, "label": (N,)} on the device, uploaded once; `idx` a (G, B)
+    index grid (DataLoader.epoch_plan), one row a step, so a step's only
+    host-to-device traffic is its row of the grid. G is the grid's; each
+    step is `make_train_step` on the gathered batch."""
+    run = _train_rows("resident train", model, make_train_step(
+        model, label_smoothing=label_smoothing, seed=seed, augment=augment,
+        forward=forward))
+    return _with_graph(lambda state, data, idx: run(
+        state, {"idx": idx}, lambda row: _resident_gather(data, row["idx"]),
+        bind=tuple(data.values())), run)
+
+
+def make_resident_eval_step(model: nn.Module):
+    """(state, data, idx, weight) -> weighted (correct, total) summed
+    over the (G, B) grids of indices and weights (wrap-padded samples
+    weigh 0.0): the host eval's sums, from the resident corpus."""
+    run = _eval_rows("resident eval", model, make_eval_step(model), 2)
+    return _with_graph(lambda state, data, idx, weight: run(
+        state, {"idx": idx, "weight": weight},
+        lambda row: {**_resident_gather(data, row["idx"]),
+                     "weight": row["weight"]},
+        bind=tuple(data.values())), run)
+
+
+def _lm_window_gather(tokens: torch.Tensor, starts: torch.Tensor,
+                      window: int) -> torch.Tensor:
+    """One (B, window) int64 token batch from the resident stream: the
+    windows at `starts` (B,)."""
+    offsets = torch.arange(window, device=tokens.device)
+    return tokens[starts.long()[:, None] + offsets[None, :]].long()
+
+
+def make_resident_lm_train_step(model: nn.Module, *, window: int,
+                                label_smoothing: float = 0.0, seed: int = 0,
+                                forward: Optional[nn.Module] = None):
+    """(state, data, starts) -> (state, the last step's metrics): the LM
+    counterpart of `make_resident_train_step`. data = {"tokens": the 1-D
+    int token stream on the device}; `starts` a (G, B) grid of window
+    starts (LMDataLoader.epoch_plan), each step gathering its (B, seq + 1)
+    windows on the device."""
+    run = _train_rows("resident lm train", model, make_lm_train_step(
+        model, label_smoothing=label_smoothing, seed=seed, forward=forward))
+    return _with_graph(lambda state, data, starts: run(
+        state, {"starts": starts}, lambda row: {"tokens": _lm_window_gather(
+            data["tokens"], row["starts"], window)},
+        bind=(data["tokens"],)), run)
+
+
+def make_resident_lm_eval_step(model: nn.Module, *, window: int):
+    """(state, data, starts) -> (correct, total, nll) summed over the
+    grid's batches: the resident analogue of `make_lm_eval_step`."""
+    run = _eval_rows("resident lm eval", model, make_lm_eval_step(model), 3)
+    return _with_graph(lambda state, data, starts: run(
+        state, {"starts": starts}, lambda row: {"tokens": _lm_window_gather(
+            data["tokens"], row["starts"], window)},
+        bind=(data["tokens"],)), run)

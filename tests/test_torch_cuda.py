@@ -1253,3 +1253,207 @@ def test_tgmm_is_the_same_bits_every_run(card, chunk):
     second = gm._launch_tgmm(lhs, grad, sizes, torch.float32, chunk=chunk)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+# --------------------------------------------- graphed steps (ROADMAP A3)
+# The resident and chunked steps run as replays of one captured CUDA graph
+# (utils/graphs.py). Held against the eager host-fed steps of the same
+# configuration: per-step loss 1e-6 relative, parameters and buffers 1e-5
+# (the same kernels on the same batches; only an algorithm cuDNN or
+# cuBLAS picks apart between the two could move a bit).
+def _trainer(**kw):
+    from ddp_practice_tpu_torch.config import TrainConfig
+    from ddp_practice_tpu_torch.train.loop import Trainer
+
+    base = dict(device="cuda", epochs=1, log_every_steps=0,
+                data_dir="build/no_such_data")
+    return Trainer(TrainConfig(**{**base, **kw}))
+
+
+def _recorded(trainer, name):
+    """The losses each call of `trainer.<name>` returns, in order, and
+    the step's graph (None for the per-batch step)."""
+    losses, step = [], getattr(trainer, name)
+
+    def recorded(*args):
+        state, metrics = step(*args)
+        losses.append(metrics["loss"])
+        return state, metrics
+
+    setattr(trainer, name, recorded)
+    return losses, getattr(step, "graph", None)
+
+
+def _held(a, b, rel=1e-6, tol=1e-5):
+    """Per-call losses (a: every step; b: the last of each group of
+    len(a) / len(b)) and the two states."""
+    (la, sa), (lb, sb) = a, b
+    every = len(la) // len(lb)
+    for i, got in enumerate(lb):
+        want = float(la[(i + 1) * every - 1])
+        assert abs(float(got) - want) <= rel * abs(want), (i, got, want)
+    want = sa.model.state_dict()
+    for name, value in sb.model.state_dict().items():
+        torch.testing.assert_close(value, want[name], rtol=tol, atol=tol,
+                                   msg=name)
+
+
+def test_graphed_resident_convnet_equals_the_eager_host_steps(card):
+    kw = dict(synthetic_size=3200, max_steps_per_epoch=50)
+    host = _trainer(data_placement="host", **kw)
+    res = _trainer(data_placement="device", **kw)
+    h, _ = _recorded(host, "train_step")
+    r, graph = _recorded(res, "resident_train_step")
+    host.train_epoch(0)
+    res.train_epoch(0)
+    assert (graph.captures, graph.replays) == (1, 49)   # step 1 eager
+    assert res.state.step == host.state.step == 50
+    _held((h, host.state), (r, res.state))
+    assert res.evaluate() == host.evaluate()
+    assert res.resident_eval_step.graph.captures == 1
+
+
+@pytest.mark.parametrize("kw", [
+    dict(optimizer="adamw", learning_rate=1e-3, lr_schedule="cosine"),
+    dict(optimizer="adam", learning_rate=1e-3, dropout=0.1),
+], ids=["cosine_adamw", "dropout"])
+def test_graphed_lm_equals_the_eager_host_steps(card, kw):
+    """lm_tiny, 4 steps a replay group, two epochs: the lr read from the
+    device table and the dropout masks keyed on the device step counter
+    under replay equal the eager steps'."""
+    base = dict(model="lm_tiny", seq_len=64, batch_size=4, epochs=2,
+                synthetic_size=60000, max_steps_per_epoch=12, **kw)
+    host = _trainer(data_placement="host", **base)
+    res = _trainer(data_placement="device", steps_per_call=4, **base)
+    h, _ = _recorded(host, "train_step")
+    r, graph = _recorded(res, "resident_train_step")
+    for epoch in range(2):
+        host.train_epoch(epoch)
+        res.train_epoch(epoch)
+    assert (graph.captures, graph.replays) == (1, 23)
+    assert res.state.step == host.state.step == 24
+    assert float(res.state.optimizer.lr) == float(host.state.optimizer.lr)
+    _held((h, host.state), (r, res.state))
+
+
+@pytest.mark.parametrize("placement,k,accum", [
+    ("host", 4, 1), ("host", 4, 2), ("device", 3, 2),
+], ids=["chunked", "chunked_accum2", "resident_k3_accum2"])
+def test_graphed_chunks_and_accumulation_equal_the_eager_steps(
+        card, placement, k, accum):
+    """K host batches a call (one copy a chunk into the chunked step's
+    buffer), and a unit of two micro-steps a replay: with K = 3 every
+    group starts or ends mid-apply, so its edges run eagerly."""
+    base = dict(model="lm_tiny", seq_len=64, batch_size=4,
+                synthetic_size=60000, max_steps_per_epoch=12,
+                optimizer="adamw", learning_rate=1e-3, accum_steps=accum)
+    host = _trainer(data_placement="host", **base)
+    graphed = _trainer(data_placement=placement, steps_per_call=k, **base)
+    name = "chunk_step" if placement == "host" else "resident_train_step"
+    h, _ = _recorded(host, "train_step")
+    r, graph = _recorded(graphed, name)
+    host.train_epoch(0)
+    graphed.train_epoch(0)
+    assert graph.captures == 1 and graph.replays > 0
+    assert graphed.state.step == host.state.step == 12
+    assert graphed.state.optimizer.applies == 12 // accum
+    _held((h, host.state), (r, graphed.state))
+
+
+def test_graphed_chunked_eval_equals_the_per_batch_eval(card):
+    kw = dict(synthetic_size=3200, data_placement="host")
+    chunked = _trainer(steps_per_call=4, **kw)
+    assert chunked.evaluate() == _trainer(**kw).evaluate()
+    assert chunked.chunk_eval_step.graph.captures == 1
+
+
+def test_graph_replays_reach_the_flash_and_fused_kernels(card):
+    """E/F/G (lm_tiny at 4 heads of 64, flash) and H/I with I's four K
+    launches (vit_tiny, fused auto) run inside the replays: the launches a
+    replay makes count in graphs.REPLAYED, depth x replays each, and the
+    capture pass's own calls do not count."""
+    from ddp_practice_tpu_torch.utils import graphs
+
+    fa.reset_launches()
+    graphs.reset_replayed()
+    lm = _trainer(model="lm_tiny", attn_impl="flash", num_heads=4,
+                  seq_len=128, batch_size=4, synthetic_size=60000,
+                  max_steps_per_epoch=8, steps_per_call=4)
+    lm.train_epoch(0)
+    depth, replays = lm.model.depth, lm.resident_train_step.graph.replays
+    assert replays == 7
+    for kind in ("fwd", "bwd"):
+        assert sum(n for k, n in graphs.REPLAYED.items()
+                   if k.startswith(f"flash_{kind}_")) == depth * replays
+        assert sum(n for k, n in fa.LAUNCHES.items()
+                   if k.startswith(f"flash_{kind}_")) == depth   # step 1
+    fe.reset_launches()
+    gm.reset_launches()
+    graphs.reset_replayed()
+    vit = _trainer(model="vit_tiny", dataset="cifar10", batch_size=8,
+                   synthetic_size=256, max_steps_per_epoch=4,
+                   steps_per_call=2)
+    vit.train_epoch(0)
+    depth = len(vit.model.blocks)
+    replays = vit.resident_train_step.graph.replays
+    assert replays == 3
+    assert graphs.REPLAYED["fused_encoder_fwd"] == depth * replays
+    assert graphs.REPLAYED["fused_encoder_bwd"] == depth * replays
+    assert graphs.REPLAYED["tgmm"] == 4 * depth * replays
+    assert fe.LAUNCHES == {"fused_encoder_fwd": depth,
+                           "fused_encoder_bwd": depth}
+
+
+def test_a_step_that_cannot_be_captured_raises_naming_the_op(card):
+    """The sorted MoE path counts its experts with torch.bincount, which
+    reads the assignments' maximum on the host: under capture the step
+    raises, naming that line, and runs no step eagerly in its place; the
+    card and the caller's stream are fine afterwards."""
+    from ddp_practice_tpu_torch.ops.moe import moe_layers
+    from ddp_practice_tpu_torch.utils.graphs import CaptureError
+
+    trainer = _trainer(model="lm_moe", seq_len=64, batch_size=2,
+                       synthetic_size=60000, max_steps_per_epoch=4,
+                       steps_per_call=2, num_experts=4)
+    for m in moe_layers(trainer.model):
+        m.impl = "sorted"
+    stream = torch.cuda.current_stream()
+    with pytest.raises(CaptureError, match=r"ops/moe\.py:\d+.*bincount"):
+        trainer.train_epoch(0)
+    assert trainer.state.step == 1            # the eager step before it
+    assert torch.cuda.current_stream() == stream
+    x = torch.ones(1000, device="cuda")
+    assert float((x * 2).sum()) == 2000.0
+
+
+def test_a_restore_after_the_capture_captures_again(card, tmp_path):
+    """Adam's state is rebound by a restore: the next group captures a new
+    graph. The steps after the restore repeat the steps after the save
+    (the same grid rows from the same state), and a run resumed from the
+    checkpoint before any capture takes them too."""
+    import ddp_practice_tpu_torch.checkpoint as ckpt
+
+    kw = dict(model="lm_tiny", seq_len=64, batch_size=4,
+              synthetic_size=60000, optimizer="adam", learning_rate=1e-3,
+              steps_per_call=5, checkpoint_dir=str(tmp_path))
+    trainer = _trainer(**kw)
+    step, data = trainer.resident_train_step, trainer._train_data
+    starts, _ = trainer.train_loader.epoch_plan()
+    grid = torch.from_numpy(starts[:10]).cuda()
+    trainer.state, _ = step(trainer.state, data, grid[:5])
+    trainer.save()
+    trainer.state, _ = step(trainer.state, data, grid[5:])
+    after = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+    assert step.graph.captures == 1
+    ckpt.restore(str(tmp_path), trainer.state)
+    assert trainer.state.step == 5
+    trainer.state, _ = step(trainer.state, data, grid[5:])
+    assert step.graph.captures == 2
+    resumed = _trainer(resume=True, **kw)
+    assert resumed.state.step == 5
+    resumed.state, _ = resumed.resident_train_step(
+        resumed.state, resumed._train_data, grid[5:])
+    for model in (trainer.model, resumed.model):
+        for name, value in model.state_dict().items():
+            torch.testing.assert_close(value, after[name], rtol=1e-5,
+                                       atol=1e-5, msg=name)

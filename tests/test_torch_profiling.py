@@ -111,11 +111,11 @@ def _steps_in(trace_dir):
                   if e.get("name", "").startswith("train#"))
 
 
-def _trainer(tmp_path, steps):
+def _trainer(tmp_path, steps, **kw):
     return Trainer(TrainConfig(
         model="lm_tiny", device="cpu", seq_len=16, batch_size=2, epochs=1,
         max_steps_per_epoch=steps, log_every_steps=0, synthetic_size=20000,
-        profile_dir=str(tmp_path / "trace")))
+        profile_dir=str(tmp_path / "trace"), **kw))
 
 
 @pytest.mark.parametrize("steps,window", [(4, (0, 4)), (25, (10, 20))])
@@ -129,21 +129,47 @@ def test_fit_traces_the_reference_window(tmp_path, steps, window):
 
 
 def test_a_failing_step_closes_the_trace(tmp_path):
+    """A step of the (default, device-resident) epoch fails: the trace
+    closes with the steps that began."""
     trainer = _trainer(tmp_path, 4)
-    step = trainer.train_step
+    assert trainer.resident_train_step is not None
+    step = trainer.resident_train_step
     done = []
 
-    def failing(state, batch):
+    def failing(state, data, grid):
         if len(done) == 2:
             raise RuntimeError("step 2 fails")
         done.append(1)
-        return step(state, batch)
+        return step(state, data, grid)
 
-    trainer.train_step = failing
+    trainer.resident_train_step = failing
     with pytest.raises(RuntimeError, match="step 2 fails"):
         trainer.train_epoch(0)
     assert profiling._active is None
     assert _steps_in(tmp_path / "trace") == [0, 1, 2]
+
+
+@pytest.mark.parametrize("steps_per_call", [1, 2])
+def test_a_failing_host_step_closes_the_trace(tmp_path, steps_per_call):
+    trainer = _trainer(tmp_path, 4, data_placement="host",
+                       steps_per_call=steps_per_call)
+    name = "chunk_step" if steps_per_call > 1 else "train_step"
+    step = getattr(trainer, name)
+    done = []
+
+    def failing(state, batch):
+        if len(done) * steps_per_call == 2:
+            raise RuntimeError("step 2 fails")
+        done.append(1)
+        return step(state, batch)
+
+    setattr(trainer, name, failing)
+    with pytest.raises(RuntimeError, match="step 2 fails"):
+        trainer.train_epoch(0)
+    assert profiling._active is None
+    # a call is annotated with its first step
+    assert _steps_in(tmp_path / "trace") == list(range(0, 3,
+                                                       steps_per_call))
 
 
 def test_decode_profile_runs_the_generate_path_on_the_cpu():

@@ -18,7 +18,9 @@ cli.py) on the CPU:
   the summary carries `mfu` (None on the CPU, whose peak is unknown);
 - model names and flags this slice does not port raise
   NotImplementedError naming their ROADMAP item, and the card is the
-  default device;
+  default device; the step variants' flags (`--steps_per_call`,
+  `--data_placement device`, `resident_max_bytes`) run, and
+  `--compile_cache` raises: the port has no compile cache;
 - data parallelism: two gloo processes at per-rank batch 2 take the same
   step as one process at batch 4 (1e-6) and stay bit-identical replicas,
   for lm_tiny, for lm_moe, whose router statistics and balancing bias
@@ -26,7 +28,9 @@ cli.py) on the CPU:
   router biases equal the single process's, and for the ConvNet, whose
   BatchNorm statistics are all-reduced (SyncBN): the ranks' running
   statistics and parameters equal the single process's over the global
-  batch.
+  batch; and chunked (steps_per_call=2), where the ranks run each chunk
+  as two eager steps. Under two processes "auto" placement streams host
+  batches and "device" is refused.
 """
 
 import json
@@ -115,18 +119,49 @@ def test_cli_trains_lm_moe_on_the_cpu(router, capsys, tmp_path):
 @pytest.mark.parametrize("argv,item", [
     (["--model", "resnet18"], "A2"),
     (["--model", "lm_tiny", "--expert", "2"], "A8"),
-    (["--model", "lm_tiny", "--steps_per_call", "4"], "A3"),
-    (["--model", "lm_tiny", "--data_placement", "device"], "A3"),
     (["--model", "resnet50"], "A2"),
     (["--model", "vit_tiny", "--augment"], "A2"),
     (["--model", "lm_tiny", "--tensor", "2"], "A8"),
-    (["--model", "lm_tiny", "--compile_cache", "off"], "A3"),
     (["--model", "lm_tiny", "--loader", "native"], "A2"),
     (["--model", "lm_pipe"], "A8"),
 ])
 def test_unported_paths_name_their_roadmap_item(argv, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         cli.main(argv + ["--device", "cpu", "--seq_len", "16", "-b", "2"])
+
+
+@pytest.mark.parametrize("argv,resident", [
+    (["--steps_per_call", "4"], True),
+    (["--steps_per_call", "4", "--data_placement", "host"], False),
+    (["--data_placement", "device"], True),
+    (["--data_placement", "device", "--steps_per_call", "-1"], True),
+])
+def test_step_variant_flags_run(argv, resident):
+    """The flags that raised before the step variants were ported now
+    train: K steps a call on resident or host data, and a whole epoch a
+    call."""
+    args = cli.build_parser().parse_args([
+        "--model", "lm_tiny", "--device", "cpu", "--seq_len", "16", "-b",
+        "2", "--max_steps", "6", "-e", "1", "--log_every", "0",
+        "--synthetic_size", "20000"] + argv)
+    trainer = Trainer(cli.config_from_args(args))
+    assert trainer.fit()["steps"] == 6
+    assert (trainer.resident_train_step is not None) == resident
+    assert (trainer.chunk_step is not None) == ("4" in argv)
+
+
+def test_resident_max_bytes_decides_auto_placement():
+    kw = dict(model="lm_tiny", device="cpu", seq_len=16, batch_size=2,
+              synthetic_size=20000)
+    assert Trainer(TrainConfig(**kw)).resident_train_step is not None
+    small = Trainer(TrainConfig(resident_max_bytes=1 << 10, **kw))
+    assert small.resident_train_step is None
+
+
+def test_compile_cache_has_no_counterpart():
+    with pytest.raises(NotImplementedError, match="no compile cache"):
+        cli.main(["--model", "lm_tiny", "--compile_cache", "off",
+                  "--device", "cpu", "--seq_len", "16", "-b", "2"])
 
 
 IMAGE_KEYS = SUMMARY_KEYS - {"perplexity", "tokens_per_sec_per_chip"}
@@ -224,7 +259,6 @@ def test_fused_on_and_lm_flags_raise_where_they_cannot_run(argv, match):
 @pytest.mark.parametrize("field,value,item", [
     ("num_classes", 100, "A2"),
     ("watchdog_probe_every_steps", 10, "A8"),
-    ("resident_max_bytes", 1 << 20, "A3"),
 ])
 def test_unported_fields_name_their_roadmap_item(field, value, item):
     with pytest.raises(NotImplementedError, match=f"{field}.*ROADMAP {item}"):
@@ -251,7 +285,17 @@ def test_trainer_defaults_to_the_card():
 DP = dict(device="cpu", seq_len=16, synthetic_size=20000,
           optimizer="sgd", learning_rate=0.1, max_steps_per_epoch=1,
           epochs=1, log_every_steps=0)
-DP_MODELS = ("lm_tiny", "lm_moe", "convnet")
+# run name -> config; the chunked run: 2 steps a call on host batches
+DP_MODELS = {"lm_tiny": dict(model="lm_tiny"),
+             "lm_moe": dict(model="lm_moe"),
+             "convnet": dict(model="convnet"),
+             "lm_tiny_chunked": dict(model="lm_tiny", steps_per_call=2,
+                                     max_steps_per_epoch=2,
+                                     data_placement="host")}
+
+
+def _dp_config(run, batch_size):
+    return TrainConfig(**{**DP, **DP_MODELS[run], "batch_size": batch_size})
 
 
 def _dp_worker(rank, world, init_file, out_dir):
@@ -259,11 +303,19 @@ def _dp_worker(rank, world, init_file, out_dir):
     dist.initialize(torch.device("cpu"), init_method=f"file://{init_file}",
                     world_size=world, rank=rank)
     try:
-        for model in DP_MODELS:
-            trainer = Trainer(TrainConfig(model=model, batch_size=2, **DP))
+        # "auto" streams host batches under several processes, and
+        # "device" (the whole corpus on each rank) is refused
+        with pytest.raises(ValueError, match="single process"):
+            Trainer(_dp_config("lm_tiny", 2).replace(
+                data_placement="device"))
+        for run in DP_MODELS:
+            trainer = Trainer(_dp_config(run, 2))
+            assert trainer.resident_train_step is None
             trainer.train_epoch(0)
+            assert trainer.state.step == DP_MODELS[run].get(
+                "max_steps_per_epoch", 1)
             torch.save(trainer.model.state_dict(),
-                       pathlib.Path(out_dir) / f"{model}-rank{rank}.pt")
+                       pathlib.Path(out_dir) / f"{run}-rank{rank}.pt")
     finally:
         dist.shutdown()
 
@@ -283,17 +335,18 @@ def test_two_gloo_ranks_take_the_single_process_step(tmp_path):
     for p in procs:
         p.start()
     singles = {}
-    for model in DP_MODELS:
-        single = Trainer(TrainConfig(model=model, batch_size=4, **DP))
+    for run in DP_MODELS:
+        single = Trainer(_dp_config(run, 4))
         before = {k: v.clone() for k, v in single.model.state_dict().items()}
         single.train_epoch(0)
-        singles[model] = (before, single.model.state_dict())
+        singles[run] = (before, single.model.state_dict())
     for p in procs:
         p.join(timeout=120)
     assert all(not p.is_alive() and p.exitcode == 0 for p in procs), \
         [p.exitcode for p in procs]
-    for model, (before, after) in singles.items():
-        ranks = [torch.load(tmp_path / f"{model}-rank{r}.pt")
+    for run, (before, after) in singles.items():
+        model = DP_MODELS[run]["model"]
+        ranks = [torch.load(tmp_path / f"{run}-rank{r}.pt")
                  for r in range(2)]
         assert set(ranks[0]) == set(after)
         moved = 0
