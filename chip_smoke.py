@@ -7,7 +7,8 @@ NVIDIA H100.
 Phases, each of which raises on failure (nothing is caught and passed):
 
 1. setup: print the card's name and power limit (nvidia-smi), build the
-   CUDA kernels from csrc/ with nvcc (all four sources at once) and print
+   CUDA kernels from csrc/ with nvcc (all four sources at once), the
+   native loader's gather (csrc/dataloader.cpp) with g++, and print
    ptxas's register and spill lines; then the bf16 flash kernels' (E, G,
    F), kernels J's and K's and the Hopper kernel H's ptxas lines by name,
    and per head_dim the E, G and F blocks' shared memory, threads and
@@ -194,7 +195,7 @@ Phases, each of which raises on failure (nothing is caught and passed):
    resident steps as the epoch runs them, one eager step of the host leg
    and of the bf16 run (host wall, device busy, idle share, device time
    by kind: cuDNN convs, matmul, pooling, reductions, elementwise,
-   other);
+   other), then phase 23;
 21. ConvNet resume on the card: save after each of 2 epochs, truncate the
    newest manifest, resume a 3-epoch run (it falls back to the epoch-1
    checkpoint and takes up epoch 2) and hold its final state against an
@@ -208,7 +209,25 @@ Phases, each of which raises on failure (nothing is caught and passed):
    and `--kv_cache int8` (kernel B likewise); at fp32 the kernel and plain
    decode give identical greedy tokens for both caches; serve/bench.py
    `--ckpt_dir` serves 4 prompts through the slot engine and every
-   request completes.
+   request completes;
+23. ResNets (ROADMAP A2; no kernel of the port lies on their path: cuDNN
+   convs, ATen BatchNorm ops, the augmentation's gathers and batched
+   contractions), `fit` through the CLI at the reference bench's shapes
+   (bench.py:78-85), bf16, SGD momentum 0.9 (lr 0.05; ResNet-50 0.01,
+   where its loss falls in 20 steps): ResNet-18 on the
+   synthetic CIFAR-10 set (config 3: 50000/10000 images, batch 512,
+   `--augment` crop_flip), 30 steps and the eval pass with "auto"
+   placement (the corpus resident, each step a graph replay), then a host
+   leg of eager steps over the same 30 steps whose per-step losses equal
+   the resident leg's at 1e-3 relative; ResNet-50 (config 5: 224x224x3,
+   1000 classes, batch 128, `--augment_kind rrc`, `--loader native`) on
+   the synthetic ImageNet corpus cut to 4096/1024 images, written under
+   build/ (write time; the native against the numpy gather of a batch,
+   bit-equal), 20 steps on the host path and the eval pass, the corpus
+   deleted after its profile. Each leg: loss at steps 1/10/20/30 (the
+   last below the first), median step, images/s per card, MFU, eval
+   accuracy, peak memory; each profile: host wall, device busy, idle
+   share, device ops a step, device time by kind.
 
 Launch counts are zeroed just before each phase's run and read just
 after it; a train leg's count is its wrappers' (eager calls) plus its
@@ -247,6 +266,8 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -330,6 +351,41 @@ TRAIN_STEPS = 30
 # epochs, batch 32, SGD lr 1e-4, fp32); no MNIST files: the synthetic
 # stand-in at MNIST's 60000/10000 images
 CONVNET_ARGS = ["--data_dir", "build/no_such_data", "--log_every", "0"]
+# ROADMAP A2's legs at the reference bench's shapes (bench.py:78-85):
+# ResNet-18 on the synthetic CIFAR-10 set (50000/10000 images, resident),
+# ResNet-50 on a synthetic ImageNet corpus cut to 4096/1024 images (on the
+# host path, through the native gather); SGD with momentum 0.9 at the lr
+# whose loss falls within the leg's steps (experiments/resnet_step.py
+# --losses: ResNet-50's rises over 20 steps at 0.05 and 0.2, in fp32 as
+# in bf16, and falls at 0.01; ResNet-18's falls at 0.05). The ResNet-50
+# leg's loss is little more than its head settling: `resnet50_step_check`
+# holds the step itself against float64
+RESNET_OPT = ["--optimizer", "sgd", "--momentum", "0.9", "--precision",
+              "bf16", "-e", "1", "--log_every", "0"]
+RESNET18_ARGS = ["--model", "resnet18", "--dataset", "cifar10", "-b", "512",
+                 "--augment", "--max_steps", "30", "--lr", "0.05",
+                 "--data_dir", "build/no_such_data"] + RESNET_OPT
+RESNET50_ARGS = ["--model", "resnet50", "--dataset", "imagenet", "-b",
+                 "128", "--augment", "--augment_kind", "rrc", "--loader",
+                 "native", "--max_steps", "20", "--lr", "0.01"] + RESNET_OPT
+RESNET50_CORPUS = (4096, 1024)     # train, test images
+# ResNet-50 at full width on the card against the host CPU
+# (`resnet50_step_check`): the batch; rrc's tolerance (absolute: the fp32
+# crop geometry, exp and sqrt of the draws, differs by ulps between the
+# card and the host, and a 224-pixel window turns that into up to ~1e-4
+# pixels of shift on images whose neighbouring pixels differ by up to 1);
+# the train step's (loss relative; logits, running statistics, all grads
+# as one vector and each grad leaf in relative error norm) against
+# float64 on the host, for float64 and for fp32. The fp32 grads pass
+# through 16 BatchNorm backwards, which amplify rounding to some 1e-3; a
+# wrong gradient is off by O(1)
+RESNET50_CHECK_BATCH = 8
+RESNET50_RRC_TOL = 1e-4
+RESNET50_STEP_TOL = {
+    "float64": dict(loss=1e-6, logits=1e-6, stats=1e-6, grads=1e-6,
+                    grads_leaf=1e-6),
+    "fp32": dict(loss=1e-5, logits=1e-4, stats=1e-4, grads=1e-2,
+                 grads_leaf=5e-2)}
 REPLACES = {
     "decode_attention": "ddp_practice_tpu/ops/decode_attention.py:199",
     "decode_attention_int8": "ddp_practice_tpu/ops/decode_attention.py:279",
@@ -2672,16 +2728,18 @@ _CONV_KINDS = (("conv (cuDNN)", "conv|fprop|dgrad|wgrad|cudnn|implicit|"
                ("elementwise", "elementwise|vectorized|unrolled"))
 
 
-def _convnet_profile_log(prof, steps, host_ms, trainer, label, how):
-    """Log a ConvNet profile of `steps` steps against their host wall:
+def _image_profile_log(prof, steps, host_ms, trainer, label, how):
+    """Log an image model's profile (the ConvNet's or a ResNet's, named
+    by the trainer's config) of `steps` steps against their host wall:
     device busy a step, the device's idle share, device ops a step and
     device time by kind (cuDNN convolutions, cuBLAS matmul, pooling,
     reductions, elementwise, other)."""
     import re
 
+    model = trainer.config.model
     summary = _profile_summary(prof)
     if summary is None:
-        log(f"convnet profile[{label}]: torch.profiler recorded no device "
+        log(f"{model} profile[{label}]: torch.profiler recorded no device "
             f"events; device time not measured (host wall {host_ms:.3f} "
             f"ms/step) [{CARD}]")
         return
@@ -2692,7 +2750,7 @@ def _convnet_profile_log(prof, steps, host_ms, trainer, label, how):
                     "other")
         kinds[kind] += ps / 1e9 / steps
     device_ms = sum(kinds.values())
-    log(f"convnet profile[{label}] (batch {trainer.global_batch}{how}): "
+    log(f"{model} profile[{label}] (batch {trainer.global_batch}{how}): "
         f"host wall {host_ms:.3f} ms/step, device busy {device_ms:.3f} "
         f"ms/step, device idle share "
         f"{max(0.0, 1 - device_ms / host_ms):.3f}, "
@@ -2702,10 +2760,10 @@ def _convnet_profile_log(prof, steps, host_ms, trainer, label, how):
     _log_top_ops(summary, steps, 8, "us", 100)
 
 
-def convnet_profile(torch, trainer, label):
-    """One eager ConvNet train step on a host batch under torch.profiler,
-    after warm steps, against the host wall of 20 (ends in a
-    synchronize)."""
+def image_profile(torch, trainer, label):
+    """One eager train step of an image model (ConvNet or ResNet) on a
+    host batch under torch.profiler, after warm steps, against the host
+    wall of 20 (ends in a synchronize)."""
     from torch.profiler import ProfilerActivity, profile
 
     batch = trainer._to_device(next(iter(trainer.train_loader)))
@@ -2722,23 +2780,22 @@ def convnet_profile(torch, trainer, label):
                              ProfilerActivity.CUDA]) as prof:
         trainer.state, _ = trainer.train_step(trainer.state, batch)
         torch.cuda.synchronize()
-    _convnet_profile_log(prof, 1, host_ms, trainer, label, "")
+    _image_profile_log(prof, 1, host_ms, trainer, label, "")
 
 
-def convnet_profile_resident(torch, trainer, label):
-    """The resident ConvNet's steps as its epoch runs them (one step a
-    call, each a replay of the captured step) over rows of the epoch's
-    grid: the host wall of 200 calls (ends in a synchronize), then 20
-    calls under torch.profiler."""
+def image_profile_resident(torch, trainer, label, n=200, m=20):
+    """A resident image model's steps (ConvNet or ResNet) as its epoch
+    runs them (one step a call, each a replay of the captured step) over
+    rows of the epoch's grid: the host wall of `n` calls (ends in a
+    synchronize), then `m` calls under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     idx, _ = trainer.train_loader.epoch_plan()
-    grid = torch.from_numpy(idx[:223]).cuda()
+    grid = torch.from_numpy(idx[:3 + n + m]).cuda()
     step, data = trainer.resident_train_step, trainer._train_data
     for i in range(3):
         trainer.state, _ = step(trainer.state, data, grid[i:i + 1])
     torch.cuda.synchronize()
-    n, m = 200, 20
     t0 = time.perf_counter()
     for i in range(3, 3 + n):
         trainer.state, _ = step(trainer.state, data, grid[i:i + 1])
@@ -2749,8 +2806,257 @@ def convnet_profile_resident(torch, trainer, label):
         for i in range(3 + n, 3 + n + m):
             trainer.state, _ = step(trainer.state, data, grid[i:i + 1])
         torch.cuda.synchronize()
-    _convnet_profile_log(prof, m, host_ms, trainer, label,
-                         ", one graph replay a step")
+    _image_profile_log(prof, m, host_ms, trainer, label,
+                       ", one graph replay a step")
+
+
+def resnet_train_phase(torch, argv, *, label):
+    """`fit` of a ResNet through the CLI's parser and config (`argv`:
+    RESNET18_ARGS or RESNET50_ARGS plus the leg's flags), each call's
+    loss kept on the device and its end marked with a CUDA event, then
+    the eval pass. Reports the loss at steps 1, 10, 20 and 30 (the last
+    below the first), the median step, images/s per card, MFU against
+    the dense bf16 peak, the eval accuracy and peak device memory."""
+    from ddp_practice_tpu_torch.utils.flops import (
+        chip_peak_flops,
+        train_flops_per_image,
+    )
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = _cli_trainer(argv)
+    config, ds = trainer.config, trainer.train_ds
+    accuracy = []
+    losses, ends, k, graph, unwrap = _record_calls(torch, trainer)
+    evaluate = trainer.evaluate
+
+    def recorded_eval():
+        accuracy.append(evaluate())
+        return accuracy[-1]
+
+    trainer.evaluate = recorded_eval
+    t0 = time.monotonic()
+    trainer.fit()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    unwrap()
+    trainer.evaluate = evaluate
+    loss = [float(x) for x in losses]
+    step_ms = statistics.median(ends[i - 1].elapsed_time(ends[i]) / k
+                                for i in range(1, len(ends)))
+    flops = train_flops_per_image(config.model, ds.image_shape,
+                                  trainer.model.num_classes) \
+        * trainer.global_batch
+    peak = chip_peak_flops(torch.cuda.get_device_name(0))
+    report = {"loss": loss, "step_ms": step_ms,
+              "images_per_s": trainer.global_batch / (step_ms / 1e3),
+              "mfu": flops / (step_ms / 1e3) / peak if peak else None,
+              "accuracy": accuracy[-1], "wall_s": wall,
+              "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    at = [s for s in (1, 10, 20, 30) if s <= len(loss)]
+    mfu = "not measured" if peak is None else f"{report['mfu']:.6f}"
+    log(f"{config.model} train[{label}] {config.precision} "
+        f"{config.optimizer} lr {config.learning_rate}, augment "
+        f"{config.augment_kind if config.augment else 'off'}, {ds.name} "
+        f"{len(ds)} images {ds.image_shape}, batch {trainer.global_batch}, "
+        f"{len(loss)} steps ({_placement(trainer, graph)}; loader "
+        f"{type(trainer.train_loader._gather).__name__}), wall {wall:.1f} "
+        f"s: loss at steps " + ", ".join(
+            f"{s} {loss[s - 1]:.4f}" for s in at) + f" [{CARD}]")
+    log(f"  median step {step_ms:.3f} ms (CUDA events between call ends), "
+        f"{report['images_per_s']:.0f} images/s per card, MFU {mfu} "
+        f"against {(peak or 0) / 1e12:.1f} TFLOP/s ({flops / 1e9:.1f} "
+        f"GFLOP/step analytic), eval accuracy {report['accuracy']:.4f}, "
+        f"peak memory {report['peak_gib']:.2f} GiB [{CARD}]")
+    if not all(math.isfinite(x) for x in loss) or not loss[-1] < loss[0]:
+        raise AssertionError(f"{config.model} train[{label}]: loss did not "
+                             f"fall ({loss[0]:.4f} -> {loss[-1]:.4f})")
+    return trainer, report
+
+
+def resnet18_legs(torch):
+    """ResNet-18 on synthetic CIFAR-10 (BASELINE config 3, bench.py:78-81:
+    batch 512, bf16, `--augment` crop_flip): the "auto" leg (the 184 MB
+    corpus resident, each step a graph replay) and the host leg (eager
+    steps over host batches) over the same 30 steps; their per-step
+    losses agree at MODEL_BF16_LOSS relative. Returns the resident
+    trainer (profiled later) and its report."""
+    res, rep = resnet_train_phase(torch, RESNET18_ARGS,
+                                  label="config 3, auto = resident")
+    if res.resident_train_step is None:
+        raise AssertionError("resnet18: the 'auto' leg did not go resident")
+    host, host_rep = resnet_train_phase(
+        torch, RESNET18_ARGS + ["--data_placement", "host"],
+        label="config 3, host")
+    del host
+    held, worst, exact = _agree("resnet18", host_rep["loss"], rep["loss"],
+                                1, MODEL_BF16_LOSS)
+    log(f"resnet18 resident vs host (bf16, batch 512, crop_flip): {held} "
+        f"steps' losses agree, worst relative difference {worst:.2e} "
+        f"({'bit-identical' if exact else 'not bit-identical'}); median "
+        f"step resident {rep['step_ms']:.3f} ms, host "
+        f"{host_rep['step_ms']:.3f} ms; {rep['images_per_s']:.0f} vs "
+        f"{host_rep['images_per_s']:.0f} images/s [{CARD}]")
+    return res, rep
+
+
+def resnet50_leg(torch, data_dir):
+    """ResNet-50 (BASELINE config 5, bench.py:82-85: 224x224x3, 1000
+    classes, batch 128, bf16, `--augment_kind rrc`, `--loader native`) on
+    the synthetic ImageNet corpus, cut to RESNET50_CORPUS images and
+    written under `data_dir` as a real corpus's `imagenet-arrays`
+    (the caller deletes it). Times the write, then the native and the
+    numpy gather of 128-image batches from the memory-mapped corpus
+    (bit-equal), then 20 steps on the host path and the eval pass. The
+    loader is named: a native gather that fails to build fails the leg.
+    Returns the trainer (profiled later) and its report."""
+    import numpy as np
+
+    from ddp_practice_tpu_torch.data import datasets, native_loader
+
+    n_train, n_test = RESNET50_CORPUS
+    root = f"{data_dir}/imagenet-arrays"
+    t0 = time.monotonic()
+    train = datasets.synthetic_imagenet_corpus(root, "train", n=n_train)
+    datasets.synthetic_imagenet_corpus(root, "test", n=n_test)
+    write_s = time.monotonic() - t0
+    nbytes = sum(os.path.getsize(os.path.join(root, f))
+                 for f in os.listdir(root))
+    gather = native_loader.NativeGather(native_loader.require(), train)
+    rng = np.random.default_rng(0)
+    batches = [rng.integers(0, n_train, 128) for _ in range(20)]
+
+    def timed(fn):
+        fn(batches[0])
+        t = time.perf_counter()
+        out = [fn(i) for i in batches]
+        return (time.perf_counter() - t) * 1e3 / len(batches), out
+
+    plain_ms, plain = timed(lambda i: (train.images[i], train.labels[i]))
+    native_ms, native = timed(gather)
+    for (a, la), (b, lb) in zip(native, plain):
+        if not (np.array_equal(a, b) and np.array_equal(la, lb)):
+            raise AssertionError("native gather differs from numpy's")
+    log(f"resnet50 corpus: {n_train} + {n_test} images 224x224x3 written "
+        f"in {write_s:.1f} s ({nbytes / 1e6:.0f} MB on disk); gather of a "
+        f"128-image batch from the memory-mapped corpus: native "
+        f"{native_ms:.3f} ms, numpy {plain_ms:.3f} ms (bit-equal, 20 "
+        f"batches, page cache warm)")
+    trainer, report = resnet_train_phase(
+        torch, RESNET50_ARGS + ["--data_dir", data_dir],
+        label="config 5, corpus cut to 4096/1024")
+    if trainer.resident_train_step is not None or type(
+            trainer.train_loader._gather) is not native_loader.NativeGather:
+        raise AssertionError("resnet50: not on the host path through the "
+                             "native gather")
+    report.update(write_s=write_s, native_ms=native_ms, plain_ms=plain_ms)
+    return trainer, report
+
+
+def resnet50_step_check(torch):
+    """ResNet-50 (224x224x3, 1000 classes, batch RESNET50_CHECK_BATCH)
+    on the card against the host CPU, from one seeded state and batch.
+    First rrc: `apply_augment` of the same fp32 images under the same key
+    on the card and on the host, at RESNET50_RRC_TOL. Then one train step
+    through `make_train_step` (SGD) on the host's augmented images, in
+    float64 and in fp32 on the card (TF32 off) and in fp32 on the host,
+    each against float64 on the host at RESNET50_STEP_TOL: the loss, the
+    logits, every updated running statistic and the grads. Each block's
+    last BatchNorm scale (zero at init) is drawn in [0.05, 0.15), as
+    early training has it, the other scales in [0.75, 1.25) and every
+    bias in [-0.1, 0.1), so every weight has a gradient."""
+    import numpy as np
+
+    from ddp_practice_tpu_torch.config import PrecisionPolicy
+    from ddp_practice_tpu_torch.models import create_model
+    from ddp_practice_tpu_torch.ops.augment import apply_augment, augment_rng
+    from ddp_practice_tpu_torch.ops.batchnorm import BatchNorm
+    from ddp_practice_tpu_torch.train.state import TrainState
+    from ddp_practice_tpu_torch.train.steps import (
+        make_train_step,
+        prepare_image,
+    )
+
+    t0 = time.monotonic()
+    b, shape = RESNET50_CHECK_BATCH, (224, 224, 3)
+    rng = np.random.default_rng(15)
+    images = prepare_image(torch.from_numpy(
+        rng.integers(0, 256, (b, *shape), np.uint8)))
+    labels = torch.from_numpy(rng.integers(0, 1000, b))
+    key = augment_rng(0, 0)
+    aug = apply_augment(images, key, "rrc")
+    rrc_err = float((apply_augment(images.cuda(), key, "rrc").cpu()
+                     - aug).abs().max())
+    kw = dict(num_classes=1000, image_shape=shape)
+    base = create_model("resnet50", device="cpu", seed=15, **kw)
+    g = torch.Generator().manual_seed(15)
+    with torch.no_grad():
+        for m in base.modules():
+            if isinstance(m, BatchNorm):
+                lo, hi = (0.05, 0.15) if m.zero_scale else (0.75, 1.25)
+                m.weight.copy_(torch.rand(m.weight.shape, generator=g)
+                               * (hi - lo) + lo)
+                m.bias.copy_(torch.rand(m.bias.shape, generator=g) * 0.2
+                             - 0.1)
+    sides = {}
+    for side, device, dtype in (("host float64", "cpu", torch.float64),
+                                ("card float64", "cuda", torch.float64),
+                                ("card fp32", "cuda", torch.float32),
+                                ("host fp32", "cpu", torch.float32)):
+        model = create_model("resnet50", device=device, seed=15,
+                             policy=PrecisionPolicy(dtype, dtype), **kw)
+        model.load_state_dict(base.state_dict())
+        state = TrainState(step=0, model=model, optimizer=torch.optim.SGD(
+            model.parameters(), lr=0.05, momentum=0.9))
+        seen = []
+        hook = model.register_forward_hook(
+            lambda _m, _a, out: seen.append(out.detach()))
+        _, metrics = make_train_step(model)(state, {
+            "image": aug.to(device, dtype), "label": labels.to(device)})
+        hook.remove()
+        sides[side] = dict(
+            loss=float(metrics["loss"]), logits=seen[0].double().cpu(),
+            stats={n: v.double().cpu() for n, v in model.named_buffers()
+                   if n.endswith(("running_mean", "running_var"))},
+            grads={n: p.grad.double().cpu()
+                   for n, p in model.named_parameters()})
+        del model, state
+    want = sides.pop("host float64")
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    def cat(grads):
+        return torch.cat([v.flatten() for v in grads.values()])
+
+    log(f"resnet50 check (224, 1000 classes, batch {b}): rrc on the card "
+        f"vs the host, worst difference {rrc_err:.2e}; one train step "
+        f"against float64 on the host (loss {want['loss']:.6f}), relative "
+        f"error norms:")
+    over = {} if rrc_err <= RESNET50_RRC_TOL else {"rrc": rrc_err}
+    for side, got in sides.items():
+        per = {n: rel(v, want["grads"][n]) for n, v in got["grads"].items()}
+        leaf = max(per, key=per.get)
+        err = dict(
+            loss=abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+            logits=rel(got["logits"], want["logits"]),
+            stats=max(rel(v, want["stats"][n])
+                      for n, v in got["stats"].items()),
+            grads=rel(cat(got["grads"]), cat(want["grads"])),
+            grads_leaf=per[leaf])
+        log(f"  {side}: loss {err['loss']:.2e}, logits {err['logits']:.2e}"
+            f", running statistics {err['stats']:.2e}, all grads "
+            f"{err['grads']:.2e}, each leaf median "
+            f"{statistics.median(per.values()):.2e}, worst "
+            f"{err['grads_leaf']:.2e} ({leaf}) of {len(per)}")
+        tol = RESNET50_STEP_TOL[side.split()[1]]
+        over.update({f"{side} {k}": v for k, v in err.items()
+                     if not v <= tol[k]})
+    log(f"resnet50 check: {time.monotonic() - t0:.1f} s [{CARD}]")
+    if over:
+        raise AssertionError(f"resnet50 check: {over} over "
+                             f"{RESNET50_RRC_TOL} (rrc) and "
+                             f"{RESNET50_STEP_TOL}")
 
 
 def _leaves(state) -> dict:
@@ -2973,6 +3279,47 @@ def generate_serve_leg(torch, ops):
     return launches
 
 
+def build_loader() -> None:
+    """Build (or load) the native batch gather from
+    csrc/dataloader.cpp into build/; raises if it cannot."""
+    from ddp_practice_tpu_torch.data import native_loader
+
+    t0 = time.monotonic()
+    native_loader.require()
+    log(f"native loader {native_loader.library_path().name} from "
+        f"{native_loader.SOURCE.name} ready in {time.monotonic() - t0:.1f} "
+        f"s")
+
+
+def a2_legs(torch):
+    """ROADMAP A2's legs: ResNet-50's step on the card against the host
+    CPU, then ResNet-18 (resident and host) and ResNet-50 (its corpus
+    under build/, deleted by `a2_profiles`). Returns what `a2_profiles`
+    needs."""
+    import tempfile
+
+    resnet50_step_check(torch)
+    r18, _ = resnet18_legs(torch)
+    os.makedirs("build", exist_ok=True)
+    data_dir = tempfile.mkdtemp(prefix="smoke_imagenet_", dir="build")
+    try:
+        r50, _ = resnet50_leg(torch, data_dir)
+    except BaseException:
+        shutil.rmtree(data_dir, ignore_errors=True)
+        raise
+    return r18, r50, data_dir
+
+
+def a2_profiles(torch, r18, r50, data_dir):
+    """The ResNets' profiles: 5 replayed ResNet-18 steps after the host
+    wall of 20, one eager ResNet-50 step; then the corpus goes."""
+    try:
+        image_profile_resident(torch, r18, "bf16, resident", n=20, m=5)
+        image_profile(torch, r50, "bf16, eager host step")
+    finally:
+        shutil.rmtree(data_dir, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -3016,6 +3363,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas[{name}]: {line.strip()}")
     kernel_resources(cuda_build, fa, gm, fe)
+    build_loader()
 
     # the ConvNet's eager steps first: a finished torch.profiler trace
     # adds host time to every later launch in the process
@@ -3043,10 +3391,14 @@ def main() -> int:
                                 "3e-3"],
                         label="tests/data/mini_mnist", gate_accuracy=0.3)
     convnet_resume_leg(torch)
-    convnet_profile_resident(torch, conv32, "fp32, resident")
-    convnet_profile(torch, conv_host, "fp32, eager host step")
-    convnet_profile(torch, conv16, "bf16, eager step")
+    image_profile_resident(torch, conv32, "fp32, resident")
+    image_profile(torch, conv_host, "fp32, eager host step")
+    image_profile(torch, conv16, "bf16, eager step")
     del conv32, conv16, conv_host
+    # the ResNets' legs after the ConvNet's host-bound profiles (which
+    # they would otherwise precede with two more trainers in memory);
+    # their steps are device-bound, so the traces before them cost little
+    a2_profiles(torch, *a2_legs(torch))
     torch.cuda.empty_cache()
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")

@@ -98,8 +98,6 @@ _NOT_PORTED = {
     "fsdp": "A8", "pipe_schedule": "A8", "num_microbatches": "A8",
     "num_virtual": "A8", "sp_impl": "A8", "max_restarts": "A8",
     "watchdog_timeout_s": "A8", "sync_check_every_steps": "A8",
-    "augment": "A2", "augment_kind": "A2",
-    "num_classes": "A2", "loader_backend": "A2",
     "watchdog_probe_every_steps": "A8",
     "trace_out": "A6", "metrics_port": "A6", "telemetry_out": "A6",
     "slo": "A6", "alert_sinks": "A6",
@@ -124,10 +122,15 @@ class TrainConfig:
       has no counterpart: the port compiles no step, and its kernels
       build once into the ignored `build/` directory, keyed by their
       sources' hash (ops/cuda_build.py). Any value but "auto" raises.
-    - `loader_backend` (the native C++ gather), `num_classes` (the
-      datasets carry their own; the override belongs to the imagenet
-      corpus) and `watchdog_probe_every_steps` have no counterpart yet:
-      any value but the default raises.
+    - `num_classes` is accepted and not read: the reference's loop and
+      the port's size the head from the dataset.
+    - `loader_backend` is the reference's: "auto" (the native C++ gather
+      where it builds, else numpy, bit-identical), "native" (raises when
+      the library cannot be built or loaded) or "python" (numpy).
+    - `augment` / `augment_kind` ("crop_flip" | "rrc") augment the image
+      task's training batches on the device (ops/augment.py).
+    - `watchdog_probe_every_steps` has no counterpart yet: any value but
+      the default raises.
     - checkpointing (`checkpoint_dir`, `checkpoint_every_epochs`,
       `checkpoint_every_steps`, `checkpoint_async`, `resume`) has the
       reference's semantics (train/loop.py, checkpoint/).
@@ -241,6 +244,13 @@ class TrainConfig:
                 f"steps_per_call={self.steps_per_call}: must be >= 1 (K "
                 "steps per dispatch) or exactly -1 (whole epoch per "
                 "dispatch, device-resident data only)")
+        if self.augment_kind not in ("crop_flip", "rrc"):
+            raise ValueError(f"unknown augment_kind {self.augment_kind!r} "
+                             "(crop_flip | rrc)")
+        if self.loader_backend not in ("auto", "native", "python"):
+            raise ValueError(f"unknown loader_backend "
+                             f"{self.loader_backend!r} (auto | native | "
+                             "python)")
         if self.data_placement not in ("auto", "host", "device"):
             raise ValueError(f"unknown data_placement "
                              f"{self.data_placement!r} (auto | host | "

@@ -1,4 +1,4 @@
-"""Flax parameter tree -> the port's `state_dict`.
+"""Flax parameter tree <-> the port's `state_dict`.
 
 Works on nested dicts of numpy arrays (what a device_get of the JAX
 params gives), so the port needs no JAX to load converted weights. The layout
@@ -19,6 +19,10 @@ rules, by Flax leaf:
   become `weight`/`bias` and its `batch_stats` `mean`/`var` the buffers
   `running_mean`/`running_var`. The Dense kernel needs no row
   permutation: models/convnet.py flattens in the reference's NHWC order;
+- the ResNet's names are Flax's own but for the auto-names above:
+  `stem_conv`, `stem_bn`, `BasicBlock_{i}` / `BottleneckBlock_{i}` (kept
+  as they are) with `Conv_{j}` -> `conv{j}`, `BatchNorm_{j}` -> `bn{j}`,
+  `proj` (a Conv) and `proj_bn` (a BatchNorm), then `Dense_0` -> `head`;
 - the MoE `router` Dense kernel (d, E) -> Linear weight (E, d); the
   stacked expert tensors (`expert_w_in` (E, d, f), `expert_b_in`,
   `expert_w_out`, `expert_b_out`) are copied unchanged.
@@ -26,6 +30,9 @@ rules, by Flax leaf:
 Block `block{i}` becomes `blocks.{i}`. `batch_stats` (the reference's
 non-parameter state: each router's `router_bias`, each BatchNorm's
 running statistics) maps by the same names onto the model's buffers.
+
+`state_dict_to_flax` is the way back: the port's tensors laid out as a
+given Flax tree (its names and shapes), every leaf of that tree filled.
 """
 
 from __future__ import annotations
@@ -43,10 +50,13 @@ _AUTO_NAMES = ((_CONV, "conv{}"),
                (re.compile(r"^BatchNorm_(\d+)$"), "bn{}"),
                (re.compile(r"^Dense_0$"), "head"))
 _BN_STATS = {"mean": "running_mean", "var": "running_var"}
+_BN = re.compile(r"^(BatchNorm_\d+|stem_bn|proj_bn)$")
+# named Flax Conv modules (besides the auto-named `Conv_{i}`)
+_NAMED_CONVS = ("patch_embed", "stem_conv", "proj")
 
 
 def _is_conv(path: tuple) -> bool:
-    return len(path) >= 2 and (path[-2] == "patch_embed"
+    return len(path) >= 2 and (path[-2] in _NAMED_CONVS
                                or bool(_CONV.match(path[-2])))
 
 
@@ -76,7 +86,7 @@ def _torch_name(path: tuple) -> str:
             parts += ["blocks", p[5:]]
         elif p in ("scale", "embedding", "kernel"):
             parts.append("weight")
-        elif p in _BN_STATS and i and path[i - 1].startswith("BatchNorm_"):
+        elif p in _BN_STATS and i and _BN.match(path[i - 1]):
             parts.append(_BN_STATS[p])
         else:
             parts.append(p)
@@ -116,3 +126,42 @@ def load_flax_params(model: torch.nn.Module, params: Mapping,
                       if k not in params_only})
     model.load_state_dict(state, strict=True)
     return model
+
+
+def _to_flax_leaf(path: tuple, value: np.ndarray, shape: tuple):
+    """The inverse of `_leaf`: a port tensor in the Flax leaf's layout."""
+    if path[-1] == "kernel":
+        if _is_conv(path):                          # OIHW -> HWIO
+            return value.transpose(2, 3, 1, 0)
+        return value.T.reshape(shape)
+    return value.reshape(shape)
+
+
+def state_dict_to_flax(state: Mapping, template: Mapping) -> dict:
+    """The port's {name: tensor} (a `state_dict`) -> a nested numpy tree
+    shaped as `template` (a Flax params or batch_stats tree, or anything
+    with the same names and leaf shapes), fp32 (float64 stays float64).
+    Raises naming a template leaf the state lacks, or one whose converted
+    shape differs."""
+
+    def walk(tree, path):
+        out = {}
+        for key, value in tree.items():
+            if isinstance(value, Mapping):
+                out[key] = walk(value, path + (key,))
+                continue
+            name = _torch_name(path + (key,))
+            if name not in state:
+                raise KeyError(f"{'/'.join(path + (key,))}: the port's "
+                               f"state has no {name!r}")
+            shape = tuple(np.shape(value))
+            t = state[name].detach().cpu()
+            arr = _to_flax_leaf(path + (key,), (
+                t if t.dtype == torch.float64 else t.float()).numpy(), shape)
+            if arr.shape != shape:
+                raise ValueError(f"{name}: {arr.shape} as Flax's "
+                                 f"{'/'.join(path + (key,))}, want {shape}")
+            out[key] = np.ascontiguousarray(arr)
+        return out
+
+    return walk(template, ())

@@ -4,8 +4,10 @@ gather; the same (seed, epoch) gives the same batches). The device side
 of the reference's prefetch is `Trainer._device_batches` (train/loop.py):
 pinned host batches copied with `non_blocking=True`, `prefetch` ahead;
 `prefetch_chunked` is its K-steps-a-call form (one copy a chunk).
-The native C++ gather backend is ROADMAP A2: any backend but "auto"
-raises, and "auto" is the numpy gather.
+The batch gather is the reference's choice of backend: "native" (the C++
+gather, data/native_loader.py; raises when it cannot be built or
+loaded), "python" (numpy fancy indexing) or "auto" (native where it
+builds, else numpy: the two give the same bytes).
 
 Replaces the reference's `DataLoader(num_workers=4, pin_memory=True)` +
 `DistributedSampler` stack (origin_main.py:91-107, ddp_main.py:127-156).
@@ -18,6 +20,7 @@ from typing import Callable, Iterator, Optional
 
 import numpy as np
 
+from ddp_practice_tpu_torch.data import native_loader
 from ddp_practice_tpu_torch.data.datasets import Dataset
 from ddp_practice_tpu_torch.data.sharding import ShardSpec, epoch_indices, pad_to_multiple
 
@@ -127,9 +130,15 @@ def prefetch_chunked(iterator, num_steps: int, to_device: Callable, *,
 
 
 def _make_gather(backend: str, dataset: Dataset):
-    """fn(indices) -> (images, labels): the numpy gather."""
-    if backend != "auto":
-        raise NotImplementedError(
-            f"loader backend {backend!r} is not ported yet (ROADMAP A2: "
-            "native_loader); 'auto' is the numpy gather")
+    """fn(indices) -> (images, labels) of `backend` (auto | native |
+    python)."""
+    if backend not in ("auto", "native", "python"):
+        raise ValueError(f"unknown loader backend {backend!r} (auto | "
+                         "native | python)")
+    if backend == "native":
+        return native_loader.NativeGather(native_loader.require(), dataset)
+    if backend == "auto":
+        gather = native_loader.make_gather(dataset)
+        if gather is not None:
+            return gather
     return lambda idx: (dataset.images[idx], dataset.labels[idx])

@@ -1,7 +1,8 @@
 """Model registry (counterpart of ddp_practice_tpu/models/__init__.py).
 
 The port registers the reference's ConvNet (`convnet`, models/convnet.py),
-the decoder LMs that serve and train (`lm_tiny`, `lm_base`), their MoE
+ResNet-18 and ResNet-50 (`resnet18`, `resnet50`, models/resnet.py), the
+decoder LMs that serve and train (`lm_tiny`, `lm_base`), their MoE
 variant `lm_moe` (lm_tiny's dims, every second block routed, capacity
 factor 2.0), the image transformers (`vit_tiny`, `vit_base`) and
 `vit_tiny_moe` (models/vit_moe.py). The transformers but `vit_tiny_moe`
@@ -13,7 +14,9 @@ a seed gives the same weights on every device. The init follows the
 reference's Flax defaults in scale: Dense and Conv kernels and the token
 embedding normal with std 1/sqrt(fan_in), the stacked expert kernels (E,
 fan_in, fan_out) likewise per expert, biases zero, LayerNorm and BatchNorm
-scale one, learned positions normal(0.02).
+scale one (zero for a BatchNorm built with `zero_scale`, the last of each
+ResNet block, as the reference's `scale_init=zeros`), learned positions
+normal(0.02).
 """
 
 from __future__ import annotations
@@ -27,8 +30,10 @@ from torch import nn
 from ddp_practice_tpu_torch.config import PrecisionPolicy, resolve_device
 from ddp_practice_tpu_torch.models.convnet import ConvNet
 from ddp_practice_tpu_torch.models.lm import LMBase, LMTiny, TransformerLM
+from ddp_practice_tpu_torch.models.resnet import ResNet, ResNet18, ResNet50
 from ddp_practice_tpu_torch.models.vit import ViT, ViTBase, ViTTiny
 from ddp_practice_tpu_torch.models.vit_moe import ViTMoE
+from ddp_practice_tpu_torch.ops.batchnorm import BatchNorm
 
 
 def LMMoE(**kw) -> TransformerLM:
@@ -49,18 +54,17 @@ def ViTTinyMoE(**kw) -> ViTMoE:
     return ViTMoE(**kw)
 
 
-_REGISTRY = {"convnet": ConvNet, "lm_tiny": LMTiny, "lm_base": LMBase,
+_REGISTRY = {"convnet": ConvNet, "resnet18": ResNet18,
+             "resnet50": ResNet50, "lm_tiny": LMTiny, "lm_base": LMBase,
              "lm_moe": LMMoE, "vit_tiny": ViTTiny, "vit_base": ViTBase,
              "vit_tiny_moe": ViTTinyMoE}
 # registry names whose module takes the tri-state `fused` argument
 # (models/vit.py EncoderBlock); ViTMoE's blocks never fuse, and the
-# ConvNet has no encoder block
-_FUSED_CAPABLE = frozenset(_REGISTRY) - {"vit_tiny_moe", "convnet"}
+# conv nets have no encoder block
+_FUSED_CAPABLE = frozenset(_REGISTRY) - {"vit_tiny_moe", "convnet",
+                                         "resnet18", "resnet50"}
 # the reference's other registry names -> the ROADMAP item that ports them
-_NOT_PORTED = {
-    "resnet18": "A2", "resnet50": "A2",
-    "vit_tiny_pipe": "A8", "lm_pipe": "A8",
-}
+_NOT_PORTED = {"vit_tiny_pipe": "A8", "lm_pipe": "A8"}
 
 
 def accepts_fused(name: str) -> bool:
@@ -72,14 +76,18 @@ def accepts_fused(name: str) -> bool:
 def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
     """Seeded init in place, drawn on the CPU in parameter order."""
     g = torch.Generator().manual_seed(seed)
+    bn_scales = {f"{n}.weight": m.zero_scale for n, m in
+                 model.named_modules() if isinstance(m, BatchNorm)}
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
-        if leaf == "pos_embed":
+        if name in bn_scales:
+            w = torch.zeros(p.shape) if bn_scales[name] else torch.ones(
+                p.shape)
+        elif leaf == "pos_embed":
             w = torch.randn(p.shape, generator=g) * 0.02
         elif leaf == "bias":
             w = torch.zeros(p.shape)
-        elif ".ln" in f".{name}" or ".bn" in f".{name}":
-            # LayerNorm (ln1 / ln2 / ln_f) and BatchNorm (bn{i}) scale
+        elif ".ln" in f".{name}":     # LayerNorm (ln1 / ln2 / ln_f) scale
             w = torch.ones(p.shape)
         elif leaf.startswith("expert_b"):
             w = torch.zeros(p.shape)
@@ -99,9 +107,10 @@ def create_model(name: str, *, policy: Optional[PrecisionPolicy] = None,
     remat, pos_emb, tied_embeddings, num_heads, dropout_rate, vocab_size,
     max_len, fused, moe_every, num_experts, capacity_factor, ...), ViT's
     (num_classes, image_shape, patch_size, depth, num_heads, attn_impl,
-    dropout_rate, fused, ...) or ViTMoE's (ViT's without dropout_rate and
+    dropout_rate, fused, ...), ViTMoE's (ViT's without dropout_rate and
     fused, plus num_experts, top_k, capacity_factor, moe_every,
-    moe_router)."""
+    moe_router) or ResNet's (num_classes, num_filters, image_shape,
+    stage_sizes, small_images)."""
     policy = policy or PrecisionPolicy.fp32()
     name = name.lower()
     if name in _NOT_PORTED:
@@ -116,5 +125,6 @@ def create_model(name: str, *, policy: Optional[PrecisionPolicy] = None,
 
 
 __all__ = ["accepts_fused", "create_model", "init_weights", "ConvNet",
-           "TransformerLM", "LMTiny", "LMBase", "LMMoE", "ViT", "ViTTiny",
-           "ViTBase", "ViTMoE", "ViTTinyMoE"]
+           "ResNet", "ResNet18", "ResNet50", "TransformerLM", "LMTiny",
+           "LMBase", "LMMoE", "ViT", "ViTTiny", "ViTBase", "ViTMoE",
+           "ViTTinyMoE"]

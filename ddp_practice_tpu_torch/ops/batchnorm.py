@@ -11,10 +11,11 @@ reference's layer, in three ways this module follows:
   with every step);
 - the momentum is Flax's 0.9 on the running value (torch's 0.1 on the
   batch value), epsilon 1e-5 on both;
-- the statistics are reduced in fp32 whatever the compute dtype, as Flax
-  promotes them, with the variance as max(0, E[x^2] - E[x]^2) (Flax's
-  fast variance), and the normalisation runs in fp32 before the output
-  is cast to the compute dtype.
+- the statistics are reduced in fp32 for any narrower compute dtype
+  (the input's dtype promoted with fp32, as Flax promotes them), with the
+  variance as max(0, E[x^2] - E[x]^2) (Flax's fast variance), and the
+  normalisation runs in that dtype before the output is cast to the
+  compute dtype.
 
 Cross-replica statistics: in train mode with more than one process the
 per-rank mean and mean of squares are averaged over every rank (the
@@ -61,28 +62,36 @@ def all_reduce_mean(x: torch.Tensor) -> torch.Tensor:
     return _AllReduceSum.apply(x) / n
 
 
+def _stat_dtype(x: torch.Tensor) -> torch.dtype:
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 class BatchNorm(nn.Module):
     """Normalise over every axis but dim 1 (the channels of an NCHW
     tensor). `weight`/`bias` are Flax's `scale`/`bias`; the running
     statistics are fp32 buffers (`running_mean`, `running_var`), updated
-    in train mode only."""
+    in train mode only. `zero_scale` starts the scale at zero (Flax's
+    `scale_init=zeros`, the last BatchNorm of a ResNet block)."""
 
     def __init__(self, features: int, *, momentum: float = 0.9,
-                 epsilon: float = 1e-5, dtype=torch.float32) -> None:
+                 epsilon: float = 1e-5, dtype=torch.float32,
+                 zero_scale: bool = False) -> None:
         super().__init__()
         self.momentum = momentum
         self.epsilon = epsilon
         self.dtype = dtype
-        self.weight = nn.Parameter(torch.ones(features))
+        self.zero_scale = zero_scale
+        self.weight = nn.Parameter(torch.zeros(features) if zero_scale
+                                   else torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
     def batch_stats(self, x: torch.Tensor):
-        """(mean, var) of x over every axis but 1, in fp32, averaged
-        over the ranks when more than one runs."""
+        """(mean, var) of x over every axis but 1, in fp32 (or x's dtype
+        where wider), averaged over the ranks when more than one runs."""
         axes = [0] + list(range(2, x.ndim))
-        xf = x.float()
+        xf = x.to(_stat_dtype(x))
         stats = torch.stack([xf.mean(axes), xf.square().mean(axes)])
         mean, mean2 = all_reduce_mean(stats).unbind(0)
         return mean, torch.clamp_min(mean2 - mean.square(), 0.0)
@@ -100,6 +109,7 @@ class BatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         shape = (1, -1) + (1,) * (x.ndim - 2)
         # Flax's order: (x - mean) * (rsqrt(var + eps) * scale) + bias
-        mul = torch.rsqrt(var + self.epsilon) * self.weight.float()
-        y = (x.float() - mean.view(shape)) * mul.view(shape)
-        return (y + self.bias.float().view(shape)).to(self.dtype)
+        dt = _stat_dtype(x)
+        mul = torch.rsqrt(var + self.epsilon) * self.weight.to(dt)
+        y = (x.to(dt) - mean.view(shape)) * mul.view(shape)
+        return (y + self.bias.to(dt).view(shape)).to(self.dtype)

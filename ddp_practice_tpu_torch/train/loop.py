@@ -41,13 +41,19 @@ every global batch, the model runs wrapped in DistributedDataParallel, and
 eval sums are all-reduced. `fused_encoder` ("auto" | "on" | "off") is the
 reference's flag: "on" forces the fused encoder layer and raises for a
 model that does not take it or a shape the kernels refuse. The image task
-trains the ConvNet (the default: `convnet` on `mnist`, its BatchNorm
-statistics averaged over the ranks, so DDP does not broadcast buffers
-for it) and the image transformers (vit_tiny, vit_base, vit_tiny_moe);
-resnet* raise (ROADMAP A2). `num_experts` and `moe_router` pass to the MoE
-families as the reference's loop passes them (expert choice sets the
-capacity factor to 1.0 unless given), and the summary gains the last
-step's `moe_load_max`, `moe_load_min` and `moe_drop_rate`.
+trains the ConvNet (the default: `convnet` on `mnist`), ResNet-18 and
+ResNet-50 (their BatchNorm statistics averaged over the ranks, so DDP
+does not broadcast buffers for them) and the image transformers
+(vit_tiny, vit_base, vit_tiny_moe). `augment` (with `augment_kind`)
+augments the image task's training batches on the device
+(ops/augment.py) and raises for the LM task, as the reference's; the
+head has the dataset's classes, and `num_classes` is not read, as in
+the reference's loop. `loader_backend` picks the batch gather
+(data/loader.py: the native C++ one, numpy, or "auto"). `num_experts`
+and `moe_router` pass to the MoE families as the reference's loop
+passes them (expert choice sets the capacity factor to 1.0 unless
+given), and the summary gains the last step's `moe_load_max`,
+`moe_load_min` and `moe_drop_rate`.
 
 Checkpoints (`checkpoint_dir`, checkpoint/): a save every
 `checkpoint_every_steps` steps of an epoch (asynchronous in a
@@ -167,9 +173,14 @@ class Trainer:
             raise NotImplementedError(
                 f"--model {config.model}: not ported yet (ROADMAP "
                 f"{_MODELS_NOT_PORTED[name]}); the port trains the "
-                f"ConvNet, the decoder LMs (lm_tiny, lm_base, lm_moe) and "
-                f"the image transformers (vit_tiny, vit_base, "
-                f"vit_tiny_moe)")
+                f"ConvNet, ResNet-18/50, the decoder LMs (lm_tiny, "
+                f"lm_base, lm_moe) and the image transformers (vit_tiny, "
+                f"vit_base, vit_tiny_moe)")
+        if config.augment and self.task == "lm":
+            raise ValueError(
+                "--augment is image-input augmentation (random crop + "
+                "flip, ops/augment.py); it does not apply to token "
+                "streams")
         shard = ShardSpec(dist.process_index(), self.world)
         model_kwargs = {}
         if self.task == "lm":
@@ -202,14 +213,14 @@ class Trainer:
                 if flag:
                     raise ValueError(f"{what} applies to the LM family "
                                      f"(lm_*), not {config.model!r}")
-        if name == "convnet":
+        if name in ("convnet", "resnet18", "resnet50"):
             for flag, what in ((config.num_heads, "--num_heads"),
                                (config.dropout, "--dropout"),
                                (config.attn_impl != "xla", "--attn_impl"),
                                (config.num_experts, "--num_experts")):
                 if flag:
                     raise ValueError(f"{what} applies to the transformer "
-                                     "families, not 'convnet'")
+                                     f"families, not {name!r}")
         if config.num_heads:
             model_kwargs["num_heads"] = config.num_heads
         if config.dropout:
@@ -308,7 +319,7 @@ class Trainer:
         common = dict(label_smoothing=cfg.label_smoothing, seed=cfg.seed,
                       forward=self.forward)
         if self.task == "image":
-            common["augment"] = cfg.augment
+            common["augment"] = cfg.augment_kind if cfg.augment else False
         k = cfg.steps_per_call
         if self.task == "lm":
             self.train_step = make_lm_train_step(self.model, **common)
@@ -742,12 +753,11 @@ class Trainer:
                 moe_every=m.moe_every,
                 moe_top_k=m.moe_top_k) * self.config.seq_len
         else:
-            dims = {} if name == "convnet" else dict(
+            dims = {} if not name.startswith("vit") else dict(
                 patch_size=m.patch_size, hidden_dim=m.hidden_dim,
                 depth=m.depth, mlp_dim=m.mlp_dim)
             per_sample = flops.train_flops_per_image(
-                name, self.train_ds.image_shape, self.train_ds.num_classes,
-                **dims)
+                name, self.train_ds.image_shape, m.num_classes, **dims)
         if not (peak and per_sample and self._train_seconds):
             return None
         rate = per_sample * self._train_images / self._train_seconds

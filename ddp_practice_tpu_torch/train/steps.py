@@ -19,8 +19,12 @@ metrics are the global batch's.
 The image step is the same with `prepare_image` (uint8 -> [0, 1] fp32 on
 the device) in front, class logits, and metrics `loss`, `accuracy` and
 `grad_norm`; the eval step returns weighted (correct, total) so a
-wrap-padded last batch counts its real samples only. `augment` (A2,
-ops/augment.py) is not ported.
+wrap-padded last batch counts its real samples only. `augment` (a kind:
+False, True or "crop_flip", "rrc"; ops/augment.py) transforms the
+training images after `prepare_image`, keyed on the device step counter
+(`augment_rng`), so the eager, chunked and resident steps, and their
+CUDA-graph replays, crop alike at the same global step; eval never
+augments.
 
 The step's Python side (`state.step`, the optimizer's counts) is
 mirrored on the device (train/state.py), and the dropout key is
@@ -58,6 +62,11 @@ import torch
 from torch import nn
 
 from ddp_practice_tpu_torch.models.vit import DropoutKey, fold32, mix32
+from ddp_practice_tpu_torch.ops.augment import (
+    apply_augment,
+    augment_rng,
+    check_kind,
+)
 from ddp_practice_tpu_torch.ops.losses import accuracy_counts, cross_entropy
 from ddp_practice_tpu_torch.ops.moe import moe_layers
 from ddp_practice_tpu_torch.parallel import dist
@@ -71,8 +80,10 @@ def step_key(seed: int, step) -> DropoutKey:
     its masks. `step` is the device step counter (a 0-dim int64 tensor:
     the key is then computed on the device, and a CUDA graph replays it)
     or an int; both give the same bits. No product overflows int64
-    (models/vit.py `fold32`), whatever the step."""
-    return DropoutKey(mix32(fold32(step) ^ fold32(seed)))
+    (models/vit.py `fold32`), whatever the step. The hash is chained
+    (the seed's key, then the step), so swapping seed and step gives
+    another key."""
+    return DropoutKey(mix32(fold32(step) ^ mix32(fold32(seed))))
 
 
 def _dropout_key(model: nn.Module, seed: int, state: TrainState):
@@ -184,16 +195,18 @@ def make_train_step(model: nn.Module, *, label_smoothing: float = 0.0,
                     forward: Optional[nn.Module] = None):
     """(state, batch) -> (state, metrics) for the image task.
     batch["image"] is (b, H, W, C) uint8 or float, batch["label"] (b,) int,
-    both on the model's device."""
-    if augment:
-        raise NotImplementedError(
-            "augment is not ported yet (ROADMAP A2: ops/augment.py)")
+    both on the model's device. `augment` is an augmentation kind
+    (ops/augment.py `apply_augment`)."""
+    check_kind(augment)
     net = forward if forward is not None else model
     params = [p for p in model.parameters() if p.requires_grad]
     moes = moe_layers(model)
 
     def train_step(state: TrainState, batch: dict):
         images = prepare_image(batch["image"])
+        if augment:
+            images = apply_augment(
+                images, augment_rng(seed, state.device_step()), augment)
         labels = batch["label"]
         for p in params:
             p.grad = None

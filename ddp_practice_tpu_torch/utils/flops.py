@@ -1,8 +1,7 @@
 """Analytic FLOP counts and the card's peak rate, for MFU, and its
 device-memory bandwidth, for bytes bounds (counterpart of
-ddp_practice_tpu/utils/flops.py: the ConvNet, LM and ViT parts,
-`chip_peak_flops` and `chip_hbm_bandwidth`; the ResNet counts are
-ROADMAP A2).
+ddp_practice_tpu/utils/flops.py: the ConvNet, ResNet, LM and ViT
+parts, `chip_peak_flops` and `chip_hbm_bandwidth`).
 
 MFU is the model's analytic training FLOPs per step (3x forward: backward
 ~= 2x forward, the standard accounting) over the measured step time and
@@ -36,6 +35,55 @@ def convnet_forward_flops(image_shape=(28, 28, 1), num_classes: int = 10,
         total += f
         h, w, c = h // 2, w // 2, feat
     return total + 2.0 * (h * w * c) * num_classes
+
+
+def resnet_forward_flops(image_shape=(32, 32, 3), *, stage_sizes=(2, 2, 2, 2),
+                         bottleneck: bool = False, num_filters: int = 64,
+                         small_images: bool = True,
+                         num_classes: int = 10) -> float:
+    """ResNet v1.5 as built in models/resnet.py (3x3 CIFAR stem or 7x7
+    ImageNet stem, stride 2 at each stage boundary, a 1x1 projection where
+    the shape changes)."""
+    h, w, c = image_shape
+    if small_images:
+        total, h, w = conv2d(h, w, c, num_filters, 3, 3)
+    else:
+        total, h, w = conv2d(h, w, c, num_filters, 7, 7, stride=2)
+        h, w = math.ceil(h / 2), math.ceil(w / 2)   # max_pool 3x3 s2 SAME
+    c = num_filters
+    for i, n_blocks in enumerate(stage_sizes):
+        filters = num_filters * 2 ** i
+        for j in range(n_blocks):
+            stride = 2 if (i > 0 and j == 0) else 1
+            cin, h_in, w_in = c, h, w
+            if bottleneck:
+                f1, h1, w1 = conv2d(h, w, cin, filters, 1, 1)
+                f2, h2, w2 = conv2d(h1, w1, filters, filters, 3, 3, stride)
+                f3, h, w = conv2d(h2, w2, filters, filters * 4, 1, 1)
+                total += f1 + f2 + f3
+                c = filters * 4
+            else:
+                f1, h1, w1 = conv2d(h, w, cin, filters, 3, 3, stride)
+                f2, h, w = conv2d(h1, w1, filters, filters, 3, 3)
+                total += f1 + f2
+                c = filters
+            if cin != c or stride != 1:
+                total += conv2d(h_in, w_in, cin, c, 1, 1, stride)[0]
+    return total + 2.0 * c * num_classes
+
+
+def resnet18_forward_flops(image_shape=(32, 32, 3),
+                           num_classes: int = 10) -> float:
+    return resnet_forward_flops(
+        image_shape, stage_sizes=(2, 2, 2, 2), bottleneck=False,
+        small_images=True, num_classes=num_classes)
+
+
+def resnet50_forward_flops(image_shape=(224, 224, 3),
+                           num_classes: int = 1000) -> float:
+    return resnet_forward_flops(
+        image_shape, stage_sizes=(3, 4, 6, 3), bottleneck=True,
+        small_images=False, num_classes=num_classes)
 
 
 def lm_forward_flops_per_token(*, hidden_dim: int, depth: int, mlp_dim: int,
@@ -82,11 +130,16 @@ def vit_forward_flops(image_shape=(32, 32, 3), *, patch_size: int = 4,
 def train_flops_per_image(model: str, image_shape, num_classes: int = 10,
                           **kw) -> Optional[float]:
     """fwd + bwd FLOPs per image: 3x forward; `kw` are the ViT's own
-    dims (patch_size, hidden_dim, depth, mlp_dim). None for a model whose
-    count is not ported (resnet: ROADMAP A2)."""
-    if model.lower() == "convnet":
+    dims (patch_size, hidden_dim, depth, mlp_dim). None for a model the
+    counts do not cover."""
+    model = model.lower()
+    if model == "convnet":
         return 3.0 * convnet_forward_flops(image_shape, num_classes)
-    if model.lower().startswith("vit"):
+    if model == "resnet18":
+        return 3.0 * resnet18_forward_flops(image_shape, num_classes)
+    if model == "resnet50":
+        return 3.0 * resnet50_forward_flops(image_shape, num_classes)
+    if model.startswith("vit"):
         return 3.0 * vit_forward_flops(image_shape, num_classes=num_classes,
                                        **kw)
     return None

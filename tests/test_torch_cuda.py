@@ -1313,6 +1313,27 @@ def test_graphed_resident_convnet_equals_the_eager_host_steps(card):
     assert res.resident_eval_step.graph.captures == 1
 
 
+@pytest.mark.parametrize("kind", ["crop_flip", "rrc"])
+def test_graphed_augmented_resnet18_equals_the_eager_host_steps(card, kind):
+    """ResNet-18 (ROADMAP A2) with on-device augmentation: the resident
+    steps' crops are drawn on the device from the step counter, so the
+    captured step's replays crop as the eager host steps do (the
+    random resized crop's weight matrices included)."""
+    kw = dict(model="resnet18", dataset="cifar10", synthetic_size=1280,
+              batch_size=64, max_steps_per_epoch=12, augment=True,
+              augment_kind=kind, optimizer="sgd", momentum=0.9,
+              learning_rate=0.05)
+    host = _trainer(data_placement="host", **kw)
+    res = _trainer(data_placement="device", **kw)
+    h, _ = _recorded(host, "train_step")
+    r, graph = _recorded(res, "resident_train_step")
+    host.train_epoch(0)
+    res.train_epoch(0)
+    assert (graph.captures, graph.replays) == (1, 11)
+    assert res.state.step == host.state.step == 12
+    _held((h, host.state), (r, res.state))
+
+
 @pytest.mark.parametrize("kw", [
     dict(optimizer="adamw", learning_rate=1e-3, lr_schedule="cosine"),
     dict(optimizer="adam", learning_rate=1e-3, dropout=0.1),

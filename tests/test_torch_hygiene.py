@@ -1,8 +1,9 @@
 """Hygiene of the PyTorch port: it stands on its own.
 
-- No file of ddp_practice_tpu_torch/ or chip_smoke.py names the JAX
-  modules (`jax`, `flax`, `optax`) or imports from the JAX package
-  (`ddp_practice_tpu.`, with the dot).
+- No file of ddp_practice_tpu_torch/ (Python, CUDA and the host C++ of
+  the native loader) or chip_smoke.py names the JAX modules (`jax`,
+  `flax`, `optax`) or imports from the JAX package (`ddp_practice_tpu.`,
+  with the dot).
 - The whole package and chip_smoke import in a fresh interpreter where
   jax, flax, optax and the JAX package cannot be imported.
 - The CUDA sources exist, hold their kernels' C entries (A-D in
@@ -16,7 +17,8 @@
   the port; the training slice's data, train, parallel and utils modules
   (and config, cli, losses, flash attention and the flash experiments,
   the ConvNet and its BatchNorm, checkpoint, data/ingest, generate and
-  serve/bench) only the standard library, numpy, torch and the port.
+  serve/bench, the ResNets, augmentation, the native loader's binding and
+  the converter) only the standard library, numpy, torch and the port.
 - Entry points asked for the card raise without one; chip_smoke exits
   non-zero with no result line, both without a card and when it stands
   alone outside the repository.
@@ -39,8 +41,8 @@ FORBIDDEN = re.compile(r"\bjax\b|\bflax\b|\boptax\b|ddp_practice_tpu\.")
 
 
 def _port_files():
-    files = sorted(p for p in PORT.rglob("*")
-                   if p.is_file() and p.suffix in (".py", ".cu", ".cuh"))
+    files = sorted(p for p in PORT.rglob("*") if p.is_file()
+                   and p.suffix in (".py", ".cu", ".cuh", ".cpp"))
     return files + [ROOT / "chip_smoke.py"]
 
 
@@ -226,12 +228,15 @@ TRAIN_SLICE = ["data/sharding.py", "data/lm_corpus.py", "data/datasets.py",
                "experiments/tgmm_tune.py", "models/convnet.py",
                "ops/batchnorm.py", "checkpoint/__init__.py",
                "data/ingest.py", "generate.py", "serve/bench.py",
-               "experiments/convnet_step.py"]
+               "experiments/convnet_step.py", "models/resnet.py",
+               "ops/augment.py", "data/native_loader.py", "convert.py"]
 STDLIB = ("__future__", "typing", "argparse", "collections", "contextlib",
-          "ctypes", "dataclasses", "gzip", "hashlib", "json", "logging",
-          "math", "os", "pathlib", "pickle", "re", "shutil", "socket",
-          "statistics", "struct", "subprocess", "sys", "tarfile",
-          "tempfile", "threading", "time", "urllib.request", "warnings")
+          "ctypes", "dataclasses", "fcntl", "gzip", "hashlib", "json",
+          "logging", "math", "os", "pathlib", "pickle", "platform", "re",
+          "shutil",
+          "socket", "statistics", "struct", "subprocess", "sys", "tarfile",
+          "tempfile", "threading", "time", "urllib.request", "uuid",
+          "warnings")
 
 
 @pytest.mark.parametrize("module", TRAIN_SLICE)

@@ -9,7 +9,8 @@ data/loader.py) against the JAX package's, bit for bit:
 - `DataLoader` walks the same batches (image, label, weight) for two epochs
   on two shards, wrap-pads the last eval batch with zero weights, and its
   `epoch_plan`, `steps_per_epoch` and `drop_last` agree;
-- what is not ported raises naming its ROADMAP item.
+- the imagenet corpus and the native gather (ROADMAP A2, which raised
+  before it was ported) match the reference; an unknown dataset raises.
 """
 
 import gzip
@@ -146,12 +147,20 @@ def test_loader_drop_last_and_epochs_differ():
     assert len(first) == 16
 
 
-def test_unported_data_paths_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        datasets.load_dataset("imagenet", "/nonexistent", "train")
+def test_unported_data_paths_name_their_roadmap_item(tmp_path):
+    """ROADMAP A2's data paths, which raised before it was ported: the
+    imagenet corpus loads as the reference's does (the synthetic one,
+    generated under data_dir), the native gather gives numpy's batches;
+    an unknown dataset still raises."""
+    kw = dict(seed=2, synthetic_size=5)
+    ds = datasets.load_dataset("imagenet", str(tmp_path / "p"), "test", **kw)
+    _same(ds, jax_datasets.load_dataset("imagenet", str(tmp_path / "j"),
+                                        "test", **kw))
     ds = datasets.synthetic_image_classification(
         n=4, image_shape=(2, 2, 1), num_classes=2, seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        DataLoader(ds, global_batch_size=2, backend="native")
+    native = list(DataLoader(ds, global_batch_size=2, backend="native"))
+    plain = list(DataLoader(ds, global_batch_size=2, backend="python"))
+    for a, b in zip(native, plain):
+        assert all(np.array_equal(a[k], b[k]) for k in a)
     with pytest.raises(ValueError, match="unknown dataset"):
         datasets.load_dataset("svhn", "/nonexistent", "train")

@@ -18,19 +18,23 @@ cli.py) on the CPU:
   the summary carries `mfu` (None on the CPU, whose peak is unknown);
 - model names and flags this slice does not port raise
   NotImplementedError naming their ROADMAP item, and the card is the
-  default device; the step variants' flags (`--steps_per_call`,
-  `--data_placement device`, `resident_max_bytes`) run, and
+  default device; ROADMAP A2's (resnet18, resnet50, `--augment` on a
+  ViT, `--loader native`, `--dataset imagenet`) run, `--augment` on an
+  LM raises the reference's ValueError, and `num_classes` is not read
+  (the dataset sizes the head, as in the reference); the step variants'
+  flags (`--steps_per_call`, `--data_placement device`,
+  `resident_max_bytes`) run, and
   `--compile_cache` raises: the port has no compile cache;
 - data parallelism: two gloo processes at per-rank batch 2 take the same
   step as one process at batch 4 (1e-6) and stay bit-identical replicas,
   for lm_tiny, for lm_moe, whose router statistics and balancing bias
   are global-batch quantities (ops/moe.py all-reduces them): the ranks'
-  router biases equal the single process's, and for the ConvNet, whose
-  BatchNorm statistics are all-reduced (SyncBN): the ranks' running
-  statistics and parameters equal the single process's over the global
-  batch; and chunked (steps_per_call=2), where the ranks run each chunk
-  as two eager steps. Under two processes "auto" placement streams host
-  batches and "device" is refused.
+  router biases equal the single process's, and for the ConvNet and
+  ResNet-18, whose BatchNorm statistics are all-reduced (SyncBN): the
+  ranks' running statistics and parameters equal the single process's
+  over the global batch; and chunked (steps_per_call=2), where the ranks
+  run each chunk as two eager steps. Under two processes "auto"
+  placement streams host batches and "device" is refused.
 """
 
 import json
@@ -117,17 +121,36 @@ def test_cli_trains_lm_moe_on_the_cpu(router, capsys, tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--model", "resnet18"], "A2"),
     (["--model", "lm_tiny", "--expert", "2"], "A8"),
-    (["--model", "resnet50"], "A2"),
-    (["--model", "vit_tiny", "--augment"], "A2"),
     (["--model", "lm_tiny", "--tensor", "2"], "A8"),
-    (["--model", "lm_tiny", "--loader", "native"], "A2"),
     (["--model", "lm_pipe"], "A8"),
 ])
 def test_unported_paths_name_their_roadmap_item(argv, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         cli.main(argv + ["--device", "cpu", "--seq_len", "16", "-b", "2"])
+
+
+# ROADMAP A2's paths, which raised before it was ported, now run
+@pytest.mark.parametrize("argv", [
+    ["--model", "resnet18", "--dataset", "cifar10", "--augment"],
+    ["--model", "resnet50", "--dataset", "imagenet", "--augment",
+     "--augment_kind", "rrc", "--loader", "native"],
+    ["--model", "vit_tiny", "--dataset", "cifar10", "--augment"],
+    ["--model", "lm_tiny", "--loader", "native", "--seq_len", "16",
+     "--synthetic_size", "2000"],
+], ids=["resnet18", "resnet50", "vit_tiny-augment", "lm_tiny-native"])
+def test_a2_paths_run(argv, capsys, tmp_path):
+    assert cli.main(["--synthetic_size", "12"] + argv + [
+        "--device", "cpu", "-b", "2", "--max_steps", "1", "-e", "1",
+        "--data_dir", str(tmp_path), "--json"]) == 0
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert summary["steps"] == 1
+
+
+def test_augment_on_the_lm_task_raises_the_references_error():
+    with pytest.raises(ValueError, match="does not apply to token streams"):
+        cli.main(["--model", "lm_tiny", "--augment", "--device", "cpu",
+                  "--seq_len", "16", "-b", "2"])
 
 
 @pytest.mark.parametrize("argv,resident", [
@@ -257,12 +280,22 @@ def test_fused_on_and_lm_flags_raise_where_they_cannot_run(argv, match):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("num_classes", 100, "A2"),
+    ("trace_out", "trace.json", "A6"),
     ("watchdog_probe_every_steps", 10, "A8"),
 ])
 def test_unported_fields_name_their_roadmap_item(field, value, item):
     with pytest.raises(NotImplementedError, match=f"{field}.*ROADMAP {item}"):
         TrainConfig(model="lm_tiny", device="cpu", **{field: value})
+
+
+@pytest.mark.parametrize("num_classes", [10, 5, 100])
+def test_num_classes_is_not_read_as_in_the_reference(num_classes):
+    """The reference's loop sizes the head from the dataset and never
+    reads `num_classes`; the port's does the same, whatever its value."""
+    t = Trainer(TrainConfig(model="resnet18", dataset="cifar10",
+                            device="cpu", synthetic_size=12, batch_size=2,
+                            num_classes=num_classes))
+    assert t.model.num_classes == t.train_ds.num_classes == 10
 
 
 def test_each_rank_on_a_host_takes_its_own_card(monkeypatch):
@@ -289,6 +322,7 @@ DP = dict(device="cpu", seq_len=16, synthetic_size=20000,
 DP_MODELS = {"lm_tiny": dict(model="lm_tiny"),
              "lm_moe": dict(model="lm_moe"),
              "convnet": dict(model="convnet"),
+             "resnet18": dict(model="resnet18"),
              "lm_tiny_chunked": dict(model="lm_tiny", steps_per_call=2,
                                      max_steps_per_epoch=2,
                                      data_placement="host")}
@@ -361,5 +395,5 @@ def test_two_gloo_ranks_take_the_single_process_step(tmp_path):
         assert all(after[n].abs().sum() > 0 for n in biases)
         # SyncBN: the ranks' running statistics are the global batch's
         stats = [n for n in after if "running_" in n]
-        assert len(stats) == (4 if model == "convnet" else 0)
+        assert len(stats) == {"convnet": 4, "resnet18": 40}.get(model, 0)
         assert all(not torch.equal(after[n], before[n]) for n in stats)

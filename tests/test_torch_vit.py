@@ -191,8 +191,10 @@ def test_prepare_image_is_a_true_division():
     assert np.array_equal(prepare_image(u8).numpy(), want)
     f = torch.rand(3)
     assert prepare_image(f) is f
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        make_train_step(torch.nn.Linear(1, 1), augment=True)
+    # augment (ROADMAP A2, ported) is a kind; an unknown one raises
+    with pytest.raises(ValueError, match="unknown augment kind"):
+        make_train_step(torch.nn.Linear(1, 1), augment="cutout")
+    make_train_step(torch.nn.Linear(1, 1), augment=True)
 
 
 def _block(**kw):
@@ -262,5 +264,7 @@ def test_registry_names_the_fused_capable_models():
     assert vit.blocks[0].fused == "auto"
     assert tuple(vit.embed.patch_embed.weight.shape) == (192, 3, 4, 4)
     assert tuple(vit.embed.pos_embed.shape) == (1, 64, 192)
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        create_model("resnet18", device="cpu")
+    # the conv nets (ResNets: ROADMAP A2, ported) take no fused flag
+    assert not any(accepts_fused(n) for n in ("resnet18", "resnet50"))
+    assert create_model("resnet18", device="cpu").block_names[-1] == \
+        "BasicBlock_7"
