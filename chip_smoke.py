@@ -227,14 +227,43 @@ Phases, each of which raises on failure (nothing is caught and passed):
    deleted after its profile. Each leg: loss at steps 1/10/20/30 (the
    last below the first), median step, images/s per card, MFU, eval
    accuracy, peak memory; each profile: host wall, device busy, idle
-   share, device ops a step, device time by kind.
+   share, device ops a step, device time by kind;
+Phases 24-27 run first of all, right after setup: their decode steps are
+host-bound, and a finished torch.profiler trace adds host time to every
+later launch in the process.
+24. MoE serving (ROADMAP A10): lm_moe at lm_base width (12 blocks of d
+   768, 12 heads of 64, mlp 3072, every second block routed over 8
+   experts, top-2, router biases N(0, 0.5)), RoPE, bf16, token choice on
+   the einsum path, through serve_bench's continuous, static and paged
+   rows: every request completes and each row launches its kernel (A, A,
+   C) depth x its decode steps;
+25. MoE sorted decode: kernel J against gmm_plain at the decode and
+   prefill shapes of the sorted path (m = 8, 16, 128 and 512 rows over 8
+   experts, empty groups included, both expert products, bf16 and fp32;
+   the 8-slot step timed), then lm_moe at lm_base width in fp32 with
+   impl="sorted" serves six requests through the slot engine: its greedy
+   tokens equal generate's, each request alone, and J launches 2 x 6 x
+   the model's applications, A 12 x its single-token steps; expert choice
+   at decode (fp32): generate over four left-padded prompts, each prompt
+   alone and the slot engine give the same greedy tokens;
+26. MoE checkpoint: the registry's lm_moe (d 256, 8 heads of 32: the
+   plain masked decode, no kernel) trains 6 steps through the CLI with a
+   checkpoint; load_lm restores its router biases (non-zero, equal to the
+   trained ones), generate.py and serve/bench.py `--ckpt_dir` complete;
+27. bench (ROADMAP A9a): benchmarks.py's convnet entry (bench_train) and
+   lm_decode (lm_base) and lm_decode on lm_moe at lm_base width
+   (bench_lm_decode, 128 new tokens where the suite's entry takes 512),
+   each at calls=2: the headline keys, finite numbers, the convnet
+   entry's window_spread_pct (the CPU tests hold every key against the
+   reference's).
 
 Launch counts are zeroed just before each phase's run and read just
 after it; a train leg's count is its wrappers' (eager calls) plus its
-graph replays' (utils/graphs.REPLAYED). The ConvNet's, lm_base's and
-vit_tiny's leg lines end with the card's name and power limit. The
-second-to-last line is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}. Without a CUDA device the script
+graph replays' (utils/graphs.REPLAYED). The kernels' record adds the MoE
+serve rows' launches to A's and C's, and the sorted decode leg's to J's.
+The ConvNet's, lm_base's and vit_tiny's leg lines end with the card's
+name and power limit. The second-to-last line is the kernels' JSON
+record; the last line is {"ok": true, "device": {...}}. Without a CUDA device the script
 exits non-zero and prints no result.
 
 Tolerances: fp32 2e-5 (the reference's decode-attention tests). bf16
@@ -2165,13 +2194,16 @@ def vit_cross_check(torch, fe):
 
 
 # ------------------------------------------------------- kernels J and K
-def _gmm_bound_ms(m, k, n, e, dtype):
+def _gmm_bound_ms(m, k, n, e, dtype, e_read=None):
     """2*m*k*n flops over the dtype's peak, against the operands read once
     and the result written once (the same count for all three products:
-    (m, k) and (E, k, n) in, (m, n) out, or their transposes)."""
+    (m, k) and (E, k, n) in, (m, n) out, or their transposes). `e_read`
+    experts' (k, n) slabs are counted (default all E): a product whose
+    empty groups need no weights passes the used groups' count."""
     elt = 2 if dtype == "bfloat16" else 4
+    e_read = e if e_read is None else e_read
     t_ops = 2.0 * m * k * n / PEAK[dtype] * 1e3
-    t_bytes = ((m * k + e * k * n + m * n) * elt + 4 * e) \
+    t_bytes = ((m * k + e_read * k * n + m * n) * elt + 4 * e) \
         / HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
@@ -3279,6 +3311,403 @@ def generate_serve_leg(torch, ops):
     return launches
 
 
+# ------------------------------------------ MoE decode and serving (A10)
+# serving lm_moe at lm_base width: the lm_moe_tc layers (MOE: 12 blocks of
+# d 768, 12 heads of 64, mlp 3072, every second routed over 8 experts,
+# top-2), RoPE, vocabulary 256; router biases drawn N(0, 0.5) so the
+# bias takes part in every routing (a trained model's are not zero)
+MOE_SERVE_REQUESTS = 8
+MOE_BIAS_STD = 0.5
+# J at the sorted decode path's shapes (m = slots x top-2 rows a decode
+# step, bucket x top-2 a prefill) over 8 experts, empty groups included
+J_DECODE_SIZES = {
+    "decode 4 slots": [2, 0, 1, 1, 0, 2, 1, 1],
+    "decode 8 slots": [4, 0, 3, 2, 0, 1, 5, 1],
+    "prefill bucket 64": [30, 2, 0, 40, 16, 8, 12, 20],
+    "prefill bucket 256": [100, 60, 0, 90, 80, 30, 70, 82],
+}
+# the registry's lm_moe (d 256, 4 blocks, 8 heads of 32) trained through
+# the CLI for the checkpoint leg: a manifest rebuilds the registry's
+# widths and heads, as the reference's does
+MOE_CKPT_ARGS = ["--model", "lm_moe", "--pos_emb", "rope", "--precision",
+                 "bf16", "--optimizer", "adamw", "--lr", "3e-4",
+                 "--seq_len", "256", "-b", "8", "-e", "1", "--log_every",
+                 "0", "--max_steps", "6", "--dataset", "text", "--data_dir",
+                 "ddp_practice_tpu_torch/csrc"]
+
+
+def _moe_serving_model(torch, *, precision, impl="einsum", router="topk",
+                       seed=2):
+    """lm_moe at lm_base width for serving (see MOE_SERVE_REQUESTS), its
+    routed layers on `impl`; expert choice at capacity factor 1.0."""
+    from ddp_practice_tpu_torch.config import PrecisionPolicy
+    from ddp_practice_tpu_torch.models import create_model
+    from ddp_practice_tpu_torch.ops.moe import moe_layers
+
+    cfg = dict(MOE, moe_router=router)
+    if router == "expert_choice":
+        cfg["capacity_factor"] = 1.0
+    model = create_model("lm_moe", policy=PrecisionPolicy.from_name(
+        precision), device="cuda", seed=seed, vocab_size=256,
+        max_len=SERVE["max_len"], pos_emb="rope", **cfg)
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for layer in moe_layers(model):
+            layer.impl = impl
+            if layer.router_bias is not None:
+                layer.router_bias.copy_(
+                    torch.randn(layer.router_bias.shape, generator=g)
+                    * MOE_BIAS_STD)
+    return model
+
+
+def _count_applications(model):
+    """A forward pre-hook counting the model's applications: {"step":
+    single-token, "prefill": longer}; returns (counts, the hook's
+    handle)."""
+    counts = {"step": 0, "prefill": 0}
+
+    def hook(_module, args, kwargs):
+        counts["step" if args[0].shape[1] == 1 else "prefill"] += 1
+
+    return counts, model.register_forward_pre_hook(hook, with_kwargs=True)
+
+
+def moe_serve_phase(torch, ops):
+    """serve_bench over lm_moe at lm_base width, bf16, token choice on the
+    einsum path: every request of the slot, static and paged rows
+    completes, and each row launches its kernel (A, A, C) depth x its
+    decode steps times and nothing else."""
+    from ddp_practice_tpu_torch.serve.bench import serve_bench
+
+    model = _moe_serving_model(torch, precision="bf16")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.monotonic()
+    report = serve_bench(model=model, n_requests=MOE_SERVE_REQUESTS,
+                         rate_hz=16.0, seed=0, paged=True, **SERVE)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = dict(ops.LAUNCHES)
+    rows = [report["continuous"], report["static"], report["paged"]]
+    log(f"moe serve[lm_moe at lm_base width, 6 of 12 blocks routed, top-2 "
+        f"of 8, bias N(0, {MOE_BIAS_STD}), bf16, einsum] on "
+        f"{report['device']}: {MOE_SERVE_REQUESTS} requests, wall "
+        f"{wall:.1f} s, launches {launches}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{CARD}]")
+    for r in rows:
+        log(_row_line(r))
+    log(f"  paged/static {report['paged_vs_static']:.2f}x  "
+        f"paged/continuous {report['paged_vs_continuous']:.2f}x")
+    _check_rows(rows, MOE_SERVE_REQUESTS, model.depth, {
+        "continuous": "decode_attention", "static": "decode_attention",
+        "paged": "paged_decode_attention"})
+    del model
+    torch.cuda.empty_cache()
+    return report, launches
+
+
+def _j_decode_shapes(torch, gm):
+    """J against gmm_plain at the sorted decode path's shapes
+    (J_DECODE_SIZES), bf16 and fp32, both expert products; the 8-slot
+    decode step's bf16 w_in product timed (kernel, plain, library).
+    Returns the timed row."""
+    e = MOE["num_experts"]
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    timed_row = None
+    seed = 7000
+    for label, sizes in J_DECODE_SIZES.items():
+        assert len(sizes) == e
+        m = sum(sizes)
+        gs = torch.tensor(sizes, dtype=torch.int32, device="cuda")
+        for k, n in ((768, 3072), (3072, 768)):
+            for dtype in ("bfloat16", "float32"):
+                seed += 1
+                g = torch.Generator(device="cuda").manual_seed(seed)
+                tdt = getattr(torch, dtype)
+                lhs = torch.randn((m, k), generator=g,
+                                  device="cuda").to(tdt)
+                rhs = (torch.randn((e, k, n), generator=g, device="cuda")
+                       * k ** -0.5).to(tdt)
+                want = gm.gmm(lhs, rhs, gs, impl="plain")
+                got = gm.gmm(lhs, rhs, gs, impl="kernel")
+                err, rel = _gmm_err(torch, "gmm", got, want, dtype,
+                                    f"{label} m={m} k={k} n={n}")
+                line = (f"  J {label:<18} m={m:<4} k={k:<4} n={n:<4} "
+                        f"{dtype:>8}: err {err:.2e} rel {rel:.2e}")
+                if (label == "decode 8 slots" and dtype == "bfloat16"
+                        and k == 768):
+                    bound, by = _gmm_bound_ms(
+                        m, k, n, e, dtype,
+                        e_read=sum(s > 0 for s in sizes))
+                    lib_name, lib = _gmm_library(torch, "gmm", lhs, rhs,
+                                                 None, gs, want)
+                    timed_row = dict(
+                        ms=_time_ms(torch, lambda: gm.gmm(
+                            lhs, rhs, gs, impl="kernel"), flush),
+                        plain_ms=_time_ms(torch, lambda: gm.gmm(
+                            lhs, rhs, gs, impl="plain"), flush),
+                        library_ms=_time_ms(torch, lib, flush),
+                        library=lib_name, bound_ms=bound, bound_by=by)
+                    line += (f"  kernel {timed_row['ms']:.4f} ms  plain "
+                             f"{timed_row['plain_ms']:.4f} ms  library "
+                             f"{timed_row['library_ms']:.4f} ms "
+                             f"({lib_name})  bound {bound:.4f} ms ({by})")
+                log(line)
+    return timed_row
+
+
+def moe_sorted_decode_leg(torch, ops, gm):
+    """The dropless sorted path at decode (impl="sorted", kernel J for the
+    two expert products of every routed block, prefill and single-token
+    steps alike): J against its plain version at those shapes, then
+    lm_moe at lm_base width in fp32 serves a trace through the slot engine
+    (fake clock, every request queued up front) and its greedy tokens
+    equal `generate`'s, each request alone; J launches 2 x 6 routed
+    blocks x the model's applications and A 12 x its single-token steps.
+    Returns J's launches."""
+    from ddp_practice_tpu_torch.inference import make_generate_fn
+    from ddp_practice_tpu_torch.serve import (
+        EngineConfig, FakeClock, Request, Scheduler, SlotEngine,
+    )
+    from ddp_practice_tpu_torch.serve.bench import build_trace
+
+    log("moe sorted decode: J against gmm_plain at the decode and prefill "
+        "shapes (8 experts):")
+    timed = _j_decode_shapes(torch, gm)
+
+    model = _moe_serving_model(torch, precision="fp32", impl="sorted",
+                               seed=3)
+    routed = sum(b.use_moe for b in model.blocks)
+    trace = build_trace(n_requests=6, rate_hz=8.0, vocab=256,
+                        prompt_len_range=(4, 60), max_new_range=(8, 24),
+                        seed=3)
+    cfg = EngineConfig(max_slots=4, max_len=512, prompt_buckets=(16, 64),
+                       decode_burst=4)
+    apps, handle = _count_applications(model)
+    ops.reset_launches()
+    gm.reset_launches()
+    t0 = time.monotonic()
+    sched = Scheduler(SlotEngine(model, cfg), clock=FakeClock(),
+                      max_queue=64)
+    for t in trace:
+        sched.submit(Request(rid=t["rid"], prompt=t["prompt"],
+                             max_new_tokens=t["max_new_tokens"]))
+    served = {c.rid: list(c.tokens) for c in sched.run_until_idle()}
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    handle.remove()
+    j = gm.LAUNCHES["gmm"]
+    got = {k: v for k, v in {**ops.LAUNCHES, **gm.LAUNCHES}.items() if v}
+    generated = {}
+    for t in trace:
+        gen = make_generate_fn(model, max_new_tokens=t["max_new_tokens"],
+                               temperature=0.0)
+        out = gen(torch.tensor([t["prompt"]]))[0].tolist()
+        generated[t["rid"]] = out[len(t["prompt"]):]
+    if generated != served:
+        diff = [r for r in served if generated.get(r) != served[r]]
+        raise AssertionError(f"moe sorted decode: the slot engine's greedy "
+                             f"tokens differ from generate's: rids {diff}")
+    want = {"gmm": 2 * routed * (apps["step"] + apps["prefill"]),
+            "decode_attention": model.depth * apps["step"]}
+    if got != want:
+        raise AssertionError(f"moe sorted decode: launches {got}, want "
+                             f"{want} ({apps})")
+    n = sum(len(v) for v in served.values())
+    log(f"moe sorted decode (fp32, lm_base width): slot engine {len(trace)} "
+        f"requests, {n} tokens in {wall:.1f} s; greedy tokens equal "
+        f"generate's, one request at a time; launches {got} = 2 x {routed} "
+        f"routed blocks x {apps['step'] + apps['prefill']} applications "
+        f"and {model.depth} x {apps['step']} steps [{CARD}]")
+    del model
+    torch.cuda.empty_cache()
+    return j, timed
+
+
+def moe_expert_choice_leg(torch, ops):
+    """Expert choice at decode (per-token top-k over the gates, capacity t,
+    raw gates): lm_moe at lm_base width in fp32 generates greedily for
+    four left-padded prompts (finite logits, the prompt copied through,
+    kernel A depth x steps); each prompt alone through `generate` and all
+    four through the slot engine give the same tokens (nothing drops)."""
+    from ddp_practice_tpu_torch.inference import (
+        make_generate_fn, pad_left_prompts,
+    )
+    from ddp_practice_tpu_torch.serve import (
+        EngineConfig, FakeClock, Request, Scheduler, SlotEngine,
+    )
+
+    import numpy as np
+
+    model = _moe_serving_model(torch, precision="fp32",
+                               router="expert_choice", seed=4)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, 256, n).tolist() for n in (5, 17, 40, 9)]
+    new = 24
+    tokens, lens = pad_left_prompts(prompts)
+    ops.reset_launches()
+    t0 = time.monotonic()
+    out = make_generate_fn(model, max_new_tokens=new, temperature=0.0)(
+        tokens, prompt_lens=lens)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+    if tuple(out.shape) != (4, tokens.shape[1] + new):
+        raise AssertionError(f"expert choice generate: shape "
+                             f"{tuple(out.shape)}")
+    if not (out[:, :tokens.shape[1]].cpu() == tokens).all():
+        raise AssertionError("expert choice generate: prompt not copied")
+    alone = {}
+    for i, p in enumerate(prompts):
+        one = make_generate_fn(model, max_new_tokens=new, temperature=0.0)(
+            torch.tensor([p]))
+        alone[i] = one[0, len(p):].tolist()
+    sched = Scheduler(SlotEngine(model, EngineConfig(
+        max_slots=4, max_len=512, prompt_buckets=(16, 64),
+        decode_burst=4)), clock=FakeClock(), max_queue=8)
+    for i, p in enumerate(prompts):
+        sched.submit(Request(rid=i, prompt=p, max_new_tokens=new))
+    served = {c.rid: list(c.tokens) for c in sched.run_until_idle()}
+    batched = {i: out[i, tokens.shape[1]:].tolist() for i in range(4)}
+    if served != alone or batched != alone:
+        raise AssertionError(
+            f"expert choice: tokens differ: engine {served != alone}, "
+            f"left-padded batch {batched != alone}")
+    if launches != {"decode_attention": model.depth * new}:
+        raise AssertionError(f"expert choice generate: launches {launches}")
+    log(f"moe expert choice generate (fp32, lm_base width, cf 1.0): 4 "
+        f"left-padded prompts x {new} greedy tokens in {wall:.2f} s, "
+        f"launches {launches}; each prompt alone, the batch and the slot "
+        f"engine give the same tokens")
+    del model
+    torch.cuda.empty_cache()
+
+
+def moe_checkpoint_leg(torch, ops):
+    """lm_moe at the registry's widths trains 6 steps through the CLI
+    (MOE_CKPT_ARGS: token choice, its router biases moved by every step)
+    with a checkpoint at the end; `load_lm` restores the biases, fp32,
+    non-zero and equal to the trained ones; generate.py greedy and
+    serve/bench.py `--ckpt_dir` (4 prompts, slot engine) complete from
+    it. Its 8 heads of 32 do not pack, so its single-token steps take
+    the plain masked path (as the reference's), and no decode kernel
+    launches."""
+    import contextlib
+    import io
+
+    import ddp_practice_tpu_torch.generate as generate
+    from ddp_practice_tpu_torch import checkpoint as ckpt
+    from ddp_practice_tpu_torch.ops.moe import moe_layers
+    from ddp_practice_tpu_torch.serve import bench
+
+    d = "build/smoke_ckpt/lm_moe"
+    shutil.rmtree(d, ignore_errors=True)
+    trainer = _cli_trainer(MOE_CKPT_ARGS + ["--ckpt_dir", d])
+    t0 = time.monotonic()
+    summary = trainer.fit()
+    torch.cuda.synchronize()
+    trained = [m.router_bias.detach().cpu().clone()
+               for m in moe_layers(trainer.model)]
+    log(f"moe checkpoint leg: lm_moe (registry widths) rope bf16 trained "
+        f"{summary['steps']} steps in {time.monotonic() - t0:.1f} s, "
+        f"checkpoints at {ckpt.all_steps(d)}, moe_drop_rate "
+        f"{summary.get('moe_drop_rate', float('nan')):.4f}")
+    del trainer
+    torch.cuda.empty_cache()
+    model, step = generate.load_lm(d)
+    restored = [m.router_bias.detach().cpu() for m in moe_layers(model)]
+    if (len(restored) != len(trained) or any(
+            r.dtype != torch.float32 or not torch.equal(r, t)
+            for r, t in zip(restored, trained))):
+        raise AssertionError("moe checkpoint: restored router biases differ "
+                             "from the trained ones")
+    if not all(bool(r.abs().max() > 0) for r in restored):
+        raise AssertionError("moe checkpoint: a router bias is all zero")
+    del model
+    torch.cuda.empty_cache()
+    ops.reset_launches()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        generate.main(["--ckpt_dir", d, "--prompt", "__global__ void",
+                       "--max_new_tokens", "32", "--temperature", "0"])
+    prompts = ["__global__ void", "int ", "#include <", "template <int D>"]
+    completions, elapsed, _ = bench.serve_checkpoint(
+        d, prompts, max_new_tokens=32, max_slots=4, decode_burst=1)
+    torch.cuda.synchronize()
+    statuses = [c.status for c in completions]
+    if len(completions) != len(prompts) or set(statuses) - {"length",
+                                                             "eos"}:
+        raise AssertionError(f"moe serve --ckpt_dir: statuses {statuses}")
+    launched = {k: v for k, v in ops.LAUNCHES.items() if v}
+    if launched:
+        raise AssertionError(f"moe checkpoint: launches {launched} at "
+                             f"head_dim 32")
+    log(f"moe checkpoint (step {step}): router biases restored (fp32, "
+        f"|b| max {max(float(r.abs().max()) for r in restored):.3f}, equal "
+        f"to the trained ones); generate greedy "
+        f"{out.getvalue().strip()[:40]!r}; serve --ckpt_dir {len(prompts)} "
+        f"requests all complete ({statuses}) in {elapsed:.2f} s")
+    shutil.rmtree(d, ignore_errors=True)
+
+
+# ------------------------------------------------------ the bench (A9a)
+# the keys the phase reads: tests/test_torch_benchmarks.py holds every key
+# against the reference's report
+BENCH_HEADLINE = {
+    "train": ("images_per_sec", "ms_per_step", "mfu_pct",
+              "window_spread_pct"),
+    "decode": ("tokens_per_sec", "ms_per_token_step", "mbu_pct",
+               "mbu_total_pct"),
+}
+# the suite's lm_decode at a quarter of its new tokens: the suite itself
+# (python -m ddp_practice_tpu_torch.benchmarks) times the full entry
+BENCH_DECODE_TOKENS = 128
+
+
+def bench_phase(torch, ops):
+    """benchmarks.py's entries at calls=2: convnet (bench_train, the
+    suite's configuration), lm_decode (lm_base) and lm_decode on lm_moe
+    at lm_base width, both at BENCH_DECODE_TOKENS new tokens. Each report
+    has its headline keys and finite numbers; the convnet report has its
+    two windows' spread."""
+    from ddp_practice_tpu_torch import benchmarks as bm
+
+    decode = {k: v for k, v in bm._SUITE["lm_decode"].items()
+              if k != "kind"}
+    decode.update(calls=2, max_new_tokens=BENCH_DECODE_TOKENS)
+    moe_kw = {k: v for k, v in MOE.items()
+              if k not in ("moe_group_size", "capacity_factor")}
+    runs = (
+        ("convnet", "train",
+         lambda: bm.run_entry("convnet", {**bm._SUITE["convnet"],
+                                          "calls": 2})),
+        ("lm_decode", "decode",
+         lambda: bm.bench_lm_decode("lm_base", **decode)),
+        ("lm_decode[lm_moe]", "decode",
+         lambda: bm.bench_lm_decode("lm_moe", **decode,
+                                    model_kwargs=moe_kw)),
+    )
+    reports = {}
+    for label, kind, run in runs:
+        ops.reset_launches()
+        t0 = time.monotonic()
+        r = run()
+        wall = time.monotonic() - t0
+        missing = [k for k in BENCH_HEADLINE[kind] if k not in r]
+        if missing:
+            raise AssertionError(f"bench {label}: no {missing} in {sorted(r)}")
+        bad = [k for k, v in r.items() if isinstance(v, (int, float))
+               and not isinstance(v, bool) and not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"bench {label}: non-finite {bad}")
+        launched = {k: v for k, v in ops.LAUNCHES.items() if v}
+        log(f"bench {label} ({wall:.1f} s, decode launches {launched}) "
+            f"[{CARD}]: {json.dumps(r)}")
+        reports[label] = r
+    return reports
+
+
 def build_loader() -> None:
     """Build (or load) the native batch gather from
     csrc/dataloader.cpp into build/; raises if it cannot."""
@@ -3364,6 +3793,17 @@ def main() -> int:
                 log(f"  ptxas[{name}]: {line.strip()}")
     kernel_resources(cuda_build, fa, gm, fe)
     build_loader()
+
+    # the MoE decode legs and the bench's decode entries are host-bound:
+    # they run before any torch.profiler trace, which leaves host time on
+    # every later launch in the process (experiments/convnet_step.py)
+    _, moe_launches = moe_serve_phase(torch, ops)
+    moe_j, _ = moe_sorted_decode_leg(torch, ops, gm)
+    moe_expert_choice_leg(torch, ops)
+    moe_checkpoint_leg(torch, ops)
+    log(f"MoE decode paths' launches: serve {moe_launches}, sorted decode "
+        f"J {moe_j}")
+    bench_phase(torch, ops)
 
     # the ConvNet's eager steps first: a finished torch.profiler trace
     # adds host time to every later launch in the process
@@ -3521,11 +3961,14 @@ def main() -> int:
     gen_launches = generate_serve_leg(torch, ops)
     log(f"kernels A and B on the checkpoint's generate path: {gen_launches}")
 
+
     # each kernel's launches on its main path's run
     launches = {
-        "decode_attention": serve_launches["decode_attention"],
+        "decode_attention": serve_launches["decode_attention"]
+        + moe_launches["decode_attention"],
         "decode_attention_int8": int8_launches["decode_attention_int8"],
-        "paged_decode_attention": serve_launches["paged_decode_attention"],
+        "paged_decode_attention": serve_launches["paged_decode_attention"]
+        + moe_launches["paged_decode_attention"],
         "paged_decode_attention_int8":
             prefix8_launches["paged_decode_attention_int8"],
         "flash_fwd_packed": train["launches"]["flash_fwd_packed"],
@@ -3535,6 +3978,7 @@ def main() -> int:
         "fused_encoder_fwd": vit["launches"]["fused_encoder_fwd"],
         "fused_encoder_bwd": vit["launches"]["fused_encoder_bwd"],
         **{name: moe_sorted["launches"][name] for name in GMM_REPLACES},
+        "gmm": moe_sorted["launches"]["gmm"] + moe_j,
         **{name: row["launches"] for name, row in variant_rows.items()},
     }
     idle = [name for name, n in launches.items() if n <= 0]

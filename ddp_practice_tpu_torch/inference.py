@@ -33,7 +33,13 @@ def cast_params_for_streaming(model: torch.nn.Module) -> torch.nn.Module:
     policy the cast changes no number: every layer casts its weights to
     the compute dtype before use. LayerNorm parameters are left fp32:
     LayerNorm reads them in fp32. Under an fp32 policy the cast would
-    round the weights, and nothing applies it there."""
+    round the weights, and nothing applies it there.
+
+    An MoE router's weight is a parameter like any other, so it is cast
+    too, as the reference's cast casts every fp32 leaf: the router still
+    computes its logits in fp32, from bf16-rounded weights, in both
+    packages. Buffers are not parameters: the router bias
+    (`router_bias`, the reference's `batch_stats` leaf) stays fp32."""
     for module in model.modules():
         if isinstance(module, torch.nn.LayerNorm):
             continue
@@ -57,7 +63,12 @@ def decode_apply(model: TransformerLM, cache: dict, tokens: torch.Tensor,
     """One decode-mode model application: `(cache, logits)`. The cache is
     updated in place and returned for symmetry with the reference. With
     `page_table` and `kv_lengths` the cache is a paged block pool
-    (serve/kv_pages.py) and each row writes at its own position."""
+    (serve/kv_pages.py) and each row writes at its own position.
+
+    The reference's `batch_stats` argument has no counterpart: an MoE
+    model's router biases are its `router_bias` buffers, restored with
+    the checkpoint (generate.load_lm) or converted with the params
+    (convert.load_flax_params), so every apply routes with them."""
     logits = model(tokens, cache=cache, attn_start=attn_start,
                    page_table=page_table, kv_lengths=kv_lengths)
     return cache, logits

@@ -25,10 +25,11 @@ MoE (`moe_every` > 0, the reference's GShard layout): every
 `capacity_factor`, `moe_aux_weight`, `moe_bias_rate`, `moe_group_size`,
 `moe_group_stride` and `moe_router` fields); routed blocks never fuse.
 `train=True` lets them record their aux loss and router-bias update for
-the training step (train/steps.py).
+the training step (train/steps.py). Decode (flat cache, paged steps and
+paged prefill) runs through them too: they route with their current
+`router_bias` buffers and record nothing (ops/moe.py `decode`).
 
-Not ported yet: sequence parallelism (`seq_axis`, ROADMAP A8) and decode
-through routed blocks (serving an MoE model, A10); each raises.
+Not ported yet: sequence parallelism (`seq_axis`, ROADMAP A8); it raises.
 """
 
 from __future__ import annotations
@@ -148,10 +149,6 @@ class TransformerLM(nn.Module):
         its table row, and attn_start is slot-local. s == 1 is the decode
         step; s > 1 the paged prefill (models/vit.py `_paged_decode`)."""
         decode = cache is not None
-        if decode and self.moe_every:
-            raise NotImplementedError(
-                "decoding through routed (MoE) blocks is not ported yet "
-                "(ROADMAP A10: MoE decode and serving)")
         if page_table is not None and self.pos_emb != "rope":
             raise ValueError(
                 "paged decode needs pos_emb='rope' — per-slot positions "

@@ -302,9 +302,11 @@ class SelfAttention(nn.Module):
         ks = cache.get("cached_key_scale") if quant else None
         vs = cache.get("cached_value_scale") if quant else None
         if s == 1 and _heads_per_pack(h, hd) is not None:
-            # token step: the packed kernel on the flat cache, O(cur) reads
+            # token step: the packed kernel on the flat cache, O(cur) reads;
+            # without RoPE q is a strided slice of the fused projection
+            # (b > 1), and the kernel reads contiguous rows
             out = decode_attention_packed(
-                q.reshape(b, 1, h * hd), kc, vc, cur, attn_start,
+                q.reshape(b, 1, h * hd).contiguous(), kc, vc, cur, attn_start,
                 n_heads=h, k_scale=ks, v_scale=vs, impl=self.decode_impl,
             )
             return out.reshape(b, 1, h, hd)
@@ -471,7 +473,7 @@ class EncoderBlock(nn.Module):
                       page_table=page_table, kv_lengths=kv_lengths)
         x = x + dropout(y, self.dropout_rate, subkey(dropout_key, 0))
         if self.use_moe:
-            y = self.moe(self.ln2(x), train=train)
+            y = self.moe(self.ln2(x), train=train, decode=decode)
             return x + dropout(y, self.dropout_rate, subkey(dropout_key, 1))
         return x + self.mlp(self.ln2(x),
                             dropout_key=subkey(dropout_key, 1))

@@ -42,8 +42,26 @@ What the reference does through Flax collections, the port does so:
   gradient through unchanged: every rank holds the same global value, and
   DDP's mean over the ranks' grads then gives the grad of the global aux
   loss. Replicas keep identical router biases.
-- Decode through a routed block (the reference's `decode` branch of the
-  einsum path) is not ported: models/lm.py raises naming ROADMAP A10.
+- Decode (`decode=True`, the KV-cache prefill and single-token steps of
+  inference.py and the serving engines) routes with the current bias and
+  records nothing, as the reference's decode apply (its "batch_stats" and
+  "intermediates" are not mutable there). Token choice routes as in eval:
+  capacity max(1, int(cf * k * t / E)) per routing group, so a prefill's
+  (left-padding) tokens compete for it, while a single-token step (t = 1,
+  capacity 1, k distinct experts) never drops. Expert choice has no
+  serving story of its own (at t = 1 every expert would pick the lone
+  token), so its decode is the reference's approximation: per-token top-k
+  over the gates with capacity t (nothing drops), combined with the raw
+  softmax gates at the picked experts, not the renormalised ones. The
+  gather and sorted paths decode exactly as they train (the reference
+  returns them before it looks at `decode`): gather with the einsum path's
+  capacity and drops, sorted dropless.
+- The router bias is the `router_bias` buffer (the reference's
+  `batch_stats` leaf): a model whose buffers were loaded from a checkpoint
+  or from converted `batch_stats` (convert.load_flax_params) routes as
+  the reference does when it is given those `batch_stats`; a buffer left
+  at its zero init routes as the reference does without them (softmax of
+  logits + 0 equals the gates).
 """
 
 from __future__ import annotations
@@ -393,8 +411,8 @@ class MoEMlp(nn.Module):
         self.sown: Optional[dict] = None
         self.pending_bias: Optional[torch.Tensor] = None
 
-    def forward(self, x: torch.Tensor, *, train: bool = False
-                ) -> torch.Tensor:                           # (G, T, D)
+    def forward(self, x: torch.Tensor, *, train: bool = False,
+                decode: bool = False) -> torch.Tensor:       # (G, T, D)
         impl = self.impl
         if impl == "auto":
             impl = "einsum"
@@ -409,11 +427,13 @@ class MoEMlp(nn.Module):
                 "expert_choice routing runs on the einsum path (its "
                 "dispatch is already dense and padding-free); pass "
                 "impl='auto'/'einsum'")
+        # decode records nothing and moves no bias
+        train = train and not decode
         if impl == "sorted":
             return self._sorted(x, train)
         if impl == "gather":
             return self._gather(x, train)
-        return self._einsum(x, train)
+        return self._einsum(x, train, decode)
 
     # -- shared pieces ---------------------------------------------------
     def commit_bias(self) -> None:
@@ -481,7 +501,8 @@ class MoEMlp(nn.Module):
                 self.expert_w_out.to(cd), self.expert_b_out.to(cd))
 
     # -- the three paths -------------------------------------------------
-    def _einsum(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+    def _einsum(self, x: torch.Tensor, train: bool,
+                decode: bool) -> torch.Tensor:
         g0, t0, _ = x.shape
         self._warn_oversized_group(t0, train)
         x, n_sub = self._group(x)
@@ -489,12 +510,17 @@ class MoEMlp(nn.Module):
         k = self.top_k
         capacity = self._capacity(t)
         logits = self._logits(x)                             # (G, T, E)
-        if self.router_kind == "expert_choice":
+        if self.router_kind == "expert_choice" and not decode:
             # capacity clamps to the group's token count; no aux loss and
             # no bias, and the coverage stands in for the drop rate
             dispatch, combine, uncovered = expert_choice_gating(
                 logits, capacity=min(capacity, t))
             aux = torch.zeros((), device=x.device)
+        elif self.router_kind == "expert_choice":
+            # decode: per-token top-k with capacity t (nothing drops),
+            # combined with the raw gates at the picked experts
+            dispatch = top_k_gating(logits, k=k, capacity=t)[0]
+            combine = dispatch * torch.softmax(logits, dim=-1)[..., None]
         else:
             dispatch, combine, aux, demand = top_k_gating(
                 logits, k=k, capacity=capacity,

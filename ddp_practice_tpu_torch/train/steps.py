@@ -387,14 +387,17 @@ def _lm_window_gather(tokens: torch.Tensor, starts: torch.Tensor,
 
 def make_resident_lm_train_step(model: nn.Module, *, window: int,
                                 label_smoothing: float = 0.0, seed: int = 0,
+                                with_accuracy: bool = True,
                                 forward: Optional[nn.Module] = None):
     """(state, data, starts) -> (state, the last step's metrics): the LM
     counterpart of `make_resident_train_step`. data = {"tokens": the 1-D
     int token stream on the device}; `starts` a (G, B) grid of window
     starts (LMDataLoader.epoch_plan), each step gathering its (B, seq + 1)
-    windows on the device."""
+    windows on the device. `with_accuracy=False` leaves out the accuracy
+    metric's argmax over the logits (the bench's loss-only steps)."""
     run = _train_rows("resident lm train", model, make_lm_train_step(
-        model, label_smoothing=label_smoothing, seed=seed, forward=forward))
+        model, label_smoothing=label_smoothing, seed=seed,
+        with_accuracy=with_accuracy, forward=forward))
     return _with_graph(lambda state, data, starts: run(
         state, {"starts": starts}, lambda row: {"tokens": _lm_window_gather(
             data["tokens"], row["starts"], window)},

@@ -229,14 +229,15 @@ TRAIN_SLICE = ["data/sharding.py", "data/lm_corpus.py", "data/datasets.py",
                "ops/batchnorm.py", "checkpoint/__init__.py",
                "data/ingest.py", "generate.py", "serve/bench.py",
                "experiments/convnet_step.py", "models/resnet.py",
-               "ops/augment.py", "data/native_loader.py", "convert.py"]
+               "ops/augment.py", "data/native_loader.py", "convert.py",
+               "benchmarks.py"]
 STDLIB = ("__future__", "typing", "argparse", "collections", "contextlib",
           "ctypes", "dataclasses", "fcntl", "gzip", "hashlib", "json",
           "logging", "math", "os", "pathlib", "pickle", "platform", "re",
           "shutil",
           "socket", "statistics", "struct", "subprocess", "sys", "tarfile",
-          "tempfile", "threading", "time", "urllib.request", "uuid",
-          "warnings")
+          "tempfile", "threading", "time", "traceback", "urllib.request",
+          "uuid", "warnings")
 
 
 @pytest.mark.parametrize("module", TRAIN_SLICE)
@@ -252,6 +253,7 @@ def test_train_slice_modules_stand_alone(module):
 def test_entry_points_refuse_a_missing_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the refusal path is not reachable")
+    from ddp_practice_tpu_torch import benchmarks
     from ddp_practice_tpu_torch.config import resolve_device
     from ddp_practice_tpu_torch.models import create_model
     from ddp_practice_tpu_torch.serve import bench
@@ -271,6 +273,11 @@ def test_entry_points_refuse_a_missing_card():
                   ["--spec-decode"]):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             bench.main(["--requests", "1", *flags])
+    for entry in (benchmarks.bench_train, benchmarks.bench_lm_train,
+                  benchmarks.bench_lm_decode):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            entry("lm_tiny" if entry is not benchmarks.bench_train
+                  else "convnet")
 
 
 def test_chip_smoke_fails_without_card_or_repo(tmp_path):

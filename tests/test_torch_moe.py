@@ -313,8 +313,12 @@ def test_lm_moe_registry_and_decode_refusal():
     assert tuple(w_in.shape) == (8, 256, 1024)
     assert abs(float(w_in.detach().std()) - 256 ** -0.5) < 2e-3
     assert not tm.blocks[1].moe.expert_b_in.any()
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        tm(torch.zeros(1, 1, dtype=torch.long), cache=tm.init_cache(1, 8))
+    # decode runs through the routed blocks (ROADMAP A10): a one-token
+    # step from an empty cache is the one-token forward
+    token = torch.tensor([[5]])
+    step = tm(token, cache=tm.init_cache(1, 8))
+    assert tuple(step.shape) == (1, 1, 64) and torch.isfinite(step).all()
+    torch.testing.assert_close(step, tm(token), rtol=2e-5, atol=2e-5)
     vit = create_model("vit_tiny_moe", device="cpu", depth=2)
     assert [b.use_moe for b in vit.blocks] == [False, True]
     assert vit.blocks[0].fused is False
