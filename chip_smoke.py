@@ -256,6 +256,20 @@ later launch in the process.
    each at calls=2: the headline keys, finite numbers, the convnet
    entry's window_spread_pct (the CPU tests hold every key against the
    reference's).
+28. parallel (ROADMAP A8a; run right after setup): lm_base at full width
+   (d 768, 12 heads, mlp 3072, depth 12, s 2048, fp32, flash, SGD with
+   momentum and clipping, one seed's weights) through the CLI's Trainer,
+   the ranks as threads of this process on the one card
+   (parallel/threads.py: several ranks cannot share a card over NCCL):
+   three steps of global batch 4 on one rank, then under tensor 2, FSDP
+   over data 2 and tensor 2 x FSDP data 2, each held to the one-rank run
+   (loss rtol 2e-4, every parameter rtol 1e-3 / atol 1e-5, the
+   reference's TP tolerances) with E/F/G's launches per rank per step
+   (12 forward and 12 backward on the packed route: 6 heads a rank at
+   tensor 2); then greedy generation of 32 tokens at tensor 2 against
+   the one-rank generate (tokens identical, kernel A 12 launches per
+   token per rank). Step times there are of ranks sharing one card, not
+   a speed. The phase prints its wall time.
 
 Launch counts are zeroed just before each phase's run and read just
 after it; a train leg's count is its wrappers' (eager calls) plus its
@@ -2661,6 +2675,166 @@ def moe_cross_check(torch, gm):
 
 
 # ------------------------------------------------------ ConvNet / MNIST
+PAR_ARGS = ["--model", "lm_base", "--attn_impl", "flash", "--precision",
+            "fp32", "--optimizer", "sgd", "--lr", "1e-2", "--momentum",
+            "0.9", "--clip_norm", "1.0", "--seq_len", "2048", "-e", "1",
+            "--max_steps", "3", "--data_placement", "host", "--log_every",
+            "0"]
+PAR_LOSS_RTOL, PAR_RTOL, PAR_ATOL = 2e-4, 1e-3, 1e-5
+PAR_LEGS = [("tensor 2", ["--tensor", "2", "-b", "4"], 2),
+            ("fsdp over data 2", ["--fsdp", "-b", "2"], 2),
+            ("tensor 2 x fsdp data 2", ["--tensor", "2", "--fsdp", "-b",
+                                        "2"], 4)]
+PAR_NEW_TOKENS = 32
+
+
+def _par_epoch(torch, trainer, fa, world):
+    """One epoch of the trainer (its `max_steps` steps), each step's loss
+    and, read on rank 0 between barriers, the flash kernels' launches per
+    rank (the counts are the process's: the step's delta over the world)
+    and its wall time."""
+    import torch.distributed as tdist
+
+    step = trainer.train_step
+    losses, per_step, times = [], [], []
+
+    def barrier():
+        if world > 1:
+            tdist.barrier()
+
+    def recorded(state, batch):
+        barrier()
+        before, t0 = dict(fa.LAUNCHES), time.monotonic()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        barrier()
+        if world == 1 or tdist.get_rank() == 0:
+            times.append((time.monotonic() - t0) * 1e3)
+            per_step.append({k: (v - before[k]) / world
+                             for k, v in fa.LAUNCHES.items()
+                             if v != before[k]})
+        barrier()
+        return state, metrics
+
+    trainer.train_step = recorded
+    trainer.train_epoch(0)
+    trainer.train_step = step
+    return losses, per_step, times
+
+
+def parallel_phase(torch, fa, ops) -> dict:
+    """ROADMAP A8a on one card (the docstring's phase 28): lm_base's
+    sharded training legs against the one-rank run, and the sharded
+    generate against the one-rank generate."""
+    from ddp_practice_tpu_torch.config import MeshConfig
+    from ddp_practice_tpu_torch.inference import make_generate_fn
+    from ddp_practice_tpu_torch.models import create_model
+    from ddp_practice_tpu_torch.parallel.mesh import (
+        build_mesh,
+        full_parameters,
+        shard_state,
+    )
+    from ddp_practice_tpu_torch.parallel.sharding_rules import (
+        param_sharding_rules,
+    )
+    from ddp_practice_tpu_torch.parallel.threads import run_ranks
+
+    t_phase = time.monotonic()
+    ref = _cli_trainer(PAR_ARGS + ["-b", "4"])
+    depth = ref.model.depth
+    want_losses, _, ref_ms = _par_epoch(torch, ref, fa, 1)
+    want = {n: p.detach().clone() for n, p in ref.model.named_parameters()}
+    del ref
+    torch.cuda.empty_cache()
+    log(f"parallel[one rank] lm_base fp32 sgd, seq 2048, global batch 4, "
+        f"3 steps: losses {', '.join(f'{x:.6f}' for x in want_losses)}; "
+        f"step ms {', '.join(f'{x:.1f}' for x in ref_ms)} [{CARD}]")
+    report = {"launches": {}}
+    for label, argv, world in PAR_LEGS:
+        _reset_launches(fa)
+
+        def rank(r, argv=argv, world=world):
+            trainer = _cli_trainer(PAR_ARGS + argv)
+            run = _par_epoch(torch, trainer, fa, world)
+            return run, full_parameters(trainer.model)
+
+        t0 = time.monotonic()
+        res = run_ranks(rank, world, timeout=600)
+        wall = time.monotonic() - t0
+        (losses, per_step, times), got = res[0]
+        for (other, _, _), _ in res[1:]:
+            if other != losses:
+                raise AssertionError(f"parallel[{label}]: ranks disagree "
+                                     f"on the loss: {other} vs {losses}")
+        loss_err = max(abs(a - b) / abs(b) for a, b in
+                       zip(losses, want_losses))
+        worst, worst_name = 0.0, None
+        for name, w in want.items():
+            excess = float(((got[name] - w).abs() - PAR_RTOL * w.abs())
+                           .max())
+            if excess > worst:
+                worst, worst_name = excess, name
+        log(f"parallel[{label}] {world} ranks as threads sharing one card: "
+            f"losses {', '.join(f'{x:.6f}' for x in losses)} (worst "
+            f"relative difference {loss_err:.2e}, limit {PAR_LOSS_RTOL}); "
+            f"parameters' worst |err| - rtol |want| {worst:.2e} (limit "
+            f"{PAR_ATOL}{', at ' + worst_name if worst_name else ''}); "
+            f"launches per rank per step {per_step}; step ms (ranks "
+            f"sharing one card, not a speed) "
+            f"{', '.join(f'{x:.1f}' for x in times)}; wall {wall:.1f} s "
+            f"[{CARD}]")
+        if loss_err > PAR_LOSS_RTOL or worst > PAR_ATOL:
+            raise AssertionError(f"parallel[{label}]: off the one-rank run")
+        want_step = {"flash_fwd_packed": depth, "flash_bwd_packed": depth}
+        if any(s != want_step for s in per_step) or len(per_step) != 3:
+            raise AssertionError(f"parallel[{label}]: launches per rank "
+                                 f"per step {per_step}, want {want_step}")
+        report["launches"][label] = _launches(fa.LAUNCHES)
+        del res, got
+        torch.cuda.empty_cache()
+
+    prompt = torch.randint(0, 256, (2, 16),
+                           generator=torch.Generator().manual_seed(1))
+
+    def lm_base():
+        return create_model("lm_base", device="cuda", seed=2,
+                            vocab_size=256, max_len=2048)
+
+    one = lm_base()
+    expected = make_generate_fn(one, max_new_tokens=PAR_NEW_TOKENS,
+                                temperature=0.0)(prompt).cpu()
+    del one
+
+    def gen_rank(r):
+        model = lm_base()
+        shard_state(model, build_mesh(MeshConfig(tensor=2), "cuda"),
+                    param_sharding_rules("lm_base"), "lm_base")
+        return make_generate_fn(model, max_new_tokens=PAR_NEW_TOKENS,
+                                temperature=0.0)(prompt).cpu()
+
+    _reset_launches(ops)
+    t0 = time.monotonic()
+    tokens = run_ranks(gen_rank, 2, timeout=600)
+    wall = time.monotonic() - t0
+    gen_launches = _launches(ops.LAUNCHES)
+    # two ranks, each a decode step a new token
+    per_token = gen_launches["decode_attention"] / (2 * PAR_NEW_TOKENS)
+    same = all(torch.equal(t, expected) for t in tokens)
+    log(f"parallel[generate, tensor 2] lm_base fp32 greedy, 2 prompts of "
+        f"16, {PAR_NEW_TOKENS} new tokens: tokens identical to one rank's "
+        f"{same}; kernel A {gen_launches['decode_attention']} launches = "
+        f"{per_token:.0f} per token per rank (6 heads a rank, packed); "
+        f"wall {wall:.1f} s [{CARD}]")
+    if not same or per_token != depth:
+        raise AssertionError("parallel[generate]: tokens or launches off")
+    report["generate_launches"] = gen_launches
+    report["wall_s"] = time.monotonic() - t_phase
+    log(f"parallel phase wall {report['wall_s']:.1f} s")
+    torch.cuda.empty_cache()
+    return report
+
+
 def _cli_trainer(argv):
     """A Trainer from the CLI's parser and config, as `cli.main` builds it."""
     from ddp_practice_tpu_torch.cli import build_parser, config_from_args
@@ -3794,6 +3968,10 @@ def main() -> int:
     kernel_resources(cuda_build, fa, gm, fe)
     build_loader()
 
+    # ROADMAP A8a: the sharded legs first, before any trace (their steps
+    # are eager and their ranks threads of this process)
+    par = parallel_phase(torch, fa, ops)
+
     # the MoE decode legs and the bench's decode entries are host-bound:
     # they run before any torch.profiler trace, which leaves host time on
     # every later launch in the process (experiments/convnet_step.py)
@@ -3960,6 +4138,8 @@ def main() -> int:
 
     gen_launches = generate_serve_leg(torch, ops)
     log(f"kernels A and B on the checkpoint's generate path: {gen_launches}")
+    log(f"the parallel phase's launches (all ranks): training "
+        f"{par['launches']}, generate {par['generate_launches']}")
 
 
     # each kernel's launches on its main path's run

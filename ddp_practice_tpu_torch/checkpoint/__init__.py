@@ -37,9 +37,18 @@ Directory protocol, the reference's:
   window).
 
 Every process calls `save` (the barrier is collective); process 0 alone
-writes, the rank-0 gate of the reference's DDP script. The port's state
-is dense on every rank (DDP replicas), so there is no shard to write
-before the sharded-checkpoint write path arrives (ROADMAP A8).
+writes, the rank-0 gate of the reference's DDP script, while the state is
+dense on every rank (DDP replicas). A model laid out over ranks
+(parallel/mesh.py: tensor parallelism, FSDP) saves by the reference's
+multi-process protocol: each rank writes its regions of the cut leaves
+(its parameters' and their optimizer state's; replica 0 of each region
+only) to `shards.<rank>.npz` with a `shards.<rank>.json` index of global
+slices, and rank 0 writes the dense leaves and the manifest, listing
+`sharded_leaves`, last, between barriers (`_save_sharded`). Names and
+global shapes are a single-rank save's, so one process restores it
+(`_assemble_shards`) and a sharded target restores its own regions of any
+checkpoint, reading only the shard arrays that meet them
+(`_ShardedLeaf`).
 `save_async` copies the tensors to host memory before it returns, then
 serialises and publishes on a thread; it is single-process only, and a
 save to a directory with an async write still in flight is refused.
@@ -177,8 +186,8 @@ def state_leaves(state) -> Dict[str, torch.Tensor]:
     out["optimizer.applies"] = torch.tensor(opt.applies, dtype=torch.int64)
     out["optimizer.micro"] = torch.tensor(opt.micro, dtype=torch.int64)
     names = _param_names(state)
-    for p in opt.params:
-        for key, value in opt.inner.state.get(p, {}).items():
+    for p, q in zip(opt.params, opt.inner_params):
+        for key, value in opt.inner.state.get(q, {}).items():
             if isinstance(value, torch.Tensor):
                 out[f"optimizer.state.{names[id(p)]}.{key}"] = value
     if opt.acc is not None:
@@ -205,12 +214,14 @@ def _gather(state):
     return arrays, names
 
 
-def _serialize_into(tmp, arrays, names, extra) -> None:
+def _serialize_into(tmp, arrays, names, extra, sharded_meta=None) -> None:
     """leaves.npz, then manifest.json last: its presence marks the
     checkpoint complete."""
     np.savez(os.path.join(tmp, _LEAVES), **arrays)
     manifest = {"schema_version": _SCHEMA_VERSION, "paths": names,
                 "extra": extra}
+    if sharded_meta:
+        manifest["sharded_leaves"] = sharded_meta
     with open(os.path.join(tmp, _MANIFEST), "w") as f:
         json.dump(manifest, f, indent=2)
 
@@ -264,15 +275,101 @@ def _refuse_overlap(directory: str) -> None:
             "debris sweep of one save may remove another's temp dir)")
 
 
+def _leaf_param(name: str, sharding) -> Optional[str]:
+    """The parameter whose layout a leaf has (the parameter itself, its
+    optimizer state but Adam's step count, its accumulator), or None."""
+    for prefix in ("model.", "optimizer.acc."):
+        if name.startswith(prefix) and name[len(prefix):] in \
+                sharding.layouts:
+            return name[len(prefix):]
+    if name.startswith("optimizer.state."):
+        pname, key = name[len("optimizer.state."):].rsplit(".", 1)
+        if key != "step" and pname in sharding.layouts:
+            return pname
+    return None
+
+
+def _sharded_names(state) -> Dict[str, str]:
+    """{leaf name: its parameter} for the leaves cut over ranks (none
+    without a `model.sharding`, parallel/mesh.py)."""
+    sharding = getattr(state.model, "sharding", None)
+    if sharding is None:
+        return {}
+    out = {}
+    for name in state_leaves(state):
+        pname = _leaf_param(name, sharding)
+        if pname is not None and sharding.sharded_axes(pname):
+            out[name] = pname
+    return out
+
+
+def _save_sharded(directory, state, sharded, extra, step, keep_last):
+    """The reference's multi-process protocol: every rank writes its
+    regions of the cut leaves (replica 0 of each only) to
+    shards.<rank>.npz with a shards.<rank>.json index of global slices,
+    into one shared temp directory; rank 0 then writes the dense leaves
+    and the manifest (with `sharded_leaves`) and publishes, between
+    barriers. Leaf names and global shapes are a single-rank save's."""
+    from ddp_practice_tpu_torch.parallel.mesh import is_replica0, \
+        local_tensor
+
+    sharding = state.model.sharding
+    pid = dist.process_index()
+    tmp = os.path.join(directory, f"tmp.step_{step}.shared")
+    if pid == 0:
+        os.makedirs(directory, exist_ok=True)
+        if os.path.isdir(tmp):
+            # a crashed save's only complete copy may be this: aside,
+            # never deleted before the new one is published
+            os.rename(tmp, f"{tmp}.old.{os.getpid()}")
+        os.makedirs(tmp)
+    tdist.barrier()
+    leaves = state_leaves(state)
+    names = list(leaves)
+    arrays, index, dtypes = {}, [], {}
+    for i, name in enumerate(names):
+        pname = sharded.get(name)
+        if pname is None or not is_replica0(sharding, pname):
+            continue
+        local = _host(local_tensor(leaves[name]))
+        dtypes[i] = str(local.dtype)     # rank 0 holds a region of each
+        for j, (gbox, lbox) in enumerate(sharding.region(pname)):
+            key = f"leaf_{i}_{j}"
+            arrays[key] = np.ascontiguousarray(
+                local[tuple(slice(a, b) for a, b in lbox)])
+            index.append({"leaf": i, "key": key,
+                          "index": [list(b) for b in gbox]})
+    np.savez(os.path.join(tmp, f"shards.{pid}.npz"), **arrays)
+    with open(os.path.join(tmp, f"shards.{pid}.json"), "w") as f:
+        json.dump(index, f)
+    tdist.barrier()
+    if pid == 0:
+        dense = {f"leaf_{i}": _host(leaves[n]) for i, n in enumerate(names)
+                 if n not in sharded}
+        meta = {str(i): {"shape": list(sharding.layouts[sharded[n]].shape),
+                         "dtype": dtypes[i]}
+                for i, n in enumerate(names) if n in sharded}
+        _serialize_into(tmp, dense, names, extra, meta)
+        _publish(directory, tmp, os.path.join(directory, f"step_{step}"),
+                 keep_last)
+    tdist.barrier()
+
+
 def save(directory: str, state, *, extra: Optional[dict] = None,
          step: Optional[int] = None, keep_last: int = 3) -> str:
     """Write a checkpoint of `state` (a TrainState) under `directory`.
 
     Every process must call it; process 0 writes, and no process returns
-    before the checkpoint is on disk. Returns the final path."""
+    before the checkpoint is on disk. A model laid out over ranks
+    (parallel/mesh.py) writes its cut leaves as every rank's shard files
+    (`_save_sharded`). Returns the final path."""
     _refuse_overlap(directory)
     extra, step = _normalize_step(extra, step)
     final = os.path.join(directory, f"step_{step}")
+    sharded = _sharded_names(state)
+    if sharded:
+        _save_sharded(directory, state, sharded, extra, step, keep_last)
+        return final
     if dist.is_main_process():
         arrays, names = _gather(state)
         _write(directory, arrays, names, extra, step, keep_last)
@@ -372,6 +469,65 @@ def _assemble_shards(src: str, manifest: dict) -> dict:
                 f"on disk under {src!r}: shard files from some writer "
                 "process are missing (incomplete or non-shared storage?)")
     return out
+
+
+class _ShardedLeaf:
+    """A cut leaf of a checkpoint, read region by region: `read(box)`
+    loads only the shard arrays that meet the box (a sharded target's
+    restore reads its own regions, never the whole leaf)."""
+
+    def __init__(self, meta: dict, entries: list):
+        self.shape = tuple(meta["shape"])
+        self.dtype = np.dtype(meta["dtype"])
+        self._entries = entries          # [(npz, key, box)]
+
+    def read(self, box) -> np.ndarray:
+        out = np.zeros([b - a for a, b in box], self.dtype)
+        for npz, key, ebox in self._entries:
+            lo = [max(a, c) for (a, _), (c, _) in zip(box, ebox)]
+            hi = [min(b, d) for (_, b), (_, d) in zip(box, ebox)]
+            if any(x >= y for x, y in zip(lo, hi)):
+                continue
+            part = npz[key]
+            out[tuple(slice(x - a, y - a) for x, y, (a, _) in
+                      zip(lo, hi, box))] = part[tuple(
+                          slice(x - c, y - c) for x, y, (c, _) in
+                          zip(lo, hi, ebox))]
+        return out
+
+
+def _sharded_leaves(src: str, manifest: dict) -> dict:
+    """{leaf index: _ShardedLeaf} over every shards.<p> pair under src."""
+    meta = manifest.get("sharded_leaves") or {}
+    entries: Dict[int, list] = {int(i): [] for i in meta}
+    for index, shards in _open_shard_files(src):
+        for e in index:
+            entries[int(e["leaf"])].append(
+                (shards, e["key"], [tuple(b) for b in e["index"]]))
+    return {i: _ShardedLeaf(meta[str(i)], entries[i]) for i in entries}
+
+
+def _read_region(arr, box) -> np.ndarray:
+    if isinstance(arr, _ShardedLeaf):
+        return arr.read(box)
+    return np.asarray(arr)[tuple(slice(a, b) for a, b in box)]
+
+
+def _fill(target: torch.Tensor, arr, sharding, pname) -> None:
+    """Copy a checkpoint leaf (a whole array or a _ShardedLeaf) into
+    `target`: this rank's regions when the target is cut over ranks
+    (`pname` the parameter whose layout it has), else the whole."""
+    from ddp_practice_tpu_torch.parallel.mesh import local_tensor
+
+    local = local_tensor(target)
+    if pname is None or not sharding.sharded_axes(pname):
+        whole = arr.read([(0, n) for n in arr.shape]) if isinstance(
+            arr, _ShardedLeaf) else np.asarray(arr)
+        local.copy_(torch.from_numpy(np.array(whole)).reshape(local.shape))
+        return
+    for gbox, lbox in sharding.region(pname):
+        local[tuple(slice(a, b) for a, b in lbox)] = torch.from_numpy(
+            _read_region(arr, gbox))
 
 
 _KEY = re.compile(r"\.(\w+)|\[(\d+)\]|\['([^']*)'\]")
@@ -520,15 +676,26 @@ def restore(directory: str, state):
     with open(os.path.join(src, _MANIFEST)) as f:
         manifest = json.load(f)
     paths = manifest["paths"]
-    assembled = _assemble_shards(src, manifest)
+    sharding = getattr(state.model, "sharding", None)
+    jax_layout = bool(paths) and paths[0].startswith((".", "["))
+    if sharding is not None and not jax_layout:
+        # a target cut over ranks reads only its regions of cut leaves
+        assembled = _sharded_leaves(src, manifest)
+    else:
+        assembled = _assemble_shards(src, manifest)
     with np.load(os.path.join(src, _LEAVES)) as data:
         arrays = [assembled[i] if i in assembled else data[f"leaf_{i}"]
                   for i in range(len(paths))]
-    if paths and paths[0].startswith((".", "[")):
+    if jax_layout:
         leaves, origin = _from_jax(paths, arrays)
     else:
         leaves = dict(zip(paths, arrays))
         origin = {p: p for p in paths}
+
+    def whole_shape(name: str, t: torch.Tensor) -> tuple:
+        pname = None if sharding is None else _leaf_param(name, sharding)
+        return (tuple(sharding.layouts[pname].shape) if pname is not None
+                else tuple(t.shape))
 
     model_sd = state.model.state_dict()
     got_model = {n[len("model."):] for n in leaves if n.startswith("model.")}
@@ -546,11 +713,11 @@ def restore(directory: str, state):
     for name, arr in leaves.items():
         src_name = origin[name]
         if name.startswith("model."):
-            want = tuple(model_sd[name[len("model."):]].shape)
+            want = whole_shape(name, model_sd[name[len("model."):]])
         elif name.startswith(("optimizer.state.", "optimizer.acc.")):
             p, key = _check_optimizer_leaf(state, name, src_name, params)
             opt_leaves[name] = (p, key)
-            want = () if key == "step" else tuple(p.shape)
+            want = () if key == "step" else whole_shape(name, p)
         elif name in ("step", "optimizer.applies", "optimizer.micro"):
             want = ()
         else:
@@ -563,22 +730,30 @@ def restore(directory: str, state):
                 "checkpoint was written with a different model "
                 "configuration")
 
+    def pname_of(name: str):
+        return None if sharding is None else _leaf_param(name, sharding)
+
     with torch.no_grad():
         for name, t in model_sd.items():
-            t.copy_(torch.from_numpy(np.asarray(leaves[f"model.{name}"])))
-    opt = state.optimizer
-    slot = {id(p): i for i, p in enumerate(opt.params)}
-    for name, (p, key) in opt_leaves.items():
-        value = torch.from_numpy(np.array(leaves[name]))
-        if key == "acc":
-            opt.acc[slot[id(p)]].copy_(value)
-        elif key == "step":   # Adam's count: fp32, on the device when
-            # capturable (train/state.py), else on the host, as torch's
-            opt.inner.state[p]["step"] = value.to(
-                p.device if opt.inner.defaults.get("capturable") else "cpu",
-                torch.float32)
-        else:
-            opt.inner.state[p][key] = value.to(p.device, p.dtype)
+            _fill(t, leaves[f"model.{name}"], sharding,
+                  pname_of(f"model.{name}"))
+        opt = state.optimizer
+        slot = {id(p): i for i, p in enumerate(opt.params)}
+        inner = {id(p): q for p, q in zip(opt.params, opt.inner_params)}
+        for name, (p, key) in opt_leaves.items():
+            if key == "acc":
+                _fill(opt.acc[slot[id(p)]], leaves[name], sharding,
+                      pname_of(name))
+            elif key == "step":   # Adam's count: fp32, on the device when
+                # capturable (train/state.py), else on the host, as torch's
+                opt.inner.state[inner[id(p)]]["step"] = torch.from_numpy(
+                    np.array(leaves[name])).to(
+                    p.device if opt.inner.defaults.get("capturable")
+                    else "cpu", torch.float32)
+            else:   # a state tensor mirrors its (local) parameter
+                value = torch.zeros_like(inner[id(p)])
+                _fill(value, leaves[name], sharding, pname_of(name))
+                opt.inner.state[inner[id(p)]][key] = value
     if "optimizer.applies" in leaves:
         opt.applies = int(leaves["optimizer.applies"])
     if "optimizer.micro" in leaves:

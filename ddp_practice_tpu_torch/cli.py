@@ -21,6 +21,14 @@ Data parallelism is one process per card:
     torchrun --nproc_per_node 4 -m ddp_practice_tpu_torch.cli --model \\
         lm_base --attn_impl flash --precision bf16 ...
 
+and `--tensor T` (Megatron tensor parallelism over T consecutive ranks)
+and `--fsdp` (ZeRO-3 over the data ranks) lay the model out on the same
+processes (parallel/): `--tensor 4`, `--tensor 2 --fsdp`, `--fsdp`. On
+one card the ranks run as threads of one process
+(parallel/threads.py `run_ranks`, as chip_smoke.py's parallel phase
+does); `--cpu`/`--devices` above 1 (several devices in one process)
+still raise.
+
 `serve` runs the serving benches on the card; serve/bench.py owns its
 flags (the slot, static and, with `--paged`, paged rows; `--shared-prefix
 [--kv-int8]`; `--spec-decode`).

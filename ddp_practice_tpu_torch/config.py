@@ -11,10 +11,10 @@ the card on a machine without one raises instead of quietly running on
 the CPU. Only an explicit `device="cpu"` runs there (the tests pass it).
 
 `MeshConfig` and `TrainConfig` keep the reference's fields and defaults,
-plus `TrainConfig.device`. Data parallelism is the one mesh axis the port
-runs (torch DDP over the processes torchrun starts); the other axes and
-every flag this slice does not port raise NotImplementedError naming the
-ROADMAP item that brings them, when set to anything but the default.
+plus `TrainConfig.device`. The port runs the mesh's data and tensor axes
+and `fsdp` (parallel/); the other axes and every flag this slice does not
+port raise NotImplementedError naming the ROADMAP item that brings them,
+when set to anything but the default.
 """
 
 from __future__ import annotations
@@ -67,8 +67,11 @@ def resolve_device(device="cuda") -> torch.device:
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """Shape of the device mesh: `data` (-1 = every process) is data
-    parallelism; `seq`, `tensor`, `pipe` and `expert` are not ported."""
+    """Shape of the rank mesh, the reference's axes in its order: `data`
+    (data parallelism; -1 = the ranks the other axes leave), `seq`,
+    `tensor` (Megatron tensor parallelism over attention heads and MLP
+    features, parallel/tensor.py), `pipe` and `expert`. `seq`, `pipe`
+    and `expert` are not ported and raise above 1."""
 
     data: int = -1
     seq: int = 1
@@ -76,26 +79,51 @@ class MeshConfig:
     pipe: int = 1
     expert: int = 1
 
+    AXIS_DATA = "data"
+    AXIS_SEQ = "seq"
+    AXIS_TENSOR = "tensor"
+    AXIS_PIPE = "pipe"
+    AXIS_EXPERT = "expert"
+
     def __post_init__(self):
-        for axis, item in (("seq", "A8"), ("tensor", "A8"), ("pipe", "A8"),
-                           ("expert", "A8")):
+        for axis, item in (("seq", "A8b"), ("pipe", "A8d"),
+                           ("expert", "A8c")):
             if getattr(self, axis) != 1:
                 raise NotImplementedError(
                     f"mesh axis {axis}={getattr(self, axis)} is not ported "
-                    f"yet (ROADMAP {item}); only data parallelism runs")
+                    f"yet (ROADMAP {item}); data and tensor parallelism run")
+        if self.tensor < 1:
+            raise ValueError(f"mesh tensor={self.tensor} (want >= 1)")
 
-    def resolve(self, n_processes: int) -> int:
-        """The data-parallel degree over `n_processes` ranks."""
-        data = n_processes if self.data == -1 else self.data
-        if data != n_processes:
-            raise ValueError(f"mesh data={data} != {n_processes} processes")
-        return data
+    @property
+    def axis_names(self) -> tuple:
+        return (self.AXIS_DATA, self.AXIS_SEQ, self.AXIS_TENSOR,
+                self.AXIS_PIPE, self.AXIS_EXPERT)
+
+    def resolve(self, n_devices: int) -> tuple:
+        """Concrete (data, seq, tensor, pipe, expert) sizes over
+        `n_devices` ranks."""
+        rest = self.seq * self.tensor * self.pipe * self.expert
+        data = self.data
+        if data == -1:
+            if n_devices % rest != 0:
+                raise ValueError(
+                    f"{n_devices} devices not divisible by "
+                    f"seq*tensor*pipe*expert={rest}"
+                )
+            data = n_devices // rest
+        if data * rest != n_devices:
+            raise ValueError(
+                f"mesh {data}x{self.seq}x{self.tensor}x{self.pipe}"
+                f"x{self.expert} != {n_devices} devices"
+            )
+        return (data, self.seq, self.tensor, self.pipe, self.expert)
 
 
 # TrainConfig fields this slice does not port -> the ROADMAP item that
 # does; setting one to anything but its default raises
 _NOT_PORTED = {
-    "fsdp": "A8", "pipe_schedule": "A8", "num_microbatches": "A8",
+    "pipe_schedule": "A8", "num_microbatches": "A8",
     "num_virtual": "A8", "sp_impl": "A8", "max_restarts": "A8",
     "watchdog_timeout_s": "A8", "sync_check_every_steps": "A8",
     "watchdog_probe_every_steps": "A8",
@@ -137,6 +165,10 @@ class TrainConfig:
     - `coordinator_address`/`num_processes`/`process_id`: a tcp://
       rendezvous for torch.distributed, in place of torchrun's
       environment.
+    - `mesh` (data x tensor) and `fsdp` lay the model out over the ranks
+      as the reference's rules do (parallel/mesh.py `parallelize`);
+      `batch_size` is per data replica, so the global batch is
+      `batch_size` x the data degree.
     """
 
     # model / data

@@ -1,0 +1,183 @@
+"""lm_base's train step under tensor parallelism and FSDP on several cards
+(NCCL, one process a card under torchrun).
+
+    python -m ddp_practice_tpu_torch.experiments.parallel_step \
+        [--nproc 4] [--steps 20] [--batch_size 8] [--layouts NAME ...]
+
+`--collectives` first times NCCL's all-reduce, all-gather and
+reduce-scatter alone (64 MiB of bf16 a rank, bus GB/s), the bytes the
+layouts' collectives move over.
+
+With `--profile` each layout then runs again, 20 steps with steps 10-19
+traced on every rank (`--profile_dir`), and one rank's trace is summed
+by kind (utils/xprof.py: device ms a step; NCCL's kernels fall under
+"other", and their time includes waiting for the other ranks).
+
+For each layout (`LAYOUTS`; default all: tensor4 = "--tensor 4",
+tensor2_fsdp = "--tensor 2 --fsdp", fsdp = "--fsdp", and ddp = no flag,
+plain DDP for the yardstick) it runs
+
+    torchrun --nproc_per_node N -m ddp_practice_tpu_torch.cli \
+        --model lm_base --attn_impl flash --precision bf16 \
+        --optimizer adamw --lr 3e-4 --seq_len 2048 -b B -e 1 \
+        --max_steps S --log_every 1 --metrics_file F --json <layout>
+
+(rank 0 writes one record a step after reading the step's metrics back,
+so consecutive records are one step apart; the first two steps are left
+out as warm-up) and prints, per layout, the median step ms, the global
+batch, tokens/s over all cards and per card, the eval perplexity and the
+fit's own tokens/s per card, beside the card's name and power limit
+(nvidia-smi). `-b` is per data replica, as the reference's: the global
+batch is B x the data degree.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+
+LAYOUTS = {"tensor4": "--tensor 4", "tensor2_fsdp": "--tensor 2 --fsdp",
+           "fsdp": "--fsdp", "ddp": ""}
+# 4 M tokens: an epoch of the synthetic corpus holds every layout's steps
+BASE = ["--model", "lm_base", "--attn_impl", "flash", "--precision", "bf16",
+        "--optimizer", "adamw", "--lr", "3e-4", "--seq_len", "2048", "-e",
+        "1", "--log_every", "1", "--json", "--synthetic_size", "4000000"]
+
+
+def _torchrun(nproc: int, args: list) -> dict:
+    """The CLI under torchrun; rank 0's JSON summary."""
+    cmd = ["torchrun", "--standalone", f"--nproc_per_node={nproc}", "-m",
+           "ddp_practice_tpu_torch.cli", *BASE, *args]
+    out = subprocess.run(cmd, capture_output=True, text=True)
+    if out.returncode != 0:
+        raise RuntimeError(f"{' '.join(cmd)} failed:\n{out.stderr[-4000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def run_layout(name: str, nproc: int, steps: int, batch: int,
+               workdir: str) -> dict:
+    layout = LAYOUTS[name]
+    metrics = os.path.join(workdir, f"{name}.jsonl")
+    summary = _torchrun(nproc, ["-b", str(batch), "--max_steps", str(steps),
+                                "--metrics_file", metrics, *layout.split()])
+    with open(metrics) as f:
+        records = [json.loads(x) for x in f]
+    times = [r["time"] for r in records if r["kind"] == "train"]
+    gaps = [(b - a) * 1e3 for a, b in zip(times, times[1:])][2:]
+    step_ms = statistics.median(gaps)
+    seq = int(BASE[BASE.index("--seq_len") + 1])
+    tokens = summary["global_batch"] * seq
+    return {"layout": name, "flags": layout, "step_ms": step_ms,
+            "global_batch": summary["global_batch"],
+            "tokens_per_s": tokens / step_ms * 1e3,
+            "tokens_per_s_per_card": tokens / step_ms * 1e3 / nproc,
+            "fit_tokens_per_s_per_card": summary["tokens_per_sec_per_chip"],
+            "perplexity": summary["perplexity"], "steps": summary["steps"]}
+
+
+def collectives_worker(mib: int = 64, runs: int = 20) -> None:
+    """One rank of `--collectives` (under torchrun): the NCCL all-reduce,
+    all-gather and reduce-scatter of `mib` MiB of bf16 a rank, median of
+    `runs` timed with CUDA events; rank 0 prints each one's ms and bus
+    bandwidth (nccl-tests' convention: all-reduce moves 2(n-1)/n of the
+    buffer a rank, the others (n-1)/n), and whether the cards reach each
+    other's memory directly (peer access)."""
+    import torch
+    import torch.distributed as tdist
+
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+    tdist.init_process_group("nccl")
+    n = mib * 2 ** 20 // 2
+    x = torch.ones(n, dtype=torch.bfloat16, device="cuda")
+    big = torch.empty(n * world, dtype=torch.bfloat16, device="cuda")
+    part = torch.empty(n // world, dtype=torch.bfloat16, device="cuda")
+    ops = {"all_reduce": (lambda: tdist.all_reduce(x), 2),
+           "all_gather": (lambda: tdist.all_gather_into_tensor(big, x), 1),
+           "reduce_scatter": (lambda: tdist.reduce_scatter_tensor(part, x),
+                              1)}
+    for name, (op, factor) in ops.items():
+        op()
+        times = []
+        for _ in range(runs):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            op()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        ms = statistics.median(times)
+        moved = factor * (world - 1) / world * (
+            big.numel() if name == "all_gather" else n) * 2
+        if rank == 0:
+            print(f"{name}: {mib} MiB bf16 a rank, {ms:.3f} ms, bus "
+                  f"{moved / ms / 1e6:.1f} GB/s", flush=True)
+    if rank == 0:
+        peers = [torch.cuda.can_device_access_peer(0, j)
+                 for j in range(1, torch.cuda.device_count())]
+        print(f"peer access from card 0: {peers}", flush=True)
+    tdist.destroy_process_group()
+
+
+def main(argv=None) -> int:
+    if "--collectives_worker" in (argv or sys.argv[1:]):
+        collectives_worker()
+        return 0
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--nproc", type=int, default=4)
+    p.add_argument("--steps", type=int, default=20)
+    p.add_argument("--batch_size", type=int, default=8)
+    p.add_argument("--layouts", nargs="*", default=list(LAYOUTS),
+                   choices=list(LAYOUTS))
+    p.add_argument("--profile", action="store_true",
+                   help="then run each layout again under --profile_dir "
+                        "(steps 10-19 traced on every rank) and print one "
+                        "rank's device time a step by kind")
+    p.add_argument("--collectives", action="store_true",
+                   help="first time NCCL's collectives alone "
+                        "(`collectives_worker`)")
+    args = p.parse_args(argv)
+    if args.collectives:
+        out = subprocess.run(
+            ["torchrun", "--standalone", f"--nproc_per_node={args.nproc}",
+             "-m", "ddp_practice_tpu_torch.experiments.parallel_step",
+             "--collectives_worker"], capture_output=True, text=True)
+        print(out.stdout, out.stderr[-2000:] if out.returncode else "",
+              flush=True)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()
+    print(f"cards: {card}", flush=True)
+    with tempfile.TemporaryDirectory(dir="build") as workdir:
+        for name in args.layouts:
+            r = run_layout(name, args.nproc, args.steps, args.batch_size,
+                           workdir)
+            print(f"{r['layout']:>18}: median step {r['step_ms']:.2f} ms, "
+                  f"global batch {r['global_batch']}, "
+                  f"{r['tokens_per_s']:.0f} tokens/s "
+                  f"({r['tokens_per_s_per_card']:.0f} per card; fit's own "
+                  f"{r['fit_tokens_per_s_per_card']:.0f}), {r['steps']} "
+                  f"steps, eval perplexity {r['perplexity']:.3f} "
+                  f"[{card[0]}]", flush=True)
+            print(json.dumps(r), flush=True)
+            if args.profile:
+                from ddp_practice_tpu_torch.utils import xprof
+
+                prof = os.path.join(workdir, f"{name}_profile")
+                _torchrun(args.nproc, [
+                    "-b", str(args.batch_size), "--max_steps", "20",
+                    "--profile_dir", prof, *LAYOUTS[name].split()])
+                print(f"{name}, traced steps 10-19, one rank [{card[0]}]:",
+                      flush=True)
+                xprof.print_summary(prof, steps=10, top=8)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -7,6 +7,12 @@ a prompt prefill is `decode_apply` over the prompt, a decode step is
 with the Flax "cache" collection's tree (models/lm.py `init_cache`); the
 model writes it in place and advances its host-int cursors.
 
+A model laid out over ranks by tensor parallelism (parallel/mesh.py
+`shard_state`) generates through the same functions on every rank of its
+tensor group: each rank's cache (`make_cache`) holds its own heads, the
+decode kernels run on them, and the logits reach the sampler whole, so
+greedy tokens equal the one-rank run's.
+
 Sampling draws from explicit `torch.Generator`s. They give other numbers
 than JAX's threefry keys from the same seed, so sampled tokens match the
 reference only in distribution; greedy decoding matches token for token.

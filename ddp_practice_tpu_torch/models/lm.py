@@ -29,7 +29,15 @@ the training step (train/steps.py). Decode (flat cache, paged steps and
 paged prefill) runs through them too: they route with their current
 `router_bias` buffers and record nothing (ops/moe.py `decode`).
 
-Not ported yet: sequence parallelism (`seq_axis`, ROADMAP A8); it raises.
+Tensor parallelism (parallel/mesh.py `shard_state` sets `tp`): the
+blocks hold their ranks' heads and MLP features (models/vit.py), the
+token embedding its vocabulary rows (a masked local lookup, summed over
+the group) and the head its vocabulary outputs, gathered whole before
+the loss or the sampler sees them; the tied head reads the same
+vocabulary-sharded embedding. A KV cache built from a sharded model
+holds the rank's heads.
+
+Not ported yet: sequence parallelism (`seq_axis`, ROADMAP A8b); it raises.
 """
 
 from __future__ import annotations
@@ -48,6 +56,11 @@ from ddp_practice_tpu_torch.models.vit import (
     dense,
     dropout,
     subkey,
+)
+from ddp_practice_tpu_torch.parallel.tensor import (
+    copy_to_tp,
+    gather_from_tp,
+    reduce_from_tp,
 )
 
 
@@ -109,6 +122,10 @@ class TransformerLM(nn.Module):
         if not tied_embeddings:
             # bias-free, the GPT-2 convention (as the reference)
             self.lm_head = nn.Linear(hidden_dim, vocab_size, bias=False)
+        # under tensor parallelism (parallel/mesh.py shard_state): the
+        # group; tok_embed holds this rank's vocabulary rows, lm_head its
+        # vocabulary outputs
+        self.tp = None
         self.to(param_dtype)
 
     def set_decode_impl(self, impl: str) -> None:
@@ -169,7 +186,7 @@ class TransformerLM(nn.Module):
         b, s = tokens.shape
         if s > self.max_len:
             raise ValueError(f"sequence {s} exceeds max_len {self.max_len}")
-        x = F.embedding(tokens, self.tok_embed.weight.to(self.dtype))
+        x = self._embed(tokens)
         if self.pos_emb == "learned":
             p0 = cache["pos_index"] if decode else 0
             x = x + self.pos_embed[:, p0:p0 + s].to(self.dtype)
@@ -192,10 +209,27 @@ class TransformerLM(nn.Module):
                     cache=cache[f"block{i}"]["attn"] if decode else None,
                     attn_start=attn_start, page_table=page_table,
                     kv_lengths=kv_lengths)
-        x = self.ln_f(x)
+        x = copy_to_tp(self.ln_f(x), self.tp)
         if self.tied_embeddings:
-            return x @ self.tok_embed.weight.to(self.dtype).T
-        return dense(x, self.lm_head, self.dtype)
+            logits = x @ self.tok_embed.weight.to(self.dtype).T
+        else:
+            logits = dense(x, self.lm_head, self.dtype)
+        # vocab-parallel logits made whole for the loss and the sampler
+        return gather_from_tp(logits, self.tp)
+
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The token lookup; under tensor parallelism each rank looks up
+        the tokens in its vocabulary rows (zeros elsewhere) and the
+        group sums the parts."""
+        w = self.tok_embed.weight.to(self.dtype)
+        if self.tp is None:
+            return F.embedding(tokens, w)
+        rows = w.shape[0]
+        local = tokens - self.tp.rank * rows
+        mine = (local >= 0) & (local < rows)
+        x = F.embedding(local.clamp(0, rows - 1), w) * mine[..., None].to(
+            w.dtype)
+        return reduce_from_tp(x, self.tp)
 
 
 def LMTiny(**kw) -> TransformerLM:

@@ -28,6 +28,19 @@ train/steps.py). Every product in the hash multiplies 32 bits by fewer
 than 31, so int64 cannot overflow (`mix32`, `fold32`). Masks cannot
 match JAX's (threefry vs Philox); parity runs at rate 0.
 
+Tensor parallelism (parallel/mesh.py `shard_state` sets each layer's
+`tp`): `SelfAttention` holds its rank's heads (`num_heads` local, the
+qkv rows of those heads in [q | k | v] order, the out columns), `MlpBlock`
+fc_in's rows and fc_out's columns; the input of each crosses into the
+tensor region through `copy_to_tp` and the row-parallel output is summed
+over the group (`row_parallel`), its bias added once after the sum. The
+kernels see plain local tensors: `flash_attention_qkv(qkv, local heads)`
+and the decode kernels run unchanged on the rank's heads, and a KV cache
+holds them. Dropout inside the MLP draws the whole tensor's mask at its
+columns (`dropout(cols=)`), so a shard's mask is the one-rank mask's.
+`fused=True` raises under tensor parallelism (the fused layer holds a
+whole layer's weights).
+
 Parameters stay in `param_dtype` (fp32) and every layer computes in
 `dtype`, casting its weights on use as Flax does. LayerNorm epsilon is
 1e-6 with fp32 statistics, and GELU is the tanh approximation (Flax
@@ -74,6 +87,7 @@ from ddp_practice_tpu_torch.ops.fused_encoder import (
 from ddp_practice_tpu_torch.ops.moe import MoEMlp
 from ddp_practice_tpu_torch.ops.rope import apply_rope
 from ddp_practice_tpu_torch.parallel.dist import process_count
+from ddp_practice_tpu_torch.parallel.tensor import copy_to_tp, reduce_from_tp
 
 LN_EPS = 1e-6
 
@@ -82,6 +96,15 @@ def dense(x: torch.Tensor, layer: nn.Linear, dtype) -> torch.Tensor:
     """Flax Dense semantics: inputs, kernel and bias promoted to `dtype`."""
     bias = None if layer.bias is None else layer.bias.to(dtype)
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
+def row_parallel(x: torch.Tensor, layer: nn.Linear, dtype, tp):
+    """`dense` over a row-parallel layer: this rank's partial product,
+    summed over the tensor group, then the whole bias added once."""
+    if tp is None:
+        return dense(x, layer, dtype)
+    y = reduce_from_tp(F.linear(x.to(dtype), layer.weight.to(dtype)), tp)
+    return y if layer.bias is None else y + layer.bias.to(dtype)
 
 
 def _on_card(x: torch.Tensor) -> bool:
@@ -126,15 +149,22 @@ def subkey(key: Optional[DropoutKey], i: int) -> Optional[DropoutKey]:
     return DropoutKey(key.step, mix32(key.site ^ mix32(i + 1)))
 
 
-def dropout(x: torch.Tensor, rate: float,
-            key: Optional[DropoutKey]) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, key: Optional[DropoutKey],
+            cols: Optional[tuple] = None) -> torch.Tensor:
     """Flax Dropout: keep with probability 1 - rate, kept values divided by
     it. Element j keeps when mix32(mix32(j ^ site) ^ step ^ t) >= rate *
     2^32, t a constant of the site (so two sites' masks share no index
-    pattern); key None (eval, or rate 0) is the identity."""
+    pattern); key None (eval, or rate 0) is the identity. `cols` =
+    (offset, total): x's last dim is columns [offset, offset + n) of a
+    tensor `total` wide (a tensor-parallel shard), and j is the element's
+    index in that whole tensor, so every shard draws its part of the
+    whole tensor's mask."""
     if key is None or rate == 0.0:
         return x
     idx = torch.arange(x.numel(), device=x.device, dtype=torch.int64)
+    if cols is not None:
+        n = x.shape[-1]
+        idx = idx // n * cols[1] + cols[0] + idx % n
     bits = mix32(mix32(idx ^ key.site)
                  ^ (key.step ^ mix32(key.site ^ 0x9E3779B9)))
     keep = (bits >= round(rate * (1 << 32))).view(x.shape)
@@ -162,12 +192,20 @@ class MlpBlock(nn.Module):
         self.dropout_rate = dropout_rate
         self.fc_in = nn.Linear(d, mlp_dim)
         self.fc_out = nn.Linear(mlp_dim, d)
+        # the tensor group (parallel/mesh.py shard_state): fc_in
+        # column-parallel, fc_out row-parallel
+        self.tp = None
 
     def forward(self, x: torch.Tensor, *,
                 dropout_key: Optional[DropoutKey] = None):
+        x = copy_to_tp(x, self.tp)
         x = F.gelu(dense(x, self.fc_in, self.dtype), approximate="tanh")
-        x = dropout(x, self.dropout_rate, dropout_key)
-        return dense(x, self.fc_out, self.dtype)
+        cols = None
+        if self.tp is not None:
+            n = x.shape[-1]
+            cols = (self.tp.rank * n, self.tp.size * n)
+        x = dropout(x, self.dropout_rate, dropout_key, cols)
+        return row_parallel(x, self.fc_out, self.dtype, self.tp)
 
 
 def _quantize(x4: torch.Tensor):
@@ -207,6 +245,13 @@ class SelfAttention(nn.Module):
         self.qkv = nn.Linear(d, 3 * d)
         # DenseGeneral over (h, hd) -> d
         self.out = nn.Linear(d, d)
+        # under tensor parallelism (parallel/mesh.py shard_state): the
+        # group, `num_heads` this rank's heads, qkv's rows and out's
+        # columns theirs; `qkv_bias_split` (chunks, chunk width) when
+        # FSDP stores the qkv bias data chunks outermost
+        # (parallel/fsdp.py)
+        self.tp = None
+        self.qkv_bias_split = None
 
     def cache_dtype(self):
         if self.kv_cache_dtype == "int8":
@@ -235,9 +280,9 @@ class SelfAttention(nn.Module):
                 attn_start: Optional[torch.Tensor] = None,
                 page_table: Optional[torch.Tensor] = None,
                 kv_lengths: Optional[torch.Tensor] = None):
-        b, s, d = x.shape
+        b, s, _ = x.shape
         h, hd = self.num_heads, self.head_dim
-        qkv_flat = dense(x, self.qkv, self.dtype)          # (b, s, 3*h*hd)
+        qkv_flat = self._qkv(copy_to_tp(x, self.tp))       # (b, s, 3*h*hd)
         if (cache is None and self.attn_impl == "flash" and not self.rope
                 and self.seq_axis is None):
             # the raw projection goes to the kernels: its (3, h, hd)
@@ -245,7 +290,8 @@ class SelfAttention(nn.Module):
             # so q, k and v never materialize (unpackable heads slice
             # inside flash_attention_qkv)
             out = flash_attention_qkv(qkv_flat, h, causal=self.causal)
-            return dense(out.reshape(b, s, d), self.out, self.dtype)
+            return row_parallel(out.reshape(b, s, h * hd), self.out,
+                                self.dtype, self.tp)
         qkv = qkv_flat.view(b, s, 3, h, hd)
         q, k, v = qkv.unbind(2)
         if page_table is not None:
@@ -262,7 +308,16 @@ class SelfAttention(nn.Module):
             )
         else:
             out = self._decode(q, k, v, cache, attn_start)
-        return dense(out.reshape(b, s, d), self.out, self.dtype)
+        return row_parallel(out.reshape(b, s, h * hd), self.out,
+                            self.dtype, self.tp)
+
+    def _qkv(self, x: torch.Tensor) -> torch.Tensor:
+        if self.qkv_bias_split is None:
+            return dense(x, self.qkv, self.dtype)
+        n, width = self.qkv_bias_split
+        bias = self.qkv.bias.view(n, -1, width).transpose(0, 1).reshape(-1)
+        return F.linear(x.to(self.dtype), self.qkv.weight.to(self.dtype),
+                        bias.to(self.dtype))
 
     def _decode(self, q, k, v, cache, attn_start):
         if not self.causal:

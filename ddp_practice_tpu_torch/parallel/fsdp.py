@@ -1,0 +1,131 @@
+"""FSDP / ZeRO-3: parameters and optimizer state sharded over the `data`
+axis (counterpart of ddp_practice_tpu/parallel/fsdp.py).
+
+`fsdp_rules` is the reference's algorithm, unchanged: the base rules
+first (tensor parallelism claims its sub-dims), then the largest free
+dim divisible by the data degree, searched in the reference's (Flax) dim
+order over the leaf's Layout, so the port picks the dim the reference
+picks; a leaf under `min_leaf_size` elements stays as the base rules put
+it.
+
+`apply_fsdp` carries the layout out with FSDP2 (`fully_shard`) on the
+data sub-mesh: each transformer block, then the root, with
+`shard_placement_fn` putting every leaf's data cut on its torch dim.
+FSDP2 all-gathers a block's parameters in its pre-forward hook (so the
+model's functional reads see whole tensors), reduce-scatters the grads
+(the mean over the data ranks, as DDP's) and leaves each rank its
+shards, on which the optimizer and its state live (ZeRO). Leaves the
+rules leave whole on the data axis are FSDP2's `ignored_params`: they
+stay replicated, and `apply_fsdp`'s returned hook all-reduces their
+grads (the mean) over the data group after each backward.
+
+One leaf needs a storage order of its own: FSDP2 cuts a torch dim into
+contiguous chunks, and the attention `qkv` bias (Flax (3, h, hd), one
+torch dim) is cut by the reference on `hd`, inside the dim. Its rank
+storage is then the `data` chunks outermost ((dp, 3, h, hd / dp)), and
+the attention layer reads it back in order (`SelfAttention.qkv_bias_split`).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Optional
+
+import torch
+import torch.distributed as tdist
+from torch import nn
+
+from ddp_practice_tpu_torch.config import MeshConfig
+from ddp_practice_tpu_torch.parallel.sharding_rules import Layout
+
+D = MeshConfig.AXIS_DATA
+
+
+def fsdp_rules(data_axis_size: int, base_rules: Optional[Callable] = None,
+               *, min_leaf_size: int = 1024) -> Callable:
+    """rules(name, layout) -> Spec | None adding the `data` cut."""
+
+    def rules(name: str, layout: Layout):
+        base = base_rules(name, layout) if base_rules is not None else None
+        shape = layout.shape
+        if data_axis_size <= 1 or not shape:
+            return base
+        if math.prod(shape) < min_leaf_size:
+            return base
+        spec = [list(d) for d in (base or layout.unsharded())]
+        best, best_size = None, 0
+        for t, j in layout.ref_dims:
+            size = layout.dims[t][j]
+            if (spec[t][j] is None and size % data_axis_size == 0
+                    and size > best_size):
+                best, best_size = (t, j), size
+        if best is None:
+            return base
+        spec[best[0]][best[1]] = D
+        return tuple(tuple(d) for d in spec)
+
+    return rules
+
+
+def data_dim(spec) -> Optional[int]:
+    """The torch dim a spec cuts over `data`, or None."""
+    for t, axes in enumerate(spec or ()):
+        if D in axes:
+            return t
+    return None
+
+
+def needs_split(layout: Layout, spec, tensor_size: int) -> bool:
+    """True when the data cut is not the outermost non-trivial sub-dim of
+    its torch dim (after the tensor cut): FSDP2's contiguous chunks would
+    then not be the reference's regions."""
+    t = data_dim(spec)
+    if t is None:
+        return False
+    for size, axis in zip(layout.dims[t], spec[t]):
+        if axis == D:
+            return False
+        local = size // tensor_size if axis else size
+        if local > 1:
+            return True
+    return False
+
+
+def apply_fsdp(model: nn.Module, data_mesh, specs: dict,
+               data_group) -> Callable[[], None]:
+    """fully_shard `model` (its `blocks`, then the root) over
+    `data_mesh`, each parameter on the torch dim its spec cuts over
+    `data`; the rest ignored. Returns the after-backward hook that
+    averages the ignored parameters' grads over `data_group`."""
+    from torch.distributed.fsdp import fully_shard
+    from torch.distributed.tensor import Shard
+
+    names = {id(p): n for n, p in model.named_parameters()}
+    replicated = [p for p in model.parameters()
+                  if data_dim(specs.get(names[id(p)])) is None]
+    ignored = set(replicated)
+
+    def placement(p):
+        return Shard(data_dim(specs[names[id(p)]]))
+
+    for blk in getattr(model, "blocks", ()):
+        fully_shard(blk, mesh=data_mesh, shard_placement_fn=placement,
+                    ignored_params=ignored)
+    fully_shard(model, mesh=data_mesh, shard_placement_fn=placement,
+                ignored_params=ignored)
+    n = tdist.get_world_size(data_group)
+
+    @torch.no_grad()
+    def sync_replicated_grads() -> None:
+        grads = [p.grad for p in replicated if p.grad is not None]
+        if not grads:
+            return
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        tdist.all_reduce(flat, op=tdist.ReduceOp.SUM, group=data_group)
+        flat /= n
+        off = 0
+        for g in grads:
+            g.copy_(flat[off:off + g.numel()].view_as(g))
+            off += g.numel()
+
+    return sync_replicated_grads

@@ -1,0 +1,282 @@
+"""The rank mesh and parameter placement (counterpart of
+ddp_practice_tpu/parallel/mesh.py).
+
+`build_mesh` lays the world's ranks out as a torch DeviceMesh with the
+reference's axes in its order, (data, seq, tensor, pipe, expert): data
+outermost, tensor inside it, so the ranks of one tensor group are
+consecutive (NVLink neighbours on one node under torchrun). `coords`
+gives a rank's (coordinate, size) on every axis and `batch_shard` its
+slice of each global batch, the counterpart of `batch_sharding`: the
+ranks of one tensor group read the same rows.
+
+`shard_state` puts each parameter in the layout the rules give it
+(parallel/sharding_rules.py): the tensor cut is taken here, leaving
+each rank plain local tensors and each attention, MLP and LM its
+`TensorGroup` (parallel/tensor.py), the data cut by FSDP2
+(parallel/fsdp.py `apply_fsdp`). `parallelize` is the whole layout as
+the train loop runs it (rules, `shard_state`, FSDP2 or DDP over the data
+ranks). An optimizer built afterwards mirrors every parameter's layout
+in its state. The model keeps its `Sharding` (`model.sharding`): every
+leaf's Layout and Spec and the rank's coordinates, which the sharded
+global norm (train/state.py), the sharded checkpoint (checkpoint/) and
+`full_parameters` read.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Dict, Optional
+
+import torch
+from torch import nn
+
+from ddp_practice_tpu_torch.config import MeshConfig
+from ddp_practice_tpu_torch.data.sharding import ShardSpec
+from ddp_practice_tpu_torch.parallel import dist
+from ddp_practice_tpu_torch.parallel.fsdp import (
+    apply_fsdp,
+    data_dim,
+    fsdp_rules,
+    needs_split,
+)
+from ddp_practice_tpu_torch.parallel.sharding_rules import (
+    Layout,
+    axes_of,
+    layouts,
+    param_sharding_rules,
+    region,
+    take_region,
+)
+from ddp_practice_tpu_torch.parallel.tensor import TensorGroup
+
+DATA = MeshConfig.AXIS_DATA
+TENSOR = MeshConfig.AXIS_TENSOR
+
+
+def build_mesh(config: Optional[MeshConfig] = None, device_type: str = "cuda"):
+    """A DeviceMesh over every rank with the reference's axis names and
+    order; None for a world of one rank (nothing to lay out)."""
+    config = config or MeshConfig()
+    shape = config.resolve(dist.process_count())
+    if dist.process_count() == 1:
+        return None
+    from torch.distributed.device_mesh import init_device_mesh
+
+    return init_device_mesh(device_type, shape,
+                            mesh_dim_names=config.axis_names)
+
+
+def axis_size(mesh, axis: str) -> int:
+    return 1 if mesh is None else mesh.size(mesh.mesh_dim_names.index(axis))
+
+
+def coords(mesh) -> Dict[str, tuple]:
+    """{axis: (this rank's coordinate, axis size)} for every axis."""
+    if mesh is None:
+        return {a: (0, 1) for a in MeshConfig().axis_names}
+    return {a: (mesh.get_local_rank(a), axis_size(mesh, a))
+            for a in mesh.mesh_dim_names}
+
+
+def group(mesh, axis: str):
+    """The process group of `axis` through this rank (None: size 1)."""
+    return None if axis_size(mesh, axis) == 1 else mesh.get_group(axis)
+
+
+def batch_shard(mesh) -> ShardSpec:
+    """This rank's slice of every global batch: its data coordinate of
+    the data degree."""
+    c, n = coords(mesh)[DATA]
+    return ShardSpec(c, n)
+
+
+def tensor_group(mesh) -> Optional[TensorGroup]:
+    c, n = coords(mesh)[TENSOR]
+    return None if n == 1 else TensorGroup(group(mesh, TENSOR), n, c)
+
+
+@dataclasses.dataclass
+class Sharding:
+    """Where every parameter of a sharded model lives: its Layout and
+    Spec by name, this rank's coordinates and the axes' groups."""
+    layouts: Dict[str, Layout]
+    specs: Dict[str, object]
+    coords: Dict[str, tuple]
+    groups: Dict[str, object]
+
+    def spec(self, name: str):
+        return self.specs.get(name) or self.layouts[name].unsharded()
+
+    def sharded_axes(self, name: str) -> tuple:
+        """The axes of more than one rank the leaf is cut over."""
+        return tuple(a for a in axes_of(self.specs.get(name))
+                     if self.coords[a][1] > 1)
+
+    def region(self, name: str) -> list:
+        """This rank's [(global box, local box)] of the leaf."""
+        return region(self.layouts[name], self.spec(name), self.coords)
+
+
+def check_heads(model_name: str, model: nn.Module, tensor: int) -> None:
+    """The reference's error when the heads do not split over `tensor`."""
+    heads = getattr(model, "num_heads", None)
+    if tensor > 1 and heads is not None and heads % tensor:
+        raise ValueError(
+            f"tensor parallelism shards attention heads: "
+            f"{model_name} has {heads} heads, not divisible by "
+            f"--tensor {tensor} — pass --num_heads (e.g. "
+            f"{((heads // tensor) + 1) * tensor}) or a different degree"
+        )
+
+
+@torch.no_grad()
+def shard_state(model: nn.Module, mesh, rules: Optional[Callable],
+                model_name: str = "") -> Sharding:
+    """Lay `model` (built whole, the same weights on every rank) out on
+    `mesh` by `rules(name, layout) -> Spec | None`: each parameter cut to
+    this rank's tensor region, the attention layers left with their
+    local heads and every tensor-parallel layer with the TensorGroup.
+    Returns the Sharding (also `model.sharding`)."""
+    from ddp_practice_tpu_torch.models.lm import TransformerLM
+    from ddp_practice_tpu_torch.models.vit import (
+        EncoderBlock,
+        MlpBlock,
+        SelfAttention,
+    )
+
+    lay = layouts(model)
+    specs = {n: s for n in lay if rules is not None
+             and (s := rules(n, lay[n])) is not None}
+    where = coords(mesh)
+    tp = tensor_group(mesh)
+    sharding = Sharding(lay, specs, where,
+                        {a: group(mesh, a) for a in where})
+    if tp is not None:
+        check_heads(model_name, model, tp.size)
+        for mod in model.modules():
+            if isinstance(mod, EncoderBlock) and mod.fused is True:
+                raise ValueError(
+                    "the fused encoder layer (ops/fused_encoder.py) holds "
+                    "a whole layer's weights: it does not run under "
+                    f"tensor={tp.size}")
+            if isinstance(mod, SelfAttention):
+                mod.tp = tp
+                mod.num_heads //= tp.size
+            elif isinstance(mod, (MlpBlock, TransformerLM)):
+                mod.tp = tp
+        if isinstance(model, TransformerLM) and model.vocab_size % tp.size:
+            raise ValueError(
+                f"vocabulary {model.vocab_size} does not split over "
+                f"--tensor {tp.size} (the embedding and head shard it)")
+        cut = {TENSOR: where[TENSOR]}
+        params = dict(model.named_parameters())
+        for name, spec in specs.items():
+            if TENSOR in axes_of(spec):
+                p = params[name]
+                p.data = take_region(p.data, lay[name], spec,
+                                     cut).contiguous()
+    dp = where[DATA][1]
+    tsize = where[TENSOR][1]
+    for name, spec in specs.items():
+        if not needs_split(lay[name], spec, tsize):
+            continue
+        owner, leaf = name.rsplit(".", 1)
+        attn = model.get_submodule(owner.rsplit(".", 1)[0])
+        if not (isinstance(attn, SelfAttention) and name.endswith(
+                "qkv.bias")):
+            raise NotImplementedError(
+                f"{name}: its data cut lies inside a torch dim, which "
+                "only the attention qkv bias's storage order handles")
+        # the local sub-dims, the data chunks moved outermost
+        sizes = [n // tsize if a == TENSOR else n
+                 for n, a in zip(lay[name].dims[0], spec[0])]
+        m = spec[0].index(DATA)
+        rest = sizes[m] // dp * math.prod(sizes[m + 1:])
+        p = dict(model.named_parameters())[name]
+        p.data = p.data.view(-1, dp, rest).transpose(0, 1).reshape(
+            -1).contiguous()
+        attn.qkv_bias_split = (dp, rest)
+    model.sharding = sharding
+    return sharding
+
+
+def local_tensor(t: torch.Tensor) -> torch.Tensor:
+    """The rank's stored part of a leaf: a DTensor's (FSDP's) local
+    shard, a plain tensor itself."""
+    return getattr(t, "_local_tensor", t)
+
+
+def is_replica0(sharding: Sharding, name: str) -> bool:
+    """True on the one rank of each region that writes it: coordinate 0
+    on every axis the leaf is not cut over."""
+    cut = sharding.sharded_axes(name)
+    return all(c == 0 for a, (c, n) in sharding.coords.items()
+               if n > 1 and a not in cut)
+
+
+def place(local: torch.Tensor, sharding: Sharding, name: str,
+          out: torch.Tensor) -> None:
+    """Write this rank's region of leaf `name` from its stored `local`
+    tensor into `out`, the whole leaf."""
+    for gbox, lbox in sharding.region(name):
+        out[tuple(slice(a, b) for a, b in gbox)] = local[
+            tuple(slice(a, b) for a, b in lbox)]
+
+
+@torch.no_grad()
+def full_parameters(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """Every parameter of a sharded model whole, in the single-rank
+    layout, on every rank: each region written by its replica 0 and the
+    world summed (a collective: every rank calls it)."""
+    import torch.distributed as tdist
+
+    sharding: Sharding = model.sharding
+    out = {}
+    for name, p in model.named_parameters():
+        whole = torch.zeros(sharding.layouts[name].shape, dtype=p.dtype,
+                            device=p.device)
+        if is_replica0(sharding, name):
+            place(local_tensor(p.detach()), sharding, name, whole)
+        tdist.all_reduce(whole, op=tdist.ReduceOp.SUM)
+        out[name] = whole
+    return out
+
+
+def parallelize(model: nn.Module, mesh, *, model_name: str, fsdp: bool,
+                min_leaf_size: int = 1024):
+    """The reference's layout of `model` on `mesh`, as the train loop
+    runs it: the tensor rules of `model_name` (with FSDP's data cut when
+    `fsdp`) laid out by `shard_state` when the tensor axis or FSDP's data
+    axis has more than one rank, FSDP2 over the data ranks when a leaf
+    is cut over them, else DDP over the data ranks when there are
+    several. Returns (forward, after_backward): what runs the model, and
+    the hook a train step calls after each backward (None but under
+    FSDP). The tensor group's grads need no synchronisation: they are
+    exact on every rank."""
+    c = coords(mesh)
+    dp, tp = c[DATA][1], c[TENSOR][1]
+    forward, after_backward = model, None
+    if tp > 1 or (fsdp and dp > 1):
+        rules = param_sharding_rules(model_name)
+        if fsdp:
+            rules = fsdp_rules(dp, rules, min_leaf_size=min_leaf_size)
+        sharding = shard_state(model, mesh, rules, model_name)
+        if any(data_dim(s) is not None for s in sharding.specs.values()):
+            after_backward = apply_fsdp(model, mesh[DATA], sharding.specs,
+                                        sharding.groups[DATA])
+    if dp > 1 and after_backward is None:
+        from torch.nn.parallel import DistributedDataParallel
+
+        from ddp_practice_tpu_torch.ops.batchnorm import BatchNorm
+
+        device = next(model.parameters()).device
+        # BatchNorm's statistics are all-reduced (SyncBN): every rank
+        # holds the same running buffers, so DDP's per-forward broadcast
+        # of rank 0's would move nothing
+        synced = any(isinstance(m, BatchNorm) for m in model.modules())
+        forward = DistributedDataParallel(
+            model, device_ids=[device.index] if device.type == "cuda"
+            else None, broadcast_buffers=not synced,
+            process_group=group(mesh, DATA))
+    return forward, after_backward

@@ -35,10 +35,20 @@ metrics stay on the device and are read back only at log steps and at
 the end of an epoch, so the host runs ahead of the card between them.
 
 Data parallelism: run one process per card under torchrun (or pass
-`coordinator_address`, `num_processes` and `process_id`); the global batch
-is `batch_size x world size`, each rank takes `ShardSpec.local_slice` of
-every global batch, the model runs wrapped in DistributedDataParallel, and
-eval sums are all-reduced. `fused_encoder` ("auto" | "on" | "off") is the
+`coordinator_address`, `num_processes` and `process_id`; on one card, the
+ranks as threads, parallel/threads.py). The ranks form the reference's
+mesh (`config.mesh`, parallel/mesh.py `build_mesh`); the global batch is
+`batch_size x` the data degree, each rank takes its data coordinate's
+`ShardSpec.local_slice` of every global batch (the ranks of one tensor
+group read the same rows), and the model is laid out by
+`parallel.mesh.parallelize`: tensor parallelism over `mesh.tensor`
+(Megatron, parallel/tensor.py), FSDP2 over the data ranks with `fsdp`,
+else DistributedDataParallel over the data ranks; eval sums are
+all-reduced over the data ranks. The tensor group's grads are exact
+without a collective. A sharded model trains one step a call from host
+batches: its resident and captured steps raise (ROADMAP A8e), and
+`data_placement="auto"` takes the host path. MFU and the per-chip rates
+divide by every rank. `fused_encoder` ("auto" | "on" | "off") is the
 reference's flag: "on" forces the fused encoder layer and raises for a
 model that does not take it or a shape the kernels refuse. The image task
 trains the ConvNet (the default: `convnet` on `mnist`), ResNet-18 and
@@ -97,9 +107,14 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as tdist
 
 import ddp_practice_tpu_torch.checkpoint as ckpt
-from ddp_practice_tpu_torch.config import TrainConfig, resolve_device
+from ddp_practice_tpu_torch.config import (
+    MeshConfig,
+    TrainConfig,
+    resolve_device,
+)
 from ddp_practice_tpu_torch.data.datasets import load_dataset
 from ddp_practice_tpu_torch.data.loader import DataLoader, prefetch_chunked
 from ddp_practice_tpu_torch.data.lm_corpus import (
@@ -108,10 +123,16 @@ from ddp_practice_tpu_torch.data.lm_corpus import (
     load_text_corpus,
     synthetic_token_corpus,
 )
-from ddp_practice_tpu_torch.data.sharding import ShardSpec
 from ddp_practice_tpu_torch.models import accepts_fused, create_model
 from ddp_practice_tpu_torch.models import _NOT_PORTED as _MODELS_NOT_PORTED
 from ddp_practice_tpu_torch.parallel import dist
+from ddp_practice_tpu_torch.parallel.mesh import (
+    axis_size,
+    batch_shard,
+    build_mesh,
+    parallelize,
+)
+from ddp_practice_tpu_torch.parallel.mesh import group as mesh_group
 from ddp_practice_tpu_torch.train.state import TrainState, make_optimizer
 from ddp_practice_tpu_torch.train.steps import (
     make_chunked_eval_step,
@@ -126,7 +147,6 @@ from ddp_practice_tpu_torch.train.steps import (
     make_resident_train_step,
     make_train_step,
 )
-from ddp_practice_tpu_torch.ops.batchnorm import BatchNorm
 from ddp_practice_tpu_torch.utils import flops, profiling
 from ddp_practice_tpu_torch.utils.timing import Timer
 
@@ -165,7 +185,9 @@ class Trainer:
             device = torch.device("cuda", torch.cuda.current_device())
         self.device = device
         self.world = dist.process_count()
-        self.dp = config.mesh.resolve(self.world)
+        self.mesh = build_mesh(config.mesh, device.type)
+        self.dp = axis_size(self.mesh, MeshConfig.AXIS_DATA)
+        self.tp = axis_size(self.mesh, MeshConfig.AXIS_TENSOR)
         self.global_batch = config.batch_size * self.dp
         self.task = "lm" if config.model.lower().startswith("lm") else "image"
         name = config.model.lower()
@@ -181,7 +203,8 @@ class Trainer:
                 "--augment is image-input augmentation (random crop + "
                 "flip, ops/augment.py); it does not apply to token "
                 "streams")
-        shard = ShardSpec(dist.process_index(), self.world)
+        # the ranks of one tensor group read the same rows
+        shard = batch_shard(self.mesh)
         model_kwargs = {}
         if self.task == "lm":
             self.train_ds = self.eval_ds = None
@@ -269,23 +292,13 @@ class Trainer:
                                   policy=config.precision_policy(),
                                   device=self.device, seed=config.seed,
                                   **model_kwargs)
-        self.forward = self.model
-        if self.world > 1:
-            from torch.nn.parallel import DistributedDataParallel
-
-            # BatchNorm's statistics are all-reduced (SyncBN): every rank
-            # holds the same running buffers, so DDP's per-forward
-            # broadcast of rank 0's would move nothing
-            synced = any(isinstance(m, BatchNorm)
-                         for m in self.model.modules())
-            self.forward = DistributedDataParallel(
-                self.model,
-                device_ids=([self.device.index]
-                            if self.device.type == "cuda" else None),
-                broadcast_buffers=not synced)
+        self.sharded = self.tp > 1 or (config.fsdp and self.dp > 1)
+        self.forward, self.after_backward = parallelize(
+            self.model, self.mesh, model_name=config.model,
+            fsdp=config.fsdp)
         optimizer = make_optimizer(config, self.model,
                                    self.train_loader.steps_per_epoch,
-                                   self.world)
+                                   self.dp)
         self.state = TrainState(step=0, model=self.model,
                                 optimizer=optimizer)
         if (config.resume and config.checkpoint_dir
@@ -321,6 +334,15 @@ class Trainer:
         if self.task == "image":
             common["augment"] = cfg.augment_kind if cfg.augment else False
         k = cfg.steps_per_call
+        if self.sharded and (k != 1 or cfg.data_placement == "device"):
+            raise NotImplementedError(
+                f"steps_per_call={k}, data_placement="
+                f"{cfg.data_placement!r} under tensor={self.tp}, fsdp="
+                f"{cfg.fsdp}: the resident and captured steps of a sharded "
+                "model are not ported yet (ROADMAP A8e); run one step a "
+                "call from host batches")
+        if self.after_backward is not None:
+            common["after_backward"] = self.after_backward
         if self.task == "lm":
             self.train_step = make_lm_train_step(self.model, **common)
             self.eval_step = make_lm_eval_step(self.model)
@@ -374,7 +396,7 @@ class Trainer:
         `resident_max_bytes` (token streams counted as int32); 'host'
         never."""
         cfg = self.config
-        if cfg.data_placement == "host":
+        if cfg.data_placement == "host" or self.sharded:
             return False
         multi = self.world > 1
         if cfg.data_placement == "device":
@@ -666,10 +688,14 @@ class Trainer:
                     step = (self.chunk_eval_step if tag == "chunk"
                             else self.eval_step)
                     sums += torch.stack(step(self.state, batch))
+        # over the data ranks: a tensor group's ranks hold the same sums
+        data = mesh_group(self.mesh, MeshConfig.AXIS_DATA)
+        if data is not None:
+            tdist.all_reduce(sums, op=tdist.ReduceOp.SUM, group=data)
         if self.task == "image":
-            correct, total = dist.all_reduce_sum(sums).tolist()
+            correct, total = sums.tolist()
             return correct / max(total, 1.0)
-        correct, total, nll = dist.all_reduce_sum(sums).tolist()
+        correct, total, nll = sums.tolist()
         t = max(total, 1.0)
         self.eval_perplexity = math.exp(min(nll / t, 30.0))
         return correct / t

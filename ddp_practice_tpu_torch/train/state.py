@@ -52,9 +52,11 @@ import math
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as tdist
 from torch import nn
 
 from ddp_practice_tpu_torch.config import TrainConfig
+from ddp_practice_tpu_torch.parallel.mesh import local_tensor as _local
 
 
 @dataclasses.dataclass
@@ -137,8 +139,20 @@ class Optimizer:
     """The reference's optimizer chain over the parameters' `.grad`."""
 
     def __init__(self, params, config: TrainConfig, steps_per_epoch: int,
-                 world_size: int = 1):
+                 world_size: int = 1, norm_groups=None):
+        """`world_size` is the data-parallel degree (what
+        `scale_lr_by_replicas` multiplies by); `norm_groups`, one tuple
+        of process groups per parameter, the groups each is sharded
+        over (`global_norm`)."""
         self.params = [p for p in params if p.requires_grad]
+        self.norm_groups = norm_groups
+        # what the torch optimizer updates: each parameter, or an FSDP
+        # parameter's local shard (torch's foreach Adam cannot mix a
+        # DTensor with its plain lr tensor); the state is then the
+        # shard's, which is the ZeRO partition
+        self.inner_params = [_local(p) for p in self.params]
+        self._shards = any(q is not p for q, p in
+                           zip(self.inner_params, self.params))
         device = self.params[0].device
         lr = config.learning_rate
         if config.scale_lr_by_replicas:
@@ -158,15 +172,15 @@ class Optimizer:
         capturable = device.type == "cuda"
         if name == "sgd":
             self.inner = torch.optim.SGD(
-                self.params, lr=self.lr, momentum=config.momentum,
+                self.inner_params, lr=self.lr, momentum=config.momentum,
                 weight_decay=config.weight_decay)
         elif name == "adam":
             self.inner = torch.optim.Adam(
-                self.params, lr=self.lr, betas=(0.9, 0.999), eps=1e-8,
+                self.inner_params, lr=self.lr, betas=(0.9, 0.999), eps=1e-8,
                 capturable=capturable)
         elif name == "adamw":
             self.inner = torch.optim.AdamW(
-                self.params, lr=self.lr, betas=(0.9, 0.999), eps=1e-8,
+                self.inner_params, lr=self.lr, betas=(0.9, 0.999), eps=1e-8,
                 weight_decay=config.weight_decay, capturable=capturable)
         else:
             raise ValueError(f"unknown optimizer {name!r}")
@@ -199,8 +213,9 @@ class Optimizer:
                 p.grad = acc.clone()
                 acc.zero_()
         if self.clip_norm:
-            grads = [p.grad for p in self.params]
-            norm = global_norm(grads)
+            norm = global_norm([p.grad for p in self.params],
+                               self.norm_groups)
+            grads = [_local(p.grad) for p in self.params]
             # the reference: t stays below the limit, else t / norm * limit
             scale = torch.where(norm < self.clip_norm, 1.0,
                                 self.clip_norm / norm)
@@ -217,6 +232,9 @@ class Optimizer:
         if isinstance(self.inner, torch.optim.SGD):
             self._sgd()
         else:
+            if self._shards:
+                for q, p in zip(self.inner_params, self.params):
+                    q.grad = _local(p.grad)
             self.inner.step()
         self.applies += 1
         return True
@@ -227,12 +245,13 @@ class Optimizer:
         the lr read as a tensor: update = g (+ wd * p); trace = momentum *
         trace + update (the first apply: update); p -= lr * trace."""
         group = self.inner.param_groups[0]
-        grads = [p.grad for p in self.params]
+        params = self.inner_params
+        grads = [_local(p.grad) for p in self.params]
         if group["weight_decay"]:
-            grads = torch._foreach_add(grads, self.params,
+            grads = torch._foreach_add(grads, params,
                                        alpha=group["weight_decay"])
         if group["momentum"]:
-            state = [self.inner.state[p] for p in self.params]
+            state = [self.inner.state[p] for p in params]
             if all("momentum_buffer" in st for st in state):
                 bufs = [st["momentum_buffer"] for st in state]
                 torch._foreach_mul_(bufs, group["momentum"])
@@ -242,21 +261,52 @@ class Optimizer:
                 for st, buf in zip(state, bufs):
                     st["momentum_buffer"] = buf
             grads = bufs
-        torch._foreach_sub_(self.params, torch._foreach_mul(grads, self.lr))
+        torch._foreach_sub_(params, torch._foreach_mul(grads, self.lr))
 
 
-def global_norm(tensors) -> torch.Tensor:
+def global_norm(tensors, groups=None) -> torch.Tensor:
     """The reference's global norm: the L2 norm over every element, fp32,
-    on the device (no readback)."""
-    return torch.linalg.vector_norm(torch.stack(
-        [n.float() for n in torch._foreach_norm(list(tensors))]))
+    on the device (no readback). With `groups` (one tuple of process
+    groups per tensor: those it is sharded over) each tensor is a shard
+    (a DTensor's local shard under FSDP): the squared norms are summed
+    over the ranks of its groups, so each leaf counts once whatever its
+    layout, and every rank gets the same norm."""
+    tensors = list(tensors)
+    if groups is None:
+        return torch.linalg.vector_norm(torch.stack(
+            [n.float() for n in torch._foreach_norm(tensors)]))
+    by_groups: dict = {}
+    for t, g in zip(tensors, groups):
+        by_groups.setdefault(tuple(g), []).append(_local(t))
+    total = None
+    for g, ts in by_groups.items():
+        sq = torch.stack([n.float() for n in torch._foreach_norm(ts)])
+        sq = (sq * sq).sum()
+        for pg in g:
+            tdist.all_reduce(sq, op=tdist.ReduceOp.SUM, group=pg)
+        total = sq if total is None else total + sq
+    return torch.sqrt(total)
 
 
 def make_optimizer(config: TrainConfig, model: nn.Module,
                    steps_per_epoch: int = 0,
                    world_size: int = 1) -> Optimizer:
+    """The optimizer over `model`'s parameters, as they stand (build it
+    after parallel/ has laid them out: its state then mirrors their
+    layout); `world_size` is the data-parallel degree."""
     return Optimizer(model.parameters(), config, steps_per_epoch,
-                     world_size)
+                     world_size, norm_groups(model))
+
+
+def norm_groups(model: nn.Module):
+    """For each trainable parameter of a model laid out over ranks
+    (parallel/mesh.py `model.sharding`), the process groups it is cut
+    over (`global_norm`'s `groups`); None for a model that is not."""
+    sharding = getattr(model, "sharding", None)
+    if sharding is None:
+        return None
+    return [tuple(sharding.groups[a] for a in sharding.sharded_axes(n))
+            for n, p in model.named_parameters() if p.requires_grad]
 
 
 def create_state(model: nn.Module, optimizer: Optional[Optimizer] = None,

@@ -70,7 +70,11 @@ from ddp_practice_tpu_torch.ops.augment import (
 from ddp_practice_tpu_torch.ops.losses import accuracy_counts, cross_entropy
 from ddp_practice_tpu_torch.ops.moe import moe_layers
 from ddp_practice_tpu_torch.parallel import dist
-from ddp_practice_tpu_torch.train.state import TrainState, global_norm
+from ddp_practice_tpu_torch.train.state import (
+    TrainState,
+    global_norm,
+    norm_groups,
+)
 from ddp_practice_tpu_torch.utils.graphs import StepGraph
 
 
@@ -119,13 +123,17 @@ def _commit_router_bias(layers) -> None:
 
 def make_lm_train_step(model: nn.Module, *, label_smoothing: float = 0.0,
                        seed: int = 0, with_accuracy: bool = True,
-                       forward: Optional[nn.Module] = None):
+                       forward: Optional[nn.Module] = None,
+                       after_backward=None):
     """(state, batch) -> (state, metrics). batch["tokens"] is (b, s+1)
     int on the model's device; optional batch["weight"] (b, s) masks
     positions out of the mean loss. `forward` is what runs the model (its
-    DDP wrapper under data parallelism; `model` itself by default)."""
+    DDP wrapper under data parallelism; `model` itself by default);
+    `after_backward`, when given, runs after each backward (FSDP's
+    average of its replicated leaves' grads, parallel/fsdp.py)."""
     net = forward if forward is not None else model
     params = [p for p in model.parameters() if p.requires_grad]
+    groups = norm_groups(model)
     moes = moe_layers(model)
 
     def train_step(state: TrainState, batch: dict):
@@ -141,8 +149,10 @@ def make_lm_train_step(model: nn.Module, *, label_smoothing: float = 0.0,
         loss = loss + _sown_aux_loss(moes)
         moe_metrics = _moe_metrics(moes)
         loss.backward()
+        if after_backward is not None:
+            after_backward()
         _commit_router_bias(moes)
-        grad_norm = global_norm([p.grad for p in params])
+        grad_norm = global_norm([p.grad for p in params], groups)
         state.optimizer.step()
         state.advance()
         with torch.no_grad():
@@ -192,14 +202,17 @@ def prepare_image(img: torch.Tensor) -> torch.Tensor:
 
 def make_train_step(model: nn.Module, *, label_smoothing: float = 0.0,
                     seed: int = 0, augment=False,
-                    forward: Optional[nn.Module] = None):
+                    forward: Optional[nn.Module] = None,
+                    after_backward=None):
     """(state, batch) -> (state, metrics) for the image task.
     batch["image"] is (b, H, W, C) uint8 or float, batch["label"] (b,) int,
     both on the model's device. `augment` is an augmentation kind
-    (ops/augment.py `apply_augment`)."""
+    (ops/augment.py `apply_augment`); `forward` and `after_backward` as
+    in `make_lm_train_step`."""
     check_kind(augment)
     net = forward if forward is not None else model
     params = [p for p in model.parameters() if p.requires_grad]
+    groups = norm_groups(model)
     moes = moe_layers(model)
 
     def train_step(state: TrainState, batch: dict):
@@ -217,8 +230,10 @@ def make_train_step(model: nn.Module, *, label_smoothing: float = 0.0,
         loss = loss + _sown_aux_loss(moes)
         moe_metrics = _moe_metrics(moes)
         loss.backward()
+        if after_backward is not None:
+            after_backward()
         _commit_router_bias(moes)
-        grad_norm = global_norm([p.grad for p in params])
+        grad_norm = global_norm([p.grad for p in params], groups)
         state.optimizer.step()
         state.advance()
         with torch.no_grad():

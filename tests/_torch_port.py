@@ -56,3 +56,14 @@ def build_pair(seed: int = 0, **kw):
     tm = create_model("lm_tiny", device="cpu", **cfg)
     load_flax_params(tm, params)
     return jm, jax.tree.map(jnp.asarray, params), tm
+
+
+def ranks(fn, world: int, deadline: float = 60.0):
+    """[fn(rank) for every rank] with the ranks as threads of this process
+    (the port's threaded process group, parallel/threads.py), no new
+    process. A rank that raises, or ranks still running after `deadline`
+    seconds, fail the case instead of hanging the worker; the process
+    leaves the threaded world either way."""
+    from ddp_practice_tpu_torch.parallel.threads import run_ranks
+
+    return run_ranks(fn, world, timeout=deadline)

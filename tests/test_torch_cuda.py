@@ -78,6 +78,7 @@ its weights in shared memory; a width above 256 takes the row passes'
 general path.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -1478,3 +1479,104 @@ def test_a_restore_after_the_capture_captures_again(card, tmp_path):
         for name, value in model.state_dict().items():
             torch.testing.assert_close(value, after[name], rtol=1e-5,
                                        atol=1e-5, msg=name)
+
+
+# ------------------------------------------- ROADMAP A8a: sharded lm_base
+SHARDED_LEGS = {"tensor2": (dict(mesh=dict(tensor=2)), 2),
+                "fsdp": (dict(fsdp=True), 2),
+                "tensor2_fsdp": (dict(fsdp=True, mesh=dict(tensor=2)), 4)}
+
+
+def _sharded_trainer(world, optimizer, **kw):
+    """lm_base, fp32, flash, seq 512, global batch 4."""
+    from ddp_practice_tpu_torch.config import MeshConfig
+
+    mesh = kw.pop("mesh", None)
+    if mesh is not None:
+        kw["mesh"] = MeshConfig(**mesh)
+    dp = world // (mesh or {}).get("tensor", 1)
+    return _trainer(model="lm_base", attn_impl="flash", seq_len=512,
+                    batch_size=4 // dp, optimizer=optimizer,
+                    learning_rate=1e-2 if optimizer == "sgd" else 1e-4,
+                    momentum=0.9 if optimizer == "sgd" else 0.0,
+                    clip_norm=1.0, data_placement="host", **kw)
+
+
+def _sharded_steps(trainer, n=2):
+    trainer.train_loader.set_epoch(0)
+    batches = trainer._device_batches(trainer.train_loader)
+    losses = []
+    for _ in range(n):
+        trainer.state, m = trainer.train_step(trainer.state, next(batches))
+        losses.append(float(m["loss"]))
+    return losses
+
+
+@pytest.mark.parametrize("optimizer", ["sgd", "adamw"])
+@pytest.mark.parametrize("leg", sorted(SHARDED_LEGS))
+def test_sharded_lm_base_steps_equal_one_rank(card, leg, optimizer):
+    """Two steps under tensor 2, FSDP over data 2 and both (the ranks as
+    threads on this card) against one rank: loss rtol 2e-4; under SGD
+    every parameter rtol 1e-3 / atol 1e-5 (Adam turns rounding noise in
+    near-zero grads into lr-sized updates: its loss only); E/F/G launch
+    12 forward and 12 backward a step on each rank (6 heads: packed)."""
+    from ddp_practice_tpu_torch.ops import flash_attention as fa
+    from ddp_practice_tpu_torch.parallel.mesh import full_parameters
+    from ddp_practice_tpu_torch.parallel.threads import run_ranks
+
+    kw, world = SHARDED_LEGS[leg]
+    ref = _sharded_trainer(1, optimizer)
+    want_losses = _sharded_steps(ref)
+    want = {n: p.detach().clone() for n, p in ref.model.named_parameters()}
+    del ref
+    fa.reset_launches()
+
+    def rank(r):
+        t = _sharded_trainer(world, optimizer, **dict(kw))
+        return _sharded_steps(t), full_parameters(t.model)
+
+    res = run_ranks(rank, world, timeout=300)
+    for losses, _ in res:
+        np.testing.assert_allclose(losses, want_losses, rtol=2e-4)
+    if optimizer == "sgd":
+        got = res[0][1]
+        for n, w in want.items():
+            torch.testing.assert_close(got[n], w, rtol=1e-3, atol=1e-5)
+    assert fa.LAUNCHES["flash_fwd_packed"] == world * 12 * 2
+    assert fa.LAUNCHES["flash_bwd_packed"] == world * 12 * 2
+
+
+def test_sharded_generate_on_the_card(card):
+    """lm_base's widths at depth 2, greedy, tensor 2: the tokens of one
+    rank, kernel A launching on each rank's 6 heads every token."""
+    from ddp_practice_tpu_torch.config import MeshConfig
+    from ddp_practice_tpu_torch.inference import make_generate_fn
+    from ddp_practice_tpu_torch.models import create_model
+    from ddp_practice_tpu_torch.ops import decode_attention as da
+    from ddp_practice_tpu_torch.parallel.mesh import build_mesh, shard_state
+    from ddp_practice_tpu_torch.parallel.sharding_rules import (
+        param_sharding_rules,
+    )
+    from ddp_practice_tpu_torch.parallel.threads import run_ranks
+
+    def model():
+        return create_model("lm_base", device="cuda", seed=4, depth=2,
+                            vocab_size=256, max_len=256, pos_emb="rope")
+
+    prompt = torch.randint(0, 256, (3, 9),
+                           generator=torch.Generator().manual_seed(0))
+    want = make_generate_fn(model(), max_new_tokens=16,
+                            temperature=0.0)(prompt).cpu()
+    da.reset_launches()
+
+    def rank(r):
+        m = model()
+        shard_state(m, build_mesh(MeshConfig(tensor=2), "cuda"),
+                    param_sharding_rules("lm_base"), "lm_base")
+        assert m.blocks[0].attn.num_heads == 6
+        return make_generate_fn(m, max_new_tokens=16,
+                                temperature=0.0)(prompt).cpu()
+
+    for got in run_ranks(rank, 2, timeout=300):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert da.LAUNCHES["decode_attention"] == 2 * 2 * 16

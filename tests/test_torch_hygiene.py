@@ -230,13 +230,16 @@ TRAIN_SLICE = ["data/sharding.py", "data/lm_corpus.py", "data/datasets.py",
                "data/ingest.py", "generate.py", "serve/bench.py",
                "experiments/convnet_step.py", "models/resnet.py",
                "ops/augment.py", "data/native_loader.py", "convert.py",
-               "benchmarks.py"]
+               "benchmarks.py", "parallel/mesh.py",
+               "parallel/sharding_rules.py", "parallel/fsdp.py",
+               "parallel/tensor.py", "parallel/threads.py"]
 STDLIB = ("__future__", "typing", "argparse", "collections", "contextlib",
           "ctypes", "dataclasses", "fcntl", "gzip", "hashlib", "json",
           "logging", "math", "os", "pathlib", "pickle", "platform", "re",
           "shutil",
           "socket", "statistics", "struct", "subprocess", "sys", "tarfile",
           "tempfile", "threading", "time", "traceback", "urllib.request",
+          "datetime",
           "uuid", "warnings")
 
 

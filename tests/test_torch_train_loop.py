@@ -122,12 +122,35 @@ def test_cli_trains_lm_moe_on_the_cpu(router, capsys, tmp_path):
 
 @pytest.mark.parametrize("argv,item", [
     (["--model", "lm_tiny", "--expert", "2"], "A8"),
-    (["--model", "lm_tiny", "--tensor", "2"], "A8"),
+    (["--model", "lm_tiny", "--seq", "2"], "A8"),
     (["--model", "lm_pipe"], "A8"),
 ])
 def test_unported_paths_name_their_roadmap_item(argv, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         cli.main(argv + ["--device", "cpu", "--seq_len", "16", "-b", "2"])
+
+
+@pytest.mark.parametrize("argv", [
+    ["--tensor", "2"], ["--fsdp"], ["--tensor", "2", "--fsdp"]],
+    ids=["tensor", "fsdp", "tensor-fsdp"])
+def test_tensor_and_fsdp_flags_run(argv, capsys):
+    """ROADMAP A8a's flags through the CLI, the ranks as threads (one
+    process: a lone rank refuses --tensor 2 with the reference's
+    divisibility error)."""
+    from _torch_port import ranks
+
+    common = ["--model", "lm_tiny", "--device", "cpu", "--seq_len", "16",
+              "-b", "2", "--max_steps", "2", "-e", "1", "--num_heads", "4",
+              "--synthetic_size", "20000", "--log_every", "0", "--json"]
+    world = 4 if len(argv) == 3 else 2
+    assert ranks(lambda r: cli.main(argv + common), world) == [0] * world
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert summary["steps"] == 2 and summary["devices"] == world
+    dp = world // (2 if "--tensor" in argv else 1)
+    assert summary["global_batch"] == 2 * dp
+    if "--tensor" in argv:
+        with pytest.raises(ValueError, match="not divisible by"):
+            cli.main(argv + common)
 
 
 # ROADMAP A2's paths, which raised before it was ported, now run
