@@ -270,15 +270,34 @@ later launch in the process.
    the one-rank generate (tokens identical, kernel A 12 launches per
    token per rank). Step times there are of ranks sharing one card, not
    a speed. The phase prints its wall time.
+29. sequence (ROADMAP A8b; right after phase 28): the same lm_base run
+   (PAR_ARGS, global batch 4, 3 steps) under --seq 2 --sp_impl ring,
+   --seq 4 --sp_impl ring, --seq 2 --sp_impl ulysses and --tensor 2
+   --seq 2 --sp_impl ulysses, the ranks as threads on the one card, each
+   held to phase 28's one-rank run (loss rtol 2e-4, every parameter rtol
+   1e-3 / atol 1e-5). Each rank reads its own E and G+F launches a step
+   (`_RankTally`): the causal ring 12 (r + 1) on rank r (the folded row:
+   r earlier blocks full, its own causal, the later ones skipped),
+   Ulysses 12 packed at 6 heads a rank (seq 2) and 12 on the folded row
+   at 3 heads ("heads" route; tensor 2 x seq 2). Then the ring's kernel
+   check: its flash local (E per block, the logsumexp merge, G+F with
+   the merge's lse cotangent) against its plain blockwise local on 4
+   ranks at (b, s, h, d) = (2, 2048, 12, 64), bf16 and fp32, causal and
+   not: output, merged lse and dq, dk, dv of a loss reading out and lse,
+   element by element within the flash rows' limits, in relative norm
+   within FLASH_REL (fp32) and RING_REL (bf16: the plain local rounds
+   nothing before its output). The legs' launches join the flash rows'
+   in the kernels' record; the phase prints its wall time.
 
 Launch counts are zeroed just before each phase's run and read just
 after it; a train leg's count is its wrappers' (eager calls) plus its
 graph replays' (utils/graphs.REPLAYED). The kernels' record adds the MoE
-serve rows' launches to A's and C's, and the sorted decode leg's to J's.
-The ConvNet's, lm_base's and vit_tiny's leg lines end with the card's
-name and power limit. The second-to-last line is the kernels' JSON
-record; the last line is {"ok": true, "device": {...}}. Without a CUDA device the script
-exits non-zero and prints no result.
+serve rows' launches to A's and C's, the sorted decode leg's to J's, and
+the sequence legs' to E/F/G's. The ConvNet's, lm_base's and vit_tiny's
+leg lines end with the card's name and power limit. Before the card's
+line the script prints its own wall time. The second-to-last line is the
+kernels' JSON record; the last line is {"ok": true, "device": {...}}.
+Without a CUDA device the script exits non-zero and prints no result.
 
 Tolerances: fp32 2e-5 (the reference's decode-attention tests). bf16
 |err| <= 1.6e-2 + 2^-7 |ref|: each kernel and its plain version round at
@@ -314,6 +333,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 H, HD = 12, 64
@@ -351,6 +371,12 @@ PEAK = {"bfloat16": 989.4e12, "float32": 67e12}
 FLASH_TOL = {"float32": ((2e-5, 2e-5), (1e-4, 1e-4)),
              "bfloat16": (BF16_TOL, BF16_TOL)}
 FLASH_REL = {"float32": 1e-5, "bfloat16": 2e-3}
+# the sequence phase's ring check holds the flash local (bf16 p, block
+# outputs and cotangents, at E/F/G's rounding points) against the plain
+# blockwise local, which rounds nothing before its output: in bf16 the
+# extra roundings leave 2.3e-3 to 4.4e-3 in relative norm (an H100 run);
+# a tile computed wrong moves its elements by their own size (> 1e-1)
+RING_REL = {"float32": FLASH_REL["float32"], "bfloat16": 1e-2}
 FUSED_SOURCE = "ddp_practice_tpu_torch/csrc/fused_encoder.cu"
 FUSED_REPLACES = {
     "fused_encoder_fwd": "ddp_practice_tpu/ops/fused_encoder.py:542",
@@ -935,9 +961,10 @@ def _flash_bound_ms(b, h, sq, sk, d, causal, dtype, elt, backward):
                                  else "bytes")
 
 
-def _flash_err(torch, name, got, want, dtype, backward, what):
+def _flash_err(torch, name, got, want, dtype, backward, what, rel_limit=None):
     """(max |got - want|, ||got - want|| / ||want||) of one tensor; raises
-    past FLASH_TOL element by element or past FLASH_REL in norm."""
+    past FLASH_TOL element by element or past `rel_limit` (FLASH_REL by
+    default) in norm."""
     torch.cuda.synchronize()
     if not torch.isfinite(got).all():
         raise AssertionError(f"non-finite {name} output: {what}")
@@ -945,7 +972,9 @@ def _flash_err(torch, name, got, want, dtype, backward, what):
     atol, rtol = FLASH_TOL[dtype][backward]
     err = (got - want).abs()
     rel = float((got - want).norm() / want.norm().clamp_min(1e-30))
-    if (err > atol + rtol * want.abs()).any() or rel > FLASH_REL[dtype]:
+    if rel_limit is None:
+        rel_limit = FLASH_REL[dtype]
+    if (err > atol + rtol * want.abs()).any() or rel > rel_limit:
         raise AssertionError(
             f"{name} disagrees with its plain version: {what}: max |err| "
             f"{float(err.max()):.3e}, relative norm {rel:.3e}")
@@ -2686,13 +2715,24 @@ PAR_LEGS = [("tensor 2", ["--tensor", "2", "-b", "4"], 2),
             ("tensor 2 x fsdp data 2", ["--tensor", "2", "--fsdp", "-b",
                                         "2"], 4)]
 PAR_NEW_TOKENS = 32
+# the sequence phase's legs: (label, flags, ranks); global batch 4 each
+SEQ_LEGS = [("seq 2 ring", ["--seq", "2", "--sp_impl", "ring", "-b", "4"],
+             2),
+            ("seq 4 ring", ["--seq", "4", "--sp_impl", "ring", "-b", "4"],
+             4),
+            ("seq 2 ulysses", ["--seq", "2", "--sp_impl", "ulysses", "-b",
+                               "4"], 2),
+            ("tensor 2 x seq 2 ulysses", ["--tensor", "2", "--seq", "2",
+                                          "--sp_impl", "ulysses", "-b",
+                                          "4"], 4)]
 
 
-def _par_epoch(torch, trainer, fa, world):
+def _par_epoch(torch, trainer, fa, world, tally=None):
     """One epoch of the trainer (its `max_steps` steps), each step's loss
     and, read on rank 0 between barriers, the flash kernels' launches per
     rank (the counts are the process's: the step's delta over the world)
-    and its wall time."""
+    and its wall time. With `tally` (a `_RankTally`) every rank reads its
+    own launches of each step."""
     import torch.distributed as tdist
 
     step = trainer.train_step
@@ -2705,15 +2745,21 @@ def _par_epoch(torch, trainer, fa, world):
     def recorded(state, batch):
         barrier()
         before, t0 = dict(fa.LAUNCHES), time.monotonic()
+        mine = dict(tally.mine()) if tally is not None else None
         state, metrics = step(state, batch)
         losses.append(float(metrics["loss"]))
         torch.cuda.synchronize()
+        if tally is not None:
+            per_step.append({k: v - mine.get(k, 0)
+                             for k, v in tally.mine().items()
+                             if v != mine.get(k, 0)})
         barrier()
         if world == 1 or tdist.get_rank() == 0:
             times.append((time.monotonic() - t0) * 1e3)
-            per_step.append({k: (v - before[k]) / world
-                             for k, v in fa.LAUNCHES.items()
-                             if v != before[k]})
+            if tally is None:
+                per_step.append({k: (v - before[k]) / world
+                                 for k, v in fa.LAUNCHES.items()
+                                 if v != before[k]})
         barrier()
         return state, metrics
 
@@ -2746,11 +2792,12 @@ def parallel_phase(torch, fa, ops) -> dict:
     want_losses, _, ref_ms = _par_epoch(torch, ref, fa, 1)
     want = {n: p.detach().clone() for n, p in ref.model.named_parameters()}
     del ref
+    # the sequence phase holds its legs to the same run
+    report = {"launches": {}, "one_rank": (want_losses, want, depth)}
     torch.cuda.empty_cache()
     log(f"parallel[one rank] lm_base fp32 sgd, seq 2048, global batch 4, "
         f"3 steps: losses {', '.join(f'{x:.6f}' for x in want_losses)}; "
         f"step ms {', '.join(f'{x:.1f}' for x in ref_ms)} [{CARD}]")
-    report = {"launches": {}}
     for label, argv, world in PAR_LEGS:
         _reset_launches(fa)
 
@@ -2833,6 +2880,169 @@ def parallel_phase(torch, fa, ops) -> dict:
     log(f"parallel phase wall {report['wall_s']:.1f} s")
     torch.cuda.empty_cache()
     return report
+
+
+class _RankTally(dict):
+    """Stands in for a wrapper module's LAUNCHES while ranks run as
+    threads: each count a wrapper writes (its `+= 1` where it launches a
+    kernel) is also tallied for the thread that wrote it, a rank of
+    run_ranks, so each rank's launches read apart (and exactly: the
+    process-wide read-modify-write can lose an update between threads)."""
+
+    def __init__(self, counts):
+        super().__init__(counts)
+        self.by_thread: dict = {}
+
+    def __setitem__(self, key, value):
+        mine = self.by_thread.setdefault(threading.current_thread().name, {})
+        mine[key] = mine.get(key, 0) + 1
+        super().__setitem__(key, value)
+
+    def mine(self) -> dict:
+        return self.by_thread.get(threading.current_thread().name, {})
+
+    def total(self) -> dict:
+        out = {k: 0 for k in self}
+        for counts in self.by_thread.values():
+            for k, v in counts.items():
+                out[k] += v
+        return out
+
+
+def _seq_ring_check(torch, run_ranks) -> float:
+    """The ring's flash local (E per block, the merge, G+F with the
+    merge's lse cotangent) against its plain blockwise local on the card
+    at 4 seq ranks, (b, s, h, d) = (2, 2048, 12, 64): the output, the
+    merged lse and dq, dk, dv of a loss reading both, element by element
+    within the flash rows' limits (FLASH_TOL), in relative error norm
+    within FLASH_REL in fp32 and RING_BF16_REL in bf16. Returns the worst
+    |err|."""
+    from ddp_practice_tpu_torch.config import MeshConfig
+    from ddp_practice_tpu_torch.parallel import ring
+    from ddp_practice_tpu_torch.parallel.mesh import build_mesh, seq_group
+
+    world, (b, s, h, d) = 4, (2, 2048, 12, 64)
+    worst = 0.0
+    for dtype in ("bfloat16", "float32"):
+        tdt = getattr(torch, dtype)
+        g = torch.Generator(device="cuda").manual_seed(29)
+        q, k, v = (torch.randn((b, s, h, d), generator=g, device="cuda")
+                   .to(tdt) for _ in range(3))
+        w_out = torch.randn((b, s, h, d), generator=g, device="cuda")
+        w_lse = torch.randn((b, s, h), generator=g, device="cuda")
+        for causal in (False, True):
+            def rank(r, local):
+                sp = seq_group(build_mesh(MeshConfig(seq=world), "cuda"))
+                xs = [sp.chunk(t).detach().clone().requires_grad_(True)
+                      for t in (q, k, v)]
+                out, lse = local(*xs, sp=sp, causal=causal)
+                loss = ((out.float() * sp.chunk(w_out)).sum()
+                        + (lse * sp.chunk(w_lse)).sum())
+                grads = torch.autograd.grad(loss, xs)
+                torch.cuda.synchronize()
+                return [out.detach(), lse.detach(), *grads]
+
+            got, want = (
+                [torch.cat(parts, 1) for parts in zip(*run_ranks(
+                    lambda r, f=f: rank(r, f), world, timeout=300))]
+                for f in (ring._ring_flash_local, ring._ring_xla_local))
+            what = f"ring {'causal' if causal else 'full'} {dtype}"
+            errs = [_flash_err(torch, "ring E/F/G", a, b_, dtype, i > 1,
+                               f"{what} {n}", RING_REL[dtype])
+                    for i, (n, a, b_) in enumerate(zip(
+                        ("out", "lse", "dq", "dk", "dv"), got, want))]
+            worst = max([worst] + [e for e, _ in errs])
+            log(f"  sequence[ring kernel check] {what}, 4 ranks, b 2 s "
+                f"2048 h 12 d 64, flash local vs plain blockwise local: "
+                f"max |err| / relative norm " + "  ".join(
+                    f"{n} {e:.2e} / {r_:.2e}" for n, (e, r_) in zip(
+                        ("out", "lse", "dq", "dk", "dv"), errs)))
+            del got, want
+    return worst
+
+
+def _seq_expected(leg: str, rank: int, depth: int) -> dict:
+    """E and G+F launches a step on `rank` in a sequence leg: the causal
+    ring runs rank + 1 blocks a layer (its earlier blocks full, its own
+    causal, the later ones skipped) on the folded row; Ulysses one call
+    a layer, packed at 6 heads a rank (seq 2), "heads" (the folded row)
+    at 3 (tensor 2 x seq 2)."""
+    if "ring" in leg:
+        row, n = "folded", depth * (rank + 1)
+    else:
+        row, n = ("folded" if "tensor" in leg else "packed"), depth
+    return {f"flash_fwd_{row}": n, f"flash_bwd_{row}": n}
+
+
+def seq_phase(torch, fa, par) -> dict:
+    """ROADMAP A8b on one card (the docstring's phase 29): lm_base's
+    sequence-parallel legs against phase 28's one-rank run, then the
+    ring's kernel check. Returns {"launches": the legs' E/F/G launches,
+    "wall_s"}."""
+    from ddp_practice_tpu_torch.parallel.mesh import full_parameters
+    from ddp_practice_tpu_torch.parallel.threads import run_ranks
+
+    t_phase = time.monotonic()
+    want_losses, want, depth = par.pop("one_rank")
+    counts = fa.LAUNCHES
+    tally = fa.LAUNCHES = _RankTally({k: 0 for k in counts})
+    try:
+        for label, argv, world in SEQ_LEGS:
+            def rank(r, argv=argv, world=world):
+                trainer = _cli_trainer(PAR_ARGS + argv)
+                run = _par_epoch(torch, trainer, fa, world, tally)
+                return run, full_parameters(trainer.model)
+
+            t0 = time.monotonic()
+            res = run_ranks(rank, world, timeout=600)
+            wall = time.monotonic() - t0
+            (losses, _, times), got = res[0]
+            for (other, _, _), _ in res[1:]:
+                if other != losses:
+                    raise AssertionError(f"sequence[{label}]: ranks "
+                                         f"disagree on the loss: {other} "
+                                         f"vs {losses}")
+            loss_err = max(abs(a - b) / abs(b) for a, b in
+                           zip(losses, want_losses))
+            worst, worst_name = 0.0, None
+            for name, w in want.items():
+                excess = float(((got[name] - w).abs() - PAR_RTOL * w.abs())
+                               .max())
+                if excess > worst:
+                    worst, worst_name = excess, name
+            per_rank = [run[1] for run, _ in res]
+            log(f"sequence[{label}] {world} ranks as threads sharing one "
+                f"card: losses {', '.join(f'{x:.6f}' for x in losses)} "
+                f"(worst relative difference {loss_err:.2e}, limit "
+                f"{PAR_LOSS_RTOL}); parameters' worst |err| - rtol |want| "
+                f"{worst:.2e} (limit {PAR_ATOL}"
+                f"{', at ' + worst_name if worst_name else ''}); launches "
+                f"a step by rank {[s[0] for s in per_rank]}; step ms "
+                f"(ranks sharing one card, not a speed) "
+                f"{', '.join(f'{x:.1f}' for x in times)}; wall {wall:.1f} s "
+                f"[{CARD}]")
+            if loss_err > PAR_LOSS_RTOL or worst > PAR_ATOL:
+                raise AssertionError(f"sequence[{label}]: off the one-rank "
+                                     "run")
+            for r, steps in enumerate(per_rank):
+                expect = _seq_expected(label, r, depth)
+                if len(steps) != 3 or any(s != expect for s in steps):
+                    raise AssertionError(
+                        f"sequence[{label}]: rank {r} launched {steps} a "
+                        f"step, want {expect}")
+            del res, got
+            torch.cuda.empty_cache()
+        launches = tally.total()
+    finally:
+        fa.LAUNCHES = counts
+    del want
+    torch.cuda.empty_cache()
+    worst = _seq_ring_check(torch, run_ranks)
+    wall = time.monotonic() - t_phase
+    log(f"sequence phase: legs' launches (all ranks) {launches}; ring "
+        f"kernel check worst |err| {worst:.2e}; wall {wall:.1f} s")
+    torch.cuda.empty_cache()
+    return {"launches": launches, "wall_s": wall}
 
 
 def _cli_trainer(argv):
@@ -3924,6 +4134,7 @@ def a2_profiles(torch, r18, r50, data_dir):
 
 
 def main() -> int:
+    t_start = time.monotonic()
     import torch
 
     if not torch.cuda.is_available():
@@ -3971,6 +4182,7 @@ def main() -> int:
     # ROADMAP A8a: the sharded legs first, before any trace (their steps
     # are eager and their ranks threads of this process)
     par = parallel_phase(torch, fa, ops)
+    seq = seq_phase(torch, fa, par)
 
     # the MoE decode legs and the bench's decode entries are host-bound:
     # they run before any torch.profiler trace, which leaves host time on
@@ -4140,6 +4352,7 @@ def main() -> int:
     log(f"kernels A and B on the checkpoint's generate path: {gen_launches}")
     log(f"the parallel phase's launches (all ranks): training "
         f"{par['launches']}, generate {par['generate_launches']}")
+    log(f"the sequence phase's launches (all ranks): {seq['launches']}")
 
 
     # each kernel's launches on its main path's run
@@ -4151,10 +4364,10 @@ def main() -> int:
         + moe_launches["paged_decode_attention"],
         "paged_decode_attention_int8":
             prefix8_launches["paged_decode_attention_int8"],
-        "flash_fwd_packed": train["launches"]["flash_fwd_packed"],
-        "flash_bwd_packed": train["launches"]["flash_bwd_packed"],
-        "flash_fwd_folded": folded["launches"]["flash_fwd_folded"],
-        "flash_bwd_folded": folded["launches"]["flash_bwd_folded"],
+        **{name: train["launches"][name] + seq["launches"][name]
+           for name in ("flash_fwd_packed", "flash_bwd_packed")},
+        **{name: folded["launches"][name] + seq["launches"][name]
+           for name in ("flash_fwd_folded", "flash_bwd_folded")},
         "fused_encoder_fwd": vit["launches"]["fused_encoder_fwd"],
         "fused_encoder_bwd": vit["launches"]["fused_encoder_bwd"],
         **{name: moe_sorted["launches"][name] for name in GMM_REPLACES},
@@ -4205,6 +4418,8 @@ def main() -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })
+    log(f"chip_smoke wall {time.monotonic() - t_start:.1f} s (the kernels' "
+        f"build included)")
     log(smi)   # name, power limit: as nvidia-smi prints them
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -11,10 +11,10 @@ the card on a machine without one raises instead of quietly running on
 the CPU. Only an explicit `device="cpu"` runs there (the tests pass it).
 
 `MeshConfig` and `TrainConfig` keep the reference's fields and defaults,
-plus `TrainConfig.device`. The port runs the mesh's data and tensor axes
-and `fsdp` (parallel/); the other axes and every flag this slice does not
-port raise NotImplementedError naming the ROADMAP item that brings them,
-when set to anything but the default.
+plus `TrainConfig.device`. The port runs the mesh's data, seq and tensor
+axes, `fsdp` and `sp_impl` (parallel/); the other axes and every flag
+this slice does not port raise NotImplementedError naming the ROADMAP
+item that brings them, when set to anything but the default.
 """
 
 from __future__ import annotations
@@ -68,10 +68,11 @@ def resolve_device(device="cuda") -> torch.device:
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
     """Shape of the rank mesh, the reference's axes in its order: `data`
-    (data parallelism; -1 = the ranks the other axes leave), `seq`,
-    `tensor` (Megatron tensor parallelism over attention heads and MLP
-    features, parallel/tensor.py), `pipe` and `expert`. `seq`, `pipe`
-    and `expert` are not ported and raise above 1."""
+    (data parallelism; -1 = the ranks the other axes leave), `seq`
+    (sequence parallelism: ring or Ulysses attention, parallel/ring.py
+    and parallel/ulysses.py), `tensor` (Megatron tensor parallelism over
+    attention heads and MLP features, parallel/tensor.py), `pipe` and
+    `expert`. `pipe` and `expert` are not ported and raise above 1."""
 
     data: int = -1
     seq: int = 1
@@ -86,14 +87,16 @@ class MeshConfig:
     AXIS_EXPERT = "expert"
 
     def __post_init__(self):
-        for axis, item in (("seq", "A8b"), ("pipe", "A8d"),
-                           ("expert", "A8c")):
+        for axis, item in (("pipe", "A8d"), ("expert", "A8c")):
             if getattr(self, axis) != 1:
                 raise NotImplementedError(
                     f"mesh axis {axis}={getattr(self, axis)} is not ported "
-                    f"yet (ROADMAP {item}); data and tensor parallelism run")
-        if self.tensor < 1:
-            raise ValueError(f"mesh tensor={self.tensor} (want >= 1)")
+                    f"yet (ROADMAP {item}); data, seq and tensor "
+                    "parallelism run")
+        for axis in ("seq", "tensor"):
+            if getattr(self, axis) < 1:
+                raise ValueError(
+                    f"mesh {axis}={getattr(self, axis)} (want >= 1)")
 
     @property
     def axis_names(self) -> tuple:
@@ -124,7 +127,7 @@ class MeshConfig:
 # does; setting one to anything but its default raises
 _NOT_PORTED = {
     "pipe_schedule": "A8", "num_microbatches": "A8",
-    "num_virtual": "A8", "sp_impl": "A8", "max_restarts": "A8",
+    "num_virtual": "A8", "max_restarts": "A8",
     "watchdog_timeout_s": "A8", "sync_check_every_steps": "A8",
     "watchdog_probe_every_steps": "A8",
     "trace_out": "A6", "metrics_port": "A6", "telemetry_out": "A6",
@@ -165,10 +168,13 @@ class TrainConfig:
     - `coordinator_address`/`num_processes`/`process_id`: a tcp://
       rendezvous for torch.distributed, in place of torchrun's
       environment.
-    - `mesh` (data x tensor) and `fsdp` lay the model out over the ranks
-      as the reference's rules do (parallel/mesh.py `parallelize`);
+    - `mesh` (data x seq x tensor) and `fsdp` lay the model out over the
+      ranks as the reference's rules do (parallel/mesh.py `parallelize`);
       `batch_size` is per data replica, so the global batch is
-      `batch_size` x the data degree.
+      `batch_size` x the data degree. Under `mesh.seq` > 1 each seq rank
+      of a data replica takes the same rows and its contiguous chunk of
+      every sequence, and attention crosses the chunks by `sp_impl`
+      ("ring" | "ulysses", the reference's values).
     """
 
     # model / data

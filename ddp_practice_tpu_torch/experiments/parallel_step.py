@@ -1,5 +1,5 @@
-"""lm_base's train step under tensor parallelism and FSDP on several cards
-(NCCL, one process a card under torchrun).
+"""lm_base's train step under tensor parallelism, FSDP and sequence
+parallelism on several cards (NCCL, one process a card under torchrun).
 
     python -m ddp_practice_tpu_torch.experiments.parallel_step \
         [--nproc 4] [--steps 20] [--batch_size 8] [--layouts NAME ...]
@@ -11,11 +11,18 @@ layouts' collectives move over.
 With `--profile` each layout then runs again, 20 steps with steps 10-19
 traced on every rank (`--profile_dir`), and one rank's trace is summed
 by kind (utils/xprof.py: device ms a step; NCCL's kernels fall under
-"other", and their time includes waiting for the other ranks).
+"other", and their time includes waiting for the other ranks); then
+every rank's device ms a step, all kernels and the flash kernels E, F
+and G alone (the causal ring gives rank r r + 1 blocks a layer, so its
+ranks' flash time differs and the step runs at its last rank's pace),
+and the host's five longest ops.
 
 For each layout (`LAYOUTS`; default all: tensor4 = "--tensor 4",
-tensor2_fsdp = "--tensor 2 --fsdp", fsdp = "--fsdp", and ddp = no flag,
-plain DDP for the yardstick) it runs
+tensor2_fsdp = "--tensor 2 --fsdp", fsdp = "--fsdp", the sequence
+layouts seq4_ring = "--seq 4 --sp_impl ring", seq4_ulysses = "--seq 4
+--sp_impl ulysses" and tensor2_seq2_ulysses = "--tensor 2 --seq 2
+--sp_impl ulysses", and ddp = no flag, plain DDP for the yardstick) it
+runs
 
     torchrun --nproc_per_node N -m ddp_practice_tpu_torch.cli \
         --model lm_base --attn_impl flash --precision bf16 \
@@ -42,7 +49,10 @@ import sys
 import tempfile
 
 LAYOUTS = {"tensor4": "--tensor 4", "tensor2_fsdp": "--tensor 2 --fsdp",
-           "fsdp": "--fsdp", "ddp": ""}
+           "fsdp": "--fsdp", "seq4_ring": "--seq 4 --sp_impl ring",
+           "seq4_ulysses": "--seq 4 --sp_impl ulysses",
+           "tensor2_seq2_ulysses": "--tensor 2 --seq 2 --sp_impl ulysses",
+           "ddp": ""}
 # 4 M tokens: an epoch of the synthetic corpus holds every layout's steps
 BASE = ["--model", "lm_base", "--attn_impl", "flash", "--precision", "bf16",
         "--optimizer", "adamw", "--lr", "3e-4", "--seq_len", "2048", "-e",
@@ -78,6 +88,31 @@ def run_layout(name: str, nproc: int, steps: int, batch: int,
             "tokens_per_s_per_card": tokens / step_ms * 1e3 / nproc,
             "fit_tokens_per_s_per_card": summary["tokens_per_sec_per_chip"],
             "perplexity": summary["perplexity"], "steps": summary["steps"]}
+
+
+def rank_device_ms(profile_dir: str, steps: int) -> list:
+    """Every rank's trace under `profile_dir` (one a process): (all
+    device ms a step, the flash kernels' E, F and G ms a step, the host's
+    five longest op names with their ms a step), slowest flash first.
+    Host ops nest, so a parent's ms holds its children's."""
+    from ddp_practice_tpu_torch.utils import xprof
+
+    out = []
+    for root, _, files in os.walk(profile_dir):
+        for f in files:
+            if f.endswith(".pt.trace.json"):
+                path = os.path.join(root, f)
+                s = xprof.op_summary(path)
+                flash = sum(c["ps"] for k, c in s["categories"].items()
+                            if k in ("flash E", "flash F", "flash G"))
+                host = xprof.op_summary(path, device_substr="cpu")["ops"]
+                top = sorted(((ps, name) for (_, name), ps in host.items()
+                              if not name.startswith("ProfilerStep")),
+                             reverse=True)[:5]
+                out.append((s["total_ps"] / steps / 1e9,
+                            flash / steps / 1e9,
+                            [(name, ps / steps / 1e9) for ps, name in top]))
+    return sorted(out, key=lambda x: -x[1])
 
 
 def collectives_worker(mib: int = 64, runs: int = 20) -> None:
@@ -176,6 +211,12 @@ def main(argv=None) -> int:
                 print(f"{name}, traced steps 10-19, one rank [{card[0]}]:",
                       flush=True)
                 xprof.print_summary(prof, steps=10, top=8)
+                for t, f, top in rank_device_ms(prof, 10):
+                    print(f"{name}, a rank: device {t:.2f} ms a step, "
+                          f"flash E+F+G {f:.2f}; host's longest ops, ms "
+                          f"a step: " + ", ".join(
+                              f"{n[:48]} {ms:.2f}" for n, ms in top),
+                          flush=True)
     return 0
 
 

@@ -37,7 +37,15 @@ the loss or the sampler sees them; the tied head reads the same
 vocabulary-sharded embedding. A KV cache built from a sharded model
 holds the rank's heads.
 
-Not ported yet: sequence parallelism (`seq_axis`, ROADMAP A8b); it raises.
+Sequence parallelism (`seq_axis`; parallel/mesh.py `shard_state` sets
+`sp`, the SeqGroup, on the model and its layers): `forward` takes the
+rank's contiguous chunk of every sequence, (b, s / N) tokens at global
+positions [rank * s / N, (rank + 1) * s / N); learned positions read the
+chunk's rows of `pos_embed`, RoPE rotates at the global positions, the
+attention layers cross the chunks (ring or Ulysses, `sp_impl`), dropout
+draws the whole sequence's masks at the chunk's positions, and the
+logits are the chunk's. Decode under `seq_axis` raises, as the
+reference's; routed MoE blocks refuse a seq group (ROADMAP A8f).
 """
 
 from __future__ import annotations
@@ -55,6 +63,7 @@ from ddp_practice_tpu_torch.models.vit import (
     LayerNorm,
     dense,
     dropout,
+    seq_rows,
     subkey,
 )
 from ddp_practice_tpu_torch.parallel.tensor import (
@@ -96,6 +105,9 @@ class TransformerLM(nn.Module):
         self.dropout_rate = dropout_rate
         self.moe_every = moe_every
         self.moe_top_k = moe_top_k
+        self.seq_axis = seq_axis
+        # the seq group under sequence parallelism (parallel/mesh.py)
+        self.sp = None
         self.tok_embed = nn.Embedding(vocab_size, hidden_dim)
         if pos_emb == "learned":
             self.pos_embed = nn.Parameter(torch.zeros(1, max_len, hidden_dim))
@@ -184,11 +196,21 @@ class TransformerLM(nn.Module):
                 "the training forward has no left-padding mask"
             )
         b, s = tokens.shape
-        if s > self.max_len:
-            raise ValueError(f"sequence {s} exceeds max_len {self.max_len}")
+        sp = self.sp
+        if sp is not None and decode:
+            raise ValueError(
+                "decode (KV-cache) mode does not compose with sequence "
+                "parallelism — generate on a data/tensor-sharded mesh"
+            )
+        total = s if sp is None else s * sp.size
+        if total > self.max_len:
+            raise ValueError(
+                f"sequence {total} exceeds max_len {self.max_len}")
         x = self._embed(tokens)
         if self.pos_emb == "learned":
             p0 = cache["pos_index"] if decode else 0
+            if sp is not None:
+                p0 += sp.offset(s)
             x = x + self.pos_embed[:, p0:p0 + s].to(self.dtype)
             if decode:
                 cache["pos_index"] = p0 + s
@@ -198,7 +220,8 @@ class TransformerLM(nn.Module):
         if train and not decode and self.dropout_rate and key is None:
             raise ValueError("a training forward with dropout needs a "
                              "dropout_key (train/steps.py step_key)")
-        x = dropout(x, self.dropout_rate, subkey(key, 0))
+        x = dropout(x, self.dropout_rate, subkey(key, 0),
+                    rows=seq_rows(sp, x))
         for i, blk in enumerate(self.blocks):
             if self.remat and not decode:
                 x = checkpoint(blk, x, dropout_key=subkey(key, i + 1),

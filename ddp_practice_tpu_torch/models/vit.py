@@ -41,6 +41,17 @@ columns (`dropout(cols=)`), so a shard's mask is the one-rank mask's.
 `fused=True` raises under tensor parallelism (the fused layer holds a
 whole layer's weights).
 
+Sequence parallelism (`seq_axis`; parallel/mesh.py `shard_state` sets
+each layer's `sp`, the SeqGroup): a block's tokens are the rank's
+contiguous chunk of the sequence. `SelfAttention` rotates RoPE at the
+chunk's global positions and crosses the chunks by `sp_impl` (ring or
+Ulysses, ops/attention.py), never on the fused-QKV route; dropout draws
+the whole sequence's mask at the chunk's rows (`dropout(rows=)`); `ViT`
+embeds the whole image on every seq rank, keeps its chunk of the patch
+tokens and pools over the group (`ViTHead`), so every rank returns the
+whole logits. Decode under `seq_axis` raises, as the reference's, and
+`fused` stays off.
+
 Parameters stay in `param_dtype` (fp32) and every layer computes in
 `dtype`, casting its weights on use as Flax does. LayerNorm epsilon is
 1e-6 with fp32 statistics, and GELU is the tanh approximation (Flax
@@ -150,25 +161,42 @@ def subkey(key: Optional[DropoutKey], i: int) -> Optional[DropoutKey]:
 
 
 def dropout(x: torch.Tensor, rate: float, key: Optional[DropoutKey],
-            cols: Optional[tuple] = None) -> torch.Tensor:
+            cols: Optional[tuple] = None,
+            rows: Optional[tuple] = None) -> torch.Tensor:
     """Flax Dropout: keep with probability 1 - rate, kept values divided by
     it. Element j keeps when mix32(mix32(j ^ site) ^ step ^ t) >= rate *
     2^32, t a constant of the site (so two sites' masks share no index
     pattern); key None (eval, or rate 0) is the identity. `cols` =
     (offset, total): x's last dim is columns [offset, offset + n) of a
-    tensor `total` wide (a tensor-parallel shard), and j is the element's
-    index in that whole tensor, so every shard draws its part of the
-    whole tensor's mask."""
+    tensor `total` wide (a tensor-parallel shard); `rows` = (offset,
+    total) the same for the second-to-last dim (a seq rank's chunk of
+    the sequence, `seq_rows`). j is the element's index in that whole
+    tensor, so every shard draws its part of the whole tensor's mask."""
     if key is None or rate == 0.0:
         return x
     idx = torch.arange(x.numel(), device=x.device, dtype=torch.int64)
-    if cols is not None:
+    if cols is not None or rows is not None:
         n = x.shape[-1]
-        idx = idx // n * cols[1] + cols[0] + idx % n
+        r, c = idx // n, idx % n
+        if rows is not None:
+            s = x.shape[-2]
+            r = r // s * rows[1] + rows[0] + r % s
+        if cols is not None:
+            c, n = c + cols[0], cols[1]
+        idx = r * n + c
     bits = mix32(mix32(idx ^ key.site)
                  ^ (key.step ^ mix32(key.site ^ 0x9E3779B9)))
     keep = (bits >= round(rate * (1 << 32))).view(x.shape)
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def seq_rows(sp, x: torch.Tensor) -> Optional[tuple]:
+    """`dropout`'s `rows` for a (..., s, d) chunk of the sequence on the
+    seq group `sp` (None: the whole sequence)."""
+    if sp is None:
+        return None
+    s = x.shape[-2]
+    return (sp.offset(s), sp.size * s)
 
 
 class LayerNorm(nn.LayerNorm):
@@ -193,8 +221,10 @@ class MlpBlock(nn.Module):
         self.fc_in = nn.Linear(d, mlp_dim)
         self.fc_out = nn.Linear(mlp_dim, d)
         # the tensor group (parallel/mesh.py shard_state): fc_in
-        # column-parallel, fc_out row-parallel
+        # column-parallel, fc_out row-parallel; the seq group: the
+        # tokens are a chunk of the sequence
         self.tp = None
+        self.sp = None
 
     def forward(self, x: torch.Tensor, *,
                 dropout_key: Optional[DropoutKey] = None):
@@ -204,7 +234,8 @@ class MlpBlock(nn.Module):
         if self.tp is not None:
             n = x.shape[-1]
             cols = (self.tp.rank * n, self.tp.size * n)
-        x = dropout(x, self.dropout_rate, dropout_key, cols)
+        x = dropout(x, self.dropout_rate, dropout_key, cols,
+                    seq_rows(self.sp, x))
         return row_parallel(x, self.fc_out, self.dtype, self.tp)
 
 
@@ -252,6 +283,9 @@ class SelfAttention(nn.Module):
         # (parallel/fsdp.py)
         self.tp = None
         self.qkv_bias_split = None
+        # under sequence parallelism (`seq_axis` set; parallel/mesh.py
+        # shard_state): the SeqGroup, the tokens a chunk of the sequence
+        self.sp = None
 
     def cache_dtype(self):
         if self.kv_cache_dtype == "int8":
@@ -282,6 +316,17 @@ class SelfAttention(nn.Module):
                 kv_lengths: Optional[torch.Tensor] = None):
         b, s, _ = x.shape
         h, hd = self.num_heads, self.head_dim
+        if self.seq_axis is not None:
+            if cache is not None:
+                raise ValueError(
+                    "decode (KV-cache) mode does not compose with sequence "
+                    "parallelism — generate on a data/tensor-sharded mesh"
+                )
+            if self.sp is None:
+                raise ValueError(
+                    f"seq_axis={self.seq_axis!r} but no seq group: lay the "
+                    "model out on a mesh with a seq axis (parallel/mesh.py "
+                    "shard_state)")
         qkv_flat = self._qkv(copy_to_tp(x, self.tp))       # (b, s, 3*h*hd)
         if (cache is None and self.attn_impl == "flash" and not self.rope
                 and self.seq_axis is None):
@@ -299,11 +344,14 @@ class SelfAttention(nn.Module):
                                      attn_start)
         elif cache is None:
             if self.rope:
-                positions = torch.arange(s, device=x.device)
+                # global positions: a seq rank's chunk starts at its
+                # offset (the reference's GSPMD sees the whole sequence)
+                p0 = 0 if self.sp is None else self.sp.offset(s)
+                positions = p0 + torch.arange(s, device=x.device)
                 q = apply_rope(q, positions)
                 k = apply_rope(k, positions)
             out = dot_product_attention(
-                q, k, v, causal=self.causal, seq_axis=self.seq_axis,
+                q, k, v, causal=self.causal, seq_axis=self.sp,
                 sp_impl=self.sp_impl, impl=self.attn_impl,
             )
         else:
@@ -322,11 +370,6 @@ class SelfAttention(nn.Module):
     def _decode(self, q, k, v, cache, attn_start):
         if not self.causal:
             raise ValueError("decode=True requires causal attention")
-        if self.seq_axis is not None:
-            raise ValueError(
-                "decode (KV-cache) mode does not compose with sequence "
-                "parallelism"
-            )
         b, s, h, hd = k.shape
         kc, vc = cache["cached_key"], cache["cached_value"]
         max_len = kc.shape[1]
@@ -498,6 +541,8 @@ class EncoderBlock(nn.Module):
         else:
             self.mlp = MlpBlock(d, mlp_dim, dtype=dtype,
                                 dropout_rate=dropout_rate)
+        # the seq group under sequence parallelism (parallel/mesh.py)
+        self.sp = None
 
     def forward(self, x, *, dropout_key: Optional[DropoutKey] = None,
                 train: bool = False, cache=None, attn_start=None,
@@ -526,10 +571,13 @@ class EncoderBlock(nn.Module):
                 compute_dtype=self.attn.dtype, causal=self.attn.causal)
         y = self.attn(self.ln1(x), cache=cache, attn_start=attn_start,
                       page_table=page_table, kv_lengths=kv_lengths)
-        x = x + dropout(y, self.dropout_rate, subkey(dropout_key, 0))
+        rows = seq_rows(self.sp, x)
+        x = x + dropout(y, self.dropout_rate, subkey(dropout_key, 0),
+                        rows=rows)
         if self.use_moe:
             y = self.moe(self.ln2(x), train=train, decode=decode)
-            return x + dropout(y, self.dropout_rate, subkey(dropout_key, 1))
+            return x + dropout(y, self.dropout_rate, subkey(dropout_key, 1),
+                               rows=rows)
         return x + self.mlp(self.ln2(x),
                             dropout_key=subkey(dropout_key, 1))
 
@@ -587,7 +635,10 @@ class ViTEmbed(nn.Module):
 
 
 class ViTHead(nn.Module):
-    """Final LN + global average pool + classifier; logits fp32."""
+    """Final LN + global average pool + classifier; logits fp32. Under
+    sequence parallelism (`sp`, the seq group) each rank holds a chunk
+    of the tokens: their sum is summed over the group (differentiably)
+    and divided by the whole sequence's length."""
 
     def __init__(self, hidden_dim: int, num_classes: int = 10, *,
                  dtype=torch.float32) -> None:
@@ -596,8 +647,12 @@ class ViTHead(nn.Module):
         self.ln_f = LayerNorm(hidden_dim, dtype)
         self.head = nn.Linear(hidden_dim, num_classes)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.ln_f(x).mean(dim=1)
+    def forward(self, x: torch.Tensor, sp=None) -> torch.Tensor:
+        x = self.ln_f(x)
+        if sp is None:
+            x = x.mean(dim=1)
+        else:
+            x = sp.sum(x.sum(dim=1)) / (x.shape[1] * sp.size)
         return dense(x, self.head, self.dtype).float()
 
 
@@ -634,20 +689,28 @@ class ViT(nn.Module):
             for _ in range(depth)
         )
         self.classifier = ViTHead(hidden_dim, num_classes, dtype=dtype)
+        self.seq_axis = seq_axis
+        # the seq group under sequence parallelism (parallel/mesh.py)
+        self.sp = None
         self.to(param_dtype)
 
     def forward(self, x: torch.Tensor, *, train: bool = False,
                 dropout_key: Optional[DropoutKey] = None) -> torch.Tensor:
         """x (b, H, W, C) float in [0, 1] -> logits (b, classes) fp32.
-        A training forward with dropout takes its `dropout_key`."""
+        A training forward with dropout takes its `dropout_key`. Under
+        sequence parallelism every seq rank embeds the whole image and
+        keeps its contiguous chunk of the patch tokens; the pool sums
+        over the group, so every rank returns the whole logits."""
         key = dropout_key if train and self.dropout_rate else None
         if train and self.dropout_rate and key is None:
             raise ValueError("a training forward with dropout needs a "
                              "dropout_key (train/steps.py step_key)")
         x = self.embed(x)
+        if self.sp is not None:
+            x = self.sp.chunk(x, 1)
         for i, blk in enumerate(self.blocks):
             x = blk(x, dropout_key=subkey(key, i), train=train)
-        return self.classifier(x)
+        return self.classifier(x, self.sp)
 
 
 def ViTTiny(**kw) -> ViT:

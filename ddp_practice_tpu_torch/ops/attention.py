@@ -7,14 +7,17 @@ probabilities are rounded to the input dtype before the value product —
 the reference's arithmetic, step for step.
 
 `impl="flash"` dispatches to the streaming kernels of
-ops/flash_attention.py.
-The sequence-parallel schemes are a later slice: `seq_axis` raises (A8).
+ops/flash_attention.py. With `seq_axis` the sequence is cut over the
+seq ranks and attention crosses the chunks by `sp_impl`: "ring"
+(parallel/ring.py) or "ulysses" (parallel/ulysses.py), each with `impl`
+as its local attention. The reference names a mesh axis there and finds
+the mesh in a module-level registry; the port passes the group itself,
+the `SeqGroup` (parallel/mesh.py) the calling layer was given.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
 
 import torch
 
@@ -22,19 +25,29 @@ _MASK_FILL = -1e30
 
 
 def dot_product_attention(q, k, v, *, causal: bool = False,
-                          seq_axis: Optional[str] = None,
-                          sp_impl: str = "ring",
+                          seq_axis=None, sp_impl: str = "ring",
                           impl: str = "xla") -> torch.Tensor:
     """Multi-head attention over (batch, seq, heads, head_dim). `impl`
     picks the local kernel: "xla" (this module's plain attention) or
-    "flash" (ops/flash_attention.py)."""
+    "flash" (ops/flash_attention.py). `seq_axis`, a SeqGroup: q, k and v
+    are this rank's chunks of the sequence, attended over the whole one
+    by `sp_impl` ("ring" | "ulysses")."""
     if impl not in ("xla", "flash"):
         raise ValueError(f"unknown attention impl {impl!r} (want 'xla'|'flash')")
     if seq_axis is not None:
-        raise NotImplementedError(
-            f"sequence-parallel attention ({sp_impl}) is not ported yet "
-            f"(ROADMAP A8)"
-        )
+        if sp_impl == "ring":
+            from ddp_practice_tpu_torch.parallel.ring import ring_attention
+
+            return ring_attention(q, k, v, group=seq_axis, causal=causal,
+                                  impl=impl)
+        if sp_impl == "ulysses":
+            from ddp_practice_tpu_torch.parallel.ulysses import (
+                ulysses_attention,
+            )
+
+            return ulysses_attention(q, k, v, group=seq_axis,
+                                     causal=causal, impl=impl)
+        raise ValueError(f"unknown sp_impl {sp_impl!r} (want 'ring'|'ulysses')")
     if impl == "flash":
         from ddp_practice_tpu_torch.ops.flash_attention import flash_attention
 

@@ -10,8 +10,9 @@ Public entries keep the reference's signatures and layouts:
 - `flash_attention_qkv(qkv, n_heads)`: self-attention straight off the
   (b, s, 3*h*d) projection, [q heads | k heads | v heads]; unpackable heads
   slice q, k, v and call `flash_attention`, as the reference does;
-- `flash_attention_with_lse(q, k, v)`, folded (b*h, s, d): returns (out,
-  lse) with lse differentiable (the lse cotangent folds into delta).
+- `flash_attention_with_lse(q, k, v)`, folded (b*h, s, d), or (b, s, h,
+  d) on its strides: returns (out, lse) with lse differentiable (the lse
+  cotangent folds into delta).
 
 On a CUDA tensor each entry runs three CUDA kernels written by hand for
 sm_90a (`csrc/flash_attention.cu`, built by `ops/cuda_build.py`, launched
@@ -510,9 +511,13 @@ def flash_attention_with_lse(q, k, v, *, causal: bool = False,
                              block_q: int = 512, block_k: int = 1024,
                              impl: str = "auto"):
     """Fused attention over the folded (b*h, s, d) layout, returning
-    (out, lse); lse (b*h, s_q) fp32 is differentiable."""
-    return _FlashAttention.apply("folded", 1, causal, block_q, block_k,
-                                 impl, q, k, v)
+    (out, lse); lse (b*h, s_q) fp32 is differentiable. On (b, s, h, d)
+    operands (ring attention's chunks, parallel/ring.py) the same
+    kernels run on their strides (the folded row, as `flash_attention`'s
+    unpackable heads) and lse is (b, h, s_q)."""
+    layout = "heads" if q.dim() == 4 else "folded"
+    return _FlashAttention.apply(layout, q.shape[2] if q.dim() == 4 else 1,
+                                 causal, block_q, block_k, impl, q, k, v)
 
 
 def flash_attention(q, k, v, *, causal: bool = False, block_q: int = 512,

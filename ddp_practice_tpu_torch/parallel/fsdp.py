@@ -17,7 +17,9 @@ model's functional reads see whole tensors), reduce-scatters the grads
 shards, on which the optimizer and its state live (ZeRO). Leaves the
 rules leave whole on the data axis are FSDP2's `ignored_params`: they
 stay replicated, and `apply_fsdp`'s returned hook all-reduces their
-grads (the mean) over the data group after each backward.
+grads (the mean) over the data group after each backward. Under a seq
+axis FSDP2 shards over data and replicates over seq: the hook then
+averages every rank's stored grads over the seq group as well.
 
 One leaf needs a storage order of its own: FSDP2 cuts a torch dim into
 contiguous chunks, and the attention `qkv` bias (Flax (3, h, hd), one
@@ -92,11 +94,13 @@ def needs_split(layout: Layout, spec, tensor_size: int) -> bool:
 
 
 def apply_fsdp(model: nn.Module, data_mesh, specs: dict,
-               data_group) -> Callable[[], None]:
+               data_group, seq_group=None) -> Callable[[], None]:
     """fully_shard `model` (its `blocks`, then the root) over
     `data_mesh`, each parameter on the torch dim its spec cuts over
     `data`; the rest ignored. Returns the after-backward hook that
-    averages the ignored parameters' grads over `data_group`."""
+    averages the ignored parameters' grads over `data_group`, then, with
+    a `seq_group` (the seq ranks hold the same shards, each the grads of
+    its chunk of the sequences), every rank's stored grads over it."""
     from torch.distributed.fsdp import fully_shard
     from torch.distributed.tensor import Shard
 
@@ -113,19 +117,28 @@ def apply_fsdp(model: nn.Module, data_mesh, specs: dict,
                     ignored_params=ignored)
     fully_shard(model, mesh=data_mesh, shard_placement_fn=placement,
                 ignored_params=ignored)
-    n = tdist.get_world_size(data_group)
+    params = list(model.parameters())
 
     @torch.no_grad()
-    def sync_replicated_grads() -> None:
-        grads = [p.grad for p in replicated if p.grad is not None]
-        if not grads:
-            return
-        flat = torch.cat([g.reshape(-1) for g in grads])
-        tdist.all_reduce(flat, op=tdist.ReduceOp.SUM, group=data_group)
-        flat /= n
-        off = 0
-        for g in grads:
-            g.copy_(flat[off:off + g.numel()].view_as(g))
-            off += g.numel()
+    def sync_grads() -> None:
+        _mean_over([p.grad for p in replicated], data_group)
+        if seq_group is not None:
+            _mean_over([getattr(p.grad, "_local_tensor", p.grad)
+                        for p in params], seq_group)
 
-    return sync_replicated_grads
+    return sync_grads
+
+
+def _mean_over(grads, group) -> None:
+    """Each of `grads` (None skipped) replaced in place by its mean over
+    `group`, in one all-reduce."""
+    grads = [g for g in grads if g is not None]
+    if not grads:
+        return
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    tdist.all_reduce(flat, op=tdist.ReduceOp.SUM, group=group)
+    flat /= tdist.get_world_size(group)
+    off = 0
+    for g in grads:
+        g.copy_(flat[off:off + g.numel()].view_as(g))
+        off += g.numel()

@@ -7,16 +7,25 @@ outermost, tensor inside it, so the ranks of one tensor group are
 consecutive (NVLink neighbours on one node under torchrun). `coords`
 gives a rank's (coordinate, size) on every axis and `batch_shard` its
 slice of each global batch, the counterpart of `batch_sharding`: the
-ranks of one tensor group read the same rows.
+ranks of one tensor group, and the seq ranks of one data replica, read
+the same rows.
+
+The seq axis cuts no parameter: it cuts every sequence into contiguous
+chunks, one a rank (`SeqGroup`: the group, the rank's coordinate and
+the size, set on the model's layers by `shard_state` as `sp`), and the
+attention layers cross the chunks (parallel/ring.py, parallel/ulysses.py).
+The seq ranks of one data replica each take the mean loss of their
+chunk, so the gradients are averaged over data x seq (`parallelize`).
 
 `shard_state` puts each parameter in the layout the rules give it
 (parallel/sharding_rules.py): the tensor cut is taken here, leaving
 each rank plain local tensors and each attention, MLP and LM its
 `TensorGroup` (parallel/tensor.py), the data cut by FSDP2
 (parallel/fsdp.py `apply_fsdp`). `parallelize` is the whole layout as
-the train loop runs it (rules, `shard_state`, FSDP2 or DDP over the data
-ranks). An optimizer built afterwards mirrors every parameter's layout
-in its state. The model keeps its `Sharding` (`model.sharding`): every
+the train loop runs it (rules, `shard_state`, FSDP2 over the data ranks
+and a mean of the grads over the seq ranks, or DDP over data x seq).
+An optimizer built afterwards mirrors every parameter's layout in its
+state. The model keeps its `Sharding` (`model.sharding`): every
 leaf's Layout and Spec and the rank's coordinates, which the sharded
 global norm (train/state.py), the sharded checkpoint (checkpoint/) and
 `full_parameters` read.
@@ -29,6 +38,7 @@ import math
 from typing import Callable, Dict, Optional
 
 import torch
+import torch.distributed as tdist
 from torch import nn
 
 from ddp_practice_tpu_torch.config import MeshConfig
@@ -51,6 +61,7 @@ from ddp_practice_tpu_torch.parallel.sharding_rules import (
 from ddp_practice_tpu_torch.parallel.tensor import TensorGroup
 
 DATA = MeshConfig.AXIS_DATA
+SEQ = MeshConfig.AXIS_SEQ
 TENSOR = MeshConfig.AXIS_TENSOR
 
 
@@ -96,6 +107,68 @@ def tensor_group(mesh) -> Optional[TensorGroup]:
     return None if n == 1 else TensorGroup(group(mesh, TENSOR), n, c)
 
 
+class _SeqSum(torch.autograd.Function):
+    """All-reduce (sum) over the seq group, forward and backward: each
+    seq rank's objective reads the sum, so the grad of a rank's part is
+    the sum of every rank's cotangents."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.contiguous().clone()
+        tdist.all_reduce(out, op=tdist.ReduceOp.SUM, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        tdist.all_reduce(g, op=tdist.ReduceOp.SUM, group=ctx.group)
+        return g, None
+
+
+@dataclasses.dataclass(frozen=True)
+class SeqGroup:
+    """This rank's place on the seq axis (the counterpart of
+    TensorGroup): the process group, the axis size and this rank's
+    coordinate, which is the index of its chunk of every sequence."""
+    group: object
+    size: int
+    rank: int
+
+    def offset(self, n: int) -> int:
+        """The global position of the first item of this rank's chunk,
+        the chunk `n` long."""
+        return self.rank * n
+
+    def chunk(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """This rank's contiguous chunk of `x` along `dim`."""
+        n = x.shape[dim]
+        if n % self.size:
+            raise ValueError(
+                f"sequence length {n} does not split into seq={self.size} "
+                "equal chunks")
+        k = n // self.size
+        return x.narrow(dim, self.rank * k, k)
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """`x` summed over the seq ranks, differentiably."""
+        return _SeqSum.apply(x, self.group)
+
+
+def seq_group(mesh) -> Optional[SeqGroup]:
+    c, n = coords(mesh)[SEQ]
+    return None if n == 1 else SeqGroup(group(mesh, SEQ), n, c)
+
+
+def replica_group(mesh):
+    """The group of the ranks that hold the same parameters and average
+    their grads: data x seq (None: one rank)."""
+    dp, sp = axis_size(mesh, DATA), axis_size(mesh, SEQ)
+    if dp > 1 and sp > 1:
+        return mesh[DATA, SEQ]._flatten().get_group()
+    return group(mesh, SEQ if sp > 1 else DATA)
+
+
 @dataclasses.dataclass
 class Sharding:
     """Where every parameter of a sharded model lives: its Layout and
@@ -136,8 +209,9 @@ def shard_state(model: nn.Module, mesh, rules: Optional[Callable],
     """Lay `model` (built whole, the same weights on every rank) out on
     `mesh` by `rules(name, layout) -> Spec | None`: each parameter cut to
     this rank's tensor region, the attention layers left with their
-    local heads and every tensor-parallel layer with the TensorGroup.
-    Returns the Sharding (also `model.sharding`)."""
+    local heads and every tensor-parallel layer with the TensorGroup;
+    under a seq axis every layer with an `sp` attribute gets the
+    SeqGroup. Returns the Sharding (also `model.sharding`)."""
     from ddp_practice_tpu_torch.models.lm import TransformerLM
     from ddp_practice_tpu_torch.models.vit import (
         EncoderBlock,
@@ -152,6 +226,9 @@ def shard_state(model: nn.Module, mesh, rules: Optional[Callable],
     tp = tensor_group(mesh)
     sharding = Sharding(lay, specs, where,
                         {a: group(mesh, a) for a in where})
+    sp = seq_group(mesh)
+    if sp is not None:
+        attach_seq(model, sp, model_name)
     if tp is not None:
         check_heads(model_name, model, tp.size)
         for mod in model.modules():
@@ -201,6 +278,29 @@ def shard_state(model: nn.Module, mesh, rules: Optional[Callable],
     return sharding
 
 
+def attach_seq(model: nn.Module, sp: SeqGroup, model_name: str = "") -> None:
+    """Give every layer of `model` built for sequence parallelism (an
+    `sp` attribute) the seq group. A model built without `seq_axis`,
+    and the routed MoE models (their capacity routing depends on which
+    tokens share a call, and the reference routes whole sequences),
+    raise."""
+    from ddp_practice_tpu_torch.ops.moe import MoEMlp
+
+    if any(isinstance(m, MoEMlp) for m in model.modules()):
+        raise NotImplementedError(
+            f"{model_name or type(model).__name__} under seq={sp.size}: "
+            "routed MoE blocks under sequence parallelism are not ported "
+            "yet (ROADMAP A8f): their capacity routing sees the rank's "
+            "chunk, the reference's the whole sequence")
+    layers = [m for m in model.modules() if hasattr(m, "sp")]
+    if not any(getattr(m, "seq_axis", None) for m in layers):
+        raise ValueError(
+            f"{model_name or type(model).__name__} was built without "
+            f"seq_axis: it cannot run under seq={sp.size}")
+    for m in layers:
+        m.sp = sp
+
+
 def local_tensor(t: torch.Tensor) -> torch.Tensor:
     """The rank's stored part of a leaf: a DTensor's (FSDP's) local
     shard, a plain tensor itself."""
@@ -247,25 +347,27 @@ def parallelize(model: nn.Module, mesh, *, model_name: str, fsdp: bool,
                 min_leaf_size: int = 1024):
     """The reference's layout of `model` on `mesh`, as the train loop
     runs it: the tensor rules of `model_name` (with FSDP's data cut when
-    `fsdp`) laid out by `shard_state` when the tensor axis or FSDP's data
-    axis has more than one rank, FSDP2 over the data ranks when a leaf
-    is cut over them, else DDP over the data ranks when there are
+    `fsdp`) laid out by `shard_state` when the tensor or seq axis or
+    FSDP's data axis has more than one rank, FSDP2 over the data ranks
+    when a leaf is cut over them (its grads then averaged over the seq
+    ranks too), else DDP over the data x seq ranks when there are
     several. Returns (forward, after_backward): what runs the model, and
     the hook a train step calls after each backward (None but under
     FSDP). The tensor group's grads need no synchronisation: they are
     exact on every rank."""
     c = coords(mesh)
-    dp, tp = c[DATA][1], c[TENSOR][1]
+    dp, sp, tp = c[DATA][1], c[SEQ][1], c[TENSOR][1]
     forward, after_backward = model, None
-    if tp > 1 or (fsdp and dp > 1):
+    if tp > 1 or sp > 1 or (fsdp and dp > 1):
         rules = param_sharding_rules(model_name)
         if fsdp:
             rules = fsdp_rules(dp, rules, min_leaf_size=min_leaf_size)
         sharding = shard_state(model, mesh, rules, model_name)
         if any(data_dim(s) is not None for s in sharding.specs.values()):
             after_backward = apply_fsdp(model, mesh[DATA], sharding.specs,
-                                        sharding.groups[DATA])
-    if dp > 1 and after_backward is None:
+                                        sharding.groups[DATA],
+                                        sharding.groups[SEQ])
+    if dp * sp > 1 and after_backward is None:
         from torch.nn.parallel import DistributedDataParallel
 
         from ddp_practice_tpu_torch.ops.batchnorm import BatchNorm
@@ -278,5 +380,5 @@ def parallelize(model: nn.Module, mesh, *, model_name: str, fsdp: bool,
         forward = DistributedDataParallel(
             model, device_ids=[device.index] if device.type == "cuda"
             else None, broadcast_buffers=not synced,
-            process_group=group(mesh, DATA))
+            process_group=replica_group(mesh))
     return forward, after_backward

@@ -42,11 +42,16 @@ mesh (`config.mesh`, parallel/mesh.py `build_mesh`); the global batch is
 `ShardSpec.local_slice` of every global batch (the ranks of one tensor
 group read the same rows), and the model is laid out by
 `parallel.mesh.parallelize`: tensor parallelism over `mesh.tensor`
-(Megatron, parallel/tensor.py), FSDP2 over the data ranks with `fsdp`,
-else DistributedDataParallel over the data ranks; eval sums are
-all-reduced over the data ranks. The tensor group's grads are exact
-without a collective. A sharded model trains one step a call from host
-batches: its resident and captured steps raise (ROADMAP A8e), and
+(Megatron, parallel/tensor.py), sequence parallelism over `mesh.seq`
+(`seq_axis`/`sp_impl` in the model's arguments, as the reference's: the
+seq ranks of a data replica read the same rows and each trains on its
+chunk of the sequences, attention crossing the chunks by ring or
+Ulysses), FSDP2 over the data ranks with `fsdp` (and the grads averaged
+over the seq ranks), else DistributedDataParallel over the data x seq
+ranks; eval sums are all-reduced over the data ranks. The tensor group's
+grads are exact without a collective. A sharded model trains one step a
+call from host batches: its resident and captured steps raise (ROADMAP
+A8e), and
 `data_placement="auto"` takes the host path. MFU and the per-chip rates
 divide by every rank. `fused_encoder` ("auto" | "on" | "off") is the
 reference's flag: "on" forces the fused encoder layer and raises for a
@@ -187,6 +192,7 @@ class Trainer:
         self.world = dist.process_count()
         self.mesh = build_mesh(config.mesh, device.type)
         self.dp = axis_size(self.mesh, MeshConfig.AXIS_DATA)
+        self.sp = axis_size(self.mesh, MeshConfig.AXIS_SEQ)
         self.tp = axis_size(self.mesh, MeshConfig.AXIS_TENSOR)
         self.global_batch = config.batch_size * self.dp
         self.task = "lm" if config.model.lower().startswith("lm") else "image"
@@ -251,6 +257,13 @@ class Trainer:
                 raise ValueError(
                     f"--dropout must be in [0, 1), got {config.dropout}")
             model_kwargs["dropout_rate"] = config.dropout
+        if self.sp > 1:
+            if name == "convnet" or name.startswith("resnet"):
+                raise ValueError(
+                    f"--seq {self.sp} cuts a transformer's token sequence; "
+                    f"{config.model!r} has none")
+            model_kwargs["seq_axis"] = MeshConfig.AXIS_SEQ
+            model_kwargs["sp_impl"] = config.sp_impl
         if config.attn_impl != "xla":
             model_kwargs["attn_impl"] = config.attn_impl
         if config.num_experts:
@@ -292,7 +305,8 @@ class Trainer:
                                   policy=config.precision_policy(),
                                   device=self.device, seed=config.seed,
                                   **model_kwargs)
-        self.sharded = self.tp > 1 or (config.fsdp and self.dp > 1)
+        self.sharded = (self.tp > 1 or self.sp > 1
+                        or (config.fsdp and self.dp > 1))
         self.forward, self.after_backward = parallelize(
             self.model, self.mesh, model_name=config.model,
             fsdp=config.fsdp)
@@ -337,8 +351,9 @@ class Trainer:
         if self.sharded and (k != 1 or cfg.data_placement == "device"):
             raise NotImplementedError(
                 f"steps_per_call={k}, data_placement="
-                f"{cfg.data_placement!r} under tensor={self.tp}, fsdp="
-                f"{cfg.fsdp}: the resident and captured steps of a sharded "
+                f"{cfg.data_placement!r} under seq={self.sp}, tensor="
+                f"{self.tp}, fsdp={cfg.fsdp}: the resident and captured "
+                "steps of a sharded "
                 "model are not ported yet (ROADMAP A8e); run one step a "
                 "call from host batches")
         if self.after_backward is not None:
@@ -688,7 +703,9 @@ class Trainer:
                     step = (self.chunk_eval_step if tag == "chunk"
                             else self.eval_step)
                     sums += torch.stack(step(self.state, batch))
-        # over the data ranks: a tensor group's ranks hold the same sums
+        # over the data ranks: a tensor group's ranks hold the same sums,
+        # and so do a data replica's seq ranks (the LM eval step sums
+        # over them, the ViT pools over them)
         data = mesh_group(self.mesh, MeshConfig.AXIS_DATA)
         if data is not None:
             tdist.all_reduce(sums, op=tdist.ReduceOp.SUM, group=data)

@@ -16,6 +16,15 @@ mean losses, which is the reference's grad of the global mean for equal
 local batches, and the step all-reduces (loss, correct, total) so the
 metrics are the global batch's.
 
+Under sequence parallelism (the model's `sp`, parallel/mesh.py) each
+seq rank keeps its contiguous chunk of the shifted inputs and targets
+(`_seq_chunk`) and takes the mean loss of its chunk; the chunks are equal,
+so the mean over data x seq (DDP's, or FSDP's with the seq mean) is the
+dense mean and its grads the dense grads. A weighted loss divides each
+chunk's weighted sum by the whole sequences' weight instead. The metrics
+all-reduce over every rank as above, so each rank reports the dense
+loss; eval sums (correct, total, nll) over the seq group.
+
 The image step is the same with `prepare_image` (uint8 -> [0, 1] fp32 on
 the device) in front, class logits, and metrics `loss`, `accuracy` and
 `grad_norm`; the eval step returns weighted (correct, total) so a
@@ -59,6 +68,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.distributed as tdist
 from torch import nn
 
 from ddp_practice_tpu_torch.models.vit import DropoutKey, fold32, mix32
@@ -67,7 +77,11 @@ from ddp_practice_tpu_torch.ops.augment import (
     augment_rng,
     check_kind,
 )
-from ddp_practice_tpu_torch.ops.losses import accuracy_counts, cross_entropy
+from ddp_practice_tpu_torch.ops.losses import (
+    accuracy_counts,
+    cross_entropy,
+    cross_entropy_sum,
+)
 from ddp_practice_tpu_torch.ops.moe import moe_layers
 from ddp_practice_tpu_torch.parallel import dist
 from ddp_practice_tpu_torch.train.state import (
@@ -121,6 +135,26 @@ def _commit_router_bias(layers) -> None:
         m.commit_bias()
 
 
+def _seq_chunk(sp, inputs, targets, weight=None):
+    """The seq rank's contiguous chunk of the shifted (b, s) inputs,
+    targets and weight (all of them without a seq group); s = seq_len
+    must split into equal chunks."""
+    if sp is None:
+        return inputs, targets, weight
+    return (sp.chunk(inputs), sp.chunk(targets),
+            None if weight is None else sp.chunk(weight))
+
+
+def _seq_weighted_loss(sp, logits, targets, weight, label_smoothing):
+    """The chunk's part of the whole sequences' weighted mean, times the
+    seq size (the seq mean of the ranks' losses is then the mean)."""
+    loss_sum, weight_sum = cross_entropy_sum(
+        logits, targets, weight=weight, label_smoothing=label_smoothing)
+    total = weight_sum.detach().clone()
+    tdist.all_reduce(total, op=tdist.ReduceOp.SUM, group=sp.group)
+    return loss_sum * sp.size / torch.clamp(total, min=1.0)
+
+
 def make_lm_train_step(model: nn.Module, *, label_smoothing: float = 0.0,
                        seed: int = 0, with_accuracy: bool = True,
                        forward: Optional[nn.Module] = None,
@@ -135,17 +169,23 @@ def make_lm_train_step(model: nn.Module, *, label_smoothing: float = 0.0,
     params = [p for p in model.parameters() if p.requires_grad]
     groups = norm_groups(model)
     moes = moe_layers(model)
+    sp = getattr(model, "sp", None)
 
     def train_step(state: TrainState, batch: dict):
         tokens = batch["tokens"]
         inputs, targets = tokens[:, :-1], tokens[:, 1:]
         weight = batch.get("weight")
+        inputs, targets, weight = _seq_chunk(sp, inputs, targets, weight)
         for p in params:
             p.grad = None
         logits = net(inputs, train=True,
                      dropout_key=_dropout_key(model, seed, state))
-        loss = cross_entropy(logits, targets, weight=weight,
-                             label_smoothing=label_smoothing)
+        if sp is not None and weight is not None:
+            loss = _seq_weighted_loss(sp, logits, targets, weight,
+                                      label_smoothing)
+        else:
+            loss = cross_entropy(logits, targets, weight=weight,
+                                 label_smoothing=label_smoothing)
         loss = loss + _sown_aux_loss(moes)
         moe_metrics = _moe_metrics(moes)
         loss.backward()
@@ -174,16 +214,23 @@ def make_lm_train_step(model: nn.Module, *, label_smoothing: float = 0.0,
 
 def make_lm_eval_step(model: nn.Module):
     """(state, batch) -> (correct, total, nll) summed over the batch, as
-    0-dim fp32 tensors on the device (the loop all-reduces them)."""
+    0-dim fp32 tensors on the device (the loop all-reduces them over the
+    data ranks; under sequence parallelism summed here over the seq
+    group first, so every seq rank returns the whole sequences' sums)."""
+    sp = getattr(model, "sp", None)
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: dict):
         tokens = batch["tokens"]
-        inputs, targets = tokens[:, :-1], tokens[:, 1:]
+        inputs, targets, _ = _seq_chunk(sp, tokens[:, :-1], tokens[:, 1:])
         logits = model(inputs, train=False)
         correct, total = accuracy_counts(logits, targets)
         nll = cross_entropy(logits, targets) * total
-        return correct, total, nll
+        if sp is None:
+            return correct, total, nll
+        sums = torch.stack([correct, total, nll])
+        tdist.all_reduce(sums, op=tdist.ReduceOp.SUM, group=sp.group)
+        return tuple(sums.unbind(0))
 
     return eval_step
 

@@ -17,6 +17,9 @@ chip_smoke.py holds the kernels at lm_base shapes; these cover what it
 does not: every compiled head_dim (64, 128, 256), fp32 queries over a
 bf16 cache or pool, empty valid ranges, shared blocks, garbage-block
 rows, cursors past the per-slot capacity, and the wrappers' refusals;
+ring and Ulysses attention on seq ranks as threads (E/F/G per block with
+the merge's lse cotangent, the packed and "heads" routes after the head
+scatter, lm_base steps at seq 2 against one rank: `-k sequence`);
 the split over the cache at forced plans and at ranges the old kernel
 refused (L = 65536), its arrival counters across calls, and kernel C
 with fp32 queries over a bf16 pool at S > 1 against the split schedule's
@@ -1580,3 +1583,115 @@ def test_sharded_generate_on_the_card(card):
     for got in run_ranks(rank, 2, timeout=300):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert da.LAUNCHES["decode_attention"] == 2 * 2 * 16
+
+
+# ------------------------------------- ROADMAP A8b: sequence parallelism
+# bf16 without a causal mask, the relative error norm: the plain version
+# tiles a row's keys 1024 at a time where E takes a few dozen, so its
+# running maxima, and with them p's bf16 rounding, differ on most rows of
+# a long unmasked sequence (one packed flash_attention call at s 1024,
+# Ulysses' local attention here: 2.26e-3 on an H100); the per-element
+# limits hold as everywhere
+SEQ_FULL_BF16_REL = 3e-3
+
+
+def _seq_run(sp_impl, world, inputs, weight, causal, impl):
+    """ring or Ulysses attention (local impl "flash") with every flash
+    entry forced to `impl`, on `world` seq ranks as threads of this
+    process: the output and the grads of sum(out * weight), whole."""
+    from ddp_practice_tpu_torch.config import MeshConfig
+    from ddp_practice_tpu_torch.ops.attention import dot_product_attention
+    from ddp_practice_tpu_torch.parallel.mesh import build_mesh, seq_group
+    from ddp_practice_tpu_torch.parallel.threads import run_ranks
+
+    def rank(r):
+        sp = seq_group(build_mesh(MeshConfig(seq=world), "cuda"))
+        xs = [sp.chunk(t).detach().clone().requires_grad_(True)
+              for t in inputs]
+        out = dot_product_attention(*xs, causal=causal, seq_axis=sp,
+                                    sp_impl=sp_impl, impl="flash")
+        loss = (out.float() * sp.chunk(weight)).sum()
+        grads = torch.autograd.grad(loss, xs)
+        torch.cuda.synchronize()
+        return out.detach(), grads
+
+    with fa.forced_impl(impl):
+        res = run_ranks(rank, world, timeout=300)
+    return ([torch.cat([r[0] for r in res], 1)]
+            + [torch.cat([r[1][i] for r in res], 1) for i in range(3)])
+
+
+def _seq_check(sp_impl, world, shape, dtype, causal):
+    inputs = [_randn(*shape, dtype=dtype, seed=20 + i) for i in range(3)]
+    weight = _randn(*shape, dtype=torch.float32, seed=23)
+    fa.reset_launches()
+    got = _seq_run(sp_impl, world, inputs, weight, causal, "kernel")
+    launches = dict(fa.LAUNCHES)
+    want = _seq_run(sp_impl, world, inputs, weight, causal, "plain")
+    limit = (SEQ_FULL_BF16_REL if dtype == torch.bfloat16 and not causal
+             else FLASH_REL[dtype])
+    for i, (a, b) in enumerate(zip(got, want)):
+        atol, rtol = FLASH_TOL[dtype][i > 0]
+        torch.testing.assert_close(a.float(), b.float(), atol=atol,
+                                   rtol=rtol)
+        rel = float((a.float() - b.float()).norm() / b.float().norm())
+        assert rel <= limit, (i, rel)
+    return launches
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sequence_ring_kernels_match_plain(card, dtype, causal):
+    """Ring attention on 4 seq ranks, (b, s, h, d) = (2, 768, 4, 64):
+    E per held block (the diagonal causal, earlier blocks full, later
+    ones skipped), the blocks' (out, lse) merged in logsumexp space, and
+    G+F with the merge's lse cotangent in delta, against the same ring
+    on the plain versions. Launches: a rank r runs r + 1 blocks under
+    causal masking, 4 without."""
+    launches = _seq_check("ring", 4, (2, 768, 4, 64), dtype, causal)
+    blocks = sum(r + 1 for r in range(4)) if causal else 16
+    assert launches["flash_fwd_folded"] == blocks
+    assert launches["flash_bwd_folded"] == blocks
+
+
+@pytest.mark.parametrize("heads", [8, 6], ids=["packed", "heads"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sequence_ulysses_kernels_match_plain(card, dtype, heads):
+    """Ulysses on 2 seq ranks at s 1024, causal: 4 heads of 64 a rank
+    take the packed route, 3 the "heads" route; one E and one G+F a
+    rank."""
+    launches = _seq_check("ulysses", 2, (2, 1024, heads, 64), dtype, True)
+    row = "packed" if heads == 8 else "folded"
+    assert launches[f"flash_fwd_{row}"] == 2
+    assert launches[f"flash_bwd_{row}"] == 2
+
+
+@pytest.mark.parametrize("sp_impl", ["ring", "ulysses"])
+def test_sequence_lm_base_steps_equal_one_rank(card, sp_impl):
+    """lm_base, fp32, flash, seq_len 512 at seq 2 (ranks as threads on
+    this card), two SGD steps against one rank: loss rtol 2e-4, every
+    parameter rtol 1e-3 / atol 1e-5. Per step and rank r, ring launches
+    12 (r + 1) folded E and G+F, Ulysses 12 packed (6 heads a rank)."""
+    from ddp_practice_tpu_torch.parallel.mesh import full_parameters
+    from ddp_practice_tpu_torch.parallel.threads import run_ranks
+
+    ref = _sharded_trainer(1, "sgd")
+    want_losses = _sharded_steps(ref)
+    want = {n: p.detach().clone() for n, p in ref.model.named_parameters()}
+    del ref
+    fa.reset_launches()
+
+    def rank(r):
+        # world 1: the global batch stays 4 (one data replica)
+        t = _sharded_trainer(1, "sgd", mesh=dict(seq=2), sp_impl=sp_impl)
+        return _sharded_steps(t), full_parameters(t.model)
+
+    res = run_ranks(rank, 2, timeout=300)
+    for losses, _ in res:
+        np.testing.assert_allclose(losses, want_losses, rtol=2e-4)
+    for n, w in want.items():
+        torch.testing.assert_close(res[0][1][n], w, rtol=1e-3, atol=1e-5)
+    row, per_step = (("folded", 12 * (1 + 2)) if sp_impl == "ring"
+                     else ("packed", 12 * 2))
+    assert fa.LAUNCHES[f"flash_fwd_{row}"] == 2 * per_step
+    assert fa.LAUNCHES[f"flash_bwd_{row}"] == 2 * per_step

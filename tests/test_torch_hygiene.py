@@ -232,7 +232,8 @@ TRAIN_SLICE = ["data/sharding.py", "data/lm_corpus.py", "data/datasets.py",
                "ops/augment.py", "data/native_loader.py", "convert.py",
                "benchmarks.py", "parallel/mesh.py",
                "parallel/sharding_rules.py", "parallel/fsdp.py",
-               "parallel/tensor.py", "parallel/threads.py"]
+               "parallel/tensor.py", "parallel/threads.py",
+               "parallel/ring.py", "parallel/ulysses.py"]
 STDLIB = ("__future__", "typing", "argparse", "collections", "contextlib",
           "ctypes", "dataclasses", "fcntl", "gzip", "hashlib", "json",
           "logging", "math", "os", "pathlib", "pickle", "platform", "re",

@@ -11,7 +11,10 @@ as threads, tests/_torch_port.py `ranks`), then
   whole-leaf assembly is stubbed to raise, as the reference's
   tests/mp_worker.py checks), and trains on as the saved run does;
 - a target on another mesh (FSDP alone) and a single-rank checkpoint
-  restored into a sharded target both land on the same values.
+  restored into a sharded target both land on the same values;
+- under data 2 x seq 2 with FSDP the seq replicas write empty shard
+  files, the checkpoint equals the same steps run on one rank, and a run
+  resumed from it takes the unbroken run's next step.
 """
 
 import json
@@ -176,3 +179,61 @@ def test_restore_lays_out_onto_the_targets_mesh(saved, tmp_path, source):
         for name in params:
             torch.testing.assert_close(got[name], params[name], rtol=0,
                                        atol=0)
+
+
+SEQ_GRID = dict(fsdp=True, mesh=MeshConfig(seq=2), batch_size=2)
+
+
+@pytest.fixture(scope="module")
+def saved_seq(tmp_path_factory):
+    """data 2 x seq 2 with FSDP (ring attention): the checkpoint of two
+    steps, the state gathered whole and the third step's loss."""
+    ckdir = tmp_path_factory.mktemp("sharded_seq")
+
+    def rank(r):
+        t = Trainer(_config(ckdir, **SEQ_GRID))
+        _steps(t, 2)
+        t.save()
+        state = (full_parameters(t.model), _momentum(t))
+        return state, _steps(t, 1, skip=2)
+
+    (params, momentum), third = ranks(rank, 4)[0]
+    return ckdir, params, momentum, third
+
+
+def test_seq_replicas_write_nothing_twice(saved_seq, tmp_path):
+    """Seq rank 1 of each data replica writes empty shard files; the
+    shards of the seq-0 ranks hold the run's state, which is the same
+    two steps run on one rank."""
+    ckdir, params, momentum, _ = saved_seq
+    step_dir = os.path.join(ckdir, "step_2")
+    for p in range(4):
+        with np.load(os.path.join(step_dir, f"shards.{p}.npz")) as z:
+            assert (len(z.files) == 0) == (p % 2 == 1), p
+    target = Trainer(_config(tmp_path))
+    ckpt.restore(str(ckdir), target.state)
+    for name, p in target.model.named_parameters():
+        torch.testing.assert_close(p.detach(), params[name], rtol=0, atol=0)
+    ref = Trainer(_config(tmp_path / "ref"))
+    _steps(ref, 2)
+    for name, p in ref.model.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), params[name].numpy(),
+                                   rtol=1e-5, atol=1e-6, err_msg=name)
+
+
+def test_a_seq_sharded_run_resumes_as_unbroken(saved_seq, tmp_path):
+    ckdir, params, momentum, third = saved_seq
+
+    def rank(r):
+        t = Trainer(_config(tmp_path, **SEQ_GRID))
+        ckpt.restore(str(ckdir), t.state)
+        state = (full_parameters(t.model), _momentum(t))
+        return state, _steps(t, 1, skip=2)
+
+    for (got_params, got_momentum), losses in ranks(rank, 4):
+        for name in params:
+            torch.testing.assert_close(got_params[name], params[name],
+                                       rtol=0, atol=0)
+            torch.testing.assert_close(got_momentum[name], momentum[name],
+                                       rtol=0, atol=0)
+        assert losses == third

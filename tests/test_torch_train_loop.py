@@ -122,7 +122,7 @@ def test_cli_trains_lm_moe_on_the_cpu(router, capsys, tmp_path):
 
 @pytest.mark.parametrize("argv,item", [
     (["--model", "lm_tiny", "--expert", "2"], "A8"),
-    (["--model", "lm_tiny", "--seq", "2"], "A8"),
+    (["--model", "lm_tiny", "--pipe", "2"], "A8"),
     (["--model", "lm_pipe"], "A8"),
 ])
 def test_unported_paths_name_their_roadmap_item(argv, item):
