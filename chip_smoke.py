@@ -289,11 +289,34 @@ later launch in the process.
    nothing before its output). The legs' launches join the flash rows'
    in the kernels' record; the phase prints its wall time.
 
+30. expert (ROADMAP A8c and A8f; right after phase 29): lm_moe_tc
+   (lm_base widths, 12 layers, 6 routed over 8 experts, top-2, strided
+   routing groups of 256, capacity 1.5, seq 2048, flash attention) in
+   fp32 under phase 28's optimizer (SGD, momentum 0.9, clipping 1.0, lr
+   1e-2), global batch 4, 3 steps through `parallelize` and
+   `make_lm_train_step`, the ranks as threads on the one card, every
+   rank and leg starting from one seed's weights: one rank on the einsum
+   and on the sorted path first, then expert 2 and expert 4 einsum,
+   expert 2 sorted, data 2 x expert 2 gather with FSDP, seq 2 ring
+   einsum, seq 2 Ulysses sorted and expert 2 x seq 2 ring, each held to
+   the one-rank run of its function (gather computes einsum's): losses
+   within PAR_LOSS_RTOL and equal on every rank, the router metrics
+   (moe_drop_rate, moe_load_max, moe_load_min) within 1e-6 on every rank
+   and step, every parameter within PAR_RTOL / PAR_ATOL; each rank's E,
+   G+F, J and K launches a step at their formulas (a per-thread tally:
+   12 packed, the ring's 12 (r + 1) folded on seq rank r, the sorted
+   path's 2 J, 2 J transposed, 2 K and 2 second passes a routed layer).
+   Then 32 greedy tokens of lm_moe_tc at expert 2 against one rank's
+   (identical, kernel A 12 a token a rank), and `--model lm_moe --expert
+   2` through the CLI's parser and `fit` (5 steps, no compare). The
+   legs' launches join the flash and grouped-matmul rows in the kernels'
+   record; the phase prints its wall time.
+
 Launch counts are zeroed just before each phase's run and read just
 after it; a train leg's count is its wrappers' (eager calls) plus its
 graph replays' (utils/graphs.REPLAYED). The kernels' record adds the MoE
-serve rows' launches to A's and C's, the sorted decode leg's to J's, and
-the sequence legs' to E/F/G's. The ConvNet's, lm_base's and vit_tiny's
+serve rows' launches to A's and C's, the sorted decode leg's to J's, the
+sequence legs' to E/F/G's, and the expert legs' to E/F/G's and J/K's. The ConvNet's, lm_base's and vit_tiny's
 leg lines end with the card's name and power limit. Before the card's
 line the script prints its own wall time. The second-to-last line is the
 kernels' JSON record; the last line is {"ok": true, "device": {...}}.
@@ -2429,9 +2452,9 @@ def _moe_model(torch, *, impl, precision="bf16", seed=0, vocab=64, **kw):
     return model
 
 
-def _moe_loaders():
-    """fit's LM batches (train/loop.py _build_lm_data): the synthetic
-    Markov corpus, the last 10% the eval split."""
+def _moe_loaders(batch=MOE_BATCH):
+    """fit's LM batches (train/loop.py _build_lm_data) of `batch` rows:
+    the synthetic Markov corpus, the last 10% the eval split."""
     from ddp_practice_tpu_torch.data.lm_corpus import (
         LMDataLoader,
         TokenCorpus,
@@ -2439,13 +2462,13 @@ def _moe_loaders():
     )
 
     corpus = synthetic_token_corpus(600000, seed=3407)
-    batch_tokens = MOE_BATCH * (MOE_SEQ + 1)
+    batch_tokens = batch * (MOE_SEQ + 1)
     n_eval = max(len(corpus) - int(len(corpus) * 0.9), batch_tokens)
     split = len(corpus) - n_eval
     make = [TokenCorpus(corpus.tokens[:split], corpus.vocab_size),
             TokenCorpus(corpus.tokens[split:], corpus.vocab_size)]
     return corpus.vocab_size, [
-        LMDataLoader(c, seq_len=MOE_SEQ, global_batch_size=MOE_BATCH,
+        LMDataLoader(c, seq_len=MOE_SEQ, global_batch_size=batch,
                      seed=3407, shuffle=shuffle)
         for c, shuffle in zip(make, (True, False))]
 
@@ -3041,6 +3064,270 @@ def seq_phase(torch, fa, par) -> dict:
     wall = time.monotonic() - t_phase
     log(f"sequence phase: legs' launches (all ranks) {launches}; ring "
         f"kernel check worst |err| {worst:.2e}; wall {wall:.1f} s")
+    torch.cuda.empty_cache()
+    return {"launches": launches, "wall_s": wall}
+
+
+# the expert phase (ROADMAP A8c, A8f): lm_moe_tc in fp32 under PAR_ARGS's
+# optimizer (SGD, momentum 0.9, clip 1.0, lr 1e-2), global batch 4, 3
+# steps; legs (label, mesh axes, impl, sp_impl, fsdp, ranks)
+EXPERT_BATCH, EXPERT_STEPS = 4, 3
+EXPERT_LEGS = [
+    ("expert 2 einsum", dict(expert=2), "einsum", None, False, 2),
+    ("expert 4 einsum", dict(expert=4), "einsum", None, False, 4),
+    ("expert 2 sorted", dict(expert=2), "sorted", None, False, 2),
+    ("data 2 x expert 2 gather", dict(data=2, expert=2), "gather", None,
+     True, 4),
+    ("seq 2 ring einsum", dict(seq=2), "einsum", "ring", False, 2),
+    ("seq 2 ulysses sorted", dict(seq=2), "sorted", "ulysses", False, 2),
+    ("expert 2 x seq 2 ring", dict(seq=2, expert=2), "einsum", "ring",
+     False, 4),
+]
+# a leg's router metrics against the one-rank run's
+EXPERT_HEALTH_ATOL = 1e-6
+
+
+def _expert_rank_model(torch, state, *, impl, **kw):
+    """A rank's lm_moe_tc in fp32 (`kw`: seq_axis, sp_impl), built on the
+    meta device and filled on the card from `state`, the one seed's
+    weights every rank and leg start from (`create_model` draws every
+    weight on the CPU: for each of the phase's ranks that would cost more
+    than its steps)."""
+    from ddp_practice_tpu_torch.models import LMMoE
+    from ddp_practice_tpu_torch.ops.moe import moe_layers
+
+    with torch.device("meta"):
+        model = LMMoE(vocab_size=state["tok_embed.weight"].shape[0],
+                      max_len=MOE_SEQ, attn_impl="flash", **MOE, **kw)
+    model = model.to_empty(device="cuda")
+    model.load_state_dict(state)
+    for layer in moe_layers(model):
+        layer.impl = impl
+    return model
+
+
+def _expert_run(torch, state, batches, *, axes, impl, sp_impl, fsdp, world,
+                tallies):
+    """One leg: every rank's lm_moe_tc laid out by `parallelize` on the
+    mesh `axes`, EXPERT_STEPS steps of `make_lm_train_step` on its rows of
+    each global batch. Returns per rank (losses, router metrics, its
+    kernels' launches a step, its seq coordinate, whole parameters)."""
+    from ddp_practice_tpu_torch.config import MeshConfig, TrainConfig
+    from ddp_practice_tpu_torch.parallel.mesh import (
+        batch_shard,
+        build_mesh,
+        coords,
+        full_parameters,
+        parallelize,
+    )
+    from ddp_practice_tpu_torch.parallel.threads import run_ranks
+    from ddp_practice_tpu_torch.train.state import TrainState, make_optimizer
+    from ddp_practice_tpu_torch.train.steps import make_lm_train_step
+
+    config = TrainConfig(optimizer="sgd", learning_rate=1e-2, momentum=0.9,
+                         clip_norm=1.0, model="lm_moe")
+
+    def mine():
+        return {k: v for t in tallies for k, v in t.mine().items()}
+
+    def rank(r):
+        mesh = build_mesh(MeshConfig(**axes), "cuda") if world > 1 else None
+        kw = {} if sp_impl is None else dict(seq_axis="seq", sp_impl=sp_impl)
+        model = _expert_rank_model(torch, state, impl=impl, **kw)
+        forward, after = parallelize(model, mesh, model_name="lm_moe",
+                                     fsdp=fsdp)
+        train = TrainState(0, model, make_optimizer(config, model))
+        step = make_lm_train_step(model, seed=config.seed, forward=forward,
+                                  after_backward=after)
+        rows = batch_shard(mesh).local_slice(EXPERT_BATCH)
+        losses, health, per_step = [], [], []
+        for batch in batches:
+            before = mine()
+            train, metrics = step(train, {"tokens": batch[rows]})
+            losses.append(float(metrics["loss"]))
+            health.append({k: float(metrics[k]) for k in MOE_HEALTH})
+            torch.cuda.synchronize()
+            per_step.append({k: v - before.get(k, 0)
+                             for k, v in mine().items()
+                             if v != before.get(k, 0)})
+        params = (full_parameters(model) if world > 1 else
+                  {n: p.detach().clone()
+                   for n, p in model.named_parameters()})
+        return losses, health, per_step, coords(mesh)["seq"][0], params
+
+    return run_ranks(rank, world, timeout=600) if world > 1 else [rank(0)]
+
+
+def _expert_expected(leg: str, impl: str, seq_rank: int, depth: int,
+                     n_moe: int) -> dict:
+    """E/F/G and J/K launches a step on a rank: E and G+F a layer on the
+    packed row (12 heads, or 6 a rank under Ulysses at seq 2), the causal
+    ring's seq_rank + 1 blocks a layer on the folded row; the sorted path
+    J twice forward, J transposed twice and K twice backward a routed
+    layer, K's second pass after each K (fp32: every unit a slab)."""
+    if "ring" in leg:
+        row, n = "folded", depth * (seq_rank + 1)
+    else:
+        row, n = "packed", depth
+    want = {f"flash_fwd_{row}": n, f"flash_bwd_{row}": n}
+    if impl == "sorted":
+        want.update({k: 2 * n_moe for k in ("gmm", "gmm_trhs", "tgmm",
+                                            "tgmm_reduce")})
+    return want
+
+
+def expert_phase(torch, fa, gm, ops) -> dict:
+    """ROADMAP A8c and A8f on one card (the docstring's phase 30):
+    lm_moe_tc's expert- and seq-sharded legs against the one-rank runs,
+    the expert-sharded generate against one rank's, and `--expert 2`
+    through the CLI. Returns {"launches": the legs' E/F/G and J/K
+    launches, "wall_s"}."""
+    import copy
+
+    import numpy as np
+
+    from ddp_practice_tpu_torch.cli import build_parser, config_from_args
+    from ddp_practice_tpu_torch.config import MeshConfig
+    from ddp_practice_tpu_torch.inference import make_generate_fn
+    from ddp_practice_tpu_torch.parallel.mesh import build_mesh, shard_state
+    from ddp_practice_tpu_torch.parallel.sharding_rules import (
+        param_sharding_rules,
+    )
+    from ddp_practice_tpu_torch.parallel.threads import run_ranks
+    from ddp_practice_tpu_torch.train.loop import Trainer
+
+    t_phase = time.monotonic()
+    vocab, (loader, _) = _moe_loaders(EXPERT_BATCH)
+    batches = [torch.from_numpy(np.ascontiguousarray(b["tokens"])).long()
+               .cuda() for _, b in zip(range(EXPERT_STEPS), loader)]
+    template = _moe_model(torch, impl="einsum", precision="fp32", seed=30,
+                          vocab=vocab)
+    depth, n_moe = template.depth, template.depth // template.moe_every
+    state = {k: v.detach().clone() for k, v in template.state_dict().items()}
+    del template
+    counts = (fa.LAUNCHES, gm.LAUNCHES)
+    fa.LAUNCHES, gm.LAUNCHES = tallies = (
+        _RankTally({k: 0 for k in fa.LAUNCHES}),
+        _RankTally({k: 0 for k in gm.LAUNCHES}))
+    try:
+        one = {}
+        for impl in ("einsum", "sorted"):
+            t0 = time.monotonic()
+            losses, health, _, _, params = _expert_run(
+                torch, state, batches, axes={}, impl=impl, sp_impl=None,
+                fsdp=False, world=1, tallies=tallies)[0]
+            one[impl] = (losses, health, params)
+            log(f"expert[one rank, {impl}] lm_moe_tc fp32 sgd, seq "
+                f"{MOE_SEQ}, global batch {EXPERT_BATCH}, {EXPERT_STEPS} "
+                f"steps: losses {', '.join(f'{x:.6f}' for x in losses)}; "
+                f"last step " + ", ".join(f"{k} {v:.6f}" for k, v in
+                                          health[-1].items())
+                + f"; wall {time.monotonic() - t0:.1f} s [{CARD}]")
+        # legs' launches only: the one-rank runs' stay out of the record
+        for t in tallies:
+            t.by_thread.clear()
+        for label, axes, impl, sp_impl, fsdp, world in EXPERT_LEGS:
+            want_losses, want_health, want = one[
+                "sorted" if impl == "sorted" else "einsum"]
+            t0 = time.monotonic()
+            res = _expert_run(torch, state, batches, axes=axes, impl=impl,
+                              sp_impl=sp_impl, fsdp=fsdp, world=world,
+                              tallies=tallies)
+            wall = time.monotonic() - t0
+            losses, health = res[0][0], res[0][1]
+            for other in res[1:]:
+                if other[0] != losses:
+                    raise AssertionError(f"expert[{label}]: ranks disagree "
+                                         f"on the loss: {other[0]} vs "
+                                         f"{losses}")
+            loss_err = max(abs(a - b) / abs(b) for a, b in
+                           zip(losses, want_losses))
+            health_err = max(abs(h[k] - w[k]) for r in res
+                             for h, w in zip(r[1], want_health)
+                             for k in MOE_HEALTH)
+            got = res[0][4]
+            worst, worst_name = 0.0, None
+            for name, w in want.items():
+                excess = float(((got[name] - w).abs() - PAR_RTOL * w.abs())
+                               .max())
+                if excess > worst:
+                    worst, worst_name = excess, name
+            log(f"expert[{label}] {world} ranks as threads sharing one "
+                f"card: losses {', '.join(f'{x:.6f}' for x in losses)} "
+                f"(worst relative difference {loss_err:.2e}, limit "
+                f"{PAR_LOSS_RTOL}); router metrics' worst difference "
+                f"{health_err:.2e} (limit {EXPERT_HEALTH_ATOL}); "
+                f"parameters' worst |err| - rtol |want| {worst:.2e} (limit "
+                f"{PAR_ATOL}{', at ' + worst_name if worst_name else ''}); "
+                f"launches a step by rank {[r[2][0] for r in res]}; wall "
+                f"{wall:.1f} s [{CARD}]")
+            if (loss_err > PAR_LOSS_RTOL or worst > PAR_ATOL
+                    or health_err > EXPERT_HEALTH_ATOL):
+                raise AssertionError(f"expert[{label}]: off the one-rank "
+                                     "run")
+            for r, (_, _, steps, seq_rank, _) in enumerate(res):
+                expect = _expert_expected(label, impl, seq_rank, depth,
+                                          n_moe)
+                if len(steps) != EXPERT_STEPS or any(s != expect
+                                                     for s in steps):
+                    raise AssertionError(
+                        f"expert[{label}]: rank {r} launched {steps} a "
+                        f"step, want {expect}")
+            del res, got
+            torch.cuda.empty_cache()
+        launches = {k: v for t in tallies for k, v in t.total().items()}
+    finally:
+        fa.LAUNCHES, gm.LAUNCHES = counts
+    del one
+
+    prompt = torch.randint(0, vocab, (2, 16),
+                           generator=torch.Generator().manual_seed(1))
+    model = _expert_rank_model(torch, state, impl="einsum")
+    expected = make_generate_fn(model, max_new_tokens=PAR_NEW_TOKENS,
+                                temperature=0.0)(prompt).cpu()
+    del model
+
+    def gen_rank(r):
+        model = _expert_rank_model(torch, state, impl="einsum")
+        shard_state(model, build_mesh(MeshConfig(expert=2), "cuda"),
+                    param_sharding_rules("lm_moe"), "lm_moe")
+        return make_generate_fn(model, max_new_tokens=PAR_NEW_TOKENS,
+                                temperature=0.0)(prompt).cpu()
+
+    _reset_launches(ops)
+    t0 = time.monotonic()
+    tokens = run_ranks(gen_rank, 2, timeout=600)
+    wall = time.monotonic() - t0
+    gen_launches = _launches(ops.LAUNCHES)
+    per_token = gen_launches["decode_attention"] / (2 * PAR_NEW_TOKENS)
+    same = all(torch.equal(t, expected) for t in tokens)
+    log(f"expert[generate, expert 2] lm_moe_tc fp32 greedy, 2 prompts of "
+        f"16, {PAR_NEW_TOKENS} new tokens: tokens identical to one rank's "
+        f"{same}; kernel A {gen_launches['decode_attention']} launches = "
+        f"{per_token:.0f} per token per rank; wall {wall:.1f} s [{CARD}]")
+    if not same or per_token != depth:
+        raise AssertionError("expert[generate]: tokens or launches off")
+    del state
+    torch.cuda.empty_cache()
+
+    argv = ["--model", "lm_moe", "--expert", "2", "--precision", "bf16",
+            "--seq_len", "512", "-b", "8", "-e", "1", "--max_steps", "5",
+            "--optimizer", "adamw", "--lr", "1e-3", "--log_every", "0",
+            "--synthetic_size", "200000"]
+    t0 = time.monotonic()
+    summaries = run_ranks(lambda r: Trainer(config_from_args(
+        build_parser().parse_args(argv))).fit(), 2, timeout=600)
+    s = summaries[0]
+    log(f"expert[cli] {' '.join(argv)}, 2 ranks as threads: "
+        f"{s['steps']} steps, eval accuracy {s['accuracy']:.4f} perplexity "
+        f"{s['perplexity']:.3f}, " + ", ".join(
+            f"{k} {s[k]:.4f}" for k in MOE_HEALTH)
+        + f"; wall {time.monotonic() - t0:.1f} s [{CARD}]")
+    if s["steps"] != 5 or not math.isfinite(s["perplexity"]):
+        raise AssertionError(f"expert[cli]: summary {s}")
+    wall = time.monotonic() - t_phase
+    log(f"expert phase: legs' launches (all ranks) {launches}; wall "
+        f"{wall:.1f} s")
     torch.cuda.empty_cache()
     return {"launches": launches, "wall_s": wall}
 
@@ -4183,6 +4470,7 @@ def main() -> int:
     # are eager and their ranks threads of this process)
     par = parallel_phase(torch, fa, ops)
     seq = seq_phase(torch, fa, par)
+    expert = expert_phase(torch, fa, gm, ops)
 
     # the MoE decode legs and the bench's decode entries are host-bound:
     # they run before any torch.profiler trace, which leaves host time on
@@ -4353,6 +4641,7 @@ def main() -> int:
     log(f"the parallel phase's launches (all ranks): training "
         f"{par['launches']}, generate {par['generate_launches']}")
     log(f"the sequence phase's launches (all ranks): {seq['launches']}")
+    log(f"the expert phase's launches (all ranks): {expert['launches']}")
 
 
     # each kernel's launches on its main path's run
@@ -4365,13 +4654,17 @@ def main() -> int:
         "paged_decode_attention_int8":
             prefix8_launches["paged_decode_attention_int8"],
         **{name: train["launches"][name] + seq["launches"][name]
+           + expert["launches"][name]
            for name in ("flash_fwd_packed", "flash_bwd_packed")},
         **{name: folded["launches"][name] + seq["launches"][name]
+           + expert["launches"][name]
            for name in ("flash_fwd_folded", "flash_bwd_folded")},
         "fused_encoder_fwd": vit["launches"]["fused_encoder_fwd"],
         "fused_encoder_bwd": vit["launches"]["fused_encoder_bwd"],
-        **{name: moe_sorted["launches"][name] for name in GMM_REPLACES},
-        "gmm": moe_sorted["launches"]["gmm"] + moe_j,
+        **{name: moe_sorted["launches"][name] + expert["launches"][name]
+           for name in GMM_REPLACES},
+        "gmm": moe_sorted["launches"]["gmm"] + moe_j
+        + expert["launches"]["gmm"],
         **{name: row["launches"] for name, row in variant_rows.items()},
     }
     idle = [name for name, n in launches.items() if n <= 0]

@@ -1,5 +1,6 @@
 """lm_base's train step under tensor parallelism, FSDP and sequence
-parallelism on several cards (NCCL, one process a card under torchrun).
+parallelism, and lm_moe's under expert and sequence parallelism, on
+several cards (NCCL, one process a card under torchrun).
 
     python -m ddp_practice_tpu_torch.experiments.parallel_step \
         [--nproc 4] [--steps 20] [--batch_size 8] [--layouts NAME ...]
@@ -21,13 +22,21 @@ For each layout (`LAYOUTS`; default all: tensor4 = "--tensor 4",
 tensor2_fsdp = "--tensor 2 --fsdp", fsdp = "--fsdp", the sequence
 layouts seq4_ring = "--seq 4 --sp_impl ring", seq4_ulysses = "--seq 4
 --sp_impl ulysses" and tensor2_seq2_ulysses = "--tensor 2 --seq 2
---sp_impl ulysses", and ddp = no flag, plain DDP for the yardstick) it
-runs
+--sp_impl ulysses", the MoE layouts expert4_moe = "--model lm_moe
+--expert 4" and seq4_ring_moe = "--model lm_moe --seq 4 --sp_impl ring"
+(the later --model wins), and the yardsticks ddp = no flag and ddp_moe =
+"--model lm_moe", plain DDP) it runs
 
     torchrun --nproc_per_node N -m ddp_practice_tpu_torch.cli \
         --model lm_base --attn_impl flash --precision bf16 \
         --optimizer adamw --lr 3e-4 --seq_len 2048 -b B -e 1 \
         --max_steps S --log_every 1 --metrics_file F --json <layout>
+
+The MoE layouts run the same command through `--moe_tc_worker`, which
+builds lm_moe at lm_moe_tc's fields (benchmarks.py's suite entry: lm_base
+widths, 6 of 12 blocks routed over 8 experts, top-2, strided routing
+groups of 256, capacity factor 1.5) where the CLI's registry preset has
+lm_tiny's test-sized widths.
 
 (rank 0 writes one record a step after reading the step's metrics back,
 so consecutive records are one step apart; the first two steps are left
@@ -52,17 +61,24 @@ LAYOUTS = {"tensor4": "--tensor 4", "tensor2_fsdp": "--tensor 2 --fsdp",
            "fsdp": "--fsdp", "seq4_ring": "--seq 4 --sp_impl ring",
            "seq4_ulysses": "--seq 4 --sp_impl ulysses",
            "tensor2_seq2_ulysses": "--tensor 2 --seq 2 --sp_impl ulysses",
-           "ddp": ""}
+           "expert4_moe": "--model lm_moe --expert 4",
+           "seq4_ring_moe": "--model lm_moe --seq 4 --sp_impl ring",
+           "ddp_moe": "--model lm_moe", "ddp": ""}
+# the layouts that train lm_moe at lm_moe_tc's fields (`moe_tc_worker`)
+MOE_TC = ("expert4_moe", "seq4_ring_moe", "ddp_moe")
 # 4 M tokens: an epoch of the synthetic corpus holds every layout's steps
 BASE = ["--model", "lm_base", "--attn_impl", "flash", "--precision", "bf16",
         "--optimizer", "adamw", "--lr", "3e-4", "--seq_len", "2048", "-e",
         "1", "--log_every", "1", "--json", "--synthetic_size", "4000000"]
 
 
-def _torchrun(nproc: int, args: list) -> dict:
-    """The CLI under torchrun; rank 0's JSON summary."""
+def _torchrun(nproc: int, args: list, moe_tc: bool = False) -> dict:
+    """The CLI under torchrun (through `moe_tc_worker` with `moe_tc`);
+    rank 0's JSON summary."""
+    entry = (["ddp_practice_tpu_torch.experiments.parallel_step",
+              "--moe_tc_worker"] if moe_tc else ["ddp_practice_tpu_torch.cli"])
     cmd = ["torchrun", "--standalone", f"--nproc_per_node={nproc}", "-m",
-           "ddp_practice_tpu_torch.cli", *BASE, *args]
+           *entry, *BASE, *args]
     out = subprocess.run(cmd, capture_output=True, text=True)
     if out.returncode != 0:
         raise RuntimeError(f"{' '.join(cmd)} failed:\n{out.stderr[-4000:]}")
@@ -74,7 +90,8 @@ def run_layout(name: str, nproc: int, steps: int, batch: int,
     layout = LAYOUTS[name]
     metrics = os.path.join(workdir, f"{name}.jsonl")
     summary = _torchrun(nproc, ["-b", str(batch), "--max_steps", str(steps),
-                                "--metrics_file", metrics, *layout.split()])
+                                "--metrics_file", metrics, *layout.split()],
+                        moe_tc=name in MOE_TC)
     with open(metrics) as f:
         records = [json.loads(x) for x in f]
     times = [r["time"] for r in records if r["kind"] == "train"]
@@ -113,6 +130,19 @@ def rank_device_ms(profile_dir: str, steps: int) -> list:
                             flash / steps / 1e9,
                             [(name, ps / steps / 1e9) for ps, name in top]))
     return sorted(out, key=lambda x: -x[1])
+
+
+def moe_tc_worker(argv: list) -> int:
+    """One rank of a MoE layout (under torchrun): the CLI's `main` on
+    `argv`, its Trainer building lm_moe with lm_moe_tc's fields over the
+    registry preset's."""
+    from ddp_practice_tpu_torch import benchmarks, cli
+    from ddp_practice_tpu_torch.train import loop
+
+    fields = benchmarks._SUITE["lm_moe_tc"]["model_kwargs"]
+    make = loop.create_model
+    loop.create_model = lambda name, **kw: make(name, **{**kw, **fields})
+    return cli.main(argv)
 
 
 def collectives_worker(mib: int = 64, runs: int = 20) -> None:
@@ -160,9 +190,12 @@ def collectives_worker(mib: int = 64, runs: int = 20) -> None:
 
 
 def main(argv=None) -> int:
-    if "--collectives_worker" in (argv or sys.argv[1:]):
+    argv = sys.argv[1:] if argv is None else argv
+    if "--collectives_worker" in argv:
         collectives_worker()
         return 0
+    if argv and argv[0] == "--moe_tc_worker":
+        return moe_tc_worker(argv[1:])
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--nproc", type=int, default=4)
     p.add_argument("--steps", type=int, default=20)
@@ -207,7 +240,8 @@ def main(argv=None) -> int:
                 prof = os.path.join(workdir, f"{name}_profile")
                 _torchrun(args.nproc, [
                     "-b", str(args.batch_size), "--max_steps", "20",
-                    "--profile_dir", prof, *LAYOUTS[name].split()])
+                    "--profile_dir", prof, *LAYOUTS[name].split()],
+                    moe_tc=name in MOE_TC)
                 print(f"{name}, traced steps 10-19, one rank [{card[0]}]:",
                       flush=True)
                 xprof.print_summary(prof, steps=10, top=8)

@@ -45,7 +45,9 @@ chunk's rows of `pos_embed`, RoPE rotates at the global positions, the
 attention layers cross the chunks (ring or Ulysses, `sp_impl`), dropout
 draws the whole sequence's masks at the chunk's positions, and the
 logits are the chunk's. Decode under `seq_axis` raises, as the
-reference's; routed MoE blocks refuse a seq group (ROADMAP A8f).
+reference's. The routed blocks' MLPs take the seq group too and route
+the whole sequence (ops/moe.py); under the expert axis they hold their
+rank's experts (parallel/mesh.py `shard_state`).
 """
 
 from __future__ import annotations

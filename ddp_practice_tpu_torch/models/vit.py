@@ -658,7 +658,9 @@ class ViTHead(nn.Module):
 
 class ViT(nn.Module):
     """`image_shape` (H, W, C) sizes the patch conv and the position
-    table (Flax infers both at init from the first batch)."""
+    table (Flax infers both at init from the first batch). No block is
+    routed, so `num_experts` (the train loop passes it to every
+    transformer, as the reference's does) is ignored."""
 
     def __init__(self, *, num_classes: int = 10, patch_size: int = 4,
                  hidden_dim: int = 192, depth: int = 12, num_heads: int = 3,
@@ -666,7 +668,7 @@ class ViT(nn.Module):
                  param_dtype=torch.float32, seq_axis: Optional[str] = None,
                  sp_impl: str = "ring", attn_impl: str = "xla",
                  dropout_rate: float = 0.0, fused="auto",
-                 image_shape=(32, 32, 3)) -> None:
+                 num_experts: int = 8, image_shape=(32, 32, 3)) -> None:
         super().__init__()
         h, w, c = image_shape
         self.num_classes = num_classes

@@ -7,6 +7,12 @@ other blocks are the plain ones, unfused (the reference's blocks here keep
 `fused=False`). Embedding, head and the NHWC-in, fp32-logits-out contract
 are the ViT's. The reference's model has no dropout field, so neither has
 this one.
+
+Sequence parallelism (`seq_axis`; parallel/mesh.py sets `sp`) is the
+ViT's: every seq rank embeds the whole image, keeps its chunk of the
+patch tokens and pools over the group; the routed blocks route the whole
+sequence (ops/moe.py). Expert parallelism cuts the routed blocks' experts
+(parallel/mesh.py `shard_state`).
 """
 
 from __future__ import annotations
@@ -52,6 +58,9 @@ class ViTMoE(nn.Module):
             for i in range(depth)
         )
         self.classifier = ViTHead(hidden_dim, num_classes, dtype=dtype)
+        self.seq_axis = seq_axis
+        # the seq group under sequence parallelism (parallel/mesh.py)
+        self.sp = None
         self.to(param_dtype)
 
     def forward(self, x: torch.Tensor, *, train: bool = False,
@@ -59,6 +68,8 @@ class ViTMoE(nn.Module):
         """x (b, H, W, C) float in [0, 1] -> logits (b, classes) fp32.
         `dropout_key` is accepted for the image step's call and unused."""
         x = self.embed(x)
+        if self.sp is not None:
+            x = self.sp.chunk(x, 1)
         for blk in self.blocks:
             x = blk(x, train=train)
-        return self.classifier(x)
+        return self.classifier(x, self.sp)

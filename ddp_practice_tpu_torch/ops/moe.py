@@ -42,6 +42,40 @@ What the reference does through Flax collections, the port does so:
   gradient through unchanged: every rank holds the same global value, and
   DDP's mean over the ranks' grads then gives the grad of the global aux
   loss. Replicas keep identical router biases.
+- Expert parallelism (ROADMAP A8c; parallel/mesh.py `shard_state` sets
+  `ep`, the ExpertGroup, and cuts the `expert_*` leaves to the rank's
+  experts [e0, e1)): the ranks of the expert axis hold the same tokens,
+  so routing runs whole and alike on each of them (logits, gating, the
+  aux loss, demand, the bias update, the sown statistics) and only the
+  expert compute is local, as the reference's GSPMD layout computes it:
+  einsum dispatches and combines through the local experts' slice of the
+  (G, T, E, C) tensors (combine = dispatch * the (G, T, E) weights),
+  gather through the local experts' slots of the slot tables (other
+  ranks' slots read the zero spare), sorted sorts the local experts' rows
+  first (`_assignment_permutation(first=e0)`) and
+  runs kernels J and K over them alone with their group sizes (J writes
+  zero past them, K ignores those rows), their biases added to those
+  rows only. The boundaries are parallel/tensor.py's: `copy_to_tp`
+  (identity forward, sum backward) where x enters the dispatch and on
+  the combine weights (einsum: the (G, T, E) gates, gather and sorted:
+  each token's k), `reduce_from_tp` (the sum over the group) on the
+  output. Nothing is put on the block input before the router: the aux
+  loss's grad through the logits is already whole on every rank.
+  `_batch_mean` and `_global_sum` stay right: the expert ranks repeat the
+  same local statistics, so the world's mean is the data replicas'.
+- Sequence parallelism (ROADMAP A8f; `sp`, the SeqGroup): the reference
+  routes the global (B, S, D), so the einsum and gather paths gather the
+  router logits over the group (`SeqGroup.gather`, fp32 (b, S, E); its
+  backward sums every rank's cotangent), route the whole sequence
+  alike on every rank, and dispatch and combine only the rank's chunk's
+  tokens (`_chunk_places`: the routing groups that hold them and their
+  places there): every slot holds one token, which lives on one rank,
+  and a rank's tokens read only their own slots, so the chunk of the
+  output is exact. Every seq rank computes the same aux
+  loss; the gather's backward sums its logits' grads over the group and
+  the mean over data x seq then gives the reference's gradient. The
+  sorted path routes per token, so it routes the rank's chunk: its
+  demand, aux loss and load fractions are global means already.
 - Decode (`decode=True`, the KV-cache prefill and single-token steps of
   inference.py and the serving engines) routes with the current bias and
   records nothing, as the reference's decode apply (its "batch_stats" and
@@ -75,6 +109,7 @@ from torch import nn
 
 from ddp_practice_tpu_torch.ops.grouped_matmul import grouped_matmul
 from ddp_practice_tpu_torch.parallel import dist
+from ddp_practice_tpu_torch.parallel.tensor import copy_to_tp, reduce_from_tp
 
 
 # ------------------------------------------------- global batch statistics
@@ -190,16 +225,22 @@ def expert_choice_gating(router_logits: torch.Tensor, *, capacity: int):
     """Experts pick tokens: each expert takes the top-`capacity` tokens of
     its softmax column. Returns (dispatch (G,T,E,C), combine (G,T,E,C),
     uncovered: the fraction of tokens no expert picked)."""
+    dispatch, gates, uncovered = _expert_choice(router_logits, capacity)
+    return dispatch, dispatch * gates[..., None], uncovered
+
+
+def _expert_choice(router_logits: torch.Tensor, capacity: int):
+    """`expert_choice_gating` with the (G, T, E) gates in place of the
+    combine tensor (combine = dispatch * gates)."""
     g, t, e = router_logits.shape
     gates = torch.softmax(router_logits.float(), dim=-1)
     scores = gates.transpose(1, 2)                          # (G, E, T)
     _, idx = _top_k(scores, capacity)                       # (G, E, C)
     onehot = F.one_hot(idx, t).float()                      # (G, E, C, T)
     dispatch = onehot.permute(0, 3, 1, 2)                   # (G, T, E, C)
-    combine = dispatch * gates[..., None]
     covered = torch.clamp(dispatch.sum(dim=(2, 3)), 0.0, 1.0)
     uncovered = 1.0 - _batch_mean(covered.reshape(-1), 0)
-    return dispatch, combine, uncovered
+    return dispatch, gates, uncovered
 
 
 def top_k_gating(router_logits: torch.Tensor, *, k: int, capacity: int,
@@ -208,28 +249,38 @@ def top_k_gating(router_logits: torch.Tensor, *, k: int, capacity: int,
     one-hot expansion of `top_k_routing`."""
     choices, positions, keeps, gsel, aux, demand = top_k_routing(
         router_logits, k=k, capacity=capacity, routing_bias=routing_bias)
-    e = router_logits.shape[-1]
-    dispatch = torch.zeros(router_logits.shape[:2] + (e, capacity),
-                           device=router_logits.device)
+    dispatch = _dispatch_tensor(choices, positions, keeps,
+                                router_logits.shape[-1], capacity)
+    return dispatch, dispatch * gsel[..., None], aux, demand
+
+
+def _dispatch_tensor(choices, positions, keeps, e: int, capacity: int):
+    """The (G, T, E, C) one-hot dispatch of `top_k_routing`'s kept
+    assignments."""
+    dispatch = torch.zeros(choices.shape[:2] + (e, capacity),
+                           device=choices.device)
     for j in range(choices.shape[-1]):
         onehot = F.one_hot(choices[..., j], e).float()
         pos_oh = F.one_hot(positions[..., j], capacity).float()
         dispatch = dispatch + torch.einsum(
             "gte,gtc->gtec", onehot * keeps[..., j, None], pos_oh)
-    combine = dispatch * gsel[..., None]
-    return dispatch, combine, aux, demand
+    return dispatch
 
 
-def _assignment_permutation(choices_flat: torch.Tensor, e: int):
+def _assignment_permutation(choices_flat: torch.Tensor, e: int,
+                            first: int = 0):
     """Counting sort of the (N*k,) expert assignments: (counts (E,) int32,
     dest (N*k,), inv (N*k,)). Assignment a lands at sorted row dest[a];
     sorted row r holds assignment inv[r]. inv comes from one stable sort by
     expert, which is the counting sort's (expert, arrival) order, and dest
     is its inverse permutation: the same dest as the reference's cumsum
     arithmetic, whose scan over the (N*k, E) one-hot took ~5 ms a layer
-    on the card at lm_moe's 32768 rows."""
+    on the card at lm_moe's 32768 rows. With `first` the experts sort
+    from `first` on, cyclically (a rank's local experts lead); counts stay
+    in expert order."""
     counts = torch.bincount(choices_flat, minlength=e)
-    _, inv = torch.sort(choices_flat, stable=True)
+    key = choices_flat if first == 0 else (choices_flat - first) % e
+    _, inv = torch.sort(key, stable=True)
     dest = torch.empty_like(inv)
     dest[inv] = torch.arange(inv.numel(), device=inv.device)
     return counts.to(torch.int32), dest, inv
@@ -257,6 +308,81 @@ def _slot_tables(choices, positions, keeps, e: int, capacity: int):
     slot_round = table(ri, torch.int64)
     slot_mask = table(torch.ones_like(ti), torch.float32)
     return slot_token, slot_round, slot_mask, dest
+
+
+def _local_slots(slot_token, slot_round, slot_mask, dest, lo: int, hi: int):
+    """`_slot_tables` cut to the slots [lo, hi) (a rank's local experts'):
+    dest re-based to them, any other slot (and a dropped assignment) sent
+    to the spare column hi - lo."""
+    mine = (dest >= lo) & (dest < hi)
+    dest = torch.where(mine, dest - lo, torch.full_like(dest, hi - lo))
+    return (slot_token[:, lo:hi], slot_round[:, lo:hi], slot_mask[:, lo:hi],
+            dest)
+
+
+def _group_tokens(x: torch.Tensor, group_size: int, stride: bool):
+    """The routing-group reshape of a (B, S, D) tensor: (grouped (G, T, D),
+    n_sub). Group sizes that are not below S route whole sequences."""
+    g0, t0, d = x.shape
+    if not 0 < group_size < t0:
+        return x, 1
+    if t0 % group_size:
+        raise ValueError(f"moe group_size {group_size} must divide "
+                         f"the sequence length {t0}")
+    n_sub = t0 // group_size
+    if stride:
+        # group j of a sequence = tokens {j, j + n_sub, ...}
+        x = x.reshape(g0, group_size, n_sub, d).transpose(1, 2)
+    return x.reshape(g0 * n_sub, group_size, d), n_sub
+
+
+# (b, s, group_size, stride, rank, size, device) -> `_chunk_places`
+_PLACES: dict = {}
+
+
+def _chunk_places(b: int, s: int, group_size: int, stride: bool,
+                  rank: int, size: int, device) -> tuple:
+    """Where seq rank `rank`'s chunk of a (b, s) batch cut in `size` lies
+    in the batch's routing groups: (groups (G_l,), slots (G_l, T_l),
+    rows (G_l, T_l), inv (b * s / size,)). `groups` are the groups that
+    hold its tokens, `slots` their places in each, `rows` their rows in
+    the chunk's flattened (b, s / size) tokens and `inv` the inverse of
+    `rows`. Computed once a shape, on the CPU."""
+    key = (b, s, group_size, stride, rank, size, torch.device(device))
+    if key not in _PLACES:
+        _PLACES[key] = _places(b, s, group_size, stride, rank, size,
+                               key[-1])
+    return _PLACES[key]
+
+
+def _places(b, s, group_size, stride, rank, size, device) -> tuple:
+    pos = _group_tokens(torch.arange(b * s).reshape(b, s, 1), group_size,
+                        stride)[0][..., 0]                   # (G, T)
+    c = s // size
+    mine = (pos % s) // c == rank
+    count = mine.sum(1)
+    groups = torch.nonzero(count).reshape(-1)
+    if (count[groups] != count[groups[0]]).any():
+        raise ValueError(
+            f"moe routing groups of {group_size} (stride {stride}) hold "
+            f"unequal parts of the seq={size} chunks of {s} tokens")
+    slots = torch.nonzero(mine[groups])[:, 1].reshape(groups.numel(), -1)
+    glob = torch.gather(pos[groups], 1, slots)
+    rows = (glob // s) * c + glob % s - rank * c
+    inv = torch.argsort(rows.reshape(-1))
+    return tuple(a.to(device) for a in (groups, slots, rows, inv))
+
+
+def _take(x: torch.Tensor, places) -> torch.Tensor:
+    """A (G, T, ...) tensor at a seq rank's places (`_chunk_places`):
+    (G_l, T_l, ...); the whole tensor when `places` is None."""
+    if places is None:
+        return x
+    groups, slots = places[:2]
+    if groups.numel() != x.shape[0]:
+        x = x[groups]
+    idx = slots.reshape(slots.shape + (1,) * (x.dim() - 2))
+    return torch.gather(x, 1, idx.expand(slots.shape + x.shape[2:]))
 
 
 def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -410,6 +536,10 @@ class MoEMlp(nn.Module):
             self.router_bias = None
         self.sown: Optional[dict] = None
         self.pending_bias: Optional[torch.Tensor] = None
+        # the expert group (parallel/mesh.py shard_state: the expert_*
+        # leaves then hold the rank's experts) and the seq group
+        self.ep = None
+        self.sp = None
 
     def forward(self, x: torch.Tensor, *, train: bool = False,
                 decode: bool = False) -> torch.Tensor:       # (G, T, D)
@@ -431,9 +561,17 @@ class MoEMlp(nn.Module):
         train = train and not decode
         if impl == "sorted":
             return self._sorted(x, train)
+        logits, places, sp = self._logits(x), None, self.sp
+        if sp is not None:
+            # the whole sequence routed alike on every seq rank, which
+            # dispatches and combines its chunk's tokens
+            logits = sp.gather(logits)
+            places = _chunk_places(x.shape[0], logits.shape[1],
+                                   self.group_size, self.group_stride,
+                                   sp.rank, sp.size, x.device)
         if impl == "gather":
-            return self._gather(x, train)
-        return self._einsum(x, train, decode)
+            return self._gather(x, logits, places, train)
+        return self._einsum(x, logits, places, train, decode)
 
     # -- shared pieces ---------------------------------------------------
     def commit_bias(self) -> None:
@@ -464,22 +602,22 @@ class MoEMlp(nn.Module):
 
     def _group(self, x):
         """The routing-group reshape: (grouped x, n_sub)."""
-        g0, t0, d = x.shape
-        if not 0 < self.group_size < t0:
-            return x, 1
-        if t0 % self.group_size:
-            raise ValueError(f"moe group_size {self.group_size} must divide "
-                             f"the sequence length {t0}")
-        n_sub = t0 // self.group_size
-        if self.group_stride:
-            # group j of a sequence = tokens {j, j + n_sub, ...}
-            x = x.reshape(g0, self.group_size, n_sub, d).transpose(1, 2)
-        return x.reshape(g0 * n_sub, self.group_size, d), n_sub
+        return _group_tokens(x, self.group_size, self.group_stride)
 
-    def _ungroup(self, y, g0, t0, n_sub):
+    def _tokens(self, x, places):
+        """The tokens the rank dispatches, as (G, T, D) or, under a seq
+        group, its chunk's (G_l, T_l, D)."""
+        if places is None:
+            return self._group(x)[0]
+        return x.reshape(-1, x.shape[-1])[places[2]]
+
+    def _ungroup(self, y, x, n_sub, places):
+        """`_tokens`' inverse: y back in x's (B, S, D) order."""
+        if places is not None:
+            return y.reshape(-1, y.shape[-1])[places[3]].reshape(x.shape)
         if n_sub <= 1:
             return y
-        d = y.shape[-1]
+        g0, t0, d = x.shape
         if self.group_stride:
             y = y.reshape(g0, n_sub, self.group_size, d).transpose(1, 2)
         return y.reshape(g0, t0, d)
@@ -495,64 +633,89 @@ class MoEMlp(nn.Module):
         return max(1, int(self.capacity_factor * self.top_k * t
                           / self.num_experts))
 
+    def _local(self) -> tuple:
+        """(first, end) of the experts this rank holds."""
+        if self.ep is None:
+            return 0, self.num_experts
+        return self.ep.experts(self.num_experts)
+
     def _experts(self):
         cd = self.dtype
         return (self.expert_w_in.to(cd), self.expert_b_in.to(cd),
                 self.expert_w_out.to(cd), self.expert_b_out.to(cd))
 
     # -- the three paths -------------------------------------------------
-    def _einsum(self, x: torch.Tensor, train: bool,
-                decode: bool) -> torch.Tensor:
-        g0, t0, _ = x.shape
+    def _einsum(self, x: torch.Tensor, logits: torch.Tensor, places,
+                train: bool, decode: bool) -> torch.Tensor:
+        """`logits` are the whole sequence's; under a seq group `x` is the
+        rank's chunk and `places` where its tokens lie in the groups."""
+        g0, t0, _ = logits.shape
         self._warn_oversized_group(t0, train)
-        x, n_sub = self._group(x)
-        g, t, _ = x.shape
-        k = self.top_k
+        logits, n_sub = self._group(logits)                  # (G, T, E)
+        g, t, _ = logits.shape
+        e, k = self.num_experts, self.top_k
         capacity = self._capacity(t)
-        logits = self._logits(x)                             # (G, T, E)
+        # combine = dispatch * weights: (G, T, E) weights, gates or gsel
         if self.router_kind == "expert_choice" and not decode:
             # capacity clamps to the group's token count; no aux loss and
             # no bias, and the coverage stands in for the drop rate
-            dispatch, combine, uncovered = expert_choice_gating(
-                logits, capacity=min(capacity, t))
+            dispatch, weights, uncovered = _expert_choice(
+                logits, min(capacity, t))
+            load = dispatch.sum(dim=(0, 1, 3))
+            dispatch = _take(dispatch, places)
             aux = torch.zeros((), device=x.device)
         elif self.router_kind == "expert_choice":
             # decode: per-token top-k with capacity t (nothing drops),
             # combined with the raw gates at the picked experts
-            dispatch = top_k_gating(logits, k=k, capacity=t)[0]
-            combine = dispatch * torch.softmax(logits, dim=-1)[..., None]
+            dispatch = _take(top_k_gating(logits, k=k, capacity=t)[0],
+                             places)
+            weights = torch.softmax(logits, dim=-1)
         else:
-            dispatch, combine, aux, demand = top_k_gating(
+            choices, positions, keeps, weights, aux, demand = top_k_routing(
                 logits, k=k, capacity=capacity,
                 routing_bias=self.router_bias)
+            load = torch.sum(F.one_hot(choices, e).float()
+                             * keeps[..., None], dim=(0, 1, 2))
+            dispatch = _dispatch_tensor(
+                *(_take(a, places) for a in (choices, positions, keeps)),
+                e, capacity)
             self._update_bias(demand, train)
             aux = self.aux_loss_weight * aux
         if train:
-            load = _global_sum(dispatch.sum(dim=(0, 1, 3)))
+            load = _global_sum(load)
             routed = load.sum()
             drop = (uncovered if self.router_kind == "expert_choice" else
                     1.0 - routed / (k * g * t * dist.process_count()))
             self._sow(aux, load / torch.clamp(routed, min=1.0), drop)
         w_in, b_in, w_out, b_out = self._experts()
-        cd = self.dtype
-        xin = torch.einsum("gtec,gtd->egcd", dispatch.to(cd), x.to(cd))
+        cd, ep = self.dtype, self.ep
+        e0, e1 = self._local()
+        dispatch = dispatch[:, :, e0:e1]
+        xin = torch.einsum("gtec,gtd->egcd", dispatch.to(cd),
+                           copy_to_tp(self._tokens(x, places), ep).to(cd))
         h = torch.einsum("egcd,edf->egcf", xin, w_in)
         h = F.gelu(h + b_in[:, None, None, :], approximate="tanh")
         out = torch.einsum("egcf,efd->egcd", h, w_out)
         out = out + b_out[:, None, None, :]
+        # the local experts' combine: the sum over the group's ranks
+        # (backward) runs on the (G, T, E) weights, not (G, T, E, C)
+        weights = copy_to_tp(_take(weights, places), ep)[:, :, e0:e1]
+        combine = dispatch * weights[..., None]
         y = torch.einsum("gtec,egcd->gtd", combine.to(cd), out)
-        return self._ungroup(y, g0, t0, n_sub).to(x.dtype)
+        y = reduce_from_tp(y, ep)
+        return self._ungroup(y, x, n_sub, places).to(x.dtype)
 
-    def _gather(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+    def _gather(self, x: torch.Tensor, logits: torch.Tensor, places,
+                train: bool) -> torch.Tensor:
         """The einsum path's routing with index-gather dispatch and combine
-        through per-slot tables; the expert MLP stays a batched einsum."""
-        g0, t0, d = x.shape
-        self._warn_oversized_group(t0, train)
-        x, n_sub = self._group(x)
-        g, t, _ = x.shape
+        through per-slot tables; the expert MLP stays a batched einsum.
+        `logits` and `places` as `_einsum`'s."""
+        d = x.shape[-1]
+        self._warn_oversized_group(logits.shape[1], train)
+        logits, n_sub = self._group(logits)
+        g, t, _ = logits.shape
         e, k = self.num_experts, self.top_k
         capacity = self._capacity(t)
-        logits = self._logits(x)
         choices, positions, keeps, gsel, aux, demand = top_k_routing(
             logits, k=k, capacity=capacity, routing_bias=self.router_bias)
         self._update_bias(demand, train)
@@ -564,26 +727,37 @@ class MoEMlp(nn.Module):
             self._sow(self.aux_loss_weight * aux,
                       load / torch.clamp(routed, min=1.0),
                       1.0 - routed / (k * g * t * dist.process_count()))
-        slot_token, slot_round, slot_mask, dest = _slot_tables(
-            choices, positions, keeps, e, capacity)
+        w = torch.gather(gsel, -1, choices) * keeps          # (G, T, k)
+        choices, positions, keeps = (_take(a, places)
+                                     for a in (choices, positions, keeps))
+        e0, e1 = self._local()
+        slot_token, slot_round, slot_mask, dest = _local_slots(
+            *_slot_tables(choices, positions, keeps, e, capacity),
+            e0 * capacity, e1 * capacity)
         w_in, b_in, w_out, b_out = self._experts()
-        cd = self.dtype
-        xin = _DispatchGather.apply(x.to(cd), slot_token, slot_mask.to(cd),
-                                    dest)                    # (G, E*C, D)
-        xin = xin.reshape(g, e, capacity, d)
+        cd, ep, el = self.dtype, self.ep, e1 - e0
+        xin = _DispatchGather.apply(
+            copy_to_tp(self._tokens(x, places), ep).to(cd), slot_token,
+            slot_mask.to(cd), dest)                          # (G, El*C, D)
+        gl = xin.shape[0]
+        xin = xin.reshape(gl, el, capacity, d)
         h = torch.einsum("gecd,edf->gecf", xin, w_in)
         h = F.gelu(h + b_in[None, :, None, :], approximate="tanh")
         out = torch.einsum("gecf,efd->gecd", h, w_out)
         out = out + b_out[None, :, None, :]
-        w = torch.gather(gsel, -1, choices) * keeps          # (G, T, k)
-        y = _CombineGather.apply(out.reshape(g, e * capacity, d), w.to(cd),
+        y = _CombineGather.apply(out.reshape(gl, el * capacity, d),
+                                 copy_to_tp(_take(w, places), ep).to(cd),
                                  dest, slot_token, slot_round, slot_mask)
-        return self._ungroup(y, g0, t0, n_sub).to(x.dtype)
+        y = reduce_from_tp(y, ep)
+        return self._ungroup(y, x, n_sub, places).to(x.dtype)
 
     def _sorted(self, x: torch.Tensor, train: bool) -> torch.Tensor:
         """Dropless: counting sort by expert, the expert MLP as two grouped
         matmuls over the ragged (N*k, .) buffer, gathers back with the
-        renormalized gates. Routing groups do not apply (no capacity)."""
+        renormalized gates. Routing groups do not apply (no capacity).
+        Under the expert axis the local experts' rows lead the sort and
+        the grouped matmuls take only their group sizes: the other rows
+        come out zero and add nothing to the combine."""
         g0, t0, d = x.shape
         e, k = self.num_experts, self.top_k
         n = g0 * t0
@@ -593,7 +767,8 @@ class MoEMlp(nn.Module):
             logits, k=k, routing_bias=self.router_bias)
         self._update_bias(demand, train)
         cf = choices.reshape(n * k)
-        counts, dest, inv = _assignment_permutation(cf, e)
+        e0, e1 = self._local()
+        counts, dest, inv = _assignment_permutation(cf, e, first=e0)
         dest_nk = dest.reshape(n, k)
         tok = inv // k
         if train:
@@ -602,16 +777,24 @@ class MoEMlp(nn.Module):
                       / (k * n * dist.process_count()),
                       torch.zeros((), device=x.device))
         w_in, b_in, w_out, b_out = self._experts()
-        cd = self.dtype
-        sorted_expert = cf[inv]
+        cd, ep = self.dtype, self.ep
+        local = counts[e0:e1]
+        # each sorted row's expert counted from e0 (the local ones first);
+        # the biases zero past the local experts
+        sorted_expert = (cf[inv] - e0) % e
         onehot_sorted = F.one_hot(sorted_expert, e).to(cd)
-        x_sorted = _DispatchRows.apply(xf.to(cd), tok, dest_nk)
-        h = grouped_matmul(x_sorted, w_in, counts)
-        h = F.gelu(h + _BiasRows.apply(b_in, sorted_expert, onehot_sorted),
-                   approximate="tanh")
-        out = grouped_matmul(h, w_out, counts)
-        out = out + _BiasRows.apply(b_out, sorted_expert, onehot_sorted)
-        y = _CombineRows.apply(out, cgates.to(cd), tok, dest_nk, inv)
+        pad = (0, 0, 0, e - (e1 - e0))
+        x_sorted = _DispatchRows.apply(copy_to_tp(xf, ep).to(cd), tok,
+                                       dest_nk)
+        h = grouped_matmul(x_sorted, w_in, local)
+        h = F.gelu(h + _BiasRows.apply(F.pad(b_in, pad), sorted_expert,
+                                       onehot_sorted), approximate="tanh")
+        out = grouped_matmul(h, w_out, local)
+        out = out + _BiasRows.apply(F.pad(b_out, pad), sorted_expert,
+                                    onehot_sorted)
+        y = _CombineRows.apply(out, copy_to_tp(cgates, ep).to(cd), tok,
+                               dest_nk, inv)
+        y = reduce_from_tp(y, ep)
         return y.reshape(g0, t0, d).to(x.dtype)
 
 

@@ -16,6 +16,18 @@ the size, set on the model's layers by `shard_state` as `sp`), and the
 attention layers cross the chunks (parallel/ring.py, parallel/ulysses.py).
 The seq ranks of one data replica each take the mean loss of their
 chunk, so the gradients are averaged over data x seq (`parallelize`).
+A routed MLP under a seq group routes the whole sequence (ops/moe.py):
+it gathers the router logits over the group (`SeqGroup.gather`) and
+dispatches and combines its chunk's tokens alone.
+
+The expert axis cuts the routed MLPs' stacked `expert_*` leaves on their
+expert dim (`ExpertGroup`: a rank holds experts [c E / ep, (c + 1) E /
+ep)), as the reference's GSPMD layout does; batches shard over data
+only, so the expert ranks of one data replica read the same rows, route
+them alike and each computes its local experts' part of every token's
+output, summed over the group (ops/moe.py). The expert ranks are not
+replicas: a replicated leaf's grad is exact on each of them and an
+expert leaf's is its own, so grads are averaged over data x seq only.
 
 `shard_state` puts each parameter in the layout the rules give it
 (parallel/sharding_rules.py): the tensor cut is taken here, leaving
@@ -63,6 +75,7 @@ from ddp_practice_tpu_torch.parallel.tensor import TensorGroup
 DATA = MeshConfig.AXIS_DATA
 SEQ = MeshConfig.AXIS_SEQ
 TENSOR = MeshConfig.AXIS_TENSOR
+EXPERT = MeshConfig.AXIS_EXPERT
 
 
 def build_mesh(config: Optional[MeshConfig] = None, device_type: str = "cuda"):
@@ -107,6 +120,35 @@ def tensor_group(mesh) -> Optional[TensorGroup]:
     return None if n == 1 else TensorGroup(group(mesh, TENSOR), n, c)
 
 
+def check_experts(num_experts: int, ep: int) -> None:
+    """The reference's error when the experts do not split over the
+    expert axis."""
+    if num_experts % ep:
+        raise ValueError(
+            f"num_experts={num_experts} not divisible by expert axis {ep}")
+
+
+@dataclasses.dataclass(frozen=True)
+class ExpertGroup:
+    """This rank's place on the expert axis (the counterpart of
+    TensorGroup): the process group, the axis size and this rank's
+    coordinate, whose local experts are [c E / size, (c + 1) E / size)."""
+    group: object
+    size: int
+    rank: int
+
+    def experts(self, n: int) -> tuple:
+        """(first, end) of this rank's local experts of `n` (a multiple
+        of the size: `shard_state` checks)."""
+        k = n // self.size
+        return self.rank * k, (self.rank + 1) * k
+
+
+def expert_group(mesh) -> Optional[ExpertGroup]:
+    c, n = coords(mesh)[EXPERT]
+    return None if n == 1 else ExpertGroup(group(mesh, EXPERT), n, c)
+
+
 class _SeqSum(torch.autograd.Function):
     """All-reduce (sum) over the seq group, forward and backward: each
     seq rank's objective reads the sum, so the grad of a rank's part is
@@ -124,6 +166,26 @@ class _SeqSum(torch.autograd.Function):
         g = g.contiguous().clone()
         tdist.all_reduce(g, op=tdist.ReduceOp.SUM, group=ctx.group)
         return g, None
+
+
+class _SeqGather(torch.autograd.Function):
+    """The seq ranks' chunks concatenated along `dim`, forward; backward
+    every rank's cotangent of the whole summed over the group, this
+    rank's chunk of the sum (each rank's objective reads the whole)."""
+
+    @staticmethod
+    def forward(ctx, x, sp, dim):
+        ctx.sp, ctx.dim = sp, dim
+        parts = [torch.empty_like(x, memory_format=torch.contiguous_format)
+                 for _ in range(sp.size)]
+        tdist.all_gather(parts, x.contiguous(), group=sp.group)
+        return torch.cat(parts, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        tdist.all_reduce(g, op=tdist.ReduceOp.SUM, group=ctx.sp.group)
+        return ctx.sp.chunk(g, ctx.dim).contiguous(), None, None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,6 +215,10 @@ class SeqGroup:
     def sum(self, x: torch.Tensor) -> torch.Tensor:
         """`x` summed over the seq ranks, differentiably."""
         return _SeqSum.apply(x, self.group)
+
+    def gather(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """The whole sequence of every rank's chunk `x`, differentiably."""
+        return _SeqGather.apply(x, self, dim)
 
 
 def seq_group(mesh) -> Optional[SeqGroup]:
@@ -208,16 +274,18 @@ def shard_state(model: nn.Module, mesh, rules: Optional[Callable],
                 model_name: str = "") -> Sharding:
     """Lay `model` (built whole, the same weights on every rank) out on
     `mesh` by `rules(name, layout) -> Spec | None`: each parameter cut to
-    this rank's tensor region, the attention layers left with their
-    local heads and every tensor-parallel layer with the TensorGroup;
-    under a seq axis every layer with an `sp` attribute gets the
-    SeqGroup. Returns the Sharding (also `model.sharding`)."""
+    this rank's tensor and expert region, the attention layers left with
+    their local heads and every tensor-parallel layer with the
+    TensorGroup, every routed MLP with the ExpertGroup; under a seq axis
+    every layer with an `sp` attribute gets the SeqGroup. Returns the
+    Sharding (also `model.sharding`)."""
     from ddp_practice_tpu_torch.models.lm import TransformerLM
     from ddp_practice_tpu_torch.models.vit import (
         EncoderBlock,
         MlpBlock,
         SelfAttention,
     )
+    from ddp_practice_tpu_torch.ops.moe import MoEMlp
 
     lay = layouts(model)
     specs = {n: s for n in lay if rules is not None
@@ -246,13 +314,18 @@ def shard_state(model: nn.Module, mesh, rules: Optional[Callable],
             raise ValueError(
                 f"vocabulary {model.vocab_size} does not split over "
                 f"--tensor {tp.size} (the embedding and head shard it)")
-        cut = {TENSOR: where[TENSOR]}
-        params = dict(model.named_parameters())
-        for name, spec in specs.items():
-            if TENSOR in axes_of(spec):
-                p = params[name]
-                p.data = take_region(p.data, lay[name], spec,
-                                     cut).contiguous()
+    ep = expert_group(mesh)
+    if ep is not None:
+        for mod in model.modules():
+            if isinstance(mod, MoEMlp):
+                check_experts(mod.num_experts, ep.size)
+                mod.ep = ep
+    cut = {a: where[a] for a in (TENSOR, EXPERT) if where[a][1] > 1}
+    params = dict(model.named_parameters())
+    for name, spec in specs.items():
+        if set(cut) & set(axes_of(spec)):
+            p = params[name]
+            p.data = take_region(p.data, lay[name], spec, cut).contiguous()
     dp = where[DATA][1]
     tsize = where[TENSOR][1]
     for name, spec in specs.items():
@@ -280,18 +353,9 @@ def shard_state(model: nn.Module, mesh, rules: Optional[Callable],
 
 def attach_seq(model: nn.Module, sp: SeqGroup, model_name: str = "") -> None:
     """Give every layer of `model` built for sequence parallelism (an
-    `sp` attribute) the seq group. A model built without `seq_axis`,
-    and the routed MoE models (their capacity routing depends on which
-    tokens share a call, and the reference routes whole sequences),
-    raise."""
-    from ddp_practice_tpu_torch.ops.moe import MoEMlp
-
-    if any(isinstance(m, MoEMlp) for m in model.modules()):
-        raise NotImplementedError(
-            f"{model_name or type(model).__name__} under seq={sp.size}: "
-            "routed MoE blocks under sequence parallelism are not ported "
-            "yet (ROADMAP A8f): their capacity routing sees the rank's "
-            "chunk, the reference's the whole sequence")
+    `sp` attribute: the attention layers, the blocks, a routed MLP,
+    which routes the whole sequence) the seq group. A model built
+    without `seq_axis` raises."""
     layers = [m for m in model.modules() if hasattr(m, "sp")]
     if not any(getattr(m, "seq_axis", None) for m in layers):
         raise ValueError(
@@ -346,19 +410,20 @@ def full_parameters(model: nn.Module) -> Dict[str, torch.Tensor]:
 def parallelize(model: nn.Module, mesh, *, model_name: str, fsdp: bool,
                 min_leaf_size: int = 1024):
     """The reference's layout of `model` on `mesh`, as the train loop
-    runs it: the tensor rules of `model_name` (with FSDP's data cut when
-    `fsdp`) laid out by `shard_state` when the tensor or seq axis or
-    FSDP's data axis has more than one rank, FSDP2 over the data ranks
-    when a leaf is cut over them (its grads then averaged over the seq
-    ranks too), else DDP over the data x seq ranks when there are
-    several. Returns (forward, after_backward): what runs the model, and
-    the hook a train step calls after each backward (None but under
-    FSDP). The tensor group's grads need no synchronisation: they are
-    exact on every rank."""
+    runs it: the tensor and expert rules of `model_name` (with FSDP's
+    data cut when `fsdp`) laid out by `shard_state` when the tensor, seq
+    or expert axis or FSDP's data axis has more than one rank, FSDP2 over
+    the data ranks when a leaf is cut over them (its grads then averaged
+    over the seq ranks too), else DDP over the data x seq ranks when
+    there are several. Returns (forward, after_backward): what runs the
+    model, and the hook a train step calls after each backward (None but
+    under FSDP). The tensor and expert groups' grads need no
+    synchronisation: a replicated leaf's is exact on every rank of them,
+    an expert leaf's is the rank's own."""
     c = coords(mesh)
-    dp, sp, tp = c[DATA][1], c[SEQ][1], c[TENSOR][1]
+    dp, sp, tp, ep = c[DATA][1], c[SEQ][1], c[TENSOR][1], c[EXPERT][1]
     forward, after_backward = model, None
-    if tp > 1 or sp > 1 or (fsdp and dp > 1):
+    if tp > 1 or sp > 1 or ep > 1 or (fsdp and dp > 1):
         rules = param_sharding_rules(model_name)
         if fsdp:
             rules = fsdp_rules(dp, rules, min_leaf_size=min_leaf_size)

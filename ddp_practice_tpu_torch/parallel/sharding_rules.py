@@ -19,8 +19,8 @@ heads) and MLP `fc_in`; row-parallel (input features) attention `out`
 and MLP `fc_out`, whose biases stay whole; the LM's `tok_embed` shards
 its vocabulary rows and `lm_head` its vocabulary outputs; `pos_embed`,
 LayerNorms and the row-parallel biases are replicated. MoE leaves: the
-stacked `expert_*` tensors shard their expert dim over `expert` (held at
-size 1 until ROADMAP A8c, so they stay whole), the router is
+stacked `expert_*` tensors shard their expert dim over `expert` and
+nothing over `tensor` (a rank holds its experts whole), the router is
 replicated. The conv families have no rules (replicated). The pipelined
 families are refused with the models (ROADMAP A8d).
 """

@@ -22,6 +22,11 @@ tensor group (`TensorGroup`):
   the grad of the whole logits is the same on every rank).
 
 A module with `tp = None` (one rank on the axis) calls none of these.
+
+`copy_to_tp` and `reduce_from_tp` read only the group object's `group`:
+the routed MLP (ops/moe.py) crosses its expert region through them over
+the expert axis (parallel/mesh.py `ExpertGroup`), where each rank
+computes its local experts' part of every token's output.
 """
 
 from __future__ import annotations

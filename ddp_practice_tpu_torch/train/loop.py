@@ -46,10 +46,14 @@ group read the same rows), and the model is laid out by
 (`seq_axis`/`sp_impl` in the model's arguments, as the reference's: the
 seq ranks of a data replica read the same rows and each trains on its
 chunk of the sequences, attention crossing the chunks by ring or
-Ulysses), FSDP2 over the data ranks with `fsdp` (and the grads averaged
-over the seq ranks), else DistributedDataParallel over the data x seq
-ranks; eval sums are all-reduced over the data ranks. The tensor group's
-grads are exact without a collective. A sharded model trains one step a
+Ulysses), expert parallelism over `mesh.expert` (the routed MLPs' experts
+cut over its ranks, which read the same rows: ops/moe.py; `num_experts`
+defaults to the reference's 8 rounded up to a multiple of the axis and
+must divide over it, the reference's error), FSDP2 over the data ranks
+with `fsdp` (and the grads averaged over the seq ranks), else
+DistributedDataParallel over the data x seq ranks; eval sums are
+all-reduced over the data ranks. The tensor and expert groups' grads are
+exact without a collective. A sharded model trains one step a
 call from host batches: its resident and captured steps raise (ROADMAP
 A8e), and
 `data_placement="auto"` takes the host path. MFU and the per-chip rates
@@ -135,6 +139,7 @@ from ddp_practice_tpu_torch.parallel.mesh import (
     axis_size,
     batch_shard,
     build_mesh,
+    check_experts,
     parallelize,
 )
 from ddp_practice_tpu_torch.parallel.mesh import group as mesh_group
@@ -194,6 +199,7 @@ class Trainer:
         self.dp = axis_size(self.mesh, MeshConfig.AXIS_DATA)
         self.sp = axis_size(self.mesh, MeshConfig.AXIS_SEQ)
         self.tp = axis_size(self.mesh, MeshConfig.AXIS_TENSOR)
+        self.ep = axis_size(self.mesh, MeshConfig.AXIS_EXPERT)
         self.global_batch = config.batch_size * self.dp
         self.task = "lm" if config.model.lower().startswith("lm") else "image"
         name = config.model.lower()
@@ -246,7 +252,8 @@ class Trainer:
             for flag, what in ((config.num_heads, "--num_heads"),
                                (config.dropout, "--dropout"),
                                (config.attn_impl != "xla", "--attn_impl"),
-                               (config.num_experts, "--num_experts")):
+                               (config.num_experts, "--num_experts"),
+                               (self.ep > 1, "--expert")):
                 if flag:
                     raise ValueError(f"{what} applies to the transformer "
                                      f"families, not {name!r}")
@@ -266,8 +273,13 @@ class Trainer:
             model_kwargs["sp_impl"] = config.sp_impl
         if config.attn_impl != "xla":
             model_kwargs["attn_impl"] = config.attn_impl
-        if config.num_experts:
-            model_kwargs["num_experts"] = config.num_experts
+        if self.ep > 1 or config.num_experts:
+            # the reference's default: its 8 experts rounded up to a
+            # multiple of the expert axis
+            n_exp = config.num_experts or -(-8 // self.ep) * self.ep
+            check_experts(n_exp, self.ep)
+            # a dense transformer takes it and ignores it
+            model_kwargs["num_experts"] = n_exp
         if config.moe_router != "topk":
             if name not in ("vit_tiny_moe", "lm_moe"):
                 raise ValueError(
@@ -305,7 +317,7 @@ class Trainer:
                                   policy=config.precision_policy(),
                                   device=self.device, seed=config.seed,
                                   **model_kwargs)
-        self.sharded = (self.tp > 1 or self.sp > 1
+        self.sharded = (self.tp > 1 or self.sp > 1 or self.ep > 1
                         or (config.fsdp and self.dp > 1))
         self.forward, self.after_backward = parallelize(
             self.model, self.mesh, model_name=config.model,
@@ -352,7 +364,8 @@ class Trainer:
             raise NotImplementedError(
                 f"steps_per_call={k}, data_placement="
                 f"{cfg.data_placement!r} under seq={self.sp}, tensor="
-                f"{self.tp}, fsdp={cfg.fsdp}: the resident and captured "
+                f"{self.tp}, expert={self.ep}, fsdp={cfg.fsdp}: the "
+                "resident and captured "
                 "steps of a sharded "
                 "model are not ported yet (ROADMAP A8e); run one step a "
                 "call from host batches")

@@ -19,7 +19,10 @@ bf16 cache or pool, empty valid ranges, shared blocks, garbage-block
 rows, cursors past the per-slot capacity, and the wrappers' refusals;
 ring and Ulysses attention on seq ranks as threads (E/F/G per block with
 the merge's lse cotangent, the packed and "heads" routes after the head
-scatter, lm_base steps at seq 2 against one rank: `-k sequence`);
+scatter, lm_base steps at seq 2 against one rank: `-k sequence`); the
+expert axis (J and K on a rank's local group sizes, an idle rank's
+included, and a sorted MoE layer at expert 2 against one rank: `-k
+expert`);
 the split over the cache at forced plans and at ranges the old kernel
 refused (L = 65536), its arrival counters across calls, and kernel C
 with fp32 queries over a bf16 pool at S > 1 against the split schedule's
@@ -1695,3 +1698,111 @@ def test_sequence_lm_base_steps_equal_one_rank(card, sp_impl):
                      else ("packed", 12 * 2))
     assert fa.LAUNCHES[f"flash_fwd_{row}"] == 2 * per_step
     assert fa.LAUNCHES[f"flash_bwd_{row}"] == 2 * per_step
+
+
+# ------------------------------------------- ROADMAP A8c: the expert axis
+EXPERT_PATTERNS = {
+    # a rank's local experts (4 of 8) of 1000 sorted rows: theirs lead,
+    # the rows past their sum belong to the other rank's experts
+    "leading": [300, 120, 0, 80],
+    "idle": [0, 0, 0, 0],
+    "all_local": [250, 250, 250, 250],
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pattern", sorted(EXPERT_PATTERNS))
+def test_expert_local_group_sizes_match_plain(card, pattern, dtype):
+    """J (both rhs layouts) and K on a rank's local group sizes under
+    the expert axis (ops/moe.py `_sorted`: the sort puts the local
+    experts' rows first and the kernels take only their sizes): against
+    the plain versions, J writing zero past the local rows (an idle
+    rank's whole output), K reading none of them."""
+    sizes = torch.tensor(EXPERT_PATTERNS[pattern], dtype=torch.int32,
+                         device="cuda")
+    lhs, rhs, grad = _gmm_operands(1000, 96, 160, 4, dtype, 31)
+    used = int(sizes.sum())
+    out = gm.gmm(lhs, rhs, sizes, impl="kernel")
+    _gmm_held(out, gm.gmm_plain(lhs, rhs, sizes), "gmm")
+    assert not out[used:].any()
+    dlhs = gm.gmm(grad, rhs, sizes, transpose_rhs=True, impl="kernel")
+    _gmm_held(dlhs, gm.gmm_plain(grad, rhs, sizes, transpose_rhs=True),
+              "gmm_trhs")
+    assert not dlhs[used:].any()
+    # rows past the local ones hold garbage K must not read
+    lhs[used:] = float("inf")
+    got = gm.tgmm(lhs, grad, sizes, impl="kernel")
+    _gmm_held(got, gm.tgmm_plain(lhs, grad, sizes), "tgmm")
+    assert torch.isfinite(got).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_expert_sorted_layer_on_threads_equals_one_rank(card, dtype):
+    """A sorted MoEMlp (d 256, 8 experts of 512, top-2, 512 tokens) at
+    expert 2, the ranks as threads on this card, against one rank: the
+    output, the input grad and every parameter grad (a rank's experts
+    against their slice) within the grouped matmul's limits (TOL, the
+    fp32 one times the tensor's largest magnitude where that exceeds 1;
+    the ranks' partial outputs add in another order than one rank's
+    combine); each rank launches J twice forward, J transposed twice and
+    K twice backward."""
+    import copy
+    import threading
+
+    from ddp_practice_tpu_torch.config import MeshConfig
+    from ddp_practice_tpu_torch.ops.moe import MoEMlp
+    from ddp_practice_tpu_torch.parallel.mesh import build_mesh, shard_state
+    from ddp_practice_tpu_torch.parallel.sharding_rules import (
+        param_sharding_rules,
+    )
+    from ddp_practice_tpu_torch.parallel.threads import run_ranks
+
+    torch.manual_seed(0)
+    layer = MoEMlp(256, num_experts=8, top_k=2, mlp_dim=512, dtype=dtype,
+                   impl="sorted").cuda()
+    with torch.no_grad():
+        for p in layer.parameters():
+            p.copy_(torch.randn_like(p) * 0.05)
+    x = _randn(2, 256, 256, dtype=torch.float32, seed=41)
+    w = _randn(2, 256, 256, dtype=torch.float32, seed=42)
+
+    def run(mod):
+        xs = x.clone().requires_grad_(True)
+        y = mod(xs.to(dtype), train=True)
+        ((y.float() * w).sum() + mod.sown["moe_aux_loss"]).backward()
+        torch.cuda.synchronize()
+        return (mod._local(), y.detach(), xs.grad,
+                {n: p.grad for n, p in mod.named_parameters()})
+
+    _, want_y, want_gx, want = run(copy.deepcopy(layer))
+
+    class Tally(dict):
+        """Each count a wrapper writes, with the thread that wrote it
+        (the ranks' `+= 1`s on one dict can race)."""
+        writes: list = []
+
+        def __setitem__(self, key, value):
+            self.writes.append((threading.current_thread().name, key))
+            super().__setitem__(key, value)
+
+    def rank(r):
+        mod = copy.deepcopy(layer)
+        shard_state(mod, build_mesh(MeshConfig(expert=2), "cuda"),
+                    param_sharding_rules("lm_moe"))
+        return run(mod)
+
+    counts, gm.LAUNCHES = gm.LAUNCHES, Tally(gm.LAUNCHES)
+    try:
+        res = run_ranks(rank, 2, timeout=300)
+        writes = gm.LAUNCHES.writes
+    finally:
+        gm.LAUNCHES = counts
+    for r, ((e0, e1), y, gx, grads) in enumerate(res):
+        _gmm_held(y, want_y, "y")
+        _gmm_held(gx, want_gx, "dx")
+        for n, g in grads.items():
+            ref = want[n][e0:e1] if n.startswith("expert_") else want[n]
+            _gmm_held(g, ref, n)
+        mine = [k for t, k in writes if t == f"rank{r}"]
+        assert {k: mine.count(k) for k in ("gmm", "gmm_trhs", "tgmm")} == {
+            "gmm": 2, "gmm_trhs": 2, "tgmm": 2}, mine

@@ -22,8 +22,9 @@ process), inputs from numpy seeds:
   reference's;
 - port against port: dropout masks at global positions, a weighted loss,
   the eval sums and the mesh's seq layout equal the one-rank ones;
-- `--seq 2 --sp_impl ...` through the CLI; lm_moe and decode under seq
-  refuse with their ROADMAP item or the reference's message.
+- `--seq 2 --sp_impl ...` through the CLI; lm_moe builds under seq
+  (ROADMAP A8f: tests/test_torch_expert_parallel.py holds it to the
+  reference), decode under seq refuses with the reference's message.
 """
 
 import jax
@@ -471,21 +472,20 @@ def test_seq_flags_run_through_the_cli(capsys, sp_impl):
 
 
 def test_moe_decode_and_conv_refuse_under_seq():
-    """lm_moe names its ROADMAP item; decode raises the reference's
-    message; a model without seq_axis, or without tokens, refuses."""
+    """lm_moe builds under seq (its routed MLPs take the seq group:
+    ROADMAP A8f); decode raises the reference's message; a model without
+    seq_axis, or without tokens, refuses."""
     cfg = dict(device="cpu", seq_len=16, batch_size=2, synthetic_size=20000,
                mesh=MeshConfig(seq=2))
 
     def rank(r):
         errors = []
-        for model, exc in (("lm_moe", NotImplementedError),
-                           ("convnet", ValueError)):
-            try:
-                Trainer(TrainConfig(model=model, **cfg,
-                                    **({"num_experts": 4}
-                                       if model == "lm_moe" else {})))
-            except exc as e:
-                errors.append(str(e))
+        moe = Trainer(TrainConfig(model="lm_moe", num_experts=4, **cfg))
+        assert moe.model.blocks[1].moe.sp.size == 2
+        try:
+            Trainer(TrainConfig(model="convnet", **cfg))
+        except ValueError as e:
+            errors.append(str(e))
         model = _tiny(seq_axis="seq")
         mesh = build_mesh(MeshConfig(seq=2), "cpu")
         try:
@@ -501,11 +501,10 @@ def test_moe_decode_and_conv_refuse_under_seq():
         return errors
 
     for errors in ranks(rank, 2):
-        assert len(errors) == 4, errors
-        assert "ROADMAP A8f" in errors[0]
-        assert "has none" in errors[1]
-        assert "built without seq_axis" in errors[2]
-        assert errors[3] == (
+        assert len(errors) == 3, errors
+        assert "has none" in errors[0]
+        assert "built without seq_axis" in errors[1]
+        assert errors[2] == (
             "decode (KV-cache) mode does not compose with sequence "
             "parallelism — generate on a data/tensor-sharded mesh")
 

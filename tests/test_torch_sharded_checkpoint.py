@@ -14,7 +14,11 @@ as threads, tests/_torch_port.py `ranks`), then
   restored into a sharded target both land on the same values;
 - under data 2 x seq 2 with FSDP the seq replicas write empty shard
   files, the checkpoint equals the same steps run on one rank, and a run
-  resumed from it takes the unbroken run's next step.
+  resumed from it takes the unbroken run's next step;
+- lm_moe at data 2 x expert 2 with FSDP (its experts cut over expert):
+  one process restores the checkpoint whole (router biases included),
+  equal to the same steps run on one rank, and a run resumed from it on
+  the same mesh takes the unbroken run's next step.
 """
 
 import json
@@ -227,6 +231,70 @@ def test_a_seq_sharded_run_resumes_as_unbroken(saved_seq, tmp_path):
     def rank(r):
         t = Trainer(_config(tmp_path, **SEQ_GRID))
         ckpt.restore(str(ckdir), t.state)
+        state = (full_parameters(t.model), _momentum(t))
+        return state, _steps(t, 1, skip=2)
+
+    for (got_params, got_momentum), losses in ranks(rank, 4):
+        for name in params:
+            torch.testing.assert_close(got_params[name], params[name],
+                                       rtol=0, atol=0)
+            torch.testing.assert_close(got_momentum[name], momentum[name],
+                                       rtol=0, atol=0)
+        assert losses == third
+
+
+EXPERT_GRID = dict(model="lm_moe", num_experts=4, fsdp=True,
+                   mesh=MeshConfig(expert=2), batch_size=2)
+
+
+@pytest.fixture(scope="module")
+def saved_expert(tmp_path_factory):
+    """lm_moe at data 2 x expert 2 with FSDP (the experts cut over expert,
+    FSDP's data cut on a free dim): the checkpoint of two steps, the state
+    and router biases gathered whole, and the third step's loss."""
+    ckdir = tmp_path_factory.mktemp("sharded_expert")
+
+    def rank(r):
+        t = Trainer(_config(ckdir, **EXPERT_GRID))
+        _steps(t, 2)
+        t.save()
+        state = (full_parameters(t.model), _momentum(t),
+                 {n: b.clone() for n, b in t.model.named_buffers()})
+        return state, _steps(t, 1, skip=2)
+
+    (params, momentum, buffers), third = ranks(rank, 4)[0]
+    return ckdir, params, momentum, buffers, third
+
+
+def test_an_expert_cut_checkpoint_restores_whole(saved_expert, tmp_path):
+    """One process restores the expert-cut checkpoint to the sharded
+    state gathered whole, router biases included, which is the same two
+    steps run on one rank."""
+    ckdir, params, momentum, buffers, _ = saved_expert
+    one = dict(model="lm_moe", num_experts=4)
+    target = Trainer(_config(tmp_path, **one))
+    ckpt.restore(str(ckdir), target.state)
+    for name, p in target.model.named_parameters():
+        torch.testing.assert_close(p.detach(), params[name], rtol=0, atol=0)
+    got = _momentum(target)
+    for name in momentum:
+        torch.testing.assert_close(got[name], momentum[name], rtol=0, atol=0)
+    for name, b in target.model.named_buffers():
+        torch.testing.assert_close(b, buffers[name], rtol=0, atol=0)
+    ref = Trainer(_config(tmp_path / "ref", **one))
+    _steps(ref, 2)
+    for name, p in ref.model.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), params[name].numpy(),
+                                   rtol=1e-5, atol=1e-6, err_msg=name)
+
+
+def test_an_expert_cut_run_resumes_as_unbroken(saved_expert, tmp_path):
+    ckdir, params, momentum, buffers, third = saved_expert
+
+    def rank(r):
+        t = Trainer(_config(tmp_path, **EXPERT_GRID))
+        ckpt.restore(str(ckdir), t.state)
+        assert t.model.blocks[1].moe.ep.size == 2
         state = (full_parameters(t.model), _momentum(t))
         return state, _steps(t, 1, skip=2)
 

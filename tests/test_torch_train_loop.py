@@ -121,7 +121,7 @@ def test_cli_trains_lm_moe_on_the_cpu(router, capsys, tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--model", "lm_tiny", "--expert", "2"], "A8"),
+    (["--model", "lm_tiny", "--max_restarts", "2"], "A8"),
     (["--model", "lm_tiny", "--pipe", "2"], "A8"),
     (["--model", "lm_pipe"], "A8"),
 ])
