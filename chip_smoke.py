@@ -311,12 +311,33 @@ later launch in the process.
    2` through the CLI's parser and `fit` (5 steps, no compare). The
    legs' launches join the flash and grouped-matmul rows in the kernels'
    record; the phase prints its wall time.
+31. pipeline (ROADMAP A8d; right after phase 30): lm_pipe at lm_base's
+   widths (d 768, 12 heads, mlp 3072, depth 12, s 2048, the synthetic
+   corpus's vocabulary), fp32, flash, remat as the registry has it, under
+   phase 28's optimizer, global batch 4, 3 steps through `parallelize`
+   and `make_lm_train_step`, every rank starting from one seed's
+   weights, the ranks as threads on the one card: one rank at
+   num_stages 1 (the yardstick), then pipe 2 GPipe M 2, pipe 4 GPipe
+   M 4, pipe 4 1F1B M 4, pipe 2 interleaved (V 2) M 2, data 2 x pipe 2
+   1F1B M 2, pipe 2 x tensor 2 1F1B M 2 and pipe 2 x seq 2 ring GPipe
+   M 2, each held to the yardstick (losses within PAR_LOSS_RTOL and
+   equal on every rank, every parameter, gathered over pipe, within
+   PAR_RTOL / PAR_ATOL) with each rank's E and G+F launches a step at
+   `_pipe_expected`'s formulas, printed by rank. Then `--model lm_pipe
+   --pipe 2 --pipe_schedule 1f1b` through the CLI's parser and `fit` (5
+   steps, no compare) and `bench_pipeline` (pipe 4 as threads, the
+   reference's default widths, M 2, 4 and 8 at 4 rows a microbatch,
+   bf16): ms a step and the card's peak allocated bytes for each
+   (schedule, M); ranks sharing one card, so the ms are not a speed. The
+   legs' launches join the flash rows in the kernels' record; the phase
+   prints its wall time.
 
 Launch counts are zeroed just before each phase's run and read just
 after it; a train leg's count is its wrappers' (eager calls) plus its
 graph replays' (utils/graphs.REPLAYED). The kernels' record adds the MoE
 serve rows' launches to A's and C's, the sorted decode leg's to J's, the
-sequence legs' to E/F/G's, and the expert legs' to E/F/G's and J/K's. The ConvNet's, lm_base's and vit_tiny's
+sequence and pipeline legs' to E/F/G's, and the expert legs' to
+E/F/G's and J/K's. The ConvNet's, lm_base's and vit_tiny's
 leg lines end with the card's name and power limit. Before the card's
 line the script prints its own wall time. The second-to-last line is the
 kernels' JSON record; the last line is {"ok": true, "device": {...}}.
@@ -2452,9 +2473,10 @@ def _moe_model(torch, *, impl, precision="bf16", seed=0, vocab=64, **kw):
     return model
 
 
-def _moe_loaders(batch=MOE_BATCH):
-    """fit's LM batches (train/loop.py _build_lm_data) of `batch` rows:
-    the synthetic Markov corpus, the last 10% the eval split."""
+def _moe_loaders(batch=MOE_BATCH, seq=MOE_SEQ):
+    """fit's LM batches (train/loop.py _build_lm_data) of `batch` rows of
+    `seq` tokens: the synthetic Markov corpus, the last 10% the eval
+    split."""
     from ddp_practice_tpu_torch.data.lm_corpus import (
         LMDataLoader,
         TokenCorpus,
@@ -2462,13 +2484,13 @@ def _moe_loaders(batch=MOE_BATCH):
     )
 
     corpus = synthetic_token_corpus(600000, seed=3407)
-    batch_tokens = batch * (MOE_SEQ + 1)
+    batch_tokens = batch * (seq + 1)
     n_eval = max(len(corpus) - int(len(corpus) * 0.9), batch_tokens)
     split = len(corpus) - n_eval
     make = [TokenCorpus(corpus.tokens[:split], corpus.vocab_size),
             TokenCorpus(corpus.tokens[split:], corpus.vocab_size)]
     return corpus.vocab_size, [
-        LMDataLoader(c, seq_len=MOE_SEQ, global_batch_size=batch,
+        LMDataLoader(c, seq_len=seq, global_batch_size=batch,
                      seed=3407, shuffle=shuffle)
         for c, shuffle in zip(make, (True, False))]
 
@@ -3106,12 +3128,15 @@ def _expert_rank_model(torch, state, *, impl, **kw):
     return model
 
 
-def _expert_run(torch, state, batches, *, axes, impl, sp_impl, fsdp, world,
-                tallies):
-    """One leg: every rank's lm_moe_tc laid out by `parallelize` on the
-    mesh `axes`, EXPERT_STEPS steps of `make_lm_train_step` on its rows of
-    each global batch. Returns per rank (losses, router metrics, its
-    kernels' launches a step, its seq coordinate, whole parameters)."""
+def _rank_steps(torch, make_model, batches, *, axes, model_name, tallies,
+                batch, fsdp=False, health=()):
+    """One leg: every rank's model (`make_model(coords)`, a rank's
+    coordinates on every axis) laid out by `parallelize` on the mesh
+    `axes` (one rank without), a step of `make_lm_train_step` under
+    PAR_ARGS's optimizer (SGD, momentum 0.9, clipping 1.0, lr 1e-2) on its
+    rows of each global batch of `batch` rows. Returns per rank (losses,
+    the `health` metrics a step, its kernels' launches a step read from
+    `tallies`, its coordinates, whole parameters)."""
     from ddp_practice_tpu_torch.config import MeshConfig, TrainConfig
     from ddp_practice_tpu_torch.parallel.mesh import (
         batch_shard,
@@ -3124,28 +3149,29 @@ def _expert_run(torch, state, batches, *, axes, impl, sp_impl, fsdp, world,
     from ddp_practice_tpu_torch.train.state import TrainState, make_optimizer
     from ddp_practice_tpu_torch.train.steps import make_lm_train_step
 
+    world = math.prod(axes.values()) if axes else 1
     config = TrainConfig(optimizer="sgd", learning_rate=1e-2, momentum=0.9,
-                         clip_norm=1.0, model="lm_moe")
+                         clip_norm=1.0, model=model_name)
 
     def mine():
         return {k: v for t in tallies for k, v in t.mine().items()}
 
     def rank(r):
         mesh = build_mesh(MeshConfig(**axes), "cuda") if world > 1 else None
-        kw = {} if sp_impl is None else dict(seq_axis="seq", sp_impl=sp_impl)
-        model = _expert_rank_model(torch, state, impl=impl, **kw)
-        forward, after = parallelize(model, mesh, model_name="lm_moe",
+        where = coords(mesh)
+        model = make_model(where)
+        forward, after = parallelize(model, mesh, model_name=model_name,
                                      fsdp=fsdp)
         train = TrainState(0, model, make_optimizer(config, model))
         step = make_lm_train_step(model, seed=config.seed, forward=forward,
                                   after_backward=after)
-        rows = batch_shard(mesh).local_slice(EXPERT_BATCH)
-        losses, health, per_step = [], [], []
-        for batch in batches:
+        rows = batch_shard(mesh).local_slice(batch)
+        losses, metrics_rows, per_step = [], [], []
+        for tokens in batches:
             before = mine()
-            train, metrics = step(train, {"tokens": batch[rows]})
+            train, metrics = step(train, {"tokens": tokens[rows]})
             losses.append(float(metrics["loss"]))
-            health.append({k: float(metrics[k]) for k in MOE_HEALTH})
+            metrics_rows.append({k: float(metrics[k]) for k in health})
             torch.cuda.synchronize()
             per_step.append({k: v - before.get(k, 0)
                              for k, v in mine().items()
@@ -3153,9 +3179,23 @@ def _expert_run(torch, state, batches, *, axes, impl, sp_impl, fsdp, world,
         params = (full_parameters(model) if world > 1 else
                   {n: p.detach().clone()
                    for n, p in model.named_parameters()})
-        return losses, health, per_step, coords(mesh)["seq"][0], params
+        return losses, metrics_rows, per_step, where, params
 
     return run_ranks(rank, world, timeout=600) if world > 1 else [rank(0)]
+
+
+def _expert_run(torch, state, batches, *, axes, impl, sp_impl, fsdp,
+                tallies):
+    """One leg of lm_moe_tc (`_rank_steps`, EXPERT_BATCH rows a global
+    batch). Returns per rank (losses, router metrics, its kernels'
+    launches a step, its seq coordinate, whole parameters)."""
+    kw = {} if sp_impl is None else dict(seq_axis="seq", sp_impl=sp_impl)
+    return [(losses, health, steps, where["seq"][0], params)
+            for losses, health, steps, where, params in _rank_steps(
+                torch, lambda where: _expert_rank_model(
+                    torch, state, impl=impl, **kw), batches, axes=axes,
+                model_name="lm_moe", tallies=tallies, batch=EXPERT_BATCH,
+                fsdp=fsdp, health=MOE_HEALTH)]
 
 
 def _expert_expected(leg: str, impl: str, seq_rank: int, depth: int,
@@ -3215,7 +3255,7 @@ def expert_phase(torch, fa, gm, ops) -> dict:
             t0 = time.monotonic()
             losses, health, _, _, params = _expert_run(
                 torch, state, batches, axes={}, impl=impl, sp_impl=None,
-                fsdp=False, world=1, tallies=tallies)[0]
+                fsdp=False, tallies=tallies)[0]
             one[impl] = (losses, health, params)
             log(f"expert[one rank, {impl}] lm_moe_tc fp32 sgd, seq "
                 f"{MOE_SEQ}, global batch {EXPERT_BATCH}, {EXPERT_STEPS} "
@@ -3231,8 +3271,7 @@ def expert_phase(torch, fa, gm, ops) -> dict:
                 "sorted" if impl == "sorted" else "einsum"]
             t0 = time.monotonic()
             res = _expert_run(torch, state, batches, axes=axes, impl=impl,
-                              sp_impl=sp_impl, fsdp=fsdp, world=world,
-                              tallies=tallies)
+                              sp_impl=sp_impl, fsdp=fsdp, tallies=tallies)
             wall = time.monotonic() - t0
             losses, health = res[0][0], res[0][1]
             for other in res[1:]:
@@ -3327,6 +3366,194 @@ def expert_phase(torch, fa, gm, ops) -> dict:
         raise AssertionError(f"expert[cli]: summary {s}")
     wall = time.monotonic() - t_phase
     log(f"expert phase: legs' launches (all ranks) {launches}; wall "
+        f"{wall:.1f} s")
+    torch.cuda.empty_cache()
+    return {"launches": launches, "wall_s": wall}
+
+
+# the pipeline phase (ROADMAP A8d): lm_pipe at lm_base's widths in fp32
+# under PAR_ARGS's optimizer, global batch 4, 3 steps; legs (label, mesh
+# axes, schedule, microbatches, sp_impl)
+PIPE_BATCH, PIPE_STEPS, PIPE_SEQ = 4, 3, 2048
+PIPE_MODEL = dict(hidden_dim=768, depth=12, num_heads=12, mlp_dim=3072,
+                  max_len=PIPE_SEQ, attn_impl="flash")
+PIPE_LEGS = [
+    ("pipe 2 gpipe", dict(pipe=2), "gpipe", 2, None),
+    ("pipe 4 gpipe", dict(pipe=4), "gpipe", 4, None),
+    ("pipe 4 1f1b", dict(pipe=4), "1f1b", 4, None),
+    ("pipe 2 interleaved", dict(pipe=2), "interleaved", 2, None),
+    ("data 2 x pipe 2 1f1b", dict(data=2, pipe=2), "1f1b", 2, None),
+    ("pipe 2 x tensor 2 1f1b", dict(pipe=2, tensor=2), "1f1b", 2, None),
+    ("pipe 2 x seq 2 ring gpipe", dict(seq=2, pipe=2), "gpipe", 2, "ring"),
+]
+PIPE_BENCH_MS = (2, 4, 8)
+
+
+def _pipe_expected(schedule, P, M, stage, seq_rank, sp_impl, depth):
+    """E and G+F launches a step on a pipe rank, remat on (the registry's):
+    with L = depth / P blocks a stage, GPipe runs L a microbatch forward
+    and again in the stage's recompute (2 L M), 1F1B runs L in each F
+    tick (not on the last stage, whose forward is its B tick), L in each
+    B tick and L more in the blocks' remat (3 L M; 2 L M on the last
+    stage), interleaved runs every chunk's F tick, B tick and remat (3 L
+    M), and every schedule L M backwards. Packed at 12 (or 6 under tensor
+    2) heads; the causal ring multiplies each by seq_rank + 1 blocks on
+    the folded row."""
+    L = depth // P
+    fwd = {"gpipe": 2, "interleaved": 3}.get(
+        schedule, 2 if stage == P - 1 else 3) * L * M
+    bwd = L * M
+    row = "packed"
+    if sp_impl == "ring":
+        row, fwd, bwd = "folded", fwd * (seq_rank + 1), bwd * (seq_rank + 1)
+    return {f"flash_fwd_{row}": fwd, f"flash_bwd_{row}": bwd}
+
+
+def _pipe_run(torch, state, vocab, batches, *, axes, schedule, M, sp_impl,
+              tally):
+    """One leg of lm_pipe (`_rank_steps`, PIPE_BATCH rows a global batch),
+    each rank's model built on the meta device and filled from `state`,
+    the one seed's weights. Returns per rank (losses, launches a step,
+    pipe and seq coordinates, whole parameters)."""
+    from ddp_practice_tpu_torch.models import PipelinedLM
+
+    kw = {} if sp_impl is None else dict(seq_axis="seq", sp_impl=sp_impl)
+
+    def make_model(where):
+        with torch.device("meta"):
+            model = PipelinedLM(vocab_size=vocab,
+                                num_stages=where["pipe"][1],
+                                num_microbatches=M, schedule=schedule,
+                                **PIPE_MODEL, **kw)
+        model = model.to_empty(device="cuda")
+        model.load_state_dict(state)
+        return model
+
+    return [(losses, steps, where["pipe"][0], where["seq"][0], params)
+            for losses, _, steps, where, params in _rank_steps(
+                torch, make_model, batches, axes=axes, model_name="lm_pipe",
+                tallies=(tally,), batch=PIPE_BATCH)]
+
+
+def pipe_phase(torch, fa) -> dict:
+    """ROADMAP A8d on one card (the docstring's phase 31): lm_pipe's
+    pipelined legs against its one-rank run, `--pipe 2 --pipe_schedule
+    1f1b` through the CLI, and `bench_pipeline`. Returns {"launches": the
+    legs' E/F/G launches, "wall_s"}."""
+    import numpy as np
+
+    from ddp_practice_tpu_torch.benchmarks import bench_pipeline
+    from ddp_practice_tpu_torch.cli import build_parser, config_from_args
+    from ddp_practice_tpu_torch.models import create_model
+    from ddp_practice_tpu_torch.parallel.threads import run_ranks
+    from ddp_practice_tpu_torch.train.loop import Trainer
+
+    t_phase = time.monotonic()
+    vocab, (loader, _) = _moe_loaders(PIPE_BATCH, PIPE_SEQ)
+    batches = [torch.from_numpy(np.ascontiguousarray(b["tokens"])).long()
+               .cuda() for _, b in zip(range(PIPE_STEPS), loader)]
+    template = create_model("lm_pipe", device="cuda", seed=31,
+                            vocab_size=vocab, **PIPE_MODEL)
+    depth = template.depth
+    state = {k: v.detach().clone() for k, v in template.state_dict().items()}
+    del template
+    counts = fa.LAUNCHES
+    tally = fa.LAUNCHES = _RankTally({k: 0 for k in counts})
+    try:
+        t0 = time.monotonic()
+        want_losses, _, _, _, want = _pipe_run(
+            torch, state, vocab, batches, axes={}, schedule="gpipe", M=1,
+            sp_impl=None, tally=tally)[0]
+        log(f"pipe[one rank] lm_pipe num_stages 1 (lm_base widths, depth "
+            f"{depth}, remat), fp32 sgd, seq {PIPE_SEQ}, global batch "
+            f"{PIPE_BATCH}, {PIPE_STEPS} steps: losses "
+            f"{', '.join(f'{x:.6f}' for x in want_losses)}; wall "
+            f"{time.monotonic() - t0:.1f} s [{CARD}]")
+        tally.by_thread.clear()   # the legs' launches only
+        for label, axes, schedule, M, sp_impl in PIPE_LEGS:
+            t0 = time.monotonic()
+            res = _pipe_run(torch, state, vocab, batches, axes=axes,
+                            schedule=schedule, M=M, sp_impl=sp_impl,
+                            tally=tally)
+            wall = time.monotonic() - t0
+            losses = res[0][0]
+            for other in res[1:]:
+                if other[0] != losses:
+                    raise AssertionError(f"pipe[{label}]: ranks disagree "
+                                         f"on the loss: {other[0]} vs "
+                                         f"{losses}")
+            loss_err = max(abs(a - b) / abs(b) for a, b in
+                           zip(losses, want_losses))
+            got = res[0][4]
+            worst, worst_name = 0.0, None
+            for name, w in want.items():
+                excess = float(((got[name] - w).abs() - PAR_RTOL * w.abs())
+                               .max())
+                if excess > worst:
+                    worst, worst_name = excess, name
+            P = axes["pipe"]
+            expect = [_pipe_expected(schedule, P, M, stage, seq_rank,
+                                     sp_impl, depth)
+                      for _, _, stage, seq_rank, _ in res]
+            log(f"pipe[{label}] {schedule}, M {M}, {len(res)} ranks as "
+                f"threads sharing one card: losses "
+                f"{', '.join(f'{x:.6f}' for x in losses)} (worst relative "
+                f"difference {loss_err:.2e}, limit {PAR_LOSS_RTOL}); "
+                f"parameters' worst |err| - rtol |want| {worst:.2e} (limit "
+                f"{PAR_ATOL}{', at ' + worst_name if worst_name else ''}); "
+                f"launches a step by rank {[r[1][0] for r in res]} "
+                f"(formula {expect}); wall {wall:.1f} s [{CARD}]")
+            if loss_err > PAR_LOSS_RTOL or worst > PAR_ATOL:
+                raise AssertionError(f"pipe[{label}]: off the one-rank run")
+            for r, ((_, steps, _, _, _), want_r) in enumerate(
+                    zip(res, expect)):
+                if len(steps) != PIPE_STEPS or any(s != want_r
+                                                   for s in steps):
+                    raise AssertionError(
+                        f"pipe[{label}]: rank {r} launched {steps} a step, "
+                        f"want {want_r}")
+            del res, got
+            torch.cuda.empty_cache()
+        launches = tally.total()
+    finally:
+        fa.LAUNCHES = counts
+    del want, state
+    torch.cuda.empty_cache()
+
+    argv = ["--model", "lm_pipe", "--pipe", "2", "--pipe_schedule", "1f1b",
+            "--microbatches", "2", "--attn_impl", "flash", "--num_heads",
+            "4", "--precision", "bf16", "--seq_len", "512", "-b", "8", "-e",
+            "1", "--max_steps", "5", "--optimizer", "adamw", "--lr", "1e-3",
+            "--log_every", "0", "--synthetic_size", "200000"]
+    t0 = time.monotonic()
+    summaries = run_ranks(lambda r: Trainer(config_from_args(
+        build_parser().parse_args(argv))).fit(), 2, timeout=600)
+    s = summaries[0]
+    log(f"pipe[cli] {' '.join(argv)}, 2 ranks as threads: {s['steps']} "
+        f"steps, eval accuracy {s['accuracy']:.4f} perplexity "
+        f"{s['perplexity']:.3f}; wall {time.monotonic() - t0:.1f} s "
+        f"[{CARD}]")
+    if s["steps"] != 5 or not math.isfinite(s["perplexity"]):
+        raise AssertionError(f"pipe[cli]: summary {s}")
+    torch.cuda.empty_cache()
+
+    t0 = time.monotonic()
+    held = torch.cuda.memory_allocated()
+    rows = bench_pipeline(microbatch_counts=PIPE_BENCH_MS)
+    for r in rows:
+        log(f"pipe[bench_pipeline] {r['schedule']} pipe "
+            f"{r['num_stages']} (threads sharing one card: not a speed), "
+            f"M {r['microbatches']}, global batch {r['global_batch']}, seq "
+            f"{r['seq_len']}, bf16: {r['ms_per_step']} ms a step, peak "
+            f"allocated {r['temp_bytes']} bytes over the timed steps, loss "
+            f"{r['loss']}, efficiency_pct {r.get('efficiency_pct')} "
+            f"[{CARD}]")
+        if not (math.isfinite(r["loss"]) and r["temp_bytes"]):
+            raise AssertionError(f"pipe[bench_pipeline]: row {r}")
+    log(f"pipe[bench_pipeline] the process held {held} bytes allocated "
+        f"before the bench; wall {time.monotonic() - t0:.1f} s")
+    wall = time.monotonic() - t_phase
+    log(f"pipe phase: legs' launches (all ranks) {launches}; wall "
         f"{wall:.1f} s")
     torch.cuda.empty_cache()
     return {"launches": launches, "wall_s": wall}
@@ -4471,6 +4698,7 @@ def main() -> int:
     par = parallel_phase(torch, fa, ops)
     seq = seq_phase(torch, fa, par)
     expert = expert_phase(torch, fa, gm, ops)
+    pipe = pipe_phase(torch, fa)
 
     # the MoE decode legs and the bench's decode entries are host-bound:
     # they run before any torch.profiler trace, which leaves host time on
@@ -4642,6 +4870,7 @@ def main() -> int:
         f"{par['launches']}, generate {par['generate_launches']}")
     log(f"the sequence phase's launches (all ranks): {seq['launches']}")
     log(f"the expert phase's launches (all ranks): {expert['launches']}")
+    log(f"the pipeline phase's launches (all ranks): {pipe['launches']}")
 
 
     # each kernel's launches on its main path's run
@@ -4654,10 +4883,10 @@ def main() -> int:
         "paged_decode_attention_int8":
             prefix8_launches["paged_decode_attention_int8"],
         **{name: train["launches"][name] + seq["launches"][name]
-           + expert["launches"][name]
+           + expert["launches"][name] + pipe["launches"][name]
            for name in ("flash_fwd_packed", "flash_bwd_packed")},
         **{name: folded["launches"][name] + seq["launches"][name]
-           + expert["launches"][name]
+           + expert["launches"][name] + pipe["launches"][name]
            for name in ("flash_fwd_folded", "flash_bwd_folded")},
         "fused_encoder_fwd": vit["launches"]["fused_encoder_fwd"],
         "fused_encoder_bwd": vit["launches"]["fused_encoder_bwd"],

@@ -35,9 +35,10 @@ process on one card). Every bench runs on the card unless `device="cpu"`.
 `bench_lm_decode`'s `mbu_pct` counts every parameter once a decode step,
 as the reference's formula does; for lm_moe that is every expert's
 weights, while a routed step reads only the experts its tokens picked, so
-its `mbu_pct` overstates the bytes a step reads. `bench_pipeline` waits
-for the pipeline schedules (ROADMAP A8d), and the suite's entries the
-port cannot run yet (`NOT_RUNNABLE`) give a record that says why instead
+its `mbu_pct` overstates the bytes a step reads. `bench_pipeline` is the
+reference's GPipe vs 1F1B sweep over the microbatch count, its ranks
+threads of this process (parallel/threads.py), and the suite's entries
+the port cannot run yet (`NOT_RUNNABLE`) give a record that says why instead
 of a result.
 
 The suite writes every record to `build/benchmarks/suite.json`
@@ -49,6 +50,7 @@ bench.py.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import sys
@@ -477,12 +479,134 @@ def bench_lm_decode(
     return out
 
 
-def bench_pipeline(**kwargs) -> list:
-    """The reference's GPipe vs 1F1B schedule comparison: the port has no
-    pipeline schedules yet."""
-    raise NotImplementedError(
-        "bench_pipeline needs the pipeline schedules (lm_pipe, GPipe/1F1B), "
-        "which are not ported yet (ROADMAP A8d)")
+def bench_pipeline(
+    *,
+    num_stages: int = 4,
+    microbatch_counts=(2, 4, 8),
+    hidden_dim: int = 256,
+    depth: int = 4,
+    num_heads: int = 8,
+    mlp_dim: int = 1024,
+    vocab_size: int = 256,
+    seq_len: int = 256,
+    mb_rows: int = 4,
+    fixed_global_batch: int = 0,
+    steps: int = 5,
+    warmup: int = 2,
+    precision: str = "bf16",
+    device="cuda",
+) -> list:
+    """The reference's pipeline schedule comparison, GPipe vs 1F1B over
+    the microbatch count M, lm_pipe on a mesh of pipe = num_stages, the
+    ranks threads of this process (on one card they share it), AdamW
+    1e-3, the tokens drawn from seed 0.
+
+    Per (schedule, M), the reference's keys: `ms_per_step`, rank 0's
+    wall over `steps` timed steps, each fenced by a read of the loss;
+    `temp_bytes`, here the card's peak allocated bytes over the timed
+    steps (`torch.cuda.max_memory_allocated`, reset before them; None on
+    the CPU), in place of XLA's temp-memory analysis. With the ranks as
+    threads on one card that peak is the whole process's: every stage's
+    parameters, optimizer state and activations summed. The default
+    holds the rows of a microbatch fixed (the global batch grows with
+    M), and `efficiency_pct` = slope * M / t(M), the slope from the two
+    largest M of a schedule, as the reference's; `fixed_global_batch`
+    holds the global batch instead (the memory-story mode: GPipe's
+    stash of stage inputs grows with M, 1F1B's must not). The step times
+    of ranks that share one card are not a pipeline's speed."""
+    from ddp_practice_tpu_torch.models import create_model
+    from ddp_practice_tpu_torch.parallel.mesh import build_mesh, parallelize
+    from ddp_practice_tpu_torch.parallel.threads import run_ranks
+    from ddp_practice_tpu_torch.train.steps import make_lm_train_step
+
+    dev = resolve_device(device)
+    policy = PrecisionPolicy.from_name(precision)
+    results = []
+    for schedule in ("gpipe", "1f1b"):
+        for mb_count in microbatch_counts:
+            if fixed_global_batch:
+                if fixed_global_batch % mb_count:
+                    raise ValueError(
+                        f"fixed_global_batch {fixed_global_batch} not "
+                        f"divisible by M = {mb_count}")
+                b = fixed_global_batch
+            else:
+                b = mb_count * mb_rows
+            tokens = torch.from_numpy(np.random.default_rng(0).integers(
+                0, vocab_size, (b, seq_len + 1))).long()
+            # the last configuration's models may sit in reference cycles:
+            # free them before this one's peak is read
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+
+            def rank(r, mb_count=mb_count, tokens=tokens):
+                import torch.distributed as tdist
+
+                from ddp_practice_tpu_torch.config import MeshConfig
+
+                mesh = build_mesh(MeshConfig(pipe=num_stages), dev.type)
+                model = create_model(
+                    "lm_pipe", policy=policy, device=dev,
+                    vocab_size=vocab_size, max_len=seq_len,
+                    hidden_dim=hidden_dim, depth=depth, num_heads=num_heads,
+                    mlp_dim=mlp_dim, num_stages=num_stages,
+                    num_microbatches=mb_count, schedule=schedule)
+                forward, after = parallelize(model, mesh,
+                                             model_name="lm_pipe",
+                                             fsdp=False)
+                state = _train_state(model, model_name="lm_pipe",
+                                     optimizer="adamw", learning_rate=1e-3,
+                                     device=dev)
+                step = make_lm_train_step(model, forward=forward,
+                                          after_backward=after)
+                batch = {"tokens": tokens.to(dev)}
+                for _ in range(max(warmup, 1)):
+                    state, metrics = step(state, batch)
+                float(metrics["loss"])
+                tdist.barrier()
+                cuda = dev.type == "cuda"
+                if cuda and r == 0:
+                    torch.cuda.reset_peak_memory_stats(dev)
+                tdist.barrier()
+                t0 = time.perf_counter()
+                for _ in range(max(steps, 1)):
+                    state, metrics = step(state, batch)
+                    loss = float(metrics["loss"])
+                dt = time.perf_counter() - t0
+                tdist.barrier()
+                peak = (torch.cuda.max_memory_allocated(dev)
+                        if cuda else None)
+                return dt, loss, peak
+
+            dt, loss, peak = run_ranks(rank, num_stages, timeout=1200)[0]
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+            results.append({
+                "schedule": schedule,
+                "num_stages": num_stages,
+                "microbatches": mb_count,
+                "global_batch": b,
+                "seq_len": seq_len,
+                "ms_per_step": round(dt / max(steps, 1) * 1e3, 1),
+                "temp_bytes": peak,
+                "loss": round(loss, 4),
+            })
+    if fixed_global_batch:
+        return results
+    for schedule in ("gpipe", "1f1b"):
+        rs = sorted((r for r in results if r["schedule"] == schedule),
+                    key=lambda r: r["microbatches"])
+        if len(rs) >= 2:
+            a, bb = rs[-2], rs[-1]
+            slope = (bb["ms_per_step"] - a["ms_per_step"]) / (
+                bb["microbatches"] - a["microbatches"])
+            for r in rs:
+                if slope > 0:
+                    r["efficiency_pct"] = round(
+                        100.0 * slope * r["microbatches"] / r["ms_per_step"],
+                        1)
+    return results
 
 
 def bench_serve(**kwargs) -> dict:

@@ -11,10 +11,11 @@ the card on a machine without one raises instead of quietly running on
 the CPU. Only an explicit `device="cpu"` runs there (the tests pass it).
 
 `MeshConfig` and `TrainConfig` keep the reference's fields and defaults,
-plus `TrainConfig.device`. The port runs the mesh's data, seq and tensor
-axes, `fsdp` and `sp_impl` (parallel/); the other axes and every flag
-this slice does not port raise NotImplementedError naming the ROADMAP
-item that brings them, when set to anything but the default.
+plus `TrainConfig.device`. The port runs every mesh axis, `fsdp`,
+`sp_impl` and the pipeline flags (`num_microbatches`, `pipe_schedule`,
+`num_virtual`; parallel/); `fsdp` under `pipe` and every flag it does
+not port raise NotImplementedError naming the ROADMAP item that brings
+them, when set to anything but the default.
 """
 
 from __future__ import annotations
@@ -72,8 +73,9 @@ class MeshConfig:
     (sequence parallelism: ring or Ulysses attention, parallel/ring.py
     and parallel/ulysses.py), `tensor` (Megatron tensor parallelism over
     attention heads and MLP features, parallel/tensor.py), `pipe` and
+    `pipe` (the pipelined families' stages, parallel/pipeline.py) and
     `expert` (the routed MLPs' stacked experts cut over its ranks,
-    ops/moe.py). `pipe` is not ported and raises above 1."""
+    ops/moe.py)."""
 
     data: int = -1
     seq: int = 1
@@ -88,11 +90,7 @@ class MeshConfig:
     AXIS_EXPERT = "expert"
 
     def __post_init__(self):
-        if self.pipe != 1:
-            raise NotImplementedError(
-                f"mesh axis pipe={self.pipe} is not ported yet (ROADMAP "
-                "A8d); data, seq, tensor and expert parallelism run")
-        for axis in ("seq", "tensor", "expert"):
+        for axis in ("seq", "tensor", "pipe", "expert"):
             if getattr(self, axis) < 1:
                 raise ValueError(
                     f"mesh {axis}={getattr(self, axis)} (want >= 1)")
@@ -125,8 +123,7 @@ class MeshConfig:
 # TrainConfig fields this slice does not port -> the ROADMAP item that
 # does; setting one to anything but its default raises
 _NOT_PORTED = {
-    "pipe_schedule": "A8", "num_microbatches": "A8",
-    "num_virtual": "A8", "max_restarts": "A8",
+    "max_restarts": "A8",
     "watchdog_timeout_s": "A8", "sync_check_every_steps": "A8",
     "watchdog_probe_every_steps": "A8",
     "trace_out": "A6", "metrics_port": "A6", "telemetry_out": "A6",
@@ -267,6 +264,12 @@ class TrainConfig:
                 raise NotImplementedError(
                     f"{name}={getattr(self, name)!r} is not ported yet "
                     f"(ROADMAP {item})")
+        if self.fsdp and self.mesh.pipe > 1:
+            raise NotImplementedError(
+                f"--fsdp under --pipe {self.mesh.pipe}: FSDP2's per-forward "
+                "gathers do not follow the pipeline's explicit schedules "
+                "yet (ROADMAP A8e); pipe composes with data (DDP), seq "
+                "and tensor")
         if self.fused_encoder not in ("auto", "on", "off", True, False):
             raise ValueError(f"fused_encoder={self.fused_encoder!r} "
                              "(want 'auto'|'on'|'off')")

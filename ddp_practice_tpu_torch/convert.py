@@ -27,7 +27,12 @@ rules, by Flax leaf:
   stacked expert tensors (`expert_w_in` (E, d, f), `expert_b_in`,
   `expert_w_out`, `expert_b_out`) are copied unchanged.
 
-Block `block{i}` becomes `blocks.{i}`. `batch_stats` (the reference's
+Block `block{i}` becomes `blocks.{i}`. The pipelined families' tree
+(`embed`, `blocks`, `head`) holds each block leaf stacked on a leading
+depth dim: each block's slice is laid out as above and the slices are
+stacked again (models/pipeline_lm.py keeps them so); the whole model's
+tensors load on every rank, and `shard_state` cuts each rank's stage
+(or its chunks under the interleaved schedule). `batch_stats` (the reference's
 non-parameter state: each router's `router_bias`, each BatchNorm's
 running statistics) maps by the same names onto the model's buffers.
 
@@ -93,6 +98,11 @@ def _torch_name(path: tuple) -> str:
     return ".".join(parts)
 
 
+def _stacked(path: tuple) -> bool:
+    """A pipelined model's stacked block leaf (depth first)."""
+    return bool(path) and path[0] == "blocks"
+
+
 def flax_to_state_dict(params: Mapping) -> dict:
     """Nested Flax params (numpy leaves) -> {torch name: fp32 tensor}."""
     out = {}
@@ -102,7 +112,9 @@ def flax_to_state_dict(params: Mapping) -> dict:
             if isinstance(value, Mapping):
                 walk(value, path + (key,))
             else:
-                arr = _leaf(path + (key,), np.asarray(value))
+                arr = np.asarray(value)
+                arr = (np.stack([_leaf(path + (key,), a) for a in arr])
+                       if _stacked(path) else _leaf(path + (key,), arr))
                 out[_torch_name(path + (key,))] = torch.tensor(
                     np.ascontiguousarray(arr), dtype=torch.float32)
 
@@ -156,8 +168,12 @@ def state_dict_to_flax(state: Mapping, template: Mapping) -> dict:
                                f"state has no {name!r}")
             shape = tuple(np.shape(value))
             t = state[name].detach().cpu()
-            arr = _to_flax_leaf(path + (key,), (
-                t if t.dtype == torch.float64 else t.float()).numpy(), shape)
+            arr = (t if t.dtype == torch.float64 else t.float()).numpy()
+            if _stacked(path):
+                arr = np.stack([_to_flax_leaf(path + (key,), a, shape[1:])
+                                for a in arr])
+            else:
+                arr = _to_flax_leaf(path + (key,), arr, shape)
             if arr.shape != shape:
                 raise ValueError(f"{name}: {arr.shape} as Flax's "
                                  f"{'/'.join(path + (key,))}, want {shape}")

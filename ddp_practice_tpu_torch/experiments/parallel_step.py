@@ -1,6 +1,7 @@
 """lm_base's train step under tensor parallelism, FSDP and sequence
-parallelism, and lm_moe's under expert and sequence parallelism, on
-several cards (NCCL, one process a card under torchrun).
+parallelism, lm_moe's under expert and sequence parallelism, and lm_pipe's
+under pipeline parallelism, on several cards (NCCL, one process a card
+under torchrun).
 
     python -m ddp_practice_tpu_torch.experiments.parallel_step \
         [--nproc 4] [--steps 20] [--batch_size 8] [--layouts NAME ...]
@@ -24,7 +25,9 @@ layouts seq4_ring = "--seq 4 --sp_impl ring", seq4_ulysses = "--seq 4
 --sp_impl ulysses" and tensor2_seq2_ulysses = "--tensor 2 --seq 2
 --sp_impl ulysses", the MoE layouts expert4_moe = "--model lm_moe
 --expert 4" and seq4_ring_moe = "--model lm_moe --seq 4 --sp_impl ring"
-(the later --model wins), and the yardsticks ddp = no flag and ddp_moe =
+(the later --model wins), the pipeline layouts pipe4_gpipe = "--model
+lm_pipe --pipe 4 --microbatches 4" and pipe4_1f1b (the same with
+"--pipe_schedule 1f1b"), and the yardsticks ddp = no flag and ddp_moe =
 "--model lm_moe", plain DDP) it runs
 
     torchrun --nproc_per_node N -m ddp_practice_tpu_torch.cli \
@@ -36,7 +39,9 @@ The MoE layouts run the same command through `--moe_tc_worker`, which
 builds lm_moe at lm_moe_tc's fields (benchmarks.py's suite entry: lm_base
 widths, 6 of 12 blocks routed over 8 experts, top-2, strided routing
 groups of 256, capacity factor 1.5) where the CLI's registry preset has
-lm_tiny's test-sized widths.
+lm_tiny's test-sized widths; the pipeline layouts through
+`--lm_base_worker`, which builds lm_pipe at lm_base's widths (d 768, 12
+heads, mlp 3072, depth 12).
 
 (rank 0 writes one record a step after reading the step's metrics back,
 so consecutive records are one step apart; the first two steps are left
@@ -63,20 +68,26 @@ LAYOUTS = {"tensor4": "--tensor 4", "tensor2_fsdp": "--tensor 2 --fsdp",
            "tensor2_seq2_ulysses": "--tensor 2 --seq 2 --sp_impl ulysses",
            "expert4_moe": "--model lm_moe --expert 4",
            "seq4_ring_moe": "--model lm_moe --seq 4 --sp_impl ring",
-           "ddp_moe": "--model lm_moe", "ddp": ""}
+           "ddp_moe": "--model lm_moe",
+           "pipe4_gpipe": "--model lm_pipe --pipe 4 --microbatches 4",
+           "pipe4_1f1b": "--model lm_pipe --pipe 4 --microbatches 4 "
+                         "--pipe_schedule 1f1b", "ddp": ""}
 # the layouts that train lm_moe at lm_moe_tc's fields (`moe_tc_worker`)
 MOE_TC = ("expert4_moe", "seq4_ring_moe", "ddp_moe")
+# the layouts that train lm_pipe at lm_base's widths (`lm_base_worker`)
+PIPE = ("pipe4_gpipe", "pipe4_1f1b")
+LM_BASE = dict(hidden_dim=768, depth=12, num_heads=12, mlp_dim=3072)
 # 4 M tokens: an epoch of the synthetic corpus holds every layout's steps
 BASE = ["--model", "lm_base", "--attn_impl", "flash", "--precision", "bf16",
         "--optimizer", "adamw", "--lr", "3e-4", "--seq_len", "2048", "-e",
         "1", "--log_every", "1", "--json", "--synthetic_size", "4000000"]
 
 
-def _torchrun(nproc: int, args: list, moe_tc: bool = False) -> dict:
-    """The CLI under torchrun (through `moe_tc_worker` with `moe_tc`);
-    rank 0's JSON summary."""
+def _torchrun(nproc: int, args: list, worker: str = "") -> dict:
+    """The CLI under torchrun (through `--<worker>` when given: its
+    model fields); rank 0's JSON summary."""
     entry = (["ddp_practice_tpu_torch.experiments.parallel_step",
-              "--moe_tc_worker"] if moe_tc else ["ddp_practice_tpu_torch.cli"])
+              f"--{worker}"] if worker else ["ddp_practice_tpu_torch.cli"])
     cmd = ["torchrun", "--standalone", f"--nproc_per_node={nproc}", "-m",
            *entry, *BASE, *args]
     out = subprocess.run(cmd, capture_output=True, text=True)
@@ -85,13 +96,18 @@ def _torchrun(nproc: int, args: list, moe_tc: bool = False) -> dict:
     return json.loads(out.stdout.strip().splitlines()[-1])
 
 
+def _worker(name: str) -> str:
+    return ("moe_tc_worker" if name in MOE_TC else
+            "lm_base_worker" if name in PIPE else "")
+
+
 def run_layout(name: str, nproc: int, steps: int, batch: int,
                workdir: str) -> dict:
     layout = LAYOUTS[name]
     metrics = os.path.join(workdir, f"{name}.jsonl")
     summary = _torchrun(nproc, ["-b", str(batch), "--max_steps", str(steps),
                                 "--metrics_file", metrics, *layout.split()],
-                        moe_tc=name in MOE_TC)
+                        worker=_worker(name))
     with open(metrics) as f:
         records = [json.loads(x) for x in f]
     times = [r["time"] for r in records if r["kind"] == "train"]
@@ -132,14 +148,14 @@ def rank_device_ms(profile_dir: str, steps: int) -> list:
     return sorted(out, key=lambda x: -x[1])
 
 
-def moe_tc_worker(argv: list) -> int:
-    """One rank of a MoE layout (under torchrun): the CLI's `main` on
-    `argv`, its Trainer building lm_moe with lm_moe_tc's fields over the
-    registry preset's."""
-    from ddp_practice_tpu_torch import benchmarks, cli
+def fields_worker(argv: list, fields: dict) -> int:
+    """One rank of a layout (under torchrun): the CLI's `main` on `argv`,
+    its Trainer building the model with `fields` over the registry
+    preset's (`--moe_tc_worker`: lm_moe_tc's; `--lm_base_worker`: lm_base's
+    widths for lm_pipe)."""
+    from ddp_practice_tpu_torch import cli
     from ddp_practice_tpu_torch.train import loop
 
-    fields = benchmarks._SUITE["lm_moe_tc"]["model_kwargs"]
     make = loop.create_model
     loop.create_model = lambda name, **kw: make(name, **{**kw, **fields})
     return cli.main(argv)
@@ -195,7 +211,12 @@ def main(argv=None) -> int:
         collectives_worker()
         return 0
     if argv and argv[0] == "--moe_tc_worker":
-        return moe_tc_worker(argv[1:])
+        from ddp_practice_tpu_torch import benchmarks
+
+        return fields_worker(
+            argv[1:], benchmarks._SUITE["lm_moe_tc"]["model_kwargs"])
+    if argv and argv[0] == "--lm_base_worker":
+        return fields_worker(argv[1:], LM_BASE)
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--nproc", type=int, default=4)
     p.add_argument("--steps", type=int, default=20)
@@ -241,7 +262,7 @@ def main(argv=None) -> int:
                 _torchrun(args.nproc, [
                     "-b", str(args.batch_size), "--max_steps", "20",
                     "--profile_dir", prof, *LAYOUTS[name].split()],
-                    moe_tc=name in MOE_TC)
+                    worker=_worker(name))
                 print(f"{name}, traced steps 10-19, one rank [{card[0]}]:",
                       flush=True)
                 xprof.print_summary(prof, steps=10, top=8)

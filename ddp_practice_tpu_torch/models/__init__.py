@@ -4,11 +4,12 @@ The port registers the reference's ConvNet (`convnet`, models/convnet.py),
 ResNet-18 and ResNet-50 (`resnet18`, `resnet50`, models/resnet.py), the
 decoder LMs that serve and train (`lm_tiny`, `lm_base`), their MoE
 variant `lm_moe` (lm_tiny's dims, every second block routed, capacity
-factor 2.0), the image transformers (`vit_tiny`, `vit_base`) and
-`vit_tiny_moe` (models/vit_moe.py). The transformers but `vit_tiny_moe`
-take the tri-state `fused` argument (`accepts_fused`). The reference's
-other names raise NotImplementedError naming the ROADMAP item that ports
-them. `create_model` builds the module on `device` (the card by default; it
+factor 2.0), the image transformers (`vit_tiny`, `vit_base`),
+`vit_tiny_moe` (models/vit_moe.py) and the pipelined families `lm_pipe`
+(lm_tiny's dims, models/pipeline_lm.py) and `vit_tiny_pipe` (vit_tiny's,
+models/pipeline_vit.py). The dense transformers take the tri-state
+`fused` argument (`accepts_fused`); `vit_tiny_moe` and the pipelined
+families do not, as the reference registers them. `create_model` builds the module on `device` (the card by default; it
 raises when none is present) with weights drawn from `seed` on the CPU, so
 a seed gives the same weights on every device. The init follows the
 reference's Flax defaults in scale: Dense and Conv kernels and the token
@@ -16,7 +17,8 @@ embedding normal with std 1/sqrt(fan_in), the stacked expert kernels (E,
 fan_in, fan_out) likewise per expert, biases zero, LayerNorm and BatchNorm
 scale one (zero for a BatchNorm built with `zero_scale`, the last of each
 ResNet block, as the reference's `scale_init=zeros`), learned positions
-normal(0.02).
+normal(0.02). A pipelined model's stacked block leaves are drawn a block
+at a time by the same rules.
 """
 
 from __future__ import annotations
@@ -30,6 +32,8 @@ from torch import nn
 from ddp_practice_tpu_torch.config import PrecisionPolicy, resolve_device
 from ddp_practice_tpu_torch.models.convnet import ConvNet
 from ddp_practice_tpu_torch.models.lm import LMBase, LMTiny, TransformerLM
+from ddp_practice_tpu_torch.models.pipeline_lm import PipelinedLM
+from ddp_practice_tpu_torch.models.pipeline_vit import PipelinedViT
 from ddp_practice_tpu_torch.models.resnet import ResNet, ResNet18, ResNet50
 from ddp_practice_tpu_torch.models.vit import ViT, ViTBase, ViTTiny
 from ddp_practice_tpu_torch.models.vit_moe import ViTMoE
@@ -57,19 +61,39 @@ def ViTTinyMoE(**kw) -> ViTMoE:
 _REGISTRY = {"convnet": ConvNet, "resnet18": ResNet18,
              "resnet50": ResNet50, "lm_tiny": LMTiny, "lm_base": LMBase,
              "lm_moe": LMMoE, "vit_tiny": ViTTiny, "vit_base": ViTBase,
-             "vit_tiny_moe": ViTTinyMoE}
+             "vit_tiny_moe": ViTTinyMoE, "lm_pipe": PipelinedLM,
+             "vit_tiny_pipe": PipelinedViT}
 # registry names whose module takes the tri-state `fused` argument
-# (models/vit.py EncoderBlock); ViTMoE's blocks never fuse, and the
-# conv nets have no encoder block
-_FUSED_CAPABLE = frozenset(_REGISTRY) - {"vit_tiny_moe", "convnet",
+# (models/vit.py EncoderBlock); ViTMoE's blocks never fuse, the
+# pipelined families build the plain block, and the conv nets have no
+# encoder block
+_FUSED_CAPABLE = frozenset(_REGISTRY) - {"vit_tiny_moe", "lm_pipe",
+                                         "vit_tiny_pipe", "convnet",
                                          "resnet18", "resnet50"}
-# the reference's other registry names -> the ROADMAP item that ports them
-_NOT_PORTED = {"vit_tiny_pipe": "A8", "lm_pipe": "A8"}
 
 
 def accepts_fused(name: str) -> bool:
     """True when `create_model(name, fused=...)` is a valid call."""
     return name.lower() in _FUSED_CAPABLE
+
+
+def _draw(name: str, shape: tuple, g, bn_scale) -> torch.Tensor:
+    """One leaf's init (`bn_scale`: None, or whether the BatchNorm
+    scale is zero)."""
+    leaf = name.rsplit(".", 1)[-1]
+    if bn_scale is not None:
+        return torch.zeros(shape) if bn_scale else torch.ones(shape)
+    if leaf == "pos_embed":
+        return torch.randn(shape, generator=g) * 0.02
+    if leaf == "bias" or leaf.startswith("expert_b"):
+        return torch.zeros(shape)
+    if ".ln" in f".{name}":     # LayerNorm (ln1 / ln2 / ln_f) scale
+        return torch.ones(shape)
+    if leaf.startswith("expert_w"):   # (E, fan_in, fan_out)
+        return torch.randn(shape, generator=g) / math.sqrt(shape[1])
+    # Linear (out, in), Embedding (v, d), Conv (o, i, kh, kw)
+    return torch.randn(shape, generator=g) / math.sqrt(
+        math.prod(shape[1:]))
 
 
 @torch.no_grad()
@@ -78,24 +102,14 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
     g = torch.Generator().manual_seed(seed)
     bn_scales = {f"{n}.weight": m.zero_scale for n, m in
                  model.named_modules() if isinstance(m, BatchNorm)}
+    stacked = getattr(model, "block_stack", None) is not None
     for name, p in model.named_parameters():
-        leaf = name.rsplit(".", 1)[-1]
-        if name in bn_scales:
-            w = torch.zeros(p.shape) if bn_scales[name] else torch.ones(
-                p.shape)
-        elif leaf == "pos_embed":
-            w = torch.randn(p.shape, generator=g) * 0.02
-        elif leaf == "bias":
-            w = torch.zeros(p.shape)
-        elif ".ln" in f".{name}":     # LayerNorm (ln1 / ln2 / ln_f) scale
-            w = torch.ones(p.shape)
-        elif leaf.startswith("expert_b"):
-            w = torch.zeros(p.shape)
-        elif leaf.startswith("expert_w"):   # (E, fan_in, fan_out)
-            w = torch.randn(p.shape, generator=g) / math.sqrt(p.shape[1])
-        else:       # Linear (out, in), Embedding (v, d), Conv (o, i, kh, kw)
-            w = torch.randn(p.shape, generator=g) / math.sqrt(
-                p[0].numel())
+        bn = bn_scales.get(name)
+        if stacked and name.startswith("blocks."):
+            w = torch.stack([_draw(name, tuple(p.shape[1:]), g, bn)
+                             for _ in range(p.shape[0])])
+        else:
+            w = _draw(name, tuple(p.shape), g, bn)
         p.copy_(w.to(p.dtype))
     return model
 
@@ -113,9 +127,6 @@ def create_model(name: str, *, policy: Optional[PrecisionPolicy] = None,
     stage_sizes, small_images)."""
     policy = policy or PrecisionPolicy.fp32()
     name = name.lower()
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model {name!r} is not ported yet (ROADMAP {_NOT_PORTED[name]})")
     if name not in _REGISTRY:
         raise ValueError(f"unknown model {name!r}; have {sorted(_REGISTRY)}")
     dev = resolve_device(device)
@@ -127,4 +138,4 @@ def create_model(name: str, *, policy: Optional[PrecisionPolicy] = None,
 __all__ = ["accepts_fused", "create_model", "init_weights", "ConvNet",
            "ResNet", "ResNet18", "ResNet50", "TransformerLM", "LMTiny",
            "LMBase", "LMMoE", "ViT", "ViTTiny", "ViTBase", "ViTMoE",
-           "ViTTinyMoE"]
+           "ViTTinyMoE", "PipelinedLM", "PipelinedViT"]

@@ -243,18 +243,24 @@ class TransformerLM(nn.Module):
         return gather_from_tp(logits, self.tp)
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        """The token lookup; under tensor parallelism each rank looks up
-        the tokens in its vocabulary rows (zeros elsewhere) and the
-        group sums the parts."""
-        w = self.tok_embed.weight.to(self.dtype)
-        if self.tp is None:
-            return F.embedding(tokens, w)
-        rows = w.shape[0]
-        local = tokens - self.tp.rank * rows
-        mine = (local >= 0) & (local < rows)
-        x = F.embedding(local.clamp(0, rows - 1), w) * mine[..., None].to(
-            w.dtype)
-        return reduce_from_tp(x, self.tp)
+        return vocab_embed(tokens, self.tok_embed.weight, self.tp,
+                           self.dtype)
+
+
+def vocab_embed(tokens: torch.Tensor, weight: torch.Tensor, tp,
+                dtype) -> torch.Tensor:
+    """The token lookup in `dtype`; under tensor parallelism (`tp`) each
+    rank looks up the tokens in its vocabulary rows (zeros elsewhere) and
+    the group sums the parts."""
+    w = weight.to(dtype)
+    if tp is None:
+        return F.embedding(tokens, w)
+    rows = w.shape[0]
+    local = tokens - tp.rank * rows
+    mine = (local >= 0) & (local < rows)
+    x = F.embedding(local.clamp(0, rows - 1), w) * mine[..., None].to(
+        w.dtype)
+    return reduce_from_tp(x, tp)
 
 
 def LMTiny(**kw) -> TransformerLM:

@@ -129,16 +129,24 @@ def apply_fsdp(model: nn.Module, data_mesh, specs: dict,
     return sync_grads
 
 
+def sum_over(tensors, group, mean: bool = False) -> list:
+    """Each of `tensors` (None skipped) replaced in place by its sum (its
+    mean with `mean`) over `group`, in one all-reduce; returns them."""
+    tensors = [t for t in tensors if t is not None]
+    if not tensors:
+        return tensors
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    tdist.all_reduce(flat, op=tdist.ReduceOp.SUM, group=group)
+    if mean:
+        flat /= tdist.get_world_size(group)
+    off = 0
+    for t in tensors:
+        t.copy_(flat[off:off + t.numel()].view_as(t))
+        off += t.numel()
+    return tensors
+
+
 def _mean_over(grads, group) -> None:
     """Each of `grads` (None skipped) replaced in place by its mean over
     `group`, in one all-reduce."""
-    grads = [g for g in grads if g is not None]
-    if not grads:
-        return
-    flat = torch.cat([g.reshape(-1) for g in grads])
-    tdist.all_reduce(flat, op=tdist.ReduceOp.SUM, group=group)
-    flat /= tdist.get_world_size(group)
-    off = 0
-    for g in grads:
-        g.copy_(flat[off:off + g.numel()].view_as(g))
-        off += g.numel()
+    sum_over(grads, group, mean=True)

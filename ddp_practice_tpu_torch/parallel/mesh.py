@@ -29,6 +29,15 @@ output, summed over the group (ops/moe.py). The expert ranks are not
 replicas: a replicated leaf's grad is exact on each of them and an
 expert leaf's is its own, so grads are averaged over data x seq only.
 
+The pipe axis cuts a pipelined model's stacked blocks into stages
+(`PipeGroup`: the group, this rank's stage and the stage count, set on
+the model as `pipe` by `shard_state`; parallel/pipeline.py runs the
+schedules over it). The pipe ranks of one data replica read the same
+rows (`batch_shard`: data coordinate only). They are not replicas: a
+stage's block grads are its own, and the embed and head leaves, whole on
+every stage, end with equal grads on every one (the schedules make them
+so), so grads are averaged over data x seq only, as without pipe.
+
 `shard_state` puts each parameter in the layout the rules give it
 (parallel/sharding_rules.py): the tensor cut is taken here, leaving
 each rank plain local tensors and each attention, MLP and LM its
@@ -75,6 +84,7 @@ from ddp_practice_tpu_torch.parallel.tensor import TensorGroup
 DATA = MeshConfig.AXIS_DATA
 SEQ = MeshConfig.AXIS_SEQ
 TENSOR = MeshConfig.AXIS_TENSOR
+PIPE = MeshConfig.AXIS_PIPE
 EXPERT = MeshConfig.AXIS_EXPERT
 
 
@@ -110,7 +120,8 @@ def group(mesh, axis: str):
 
 def batch_shard(mesh) -> ShardSpec:
     """This rank's slice of every global batch: its data coordinate of
-    the data degree."""
+    the data degree (the seq, tensor, pipe and expert ranks of one data
+    replica read the same rows)."""
     c, n = coords(mesh)[DATA]
     return ShardSpec(c, n)
 
@@ -118,6 +129,29 @@ def batch_shard(mesh) -> ShardSpec:
 def tensor_group(mesh) -> Optional[TensorGroup]:
     c, n = coords(mesh)[TENSOR]
     return None if n == 1 else TensorGroup(group(mesh, TENSOR), n, c)
+
+
+@dataclasses.dataclass(frozen=True)
+class PipeGroup:
+    """This rank's place on the pipe axis: the process group, the stage
+    count and this rank's stage. The hops (parallel/pipeline.py) send to
+    stage + 1 and back to stage - 1 round the group's ring."""
+    group: object
+    size: int
+    rank: int
+
+    @property
+    def first(self) -> bool:
+        return self.rank == 0
+
+    @property
+    def last(self) -> bool:
+        return self.rank == self.size - 1
+
+
+def pipe_group(mesh) -> Optional[PipeGroup]:
+    c, n = coords(mesh)[PIPE]
+    return None if n == 1 else PipeGroup(group(mesh, PIPE), n, c)
 
 
 def check_experts(num_experts: int, ep: int) -> None:
@@ -277,9 +311,15 @@ def shard_state(model: nn.Module, mesh, rules: Optional[Callable],
     this rank's tensor and expert region, the attention layers left with
     their local heads and every tensor-parallel layer with the
     TensorGroup, every routed MLP with the ExpertGroup; under a seq axis
-    every layer with an `sp` attribute gets the SeqGroup. Returns the
-    Sharding (also `model.sharding`)."""
+    every layer with an `sp` attribute gets the SeqGroup, under a pipe
+    axis the pipelined model its PipeGroup (each rank keeps its stage's
+    blocks). Returns the Sharding (also `model.sharding`)."""
     from ddp_practice_tpu_torch.models.lm import TransformerLM
+    from ddp_practice_tpu_torch.models.pipeline_lm import (
+        LMEmbed,
+        LMHead,
+        PipelinedLM,
+    )
     from ddp_practice_tpu_torch.models.vit import (
         EncoderBlock,
         MlpBlock,
@@ -297,6 +337,9 @@ def shard_state(model: nn.Module, mesh, rules: Optional[Callable],
     sp = seq_group(mesh)
     if sp is not None:
         attach_seq(model, sp, model_name)
+    pp = pipe_group(mesh)
+    if pp is not None:
+        attach_pipe(model, pp, model_name)
     if tp is not None:
         check_heads(model_name, model, tp.size)
         for mod in model.modules():
@@ -308,9 +351,11 @@ def shard_state(model: nn.Module, mesh, rules: Optional[Callable],
             if isinstance(mod, SelfAttention):
                 mod.tp = tp
                 mod.num_heads //= tp.size
-            elif isinstance(mod, (MlpBlock, TransformerLM)):
+            elif isinstance(mod, (MlpBlock, TransformerLM, LMEmbed,
+                                  LMHead)):
                 mod.tp = tp
-        if isinstance(model, TransformerLM) and model.vocab_size % tp.size:
+        if (isinstance(model, (TransformerLM, PipelinedLM))
+                and model.vocab_size % tp.size):
             raise ValueError(
                 f"vocabulary {model.vocab_size} does not split over "
                 f"--tensor {tp.size} (the embedding and head shard it)")
@@ -320,7 +365,7 @@ def shard_state(model: nn.Module, mesh, rules: Optional[Callable],
             if isinstance(mod, MoEMlp):
                 check_experts(mod.num_experts, ep.size)
                 mod.ep = ep
-    cut = {a: where[a] for a in (TENSOR, EXPERT) if where[a][1] > 1}
+    cut = {a: where[a] for a in (TENSOR, PIPE, EXPERT) if where[a][1] > 1}
     params = dict(model.named_parameters())
     for name, spec in specs.items():
         if set(cut) & set(axes_of(spec)):
@@ -363,6 +408,24 @@ def attach_seq(model: nn.Module, sp: SeqGroup, model_name: str = "") -> None:
             f"seq_axis: it cannot run under seq={sp.size}")
     for m in layers:
         m.sp = sp
+
+
+def attach_pipe(model: nn.Module, pp: PipeGroup,
+                model_name: str = "") -> None:
+    """Give a pipelined model (a `pipe` attribute: models/pipeline_lm.py,
+    models/pipeline_vit.py) the pipe group; it must have been built for
+    as many stages. Any other model raises, as the reference's trainer
+    does for a family without stages."""
+    if not hasattr(model, "pipe"):
+        raise ValueError(
+            f"pipe={pp.size}: {model_name or type(model).__name__} has no "
+            "pipeline stages (the pipelined families are lm_pipe and "
+            "vit_tiny_pipe)")
+    if model.num_stages != pp.size:
+        raise ValueError(
+            f"{model_name or type(model).__name__} was built for "
+            f"num_stages={model.num_stages}; the pipe axis has {pp.size}")
+    model.pipe = pp
 
 
 def local_tensor(t: torch.Tensor) -> torch.Tensor:
@@ -410,20 +473,30 @@ def full_parameters(model: nn.Module) -> Dict[str, torch.Tensor]:
 def parallelize(model: nn.Module, mesh, *, model_name: str, fsdp: bool,
                 min_leaf_size: int = 1024):
     """The reference's layout of `model` on `mesh`, as the train loop
-    runs it: the tensor and expert rules of `model_name` (with FSDP's
-    data cut when `fsdp`) laid out by `shard_state` when the tensor, seq
-    or expert axis or FSDP's data axis has more than one rank, FSDP2 over
+    runs it: the tensor, pipe and expert rules of `model_name` (with
+    FSDP's data cut when `fsdp`) laid out by `shard_state` when the
+    tensor, seq, pipe or expert axis or FSDP's data axis has more than
+    one rank, FSDP2 over
     the data ranks when a leaf is cut over them (its grads then averaged
     over the seq ranks too), else DDP over the data x seq ranks when
     there are several. Returns (forward, after_backward): what runs the
     model, and the hook a train step calls after each backward (None but
-    under FSDP). The tensor and expert groups' grads need no
-    synchronisation: a replicated leaf's is exact on every rank of them,
-    an expert leaf's is the rank's own."""
+    under FSDP and the explicit pipeline schedules). The tensor, pipe and
+    expert groups' grads need no synchronisation: a replicated leaf's is
+    exact on every rank of them, a cut leaf's is the rank's own.
+
+    A pipelined model under the 1F1B or interleaved schedule runs many
+    backwards a step inside `loss_and_grad` (parallel/pipeline_1f1b.py),
+    not through a wrapper's forward: it gets no DDP, and its hook
+    averages every grad over data x seq once, after the schedule."""
     c = coords(mesh)
     dp, sp, tp, ep = c[DATA][1], c[SEQ][1], c[TENSOR][1], c[EXPERT][1]
+    pp = c[PIPE][1]
+    if fsdp and pp > 1:
+        raise NotImplementedError(
+            f"FSDP under pipe={pp} is not ported yet (ROADMAP A8e)")
     forward, after_backward = model, None
-    if tp > 1 or sp > 1 or ep > 1 or (fsdp and dp > 1):
+    if tp > 1 or sp > 1 or ep > 1 or pp > 1 or (fsdp and dp > 1):
         rules = param_sharding_rules(model_name)
         if fsdp:
             rules = fsdp_rules(dp, rules, min_leaf_size=min_leaf_size)
@@ -432,6 +505,17 @@ def parallelize(model: nn.Module, mesh, *, model_name: str, fsdp: bool,
             after_backward = apply_fsdp(model, mesh[DATA], sharding.specs,
                                         sharding.groups[DATA],
                                         sharding.groups[SEQ])
+    if dp * sp > 1 and getattr(model, "schedule", "gpipe") != "gpipe":
+        from ddp_practice_tpu_torch.parallel.fsdp import sum_over
+
+        replicas = replica_group(mesh)
+        params = [p for p in model.parameters() if p.requires_grad]
+
+        @torch.no_grad()
+        def mean_grads() -> None:
+            sum_over([p.grad for p in params], replicas, mean=True)
+
+        return model, mean_grads
     if dp * sp > 1 and after_backward is None:
         from torch.nn.parallel import DistributedDataParallel
 

@@ -21,8 +21,19 @@ its vocabulary rows and `lm_head` its vocabulary outputs; `pos_embed`,
 LayerNorms and the row-parallel biases are replicated. MoE leaves: the
 stacked `expert_*` tensors shard their expert dim over `expert` and
 nothing over `tensor` (a rank holds its experts whole), the router is
-replicated. The conv families have no rules (replicated). The pipelined
-families are refused with the models (ROADMAP A8d).
+replicated. The conv families have no rules (replicated).
+
+The pipelined families (models/pipeline_lm.py, models/pipeline_vit.py)
+hold their blocks stacked: one leaf per block leaf with a leading depth
+dim, as the reference's vmapped init. That dim's Layout is the three
+sub-dims (V, P, L) of logical depth (virtual chunks, stages, blocks a
+stage chunk; V = 1 but under the interleaved schedule) and its Flax dim
+is recorded at the P sub-dim (`Layout.stacked`), so the reference's
+`pipe` on the depth dim cuts the stages: rank i holds blocks
+[i L, (i + 1) L) of every chunk v, which is its contiguous stage at
+V = 1 and its chunks v P + i under interleaving. The inner dims take
+the plain ViT Megatron spec; embed and head take the dense rules (the
+LM's vocabulary cut, the ViT's nothing).
 """
 
 from __future__ import annotations
@@ -37,6 +48,7 @@ from ddp_practice_tpu_torch.config import MeshConfig
 
 T = MeshConfig.AXIS_TENSOR
 E = MeshConfig.AXIS_EXPERT
+PIPE = MeshConfig.AXIS_PIPE
 
 # per torch dim, per merged sub-dim: a mesh axis name or None
 Spec = Tuple[Tuple[Optional[str], ...], ...]
@@ -46,9 +58,12 @@ Spec = Tuple[Tuple[Optional[str], ...], ...]
 class Layout:
     """A port leaf against its Flax leaf: `dims[t]` are the Flax dim
     sizes merged into torch dim t (outer to inner) and `ref_dims[i]` is
-    (t, j), where Flax dim i sits."""
+    (t, j), where Flax dim i sits. A `stacked` leaf's torch dim 0 is the
+    depth stack (V, P, L), Flax dim 0 their product, recorded at the
+    stage sub-dim (0, 1)."""
     dims: Tuple[Tuple[int, ...], ...]
     ref_dims: Tuple[Tuple[int, int], ...]
+    stacked: bool = False
 
     @property
     def shape(self) -> tuple:
@@ -56,7 +71,9 @@ class Layout:
 
     @property
     def ref_shape(self) -> tuple:
-        return tuple(self.dims[t][j] for t, j in self.ref_dims)
+        return tuple(math.prod(self.dims[0]) if self.stacked and i == 0
+                     else self.dims[t][j]
+                     for i, (t, j) in enumerate(self.ref_dims))
 
     def unsharded(self) -> Spec:
         return tuple((None,) * len(d) for d in self.dims)
@@ -87,36 +104,47 @@ def _conv(shape) -> Layout:
                                                (0, 0)))
 
 
+def _stack(inner: Layout, stack: tuple) -> Layout:
+    """A block leaf's Layout under the depth stack (V, P, L)."""
+    return Layout((tuple(stack),) + inner.dims,
+                  ((0, 1),) + tuple((t + 1, j) for t, j in inner.ref_dims),
+                  stacked=True)
+
+
 def layouts(model: nn.Module) -> Dict[str, Layout]:
     """Every parameter's Layout, by name (the model as built: whole
-    leaves)."""
+    leaves). A pipelined model's `block_stack` (V, P, L) stacks the
+    leaves under `blocks.`."""
     from ddp_practice_tpu_torch.models.vit import SelfAttention
 
+    stack = getattr(model, "block_stack", None)
     out = {}
     for mname, mod in model.named_modules():
         for pname, p in mod.named_parameters(recurse=False):
             name = f"{mname}.{pname}" if mname else pname
-            shape = tuple(p.shape)
+            stacked = stack is not None and name.startswith("blocks.")
+            shape = tuple(p.shape)[1:] if stacked else tuple(p.shape)
             parent = mname.rsplit(".", 1)
             owner = (model.get_submodule(parent[0])
                      if len(parent) == 2 else None)
             if isinstance(owner, SelfAttention) and parent[1] == "qkv":
                 h, hd = owner.num_heads, owner.head_dim
-                out[name] = (Layout(((3, h, hd), (shape[1],)),
-                                    ((1, 0), (0, 0), (0, 1), (0, 2)))
-                             if pname == "weight" else
-                             Layout(((3, h, hd),), ((0, 0), (0, 1), (0, 2))))
+                lay = (Layout(((3, h, hd), (shape[1],)),
+                              ((1, 0), (0, 0), (0, 1), (0, 2)))
+                       if pname == "weight" else
+                       Layout(((3, h, hd),), ((0, 0), (0, 1), (0, 2))))
             elif (isinstance(owner, SelfAttention) and parent[1] == "out"
                   and pname == "weight"):
                 h, hd = owner.num_heads, owner.head_dim
-                out[name] = Layout(((shape[0],), (h, hd)),
-                                   ((1, 0), (1, 1), (0, 0)))
+                lay = Layout(((shape[0],), (h, hd)),
+                             ((1, 0), (1, 1), (0, 0)))
             elif isinstance(mod, nn.Linear) and pname == "weight":
-                out[name] = _transposed(shape)
+                lay = _transposed(shape)
             elif isinstance(mod, nn.Conv2d) and pname == "weight":
-                out[name] = _conv(shape)
+                lay = _conv(shape)
             else:
-                out[name] = _plain(shape)
+                lay = _plain(shape)
+            out[name] = _stack(lay, stack) if stacked else lay
     return out
 
 
@@ -165,21 +193,35 @@ def _lm_rule(name: str, layout: Layout) -> Optional[Spec]:
     return _vit_rule(name, layout)
 
 
-def _pipelined(name: str, layout: Layout):
-    raise NotImplementedError("the pipelined families are not ported yet "
-                              "(ROADMAP A8d)")
+def _vit_pipe_rule(name: str, layout: Layout) -> Optional[Spec]:
+    """The pipelined ViT: a stacked block leaf's stages over `pipe`, its
+    inner dims by the ViT's Megatron rule; embed and head replicated."""
+    if not name.startswith("blocks."):
+        return None
+    inner = _vit_rule(name, layout) or tuple(
+        (None,) * len(d) for d in layout.dims[1:])
+    return ((None, PIPE, None),) + inner
+
+
+def _lm_pipe_rule(name: str, layout: Layout) -> Optional[Spec]:
+    """The pipelined LM: the stacked blocks as the pipelined ViT's; the
+    embed and head leaves (`embed.tok_embed.weight`, `head.lm_head.weight`
+    ...) by the dense LM's rule on their own names."""
+    if name.startswith("blocks."):
+        return _vit_pipe_rule(name, layout)
+    return _lm_rule(name.split(".", 1)[1], layout)
 
 
 _RULES: dict = {
     "vit": _vit_rule,
     "vit_tiny": _vit_rule,
     "vit_base": _vit_rule,
-    "vit_tiny_pipe": _pipelined,
+    "vit_tiny_pipe": _vit_pipe_rule,
     "vit_tiny_moe": _moe_rule(_vit_rule),
     "lm_tiny": _lm_rule,
     "lm_base": _lm_rule,
     "lm_moe": _moe_rule(_lm_rule),
-    "lm_pipe": _pipelined,
+    "lm_pipe": _lm_pipe_rule,
 }
 
 

@@ -49,11 +49,19 @@ chunk of the sequences, attention crossing the chunks by ring or
 Ulysses), expert parallelism over `mesh.expert` (the routed MLPs' experts
 cut over its ranks, which read the same rows: ops/moe.py; `num_experts`
 defaults to the reference's 8 rounded up to a multiple of the axis and
-must divide over it, the reference's error), FSDP2 over the data ranks
-with `fsdp` (and the grads averaged over the seq ranks), else
-DistributedDataParallel over the data x seq ranks; eval sums are
-all-reduced over the data ranks. The tensor and expert groups' grads are
-exact without a collective. A sharded model trains one step a
+must divide over it, the reference's error), pipeline parallelism over
+`mesh.pipe` for the pipelined families (lm_pipe, vit_tiny_pipe: the
+stage count from the mesh, `num_microbatches`, and for the LM
+`pipe_schedule` gpipe | 1f1b | interleaved with `num_virtual` chunks;
+parallel/pipeline.py, parallel/pipeline_1f1b.py; the reference's errors
+for a schedule without --pipe, a non-GPipe schedule off the LM, an LM
+other than lm_pipe under --pipe, and --dropout or --tied for the
+pipelined LM), FSDP2 over the data ranks with `fsdp` (not under pipe:
+ROADMAP A8e) (and the grads averaged over the seq ranks), else
+DistributedDataParallel over the data x seq ranks (under the explicit
+pipeline schedules one average of the grads after the schedule instead);
+eval sums are all-reduced over the data ranks. The tensor, pipe and
+expert groups' grads are exact without a collective. A sharded model trains one step a
 call from host batches: its resident and captured steps raise (ROADMAP
 A8e), and
 `data_placement="auto"` takes the host path. MFU and the per-chip rates
@@ -133,7 +141,6 @@ from ddp_practice_tpu_torch.data.lm_corpus import (
     synthetic_token_corpus,
 )
 from ddp_practice_tpu_torch.models import accepts_fused, create_model
-from ddp_practice_tpu_torch.models import _NOT_PORTED as _MODELS_NOT_PORTED
 from ddp_practice_tpu_torch.parallel import dist
 from ddp_practice_tpu_torch.parallel.mesh import (
     axis_size,
@@ -199,17 +206,11 @@ class Trainer:
         self.dp = axis_size(self.mesh, MeshConfig.AXIS_DATA)
         self.sp = axis_size(self.mesh, MeshConfig.AXIS_SEQ)
         self.tp = axis_size(self.mesh, MeshConfig.AXIS_TENSOR)
+        self.pp = axis_size(self.mesh, MeshConfig.AXIS_PIPE)
         self.ep = axis_size(self.mesh, MeshConfig.AXIS_EXPERT)
         self.global_batch = config.batch_size * self.dp
         self.task = "lm" if config.model.lower().startswith("lm") else "image"
         name = config.model.lower()
-        if name in _MODELS_NOT_PORTED:
-            raise NotImplementedError(
-                f"--model {config.model}: not ported yet (ROADMAP "
-                f"{_MODELS_NOT_PORTED[name]}); the port trains the "
-                f"ConvNet, ResNet-18/50, the decoder LMs (lm_tiny, "
-                f"lm_base, lm_moe) and the image transformers (vit_tiny, "
-                f"vit_base, vit_tiny_moe)")
         if config.augment and self.task == "lm":
             raise ValueError(
                 "--augment is image-input augmentation (random crop + "
@@ -263,6 +264,11 @@ class Trainer:
             if not 0.0 < config.dropout < 1.0:
                 raise ValueError(
                     f"--dropout must be in [0, 1), got {config.dropout}")
+            if name in ("lm_pipe", "vit_tiny_pipe"):
+                raise ValueError(
+                    "--dropout is wired for the dense transformer families "
+                    f"(vit_tiny, vit_base, lm_tiny/lm_base), not "
+                    f"{config.model!r}")
             model_kwargs["dropout_rate"] = config.dropout
         if self.sp > 1:
             if name == "convnet" or name.startswith("resnet"):
@@ -307,18 +313,23 @@ class Trainer:
             if accepts_fused(config.model):
                 model_kwargs["fused"] = False
         # "auto": the models default to fused="auto" and resolve per block
+        self._pipeline_kwargs(name, model_kwargs)
         if config.remat:
             model_kwargs["remat"] = True
         if config.pos_emb != "learned":
             model_kwargs["pos_emb"] = config.pos_emb
         if config.tied_embeddings:
+            if name == "lm_pipe":
+                raise ValueError(
+                    "--tied is not wired for the pipelined LM — use "
+                    "lm_tiny/lm_base for weight tying")
             model_kwargs["tied_embeddings"] = True
         self.model = create_model(config.model,
                                   policy=config.precision_policy(),
                                   device=self.device, seed=config.seed,
                                   **model_kwargs)
         self.sharded = (self.tp > 1 or self.sp > 1 or self.ep > 1
-                        or (config.fsdp and self.dp > 1))
+                        or self.pp > 1 or (config.fsdp and self.dp > 1))
         self.forward, self.after_backward = parallelize(
             self.model, self.mesh, model_name=config.model,
             fsdp=config.fsdp)
@@ -347,6 +358,39 @@ class Trainer:
                 os.makedirs(d, exist_ok=True)
             self._metrics_fh = open(config.metrics_file, "a")
 
+    def _pipeline_kwargs(self, name: str, model_kwargs: dict) -> None:
+        """The reference's pipeline checks (a schedule needs a pipe axis
+        and is the LM's; an LM pipelines as lm_pipe, an image model as
+        vit_tiny_pipe) and the pipelined model's stage arguments: the
+        stage count from the mesh, the microbatches and the schedule."""
+        cfg = self.config
+        if cfg.pipe_schedule != "gpipe":
+            if self.pp <= 1:
+                raise ValueError(
+                    f"--pipe_schedule {cfg.pipe_schedule} needs a pipeline "
+                    "mesh axis (--pipe > 1)")
+            if not name.startswith("lm_"):
+                raise ValueError(
+                    f"--pipe_schedule {cfg.pipe_schedule} is an LM pipeline "
+                    f"feature (models/pipeline_lm.py); {cfg.model} "
+                    "schedules with GPipe only")
+        if self.pp <= 1:
+            return
+        if self.task == "lm" and name != "lm_pipe":
+            raise ValueError(
+                "pipeline parallelism for language models uses the "
+                "stage-sharded variant: --model lm_pipe")
+        if name not in ("lm_pipe", "vit_tiny_pipe"):
+            raise ValueError(
+                f"--pipe {self.pp}: {cfg.model!r} has no pipeline stages "
+                "(the pipelined families are lm_pipe and vit_tiny_pipe)")
+        model_kwargs.update(num_stages=self.pp,
+                            num_microbatches=cfg.num_microbatches)
+        if cfg.pipe_schedule != "gpipe":
+            model_kwargs["schedule"] = cfg.pipe_schedule
+        if cfg.pipe_schedule == "interleaved":
+            model_kwargs["num_virtual"] = cfg.num_virtual
+
     # ------------------------------------------------------------------ #
 
     def _build_steps(self) -> None:
@@ -364,7 +408,8 @@ class Trainer:
             raise NotImplementedError(
                 f"steps_per_call={k}, data_placement="
                 f"{cfg.data_placement!r} under seq={self.sp}, tensor="
-                f"{self.tp}, expert={self.ep}, fsdp={cfg.fsdp}: the "
+                f"{self.tp}, pipe={self.pp}, expert={self.ep}, fsdp="
+                f"{cfg.fsdp}: the "
                 "resident and captured "
                 "steps of a sharded "
                 "model are not ported yet (ROADMAP A8e); run one step a "
@@ -806,8 +851,8 @@ class Trainer:
             per_sample = flops.lm_train_flops_per_token(
                 hidden_dim=m.hidden_dim, depth=m.depth, mlp_dim=m.mlp_dim,
                 vocab_size=m.vocab_size, seq_len=self.config.seq_len,
-                moe_every=m.moe_every,
-                moe_top_k=m.moe_top_k) * self.config.seq_len
+                moe_every=getattr(m, "moe_every", 0),
+                moe_top_k=getattr(m, "moe_top_k", 2)) * self.config.seq_len
         else:
             dims = {} if not name.startswith("vit") else dict(
                 patch_size=m.patch_size, hidden_dim=m.hidden_dim,

@@ -54,6 +54,16 @@ remainder eager), on the CPU and under several processes eagerly, row
 by row. Train steps return the last step's metrics, eval steps the
 summed weighted (correct, total), or (correct, total, nll) for the LM.
 
+The pipelined LM under the 1F1B or interleaved schedule (`schedule` of
+models/pipeline_lm.py) runs its own forward-backward interleaving:
+`make_lm_train_step` calls its `loss_and_grad`, which leaves the grads of
+the mean loss in `.grad` and returns the loss and the accuracy counts,
+as the reference's step dispatches to it. Under GPipe, and for the
+pipelined ViT, the step is the plain one: the model's forward is the
+GPipe schedule and autograd its backward. Either way every pipe rank
+holds the last stage's loss and counts, so the metrics' mean over the
+ranks is the replicas' mean.
+
 MoE models (lm_moe, vit_tiny_moe): both training steps add the summed aux
 loss of every routed layer to the objective (`_sown_aux_loss`; the loss
 metric includes it, as the reference's), report `moe_load_max`,
@@ -170,6 +180,7 @@ def make_lm_train_step(model: nn.Module, *, label_smoothing: float = 0.0,
     groups = norm_groups(model)
     moes = moe_layers(model)
     sp = getattr(model, "sp", None)
+    scheduled = getattr(model, "schedule", "gpipe") != "gpipe"
 
     def train_step(state: TrainState, batch: dict):
         tokens = batch["tokens"]
@@ -178,17 +189,24 @@ def make_lm_train_step(model: nn.Module, *, label_smoothing: float = 0.0,
         inputs, targets, weight = _seq_chunk(sp, inputs, targets, weight)
         for p in params:
             p.grad = None
-        logits = net(inputs, train=True,
-                     dropout_key=_dropout_key(model, seed, state))
-        if sp is not None and weight is not None:
-            loss = _seq_weighted_loss(sp, logits, targets, weight,
-                                      label_smoothing)
+        counts = None
+        if scheduled:
+            loss, counts = model.loss_and_grad(
+                inputs, targets, weight=weight,
+                label_smoothing=label_smoothing, with_accuracy=with_accuracy)
+            moe_metrics = {}
         else:
-            loss = cross_entropy(logits, targets, weight=weight,
-                                 label_smoothing=label_smoothing)
-        loss = loss + _sown_aux_loss(moes)
-        moe_metrics = _moe_metrics(moes)
-        loss.backward()
+            logits = net(inputs, train=True,
+                         dropout_key=_dropout_key(model, seed, state))
+            if sp is not None and weight is not None:
+                loss = _seq_weighted_loss(sp, logits, targets, weight,
+                                          label_smoothing)
+            else:
+                loss = cross_entropy(logits, targets, weight=weight,
+                                     label_smoothing=label_smoothing)
+            loss = loss + _sown_aux_loss(moes)
+            moe_metrics = _moe_metrics(moes)
+            loss.backward()
         if after_backward is not None:
             after_backward()
         _commit_router_bias(moes)
@@ -197,7 +215,9 @@ def make_lm_train_step(model: nn.Module, *, label_smoothing: float = 0.0,
         state.advance()
         with torch.no_grad():
             sums = [loss.detach().float()]
-            if with_accuracy:
+            if counts is not None:
+                sums += [counts["correct"], counts["total"]]
+            elif with_accuracy:
                 sums += list(accuracy_counts(logits, targets, weight=weight))
             sums = torch.stack(sums)
             if dist.process_count() > 1:

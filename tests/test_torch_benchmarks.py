@@ -14,7 +14,7 @@ shapes:
   depends on the machine's load: it is left out of the key comparison.)
 - the bench's own contract: two fenced windows give `window_spread_pct`,
   one window none; the decode bench refuses a prefill-dominated
-  configuration; `bench_pipeline` names ROADMAP A8d; `bench_serve`
+  configuration; `bench_pipeline` runs the reference's sweep; `bench_serve`
   delegates to serve/bench.py, which serves lm_moe.
 - the suite entry: one JSON line per entry (an entry that fails gives
   its traceback and does not end the suite), the compact last line, the
@@ -178,9 +178,28 @@ def test_decode_refuses_a_prefill_dominated_configuration():
                              device="cpu")
 
 
+# ddp_practice_tpu/benchmarks.py bench_pipeline's record keys
+PIPELINE_KEYS = {"schedule", "num_stages", "microbatches", "global_batch",
+                 "seq_len", "ms_per_step", "temp_bytes", "loss"}
+
+
 def test_bench_pipeline_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="A8d"):
-        port.bench_pipeline(num_stages=4)
+    """ROADMAP A8d's bench runs: the reference's sweep (GPipe, then 1F1B,
+    over M) with its record keys, on a small lm_pipe at pipe 2 as
+    threads; the two schedules train the same model to the same loss,
+    and the memory column is not measured on the CPU."""
+    rows = port.bench_pipeline(
+        num_stages=2, microbatch_counts=(2, 4), hidden_dim=32, depth=2,
+        num_heads=4, mlp_dim=64, vocab_size=32, seq_len=16, mb_rows=2,
+        steps=1, warmup=1, precision="fp32", device="cpu")
+    assert [(r["schedule"], r["microbatches"]) for r in rows] == [
+        ("gpipe", 2), ("gpipe", 4), ("1f1b", 2), ("1f1b", 4)]
+    for r in rows:
+        assert PIPELINE_KEYS <= set(r) <= PIPELINE_KEYS | {"efficiency_pct"}
+        assert r["temp_bytes"] is None
+        assert r["global_batch"] == 2 * r["microbatches"]
+    for g, f in zip(rows[:2], rows[2:]):
+        assert abs(g["loss"] - f["loss"]) <= 1e-3
 
 
 @pytest.mark.parametrize("bench", ["serve", "shared_prefix", "spec"])

@@ -22,7 +22,10 @@ the merge's lse cotangent, the packed and "heads" routes after the head
 scatter, lm_base steps at seq 2 against one rank: `-k sequence`); the
 expert axis (J and K on a rank's local group sizes, an idle rank's
 included, and a sorted MoE layer at expert 2 against one rank: `-k
-expert`);
+expert`); the pipeline schedules (E/F/G on each stage's microbatches
+under GPipe, 1F1B and interleaved against the same schedule on the plain
+versions, with the launches each schedule implies, and lm_pipe steps at
+pipe 2 x tensor 2 against one rank: `-k pipe`);
 the split over the cache at forced plans and at ranges the old kernel
 refused (L = 65536), its arrival counters across calls, and kernel C
 with fp32 queries over a bf16 pool at S > 1 against the split schedule's
@@ -83,6 +86,8 @@ The fused layer's kernel I runs its weight grads through K and stages
 its weights in shared memory; a width above 256 takes the row passes'
 general path.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -1494,14 +1499,15 @@ SHARDED_LEGS = {"tensor2": (dict(mesh=dict(tensor=2)), 2),
 
 
 def _sharded_trainer(world, optimizer, **kw):
-    """lm_base, fp32, flash, seq 512, global batch 4."""
+    """lm_base (or `model`), fp32, flash, seq 512, global batch 4."""
     from ddp_practice_tpu_torch.config import MeshConfig
 
     mesh = kw.pop("mesh", None)
     if mesh is not None:
         kw["mesh"] = MeshConfig(**mesh)
-    dp = world // (mesh or {}).get("tensor", 1)
-    return _trainer(model="lm_base", attn_impl="flash", seq_len=512,
+    dp = max(world // math.prod((mesh or {}).values()), 1)
+    kw.setdefault("model", "lm_base")
+    return _trainer(attn_impl="flash", seq_len=512,
                     batch_size=4 // dp, optimizer=optimizer,
                     learning_rate=1e-2 if optimizer == "sgd" else 1e-4,
                     momentum=0.9 if optimizer == "sgd" else 0.0,
@@ -1806,3 +1812,111 @@ def test_expert_sorted_layer_on_threads_equals_one_rank(card, dtype):
         mine = [k for t, k in writes if t == f"rank{r}"]
         assert {k: mine.count(k) for k in ("gmm", "gmm_trhs", "tgmm")} == {
             "gmm": 2, "gmm_trhs": 2, "tgmm": 2}, mine
+
+
+PIPE_KW = dict(vocab_size=256, max_len=512, hidden_dim=768, depth=4,
+               num_heads=12, mlp_dim=3072, attn_impl="flash")
+# (schedule, pipe, microbatches): each schedule at a small depth
+PIPE_LEGS = [("gpipe", 2, 2), ("1f1b", 2, 2), ("interleaved", 2, 2)]
+
+
+def _pipe_launches(schedule, P, M, rank, depth=4):
+    """E and G+F launches of one lm_pipe step on pipe rank `rank` (remat
+    on, packed at 12 heads): GPipe runs each stage's L = depth / P
+    blocks a microbatch and recomputes them once in the backward; 1F1B
+    runs them in its F tick (not the last stage), again in its B tick
+    and once more in the block's remat; interleaved runs every chunk's F
+    tick, B tick and remat."""
+    L = depth // P
+    if schedule == "gpipe":
+        fwd = 2 * L * M
+    elif schedule == "1f1b":
+        fwd = (2 if rank == P - 1 else 3) * L * M
+    else:
+        fwd = 3 * L * M
+    return fwd, L * M
+
+
+@pytest.mark.parametrize("schedule,P,M", PIPE_LEGS,
+                         ids=[leg[0] for leg in PIPE_LEGS])
+def test_pipe_schedules_kernels_match_plain(card, schedule, P, M):
+    """lm_pipe at lm_base's widths, depth 4, fp32, s 512, batch 4, pipe 2
+    as threads on this card: the loss and every grad of one step with
+    E/F/G (forced "kernel") against the same schedule on their plain
+    versions (forced "plain"): loss rtol 1e-5, grads rtol 1e-3 / atol
+    1e-5; the kernels launch as `_pipe_launches` counts, per rank."""
+    from ddp_practice_tpu_torch.config import MeshConfig
+    from ddp_practice_tpu_torch.models import create_model
+    from ddp_practice_tpu_torch.ops.losses import cross_entropy
+    from ddp_practice_tpu_torch.parallel.mesh import (
+        build_mesh,
+        full_parameters,
+        shard_state,
+    )
+    from ddp_practice_tpu_torch.parallel.sharding_rules import (
+        param_sharding_rules,
+    )
+    from ddp_practice_tpu_torch.parallel.threads import run_ranks
+
+    g = torch.Generator().manual_seed(31)
+    tokens = torch.randint(0, 256, (4, 513), generator=g).cuda()
+
+    def rank(r):
+        model = create_model("lm_pipe", device="cuda", seed=31,
+                             num_stages=P, num_microbatches=M,
+                             schedule=schedule, **PIPE_KW)
+        shard_state(model, build_mesh(MeshConfig(pipe=P), "cuda"),
+                    param_sharding_rules("lm_pipe"), "lm_pipe")
+        x, y = tokens[:, :-1], tokens[:, 1:]
+        if schedule == "gpipe":
+            loss = cross_entropy(model(x, train=True), y)
+            loss.backward()
+        else:
+            loss, _ = model.loss_and_grad(x, y)
+        for p in model.parameters():
+            p.data = p.grad
+        torch.cuda.synchronize()
+        return float(loss.detach()), full_parameters(model)
+
+    fa.reset_launches()
+    with fa.forced_impl("kernel"):
+        got = run_ranks(rank, P, timeout=300)
+    launches = dict(fa.LAUNCHES)
+    with fa.forced_impl("plain"):
+        want = run_ranks(rank, P, timeout=300)
+    for (loss, grads), (wloss, wgrads) in zip(got, want):
+        np.testing.assert_allclose(loss, wloss, rtol=1e-5)
+        for n, w in wgrads.items():
+            torch.testing.assert_close(grads[n], w, rtol=1e-3, atol=1e-5)
+    fwd = sum(_pipe_launches(schedule, P, M, r)[0] for r in range(P))
+    bwd = sum(_pipe_launches(schedule, P, M, r)[1] for r in range(P))
+    assert launches["flash_fwd_packed"] == fwd
+    assert launches["flash_bwd_packed"] == bwd
+
+
+@pytest.mark.parametrize("schedule", ["gpipe", "1f1b"])
+def test_pipe_tensor_steps_equal_one_rank(card, schedule):
+    """lm_pipe (d 256, 4 heads of 64, depth 4), fp32, flash, seq_len 512,
+    pipe 2 x tensor 2 (the ranks as threads on this card), M 2: two SGD
+    steps against one rank's: loss rtol 2e-4, every parameter rtol 1e-3
+    / atol 1e-5."""
+    from ddp_practice_tpu_torch.parallel.mesh import full_parameters
+    from ddp_practice_tpu_torch.parallel.threads import run_ranks
+
+    kw = dict(model="lm_pipe", num_heads=4)
+    ref = _sharded_trainer(1, "sgd", **kw)
+    want_losses = _sharded_steps(ref)
+    want = {n: p.detach().clone() for n, p in ref.model.named_parameters()}
+    del ref
+
+    def rank(r):
+        t = _sharded_trainer(4, "sgd", mesh=dict(pipe=2, tensor=2),
+                             pipe_schedule=schedule, num_microbatches=2,
+                             **kw)
+        return _sharded_steps(t), full_parameters(t.model)
+
+    res = run_ranks(rank, 4, timeout=300)
+    for losses, _ in res:
+        np.testing.assert_allclose(losses, want_losses, rtol=2e-4)
+    for n, w in want.items():
+        torch.testing.assert_close(res[0][1][n], w, rtol=1e-3, atol=1e-5)

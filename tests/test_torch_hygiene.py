@@ -233,9 +233,12 @@ TRAIN_SLICE = ["data/sharding.py", "data/lm_corpus.py", "data/datasets.py",
                "benchmarks.py", "parallel/mesh.py",
                "parallel/sharding_rules.py", "parallel/fsdp.py",
                "parallel/tensor.py", "parallel/threads.py",
-               "parallel/ring.py", "parallel/ulysses.py"]
+               "parallel/ring.py", "parallel/ulysses.py",
+               "parallel/pipeline.py", "parallel/pipeline_1f1b.py",
+               "parallel/interleave.py", "models/pipeline_lm.py",
+               "models/pipeline_vit.py"]
 STDLIB = ("__future__", "typing", "argparse", "collections", "contextlib",
-          "ctypes", "dataclasses", "fcntl", "gzip", "hashlib", "json",
+          "ctypes", "dataclasses", "fcntl", "gc", "gzip", "hashlib", "json",
           "logging", "math", "os", "pathlib", "pickle", "platform", "re",
           "shutil",
           "socket", "statistics", "struct", "subprocess", "sys", "tarfile",

@@ -350,12 +350,12 @@ def test_mesh_config_semantics():
         MeshConfig(tensor=3).resolve(8)
     with pytest.raises(ValueError, match="!= 8 devices"):
         MeshConfig(data=4, tensor=4).resolve(8)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8d"):
-        MeshConfig(pipe=2)
+    assert MeshConfig(pipe=2).resolve(8) == (4, 1, 1, 2, 1)
+    assert MeshConfig(tensor=2, pipe=2).resolve(8) == (2, 1, 2, 2, 1)
     assert MeshConfig(seq=2, tensor=2).resolve(8) == (2, 2, 2, 1, 1)
     assert MeshConfig(expert=4).resolve(8) == (2, 1, 1, 1, 4)
     assert MeshConfig(seq=2, expert=2).resolve(8) == (2, 2, 1, 1, 2)
-    for axis in ("seq", "expert"):
+    for axis in ("seq", "pipe", "expert"):
         with pytest.raises(ValueError, match=f"{axis}=0"):
             MeshConfig(**{axis: 0})
 

@@ -18,7 +18,12 @@ as threads, tests/_torch_port.py `ranks`), then
 - lm_moe at data 2 x expert 2 with FSDP (its experts cut over expert):
   one process restores the checkpoint whole (router biases included),
   equal to the same steps run on one rank, and a run resumed from it on
-  the same mesh takes the unbroken run's next step.
+  the same mesh takes the unbroken run's next step;
+- lm_pipe at data 2 x pipe 2 under 1F1B (its stacked blocks cut over
+  pipe): the data-0 rank of each stage writes its stage's shard, one
+  process restores the whole state, equal to the same steps run on one
+  rank, and a run resumed on the same mesh takes the unbroken run's
+  next step.
 """
 
 import json
@@ -295,6 +300,70 @@ def test_an_expert_cut_run_resumes_as_unbroken(saved_expert, tmp_path):
         t = Trainer(_config(tmp_path, **EXPERT_GRID))
         ckpt.restore(str(ckdir), t.state)
         assert t.model.blocks[1].moe.ep.size == 2
+        state = (full_parameters(t.model), _momentum(t))
+        return state, _steps(t, 1, skip=2)
+
+    for (got_params, got_momentum), losses in ranks(rank, 4):
+        for name in params:
+            torch.testing.assert_close(got_params[name], params[name],
+                                       rtol=0, atol=0)
+            torch.testing.assert_close(got_momentum[name], momentum[name],
+                                       rtol=0, atol=0)
+        assert losses == third
+
+
+PIPE_GRID = dict(model="lm_pipe", mesh=MeshConfig(pipe=2), batch_size=2,
+                 pipe_schedule="1f1b", num_microbatches=2)
+
+
+@pytest.fixture(scope="module")
+def saved_pipe(tmp_path_factory):
+    """lm_pipe at data 2 x pipe 2 under 1F1B (the stacked blocks cut over
+    pipe, each stage writing its own): the checkpoint of two steps, the
+    state gathered whole and the third step's loss."""
+    ckdir = tmp_path_factory.mktemp("sharded_pipe")
+
+    def rank(r):
+        t = Trainer(_config(ckdir, **PIPE_GRID))
+        _steps(t, 2)
+        t.save()
+        state = (full_parameters(t.model), _momentum(t))
+        return state, _steps(t, 1, skip=2)
+
+    (params, momentum), third = ranks(rank, 4)[0]
+    return ckdir, params, momentum, third
+
+
+def test_a_pipe_cut_checkpoint_restores_whole(saved_pipe, tmp_path):
+    """The data-0 rank of each stage writes its stage's rows of every
+    stacked leaf; one process restores the whole state, which is the
+    same two steps run on one rank (GPipe, no stages)."""
+    ckdir, params, momentum, _ = saved_pipe
+    step_dir = os.path.join(ckdir, "step_2")
+    for p in range(4):
+        with np.load(os.path.join(step_dir, f"shards.{p}.npz")) as z:
+            assert (len(z.files) > 0) == (p < 2), p
+    target = Trainer(_config(tmp_path, model="lm_pipe"))
+    ckpt.restore(str(ckdir), target.state)
+    for name, p in target.model.named_parameters():
+        torch.testing.assert_close(p.detach(), params[name], rtol=0, atol=0)
+    got = _momentum(target)
+    for name in momentum:
+        torch.testing.assert_close(got[name], momentum[name], rtol=0, atol=0)
+    ref = Trainer(_config(tmp_path / "ref", model="lm_pipe"))
+    _steps(ref, 2)
+    for name, p in ref.model.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), params[name].numpy(),
+                                   rtol=1e-5, atol=1e-6, err_msg=name)
+
+
+def test_a_pipe_cut_run_resumes_as_unbroken(saved_pipe, tmp_path):
+    ckdir, params, momentum, third = saved_pipe
+
+    def rank(r):
+        t = Trainer(_config(tmp_path, **PIPE_GRID))
+        ckpt.restore(str(ckdir), t.state)
+        assert t.model.pipe.size == 2
         state = (full_parameters(t.model), _momentum(t))
         return state, _steps(t, 1, skip=2)
 

@@ -122,8 +122,8 @@ def test_cli_trains_lm_moe_on_the_cpu(router, capsys, tmp_path):
 
 @pytest.mark.parametrize("argv,item", [
     (["--model", "lm_tiny", "--max_restarts", "2"], "A8"),
-    (["--model", "lm_tiny", "--pipe", "2"], "A8"),
-    (["--model", "lm_pipe"], "A8"),
+    (["--model", "lm_pipe", "--pipe", "2", "--fsdp"], "A8"),
+    (["--model", "lm_tiny", "--watchdog", "30"], "A8"),
 ])
 def test_unported_paths_name_their_roadmap_item(argv, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
