@@ -332,6 +332,28 @@ later launch in the process.
    legs' launches join the flash rows in the kernels' record; the phase
    prints its wall time.
 
+32. A8e (ROADMAP A8e-1, A8e-2; right after phase 31): elastic, lm_base
+   at full width (bf16, seq 512, b 4, SGD momentum), 2 epochs of 3 steps
+   through `fit` with --max_restarts 1 and a checkpoint each epoch, the
+   first attempt killed after epoch 0's save (tests/elastic_worker.py's
+   sabotage): 2 attempts, resumed at step 3, final parameters equal to an
+   uninterrupted run's bit for bit; watchdog, a resident run with
+   --watchdog 120 and whole-epoch calls capped at the probe interval (4
+   steps), graph replays, probes on CUDA-event rungs, no firing; then a
+   rung held behind torch.cuda._sleep past a 0.5 s timeout, whose probe
+   makes `on_timeout` (a callback) fire once; the sorted MoE path
+   captured, lm_moe (bf16, 8 experts) resident at 4 steps a call, its
+   losses bit-identical to the eager host steps' with J and K in
+   graphs.REPLAYED; sharded chunked steps on ranks as threads (eager by
+   utils/graphs.py's rule), lm_base at tensor 2 and lm_pipe at pipe 2 x
+   data 2 with FSDP under 1F1B (both 4 blocks at lm_base's widths) and
+   vit_tiny at data 2 (DDP; fused "auto" takes the per-op path under
+   several ranks, as the reference's gate does): a call of 4 chunked
+   steps equals 4
+   single steps bit for bit, each rank's launches printed; --devices 1
+   trains, --devices 2 on one card raises. The legs' launches join the
+   flash, fused and grouped-matmul rows.
+
 Launch counts are zeroed just before each phase's run and read just
 after it; a train leg's count is its wrappers' (eager calls) plus its
 graph replays' (utils/graphs.REPLAYED). The kernels' record adds the MoE
@@ -4647,6 +4669,334 @@ def a2_profiles(torch, r18, r50, data_dir):
         shutil.rmtree(data_dir, ignore_errors=True)
 
 
+# the A8e phase (ROADMAP A8e-1, A8e-2): lm_base at full width, bf16,
+# seq 512, for the elastic and watchdog legs; the sharded legs cut lm_base
+# and lm_pipe to 4 blocks (A8E_CUT) at lm_base's widths
+A8E_LM = ["--model", "lm_base", "--attn_impl", "flash", "--precision",
+          "bf16", "--optimizer", "sgd", "--lr", "1e-2", "--momentum", "0.9",
+          "--seq_len", "512", "-b", "4", "--log_every", "0",
+          "--synthetic_size", "200000"]
+A8E_CUT = dict(hidden_dim=768, depth=4, num_heads=12, mlp_dim=3072)
+A8E_MOE = ["--model", "lm_moe", "--precision", "bf16", "--seq_len", "512",
+           "-b", "8", "-e", "1", "--max_steps", "8", "--optimizer",
+           "adamw", "--lr", "1e-3", "--log_every", "0", "--synthetic_size",
+           "200000", "--num_experts", "8"]
+# the sharded legs on threads: (label, model flags, ranks)
+A8E_SHARDED = [
+    ("tensor 2", ["--tensor", "2"], 2),
+    ("pipe 2 x data 2 --fsdp 1f1b", ["--model", "lm_pipe", "--pipe", "2",
+                                     "--fsdp", "--pipe_schedule", "1f1b",
+                                     "--microbatches", "2", "-b", "2"], 4),
+]
+# fused "auto": the per-op path under several ranks (the reference's
+# single-device gate, models/vit.py `_auto_fuse`), so H and I stay out
+A8E_VIT = ["--model", "vit_tiny", "--dataset", "cifar10", "--precision",
+           "bf16", "-b", "64", "--optimizer", "adam", "--lr", "1e-4",
+           "--synthetic_size", "2048", "-e", "1", "--log_every", "0",
+           "--data_dir", "build/no_such_data"]
+
+
+def _params(model) -> dict:
+    return {n: p.detach().clone() for n, p in model.named_parameters()}
+
+
+def elastic_leg(torch, fa) -> dict:
+    """`fit` with --max_restarts 1 and a checkpoint each epoch, its first
+    attempt dying after epoch 0's save (tests/elastic_worker.py's
+    sabotage): the resumed attempt's parameters against an uninterrupted
+    run's, bit for bit."""
+    import tempfile
+
+    from ddp_practice_tpu_torch.cli import build_parser, config_from_args
+    from ddp_practice_tpu_torch.train import loop
+
+    os.makedirs("build", exist_ok=True)
+    ck = tempfile.mkdtemp(dir="build")
+    cfg = config_from_args(build_parser().parse_args(
+        A8E_LM + ["-e", "2", "--max_steps", "3", "--ckpt_dir", ck,
+                  "--max_restarts", "1"])).replace(checkpoint_every_epochs=1)
+    original = loop.Trainer._fit_inner
+    seen = {"attempts": 0}
+
+    def sabotaged(self):
+        seen["attempts"] += 1
+        if seen["attempts"] == 1:
+            self.train_epoch(0)
+            self.save()
+            raise RuntimeError("injected mid-training failure")
+        seen["resumed_at"] = self.state.step
+        out = original(self)
+        seen["params"] = _params(self.model)
+        return out
+
+    _reset_launches(fa)
+    t0 = time.monotonic()
+    loop.Trainer._fit_inner = sabotaged
+    try:
+        summary = loop.fit(cfg)
+    finally:
+        loop.Trainer._fit_inner = original
+        shutil.rmtree(ck, ignore_errors=True)
+    wall = time.monotonic() - t0
+    launches = _launches(fa.LAUNCHES)
+    plain = loop.Trainer(cfg.replace(checkpoint_dir=None, max_restarts=0))
+    want = plain.fit()
+    same = all(torch.equal(seen["params"][n], p.detach())
+               for n, p in plain.model.named_parameters())
+    log(f"a8e[elastic] lm_base bf16 sgd, seq 512, b 4, 2 epochs of 3 steps, "
+        f"--max_restarts 1, a checkpoint each epoch, attempt 1 killed after "
+        f"epoch 0's save: {seen['attempts']} attempts, resumed at step "
+        f"{seen['resumed_at']}, {summary['steps']} steps, perplexity "
+        f"{summary['perplexity']:.4f} (uninterrupted {want['perplexity']:.4f}"
+        f"); final parameters {'equal' if same else 'DIFFER from'} the "
+        f"uninterrupted run's bit for bit; E/F/G launches {launches}; wall "
+        f"{wall:.1f} s [{CARD}]")
+    if not (seen["attempts"] == 2 and seen["resumed_at"] == 3
+            and summary["steps"] == 6 and same):
+        raise AssertionError(f"a8e[elastic]: {seen.get('resumed_at')}, "
+                             f"{summary['steps']}, equal {same}")
+    del plain, seen
+    torch.cuda.empty_cache()
+    return launches
+
+
+def watchdog_leg(torch, fa) -> dict:
+    """A resident lm_base run with the watchdog on (whole-epoch calls
+    capped at the probe interval, graph replays, no firing), then a probe
+    of a rung held behind a spin kernel longer than the timeout: the
+    watchdog's `on_timeout` fires (a callback here, not the default
+    exit)."""
+    from ddp_practice_tpu_torch.cli import build_parser, config_from_args
+    from ddp_practice_tpu_torch.train.elastic import Rung, StepWatchdog
+    from ddp_practice_tpu_torch.train.loop import Trainer
+
+    fired, probes = [], []
+    default, probe = StepWatchdog._default_timeout, StepWatchdog.probe
+    StepWatchdog._default_timeout = staticmethod(fired.append)
+    StepWatchdog.probe = lambda self, v, fetch=None: (
+        probes.append(v), probe(self, v, fetch))
+    _reset_launches(fa)
+    t0 = time.monotonic()
+    try:
+        cfg = config_from_args(build_parser().parse_args(
+            A8E_LM + ["-e", "1", "--max_steps", "8", "--steps_per_call",
+                      "-1", "--watchdog", "120", "--data_placement",
+                      "device"])).replace(watchdog_probe_every_steps=4)
+        trainer = Trainer(cfg)
+        cap = trainer._resident_group(8)
+        summary = trainer.fit()
+        graph = trainer.resident_train_step.graph
+    finally:
+        StepWatchdog._default_timeout = staticmethod(default)
+        StepWatchdog.probe = probe
+    launches = _launches(fa.LAUNCHES)
+    log(f"a8e[watchdog] lm_base bf16, 8 steps, --steps_per_call -1 "
+        f"--watchdog 120, probe every 4 steps: group cap {cap} steps a "
+        f"call, {graph.captures} capture(s), {graph.replays} replays, "
+        f"{len(probes)} probes on CUDA-event rungs, "
+        f"{'no firing' if not fired else f'FIRED {fired}'}, {summary['steps']} "
+        f"steps; E/F/G launches (wrappers + replays) {launches}; wall "
+        f"{time.monotonic() - t0:.1f} s [{CARD}]")
+    if fired or cap != 4 or summary["steps"] != 8 or not probes:
+        raise AssertionError(f"a8e[watchdog]: cap {cap}, fired {fired}")
+    del trainer
+    torch.cuda.empty_cache()
+
+    stalled = []
+    wd = StepWatchdog(0.5, on_timeout=stalled.append).start()
+    wd.beat()
+    torch.cuda._sleep(int(4e9))        # ~2 s of spinning ahead of the rung
+    rung = Rung(torch.device("cuda", torch.cuda.current_device()))
+    t0 = time.monotonic()
+    wd.probe(rung)
+    waited = time.monotonic() - t0
+    wd.stop()
+    log(f"a8e[watchdog, stalled] a rung behind torch.cuda._sleep(4e9), "
+        f"timeout 0.5 s: the probe waited {waited:.2f} s, on_timeout fired "
+        f"{len(stalled)} time(s) after {stalled[0] if stalled else 0:.2f} s "
+        f"without a beat [{CARD}]")
+    if len(stalled) != 1 or waited < 0.5:
+        raise AssertionError(f"a8e[watchdog, stalled]: {stalled}, {waited}")
+    return launches
+
+
+def sorted_moe_captured_leg(torch, gm) -> dict:
+    """A resident lm_moe step on the sorted path (J and K) captured and
+    replayed, against the eager host steps: the losses bit for bit."""
+    from ddp_practice_tpu_torch.ops.moe import moe_layers
+    from ddp_practice_tpu_torch.utils import graphs
+
+    legs = {}
+    for label, extra in (("host", ["--data_placement", "host"]),
+                         ("resident", ["--steps_per_call", "4",
+                                       "--data_placement", "device"])):
+        trainer = _cli_trainer(A8E_MOE + extra)
+        for m in moe_layers(trainer.model):
+            m.impl = "sorted"
+        losses, _, k, graph, unwrap = _record_calls(torch, trainer)
+        _reset_launches(gm)
+        trainer.train_epoch(0)
+        legs[label] = ([float(x) for x in losses], k, graph,
+                       dict(gm.LAUNCHES), dict(graphs.REPLAYED),
+                       _params(trainer.model))
+        unwrap()
+        del trainer
+        torch.cuda.empty_cache()
+    host, res = legs["host"], legs["resident"]
+    want = [host[0][i * 4 + 3] for i in range(2)]
+    same_params = all(torch.equal(res[5][n], w) for n, w in host[5].items())
+    graph = res[2]
+    replayed = {k: v for k, v in res[4].items() if k in gm.LAUNCHES}
+    log(f"a8e[sorted moe captured] lm_moe (d 256, 8 experts, top-2) bf16 "
+        f"adamw, seq 512, b 8, 8 steps, impl sorted: resident 4 steps a "
+        f"call, {graph.captures} capture(s), {graph.replays} replays; "
+        f"losses at steps 4, 8 {res[0]} vs eager host {want} "
+        f"({'bit-identical' if res[0] == want else 'DIFFERENT'}); "
+        f"parameters {'bit-identical' if same_params else 'differ'}; J/K "
+        f"launches: eager {res[3]}, replayed {replayed} [{CARD}]")
+    if (res[0] != want or graph.captures != 1 or graph.replays != 7
+            or not all(replayed.get(k) for k in ("gmm", "gmm_trhs",
+                                                 "tgmm"))):
+        raise AssertionError("a8e[sorted moe captured]: off the eager leg")
+    return {k: res[3][k] + replayed.get(k, 0) for k in res[3]}
+
+
+def _a8e_rank_run(torch, argv, tallies):
+    """One rank of a sharded leg: 4 single steps from host batches, then
+    a call of 4 chunked steps; (losses, last chunk loss, whole params of
+    each, each's launches by this rank)."""
+    from ddp_practice_tpu_torch.parallel.mesh import full_parameters
+
+    out = []
+    for extra in (["--data_placement", "host"],
+                  ["--data_placement", "host", "--steps_per_call", "4"]):
+        trainer = _cli_trainer(argv + ["-e", "1", "--max_steps", "4"]
+                               + extra)
+        losses, _, _, _, _ = _record_calls(torch, trainer)
+        if trainer.chunk_step is not None:
+            chunk = trainer.chunk_step
+
+            def recorded(state, batch, chunk=chunk):
+                state, metrics = chunk(state, batch)
+                losses.append(metrics["loss"])
+                return state, metrics
+
+            trainer.chunk_step = recorded
+        before = [dict(t.mine()) for t in tallies]
+        trainer.train_epoch(0)
+        torch.cuda.synchronize()
+        launched = {}
+        for t, b in zip(tallies, before):
+            launched.update({k: v - b.get(k, 0) for k, v in t.mine().items()
+                             if v != b.get(k, 0)})
+        out.append(([float(x) for x in losses], launched,
+                    full_parameters(trainer.model)
+                    if hasattr(trainer.model, "sharding")
+                    else _params(trainer.model),
+                    trainer.chunk_step is not None))
+        del trainer
+    return out
+
+
+def sharded_chunked_leg(torch, fa, fe) -> dict:
+    """K = 4 chunked steps against 4 single steps on ranks as threads of
+    this process (eager by utils/graphs.py's rule: the threaded group's
+    collectives are host copies), bit for bit, with each rank's kernel
+    launches: lm_base at tensor 2 and lm_pipe at pipe 2 x data 2 with
+    FSDP under 1F1B (both cut to 4 blocks at lm_base's widths), and
+    vit_tiny at data 2 (DDP, the per-op blocks: "auto" fuses on one rank
+    only)."""
+    from ddp_practice_tpu_torch.parallel.threads import run_ranks
+    from ddp_practice_tpu_torch.train import loop
+    from ddp_practice_tpu_torch.utils.graphs import eager_reason
+
+    counts = (fa.LAUNCHES, fe.LAUNCHES)
+    tallies = fa.LAUNCHES, fe.LAUNCHES = (
+        _RankTally({k: 0 for k in fa.LAUNCHES}),
+        _RankTally({k: 0 for k in fe.LAUNCHES}))
+    make = loop.create_model
+    total = {}
+    try:
+        legs = [(label, A8E_LM + argv, world, A8E_CUT)
+                for label, argv, world in A8E_SHARDED]
+        legs.append(("vit_tiny data 2", A8E_VIT, 2, {}))
+        for label, argv, world, fields in legs:
+            loop.create_model = (lambda name, fields=fields, **kw: make(
+                name, **{**kw, **fields}))
+            reason = []
+
+            def rank(r, argv=argv):
+                if r == 0:
+                    reason.append(eager_reason(torch.nn.Linear(
+                        1, 1, device="cuda")))
+                return _a8e_rank_run(torch, argv, tallies)
+
+            t0 = time.monotonic()
+            res = run_ranks(rank, world, timeout=600)
+            (single, one_l, p1, _), (chunked, chunk_l, p2, is_chunk) = res[0]
+            same = (chunked[-1] == single[3] and all(
+                torch.equal(p1[n], p2[n]) for n in p1))
+            for other in res[1:]:
+                same = same and other[1][0][-1] == chunked[-1]
+            log(f"a8e[sharded chunked, {label}] {world} ranks as threads "
+                f"sharing one card, 4 chunked steps (one call) vs 4 single "
+                f"steps, eager by rule ({reason[0]}): losses {single} vs "
+                f"the call's "
+                f"{chunked[-1]}; parameters "
+                f"{'bit-identical' if same else 'DIFFERENT'}; launches in "
+                f"the call by rank {[r[1][1] for r in res]}; wall "
+                f"{time.monotonic() - t0:.1f} s [{CARD}]")
+            if not (same and is_chunk):
+                raise AssertionError(f"a8e[sharded chunked, {label}]")
+            for r in res:
+                for k, v in r[1][1].items():
+                    total[k] = total.get(k, 0) + v
+            del res
+            torch.cuda.empty_cache()
+    finally:
+        loop.create_model = make
+        fa.LAUNCHES, fe.LAUNCHES = counts
+    return total
+
+
+def devices_leg(torch) -> None:
+    """--devices 1 is the plain one-card run; --devices 2 on one card
+    raises instead of taking fewer."""
+    from ddp_practice_tpu_torch import cli
+
+    argv = A8E_LM + ["-e", "1", "--max_steps", "2"]
+    assert cli.main(["--devices", "1"] + argv) == 0
+    msg = "(two cards visible: not checked)"
+    if torch.cuda.device_count() < 2:
+        try:
+            cli.main(["--devices", "2"] + argv)
+        except ValueError as e:
+            msg = f"raises: {e}"
+        else:
+            raise AssertionError("--devices 2 ran on one card")
+    log(f"a8e[devices] --devices 1 trained 2 steps on the card; "
+        f"--devices 2 {msg} [{CARD}]")
+
+
+def a8e_phase(torch, fa, fe, gm) -> dict:
+    """ROADMAP A8e on one card (the docstring's phase 32)."""
+    t0 = time.monotonic()
+    flash = {}
+    for leg in (elastic_leg(torch, fa), watchdog_leg(torch, fa)):
+        for k, v in leg.items():
+            flash[k] = flash.get(k, 0) + v
+    gmm = sorted_moe_captured_leg(torch, gm)
+    sharded = sharded_chunked_leg(torch, fa, fe)
+    devices_leg(torch)
+    launches = {k: flash.get(k, 0) + sharded.get(k, 0)
+                for k in set(flash) | set(sharded)}
+    launches.update(gmm)
+    wall = time.monotonic() - t0
+    log(f"a8e phase: launches (all legs, wrappers + replays) {launches}; "
+        f"wall {wall:.1f} s")
+    return {"launches": launches, "wall_s": wall}
+
+
 def main() -> int:
     t_start = time.monotonic()
     import torch
@@ -4699,6 +5049,7 @@ def main() -> int:
     seq = seq_phase(torch, fa, par)
     expert = expert_phase(torch, fa, gm, ops)
     pipe = pipe_phase(torch, fa)
+    a8e = a8e_phase(torch, fa, fe, gm)
 
     # the MoE decode legs and the bench's decode entries are host-bound:
     # they run before any torch.profiler trace, which leaves host time on
@@ -4871,6 +5222,7 @@ def main() -> int:
     log(f"the sequence phase's launches (all ranks): {seq['launches']}")
     log(f"the expert phase's launches (all ranks): {expert['launches']}")
     log(f"the pipeline phase's launches (all ranks): {pipe['launches']}")
+    log(f"the A8e phase's launches (all legs): {a8e['launches']}")
 
 
     # each kernel's launches on its main path's run
@@ -4884,16 +5236,19 @@ def main() -> int:
             prefix8_launches["paged_decode_attention_int8"],
         **{name: train["launches"][name] + seq["launches"][name]
            + expert["launches"][name] + pipe["launches"][name]
+           + a8e["launches"].get(name, 0)
            for name in ("flash_fwd_packed", "flash_bwd_packed")},
         **{name: folded["launches"][name] + seq["launches"][name]
            + expert["launches"][name] + pipe["launches"][name]
+           + a8e["launches"].get(name, 0)
            for name in ("flash_fwd_folded", "flash_bwd_folded")},
-        "fused_encoder_fwd": vit["launches"]["fused_encoder_fwd"],
-        "fused_encoder_bwd": vit["launches"]["fused_encoder_bwd"],
+        **{name: vit["launches"][name] + a8e["launches"].get(name, 0)
+           for name in ("fused_encoder_fwd", "fused_encoder_bwd")},
         **{name: moe_sorted["launches"][name] + expert["launches"][name]
+           + a8e["launches"].get(name, 0)
            for name in GMM_REPLACES},
         "gmm": moe_sorted["launches"]["gmm"] + moe_j
-        + expert["launches"]["gmm"],
+        + expert["launches"]["gmm"] + a8e["launches"].get("gmm", 0),
         **{name: row["launches"] for name, row in variant_rows.items()},
     }
     idle = [name for name, n in launches.items() if n <= 0]

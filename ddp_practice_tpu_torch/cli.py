@@ -23,11 +23,21 @@ Data parallelism is one process per card:
 
 and `--tensor T` (Megatron tensor parallelism over T consecutive ranks)
 and `--fsdp` (ZeRO-3 over the data ranks) lay the model out on the same
-processes (parallel/): `--tensor 4`, `--tensor 2 --fsdp`, `--fsdp`. On
-one card the ranks run as threads of one process
-(parallel/threads.py `run_ranks`, as chip_smoke.py's parallel phase
-does); `--cpu`/`--devices` above 1 (several devices in one process)
-still raise.
+processes (parallel/): `--tensor 4`, `--tensor 2 --fsdp`, `--fsdp`.
+Several devices in one process are ranks as threads (parallel/threads.py
+`run_ranks`), the mesh built over them as under torchrun: `--cpu N`
+runs N ranks on the CPU (the reference's N virtual CPU devices),
+`--devices N` N ranks with rank r on card r (it raises when fewer than N
+cards are visible; `--devices 1` is the plain run on one card). The
+summary is rank 0's, with `devices` N:
+
+    python -m ddp_practice_tpu_torch.cli --cpu 8 -e 1 -b 8 --dataset \
+        synthetic --model vit_tiny_moe --expert 4 --fsdp --max_steps 10
+
+`--max_restarts N` restarts a failed fit from its newest checkpoint,
+`--watchdog SECS` fires when no step completes in SECS (it exits the
+process for a supervisor to restart), `--sync_check STEPS` checks every
+STEPS steps that the ranks' driver loops agree (train/elastic.py).
 
 `serve` runs the serving benches on the card; serve/bench.py owns its
 flags (the slot, static and, with `--paged`, paged rows; `--shared-prefix
@@ -102,11 +112,11 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["topk", "expert_choice"])
     p.add_argument("--fsdp", action="store_true")
     p.add_argument("--devices", type=int, default=0,
-                   help="the reference's device limit; one process drives "
-                        "one card here (more cards: torchrun)")
+                   help="N ranks as threads of this process, rank r on "
+                        "card r (raises with fewer than N cards)")
     p.add_argument("--cpu", type=int, default=0, metavar="N",
-                   help="the reference's virtual CPU devices; here N=1 "
-                        "means --device cpu")
+                   help="N ranks as threads of this process on the CPU "
+                        "(the reference's N virtual CPU devices)")
     p.add_argument("--coordinator", default=None,
                    help="host:port of the tcp:// rendezvous (instead of "
                         "torchrun's environment)")
@@ -162,10 +172,6 @@ def config_from_args(args) -> TrainConfig:
         raise SystemExit("--augment_kind has no effect without --augment")
     if args.alert_sink and not args.slo:
         raise SystemExit("--alert-sink needs --slo")
-    if args.cpu > 1 or args.devices > 1:
-        raise NotImplementedError(
-            "several devices in one process are not ported (ROADMAP A8): "
-            "run one process per device under torchrun")
     return TrainConfig(
         model=args.model, dataset=args.dataset, data_dir=args.data_dir,
         synthetic_size=args.synthetic_size, seq_len=args.seq_len,
@@ -208,6 +214,38 @@ def config_from_args(args) -> TrainConfig:
     )
 
 
+def local_ranks(args) -> int:
+    """The ranks `--cpu N` / `--devices N` run as threads of this process
+    (1: none); `--devices N` needs N visible cards."""
+    if args.cpu and args.devices:
+        raise SystemExit("--cpu and --devices are exclusive")
+    if args.devices:
+        import torch
+
+        seen = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if seen < args.devices:
+            raise ValueError(
+                f"--devices {args.devices}: {seen} CUDA device(s) visible")
+    return max(args.cpu, args.devices, 1)
+
+
+def fit_local_ranks(config: TrainConfig, ranks: int, *,
+                    cards: bool) -> dict:
+    """`fit(config)` on `ranks` ranks as threads of this process (rank r
+    on card r with `cards`); rank 0's summary."""
+    from ddp_practice_tpu_torch.parallel.threads import run_ranks
+    from ddp_practice_tpu_torch.train.loop import fit
+
+    def rank(r: int) -> dict:
+        if cards:
+            import torch
+
+            torch.cuda.set_device(r)
+        return fit(config)
+
+    return run_ranks(rank, ranks, timeout=None)[0]
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv and argv[0] == "serve":
@@ -220,8 +258,12 @@ def main(argv=None) -> int:
     from ddp_practice_tpu_torch.train.loop import fit
 
     t0 = time.time()
+    ranks = local_ranks(args)
     try:
-        summary = fit(config)
+        if ranks > 1:
+            summary = fit_local_ranks(config, ranks, cards=args.devices > 1)
+        else:
+            summary = fit(config)
         main_process = dist.is_main_process()
     finally:
         dist.shutdown()

@@ -11,11 +11,13 @@ the card on a machine without one raises instead of quietly running on
 the CPU. Only an explicit `device="cpu"` runs there (the tests pass it).
 
 `MeshConfig` and `TrainConfig` keep the reference's fields and defaults,
-plus `TrainConfig.device`. The port runs every mesh axis, `fsdp`,
-`sp_impl` and the pipeline flags (`num_microbatches`, `pipe_schedule`,
-`num_virtual`; parallel/); `fsdp` under `pipe` and every flag it does
-not port raise NotImplementedError naming the ROADMAP item that brings
-them, when set to anything but the default.
+plus `TrainConfig.device`. The port runs every mesh axis, `fsdp` (under
+`pipe` too), `sp_impl`, the pipeline flags (`num_microbatches`,
+`pipe_schedule`, `num_virtual`; parallel/) and the failure detection
+(`max_restarts`, `watchdog_timeout_s`, `watchdog_probe_every_steps`,
+`sync_check_every_steps`; train/elastic.py); every flag it does not
+port raises NotImplementedError naming the ROADMAP item that brings it,
+when set to anything but the default.
 """
 
 from __future__ import annotations
@@ -72,8 +74,8 @@ class MeshConfig:
     (data parallelism; -1 = the ranks the other axes leave), `seq`
     (sequence parallelism: ring or Ulysses attention, parallel/ring.py
     and parallel/ulysses.py), `tensor` (Megatron tensor parallelism over
-    attention heads and MLP features, parallel/tensor.py), `pipe` and
-    `pipe` (the pipelined families' stages, parallel/pipeline.py) and
+    attention heads and MLP features, parallel/tensor.py), `pipe` (the
+    pipelined families' stages, parallel/pipeline.py) and
     `expert` (the routed MLPs' stacked experts cut over its ranks,
     ops/moe.py)."""
 
@@ -123,9 +125,6 @@ class MeshConfig:
 # TrainConfig fields this slice does not port -> the ROADMAP item that
 # does; setting one to anything but its default raises
 _NOT_PORTED = {
-    "max_restarts": "A8",
-    "watchdog_timeout_s": "A8", "sync_check_every_steps": "A8",
-    "watchdog_probe_every_steps": "A8",
     "trace_out": "A6", "metrics_port": "A6", "telemetry_out": "A6",
     "slo": "A6", "alert_sinks": "A6",
 }
@@ -156,16 +155,19 @@ class TrainConfig:
       the library cannot be built or loaded) or "python" (numpy).
     - `augment` / `augment_kind` ("crop_flip" | "rrc") augment the image
       task's training batches on the device (ops/augment.py).
-    - `watchdog_probe_every_steps` has no counterpart yet: any value but
-      the default raises.
+    - `max_restarts`, `watchdog_timeout_s`, `watchdog_probe_every_steps`
+      and `sync_check_every_steps` are the reference's (train/elastic.py);
+      the watchdog's probes wait on CUDA events recorded after each call,
+      where the reference fetches a step's scalar.
     - checkpointing (`checkpoint_dir`, `checkpoint_every_epochs`,
       `checkpoint_every_steps`, `checkpoint_async`, `resume`) has the
       reference's semantics (train/loop.py, checkpoint/).
     - `coordinator_address`/`num_processes`/`process_id`: a tcp://
       rendezvous for torch.distributed, in place of torchrun's
       environment.
-    - `mesh` (data x seq x tensor) and `fsdp` lay the model out over the
-      ranks as the reference's rules do (parallel/mesh.py `parallelize`);
+    - `mesh` (data x seq x tensor x pipe x expert) and `fsdp` lay the
+      model out over the ranks as the reference's rules do
+      (parallel/mesh.py `parallelize`);
       `batch_size` is per data replica, so the global batch is
       `batch_size` x the data degree. Under `mesh.seq` > 1 each seq rank
       of a data replica takes the same rows and its contiguous chunk of
@@ -264,12 +266,6 @@ class TrainConfig:
                 raise NotImplementedError(
                     f"{name}={getattr(self, name)!r} is not ported yet "
                     f"(ROADMAP {item})")
-        if self.fsdp and self.mesh.pipe > 1:
-            raise NotImplementedError(
-                f"--fsdp under --pipe {self.mesh.pipe}: FSDP2's per-forward "
-                "gathers do not follow the pipeline's explicit schedules "
-                "yet (ROADMAP A8e); pipe composes with data (DDP), seq "
-                "and tensor")
         if self.fused_encoder not in ("auto", "on", "off", True, False):
             raise ValueError(f"fused_encoder={self.fused_encoder!r} "
                              "(want 'auto'|'on'|'off')")

@@ -277,8 +277,12 @@ def _assignment_permutation(choices_flat: torch.Tensor, e: int,
     arithmetic, whose scan over the (N*k, E) one-hot took ~5 ms a layer
     on the card at lm_moe's 32768 rows. With `first` the experts sort
     from `first` on, cyclically (a rank's local experts lead); counts stay
-    in expert order."""
-    counts = torch.bincount(choices_flat, minlength=e)
+    in expert order. The counts are an index_add_ into E bins (the
+    values of `torch.bincount`, which reads its output size on the host
+    and so cannot run inside a CUDA graph)."""
+    counts = torch.zeros(e, dtype=torch.int64,
+                         device=choices_flat.device).index_add_(
+        0, choices_flat, torch.ones_like(choices_flat))
     key = choices_flat if first == 0 else (choices_flat - first) % e
     _, inv = torch.sort(key, stable=True)
     dest = torch.empty_like(inv)

@@ -54,6 +54,20 @@ def process_count() -> int:
     return tdist.get_world_size() if tdist.is_initialized() else 1
 
 
+def threaded() -> bool:
+    """Whether the world's ranks are threads of this process
+    (parallel/threads.py `run_ranks`)."""
+    return tdist.is_initialized() and tdist.get_backend() == "threaded"
+
+
+def host_processes() -> int:
+    """The processes the world spans: 1 for ranks as threads of one
+    process (the whole corpus is addressable there, as in the
+    reference's single process driving several devices), else the world
+    size."""
+    return 1 if threaded() else process_count()
+
+
 def is_main_process() -> bool:
     """The rank-0 gate for side effects (prints, files)."""
     return process_index() == 0

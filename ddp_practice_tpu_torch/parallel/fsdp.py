@@ -26,6 +26,20 @@ contiguous chunks, and the attention `qkv` bias (Flax (3, h, hd), one
 torch dim) is cut by the reference on `hd`, inside the dim. Its rank
 storage is then the `data` chunks outermost ((dp, 3, h, hd / dp)), and
 the attention layer reads it back in order (`SelfAttention.qkv_bias_split`).
+
+The pipelined families (lm_pipe, vit_tiny_pipe) take `DataShards`
+instead of FSDP2: their stacked blocks run through one module's
+functional calls, and the 1F1B and interleaved schedules run many
+forwards and backwards a step outside any module's forward, so FSDP2's
+per-module hooks would gather and reduce at the wrong points. Each rank
+stores its data region of every cut leaf (the rules' region, as
+`shard_state` takes it, so the checkpoint and `full_parameters` read it
+as any other cut); the stage's leaves are all-gathered once, before the
+step's first forward (the model's forward pre-hook, or its
+`loss_and_grad`), and their grads reduce-scattered once, after the
+schedule (the mean over the data ranks, as FSDP2's), leaving each rank
+its shards and their grads for the optimizer (ZeRO-3 over a step). Eval
+gathers in the same hook and goes back to the shards after its forward.
 """
 
 from __future__ import annotations
@@ -127,6 +141,111 @@ def apply_fsdp(model: nn.Module, data_mesh, specs: dict,
                         for p in params], seq_group)
 
     return sync_grads
+
+
+class DataShards:
+    """The data cut of a pipelined model's leaves (module docstring):
+    `gather` puts every cut leaf whole (over the data ranks) in place of
+    its shard, `reduce_grads` (the train step's after-backward hook)
+    reduce-scatters their grads to the shards, averages the uncut
+    leaves' grads over `data_group` and, with a `seq_group`, every
+    rank's grads over it, and puts the shards back."""
+
+    def __init__(self, model: nn.Module, sharding, data_group,
+                 seq_group=None):
+        self.data_group, self.seq_group = data_group, seq_group
+        self.rank, self.dp = sharding.coords[D]
+        # (param, its sub-dim sizes, the data sub-dim, its torch dim)
+        self.leaves = []
+        self.replicated = []
+        for name, p in model.named_parameters():
+            spec = sharding.specs.get(name)
+            if data_dim(spec) is None:
+                self.replicated.append(p)
+                continue
+            subs, k = [], None
+            for sizes, axes in zip(sharding.layouts[name].dims, spec):
+                for size, axis in zip(sizes, axes):
+                    if axis == D:
+                        k = len(subs)
+                    elif axis:
+                        size //= sharding.coords[axis][1]
+                    subs.append(size)
+            self.leaves.append((p, subs, k, data_dim(spec)))
+        self.params = list(model.parameters())
+        self.shards = None      # the stored shards while gathered
+        model.register_forward_pre_hook(lambda m, args: self.gather())
+        model.register_forward_hook(self._after_forward)
+        if hasattr(model, "loss_and_grad"):
+            inner = model.loss_and_grad
+
+            def loss_and_grad(*args, **kw):
+                self.gather()
+                return inner(*args, **kw)
+
+            model.loss_and_grad = loss_and_grad
+
+    def _chunks(self, t: torch.Tensor, subs, k):
+        """The data ranks' parts of a whole leaf `t`, in rank order."""
+        n = subs[k] // self.dp
+        view = t.reshape(subs)
+        return [view.narrow(k, c * n, n) for c in range(self.dp)]
+
+    @torch.no_grad()
+    def gather(self) -> None:
+        """Every cut leaf whole over the data ranks (one all-gather)."""
+        if self.shards is not None:
+            return
+        flat = torch.cat([p.data.reshape(-1) for p, *_ in self.leaves])
+        parts = [torch.empty_like(flat) for _ in range(self.dp)]
+        tdist.all_gather(parts, flat, group=self.data_group)
+        self.shards = [p.data for p, *_ in self.leaves]
+        off = 0
+        for p, subs, k, t in self.leaves:
+            n = p.numel()
+            shape = list(p.shape)
+            shape[t] *= self.dp
+            whole = torch.empty(shape, dtype=p.dtype, device=p.device)
+            for c, dst in enumerate(self._chunks(whole, subs, k)):
+                dst.copy_(parts[c][off:off + n].view(dst.shape))
+            p.data = whole
+            off += n
+
+    def reshard(self) -> None:
+        """Every cut leaf back to this rank's shard."""
+        if self.shards is None:
+            return
+        for (p, *_), shard in zip(self.leaves, self.shards):
+            p.data = shard
+        self.shards = None
+
+    def _after_forward(self, module, args, out):
+        if not torch.is_grad_enabled():
+            self.reshard()          # eval: no backward follows
+
+    @torch.no_grad()
+    def reduce_grads(self) -> None:
+        """After the step's backward: each cut leaf's grad reduce-scattered
+        to its shard (the mean over the data ranks, in one collective),
+        the uncut leaves' grads averaged over the data ranks, then every
+        grad over the seq ranks; the shards back in place."""
+        parts = [[] for _ in range(self.dp)]
+        for p, subs, k, _ in self.leaves:
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            for c, chunk in enumerate(self._chunks(g, subs, k)):
+                parts[c].append(chunk.reshape(-1))
+        parts = [torch.cat(x) for x in parts]
+        mine = torch.empty_like(parts[0])
+        tdist.reduce_scatter(mine, parts, group=self.data_group)
+        mine /= self.dp
+        self.reshard()
+        off = 0
+        for p, *_ in self.leaves:
+            p.grad = mine[off:off + p.numel()].view(p.shape).clone()
+            off += p.numel()
+        _mean_over([p.grad for p in self.replicated], self.data_group)
+        if self.seq_group is not None:
+            _mean_over([p.grad for p in self.params], self.seq_group)
 
 
 def sum_over(tensors, group, mean: bool = False) -> list:

@@ -42,9 +42,11 @@ so), so grads are averaged over data x seq only, as without pipe.
 (parallel/sharding_rules.py): the tensor cut is taken here, leaving
 each rank plain local tensors and each attention, MLP and LM its
 `TensorGroup` (parallel/tensor.py), the data cut by FSDP2
-(parallel/fsdp.py `apply_fsdp`). `parallelize` is the whole layout as
-the train loop runs it (rules, `shard_state`, FSDP2 over the data ranks
-and a mean of the grads over the seq ranks, or DDP over data x seq).
+(parallel/fsdp.py `apply_fsdp`), or for a pipelined model here too,
+gathered and reduced once a step by `DataShards`. `parallelize` is the
+whole layout as the train loop runs it (rules, `shard_state`, FSDP2 or
+`DataShards` over the data ranks and a mean of the grads over the seq
+ranks, or DDP over data x seq).
 An optimizer built afterwards mirrors every parameter's layout in its
 state. The model keeps its `Sharding` (`model.sharding`): every
 leaf's Layout and Spec and the rank's coordinates, which the sharded
@@ -66,6 +68,7 @@ from ddp_practice_tpu_torch.config import MeshConfig
 from ddp_practice_tpu_torch.data.sharding import ShardSpec
 from ddp_practice_tpu_torch.parallel import dist
 from ddp_practice_tpu_torch.parallel.fsdp import (
+    DataShards,
     apply_fsdp,
     data_dim,
     fsdp_rules,
@@ -305,7 +308,7 @@ def check_heads(model_name: str, model: nn.Module, tensor: int) -> None:
 
 @torch.no_grad()
 def shard_state(model: nn.Module, mesh, rules: Optional[Callable],
-                model_name: str = "") -> Sharding:
+                model_name: str = "", *, data_cut: bool = False) -> Sharding:
     """Lay `model` (built whole, the same weights on every rank) out on
     `mesh` by `rules(name, layout) -> Spec | None`: each parameter cut to
     this rank's tensor and expert region, the attention layers left with
@@ -313,7 +316,9 @@ def shard_state(model: nn.Module, mesh, rules: Optional[Callable],
     TensorGroup, every routed MLP with the ExpertGroup; under a seq axis
     every layer with an `sp` attribute gets the SeqGroup, under a pipe
     axis the pipelined model its PipeGroup (each rank keeps its stage's
-    blocks). Returns the Sharding (also `model.sharding`)."""
+    blocks). With `data_cut` the data cut is taken here too (the
+    pipelined families' `DataShards`, parallel/fsdp.py), else it is
+    FSDP2's. Returns the Sharding (also `model.sharding`)."""
     from ddp_practice_tpu_torch.models.lm import TransformerLM
     from ddp_practice_tpu_torch.models.pipeline_lm import (
         LMEmbed,
@@ -365,7 +370,8 @@ def shard_state(model: nn.Module, mesh, rules: Optional[Callable],
             if isinstance(mod, MoEMlp):
                 check_experts(mod.num_experts, ep.size)
                 mod.ep = ep
-    cut = {a: where[a] for a in (TENSOR, PIPE, EXPERT) if where[a][1] > 1}
+    cut = {a: where[a] for a in (TENSOR, PIPE, EXPERT)
+           + ((DATA,) if data_cut else ()) if where[a][1] > 1}
     params = dict(model.named_parameters())
     for name, spec in specs.items():
         if set(cut) & set(axes_of(spec)):
@@ -374,7 +380,7 @@ def shard_state(model: nn.Module, mesh, rules: Optional[Callable],
     dp = where[DATA][1]
     tsize = where[TENSOR][1]
     for name, spec in specs.items():
-        if not needs_split(lay[name], spec, tsize):
+        if data_cut or not needs_split(lay[name], spec, tsize):
             continue
         owner, leaf = name.rsplit(".", 1)
         attn = model.get_submodule(owner.rsplit(".", 1)[0])
@@ -476,12 +482,13 @@ def parallelize(model: nn.Module, mesh, *, model_name: str, fsdp: bool,
     runs it: the tensor, pipe and expert rules of `model_name` (with
     FSDP's data cut when `fsdp`) laid out by `shard_state` when the
     tensor, seq, pipe or expert axis or FSDP's data axis has more than
-    one rank, FSDP2 over
-    the data ranks when a leaf is cut over them (its grads then averaged
-    over the seq ranks too), else DDP over the data x seq ranks when
-    there are several. Returns (forward, after_backward): what runs the
-    model, and the hook a train step calls after each backward (None but
-    under FSDP and the explicit pipeline schedules). The tensor, pipe and
+    one rank, FSDP2 over the data ranks when a leaf is cut over them
+    (its grads then averaged over the seq ranks too; a pipelined model's
+    cut leaves take `DataShards` instead, under every schedule), else DDP
+    over the data x seq ranks when there are several. Returns (forward,
+    after_backward): what runs the model, and the hook a train step
+    calls after each backward (None but under FSDP and the explicit
+    pipeline schedules). The tensor, pipe and
     expert groups' grads need no synchronisation: a replicated leaf's is
     exact on every rank of them, a cut leaf's is the rank's own.
 
@@ -492,16 +499,18 @@ def parallelize(model: nn.Module, mesh, *, model_name: str, fsdp: bool,
     c = coords(mesh)
     dp, sp, tp, ep = c[DATA][1], c[SEQ][1], c[TENSOR][1], c[EXPERT][1]
     pp = c[PIPE][1]
-    if fsdp and pp > 1:
-        raise NotImplementedError(
-            f"FSDP under pipe={pp} is not ported yet (ROADMAP A8e)")
     forward, after_backward = model, None
     if tp > 1 or sp > 1 or ep > 1 or pp > 1 or (fsdp and dp > 1):
         rules = param_sharding_rules(model_name)
         if fsdp:
             rules = fsdp_rules(dp, rules, min_leaf_size=min_leaf_size)
-        sharding = shard_state(model, mesh, rules, model_name)
+        sharding = shard_state(model, mesh, rules, model_name,
+                               data_cut=pp > 1)
         if any(data_dim(s) is not None for s in sharding.specs.values()):
+            if pp > 1:
+                shards = DataShards(model, sharding, sharding.groups[DATA],
+                                    sharding.groups[SEQ])
+                return model, shards.reduce_grads
             after_backward = apply_fsdp(model, mesh[DATA], sharding.specs,
                                         sharding.groups[DATA],
                                         sharding.groups[SEQ])
@@ -526,8 +535,16 @@ def parallelize(model: nn.Module, mesh, *, model_name: str, fsdp: bool,
         # holds the same running buffers, so DDP's per-forward broadcast
         # of rank 0's would move nothing
         synced = any(isinstance(m, BatchNorm) for m in model.modules())
-        forward = DistributedDataParallel(
-            model, device_ids=[device.index] if device.type == "cuda"
-            else None, broadcast_buffers=not synced,
-            process_group=replica_group(mesh))
+        kw = dict(device_ids=[device.index] if device.type == "cuda"
+                  else None, broadcast_buffers=not synced,
+                  process_group=replica_group(mesh))
+        if device.type != "cuda":
+            return DistributedDataParallel(model, **kw), after_backward
+        # built on a side stream, as PyTorch's notes on CUDA graphs ask of
+        # a DDP whose backward is captured (utils/graphs.py)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            forward = DistributedDataParallel(model, **kw)
+        torch.cuda.current_stream(device).wait_stream(side)
     return forward, after_backward

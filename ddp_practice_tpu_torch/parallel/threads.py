@@ -16,7 +16,7 @@ What the threaded group needs:
 - autograd without its device threads (`_install_threaded_pg` turns them
   off), so each rank's backward, and the collectives in it, run on the
   rank's own thread;
-- on the card, a device-wide fence around each collective
+- on the cards, a fence of every visible card around each collective
   (`_fenced_work`): rank 0's thread copies every rank's tensors on its
   own current stream while the other ranks may have queued their inputs
   on theirs (FSDP2 gathers on a stream of its own), so the copies wait
@@ -35,7 +35,7 @@ import datetime
 import sys
 import threading
 import time
-from typing import Callable, List
+from typing import Callable, List, Optional
 
 import torch
 import torch.distributed as tdist
@@ -43,14 +43,19 @@ import torch.distributed as tdist
 _FENCED: set = set()
 
 
+def _fence() -> None:
+    """Wait for every visible card's queued work (ranks may hold
+    different cards: `--devices N`)."""
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        for d in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(d)
+
+
 def _fenced_work(work):
     def run(self, data):
-        cuda = torch.cuda.is_available() and torch.cuda.is_initialized()
-        if cuda:
-            torch.cuda.synchronize()
+        _fence()
         work(self, data)
-        if cuda:
-            torch.cuda.synchronize()
+        _fence()
     return run
 
 
@@ -66,11 +71,11 @@ def _fence_collectives(module) -> None:
 
 
 def run_ranks(fn: Callable[[int], object], world: int, *,
-              timeout: float = 300.0) -> List[object]:
+              timeout: Optional[float] = 300.0) -> List[object]:
     """[fn(0), ..., fn(world - 1)], each on its own thread inside a
     threaded process group of `world` ranks. Raises the first rank's
     error, or TimeoutError when a rank has not finished in `timeout`
-    seconds."""
+    seconds (None: no deadline, as a training run through the CLI)."""
     from torch.testing._internal.distributed import multi_threaded_pg as mt
 
     _fence_collectives(mt)
@@ -86,7 +91,7 @@ def run_ranks(fn: Callable[[int], object], world: int, *,
     def worker(rank: int) -> None:
         tdist.init_process_group(
             "threaded", rank=rank, world_size=world, store=store,
-            timeout=datetime.timedelta(seconds=timeout))
+            timeout=datetime.timedelta(seconds=timeout or 86400 * 365))
         try:
             results[rank] = fn(rank)
         except BaseException as exc:        # surfaced after the join
@@ -107,9 +112,11 @@ def run_ranks(fn: Callable[[int], object], world: int, *,
     try:
         for t in threads:
             t.start()
-        deadline = time.monotonic() + timeout
+        deadline = (None if timeout is None
+                    else time.monotonic() + timeout)
         for t in threads:
-            t.join(max(0.0, deadline - time.monotonic()))
+            t.join(None if deadline is None
+                   else max(0.0, deadline - time.monotonic()))
         stuck = [t.name for t in threads if t.is_alive()]
         if stuck:
             mt.ProcessLocalGroup.exception_handle(TimeoutError())

@@ -25,10 +25,13 @@ choices (`data_placement`, `steps_per_call`; train/steps.py):
   `prefetch` ahead of the step; with `steps_per_call` K > 1, K batches
   stacked into one copy (data/loader.py `prefetch_chunked`) and one call
   of the chunked step (a chunk the step cap cuts runs as single steps).
-On the card, in one process, a resident or chunked call is replays of
-one captured CUDA graph (utils/graphs.py); on the CPU, and under several
-processes (gloo cannot be captured; NCCL capture is ROADMAP A8), the
-same factories run the per-batch step K times, with the same math.
+On the card a resident or chunked call is replays of one captured CUDA
+graph where `utils/graphs.py eager_reason` allows it (one process, or
+NCCL ranks, one process a card, whatever the layout); on the CPU, under
+gloo and for ranks as threads, the same factories run the per-batch
+step K times, with the same math. Every layout below takes K
+steps a call, and resident data wherever the corpus is addressable
+(`_use_resident_data`).
 Logs, metrics records and periodic checkpoints fall at group boundaries
 (`_after_train_group`: boundary-crossing tests, not modulo). The step's
 metrics stay on the device and are read back only at log steps and at
@@ -56,18 +59,29 @@ stage count from the mesh, `num_microbatches`, and for the LM
 parallel/pipeline.py, parallel/pipeline_1f1b.py; the reference's errors
 for a schedule without --pipe, a non-GPipe schedule off the LM, an LM
 other than lm_pipe under --pipe, and --dropout or --tied for the
-pipelined LM), FSDP2 over the data ranks with `fsdp` (not under pipe:
-ROADMAP A8e) (and the grads averaged over the seq ranks), else
-DistributedDataParallel over the data x seq ranks (under the explicit
-pipeline schedules one average of the grads after the schedule instead);
-eval sums are all-reduced over the data ranks. The tensor, pipe and
-expert groups' grads are exact without a collective. A sharded model trains one step a
-call from host batches: its resident and captured steps raise (ROADMAP
-A8e), and
-`data_placement="auto"` takes the host path. MFU and the per-chip rates
-divide by every rank. `fused_encoder` ("auto" | "on" | "off") is the
-reference's flag: "on" forces the fused encoder layer and raises for a
-model that does not take it or a shape the kernels refuse. The image task
+pipelined LM), `fsdp` over the data ranks (FSDP2, and the grads averaged
+over the seq ranks; under pipe the stage's shards gathered once a step
+and the grads reduce-scattered once after the schedule, parallel/fsdp.py
+`DataShards`), else DistributedDataParallel over the data x seq ranks
+(under the explicit pipeline schedules one average of the grads after
+the schedule instead); eval sums are all-reduced over the data ranks.
+The tensor, pipe and expert groups' grads are exact without a
+collective. MFU and the per-chip rates divide by every rank.
+
+Failure detection (train/elastic.py), the reference's: with
+`watchdog_timeout_s` a `StepWatchdog` runs during `fit`; every call puts
+a rung (a CUDA event) on the progress ladder, the log readback, eval's
+readback, checkpoint IO and the epoch's fence beat it, and a probe waits
+on the oldest unconfirmed rung every `watchdog_probe_every_steps` steps
+or when half the timeout passed without a beat (the resident groups are
+capped at that interval). `sync_check_every_steps` all-gathers the
+driver's step count over the ranks and raises on drift. Module-level
+`fit` with `max_restarts` > 0 rebuilds the trainer after a failure,
+resuming from the newest checkpoint (`run_with_restarts`).
+
+`fused_encoder` ("auto" | "on" | "off") is the reference's flag: "on"
+forces the fused encoder layer and raises for a model that does not take
+it or a shape the kernels refuse. The image task
 trains the ConvNet (the default: `convnet` on `mnist`), ResNet-18 and
 ResNet-50 (their BatchNorm statistics averaged over the ranks, so DDP
 does not broadcast buffers for them) and the image transformers
@@ -150,6 +164,13 @@ from ddp_practice_tpu_torch.parallel.mesh import (
     parallelize,
 )
 from ddp_practice_tpu_torch.parallel.mesh import group as mesh_group
+from ddp_practice_tpu_torch.train.elastic import (
+    Rung,
+    StepWatchdog,
+    assert_in_sync,
+    future_ready,
+    run_with_restarts,
+)
 from ddp_practice_tpu_torch.train.state import TrainState, make_optimizer
 from ddp_practice_tpu_torch.train.steps import (
     make_chunked_eval_step,
@@ -217,7 +238,7 @@ class Trainer:
                 "flip, ops/augment.py); it does not apply to token "
                 "streams")
         # the ranks of one tensor group read the same rows
-        shard = batch_shard(self.mesh)
+        shard = self._batch_shard = batch_shard(self.mesh)
         model_kwargs = {}
         if self.task == "lm":
             self.train_ds = self.eval_ds = None
@@ -328,8 +349,6 @@ class Trainer:
                                   policy=config.precision_policy(),
                                   device=self.device, seed=config.seed,
                                   **model_kwargs)
-        self.sharded = (self.tp > 1 or self.sp > 1 or self.ep > 1
-                        or self.pp > 1 or (config.fsdp and self.dp > 1))
         self.forward, self.after_backward = parallelize(
             self.model, self.mesh, model_name=config.model,
             fsdp=config.fsdp)
@@ -344,6 +363,10 @@ class Trainer:
             info0("resumed from %s at step %d", config.checkpoint_dir,
                   self.state.step)
         self._pending_save: Optional[ckpt.AsyncSave] = None
+        # the step watchdog (fit, with watchdog_timeout_s) and its
+        # progress ladder: one rung a dispatched call (`_track`)
+        self._watchdog = None
+        self._pending: collections.deque = collections.deque()
         self._build_steps()
         self._train_images = 0
         self._train_seconds = 0.0
@@ -404,16 +427,6 @@ class Trainer:
         if self.task == "image":
             common["augment"] = cfg.augment_kind if cfg.augment else False
         k = cfg.steps_per_call
-        if self.sharded and (k != 1 or cfg.data_placement == "device"):
-            raise NotImplementedError(
-                f"steps_per_call={k}, data_placement="
-                f"{cfg.data_placement!r} under seq={self.sp}, tensor="
-                f"{self.tp}, pipe={self.pp}, expert={self.ep}, fsdp="
-                f"{cfg.fsdp}: the "
-                "resident and captured "
-                "steps of a sharded "
-                "model are not ported yet (ROADMAP A8e); run one step a "
-                "call from host batches")
         if self.after_backward is not None:
             common["after_backward"] = self.after_backward
         if self.task == "lm":
@@ -432,6 +445,9 @@ class Trainer:
                     self.model, num_steps=k)
         self.resident_train_step = self.resident_eval_step = None
         if self._use_resident_data():
+            # this rank's columns of the epoch's global grids
+            self._grid_cols = self._batch_shard.local_slice(
+                self.global_batch)
             if self.task == "lm":
                 window = cfg.seq_len + 1
                 self._train_data = {"tokens": self._upload(
@@ -458,7 +474,8 @@ class Trainer:
                 "steps_per_call=-1 (whole epoch per dispatch) needs "
                 "device-resident data; got data_placement="
                 f"{cfg.data_placement!r}"
-                + (" in a multi-process run" if self.world > 1 else "")
+                + (" in a multi-process run"
+                   if dist.host_processes() > 1 else "")
                 + " — use data_placement='device' (single process) or a "
                 "positive steps_per_call")
 
@@ -467,11 +484,12 @@ class Trainer:
         (and a single process, which must address the whole corpus);
         'auto' takes it when one process runs and it fits
         `resident_max_bytes` (token streams counted as int32); 'host'
-        never."""
+        never. Ranks as threads are one process: each uploads the corpus
+        and gathers its own columns of every grid."""
         cfg = self.config
-        if cfg.data_placement == "host" or self.sharded:
+        if cfg.data_placement == "host":
             return False
-        multi = self.world > 1
+        multi = dist.host_processes() > 1
         if cfg.data_placement == "device":
             if multi:
                 raise ValueError(
@@ -489,10 +507,17 @@ class Trainer:
 
     def _resident_group(self, total_steps: int) -> int:
         """Steps a dispatch in resident mode: the whole epoch at
-        steps_per_call=-1, else the configured K (at least 1). The
-        reference's watchdog cap is ROADMAP A8's."""
-        k = self.config.steps_per_call
-        return max(total_steps, 1) if k == -1 else max(k, 1)
+        steps_per_call=-1, else the configured K (at least 1). With a
+        watchdog the group is capped at `watchdog_probe_every_steps`, as
+        the reference's: a probe waits for at most about one group of
+        device time (`_probe_if_due`), and a whole-epoch group would make
+        every probe an epoch-long wait without a beat."""
+        cfg = self.config
+        k = cfg.steps_per_call
+        g = max(total_steps, 1) if k == -1 else max(k, 1)
+        if cfg.watchdog_timeout_s:
+            g = min(g, max(cfg.watchdog_probe_every_steps, 1))
+        return g
 
     def _upload(self, array, dtype=None) -> torch.Tensor:
         """A host array on the device, once (the resident corpus and the
@@ -575,6 +600,48 @@ class Trainer:
                                     size=self.config.prefetch)
         return (("single", b) for b in self._device_batches(loader))
 
+    def _track(self) -> None:
+        """A rung on the progress ladder after the call just dispatched
+        (train/elastic.py `Rung`: an event on the card, resolved at once
+        on the CPU)."""
+        if self._watchdog is not None:
+            self._pending.append(Rung(self.device))
+
+    def _probe_if_due(self, prev: int, cur: int) -> None:
+        """The watchdog's probe on confirmed device progress, when due:
+        half the timeout without a beat, or a boundary of
+        `watchdog_probe_every_steps` crossed between `prev` and `cur`
+        (crossing, not modulo: calls advance by K). The probe waits on
+        the OLDEST unconfirmed rung, never the newest: the host runs
+        ahead of the card, and waiting on the newest would wait for the
+        whole in-flight backlog, so a healthy card that is behind would
+        look hung. One rung past the last confirmed point waits for at
+        most one call of device time, so the watchdog fires exactly when
+        no call completes within the timeout. Rungs already done are
+        skipped (`future_ready`)."""
+        n = self.config.watchdog_probe_every_steps
+        if self._watchdog is None or not self._pending:
+            return
+        if self._watchdog.probe_due() or (n and prev // n != cur // n):
+            while len(self._pending) > 1 and future_ready(self._pending[0]):
+                self._pending.popleft()
+            self._watchdog.probe(self._pending.popleft())
+
+    def _drain_pending(self) -> None:
+        """Confirm every remaining rung, beating on each, before an
+        end-of-phase fence: the fence waits on the whole backlog, and
+        without beats between a healthy card that is behind would look
+        hung."""
+        if self._watchdog is None:
+            self._pending.clear()
+            return
+        while self._pending:
+            self._watchdog.probe(self._pending.popleft())
+
+    def _beat(self) -> None:
+        if self._watchdog is not None:
+            self._watchdog.beat()
+
     def _write_metrics(self, record: dict) -> None:
         if self._metrics_fh is None:
             return
@@ -635,6 +702,7 @@ class Trainer:
         step_base = self.state.step
         window = self._profile_window(epoch)
         tracing = False
+        self._pending.clear()
         try:
             for tag, batch in self._tagged_batches(self.train_loader, k):
                 if (cfg.max_steps_per_epoch
@@ -683,7 +751,7 @@ class Trainer:
         if cfg.max_steps_per_epoch:
             idx = idx[:cfg.max_steps_per_epoch]
         total = len(idx)
-        grid = self._upload(idx)
+        grid = self._upload(idx[:, self._grid_cols])
         window = self._profile_window(epoch)
         cuts = set(range(0, total, self._resident_group(total)))
         cuts |= {c for c in window or () if c < total}
@@ -693,6 +761,7 @@ class Trainer:
         steps_done = 0
         final = None
         tracing = False
+        self._pending.clear()
         try:
             for g0, g1 in zip(bounds, bounds[1:]):
                 tracing, window = self._trace_edge(tracing, window, g0)
@@ -710,13 +779,25 @@ class Trainer:
     def _after_train_group(self, epoch: int, prev: int, steps_done: int,
                            metrics: dict) -> None:
         """Bookkeeping after a call that took the epoch from `prev` to
-        `steps_done` steps: the log readback and its metrics record, and
-        the periodic checkpoint, each where the call crossed its
-        boundary (calls advance by K, so the tests are not modulo)."""
+        `steps_done` steps: the progress rung and the watchdog's probe,
+        the driver sync check across ranks, the log readback (a beat: it
+        confirms progress) and its metrics record, and the periodic
+        checkpoint, each where the call crossed its boundary (calls
+        advance by K, so the tests are not modulo)."""
         cfg = self.config
+        self._track()
+        self._probe_if_due(prev, steps_done)
+        every = cfg.sync_check_every_steps
+        if every and prev // every != steps_done // every:
+            # a host counter, not device state: it catches driver-loop
+            # drift (skewed data exhaustion, a missed batch)
+            assert_in_sync(
+                epoch * self.train_loader.steps_per_epoch + steps_done,
+                what="driver step")
         if cfg.log_every_steps and (prev // cfg.log_every_steps
                                     != steps_done // cfg.log_every_steps):
             m = {k: float(v) for k, v in metrics.items()}   # readback
+            self._beat()
             info0("epoch %d step %d loss %.4f acc %.3f", epoch, steps_done,
                   m["loss"], m["accuracy"])
             self._write_metrics({"kind": "train", "epoch": epoch,
@@ -728,10 +809,12 @@ class Trainer:
 
     def _close_train_epoch(self, final, steps_done: int,
                            timer: Timer) -> dict:
-        """The epoch's fence (a scalar readback of its last metrics) and
-        its time and images."""
+        """The epoch's fence (the ladder drained rung by rung, then a
+        scalar readback of its last metrics) and its time and images."""
+        self._drain_pending()
         if final is not None:
             float(final["loss"])     # fence: the epoch's steps are done
+            self._beat()
             self._last_moe = {k: float(v) for k, v in final.items()
                               if k.startswith("moe_")}
         dt = timer.elapsed()
@@ -749,6 +832,7 @@ class Trainer:
         call with steps_per_call K > 1 (the image task's chunked eval),
         else one."""
         # an annotation: eval apart from train on the device timeline
+        self._pending.clear()
         with profiling.profile_region("eval"):
             if self.resident_eval_step is not None:
                 sums = self._evaluate_resident()
@@ -757,20 +841,28 @@ class Trainer:
                                    device=self.device)
                 k = (self.config.steps_per_call
                      if self.chunk_eval_step is not None else 1)
+                n_eval = 0
                 for tag, batch in self._tagged_batches(self.eval_loader, k):
                     step = (self.chunk_eval_step if tag == "chunk"
                             else self.eval_step)
                     sums += torch.stack(step(self.state, batch))
+                    prev, n_eval = n_eval, n_eval + (
+                        k if tag == "chunk" else 1)
+                    self._track()
+                    self._probe_if_due(prev, n_eval)
+        self._drain_pending()
         # over the data ranks: a tensor group's ranks hold the same sums,
         # and so do a data replica's seq ranks (the LM eval step sums
         # over them, the ViT pools over them)
         data = mesh_group(self.mesh, MeshConfig.AXIS_DATA)
         if data is not None:
             tdist.all_reduce(sums, op=tdist.ReduceOp.SUM, group=data)
+        sums = sums.tolist()    # readback: progress confirmed
+        self._beat()
         if self.task == "image":
-            correct, total = sums.tolist()
+            correct, total = sums
             return correct / max(total, 1.0)
-        correct, total, nll = sums.tolist()
+        correct, total, nll = sums
         t = max(total, 1.0)
         self.eval_perplexity = math.exp(min(nll / t, 30.0))
         return correct / t
@@ -782,11 +874,11 @@ class Trainer:
         rows."""
         idx, weight = self.eval_loader.epoch_plan()
         g = self._resident_group(len(idx))
-        grid = self._upload(idx)
+        grid = self._upload(idx[:, self._grid_cols])
         sums = torch.zeros(2 if self.task == "image" else 3,
                            device=self.device)
         if self.task == "image":
-            weights = self._upload(weight)
+            weights = self._upload(weight[:, self._grid_cols])
         for g0 in range(0, len(idx), g):
             if self.task == "image":
                 out = self.resident_eval_step(
@@ -796,6 +888,8 @@ class Trainer:
                 out = self.resident_eval_step(self.state, self._eval_data,
                                               grid[g0:g0 + g])
             sums += torch.stack(out)
+            self._track()
+            self._probe_if_due(g0, min(g0 + g, len(idx)))
         return sums
 
     def _write_eval_record(self, epoch: int, accuracy: float) -> None:
@@ -809,7 +903,9 @@ class Trainer:
         """Checkpoint the current state under `checkpoint_dir` (a no-op
         without one). The previous asynchronous write is waited on first
         (it re-raises its error); `periodic` saves of a single-process
-        run write asynchronously unless `checkpoint_async` is off."""
+        run write asynchronously unless `checkpoint_async` is off.
+        Checkpoint IO is progress, not a hang: it beats the watchdog."""
+        self._beat()
         if self._pending_save is not None:
             self._pending_save.wait()
             self._pending_save = None
@@ -865,9 +961,15 @@ class Trainer:
         return rate / (peak * self.world)
 
     def fit(self) -> dict:
+        cfg = self.config
+        if cfg.watchdog_timeout_s:
+            self._watchdog = StepWatchdog(cfg.watchdog_timeout_s).start()
         try:
             return self._fit_inner()
         finally:
+            if self._watchdog is not None:
+                self._watchdog.stop()
+                self._watchdog = None
             if self._pending_save is not None:
                 # an exception mid-epoch must not leave a writer racing a
                 # restarted run's restore; the original exception wins
@@ -940,6 +1042,13 @@ class Trainer:
 
 
 def fit(config: TrainConfig) -> dict:
-    """Train once (`resume` takes up a checkpoint; automatic restarts,
-    `max_restarts`, are ROADMAP A8)."""
+    """Train once, or with checkpoint-based restarts when `max_restarts`
+    > 0 (train/elastic.py `run_with_restarts`: each later attempt
+    resumes from the newest checkpoint, so a `checkpoint_dir` bounds the
+    lost work to one checkpoint interval)."""
+    if config.max_restarts > 0:
+        return run_with_restarts(
+            lambda resume: Trainer(
+                config.replace(resume=config.resume or resume)),
+            max_restarts=config.max_restarts)
     return Trainer(config).fit()

@@ -48,10 +48,11 @@ eval steps) take the whole corpus on the device (`data`) and a (G, B)
 grid of sample indices or LM window starts, and gather each batch on the
 device (`_resident_gather`, `_lm_window_gather`). Each runs the
 per-batch step above as its body, so resident and chunked equal the
-per-batch steps by construction: on the card as replays of one captured
-step (utils/graphs.py `StepGraph`: one optimizer apply a unit, a
-remainder eager), on the CPU and under several processes eagerly, row
-by row. Train steps return the last step's metrics, eval steps the
+per-batch steps by construction, for every layout of parallel/: on the
+card as replays of one captured step where `utils/graphs.py graphed`
+allows it (utils/graphs.py `StepGraph`: one optimizer apply a unit, a
+remainder eager), eagerly, row by row, elsewhere (the CPU, gloo, ranks
+as threads). Train steps return the last step's metrics, eval steps the
 summed weighted (correct, total), or (correct, total, nll) for the LM.
 
 The pipelined LM under the 1F1B or interleaved schedule (`schedule` of
@@ -387,25 +388,28 @@ def _with_graph(fn, run):
 def make_chunked_train_step(model: nn.Module, *, num_steps: int,
                             label_smoothing: float = 0.0, seed: int = 0,
                             augment=False,
-                            forward: Optional[nn.Module] = None):
+                            forward: Optional[nn.Module] = None,
+                            after_backward=None):
     """(state, batches) -> (state, the last step's metrics): K =
     `num_steps` image steps over batches stacked on a leading (K, b, ...)
     axis (data/loader.py `prefetch_chunked`), the same math as K calls of
-    `make_train_step`."""
+    `make_train_step` (`forward` and `after_backward` as there)."""
     run = _train_rows("chunked train", model, make_train_step(
         model, label_smoothing=label_smoothing, seed=seed, augment=augment,
-        forward=forward))
+        forward=forward, after_backward=after_backward))
     return _with_graph(lambda state, batches: run(
         state, _stacked(batches, num_steps), lambda row: row), run)
 
 
 def make_chunked_lm_train_step(model: nn.Module, *, num_steps: int,
                                label_smoothing: float = 0.0, seed: int = 0,
-                               forward: Optional[nn.Module] = None):
+                               forward: Optional[nn.Module] = None,
+                               after_backward=None):
     """K LM steps a call over stacked (K, b, s + 1) token batches: the
     scheme of `make_chunked_train_step` for the LM objective."""
     run = _train_rows("chunked lm train", model, make_lm_train_step(
-        model, label_smoothing=label_smoothing, seed=seed, forward=forward))
+        model, label_smoothing=label_smoothing, seed=seed, forward=forward,
+        after_backward=after_backward))
     return _with_graph(lambda state, batches: run(
         state, _stacked(batches, num_steps), lambda row: row), run)
 
@@ -432,7 +436,8 @@ def _resident_gather(data: dict, idx: torch.Tensor) -> dict:
 def make_resident_train_step(model: nn.Module, *,
                              label_smoothing: float = 0.0, seed: int = 0,
                              augment=False,
-                             forward: Optional[nn.Module] = None):
+                             forward: Optional[nn.Module] = None,
+                             after_backward=None):
     """(state, data, idx) -> (state, the last step's metrics): G image
     steps against a device-resident corpus. `data` = {"image": (N, H, W,
     C) uint8, "label": (N,)} on the device, uploaded once; `idx` a (G, B)
@@ -441,7 +446,7 @@ def make_resident_train_step(model: nn.Module, *,
     step is `make_train_step` on the gathered batch."""
     run = _train_rows("resident train", model, make_train_step(
         model, label_smoothing=label_smoothing, seed=seed, augment=augment,
-        forward=forward))
+        forward=forward, after_backward=after_backward))
     return _with_graph(lambda state, data, idx: run(
         state, {"idx": idx}, lambda row: _resident_gather(data, row["idx"]),
         bind=tuple(data.values())), run)
@@ -470,7 +475,8 @@ def _lm_window_gather(tokens: torch.Tensor, starts: torch.Tensor,
 def make_resident_lm_train_step(model: nn.Module, *, window: int,
                                 label_smoothing: float = 0.0, seed: int = 0,
                                 with_accuracy: bool = True,
-                                forward: Optional[nn.Module] = None):
+                                forward: Optional[nn.Module] = None,
+                                after_backward=None):
     """(state, data, starts) -> (state, the last step's metrics): the LM
     counterpart of `make_resident_train_step`. data = {"tokens": the 1-D
     int token stream on the device}; `starts` a (G, B) grid of window
@@ -479,7 +485,8 @@ def make_resident_lm_train_step(model: nn.Module, *, window: int,
     metric's argmax over the logits (the bench's loss-only steps)."""
     run = _train_rows("resident lm train", model, make_lm_train_step(
         model, label_smoothing=label_smoothing, seed=seed,
-        with_accuracy=with_accuracy, forward=forward))
+        with_accuracy=with_accuracy, forward=forward,
+        after_backward=after_backward))
     return _with_graph(lambda state, data, starts: run(
         state, {"starts": starts}, lambda row: {"tokens": _lm_window_gather(
             data["tokens"], row["starts"], window)},

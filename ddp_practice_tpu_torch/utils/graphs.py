@@ -4,16 +4,39 @@ reference's K steps compiled as one `lax.scan` program, train/steps.py).
 
 `StepGraph` runs a step function over the rows of a group: rows of an
 index grid (the device-resident steps) or of K stacked batches (the
-chunked steps). On the card, in one process, it captures one unit of the
+chunked steps). Where `graphed` allows it, it captures one unit of the
 step (one optimizer apply: `accum_steps` micro-steps; one batch for
 eval) as a `torch.cuda.CUDAGraph` that reads its rows from a static
 device buffer through a device-side row cursor, which the graph
 advances; a group of G rows is then G / unit replays with no other host
-work. Elsewhere (a CPU tensor, as the tests run, or several processes:
-gloo cannot be captured, and NCCL capture is ROADMAP A8) it runs the
-same step eagerly, row by row. That is the explicit CPU and
-multi-process path; on the card nothing falls back: a step that cannot
-be captured raises `CaptureError` naming the line of the op.
+work. Elsewhere it runs the same step eagerly, row by row, by the rule
+`eager_reason` writes down; where the rule captures, nothing falls back:
+a step that cannot be captured raises `CaptureError` naming the line of
+the op.
+
+The capture rule (`eager_reason`): a step is captured on the card when
+the world is one process, or ranks of NCCL process groups, one process a
+card, whatever the layout: NCCL's kernels are stream work a graph
+records (DDP's bucketed all-reduces, the Megatron all-reduces of
+parallel/tensor.py, the expert group's sum, Ulysses' all-to-alls, the
+pipeline's and the ring's hops, FSDP2's all-gathers and reduce-scatters,
+`DataShards`' gather and reduce-scatter, the metrics' all-reduce). On
+four cards DDP (lm_base, the ConvNet, ResNet-50), tensor 4, FSDP2, seq 4
+ring and Ulysses, expert 4, pipe 4 1F1B and pipe 2 x data 2 with FSDP
+were captured and replayed bit for bit against their eager steps
+(experiments/parallel_step.py `--pairs`). It runs eagerly
+- on the CPU (a CPU tensor: nothing to capture);
+- under gloo, whose collectives run on the host;
+- for ranks as threads (parallel/threads.py), whose collectives are host
+  copies that rank 0's thread makes between device-wide synchronisations.
+
+Under several processes the first `WARMUP` units run eagerly before the
+capture (PyTorch's notes on CUDA graphs ask 11 eager iterations of a
+DDP whose backward is captured: its reducer rebuilds its buckets after
+the first and times the first ten with CUDA events read on the host;
+parallel/mesh.py builds the DDP on a side stream, the notes' other
+ask). The host work of DDP's hooks runs once, in the capture, and never
+in a replay.
 
 Capture rules:
 - a unit is captured right after a real, eager unit of the same group
@@ -46,8 +69,10 @@ from __future__ import annotations
 import collections
 import os
 import traceback
+from typing import Optional
 
 import torch
+import torch.distributed as tdist
 
 from ddp_practice_tpu_torch.parallel import dist
 
@@ -72,11 +97,31 @@ class CaptureError(RuntimeError):
     allocator): the message names the line of the op."""
 
 
-def graphed(model) -> bool:
-    """Whether steps of `model` run as graph replays: on a card, in one
-    process."""
+# eager units before the first capture when several processes run
+WARMUP = 11
+
+
+def eager_reason(model) -> Optional[str]:
+    """Why steps of `model` run eagerly, row by row; None when they are
+    captured and replayed (the module docstring's rule)."""
     device = next(model.parameters()).device
-    return device.type == "cuda" and dist.process_count() == 1
+    if device.type != "cuda":
+        return "a CPU tensor: nothing to capture"
+    if dist.process_count() == 1:
+        return None
+    backend = tdist.get_backend()
+    if backend == "threaded":
+        return ("ranks as threads: the threaded group's collectives are "
+                "host copies made by rank 0's thread between device-wide "
+                "synchronisations")
+    if backend != "nccl":
+        return f"the {backend} group runs its collectives on the host"
+    return None
+
+
+def graphed(model) -> bool:
+    """Whether steps of `model` run as graph replays (`eager_reason`)."""
+    return eager_reason(model) is None
 
 
 def _launch_counters() -> list:
@@ -169,6 +214,7 @@ class StepGraph:
         self.unit_launches = {}   # kernel launches a replay makes
         self.replays = 0
         self.captures = 0
+        self.warm = 0             # eager units run so far
 
     def __call__(self, state, rows: dict, step, *, unit: int = 1,
                  bind=()):
@@ -201,9 +247,18 @@ class StepGraph:
             if (self.graph is None or unit != self.unit
                     or _signature(self.model, state, bind)
                     != self.signature):
-                i = eager(i, unit)
-                self._capture(state, step, unit, bind)
-            reps = (n - i) // unit
+                # eager units first (WARMUP of them under several
+                # processes, else one), the capture right after the last
+                self.graph = None
+                need = max((WARMUP if dist.process_count() > 1 else 1)
+                           - self.warm, 1)
+                while need and n - i >= unit:
+                    i = eager(i, unit)
+                    self.warm += 1
+                    need -= 1
+                if need == 0:
+                    self._capture(state, step, unit, bind)
+            reps = (n - i) // unit if self.graph is not None else 0
             if reps:
                 out = self._replay(state, i, reps)
                 i += reps * unit

@@ -1437,26 +1437,106 @@ def test_graph_replays_reach_the_flash_and_fused_kernels(card):
                            "fused_encoder_bwd": depth}
 
 
-def test_a_step_that_cannot_be_captured_raises_naming_the_op(card):
-    """The sorted MoE path counts its experts with torch.bincount, which
-    reads the assignments' maximum on the host: under capture the step
-    raises, naming that line, and runs no step eagerly in its place; the
-    card and the caller's stream are fine afterwards."""
-    from ddp_practice_tpu_torch.ops.moe import moe_layers
+def test_a_step_that_cannot_be_captured_raises_naming_the_op(card,
+                                                              monkeypatch):
+    """A step with an op that reads a device value on the host (here the
+    sorted MoE path's counts through torch.bincount, whose output size it
+    reads, as the path counted before its index_add_): under capture the
+    step raises, naming the port's line that reached the op, and runs no
+    step eagerly in its place; the card and the caller's stream are fine
+    afterwards."""
+    from ddp_practice_tpu_torch.ops import moe as tmoe
     from ddp_practice_tpu_torch.utils.graphs import CaptureError
 
+    def bincount_permutation(choices_flat, e, first=0):
+        counts = torch.bincount(choices_flat, minlength=e)
+        key = choices_flat if first == 0 else (choices_flat - first) % e
+        _, inv = torch.sort(key, stable=True)
+        dest = torch.empty_like(inv)
+        dest[inv] = torch.arange(inv.numel(), device=inv.device)
+        return counts.to(torch.int32), dest, inv
+
+    monkeypatch.setattr(tmoe, "_assignment_permutation",
+                        bincount_permutation)
     trainer = _trainer(model="lm_moe", seq_len=64, batch_size=2,
                        synthetic_size=60000, max_steps_per_epoch=4,
                        steps_per_call=2, num_experts=4)
-    for m in moe_layers(trainer.model):
+    for m in tmoe.moe_layers(trainer.model):
         m.impl = "sorted"
     stream = torch.cuda.current_stream()
-    with pytest.raises(CaptureError, match=r"ops/moe\.py:\d+.*bincount"):
+    with pytest.raises(CaptureError,
+                       match=r"ops/moe\.py:\d+.*_assignment_permutation"):
         trainer.train_epoch(0)
     assert trainer.state.step == 1            # the eager step before it
     assert torch.cuda.current_stream() == stream
     x = torch.ones(1000, device="cuda")
     assert float((x * 2).sum()) == 2000.0
+
+
+def test_the_sorted_moe_step_is_captured_with_j_and_k(card):
+    """The sorted MoE path counts its experts with an index_add_ into E
+    bins: a resident lm_moe step on it is captured, kernels J and K
+    replay inside the graph, and the losses and parameters equal the
+    eager host steps' bit for bit."""
+    from ddp_practice_tpu_torch.ops.moe import moe_layers
+    from ddp_practice_tpu_torch.utils import graphs
+
+    base = dict(model="lm_moe", seq_len=64, batch_size=4, precision="bf16",
+                synthetic_size=60000, max_steps_per_epoch=8,
+                optimizer="adamw", learning_rate=1e-3, num_experts=4)
+    host = _trainer(data_placement="host", **base)
+    res = _trainer(data_placement="device", steps_per_call=4, **base)
+    for t in (host, res):
+        for m in moe_layers(t.model):
+            m.impl = "sorted"
+    h, _ = _recorded(host, "train_step")
+    r, graph = _recorded(res, "resident_train_step")
+    host.train_epoch(0)
+    gm.reset_launches()
+    graphs.reset_replayed()
+    res.train_epoch(0)
+    assert (graph.captures, graph.replays) == (1, 7)
+    for k in ("gmm", "gmm_trhs", "tgmm"):
+        assert graphs.REPLAYED[k] > 0 and gm.LAUNCHES[k] > 0, k
+    assert [float(x) for x in r] == [float(h[3]), float(h[7])]
+    want = host.model.state_dict()
+    for name, value in res.model.state_dict().items():
+        assert torch.equal(value, want[name]), name
+
+
+def test_a_probe_behind_a_stalled_rung_fires_the_watchdog(card):
+    """A rung recorded behind a spin kernel longer than the timeout: the
+    probe waits for it (the event, not a readback queued behind later
+    work), and `on_timeout` fires meanwhile, once."""
+    import time
+
+    from ddp_practice_tpu_torch.train.elastic import Rung, StepWatchdog
+
+    fired = []
+    wd = StepWatchdog(0.3, on_timeout=fired.append).start()
+    wd.beat()
+    torch.cuda._sleep(int(2e9))
+    rung = Rung(torch.device("cuda", torch.cuda.current_device()))
+    assert not rung.ready()
+    t0 = time.monotonic()
+    wd.probe(rung)
+    waited = time.monotonic() - t0
+    wd.stop()
+    assert rung.ready() and waited > 0.3 and len(fired) == 1
+
+
+def test_devices_flag_on_one_card(card):
+    """--devices 1 is the plain run on the card; --devices N above the
+    visible cards raises instead of taking fewer."""
+    from ddp_practice_tpu_torch import cli
+
+    argv = ["--model", "lm_tiny", "--seq_len", "64", "-b", "4", "-e", "1",
+            "--max_steps", "2", "--synthetic_size", "60000", "--log_every",
+            "0"]
+    assert cli.main(["--devices", "1"] + argv) == 0
+    n = torch.cuda.device_count() + 1
+    with pytest.raises(ValueError, match=f"--devices {n}: "):
+        cli.main(["--devices", str(n)] + argv)
 
 
 def test_a_restore_after_the_capture_captures_again(card, tmp_path):

@@ -420,8 +420,6 @@ def test_clipping_norm_counts_every_leaf_once():
      "--dropout is wired for the dense transformer families"),
     (["--model", "lm_pipe", "--tied"], 1, ValueError,
      "--tied is not wired for the pipelined LM"),
-    (["--model", "lm_pipe", "--pipe", "2", "--fsdp"], 1,
-     NotImplementedError, "ROADMAP A8e"),
     (["--model", "lm_tiny", "--pipe", "2"], 2, ValueError,
      "stage-sharded variant: --model lm_pipe"),
     (["--model", "vit_tiny_pipe", "--dataset", "cifar10", "--pipe", "2",
@@ -450,7 +448,9 @@ def test_the_loops_pipeline_refusals(argv, world, err, match):
     (["--pipe", "2", "--pipe_schedule", "interleaved", "--num_virtual",
       "2", "--microbatches", "2"], 2),
     (["--pipe", "2", "--tensor", "2", "--microbatches", "2"], 4),
-], ids=["1f1b", "interleaved", "gpipe-tensor"])
+    (["--pipe", "2", "--fsdp", "--pipe_schedule", "1f1b",
+      "--microbatches", "2"], 4),
+], ids=["1f1b", "interleaved", "gpipe-tensor", "1f1b-fsdp"])
 def test_pipeline_flags_run_through_the_cli(argv, world, capsys):
     """--pipe, --microbatches, --pipe_schedule and --num_virtual reach
     the loop: lm_pipe trains two steps and evaluates on every rank."""

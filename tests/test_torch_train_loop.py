@@ -121,9 +121,9 @@ def test_cli_trains_lm_moe_on_the_cpu(router, capsys, tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--model", "lm_tiny", "--max_restarts", "2"], "A8"),
-    (["--model", "lm_pipe", "--pipe", "2", "--fsdp"], "A8"),
-    (["--model", "lm_tiny", "--watchdog", "30"], "A8"),
+    (["--model", "lm_tiny", "--trace-out", "trace.json"], "A6"),
+    (["--model", "lm_tiny", "--metrics-port", "9100"], "A6"),
+    (["--model", "lm_tiny", "--telemetry-out", "t.jsonl"], "A6"),
 ])
 def test_unported_paths_name_their_roadmap_item(argv, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
@@ -304,7 +304,7 @@ def test_fused_on_and_lm_flags_raise_where_they_cannot_run(argv, match):
 
 @pytest.mark.parametrize("field,value,item", [
     ("trace_out", "trace.json", "A6"),
-    ("watchdog_probe_every_steps", 10, "A8"),
+    ("slo", "slo.json", "A6"),
 ])
 def test_unported_fields_name_their_roadmap_item(field, value, item):
     with pytest.raises(NotImplementedError, match=f"{field}.*ROADMAP {item}"):
