@@ -353,13 +353,34 @@ later launch in the process.
    single steps bit for bit, each rank's launches printed; --devices 1
    trains, --devices 2 on one card raises. The legs' launches join the
    flash, fused and grouped-matmul rows.
+33. router (ROADMAP A6a; right after the bench phase, before any trace):
+   serve_bench's router row, SERVE's engine (8 slots, max_len 2048,
+   buckets 16/64/256, burst 8) at lm_base, prompts 4-160 and 8-64 new
+   tokens so that a failover's prompt + tokens so far fits the largest
+   bucket, a seeded 12-request Poisson trace at 16/s. Leg 1, fp32: two
+   replicas under ROUTER_PLAN (replica 1 crashed at its tick 5 for 0.1 s,
+   a NaN in replica 0's first slot at its tick 2, a failed admission on
+   replica 0 from its tick 3): none lost, every request ends "length"
+   with the continuous row's greedy tokens (one engine, no faults),
+   failovers >= 1, retries >= 2, breaker trips >= 1, replica 1 healthy
+   again at the end, every replica's shape counts unchanged from after
+   warmup, and kernel A launched 12 x the decode steps of all replicas
+   (each row's own). Leg 2, bf16: the serve phase's trace through
+   serve_bench(replicas=1) and (replicas=2) fault-free, then replicas=2
+   under ROUTER_PLAN with ROUTER_SLO armed and the timeline written to
+   build/router_trace.json: per row tokens/s (goodput), TTFT, TPOT and
+   latency p50/p99, retries, failovers, breaker trips, replica states,
+   the SLO alert log, router x1 against the continuous row; none lost,
+   launches as in leg 1, and the trace passes tools/check_traces.py's
+   `validate`. Its A launches join the kernels' record; the phase prints
+   its wall time.
 
 Launch counts are zeroed just before each phase's run and read just
 after it; a train leg's count is its wrappers' (eager calls) plus its
 graph replays' (utils/graphs.REPLAYED). The kernels' record adds the MoE
-serve rows' launches to A's and C's, the sorted decode leg's to J's, the
-sequence and pipeline legs' to E/F/G's, and the expert legs' to
-E/F/G's and J/K's. The ConvNet's, lm_base's and vit_tiny's
+serve rows' launches to A's and C's, the router phase's to A's, the
+sorted decode leg's to J's, the sequence and pipeline legs' to
+E/F/G's, and the expert legs' to E/F/G's and J/K's. The ConvNet's, lm_base's and vit_tiny's
 leg lines end with the card's name and power limit. Before the card's
 line the script prints its own wall time. The second-to-last line is the
 kernels' JSON record; the last line is {"ok": true, "device": {...}}.
@@ -533,6 +554,18 @@ REPLACES = {
 SERVE = dict(max_slots=8, max_len=2048, prompt_buckets=(16, 64, 256),
              decode_burst=8, prompt_len_range=(4, 200),
              max_new_range=(8, 64), eos_id=None)
+# the router phase (A6a): prompts capped so a failover's prompt + tokens
+# so far fits the largest bucket; the fault plan and SLO of its legs
+ROUTER = dict(SERVE, prompt_len_range=(4, 160))
+ROUTER_PLAN = [
+    dict(kind="crash", tick=5, replica=1, down_s=0.1),
+    # the first admission after warmup lands in slot 3: warm_engine's
+    # three bucket admits cycled slots 0-2 to the back of the free list
+    dict(kind="nan_logits", tick=2, replica=0, slot=3),
+    dict(kind="admit_fail", tick=3, replica=0),
+]
+ROUTER_SLO = dict(ttft_p99_s=1.0, tpot_p99_s=0.1, error_rate=0.05,
+                  fast_window_s=5.0, slow_window_s=30.0, min_events=3)
 # the paged sweep: 2048-position slots over a full-backing pool
 BS, MB = 16, 128
 NB = 1 + 8 * MB
@@ -1626,6 +1659,118 @@ def cross_check(torch):
         f"greedy tokens identical ({len(trace)} requests, {n} tokens)")
     del model
     torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------- router (A6a)
+def _router_line(r) -> str:
+    line = _row_line(r)
+    if "retries" in r:
+        line += (f"\n                retries {r['retries']:.0f}  failovers "
+                 f"{r['failovers']:.0f}  breaker trips "
+                 f"{r['breaker_trips']:.0f}  statuses {r['statuses']}  "
+                 f"replicas {r['replica_states']}")
+    return line
+
+
+def router_phase(torch, ops):
+    """ROADMAP A6a (the docstring's phase 33): serve_bench's router row
+    at lm_base, identity under faults in fp32, then the serving rows in
+    bf16 with the SLO watchdog and the trace."""
+    from ddp_practice_tpu_torch.serve import FaultPlan, FaultSpec
+    from ddp_practice_tpu_torch.serve.bench import serve_bench
+    from tools.check_traces import validate
+
+    t_phase = time.monotonic()
+    plan = FaultPlan([FaultSpec(**s) for s in ROUTER_PLAN])
+    n = 12
+    flat = "decode_attention"
+
+    def rows_of(report):
+        rows = [report["continuous"], report["static"], report["router"]]
+        return rows, {r["mode"]: flat for r in rows}
+
+    # leg 1: identity under faults, fp32
+    model = _lm_base(torch, "fp32")
+    ops.reset_launches()
+    t0 = time.monotonic()
+    rep = serve_bench(model=model, n_requests=n, rate_hz=16.0, seed=0,
+                      replicas=2, fault_plan=plan, collect_tokens=True,
+                      **ROUTER)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    rows, kernel_of = rows_of(rep)
+    r = rep["router"]
+    log(f"router[fp32, x2, faults {json.dumps(ROUTER_PLAN)}] on "
+        f"{rep['device']}: {n} requests, wall {time.monotonic() - t0:.1f} "
+        f"s, launches {launches} [{CARD}]")
+    for row in rows:
+        log(_router_line(row))
+    _check_rows(rows, n, model.depth, kernel_of)
+    want = rep["continuous"]["tokens_by_rid"]
+    got = r["tokens_by_rid"]
+    diff = [rid for rid in want if got.get(rid) != want[rid]]
+    if r["statuses"] != {"length": n} or diff:
+        raise AssertionError(f"router under faults: statuses "
+                             f"{r['statuses']}, tokens differ from one "
+                             f"engine's for rids {diff}")
+    if r["failovers"] < 1 or r["retries"] < 2 or r["breaker_trips"] < 1:
+        raise AssertionError(
+            f"the plan did not bite: failovers {r['failovers']}, retries "
+            f"{r['retries']}, breaker trips {r['breaker_trips']}")
+    if r["replica_states"][1] != "healthy":
+        raise AssertionError(f"replica 1 not back: {r['replica_states']}")
+    if r["compile_stats"] != r["warm_compile_stats"]:
+        raise AssertionError(f"new shapes after warmup: "
+                             f"{r['warm_compile_stats']} -> "
+                             f"{r['compile_stats']}")
+    n_tok = sum(len(v) for v in got.values())
+    log(f"  router x2 under faults, fp32: {n} requests, {n_tok} tokens "
+        f"identical to the continuous row's; A launched "
+        f"{r['kernel_launches'][flat]} = {model.depth} x "
+        f"{r['decode_steps']} decode steps of both replicas")
+    total = launches[flat]
+    del model, rep
+    torch.cuda.empty_cache()
+
+    # leg 2: the serving rows, bf16
+    model = _lm_base(torch, "bf16")
+    trace_out = "build/router_trace.json"
+    os.makedirs("build", exist_ok=True)
+    legs = (("x1", dict(replicas=1)), ("x2", dict(replicas=2)),
+            ("x2, faults + slo", dict(replicas=2, fault_plan=plan,
+                                      slo=json.dumps(ROUTER_SLO),
+                                      trace_out=trace_out)))
+    for label, kw in legs:
+        ops.reset_launches()
+        t0 = time.monotonic()
+        rep = serve_bench(model=model, n_requests=n, rate_hz=16.0, seed=0,
+                          **SERVE, **kw)
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        total += launches[flat]
+        rows, kernel_of = rows_of(rep)
+        log(f"router[bf16, {label}] on {rep['device']}: {n} requests, wall "
+            f"{time.monotonic() - t0:.1f} s, launches {launches} [{CARD}]")
+        for row in rows:
+            log(_router_line(row))
+        log(f"  router/continuous tokens/s "
+            f"{rep['router_vs_continuous']:.3f}x  goodput "
+            f"{rep['router']['goodput_tokens_per_sec']:.1f} tok/s")
+        if "slo" in rep["router"]:
+            log(f"  slo {json.dumps(ROUTER_SLO)}: alerts "
+                f"{json.dumps(rep['router']['slo']['alerts'])}, active at "
+                f"the end {rep['router']['slo']['active']}")
+        _check_rows(rows, n, model.depth, kernel_of)
+    with open(trace_out) as f:
+        errors = validate(json.load(f))
+    if errors:
+        raise AssertionError(f"{trace_out}: {errors[:5]}")
+    log(f"  {trace_out}: {rep['trace_events']} events, "
+        f"tools/check_traces.py validate clean")
+    del model
+    torch.cuda.empty_cache()
+    log(f"router phase wall {time.monotonic() - t_phase:.1f} s")
+    return {flat: total}
 
 
 # ------------------------------------------------------------------ profile
@@ -5061,6 +5206,7 @@ def main() -> int:
     log(f"MoE decode paths' launches: serve {moe_launches}, sorted decode "
         f"J {moe_j}")
     bench_phase(torch, ops)
+    router_launches = router_phase(torch, ops)
 
     # the ConvNet's eager steps first: a finished torch.profiler trace
     # adds host time to every later launch in the process
@@ -5223,12 +5369,14 @@ def main() -> int:
     log(f"the expert phase's launches (all ranks): {expert['launches']}")
     log(f"the pipeline phase's launches (all ranks): {pipe['launches']}")
     log(f"the A8e phase's launches (all legs): {a8e['launches']}")
+    log(f"the router phase's launches (both legs): {router_launches}")
 
 
     # each kernel's launches on its main path's run
     launches = {
         "decode_attention": serve_launches["decode_attention"]
-        + moe_launches["decode_attention"],
+        + moe_launches["decode_attention"]
+        + router_launches["decode_attention"],
         "decode_attention_int8": int8_launches["decode_attention_int8"],
         "paged_decode_attention": serve_launches["paged_decode_attention"]
         + moe_launches["paged_decode_attention"],

@@ -125,8 +125,8 @@ class MeshConfig:
 # TrainConfig fields this slice does not port -> the ROADMAP item that
 # does; setting one to anything but its default raises
 _NOT_PORTED = {
-    "trace_out": "A6", "metrics_port": "A6", "telemetry_out": "A6",
-    "slo": "A6", "alert_sinks": "A6",
+    "trace_out": "A6d", "metrics_port": "A6d", "telemetry_out": "A6d",
+    "slo": "A6d", "alert_sinks": "A6d",
 }
 
 

@@ -1,6 +1,6 @@
 """Serving benches on the card (counterpart of
-ddp_practice_tpu/serve/bench.py: serve_bench with its continuous, static
-and paged rows, shared_prefix_bench and spec_decode_bench).
+ddp_practice_tpu/serve/bench.py: serve_bench with its continuous, static,
+paged and router rows, shared_prefix_bench and spec_decode_bench).
 
 - serve_bench: one synthetic Poisson trace (seeded NumPy) through
   - continuous: SlotEngine + Scheduler on the monotonic clock; requests
@@ -12,6 +12,11 @@ and paged rows, shared_prefix_bench and spec_decode_bench).
     the whole batch;
   - paged (`paged=True`): PagedEngine + Scheduler, per-slot capacity
     sized to the trace's worst context;
+  - router (`replicas=N`): the same trace through N SlotEngine replicas
+    behind the fault-tolerant router (serve/router.py) on one card, under
+    an optional FaultPlan (the row is then goodput under faults) and an
+    optional SLO watchdog (its alert log rides the row); `replicas=1`
+    measures the router's own cost against the continuous row;
   every server scored on the tokens each request asked for.
 - shared_prefix_bench: K system prompts x short tails through the plain
   paged engine and the prefix-sharing engine at the same undersized
@@ -28,16 +33,20 @@ included), and `kernel_launches`, the decode-attention kernel launches it
 caused, so a caller can hold each kernel's launches against depth x
 steps row by row.
 
+`trace_out` (`--trace_out`) writes the request-lifecycle timeline
+(utils/trace.py) as Chrome trace JSON: the router run's when
+`replicas >= 1`, else the continuous run's, warmup spans dropped;
+tools/check_traces.py validates it.
+
 Checkpoint serving (`--ckpt_dir`, the reference's `_serve_checkpoint`):
 instead of a bench, `--prompt` strings (repeatable) are served from a
 trained RoPE LM checkpoint (the port's own or one the JAX package wrote,
 loaded by generate.load_lm) through a SlotEngine with one prompt bucket
 and the Scheduler, and each completion is printed with its status and
-TTFT.
+TTFT; `--trace_out` writes that run's timeline.
 
-Not ported in this slice: the router, fleet, tracing and telemetry rows
-(`--trace_out` raises, ROADMAP A6) and the front-door chunked-prefill
-bench.
+Not ported in this slice, and refused by name: the front door and QoS
+(ROADMAP A6b), the worker fleet (A6c) and the telemetry plane (A6d).
 """
 
 from __future__ import annotations
@@ -234,13 +243,42 @@ def _paged_capacity(trace, *, prompt_buckets, decode_burst, block_size,
     return -(-(span + worst_new) // block_size)
 
 
+def _replay(server, trace, request_cls) -> float:
+    """Submit each request of `trace` at its arrival on the monotonic
+    clock and step `server` (a Scheduler or a Router) until it drains;
+    returns the elapsed seconds."""
+    t0 = time.monotonic()
+    i = 0
+    while not (i >= len(trace) and server.idle):
+        now = time.monotonic() - t0
+        while i < len(trace) and trace[i]["arrival"] <= now:
+            t = trace[i]
+            # stamp the TRUE trace arrival: a request polled one dispatch
+            # late still counts that wait in its TTFT
+            server.submit(request_cls(
+                rid=t["rid"], prompt=t["prompt"],
+                max_new_tokens=t["max_new_tokens"],
+                arrival=t0 + t["arrival"],
+            ))
+            i += 1
+        if server.idle:
+            # idle with arrivals left: sleep to the next one (a router
+            # whose door sheds finalize at once can be idle with none
+            # left, and the loop condition exits then)
+            if i < len(trace):
+                time.sleep(max(0.0, trace[i]["arrival"] - now))
+            continue
+        server.step()
+    return time.monotonic() - t0
+
+
 def _run_continuous(model, trace, *, max_slots, prompt_buckets, max_len,
                     decode_burst, eos_id, paged: bool = False,
                     block_size: int = 16, prefix_cache: bool = False,
                     num_blocks: Optional[int] = None,
                     max_blocks_per_slot: Optional[int] = None,
                     spec_decode: bool = False, spec_k: int = 4,
-                    collect_tokens: bool = False) -> dict:
+                    collect_tokens: bool = False, tracer=None) -> dict:
     from ddp_practice_tpu_torch.serve.engine import (
         EngineConfig,
         PagedEngine,
@@ -283,7 +321,7 @@ def _run_continuous(model, trace, *, max_slots, prompt_buckets, max_len,
                 decode_burst=decode_burst, eos_id=eos_id,
             ),
         )
-    sched = Scheduler(engine, max_queue=len(trace))
+    sched = Scheduler(engine, max_queue=len(trace), tracer=tracer)
     # warmup outside the timed window: one admit per bucket in play, one
     # decode dispatch (and one verify with speculation on), then rewind
     warm_engine(engine,
@@ -293,26 +331,16 @@ def _run_continuous(model, trace, *, max_slots, prompt_buckets, max_len,
         engine.radix.clear()
         engine.radix.hit_tokens = engine.radix.miss_tokens = 0
         engine.preemptions = 0
+    if tracer is not None:
+        # the engine's lanes join only after warmup, and anything recorded
+        # so far is dropped: the timeline is the workload's
+        from ddp_practice_tpu_torch.utils.trace import label_replica
 
-    t0 = time.monotonic()
-    i = 0
-    while not (i >= len(trace) and sched.idle):
-        now = time.monotonic() - t0
-        while i < len(trace) and trace[i]["arrival"] <= now:
-            t = trace[i]
-            # stamp the TRUE trace arrival: a request polled one dispatch
-            # late still counts that wait in its TTFT
-            sched.submit(Request(
-                rid=t["rid"], prompt=t["prompt"],
-                max_new_tokens=t["max_new_tokens"],
-                arrival=t0 + t["arrival"],
-            ))
-            i += 1
-        if sched.idle:
-            time.sleep(max(0.0, trace[i]["arrival"] - now))
-            continue
-        sched.step()
-    elapsed = time.monotonic() - t0
+        engine.set_tracer(tracer, 0)
+        label_replica(tracer, 0, max_slots)
+        tracer.clear()
+
+    elapsed = _replay(sched, trace, Request)
 
     tokens = sum(len(c.tokens) for c in sched.completions)
     lat = [c.finish - c.arrival for c in sched.completions]
@@ -445,6 +473,114 @@ def _run_static(model, trace, *, max_slots, width, max_new,
     }
 
 
+def _make_tracer(*, sample: float = 1.0, keep_slow_s=None,
+                 tenant_rates=None, registry=None):
+    """A request-lifecycle recorder on the monotonic clock (the clock the
+    bench's schedulers and router read), with the head-sampling and
+    tail-keep policy attached when any of its knobs leaves the default
+    (record everything)."""
+    from ddp_practice_tpu_torch.utils.trace import TraceRecorder, TraceSampler
+
+    tracer = TraceRecorder()
+    if sample < 1.0 or keep_slow_s is not None or tenant_rates:
+        tracer.set_sampler(TraceSampler(sample, keep_slow_s=keep_slow_s,
+                                        tenant_rates=tenant_rates),
+                           registry=registry)
+    return tracer
+
+
+def _run_router(model, trace, *, replicas, max_slots, prompt_buckets,
+                max_len, decode_burst, eos_id, fault_plan=None,
+                tracer=None, slo_config=None, registry=None,
+                alert_sinks=None, collect_tokens: bool = False) -> dict:
+    """The fleet path: N SlotEngine replicas of `model` behind the
+    fault-tolerant router (serve/router.py), stepped one after another on
+    one card. Scored like the continuous server on the useful tokens of
+    requests that finished ok, which under an injected FaultPlan is a
+    GOODPUT number: tokens the fleet still delivered while replicas
+    crashed, stalled or emitted NaNs. Besides the reference's keys the
+    row carries `decode_steps` and `kernel_launches` summed over the
+    replicas (warmup included) and `warm_compile_stats`, each replica's
+    shape counts right after warmup (failover re-prefills must land in
+    warmed buckets: the end-of-run `compile_stats` equal them)."""
+    from ddp_practice_tpu_torch.serve.engine import EngineConfig
+    from ddp_practice_tpu_torch.serve.router import RouterConfig, make_router
+    from ddp_practice_tpu_torch.serve.scheduler import MonotonicClock, Request
+
+    launches = _launches()
+    clock = MonotonicClock()
+    watchdog = None
+    if slo_config is not None:
+        from ddp_practice_tpu_torch.serve.slo import AlertSinks, SLOWatchdog
+
+        # live burn-rate alerting over the run's completions: alert
+        # instants land in the trace, the router's brown-out listens, and
+        # --alert-sink edges are pushed to operators
+        sinks = (AlertSinks(alert_sinks, clock=clock, registry=registry)
+                 if alert_sinks else None)
+        watchdog = SLOWatchdog(slo_config, clock=clock, registry=registry,
+                               tracer=tracer, sinks=sinks)
+    router = make_router(
+        model, replicas,
+        EngineConfig(
+            max_slots=max_slots, max_len=max_len,
+            prompt_buckets=prompt_buckets, temperature=0.0,
+            decode_burst=decode_burst, eos_id=eos_id,
+        ),
+        clock=clock, max_queue=len(trace), config=RouterConfig(),
+        fault_plan=fault_plan, registry=registry, tracer=tracer,
+        slo=watchdog,
+    )
+    # warm EVERY configured bucket, not just the trace prompts' widths:
+    # failover re-prefills carry prompt + salvaged tokens and can land in
+    # a larger bucket
+    router.warmup()
+    warm = router.compile_stats()
+    if tracer is not None:
+        tracer.clear()  # drop warmup spans; keep the workload timeline
+    elapsed = _replay(router, trace, Request)
+
+    ok = [c for c in router.completions if c.status in ("eos", "length")]
+    ok_tokens = sum(len(c.tokens) for c in ok)
+    m = router.metrics
+    out = {
+        "mode": f"router x{replicas}",
+        "elapsed_s": elapsed,
+        "useful_tokens": ok_tokens,
+        "tokens_per_sec": ok_tokens / elapsed,
+        "goodput_tokens_per_sec": ok_tokens / elapsed,
+        "ttft_s": _percentiles([c.ttft for c in ok if c.ttft is not None]),
+        "tpot_s": _percentiles([c.tpot for c in ok if c.tpot is not None]),
+        "latency_s": _percentiles([c.finish - c.arrival for c in ok]),
+        # over the same ok population; stall_s here includes retry
+        # parking and dead-replica gaps
+        "phases": _phase_breakdown(ok),
+        "completions": len(router.completions),
+        "statuses": dict(Counter(c.status for c in router.completions)),
+        "retries": m.retries.value,
+        "failovers": m.failovers.value,
+        "breaker_trips": m.breaker_trips.value,
+        "replica_states": router.states(),
+        "compile_stats": router.compile_stats(),
+        "warm_compile_stats": warm,
+        "decode_steps": sum(h.engine.decode_steps for h in router.handles),
+        "kernel_launches": _launches_since(launches),
+    }
+    if watchdog is not None:
+        out["slo"] = {
+            "alerts": [
+                {"t": t, "event": edge, "objective": obj}
+                for t, edge, obj in watchdog.alert_log
+            ],
+            "active": dict(watchdog.alerts),
+        }
+    if collect_tokens:
+        out["tokens_by_rid"] = {
+            c.rid: list(c.tokens) for c in router.completions
+        }
+    return out
+
+
 def serve_bench(
     *,
     n_requests: int = 32,
@@ -473,10 +609,37 @@ def serve_bench(
     # shared [start, cursor) span
     paged: bool = False,
     block_size: int = 16,
+    # fleet path: 0 = skip the router row; N >= 1 runs the SAME trace
+    # through N replicas behind serve/router.py (replicas=1 measures the
+    # router's own cost against the continuous row)
+    replicas: int = 0,
+    fault_plan=None,
+    # Chrome trace-event JSON of the request lifecycle (utils/trace.py):
+    # the recorder rides the router run when replicas >= 1, else the
+    # continuous run, warmup spans dropped either way; None = no tracing
+    trace_out: Optional[str] = None,
+    # SLOConfig, or its JSON or a path to it: arms the burn-rate watchdog
+    # on the router run (needs replicas >= 1); alert_sinks ("kind:target"
+    # strings) push its edges
+    slo=None,
+    alert_sinks=None,
+    # head sampling and tail keep of the recorder (utils/trace.py
+    # TraceSampler); the defaults record everything
+    trace_sample: float = 1.0,
+    trace_keep_slow_s: Optional[float] = None,
+    trace_tenant_rates: Optional[dict] = None,
 ) -> dict:
     """Replay one Poisson trace through the servers; return the report.
     `model` reuses an already built decoder (its vocab and max_len must
     cover the trace); otherwise one is built from the arguments."""
+    slo_config = None
+    if slo is not None:
+        from ddp_practice_tpu_torch.serve.slo import SLOConfig
+
+        if replicas < 1:
+            raise ValueError("--slo needs --replicas N (the watchdog "
+                             "feeds the router's brown-out hook)")
+        slo_config = SLOConfig.from_json(slo)
     if model is None:
         model = _build_model(
             vocab=vocab, max_len=max_len, hidden=hidden, depth=depth,
@@ -488,11 +651,22 @@ def serve_bench(
         prompt_len_range=prompt_len_range, max_new_range=max_new_range,
         seed=seed,
     )
+    registry = None
+    if slo_config is not None:
+        from ddp_practice_tpu_torch.utils.metrics import MetricsRegistry
+
+        registry = MetricsRegistry()
+    tracer = (_make_tracer(sample=trace_sample,
+                           keep_slow_s=trace_keep_slow_s,
+                           tenant_rates=trace_tenant_rates,
+                           registry=registry)
+              if trace_out else None)
     cont = _run_continuous(
         model, trace, max_slots=max_slots,
         prompt_buckets=tuple(prompt_buckets), max_len=max_len,
         decode_burst=decode_burst, eos_id=eos_id,
         collect_tokens=collect_tokens,
+        tracer=None if replicas >= 1 else tracer,
     )
     static = _run_static(
         model, trace, max_slots=max_slots, width=max(prompt_buckets),
@@ -519,6 +693,22 @@ def serve_bench(
         )
         report["paged_vs_static"] = _ratio(report["paged"], static)
         report["paged_vs_continuous"] = _ratio(report["paged"], cont)
+    if replicas >= 1:
+        report["router"] = _run_router(
+            model, trace, replicas=replicas, max_slots=max_slots,
+            prompt_buckets=tuple(prompt_buckets), max_len=max_len,
+            decode_burst=decode_burst, eos_id=eos_id,
+            fault_plan=fault_plan, tracer=tracer, slo_config=slo_config,
+            registry=registry, alert_sinks=alert_sinks,
+            collect_tokens=collect_tokens,
+        )
+        if fault_plan is not None:
+            report["fault_plan"] = fault_plan.to_json()
+        report["router_vs_continuous"] = _ratio(report["router"], cont)
+    if tracer is not None:
+        tracer.save(trace_out)
+        report["trace_out"] = trace_out
+        report["trace_events"] = len(tracer)
     return report
 
 
@@ -731,7 +921,50 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--top_p", type=float, default=0.0)
     p.add_argument("--trace-out", "--trace_out", dest="trace_out",
                    default=None, metavar="PATH",
-                   help="the serving timeline (not ported: ROADMAP A6)")
+                   help="write a Chrome trace-event JSON of the request "
+                        "lifecycle (queued/prefill/decode-burst spans, "
+                        "retry/failover instants; pid=replica, tid=slot): "
+                        "the router run with --replicas, else the "
+                        "continuous run, or the --ckpt_dir run; validate "
+                        "with tools/check_traces.py")
+    p.add_argument("--trace-sample", dest="trace_sample", type=float,
+                   default=None, metavar="RATE",
+                   help="head-sampling rate in [0,1] of the --trace_out "
+                        "recorder: one keep/stage decision per trace_id "
+                        "(crc32), staged spans kept by the tail rules "
+                        "(errors, sheds, retries, failovers, "
+                        "--trace-keep-slow-s); default 1.0")
+    p.add_argument("--trace-keep-slow-s", dest="trace_keep_slow_s",
+                   type=float, default=None, metavar="S",
+                   help="tail keep-rule: a request slower than this end "
+                        "to end is kept whatever the head decision")
+    p.add_argument("--trace-tenant-rates", "--trace_tenant_rates",
+                   dest="trace_tenant_rates", default=None, metavar="JSON",
+                   help="per-tenant head-rate overrides as a JSON object")
+    p.add_argument("--replicas", type=int, default=0,
+                   help="also run the trace through N SlotEngine replicas "
+                        "behind the fault-tolerant router on this device "
+                        "(serve/router.py; 0 = skip)")
+    p.add_argument("--fault-plan", dest="fault_plan", default=None,
+                   metavar="JSON",
+                   help="inject a serve/faults.py FaultPlan (a JSON string "
+                        "or a path to a JSON file) into the router run, "
+                        "whose row then reports goodput under those "
+                        "faults (requires --replicas)")
+    p.add_argument("--slo", default=None, metavar="JSON|PATH",
+                   help="SLO config (serve/slo.py SLOConfig: ttft_p99_s/"
+                        "tpot_p99_s/error_rate/availability + windows): "
+                        "arms the burn-rate watchdog on the router run; "
+                        "alerts land in the trace and can trip the "
+                        "router's brown-out (requires --replicas)")
+    p.add_argument("--alert-sink", "--alert_sink", dest="alert_sink",
+                   action="append", default=None, metavar="KIND:TARGET",
+                   help="repeatable; push SLO alert edges to a sink: "
+                        "command:..., webhook:http://..., jsonl:path "
+                        "(retry backoff, dead-sink breaker); needs --slo")
+    # the later slices' flags: accepted, and refused by ROADMAP item
+    for flags, kw, _ in _LATER:
+        p.add_argument(*flags, default=None, help=argparse.SUPPRESS, **kw)
     p.add_argument("--model", default="lm_tiny",
                    choices=("lm_tiny", "lm_base"),
                    help="registry model (weights from --seed); lm_tiny "
@@ -795,6 +1028,43 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+# the reference bench's flags that belong to later slices of the port:
+# ((flags...), argparse keywords, ROADMAP item)
+_LATER = (
+    (("--frontdoor",), {"action": "store_true"}, "A6b"),
+    (("--sse-out",), {}, "A6b"),
+    (("--qos",), {"action": "store_true"}, "A6b"),
+    (("--qos-duration",), {"type": float}, "A6b"),
+    (("--workload",), {}, "A6b"),
+    (("--procs",), {"type": int}, "A6c"),
+    (("--streaming",), {"action": "store_true"}, "A6c"),
+    (("--cache-aware",), {"action": "store_true"}, "A6c"),
+    (("--autoscale",), {"action": "store_true"}, "A6c"),
+    (("--autoscale-max",), {"type": int}, "A6c"),
+    (("--standby",), {"type": int}, "A6c"),
+    (("--metrics-port", "--metrics_port"), {"type": int}, "A6d"),
+    (("--telemetry-out", "--telemetry_out"), {}, "A6d"),
+    (("--scrape-hz",), {"type": float}, "A6d"),
+    (("--otlp-out", "--otlp_out"), {}, "A6d"),
+    (("--otlp-endpoint", "--otlp_endpoint"), {}, "A6d"),
+    (("--otlp-push-overhead",), {"action": "store_true"}, "A6d"),
+    (("--trace-overhead",), {"action": "store_true"}, "A6d"),
+    (("--trace-sampling",), {"action": "store_true"}, "A6d"),
+    (("--adaptive-sampling",), {"action": "store_true"}, "A6d"),
+    (("--trace-budget-sps",), {"type": float}, "A6d"),
+)
+
+
+def _refuse_later_flags(args) -> None:
+    """A flag of a later slice raises NotImplementedError naming its
+    ROADMAP item, as the training config's unported fields do."""
+    for flags, _, item in _LATER:
+        given = getattr(args, flags[0].lstrip("-").replace("-", "_"))
+        if given is not None and given is not False:   # 0 is a value
+            raise NotImplementedError(
+                f"{flags[0]} is not ported yet (ROADMAP {item})")
+
+
 def _print_rows(rows) -> None:
     for r in rows:
         line = (f"  {r['mode']:>12}: {r['tokens_per_sec']:8.1f} tok/s  "
@@ -806,6 +1076,11 @@ def _print_rows(rows) -> None:
         if "preemptions" in r:
             line += (f"  preemptions {r['preemptions']}  kv "
                      f"{r['kv_bytes_per_token']:.0f} B/token")
+        if "retries" in r:
+            line += (f"  retries {r['retries']:.0f}  failovers "
+                     f"{r['failovers']:.0f}  breaker trips "
+                     f"{r['breaker_trips']:.0f}  statuses {r['statuses']}  "
+                     f"replicas {r['replica_states']}")
         print(line)
         ph = r.get("phases")
         if ph:
@@ -817,10 +1092,11 @@ def _print_rows(rows) -> None:
 def serve_checkpoint(ckpt_dir, prompts, *, max_new_tokens=64,
                      temperature=0.0, top_k=0, top_p=0.0, eos_id=None,
                      max_slots=4, decode_burst=1, seed=0, device="cuda",
-                     kv_cache="policy"):
+                     kv_cache="policy", tracer=None):
     """Serve `prompts` (strings) from the LM checkpoint under `ckpt_dir`
     through a SlotEngine with one prompt bucket (the smallest power of
-    two >= 8 that holds the longest prompt) and the Scheduler. Returns
+    two >= 8 that holds the longest prompt) and the Scheduler; `tracer`
+    (utils/trace.py TraceRecorder) records the run's timeline. Returns
     (completions sorted by request id, elapsed seconds, step)."""
     from ddp_practice_tpu_torch.generate import load_lm
     from ddp_practice_tpu_torch.inference import encode_bytes
@@ -836,7 +1112,13 @@ def serve_checkpoint(ckpt_dir, prompts, *, max_new_tokens=64,
         max_slots=max_slots, prompt_buckets=(bucket,),
         temperature=temperature, top_k=top_k, top_p=top_p, eos_id=eos_id,
         decode_burst=decode_burst))
-    sched = Scheduler(engine, max_queue=max(64, len(prompts)))
+    if tracer is not None:
+        from ddp_practice_tpu_torch.utils.trace import label_replica
+
+        engine.set_tracer(tracer, 0)
+        label_replica(tracer, 0, max_slots)
+    sched = Scheduler(engine, max_queue=max(64, len(prompts)),
+                      tracer=tracer)
     t0 = time.monotonic()
     for i, text in enumerate(prompts):
         sched.submit(Request(rid=i, prompt=encode_bytes(text)[0].tolist(),
@@ -850,17 +1132,14 @@ def _serve_checkpoint(args) -> int:
     from ddp_practice_tpu_torch.generate import cut_at_eos
     from ddp_practice_tpu_torch.inference import decode_bytes
 
-    if args.trace_out:
-        raise NotImplementedError(
-            "--trace_out (the serving timeline) is not ported yet "
-            "(ROADMAP A6)")
+    tracer = _make_tracer(**_sampling(args)) if args.trace_out else None
     prompts = args.prompt or ["\n"]
     completions, elapsed, step = serve_checkpoint(
         args.ckpt_dir, prompts, max_new_tokens=args.max_new_tokens,
         temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
         eos_id=args.eos_id, max_slots=args.max_slots or 4,
         decode_burst=args.decode_burst or 1, seed=args.seed,
-        device=args.device)
+        device=args.device, tracer=tracer)
     for c in completions:
         ttft = "" if c.ttft is None else f" ttft {c.ttft:.3f}s"
         print(f"--- request {c.rid} [{c.status}]{ttft} ---")
@@ -871,17 +1150,35 @@ def _serve_checkpoint(args) -> int:
     print(f"[serve] ckpt step {step}: {len(completions)} requests, {tokens} "
           f"tokens in {elapsed:.2f}s ({tokens / max(elapsed, 1e-9):.1f} "
           f"tok/s)")
+    if tracer is not None:
+        tracer.save(args.trace_out)
+        print(f"wrote trace to {args.trace_out} ({len(tracer)} events)")
     return 0
+
+
+def _sampling(args) -> dict:
+    """The recorder's sampling knobs from the command line."""
+    return {"sample": 1.0 if args.trace_sample is None
+            else args.trace_sample,
+            "keep_slow_s": args.trace_keep_slow_s,
+            "tenant_rates": (json.loads(args.trace_tenant_rates)
+                             if args.trace_tenant_rates else None)}
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    _refuse_later_flags(args)
     if args.ckpt_dir:
         return _serve_checkpoint(args)
-    if args.trace_out:
-        raise NotImplementedError(
-            "--trace_out (the serving timeline) is not ported yet "
-            "(ROADMAP A6)")
+    if args.alert_sink and not args.slo:
+        raise SystemExit("--alert-sink needs --slo (the sinks carry the "
+                         "watchdog's trip/resolve edges)")
+    if args.fault_plan and not args.replicas:
+        raise SystemExit("--fault-plan needs --replicas N (faults are "
+                         "injected into the router fleet run)")
+    if args.slo and not args.replicas:
+        raise SystemExit("--slo needs --replicas N (the watchdog feeds "
+                         "the router's brown-out hook)")
     if args.eos_id is None:
         args.eos_id = 46
     if args.kv_int8 and not args.shared_prefix:
@@ -935,13 +1232,25 @@ def main(argv=None) -> int:
               f"{report['token_identity']:.2f}")
         return 0
     kv = {"bf16": torch.bfloat16, "int8": "int8", None: None}
+    fleet = {}
+    if args.replicas:
+        from ddp_practice_tpu_torch.serve.faults import FaultPlan
+
+        fleet = dict(replicas=args.replicas, slo=args.slo,
+                     alert_sinks=args.alert_sink,
+                     fault_plan=(FaultPlan.from_json(args.fault_plan)
+                                 if args.fault_plan else None))
+    sampling = _sampling(args)
     report = serve_bench(
         n_requests=args.requests, max_len=args.max_len,
         prompt_buckets=args.prompt_buckets,
         prompt_len_range=args.prompt_len_range,
         max_new_range=args.max_new_range, eos_id=args.eos_id,
         kv_cache_dtype=kv[args.kv_cache_dtype], paged=args.paged,
-        **{"max_slots": 4, **widths, **opt},
+        trace_out=args.trace_out, trace_sample=sampling["sample"],
+        trace_keep_slow_s=sampling["keep_slow_s"],
+        trace_tenant_rates=sampling["tenant_rates"],
+        **{"max_slots": 4, **widths, **opt, **fleet},
     )
     if args.json:
         print(json.dumps(report))
@@ -952,12 +1261,29 @@ def main(argv=None) -> int:
     rows = [report["continuous"], report["static"]]
     if args.paged:
         rows.append(report["paged"])
+    if "router" in report:
+        rows.append(report["router"])
     _print_rows(rows)
     print(f"  continuous/static throughput: "
           f"{report['throughput_ratio']:.2f}x")
     if args.paged:
         print(f"  paged/static: {report['paged_vs_static']:.2f}x  "
               f"paged/continuous: {report['paged_vs_continuous']:.2f}x")
+    if "router" in report:
+        faults = " under injected faults" if args.fault_plan else ""
+        print(f"  router{faults}: goodput "
+              f"{report['router']['goodput_tokens_per_sec']:.1f} tok/s, "
+              f"router/continuous throughput "
+              f"{report['router_vs_continuous']:.2f}x")
+        slo_rep = report["router"].get("slo")
+        if slo_rep:
+            trips = sum(a["event"] == "trip" for a in slo_rep["alerts"])
+            print(f"  slo: {trips} alert trip(s), active at end: "
+                  f"{[k for k, v in slo_rep['active'].items() if v]}")
+    if "trace_out" in report:
+        print(f"  wrote trace to {report['trace_out']} "
+              f"({report['trace_events']} events): validate with "
+              f"tools/check_traces.py")
     return 0
 
 

@@ -25,7 +25,11 @@ included, and a sorted MoE layer at expert 2 against one rank: `-k
 expert`); the pipeline schedules (E/F/G on each stage's microbatches
 under GPipe, 1F1B and interleaved against the same schedule on the plain
 versions, with the launches each schedule implies, and lm_pipe steps at
-pipe 2 x tensor 2 against one rank: `-k pipe`);
+pipe 2 x tensor 2 against one rank: `-k pipe`); the router over two
+replicas (lm_base fp32 under a crash: tokens equal one engine's, kernel
+A's launches over both replicas; serve_bench's router row per kernel,
+A and B; `serve --replicas 2 --trace_out` validated: `-k "router or
+trace_out_on_the_card"`);
 the split over the cache at forced plans and at ranges the old kernel
 refused (L = 65536), its arrival counters across calls, and kernel C
 with fp32 queries over a bf16 pool at S > 1 against the split schedule's
@@ -2000,3 +2004,99 @@ def test_pipe_tensor_steps_equal_one_rank(card, schedule):
         np.testing.assert_allclose(losses, want_losses, rtol=2e-4)
     for n, w in want.items():
         torch.testing.assert_close(res[0][1][n], w, rtol=1e-3, atol=1e-5)
+
+
+# ------------------------------------------------- the router (ROADMAP A6a)
+def _router_trace(n, seed):
+    from ddp_practice_tpu_torch.serve.bench import build_trace
+
+    return build_trace(n_requests=n, rate_hz=50.0, vocab=256,
+                       prompt_len_range=(4, 40), max_new_range=(8, 24),
+                       seed=seed)
+
+
+def test_router_failover_on_the_card_keeps_tokens(card):
+    """lm_base fp32 (d 768, depth 12, 12 heads of 64), two SlotEngine
+    replicas on one card behind the router on a FakeClock, replica 1
+    crashed mid-decode: none lost, every request's greedy tokens equal
+    one engine's fault-free run, the failover fired, and kernel A
+    launched depth x the decode steps of both replicas."""
+    from ddp_practice_tpu_torch.models import create_model
+    from ddp_practice_tpu_torch.serve import (
+        EngineConfig, FakeClock, FaultPlan, FaultSpec, Request,
+        RouterConfig, Scheduler, SlotEngine, make_router)
+
+    model = create_model("lm_base", device="cuda", seed=0, vocab_size=256,
+                         max_len=1024, pos_emb="rope")
+    cfg = EngineConfig(max_slots=4, max_len=1024, prompt_buckets=(16, 64),
+                       decode_burst=4)
+    trace = _router_trace(8, seed=5)
+    sched = Scheduler(SlotEngine(model, cfg), clock=FakeClock(),
+                      max_queue=64)
+    for t in trace:
+        sched.submit(Request(rid=t["rid"], prompt=t["prompt"],
+                             max_new_tokens=t["max_new_tokens"]))
+    want = {c.rid: c.tokens for c in sched.run_until_idle()}
+    ops.reset_launches()
+    router = make_router(
+        model, 2, cfg, clock=FakeClock(), max_queue=64,
+        config=RouterConfig(retry_jitter=0.0),
+        fault_plan=FaultPlan([FaultSpec(kind="crash", tick=3, replica=1)]))
+    router.warmup()
+    for t in trace:
+        router.submit(Request(rid=t["rid"], prompt=t["prompt"],
+                              max_new_tokens=t["max_new_tokens"]))
+    comps = router.run_until_idle()
+    assert sorted(c.rid for c in comps) == [t["rid"] for t in trace]
+    assert all(c.status == "length" for c in comps)
+    assert {c.rid: c.tokens for c in comps} == want
+    assert router.metrics.failovers.value >= 1
+    steps = sum(h.engine.decode_steps for h in router.handles)
+    assert ops.LAUNCHES["decode_attention"] == model.depth * steps
+
+
+@pytest.mark.parametrize("kv", [None, "int8"])
+def test_router_row_launches_its_kernel_per_replica_step(card, kv):
+    """serve_bench's router row on the card (4 heads of 64, two
+    replicas, a crash and a failed admission): kernel A (B over an int8
+    cache) launched depth x the replicas' decode steps, warmup
+    included, and no other decode kernel."""
+    from ddp_practice_tpu_torch.serve import FaultPlan, FaultSpec
+    from ddp_practice_tpu_torch.serve.bench import serve_bench
+
+    report = serve_bench(
+        n_requests=8, rate_hz=100.0, vocab=64, hidden=256, depth=2,
+        heads=4, mlp=512, max_len=256, prompt_buckets=(16, 64),
+        prompt_len_range=(2, 30), max_new_range=(4, 24), eos_id=None,
+        kv_cache_dtype=kv, replicas=2,
+        fault_plan=FaultPlan([
+            FaultSpec(kind="crash", tick=3, replica=1, down_s=0.05),
+            FaultSpec(kind="admit_fail", tick=2, replica=0)]))
+    r = report["router"]
+    assert r["statuses"] == {"length": 8}
+    kernel = "decode_attention_int8" if kv else "decode_attention"
+    launched = {k: v for k, v in r["kernel_launches"].items() if v}
+    assert launched == {kernel: 2 * r["decode_steps"]}
+    assert r["compile_stats"] == r["warm_compile_stats"]
+
+
+def test_cli_serve_trace_out_on_the_card(card, tmp_path, capsys):
+    import json
+
+    from ddp_practice_tpu_torch import cli
+    from tools.check_traces import validate
+
+    path = tmp_path / "t.json"
+    plan = json.dumps({"faults": [
+        {"kind": "crash", "tick": 3, "replica": 1, "down_s": 0.05},
+        {"kind": "nan_logits", "tick": 2, "replica": 0, "slot": 0}]})
+    assert cli.main(["serve", "--replicas", "2", "--fault-plan", plan,
+                     "--slo", '{"ttft_p99_s": 1.0, "error_rate": 0.1}',
+                     "--trace_out", str(path), "--requests", "8",
+                     "--rate", "50", "--max-new-range", "4,32"]) == 0
+    out = capsys.readouterr().out
+    assert "router x2" in out and "wrote trace to" in out
+    trace = json.loads(path.read_text())
+    assert validate(trace) == []
+    assert {"prefill", "decode_burst", "dispatch"} <= {
+        e["name"] for e in trace["traceEvents"]}

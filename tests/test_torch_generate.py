@@ -14,12 +14,15 @@ CPU, against the JAX package's generate.py:
 - a checkpoint the port's own Trainer wrote (two CPU steps) generates
   what the trained model itself decodes;
 - `serve/bench.py --ckpt_dir` completes every prompt with generate.py's
-  greedy text; `--trace_out` raises naming ROADMAP A6; both entry points
-  run on the card unless asked for the CPU;
+  greedy text; `--trace_out` on it and on the bench writes a trace that
+  tools/check_traces.py accepts; both entry points run on the card
+  unless asked for the CPU;
 - under the bf16 policy the streaming cast (bf16 parameters, LayerNorm
   kept fp32) changes no logit;
 - a non-LM checkpoint is refused.
 """
+
+import json
 
 import jax
 import jax.numpy as jnp
@@ -46,6 +49,7 @@ from ddp_practice_tpu_torch.inference import (
 from ddp_practice_tpu_torch.models import create_model
 from ddp_practice_tpu_torch.serve import bench
 from ddp_practice_tpu_torch.train.loop import Trainer
+from tools.check_traces import validate
 
 SEQ = 48
 EXTRA = {"precision_policy": "fp32", "model": "lm_tiny",
@@ -132,11 +136,25 @@ def test_serve_ckpt_completes_every_prompt_as_generate(jax_ckpt_dir,
     assert lines[-1].startswith("[serve] ckpt step 2: 2 requests, 16 tokens")
 
 
-@pytest.mark.parametrize("argv", [["--ckpt_dir", "ck"], []])
-def test_serve_trace_out_names_its_roadmap_item(argv, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        bench.main(argv + ["--trace_out", str(tmp_path / "t.json"),
-                           "--device", "cpu"])
+@pytest.mark.parametrize("argv", [["--ckpt_dir", None], []])
+def test_serve_trace_out_names_its_roadmap_item(argv, jax_ckpt_dir,
+                                                tmp_path, capsys):
+    """Both serve entry points, the checkpoint server and the bench,
+    write a request-lifecycle trace that tools/check_traces.py accepts
+    (the flag named its ROADMAP item before the recorder was ported)."""
+    path = tmp_path / "t.json"
+    if argv:
+        argv = ["--ckpt_dir", jax_ckpt_dir, "--prompt", "ab",
+                "--max_new_tokens", "4"]
+    else:
+        argv = ["--requests", "3", "--max-new-range", "2,12"]
+    assert bench.main(argv + ["--trace_out", str(path),
+                              "--device", "cpu"]) == 0
+    assert "wrote trace to" in capsys.readouterr().out
+    trace = json.loads(path.read_text())
+    assert validate(trace) == []
+    names = {e["name"] for e in trace["traceEvents"]}
+    assert {"prefill", "decode_burst", "request"} <= names
 
 
 def test_a_port_written_checkpoint_generates(tmp_path, capsys):

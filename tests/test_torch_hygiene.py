@@ -18,7 +18,9 @@
   (and config, cli, losses, flash attention and the flash experiments,
   the ConvNet and its BatchNorm, checkpoint, data/ingest, generate and
   serve/bench, the ResNets, augmentation, the native loader's binding and
-  the converter) only the standard library, numpy, torch and the port.
+  the converter, and the serving plane: health, faults, metrics, SLO,
+  fair share, affinity, the router, the trace recorder, logging, the
+  POST helper) only the standard library, numpy, torch and the port.
 - Entry points asked for the card raise without one; chip_smoke exits
   non-zero with no result line, both without a card and when it stands
   alone outside the repository.
@@ -236,11 +238,15 @@ TRAIN_SLICE = ["data/sharding.py", "data/lm_corpus.py", "data/datasets.py",
                "parallel/ring.py", "parallel/ulysses.py",
                "parallel/pipeline.py", "parallel/pipeline_1f1b.py",
                "parallel/interleave.py", "models/pipeline_lm.py",
-               "models/pipeline_vit.py"]
+               "models/pipeline_vit.py", "serve/health.py",
+               "serve/faults.py", "serve/metrics.py", "serve/slo.py",
+               "serve/fairshare.py", "serve/affinity.py", "serve/router.py",
+               "utils/trace.py", "utils/logging.py", "utils/http_post.py"]
 STDLIB = ("__future__", "typing", "argparse", "collections", "contextlib",
-          "ctypes", "dataclasses", "fcntl", "gc", "gzip", "hashlib", "json",
-          "logging", "math", "os", "pathlib", "pickle", "platform", "re",
-          "shutil",
+          "ctypes", "dataclasses", "enum", "fcntl", "functools", "gc",
+          "gzip", "hashlib", "heapq", "itertools", "json", "logging", "math",
+          "os", "pathlib", "pickle", "platform", "re", "shlex", "shutil",
+          "zlib",
           "socket", "statistics", "struct", "subprocess", "sys", "tarfile",
           "tempfile", "threading", "time", "traceback", "urllib.request",
           "datetime",
@@ -276,8 +282,10 @@ def test_entry_points_refuse_a_missing_card():
             entry(n_requests=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         bench.serve_bench(n_requests=1, paged=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench.serve_bench(n_requests=1, replicas=2)
     for flags in (["--paged"], ["--shared-prefix", "--kv-int8"],
-                  ["--spec-decode"]):
+                  ["--spec-decode"], ["--replicas", "2"]):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             bench.main(["--requests", "1", *flags])
     for entry in (benchmarks.bench_train, benchmarks.bench_lm_train,
