@@ -228,7 +228,7 @@ Phases, each of which raises on failure (nothing is caught and passed):
    last below the first), median step, images/s per card, MFU, eval
    accuracy, peak memory; each profile: host wall, device busy, idle
    share, device ops a step, device time by kind;
-Phases 24-27 run first of all, right after setup: their decode steps are
+Phases 24-26 run first of all, right after setup: their decode steps are
 host-bound, and a finished torch.profiler trace adds host time to every
 later launch in the process.
 24. MoE serving (ROADMAP A10): lm_moe at lm_base width (12 blocks of d
@@ -250,12 +250,10 @@ later launch in the process.
    plain masked decode, no kernel) trains 6 steps through the CLI with a
    checkpoint; load_lm restores its router biases (non-zero, equal to the
    trained ones), generate.py and serve/bench.py `--ckpt_dir` complete;
-27. bench (ROADMAP A9a): benchmarks.py's convnet entry (bench_train) and
-   lm_decode (lm_base) and lm_decode on lm_moe at lm_base width
-   (bench_lm_decode, 128 new tokens where the suite's entry takes 512),
-   each at calls=2: the headline keys, finite numbers, the convnet
-   entry's window_spread_pct (the CPU tests hold every key against the
-   reference's).
+27. (none: the bench's entries are timed by benchmarks.py alone, `python
+   -m ddp_practice_tpu_torch.benchmarks --models
+   convnet,lm_decode,lm_decode_moe`; the CPU tests hold every report key
+   against the reference's.)
 28. parallel (ROADMAP A8a; run right after setup): lm_base at full width
    (d 768, 12 heads, mlp 3072, depth 12, s 2048, fp32, flash, SGD with
    momentum and clipping, one seed's weights) through the CLI's Trainer,
@@ -325,12 +323,10 @@ later launch in the process.
    PAR_RTOL / PAR_ATOL) with each rank's E and G+F launches a step at
    `_pipe_expected`'s formulas, printed by rank. Then `--model lm_pipe
    --pipe 2 --pipe_schedule 1f1b` through the CLI's parser and `fit` (5
-   steps, no compare) and `bench_pipeline` (pipe 4 as threads, the
-   reference's default widths, M 2, 4 and 8 at 4 rows a microbatch,
-   bf16): ms a step and the card's peak allocated bytes for each
-   (schedule, M); ranks sharing one card, so the ms are not a speed. The
-   legs' launches join the flash rows in the kernels' record; the phase
-   prints its wall time.
+   steps, no compare). The legs' launches join the flash rows in the
+   kernels' record; the phase prints its wall time. (`bench_pipeline`,
+   the schedule sweep, is benchmarks.py's `pipeline` entry: `python -m
+   ddp_practice_tpu_torch.benchmarks --models pipeline`.)
 
 32. A8e (ROADMAP A8e-1, A8e-2; right after phase 31): elastic, lm_base
    at full width (bf16, seq 512, b 4, SGD momentum), 2 epochs of 3 steps
@@ -374,12 +370,35 @@ later launch in the process.
    launches as in leg 1, and the trace passes tools/check_traces.py's
    `validate`. Its A launches join the kernels' record; the phase prints
    its wall time.
+34. front door and fleet (ROADMAP A6b, A6c-1; right after phase 33):
+   lm_base fp32 with ROUTER's engine and trace ranges. Leg 1:
+   frontdoor_bench(procs=2), 12 requests at 16/s: wire against
+   in-process (token identity 1.0), chunked prefill through two paged
+   front doors (18 requests, long prompts of 720, chunk 32 against 0;
+   identity 1.0, the short requests' TTFT p99 ratio printed), a SIGKILL
+   of worker 0 (`WorkerSpec(device="cuda")` processes on this card) 0.75 s
+   into the replay (none lost, a restart, every socket ending in a typed
+   ok terminal), mixed greedy and sampled traffic (no new engine shape);
+   tools/check_stream.py's --sse audit clean on every capture. Leg 2:
+   qos_bench(procs=2) at the reference's traffic (100 req/s, hostile share
+   4, 2 s, 2 slots, buckets 16/64): none lost in FIFO, fair and the fair
+   fleet's SIGKILL leg, fair and SIGKILL tokens identical to FIFO's;
+   isolation ratio, Jain's index and the alert attribution printed
+   beside the reference's acceptance. In both legs each in-process row
+   launched only its kernel (A; C in the paged rows), 12 x its decode
+   steps, the rows' sum is the leg's whole count, and each live worker
+   launched A 12 x its own decode steps. Leg 3, bf16, ungated:
+   fleet_bench(procs=2, reps=2) on phase 33's trace: the fleet's latency
+   p50 and tokens/s against the in-process x2 router's. Every leg reaps
+   its workers and fails if one outlived its supervisor; the phase prints
+   each leg's wall and its own, with the card's name and power limit.
 
 Launch counts are zeroed just before each phase's run and read just
 after it; a train leg's count is its wrappers' (eager calls) plus its
 graph replays' (utils/graphs.REPLAYED). The kernels' record adds the MoE
 serve rows' launches to A's and C's, the router phase's to A's, the
-sorted decode leg's to J's, the sequence and pipeline legs' to
+front door phase's fp32 legs' (in-process rows and live workers) to A's
+and C's, the sorted decode leg's to J's, the sequence and pipeline legs' to
 E/F/G's, and the expert legs' to E/F/G's and J/K's. The ConvNet's, lm_base's and vit_tiny's
 leg lines end with the card's name and power limit. Before the card's
 line the script prints its own wall time. The second-to-last line is the
@@ -1771,6 +1790,228 @@ def router_phase(torch, ops):
     torch.cuda.empty_cache()
     log(f"router phase wall {time.monotonic() - t_phase:.1f} s")
     return {flat: total}
+
+
+# ------------------------------------------------- front door and fleet
+def _door_line(r) -> str:
+    ttft, lat = r.get("ttft_s") or {}, r.get("latency_s") or {}
+    line = (f"  {r['mode']:>36}: {r['goodput_tokens_per_sec']:9.1f} tok/s"
+            f"  ttft p50/p99 {ttft.get('p50', 0) * 1e3:.1f}/"
+            f"{ttft.get('p99', 0) * 1e3:.1f} ms  latency p50/p99 "
+            f"{lat.get('p50', 0) * 1e3:.1f}/{lat.get('p99', 0) * 1e3:.1f} "
+            f"ms  lost {r['lost']}  statuses {r['statuses']}")
+    if "decode_steps" in r:
+        line += f"  decode steps {r['decode_steps']}"
+    return line
+
+
+def _check_door_launches(rows, depth, kernel_of, workers=()) -> dict:
+    """Each in-process row launched only its own kernel, depth x its
+    decode steps times; each worker likewise, by its own counters.
+    Returns the rows' and the workers' launches, summed per kernel."""
+    total = {}
+    for r in rows:
+        launched = {k: v for k, v in r["kernel_launches"].items() if v}
+        want = {kernel_of[r["mode"]]: depth * r["decode_steps"]}
+        if launched != want:
+            raise AssertionError(
+                f"{r['mode']}: launches {launched}, want {want} (depth "
+                f"{depth} x {r['decode_steps']} decode steps)")
+        for k, v in launched.items():
+            total[k] = total.get(k, 0) + v
+    for w in workers:
+        launched = {k: v for k, v in w["kernel_launches"].items() if v}
+        want = {"decode_attention": depth * w["decode_steps"]}
+        if launched != want:
+            raise AssertionError(
+                f"worker {w['replica']} (pid {w['pid']}): launches "
+                f"{launched}, want {want} (depth {depth} x "
+                f"{w['decode_steps']} of its decode steps)")
+        for k, v in launched.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def _reaped(label) -> None:
+    from ddp_practice_tpu_torch.serve.supervisor import reap_all
+
+    leaked = reap_all()
+    if leaked:
+        raise AssertionError(f"{label}: worker processes outlived their "
+                             f"supervisor: {leaked}")
+
+
+def _ok_statuses(label, statuses) -> None:
+    if set(statuses) - {"length", "eos"}:
+        raise AssertionError(f"{label}: a stream did not end in a typed "
+                             f"ok terminal: {statuses}")
+
+
+def frontdoor_phase(torch, ops):
+    """ROADMAP A6b and A6c-1 (the docstring's phase 34): the HTTP/SSE
+    front door, multi-tenant QoS and the supervised worker fleet at
+    lm_base, fp32 legs gated, a bf16 fleet leg measured."""
+    from ddp_practice_tpu_torch.serve.bench import (
+        fleet_bench,
+        frontdoor_bench,
+        qos_bench,
+    )
+
+    t_phase = time.monotonic()
+    flat, paged = "decode_attention", "paged_decode_attention"
+    door = {k: ROUTER[k] for k in ("max_slots", "max_len", "prompt_buckets",
+                                   "prompt_len_range", "max_new_range",
+                                   "decode_burst")}
+    model = _lm_base(torch, "fp32")
+    depth = model.depth
+    totals = {flat: 0, paged: 0}
+
+    def add(launched):
+        for k, v in launched.items():
+            totals[k] = totals.get(k, 0) + v
+
+    # leg 1: frontdoor_bench, all four arms, fp32
+    ops.reset_launches()
+    t0 = time.monotonic()
+    try:
+        fd = frontdoor_bench(model=model, procs=2, n_requests=12,
+                             rate_hz=16.0, seed=0, **door)
+    finally:
+        _reaped("frontdoor_bench")
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    cp, sk, sm = fd["chunked_prefill"], fd["sigkill"], fd["sampling"]
+    log(f"frontdoor[fp32, procs 2] on {fd['device']}: wall "
+        f"{time.monotonic() - t0:.1f} s, launches {launches} [{CARD}]")
+    for r in (fd["in_process"], fd["wire"], cp["unchunked"], cp["chunked"],
+              sk, sm):
+        log(_door_line(r))
+    log(f"  wire/in-process goodput {fd['goodput_ratio']:.3f}x  token "
+        f"identity {fd['token_identity']:.3f}  --sse audit "
+        f"{fd['check_stream']}")
+    log(f"  chunked prefill (18 requests, long prompts 720, chunk 32 vs "
+        f"0): short-request TTFT p99 "
+        f"{cp['chunked']['ttft_short_s']['p99'] * 1e3:.1f} vs "
+        f"{cp['unchunked']['ttft_short_s']['p99'] * 1e3:.1f} ms, ratio "
+        f"{fd['ttft_p99_ratio_chunked']:.3f}x (reference acceptance <= "
+        f"0.85)  identity {cp['token_identity']:.3f}")
+    log(f"  SIGKILL of worker 0 at {sk['kill_at_s']} s: lost "
+        f"{fd['sigkill_lost']}  resumed markers {sk['resumed_markers']}  "
+        f"restarts {sk['worker_restarts']}  audit {sk['check_stream']}  "
+        f"workers {json.dumps(sk['workers'])}")
+    log(f"  sampling churn: new shapes {fd['sampling_new_compiles']} "
+        f"({sm['compile_stats_before']} -> {sm['compile_stats_after']})  "
+        f"audit {sm['check_stream']}")
+    if fd["token_identity"] != 1.0 or cp["token_identity"] != 1.0:
+        raise AssertionError(
+            f"front door identity: wire {fd['token_identity']}, chunked "
+            f"{cp['token_identity']}")
+    if fd["sigkill_lost"] != 0 or sum(sk["worker_restarts"]) < 1:
+        raise AssertionError(
+            f"SIGKILL arm: lost {fd['sigkill_lost']}, restarts "
+            f"{sk['worker_restarts']}")
+    for label, r in (("wire", fd["wire"]), ("unchunked", cp["unchunked"]),
+                     ("chunked", cp["chunked"]), ("sigkill", sk),
+                     ("sampling", sm)):
+        _ok_statuses(label, r["statuses"])
+    audits = {"wire": fd["check_stream"], "sigkill": sk["check_stream"],
+              "sampling": sm["check_stream"],
+              "unchunked": cp["unchunked"]["check_stream"],
+              "chunked": cp["chunked"]["check_stream"]}
+    bad = {k: v for k, v in audits.items() if v.get("ok") is not True}
+    if bad:
+        raise AssertionError(f"check_stream: {bad}")
+    if fd["sampling_new_compiles"] != 0:
+        raise AssertionError(f"sampling churn added "
+                             f"{fd['sampling_new_compiles']} shapes")
+    kernel_of = {fd["in_process"]["mode"]: flat, fd["wire"]["mode"]: flat,
+                 sm["mode"]: flat, cp["unchunked"]["mode"]: paged,
+                 cp["chunked"]["mode"]: paged}
+    rows = (fd["in_process"], fd["wire"], cp["unchunked"], cp["chunked"], sm)
+    inproc = _check_door_launches(rows, depth, kernel_of)
+    if {k: v for k, v in launches.items() if v} != inproc:
+        raise AssertionError(f"leg launches {launches} != the rows' "
+                             f"{inproc}")
+    add(inproc)
+    add(_check_door_launches((), depth, kernel_of, sk["workers"]))
+    log(f"  A {inproc.get(flat, 0)} = {depth} x the in-process rows' decode"
+        f" steps, C {inproc.get(paged, 0)} = {depth} x the paged rows'; "
+        f"each live worker's A = {depth} x its own decode steps")
+
+    # leg 2: qos_bench at the reference's traffic, fp32
+    ops.reset_launches()
+    t0 = time.monotonic()
+    try:
+        q = qos_bench(model=model, procs=2)
+    finally:
+        _reaped("qos_bench")
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    qk = q["sigkill"]
+    log(f"qos[fp32, procs 2, {json.dumps(q['workload']['duration_s'])} s "
+        f"of {sum(t['rate_rps'] for t in q['workload']['tenants']):.0f} "
+        f"req/s] on {q['device']}: wall {time.monotonic() - t0:.1f} s, "
+        f"launches {launches} [{CARD}]")
+    for r in (q["fifo"], q["fair"], qk):
+        log(_door_line(r))
+        for t, row in r["per_tenant"].items():
+            log(f"      {t:>6}: ttft p99 {row['ttft_s']['p99'] * 1e3:.1f} ms"
+                f"  window tokens {row['window_tokens']}  "
+                f"{row['ok']}/{row['completions']} ok")
+    iso = q["isolation_ttft_p99_ratio"]
+    log(f"  isolation_ttft_p99_ratio {iso} (reference acceptance <= 0.7)  "
+        f"fairness_index {q['fairness_index']:.4f} (>= 0.9)  "
+        f"hostile_alert_tripped {q['hostile_alert_tripped']:.0f} (1)  "
+        f"compliant_clean {q['compliant_clean']:.0f} (1)")
+    log(f"  fair vs FIFO token identity {q['token_identity']:.3f}  SIGKILL "
+        f"leg: identity {qk['token_identity']:.3f}, lost {qk['lost']}, "
+        f"restarts {qk['worker_restarts']}, fairness "
+        f"{qk['fairness_index']:.4f}  workers {json.dumps(qk['workers'])}")
+    if q["fifo"]["lost"] or q["fair"]["lost"] or qk["lost"]:
+        raise AssertionError(f"qos lost: fifo {q['fifo']['lost']}, fair "
+                             f"{q['fair']['lost']}, sigkill {qk['lost']}")
+    if q["token_identity"] != 1.0 or qk["token_identity"] != 1.0:
+        raise AssertionError(f"qos identity: fair {q['token_identity']}, "
+                             f"sigkill {qk['token_identity']}")
+    kernel_of = {q["fifo"]["mode"]: flat, q["fair"]["mode"]: flat}
+    inproc = _check_door_launches((q["fifo"], q["fair"]), depth, kernel_of)
+    if {k: v for k, v in launches.items() if v} != inproc:
+        raise AssertionError(f"leg launches {launches} != the rows' "
+                             f"{inproc}")
+    add(inproc)
+    add(_check_door_launches((), depth, kernel_of, qk["workers"]))
+    del model
+    torch.cuda.empty_cache()
+
+    # leg 3: the fleet against the in-process router, bf16, ungated
+    model = _lm_base(torch, "bf16")
+    ops.reset_launches()
+    t0 = time.monotonic()
+    try:
+        fl = fleet_bench(model=model, procs=2, reps=2, n_requests=12,
+                         rate_hz=16.0, seed=0, **ROUTER)
+    finally:
+        _reaped("fleet_bench")
+    torch.cuda.synchronize()
+    ip, fw = fl["in_process"], fl["fleet"]
+    log(f"fleet[bf16, procs 2, reps 2] on {fl['device']}: wall "
+        f"{time.monotonic() - t0:.1f} s, in-process launches "
+        f"{dict(ops.LAUNCHES)} [{CARD}]")
+    for r in (ip, fw):
+        log(_door_line(r))
+    log(f"  fleet x2 / router x2: latency p50 {fl['latency_ratio_p50']:.3f}x"
+        f" (per rep {fl['latency_ratio_p50_per_rep']}), goodput "
+        f"{fl['goodput_ratio']:.3f}x, tpot p50 {fl['tpot_ratio_p50']:.3f}x, "
+        f"ttft p50 {fl['ttft_ratio_p50']:.3f}x; tokens/s "
+        f"{fw['goodput_tokens_per_sec']:.1f} vs "
+        f"{ip['goodput_tokens_per_sec']:.1f}  workers "
+        f"{json.dumps(fw['workers'])} [{CARD}]")
+    del model
+    torch.cuda.empty_cache()
+    log(f"frontdoor phase wall {time.monotonic() - t_phase:.1f} s; A "
+        f"{totals[flat]}, C {totals[paged]} over the fp32 legs (in-process "
+        f"rows and live workers) [{CARD}]")
+    return totals
 
 
 # ------------------------------------------------------------------ profile
@@ -3553,7 +3794,6 @@ PIPE_LEGS = [
     ("pipe 2 x tensor 2 1f1b", dict(pipe=2, tensor=2), "1f1b", 2, None),
     ("pipe 2 x seq 2 ring gpipe", dict(seq=2, pipe=2), "gpipe", 2, "ring"),
 ]
-PIPE_BENCH_MS = (2, 4, 8)
 
 
 def _pipe_expected(schedule, P, M, stage, seq_rank, sp_impl, depth):
@@ -3604,12 +3844,11 @@ def _pipe_run(torch, state, vocab, batches, *, axes, schedule, M, sp_impl,
 
 def pipe_phase(torch, fa) -> dict:
     """ROADMAP A8d on one card (the docstring's phase 31): lm_pipe's
-    pipelined legs against its one-rank run, `--pipe 2 --pipe_schedule
-    1f1b` through the CLI, and `bench_pipeline`. Returns {"launches": the
-    legs' E/F/G launches, "wall_s"}."""
+    pipelined legs against its one-rank run and `--pipe 2 --pipe_schedule
+    1f1b` through the CLI. Returns {"launches": the legs' E/F/G launches,
+    "wall_s"}."""
     import numpy as np
 
-    from ddp_practice_tpu_torch.benchmarks import bench_pipeline
     from ddp_practice_tpu_torch.cli import build_parser, config_from_args
     from ddp_practice_tpu_torch.models import create_model
     from ddp_practice_tpu_torch.parallel.threads import run_ranks
@@ -3704,21 +3943,6 @@ def pipe_phase(torch, fa) -> dict:
         raise AssertionError(f"pipe[cli]: summary {s}")
     torch.cuda.empty_cache()
 
-    t0 = time.monotonic()
-    held = torch.cuda.memory_allocated()
-    rows = bench_pipeline(microbatch_counts=PIPE_BENCH_MS)
-    for r in rows:
-        log(f"pipe[bench_pipeline] {r['schedule']} pipe "
-            f"{r['num_stages']} (threads sharing one card: not a speed), "
-            f"M {r['microbatches']}, global batch {r['global_batch']}, seq "
-            f"{r['seq_len']}, bf16: {r['ms_per_step']} ms a step, peak "
-            f"allocated {r['temp_bytes']} bytes over the timed steps, loss "
-            f"{r['loss']}, efficiency_pct {r.get('efficiency_pct')} "
-            f"[{CARD}]")
-        if not (math.isfinite(r["loss"]) and r["temp_bytes"]):
-            raise AssertionError(f"pipe[bench_pipeline]: row {r}")
-    log(f"pipe[bench_pipeline] the process held {held} bytes allocated "
-        f"before the bench; wall {time.monotonic() - t0:.1f} s")
     wall = time.monotonic() - t_phase
     log(f"pipe phase: legs' launches (all ranks) {launches}; wall "
         f"{wall:.1f} s")
@@ -4716,63 +4940,6 @@ def moe_checkpoint_leg(torch, ops):
     shutil.rmtree(d, ignore_errors=True)
 
 
-# ------------------------------------------------------ the bench (A9a)
-# the keys the phase reads: tests/test_torch_benchmarks.py holds every key
-# against the reference's report
-BENCH_HEADLINE = {
-    "train": ("images_per_sec", "ms_per_step", "mfu_pct",
-              "window_spread_pct"),
-    "decode": ("tokens_per_sec", "ms_per_token_step", "mbu_pct",
-               "mbu_total_pct"),
-}
-# the suite's lm_decode at a quarter of its new tokens: the suite itself
-# (python -m ddp_practice_tpu_torch.benchmarks) times the full entry
-BENCH_DECODE_TOKENS = 128
-
-
-def bench_phase(torch, ops):
-    """benchmarks.py's entries at calls=2: convnet (bench_train, the
-    suite's configuration), lm_decode (lm_base) and lm_decode on lm_moe
-    at lm_base width, both at BENCH_DECODE_TOKENS new tokens. Each report
-    has its headline keys and finite numbers; the convnet report has its
-    two windows' spread."""
-    from ddp_practice_tpu_torch import benchmarks as bm
-
-    decode = {k: v for k, v in bm._SUITE["lm_decode"].items()
-              if k != "kind"}
-    decode.update(calls=2, max_new_tokens=BENCH_DECODE_TOKENS)
-    moe_kw = {k: v for k, v in MOE.items()
-              if k not in ("moe_group_size", "capacity_factor")}
-    runs = (
-        ("convnet", "train",
-         lambda: bm.run_entry("convnet", {**bm._SUITE["convnet"],
-                                          "calls": 2})),
-        ("lm_decode", "decode",
-         lambda: bm.bench_lm_decode("lm_base", **decode)),
-        ("lm_decode[lm_moe]", "decode",
-         lambda: bm.bench_lm_decode("lm_moe", **decode,
-                                    model_kwargs=moe_kw)),
-    )
-    reports = {}
-    for label, kind, run in runs:
-        ops.reset_launches()
-        t0 = time.monotonic()
-        r = run()
-        wall = time.monotonic() - t0
-        missing = [k for k in BENCH_HEADLINE[kind] if k not in r]
-        if missing:
-            raise AssertionError(f"bench {label}: no {missing} in {sorted(r)}")
-        bad = [k for k, v in r.items() if isinstance(v, (int, float))
-               and not isinstance(v, bool) and not math.isfinite(v)]
-        if bad:
-            raise AssertionError(f"bench {label}: non-finite {bad}")
-        launched = {k: v for k, v in ops.LAUNCHES.items() if v}
-        log(f"bench {label} ({wall:.1f} s, decode launches {launched}) "
-            f"[{CARD}]: {json.dumps(r)}")
-        reports[label] = r
-    return reports
-
-
 def build_loader() -> None:
     """Build (or load) the native batch gather from
     csrc/dataloader.cpp into build/; raises if it cannot."""
@@ -5196,7 +5363,7 @@ def main() -> int:
     pipe = pipe_phase(torch, fa)
     a8e = a8e_phase(torch, fa, fe, gm)
 
-    # the MoE decode legs and the bench's decode entries are host-bound:
+    # the MoE decode legs are host-bound:
     # they run before any torch.profiler trace, which leaves host time on
     # every later launch in the process (experiments/convnet_step.py)
     _, moe_launches = moe_serve_phase(torch, ops)
@@ -5205,8 +5372,8 @@ def main() -> int:
     moe_checkpoint_leg(torch, ops)
     log(f"MoE decode paths' launches: serve {moe_launches}, sorted decode "
         f"J {moe_j}")
-    bench_phase(torch, ops)
     router_launches = router_phase(torch, ops)
+    door_launches = frontdoor_phase(torch, ops)
 
     # the ConvNet's eager steps first: a finished torch.profiler trace
     # adds host time to every later launch in the process
@@ -5370,16 +5537,20 @@ def main() -> int:
     log(f"the pipeline phase's launches (all ranks): {pipe['launches']}")
     log(f"the A8e phase's launches (all legs): {a8e['launches']}")
     log(f"the router phase's launches (both legs): {router_launches}")
+    log(f"the front door phase's launches (fp32 legs, rows and workers): "
+        f"{door_launches}")
 
 
     # each kernel's launches on its main path's run
     launches = {
         "decode_attention": serve_launches["decode_attention"]
         + moe_launches["decode_attention"]
-        + router_launches["decode_attention"],
+        + router_launches["decode_attention"]
+        + door_launches["decode_attention"],
         "decode_attention_int8": int8_launches["decode_attention_int8"],
         "paged_decode_attention": serve_launches["paged_decode_attention"]
-        + moe_launches["paged_decode_attention"],
+        + moe_launches["paged_decode_attention"]
+        + door_launches["paged_decode_attention"],
         "paged_decode_attention_int8":
             prefix8_launches["paged_decode_attention_int8"],
         **{name: train["launches"][name] + seq["launches"][name]

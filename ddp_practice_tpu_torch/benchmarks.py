@@ -702,6 +702,17 @@ NOT_RUNNABLE = {
                      "outgrows an SM's shared memory (ROADMAP B, item 3, "
                      "'H, the rest')",
 }
+# entries beyond the root bench.py's suite, run only when --models names
+# them: decode on lm_moe at lm_base width (token choice, top-2 of 8
+# experts in every second block) and the pipeline schedule sweep
+EXTRA = {
+    "lm_decode_moe": dict(
+        kind="decode", model="lm_moe", prompt_len=128, max_new_tokens=512,
+        batch_size=8, calls=3,
+        model_kwargs={k: v for k, v in _LM_BASE_MOE.items()
+                      if k != "moe_group_size"}),
+    "pipeline": dict(kind="pipeline"),
+}
 DEFAULT_MODELS = ("vit_base,vit_tiny,vit_tiny_unfused,vit_tiny_fused,"
                   "convnet,resnet18,resnet50,lm_long,lm_moe,lm_moe_tc,"
                   "lm_tiny_fused,lm_decode,lm_decode_bs1,lm_decode_1k")
@@ -715,7 +726,12 @@ def run_entry(name: str, kw: dict, *, device="cuda") -> dict:
     if kind == "lm":
         r = bench_lm_train(kw.pop("model", "lm_base"), device=device, **kw)
     elif kind == "decode":
-        r = bench_lm_decode("lm_base", device=device, **kw)
+        r = bench_lm_decode(kw.pop("model", "lm_base"), device=device, **kw)
+    elif kind == "pipeline":
+        # the sweep's rows; the record has no rate to head the line
+        rows = bench_pipeline(device=device, **kw)
+        r = {"mode": "pipeline", "rows": rows,
+             "device_kind": _device_kind(resolve_device(device))}
     else:
         r = bench_train(kw.pop("model", name), device=device, **kw)
     r["model"] = name
@@ -747,24 +763,26 @@ def main(argv=None) -> int:
     p = build_parser()
     args = p.parse_args(argv)
     names = [m.strip() for m in args.models.split(",") if m.strip()]
-    unknown = [n for n in names if n not in _SUITE]
+    entries = {**_SUITE, **EXTRA}
+    unknown = [n for n in names if n not in entries]
     if unknown:
-        p.error(f"no bench config for {unknown}; known: {sorted(_SUITE)}")
+        p.error(f"no bench config for {unknown}; known: {sorted(entries)}")
     results, errors = [], []
     for name in names:
-        kw = dict(_SUITE[name])
+        kw = dict(entries[name])
         kw["precision"] = args.precision
-        if args.batch_size:
+        if args.batch_size and kw.get("kind") != "pipeline":
             if name.endswith("_bs1"):
                 # the entry's name pins its batch size
                 print(f"[bench] --batch_size ignored for {name}",
                       file=sys.stderr)
             else:
                 kw["batch_size"] = args.batch_size
-        if args.steps_per_call and kw.get("kind") != "decode":
-            # decode has no steps a call
+        if args.steps_per_call and kw.get("kind") not in ("decode",
+                                                           "pipeline"):
+            # decode and the pipeline sweep have no steps a call
             kw["steps_per_call"] = args.steps_per_call
-        if args.calls:
+        if args.calls and kw.get("kind") != "pipeline":
             kw["calls"] = args.calls
         if name in NOT_RUNNABLE:
             err = {"model": name,
@@ -790,7 +808,19 @@ def main(argv=None) -> int:
             "unit": "images/sec/chip", "vs_baseline": 0.0,
             "n_errors": len(errors)}))
         return 1
-    head = results[0]
+    # the pipeline sweep has no rate to head the line
+    rated = [r for r in results if r.get("mode") != "pipeline"]
+    if not rated:
+        rows = [row for r in results for row in r["rows"]]
+        _write_suite({"results": results, "errors": errors},
+                     args.out or os.path.join("build", "benchmarks",
+                                              "suite.partial.json"))
+        print(json.dumps({
+            "metric": "pipeline sweep, fastest schedule",
+            "value": min(row["ms_per_step"] for row in rows),
+            "unit": "ms/step", "n_errors": len(errors)}))
+        return 0
+    head = rated[0]
     head_rate = head.get("images_per_sec_per_chip",
                          head.get("tokens_per_sec_per_chip", 0.0))
     head_unit = ("images/sec/chip" if "images_per_sec_per_chip" in head

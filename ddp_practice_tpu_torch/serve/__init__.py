@@ -27,14 +27,37 @@ in-process serving plane:
 - router.py    — the fault-tolerant router over N SlotEngine replicas on
   one card: retries with backoff, crash failover by re-prefill,
   brown-out, exactly-once token streams;
+- sse.py       — the Server-Sent Events codec (one StreamEvent, one
+  frame) and its incremental parser;
+- admission.py — per-tenant token buckets, concurrency caps and the
+  weighted-fair gate at the door, on an injectable clock;
+- frontdoor.py — the HTTP/SSE front door over Router.stream: one driver
+  thread owns the router, an asyncio loop owns the sockets; typed
+  refusals, slow-consumer shedding, graceful drain;
+- workload.py  — seeded multi-tenant workload plans (Poisson, bursty and
+  diurnal arrivals, heavy-tailed lengths, multi-turn sessions);
+- rpc.py       — length-prefixed JSON frames over localhost TCP, the
+  retrying client, push streams and the threaded server;
+- worker.py    — one replica as an OS process (`python -m
+  ddp_practice_tpu_torch.serve.worker --spec ...`) on the card by
+  default, its engine warmed before its READY line;
+- supervisor.py— worker lifecycles (spawn, waitpid, backoff restarts
+  under a budget, drain, reap_all) and RemoteReplicaHandle, the router's
+  replica interface over the RPC wire; make_fleet_router;
 - bench.py     — serve_bench (continuous, static, paged and router
-  rows, faults, SLO and the trace), shared_prefix_bench and
-  spec_decode_bench.
+  rows, faults, SLO and the trace), shared_prefix_bench,
+  spec_decode_bench, frontdoor_bench, qos_bench, fleet_bench and
+  streaming_bench.
 
-The front door and QoS (ROADMAP A6b), the worker fleet (A6c) and the
-telemetry exporter (A6d) are later slices.
+The autoscaler and the cache-aware fleet bench (ROADMAP A6c-2) and the
+telemetry exporter, federation and fleet trace plane (A6d) are later
+slices.
 """
 
+from ddp_practice_tpu_torch.serve.admission import (
+    AdmissionController,
+    TenantPolicy,
+)
 from ddp_practice_tpu_torch.serve.engine import (
     EngineConfig,
     PagedEngine,
@@ -51,6 +74,12 @@ from ddp_practice_tpu_torch.serve.faults import (
     FaultPlan,
     FaultSpec,
     ReplicaCrashed,
+)
+from ddp_practice_tpu_torch.serve.frontdoor import (
+    Frontdoor,
+    FrontdoorConfig,
+    RouterDriver,
+    sse_request,
 )
 from ddp_practice_tpu_torch.serve.health import (
     BreakerConfig,
@@ -73,6 +102,12 @@ from ddp_practice_tpu_torch.serve.router import (
     RouterConfig,
     make_router,
 )
+from ddp_practice_tpu_torch.serve.rpc import (
+    RpcClient,
+    RpcError,
+    RpcServer,
+    RpcTimeout,
+)
 from ddp_practice_tpu_torch.serve.scheduler import (
     Completion,
     FakeClock,
@@ -89,8 +124,17 @@ from ddp_practice_tpu_torch.serve.slo import (
     TenantSLORegistry,
 )
 from ddp_practice_tpu_torch.serve.spec import DraftSource, PromptLookupDraft
+from ddp_practice_tpu_torch.serve.supervisor import (
+    RemoteReplicaHandle,
+    Supervisor,
+    SupervisorConfig,
+    make_fleet_router,
+)
+from ddp_practice_tpu_torch.serve.worker import WorkerSpec
+from ddp_practice_tpu_torch.serve.workload import TenantSpec, WorkloadPlan
 
 __all__ = [
+    "AdmissionController",
     "AlertSinkSpec",
     "AlertSinks",
     "BlockAllocator",
@@ -104,28 +148,44 @@ __all__ = [
     "FaultPlan",
     "FaultSpec",
     "FleetAlerts",
+    "Frontdoor",
+    "FrontdoorConfig",
     "FrontdoorMetrics",
     "HealthState",
     "MonotonicClock",
     "PagedEngine",
     "PromptLookupDraft",
     "RadixPrefixCache",
+    "RemoteReplicaHandle",
     "ReplicaCrashed",
     "ReplicaHealth",
     "Request",
     "Router",
     "RouterConfig",
+    "RouterDriver",
     "RouterMetrics",
+    "RpcClient",
+    "RpcError",
+    "RpcServer",
+    "RpcTimeout",
     "SLOConfig",
     "SLOWatchdog",
     "Scheduler",
     "ServeMetrics",
     "SlotAllocator",
     "SlotEngine",
+    "Supervisor",
+    "SupervisorConfig",
     "TenantLedger",
+    "TenantPolicy",
     "TenantSLORegistry",
+    "TenantSpec",
     "VirtualTokenCounter",
+    "WorkerSpec",
+    "WorkloadPlan",
     "federate_tenant_reports",
     "jains_index",
+    "make_fleet_router",
     "make_router",
+    "sse_request",
 ]

@@ -1,6 +1,7 @@
 """Serving benches on the card (counterpart of
 ddp_practice_tpu/serve/bench.py: serve_bench with its continuous, static,
-paged and router rows, shared_prefix_bench and spec_decode_bench).
+paged and router rows, shared_prefix_bench, spec_decode_bench, and the
+front door, QoS and worker-fleet benches).
 
 - serve_bench: one synthetic Poisson trace (seeded NumPy) through
   - continuous: SlotEngine + Scheduler on the monotonic clock; requests
@@ -45,13 +46,36 @@ loaded by generate.load_lm) through a SlotEngine with one prompt bucket
 and the Scheduler, and each completion is printed with its status and
 TTFT; `--trace_out` writes that run's timeline.
 
-Not ported in this slice, and refused by name: the front door and QoS
-(ROADMAP A6b), the worker fleet (A6c) and the telemetry plane (A6d).
+The front door and the fleet (`--frontdoor`, `--qos`, `--procs N
+[--streaming]`):
+- frontdoor_bench: HTTP/SSE through real client sockets against
+  serve/frontdoor.py — wire against in-process (token identity, goodput,
+  the --sse audit), chunked-prefill TTFT through two paged front doors, a
+  mid-stream SIGKILL of a worker behind the door (zero lost), and mixed
+  greedy and sampled traffic with no new engine shapes;
+- qos_bench: one seeded adversarial WorkloadPlan (serve/workload.py)
+  through FIFO and weighted-fair routers and a fair worker fleet under a
+  real SIGKILL: isolation, Jain's index, per-tenant alert attribution,
+  token identity, zero lost;
+- fleet_bench: one trace through N worker processes (serve/worker.py,
+  serve/supervisor.py) and N in-process replicas, order-balanced reps
+  (kill specs of --fault-plan signal live workers);
+- streaming_bench: streaming against end-of-request delivery through the
+  fleet, or under kill specs the consumer's exactly-once ledger.
+Each in-process row reports `decode_steps` and `kernel_launches`; each
+fleet row reports every live worker's own (`workers`). The workers serve
+the in-process model's widths and precision, weights from seed 0, on its
+device.
+
+Not ported in this slice, and refused by name: the autoscaler and
+cache-aware routing benches (ROADMAP A6c-2) and the telemetry plane
+(A6d: the JSONL exporter, scrape federation, the fleet trace plane, OTLP).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 import time
@@ -243,22 +267,38 @@ def _paged_capacity(trace, *, prompt_buckets, decode_burst, block_size,
     return -(-(span + worst_new) // block_size)
 
 
-def _replay(server, trace, request_cls) -> float:
+def _replay(server, trace, *, rid_offset: int = 0, driver=None,
+            fleet: bool = False) -> float:
     """Submit each request of `trace` at its arrival on the monotonic
-    clock and step `server` (a Scheduler or a Router) until it drains;
-    returns the elapsed seconds."""
+    clock and step `server` (a Scheduler, a Router or a fleet's Router)
+    until it drains; returns the elapsed seconds. `rid_offset` keeps
+    rids unique across reps on one router; `driver` (a FleetFaultDriver)
+    is polled with the elapsed seconds; `fleet=True` parks between steps
+    on the workers' push streams: their decode runs in other processes,
+    which a spinning parent would preempt. A Scheduler or an in-process
+    router decodes inside step(), so its loop never sleeps while busy."""
+    from ddp_practice_tpu_torch.serve.frontdoor import wait_for_streams
+    from ddp_practice_tpu_torch.serve.scheduler import Request
+
     t0 = time.monotonic()
     i = 0
     while not (i >= len(trace) and server.idle):
         now = time.monotonic() - t0
+        if driver is not None:
+            driver.poll(now)
         while i < len(trace) and trace[i]["arrival"] <= now:
             t = trace[i]
             # stamp the TRUE trace arrival: a request polled one dispatch
             # late still counts that wait in its TTFT
-            server.submit(request_cls(
-                rid=t["rid"], prompt=t["prompt"],
+            server.submit(Request(
+                rid=t["rid"] + rid_offset, prompt=t["prompt"],
                 max_new_tokens=t["max_new_tokens"],
                 arrival=t0 + t["arrival"],
+                # multi-tenant traces (serve/workload.py) carry these;
+                # the single-tenant builders don't, and the defaults
+                # keep their replays byte-identical
+                tenant=t.get("tenant"),
+                priority=t.get("priority", 0),
             ))
             i += 1
         if server.idle:
@@ -269,7 +309,47 @@ def _replay(server, trace, request_cls) -> float:
                 time.sleep(max(0.0, trace[i]["arrival"] - now))
             continue
         server.step()
+        if fleet:
+            until_arrival = (trace[i]["arrival"] - (time.monotonic() - t0)
+                             if i < len(trace) else 0.005)
+            nap = min(0.005, max(0.0, until_arrival))
+            if not wait_for_streams(server, nap):
+                time.sleep(min(nap, 0.001))  # every stream is down
     return time.monotonic() - t0
+
+
+def _score(comps, n_trace: int, elapsed: float) -> dict:
+    """A replay's row from its completions: the useful tokens of the
+    requests that finished ok (a GOODPUT number under faults), their
+    latency percentiles and phases, and `lost`, the trace's requests
+    that never completed."""
+    ok = [c for c in comps if c.status in ("eos", "length")]
+    ok_tokens = sum(len(c.tokens) for c in ok)
+    return {
+        "elapsed_s": elapsed,
+        "useful_tokens": ok_tokens,
+        "tokens_per_sec": ok_tokens / elapsed,
+        "goodput_tokens_per_sec": ok_tokens / elapsed,
+        "ttft_s": _percentiles([c.ttft for c in ok if c.ttft is not None]),
+        "tpot_s": _percentiles([c.tpot for c in ok if c.tpot is not None]),
+        "latency_s": _percentiles([c.finish - c.arrival for c in ok]),
+        # over the same ok population; stall_s here includes retry
+        # parking and dead-replica gaps
+        "phases": _phase_breakdown(ok),
+        "completions": len(comps),
+        # the zero-lost invariant, checked, not assumed
+        "lost": n_trace - len(comps),
+        "statuses": dict(Counter(c.status for c in comps)),
+    }
+
+
+def _replay_row(router, trace, **kw) -> dict:
+    """Replay `trace` through an existing router (in-process or a fleet:
+    the same Router API) with `_replay`'s keywords, and score what this
+    replay completed."""
+    before = len(router.completions)
+    elapsed = _replay(router, trace, **kw)
+    return _score(router.completions[before:], len(trace), elapsed)
 
 
 def _run_continuous(model, trace, *, max_slots, prompt_buckets, max_len,
@@ -285,7 +365,7 @@ def _run_continuous(model, trace, *, max_slots, prompt_buckets, max_len,
         SlotEngine,
         warm_engine,
     )
-    from ddp_practice_tpu_torch.serve.scheduler import Request, Scheduler
+    from ddp_practice_tpu_torch.serve.scheduler import Scheduler
 
     launches = _launches()
     if paged:
@@ -340,7 +420,7 @@ def _run_continuous(model, trace, *, max_slots, prompt_buckets, max_len,
         label_replica(tracer, 0, max_slots)
         tracer.clear()
 
-    elapsed = _replay(sched, trace, Request)
+    elapsed = _replay(sched, trace)
 
     tokens = sum(len(c.tokens) for c in sched.completions)
     lat = [c.finish - c.arrival for c in sched.completions]
@@ -505,7 +585,7 @@ def _run_router(model, trace, *, replicas, max_slots, prompt_buckets,
     warmed buckets: the end-of-run `compile_stats` equal them)."""
     from ddp_practice_tpu_torch.serve.engine import EngineConfig
     from ddp_practice_tpu_torch.serve.router import RouterConfig, make_router
-    from ddp_practice_tpu_torch.serve.scheduler import MonotonicClock, Request
+    from ddp_practice_tpu_torch.serve.scheduler import MonotonicClock
 
     launches = _launches()
     clock = MonotonicClock()
@@ -538,25 +618,12 @@ def _run_router(model, trace, *, replicas, max_slots, prompt_buckets,
     warm = router.compile_stats()
     if tracer is not None:
         tracer.clear()  # drop warmup spans; keep the workload timeline
-    elapsed = _replay(router, trace, Request)
+    elapsed = _replay(router, trace)
 
-    ok = [c for c in router.completions if c.status in ("eos", "length")]
-    ok_tokens = sum(len(c.tokens) for c in ok)
     m = router.metrics
     out = {
         "mode": f"router x{replicas}",
-        "elapsed_s": elapsed,
-        "useful_tokens": ok_tokens,
-        "tokens_per_sec": ok_tokens / elapsed,
-        "goodput_tokens_per_sec": ok_tokens / elapsed,
-        "ttft_s": _percentiles([c.ttft for c in ok if c.ttft is not None]),
-        "tpot_s": _percentiles([c.tpot for c in ok if c.tpot is not None]),
-        "latency_s": _percentiles([c.finish - c.arrival for c in ok]),
-        # over the same ok population; stall_s here includes retry
-        # parking and dead-replica gaps
-        "phases": _phase_breakdown(ok),
-        "completions": len(router.completions),
-        "statuses": dict(Counter(c.status for c in router.completions)),
+        **_score(router.completions, len(trace), elapsed),
         "retries": m.retries.value,
         "failovers": m.failovers.value,
         "breaker_trips": m.breaker_trips.value,
@@ -896,6 +963,1345 @@ def spec_decode_bench(
 
 
 # --------------------------------------------------------------------- CLI
+# ----------------------------------------------- the fleet and the door
+def _worker_model(model) -> dict:
+    """The WorkerSpec model dict that rebuilds `model` (a dense RoPE
+    TransformerLM from `_build_model`, seed 0) in a worker process: the
+    same widths and precision, so every worker draws the same weights
+    as the in-process arms (models.init_weights draws on the CPU in
+    parameter order)."""
+    return {
+        "name": "lm_tiny",
+        "precision": ("bf16" if model.dtype == torch.bfloat16
+                      else "fp32"),
+        "vocab_size": model.vocab_size, "max_len": model.max_len,
+        "hidden_dim": model.hidden_dim, "depth": model.depth,
+        "num_heads": model.num_heads, "mlp_dim": model.mlp_dim,
+        "pos_emb": model.pos_emb,
+    }
+
+
+def _worker_spec(model, engine: dict, **kw):
+    """A WorkerSpec serving `model`'s weights on `model`'s device. It
+    carries `model`'s weights digest, so a worker raises at boot when
+    its seed-0 rebuild is not `model` (another seed, trained weights)."""
+    from ddp_practice_tpu_torch.serve.worker import WorkerSpec, weights_digest
+
+    return WorkerSpec(model=_worker_model(model), engine=engine,
+                      device=model.tok_embed.weight.device.type,
+                      weights_digest=weights_digest(model), **kw)
+
+
+def _router_counts(router, launches: dict) -> dict:
+    """An in-process run's decode steps (every replica's single-token
+    model applications, warmup included) and the decode-attention
+    launches since `launches`."""
+    return {
+        "decode_steps": sum(h.engine.decode_steps for h in router.handles),
+        "kernel_launches": _launches_since(launches),
+    }
+
+
+def _worker_counts(sup, handles) -> list:
+    """Each live worker's own decode steps and kernel launches (its
+    process's counters, warmup included), read by a ping: one snapshot
+    per worker, taken together under that worker's lock."""
+    from ddp_practice_tpu_torch.serve.rpc import RpcError, RpcRemoteError
+
+    out = []
+    for h in handles:
+        w = sup.worker(h.id)
+        if w is None:
+            continue
+        try:
+            stats = w.client.call("ping", timeout_s=5.0)["stats"]
+        except (RpcError, RpcRemoteError):
+            continue
+        out.append({"replica": h.id, "pid": w.pid,
+                    "decode_steps": stats.get("decode_steps"),
+                    "kernel_launches": stats.get("kernel_launches")})
+    return out
+
+
+def _med(xs):
+    s = sorted(xs)
+    n = len(s)
+    return s[n // 2] if n % 2 else 0.5 * (s[n // 2 - 1] + s[n // 2])
+
+
+def _refuse_sim_faults(fault_plan, procs: int) -> None:
+    """The worker fleet interprets only `kill` specs (real signals):
+    refusing beats lying, since workers carry no injector and a
+    simulated spec would run fault-free under a report that stamps it."""
+    sim = [f.kind for f in fault_plan.faults if f.kind != "kill"]
+    if sim:
+        raise ValueError(
+            f"the --procs fleet bench interprets only 'kill' specs (real "
+            f"signals); simulated faults {sim} ride the in-process "
+            f"--replicas path")
+    bad = [f.replica for f in fault_plan.kills()
+           if not 0 <= f.replica < procs]
+    if bad:
+        raise ValueError(f"kill spec replica(s) {bad} out of range for "
+                         f"--procs {procs}")
+
+
+def _a6d(what: str):
+    return NotImplementedError(
+        f"{what}: the telemetry plane is not ported yet (ROADMAP A6d)")
+
+
+def fleet_bench(
+    *,
+    n_requests: int = 32,
+    rate_hz: float = 8.0,
+    procs: int = 2,
+    max_slots: int = 8,
+    vocab: int = 64,
+    hidden: Optional[int] = 128,
+    depth: Optional[int] = 2,
+    heads: Optional[int] = 4,
+    mlp: Optional[int] = 256,
+    max_len: int = 128,
+    prompt_buckets=(8, 16),
+    prompt_len_range=(2, 16),
+    max_new_range=(2, 32),
+    decode_burst: int = 8,
+    eos_id: Optional[int] = 46,
+    seed: int = 0,
+    reps: int = 6,
+    fault_plan=None,
+    model_name: str = "lm_tiny",
+    precision: str = "fp32",
+    device="cuda",
+    model=None,
+    metrics_port: Optional[int] = None,
+    trace_out: Optional[str] = None,
+    otlp_out: Optional[str] = None,
+    otlp_endpoint: Optional[str] = None,
+) -> dict:
+    """One Poisson trace through `procs` worker OS PROCESSES behind the
+    RPC seam (serve/worker.py + serve/supervisor.py) AND through `procs`
+    in-process router replicas, which step one after another in this
+    thread — the ratio rows are the seam's bill, and on the card the
+    workers' own threads are what the fleet buys.
+
+    Methodology (as the reference's): both routers are built ONCE (warm
+    engines throughout), then the trace replays `reps` times ALTERNATING
+    which side goes first; the headline ratios are medians of per-rep
+    ratios, so run-order drift cancels instead of being billed to the
+    seam. A kill-bearing `fault_plan` switches to a single chaos rep —
+    real SIGKILL/SIGSTOP to live worker pids, goodput and zero-lost
+    measured against actual process death. `model` reuses a built
+    decoder for the in-process side; the workers rebuild its weights
+    from its widths and seed 0. The fleet trace plane (`trace_out`),
+    the federated scrape server (`metrics_port`) and OTLP egress are
+    ROADMAP A6d and raise naming it."""
+    from ddp_practice_tpu_torch.serve.engine import EngineConfig
+    from ddp_practice_tpu_torch.serve.faults import FleetFaultDriver
+    from ddp_practice_tpu_torch.serve.router import RouterConfig, make_router
+    from ddp_practice_tpu_torch.serve.scheduler import MonotonicClock
+    from ddp_practice_tpu_torch.serve.supervisor import (
+        SupervisorConfig,
+        make_fleet_router,
+    )
+
+    if metrics_port is not None:
+        raise _a6d("fleet_bench(metrics_port=)")
+    if trace_out is not None:
+        raise _a6d("fleet_bench(trace_out=)")
+    if otlp_out is not None or otlp_endpoint is not None:
+        raise _a6d("fleet_bench(otlp_out=, otlp_endpoint=)")
+    if model is None:
+        model = _build_model(
+            vocab=vocab, max_len=max_len, hidden=hidden, depth=depth,
+            heads=heads, mlp=mlp, model_name=model_name,
+            precision=precision, device=device)
+    trace = build_trace(
+        n_requests=n_requests, rate_hz=rate_hz, vocab=model.vocab_size,
+        prompt_len_range=prompt_len_range, max_new_range=max_new_range,
+        seed=seed,
+    )
+    chaos = fault_plan is not None and bool(fault_plan.kills())
+    if fault_plan is not None:
+        _refuse_sim_faults(fault_plan, procs)
+    if chaos:
+        reps = 1
+    engine_kw = {
+        "max_slots": max_slots, "max_len": max_len,
+        "prompt_buckets": list(prompt_buckets), "temperature": 0.0,
+        "decode_burst": decode_burst, "eos_id": eos_id,
+    }
+    # enough queue for every rep's worst backlog
+    max_queue = len(trace) * max(1, reps)
+    launches = _launches()
+    inproc = make_router(
+        model, procs, EngineConfig(**{**engine_kw, "prompt_buckets":
+                                      tuple(prompt_buckets)}),
+        clock=MonotonicClock(), max_queue=max_queue, config=RouterConfig(),
+    )
+    inproc.warmup()
+    fleet_router, sup, handles = make_fleet_router(
+        _worker_spec(model, engine_kw, max_queue=max_queue), procs,
+        sup_config=SupervisorConfig(restart_base_s=0.25),
+    )
+    rep_rows = {"in_process": [], "fleet": []}
+    ratios_p50 = []
+    try:
+        driver = (FleetFaultDriver(fault_plan, sup.kill)
+                  if chaos else None)
+        for rep in range(reps):
+            order = ["in_process", "fleet"]
+            if rep % 2:
+                order.reverse()
+            for side in order:
+                if side == "in_process":
+                    row = _replay_row(
+                        inproc, trace, rid_offset=rep * 1_000_000)
+                else:
+                    row = _replay_row(
+                        fleet_router, trace, rid_offset=rep * 1_000_000,
+                        driver=driver, fleet=True)
+                rep_rows[side].append(row)
+            ratios_p50.append(
+                rep_rows["fleet"][-1]["latency_s"]["p50"]
+                / rep_rows["in_process"][-1]["latency_s"]["p50"])
+
+        def agg(side, key):
+            return {p: _med([r[key][p] for r in rep_rows[side]])
+                    for p in ("p50", "p90", "p99")}
+
+        def ratio(key, pct):
+            return _med([f[key][pct] / i[key][pct]
+                         for f, i in zip(rep_rows["fleet"],
+                                         rep_rows["in_process"])
+                         if i[key][pct]])
+
+        m = fleet_router.metrics
+        fleet_row = dict(rep_rows["fleet"][-1])
+        fleet_row.update({
+            "mode": f"fleet x{procs}", "procs": procs,
+            "latency_s": agg("fleet", "latency_s"),
+            "ttft_s": agg("fleet", "ttft_s"),
+            "goodput_tokens_per_sec": _med(
+                [r["goodput_tokens_per_sec"] for r in rep_rows["fleet"]]),
+            "lost": sum(r["lost"] for r in rep_rows["fleet"]),
+            "retries": m.retries.value,
+            "failovers": m.failovers.value,
+            "breaker_trips": m.breaker_trips.value,
+            "replica_states": fleet_router.states(),
+            "worker_restarts": list(sup.restarts),
+            "workers": _worker_counts(sup, handles),
+        })
+        if driver is not None:
+            fleet_row["kills_fired"] = [
+                {"replica": f.replica, "sig": f.sig, "at_s": f.at_s}
+                for f in driver.fired
+            ]
+        inproc_row = dict(rep_rows["in_process"][-1])
+        inproc_row.update({
+            "mode": f"router x{procs}",
+            "latency_s": agg("in_process", "latency_s"),
+            "ttft_s": agg("in_process", "ttft_s"),
+            "goodput_tokens_per_sec": _med(
+                [r["goodput_tokens_per_sec"]
+                 for r in rep_rows["in_process"]]),
+            "lost": sum(r["lost"] for r in rep_rows["in_process"]),
+            **_router_counts(inproc, launches),
+        })
+        report = {
+            "device": _device_name(model),
+            "trace": {
+                "n_requests": n_requests, "rate_hz": rate_hz, "seed": seed,
+                "prompt_len_range": list(prompt_len_range),
+                "max_new_range": list(max_new_range),
+            },
+            "procs": procs,
+            "reps": reps,
+            "in_process": inproc_row,
+            "fleet": fleet_row,
+            # medians of per-rep ratios: order-balanced, drift-robust
+            "latency_ratio_p50": _med(ratios_p50),
+            "latency_ratio_p50_per_rep": ratios_p50,
+            "latency_ratio_p99": ratio("latency_s", "p99"),
+            "goodput_ratio": _med(
+                [f["goodput_tokens_per_sec"] / i["goodput_tokens_per_sec"]
+                 for f, i in zip(rep_rows["fleet"],
+                                 rep_rows["in_process"])]),
+            # steady-state decode (TPOT: the RPC seam is off this path)
+            # against admission (TTFT: the submit hop and the worker's
+            # wake are on it) — where the ratio comes from
+            "tpot_ratio_p50": ratio("tpot_s", "p50"),
+            "ttft_ratio_p50": ratio("ttft_s", "p50"),
+        }
+        if fault_plan is not None:
+            report["fault_plan"] = fault_plan.to_json()
+        return report
+    finally:
+        sup.stop()
+
+
+def _score_streams(router, comps) -> dict:
+    """Score and CLEAR the router's TokenStreams from the consumer's
+    seat (the bench IS the consumer). Everything here is re-derived
+    from the delivered events, independently of the router's own
+    cursors: `chunk_dupes`/`chunk_gaps` recount token-offset overlaps
+    and holes (the exactly-once gate pins both at 0 — `suppressed` is
+    the router absorbing re-decoded salvage and is EXPECTED under
+    chaos), `inter_token_s` is the per-token delivery cadence between
+    consecutive chunk arrivals, `consumer_ttft_s` is first DELIVERED
+    token minus arrival, and `resume_gap_s` is the consumer-visible
+    stall a failover splice cost each resumed stream."""
+    arrival = {c.rid: c.arrival for c in comps}
+    final_tokens = {c.rid: c.tokens for c in comps}
+    inter, ttft, gaps_s = [], [], []
+    dupes = holes = suppressed = resumed = 0
+    unterminated = mismatched = 0
+    for rid, st in router.streams.items():
+        delivered = 0
+        last_t = None
+        for ev in st.events:
+            if ev.kind == "resumed":
+                resumed += 1
+                continue
+            if ev.kind != "tokens" or not ev.tokens:
+                continue
+            if ev.start < delivered:
+                dupes += delivered - ev.start
+            elif ev.start > delivered:
+                holes += ev.start - delivered
+            delivered = ev.start + len(ev.tokens)
+            if last_t is None:
+                if rid in arrival:
+                    ttft.append(ev.t - arrival[rid])
+            else:
+                # one chunk = one consumer-visible delivery; its tokens
+                # share the arrival instant, so the per-token cadence is
+                # the chunk gap amortized over the chunk
+                inter.extend([(ev.t - last_t) / len(ev.tokens)]
+                             * len(ev.tokens))
+            last_t = ev.t
+        if not st.closed:
+            unterminated += 1
+        if st.tokens() != final_tokens.get(rid, st.tokens()):
+            mismatched += 1  # stream view disagrees with completion
+        if st.resume_gap_s:
+            gaps_s.append(st.resume_gap_s)
+        suppressed += st.suppressed
+        holes += st.gaps
+    n = len(router.streams)
+    router.streams.clear()
+    return {
+        "streams": n,
+        "chunk_dupes": dupes,
+        "chunk_gaps": holes,
+        "suppressed_tokens": suppressed,
+        "resumed_markers": resumed,
+        "unterminated": unterminated,
+        "stream_completion_mismatches": mismatched,
+        "inter_token_s": _percentiles(inter),
+        "consumer_ttft_s": _percentiles(ttft),
+        "resume_gap_s": _percentiles(gaps_s),
+        "resume_gap_p99_s": (_percentiles(gaps_s).get("p99", 0.0)
+                             if gaps_s else 0.0),
+        "inter_token_p99_s": (_percentiles(inter).get("p99", 0.0)
+                              if inter else 0.0),
+    }
+
+
+class _ChunkLog:
+    """The router's telemetry seam held in memory: every stream event's
+    `chunk` line (Router._stream_emit), the records the reference's
+    JSONL exporter writes and tools/check_stream.py audits. The JSONL
+    exporter itself is ROADMAP A6d."""
+
+    def __init__(self) -> None:
+        self.records: list = []
+
+    def emit(self, kind: str, **fields) -> None:
+        self.records.append({"kind": kind, **fields})
+
+    def on_completion(self, completion, **_kw) -> None:
+        pass
+
+
+def _chunk_audit(records) -> dict:
+    """tools/check_stream.py's verdict over chunk lines."""
+    try:
+        from tools.check_stream import stream_verdict
+    except ImportError:  # tools/ not importable (installed package)
+        return {"ok": None}
+    ok, audit = stream_verdict([r for r in records
+                                if r.get("kind") == "chunk"])
+    return {"ok": ok, "streams": audit["streams"],
+            "violations": sum(len(v)
+                              for v in audit["violations"].values())}
+
+
+def streaming_bench(
+    *,
+    n_requests: int = 32,
+    rate_hz: float = 8.0,
+    procs: int = 2,
+    max_slots: int = 8,
+    vocab: int = 64,
+    hidden: Optional[int] = 128,
+    depth: Optional[int] = 2,
+    heads: Optional[int] = 4,
+    mlp: Optional[int] = 256,
+    max_len: int = 128,
+    prompt_buckets=(8, 16),
+    prompt_len_range=(2, 16),
+    max_new_range=(2, 32),
+    decode_burst: int = 8,
+    eos_id: Optional[int] = 46,
+    seed: int = 0,
+    reps: int = 6,
+    fault_plan=None,
+    model_name: str = "lm_tiny",
+    precision: str = "fp32",
+    device="cuda",
+    model=None,
+    telemetry_out: Optional[str] = None,
+) -> dict:
+    """Token STREAMING through the worker fleet, two operating points:
+
+    - overhead (no kill plan): the same trace replays through TWO warm
+      worker fleets — streaming delivery (chunks in every pub frame,
+      router TokenStreams armed) vs end-of-request delivery (chunk
+      plane off, worker-side and router-side) — in alternating order
+      per rep; the headline is the median per-rep MEAN-latency ratio.
+      Every rep also cross-checks each stream's concatenation against
+      its completion.
+    - chaos (`fault_plan` with kill specs): ONE streaming fleet, real
+      signals mid-stream, and the report is the CONSUMER'S ledger —
+      re-derived duplicate/missing token counts (gated at zero),
+      inter-token p99 at the consumer, resume-gap p99, resumed-marker
+      count, and the tools/check_stream.py audit over the run's chunk
+      lines (held in memory: the JSONL exporter behind `telemetry_out`
+      is ROADMAP A6d and raises naming it).
+
+    The workers serve `model`'s widths on `model`'s device (built from
+    the width arguments when None), weights from seed 0."""
+    from ddp_practice_tpu_torch.serve.faults import FleetFaultDriver
+    from ddp_practice_tpu_torch.serve.router import RouterConfig
+    from ddp_practice_tpu_torch.serve.supervisor import (
+        SupervisorConfig,
+        make_fleet_router,
+    )
+
+    if telemetry_out is not None:
+        raise _a6d("streaming_bench(telemetry_out=)")
+    if model is None:
+        model = _build_model(
+            vocab=vocab, max_len=max_len, hidden=hidden, depth=depth,
+            heads=heads, mlp=mlp, model_name=model_name,
+            precision=precision, device=device)
+    trace = build_trace(
+        n_requests=n_requests, rate_hz=rate_hz, vocab=model.vocab_size,
+        prompt_len_range=prompt_len_range, max_new_range=max_new_range,
+        seed=seed,
+    )
+    chaos = fault_plan is not None and bool(fault_plan.kills())
+    if fault_plan is not None and not chaos:
+        raise ValueError("streaming_bench interprets only 'kill' specs")
+    if chaos:
+        _refuse_sim_faults(fault_plan, procs)
+    engine_kw = {
+        "max_slots": max_slots, "max_len": max_len,
+        "prompt_buckets": list(prompt_buckets), "temperature": 0.0,
+        "decode_burst": decode_burst, "eos_id": eos_id,
+    }
+    max_queue = len(trace) * max(1, reps)
+
+    def build(stream: bool, telemetry=None):
+        return make_fleet_router(
+            _worker_spec(model, dict(engine_kw), max_queue=max_queue,
+                         stream=stream),
+            procs,
+            config=RouterConfig(streaming=stream),
+            sup_config=SupervisorConfig(restart_base_s=0.25),
+            telemetry=telemetry,
+        )
+
+    report = {
+        "device": _device_name(model),
+        "trace": {
+            "n_requests": n_requests, "rate_hz": rate_hz, "seed": seed,
+            "prompt_len_range": list(prompt_len_range),
+            "max_new_range": list(max_new_range),
+        },
+        "procs": procs,
+    }
+
+    if chaos:
+        # ---------------- chaos arm: one streaming fleet, real kills
+        log = _ChunkLog()
+        router, sup, handles = build(True, telemetry=log)
+        try:
+            driver = FleetFaultDriver(fault_plan, sup.kill)
+            before = len(router.completions)
+            row = _replay_row(router, trace, driver=driver,
+                                         fleet=True)
+            comps = router.completions[before:]
+            streams = _score_streams(router, comps)
+            m = router.metrics
+            row.update({
+                "mode": f"stream fleet x{procs}",
+                "failovers": m.failovers.value,
+                "retries": m.retries.value,
+                "worker_restarts": list(sup.restarts),
+                "kills_fired": [
+                    {"replica": f.replica, "sig": f.sig, "at_s": f.at_s}
+                    for f in driver.fired
+                ],
+                "workers": _worker_counts(sup, handles),
+            })
+        finally:
+            sup.stop()
+        report.update({
+            "reps": 1,
+            "fleet": row,
+            "fault_plan": fault_plan.to_json(),
+            # the gated keys: exactly-once re-derived at the consumer
+            "chunk_dupes": streams["chunk_dupes"],
+            "chunk_gaps": streams["chunk_gaps"],
+            "lost": row["lost"],
+            "unterminated": streams["unterminated"],
+            "stream_completion_mismatches":
+                streams["stream_completion_mismatches"],
+            "inter_token_p99_s": streams["inter_token_p99_s"],
+            "resume_gap_p99_s": streams["resume_gap_p99_s"],
+            "streams": streams,
+            # the same contract judged offline from the chunk lines alone
+            "check_stream": _chunk_audit(log.records),
+        })
+        return report
+
+    # ------------- overhead arm: streaming vs end-of-request delivery
+    r_on, sup_on, _ = build(True)
+    try:
+        r_off, sup_off, _ = build(False)
+    except BaseException:
+        sup_on.stop()
+        raise
+    rows = {"on": [], "off": []}
+    mismatches = 0
+    try:
+        for rep in range(reps):
+            order = ["on", "off"] if rep % 2 == 0 else ["off", "on"]
+            for side in order:
+                router = r_on if side == "on" else r_off
+                before = len(router.completions)
+                rows[side].append(_replay_row(
+                    router, trace, rid_offset=rep * 1_000_000, fleet=True))
+                if side == "on":
+                    streams = _score_streams(
+                        router, router.completions[before:])
+                    mismatches += (
+                        streams["stream_completion_mismatches"]
+                        + streams["chunk_dupes"] + streams["chunk_gaps"]
+                        + streams["unterminated"])
+                    rows[side][-1]["streams"] = streams
+        ratios_mean = [on["latency_s"]["mean"] / off["latency_s"]["mean"]
+                       for on, off in zip(rows["on"], rows["off"])]
+        ratios_p50 = [on["latency_s"]["p50"] / off["latency_s"]["p50"]
+                      for on, off in zip(rows["on"], rows["off"])]
+        report.update({
+            "reps": reps,
+            "gate": "mean <= 1.05x",
+            "latency_ratio_mean": _med(ratios_mean),
+            "latency_ratio_mean_per_rep": ratios_mean,
+            "latency_ratio_p50": _med(ratios_p50),
+            "goodput_ratio": _med(
+                [on["goodput_tokens_per_sec"]
+                 / off["goodput_tokens_per_sec"]
+                 for on, off in zip(rows["on"], rows["off"])]),
+            "streaming": {
+                "latency_s": rows["on"][-1]["latency_s"],
+                "lost": sum(r["lost"] for r in rows["on"]),
+                "last_rep_streams": rows["on"][-1]["streams"],
+            },
+            "end_of_request": {
+                "latency_s": rows["off"][-1]["latency_s"],
+                "lost": sum(r["lost"] for r in rows["off"]),
+            },
+            # every rep's exactly-once cross-check, summed: stream-vs-
+            # completion disagreements + re-derived dupes/gaps +
+            # unterminated streams (all must be 0 fault-free)
+            "stream_violations": mismatches,
+        })
+        return report
+    finally:
+        sup_on.stop()
+        sup_off.stop()
+
+
+def _mixed_prefill_trace(*, n_requests, rate_hz, vocab, long_len,
+                         short_range=(2, 10), max_new_range=(4, 8),
+                         seed=0) -> list:
+    """Every third request carries a LONG cold prompt, the rest are
+    short interactive ones — the Sarathi mixed workload where one
+    monolithic long prefill head-of-line-blocks every short request
+    queued behind it. Chunked prefill's whole claim is the short
+    requests' TTFT tail on exactly this trace."""
+    rng = np.random.default_rng(seed)
+    gaps = rng.exponential(1.0 / rate_hz, n_requests)
+    arrivals = np.cumsum(gaps)
+    trace = []
+    for i in range(n_requests):
+        long = i % 3 == 0
+        plen = (long_len if long
+                else int(rng.integers(short_range[0], short_range[1] + 1)))
+        trace.append({
+            "rid": i,
+            "arrival": float(arrivals[i]),
+            "prompt": rng.integers(0, vocab, plen).tolist(),
+            "max_new_tokens": int(rng.integers(
+                max_new_range[0], max_new_range[1] + 1)),
+            "long": long,
+        })
+    return trace
+
+
+def _wire_replay(port, trace, *, body_extra=None,
+                 timeout_s: float = 600.0) -> tuple:
+    """Fire one arrival trace at a live Frontdoor through REAL client
+    sockets — one thread per request, sleeping to its Poisson arrival,
+    then a blocking `sse_request`. Returns ``({rid: {status, sent,
+    events}}, elapsed_s)``; `body_extra(t)` merges per-request fields
+    (sampling knobs, tenant) into the POSTed JSON."""
+    import threading
+
+    from ddp_practice_tpu_torch.serve.frontdoor import sse_request
+
+    results: dict = {}
+    lock = threading.Lock()
+    t0 = time.monotonic()
+
+    def one(t):
+        wait = t0 + t["arrival"] - time.monotonic()
+        if wait > 0:
+            time.sleep(wait)
+        body = {"prompt": t["prompt"],
+                "max_new_tokens": t["max_new_tokens"], "seed": 0}
+        if body_extra is not None:
+            body.update(body_extra(t))
+        sent = time.monotonic()
+        try:
+            status, events = sse_request(
+                "127.0.0.1", port, body, timeout_s=timeout_s)
+        except OSError:
+            status, events = -1, []
+        with lock:
+            results[t["rid"]] = {
+                "status": status, "sent": sent, "events": events}
+
+    threads = [threading.Thread(target=one, args=(t,), daemon=True)
+               for t in trace]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    return results, time.monotonic() - t0
+
+
+def _score_wire(trace, results, elapsed) -> tuple:
+    """Score a wire replay the way _replay_row scores an
+    in-process one — goodput over terminal-ok streams, client-side
+    TTFT/latency percentiles, loss — and keep the raw SSE capture
+    (`{"stream", "id", "event", "data"}` records) for the
+    tools/check_stream.py --sse audit. Returns (row, tokens_by_rid,
+    capture)."""
+    tokens: dict = {}
+    capture: list = []
+    ttfts, lats = [], []
+    statuses: dict = {}
+    ended_ok = 0
+    resumed = 0
+    ok_tokens = 0
+    for t in trace:
+        rid = t["rid"]
+        r = results.get(rid)
+        if r is None or r["status"] != 200:
+            key = f"http_{r['status'] if r else 'none'}"
+            statuses[key] = statuses.get(key, 0) + 1
+            continue
+        toks: list = []
+        end_status = None
+        first_tok_t = None
+        for ev in r["events"]:
+            capture.append({"stream": f"rid:{rid}", "id": ev["id"],
+                            "event": ev["event"], "data": ev["data"]})
+            data = ev["data"] if isinstance(ev["data"], dict) else {}
+            if ev["event"] == "tokens":
+                toks.extend(data.get("tokens") or [])
+                if first_tok_t is None:
+                    first_tok_t = ev["t"]
+            elif ev["event"] == "resumed":
+                resumed += 1
+            elif ev["event"] == "end":
+                end_status = data.get("status")
+        tokens[rid] = toks
+        key = end_status if end_status is not None else "unterminated"
+        statuses[key] = statuses.get(key, 0) + 1
+        if end_status in ("eos", "length", "stop"):
+            ended_ok += 1
+            ok_tokens += len(toks)
+            if first_tok_t is not None:
+                ttfts.append(first_tok_t - r["sent"])
+            lats.append(r["events"][-1]["t"] - r["sent"])
+    row = {
+        "elapsed_s": elapsed,
+        "useful_tokens": ok_tokens,
+        "goodput_tokens_per_sec": ok_tokens / elapsed,
+        "ttft_s": _percentiles(ttfts) if ttfts else {},
+        "latency_s": _percentiles(lats) if lats else {},
+        "completions": ended_ok,
+        "lost": len(trace) - ended_ok,
+        "statuses": statuses,
+        "resumed_markers": resumed,
+    }
+    return row, tokens, capture
+
+
+def _sse_audit(capture) -> dict:
+    """The offline wire audit, in-process: map the SSE capture through
+    tools/check_stream.py --sse and report the verdict (the bench's own
+    acceptance row, same rules the CLI applies to a dump)."""
+    try:
+        from tools.check_stream import sse_to_chunks, stream_verdict
+    except ImportError:  # tools/ not importable (installed package)
+        return {"ok": None}
+    ok, audit = stream_verdict(sse_to_chunks(capture))
+    return {
+        "ok": ok, "streams": audit["streams"],
+        "violations": sum(len(v) for v in audit["violations"].values()),
+    }
+
+
+def _shape_count(stats) -> int:
+    if isinstance(stats, dict):
+        return sum(_shape_count(v) for v in stats.values())
+    return int(stats)
+
+
+def frontdoor_bench(
+    *,
+    n_requests: int = 24,
+    rate_hz: float = 100.0,
+    max_slots: int = 8,
+    vocab: int = 32,
+    hidden: Optional[int] = 64,
+    depth: Optional[int] = 2,
+    heads: Optional[int] = 4,
+    mlp: Optional[int] = 128,
+    max_len: int = 96,
+    prompt_buckets=(16,),
+    prompt_len_range=(2, 16),
+    max_new_range=(4, 24),
+    decode_burst: int = 8,
+    procs: int = 2,
+    seed: int = 0,
+    model_name: str = "lm_tiny",
+    precision: str = "fp32",
+    device="cuda",
+    model=None,
+    sse_out: Optional[str] = None,
+) -> dict:
+    """End-to-end HTTP/SSE front door (serve/frontdoor.py), four arms:
+
+    - **wire vs in-process** — the SAME Poisson trace replays through a
+      bare `Router.stream` loop and through real client sockets against
+      a Frontdoor over an identical router. `token_identity` (greedy
+      streams identical across the wire, 1.0), `goodput_ratio`
+      (wire/in-process), and the wire capture audited by
+      tools/check_stream.py --sse (`check_stream.ok`).
+    - **chunked prefill TTFT** — a mixed long/short trace (long prompts
+      of 720) through two paged + prefix-cache front doors,
+      `prefill_chunk` 32 against 0: `ttft_p99_ratio_chunked`, the SHORT
+      requests' client-side TTFT p99 ratio, and the two arms' token
+      identity.
+    - **mid-stream SIGKILL** — the same wire consumer against a
+      `procs`-worker FLEET front door with a real SIGKILL 0.75 s into
+      the replay: `sigkill_lost` == 0 (every socket still gets its
+      typed terminal; resumes splice under the same ids the --sse audit
+      checks).
+    - **mixed sampling churn** — greedy and per-request sampled traffic
+      through one per_slot_sampling engine: `sampling_new_compiles` == 0
+      (the engine's shape counts, port serve/engine.py compile_stats,
+      stay flat).
+
+    `max_len`, `prompt_buckets`, `prompt_len_range` and `max_new_range`
+    size arms 1, 3 and 4 (the reference's values by default). `model`
+    reuses a built decoder (arm 2 needs max_len >= 1024); the workers of
+    arm 3 rebuild its weights from its widths and seed 0. Every
+    in-process row reports `decode_steps` and `kernel_launches`, the
+    SIGKILL row each live worker's own (`workers`)."""
+    import threading
+
+    from ddp_practice_tpu_torch.serve.engine import EngineConfig, PagedEngine
+    from ddp_practice_tpu_torch.serve.frontdoor import (
+        Frontdoor,
+        FrontdoorConfig,
+    )
+    from ddp_practice_tpu_torch.serve.metrics import ServeMetrics
+    from ddp_practice_tpu_torch.serve.router import (
+        Router,
+        RouterConfig,
+        make_router,
+    )
+    from ddp_practice_tpu_torch.serve.scheduler import (
+        MonotonicClock,
+        Request,
+        Scheduler,
+    )
+    from ddp_practice_tpu_torch.serve.supervisor import (
+        SupervisorConfig,
+        make_fleet_router,
+    )
+
+    long_len = 720
+    if model is None:
+        model = _build_model(
+            vocab=vocab, max_len=max(1024, max_len), hidden=hidden,
+            depth=depth, heads=heads, mlp=mlp, model_name=model_name,
+            precision=precision, device=device)
+    if model.max_len < 1024:
+        raise ValueError("frontdoor_bench's chunked-prefill arm needs a "
+                         "model with max_len >= 1024")
+    vocab = model.vocab_size
+    trace = build_trace(
+        n_requests=n_requests, rate_hz=rate_hz, vocab=vocab,
+        prompt_len_range=prompt_len_range, max_new_range=max_new_range,
+        seed=seed,
+    )
+    ecfg = EngineConfig(
+        max_slots=max_slots, max_len=max_len,
+        prompt_buckets=tuple(prompt_buckets), temperature=0.0,
+        decode_burst=decode_burst, eos_id=None,
+    )
+    report: dict = {
+        "device": _device_name(model),
+        "trace": {
+            "n_requests": n_requests, "rate_hz": rate_hz, "seed": seed,
+            "prompt_len_range": list(prompt_len_range),
+            "max_new_range": list(max_new_range),
+        },
+    }
+
+    # ---------------- arm 1: wire identity + goodput vs in-process
+    launches = _launches()
+    ip_router = make_router(model, 1, ecfg)
+    ip_router.warmup()
+    row_ip = _replay_row(ip_router, trace)
+    ref_tokens = {t["rid"]: ip_router.stream(t["rid"]).tokens()
+                  for t in trace}
+    row_ip["mode"] = "in-process router.stream"
+    row_ip.update(_router_counts(ip_router, launches))
+    report["in_process"] = row_ip
+
+    launches = _launches()
+    fd = Frontdoor(make_router(model, 1, ecfg), config=FrontdoorConfig())
+    fd.driver.router.warmup()
+    fd.start()
+    try:
+        results, elapsed = _wire_replay(fd.port, trace)
+    finally:
+        fd.close()
+    row_wire, wire_tokens, capture = _score_wire(trace, results, elapsed)
+    row_wire["mode"] = "frontdoor wire"
+    row_wire.update(_router_counts(fd.driver.router, launches))
+    matched = sum(
+        1 for t in trace
+        if wire_tokens.get(t["rid"]) == ref_tokens[t["rid"]]
+        and ref_tokens[t["rid"]]
+    )
+    report.update({
+        "wire": row_wire,
+        "token_identity": matched / len(trace),
+        "goodput_ratio": (row_wire["goodput_tokens_per_sec"]
+                          / row_ip["goodput_tokens_per_sec"]),
+        "check_stream": _sse_audit(capture),
+    })
+
+    # ---------------- arm 2: chunked prefill TTFT on mixed long/short
+    mixed = _mixed_prefill_trace(
+        n_requests=18, rate_hz=rate_hz, vocab=vocab, long_len=long_len,
+        seed=seed,
+    )
+
+    def paged_frontdoor(chunk: int) -> Frontdoor:
+        # bucket 768 + a burst-rounded reservation + the request's own
+        # new tokens: leave two bursts of headroom past the bucket
+        cap_blocks = -(-(768 + 2 * 32 + decode_burst) // 16)
+        engine = PagedEngine(
+            model,
+            EngineConfig(
+                max_slots=4, max_len=1024,
+                prompt_buckets=(16, 32, 768), temperature=0.0,
+                decode_burst=decode_burst, eos_id=None,
+                block_size=16, max_blocks_per_slot=cap_blocks,
+                num_blocks=1 + 4 * cap_blocks,
+                prefix_cache=True, prefill_chunk=chunk,
+            ),
+        )
+        clock = MonotonicClock()
+        sched = Scheduler(engine, clock=clock, max_queue=len(mixed),
+                          metrics=ServeMetrics())
+        router = Router([sched], clock=clock)
+        router.warmup()
+        return Frontdoor(router, config=FrontdoorConfig())
+
+    chunk_rows = {}
+    chunk_tokens = {}
+    for label, chunk in (("unchunked", 0), ("chunked", 32)):
+        launches = _launches()
+        fd2 = paged_frontdoor(chunk)
+        fd2.start()
+        try:
+            results, elapsed = _wire_replay(fd2.port, mixed)
+        finally:
+            fd2.close()
+        row, toks, cap = _score_wire(mixed, results, elapsed)
+        row["mode"] = f"paged frontdoor, prefill_chunk {chunk}"
+        row["check_stream"] = _sse_audit(cap)
+        short_ttfts = []
+        for t in mixed:
+            r = results.get(t["rid"])
+            if t["long"] or r is None or r["status"] != 200:
+                continue
+            first = next((ev["t"] for ev in r["events"]
+                          if ev["event"] == "tokens"), None)
+            if first is not None:
+                short_ttfts.append(first - r["sent"])
+        row["ttft_short_s"] = (_percentiles(short_ttfts)
+                               if short_ttfts else {})
+        row.update(_router_counts(fd2.driver.router, launches))
+        chunk_rows[label] = row
+        chunk_tokens[label] = toks
+    ttft_ratio = (chunk_rows["chunked"]["ttft_short_s"]["p99"]
+                  / chunk_rows["unchunked"]["ttft_short_s"]["p99"])
+    report.update({
+        "chunked_prefill": {
+            "trace": {"n_requests": len(mixed), "long_len": long_len,
+                      "prefill_chunk": 32},
+            "chunked": chunk_rows["chunked"],
+            "unchunked": chunk_rows["unchunked"],
+            "token_identity": sum(
+                1 for t in mixed
+                if chunk_tokens["chunked"].get(t["rid"])
+                == chunk_tokens["unchunked"].get(t["rid"])
+                and chunk_tokens["unchunked"].get(t["rid"])
+            ) / len(mixed),
+        },
+        "ttft_p99_ratio_chunked": ttft_ratio,
+    })
+
+    # ---------------- arm 3: mid-stream worker SIGKILL, zero lost
+    kill_trace = [
+        dict(t, rid=t["rid"] + 300_000, max_new_tokens=32)
+        for t in build_trace(
+            n_requests=12, rate_hz=rate_hz, vocab=vocab,
+            prompt_len_range=prompt_len_range, max_new_range=(24, 48),
+            seed=seed + 1,
+        )
+    ]
+    router_f, sup, handles = make_fleet_router(
+        _worker_spec(
+            model,
+            {"max_slots": max_slots, "max_len": max_len,
+             "prompt_buckets": list(prompt_buckets), "temperature": 0.0,
+             "decode_burst": decode_burst, "eos_id": None},
+            max_queue=len(kill_trace), stream=True,
+        ),
+        procs,
+        config=RouterConfig(streaming=True),
+        sup_config=SupervisorConfig(restart_base_s=0.25),
+    )
+    kill_at_s = 0.75
+    killer = threading.Timer(kill_at_s, sup.kill, (0, "SIGKILL"))
+    try:
+        fd3 = Frontdoor(router_f, config=FrontdoorConfig())
+        fd3.start()
+        try:
+            killer.start()
+            results, elapsed = _wire_replay(fd3.port, kill_trace)
+        finally:
+            killer.cancel()
+            fd3.close()
+        workers = _worker_counts(sup, handles)
+    finally:
+        sup.stop()
+    row_kill, _, kill_capture = _score_wire(kill_trace, results, elapsed)
+    row_kill["mode"] = f"frontdoor fleet x{procs} + SIGKILL"
+    capture.extend(kill_capture)
+    report.update({
+        "sigkill": {
+            **row_kill,
+            "kill_at_s": kill_at_s,
+            "worker_restarts": list(sup.restarts),
+            "workers": workers,
+            "check_stream": _sse_audit(kill_capture),
+        },
+        "sigkill_lost": row_kill["lost"],
+    })
+
+    # ---------------- arm 4: mixed greedy+sampled, zero new shapes
+    launches = _launches()
+    ecfg_s = dataclasses.replace(ecfg, per_slot_sampling=True)
+    router_s = make_router(model, 1, ecfg_s)
+    router_s.warmup()
+    # settle: one greedy + one sampled request so every shape the mixed
+    # traffic exercises is resident BEFORE the snapshot
+    router_s.submit(Request(rid=400_000, prompt=[1, 2, 3],
+                            max_new_tokens=4))
+    router_s.submit(Request(rid=400_001, prompt=[4, 5, 6],
+                            max_new_tokens=4, temperature=0.9,
+                            top_k=8, top_p=0.9, seed=7))
+    router_s.run_until_idle()
+    before = router_s.compile_stats()
+    churn = [
+        dict(t, rid=t["rid"] + 410_000)
+        for t in build_trace(
+            n_requests=16, rate_hz=rate_hz, vocab=vocab,
+            prompt_len_range=prompt_len_range, max_new_range=(4, 16),
+            seed=seed + 2,
+        )
+    ]
+
+    def sampling_fields(t):
+        i = t["rid"] - 410_000
+        if i % 2 == 0:
+            return {}
+        return {"temperature": 0.6 + 0.05 * (i % 5),
+                "top_k": 8 if i % 4 == 1 else 0,
+                "top_p": 0.9 if i % 4 == 3 else 0.0,
+                "seed": i}
+
+    fd4 = Frontdoor(router_s, config=FrontdoorConfig())
+    fd4.start()
+    try:
+        results, elapsed = _wire_replay(
+            fd4.port, churn, body_extra=sampling_fields)
+    finally:
+        fd4.close()
+    row_mix, _, mix_capture = _score_wire(churn, results, elapsed)
+    after = router_s.compile_stats()
+    report.update({
+        "sampling": {
+            **row_mix,
+            "mode": "per_slot_sampling mixed greedy+sampled",
+            "compile_stats_before": before,
+            "compile_stats_after": after,
+            "check_stream": _sse_audit(mix_capture),
+            **_router_counts(router_s, launches),
+        },
+        "sampling_new_compiles": _shape_count(after) - _shape_count(before),
+    })
+
+    if sse_out:
+        with open(sse_out, "w") as f:
+            for rec in capture:
+                f.write(json.dumps(rec) + "\n")
+        report["sse_out"] = sse_out
+    return report
+
+
+def _tenant_rows_from(completions) -> dict:
+    """Per-tenant latency/volume rows over one arm's completions.
+
+    `window_tokens` counts only tokens delivered while load was still
+    ARRIVING (finish <= the last arrival) — the contended window.
+    These runs drain to idle, so TOTAL delivered tokens always equal
+    the offered totals whatever the scheduler did; only the
+    window-bounded count can show who actually got served during the
+    fight, which is what Jain's index is judged over."""
+    from ddp_practice_tpu_torch.serve.fairshare import tenant_name
+
+    by: dict = {}
+    for c in completions:
+        by.setdefault(tenant_name(getattr(c, "tenant", None)),
+                      []).append(c)
+    window_end = max((c.arrival for c in completions
+                      if c.arrival is not None), default=None)
+    out = {}
+    for t, comps in sorted(by.items()):
+        ok = [c for c in comps if c.status in ("eos", "length")]
+        out[t] = {
+            "completions": len(comps),
+            "ok": len(ok),
+            "output_tokens": sum(len(c.tokens) for c in ok),
+            "window_tokens": sum(
+                len(c.tokens) for c in ok
+                if window_end is not None and c.finish is not None
+                and c.finish <= window_end),
+            "ttft_s": _percentiles(
+                [c.ttft for c in ok if c.ttft is not None]),
+            "latency_s": _percentiles(
+                [c.finish - c.arrival for c in ok]),
+        }
+    return out
+
+
+def qos_bench(
+    *,
+    rate_hz: float = 100.0,
+    duration_s: float = 2.0,
+    hostile_share: float = 4.0,
+    procs: int = 2,
+    max_slots: int = 2,
+    vocab: int = 64,
+    # heavier than the other serve benches on purpose: the arm is only
+    # a fairness experiment if 100 req/s genuinely saturates the
+    # fleet, so per-step cost is tuned to put capacity well BELOW the
+    # hostile tenant's offered token rate
+    hidden: Optional[int] = 256,
+    depth: Optional[int] = 4,
+    heads: Optional[int] = 4,
+    mlp: Optional[int] = 512,
+    decode_burst: int = 2,
+    seed: int = 0,
+    slo=None,
+    workload=None,
+    kill_at_s: float = 0.75,
+    model_name: str = "lm_tiny",
+    precision: str = "fp32",
+    device="cuda",
+    model=None,
+    telemetry_out=None,
+    trace_out=None,
+) -> dict:
+    """The multi-tenant QoS lab's bench: one adversarial workload plan
+    (serve/workload.py — a hostile tenant offering `hostile_share`x the
+    compliant tenant's rate) replayed through three arms:
+
+    - **FIFO** — RouterConfig(fair=False): the control. The hostile
+      tenant's backlog head-of-line-blocks the compliant tenant.
+    - **fair** — RouterConfig(fair=True): per-tenant weighted-fair
+      queues (serve/fairshare.py VTC) + a TenantSLORegistry:
+      ``isolation_ttft_p99_ratio`` (compliant tenant's TTFT p99,
+      fair/FIFO; the reference's acceptance <= 0.7),
+      ``fairness_index`` (Jain over the contended window's tokens,
+      >= 0.9), ``hostile_alert_tripped`` / ``compliant_clean`` (1/1),
+      and ``token_identity`` vs the FIFO arm (scheduling reorders WHO
+      runs next, never WHAT a greedy request decodes) with ``lost`` == 0
+      across both arms.
+    - **SIGKILL** — the same plan through a `procs`-worker FLEET
+      (WorkerSpec(fair=True): each worker runs its own VTC + ledger)
+      with a real SIGKILL `kill_at_s` into the replay and a supervised
+      restart: ``sigkill.lost`` == 0, ``sigkill.token_identity`` == 1.0
+      (failover salvage keeps greedy identity).
+
+    `model` reuses a built decoder (max_len >= 96) for the in-process
+    arms; the workers rebuild its weights from its widths and seed 0.
+    Each in-process arm reports `decode_steps` and `kernel_launches`,
+    the SIGKILL leg each live worker's own. The reference's per-arm JSONL
+    (`telemetry_out`, judged offline by tools/check_qos.py) and the
+    kill leg's merged fleet trace (`trace_out`) are ROADMAP A6d and
+    raise naming it."""
+    import threading
+
+    from ddp_practice_tpu_torch.serve.engine import EngineConfig
+    from ddp_practice_tpu_torch.serve.fairshare import (
+        TenantLedger,
+        VirtualTokenCounter,
+        jains_index,
+        tenant_name,
+    )
+    from ddp_practice_tpu_torch.serve.router import RouterConfig, make_router
+    from ddp_practice_tpu_torch.serve.scheduler import MonotonicClock
+    from ddp_practice_tpu_torch.serve.slo import SLOConfig, TenantSLORegistry
+    from ddp_practice_tpu_torch.serve.supervisor import (
+        SupervisorConfig,
+        make_fleet_router,
+    )
+    from ddp_practice_tpu_torch.serve.workload import TenantSpec, WorkloadPlan
+    from ddp_practice_tpu_torch.utils.metrics import MetricsRegistry
+
+    if telemetry_out is not None:
+        raise _a6d("qos_bench(telemetry_out=)")
+    if trace_out is not None:
+        raise _a6d("qos_bench(trace_out=)")
+    # short windows so a ~2 s run can trip/resolve; the production
+    # defaults (60/300 s) are for fleets, not benches
+    slo_cfg = SLOConfig.from_json(slo) if slo is not None else SLOConfig(
+        ttft_p99_s=0.5, fast_window_s=0.5, slow_window_s=1.0,
+        min_events=5,
+    )
+    if workload is not None:
+        plan = WorkloadPlan.from_json(workload)
+    else:
+        compliant_rps = rate_hz / (1.0 + hostile_share)
+        plan = WorkloadPlan([
+            TenantSpec(name="bulk", rate_rps=rate_hz - compliant_rps,
+                       arrivals="bursty", burst_every_s=1.0,
+                       burst_len_s=0.4, burst_mult=2.0,
+                       # long prompts + full budgets: the flood has to
+                       # OUTRUN the fleet or there is no contention to
+                       # be fair about
+                       prompt_len_mean=32.0, prompt_len_cap=64,
+                       max_new_mean=16.0, max_new_cap=16,
+                       hostile=True),
+            TenantSpec(name="acme", rate_rps=compliant_rps,
+                       sessions=2, turns_per_session=3,
+                       session_prefix_len=8, prompt_len_mean=4.0,
+                       prompt_len_cap=8, max_new_mean=8.0,
+                       max_new_cap=12),
+        ], duration_s=duration_s)
+    if model is None:
+        model = _build_model(
+            vocab=vocab, max_len=128, hidden=hidden, depth=depth,
+            heads=heads, mlp=mlp, model_name=model_name,
+            precision=precision, device=device)
+    trace = plan.build(vocab=model.vocab_size, seed=seed)
+    hostile = set(plan.hostile_tenants())
+    compliant = sorted(
+        {tenant_name(t["tenant"]) for t in trace}
+        - {tenant_name(h) for h in hostile})
+    ecfg = EngineConfig(
+        max_slots=max_slots, max_len=96, prompt_buckets=(16, 64),
+        temperature=0.0, decode_burst=decode_burst, eos_id=None,
+    )
+
+    def _judge(slo_reg, rows):
+        """The isolation verdict off the live registry's alert log."""
+        tripped = {t for _, edge, _, t in slo_reg.alert_log
+                   if edge == "trip"}
+        return {
+            "alerts": [
+                {"t": t, "event": edge, "objective": obj, "tenant": tn}
+                for t, edge, obj, tn in slo_reg.alert_log
+            ],
+            "hostile_alert_tripped": float(bool(
+                tripped & {tenant_name(h) for h in hostile})),
+            "compliant_clean": float(not (tripped & set(compliant))),
+            # judged over the CONTENDED window (_tenant_rows_from): a
+            # drain-to-idle run delivers everyone's totals in the end,
+            # so whole-run token counts cannot show starvation
+            "fairness_index": jains_index(
+                [rows[t]["window_tokens"] for t in sorted(rows)]),
+        }
+
+    def run_arm(fair: bool) -> tuple:
+        launches = _launches()
+        registry = MetricsRegistry()
+        clock = MonotonicClock()
+        slo_reg = TenantSLORegistry(slo_cfg, clock=clock,
+                                    registry=registry)
+        vtc = VirtualTokenCounter() if fair else None
+        ledger = TenantLedger(registry=registry, vtc=vtc)
+        router = make_router(
+            model, procs, ecfg, clock=clock, max_queue=len(trace),
+            config=RouterConfig(fair=fair), registry=registry,
+            slo=slo_reg, vtc=vtc, ledger=ledger,
+        )
+        router.warmup()
+        warm = router.compile_stats()
+        row = _replay_row(router, trace)
+        rows = _tenant_rows_from(router.completions)
+        row.update({
+            "mode": f"{'fair' if fair else 'fifo'} x{procs}",
+            "per_tenant": rows,
+            "tenants": ledger.report(),
+            "warm_compile_stats": warm,
+            "compile_stats": router.compile_stats(),
+            **_router_counts(router, launches),
+            **_judge(slo_reg, rows),
+        })
+        tokens = {c.rid: list(c.tokens) for c in router.completions
+                  if c.status in ("eos", "length")}
+        return row, tokens
+
+    fifo_row, fifo_tokens = run_arm(False)
+    fair_row, fair_tokens = run_arm(True)
+    matched = sum(1 for rid, toks in fifo_tokens.items()
+                  if toks and fair_tokens.get(rid) == toks)
+    comp = compliant[0] if compliant else None
+    isolation = (
+        fair_row["per_tenant"][comp]["ttft_s"]["p99"]
+        / fifo_row["per_tenant"][comp]["ttft_s"]["p99"]
+        if comp and fifo_row["per_tenant"].get(comp, {})
+        .get("ttft_s", {}).get("p99") else None
+    )
+    report: dict = {
+        "device": _device_name(model),
+        "workload": json.loads(plan.to_json()),
+        "slo": json.loads(slo_cfg.to_json()),
+        "seed": seed,
+        "hostile_tenants": sorted(hostile),
+        "compliant_tenants": compliant,
+        "fifo": fifo_row,
+        "fair": fair_row,
+        "isolation_ttft_p99_ratio": isolation,
+        # the verdict against the acceptance bound, beside the raw ratio
+        "isolation_ok": float(isolation is not None and isolation <= 0.7),
+        "token_identity": (matched / len(fifo_tokens)
+                           if fifo_tokens else 0.0),
+        "lost": fifo_row["lost"] + fair_row["lost"],
+        "fairness_index": fair_row["fairness_index"],
+        "hostile_alert_tripped": fair_row["hostile_alert_tripped"],
+        "compliant_clean": fair_row["compliant_clean"],
+    }
+
+    # ------------- SIGKILL leg: fair FLEET + real mid-run worker death
+    # judged against the FAILURE budget, not the steady-state one: the
+    # killed worker's flights ride out the restart whoever the
+    # scheduler favours, so 5x the latency targets is the
+    # single-worker-outage budget; the flooder's backlog sails past it
+    chaos_cfg = dataclasses.replace(
+        slo_cfg,
+        ttft_p99_s=(None if slo_cfg.ttft_p99_s is None
+                    else slo_cfg.ttft_p99_s * 5),
+        tpot_p99_s=(None if slo_cfg.tpot_p99_s is None
+                    else slo_cfg.tpot_p99_s * 5),
+    )
+    registry = MetricsRegistry()
+    clock = MonotonicClock()
+    slo_reg = TenantSLORegistry(chaos_cfg, clock=clock, registry=registry)
+    ledger = TenantLedger(registry=registry)
+    router_f, sup, handles = make_fleet_router(
+        _worker_spec(
+            model,
+            {"max_slots": max_slots, "max_len": 96,
+             "prompt_buckets": [16, 64], "temperature": 0.0,
+             "decode_burst": decode_burst, "eos_id": None},
+            max_queue=len(trace), fair=True,
+        ),
+        procs,
+        clock=clock,
+        sup_config=SupervisorConfig(restart_base_s=0.25),
+        registry=registry, slo=slo_reg, ledger=ledger,
+    )
+    killer = threading.Timer(kill_at_s, sup.kill, (0, "SIGKILL"))
+    try:
+        killer.start()
+        kill_row = _replay_row(router_f, trace, fleet=True)
+        workers = _worker_counts(sup, handles)
+    finally:
+        killer.cancel()
+        sup.stop()
+    rows = _tenant_rows_from(router_f.completions)
+    kill_tokens = {c.rid: list(c.tokens) for c in router_f.completions
+                   if c.status in ("eos", "length")}
+    kmatched = sum(1 for rid, toks in fifo_tokens.items()
+                   if toks and kill_tokens.get(rid) == toks)
+    kill_row.update({
+        "mode": f"fair fleet x{procs} + SIGKILL",
+        "kill_at_s": kill_at_s,
+        "slo_chaos": json.loads(chaos_cfg.to_json()),
+        "per_tenant": rows,
+        "worker_restarts": list(sup.restarts),
+        "workers": workers,
+        "token_identity": (kmatched / len(fifo_tokens)
+                           if fifo_tokens else 0.0),
+        **_judge(slo_reg, rows),
+    })
+    report["sigkill"] = kill_row
+    report["sigkill_lost"] = kill_row["lost"]
+    return report
+
+
 def _ints(text: str) -> tuple:
     return tuple(int(x) for x in text.split(","))
 
@@ -962,6 +2368,51 @@ def build_parser() -> argparse.ArgumentParser:
                    help="repeatable; push SLO alert edges to a sink: "
                         "command:..., webhook:http://..., jsonl:path "
                         "(retry backoff, dead-sink breaker); needs --slo")
+    p.add_argument("--procs", type=int, default=0,
+                   help="run the trace through N worker OS PROCESSES "
+                        "behind the RPC seam AND through N in-process "
+                        "router replicas: the seam's latency and goodput "
+                        "ratios (serve/worker.py + serve/supervisor.py; "
+                        "--fault-plan kill specs deliver real "
+                        "SIGKILL/SIGSTOP to live workers)")
+    p.add_argument("--streaming", action="store_true",
+                   help="with --procs: bench STREAMING token delivery "
+                        "through the worker fleet: streaming against "
+                        "end-of-request delivery, or with --fault-plan "
+                        "kill specs the consumer's exactly-once ledger "
+                        "under real kills")
+    p.add_argument("--frontdoor", action="store_true",
+                   help="bench the HTTP/SSE front door end to end "
+                        "through real client sockets "
+                        "(serve/frontdoor.py): wire-vs-in-process "
+                        "goodput and greedy token identity, chunked-"
+                        "prefill short-request TTFT p99 ratio, a "
+                        "mid-stream worker SIGKILL with zero lost streams "
+                        "(--procs workers, default 2), and mixed greedy+"
+                        "sampled churn with zero new shapes")
+    p.add_argument("--sse-out", dest="sse_out", default=None,
+                   metavar="PATH",
+                   help="with --frontdoor: dump the wire-side SSE frame "
+                        "capture as JSONL; audit with "
+                        "tools/check_stream.py --sse")
+    p.add_argument("--qos", action="store_true",
+                   help="the multi-tenant QoS lab (serve/workload.py): "
+                        "one adversarial plan (hostile tenant at 4x the "
+                        "compliant share) through FIFO and weighted-fair "
+                        "arms plus a fair FLEET leg under a real SIGKILL "
+                        "(--procs workers, default 2): the compliant "
+                        "tenant's TTFT-p99 isolation ratio, Jain's "
+                        "fairness index, per-tenant alert attribution, "
+                        "greedy token identity and zero lost. "
+                        "--workload/--slo override the plan and targets")
+    p.add_argument("--workload", default=None, metavar="JSON|PATH",
+                   help="with --qos: a serve/workload.py WorkloadPlan "
+                        "(JSON literal or path) replacing the default "
+                        "hostile+compliant plan")
+    p.add_argument("--qos-duration", dest="qos_duration", type=float,
+                   default=2.0,
+                   help="with --qos: plan duration in seconds (arrival "
+                        "window; the run drains past it)")
     # the later slices' flags: accepted, and refused by ROADMAP item
     for flags, kw, _ in _LATER:
         p.add_argument(*flags, default=None, help=argparse.SUPPRESS, **kw)
@@ -1031,17 +2482,10 @@ def build_parser() -> argparse.ArgumentParser:
 # the reference bench's flags that belong to later slices of the port:
 # ((flags...), argparse keywords, ROADMAP item)
 _LATER = (
-    (("--frontdoor",), {"action": "store_true"}, "A6b"),
-    (("--sse-out",), {}, "A6b"),
-    (("--qos",), {"action": "store_true"}, "A6b"),
-    (("--qos-duration",), {"type": float}, "A6b"),
-    (("--workload",), {}, "A6b"),
-    (("--procs",), {"type": int}, "A6c"),
-    (("--streaming",), {"action": "store_true"}, "A6c"),
-    (("--cache-aware",), {"action": "store_true"}, "A6c"),
-    (("--autoscale",), {"action": "store_true"}, "A6c"),
-    (("--autoscale-max",), {"type": int}, "A6c"),
-    (("--standby",), {"type": int}, "A6c"),
+    (("--cache-aware",), {"action": "store_true"}, "A6c-2"),
+    (("--autoscale",), {"action": "store_true"}, "A6c-2"),
+    (("--autoscale-max",), {"type": int}, "A6c-2"),
+    (("--standby",), {"type": int}, "A6c-2"),
     (("--metrics-port", "--metrics_port"), {"type": int}, "A6d"),
     (("--telemetry-out", "--telemetry_out"), {}, "A6d"),
     (("--scrape-hz",), {"type": float}, "A6d"),
@@ -1165,6 +2609,142 @@ def _sampling(args) -> dict:
                              if args.trace_tenant_rates else None)}
 
 
+def _frontdoor_main(args, door: dict, opt: dict) -> int:
+    report = frontdoor_bench(n_requests=args.requests,
+                             procs=args.procs or 2, sse_out=args.sse_out,
+                             **door, **opt)
+    if args.json:
+        print(json.dumps(report))
+        return 0
+    ip, w = report["in_process"], report["wire"]
+    print(f"[frontdoor_bench] {report['trace']['n_requests']} requests @ "
+          f"{report['trace']['rate_hz']}/s through real sockets, "
+          f"{args.model} {args.precision} on {report['device']}")
+    for r in (ip, w):
+        print(f"  {r['mode']:>24}: {r['goodput_tokens_per_sec']:8.1f} "
+              f"tok/s  ttft p50 {r['ttft_s']['p50'] * 1e3:7.1f} ms  "
+              f"lost {r['lost']}")
+    cs = report["check_stream"]
+    print(f"  wire/in-process goodput {report['goodput_ratio']:.3f}x  "
+          f"token identity {report['token_identity']:.2f}  --sse audit "
+          f"ok={cs.get('ok')} ({cs.get('streams', 0)} streams, "
+          f"{cs.get('violations', 0)} violations)")
+    cp = report["chunked_prefill"]
+    print(f"  chunked prefill: short-TTFT p99 "
+          f"{cp['chunked']['ttft_short_s']['p99'] * 1e3:.0f} ms vs "
+          f"{cp['unchunked']['ttft_short_s']['p99'] * 1e3:.0f} ms "
+          f"unchunked, ratio {report['ttft_p99_ratio_chunked']:.3f}x  "
+          f"identity {cp['token_identity']:.2f}")
+    sk = report["sigkill"]
+    print(f"  SIGKILL @ {sk['kill_at_s']}s: lost {report['sigkill_lost']}  "
+          f"resumed markers {sk['resumed_markers']}  restarts "
+          f"{sk['worker_restarts']}  audit "
+          f"ok={sk['check_stream'].get('ok')}")
+    sm = report["sampling"]
+    print(f"  sampling churn: new shapes {report['sampling_new_compiles']}"
+          f"  statuses {sm['statuses']}  audit "
+          f"ok={sm['check_stream'].get('ok')}")
+    if "sse_out" in report:
+        print(f"  wrote SSE capture to {report['sse_out']}: audit with "
+              f"tools/check_stream.py --sse")
+    return 0
+
+
+def _qos_main(args, door: dict, opt: dict) -> int:
+    opt = {k: v for k, v in opt.items() if k != "rate_hz"}
+    report = qos_bench(rate_hz=args.rate or 100.0,
+                       duration_s=args.qos_duration,
+                       procs=args.procs or 2, slo=args.slo,
+                       workload=args.workload, **door, **opt)
+    if args.json:
+        print(json.dumps(report))
+        return 0
+    print(f"[qos_bench] {len(report['workload']['tenants'])} tenants @ "
+          f"{args.rate or 100.0}/s for {report['workload']['duration_s']}"
+          f"s, hostile {report['hostile_tenants']} vs compliant "
+          f"{report['compliant_tenants']}, on {report['device']}")
+    for tag in ("fifo", "fair"):
+        r = report[tag]
+        for t, row in r["per_tenant"].items():
+            print(f"  {r['mode']:>10} {t:>8}: ttft p99 "
+                  f"{row['ttft_s'].get('p99', 0) * 1e3:7.1f} ms  "
+                  f"{row['output_tokens']:5d} tok  "
+                  f"({row['ok']}/{row['completions']} ok)")
+        print(f"  {r['mode']:>10} fairness {r['fairness_index']:.4f}  "
+              f"trips {sum(a['event'] == 'trip' for a in r['alerts'])}  "
+              f"lost {r['lost']}")
+    iso = report["isolation_ttft_p99_ratio"]
+    print(f"  isolation ttft p99 fair/fifo "
+          f"{'n/a' if iso is None else f'{iso:.3f}x'}  token identity "
+          f"{report['token_identity']:.2f}  hostile tripped "
+          f"{report['hostile_alert_tripped']:.0f}  compliant clean "
+          f"{report['compliant_clean']:.0f}")
+    sk = report["sigkill"]
+    print(f"  SIGKILL @ {sk['kill_at_s']}s: lost {sk['lost']}  identity "
+          f"{sk['token_identity']:.2f}  fairness "
+          f"{sk['fairness_index']:.4f}  restarts {sk['worker_restarts']}")
+    return 0
+
+
+def _streaming_main(args, fleet_kw: dict) -> int:
+    report = streaming_bench(**fleet_kw)
+    if args.json:
+        print(json.dumps(report))
+    elif "fleet" in report:  # chaos arm
+        fl, st = report["fleet"], report["streams"]
+        print(f"[streaming_bench chaos] {args.requests} requests, "
+              f"{args.procs} workers, kills {fl['kills_fired']}")
+        print(f"  consumer ledger: dupes {report['chunk_dupes']}  gaps "
+              f"{report['chunk_gaps']}  lost {report['lost']}  "
+              f"unterminated {report['unterminated']}  resumed markers "
+              f"{st['resumed_markers']}  suppressed "
+              f"{st['suppressed_tokens']} tok")
+        print(f"  inter-token p99 {report['inter_token_p99_s'] * 1e3:.2f} "
+              f"ms  resume gap p99 {report['resume_gap_p99_s'] * 1e3:.1f} "
+              f"ms")
+        cs = report.get("check_stream", {})
+        print(f"  check_stream audit: ok={cs.get('ok')} over "
+              f"{cs.get('streams', 0)} stream(s), "
+              f"{cs.get('violations', 0)} violation(s)")
+    else:
+        print(f"[streaming_bench] {args.requests} requests, {args.procs} "
+              f"workers, {report['reps']} order-balanced reps")
+        print(f"  streaming vs end-of-request: latency mean "
+              f"{report['latency_ratio_mean']:.3f}x  p50 "
+              f"{report['latency_ratio_p50']:.3f}x  goodput "
+              f"{report['goodput_ratio']:.3f}x  ({report['gate']})")
+        print(f"  exactly-once cross-check violations: "
+              f"{report['stream_violations']}")
+    return 0
+
+
+def _fleet_main(args, fleet_kw: dict) -> int:
+    report = fleet_bench(**fleet_kw)
+    if args.json:
+        print(json.dumps(report))
+        return 0
+    ip, fl = report["in_process"], report["fleet"]
+    kills = " under real kills" if args.fault_plan else ""
+    print(f"[fleet_bench] {args.requests} requests @ "
+          f"{report['trace']['rate_hz']}/s, {args.procs} workers{kills}, "
+          f"{args.model} {args.precision} on {report['device']}")
+    for r in (ip, fl):
+        print(f"  {r['mode']:>12}: {r['goodput_tokens_per_sec']:8.1f} "
+              f"tok/s  ttft p50 {r['ttft_s']['p50'] * 1e3:7.1f} ms  "
+              f"latency p50 {r['latency_s']['p50'] * 1e3:7.1f}/p99 "
+              f"{r['latency_s']['p99'] * 1e3:.1f} ms")
+    print(f"  latency ratio p50 {report['latency_ratio_p50']:.3f}x  p99 "
+          f"{report['latency_ratio_p99']:.3f}x  goodput "
+          f"{report['goodput_ratio']:.3f}x  tpot "
+          f"{report['tpot_ratio_p50']:.3f}x  ttft "
+          f"{report['ttft_ratio_p50']:.3f}x")
+    print(f"  fleet: statuses {fl['statuses']}  lost {fl['lost']}  "
+          f"failovers {fl['failovers']:.0f}  restarts "
+          f"{fl['worker_restarts']}"
+          + (f"  kills {fl['kills_fired']}" if "kills_fired" in fl else ""))
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     _refuse_later_flags(args)
@@ -1173,12 +2753,17 @@ def main(argv=None) -> int:
     if args.alert_sink and not args.slo:
         raise SystemExit("--alert-sink needs --slo (the sinks carry the "
                          "watchdog's trip/resolve edges)")
-    if args.fault_plan and not args.replicas:
+    if args.fault_plan and not (args.replicas or args.procs):
         raise SystemExit("--fault-plan needs --replicas N (faults are "
-                         "injected into the router fleet run)")
-    if args.slo and not args.replicas:
+                         "injected into the router fleet run) or --procs "
+                         "N (kill specs signal the worker processes)")
+    if args.slo and not (args.replicas or args.qos):
         raise SystemExit("--slo needs --replicas N (the watchdog feeds "
-                         "the router's brown-out hook)")
+                         "the router's brown-out hook) or --qos")
+    if args.streaming and not args.procs:
+        raise SystemExit("--streaming needs --procs N (chunks ride the "
+                         "worker push stream; the in-process router "
+                         "streams by default already)")
     if args.eos_id is None:
         args.eos_id = 46
     if args.kv_int8 and not args.shared_prefix:
@@ -1231,6 +2816,31 @@ def main(argv=None) -> int:
               f"{report['accept_rate']:.2f}  token identity "
               f"{report['token_identity']:.2f}")
         return 0
+    if args.frontdoor or args.qos:
+        # lm_tiny keeps each bench's own (the reference's) widths
+        door = dict(model_name=args.model, precision=args.precision,
+                    device=args.device, seed=args.seed)
+        if base:
+            door.update(vocab=widths["vocab"], hidden=None, depth=None,
+                        heads=None, mlp=None)
+        if args.frontdoor:
+            return _frontdoor_main(args, door, opt)
+        return _qos_main(args, door, opt)
+    if args.procs:
+        fleet_kw = dict(
+            n_requests=args.requests, procs=args.procs,
+            max_len=args.max_len, prompt_buckets=args.prompt_buckets,
+            prompt_len_range=args.prompt_len_range,
+            max_new_range=args.max_new_range, eos_id=args.eos_id,
+            **{k: v for k, v in widths.items() if k != "block_size"},
+            **opt)
+        if args.fault_plan:
+            from ddp_practice_tpu_torch.serve.faults import FaultPlan
+
+            fleet_kw["fault_plan"] = FaultPlan.from_json(args.fault_plan)
+        if args.streaming:
+            return _streaming_main(args, fleet_kw)
+        return _fleet_main(args, fleet_kw)
     kv = {"bf16": torch.bfloat16, "int8": "int8", None: None}
     fleet = {}
     if args.replicas:

@@ -3,8 +3,8 @@
 (Host-pure Python: a copy of ddp_practice_tpu/serve/faults.py; the port
 imports nothing of the reference package.) The kinds `crash`, `latency`,
 `nan_logits` and `admit_fail` act through the scheduler's fault hook;
-`kill` and `FleetFaultDriver` are here for the worker fleet, whose
-supervisor delivers the signals (ROADMAP A6c).
+`kill` and `FleetFaultDriver` drive the worker fleet: the supervisor
+(serve/supervisor.py) delivers the signals to live worker processes.
 
 Fault tolerance that is only exercised by real outages is untested code.
 This module makes failures a first-class, REPLAYABLE input: a FaultPlan

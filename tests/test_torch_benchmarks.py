@@ -294,6 +294,57 @@ def test_steps_per_call_override_skips_decode(monkeypatch, tmp_path,
     assert lines[1]["mode"] == "decode" and "error" not in lines[1]
 
 
+TINY_PIPELINE = dict(
+    kind="pipeline", num_stages=2, microbatch_counts=(2,), hidden_dim=32,
+    depth=2, num_heads=4, mlp_dim=64, vocab_size=32, seq_len=16, mb_rows=2,
+    steps=1, warmup=1)
+
+
+def test_extra_entries_run_when_named(monkeypatch, tmp_path, capsys):
+    """The entries beyond the reference's suite run when --models names
+    them: the decode on lm_moe benches lm_moe (not lm_base), and the
+    pipeline sweep gives its rows without heading the line."""
+    monkeypatch.setattr(port, "_SUITE", {
+        "convnet": dict(CASES["train-convnet"][2])})
+    monkeypatch.setattr(port, "EXTRA", {
+        "lm_decode_moe": dict(CASES["decode-lm_moe"][2], kind="decode",
+                              model="lm_moe"),
+        "pipeline": dict(TINY_PIPELINE)})
+    names = []
+    real = port.bench_lm_decode
+    monkeypatch.setattr(port, "bench_lm_decode",
+                        lambda name, **kw: names.append(name)
+                        or real(name, **kw))
+    rc = port.main(["--models", "pipeline,lm_decode_moe,convnet",
+                    "--precision", "fp32", "--device", "cpu",
+                    "--calls", "2", "--out", str(tmp_path / "suite.json")])
+    assert rc == 0
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert [x.get("model") for x in lines[:3]] == [
+        "pipeline", "lm_decode_moe", "convnet"]
+    assert names == ["lm_moe"]
+    assert [r["schedule"] for r in lines[0]["rows"]] == ["gpipe", "1f1b"]
+    assert lines[1]["mode"] == "decode"
+    # the first entry with a rate heads the line
+    assert lines[-1]["unit"] == "tokens/sec/chip"
+    assert lines[-1]["value"] == lines[1]["tokens_per_sec_per_chip"]
+
+
+def test_pipeline_sweep_alone(monkeypatch, tmp_path, capsys):
+    """A suite of the pipeline sweep alone writes its rows and ends with
+    its fastest schedule's step time."""
+    monkeypatch.setattr(port, "EXTRA", {"pipeline": dict(TINY_PIPELINE)})
+    out = tmp_path / "suite.json"
+    rc = port.main(["--models", "pipeline", "--precision", "fp32",
+                    "--device", "cpu", "--out", str(out)])
+    assert rc == 0
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    rows = lines[0]["rows"]
+    assert lines[-1]["unit"] == "ms/step"
+    assert lines[-1]["value"] == min(r["ms_per_step"] for r in rows)
+    assert json.loads(out.read_text())["results"][0]["rows"] == rows
+
+
 def test_suite_copies_the_reference_suite():
     """The entries, their names and configurations are the root bench.py's
     (as read from its source: importing it would be harmless, running it

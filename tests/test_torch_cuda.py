@@ -29,7 +29,11 @@ pipe 2 x tensor 2 against one rank: `-k pipe`); the router over two
 replicas (lm_base fp32 under a crash: tokens equal one engine's, kernel
 A's launches over both replicas; serve_bench's router row per kernel,
 A and B; `serve --replicas 2 --trace_out` validated: `-k "router or
-trace_out_on_the_card"`);
+trace_out_on_the_card"`); the worker fleet (a worker on the card by
+default, tokens equal one in-process engine's and its own A launches;
+the front door's SIGKILL arm; streaming_bench under a kill plan,
+exactly once at the consumer: `-k "worker or frontdoor or
+streaming"`);
 the split over the cache at forced plans and at ranges the old kernel
 refused (L = 65536), its arrival counters across calls, and kernel C
 with fp32 queries over a bf16 pool at S > 1 against the split schedule's
@@ -2100,3 +2104,103 @@ def test_cli_serve_trace_out_on_the_card(card, tmp_path, capsys):
     assert validate(trace) == []
     assert {"prefill", "decode_burst", "dispatch"} <= {
         e["name"] for e in trace["traceEvents"]}
+
+
+# ------------------------------- the front door and the fleet (A6b, A6c-1)
+# 4 heads of 64 (kernel A packs them), small enough to boot in seconds
+FLEET_MODEL = {"vocab_size": 64, "max_len": 256, "hidden_dim": 256,
+               "depth": 2, "num_heads": 4, "mlp_dim": 512,
+               "pos_emb": "rope"}
+
+
+def test_worker_serves_on_the_card_by_default(card):
+    """A WorkerSpec with no `device` boots its engine on the card: its
+    greedy tokens over the RPC seam equal one in-process SlotEngine's on
+    the card, and its own published counters show kernel A launched
+    depth x its decode steps."""
+    from ddp_practice_tpu_torch.serve import (
+        EngineConfig, Request, Scheduler, SlotEngine, WorkerSpec)
+    from ddp_practice_tpu_torch.serve.supervisor import (
+        make_fleet_router, reap_all)
+    from ddp_practice_tpu_torch.serve.worker import build_model
+
+    engine = {"max_slots": 4, "max_len": 128, "prompt_buckets": [16, 64],
+              "temperature": 0.0, "decode_burst": 4, "eos_id": None}
+    spec = WorkerSpec(model=FLEET_MODEL, engine=engine, max_queue=32)
+    assert spec.device == "cuda"
+    trace = _router_trace(6, seed=2)
+    sched = Scheduler(SlotEngine(
+        build_model(FLEET_MODEL), EngineConfig(**dict(
+            engine, prompt_buckets=(16, 64)))), max_queue=32)
+    reqs = [dict(rid=t["rid"], prompt=[x % 64 for x in t["prompt"]],
+                 max_new_tokens=t["max_new_tokens"]) for t in trace]
+    for r in reqs:
+        sched.submit(Request(**r))
+    want = {c.rid: c.tokens for c in sched.run_until_idle()}
+    try:
+        router, sup, _ = make_fleet_router(spec, 1)
+        try:
+            for r in reqs:
+                router.submit(Request(**r))
+            comps = router.run_until_idle()
+            stats = sup.worker(0).client.call("ping")["stats"]
+        finally:
+            sup.stop()
+    finally:
+        assert reap_all() == []
+    assert {c.rid: c.tokens for c in comps} == want
+    assert all(c.status == "length" for c in comps)
+    launched = {k: v for k, v in stats["kernel_launches"].items() if v}
+    assert stats["decode_steps"] > 0
+    assert launched == {"decode_attention": 2 * stats["decode_steps"]}
+
+
+def test_frontdoor_sigkill_arm_on_the_card(card):
+    """frontdoor_bench on the card (4 heads of 64): the SIGKILL arm
+    loses no stream, restarts the killed worker, ends every socket with
+    a typed terminal, and its SSE capture passes the --sse audit; each
+    live worker launched A depth x its own decode steps."""
+    from ddp_practice_tpu_torch.serve.bench import frontdoor_bench
+    from ddp_practice_tpu_torch.serve.supervisor import reap_all
+
+    try:
+        report = frontdoor_bench(
+            n_requests=8, rate_hz=8.0, vocab=64, hidden=256, depth=2,
+            heads=4, mlp=512, max_len=256, prompt_buckets=(16, 64),
+            prompt_len_range=(2, 30), max_new_range=(4, 24), procs=2)
+    finally:
+        assert reap_all() == []
+    sk = report["sigkill"]
+    assert report["sigkill_lost"] == 0
+    assert sum(sk["worker_restarts"]) >= 1
+    assert set(sk["statuses"]) <= {"length", "eos"}
+    assert sk["check_stream"]["ok"] is True
+    assert report["token_identity"] == 1.0
+    for w in sk["workers"]:
+        launched = {k: v for k, v in w["kernel_launches"].items() if v}
+        assert launched == {"decode_attention": 2 * w["decode_steps"]}
+
+
+def test_streaming_bench_kill_plan_is_exactly_once(card):
+    """streaming_bench's chaos arm on the card: worker 0 SIGKILLed
+    mid-stream, and at the consumer no token duplicated or missing, no
+    stream unterminated, each stream's concatenation equal to its
+    completion, none lost, and the chunk lines pass check_stream."""
+    from ddp_practice_tpu_torch.serve import FaultPlan, FaultSpec
+    from ddp_practice_tpu_torch.serve.bench import streaming_bench
+    from ddp_practice_tpu_torch.serve.supervisor import reap_all
+
+    plan = FaultPlan([FaultSpec(kind="kill", replica=0, at_s=0.4)])
+    try:
+        report = streaming_bench(
+            n_requests=12, rate_hz=10.0, vocab=64, hidden=256, depth=2,
+            heads=4, mlp=512, max_len=256, prompt_buckets=(16, 64),
+            prompt_len_range=(2, 30), max_new_range=(16, 48),
+            eos_id=None, procs=2, fault_plan=plan)
+    finally:
+        assert reap_all() == []
+    assert report["fleet"]["kills_fired"]
+    assert report["chunk_dupes"] == 0 and report["chunk_gaps"] == 0
+    assert report["lost"] == 0 and report["unterminated"] == 0
+    assert report["stream_completion_mismatches"] == 0
+    assert report["check_stream"]["ok"] is True

@@ -20,7 +20,10 @@
   serve/bench, the ResNets, augmentation, the native loader's binding and
   the converter, and the serving plane: health, faults, metrics, SLO,
   fair share, affinity, the router, the trace recorder, logging, the
-  POST helper) only the standard library, numpy, torch and the port.
+  POST helper; the front door, admission, SSE, workloads, RPC, the worker
+  and its telemetry endpoints, the supervisor) only the standard
+  library, numpy, torch and the port. A worker process started the way
+  the supervisor starts it serves a request with jax blocked.
 - Entry points asked for the card raise without one; chip_smoke exits
   non-zero with no result line, both without a card and when it stands
   alone outside the repository.
@@ -33,6 +36,7 @@ import re
 import shutil
 import subprocess
 import sys
+import time
 
 import pytest
 import torch
@@ -241,8 +245,13 @@ TRAIN_SLICE = ["data/sharding.py", "data/lm_corpus.py", "data/datasets.py",
                "models/pipeline_vit.py", "serve/health.py",
                "serve/faults.py", "serve/metrics.py", "serve/slo.py",
                "serve/fairshare.py", "serve/affinity.py", "serve/router.py",
-               "utils/trace.py", "utils/logging.py", "utils/http_post.py"]
-STDLIB = ("__future__", "typing", "argparse", "collections", "contextlib",
+               "utils/trace.py", "utils/logging.py", "utils/http_post.py",
+               "serve/sse.py", "serve/admission.py", "serve/workload.py",
+               "serve/frontdoor.py", "serve/rpc.py", "serve/worker.py",
+               "serve/supervisor.py", "utils/telemetry.py"]
+STDLIB = ("__future__", "typing", "argparse", "asyncio", "atexit",
+          "collections", "contextlib", "http.client", "http.server",
+          "queue", "select", "signal",
           "ctypes", "dataclasses", "enum", "fcntl", "functools", "gc",
           "gzip", "hashlib", "heapq", "itertools", "json", "logging", "math",
           "os", "pathlib", "pickle", "platform", "re", "shlex", "shutil",
@@ -253,13 +262,28 @@ STDLIB = ("__future__", "typing", "argparse", "collections", "contextlib",
           "uuid", "warnings")
 
 
+# the offline audit the benches run in-process; it imports only the
+# standard library (test_tools_stand_alone)
+TOOLS = ("tools.check_stream",)
+
+
 @pytest.mark.parametrize("module", TRAIN_SLICE)
 def test_train_slice_modules_stand_alone(module):
     imported = _imports(module)
     assert imported and all(
-        m in STDLIB or m in ("numpy", "torch")
+        m in STDLIB or m in ("numpy", "torch") or m in TOOLS
         or m.startswith(("torch.", "ddp_practice_tpu_torch."))
         for m in imported), sorted(imported)
+
+
+@pytest.mark.parametrize("tool", TOOLS)
+def test_tools_stand_alone(tool):
+    tree = ast.parse((ROOT / (tool.replace(".", "/") + ".py")).read_text())
+    imported = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+                for a in n.names}
+    imported |= {n.module for n in ast.walk(tree)
+                 if isinstance(n, ast.ImportFrom)}
+    assert imported and all(m in STDLIB for m in imported), sorted(imported)
 
 
 
@@ -284,8 +308,16 @@ def test_entry_points_refuse_a_missing_card():
         bench.serve_bench(n_requests=1, paged=True)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         bench.serve_bench(n_requests=1, replicas=2)
+    for entry in (bench.frontdoor_bench, bench.fleet_bench,
+                  bench.streaming_bench):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            entry(n_requests=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench.qos_bench()
     for flags in (["--paged"], ["--shared-prefix", "--kv-int8"],
-                  ["--spec-decode"], ["--replicas", "2"]):
+                  ["--spec-decode"], ["--replicas", "2"], ["--frontdoor"],
+                  ["--qos"], ["--procs", "2"],
+                  ["--procs", "2", "--streaming"]):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             bench.main(["--requests", "1", *flags])
     for entry in (benchmarks.bench_train, benchmarks.bench_lm_train,
@@ -293,6 +325,49 @@ def test_entry_points_refuse_a_missing_card():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             entry("lm_tiny" if entry is not benchmarks.bench_train
                   else "convnet")
+
+
+def test_worker_process_serves_with_jax_blocked(tmp_path, monkeypatch):
+    """serve/supervisor.py spawn_worker starts `python -m
+    ddp_practice_tpu_torch.serve.worker` with jax, flax, optax and the
+    JAX package unimportable in the child (a sitecustomize on its
+    PYTHONPATH blocks them and leaves its pid): the worker boots, prints
+    its READY line and serves one greedy request over the RPC seam."""
+    from ddp_practice_tpu_torch.serve.supervisor import reap_all, spawn_worker
+    from ddp_practice_tpu_torch.serve.worker import WorkerSpec
+
+    site = tmp_path / "site"
+    site.mkdir()
+    (site / "sitecustomize.py").write_text(
+        "import os, sys\n"
+        "for name in ('jax', 'flax', 'optax', 'ddp_practice_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        f"open({str(tmp_path / 'blocked')!r}, 'a').write("
+        "f'{os.getpid()}\\n')\n")
+    monkeypatch.setenv("PYTHONPATH", str(site))
+    spec = WorkerSpec(
+        model={"vocab_size": 32, "max_len": 32, "hidden_dim": 32,
+               "depth": 1, "num_heads": 2, "mlp_dim": 64,
+               "pos_emb": "rope"},
+        engine={"max_slots": 1, "max_len": 32, "prompt_buckets": [8],
+                "decode_burst": 2}, device="cpu")
+    w = spawn_worker(spec, log_dir=str(tmp_path / "logs"),
+                     ready_timeout_s=60.0)
+    try:
+        assert str(w.pid) in (tmp_path / "blocked").read_text().split()
+        req = {"rid": 1, "prompt": [3, 1, 4], "max_new_tokens": 4}
+        assert w.client.call("submit", request=req)["accepted"]
+        deadline = time.monotonic() + 30
+        comps = []
+        while not comps and time.monotonic() < deadline:
+            comps = w.client.call("poll", watermark=0)["completions"]
+            time.sleep(0.02)
+        assert comps and comps[0]["status"] == "length"
+        assert len(comps[0]["tokens"]) == 4
+        w.client.call("shutdown")
+    finally:
+        w.reap()
+        assert reap_all() == []
 
 
 def test_chip_smoke_fails_without_card_or_repo(tmp_path):

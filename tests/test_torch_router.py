@@ -483,12 +483,9 @@ def test_fleet_flags_without_their_partner_are_refused(argv, message):
         bench.main(argv + ["--device", "cpu"])
 
 
-LATER = [("--frontdoor", None, "A6b"), ("--sse-out", "s.jsonl", "A6b"),
-         ("--qos", None, "A6b"), ("--qos-duration", "2", "A6b"),
-         ("--workload", "{}", "A6b"), ("--procs", "2", "A6c"),
-         ("--streaming", None, "A6c"), ("--cache-aware", None, "A6c"),
-         ("--autoscale", None, "A6c"), ("--autoscale-max", "3", "A6c"),
-         ("--standby", "1", "A6c"), ("--metrics-port", "0", "A6d"),
+LATER = [("--cache-aware", None, "A6c-2"), ("--autoscale", None, "A6c-2"),
+         ("--autoscale-max", "3", "A6c-2"), ("--standby", "1", "A6c-2"),
+         ("--metrics-port", "0", "A6d"),
          ("--telemetry-out", "t.jsonl", "A6d"), ("--scrape-hz", "5", "A6d"),
          ("--otlp-out", "o.json", "A6d"),
          ("--otlp-endpoint", "http://localhost:1/v1/traces", "A6d"),
@@ -496,6 +493,81 @@ LATER = [("--frontdoor", None, "A6b"), ("--sse-out", "s.jsonl", "A6b"),
          ("--trace-overhead", None, "A6d"), ("--trace-sampling", None, "A6d"),
          ("--adaptive-sampling", None, "A6d"),
          ("--trace-budget-sps", "100", "A6d")]
+
+
+KILL = '{"faults": [{"kind": "kill", "replica": 0, "at_s": 0.5}]}'
+WORKLOAD = '{"duration_s": 1.0, "tenants": [{"name": "a"}]}'
+# (argv, the bench it must reach, keyword arguments it must receive)
+PORTED = [
+    (["--frontdoor"], "frontdoor_bench",
+     dict(procs=2, n_requests=32, sse_out=None, device="cpu",
+          model_name="lm_tiny", precision="fp32")),
+    (["--frontdoor", "--sse-out", "s.jsonl", "--procs", "3", "--rate",
+      "40"], "frontdoor_bench",
+     dict(procs=3, sse_out="s.jsonl", rate_hz=40.0)),
+    (["--frontdoor", "--model", "lm_base", "--precision", "bf16"],
+     "frontdoor_bench",
+     dict(model_name="lm_base", precision="bf16", vocab=256, hidden=None,
+          depth=None, heads=None, mlp=None)),
+    (["--qos"], "qos_bench",
+     dict(rate_hz=100.0, duration_s=2.0, procs=2, workload=None, slo=None,
+          device="cpu")),
+    (["--qos", "--qos-duration", "1.5", "--procs", "4", "--rate", "60"],
+     "qos_bench", dict(duration_s=1.5, procs=4, rate_hz=60.0)),
+    (["--qos", "--workload", WORKLOAD, "--slo", '{"ttft_p99_s": 0.2}'],
+     "qos_bench", dict(workload=WORKLOAD, slo='{"ttft_p99_s": 0.2}')),
+    (["--procs", "2"], "fleet_bench",
+     dict(procs=2, n_requests=32, max_len=128, prompt_buckets=(8, 16),
+          device="cpu", hidden=128, eos_id=46)),
+    (["--procs", "3", "--fault-plan", KILL, "--max_slots", "2"],
+     "fleet_bench", dict(procs=3, max_slots=2, fault_plan=KILL)),
+    (["--procs", "2", "--streaming"], "streaming_bench",
+     dict(procs=2, n_requests=32, device="cpu")),
+    (["--procs", "2", "--streaming", "--fault-plan", KILL, "--requests",
+      "9"], "streaming_bench", dict(n_requests=9, fault_plan=KILL)),
+]
+
+
+@pytest.mark.parametrize("argv,bench_name,want", PORTED,
+                         ids=[" ".join(a[:3]) for a, _, _ in PORTED])
+def test_ported_fleet_flags_reach_their_bench(argv, bench_name, want,
+                                              monkeypatch, capsys):
+    """Each flag of the front door, QoS and fleet benches reaches its
+    bench with the parsed arguments (the bench itself is recorded, not
+    run: nothing is spawned)."""
+    from ddp_practice_tpu_torch.serve import bench
+
+    calls = []
+
+    def record(**kw):
+        calls.append(kw)
+        return {"recorded": True}
+
+    for name in ("frontdoor_bench", "qos_bench", "fleet_bench",
+                 "streaming_bench"):
+        monkeypatch.setattr(bench, name, record if name == bench_name
+                            else None)
+    assert bench.main(argv + ["--device", "cpu", "--json"]) == 0
+    assert len(calls) == 1
+    got = dict(calls[0])
+    if "fault_plan" in got:
+        got["fault_plan"] = got["fault_plan"].to_json()
+        want = dict(want, fault_plan=bench_fault_json(want["fault_plan"]))
+    assert {k: got.get(k, "<absent>") for k in want} == want
+    assert json.loads(capsys.readouterr().out) == {"recorded": True}
+
+
+def bench_fault_json(text):
+    from ddp_practice_tpu_torch.serve.faults import FaultPlan
+
+    return FaultPlan.from_json(text).to_json()
+
+
+def test_streaming_without_procs_is_refused():
+    from ddp_practice_tpu_torch.serve import bench
+
+    with pytest.raises(SystemExit, match="--streaming needs --procs"):
+        bench.main(["--streaming", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("flag,value,item", LATER,
