@@ -392,13 +392,33 @@ later launch in the process.
    p50 and tokens/s against the in-process x2 router's. Every leg reaps
    its workers and fails if one outlived its supervisor; the phase prints
    each leg's wall and its own, with the card's name and power limit.
+35. elastic fleet (ROADMAP A6c-2; right after phase 34): lm_base fp32,
+   greedy, through worker processes on this card. Leg 1:
+   cache_routing_bench(procs=2) with the reference's pool (25 blocks of
+   16) and trace (48 requests at 100/s, 4 prefixes of 96 tokens, 6
+   order-balanced reps) through two paged, prefix-caching 2-worker
+   fleets, affinity against least-loaded (brown-out off in both): each
+   arm's goodput, prefix hit rate from the workers' own radix counters,
+   latency, lost; gates lost 0, token identity 1 and hit-rate ratio > 1;
+   the goodput ratio recorded. Leg 2: fleet_autoscale_bench at AUTOSCALE's
+   rate, the reference's chunks (2 base, 3 at the 4x step, 7 base) and
+   policy: a fixed 3-worker fleet against an elastic one of 1 to 3
+   workers with one warm standby: goodput per worker-second, scale
+   events, reaction, warm promotion against the same run's cold spawn;
+   gates lost 0, reaction within the window, oscillation within its
+   bound, promote_join_s < cold_spawn_s; the goodput-per-worker ratio
+   recorded. In both legs this process launches no decode kernel and
+   every live worker launched only its own (C in leg 1's paged workers,
+   A in leg 2's), 12 x its own decode steps; each worker's counts are
+   printed. Every leg reaps its workers; the phase prints each leg's wall
+   and its own, with the card's name and power limit.
 
 Launch counts are zeroed just before each phase's run and read just
 after it; a train leg's count is its wrappers' (eager calls) plus its
 graph replays' (utils/graphs.REPLAYED). The kernels' record adds the MoE
 serve rows' launches to A's and C's, the router phase's to A's, the
-front door phase's fp32 legs' (in-process rows and live workers) to A's
-and C's, the sorted decode leg's to J's, the sequence and pipeline legs' to
+front door phase's fp32 legs' (in-process rows and live workers) and the
+elastic phase's live workers' to A's and C's, the sorted decode leg's to J's, the sequence and pipeline legs' to
 E/F/G's, and the expert legs' to E/F/G's and J/K's. The ConvNet's, lm_base's and vit_tiny's
 leg lines end with the card's name and power limit. Before the card's
 line the script prints its own wall time. The second-to-last line is the
@@ -585,6 +605,14 @@ ROUTER_PLAN = [
 ]
 ROUTER_SLO = dict(ttft_p99_s=1.0, tpot_p99_s=0.1, error_rate=0.05,
                   fast_window_s=5.0, slow_window_s=30.0, min_events=3)
+# the elastic phase's autoscale leg (A6c-2): the reference's trace shape
+# (32-96 new tokens, 2 base chunks, 3 at the 4x step, 7 base) at a base
+# rate scaled to lm_base. One worker decodes 8 slots a host-bound step
+# (PERF.md section 5: 11-18 ms at 8 slots on an NVIDIA H100 80GB HBM3 at
+# 700 W), some 450-700 tokens/s: 4
+# requests/s (~256 tokens/s) sits under one worker, the step's 16 (~1000
+# tokens/s) over it. The reference's 25/s is sized for its CPU model.
+AUTOSCALE = dict(rate_hz=4.0)
 # the paged sweep: 2048-position slots over a full-backing pool
 BS, MB = 16, 128
 NB = 1 + 8 * MB
@@ -1805,10 +1833,12 @@ def _door_line(r) -> str:
     return line
 
 
-def _check_door_launches(rows, depth, kernel_of, workers=()) -> dict:
+def _check_door_launches(rows, depth, kernel_of, workers=(),
+                         worker_kernel="decode_attention") -> dict:
     """Each in-process row launched only its own kernel, depth x its
-    decode steps times; each worker likewise, by its own counters.
-    Returns the rows' and the workers' launches, summed per kernel."""
+    decode steps times; each worker likewise (`worker_kernel`), by its
+    own counters. Returns the rows' and the workers' launches, summed
+    per kernel."""
     total = {}
     for r in rows:
         launched = {k: v for k, v in r["kernel_launches"].items() if v}
@@ -1821,7 +1851,7 @@ def _check_door_launches(rows, depth, kernel_of, workers=()) -> dict:
             total[k] = total.get(k, 0) + v
     for w in workers:
         launched = {k: v for k, v in w["kernel_launches"].items() if v}
-        want = {"decode_attention": depth * w["decode_steps"]}
+        want = {worker_kernel: depth * w["decode_steps"]}
         if launched != want:
             raise AssertionError(
                 f"worker {w['replica']} (pid {w['pid']}): launches "
@@ -2011,6 +2041,132 @@ def frontdoor_phase(torch, ops):
     log(f"frontdoor phase wall {time.monotonic() - t_phase:.1f} s; A "
         f"{totals[flat]}, C {totals[paged]} over the fp32 legs (in-process "
         f"rows and live workers) [{CARD}]")
+    return totals
+
+
+def _worker_line(workers) -> str:
+    return "  ".join(
+        f"r{w['replica']} (pid {w['pid']}): {w['decode_steps']} steps, "
+        + ", ".join(f"{k} {v}" for k, v in w["kernel_launches"].items() if v)
+        for w in workers)
+
+
+def elastic_phase(torch, ops):
+    """ROADMAP A6c-2 (the docstring's phase 35): cache-aware routing over
+    paged prefix-caching workers, and the autoscaler with a warm standby,
+    at lm_base fp32 through worker processes on this card, gated."""
+    from ddp_practice_tpu_torch.serve.bench import (
+        cache_routing_bench,
+        fleet_autoscale_bench,
+    )
+
+    t_phase = time.monotonic()
+    flat, paged = "decode_attention", "paged_decode_attention"
+    model = _lm_base(torch, "fp32")
+    depth = model.depth
+    totals = {flat: 0, paged: 0}
+
+    def own_launches(label):
+        # the benches decode in the workers only
+        torch.cuda.synchronize()
+        here = {k: v for k, v in ops.LAUNCHES.items() if v}
+        if here:
+            raise AssertionError(f"{label}: this process launched {here}")
+
+    # leg 1: cache-aware routing against least-loaded, fp32, greedy
+    ops.reset_launches()
+    t0 = time.monotonic()
+    try:
+        cr = cache_routing_bench(model=model, procs=2)
+    finally:
+        _reaped("cache_routing_bench")
+    own_launches("cache_routing_bench")
+    aff, ll = cr["affinity"], cr["least_loaded"]
+    log(f"cache routing[fp32, procs 2, {cr['trace']['n_requests']} requests "
+        f"at {cr['trace']['rate_hz']}/s, {cr['trace']['k_prefixes']} "
+        f"prefixes of {cr['trace']['prefix_len']}, pool "
+        f"{cr['pool']['num_blocks']} x {cr['pool']['block_size']}, "
+        f"{cr['reps']} reps]: wall {time.monotonic() - t0:.1f} s [{CARD}]")
+    for r in (ll, aff):
+        lat = r["latency_s"]
+        log(f"  {r['mode']:>16}: {r['goodput_tokens_per_sec']:9.1f} tok/s  "
+            f"hit rate {r['hit_rate']:.4f} ({r['hit_tokens']} hit / "
+            f"{r['miss_tokens']} miss tokens)  latency p50/p99 "
+            f"{lat['p50'] * 1e3:.1f}/{lat['p99'] * 1e3:.1f} ms  lost "
+            f"{r['lost']}")
+        log(f"      workers: {_worker_line(r['workers'])}")
+    log(f"  affinity / least-loaded: hit rate {cr['hit_rate_ratio']:.4f}x "
+        f"(gate > 1)  goodput {cr['goodput_ratio']:.4f}x  token identity "
+        f"{cr['token_identity']:.4f} (gate 1)  lost {cr['lost']} (gate 0)"
+        f"  routes {aff['route_decisions']}")
+    if cr["lost"] != 0 or cr["token_identity"] != 1.0:
+        raise AssertionError(f"cache routing: lost {cr['lost']}, token "
+                             f"identity {cr['token_identity']}")
+    if not cr["hit_rate_ratio"] > 1.0:
+        raise AssertionError(f"cache routing: affinity's hit rate is "
+                             f"{cr['hit_rate_ratio']}x least-loaded's")
+    c = _check_door_launches((), depth, {}, aff["workers"] + ll["workers"],
+                             worker_kernel=paged)
+    for k, v in c.items():
+        totals[k] += v
+    log(f"  C {c.get(paged, 0)} = {depth} x each live worker's own decode "
+        f"steps")
+
+    # leg 2: the elastic fleet against a fixed one under a 4x step
+    ops.reset_launches()
+    t0 = time.monotonic()
+    try:
+        au = fleet_autoscale_bench(model=model, **AUTOSCALE)
+    finally:
+        _reaped("fleet_autoscale_bench")
+    own_launches("fleet_autoscale_bench")
+    fx, el = au["fixed"], au["autoscaled"]
+    sc = au["autoscale"]
+    log(f"autoscale[fp32, {au['rate_hz']}/s -> {au['step_rate_hz']}/s, "
+        f"chunks {au['chunks']}, fixed {au['procs_fixed']} vs elastic "
+        f"{sc['min']}..{sc['max']} + {sc['standby']} standby]: wall "
+        f"{time.monotonic() - t0:.1f} s [{CARD}]")
+    for r in (fx, el):
+        log(f"  {r['mode']:>10}: {r['goodput_per_worker']:8.2f} tok/s a "
+            f"worker ({r['useful_tokens']} tokens over "
+            f"{r['worker_seconds']:.2f} worker-s, {r['elapsed_s']:.2f} s)  "
+            f"lost {r['lost']}  statuses {r['statuses']}")
+        log(f"      workers: {_worker_line(r['workers'])}")
+    for e in el["scale_events"]:
+        log(f"      scale {e['direction']} ({e['trigger']}) to size "
+            f"{e['size']}, slot {e['slot']}, pressure {e['pressure']}"
+            + (f", warm {e['warm']}, join {e['join_s'] * 1e3:.3f} ms"
+               if e["direction"] == "up" else ""))
+    rs = au["reaction_s"]
+    log(f"  goodput per worker {au['goodput_per_worker_ratio']:.4f}x fixed "
+        f"(recorded)  reaction "
+        + ("none" if rs is None else f"{rs:.3f} s")
+        + f" (window {au['reaction_window_s']:.2f} s, signal build "
+        f"{au['signal_build_s']})  direction changes "
+        f"{el['direction_changes']} (bound {el['oscillation_bound']})  "
+        f"warm promotion {au['promote_join_s']} s vs cold spawn "
+        f"{au['cold_spawn_s']:.3f} s  lost {au['lost']}")
+    if au["lost"] != 0 or au["reaction_within_window"] != 1.0 \
+            or au["oscillation_ok"] != 1.0:
+        raise AssertionError(
+            f"autoscale: lost {au['lost']}, reaction_within_window "
+            f"{au['reaction_within_window']}, oscillation_ok "
+            f"{au['oscillation_ok']}")
+    if au["promote_join_s"] is None \
+            or not au["promote_join_s"] < au["cold_spawn_s"]:
+        raise AssertionError(
+            f"autoscale: warm promotion {au['promote_join_s']} s against "
+            f"a cold spawn of {au['cold_spawn_s']} s")
+    a = _check_door_launches((), depth, {}, fx["workers"] + el["workers"])
+    for k, v in a.items():
+        totals[k] += v
+    log(f"  A {a.get(flat, 0)} = {depth} x each live worker's own decode "
+        f"steps")
+    del model
+    torch.cuda.empty_cache()
+    log(f"elastic phase wall {time.monotonic() - t_phase:.1f} s; C "
+        f"{totals[paged]} (leg 1), A {totals[flat]} (leg 2) over the live "
+        f"workers [{CARD}]")
     return totals
 
 
@@ -5374,6 +5530,7 @@ def main() -> int:
         f"J {moe_j}")
     router_launches = router_phase(torch, ops)
     door_launches = frontdoor_phase(torch, ops)
+    elastic_launches = elastic_phase(torch, ops)
 
     # the ConvNet's eager steps first: a finished torch.profiler trace
     # adds host time to every later launch in the process
@@ -5539,6 +5696,7 @@ def main() -> int:
     log(f"the router phase's launches (both legs): {router_launches}")
     log(f"the front door phase's launches (fp32 legs, rows and workers): "
         f"{door_launches}")
+    log(f"the elastic phase's launches (live workers): {elastic_launches}")
 
 
     # each kernel's launches on its main path's run
@@ -5546,11 +5704,13 @@ def main() -> int:
         "decode_attention": serve_launches["decode_attention"]
         + moe_launches["decode_attention"]
         + router_launches["decode_attention"]
-        + door_launches["decode_attention"],
+        + door_launches["decode_attention"]
+        + elastic_launches["decode_attention"],
         "decode_attention_int8": int8_launches["decode_attention_int8"],
         "paged_decode_attention": serve_launches["paged_decode_attention"]
         + moe_launches["paged_decode_attention"]
-        + door_launches["paged_decode_attention"],
+        + door_launches["paged_decode_attention"]
+        + elastic_launches["paged_decode_attention"],
         "paged_decode_attention_int8":
             prefix8_launches["paged_decode_attention_int8"],
         **{name: train["launches"][name] + seq["launches"][name]

@@ -42,21 +42,30 @@ in-process serving plane:
   ddp_practice_tpu_torch.serve.worker --spec ...`) on the card by
   default, its engine warmed before its READY line;
 - supervisor.py— worker lifecycles (spawn, waitpid, backoff restarts
-  under a budget, drain, reap_all) and RemoteReplicaHandle, the router's
-  replica interface over the RPC wire; make_fleet_router;
+  under a budget, drain, grow/shrink, reap_all) and RemoteReplicaHandle,
+  the router's replica interface over the RPC wire; make_fleet_router;
+- autoscaler.py— the elastic fleet: the SLO-burn / queue-pressure
+  policy (trip fast, resolve slow, no reversal inside a hold window),
+  the warm standby pool, and the Autoscaler the router ticks (warm
+  promotion or cold spawn up, graceful drain down);
 - bench.py     — serve_bench (continuous, static, paged and router
   rows, faults, SLO and the trace), shared_prefix_bench,
-  spec_decode_bench, frontdoor_bench, qos_bench, fleet_bench and
-  streaming_bench.
+  spec_decode_bench, frontdoor_bench, qos_bench, fleet_bench,
+  streaming_bench, cache_routing_bench and fleet_autoscale_bench.
 
-The autoscaler and the cache-aware fleet bench (ROADMAP A6c-2) and the
-telemetry exporter, federation and fleet trace plane (A6d) are later
-slices.
+The telemetry exporter, federation and fleet trace plane (ROADMAP A6d)
+are a later slice.
 """
 
 from ddp_practice_tpu_torch.serve.admission import (
     AdmissionController,
     TenantPolicy,
+)
+from ddp_practice_tpu_torch.serve.autoscaler import (
+    Autoscaler,
+    AutoscalerConfig,
+    AutoscalerPolicy,
+    StandbyPool,
 )
 from ddp_practice_tpu_torch.serve.engine import (
     EngineConfig,
@@ -137,6 +146,9 @@ __all__ = [
     "AdmissionController",
     "AlertSinkSpec",
     "AlertSinks",
+    "Autoscaler",
+    "AutoscalerConfig",
+    "AutoscalerPolicy",
     "BlockAllocator",
     "BreakerConfig",
     "CircuitBreaker",
@@ -174,6 +186,7 @@ __all__ = [
     "ServeMetrics",
     "SlotAllocator",
     "SlotEngine",
+    "StandbyPool",
     "Supervisor",
     "SupervisorConfig",
     "TenantLedger",

@@ -62,14 +62,22 @@ The front door and the fleet (`--frontdoor`, `--qos`, `--procs N
   (kill specs of --fault-plan signal live workers);
 - streaming_bench: streaming against end-of-request delivery through the
   fleet, or under kill specs the consumer's exactly-once ledger.
+- cache_routing_bench (`--procs N --cache-aware`): one shared-prefix
+  trace through two paged, prefix-caching fleets, prefix affinity against
+  least-loaded: the workers' own hit rates, goodput, token identity;
+- fleet_autoscale_bench (`--procs N --autoscale [--autoscale-max M]
+  [--standby S]`): a fixed fleet sized for the peak against an elastic
+  one (serve/autoscaler.py) under a 4x arrival step: goodput per
+  worker-second, reaction, oscillation, warm promotion against a cold
+  spawn.
 Each in-process row reports `decode_steps` and `kernel_launches`; each
 fleet row reports every live worker's own (`workers`). The workers serve
 the in-process model's widths and precision, weights from seed 0, on its
 device.
 
-Not ported in this slice, and refused by name: the autoscaler and
-cache-aware routing benches (ROADMAP A6c-2) and the telemetry plane
-(A6d: the JSONL exporter, scrape federation, the fleet trace plane, OTLP).
+Not ported in this slice, and refused by name: the telemetry plane
+(ROADMAP A6d: the JSONL exporter, scrape federation, the fleet trace
+plane, OTLP).
 """
 
 from __future__ import annotations
@@ -277,7 +285,6 @@ def _replay(server, trace, *, rid_offset: int = 0, driver=None,
     on the workers' push streams: their decode runs in other processes,
     which a spinning parent would preempt. A Scheduler or an in-process
     router decodes inside step(), so its loop never sleeps while busy."""
-    from ddp_practice_tpu_torch.serve.frontdoor import wait_for_streams
     from ddp_practice_tpu_torch.serve.scheduler import Request
 
     t0 = time.monotonic()
@@ -312,10 +319,18 @@ def _replay(server, trace, *, rid_offset: int = 0, driver=None,
         if fleet:
             until_arrival = (trace[i]["arrival"] - (time.monotonic() - t0)
                              if i < len(trace) else 0.005)
-            nap = min(0.005, max(0.0, until_arrival))
-            if not wait_for_streams(server, nap):
-                time.sleep(min(nap, 0.001))  # every stream is down
+            _fleet_wait(server, min(0.005, max(0.0, until_arrival)))
     return time.monotonic() - t0
+
+
+def _fleet_wait(router, max_s: float) -> None:
+    """Park up to `max_s` on the fleet's push streams (a frame wakes
+    the caller at once); a 1 ms nap at most while every stream is
+    down."""
+    from ddp_practice_tpu_torch.serve.frontdoor import wait_for_streams
+
+    if not wait_for_streams(router, max_s):
+        time.sleep(min(max_s, 0.001))
 
 
 def _score(comps, n_trace: int, elapsed: float) -> dict:
@@ -1239,6 +1254,502 @@ def fleet_bench(
         return report
     finally:
         sup.stop()
+
+
+# ----------------------------------------------------- the elastic fleet
+def _fleet_kv_counters(router) -> tuple:
+    """Summed (hit_tokens, miss_tokens) over every worker's
+    heartbeat-carried kv summary: the fleet's prefix-cache ledger."""
+    hit = miss = 0
+    for h in router.handles:
+        kv = getattr(h, "kv_summary", None)
+        if isinstance(kv, dict):
+            hit += kv.get("hit_tokens", 0)
+            miss += kv.get("miss_tokens", 0)
+    return hit, miss
+
+
+def cache_routing_bench(
+    *,
+    n_requests: int = 48,
+    rate_hz: float = 100.0,
+    procs: int = 2,
+    max_slots: int = 4,
+    block_size: int = 16,
+    # undersized on purpose: 24 usable blocks hold TWO families' prefix
+    # blocks (12) and the working set, not all FOUR (24), so spraying
+    # every family over the fleet (least-loaded) keeps evicting and
+    # re-paying cold prefill, while affinity's partition stays warm
+    num_blocks: int = 25,
+    k_prefixes: int = 4,
+    prefix_len: int = 96,
+    vocab: int = 64,
+    hidden: Optional[int] = 128,
+    depth: Optional[int] = 2,
+    heads: Optional[int] = 4,
+    mlp: Optional[int] = 256,
+    max_len: int = 128,
+    decode_burst: int = 8,
+    seed: int = 0,
+    reps: int = 6,
+    model_name: str = "lm_tiny",
+    precision: str = "fp32",
+    device="cuda",
+    model=None,
+) -> dict:
+    """The cache-aware routing A/B: ONE shared-prefix trace (K system
+    prompts x unique tails) replayed through TWO identical paged,
+    prefix-caching worker fleets at the same pool, one routing by prefix
+    affinity (RouterConfig.cache_aware, serve/affinity.py), one by
+    least-loaded. Affinity partitions the K families over the fleet so
+    each warms once; least-loaded sprays them, so every family pays its
+    cold prefill on every worker, and again whenever churn evicts it.
+    Headlines: the fleet's prefix-hit-token rate (the workers' own radix
+    counters, not the router's estimate) and the goodput ratio, with the
+    zero-lost and greedy token-identity invariants (routing changes
+    where a request runs, never what it produces). Unlike the
+    reference's, both routers run with brown-out off: under the trace's
+    burst it would cap some requests at `brownout_max_new` tokens in one
+    arm and not the other, and identity would then measure that cap, not
+    the routing. Order-balanced
+    alternating reps, medians of per-rep ratios, as fleet_bench. `model`
+    reuses a built decoder's widths, precision and device; the workers
+    rebuild its weights from seed 0 (`_worker_spec`). Each arm's row
+    adds its live workers' own decode steps and kernel launches
+    (`workers`)."""
+    from ddp_practice_tpu_torch.serve.router import RouterConfig
+    from ddp_practice_tpu_torch.serve.supervisor import (
+        SupervisorConfig,
+        make_fleet_router,
+    )
+
+    if model is None:
+        model = _build_model(
+            vocab=vocab, max_len=max_len, hidden=hidden, depth=depth,
+            heads=heads, mlp=mlp, model_name=model_name,
+            precision=precision, device=device)
+    trace = build_shared_prefix_trace(
+        n_requests=n_requests, rate_hz=rate_hz, vocab=model.vocab_size,
+        k_prefixes=k_prefixes, prefix_len=prefix_len,
+        tail_range=(1, 8), max_new_range=(8, 24), seed=seed,
+    )
+    max_prompt = max(len(t["prompt"]) for t in trace)
+    bucket = block_size
+    while bucket < max_prompt:
+        bucket += block_size
+    # small buckets matter: a warm admission prefills only the uncached
+    # remainder, over matched + bucket_for(remainder) positions; with
+    # the full-prompt bucket alone every warm request would overrun its
+    # slot's capacity and be rejected instead of hitting the cache
+    buckets = sorted({16, 32, 64, bucket})
+    spec = _worker_spec(model, {
+        "paged": True, "prefix_cache": True,
+        "num_blocks": num_blocks, "block_size": block_size,
+        "max_slots": max_slots, "max_len": max_len,
+        "prompt_buckets": buckets,
+        # greedy: token identity needs bit-equal streams across arms
+        "temperature": 0.0, "decode_burst": decode_burst,
+        "eos_id": None,
+    }, max_queue=len(trace) * max(1, reps))
+    arms = {}
+    sups = {}
+    try:
+        for name, aware in (("affinity", True), ("least_loaded", False)):
+            # brown-out off in both arms: it caps a request's budget by
+            # its arm's momentary pressure, and a capped stream differs
+            # from the other arm's by routing alone
+            router, sup, _handles = make_fleet_router(
+                spec, procs,
+                config=RouterConfig(cache_aware=aware,
+                                    brownout_on=float("inf")),
+                sup_config=SupervisorConfig(restart_base_s=0.25),
+            )
+            arms[name] = router
+            sups[name] = sup
+        rep_rows = {"affinity": [], "least_loaded": []}
+        tokens_by_rid = {"affinity": {}, "least_loaded": {}}
+        for rep in range(reps):
+            order = ["affinity", "least_loaded"]
+            if rep % 2:
+                order.reverse()
+            for side in order:
+                router = arms[side]
+                hit0, miss0 = _fleet_kv_counters(router)
+                n_before = len(router.completions)
+                row = _replay_row(router, trace,
+                                  rid_offset=rep * 1_000_000, fleet=True)
+                # one settle tick: the last heartbeat's kv counters
+                # (carried by the final poll) are current for the delta
+                router.step()
+                hit1, miss1 = _fleet_kv_counters(router)
+                dh, dm = hit1 - hit0, miss1 - miss0
+                row["hit_tokens"] = dh
+                row["miss_tokens"] = dm
+                row["hit_rate"] = dh / (dh + dm) if dh + dm else 0.0
+                rep_rows[side].append(row)
+                for c in router.completions[n_before:]:
+                    if c.status in ("eos", "length"):
+                        tokens_by_rid[side][c.rid] = list(c.tokens)
+
+        # greedy token identity: the same rid (rep offset included)
+        # yields the same tokens on both arms
+        shared = set(tokens_by_rid["affinity"]) & set(
+            tokens_by_rid["least_loaded"])
+        same = sum(
+            1 for r in shared
+            if tokens_by_rid["affinity"][r]
+            == tokens_by_rid["least_loaded"][r]
+        )
+        identity = same / len(shared) if shared else 0.0
+        routes: dict = {}
+        for c in arms["affinity"].completions:
+            r = (c.flight or {}).get("route")
+            if r is not None:
+                routes[r] = routes.get(r, 0) + 1
+
+        def arm_row(side):
+            rows = rep_rows[side]
+            return {
+                "mode": f"{side} x{procs}",
+                "goodput_tokens_per_sec": _med(
+                    [r["goodput_tokens_per_sec"] for r in rows]),
+                "hit_rate": _med([r["hit_rate"] for r in rows]),
+                "hit_tokens": sum(r["hit_tokens"] for r in rows),
+                "miss_tokens": sum(r["miss_tokens"] for r in rows),
+                "latency_s": {p: _med([r["latency_s"][p] for r in rows])
+                              for p in ("p50", "p90", "p99")},
+                "lost": sum(r["lost"] for r in rows),
+                "workers": _worker_counts(sups[side],
+                                          arms[side].handles),
+            }
+
+        aff, ll = arm_row("affinity"), arm_row("least_loaded")
+        aff["route_decisions"] = routes
+        return {
+            "trace": {
+                "n_requests": n_requests, "rate_hz": rate_hz,
+                "seed": seed, "k_prefixes": k_prefixes,
+                "prefix_len": prefix_len,
+            },
+            "pool": {"num_blocks": num_blocks,
+                     "block_size": block_size},
+            "procs": procs,
+            "reps": reps,
+            "affinity": aff,
+            "least_loaded": ll,
+            # medians of per-rep ratios (order-balanced)
+            "hit_rate_ratio": _med([
+                (a["hit_rate"] / b["hit_rate"]) if b["hit_rate"]
+                else float(a["hit_rate"] > 0)
+                for a, b in zip(rep_rows["affinity"],
+                                rep_rows["least_loaded"])
+            ]),
+            "goodput_ratio": _med([
+                a["goodput_tokens_per_sec"]
+                / b["goodput_tokens_per_sec"]
+                for a, b in zip(rep_rows["affinity"],
+                                rep_rows["least_loaded"])
+            ]),
+            "token_identity": identity,
+            "lost": aff["lost"] + ll["lost"],
+        }
+    finally:
+        for sup in sups.values():
+            sup.stop()
+
+
+def fleet_autoscale_bench(
+    *,
+    rate_hz: float = 25.0,
+    step_factor: float = 4.0,
+    chunk_s: float = 1.0,
+    chunks_base: int = 2,
+    chunks_step: int = 3,
+    chunks_post: int = 7,
+    procs: int = 3,
+    autoscale_min: int = 1,
+    autoscale_max: int = 3,
+    standby: int = 1,
+    max_slots: int = 8,
+    vocab: int = 64,
+    hidden: Optional[int] = 128,
+    depth: Optional[int] = 2,
+    heads: Optional[int] = 4,
+    mlp: Optional[int] = 256,
+    max_len: int = 128,
+    prompt_buckets=(8, 16),
+    prompt_len_range=(2, 16),
+    max_new_range=(32, 96),
+    decode_burst: int = 8,
+    eos_id: Optional[int] = 46,
+    seed: int = 0,
+    model_name: str = "lm_tiny",
+    precision: str = "fp32",
+    device="cuda",
+    model=None,
+) -> dict:
+    """Elastic fleet against a fixed fleet under a `step_factor`x
+    arrival step, at equal SLO: the same chunked trace (base rate ->
+    burst -> base again) through TWO separately built fleets, a fixed
+    one provisioned for the peak (`procs` workers: what an operator
+    without an autoscaler deploys to survive the burst), then an
+    autoscaled one that starts at `autoscale_min` with `standby` warm
+    standbys (serve/autoscaler.py). Both arms carry the same
+    SLOWatchdog. The elastic arm's claim is goodput per worker-second,
+    not raw goodput.
+
+    The keys tools/check_bench.py gates:
+
+    - ``goodput_per_worker_ratio``: elastic useful tokens per
+      worker-second over fixed (worker-seconds integrate the active
+      fleet size over the scale-event timeline; the fixed arm pays
+      `procs` the whole run);
+    - ``lost``: submitted but never completed, both arms (a shed is a
+      status; lost is a bug);
+    - ``reaction_within_window``: 1.0 iff the first scale-up after the
+      step landed within ``reaction_window_s`` (one evaluation interval
+      and slack) of the first evaluation that SAW trigger pressure (the
+      loop's own latency; the queue build before it is
+      ``signal_build_s``);
+    - ``oscillation_ok``: 1.0 iff direction changes <= the hold-window
+      bound floor(elapsed / hold_s) + 1;
+    - ``promote_join_s``: warm promotion latency (pool take -> dispatch
+      join), to sit far under ``cold_spawn_s``, a cold worker's boot
+      measured in the same run.
+
+    `model` reuses a built decoder's widths, precision and device (the
+    workers rebuild its weights from seed 0). Each arm reports its live
+    workers' own decode steps and kernel launches (`workers`)."""
+    from ddp_practice_tpu_torch.serve.autoscaler import (
+        Autoscaler,
+        AutoscalerConfig,
+    )
+    from ddp_practice_tpu_torch.serve.scheduler import MonotonicClock
+    from ddp_practice_tpu_torch.serve.slo import SLOConfig, SLOWatchdog
+    from ddp_practice_tpu_torch.serve.supervisor import (
+        SupervisorConfig,
+        make_fleet_router,
+    )
+
+    if model is None:
+        model = _build_model(
+            vocab=vocab, max_len=max_len, hidden=hidden, depth=depth,
+            heads=heads, mlp=mlp, model_name=model_name,
+            precision=precision, device=device)
+
+    def chunk(rate: float, k: int):
+        return build_trace(
+            n_requests=max(8, int(rate * chunk_s)), rate_hz=rate,
+            vocab=model.vocab_size, prompt_len_range=prompt_len_range,
+            max_new_range=max_new_range, seed=seed + 7 * k + 1,
+        )
+
+    step_rate = rate_hz * step_factor
+    total_chunks = chunks_base + chunks_step + chunks_post
+    spec = _worker_spec(model, {
+        "max_slots": max_slots, "max_len": max_len,
+        "prompt_buckets": list(prompt_buckets),
+        "temperature": 0.0, "decode_burst": decode_burst,
+        "eos_id": eos_id,
+    }, max_queue=int(step_rate * chunk_s) * (total_chunks + 2))
+    # the elastic policy: trip fast (a sub-second evaluation interval,
+    # up_pressure under the router's brown-out threshold so growth fires
+    # before shedding clamps the signal), resolve slow (calm must hold
+    # down_stable_s, reversals blocked inside hold_s)
+    acfg = AutoscalerConfig(
+        min_size=autoscale_min, max_size=autoscale_max,
+        eval_interval_s=0.4, up_pressure=1.3, down_pressure=0.45,
+        hold_s=4.0, cooldown_up_s=1.0, cooldown_down_s=3.0,
+        down_stable_s=1.5, standby_target=standby,
+    )
+    # "within one evaluation window" of the signal: the commit may land
+    # an evaluation after the crossing one, plus scheduling slack
+    reaction_window_s = acfg.eval_interval_s + 0.25
+
+    def slo_watchdog(clock):
+        # equal SLO: both arms get this config
+        return SLOWatchdog(SLOConfig(
+            ttft_p99_s=1.5, fast_window_s=1.5, slow_window_s=5.0,
+            trip_burn=2.0, resolve_burn=1.0, min_events=8,
+        ), clock=clock)
+
+    def drain_frames(router) -> None:
+        deadline = time.monotonic() + 0.3
+        while time.monotonic() < deadline:
+            router.step()
+            _fleet_wait(router, 0.01)
+
+    def integrate_size(events, t0, t1, size0) -> float:
+        """Worker-seconds from the scale-event ledger: the active size,
+        piecewise constant over [t0, t1] (event "t" is on the bench's
+        monotonic clock)."""
+        pts = [(t0, size0)]
+        for e in events:
+            if t0 <= e["t"] <= t1:
+                pts.append((e["t"], e["size"]))
+        ws = 0.0
+        last_t, last_s = pts[0]
+        for t, s in pts[1:]:
+            ws += (t - last_t) * last_s
+            last_t, last_s = t, s
+        ws += (t1 - last_t) * last_s
+        return ws
+
+    def run_arm(auto: bool) -> dict:
+        clock = MonotonicClock()
+        n0 = autoscale_min if auto else procs
+        router, sup, _handles = make_fleet_router(
+            spec, n0, clock=clock,
+            sup_config=SupervisorConfig(restart_base_s=0.25,
+                                        shrink_kill_after_s=10.0),
+            slo=slo_watchdog(clock),
+        )
+        asc = None
+        cold_spawn_s = None
+        try:
+            if auto:
+                asc = Autoscaler(router, sup, spec, config=acfg,
+                                 clock=clock)
+                router.autoscaler = asc
+                t0 = time.monotonic()
+                if not asc.pool.wait_ready(timeout_s=300.0, n=standby):
+                    raise RuntimeError(
+                        f"standby pool never warmed: "
+                        f"{asc.pool.spawn_errors}")
+                # the pool's fill IS a cold spawn: the latency a warm
+                # promotion buys its way out of
+                cold_spawn_s = time.monotonic() - t0
+            # untimed shakeout through the seam
+            _replay(router, chunk(rate_hz, 0), rid_offset=90_000_000,
+                    fleet=True)
+            drain_frames(router)
+
+            rows = []
+
+            def run_chunk(rate: float, k: int) -> None:
+                rows.append(_replay_row(
+                    router, chunk(rate, k),
+                    rid_offset=(k + 1) * 1_000_000, fleet=True))
+                drain_frames(router)
+
+            t_start = time.monotonic()
+            size0 = sup.active_slots()
+            k = 1
+            for _ in range(chunks_base):
+                run_chunk(rate_hz, k)
+                k += 1
+            t_burst = time.monotonic()
+            for _ in range(chunks_step):
+                run_chunk(step_rate, k)
+                k += 1
+            for _ in range(chunks_post):
+                run_chunk(rate_hz, k)
+                k += 1
+            if auto:
+                # let drains in flight retire, so the worker-seconds
+                # ledger charges the elastic arm for its drain tail
+                deadline = time.monotonic() + 15.0
+                while time.monotonic() < deadline and asc._draining:
+                    router.step()
+                    _fleet_wait(router, 0.02)
+            t_end = time.monotonic()
+
+            events = list(asc.events) if auto else []
+            ws = (integrate_size(events, t_start, t_end, size0)
+                  if auto else procs * (t_end - t_start))
+            useful = sum(r["useful_tokens"] for r in rows)
+            statuses: dict = {}
+            for r in rows:
+                for s, n in r["statuses"].items():
+                    statuses[s] = statuses.get(s, 0) + n
+            arm = {
+                "mode": "autoscaled" if auto else "fixed",
+                "workers_start": n0,
+                "elapsed_s": t_end - t_start,
+                "worker_seconds": ws,
+                "useful_tokens": useful,
+                "goodput_per_worker": useful / ws if ws > 0 else 0.0,
+                "lost": sum(r["lost"] for r in rows),
+                "statuses": statuses,
+                "slo": router.slo.burn_signal(),
+                "workers": _worker_counts(sup, router.handles),
+            }
+            if auto:
+                ups = [e for e in events if e["direction"] == "up"]
+                post = [e for e in ups if e["t"] >= t_burst]
+                warm = [e for e in ups if e.get("warm")]
+                dirs = [e["direction"] for e in events]
+                changes = sum(1 for a, b in zip(dirs, dirs[1:])
+                              if a != b)
+                bound = int((t_end - t_start) / acfg.hold_s) + 1
+                reaction_s = signal_build_s = None
+                if post:
+                    # the first evaluation after the step that SAW
+                    # trigger pressure: reaction is the loop's latency
+                    # from it; the queue build before it is physics
+                    t_up = post[0]["t"]
+                    xs = [r["t"] for r in asc.pressure_log
+                          if t_burst <= r["t"] <= t_up
+                          and r["pressure"] >= acfg.up_pressure]
+                    signal_t = xs[0] if xs else t_up
+                    reaction_s = t_up - signal_t
+                    signal_build_s = signal_t - t_burst
+                arm.update({
+                    "final_size": sup.active_slots(),
+                    "cold_spawn_s": cold_spawn_s,
+                    "reaction_s": reaction_s,
+                    "signal_build_s": signal_build_s,
+                    "promote_join_s": (warm[0]["join_s"]
+                                       if warm else None),
+                    "direction_changes": changes,
+                    "oscillation_bound": bound,
+                    "scale_events": events,
+                    "autoscaler": asc.snapshot(),
+                })
+            return arm
+        finally:
+            if asc is not None:
+                asc.close()
+            sup.stop()
+
+    fixed = run_arm(auto=False)
+    auto = run_arm(auto=True)
+    reaction_s = auto.get("reaction_s")
+    gpw_ratio = (auto["goodput_per_worker"]
+                 / max(fixed["goodput_per_worker"], 1e-9))
+    return {
+        "rate_hz": rate_hz,
+        "step_rate_hz": step_rate,
+        "step_factor": step_factor,
+        "chunk_s": chunk_s,
+        "chunks": {"base": chunks_base, "step": chunks_step,
+                   "post": chunks_post},
+        "procs_fixed": procs,
+        "autoscale": {"min": autoscale_min, "max": autoscale_max,
+                      "standby": standby,
+                      "eval_interval_s": acfg.eval_interval_s,
+                      "hold_s": acfg.hold_s,
+                      "up_pressure": acfg.up_pressure,
+                      "down_pressure": acfg.down_pressure},
+        "gate": ("goodput/worker >= fixed at equal SLO, react within "
+                 "one eval window, no thrash, zero lost, warm "
+                 "promotion << cold spawn"),
+        "fixed": fixed,
+        "autoscaled": auto,
+        "goodput_per_worker_ratio": gpw_ratio,
+        "lost": fixed["lost"] + auto["lost"],
+        "reaction_s": reaction_s,
+        "signal_build_s": auto.get("signal_build_s"),
+        "reaction_window_s": reaction_window_s,
+        "reaction_within_window": (
+            1.0 if reaction_s is not None
+            and reaction_s <= reaction_window_s else 0.0),
+        "oscillation_ok": (
+            1.0 if auto["direction_changes"]
+            <= auto["oscillation_bound"] else 0.0),
+        "promote_join_s": auto.get("promote_join_s"),
+        "cold_spawn_s": auto.get("cold_spawn_s"),
+    }
 
 
 def _score_streams(router, comps) -> dict:
@@ -2413,6 +2924,31 @@ def build_parser() -> argparse.ArgumentParser:
                    default=2.0,
                    help="with --qos: plan duration in seconds (arrival "
                         "window; the run drains past it)")
+    p.add_argument("--cache-aware", dest="cache_aware",
+                   action="store_true",
+                   help="with --procs: A/B cache-aware (prefix-affinity) "
+                        "routing against least-loaded over one "
+                        "shared-prefix trace through two identical paged, "
+                        "prefix-caching worker fleets at the same pool "
+                        "(serve/affinity.py): the fleet prefix-hit-token "
+                        "rate and goodput ratios, zero lost, greedy token "
+                        "identity")
+    p.add_argument("--autoscale", action="store_true",
+                   help="with --procs: A/B an ELASTIC fleet against the "
+                        "fixed --procs fleet under a 4x arrival step "
+                        "(serve/autoscaler.py: SLO-burn/queue-pressure "
+                        "policy, warm standby promotion, graceful drain "
+                        "down): goodput per worker-second at equal SLO, "
+                        "reaction within one evaluation window, zero "
+                        "lost, no thrash")
+    p.add_argument("--autoscale-max", dest="autoscale_max", type=int,
+                   default=3,
+                   help="with --autoscale: elastic fleet size ceiling "
+                        "(floor is 1)")
+    p.add_argument("--standby", type=int, default=1,
+                   help="with --autoscale: warm standby workers kept "
+                        "ready to promote (the pool replenishes in the "
+                        "background after each promotion)")
     # the later slices' flags: accepted, and refused by ROADMAP item
     for flags, kw, _ in _LATER:
         p.add_argument(*flags, default=None, help=argparse.SUPPRESS, **kw)
@@ -2482,10 +3018,6 @@ def build_parser() -> argparse.ArgumentParser:
 # the reference bench's flags that belong to later slices of the port:
 # ((flags...), argparse keywords, ROADMAP item)
 _LATER = (
-    (("--cache-aware",), {"action": "store_true"}, "A6c-2"),
-    (("--autoscale",), {"action": "store_true"}, "A6c-2"),
-    (("--autoscale-max",), {"type": int}, "A6c-2"),
-    (("--standby",), {"type": int}, "A6c-2"),
     (("--metrics-port", "--metrics_port"), {"type": int}, "A6d"),
     (("--telemetry-out", "--telemetry_out"), {}, "A6d"),
     (("--scrape-hz",), {"type": float}, "A6d"),
@@ -2745,6 +3277,66 @@ def _fleet_main(args, fleet_kw: dict) -> int:
     return 0
 
 
+def _autoscale_main(args, widths: dict, opt: dict) -> int:
+    report = fleet_autoscale_bench(
+        procs=args.procs, autoscale_max=args.autoscale_max,
+        standby=args.standby,
+        **{k: v for k, v in widths.items() if k != "block_size"}, **opt)
+    if args.json:
+        print(json.dumps(report))
+        return 0
+    au, fx = report["autoscaled"], report["fixed"]
+    sc = report["autoscale"]
+    print(f"[fleet_autoscale] {report['rate_hz']}/s -> "
+          f"{report['step_rate_hz']}/s step; fixed "
+          f"{report['procs_fixed']} workers vs elastic {sc['min']}.."
+          f"{sc['max']} (+{sc['standby']} standby), {args.model} "
+          f"{args.precision}")
+    for r in (fx, au):
+        print(f"  {r['mode']:>10}: {r['goodput_per_worker']:7.1f} "
+              f"tok/s/worker  ({r['useful_tokens']} tok over "
+              f"{r['worker_seconds']:.1f} worker-s)  lost {r['lost']}")
+    rs, pj = report["reaction_s"], report["promote_join_s"]
+    print(f"  goodput/worker ratio "
+          f"{report['goodput_per_worker_ratio']:.2f}x  "
+          + (f"reaction {rs:.2f}s (window "
+             f"{report['reaction_window_s']:.2f}s, within="
+             f"{report['reaction_within_window']:.0f})"
+             if rs is not None
+             else "no scale-up observed after the step"))
+    print("  warm promotion " + (f"{pj:.3f}s" if pj is not None else "n/a")
+          + f" vs cold spawn {report['cold_spawn_s']:.1f}s  direction "
+          f"changes {au['direction_changes']} (bound "
+          f"{au['oscillation_bound']}, ok={report['oscillation_ok']:.0f})")
+    return 0
+
+
+def _cache_routing_main(args, widths: dict, opt: dict) -> int:
+    report = cache_routing_bench(n_requests=args.requests,
+                                 procs=args.procs, **widths, **opt)
+    if args.json:
+        print(json.dumps(report))
+        return 0
+    aff, ll = report["affinity"], report["least_loaded"]
+    print(f"[cache_routing_bench] {report['trace']['n_requests']} requests"
+          f" @ {report['trace']['rate_hz']}/s, {report['procs']} workers, "
+          f"{report['trace']['k_prefixes']} prefix families x "
+          f"{report['trace']['prefix_len']} tokens, pool "
+          f"{report['pool']['num_blocks']} x {report['pool']['block_size']}"
+          f", {args.model} {args.precision}")
+    for r in (ll, aff):
+        print(f"  {r['mode']:>16}: {r['goodput_tokens_per_sec']:8.1f} "
+              f"tok/s  hit rate {r['hit_rate']:.3f}  ({r['hit_tokens']}/"
+              f"{r['hit_tokens'] + r['miss_tokens']} prefill tokens warm)"
+              f"  lost {r['lost']}")
+    print(f"  affinity/least-loaded: hit rate "
+          f"{report['hit_rate_ratio']:.2f}x  goodput "
+          f"{report['goodput_ratio']:.2f}x  token identity "
+          f"{report['token_identity']:.2f}  routes "
+          f"{aff['route_decisions']}")
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     _refuse_later_flags(args)
@@ -2764,6 +3356,9 @@ def main(argv=None) -> int:
         raise SystemExit("--streaming needs --procs N (chunks ride the "
                          "worker push stream; the in-process router "
                          "streams by default already)")
+    if (args.cache_aware or args.autoscale) and not args.procs:
+        raise SystemExit("--cache-aware and --autoscale need --procs N "
+                         "(both A/B worker fleets)")
     if args.eos_id is None:
         args.eos_id = 46
     if args.kv_int8 and not args.shared_prefix:
@@ -2826,6 +3421,10 @@ def main(argv=None) -> int:
         if args.frontdoor:
             return _frontdoor_main(args, door, opt)
         return _qos_main(args, door, opt)
+    if args.procs and args.autoscale:
+        return _autoscale_main(args, widths, opt)
+    if args.procs and args.cache_aware:
+        return _cache_routing_main(args, widths, opt)
     if args.procs:
         fleet_kw = dict(
             n_requests=args.requests, procs=args.procs,

@@ -67,3 +67,13 @@ def ranks(fn, world: int, deadline: float = 60.0):
     from ddp_practice_tpu_torch.parallel.threads import run_ranks
 
     return run_ranks(fn, world, timeout=deadline)
+
+
+def jit_quick(fn, *args, **kwargs):
+    """`jax.jit(fn)` compiled for these arguments with XLA's backend
+    optimisations off: the JAX side of a parity case computes the same
+    program at a fraction of the compile time (most of a small case's
+    wall on the CPU), its results moved at the rounding level only.
+    Returns the compiled callable (call it with the same arguments)."""
+    return jax.jit(fn).lower(*args, **kwargs).compile(
+        compiler_options={"xla_backend_optimization_level": 0})

@@ -32,6 +32,7 @@ import pytest
 import torch
 
 import _torch_port  # noqa: F401  (one intra-op thread for the suite)
+from _torch_port import jit_quick
 from ddp_practice_tpu import checkpoint as jax_ckpt
 from ddp_practice_tpu.config import TrainConfig as JaxConfig
 from ddp_practice_tpu.models import create_model as jax_create_model
@@ -441,6 +442,10 @@ def _tokens(seed, b=2, s=16):
     return np.random.default_rng(seed).integers(0, 64, (b, s + 1))
 
 
+# the JAX side builds and compiles lm_tiny's AdamW state and step at the
+# registry widths; beside the suite's other workers the case ran past the
+# tier-1 slow line
+@pytest.mark.slow
 def test_restore_a_jax_lm_tiny_adamw_checkpoint_and_step_on(tmp_path):
     """lm_tiny at its registry widths (d 256, depth 4, 8 heads of 32)
     under AdamW: mu, nu and count land as exp_avg, exp_avg_sq and step;
@@ -449,13 +454,14 @@ def test_restore_a_jax_lm_tiny_adamw_checkpoint_and_step_on(tmp_path):
     kw = dict(optimizer="adamw", learning_rate=1e-3, weight_decay=0.01)
     jm = jax_create_model("lm_tiny", **LM)
     tx = jax_optimizer(JaxConfig(**kw), 4)
-    jstate = jax.jit(lambda r: jax_create_state(
-        jm, tx, rng=r, sample_input=jnp.zeros((1, 8), jnp.int32)))(
-        jax.random.PRNGKey(1))
-    jstep = jax_lm_step(jm, tx, seed=1)
-    for i in range(2):
-        jstate, _ = jstep(jstate, {"tokens": jnp.asarray(_tokens(i),
-                                                         jnp.int32)})
+    key = jax.random.PRNGKey(1)
+    jstate = jit_quick(lambda r: jax_create_state(
+        jm, tx, rng=r, sample_input=jnp.zeros((1, 8), jnp.int32)), key)(key)
+    batches = [{"tokens": jnp.asarray(_tokens(i), jnp.int32)}
+               for i in range(2)]
+    jstep = jit_quick(jax_lm_step(jm, tx, seed=1), jstate, batches[0])
+    for b in batches:
+        jstate, _ = jstep(jstate, b)
     d = str(tmp_path / "jax")
     jax_ckpt.save(d, jstate, extra={"step": 2, "model": "lm_tiny"})
     model = create_model("lm_tiny", device="cpu", **LM)

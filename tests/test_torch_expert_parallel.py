@@ -53,7 +53,7 @@ import pytest
 import torch
 from jax.tree_util import tree_flatten_with_path
 
-from _torch_port import ranks
+from _torch_port import jit_quick, ranks
 from ddp_practice_tpu.config import TrainConfig as JaxConfig
 from ddp_practice_tpu.models import create_model as jax_create_model
 from ddp_practice_tpu.ops import moe as jmoe
@@ -320,7 +320,7 @@ def _jax_sharded_step(mesh, name, kw, sample, batch, lm):
     make = jax_lm_step if lm else jax_image_step
     step = make(model, tx, mesh=mesh, state_shardings=shardings,
                 batch_shardings=jax_batches(mesh))
-    state, metrics = step(state, batch)
+    state, metrics = jit_quick(step, state, batch)(state, batch)
     return params, stats, jax.device_get(metrics), jax.device_get(state)
 
 

@@ -31,6 +31,7 @@ import pytest
 import torch
 
 import _torch_port  # noqa: F401  (one intra-op thread for the suite)
+from _torch_port import jit_quick
 from ddp_practice_tpu import checkpoint as jax_ckpt
 from ddp_practice_tpu import generate as jax_generate
 from ddp_practice_tpu.config import TrainConfig as JaxConfig
@@ -68,14 +69,14 @@ def jax_ckpt_dir(tmp_path_factory):
     jm = jax_create_model("lm_tiny", vocab_size=256, max_len=SEQ,
                           pos_emb="rope")
     tx = jax_optimizer(JaxConfig(**kw), 4)
-    jstate = jax.jit(lambda r: jax_create_state(
-        jm, tx, rng=r, sample_input=jnp.zeros((1, 8), jnp.int32)))(
-        jax.random.PRNGKey(0))
-    step = jax_lm_step(jm, tx, seed=1)
+    key = jax.random.PRNGKey(0)
+    jstate = jit_quick(lambda r: jax_create_state(
+        jm, tx, rng=r, sample_input=jnp.zeros((1, 8), jnp.int32)), key)(key)
     motif = np.frombuffer(b"hello world, ab ab ", np.uint8).astype(np.int32)
-    tokens = np.tile(motif, 4)[None, :33].repeat(2, 0)
+    batch = {"tokens": jnp.asarray(np.tile(motif, 4)[None, :33].repeat(2, 0))}
+    step = jit_quick(jax_lm_step(jm, tx, seed=1), jstate, batch)
     for _ in range(2):
-        jstate, _ = step(jstate, {"tokens": jnp.asarray(tokens)})
+        jstate, _ = step(jstate, batch)
     d = str(tmp_path_factory.mktemp("jax_lm") / "ck")
     jax_ckpt.save(d, jstate, extra={**EXTRA, "step": 2})
     return d
@@ -83,11 +84,32 @@ def jax_ckpt_dir(tmp_path_factory):
 
 def _jax_greedy(d, prompt, n, kv_cache):
     model, params, stats, _ = jax_generate.load_lm(d, kv_cache=kv_cache)
-    gen = jax.jit(jax_generate_fn(model, max_new_tokens=n, temperature=0.0,
-                                  batch_stats=stats))
-    out = gen(params, jnp.asarray(encode_bytes(prompt)),
-              jax.random.PRNGKey(0))
-    return np.asarray(out)[0].tolist()
+    args = (params, jnp.asarray(encode_bytes(prompt)), jax.random.PRNGKey(0))
+    gen = jit_quick(jax_generate_fn(model, max_new_tokens=n, temperature=0.0,
+                                    batch_stats=stats), *args)
+    return np.asarray(gen(*args))[0].tolist()
+
+
+def test_serve_ckpt_completes_every_prompt_as_generate(jax_ckpt_dir,
+                                                       capsys):
+    texts = []
+    for prompt in PROMPTS:
+        generate.main(["--ckpt_dir", jax_ckpt_dir, "--prompt", prompt,
+                       "--max_new_tokens", "8", "--temperature", "0",
+                       "--device", "cpu"])
+        texts.append(prompt + capsys.readouterr().out[:-1])
+    argv = ["--ckpt_dir", jax_ckpt_dir, "--max_new_tokens", "8",
+            "--device", "cpu", "--max_slots", "2"]
+    for prompt in PROMPTS:
+        argv += ["--prompt", prompt]
+    assert bench.main(argv) == 0
+    lines = capsys.readouterr().out.splitlines()
+    heads = [ln for ln in lines if ln.startswith("--- request")]
+    assert [h.split(" ttft")[0] for h in heads] == [
+        f"--- request {i} [length]" for i in range(2)]
+    for text in texts:
+        assert text in lines
+    assert lines[-1].startswith("[serve] ckpt step 2: 2 requests, 16 tokens")
 
 
 @pytest.mark.parametrize("kv_cache", ["policy", "int8"])
@@ -112,28 +134,6 @@ def test_the_two_clis_print_the_same_text(jax_ckpt_dir, capsys):
     assert generate.main(argv + ["--device", "cpu"]) == 0
     assert capsys.readouterr().out == want
     assert want.strip()
-
-
-def test_serve_ckpt_completes_every_prompt_as_generate(jax_ckpt_dir,
-                                                       capsys):
-    texts = []
-    for prompt in PROMPTS:
-        generate.main(["--ckpt_dir", jax_ckpt_dir, "--prompt", prompt,
-                       "--max_new_tokens", "8", "--temperature", "0",
-                       "--device", "cpu"])
-        texts.append(prompt + capsys.readouterr().out[:-1])
-    argv = ["--ckpt_dir", jax_ckpt_dir, "--max_new_tokens", "8",
-            "--device", "cpu", "--max_slots", "2"]
-    for prompt in PROMPTS:
-        argv += ["--prompt", prompt]
-    assert bench.main(argv) == 0
-    lines = capsys.readouterr().out.splitlines()
-    heads = [ln for ln in lines if ln.startswith("--- request")]
-    assert [h.split(" ttft")[0] for h in heads] == [
-        f"--- request {i} [length]" for i in range(2)]
-    for text in texts:
-        assert text in lines
-    assert lines[-1].startswith("[serve] ckpt step 2: 2 requests, 16 tokens")
 
 
 @pytest.mark.parametrize("argv", [["--ckpt_dir", None], []])

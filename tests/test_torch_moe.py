@@ -27,7 +27,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import _perturb
+from _torch_port import _perturb, jit_quick
 from ddp_practice_tpu.config import TrainConfig as JaxConfig
 from ddp_practice_tpu.models import create_model as jax_create_model
 from ddp_practice_tpu.ops import moe as jmoe
@@ -129,8 +129,9 @@ def _layer_pair(seed, x_shape, **kw):
     a nonzero router bias."""
     jm = jmoe.MoEMlp(num_experts=E, top_k=K, mlp_dim=F, expert_axis=None,
                      **kw)
-    variables = jax.device_get(jm.init(jax.random.PRNGKey(seed),
-                                       jnp.zeros(x_shape, jnp.float32)))
+    args = (jax.random.PRNGKey(seed), jnp.zeros(x_shape, jnp.float32))
+    # compiled, not run op by op: eagerly, init's forward took seconds
+    variables = jax.device_get(jit_quick(jm.init, *args)(*args))
     rng = np.random.default_rng(seed)
     params = {k: (np.asarray(v, np.float32)
                   + rng.normal(0, 0.05, np.shape(v)).astype(np.float32)
@@ -160,8 +161,9 @@ def _jax_layer_run(jm, variables, x, w):
         aux = mut["intermediates"]["moe_aux_loss"][0]
         return jnp.sum(y * w) + aux, (y, mut)
 
-    (_, (y, mut)), (gp, gx) = jax.jit(jax.value_and_grad(
-        loss, argnums=(0, 1), has_aux=True))(variables["params"], x)
+    args = (variables["params"], x)
+    (_, (y, mut)), (gp, gx) = jit_quick(jax.value_and_grad(
+        loss, argnums=(0, 1), has_aux=True), *args)(*args)
     return y, mut, gp, gx
 
 
@@ -384,7 +386,8 @@ def test_lm_moe_train_step_matches_jax(remat):
     tx = jax_optimizer(JaxConfig(**kw), 5)
     jstate = JaxState(step=jnp.zeros((), jnp.int32), params=params,
                       batch_stats=stats, opt_state=tx.init(params))
-    jstep = jax_lm_step(jm, tx, seed=1)
+    jstep = jit_quick(jax_lm_step(jm, tx, seed=1), jstate,
+                      {"tokens": jnp.asarray(_tokens(10), jnp.int32)})
     state = TrainState(step=0, model=tm, optimizer=make_optimizer(
         TrainConfig(**kw), tm, 5))
     step = make_lm_train_step(tm, seed=1)
@@ -424,8 +427,8 @@ def test_vit_tiny_moe_train_step_matches_jax():
                num_experts=E)
     image = (16, 16, 3)
     jm = jax_create_model("vit_tiny_moe", **cfg)
-    variables = jax.device_get(jax.jit(jm.init)(
-        jax.random.PRNGKey(2), jnp.zeros((1, *image), jnp.float32)))
+    init_args = (jax.random.PRNGKey(2), jnp.zeros((1, *image), jnp.float32))
+    variables = jax.device_get(jit_quick(jm.init, *init_args)(*init_args))
     rng = np.random.default_rng(2)
     params = _perturb(variables["params"], rng)
     stats = jax.tree.map(
@@ -441,8 +444,9 @@ def test_vit_tiny_moe_train_step_matches_jax():
                       opt_state=tx.init(params))
     images = rng.integers(0, 256, (4, *image)).astype(np.uint8)
     labels = rng.integers(0, 10, 4).astype(np.int32)
-    jstate, jmetrics = jax_image_step(jm, tx, seed=1)(
-        jstate, {"image": jnp.asarray(images), "label": jnp.asarray(labels)})
+    batch = {"image": jnp.asarray(images), "label": jnp.asarray(labels)}
+    jstate, jmetrics = jit_quick(jax_image_step(jm, tx, seed=1), jstate,
+                                 batch)(jstate, batch)
     state = TrainState(step=0, model=tm, optimizer=make_optimizer(
         TrainConfig(**kw), tm, 5))
     state, metrics = make_train_step(tm, seed=1)(state, {

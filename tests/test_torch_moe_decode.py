@@ -38,7 +38,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port import _perturb
+from _torch_port import _perturb, jit_quick
 from ddp_practice_tpu import checkpoint as jax_ckpt
 from ddp_practice_tpu import generate as jax_generate
 from ddp_practice_tpu.config import TrainConfig as JaxConfig
@@ -121,8 +121,8 @@ def _build(router="topk", seed=0, **kw):
     router biases N(0, 1)."""
     cfg = {**CFG, "moe_router": router, **kw}
     jm = jax_create_model("lm_moe", **cfg)
-    variables = jax.device_get(jax.jit(jm.init)(
-        jax.random.PRNGKey(seed), jnp.zeros((1, 8), jnp.int32)))
+    args = (jax.random.PRNGKey(seed), jnp.zeros((1, 8), jnp.int32))
+    variables = jax.device_get(jit_quick(jm.init, *args)(*args))
     rng = np.random.default_rng(seed)
     params = _perturb(variables["params"], rng)
     for blk in params.values():
@@ -324,9 +324,9 @@ def jax_moe_ckpt(tmp_path_factory):
     jm = jax_create_model("lm_moe", vocab_size=256, max_len=48,
                           pos_emb="rope")
     tx = jax_optimizer(JaxConfig(optimizer="adamw"), 4)
-    jstate = jax.jit(lambda r: jax_create_state(
-        jm, tx, rng=r, sample_input=jnp.zeros((1, 8), jnp.int32)))(
-        jax.random.PRNGKey(0))
+    key = jax.random.PRNGKey(0)
+    jstate = jit_quick(lambda r: jax_create_state(
+        jm, tx, rng=r, sample_input=jnp.zeros((1, 8), jnp.int32)), key)(key)
     rng = np.random.default_rng(0)
     stats = jax.tree.map(
         lambda v: jnp.asarray(rng.normal(0, 1.0, v.shape), jnp.float32),
@@ -488,8 +488,12 @@ def test_topk_chunked_prefill_matches_jax(topk):
     assert got == want
 
 
-@pytest.mark.parametrize("pair_name,impl", [("topk", "einsum"),
-                                            ("dropless", "sorted")])
+@pytest.mark.parametrize("pair_name,impl", [
+    ("topk", "einsum"),
+    # the reference's verify windows run its grouped matmul in interpret
+    # mode; beside the suite's other workers the case ran past the tier-1
+    # slow line
+    pytest.param("dropless", "sorted", marks=pytest.mark.slow)])
 def test_spec_decode_matches_jax(request, pair_name, impl):
     """Speculative decoding on lm_moe: the reference's engine's tokens and
     drafted/accepted counts. On the dropless sorted path a verify window

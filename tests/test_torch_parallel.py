@@ -23,6 +23,8 @@ a case, no new process):
   group is consecutive ranks), each rank's batch slice.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,7 +32,7 @@ import pytest
 import torch
 from jax.tree_util import keystr, tree_flatten_with_path
 
-from _torch_port import ranks
+from _torch_port import jit_quick, ranks
 from ddp_practice_tpu.config import MeshConfig as JaxMesh
 from ddp_practice_tpu.config import TrainConfig as JaxConfig
 from ddp_practice_tpu.inference import make_generate_fn as jax_generate_fn
@@ -175,17 +177,26 @@ def _assert_params(got, want_tree, **tol):
                                    err_msg=n, **tol)
 
 
-def _vit_reference(steps, batch):
-    from test_tensor_parallel import _setup
+@functools.lru_cache(maxsize=None)
+def _vit_reference_setup():
+    """The reference's replicated vit_tiny (host copy of its initial
+    state) and its train step, built and compiled once per module."""
+    from test_tensor_parallel import _batch, _setup
 
     _, state, step, bsh = _setup(JaxMesh(data=1), devices=jax.devices()[:1])
-    params0 = jax.device_get(state.params)     # the step donates its state
+    b = {k: jax.device_put(v, bsh) for k, v in _batch(8).items()}
+    return jax.device_get(state), jit_quick(step, state, b), bsh
+
+
+def _vit_reference(steps, batch):
+    host_state, step, bsh = _vit_reference_setup()
+    state = jax.tree.map(jnp.asarray, host_state)
     b = {k: jax.device_put(v, bsh) for k, v in batch.items()}
     losses = []
     for _ in range(steps):
         state, m = step(state, b)
         losses.append(float(m["loss"]))
-    return params0, state.params, losses
+    return host_state.params, state.params, losses
 
 
 def test_tp_matches_replicated():

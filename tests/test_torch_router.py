@@ -483,9 +483,7 @@ def test_fleet_flags_without_their_partner_are_refused(argv, message):
         bench.main(argv + ["--device", "cpu"])
 
 
-LATER = [("--cache-aware", None, "A6c-2"), ("--autoscale", None, "A6c-2"),
-         ("--autoscale-max", "3", "A6c-2"), ("--standby", "1", "A6c-2"),
-         ("--metrics-port", "0", "A6d"),
+LATER = [("--metrics-port", "0", "A6d"),
          ("--telemetry-out", "t.jsonl", "A6d"), ("--scrape-hz", "5", "A6d"),
          ("--otlp-out", "o.json", "A6d"),
          ("--otlp-endpoint", "http://localhost:1/v1/traces", "A6d"),
@@ -525,6 +523,19 @@ PORTED = [
      dict(procs=2, n_requests=32, device="cpu")),
     (["--procs", "2", "--streaming", "--fault-plan", KILL, "--requests",
       "9"], "streaming_bench", dict(n_requests=9, fault_plan=KILL)),
+    # the elastic fleet (ROADMAP A6c-2)
+    (["--procs", "2", "--cache-aware"], "cache_routing_bench",
+     dict(procs=2, n_requests=32, block_size=16, device="cpu", hidden=128,
+          model_name="lm_tiny", precision="fp32")),
+    (["--procs", "3", "--autoscale"], "fleet_autoscale_bench",
+     dict(procs=3, autoscale_max=3, standby=1, device="cpu", hidden=128,
+          model_name="lm_tiny", precision="fp32")),
+    (["--autoscale-max", "4", "--procs", "3", "--autoscale"],
+     "fleet_autoscale_bench", dict(autoscale_max=4, procs=3, standby=1)),
+    (["--standby", "2", "--procs", "2", "--autoscale", "--rate", "50",
+      "--model", "lm_base"], "fleet_autoscale_bench",
+     dict(standby=2, procs=2, rate_hz=50.0, model_name="lm_base",
+          vocab=256, hidden=None)),
 ]
 
 
@@ -532,9 +543,9 @@ PORTED = [
                          ids=[" ".join(a[:3]) for a, _, _ in PORTED])
 def test_ported_fleet_flags_reach_their_bench(argv, bench_name, want,
                                               monkeypatch, capsys):
-    """Each flag of the front door, QoS and fleet benches reaches its
-    bench with the parsed arguments (the bench itself is recorded, not
-    run: nothing is spawned)."""
+    """Each flag of the front door, QoS, fleet, cache-routing and
+    autoscale benches reaches its bench with the parsed arguments (the
+    bench itself is recorded, not run: nothing is spawned)."""
     from ddp_practice_tpu_torch.serve import bench
 
     calls = []
@@ -544,7 +555,8 @@ def test_ported_fleet_flags_reach_their_bench(argv, bench_name, want,
         return {"recorded": True}
 
     for name in ("frontdoor_bench", "qos_bench", "fleet_bench",
-                 "streaming_bench"):
+                 "streaming_bench", "cache_routing_bench",
+                 "fleet_autoscale_bench"):
         monkeypatch.setattr(bench, name, record if name == bench_name
                             else None)
     assert bench.main(argv + ["--device", "cpu", "--json"]) == 0

@@ -377,15 +377,38 @@ def _dp_worker(rank, world, init_file, out_dir):
         dist.shutdown()
 
 
-@pytest.mark.net
-def test_two_gloo_ranks_take_the_single_process_step(tmp_path):
+GLOO_CASE = "test_two_gloo_ranks_take_the_single_process_step"
+
+
+def _forkserver_context():
     # a fork server (a fresh single-threaded interpreter, so forking from
     # it is safe) imports torch and the port once and forks both ranks;
-    # two spawned interpreters would each import them. The single-process
-    # steps run here meanwhile
+    # two spawned interpreters would each import them
     ctx = multiprocessing.get_context("forkserver")
     ctx.set_forkserver_preload(["torch._dynamo",
                                 "ddp_practice_tpu_torch.train.loop"])
+    return ctx
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _warm_forkserver(request):
+    """Start the gloo case's fork server at the module's first case when
+    that case is collected: its imports (torch and its compiler stack,
+    seconds) run in its own process while the cases before it run here,
+    and the gloo case forks its ranks from a warm server."""
+    if any(item.name == GLOO_CASE for item in request.session.items):
+        import multiprocessing.forkserver
+
+        _forkserver_context()
+        multiprocessing.forkserver.ensure_running()
+    yield
+
+
+@pytest.mark.net
+def test_two_gloo_ranks_take_the_single_process_step(tmp_path):
+    # the ranks fork from the (warm) fork server; the single-process
+    # steps run here meanwhile
+    ctx = _forkserver_context()
     procs = [ctx.Process(target=_dp_worker,
                          args=(r, 2, str(tmp_path / "rdv"), str(tmp_path)))
              for r in range(2)]
